@@ -1,0 +1,694 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (karpenter_tpu_torch).
+
+Runs the port's main path on one NVIDIA GPU and checks it:
+
+1. prints the card's name and power limit, builds the CUDA kernels from
+   karpenter_tpu_torch/csrc with nvcc (sm_90a) and times the build;
+2. holds each kernel (K1 ffd_fast_scan, K2 compact_takes, K3 claim_meta)
+   against its plain PyTorch version on the card, at the shapes of the
+   50k-pod solve's own kernel arguments: exact equality (all outputs are
+   integers), with a synchronize after each launch;
+3. solves the 50k-pod × ~730-type surge with and without 200 existing
+   nodes through TorchSolver() REPEATS times each, with the launch counts
+   reset just before and read just after; every kernel must have launched,
+   and the decisions must equal the plain-version path's; each solve's
+   garbage-collection pauses are recorded beside its time;
+4. forces the wide re-fetch (a tiny delta capacity) and checks the
+   decisions do not change.
+
+Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
+The last line of stdout is {"ok": true, "device": {...}}; any failure
+raises and exits non-zero. Without CUDA, or without the package beside
+it, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import gc
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+PODS = 50_000  # the headline surge
+NODES = 200  # existing nodes of the e2e cell
+REPEATS = 100  # timed solves per cell: enough samples for a p99
+
+# H100 SXM published HBM3 bandwidth (NVIDIA data sheet). The integer-op
+# ceiling is the card's int32 issue rate, 64 lanes per SM per clock (not
+# FMA-doubled), computed from the SM count and the max SM clock it reports.
+PEAK_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+
+
+def build_input(num_pods: int = 50_000):
+    """The headline pending-pod surge: ~40 deployments of 1250 identical
+    pods over 14 sizes and a few selectors, two pools over the full catalog
+    (a copy of bench.py's build_input against the port's classes)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.catalog.catalog import generate
+    from karpenter_tpu_torch.provisioning.scheduler import NodePoolSpec, SolverInput
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    catalog = generate()
+    pools = [
+        NodePoolSpec(
+            name="general",
+            weight=10,
+            requirements=Requirements.of(
+                Requirement.create(wk.NODEPOOL_LABEL, IN, ["general"])
+            ),
+            taints=[],
+            instance_types=catalog,
+        ),
+        NodePoolSpec(
+            name="spot",
+            weight=50,
+            requirements=Requirements.of(
+                Requirement.create(wk.NODEPOOL_LABEL, IN, ["spot"]),
+                Requirement.create(wk.CAPACITY_TYPE_LABEL, IN, ["spot"]),
+            ),
+            taints=[],
+            instance_types=catalog,
+        ),
+    ]
+    sizes = [
+        ("100m", "128Mi"), ("250m", "256Mi"), ("250m", "512Mi"), ("500m", "512Mi"),
+        ("500m", "1Gi"), ("1", "1Gi"), ("1", "2Gi"), ("2", "2Gi"), ("2", "4Gi"),
+        ("4", "8Gi"), ("500m", "2Gi"), ("1500m", "3Gi"), ("3", "6Gi"), ("8", "16Gi"),
+    ]
+    selectors = [
+        {},
+        {},
+        {},
+        {wk.ARCH_LABEL: "arm64"},
+        {},
+        {wk.CAPACITY_TYPE_LABEL: "on-demand"},
+        {},
+        {wk.ZONE_LABEL: "zone-1b"},
+    ]
+    pods = []
+    spec_id = 0
+    for i in range(num_pods):
+        spec = spec_id % (len(sizes) * 3)
+        cpu, mem = sizes[spec % len(sizes)]
+        sel = selectors[spec % len(selectors)]
+        pods.append(
+            Pod(
+                meta=ObjectMeta(name=f"p{i:06d}", uid=f"p{i:06d}"),
+                requests=Resources.parse({"cpu": cpu, "memory": mem}),
+                node_selector=dict(sel),
+            )
+        )
+        if i % 1250 == 1249:
+            spec_id += 1
+    return SolverInput(
+        pods=pods, nodes=[], nodepools=pools, zones=("zone-1a", "zone-1b", "zone-1c")
+    )
+
+
+def build_e2e_input(num_pods: int = 50_000, num_nodes: int = 200):
+    """The same surge plus existing capacity (the existing-node pour path)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    inp = build_input(num_pods)
+    nodes = []
+    for j in range(num_nodes):
+        free = Resources.parse({"cpu": "8", "memory": "32Gi"})
+        free["pods"] = 110
+        nodes.append(
+            ExistingNode(
+                id=f"node-{j:04d}",
+                labels={
+                    wk.ZONE_LABEL: f"zone-1{'abc'[j % 3]}",
+                    wk.CAPACITY_TYPE_LABEL: "on-demand",
+                    wk.HOSTNAME_LABEL: f"node-{j:04d}",
+                    wk.ARCH_LABEL: "amd64",
+                    wk.OS_LABEL: "linux",
+                },
+                taints=[],
+                free=free,
+            )
+        )
+    inp.nodes = nodes
+    return inp
+
+
+def build_constrained_input(seed: int):
+    """A small randomized fleet that reaches the scan paths the surge does
+    not: hostname spread (Q kind 0), hostname anti-affinity (kind 1),
+    positive hostname affinity with and without the bootstrap (kind 2),
+    existing nodes holding member pods, weighted pools with limits, a
+    tainted pool, selectors."""
+    import random
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import (
+        ObjectMeta, Pod, PodAffinityTerm, Taint, Toleration, TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.catalog.catalog import generate
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode, NodePoolSpec, SolverInput
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    rng = random.Random(seed)
+    host = wk.HOSTNAME_LABEL
+    taint = Taint(key="gpu", value="true", effect=wk.EFFECT_NO_SCHEDULE)
+    pods = []
+
+    def add(n, cpu, mem, labels=None, **kw):
+        for _ in range(n):
+            name = f"s{seed}-{len(pods):03d}"
+            pods.append(Pod(meta=ObjectMeta(name=name, uid=name, labels=dict(labels or {})),
+                            requests=Resources.parse({"cpu": cpu, "memory": mem}), **kw))
+
+    add(rng.randint(3, 9), "200m", "256Mi", {"app": "web"}, topology_spread=[
+        TopologySpreadConstraint(max_skew=rng.choice([1, 2]), topology_key=host,
+                                 label_selector={"app": "web"})])
+    add(rng.randint(2, 5), "250m", "512Mi", {"app": "db"},
+        affinity_terms=[PodAffinityTerm(label_selector={"app": "db"}, topology_key=host, anti=True)])
+    add(rng.randint(2, 7), "400m", "256Mi", {"app": "cache"},
+        affinity_terms=[PodAffinityTerm(label_selector={"app": "cache"}, topology_key=host)])
+    for _ in range(rng.randint(3, 8)):
+        kw = {}
+        if rng.random() < 0.3:
+            kw["node_selector"] = {wk.ARCH_LABEL: rng.choice(["amd64", "arm64"])}
+        elif rng.random() < 0.3:
+            kw["tolerations"] = [Toleration(key="gpu", value="true", effect=wk.EFFECT_NO_SCHEDULE)]
+        add(rng.randint(1, 6), f"{rng.choice([100, 500, 1000, 3000])}m",
+            f"{rng.choice([128, 1024, 4096])}Mi", **kw)
+    nodes = []
+    for j in range(rng.randint(0, 4)):
+        free = Resources.parse({"cpu": str(rng.choice([1, 2, 4])), "memory": "16Gi"})
+        free["pods"] = 20
+        nodes.append(ExistingNode(
+            id=f"n{j}", labels={wk.ZONE_LABEL: "zone-1a", wk.CAPACITY_TYPE_LABEL: "on-demand",
+                                host: f"n{j}", wk.ARCH_LABEL: "amd64", wk.OS_LABEL: "linux"},
+            taints=[], free=free,
+            pod_labels=[{"app": rng.choice(["web", "cache", "other"])}]))
+    catalog = generate()
+
+    def pool(name, weight, *reqs, taints=(), limits=None):
+        return NodePoolSpec(
+            name=name, weight=weight,
+            requirements=Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, [name]), *reqs),
+            taints=list(taints), instance_types=catalog,
+            limits=Resources.parse(limits or {}))
+
+    pools = [
+        pool("small", 5, Requirement.create(wk.INSTANCE_TYPE_LABEL, IN, ["m5.large", "m5.xlarge"]),
+             limits={"cpu": str(rng.choice([4, 8, 16]))}),
+        pool("any", 1),
+        pool("tainted", 9, taints=[taint]),
+    ]
+    return SolverInput(pods=pods, nodes=nodes, nodepools=pools,
+                       zones=("zone-1a", "zone-1b", "zone-1c"))
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """Peak int32 ops/s: 64 lanes × SMs × the card's max SM clock."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
+
+
+def time_ms(fn, n: int) -> float:
+    """Mean ms per call over n calls, CUDA events around the whole run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def max_abs_err(a, b) -> int:
+    """Max |a - b| over matching tensors (bools as 0/1); shapes must agree."""
+    import torch
+
+    worst = 0
+    for x, y in zip(a, b):
+        assert tuple(x.shape) == tuple(y.shape), (x.shape, y.shape)
+        if x.numel():
+            d = (x.to(torch.int64) - y.to(torch.int64)).abs().max().item()
+            worst = max(worst, int(d))
+    return worst
+
+
+def nbytes(*ts) -> int:
+    return int(sum(t.numel() * t.element_size() for t in ts))
+
+
+def bound(bytes_moved: int, ops: int, ops_per_s: float):
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_phase(inp, dev):
+    """K1-K3 against their plain versions at the shapes of `inp`'s solve."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    enc = encode(quantize_input(inp))
+    host_args, dims, _ = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+    args = args_to_torch(host_args, dev)
+    total = int(sum(len(p) for p in enc.group_pods))
+    M = tb.initial_claim_bucket(total, 1024)
+    out = ffd.ffd_solve(*args, max_claims=M)
+    torch.cuda.synchronize()
+    if int(out.state.used) >= M:  # the main path doubles on saturation
+        M = min(2 * M, 1024)
+        out = ffd.ffd_solve(*args, max_claims=M)
+        torch.cuda.synchronize()
+    plain = ffd.ffd_solve_plain(*args, max_claims=M)
+    torch.cuda.synchronize()
+    k1 = [out.take_e, out.take_c, out.leftover, *out.state]
+    p1 = [plain.take_e, plain.take_c, plain.leftover, *plain.state]
+    err1 = max_abs_err(k1, p1)
+    assert err1 == 0, f"ffd_fast_scan disagrees with its plain version (max |d| {err1})"
+
+    Sp, Ep = out.take_e.shape
+    cap = tb.delta_capacity(total, Sp, Ep, M)
+    cap_u = tb.delta_uniq_capacity(Sp, M)
+    k2 = ffd.compact_takes(out.take_e, out.take_c, cap)
+    torch.cuda.synchronize()
+    p2 = ffd.compact_takes_plain(out.take_e, out.take_c, cap)
+    err2 = max_abs_err(k2, p2)
+    assert err2 == 0, f"compact_takes disagrees with its plain version (max |d| {err2})"
+    st = out.state
+    k3 = ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
+    torch.cuda.synchronize()
+    p3 = ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
+    err3 = max_abs_err(k3, p3)
+    assert err3 == 0, f"claim_meta disagrees with its plain version (max |d| {err3})"
+    return dict(enc=enc, args=args, out=out, M=M, cap=cap, cap_u=cap_u, dims=dims,
+                errs=(err1, err2, err3), n_entries=int(k2[1]), n_uniq=int(k3[1]))
+
+
+def profiled_us(fn, n: int, names) -> float:
+    """Device time per call (µs) of the named kernels, from torch.profiler
+    over n calls; 0.0 when the profiler records no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and any(k in e.name for k in names))
+    return total / n
+
+
+def kernel_rows(ph, launches, ops_per_s):
+    """The {"kernels": [...]} rows: times, bounds and yardsticks measured
+    at the headline solve's shapes."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args, out, M, cap, cap_u = ph["args"], ph["out"], ph["M"], ph["cap"], ph["cap_u"]
+    st = out.state
+    Sp, Ep = out.take_e.shape
+    T = st.c_mask.shape[1]
+    P = args[ffd.ARG_INDEX["pool_type"]].shape[0]
+    R = st.c_cum.shape[1]
+    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
+
+    # K1: inputs read once + outputs written once; integer ops of the data:
+    # per run, (sub, floor-div, min) per resource over every node row, every
+    # claim open before the run × type, and every pool × type. A floor-div
+    # counts as one op though it issues several, so the bound stays a floor.
+    tc = out.take_c.cpu()
+    used = int(st.used)
+    first_run = (tc[:, :used] > 0).to(torch.int32).argmax(dim=0)
+    ops1 = 0
+    for s in range(Sp):
+        if int(args[1][s]) <= 0:
+            continue
+        before = int((first_run < s).sum())
+        ops1 += (Ep + before * T + P * T) * R * 3
+    bytes1 = nbytes(*[a for a in args[:24]]) + nbytes(
+        out.take_e, out.take_c, out.leftover, *st
+    )
+    ms1 = time_ms(lambda: ffd.ffd_solve(*args, max_claims=M), 10)
+    plain1 = time_ms(lambda: ffd.ffd_solve_plain(*args, max_claims=M), 2)
+    b1, by1 = bound(bytes1, ops1, ops_per_s)
+
+    k2 = ffd.compact_takes(out.take_e, out.take_c, cap)
+    bytes2 = nbytes(out.take_e, out.take_c) + nbytes(*k2)
+    ops2 = Sp * (Ep + M)
+    ms2 = time_ms(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 50)
+    plain2 = time_ms(lambda: ffd.compact_takes_plain(out.take_e, out.take_c, cap), 10)
+
+    def library2():
+        grid = torch.cat([out.take_e, out.take_c], dim=1)
+        idx = torch.nonzero(grid > 0)
+        return grid[idx[:, 0], idx[:, 1]]
+
+    lib2 = time_ms(library2, 50)
+    b2, by2 = bound(bytes2, ops2, ops_per_s)
+
+    k3 = ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
+    Wt = k3[4].shape[1]
+    bytes3 = nbytes(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool) + nbytes(*k3[:4])
+    ops3 = M * T + M * (M - 1) // 2 * Wt
+    ms3 = time_ms(
+        lambda: ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u), 50
+    )
+    plain3 = time_ms(
+        lambda: ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u),
+        10,
+    )
+    b3, by3 = bound(bytes3, ops3, ops_per_s)
+    dev1 = profiled_us(lambda: ffd.ffd_solve(*args, max_claims=M), 3, KERNEL_NAMES[:1]) / 1e3
+    dev2 = profiled_us(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 20,
+                       KERNEL_NAMES[1:2]) / 1e3
+    dev3 = profiled_us(
+        lambda: ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u),
+        20, KERNEL_NAMES[2:]) / 1e3
+    e1, e2, e3 = ph["errs"]
+    return [
+        dict(name="ffd_fast_scan", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/ffd.py:1884", launches=launches["ffd_fast_scan"],
+             max_abs_err=e1, ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
+             library_ms=None, match=e1 == 0, device_ms=dev1, shape=dict(Sp=Sp, Ep=Ep, M=M, T=T, P=P, R=R),
+             ops=ops1, bytes=bytes1),
+        dict(name="compact_takes", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/ffd.py:325", launches=launches["compact_takes"],
+             max_abs_err=e2, ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
+             library_ms=lib2, match=e2 == 0, device_ms=dev2, shape=dict(Sp=Sp, K=Ep + M, cap=cap),
+             ops=ops2, bytes=bytes2),
+        dict(name="claim_meta", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/ffd.py:358", launches=launches["claim_meta"],
+             max_abs_err=e3, ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
+             library_ms=None, match=e3 == 0, device_ms=dev3, shape=dict(M=M, T=T, Wt=Wt, cap_u=cap_u),
+             ops=ops3, bytes=bytes3),
+    ]
+
+
+def decisions(res):
+    """A SolverResult as plain comparable data."""
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    claims = []
+    for c in res.claims:
+        doms = []
+        for key in (wk.ZONE_LABEL, wk.CAPACITY_TYPE_LABEL):
+            r = c.requirements.get(key)
+            doms.append(sorted(r.values_list()) if r is not None and not r.complement else None)
+        claims.append((c.nodepool, sorted(c.instance_type_names), list(c.pod_uids),
+                       doms, sorted(c.requests.items())))
+    return dict(placements=dict(res.placements), claims=claims, errors=sorted(res.errors))
+
+
+def breakdown(inp, repeats: int) -> dict:
+    """Median ms of the solve's stages, run one after another as the solver
+    runs them: host encode, host kernel-arg padding, upload, the device
+    work (scan + compaction, CUDA events), the one fetch, and the host
+    decode and bookkeeping (rest_ms: a full solve minus the stages)."""
+    import statistics
+
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    from karpenter_tpu_torch.solver import relax
+
+    names = ("quantize", "relax_plan", "encode", "kernel_args", "upload", "device", "fetch", "solve")
+    stages = {k: [] for k in names}
+    solver = tb.TorchSolver()
+    for _ in range(repeats):
+        ta = time.perf_counter()
+        qinp = quantize_input(inp)
+        tb_ = time.perf_counter()
+        relax.plan(qinp)
+        t0 = time.perf_counter()
+        enc = encode(qinp)
+        t1 = time.perf_counter()
+        host_args, _, _ = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+        t2 = time.perf_counter()
+        args = args_to_torch(host_args, "cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        total = int(sum(len(p) for p in enc.group_pods))
+        M = tb.initial_claim_bucket(total, 1024)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ffd.ffd_solve(*args, max_claims=M)
+        Sp, Ep = out.take_e.shape
+        flat = tb._pack_outputs_delta(out, tb.delta_capacity(total, Sp, Ep, M),
+                                      tb.delta_uniq_capacity(Sp, M))
+        end.record()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        flat.cpu()
+        t5 = time.perf_counter()
+        solver.solve(inp)
+        t6 = time.perf_counter()
+        for k, v in zip(names, ((tb_ - ta) * 1e3, (t0 - tb_) * 1e3, (t1 - t0) * 1e3,
+                                (t2 - t1) * 1e3, (t3 - t2) * 1e3, start.elapsed_time(end),
+                                (t5 - t4) * 1e3, (t6 - t5) * 1e3)):
+            stages[k].append(v)
+    med = {f"{k}_ms": statistics.median(v) for k, v in stages.items()}
+    med["rest_ms"] = med["solve_ms"] - sum(med[f"{k}_ms"] for k in names[:-1])
+    return med
+
+
+KERNEL_NAMES = ("ffd_fast_scan_kernel", "compact_takes_kernel", "meta_pack_kernel",
+                "meta_first_kernel", "meta_finish_kernel")
+
+
+def device_profile(inp) -> dict:
+    """One warm TorchSolver solve under torch.profiler: device time by
+    kernel and the device's busy share of the solve's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch.solver import backend as tb
+
+    solver = tb.TorchSolver()
+    solver.solve(inp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve(inp)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = next((k for k in KERNEL_NAMES if k in e.name), "other: " + e.name[:40])
+        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
+    if not by:
+        return {"device_profile": "not measured (the profiler recorded no device events)"}
+    busy = sum(by.values())
+    return dict(wall_us=wall_us, device_busy_us=busy, idle_share=1 - busy / wall_us,
+                by_kernel_us=by)
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q / 100 * (len(xs) - 1))))]
+
+
+class GcWatch:
+    """Garbage-collection pauses inside a window, from gc.callbacks: their
+    total ms and the number of collections per generation."""
+
+    def __init__(self):
+        self._t0 = 0.0
+        self.reset()
+        gc.callbacks.append(self._cb)
+
+    def reset(self):
+        self.ms = 0.0
+        self.collections = [0, 0, 0]
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self.collections[info["generation"]] += 1
+
+    def close(self):
+        gc.callbacks.remove(self._cb)
+
+
+def tail(samples) -> dict:
+    """p50/p99/max of (solve ms, gc ms, collections) samples, and the slowest
+    solve's own garbage-collection pause."""
+    ms = [m for m, _, _ in samples]
+    slow = max(samples, key=lambda x: x[0])
+    return dict(n=len(ms), p50_ms=pct(ms, 50), p99_ms=pct(ms, 99), max_ms=slow[0],
+                min_ms=min(ms), slowest_gc_ms=slow[1], slowest_gc_collections=slow[2],
+                gc_ms_total=sum(g for _, g, _ in samples),
+                solves_with_gen2_gc=sum(1 for _, _, c in samples if c[2]))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda import build, ffd
+
+    torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
+    dev = torch.device("cuda")
+    card = gpu_line()
+    print(card, flush=True)
+
+    # ---- phase 1: build --------------------------------------------------------
+    t0 = time.perf_counter()
+    build.build()
+    ffd_lib = build.load()
+    build_s = time.perf_counter() - t0
+    assert ffd_lib is not None
+    for line in build.BUILD_LOG["ptxas"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"ptxas: {line.strip()}")
+    print(f"build: {build_s:.3f} s ({build.BUILD_LOG['library']})", flush=True)
+
+    # ---- phase 2: kernels vs plain versions at main-path shapes -------------------
+    inputs = {
+        "surge": build_input(PODS),
+        "surge_e2e": build_e2e_input(PODS, NODES),
+    }
+    phases = {}
+    for name, inp in inputs.items():
+        phases[name] = kernel_phase(inp, dev)
+        ph = phases[name]
+        print(f"kernels[{name}]: M={ph['M']} entries={ph['n_entries']} "
+              f"uniq={ph['n_uniq']} max_abs_err={ph['errs']}", flush=True)
+
+    # the scan's hostname, limit, taint and node paths, which the surge never
+    # reaches, at small shapes
+    for seed in range(8):
+        ph = kernel_phase(build_constrained_input(seed), dev)
+        assert ph["dims"]["Qp"] >= 8 and sum(ph["errs"]) == 0
+    print("kernels[constrained x8]: max_abs_err=(0, 0, 0)", flush=True)
+
+    # ---- phase 3: the main path through TorchSolver ---------------------------------
+    TorchSolver = tb.TorchSolver
+    solver = TorchSolver()
+    cold = {}
+    for name, inp in inputs.items():  # warm: allocator, encode caches, static uploads
+        solver.solve(inp)
+        cold[name] = dict(solver.transfer.__dict__)
+    for k in ffd.LAUNCHES:
+        ffd.LAUNCHES[k] = 0
+    samples = {name: [] for name in inputs}
+    results = {}
+    transfer = {}
+    watch = GcWatch()
+    for _ in range(REPEATS):
+        for name, inp in inputs.items():
+            watch.reset()
+            t0 = time.perf_counter()
+            res = solver.solve(inp)
+            samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
+                                  list(watch.collections)))
+            results[name] = res
+            transfer[name] = dict(solver.transfer.__dict__)
+    watch.close()
+    launches = dict(ffd.LAUNCHES)
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} never launched on the main path"
+    plain = TorchSolver(device="cpu")
+    for name, inp in inputs.items():
+        ref = plain.solve(inp)
+        assert decisions(results[name]) == decisions(ref), f"{name}: decisions differ from the plain path"
+        res = results[name]
+        assert len(res.placements) + len(res.errors) == PODS, name
+        assert all(c.pod_uids for c in res.claims), name
+
+    # ---- phase 4: forced wide re-fetch ---------------------------------------------
+    real_cap = tb.delta_capacity
+    tb.delta_capacity = lambda *a: 16
+    try:
+        wide = TorchSolver()
+        res_w = wide.solve(inputs["surge_e2e"])
+    finally:
+        tb.delta_capacity = real_cap
+    assert wide.stats["wide_refetches"] >= 1, wide.stats
+    assert decisions(res_w) == decisions(results["surge_e2e"]), "wide re-fetch changed decisions"
+
+    stages = {name: breakdown(inp, 5) for name, inp in inputs.items()}
+    profiles = {name: device_profile(inp) for name, inp in inputs.items()}
+    int_rate = int32_ops_per_s()
+    rows = kernel_rows(phases["surge"], launches, int_rate)
+    print(json.dumps({"kernels": rows}))
+    solve_line = {
+        "solve": {
+            name: dict(
+                pods=PODS, nodes=len(inputs[name].nodes), **tail(samples[name]),
+                claims=len(results[name].claims),
+                unplaced=len(results[name].errors), steady=transfer[name],
+                cold=cold[name], stages=stages[name], profile=profiles[name],
+            )
+            for name in inputs
+        },
+        "launches_per_solve": {k: v / (REPEATS * len(inputs)) for k, v in launches.items()},
+        "claim_doublings": solver.stats["claim_doublings"],
+        "wide_refetch_ok": True,
+        "build_s": build_s,
+        "int32_peak_ops_per_s": int_rate,
+        "card": card,
+    }
+    print(json.dumps(solve_line))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,801 @@
+"""The solver seam and the GPU backend: the port of
+karpenter_tpu/solver/backend.py for the provisioning solve.
+
+`TorchSolver` is the counterpart of `TPUSolver(arena=False)` with sparse
+constraint tables off, explain off, no mesh sharding, no cohort fusion and
+no resume: encode -> padded kernel args -> upload -> fast-branch FFD scan
+(solver/cuda/ffd.py) -> on-device delta compaction -> ONE fetch -> decode.
+
+Inputs outside this slice raise `UnsupportedInput`; there is no CPU
+fallback solver. A later slice lifts one decline at a time.
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..api import wellknown as wk
+from ..provisioning.scheduler import ClaimResult, SolverInput, SolverResult
+from ..scheduling.requirements import IN, Requirement, Requirements
+from ..utils.resources import Resources
+from .encode import EncodedInput, UnpackableInput, encode, quantize_input
+
+
+class Solver(abc.ABC):
+    @abc.abstractmethod
+    def solve(self, inp: SolverInput) -> SolverResult:
+        ...
+
+
+class UnsupportedInput(ValueError):
+    """The input needs a part of the solver this port does not have yet
+    (relax ladder, zone engine, fallback groups, minValues replay, claim
+    overflow, ...). Raised instead of solving on the CPU."""
+
+
+def pack_bits32(rows: np.ndarray) -> np.ndarray:
+    """Pack a trailing bool axis (≤32 bits) into one uint32 per row."""
+    nb = rows.shape[-1]
+    if nb > 32:
+        raise ValueError(f"cannot pack {nb} bits into uint32")
+    pw = (np.uint64(1) << np.arange(nb, dtype=np.uint64)).astype(np.uint64)
+    return (rows.astype(np.uint64) * pw).sum(axis=-1).astype(np.uint32)
+
+
+def pack_words(rows: np.ndarray, width: int) -> np.ndarray:
+    """Pack a trailing bool axis into ceil(width/32) uint32 words per row."""
+    W = (width + 31) // 32
+    out = np.zeros(rows.shape[:-1] + (W,), dtype=np.uint32)
+    for w in range(W):
+        chunk = rows[..., w * 32 : min((w + 1) * 32, rows.shape[-1])]
+        if chunk.shape[-1]:
+            out[..., w] = pack_bits32(chunk)
+    return out
+
+
+def unpack_zc_bits(bits: np.ndarray, Z: int, C: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Recover per-row zone/ct masks from packed joint (z*C+c) bits. Joint
+    sets are always PRODUCTS (zones × cts) — intersections of products stay
+    products — so the marginals reconstruct the state exactly."""
+    joint = ((bits[:, None] >> np.arange(Z * C, dtype=np.uint32)[None, :]) & 1).astype(bool)
+    joint = joint.reshape(-1, Z, C)
+    return joint.any(axis=2), joint.any(axis=1)
+
+
+# Padded HOST-side core kernel args cached across solves, keyed on the
+# encode's core revision (see the JAX backend).
+_CORE_HOST_CACHE: dict = {}
+_CORE_HOST_CACHE_MAX = 4
+
+STATIC_CORE_NAMES = frozenset({
+    "group_req", "group_compat_t", "group_zc_bits", "group_pool",
+    "group_pair_nok", "group_device", "type_alloc", "type_charge",
+    "offer_zc_bits", "pool_type", "pool_zc_bits", "pool_daemon",
+    "q_member", "q_owner", "q_kind", "q_cap", "v_member", "v_owner",
+    "v_kind", "v_cap", "v_primary", "v_aff", "zone_col_mask", "col_axis",
+    "group_daxis",
+})
+PER_SOLVE_NAMES = frozenset({
+    "run_group", "run_count", "pool_limit", "pool_usage0", "node_free",
+    "node_compat", "node_q_member", "node_q_owner", "v_count0", "node_zone",
+    "node_dom2",
+})
+
+
+def host_kernel_args(enc: EncodedInput, bucket) -> Tuple[tuple, dict, tuple]:
+    """Padded HOST (numpy) positional arrays for cuda.ffd.ffd_solve (order =
+    ffd.ARG_SPEC), their dims, and per-entry provenance tokens. Shapes
+    bucket to bounded sizes; zone × capacity-type admission and offering
+    availability pack into uint32 bit masks; raises UnpackableInput when
+    Z*C > 32."""
+    INT32_MAX_NP = np.int32(2**31 - 1)
+    S, G, T, E, P = len(enc.run_group), enc.G, enc.T, enc.E, enc.P
+    R, Z, C = enc.group_req.shape[1], len(enc.zones), len(enc.capacity_types)
+    if Z * C > 32:
+        raise UnpackableInput(f"Z*C = {Z * C} exceeds the 32-bit joint-offering packing")
+    Sp, Gp, Tp, Ep, Pp = (
+        bucket(S, 16, 16),
+        bucket(G, 16, 16),
+        bucket(T, 128, 128),
+        bucket(E, 32, 8),
+        bucket(P, 4, 4),
+    )
+    Qp = bucket(enc.Q, 8, 8)
+    Vp = bucket(enc.V, 4, 4)
+    W = (Gp + 31) // 32
+
+    def pad(a, shape, fill=0):
+        out = np.full(shape, fill, dtype=a.dtype)
+        out[tuple(slice(0, s) for s in a.shape)] = a
+        return out
+
+    D = len(enc.v_domains) if enc.v_domains is not None else Z
+    core_rev = getattr(enc, "core_rev", -1)
+    skey = (
+        (core_rev, R, Z, C, Gp, Tp, Pp, Qp, Vp, D, enc.v_axis)
+        if core_rev >= 0
+        else None
+    )
+    core_args = _CORE_HOST_CACHE.get(skey) if skey is not None else None
+    if core_args is None:
+        zone_col = np.zeros(D, dtype=np.uint32)
+        col_axis = np.zeros(D, dtype=np.int32)
+        if enc.v_axis == "ct":
+            lex = enc.v_domain_perm
+            for d, c in enumerate(lex):
+                for z in range(Z):
+                    zone_col[d] |= np.uint32(1) << np.uint32(z * C + c)
+        elif enc.v_axis == "mixed":
+            for z in range(Z):
+                for c in range(C):
+                    zone_col[z] |= np.uint32(1) << np.uint32(z * C + c)
+            ct_lex_idx = sorted(range(C), key=lambda i: enc.capacity_types[i])
+            for d, c in enumerate(ct_lex_idx):
+                col_axis[Z + d] = 1
+                for z in range(Z):
+                    zone_col[Z + d] |= np.uint32(1) << np.uint32(z * C + c)
+        else:
+            for z in range(Z):
+                for c in range(C):
+                    zone_col[z] |= np.uint32(1) << np.uint32(z * C + c)
+        type_charge = np.where(
+            enc.charge_axes[None, :], enc.type_capacity, 0
+        ).astype(np.int32)
+        group_zc = pack_bits32(
+            (enc.group_zone[:, :, None] & enc.group_ct[:, None, :]).reshape(G, Z * C)
+        )
+        pool_zc = pack_bits32(
+            (enc.pool_zone[:, :, None] & enc.pool_ct[:, None, :]).reshape(P, Z * C)
+        )
+        offer_zc = pack_bits32(enc.offer_avail.reshape(T, Z * C))
+        # pairwise-INcompatibility words; padded groups are compatible with all
+        pair_nok = pack_words(~pad(enc.group_pair, (Gp, Gp), fill=True), Gp)
+        core_args = {
+            "group_req": pad(enc.group_req, (Gp, R)),
+            "group_compat_t": pad(enc.group_compat_t, (Gp, Tp)),
+            "group_zc_bits": pad(group_zc, (Gp,)),
+            "group_pool": pad(enc.group_pool, (Gp, Pp)),
+            "group_pair_nok": pair_nok,
+            "group_device": pad(~enc.group_fallback, (Gp,)),
+            "type_alloc": pad(enc.type_alloc, (Tp, R)),
+            "type_charge": pad(type_charge, (Tp, R)),
+            "offer_zc_bits": pad(offer_zc, (Tp,)),
+            "pool_type": pad(enc.pool_type, (Pp, Tp)),
+            "pool_zc_bits": pad(pool_zc, (Pp,)),
+            "pool_daemon": pad(enc.pool_daemon, (Pp, R)),
+            "q_member": pad(enc.q_member, (Gp, Qp)),
+            "q_owner": pad(enc.q_owner, (Gp, Qp)),
+            "q_kind": pad(enc.q_kind, (Qp,)),
+            "q_cap": pad(enc.q_cap, (Qp,), fill=1),
+            "v_member": pad(enc.v_member, (Gp, Vp)),
+            "v_owner": pad(enc.v_owner, (Gp, Vp)),
+            "v_kind": pad(enc.v_kind, (Vp,)),
+            "v_cap": pad(enc.v_cap, (Vp,), fill=1),
+            "v_primary": pad(enc.v_primary, (Gp,), fill=np.int32(-1)),
+            "v_aff": pad(enc.v_aff, (Gp,), fill=np.int32(-1)),
+            "zone_col_mask": zone_col,
+            "col_axis": col_axis,
+            "group_daxis": (
+                pad(enc.group_daxis, (Gp,))
+                if enc.group_daxis is not None
+                else np.zeros(Gp, np.int32)
+            ),
+        }
+        if skey is not None:
+            if len(_CORE_HOST_CACHE) >= _CORE_HOST_CACHE_MAX:
+                _CORE_HOST_CACHE.pop(next(iter(_CORE_HOST_CACHE)))
+            _CORE_HOST_CACHE[skey] = core_args
+    per_solve = {
+        "run_group": pad(enc.run_group, (Sp,)),
+        "run_count": pad(enc.run_count, (Sp,)),
+        "pool_limit": pad(enc.pool_limit, (Pp, R), fill=INT32_MAX_NP),
+        "pool_usage0": pad(enc.pool_usage, (Pp, R)),
+        "node_free": pad(enc.node_free, (Ep, R)),
+        "node_compat": pad(enc.node_compat, (Gp, Ep)),
+        "node_q_member": pad(enc.node_q_member, (Ep, Qp)),
+        "node_q_owner": pad(enc.node_q_owner, (Ep, Qp)),
+        "v_count0": pad(enc.v_count0, (Vp, D)),
+        "node_zone": pad(
+            enc.v_node_domain if enc.v_node_domain is not None else enc.node_zone,
+            (Ep,),
+            fill=np.int32(-1),
+        ),
+        "node_dom2": (
+            pad(enc.node_dom2, (Ep,), fill=np.int32(-1))
+            if enc.node_dom2 is not None
+            else np.full(Ep, -1, np.int32)
+        ),
+    }
+    from .cuda.ffd import ARG_SPEC
+
+    assert STATIC_CORE_NAMES | PER_SOLVE_NAMES == set(ARG_SPEC) and not (
+        STATIC_CORE_NAMES & PER_SOLVE_NAMES
+    ), "static/per-solve partition out of sync with ffd.ARG_SPEC"
+    args = tuple(
+        core_args[n] if n in STATIC_CORE_NAMES else per_solve[n] for n in ARG_SPEC
+    )
+    prov = tuple(
+        (skey, n) if (skey is not None and n in STATIC_CORE_NAMES) else None
+        for n in ARG_SPEC
+    )
+    dims = dict(
+        S=S, G=G, T=T, E=E, P=P, R=R, Z=Z, C=C,
+        Sp=Sp, Gp=Gp, Tp=Tp, Ep=Ep, Pp=Pp, Qp=Qp, Vp=Vp, W=W,
+    )
+    return args, dims, prov
+
+
+def min_values_post_check(qinp: SolverInput, result: SolverResult) -> bool:
+    """minValues floors: each claim's FINAL surviving type set must expose
+    the floor's distinct values (equivalent to the oracle's per-add checks
+    because options only shrink)."""
+    floors = {}
+    types_by_pool = {}
+    for p in qinp.nodepools:
+        fl = [(k, r) for k, r in p.requirements.items() if r.min_values]
+        if fl:
+            floors[p.name] = fl
+            types_by_pool[p.name] = {it.name: it for it in p.instance_types}
+    if not floors:
+        return True
+    from ..provisioning.scheduler import distinct_values_at_least
+
+    for claim in result.claims:
+        fl = floors.get(claim.nodepool)
+        if not fl:
+            continue
+        types = types_by_pool[claim.nodepool]
+        survivors = [types[n] for n in claim.instance_type_names if n in types]
+        for k, r in fl:
+            eff = r
+            cr = claim.requirements.get(k)
+            if cr is not None:
+                eff = r.intersect(cr)
+            if not distinct_values_at_least(k, eff, r.min_values, survivors):
+                return False
+    return True
+
+
+def initial_claim_bucket(total_pods: int, max_claims: int) -> int:
+    """First claim-slot bucket M: the smallest power-of-two ≥
+    min(total_pods+1, 512), capped at max_claims. The solver doubles on
+    saturation."""
+    M = 64
+    while M < min(total_pods + 1, 512):
+        M *= 2
+    return min(M, max(max_claims, 64))
+
+
+DELTA_CAP_QUANTUM = 256  # entry-capacity bucket
+DELTA_UNIQ_QUANTUM = 16  # unique claim-meta row capacity bucket
+
+
+def delta_capacity(total_pods: int, Sp: int, Ep: int, Mb: int) -> int:
+    """Entry capacity of the claim-delta buffer: every nonzero take entry
+    accounts for ≥ 1 placed pod; a solve that exceeds the capacity trips
+    the overflow flag and re-fetches full width."""
+    need = min(total_pods, Sp + 2 * Ep + 4 * Mb, Sp * (Ep + Mb))
+    q = DELTA_CAP_QUANTUM
+    return max(q, ((need + q - 1) // q) * q)
+
+
+def delta_uniq_capacity(Sp: int, Mb: int) -> int:
+    """Unique claim-meta row capacity (distinct rows track deployment
+    waves, not claims); excess trips the overflow re-fetch."""
+    q = DELTA_UNIQ_QUANTUM
+    need = min(Mb, Sp + 48)
+    return max(q, ((need + q - 1) // q) * q)
+
+
+def _pack_outputs_delta(out, cap: int, cap_u: int) -> torch.Tensor:
+    """ONE int32 device buffer: header [overflow, n, n_u], per-run entry
+    counts, (code, count) entries (compact_takes), leftovers, the deduped
+    claim identity rows and their ids (compact_claim_meta), and `used`.
+    c_cum never crosses; the host rebuilds it from the entries."""
+    from .cuda.ffd import compact_claim_meta, compact_takes
+
+    st = out.state
+    overflow_t, n, cnt16, pairs = compact_takes(out.take_e, out.take_c, cap)
+    overflow_u, n_u, uniq, mid16, _meta = compact_claim_meta(
+        st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u
+    )
+    parts = [
+        (overflow_t | overflow_u).reshape(1),
+        n.reshape(1),
+        n_u.reshape(1),
+        cnt16.reshape(-1),
+        pairs.reshape(-1),
+        out.leftover.reshape(-1),
+        uniq.reshape(-1),
+        mid16.reshape(-1),
+        st.used.reshape(1),
+    ]
+    return torch.cat(parts)
+
+
+def _pack_outputs_wide(out) -> torch.Tensor:
+    """Full-width int32 packing — the overflow fallback of the delta pack.
+    The type-mask words come from the claim-meta kernel's word pack."""
+    from .cuda.ffd import compact_claim_meta
+
+    st = out.state
+    M, Tp = st.c_mask.shape
+    Wm = (Tp + 31) // 32
+    meta = compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, 16)[4]
+    parts = [
+        out.take_e.reshape(-1),
+        out.take_c.reshape(-1),
+        out.leftover.reshape(-1),
+        meta[:, :Wm].reshape(-1),
+        st.c_zc_bits.reshape(-1),
+        st.c_gbits.reshape(-1),
+        st.c_pool.reshape(-1),
+        st.c_cum.reshape(-1),
+        st.used.reshape(1),
+    ]
+    return torch.cat(parts)
+
+
+def _unpack_flat(flat: np.ndarray, shapes: dict) -> dict:
+    """Host-side inverse of the wide pack."""
+    res = {}
+    off = 0
+    for name, (shape, dtype) in shapes.items():
+        n = int(np.prod(shape)) if shape else 1
+        a = flat[off : off + n]
+        off += n
+        if dtype == "u32":
+            a = a.view(np.uint32)
+        res[name] = a.reshape(shape) if shape else a[0]
+    return res
+
+
+class AsyncSolve:
+    """Handle for an in-flight solve: the kernels are enqueued; result()
+    fetches, decodes and returns the SolverResult (once)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self._result: Optional[SolverResult] = None
+        self._done = False
+
+    def result(self) -> SolverResult:
+        if not self._done:
+            self._result = self._fn()
+            self._done = True
+        return self._result
+
+
+@dataclass
+class _Transfer:
+    """Bytes moved by the last solve, host to device and back."""
+
+    h2d_bytes: int = 0
+    h2d_arrays: int = 0
+    d2h_bytes: int = 0
+    d2h_fetches: int = 0
+
+
+class TorchSolver(Solver):
+    """Tensorized FFD on the GPU (solver/cuda/ffd.py). `device=None` means
+    "cuda" and raises when no GPU is present; `device="cpu"` runs the plain
+    PyTorch versions of the kernels."""
+
+    def __init__(self, max_claims: int = 1024, device=None):
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "TorchSolver: CUDA is not available (pass device='cpu' for the "
+                "plain PyTorch path)"
+            )
+        self.device = dev
+        self.max_claims = max_claims
+        self.stats: Dict[str, int] = {
+            "device_solves": 0, "wide_refetches": 0, "claim_doublings": 0,
+        }
+        self.transfer = _Transfer()
+        # device copies of provenance-tagged static arrays (see
+        # host_kernel_args): a solve over an unchanged encode core uploads
+        # only its per-solve arrays
+        self._dev_cache: Dict[tuple, torch.Tensor] = {}
+
+    @staticmethod
+    def _bucket(n: int, mult: int, floor: int) -> int:
+        return max(floor, ((n + mult - 1) // mult) * mult)
+
+    def solve(self, inp: SolverInput) -> SolverResult:
+        return self.solve_async(inp).result()
+
+    def solve_async(self, inp: SolverInput) -> AsyncSolve:
+        """Encode + dispatch now; fetch + decode when result() is called."""
+        qinp = quantize_input(inp)
+        from . import relax as rx
+
+        if rx.plan(qinp) is not None:
+            raise UnsupportedInput("preferences need the relax ladder")
+        enc = encode(qinp)
+        if enc.group_fallback.any():
+            raise UnsupportedInput("fallback groups need the oracle")
+        if enc.has_topology or enc.has_affinity:
+            raise UnsupportedInput("custom-key topology/affinity needs the oracle")
+        if enc.G == 0:
+            # no schedulable pod: the empty result every backend returns
+            return AsyncSolve(
+                lambda: SolverResult(placements={}, claims=[], errors={})
+            )
+        if enc.V > 0:
+            raise UnsupportedInput("zone/capacity-type domain sigs need the zone engine")
+        handle = self._device_solve_async(enc)
+
+        def finish():
+            out = handle()
+            if not min_values_post_check(qinp, out):
+                raise UnsupportedInput("a claim narrowed below a minValues floor")
+            self.stats["device_solves"] += 1
+            return out
+
+        return AsyncSolve(finish)
+
+    # -- device path ----------------------------------------------------------
+
+    def _device_args(self, host_args: tuple, prov: tuple) -> tuple:
+        from .convert import array_to_torch
+
+        out = []
+        tr = self.transfer
+        for a, tok in zip(host_args, prov):
+            hit = self._dev_cache.get(tok) if tok is not None else None
+            if hit is None:
+                hit = array_to_torch(a, self.device)
+                tr.h2d_bytes += a.nbytes
+                tr.h2d_arrays += 1
+                if tok is not None:
+                    while len(self._dev_cache) >= 128:
+                        self._dev_cache.pop(next(iter(self._dev_cache)))
+                    self._dev_cache[tok] = hit
+            out.append(hit)
+        return tuple(out)
+
+    def _dispatch(self, args, M: int, total_pods: int):
+        """Scan + output packing. Returns (flat device buffer, unpack fn)."""
+        from .cuda.ffd import ffd_solve
+
+        out = ffd_solve(*args, max_claims=M)
+        Sp, Ep = out.take_e.shape
+        Mb, Tp = out.state.c_mask.shape
+        Wm = (Tp + 31) // 32
+        Wg = out.state.c_gbits.shape[1]
+        Rr = out.state.c_cum.shape[1]
+        if Sp > 65535 or Ep + Mb > 65535:
+            raise UnsupportedInput("the run or target axis exceeds the uint16 delta coding")
+        wide_shapes = {
+            "take_e": ((Sp, Ep), "i32"),
+            "take_c": ((Sp, Mb), "i32"),
+            "leftover": ((Sp,), "i32"),
+            "c_mask_words": ((Mb, Wm), "u32"),
+            "c_zc_bits": ((Mb,), "u32"),
+            "c_gbits": ((Mb, Wg), "u32"),
+            "c_pool": ((Mb,), "i32"),
+            "c_cum": ((Mb, Rr), "i32"),
+            "used": ((), "i32"),
+        }
+        cap = delta_capacity(total_pods, Sp, Ep, Mb)
+        cap_u = delta_uniq_capacity(Sp, Mb)
+        Wt = Wm + 1 + Wg + 1  # meta row: cm_words ++ zc ++ gbits ++ pool
+
+        def unpack(flat: np.ndarray) -> dict:
+            if flat[0]:  # uint16/capacity overflow — re-fetch wide (rare)
+                self.stats["wide_refetches"] += 1
+                wide = self._fetch(_pack_outputs_wide(out))
+                return _unpack_flat(wide, wide_shapes)
+            n = int(flat[1])
+            off = 3
+            cnt = flat[off : off + Sp // 2].view(np.uint16)[:Sp]
+            off += Sp // 2
+            pairs = flat[off : off + cap].view(np.uint16).reshape(cap, 2)
+            off += cap
+            leftover = flat[off : off + Sp]
+            off += Sp
+            uniq = flat[off : off + cap_u * Wt].view(np.uint32).reshape(cap_u, Wt)
+            off += cap_u * Wt
+            mid = flat[off : off + Mb // 2].view(np.uint16)[:Mb]
+            off += Mb // 2
+            used = flat[off]
+            s_col = np.repeat(np.arange(Sp, dtype=np.int64), cnt.astype(np.int64))
+            entries = np.stack(
+                [
+                    s_col,
+                    pairs[:n, 0].astype(np.int64),
+                    pairs[:n, 1].astype(np.int64),
+                ],
+                axis=1,
+            )
+            meta = uniq[np.minimum(mid.astype(np.int64), cap_u - 1)]
+            c_pool = np.ascontiguousarray(meta[:, Wt - 1]).view(np.int32)
+            return {
+                "entries": entries,
+                "Ep": Ep,
+                "leftover": leftover,
+                "c_mask_words": meta[:, :Wm],
+                "c_zc_bits": np.ascontiguousarray(meta[:, Wm]),
+                "c_gbits": np.ascontiguousarray(meta[:, Wm + 1 : Wm + 1 + Wg]),
+                "c_pool": c_pool,
+                "used": used,
+            }
+
+        return _pack_outputs_delta(out, cap, cap_u), unpack
+
+    def _fetch(self, flat_dev: torch.Tensor) -> np.ndarray:
+        flat = flat_dev.cpu().numpy()
+        self.transfer.d2h_bytes += flat.nbytes
+        self.transfer.d2h_fetches += 1
+        return flat
+
+    def _device_solve_async(self, enc: EncodedInput):
+        try:
+            host_args, dims, prov = host_kernel_args(enc, self._bucket)
+        except UnpackableInput as e:
+            raise UnsupportedInput(str(e)) from e
+        from .cuda.ffd import MAX_Q, MAX_R
+
+        if dims["Qp"] > MAX_Q or dims["R"] > MAX_R:
+            raise UnsupportedInput(
+                f"Qp={dims['Qp']} or R={dims['R']} exceeds the scan kernel's shared rows"
+            )
+        self.transfer = _Transfer()
+        args = self._device_args(host_args, prov)
+        S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
+        Z, C = dims["Z"], dims["C"]
+        total_pods = int(sum(len(p) for p in enc.group_pods))
+        # claim slots sized from the input, doubled on saturation; the
+        # redispatch reuses the uploaded args
+        M0 = initial_claim_bucket(total_pods, self.max_claims)
+        flat_dev, unpack = self._dispatch(args, M0, total_pods)
+
+        def finish() -> SolverResult:
+            M = M0
+            flat, up = self._fetch(flat_dev), unpack
+            while True:
+                f = up(flat)
+                used = int(f["used"])
+                if used < M:
+                    break
+                if M >= self.max_claims:
+                    raise UnsupportedInput(
+                        f"the solve needs more than max_claims={self.max_claims} claims"
+                    )
+                M = min(M * 2, self.max_claims)
+                self.stats["claim_doublings"] += 1
+                fd, up = self._dispatch(args, M, total_pods)
+                flat = self._fetch(fd)
+            c_mask = _unpack_words(f["c_mask_words"], T)
+            c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)
+            c_gmask = _unpack_gmask(f["c_gbits"], G)
+            if "entries" in f:
+                Ep_ = f["Ep"]
+                c_cum = _claim_cum_from_entries(enc, f["entries"], f["c_pool"], Ep_, M)
+                return decode_delta(enc, f["entries"], f["leftover"][:S], E, Ep_,
+                                    c_mask, c_zone, c_ct, f["c_pool"], c_gmask,
+                                    c_cum, used)
+            return decode(enc, f["take_e"][:S, :E], f["take_c"][:S],
+                          f["leftover"][:S], c_mask, c_zone, c_ct, f["c_pool"],
+                          c_gmask, f["c_cum"], used)
+
+        return finish
+
+
+def _unpack_words(words: np.ndarray, width: int) -> np.ndarray:
+    """[N, W] uint32 words -> [N, width] bool (inverse of bit-packing)."""
+    N, W = words.shape
+    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)[None, None, :]) & 1
+    return bits.reshape(N, W * 32)[:, :width].astype(bool)
+
+
+def _unpack_gmask(gbits: np.ndarray, G: int) -> np.ndarray:
+    """[M, W] uint32 words -> [M, G] bool group-membership mask."""
+    return _unpack_words(gbits, G)
+
+
+def decode(
+    enc: EncodedInput,
+    take_e: np.ndarray,  # [S, E]
+    take_c: np.ndarray,  # [S, M]
+    leftover: np.ndarray,  # [S]
+    c_mask: np.ndarray,  # [M, T]
+    c_zone: np.ndarray,  # [M, Z]
+    c_ct: np.ndarray,  # [M, C]
+    c_pool: np.ndarray,  # [M]
+    c_gmask: np.ndarray,  # [M, G]
+    c_cum: np.ndarray,  # [M, R]
+    used: int,
+) -> SolverResult:
+    """Reassemble a SolverResult from dense take tables: pods assigned in
+    index order per run (existing nodes first, then claim slots)."""
+    S = len(enc.run_group)
+    E = take_e.shape[1] if take_e.ndim == 2 else 0
+    segs: List[np.ndarray] = []
+    for s in range(S):
+        te, tc, lo = take_e[s], take_c[s], int(leftover[s])
+        parts: List[np.ndarray] = []
+        e_idx = np.flatnonzero(te)
+        if e_idx.size:
+            parts.append(np.repeat(e_idx, te[e_idx]))
+        c_idx = np.flatnonzero(tc)
+        if c_idx.size:
+            parts.append(np.repeat(c_idx + E, tc[c_idx]))
+        if lo:
+            parts.append(np.full(lo, -1, np.int64))
+        if parts:
+            segs.append(np.concatenate([p.astype(np.int64, copy=False) for p in parts]))
+    codes = np.concatenate(segs) if segs else np.zeros(0, np.int64)
+    return _decode_from_codes(
+        enc, codes, E, c_mask, c_zone, c_ct, c_pool, c_gmask, c_cum, used
+    )
+
+
+def decode_delta(
+    enc: EncodedInput,
+    entries: np.ndarray,  # [n, 3] (run, code, count), code = e | Ep+m
+    leftover: np.ndarray,  # [S]
+    E: int,  # unpadded node count
+    Ep: int,  # padded node axis the device codes split on
+    c_mask: np.ndarray,
+    c_zone: np.ndarray,
+    c_ct: np.ndarray,
+    c_pool: np.ndarray,
+    c_gmask: np.ndarray,
+    c_cum: np.ndarray,
+    used: int,
+) -> SolverResult:
+    """Rebuild decode()'s exact codes stream from the packed claim-delta:
+    within a run, node codes sort before claim codes before the leftover
+    row (sentinel key) — decode()'s per-run emission order."""
+    S = len(enc.run_group)
+    s = entries[:, 0].astype(np.int64)
+    cd = entries[:, 1].astype(np.int64)
+    v = entries[:, 2].astype(np.int64)
+    keep = (s < S) & (v > 0)
+    s, cd, v = s[keep], cd[keep], v[keep]
+    code = np.where(cd >= Ep, cd - Ep + E, cd)
+    lo = leftover[:S].astype(np.int64)
+    ls = np.flatnonzero(lo)
+    SENT = np.int64(np.iinfo(np.int64).max)
+    s_all = np.concatenate([s, ls])
+    code_all = np.concatenate([code, np.full(ls.size, SENT)])
+    v_all = np.concatenate([v, lo[ls]])
+    order = np.lexsort((code_all, s_all))
+    codes = np.repeat(
+        np.where(code_all[order] == SENT, np.int64(-1), code_all[order]),
+        v_all[order],
+    )
+    return _decode_from_codes(
+        enc, codes, E, c_mask, c_zone, c_ct, c_pool, c_gmask, c_cum, used
+    )
+
+
+def _claim_cum_from_entries(enc: EncodedInput, entries: np.ndarray,
+                            c_pool: np.ndarray, Ep: int,
+                            Mb: int) -> np.ndarray:
+    """Rebuild the kernel's c_cum [M, R] from the claim-delta: pool daemon
+    base on open, + take × group_req per pour, in int32 wraparound."""
+    R = enc.group_req.shape[1]
+    cum = np.zeros((Mb, R), dtype=np.int64)
+    pool = np.asarray(c_pool[:Mb]).astype(np.int64)
+    opened = pool >= 0
+    cum[opened] = enc.pool_daemon[pool[opened]].astype(np.int64)
+    s = entries[:, 0].astype(np.int64)
+    cd = entries[:, 1].astype(np.int64)
+    v = entries[:, 2].astype(np.int64)
+    csel = (cd >= Ep) & (cd - Ep < Mb) & (s < len(enc.run_group))
+    if csel.any():
+        m = cd[csel] - Ep
+        g = enc.run_group[s[csel]].astype(np.int64)
+        np.add.at(cum, m, v[csel, None] * enc.group_req[g].astype(np.int64))
+    return cum.astype(np.int32)  # int64 -> int32 truncation == device wrap
+
+
+def _decode_from_codes(
+    enc: EncodedInput,
+    codes: np.ndarray,  # [total_pods] int64: node e -> e, claim m -> E+m, -1
+    E: int,
+    c_mask: np.ndarray,  # [M, T]
+    c_zone: np.ndarray,  # [M, Z]
+    c_ct: np.ndarray,  # [M, C]
+    c_pool: np.ndarray,  # [M]
+    c_gmask: np.ndarray,  # [M, G]
+    c_cum: np.ndarray,  # [M, R]
+    used: int,
+) -> SolverResult:
+    """Shared tail of decode()/decode_delta(): codes stream (aligned with
+    enc.sorted_uids) -> SolverResult."""
+    uid_sorted = enc.sorted_uids
+    targets = np.empty(E + used, dtype=object)
+    for e in range(E):
+        targets[e] = ("node", enc.node_ids[e])
+    for m in range(used):
+        targets[E + m] = ("claim", m)
+
+    ok = codes >= 0
+    placements: Dict[str, Tuple[str, object]] = dict(
+        zip(uid_sorted[ok].tolist(), targets[codes[ok]].tolist())
+    )
+    errors: Dict[str, str] = dict.fromkeys(
+        uid_sorted[~ok].tolist(), "no instance type in any nodepool satisfies the pod"
+    )
+    ccodes = codes - E
+    csel = ccodes >= 0
+    cc = ccodes[csel]
+    cuids = uid_sorted[csel][np.argsort(cc, kind="stable")]
+    offs = np.concatenate(([0], np.cumsum(np.bincount(cc, minlength=used)))) if used else np.zeros(1, np.int64)
+    claim_pods: Dict[int, List[str]] = {
+        m: cuids[offs[m] : offs[m + 1]].tolist() for m in range(used)
+    }
+
+    # claim templates dedupe by identity row (pool, zone/ct/group/type bits)
+    claims: List[ClaimResult] = []
+    if used:
+        key_rows = np.concatenate(
+            [
+                np.ascontiguousarray(c_pool[:used].astype(">i4")).view(np.uint8).reshape(used, 4),
+                np.packbits(c_zone[:used], axis=1),
+                np.packbits(c_ct[:used], axis=1),
+                np.packbits(c_gmask[:used], axis=1),
+                np.packbits(c_mask[:used], axis=1),
+            ],
+            axis=1,
+        )
+        _, tmpl_first, tmpl_of = np.unique(
+            key_rows, axis=0, return_index=True, return_inverse=True
+        )
+        tmpl_of = tmpl_of.ravel()
+        templates = {}
+        for ti, m0 in enumerate(tmpl_first):
+            m0 = int(m0)
+            pool_name = enc.pool_names[int(c_pool[m0])]
+            type_names = [enc.type_names[t] for t in np.flatnonzero(c_mask[m0])]
+            reqs = Requirements.of(
+                Requirement.create(wk.NODEPOOL_LABEL, IN, [pool_name])
+            )
+            zones = [enc.zones[z] for z in np.flatnonzero(c_zone[m0])]
+            cts = [enc.capacity_types[c] for c in np.flatnonzero(c_ct[m0])]
+            if zones:
+                reqs.add(Requirement.create(wk.ZONE_LABEL, IN, zones))
+            if cts:
+                reqs.add(Requirement.create(wk.CAPACITY_TYPE_LABEL, IN, cts))
+            for g in np.flatnonzero(c_gmask[m0]):
+                reqs = reqs.union(enc.group_pods[int(g)][0].scheduling_requirements())
+            templates[ti] = (pool_name, type_names, reqs)
+        mult = np.fromiter(
+            (
+                1024**2 if k in ("memory", "ephemeral-storage") else 1
+                for k in enc.resource_keys
+            ),
+            np.int64,
+            len(enc.resource_keys),
+        )
+        vals = c_cum[:used].astype(np.int64) * mult[None, :]
+        rkeys = enc.resource_keys
+        for m in range(used):
+            pool_name, type_names, reqs = templates[int(tmpl_of[m])]
+            row = vals[m]
+            requests = Resources()
+            for i, v in enumerate(row.tolist()):
+                if v:
+                    requests[rkeys[i]] = v
+            claims.append(
+                ClaimResult(
+                    nodepool=pool_name,
+                    requirements=reqs,
+                    instance_type_names=type_names,
+                    pod_uids=claim_pods[m],
+                    requests=requests,
+                    taints=[],
+                    hostname=f"claim-{m}",
+                )
+            )
+    return SolverResult(placements=placements, claims=claims, errors=errors)

@@ -1,0 +1,146 @@
+"""The port stands alone: no JAX, nothing of karpenter_tpu, and each copied
+piece pinned to its original.
+
+- a static scan of every import in karpenter_tpu_torch/** and chip_smoke.py;
+- a solve through the port in a fresh interpreter leaves jax and every
+  karpenter_tpu module out of sys.modules (a subprocess, because this test
+  process has imported jax through tests/conftest.py);
+- TorchSolver() with no device argument refuses to run without CUDA;
+- the copies (ARG_SPEC, delta constants, argument partitions, the catalog,
+  host_kernel_args and encode) equal their originals on sample inputs.
+"""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from karpenter_tpu.solver import backend as jbackend
+from karpenter_tpu.solver import encode as jencode
+from karpenter_tpu.solver.tpu import ffd as jffd
+from karpenter_tpu_torch.solver import backend as tbackend
+from karpenter_tpu_torch.solver import encode as tencode
+from karpenter_tpu_torch.solver.cuda import ffd as tffd
+from tests.test_torch_solver import CASES, build, pkg
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "karpenter_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == m or module.startswith(m + ".") for m in ("jax", "karpenter_tpu"))
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_forbidden_matches_exact_package_names():
+    assert _forbidden("karpenter_tpu") and _forbidden("karpenter_tpu.solver.encode")
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert not _forbidden("karpenter_tpu_torch.solver") and not _forbidden("jaxlib_like")
+
+
+def test_port_solve_loads_no_jax():
+    code = (
+        "import sys\n"
+        "from chip_smoke import build_e2e_input\n"
+        "from karpenter_tpu_torch.solver.backend import TorchSolver\n"
+        "res = TorchSolver(device='cpu').solve(build_e2e_input(300, 4))\n"
+        "assert len(res.placements) == 300, len(res.placements)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
+        "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_default_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for hosts without one")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tbackend.TorchSolver()
+
+
+def test_constants_pinned():
+    assert tffd.ARG_SPEC == jffd.ARG_SPEC
+    assert (tffd.DELTA_HEADER_WORDS, tffd.DELTA_ENTRY_U16) == (
+        jffd.DELTA_HEADER_WORDS, jffd.DELTA_ENTRY_U16)
+    assert tbackend.STATIC_CORE_NAMES == jbackend.STATIC_CORE_NAMES
+    assert tbackend.PER_SOLVE_NAMES == jbackend.PER_SOLVE_NAMES
+    assert (tbackend.DELTA_CAP_QUANTUM, tbackend.DELTA_UNIQ_QUANTUM) == (
+        jbackend.DELTA_CAP_QUANTUM, jbackend.DELTA_UNIQ_QUANTUM)
+    for args in [(0, 1), (500, 1024), (50_000, 1024), (3, 64)]:
+        assert tbackend.initial_claim_bucket(*args) == jbackend.initial_claim_bucket(*args)
+    for args in [(50_000, 32, 8, 512), (70, 16, 32, 128)]:
+        assert tbackend.delta_capacity(*args) == jbackend.delta_capacity(*args)
+        Sp, Mb = args[1], args[3]
+        assert tbackend.delta_uniq_capacity(Sp, Mb) == jbackend.delta_uniq_capacity(Sp, Mb)
+
+
+def _req_data(reqs):
+    return sorted((k, r.complement, sorted(r.values_list()), r.min_values) for k, r in reqs.items())
+
+
+def test_catalog_copy_pinned():
+    ja, to = pkg("karpenter_tpu").catalog, pkg("karpenter_tpu_torch").catalog
+    assert len(ja) == len(to) > 700
+    for a, b in zip(ja, to):
+        assert a.name == b.name
+        assert dict(a.capacity) == dict(b.capacity) and dict(a.overhead) == dict(b.overhead)
+        assert _req_data(a.requirements) == _req_data(b.requirements)
+        assert [dataclasses.astuple(o) for o in a.offerings] == [
+            dataclasses.astuple(o) for o in b.offerings]
+
+
+def _same(a, b, what):
+    if isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, what
+        assert a.shape == b.shape and np.array_equal(a, b), what
+    else:
+        assert a == b, what
+
+
+# encode fields that carry process-local identities (interning counters,
+# cache revisions) rather than decisions
+_IDENTITY_FIELDS = {"core_rev", "group_snums", "sig_epoch"}
+
+
+@pytest.mark.parametrize("name", ["existing_nodes", "hostname_q_kinds", "config2_masks"])
+def test_encode_and_kernel_args_pinned(name):
+    je = jencode.encode(jencode.quantize_input(build(CASES[name], "karpenter_tpu")))
+    te = tencode.encode(tencode.quantize_input(build(CASES[name], "karpenter_tpu_torch")))
+    names = [f.name for f in dataclasses.fields(je)]
+    assert names == [f.name for f in dataclasses.fields(te)]
+    for f in names:
+        if f in _IDENTITY_FIELDS:
+            continue
+        a, b = getattr(je, f), getattr(te, f)
+        if f == "group_pods":
+            a = [[p.meta.uid for p in g] for g in a]
+            b = [[p.meta.uid for p in g] for g in b]
+        _same(a, b, f)
+    ja, jdims, _ = jbackend.host_kernel_args(je, jbackend.TPUSolver._bucket)
+    ta, tdims, _ = tbackend.host_kernel_args(te, tbackend.TorchSolver._bucket)
+    assert jdims == tdims
+    for n, a, b in zip(jffd.ARG_SPEC, ja, ta):
+        _same(a, b, n)
