@@ -5,15 +5,21 @@ Runs the port's main path on one NVIDIA GPU and checks it:
 
 1. prints the card's name and power limit, builds the CUDA kernels from
    karpenter_tpu_torch/csrc with nvcc (sm_90a) and times the build;
-2. holds each kernel (K1 ffd_fast_scan, K2 compact_takes, K3 claim_meta)
-   against its plain PyTorch version on the card, at the shapes of the
-   50k-pod solve's own kernel arguments: exact equality (all outputs are
-   integers), with a synchronize after each launch;
-3. solves the 50k-pod × ~730-type surge with and without 200 existing
-   nodes through TorchSolver() REPEATS times each, with the launch counts
-   reset just before and read just after; every kernel must have launched,
-   and the decisions must equal the plain-version path's; each solve's
-   garbage-collection pauses are recorded beside its time;
+2. holds each kernel (K1 in both instances: ffd_fast_scan, the fast branch,
+   and ffd_zoned_scan, with the zoned event engine; K2 compact_takes; K3
+   claim_meta) against its plain PyTorch version on the card, at the shapes
+   of the 50k-pod solves' own kernel arguments (the surge with and without
+   nodes, BASELINE configs 3 and 4, and the mixed zone+ct input): exact
+   equality (all outputs are integers), equal zoned event counts, a
+   synchronize after each launch; then on small seeded fleets that reach
+   the paths the 50k inputs do not (hostname constraints; the zoned
+   branch's eventful path, anti registration and preemption bound);
+3. solves the surge, the surge with 200 existing nodes, config 3 and
+   config 4 through TorchSolver() REPEATS times each, and the mixed input
+   once, with the launch counts reset just before and read just after;
+   every kernel must have launched, and the decisions must equal the
+   plain-version path's; each solve's garbage-collection pauses are
+   recorded beside its time;
 4. forces the wide re-fetch (a tiny delta capacity) and checks the
    decisions do not change.
 
@@ -37,6 +43,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PODS = 50_000  # the headline surge
 NODES = 200  # existing nodes of the e2e cell
 REPEATS = 100  # timed solves per cell: enough samples for a p99
+MAX_CLAIMS = 1024  # TorchSolver's default claim-slot ceiling
 
 # H100 SXM published HBM3 bandwidth (NVIDIA data sheet). The integer-op
 # ceiling is the card's int32 issue rate, 64 lanes per SM per clock (not
@@ -142,6 +149,65 @@ def build_e2e_input(num_pods: int = 50_000, num_nodes: int = 200):
     return inp
 
 
+def build_config3_input(num_pods: int = 50_000):
+    """BASELINE config 3: the surge with every deployment spreading across
+    the 3 zones, maxSkew 1, self-matching (a copy of bench.py's
+    build_config3_input)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import TopologySpreadConstraint
+
+    inp = build_input(num_pods)
+    for i, p in enumerate(inp.pods):
+        app = f"app-{(i // 1250) % 40}"
+        p.meta.labels["app"] = app
+        p.topology_spread = [
+            TopologySpreadConstraint(max_skew=1, topology_key=wk.ZONE_LABEL,
+                                     label_selector={"app": app})
+        ]
+        p.node_selector = {}  # pure spread config
+    return inp
+
+
+def build_config4_input(num_pods: int = 50_000):
+    """BASELINE config 4: a third of the pods follow svc=web into one zone
+    (positive zone affinity); 6 anti singletons spread one per zone; the
+    rest are plain (a copy of bench.py's build_config4_input)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import PodAffinityTerm
+
+    inp = build_input(num_pods)
+    for i, p in enumerate(inp.pods):
+        p.node_selector = {}
+        if i % 3 == 0:
+            p.meta.labels["svc"] = "web"
+            p.affinity_terms = [PodAffinityTerm(label_selector={"svc": "web"},
+                                                topology_key=wk.ZONE_LABEL, anti=False)]
+        elif i < 9:
+            p.meta.labels["svc"] = f"lock-{i}"
+            p.affinity_terms = [PodAffinityTerm(label_selector={"svc": f"lock-{i}"},
+                                                topology_key=wk.ZONE_LABEL, anti=True)]
+    return inp
+
+
+def build_mixed_input(num_pods: int = 50_000):
+    """Config 3 with 2% of the pods spreading over capacity type instead:
+    zone and capacity-type domain columns in one solve (a copy of bench.py's
+    build_mixed_input)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import TopologySpreadConstraint
+
+    inp = build_config3_input(num_pods)
+    for i, p in enumerate(inp.pods):
+        if i % 50 == 0:
+            app = f"ct-{(i // 1250) % 40}"
+            p.meta.labels = {"tier": app}
+            p.topology_spread = [
+                TopologySpreadConstraint(max_skew=1, topology_key=wk.CAPACITY_TYPE_LABEL,
+                                         label_selector={"tier": app})
+            ]
+    return inp
+
+
 def build_constrained_input(seed: int):
     """A small randomized fleet that reaches the scan paths the surge does
     not: hostname spread (Q kind 0), hostname anti-affinity (kind 1),
@@ -213,6 +279,75 @@ def build_constrained_input(seed: int):
                        zones=("zone-1a", "zone-1b", "zone-1c"))
 
 
+def build_zone_input(seed: int):
+    """A small randomized fleet for the zoned branch's paths that the 50k
+    inputs do not reach: zone spread with maxSkew 1 or 2 over existing nodes
+    that hold member pods (the first-fit preemption bound), a spread whose
+    selector does not match its own pods (eventful, no closed form),
+    positive zone affinity, a zone anti-affinity owner and the pods its
+    selector matches (anti registration), self-anti singletons, a pool
+    with limits, and on odd seeds capacity-type spread and anti locks (the
+    mixed zone+ct layout)."""
+    import random
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import (
+        ObjectMeta, Pod, PodAffinityTerm, TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.catalog.catalog import generate
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode, NodePoolSpec, SolverInput
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    rng = random.Random(seed)
+    zk, ck = wk.ZONE_LABEL, wk.CAPACITY_TYPE_LABEL
+    pods = []
+
+    def add(n, cpu, mem, labels, tsc=(), aff=()):
+        for _ in range(n):
+            name = f"z{seed}-{len(pods):03d}"
+            pods.append(Pod(
+                meta=ObjectMeta(name=name, uid=name, labels=dict(labels)),
+                requests=Resources.parse({"cpu": cpu, "memory": mem}),
+                topology_spread=[TopologySpreadConstraint(max_skew=k, topology_key=key,
+                                                          label_selector=dict(sel))
+                                 for k, key, sel in tsc],
+                affinity_terms=[PodAffinityTerm(label_selector=dict(sel), topology_key=key, anti=anti)
+                                for sel, key, anti in aff]))
+
+    add(rng.randint(6, 30), "500m", "1Gi", {"app": "w"}, tsc=[(rng.choice([1, 2]), zk, {"app": "w"})])
+    add(rng.randint(3, 12), "1", "2Gi", {"app": "x"}, tsc=[(1, zk, {"app": "w"})])
+    add(rng.randint(3, 20), "250m", "512Mi", {"svc": "db"}, aff=[({"svc": "db"}, zk, False)])
+    add(1, "2", "4Gi", {"o": "1"}, aff=[({"tier": "fe"}, zk, True)])
+    add(rng.randint(2, 6), "1", "1Gi", {"tier": "fe"})
+    add(rng.randint(2, 4), "1", "2Gi", {"lock": "z"}, aff=[({"lock": "z"}, zk, True)])
+    if seed % 2:
+        add(rng.randint(4, 12), "500m", "1Gi", {"tier": "ct"}, tsc=[(1, ck, {"tier": "ct"})])
+        add(rng.randint(2, 3), "1", "1Gi", {"clock": "c"}, aff=[({"clock": "c"}, ck, True)])
+    add(rng.randint(2, 8), f"{rng.choice([100, 500, 2000])}m", "1Gi", {})
+    nodes = []
+    for j in range(rng.randint(1, 4)):
+        free = Resources.parse({"cpu": str(rng.choice([2, 4, 8])), "memory": "16Gi"})
+        free["pods"] = 20
+        nodes.append(ExistingNode(
+            id=f"n{j}", labels={zk: rng.choice(["zone-1a", "zone-1b", "zone-1c"]),
+                                ck: rng.choice(["on-demand", "spot"]),
+                                wk.HOSTNAME_LABEL: f"n{j}", wk.ARCH_LABEL: "amd64",
+                                wk.OS_LABEL: "linux"},
+            taints=[], free=free, pod_labels=[{"app": "w"}] * rng.randint(0, 3)))
+    catalog = generate()
+
+    def pool(name, weight, limits=None):
+        return NodePoolSpec(
+            name=name, weight=weight,
+            requirements=Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, [name])),
+            taints=[], instance_types=catalog, limits=Resources.parse(limits or {}))
+
+    return SolverInput(pods=pods, nodes=nodes,
+                       nodepools=[pool("limited", 10, {"cpu": str(rng.choice([8, 16]))}), pool("any", 1)],
+                       zones=("zone-1a", "zone-1b", "zone-1c"))
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -274,7 +409,10 @@ def bound(bytes_moved: int, ops: int, ops_per_s: float):
 
 
 def kernel_phase(inp, dev):
-    """K1-K3 against their plain versions at the shapes of `inp`'s solve."""
+    """K1-K3 against their plain versions at the shapes of `inp`'s solve:
+    K1's zoned instance when the input has V-axis sigs (as the main path
+    picks it), its fast instance otherwise; the claim bucket doubles on
+    saturation as the main path's does."""
     import torch
 
     from karpenter_tpu_torch.solver import backend as tb
@@ -286,19 +424,24 @@ def kernel_phase(inp, dev):
     host_args, dims, _ = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
     args = args_to_torch(host_args, dev)
     total = int(sum(len(p) for p in enc.group_pods))
-    M = tb.initial_claim_bucket(total, 1024)
-    out = ffd.ffd_solve(*args, max_claims=M)
-    torch.cuda.synchronize()
-    if int(out.state.used) >= M:  # the main path doubles on saturation
-        M = min(2 * M, 1024)
-        out = ffd.ffd_solve(*args, max_claims=M)
+    zone = enc.V > 0
+    M = tb.initial_claim_bucket(total, MAX_CLAIMS)
+    while True:
+        out = ffd.ffd_solve(*args, max_claims=M, zone_engine=zone)
         torch.cuda.synchronize()
-    plain = ffd.ffd_solve_plain(*args, max_claims=M)
+        if int(out.state.used) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    t0 = time.perf_counter()
+    plain = ffd.ffd_solve_plain(*args, max_claims=M, zone_engine=zone)
     torch.cuda.synchronize()
-    k1 = [out.take_e, out.take_c, out.leftover, *out.state]
-    p1 = [plain.take_e, plain.take_c, plain.leftover, *plain.state]
+    plain_s = time.perf_counter() - t0
+    k1 = [out.take_e, out.take_c, out.leftover, out.events, *out.state]
+    p1 = [plain.take_e, plain.take_c, plain.leftover, plain.events, *plain.state]
     err1 = max_abs_err(k1, p1)
-    assert err1 == 0, f"ffd_fast_scan disagrees with its plain version (max |d| {err1})"
+    name = "ffd_zoned_scan" if zone else "ffd_fast_scan"
+    assert err1 == 0, f"{name} disagrees with its plain version (max |d| {err1})"
+    assert int(out.events) == int(plain.events), (int(out.events), int(plain.events))
 
     Sp, Ep = out.take_e.shape
     cap = tb.delta_capacity(total, Sp, Ep, M)
@@ -314,8 +457,9 @@ def kernel_phase(inp, dev):
     p3 = ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
     err3 = max_abs_err(k3, p3)
     assert err3 == 0, f"claim_meta disagrees with its plain version (max |d| {err3})"
-    return dict(enc=enc, args=args, out=out, M=M, cap=cap, cap_u=cap_u, dims=dims,
-                errs=(err1, err2, err3), n_entries=int(k2[1]), n_uniq=int(k3[1]))
+    return dict(enc=enc, args=args, out=out, M=M, cap=cap, cap_u=cap_u, dims=dims, zone=zone,
+                errs=(err1, err2, err3), n_entries=int(k2[1]), n_uniq=int(k3[1]),
+                events=int(out.events), plain_once_s=plain_s)
 
 
 def profiled_us(fn, n: int, names) -> float:
@@ -336,9 +480,49 @@ def profiled_us(fn, n: int, names) -> float:
     return total / n
 
 
-def kernel_rows(ph, launches, ops_per_s):
+def scan_cost(ph):
+    """K1's floor on work and traffic for `ph`'s solve: inputs read once and
+    outputs written once; integer ops of this run's data: (sub, floor-div,
+    min) per resource over every node row, every claim open before the run
+    × type, and every pool × type, once per fast run and once per zoned
+    event (ffd.py:935 e_fit, :996 k_raw, :1108 k_tp). Events past a zoned
+    run's first are charged at the fewest claims open before any zoned
+    run, and a floor-div counts as one op though it issues several, so the
+    bound stays a floor. Returns (bytes, ops)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args, out = ph["args"], ph["out"]
+    st = out.state
+    Sp, Ep = out.take_e.shape
+    T = st.c_mask.shape[1]
+    P = args[ffd.ARG_INDEX["pool_type"]].shape[0]
+    R = st.c_cum.shape[1]
+    tc = out.take_c.cpu()
+    used = int(st.used)
+    first_run = (tc[:, :used] > 0).to(torch.int32).argmax(dim=0)
+    groups, counts = args[0].cpu().tolist(), args[1].cpu().tolist()
+    v_owner = args[ffd.ARG_INDEX["v_owner"]].cpu()
+    v_anti = args[ffd.ARG_INDEX["v_member"]].cpu() & (args[ffd.ARG_INDEX["v_kind"]].cpu() == 1)
+    ops, zoned_before = 0, []
+    for s in range(Sp):
+        if counts[s] <= 0:
+            continue
+        before = int((first_run < s).sum())
+        ops += (Ep + before * T + P * T) * R * 3
+        g = groups[s]
+        if ph["zone"] and bool(v_owner[g].any() | v_anti[g].any()):
+            zoned_before.append(before)
+    if zoned_before:
+        ops += max(0, ph["events"] - len(zoned_before)) * (Ep + min(zoned_before) * T + P * T) * R * 3
+    inputs = args if ph["zone"] else args[:24]  # the fast instance reads no V-axis input
+    return nbytes(*inputs) + nbytes(out.take_e, out.take_c, out.leftover, out.events, *st), ops
+
+
+def kernel_rows(ph, ph_zone, launches, ops_per_s):
     """The {"kernels": [...]} rows: times, bounds and yardsticks measured
-    at the headline solve's shapes."""
+    at the headline solve's shapes (K1's zoned instance at config 3's)."""
     import torch
 
     from karpenter_tpu_torch.solver.cuda import ffd
@@ -351,25 +535,17 @@ def kernel_rows(ph, launches, ops_per_s):
     R = st.c_cum.shape[1]
     src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
 
-    # K1: inputs read once + outputs written once; integer ops of the data:
-    # per run, (sub, floor-div, min) per resource over every node row, every
-    # claim open before the run × type, and every pool × type. A floor-div
-    # counts as one op though it issues several, so the bound stays a floor.
-    tc = out.take_c.cpu()
-    used = int(st.used)
-    first_run = (tc[:, :used] > 0).to(torch.int32).argmax(dim=0)
-    ops1 = 0
-    for s in range(Sp):
-        if int(args[1][s]) <= 0:
-            continue
-        before = int((first_run < s).sum())
-        ops1 += (Ep + before * T + P * T) * R * 3
-    bytes1 = nbytes(*[a for a in args[:24]]) + nbytes(
-        out.take_e, out.take_c, out.leftover, *st
-    )
+    bytes1, ops1 = scan_cost(ph)
     ms1 = time_ms(lambda: ffd.ffd_solve(*args, max_claims=M), 10)
     plain1 = time_ms(lambda: ffd.ffd_solve_plain(*args, max_claims=M), 2)
     b1, by1 = bound(bytes1, ops1, ops_per_s)
+
+    za, zM = ph_zone["args"], ph_zone["M"]
+    zSp, zEp = ph_zone["out"].take_e.shape
+    bytes_z, ops_z = scan_cost(ph_zone)
+    ms_z = time_ms(lambda: ffd.ffd_solve(*za, max_claims=zM, zone_engine=True), 10)
+    plain_z = time_ms(lambda: ffd.ffd_solve_plain(*za, max_claims=zM, zone_engine=True), 1)
+    b_z, by_z = bound(bytes_z, ops_z, ops_per_s)
 
     k2 = ffd.compact_takes(out.take_e, out.take_c, cap)
     bytes2 = nbytes(out.take_e, out.take_c) + nbytes(*k2)
@@ -398,18 +574,29 @@ def kernel_rows(ph, launches, ops_per_s):
     )
     b3, by3 = bound(bytes3, ops3, ops_per_s)
     dev1 = profiled_us(lambda: ffd.ffd_solve(*args, max_claims=M), 3, KERNEL_NAMES[:1]) / 1e3
+    dev_z = profiled_us(lambda: ffd.ffd_solve(*za, max_claims=zM, zone_engine=True), 3,
+                        KERNEL_NAMES[1:2]) / 1e3
     dev2 = profiled_us(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 20,
-                       KERNEL_NAMES[1:2]) / 1e3
+                       KERNEL_NAMES[2:3]) / 1e3
     dev3 = profiled_us(
         lambda: ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u),
-        20, KERNEL_NAMES[2:]) / 1e3
+        20, KERNEL_NAMES[3:]) / 1e3
     e1, e2, e3 = ph["errs"]
+    ez = ph_zone["errs"][0]
+    zT = ph_zone["out"].state.c_mask.shape[1]
     return [
         dict(name="ffd_fast_scan", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/ffd.py:1884", launches=launches["ffd_fast_scan"],
              max_abs_err=e1, ms=ms1, plain_ms=plain1, bound_ms=b1, bound_by=by1,
              library_ms=None, match=e1 == 0, device_ms=dev1, shape=dict(Sp=Sp, Ep=Ep, M=M, T=T, P=P, R=R),
              ops=ops1, bytes=bytes1),
+        dict(name="ffd_zoned_scan", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/ffd.py:860", launches=launches["ffd_zoned_scan"],
+             max_abs_err=ez, ms=ms_z, plain_ms=plain_z, bound_ms=b_z, bound_by=by_z,
+             library_ms=None, match=ez == 0, device_ms=dev_z, events=ph_zone["events"],
+             shape=dict(Sp=zSp, Ep=zEp, M=zM, T=zT, V=int(za[ffd.ARG_INDEX["v_kind"]].shape[0]),
+                        Z=int(za[ffd.ARG_INDEX["zone_col_mask"]].shape[0])),
+             ops=ops_z, bytes=bytes_z),
         dict(name="compact_takes", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/ffd.py:325", launches=launches["compact_takes"],
              max_abs_err=e2, ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
@@ -438,11 +625,12 @@ def decisions(res):
     return dict(placements=dict(res.placements), claims=claims, errors=sorted(res.errors))
 
 
-def breakdown(inp, repeats: int) -> dict:
+def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     """Median ms of the solve's stages, run one after another as the solver
     runs them: host encode, host kernel-arg padding, upload, the device
-    work (scan + compaction, CUDA events), the one fetch, and the host
-    decode and bookkeeping (rest_ms: a full solve minus the stages)."""
+    work (scan at the solve's final claim bucket M + compaction, CUDA
+    events), the one fetch, and the host decode and bookkeeping (rest_ms:
+    a full solve minus the stages)."""
     import statistics
 
     import torch
@@ -471,10 +659,9 @@ def breakdown(inp, repeats: int) -> dict:
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         total = int(sum(len(p) for p in enc.group_pods))
-        M = tb.initial_claim_bucket(total, 1024)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = ffd.ffd_solve(*args, max_claims=M)
+        out = ffd.ffd_solve(*args, max_claims=M, zone_engine=zone)
         Sp, Ep = out.take_e.shape
         flat = tb._pack_outputs_delta(out, tb.delta_capacity(total, Sp, Ep, M),
                                       tb.delta_uniq_capacity(Sp, M))
@@ -494,8 +681,8 @@ def breakdown(inp, repeats: int) -> dict:
     return med
 
 
-KERNEL_NAMES = ("ffd_fast_scan_kernel", "compact_takes_kernel", "meta_pack_kernel",
-                "meta_first_kernel", "meta_finish_kernel")
+KERNEL_NAMES = ("ffd_scan_kernel<false", "ffd_scan_kernel<true", "compact_takes_kernel",
+                "meta_pack_kernel", "meta_first_kernel", "meta_finish_kernel")
 
 
 def device_profile(inp) -> dict:
@@ -568,6 +755,26 @@ def tail(samples) -> dict:
                 solves_with_gen2_gc=sum(1 for _, _, c in samples if c[2]))
 
 
+class PlainOnCard:
+    """Route the kernel wrappers to their plain versions, on the card's
+    tensors, for a reference solve through TorchSolver (used where the CPU
+    plain path would take minutes: the mixed input's ~10^4 zoned events)."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.solver.cuda import ffd
+
+        self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda)
+        ffd._ffd_solve_cuda = ffd.ffd_solve_plain
+        ffd._compact_takes_cuda = ffd.compact_takes_plain
+        ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
+        return self
+
+    def __exit__(self, *exc):
+        from karpenter_tpu_torch.solver.cuda import ffd
+
+        ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda = self.saved
+
+
 def main() -> int:
     import torch
 
@@ -578,6 +785,7 @@ def main() -> int:
     from karpenter_tpu_torch.solver import backend as tb
     from karpenter_tpu_torch.solver.cuda import build, ffd
 
+    t_start = time.perf_counter()
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
     dev = torch.device("cuda")
     card = gpu_line()
@@ -598,26 +806,40 @@ def main() -> int:
     inputs = {
         "surge": build_input(PODS),
         "surge_e2e": build_e2e_input(PODS, NODES),
+        "config3": build_config3_input(PODS),
+        "config4": build_config4_input(PODS),
     }
+    once = {"mixed": build_mixed_input(PODS)}
     phases = {}
-    for name, inp in inputs.items():
+    for name, inp in {**inputs, **once}.items():
         phases[name] = kernel_phase(inp, dev)
         ph = phases[name]
-        print(f"kernels[{name}]: M={ph['M']} entries={ph['n_entries']} "
-              f"uniq={ph['n_uniq']} max_abs_err={ph['errs']}", flush=True)
+        print(f"kernels[{name}]: zone={ph['zone']} M={ph['M']} used={int(ph['out'].state.used)} "
+              f"events={ph['events']} entries={ph['n_entries']} uniq={ph['n_uniq']} "
+              f"max_abs_err={ph['errs']} plain_s={ph['plain_once_s']:.2f}", flush=True)
+    assert all(phases[n]["zone"] for n in ("config3", "config4", "mixed"))
 
     # the scan's hostname, limit, taint and node paths, which the surge never
-    # reaches, at small shapes
+    # reaches, and the zoned branch's eventful path, anti registration and
+    # preemption bound, at small shapes
     for seed in range(8):
         ph = kernel_phase(build_constrained_input(seed), dev)
         assert ph["dims"]["Qp"] >= 8 and sum(ph["errs"]) == 0
     print("kernels[constrained x8]: max_abs_err=(0, 0, 0)", flush=True)
+    zone_events = []
+    for seed in range(8):
+        ph = kernel_phase(build_zone_input(seed), dev)
+        assert ph["zone"] and sum(ph["errs"]) == 0
+        assert bool(ph["out"].state.v_owner_z.any()), "no anti owner registered"
+        zone_events.append(ph["events"])
+    assert sum(e > 8 for e in zone_events) >= 4, zone_events  # beyond the closed forms
+    print(f"kernels[zone x8]: max_abs_err=(0, 0, 0) events={zone_events}", flush=True)
 
     # ---- phase 3: the main path through TorchSolver ---------------------------------
     TorchSolver = tb.TorchSolver
-    solver = TorchSolver()
+    solver = TorchSolver(max_claims=MAX_CLAIMS)
     cold = {}
-    for name, inp in inputs.items():  # warm: allocator, encode caches, static uploads
+    for name, inp in {**inputs, **once}.items():  # warm: allocator, encode caches, uploads
         solver.solve(inp)
         cold[name] = dict(solver.transfer.__dict__)
     for k in ffd.LAUNCHES:
@@ -635,17 +857,26 @@ def main() -> int:
                                   list(watch.collections)))
             results[name] = res
             transfer[name] = dict(solver.transfer.__dict__)
+    t0 = time.perf_counter()
+    results["mixed"] = solver.solve(once["mixed"])
+    mixed_ms = (time.perf_counter() - t0) * 1e3
+    transfer["mixed"] = dict(solver.transfer.__dict__)
     watch.close()
     launches = dict(ffd.LAUNCHES)
     for k, v in launches.items():
         assert v > 0, f"kernel {k} never launched on the main path"
-    plain = TorchSolver(device="cpu")
-    for name, inp in inputs.items():
-        ref = plain.solve(inp)
+    plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
+    for name, inp in {**inputs, **once}.items():
+        if name == "mixed":
+            with PlainOnCard():
+                ref = TorchSolver(max_claims=MAX_CLAIMS).solve(inp)
+        else:
+            ref = plain.solve(inp)
         assert decisions(results[name]) == decisions(ref), f"{name}: decisions differ from the plain path"
         res = results[name]
         assert len(res.placements) + len(res.errors) == PODS, name
         assert all(c.pod_uids for c in res.claims), name
+    print("decisions: equal to the plain path on every cell", flush=True)
 
     # ---- phase 4: forced wide re-fetch ---------------------------------------------
     real_cap = tb.delta_capacity
@@ -658,27 +889,36 @@ def main() -> int:
     assert wide.stats["wide_refetches"] >= 1, wide.stats
     assert decisions(res_w) == decisions(results["surge_e2e"]), "wide re-fetch changed decisions"
 
-    stages = {name: breakdown(inp, 5) for name, inp in inputs.items()}
+    stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
+              for name, inp in inputs.items()}
     profiles = {name: device_profile(inp) for name, inp in inputs.items()}
     int_rate = int32_ops_per_s()
-    rows = kernel_rows(phases["surge"], launches, int_rate)
+    rows = kernel_rows(phases["surge"], phases["config3"], launches, int_rate)
+    n_solves = {"ffd_fast_scan": 2 * REPEATS, "ffd_zoned_scan": 2 * REPEATS + 1,
+                "compact_takes": 4 * REPEATS + 1, "claim_meta": 4 * REPEATS + 1}
     print(json.dumps({"kernels": rows}))
     solve_line = {
         "solve": {
             name: dict(
                 pods=PODS, nodes=len(inputs[name].nodes), **tail(samples[name]),
-                claims=len(results[name].claims),
+                claims=len(results[name].claims), M=phases[name]["M"],
+                events_per_solve=phases[name]["events"],
                 unplaced=len(results[name].errors), steady=transfer[name],
                 cold=cold[name], stages=stages[name], profile=profiles[name],
             )
             for name in inputs
         },
-        "launches_per_solve": {k: v / (REPEATS * len(inputs)) for k, v in launches.items()},
+        "mixed": dict(pods=PODS, ms=mixed_ms, claims=len(results["mixed"].claims),
+                      M=phases["mixed"]["M"], events_per_solve=phases["mixed"]["events"],
+                      unplaced=len(results["mixed"].errors), steady=transfer["mixed"]),
+        "launches": launches,
+        "launches_per_solve": {k: v / n_solves[k] for k, v in launches.items()},
         "claim_doublings": solver.stats["claim_doublings"],
         "wide_refetch_ok": True,
         "build_s": build_s,
         "int32_peak_ops_per_s": int_rate,
         "card": card,
+        "wall_s": time.perf_counter() - t_start,
     }
     print(json.dumps(solve_line))
     print(card)

@@ -7,8 +7,11 @@
 // wraps (done here in unsigned), `//` floors (C `/` truncates), ties in
 // argmax go to the lowest index, uint32 words are carried as raw bits.
 //
-// K1 ffd_fast_scan  replaces karpenter_tpu/solver/tpu/ffd.py:1884 ffd_solve
-//                   (_ffd_scan :395, fast branch step_body.fast :605-855).
+// K1 ffd_scan      replaces karpenter_tpu/solver/tpu/ffd.py:1884 ffd_solve
+//                   (_ffd_scan :395): ffd_scan_kernel<false> the fast branch
+//                   (step_body.fast :605-855), ffd_scan_kernel<true> adds the
+//                   zoned branch (step_body.zoned :860-1663, count_contrib
+//                   :587).
 // K2 compact_takes  replaces karpenter_tpu/solver/tpu/ffd.py:325 compact_takes.
 // K3 claim_meta     replaces karpenter_tpu/solver/tpu/ffd.py:358
 //                   compact_claim_meta plus the c_mask word pack of
@@ -110,7 +113,7 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
   return total;
 }
 
-// ---- K1: the fast-branch FFD scan ------------------------------------------
+// ---- K1: the FFD scan --------------------------------------------------------
 //
 // What bounds it on the H100: the scan is sequential over runs, and a run's
 // work is small — the [used, T] claim fit (about M·T·R integer divisions)
@@ -123,6 +126,24 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
 // OPEN claim (rows >= used have c_pool == -1 and capacity 0, so the pour
 // over [0, used) is exact), and only claims that received pods recompute
 // their type mask. Pools are walked in order inside the kernel.
+//
+// The kernel is a template on ZONE, the JAX scan's static zone_engine.
+// ZONE=false (a solve without V-axis sigs) is the fast branch alone.
+// ZONE=true adds, per run, the `constrained` test (ffd.py:1662): a run whose
+// group owns a V-axis sig or is a member of an anti sig goes through the
+// domain event engine (zoned_run below, ffd.py:860-1651); every other run
+// takes the fast branch and records its V-axis counts (count_contrib
+// :587-600) and claim-local matches (c_vm). The engine loops events in the
+// same block; each event's [Z] domain vectors and [P] pool rows sit in
+// shared memory (Z <= 32, one warp or one thread walks them), the per-claim
+// [M,T] and [M,Z,T] tests run one warp per open claim on the fly and keep
+// only [M] and [M,Z] results in global scratch, the [P,T] pool pass runs
+// one warp per pool, and v_count / v_owner_z / c_vm / c_vo stay in global
+// memory.
+
+constexpr int MAX_V = 128;        // solver/cuda/ffd.py MAX_V
+constexpr int MAX_Z = 32;         // solver/cuda/ffd.py MAX_Z
+constexpr int MAX_P = 64;         // solver/cuda/ffd.py MAX_P
 
 struct ScanArgs {
   const int* run_group; const int* run_count;
@@ -132,10 +153,14 @@ struct ScanArgs {
   const unsigned char* pool_type; const unsigned* pool_zc_bits; const int* pool_daemon;
   const int* pool_limit; const int* node_free; const unsigned char* node_compat;
   const unsigned char* q_member; const unsigned char* q_owner; const int* q_kind; const int* q_cap;
+  const unsigned char* v_member; const unsigned char* v_owner; const int* v_kind; const int* v_cap;
+  const int* v_primary; const int* v_aff; const int* node_zone; const unsigned* zone_col_mask;
+  const int* node_dom2; const int* col_axis; const int* group_daxis;
   int* e_cum; int* c_cum; unsigned char* c_mask; unsigned* c_zc_bits; unsigned* c_gbits;
   int* c_pool; int* used; int* p_usage; int* e_cm; int* e_co; int* c_cm; int* c_co;
-  int* take_e; int* take_c; int* leftover; int* scratch;
-  int S, G, T, E, P, R, Q, W, M;
+  int* v_count; unsigned char* v_owner_z; int* c_vm; unsigned char* c_vo;
+  int* take_e; int* take_c; int* leftover; int* events; int* scratch;
+  int S, G, T, E, P, R, Q, W, M, V, Z;
 };
 
 struct RunShared {
@@ -150,13 +175,56 @@ struct RunShared {
   int skip;
 };
 
-// hostname allowance of one row (Q axis) with owner = o & (kind != 2);
+// Shared state of the zoned branch (ZONE=true only): the run's V-axis
+// flags and every [Z] / [P] vector and scalar of one event.
+struct ZoneShared {
+  unsigned char mv[MAX_V], ov[MAX_V];
+  int vk[MAX_V];
+  unsigned zcm[MAX_Z];
+  int col_axis[MAX_Z];
+  int gax[MAX_Z], elig[MAX_Z], A[MAX_Z], A_base[MAX_Z], blk[MAX_Z], pbc[MAX_Z];
+  int cnt_p[MAX_Z], cnt_a[MAX_Z], B[MAX_Z];
+  int pos_node[MAX_Z], pos_claim[MAX_Z];
+  int first_ez[MAX_Z], first_cz[MAX_Z], tgt_e[MAX_Z], tgt_c[MAX_Z];
+  int kmax_z[MAX_Z], charge_zr[MAX_Z][MAX_R];
+  int T_zv[MAX_Z], fr_z[MAX_Z], n_z[MAX_Z], base_z[MAX_Z];
+  int contrib[MAX_Z], owner_rec[MAX_Z];
+  int kpz[NWARPS][MAX_Z];
+  unsigned nbits_p[MAX_P];
+  int kmax_p[MAX_P], elig_p[MAX_P], charge_p[MAX_P][MAX_R];
+  // per-run constants
+  int any_mv, g_ax, has_tsc, psig, cap_p, is_self, has_affs, asig, is_member_a;
+  int self_anti, has_owned, has_anti, any_ma, pure_tsc, multi_ok;
+  // per-run loop carry
+  int remaining, progress, fuel, events;
+  // per-event scalars
+  int m1, amin, nmin, any_present;
+  int e_first, c_first, multi_claim, tgts_bad;
+  int found_e, e_star, found_c, m_star, found_p, p_star;
+  int nz_fin, z_c, nz_fin_p, z_p, q_e, q_c, q_p, z_e;
+  int aff_bulk, cyc_eff, per_tgt, use_e, use_c, use_p;
+  int q_tot_p, full_p, n_open_p, mega_pre, mega_ok, n_mega, km0, trips0;
+  int charge0[MAX_R];
+  unsigned pz_star;
+};
+
+// global scratch of the scan (int words), laid out by scan_scratch_words()
+struct Scratch {
+  int* e_full; int* e_boot; int* c_full; int* c_boot; int* c_take; int* c_pref; int* k_t; int* fit_t;
+  // zoned branch
+  int* c_km; int* c_host; int* c_flag; int* c_apref;
+  unsigned* c_bits; int* k_cap; int* scat_z; int* scat_take; int* caps_mz; int* take_mz;
+};
+
+// hostname allowance of one row (Q axis); the fast branch's owner is
+// o & (kind != 2) (kind2_owner false), the zoned branch's the full o;
 // cm/co == nullptr reads zeros (fresh claims)
+template <bool KIND2_OWNER = false>
 __device__ int row_allowance(const RunShared& sh, int Q, const int* cm, const int* co) {
   int best = BIG;
   for (int q = 0; q < Q; ++q) {
     const int kind = sh.kq[q];
-    const bool member = sh.mg[q], owner = sh.og[q] && kind != 2;
+    const bool member = sh.mg[q], owner = sh.og[q] && (KIND2_OWNER || kind != 2);
     const bool relevant = owner || (kind == 1 && member);
     if (!relevant) continue;
     const int c = cm ? cm[q] : 0, o = co ? co[q] : 0;
@@ -191,8 +259,791 @@ __device__ __forceinline__ int fit_rows(const int* alloc, const int* cum, const 
   return max(k, 0);
 }
 
-__global__ void __launch_bounds__(NT) ffd_fast_scan_kernel(ScanArgs a) {
+__device__ __forceinline__ int ceildiv(int a, int b) { return wneg(floordiv(wneg(a), b)); }
+
+__device__ __forceinline__ int warp_max(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// [Z] count deltas of `take` pods landing on a claim with joint bits `bits`:
+// one per axis on which the claim's domain is single-valued (count_contrib)
+__device__ void claim_contrib(const ZoneShared& zs, int* contrib, int Z, unsigned bits, int take) {
+  for (int ax = 0; ax < 2; ++ax) {
+    int n = 0, zz = -1;
+    for (int z = 0; z < Z; ++z)
+      if (zs.col_axis[z] == ax && (bits & zs.zcm[z]) != 0u) { ++n; zz = z; }
+    if (n == 1) atomicAdd(&contrib[zz], take);
+  }
+}
+
+// [Z] count deltas of `take` pods on existing node e: its column on every axis
+__device__ void node_contrib(const ScanArgs& a, int* contrib, int e, int take) {
+  const int nz = a.node_zone[e], n2 = a.node_dom2[e];
+  if (nz >= 0 && nz < a.Z) atomicAdd(&contrib[nz], take);
+  if (n2 >= 0 && n2 < a.Z && n2 != nz) atomicAdd(&contrib[n2], take);
+}
+
+// ---- the zoned branch of one run: the domain event engine --------------------
+
+__device__ __forceinline__ int node_dom(const ScanArgs& a, const ZoneShared& zs, int e) {
+  return zs.g_ax == 0 ? a.node_zone[e] : a.node_dom2[e];
+}
+
+// Max consecutive pods into domain zt before a blocked domain with an earlier
+// first-fit target re-enters the allowed set (ffd.py:1038-1052).
+__device__ int preempt_bound(const ZoneShared& zs, int Z, int zt, int pos_t) {
+  if (!(zs.has_tsc && zs.nmin == 1 && zt == zs.amin)) return BIG;
+  const int cz = zs.cnt_p[min(max(zt, 0), Z - 1)];
+  int val = BIG;
+  for (int z = 0; z < Z; ++z) {
+    const int pos_z = min(zs.pos_node[z], zs.pos_claim[z]);
+    if (zs.pbc[z] && pos_z < pos_t)
+      val = min(val, wsub(wsub(wadd(zs.cnt_p[z], 1), zs.cap_p), cz));
+  }
+  return max(val, 0);
+}
+
+// argmin over z of the domain score of a claim / pool whose candidate set is
+// `inter` (bit z); non-candidates score BIG; ties go to the lowest z
+__device__ int domain_argmin(const ZoneShared& zs, int Z, unsigned inter, int mode) {
+  int best = 0, arg = 0;
+  for (int z = 0; z < Z; ++z) {
+    int sc = BIG;
+    if (inter >> z & 1u)
+      sc = mode == 0 ? wadd(wmul(zs.cnt_p[z], 64), z)
+                     : mode == 1 ? wadd(wmul(wneg(zs.cnt_a[z]), 64), z) : z;
+    if (z == 0 || sc < best) { best = sc; arg = z; }
+  }
+  return arg;
+}
+
+__device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, const Scratch& x,
+                          int s, int g) {
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int T = a.T, E = a.E, P = a.P, R = a.R, Q = a.Q, W = a.W, M = a.M, V = a.V, Z = a.Z;
+  const unsigned g_zc = a.group_zc_bits[g];
+  const unsigned char* compat = a.group_compat_t + (size_t)g * T;
+  const unsigned* g_nok = a.group_pair_nok + (size_t)g * W;
+  const unsigned gbit = 1u << (g & 31);
+  const int gword = g >> 5;
+
+  // ---- per-run setup (ffd.py:860-895) ---------------------------------------
+  if (tid < Z) {
+    zs.zcm[tid] = a.zone_col_mask[tid];
+    zs.col_axis[tid] = a.col_axis[tid];
+  }
+  for (int e = tid; e < E; e += NT) a.take_e[(size_t)s * E + e] = 0;
+  for (int m = tid; m < M; m += NT) x.c_take[m] = 0;
+  if (tid == 0) {
+    zs.g_ax = a.group_daxis[g];
+    const int psg = a.v_primary[g];
+    zs.has_tsc = psg >= 0;
+    zs.psig = min(max(psg, 0), V - 1);
+    zs.cap_p = a.v_cap[zs.psig];
+    zs.is_self = zs.mv[zs.psig];
+    const int asg = a.v_aff[g];
+    zs.has_affs = asg >= 0;
+    zs.asig = min(max(asg, 0), V - 1);
+    zs.is_member_a = zs.mv[zs.asig];
+    int self_anti = 0, has_owned = 0, has_anti = 0, any_ma = 0;
+    for (int v = 0; v < V; ++v) {
+      const bool blk = zs.ov[v] && (zs.vk[v] == 1 || zs.vk[v] == 3);
+      if (blk && zs.mv[v]) self_anti = 1;
+      if (zs.ov[v]) has_owned = 1;
+      if (blk) has_anti = 1;
+      if (zs.mv[v] && zs.vk[v] == 1) any_ma = 1;
+    }
+    zs.self_anti = self_anti;
+    zs.has_owned = has_owned;
+    zs.has_anti = has_anti;
+    zs.any_ma = any_ma;
+    zs.pure_tsc = zs.has_tsc && !self_anti && !zs.has_affs && !any_ma && !has_anti;
+    zs.multi_ok = !zs.has_tsc && !self_anti;
+    zs.remaining = sh.remaining;
+    zs.fuel = wadd(sh.remaining, 8);
+    zs.progress = 1;
+    zs.events = 0;
+  }
+  __syncthreads();
+  if (tid < Z) {
+    zs.gax[tid] = zs.col_axis[tid] == zs.g_ax;
+    zs.elig[tid] = zs.gax[tid] && (g_zc & zs.zcm[tid]) != 0u;
+  }
+  __syncthreads();
+
+  while (zs.remaining > 0 && zs.progress && zs.fuel > 0) {
+    const int used0 = sh.used;
+    const int remaining = zs.remaining;
+    // ---- allowed domains A and per-domain budgets B (ffd.py:901-932) ------
+    if (tid < Z) {
+      const int z = tid;
+      zs.cnt_p[z] = a.v_count[zs.psig * Z + z];
+      zs.cnt_a[z] = a.v_count[zs.asig * Z + z];
+      bool blk = false;
+      for (int v = 0; v < V; ++v) {
+        if (zs.ov[v] && (zs.vk[v] == 1 || zs.vk[v] == 3) && a.v_count[v * Z + z] > 0) blk = true;
+        if (zs.mv[v] && zs.vk[v] == 1 && a.v_owner_z[v * Z + z]) blk = true;
+      }
+      zs.blk[z] = blk;
+      zs.pos_node[z] = BIG;
+      zs.pos_claim[z] = BIG;
+      zs.first_ez[z] = I32MAX;
+      zs.first_cz[z] = I32MAX;
+      zs.contrib[z] = 0;
+      zs.kmax_z[z] = 0;
+    }
+    for (int i = tid; i < Z * MAX_R; i += NT) zs.charge_zr[i / MAX_R][i % MAX_R] = I32MAX;
+    for (int i = tid; i < P * MAX_R; i += NT) zs.charge_p[i / MAX_R][i % MAX_R] = I32MAX;
+    if (tid == 0) {
+      zs.multi_claim = 0;
+      zs.tgts_bad = 0;
+      zs.c_first = I32MAX;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int m1 = I32MAX, amin = 0, nmin = 0, second = BIG;
+      for (int z = 0; z < Z; ++z) {
+        const int c = zs.elig[z] ? zs.cnt_p[z] : BIG;
+        if (z == 0 || c < m1) { m1 = c; amin = z; }
+      }
+      for (int z = 0; z < Z; ++z) {
+        const int c = zs.elig[z] ? zs.cnt_p[z] : BIG;
+        if (c == m1) ++nmin;
+        if (z != amin) second = min(second, c);
+      }
+      int any_present = 0;
+      for (int z = 0; z < Z; ++z) any_present |= zs.cnt_a[z] > 0;
+      for (int z = 0; z < Z; ++z) {
+        const int c = zs.cnt_p[z];
+        const int m2 = (nmin == 1 && z == amin) ? second : m1;
+        int A = zs.elig[z], B = BIG;
+        if (zs.has_tsc) {
+          A = zs.elig[z] && wsub(wadd(c, 1), m1) <= zs.cap_p;
+          B = min(max(wsub(wadd(m2, zs.cap_p), c), 0), BIG);
+        }
+        A = A && !zs.blk[z];
+        if (zs.self_anti) B = min(B, 1);
+        zs.A_base[z] = A;
+        if (zs.has_affs) A = any_present ? (A && zs.cnt_a[z] > 0) : (zs.is_member_a ? A : 0);
+        if (zs.has_affs && !any_present) B = min(B, 1);
+        zs.A[z] = A;
+        zs.B[z] = B;
+        zs.pbc[z] = zs.elig[z] && !A && !zs.blk[z] && wsub(wadd(c, 1), zs.cap_p) <= second;
+      }
+      zs.m1 = m1;
+      zs.amin = amin;
+      zs.nmin = nmin;
+      zs.any_present = any_present;
+    }
+    __syncthreads();
+
+    // ---- existing-node candidate (ffd.py:934-944) -------------------------------
+    {
+      int my_first = I32MAX;
+      for (int e = tid; e < E; e += NT) {
+        const int fit = fit_rows(a.node_free + e * R, a.e_cum + e * R, sh.req, R);
+        const int host = row_allowance<true>(sh, Q, a.e_cm + e * Q, a.e_co + e * Q);
+        const int nd = node_dom(a, zs, e);
+        const bool base = a.node_compat[(size_t)g * E + e] && fit > 0 && host > 0;
+        const bool nz_ok = nd >= 0 ? zs.A[min(nd, Z - 1)] != 0 : !zs.has_owned;
+        const bool el = base && nz_ok;
+        x.e_full[e] = fit;
+        x.e_boot[e] = host;
+        if (el) {
+          my_first = min(my_first, e);
+          if (nd >= 0 && nd < Z) atomicMin(&zs.first_ez[nd], e);
+        }
+        if (base) {
+          const int nz = a.node_zone[e], n2 = a.node_dom2[e];
+          if (nz >= 0 && nz < Z) atomicMin(&zs.pos_node[nz], e);
+          if (n2 >= 0 && n2 < Z) atomicMin(&zs.pos_node[n2], e);
+        }
+      }
+      const int e_first = block_min(my_first, sh.red);
+      if (tid == 0) zs.e_first = e_first;
+    }
+
+    // ---- open-claim candidates (ffd.py:946-1011), one warp per claim -----------
+    for (int m = wid; m < used0; m += NWARPS) {
+      bool loc = false, ok = true;
+      for (int v = lane; v < V; v += 32) {
+        const int cvm = a.c_vm[m * V + v];
+        if (v == zs.asig) loc = cvm > 0;
+        if (zs.ov[v] && (zs.vk[v] == 1 || zs.vk[v] == 3) && cvm != 0) ok = false;
+        if (zs.mv[v] && zs.vk[v] == 1 && a.c_vo[m * V + v]) ok = false;
+      }
+      const bool local_aff = zs.has_affs && __any_sync(FULL, loc);
+      const bool anti_ok = __all_sync(FULL, ok);
+      bool clash = false;
+      for (int w = lane; w < W; w += 32) clash |= (a.c_gbits[(size_t)m * W + w] & g_nok[w]) != 0u;
+      const bool pair_ok = !__any_sync(FULL, clash);
+      const int pool = a.c_pool[m];
+      const bool is_open = pool >= 0;
+      const bool pool_ok = is_open && a.group_pool[g * P + min(max(pool, 0), P - 1)];
+      const unsigned czb = a.c_zc_bits[m];
+      unsigned bits_eff = 0u;
+      int node_ok = 0, host = 0, zcount = 0;
+      if (lane == 0) {
+        unsigned inter = 0u, az = 0u;
+        for (int z = 0; z < Z; ++z) {
+          const bool cz = (czb & zs.zcm[z]) != 0u;
+          if (cz && zs.gax[z]) ++zcount;
+          if (cz && (local_aff ? zs.A_base[z] : zs.A[z])) { inter |= 1u << z; az |= zs.zcm[z]; }
+        }
+        const bool aff_mode = zs.has_affs && zs.any_present && !local_aff;
+        const bool commit = zs.has_tsc || aff_mode || zs.has_anti;
+        const int dz = domain_argmin(zs, Z, inter, zs.has_tsc ? 0 : aff_mode ? 1 : 2);
+        bits_eff = (commit ? zs.zcm[dz] : az) & czb & g_zc;
+        node_ok = is_open && pair_ok && pool_ok && inter != 0u && bits_eff != 0u && anti_ok;
+        host = row_allowance<true>(sh, Q, a.c_cm + m * Q, a.c_co + m * Q);
+      }
+      bits_eff = __shfl_sync(FULL, bits_eff, 0);
+      node_ok = __shfl_sync(FULL, node_ok, 0);
+      host = __shfl_sync(FULL, host, 0);
+      zcount = __shfl_sync(FULL, zcount, 0);
+      __syncwarp();  // the previous claim's kpz reads are done
+      if (lane < Z) zs.kpz[wid][lane] = 0;
+      __syncwarp();
+      const int* cum = a.c_cum + m * R;
+      const unsigned char* mask = a.c_mask + (size_t)m * T;
+      int kbest = 0;
+      for (int t = lane; t < T; t += 32) {
+        if (!mask[t] || !compat[t]) continue;
+        const int k = fit_rows(a.type_alloc + t * R, cum, sh.req, R);
+        if (node_ok && (bits_eff & a.offer_zc_bits[t]) != 0u) kbest = max(kbest, k);
+        const unsigned zt = czb & g_zc & a.offer_zc_bits[t];
+        if (k >= 1 && zt != 0u)
+          for (int z = 0; z < Z; ++z)
+            if (zt & zs.zcm[z]) atomicMax(&zs.kpz[wid][z], k);
+      }
+      const int k_m = warp_max(kbest);
+      __syncwarp();
+      const bool claim_ok = is_open && pair_ok && pool_ok && host > 0 && anti_ok;
+      bool emz = false;
+      if (lane < Z) {
+        const int kp = zs.kpz[wid][lane];
+        emz = claim_ok && kp > 0;
+        x.caps_mz[(size_t)m * Z + lane] = (emz && zs.elig[lane]) ? min(kp, host) : 0;
+        if (emz) atomicMin(&zs.pos_claim[lane], E + m);
+      }
+      const unsigned mz = __ballot_sync(FULL, emz);
+      if (lane == 0) {
+        const bool elig_m = k_m > 0 && host > 0;
+        x.c_bits[m] = bits_eff;
+        x.c_km[m] = k_m;
+        x.c_host[m] = host;
+        x.c_flag[m] = (elig_m ? 1 : 0) | (node_ok ? 2 : 0);
+        unsigned eligmask = 0u;
+        for (int z = 0; z < Z; ++z) eligmask |= zs.elig[z] ? 1u << z : 0u;
+        if ((mz & eligmask) != 0u && zcount > 1) zs.tgts_bad = 1;
+        if (elig_m) {
+          atomicMin(&zs.c_first, m);
+          if (zcount > 1) zs.multi_claim = 1;
+          if (zcount == 1)
+            for (int z = 0; z < Z; ++z)
+              if ((czb & zs.zcm[z]) != 0u) atomicMin(&zs.first_cz[z], m);
+        }
+      }
+    }
+
+    // ---- per-pool new-claim candidates (ffd.py:1076-1135), one warp per pool --
+    for (int p = wid; p < P; p += NWARPS) {
+      const unsigned pzb = a.pool_zc_bits[p] & g_zc;
+      unsigned nbits = 0u;
+      int has_inter = 0;
+      if (lane == 0) {
+        unsigned inter = 0u, az = 0u;
+        for (int z = 0; z < Z; ++z)
+          if ((pzb & zs.zcm[z]) != 0u && zs.A[z]) { inter |= 1u << z; az |= zs.zcm[z]; }
+        const bool aff = zs.has_affs && zs.any_present;
+        const bool commit = zs.has_tsc || aff || zs.has_anti;
+        const int dz = domain_argmin(zs, Z, inter, zs.has_tsc ? 0 : aff ? 1 : 2);
+        nbits = (commit ? zs.zcm[dz] : az) & pzb;
+        has_inter = inter != 0u;
+      }
+      nbits = __shfl_sync(FULL, nbits, 0);
+      has_inter = __shfl_sync(FULL, has_inter, 0);
+      const int* daemon = a.pool_daemon + p * R;
+      int kmax = 0;
+      for (int t = lane; t < T; t += 32) {
+        const bool fit = compat[t] && a.pool_type[(size_t)p * T + t] &&
+                         (nbits & a.offer_zc_bits[t]) != 0u;
+        if (!fit) continue;
+        const int k = fit_rows(a.type_alloc + t * R, daemon, sh.req, R);
+        kmax = max(kmax, k);
+        if (k >= 1)
+          for (int r = 0; r < R; ++r) atomicMin(&zs.charge_p[p][r], a.type_charge[t * R + r]);
+      }
+      kmax = warp_max(kmax);
+      __syncwarp();
+      if (lane == 0) {
+        bool over = false;
+        for (int r = 0; r < R; ++r) {
+          if (zs.charge_p[p][r] == I32MAX) zs.charge_p[p][r] = 0;
+          if (a.p_usage[p * R + r] >= a.pool_limit[p * R + r]) over = true;
+        }
+        zs.nbits_p[p] = nbits;
+        zs.kmax_p[p] = kmax;
+        zs.elig_p[p] = a.group_pool[g * P + p] && has_inter && kmax > 0 && !over &&
+                       used0 < M && sh.fresh_allow > 0;
+      }
+    }
+    __syncthreads();
+
+    // ---- candidates, budgets and the preemption bound (ffd.py:1012-1149) ------
+    if (tid == 0) {
+      zs.found_e = zs.e_first != I32MAX;
+      zs.e_star = zs.found_e ? zs.e_first : 0;
+      zs.z_e = node_dom(a, zs, zs.e_star);
+      zs.found_c = zs.c_first != I32MAX;
+      zs.m_star = zs.found_c ? zs.c_first : 0;
+      int nz_fin = 0, z_c = 0;
+      if (zs.found_c) {
+        const unsigned b = x.c_bits[zs.m_star];
+        for (int z = Z - 1; z >= 0; --z)
+          if ((b & zs.zcm[z]) != 0u && zs.gax[z]) { ++nz_fin; z_c = z; }
+      }
+      zs.nz_fin = nz_fin;
+      zs.z_c = z_c;
+      const int z_e = zs.z_e;
+      const int bz_e = z_e >= 0
+          ? min(zs.B[min(z_e, Z - 1)], preempt_bound(zs, Z, z_e, zs.e_star)) : BIG;
+      zs.q_e = min(min(remaining, x.e_full[zs.e_star]), min(x.e_boot[zs.e_star], bz_e));
+      const int bz_c = nz_fin == 1 ? min(zs.B[z_c], preempt_bound(zs, Z, z_c, E + zs.m_star)) : BIG;
+      int q_c = min(min(remaining, zs.found_c ? x.c_km[zs.m_star] : 0),
+                    min(zs.found_c ? x.c_host[zs.m_star] : 0, bz_c));
+      if (zs.self_anti) q_c = min(q_c, 1);
+      zs.q_c = q_c;
+      int p_star = -1;
+      for (int p = 0; p < P && p_star < 0; ++p)
+        if (zs.elig_p[p]) p_star = p;
+      zs.found_p = p_star >= 0;
+      p_star = max(p_star, 0);
+      zs.p_star = p_star;
+      int nz_fin_p = 0, z_p = 0;
+      for (int z = Z - 1; z >= 0; --z)
+        if ((zs.nbits_p[p_star] & zs.zcm[z]) != 0u && zs.gax[z]) { ++nz_fin_p; z_p = z; }
+      zs.nz_fin_p = nz_fin_p;
+      zs.z_p = z_p;
+      const int bz_p = nz_fin_p == 1 ? min(zs.B[z_p], preempt_bound(zs, Z, z_p, E + used0)) : BIG;
+      int q_p = min(min(remaining, min(zs.kmax_p[p_star], sh.fresh_allow)), bz_p);
+      if (zs.self_anti) q_p = min(q_p, 1);
+      zs.q_p = q_p;
+      zs.full_p = min(zs.kmax_p[p_star], sh.fresh_allow);
+      // (A) multi-claim opening: the whole budgeted pour opens its claims
+      // in one event when the commit domain cannot rotate
+      zs.q_tot_p = bz_p;  // finished below once the affinity drains are known
+    }
+    __syncthreads();
+
+    // ---- (C) fixed-zone affinity bulk drain (ffd.py:1151-1188) ----------------
+    {
+      const unsigned not_zp = ~zs.zcm[zs.z_p];
+      bool comm = true, fre = true;
+      for (int m = tid; m < used0; m += NT) {
+        const bool elig_m = x.c_flag[m] & 1;
+        const int caps = elig_m ? min(x.c_km[m], x.c_host[m]) : 0;
+        x.c_full[m] = caps;
+        if (elig_m) {
+          const unsigned b = x.c_bits[m];
+          if ((b & not_zp) != 0u) comm = false;
+          int ze = 0;
+          for (int z = 0; z < Z; ++z) ze += ((b & zs.zcm[z]) != 0u && zs.gax[z]) ? 1 : 0;
+          if (!(ze > 1)) fre = false;
+        }
+      }
+      const int all_comm = __syncthreads_and(comm);
+      const int all_free = __syncthreads_and(fre);
+      block_exclusive_scan(x.c_full, x.c_apref, used0, sh.ured);
+      const bool aff_bulk =
+          zs.has_affs && !zs.has_tsc && !zs.self_anti && !zs.has_anti && !zs.any_ma &&
+          !zs.found_e && zs.found_c && zs.found_p &&
+          ((zs.any_present && zs.nz_fin_p == 1 && all_comm) ||
+           (!zs.any_present && zs.is_member_a && all_free && zs.nz_fin_p > 1));
+      unsigned drained = 0;
+      if (aff_bulk)
+        for (int m = tid; m < used0; m += NT)
+          drained += (unsigned)min(max(wsub(remaining, x.c_apref[m]), 0), x.c_full[m]);
+      drained = block_sum(drained, sh.ured);
+      if (tid == 0) {
+        zs.aff_bulk = aff_bulk;
+        const int rem_p = wsub(remaining, (int)drained);
+        const int q_tot_p = zs.multi_ok ? min(rem_p, zs.q_tot_p) : zs.q_p;
+        const int p = zs.p_star;
+        int trips = BIG;
+        for (int r = 0; r < R; ++r) {
+          const int c = zs.charge_p[p][r];
+          const int head = wsub(a.pool_limit[p * R + r], a.p_usage[p * R + r]);
+          trips = min(trips, c > 0 ? max(ceildiv(head, max(c, 1)), 0) : BIG);
+        }
+        const int n_want = zs.full_p > 0 ? ceildiv(q_tot_p, max(zs.full_p, 1)) : 0;
+        zs.q_tot_p = q_tot_p;
+        zs.n_open_p = zs.multi_ok ? min(min(n_want, trips), M - used0) : 1;
+
+        // ---- balanced-phase cycle batching (ffd.py:1189-1245) ------------------
+        int mx = -BIG, n_zones = 0;
+        for (int z = 0; z < Z; ++z)
+          if (zs.elig[z]) { mx = max(mx, zs.cnt_p[z]); ++n_zones; }
+        bool cyc = zs.pure_tsc && zs.is_self && mx == zs.m1 && !zs.multi_claim &&
+                   (zs.found_e || zs.found_c);
+        const int k_sk = max(zs.cap_p, 1);
+        int cap_min = BIG;
+        for (int z = 0; z < Z; ++z) {
+          zs.tgt_e[z] = -1;
+          zs.tgt_c[z] = -1;
+          if (!zs.elig[z]) continue;
+          const bool fe = zs.first_ez[z] != I32MAX, fc = zs.first_cz[z] != I32MAX;
+          if (!fe && !fc) { cyc = false; continue; }
+          const int cap = fe ? min(x.e_full[zs.first_ez[z]], x.e_boot[zs.first_ez[z]])
+                             : min(x.c_km[zs.first_cz[z]], x.c_host[zs.first_cz[z]]);
+          cap_min = min(cap_min, cap);
+          if (fe) zs.tgt_e[z] = zs.first_ez[z]; else zs.tgt_c[z] = zs.first_cz[z];
+        }
+        const int rounds = min(floordiv(cap_min, k_sk), floordiv(remaining, max(wmul(k_sk, n_zones), 1)));
+        zs.cyc_eff = cyc && rounds >= 1 && n_zones >= 1;  // masked by mega below
+        zs.per_tgt = wmul(k_sk, rounds);
+
+        // water-fill mega preconditions (ffd.py:1341-1379)
+        bool no_node = true;
+        for (int z = 0; z < Z; ++z) no_node = no_node && (!zs.elig[z] || zs.pos_node[z] >= BIG);
+        zs.mega_pre = zs.pure_tsc && zs.is_self && no_node && !zs.tgts_bad && zs.found_p &&
+                      zs.cap_p == 1;
+        zs.mega_ok = 0;
+        zs.n_mega = 0;
+        zs.pz_star = a.pool_zc_bits[zs.p_star] & g_zc;
+      }
+      __syncthreads();
+    }
+
+    // ---- (B) closed-form water-fill batching (ffd.py:1275-1431) ----------------
+    if (zs.mega_pre) {
+      const int p = zs.p_star;
+      const unsigned pz = zs.pz_star;
+      for (int t = tid; t < T; t += NT) {
+        const int kc = fit_rows(a.type_alloc + t * R, a.pool_daemon + p * R, sh.req, R);
+        x.k_cap[t] = kc;
+        if (!compat[t] || !a.pool_type[(size_t)p * T + t]) continue;
+        const unsigned off = pz & a.offer_zc_bits[t];
+        if (off == 0u) continue;
+        for (int z = 0; z < Z; ++z) {
+          if ((off & zs.zcm[z]) == 0u) continue;
+          atomicMax(&zs.kmax_z[z], kc);
+          if (kc >= 1)
+            for (int r = 0; r < R; ++r) atomicMin(&zs.charge_zr[z][r], a.type_charge[t * R + r]);
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int z_first = 0;
+        for (int z = Z - 1; z >= 0; --z) if (zs.elig[z]) z_first = z;
+        const int kmax0 = zs.kmax_z[z_first];
+        bool kmax_eq = true, charge_eq = true, covers = true;
+        for (int z = 0; z < Z; ++z)
+          for (int r = 0; r < R; ++r)
+            if (zs.charge_zr[z][r] == I32MAX) zs.charge_zr[z][r] = 0;
+        for (int z = 0; z < Z; ++z) {
+          if (!zs.elig[z]) continue;
+          kmax_eq = kmax_eq && zs.kmax_z[z] == kmax0;
+          for (int r = 0; r < R; ++r) charge_eq = charge_eq && zs.charge_zr[z][r] == zs.charge_zr[z_first][r];
+          covers = covers && (zs.pz_star & zs.zcm[z]) != 0u;
+        }
+        int trips0 = BIG;
+        for (int r = 0; r < R; ++r) {
+          const int c = zs.charge_zr[z_first][r];
+          zs.charge0[r] = c;
+          const int head = wsub(a.pool_limit[p * R + r], a.p_usage[p * R + r]);
+          trips0 = min(trips0, c > 0 ? max(ceildiv(head, max(c, 1)), 0) : BIG);
+        }
+        // water-fill: theta = max level with sum(max(0, theta - c)) <=
+        // remaining over the sorted counts; the remainder goes one pod each
+        // to the lex-first domains at the water line
+        int cs[MAX_Z];
+        int nz_e = 0;
+        for (int z = 0; z < Z; ++z) {
+          int c = zs.elig[z] ? zs.cnt_p[z] : BIG;
+          nz_e += zs.elig[z] ? 1 : 0;
+          int i = z;
+          while (i > 0 && cs[i - 1] > c) { cs[i] = cs[i - 1]; --i; }
+          cs[i] = c;
+        }
+        int theta = -BIG, pref = 0;
+        for (int k = 1; k <= Z; ++k) {
+          pref = wadd(pref, cs[k - 1] < BIG ? cs[k - 1] : 0);
+          const int th = floordiv(wadd(remaining, pref), k);
+          const int nxt = k < Z ? cs[k] : BIG;
+          if (k <= nz_e && th >= cs[k - 1] && th <= nxt) theta = max(theta, th);
+        }
+        int sfill = 0;
+        for (int z = 0; z < Z; ++z)
+          if (zs.elig[z]) sfill = wadd(sfill, min(max(wsub(theta, zs.cnt_p[z]), 0), BIG));
+        const int r_rem = wsub(remaining, sfill);
+        int lexr = -1, tsum = 0;
+        for (int z = 0; z < Z; ++z) {
+          int tz = 0;
+          if (zs.elig[z]) {
+            tz = min(max(wsub(theta, zs.cnt_p[z]), 0), BIG);
+            if (zs.cnt_p[z] <= theta) { ++lexr; if (lexr < r_rem) ++tz; }
+          }
+          zs.T_zv[z] = tz;
+          tsum = wadd(tsum, tz);
+        }
+        zs.km0 = max(kmax0, 1);
+        zs.mega_ok = kmax0 > 0 && kmax_eq && charge_eq && covers && sh.fresh_allow >= kmax0 &&
+                     remaining > 0 && tsum == remaining;
+        zs.trips0 = trips0;
+      }
+      __syncthreads();
+      // per-domain prefix drains of every eligible single-domain claim in
+      // slot order, then the fresh claims each domain still needs
+      if (tid < Z) {
+        const int z = tid;
+        unsigned pref = 0u;
+        int tm = 0;
+        for (int m = 0; m < used0; ++m) {
+          const int caps = x.caps_mz[(size_t)m * Z + z];
+          const int take = min(max(wsub(zs.T_zv[z], (int)pref), 0), caps);
+          x.take_mz[(size_t)m * Z + z] = take;
+          pref += (unsigned)caps;
+          tm = wadd(tm, take);
+        }
+        const int fr = wsub(zs.T_zv[z], tm);
+        zs.fr_z[z] = fr;
+        zs.n_z[z] = ceildiv(fr, zs.km0);
+        zs.base_z[z] = zs.elig[z] ? wadd(zs.cnt_p[z], tm) : BIG;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int n_mega = 0;
+        for (int z = 0; z < Z; ++z) n_mega = wadd(n_mega, zs.n_z[z]);
+        zs.mega_ok = zs.mega_ok && n_mega <= M - used0 && zs.trips0 >= n_mega;
+        zs.n_mega = zs.mega_ok ? n_mega : 0;
+      }
+      __syncthreads();
+      if (zs.mega_ok) {
+        // fresh-claim slot order: rank (z, g) by (count at open, lex z)
+        const int km0 = zs.km0, n_mega = zs.n_mega;
+        for (int j = tid; j < M; j += NT) { x.scat_z[j] = 0; x.scat_take[j] = 0; }
+        __syncthreads();
+        for (int i = tid; i < n_mega; i += NT) {
+          int z = 0, off = i;
+          while (off >= zs.n_z[z]) { off -= zs.n_z[z]; ++z; }
+          const int gg = off;
+          const int K = wadd(zs.base_z[z], wmul(gg, km0));
+          int rank = 0;
+          for (int z2 = 0; z2 < Z; ++z2) {
+            const int diff = wsub(K, zs.base_z[z2]);
+            rank += min(max(ceildiv(diff, km0), 0), zs.n_z[z2]);
+            if (diff >= 0 && diff % km0 == 0 && floordiv(diff, km0) < zs.n_z[z2] && z2 < z) ++rank;
+          }
+          if (rank < M) {
+            x.scat_z[rank] = z;
+            x.scat_take[rank] = min(max(wsub(zs.fr_z[z], wmul(gg, km0)), 0), km0);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- selection & unified masked apply (ffd.py:1432-1628) --------------------
+    if (tid == 0) {
+      const bool mega = zs.mega_ok;
+      const bool cyc = zs.cyc_eff && !mega;
+      zs.cyc_eff = cyc;
+      zs.use_e = zs.found_e && !cyc && !mega;
+      zs.use_c = !zs.found_e && zs.found_c && !cyc && !mega && !zs.aff_bulk;
+      zs.use_p = !zs.found_e && (!zs.found_c || zs.aff_bulk) && zs.found_p && !cyc && !mega;
+      for (int z = 0; z < Z; ++z) zs.owner_rec[z] = 0;
+      if (zs.use_e && zs.z_e >= 0) zs.owner_rec[min(zs.z_e, Z - 1)] = 1;
+      if (zs.use_c && zs.nz_fin == 1) zs.owner_rec[zs.z_c] = 1;
+      if (zs.use_p && zs.nz_fin_p == 1) zs.owner_rec[zs.z_p] = 1;
+    }
+    __syncthreads();
+    unsigned placed = 0;
+    // existing nodes
+    for (int e = tid; e < E; e += NT) {
+      int add = (zs.use_e && e == zs.e_star) ? zs.q_e : 0;
+      if (zs.cyc_eff) {
+        const int nd = node_dom(a, zs, e);
+        if (nd >= 0 && nd < Z && zs.tgt_e[nd] == e) add = wadd(add, zs.per_tgt);
+      }
+      if (add == 0) continue;
+      for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = wadd(a.e_cum[e * R + r], wmul(add, sh.req[r]));
+      for (int q = 0; q < Q; ++q) {
+        if (sh.mg[q]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], add);
+        if (add > 0 && sh.og[q] && sh.kq[q] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
+      }
+      a.take_e[(size_t)s * E + e] = wadd(a.take_e[(size_t)s * E + e], add);
+      node_contrib(a, zs.contrib, e, add);
+      placed += (unsigned)add;
+    }
+    // open claims: pours, balanced-cycle targets, affinity-bulk and
+    // water-fill drains, one warp per claim
+    for (int m = wid; m < used0; m += NWARPS) {
+      int add = 0, drain = 0;
+      if (lane == 0) {
+        if (zs.use_c && m == zs.m_star) add = zs.q_c;
+        if (zs.cyc_eff)
+          for (int z = 0; z < Z; ++z)
+            if (zs.tgt_c[z] == m) add = wadd(add, zs.per_tgt);
+        if (zs.aff_bulk)
+          add = wadd(add, min(max(wsub(remaining, x.c_apref[m]), 0), x.c_full[m]));
+        if (zs.mega_ok)
+          for (int z = 0; z < Z; ++z) drain = wadd(drain, x.take_mz[(size_t)m * Z + z]);
+      }
+      add = __shfl_sync(FULL, add, 0);
+      drain = __shfl_sync(FULL, drain, 0);
+      if (add == 0 && drain == 0) continue;
+      const unsigned bits_eff = x.c_bits[m];
+      const bool node_ok = x.c_flag[m] & 2;
+      const unsigned czb = a.c_zc_bits[m];
+      const unsigned cz_after = add > 0 ? bits_eff : czb;
+      const int* cum = a.c_cum + m * R;
+      unsigned char* mask = a.c_mask + (size_t)m * T;
+      for (int t = lane; t < T; t += 32) {
+        bool mk = mask[t];
+        const int k = fit_rows(a.type_alloc + t * R, cum, sh.req, R);
+        if (add > 0) {
+          const bool fit = mk && compat[t] && (bits_eff & a.offer_zc_bits[t]) != 0u;
+          mk = fit && (node_ok ? k : 0) >= add;
+        }
+        if (drain > 0) mk = mk && compat[t] && (cz_after & a.offer_zc_bits[t]) != 0u && k >= drain;
+        mask[t] = mk;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        const int tot = wadd(add, drain);
+        const int nco = (add > 0 ? 1 : 0) + (drain > 0 ? 1 : 0);
+        for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(tot, sh.req[r]));
+        a.c_zc_bits[m] = cz_after;
+        if (add > 0 || drain > 0) a.c_gbits[(size_t)m * W + gword] |= gbit;
+        for (int q = 0; q < Q; ++q) {
+          if (sh.mg[q]) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], tot);
+          if (sh.og[q] && sh.kq[q] == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], nco);
+        }
+        for (int v = 0; v < V; ++v) {
+          if (zs.mv[v]) a.c_vm[m * V + v] = wadd(a.c_vm[m * V + v], tot);
+          if (add > 0 && zs.ov[v] && zs.vk[v] == 1) a.c_vo[m * V + v] = 1;
+        }
+        x.c_take[m] = wadd(x.c_take[m], tot);
+        claim_contrib(zs, zs.contrib, Z, cz_after, tot);
+        placed += (unsigned)tot;
+      }
+    }
+    // fresh claims: the (A) multi-claim open or the (B) mega generations
+    const int n_fresh = zs.use_p ? zs.n_open_p : zs.n_mega;
+    for (int j = wid; j < n_fresh; j += NWARPS) {
+      const int m = used0 + j;
+      const int p = zs.p_star;
+      int take;
+      unsigned bits;
+      if (zs.use_p) {
+        take = zs.multi_ok
+            ? min(max(wsub(zs.q_tot_p, wmul(j, max(zs.full_p, 1))), 0), zs.full_p) : zs.q_p;
+        bits = zs.nbits_p[p];
+      } else {
+        take = x.scat_take[j];
+        bits = zs.zcm[x.scat_z[j]] & zs.pz_star;
+      }
+      unsigned char* mask = a.c_mask + (size_t)m * T;
+      const int* daemon = a.pool_daemon + p * R;
+      for (int t = lane; t < T; t += 32) {
+        const bool fit = compat[t] && a.pool_type[(size_t)p * T + t] &&
+                         (bits & a.offer_zc_bits[t]) != 0u;
+        const int k = !fit ? 0 : zs.use_p ? fit_rows(a.type_alloc + t * R, daemon, sh.req, R)
+                                          : x.k_cap[t];
+        mask[t] = fit && k >= take;
+      }
+      if (lane == 0) {
+        for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(daemon[r], wmul(take, sh.req[r]));
+        a.c_zc_bits[m] = bits;
+        for (int w = 0; w < W; ++w) a.c_gbits[(size_t)m * W + w] = (w == gword) ? gbit : 0u;
+        a.c_pool[m] = p;
+        for (int q = 0; q < Q; ++q) {
+          a.c_cm[m * Q + q] = sh.mg[q] ? take : 0;
+          a.c_co[m * Q + q] = (take > 0 && sh.og[q] && sh.kq[q] == 1) ? 1 : 0;
+        }
+        for (int v = 0; v < V; ++v) {
+          a.c_vm[m * V + v] = zs.mv[v] ? take : 0;
+          if (zs.use_p) a.c_vo[m * V + v] = take > 0 && zs.ov[v] && zs.vk[v] == 1;
+        }
+        x.c_take[m] = wadd(x.c_take[m], take);
+        claim_contrib(zs, zs.contrib, Z, bits, take);
+        placed += (unsigned)take;
+      }
+    }
+    placed = block_sum(placed, sh.ured);  // also orders the contrib atomics
+    // domain counts, anti-owner registration and the event's bookkeeping
+    for (int i = tid; i < V * Z; i += NT) {
+      const int v = i / Z, z = i % Z;
+      if (zs.mv[v]) a.v_count[i] = wadd(a.v_count[i], zs.contrib[z]);
+      if (zs.ov[v] && zs.vk[v] == 1 && zs.owner_rec[z]) a.v_owner_z[i] = 1;
+    }
+    if (tid == 0) {
+      const int p = zs.p_star;
+      const int n_open = zs.use_p ? zs.n_open_p : 0;
+      for (int r = 0; r < R; ++r) {
+        a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(zs.charge_p[p][r], n_open));
+        if (zs.mega_ok) a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(zs.charge0[r], zs.n_mega));
+      }
+      sh.used = used0 + n_open + zs.n_mega;
+      zs.remaining = wsub(remaining, (int)placed);
+      zs.progress = placed > 0;
+      zs.fuel = wsub(zs.fuel, 1);
+      zs.events += 1;
+    }
+    __syncthreads();
+  }
+  for (int m = tid; m < M; m += NT) a.take_c[(size_t)s * M + m] = x.c_take[m];
+  if (tid == 0) {
+    a.leftover[s] = zs.remaining;
+    *a.events = wadd(*a.events, zs.events);
+  }
+  __syncthreads();
+}
+
+// the scan's global scratch (int words; scan_scratch_words() in
+// solver/cuda/ffd.py sizes it): the fast branch's rows first, then the
+// zoned branch's
+__device__ __forceinline__ Scratch zone_scratch(const ScanArgs& a) {
+  const int T = a.T, E = a.E, M = a.M;
+  Scratch x;
+  x.e_full = a.scratch;             // [E] cap_full, then the pour cap / prefix; zoned: e_fit
+  x.e_boot = x.e_full + E;          // [E]; zoned: e_host
+  x.c_full = x.e_boot + E;          // [M]; zoned: affinity-bulk caps
+  x.c_boot = x.c_full + M;          // [M]
+  x.c_take = x.c_boot + M;          // [M] this run's claim takes
+  x.c_pref = x.c_take + M;          // [M]
+  x.k_t = x.c_pref + M;             // [T]
+  x.fit_t = x.k_t + T;              // [T]
+  x.c_km = x.fit_t + T;             // [M] k_m
+  x.c_host = x.c_km + M;            // [M] c_host
+  x.c_flag = x.c_host + M;          // [M] bit 0 elig_m, bit 1 node_ok
+  x.c_apref = x.c_flag + M;         // [M] affinity-bulk pour prefix
+  x.c_bits = (unsigned*)(x.c_apref + M);  // [M] bits_eff
+  x.k_cap = (int*)(x.c_bits + M);   // [T] fresh-claim fit on p_star
+  x.scat_z = x.k_cap + T;           // [M]
+  x.scat_take = x.scat_z + M;       // [M]
+  x.caps_mz = x.scat_take + M;      // [M, Z]
+  x.take_mz = x.caps_mz + (size_t)M * a.Z;  // [M, Z]
+  return x;
+}
+
+template <bool ZONE>
+__global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   __shared__ RunShared sh;
+  ZoneShared* zs = nullptr;
+  Scratch x{};
+  if constexpr (ZONE) {
+    __shared__ ZoneShared zone_sh;
+    zs = &zone_sh;
+    x = zone_scratch(a);
+  }
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int T = a.T, E = a.E, P = a.P, R = a.R, Q = a.Q, W = a.W, M = a.M;
   int* e_full = a.scratch;          // [E] cap_full, then the pour cap / prefix
@@ -226,6 +1077,12 @@ __global__ void __launch_bounds__(NT) ffd_fast_scan_kernel(ScanArgs a) {
       sh.tot[q] = 0u;
     }
     for (int i = tid; i < M; i += NT) c_take[i] = 0;
+    if constexpr (ZONE)
+      for (int v = tid; v < a.V; v += NT) {
+        zs->mv[v] = a.v_member[g * a.V + v] != 0;
+        zs->ov[v] = a.v_owner[g * a.V + v] != 0;
+        zs->vk[v] = a.v_kind[v];
+      }
     __syncthreads();
     const int any_owned2 = __syncthreads_or(tid < Q && sh.og[tid] && sh.kq[tid] == 2);
     if (any_owned2) {
@@ -246,6 +1103,18 @@ __global__ void __launch_bounds__(NT) ffd_fast_scan_kernel(ScanArgs a) {
     }
     __syncthreads();
     const int boot2 = sh.boot2;
+    if constexpr (ZONE) {
+      // `constrained` (ffd.py:1662): the group owns a V-axis sig or is a
+      // member of an anti sig -> the domain event engine
+      const int constrained =
+          __syncthreads_or(tid < a.V && (zs->ov[tid] || (zs->mv[tid] && zs->vk[tid] == 1)));
+      if (constrained) {
+        zoned_run(a, sh, *zs, x, s, g);
+        continue;
+      }
+      const int any_mv = __syncthreads_or(tid < a.V && zs->mv[tid]);
+      if (tid == 0) zs->any_mv = any_mv;
+    }
 
     // ---- 1. existing nodes ----------------------------------------------
     int my_first = I32MAX, any_boot = 0;
@@ -363,6 +1232,9 @@ __global__ void __launch_bounds__(NT) ffd_fast_scan_kernel(ScanArgs a) {
           if (sh.mg[q]) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
           if (sh.og[q] && sh.kq[q] == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
         }
+        if constexpr (ZONE)
+          for (int v = 0; v < a.V; ++v)
+            if (zs->mv[v]) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], take);
       }
     }
     if (tid == 0) sh.cap2 = any_owned2 ? ((boot2 && !has_e_boot && !has_c_boot) ? 1 : 0) : BIG;
@@ -434,6 +1306,8 @@ __global__ void __launch_bounds__(NT) ffd_fast_scan_kernel(ScanArgs a) {
             a.c_cm[m * Q + q] = sh.mg[q] ? take_j : 0;
             a.c_co[m * Q + q] = (take_j > 0 && sh.og[q] && sh.kq[q] == 1) ? 1 : 0;
           }
+          if constexpr (ZONE)
+            for (int v = 0; v < a.V; ++v) a.c_vm[m * a.V + v] = zs->mv[v] ? take_j : 0;
           c_take[m] = take_j;
           placed += (unsigned)take_j;
         }
@@ -447,6 +1321,23 @@ __global__ void __launch_bounds__(NT) ffd_fast_scan_kernel(ScanArgs a) {
         }
       }
       __syncthreads();
+    }
+    if constexpr (ZONE) {
+      // zone-sig membership counts: the group may match other pods'
+      // selectors without owning a constraint (count_contrib)
+      if (zs->any_mv) {
+        if (tid < a.Z) zs->contrib[tid] = 0;
+        __syncthreads();
+        for (int e = tid; e < E; e += NT) {
+          const int take = a.take_e[(size_t)s * E + e];
+          if (take > 0) node_contrib(a, zs->contrib, e, take);
+        }
+        for (int m = tid; m < sh.used; m += NT)
+          if (c_take[m] > 0) claim_contrib(*zs, zs->contrib, a.Z, a.c_zc_bits[m], c_take[m]);
+        __syncthreads();
+        for (int i = tid; i < a.V * a.Z; i += NT)
+          if (zs->mv[i / a.Z]) a.v_count[i] = wadd(a.v_count[i], zs->contrib[i % a.Z]);
+      }
     }
     for (int m = tid; m < M; m += NT) a.take_c[(size_t)s * M + m] = c_take[m];
     if (tid == 0) a.leftover[s] = sh.remaining;
@@ -595,12 +1486,14 @@ __global__ void __launch_bounds__(NT) meta_finish_kernel(
 
 extern "C" {
 
-// ptrs: the 21 input arrays of the scan (ARG_SPEC order, V-axis and
-// per-solve-init entries left out), then e_cum, c_cum, c_mask, c_zc_bits,
-// c_gbits, c_pool, used, p_usage, e_cm, e_co, c_cm, c_co, take_e, take_c,
-// leftover, scratch. dims: S, G, T, E, P, R, Q, W, M.
-int ffd_fast_scan_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 37) return (int)cudaErrorInvalidValue;
+// ptrs: the 32 input arrays of the scan (ARG_SPEC order without pool_usage0,
+// node_q_member, node_q_owner and v_count0, which seed the carry), then
+// e_cum, c_cum, c_mask, c_zc_bits, c_gbits, c_pool, used, p_usage, e_cm,
+// e_co, c_cm, c_co, v_count, v_owner_z, c_vm, c_vo, take_e, take_c, leftover,
+// events, scratch. dims: S, G, T, E, P, R, Q, W, M, V, Z, zone (0: the
+// fast-branch instance, 1: the instance with the zoned branch).
+int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 53) return (int)cudaErrorInvalidValue;
   ScanArgs a;
   a.run_group = (const int*)p[0]; a.run_count = (const int*)p[1];
   a.group_req = (const int*)p[2]; a.group_compat_t = (const unsigned char*)p[3];
@@ -612,15 +1505,28 @@ int ffd_fast_scan_launch(void** p, int n, const int* d, void* stream) {
   a.pool_limit = (const int*)p[14]; a.node_free = (const int*)p[15];
   a.node_compat = (const unsigned char*)p[16]; a.q_member = (const unsigned char*)p[17];
   a.q_owner = (const unsigned char*)p[18]; a.q_kind = (const int*)p[19]; a.q_cap = (const int*)p[20];
-  a.e_cum = (int*)p[21]; a.c_cum = (int*)p[22]; a.c_mask = (unsigned char*)p[23];
-  a.c_zc_bits = (unsigned*)p[24]; a.c_gbits = (unsigned*)p[25]; a.c_pool = (int*)p[26];
-  a.used = (int*)p[27]; a.p_usage = (int*)p[28]; a.e_cm = (int*)p[29]; a.e_co = (int*)p[30];
-  a.c_cm = (int*)p[31]; a.c_co = (int*)p[32]; a.take_e = (int*)p[33]; a.take_c = (int*)p[34];
-  a.leftover = (int*)p[35]; a.scratch = (int*)p[36];
+  a.v_member = (const unsigned char*)p[21]; a.v_owner = (const unsigned char*)p[22];
+  a.v_kind = (const int*)p[23]; a.v_cap = (const int*)p[24]; a.v_primary = (const int*)p[25];
+  a.v_aff = (const int*)p[26]; a.node_zone = (const int*)p[27];
+  a.zone_col_mask = (const unsigned*)p[28]; a.node_dom2 = (const int*)p[29];
+  a.col_axis = (const int*)p[30]; a.group_daxis = (const int*)p[31];
+  a.e_cum = (int*)p[32]; a.c_cum = (int*)p[33]; a.c_mask = (unsigned char*)p[34];
+  a.c_zc_bits = (unsigned*)p[35]; a.c_gbits = (unsigned*)p[36]; a.c_pool = (int*)p[37];
+  a.used = (int*)p[38]; a.p_usage = (int*)p[39]; a.e_cm = (int*)p[40]; a.e_co = (int*)p[41];
+  a.c_cm = (int*)p[42]; a.c_co = (int*)p[43]; a.v_count = (int*)p[44];
+  a.v_owner_z = (unsigned char*)p[45]; a.c_vm = (int*)p[46]; a.c_vo = (unsigned char*)p[47];
+  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52];
   a.S = d[0]; a.G = d[1]; a.T = d[2]; a.E = d[3]; a.P = d[4]; a.R = d[5]; a.Q = d[6];
-  a.W = d[7]; a.M = d[8];
+  a.W = d[7]; a.M = d[8]; a.V = d[9]; a.Z = d[10];
+  const bool zone = d[11] != 0;
   if (a.Q > MAX_Q || a.R > MAX_R) return (int)cudaErrorInvalidValue;
-  ffd_fast_scan_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  if (zone && (a.V > MAX_V || a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P))
+    return (int)cudaErrorInvalidValue;
+  if (zone)
+    ffd_scan_kernel<true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  else
+    ffd_scan_kernel<false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

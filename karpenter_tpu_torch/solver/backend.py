@@ -3,7 +3,8 @@ karpenter_tpu/solver/backend.py for the provisioning solve.
 
 `TorchSolver` is the counterpart of `TPUSolver(arena=False)` with sparse
 constraint tables off, explain off, no mesh sharding, no cohort fusion and
-no resume: encode -> padded kernel args -> upload -> fast-branch FFD scan
+no resume: encode -> padded kernel args -> upload -> FFD scan, with the
+zoned event engine when the solve has zone/capacity-type domain sigs
 (solver/cuda/ffd.py) -> on-device delta compaction -> ONE fetch -> decode.
 
 Inputs outside this slice raise `UnsupportedInput`; there is no CPU
@@ -23,6 +24,7 @@ from ..api import wellknown as wk
 from ..provisioning.scheduler import ClaimResult, SolverInput, SolverResult
 from ..scheduling.requirements import IN, Requirement, Requirements
 from ..utils.resources import Resources
+from .cuda.ffd import ARG_INDEX
 from .encode import EncodedInput, UnpackableInput, encode, quantize_input
 
 
@@ -34,8 +36,9 @@ class Solver(abc.ABC):
 
 class UnsupportedInput(ValueError):
     """The input needs a part of the solver this port does not have yet
-    (relax ladder, zone engine, fallback groups, minValues replay, claim
-    overflow, ...). Raised instead of solving on the CPU."""
+    (relax ladder, fallback groups, minValues replay, claim overflow,
+    shapes past the scan kernel's shared rows, ...). Raised instead of
+    solving on the CPU."""
 
 
 def pack_bits32(rows: np.ndarray) -> np.ndarray:
@@ -428,8 +431,6 @@ class TorchSolver(Solver):
             return AsyncSolve(
                 lambda: SolverResult(placements={}, claims=[], errors={})
             )
-        if enc.V > 0:
-            raise UnsupportedInput("zone/capacity-type domain sigs need the zone engine")
         handle = self._device_solve_async(enc)
 
         def finish():
@@ -461,11 +462,11 @@ class TorchSolver(Solver):
             out.append(hit)
         return tuple(out)
 
-    def _dispatch(self, args, M: int, total_pods: int):
+    def _dispatch(self, args, M: int, total_pods: int, zone_engine: bool):
         """Scan + output packing. Returns (flat device buffer, unpack fn)."""
         from .cuda.ffd import ffd_solve
 
-        out = ffd_solve(*args, max_claims=M)
+        out = ffd_solve(*args, max_claims=M, zone_engine=zone_engine)
         Sp, Ep = out.take_e.shape
         Mb, Tp = out.state.c_mask.shape
         Wm = (Tp + 31) // 32
@@ -541,11 +542,20 @@ class TorchSolver(Solver):
             host_args, dims, prov = host_kernel_args(enc, self._bucket)
         except UnpackableInput as e:
             raise UnsupportedInput(str(e)) from e
-        from .cuda.ffd import MAX_Q, MAX_R
+        from .cuda.ffd import MAX_P, MAX_Q, MAX_R, MAX_V, MAX_Z
 
         if dims["Qp"] > MAX_Q or dims["R"] > MAX_R:
             raise UnsupportedInput(
                 f"Qp={dims['Qp']} or R={dims['R']} exceeds the scan kernel's shared rows"
+            )
+        # the zoned branch runs only when the solve has V-axis sigs, as in
+        # the JAX backend (zone_engine=enc.V > 0)
+        zone = enc.V > 0
+        D = len(host_args[ARG_INDEX["zone_col_mask"]])
+        if zone and (dims["Vp"] > MAX_V or D > MAX_Z or dims["Pp"] > MAX_P):
+            raise UnsupportedInput(
+                f"Vp={dims['Vp']}, {D} domain columns or Pp={dims['Pp']} exceed the zoned "
+                "scan kernel's shared rows"
             )
         self.transfer = _Transfer()
         args = self._device_args(host_args, prov)
@@ -555,7 +565,7 @@ class TorchSolver(Solver):
         # claim slots sized from the input, doubled on saturation; the
         # redispatch reuses the uploaded args
         M0 = initial_claim_bucket(total_pods, self.max_claims)
-        flat_dev, unpack = self._dispatch(args, M0, total_pods)
+        flat_dev, unpack = self._dispatch(args, M0, total_pods, zone)
 
         def finish() -> SolverResult:
             M = M0
@@ -571,7 +581,7 @@ class TorchSolver(Solver):
                     )
                 M = min(M * 2, self.max_claims)
                 self.stats["claim_doublings"] += 1
-                fd, up = self._dispatch(args, M, total_pods)
+                fd, up = self._dispatch(args, M, total_pods, zone)
                 flat = self._fetch(fd)
             c_mask = _unpack_words(f["c_mask_words"], T)
             c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)

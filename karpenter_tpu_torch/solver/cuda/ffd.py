@@ -1,11 +1,14 @@
 """FFD bin-packing on the GPU: the port of karpenter_tpu/solver/tpu/ffd.py.
 
-The scan walks runs of identical pods in FFD order. Per run it pours the
-run first-fit onto existing nodes, then onto open claims, then opens new
-claims pool by pool in closed form (see the JAX module's docstring for the
-derivation). This slice ports the FAST branch only (`zone_engine=False`):
-groups without zone/capacity-type domain constraints, with hostname (Q
-axis) constraints included. The zoned event engine is a later slice.
+The scan walks runs of identical pods in FFD order. A run whose group owns
+no zone/capacity-type domain constraint goes through the FAST branch: it
+pours first-fit onto existing nodes, then onto open claims, then opens new
+claims pool by pool in closed form, and records the domain counts of the
+V-axis sigs it is a member of. With `zone_engine=True` (the solve has V-axis
+sigs), a run whose group owns a V-axis sig or is a member of an anti sig
+goes through the ZONED branch instead: the domain event engine, a loop of
+events that each place a closed-form batch (see the JAX module's
+docstring for the derivation and the three closed forms).
 
 Each function comes in two forms:
 
@@ -22,9 +25,9 @@ Tensor conventions: all integer work is int32, as in the JAX reference
 (x64 off). uint32 bit words (zone/ct bits, group bits, type-mask words)
 travel as int32 bit patterns; bool tables are torch.bool.
 
-V-axis (zone-sig) state passes through unchanged. With no V-axis sigs
-(encode's V == 0, every v_member row False) the JAX fast branch leaves it
-unchanged as well, so all 16 FFDState fields compare equal.
+Both forms count the zoned branch's events per solve (`FFDOutput.events`),
+the counterpart of the JAX module's KTPU_DEBUG_EVENTS diagnostic that
+leaves `leftover` intact.
 """
 
 from __future__ import annotations
@@ -120,6 +123,7 @@ class FFDOutput(NamedTuple):
     take_c: torch.Tensor  # [S, M] int32 — pods of run s placed per claim slot
     leftover: torch.Tensor  # [S] int32 — pods of run s that failed to place
     state: FFDState
+    events: torch.Tensor  # scalar int32 — zoned-branch events of the solve
 
 
 DELTA_HEADER_WORDS = 3  # [overflow_flag, entry_count, uniq_meta_count] i32
@@ -127,8 +131,10 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 
 # Launch counts, one per wrapper call that launches its kernel(s). A run
 # that resets them and reads them after proves the path went through the
-# kernels.
-LAUNCHES = {"ffd_fast_scan": 0, "compact_takes": 0, "claim_meta": 0}
+# kernels. The scan counts its two instances apart: ffd_fast_scan is
+# ffd_scan_kernel<false> (zone_engine=False), ffd_zoned_scan is
+# ffd_scan_kernel<true>.
+LAUNCHES = {"ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0}
 
 I32 = torch.int32
 
@@ -258,24 +264,759 @@ def _pos_cap(cm, owned2):
     return v.min(dim=1).values
 
 
-def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
-    """Plain PyTorch transcription of the JAX `ffd_solve` fast branch."""
-    if zone_engine:
-        raise NotImplementedError("the zoned event engine is not ported yet")
-    a = dict(zip(ARG_SPEC, args))
-    st = _state0(args, max_claims)._asdict()
+def _zone_sets(bits, zcm):
+    """[...] joint-bit words -> [..., Z] bool domain marginals."""
+    return (bits[..., None] & zcm) != 0
+
+
+def _argmax_first(x) -> int:
+    """Index of the first maximum (jnp.argmax's tie rule), bools as 0/1."""
+    return int(torch.argmax(x.to(I32)))
+
+
+def _or_bits(words, dim):
+    """OR-reduce int32 bit words along `dim` (the JAX code sums disjoint
+    bit columns as uint32, which is the same OR)."""
+    return _i32_bits((words.to(torch.int64) & 0xFFFFFFFF).sum(dim=dim))
+
+
+def _ceil_div(a, b):
+    """-(-a // b), the JAX code's ceiling division."""
+    return -_floordiv(-a, b)
+
+
+class _Run:
+    """Per-run rows and flags shared by the fast and zoned branches."""
+
+    def __init__(self, a, g: int, count: int, W: int):
+        dev = a["node_free"].device
+        self.g = g
+        self.req = a["group_req"][g]
+        self.compat_t = a["group_compat_t"][g]
+        self.g_zc = a["group_zc_bits"][g]
+        self.gpool = a["group_pool"][g]
+        self.g_nok = a["group_pair_nok"][g]
+        self.m_g = a["q_member"][g]
+        self.o_g = a["q_owner"][g]
+        self.m_v = a["v_member"][g]
+        self.o_v = a["v_owner"][g]
+        self.gword = _gbit_word(g, W, dev)
+        self.remaining0 = count if bool(a["group_device"][g]) else 0
+        kq, cq = a["q_kind"], a["q_cap"]
+        self.fresh_allow = _hostname_allowance(
+            torch.zeros((1, kq.shape[0]), dtype=I32, device=dev),
+            torch.zeros((1, kq.shape[0]), dtype=I32, device=dev),
+            kq, cq, self.m_g, self.o_g & (kq != 2),
+        )[0]
+
+
+def _count_contrib(a, take_e, take_c, c_zc_after):
+    """[Z] recorded-pod count deltas: node domains on every axis, plus claims
+    whose domain is single-valued per axis (ffd.py count_contrib)."""
+    zcm, col_axis = a["zone_col_mask"], a["col_axis"]
+    Z = zcm.shape[0]
+    zidx = torch.arange(Z, dtype=I32, device=zcm.device)
+    e_zone_1h = (a["node_zone"][:, None] == zidx[None, :]) | (
+        a["node_dom2"][:, None] == zidx[None, :]
+    )
+    contrib = (take_e[:, None] * e_zone_1h).sum(dim=0)
+    cz = _zone_sets(c_zc_after, zcm)
+    rec = torch.zeros_like(cz)
+    for ax in range(2):
+        axm = col_axis == ax
+        single = (cz & axm[None, :]).sum(dim=1) == 1
+        rec = rec | (cz & axm[None, :] & single[:, None])
+    contrib = contrib + (take_c[:, None] * rec).sum(dim=0)
+    return contrib.to(I32)
+
+
+def _fast_plain(a, st, r: _Run, M: int):
+    """One run of the fast branch (ffd.py:605-855, dense form)."""
     dev = a["node_free"].device
-    E, R = a["node_free"].shape
+    E = a["node_free"].shape[0]
     P = a["pool_type"].shape[0]
-    W = a["group_pair_nok"].shape[1]
-    M = max_claims
     midx = torch.arange(M, dtype=I32, device=dev)
     eidx = torch.arange(E, dtype=I32, device=dev)
     type_alloc, type_charge = a["type_alloc"], a["type_charge"]
     offer_zc = a["offer_zc_bits"]
     kq, cq = a["q_kind"], a["q_cap"]
-    zero = torch.zeros((), dtype=I32, device=dev)
+    g, req, compat_t, g_zc, m_g, o_g = r.g, r.req, r.compat_t, r.g_zc, r.m_g, r.o_g
+    remaining = torch.tensor(r.remaining0, dtype=I32, device=dev)
+    m_g_i = m_g.to(I32)
+    m_v_i = r.m_v.to(I32)
+    owner_nb = o_g & (kq != 2)
+    anti_o = o_g & (kq == 1)
+    owned2 = o_g & (kq == 2)
+    tot_m_q = (st["e_cm"].sum(0) + st["c_cm"].sum(0)).to(I32)
+    boot_ok = torch.all(~owned2 | (m_g & (tot_m_q == 0)))
+    boot2 = torch.any(owned2) & boot_ok
 
+    # ---- 1. existing nodes ------------------------------------------------
+    e_base = _fit_count(a["node_free"], st["e_cum"], req)
+    e_base = torch.where(a["node_compat"][g], e_base, 0).to(I32)
+    e_allow_nb = _hostname_allowance(st["e_cm"], st["e_co"], kq, cq, m_g, owner_nb)
+    e_pos = _pos_cap(st["e_cm"], owned2)
+    e_cap_full = torch.minimum(e_base, torch.minimum(e_allow_nb, e_pos))
+    e_cap_boot = torch.minimum(e_base, e_allow_nb)
+    has_e_boot = torch.any(e_cap_boot > 0)
+    e_first = torch.argmax((e_cap_boot > 0).to(I32))
+    e_cap = torch.where(
+        boot2, torch.where(eidx == e_first, e_cap_boot, 0).to(I32), e_cap_full
+    )
+    take_e, remaining = _pour(e_cap, remaining)
+    st["e_cum"] = st["e_cum"] + take_e[:, None] * req[None, :]
+    st["e_cm"] = st["e_cm"] + take_e[:, None] * m_g_i[None, :]
+    st["e_co"] = st["e_co"] + ((take_e[:, None] > 0) & anti_o[None, :]).to(I32)
+
+    # ---- 2. open claims ---------------------------------------------------
+    A_bits = offer_zc & g_zc  # [T]
+    ok_off = (st["c_zc_bits"][:, None] & A_bits[None, :]) != 0  # [M, T]
+    pair_ok = ~torch.any((st["c_gbits"] & r.g_nok[None, :]) != 0, dim=1)
+    is_open = st["c_pool"] >= 0
+    pool_ok = torch.where(
+        is_open, r.gpool[torch.clamp(st["c_pool"], 0, P - 1).long()], False
+    )
+    k_nt = _fit_count_nt(type_alloc, st["c_cum"], req)
+    fit_nt = st["c_mask"] & compat_t[None, :] & ok_off
+    node_ok = is_open & pair_ok & pool_ok
+    k_nt = torch.where(fit_nt & node_ok[:, None], k_nt, 0).to(I32)
+    c_base = k_nt.max(dim=1).values
+    c_allow_nb = _hostname_allowance(st["c_cm"], st["c_co"], kq, cq, m_g, owner_nb)
+    c_pos = _pos_cap(st["c_cm"], owned2)
+    c_cap_full = torch.minimum(c_base, torch.minimum(c_allow_nb, c_pos))
+    c_cap_boot = torch.minimum(c_base, c_allow_nb)
+    has_c_boot = torch.any(c_cap_boot > 0)
+    c_first = torch.argmax((c_cap_boot > 0).to(I32))
+    c_cap = torch.where(
+        boot2,
+        torch.where(
+            has_e_boot, 0, torch.where(midx == c_first, c_cap_boot, 0)
+        ).to(I32),
+        c_cap_full,
+    )
+    take_c, remaining = _pour(c_cap, remaining)
+
+    added = take_c > 0
+    st["c_cum"] = st["c_cum"] + take_c[:, None] * req[None, :]
+    st["c_mask"] = torch.where(
+        added[:, None], fit_nt & (k_nt >= take_c[:, None]), st["c_mask"]
+    )
+    st["c_zc_bits"] = torch.where(added, st["c_zc_bits"] & g_zc, st["c_zc_bits"])
+    st["c_gbits"] = st["c_gbits"] | torch.where(added[:, None], r.gword[None, :], 0)
+    st["c_cm"] = st["c_cm"] + take_c[:, None] * m_g_i[None, :]
+    st["c_co"] = st["c_co"] + (added[:, None] & anti_o[None, :]).to(I32)
+    st["c_vm"] = st["c_vm"] + take_c[:, None] * m_v_i[None, :]
+
+    # ---- 3. new claims, pool by pool in priority order ---------------------
+    used = st["used"]
+    take_new = torch.zeros((M,), dtype=I32, device=dev)
+    cap2 = torch.where(
+        torch.any(owned2),
+        torch.where(boot2 & ~has_e_boot & ~has_c_boot, 1, 0),
+        BIG,
+    ).to(I32)
+    safe_req = torch.clamp(req, min=1)
+    for p in range(P):
+        new_bits = a["pool_zc_bits"][p] & g_zc
+        off_ok = (offer_zc & new_bits) != 0
+        fit_t = compat_t & a["pool_type"][p] & off_ok
+        daemon = a["pool_daemon"][p]
+        k_t = torch.where(
+            req[None, :] > 0,
+            _floordiv(type_alloc - daemon[None, :], safe_req[None, :]),
+            BIG,
+        )
+        k_t = torch.clamp(k_t.min(dim=1).values, min=0).to(I32)
+        k_t = torch.where(fit_t, k_t, 0).to(I32)
+        kmax = k_t.max()
+        full_take = torch.minimum(kmax, r.fresh_allow)
+
+        one_set = fit_t & (k_t >= 1)
+        charge_one = torch.where(one_set[:, None], type_charge, INT32_MAX).min(dim=0).values
+        charge_one = torch.where(charge_one == INT32_MAX, 0, charge_one).to(I32)
+        headroom = a["pool_limit"][p] - st["p_usage"][p]
+        trips = torch.where(
+            charge_one > 0,
+            torch.clamp(_ceil_div(headroom, torch.clamp(charge_one, min=1)), min=0),
+            BIG,
+        ).to(I32)
+        already_over = torch.any(st["p_usage"][p] >= a["pool_limit"][p])
+        allow = torch.where(already_over, 0, trips.min()).to(I32)
+
+        n_want = torch.where(
+            full_take > 0, _ceil_div(remaining, torch.clamp(full_take, min=1)), 0
+        ).to(I32)
+        slots_left = M - used
+        n_new = torch.minimum(torch.minimum(n_want, allow), slots_left).to(I32)
+        n_new = torch.minimum(n_new, cap2)
+        eligible = r.gpool[p] & (full_take > 0)
+        n_new = torch.where(eligible, n_new, 0).to(I32)
+
+        # the JAX scan gates this on n_new > 0; with n_new == 0 every
+        # update below is the identity, so it runs unconditionally
+        is_new = (midx >= used) & (midx < used + n_new)
+        j = midx - used
+        take_j = torch.where(
+            is_new,
+            torch.minimum(torch.clamp(remaining - j * full_take, min=0), full_take),
+            0,
+        ).to(I32)
+        st["c_cum"] = torch.where(
+            is_new[:, None], daemon[None, :] + take_j[:, None] * req[None, :], st["c_cum"]
+        )
+        new_mask = fit_t[None, :] & (k_t[None, :] >= take_j[:, None])
+        st["c_mask"] = torch.where(is_new[:, None], new_mask, st["c_mask"])
+        st["c_zc_bits"] = torch.where(is_new, new_bits, st["c_zc_bits"])
+        st["c_gbits"] = torch.where(is_new[:, None], r.gword[None, :], st["c_gbits"])
+        st["c_pool"] = torch.where(is_new, p, st["c_pool"]).to(I32)
+        st["c_cm"] = torch.where(
+            is_new[:, None], take_j[:, None] * m_g_i[None, :], st["c_cm"]
+        )
+        st["c_co"] = torch.where(
+            is_new[:, None],
+            ((take_j[:, None] > 0) & anti_o[None, :]).to(I32),
+            st["c_co"],
+        )
+        st["c_vm"] = torch.where(
+            is_new[:, None], take_j[:, None] * m_v_i[None, :], st["c_vm"]
+        )
+        p_usage = st["p_usage"].clone()
+        p_usage[p] = p_usage[p] + charge_one * n_new
+        st["p_usage"] = p_usage
+        take_new = take_new + take_j
+        remaining = (remaining - take_j.sum().to(I32)).to(I32)
+        used = (used + n_new).to(I32)
+        cap2 = (cap2 - n_new).to(I32)
+    st["used"] = used
+    take_c_total = take_c + take_new
+    # zone-sig membership counts (the group may match other pods' selectors
+    # without owning a constraint)
+    contrib = _count_contrib(a, take_e, take_c_total, st["c_zc_bits"])
+    st["v_count"] = st["v_count"] + m_v_i[:, None] * contrib[None, :]
+    return take_e, take_c_total, remaining
+
+
+def _zoned_plain(a, st, r: _Run, M: int):
+    """One constrained run through the domain event engine (ffd.py:860-1651):
+    events until the run is placed, an event places nothing, or the fuel
+    (remaining + 8) runs out. Returns (take_e, take_c, leftover, events)."""
+    dev = a["node_free"].device
+    E, R = a["node_free"].shape
+    P = a["pool_type"].shape[0]
+    zcm = a["zone_col_mask"]
+    Z = zcm.shape[0]
+    V = a["v_kind"].shape[0]
+    zidx = torch.arange(Z, dtype=I32, device=dev)
+    eidx = torch.arange(E, dtype=I32, device=dev)
+    midx = torch.arange(M, dtype=I32, device=dev)
+    type_alloc, type_charge = a["type_alloc"], a["type_charge"]
+    offer_zc = a["offer_zc_bits"]
+    q_kind, q_cap, v_kind = a["q_kind"], a["q_cap"], a["v_kind"]
+    pool_type, pool_daemon, pool_limit = a["pool_type"], a["pool_daemon"], a["pool_limit"]
+    g, req, compat_t, g_zc = r.g, r.req, r.compat_t, r.g_zc
+    member_g, owner_g, member_v, owner_v = r.m_g, r.o_g, r.m_v, r.o_v
+    fresh_allow = r.fresh_allow
+    mg_i, mv_i = member_g.to(I32), member_v.to(I32)
+    anti_q = owner_g & (q_kind == 1)
+
+    g_ax = int(a["group_daxis"][g])
+    gax_cols = a["col_axis"] == g_ax
+    nd = a["node_zone"] if g_ax == 0 else a["node_dom2"]
+    gz_zones = _zone_sets(g_zc, zcm) & gax_cols
+    psig_g = int(a["v_primary"][g])
+    has_tsc = psig_g >= 0
+    psig = min(max(psig_g, 0), V - 1)
+    cap_p = a["v_cap"][psig]
+    is_self = bool(member_v[psig])
+    asig_g = int(a["v_aff"][g])
+    has_affs = asig_g >= 0
+    asig = min(max(asig_g, 0), V - 1)
+    owned_anti = owner_v & (v_kind == 1)
+    owned_blk = owner_v & ((v_kind == 1) | (v_kind == 3))
+    member_anti = member_v & (v_kind == 1)
+    self_anti = bool(torch.any(owned_blk & member_v))
+    is_member_a = bool(member_v[asig])
+    has_owned = bool(torch.any(owner_v))
+    has_anti = bool(torch.any(owned_blk))
+    any_member_anti = bool(torch.any(member_anti))
+    e_zone_1h = (a["node_zone"][:, None] == zidx[None, :]) | (
+        a["node_dom2"][:, None] == zidx[None, :]
+    )
+    pure_tsc = has_tsc and not self_anti and not has_affs and not any_member_anti and not has_anti
+    multi_ok = not has_tsc and not self_anti
+    big_z = torch.full((Z,), BIG, dtype=I32, device=dev)
+    safe_req = torch.clamp(req, min=1)
+
+    def fit_pool_t(daemon):
+        """[..., T] pods fitting a fresh claim per type over pool daemons."""
+        k = torch.full(daemon.shape[:-1] + (type_alloc.shape[0],), BIG, dtype=I32, device=dev)
+        for rr in range(R):
+            kr = torch.where(
+                req[rr] > 0,
+                _floordiv(type_alloc[:, rr] - daemon[..., rr, None], safe_req[rr]),
+                BIG,
+            )
+            k = torch.minimum(k, kr.to(I32))
+        return torch.clamp(k, min=0)
+
+    def trips_of(headroom, charge):
+        return torch.where(
+            charge > 0, torch.clamp(_ceil_div(headroom, torch.clamp(charge, min=1)), min=0), BIG
+        ).min().to(I32)
+
+    remaining = r.remaining0
+    fuel = remaining + 8
+    progress = True
+    events = 0
+    take_e_acc = torch.zeros((E,), dtype=I32, device=dev)
+    take_c_acc = torch.zeros((M,), dtype=I32, device=dev)
+    while remaining > 0 and progress and fuel > 0:
+        used = int(st["used"])
+        v_count, v_owner_z = st["v_count"], st["v_owner_z"]
+        c_vm, c_vo = st["c_vm"], st["c_vo"]
+        c_zc_bits, c_pool = st["c_zc_bits"], st["c_pool"]
+
+        # ---- allowed domains A and per-domain budgets B -------------------
+        elig = gz_zones
+        cnt_p = v_count[psig]
+        cm_ = torch.where(elig, cnt_p, BIG).to(I32)
+        m1 = cm_.min()
+        amin = int(torch.argmin(cm_))
+        nmin = int((cm_ == m1).sum())
+        second = torch.where(zidx == amin, BIG, cm_).min()
+        m2 = torch.where((nmin == 1) & (zidx == amin), second, m1)
+        if has_tsc:
+            A = elig & (cnt_p + 1 - m1 <= cap_p)
+            B = torch.clamp(m2 + cap_p - cnt_p, 0, BIG).to(I32)
+        else:
+            A = elig.clone()
+            B = big_z.clone()
+        blocked_m = torch.any(owned_blk[:, None] & (v_count > 0), dim=0)
+        blocked_o = torch.any(member_anti[:, None] & v_owner_z, dim=0)
+        A = A & ~blocked_m & ~blocked_o
+        if self_anti:
+            B = torch.clamp(B, max=1)
+        cnt_a = v_count[asig]
+        present = cnt_a > 0
+        any_present = bool(torch.any(present))
+        A_base = A
+        if has_affs:
+            if any_present:
+                A = A & present
+            elif not is_member_a:
+                A = torch.zeros_like(A)
+        if has_affs and not any_present:
+            B = torch.clamp(B, max=1)
+
+        # ---- existing-node candidate ----------------------------------------
+        e_fit = _fit_count(a["node_free"], st["e_cum"], req)
+        e_host = _hostname_allowance(st["e_cm"], st["e_co"], q_kind, q_cap, member_g, owner_g)
+        nz_ok = torch.where(nd >= 0, A[torch.clamp(nd, 0, Z - 1).long()], not has_owned)
+        elig_e_base = a["node_compat"][g] & (e_fit > 0) & (e_host > 0)
+        elig_e = elig_e_base & nz_ok
+        found_e = bool(torch.any(elig_e))
+        e_star = _argmax_first(elig_e)
+        z_e = int(nd[e_star])
+
+        # ---- open-claim candidates --------------------------------------------
+        local_aff = has_affs & (c_vm[:, asig] > 0)  # [M]
+        anti_claim_ok = torch.all(~owned_blk[None, :] | (c_vm == 0), dim=1) & torch.all(
+            ~member_anti[None, :] | ~c_vo, dim=1
+        )
+        cz = _zone_sets(c_zc_bits, zcm)  # [M, Z]
+        zcount_m = (cz & gax_cols[None, :]).sum(dim=1)
+        A_m = torch.where(local_aff[:, None], A_base[None, :], A[None, :])
+        inter = cz & A_m
+        has_inter = torch.any(inter, dim=1)
+        aff_mode = has_affs & any_present & ~local_aff  # [M]
+        commit_m = has_tsc | aff_mode | has_anti
+        score_tsc = torch.where(inter, cnt_p[None, :] * 64 + zidx[None, :], BIG)
+        score_aff = torch.where(inter, -cnt_a[None, :] * 64 + zidx[None, :], BIG)
+        score_lex = torch.where(inter, zidx[None, :], BIG)
+        if has_tsc:
+            d_m = torch.argmin(score_tsc, dim=1)
+        else:
+            d_m = torch.where(
+                aff_mode, torch.argmin(score_aff, dim=1), torch.argmin(score_lex, dim=1)
+            )
+        azmask = _or_bits(torch.where(inter, zcm[None, :], 0), 1)
+        bits_eff = torch.where(commit_m, zcm[d_m], azmask) & c_zc_bits & g_zc  # [M]
+
+        ok_off = (bits_eff[:, None] & offer_zc[None, :]) != 0
+        pair_ok = ~torch.any((st["c_gbits"] & r.g_nok[None, :]) != 0, dim=1)
+        is_open = c_pool >= 0
+        pool_ok = torch.where(is_open, r.gpool[torch.clamp(c_pool, 0, P - 1).long()], False)
+        k_raw = _fit_count_nt(type_alloc, st["c_cum"], req)  # [M, T]
+        fit_nt = st["c_mask"] & compat_t[None, :] & ok_off
+        node_ok = is_open & pair_ok & pool_ok & has_inter & (bits_eff != 0) & anti_claim_ok
+        k_nt = torch.where(fit_nt & node_ok[:, None], k_raw, 0).to(I32)
+        k_m = k_nt.max(dim=1).values
+        c_host = _hostname_allowance(st["c_cm"], st["c_co"], q_kind, q_cap, member_g, owner_g)
+        elig_m = (k_m > 0) & (c_host > 0)
+        found_c = bool(torch.any(elig_m))
+        m_star = _argmax_first(elig_m)
+        fin_z = _zone_sets(bits_eff[m_star], zcm) & gax_cols
+        nz_fin = int(fin_z.sum())
+        z_c = _argmax_first(fin_z)
+
+        # ---- first-fit preemption bound -----------------------------------------
+        pos_node = torch.where(
+            elig_e_base[:, None] & e_zone_1h, eidx[:, None], BIG
+        ).min(dim=0).values  # [Z]
+        bits_z = c_zc_bits[:, None] & zcm[None, :] & g_zc  # [M, Z]
+        off_zt = (bits_z[:, :, None] & offer_zc[None, None, :]) != 0  # [M, Z, T]
+        fit_base = st["c_mask"] & compat_t[None, :] & (k_raw >= 1)  # [M, T]
+        elig_m_z = torch.any(off_zt & fit_base[:, None, :], dim=2) & (
+            is_open & pair_ok & pool_ok & (c_host > 0) & anti_claim_ok
+        )[:, None]
+        pos_claim = torch.where(elig_m_z, E + midx[:, None], BIG).min(dim=0).values
+        pos_z = torch.minimum(pos_node, pos_claim)
+        pb_cand = (
+            elig & ~A & ~blocked_m & ~blocked_o & ((cnt_p + 1 - cap_p) <= second)
+        )
+
+        def preempt_bound(zt: int, pos_t: int):
+            """Max consecutive pods into domain zt before a blocked domain
+            with an earlier target re-enters the allowed set."""
+            if not (has_tsc and nmin == 1 and zt == amin):
+                return BIG
+            cand = pb_cand & (pos_z < pos_t)
+            j = cnt_p + 1 - cap_p - cnt_p[min(max(zt, 0), Z - 1)]
+            val = int(torch.where(cand, j, BIG).min())
+            return max(val, 0)
+
+        Bz_e = min(int(B[min(max(z_e, 0), Z - 1)]), preempt_bound(z_e, e_star)) if z_e >= 0 else BIG
+        q_e = min(remaining, int(e_fit[e_star]), int(e_host[e_star]), Bz_e)
+        Bz_c = min(int(B[z_c]), preempt_bound(z_c, E + m_star)) if nz_fin == 1 else BIG
+        q_c = min(remaining, int(k_m[m_star]), int(c_host[m_star]), Bz_c)
+        if self_anti:
+            q_c = min(q_c, 1)
+
+        # ---- new-claim candidates (per pool) --------------------------------------
+        pz_bits = a["pool_zc_bits"] & g_zc  # [P]
+        pzz = _zone_sets(pz_bits, zcm)  # [P, Z]
+        inter_p = pzz & A[None, :]
+        has_inter_p = torch.any(inter_p, dim=1)
+        if has_tsc:
+            d_p = torch.argmin(torch.where(inter_p, cnt_p[None, :] * 64 + zidx[None, :], BIG), dim=1)
+        elif has_affs and any_present:
+            d_p = torch.argmin(torch.where(inter_p, -cnt_a[None, :] * 64 + zidx[None, :], BIG), dim=1)
+        else:
+            d_p = torch.argmin(torch.where(inter_p, zidx[None, :], BIG), dim=1)
+        commit_p = has_tsc or (has_affs and any_present) or has_anti
+        azmask_p = _or_bits(torch.where(inter_p, zcm[None, :], 0), 1)
+        nbits_p = (zcm[d_p] if commit_p else azmask_p) & pz_bits  # [P]
+        off_ok_p = (nbits_p[:, None] & offer_zc[None, :]) != 0  # [P, T]
+        fit_tp = compat_t[None, :] & pool_type & off_ok_p
+        k_tp = torch.where(fit_tp, fit_pool_t(pool_daemon), 0).to(I32)
+        kmax_p = k_tp.max(dim=1).values
+        one_set_p = fit_tp & (k_tp >= 1)
+        charge_one_p = torch.where(
+            one_set_p[:, :, None], type_charge[None, :, :], INT32_MAX
+        ).min(dim=1).values
+        charge_one_p = torch.where(charge_one_p == INT32_MAX, 0, charge_one_p).to(I32)
+        already_over_p = torch.any(st["p_usage"] >= pool_limit, dim=1)
+        elig_p = (
+            r.gpool & has_inter_p & (kmax_p > 0) & ~already_over_p
+            & (used < M) & (fresh_allow > 0)
+        )
+        found_p = bool(torch.any(elig_p))
+        p_star = _argmax_first(elig_p)
+        fin_zp = _zone_sets(nbits_p[p_star], zcm) & gax_cols
+        nz_fin_p = int(fin_zp.sum())
+        z_p = _argmax_first(fin_zp)
+        Bz_p = min(int(B[z_p]), preempt_bound(z_p, E + used)) if nz_fin_p == 1 else BIG
+        q_p = min(remaining, int(kmax_p[p_star]), int(fresh_allow), Bz_p)
+        if self_anti:
+            q_p = min(q_p, 1)
+
+        # ---- (C) fixed-zone affinity bulk drain -------------------------------------
+        aff_committed = (
+            any_present and nz_fin_p == 1
+            and bool(torch.all(~elig_m | ((bits_eff & ~zcm[z_p]) == 0)))
+        )
+        ze_cnt = (_zone_sets(bits_eff, zcm) & gax_cols[None, :]).sum(dim=1)
+        aff_zonefree = (
+            not any_present and is_member_a
+            and bool(torch.all(~elig_m | (ze_cnt > 1))) and nz_fin_p > 1
+        )
+        aff_bulk = (
+            has_affs and not has_tsc and not self_anti and not has_anti
+            and not any_member_anti and not found_e and found_c and found_p
+            and (aff_committed or aff_zonefree)
+        )
+        caps_aff = torch.where(elig_m, torch.minimum(k_m, c_host), 0).to(I32)
+        pref_aff = torch.cumsum(caps_aff, 0).to(I32) - caps_aff
+        if aff_bulk:
+            aff_drain_m = torch.minimum(torch.clamp(remaining - pref_aff, min=0), caps_aff).to(I32)
+        else:
+            aff_drain_m = torch.zeros((M,), dtype=I32, device=dev)
+
+        # ---- balanced-phase cycle batching --------------------------------------------
+        counts_equal = int(torch.where(elig, cnt_p, -BIG).max()) == int(m1)
+        multi_claim = bool(torch.any(elig_m & (zcount_m > 1)))
+        cyc_ok = pure_tsc and is_self and counts_equal and not multi_claim and (found_e or found_c)
+        tgt_e_1h = torch.zeros((E,), dtype=torch.bool, device=dev)
+        tgt_c_1h = torch.zeros((M,), dtype=torch.bool, device=dev)
+        tgt_has, tgt_cap = [], []
+        for z in range(Z):
+            elig_ez = elig_e & (nd == z)
+            found_ez = bool(torch.any(elig_ez))
+            e_z = _argmax_first(elig_ez)
+            sc_z = elig_m & cz[:, z] & (zcount_m == 1)
+            found_cz = bool(torch.any(sc_z))
+            m_z = _argmax_first(sc_z)
+            has_t = found_ez or found_cz
+            cap_z = (min(int(e_fit[e_z]), int(e_host[e_z])) if found_ez
+                     else min(int(k_m[m_z]), int(c_host[m_z])))
+            relevant = bool(elig[z])
+            tgt_has.append(has_t if relevant else True)
+            tgt_cap.append(cap_z if relevant and has_t else BIG)
+            if relevant and found_ez:
+                tgt_e_1h[e_z] = True
+            elif relevant and found_cz:
+                tgt_c_1h[m_z] = True
+        cyc_ok = cyc_ok and all(tgt_has)
+        n_zones = int(elig.sum())
+        k_sk = max(int(cap_p), 1)
+        rounds = min(min(c // k_sk for c in tgt_cap), remaining // max(k_sk * n_zones, 1))
+        cyc_ok = cyc_ok and rounds >= 1 and n_zones >= 1
+        per_tgt = k_sk * rounds
+
+        # ---- (A) multi-claim opening quantities -----------------------------------------
+        full_p = min(int(kmax_p[p_star]), int(fresh_allow))
+        rem_p = remaining - int(aff_drain_m.sum())
+        q_tot_p = min(rem_p, Bz_p) if multi_ok else q_p
+        trips_p = int(trips_of(pool_limit[p_star] - st["p_usage"][p_star], charge_one_p[p_star]))
+        n_want_p = -(-q_tot_p // max(full_p, 1)) if full_p > 0 else 0
+        n_open_p = min(n_want_p, trips_p, M - used) if multi_ok else 1
+
+        # ---- (B) closed-form water-fill batching ------------------------------------------
+        pz_star = pz_bits[p_star]
+        off_zt_star = ((zcm[:, None] & pz_star) & offer_zc[None, :]) != 0  # [Z, T]
+        fit_zt = compat_t[None, :] & pool_type[p_star][None, :] & off_zt_star
+        k_cap_t = fit_pool_t(pool_daemon[p_star])  # [T]
+        k_zt = torch.where(fit_zt, k_cap_t[None, :], 0).to(I32)  # [Z, T]
+        kmax_z = k_zt.max(dim=1).values
+        z_first = _argmax_first(elig)
+        kmax0 = int(kmax_z[z_first])
+        kmax_eq = bool(torch.all(~elig | (kmax_z == kmax0)))
+        one_zt = fit_zt & (k_zt >= 1)
+        charge_zr = torch.where(one_zt[:, :, None], type_charge[None, :, :], INT32_MAX).min(dim=1).values
+        charge_zr = torch.where(charge_zr == INT32_MAX, 0, charge_zr).to(I32)
+        charge0 = charge_zr[z_first]
+        charge_eq = bool(torch.all(~elig[:, None] | (charge_zr == charge0[None, :])))
+        covers = bool(torch.all(~elig | pzz[p_star]))
+        km0 = max(kmax0, 1)
+        trips0 = int(trips_of(pool_limit[p_star] - st["p_usage"][p_star], charge0))
+        cand_z = elig_m_z & elig[None, :]
+        k_pz = torch.where(
+            off_zt & fit_base[:, None, :], k_raw[:, None, :], 0
+        ).max(dim=2).values  # [M, Z]
+        caps_mz = torch.where(cand_z, torch.minimum(k_pz, c_host[:, None]), 0).to(I32)
+        no_node = bool(torch.all(~elig | (pos_node >= BIG)))
+        tgts_ok = not bool(torch.any(cand_z & (zcount_m > 1)[:, None]))
+        celig = torch.where(elig, cnt_p, BIG).to(I32)
+        cs = torch.sort(celig).values
+        kk = torch.arange(1, Z + 1, dtype=I32, device=dev)
+        pref = torch.cumsum(torch.where(cs < BIG, cs, 0), 0).to(I32)
+        nz_e = int(elig.sum())
+        th_k = _floordiv(remaining + pref, kk)
+        cs_next = torch.cat([cs[1:], torch.full((1,), BIG, dtype=I32, device=dev)])
+        ok_k = (kk <= nz_e) & (th_k >= cs) & (th_k <= cs_next)
+        theta = int(torch.where(ok_k, th_k, -BIG).max())
+        fill = torch.where(elig, torch.clamp(theta - celig, 0, BIG), 0).to(I32)
+        r_rem = remaining - int(fill.sum())
+        at_lvl = elig & (celig <= theta)
+        lexr = torch.cumsum(at_lvl.to(I32), 0) - 1
+        bonus = at_lvl & (lexr < r_rem)
+        T_zv = (fill + bonus.to(I32)).to(I32)
+        pref_mz = torch.cumsum(caps_mz, 0).to(I32) - caps_mz
+        take_mz = torch.minimum(torch.clamp(T_zv[None, :] - pref_mz, min=0), caps_mz).to(I32)
+        tm_z = take_mz.sum(0).to(I32)
+        fr_z = T_zv - tm_z
+        n_z = _ceil_div(fr_z, km0).to(I32)
+        n_mega = int(n_z.sum())
+        mega_ok = (
+            pure_tsc and is_self and no_node and tgts_ok and found_p
+            and int(cap_p) == 1 and kmax0 > 0 and kmax_eq and charge_eq and covers
+            and int(fresh_allow) >= kmax0 and n_mega <= M - used
+            and trips0 >= n_mega and remaining > 0 and int(T_zv.sum()) == remaining
+        )
+        take_mega = torch.zeros((M,), dtype=I32, device=dev)
+        zsel = torch.zeros((M,), dtype=torch.long, device=dev)
+        drain_m = torch.zeros((M,), dtype=I32, device=dev)
+        if mega_ok:
+            # fresh-claim slot order: rank claims (z, g) by (open level, lex z)
+            base_z = torch.where(elig, cnt_p + tm_z, BIG).to(I32)
+            Garr = torch.arange(M, dtype=I32, device=dev)
+            K_zg = base_z[:, None] + Garr[None, :] * km0  # [Z, M]
+            diff = K_zg[:, :, None] - base_z[None, None, :]  # [Z, M, Z]
+            below = torch.minimum(
+                torch.clamp(_ceil_div(diff, km0), min=0), n_z[None, None, :]
+            )
+            tied = (
+                (diff >= 0) & (torch.remainder(diff, km0) == 0)
+                & (_floordiv(diff, km0) < n_z[None, None, :])
+                & (zidx[None, None, :] < zidx[:, None, None])
+            )
+            rank_zg = (below.sum(2) + tied.sum(2)).to(I32)  # [Z, M]
+            valid = (Garr[None, :] < n_z[:, None]) & elig[:, None] & (rank_zg < M)
+            take_fr = torch.minimum(
+                torch.clamp(fr_z[:, None] - Garr[None, :] * km0, min=0),
+                torch.tensor(km0, dtype=I32, device=dev),
+            ).to(I32)
+            scat_z = torch.zeros((M,), dtype=torch.long, device=dev)
+            scat_take = torch.zeros((M,), dtype=I32, device=dev)
+            zz = zidx[:, None].expand(Z, M)
+            scat_z[rank_zg[valid].long()] = zz[valid].long()
+            scat_take[rank_zg[valid].long()] = take_fr[valid]
+            j_off = midx - used
+            in_mega = (j_off >= 0) & (j_off < n_mega)
+            jc = torch.clamp(j_off, 0, M - 1).long()
+            zsel = scat_z[jc]
+            take_mega = torch.where(in_mega, scat_take[jc], 0).to(I32)
+            drain_m = take_mz.sum(1).to(I32)
+
+        # ---- selection & unified masked apply ---------------------------------------------
+        cyc_eff = cyc_ok and not mega_ok
+        use_e = found_e and not cyc_eff and not mega_ok
+        use_c = not found_e and found_c and not cyc_eff and not mega_ok and not aff_bulk
+        use_p = (not found_e and (not found_c or aff_bulk) and found_p
+                 and not cyc_eff and not mega_ok)
+
+        take_e_add = torch.zeros((E,), dtype=I32, device=dev)
+        if use_e:
+            take_e_add[e_star] += q_e
+        if cyc_eff:
+            take_e_add = take_e_add + torch.where(tgt_e_1h, per_tgt, 0).to(I32)
+        take_c_add = aff_drain_m.clone()
+        if use_c:
+            take_c_add[m_star] += q_c
+        if cyc_eff:
+            take_c_add = take_c_add + torch.where(tgt_c_1h, per_tgt, 0).to(I32)
+
+        # existing-node state
+        st["e_cum"] = st["e_cum"] + take_e_add[:, None] * req[None, :]
+        st["e_cm"] = st["e_cm"] + take_e_add[:, None] * mg_i[None, :]
+        st["e_co"] = st["e_co"] + ((take_e_add[:, None] > 0) & anti_q[None, :]).to(I32)
+
+        # open-claim state
+        added = take_c_add > 0
+        c_cum = st["c_cum"] + take_c_add[:, None] * req[None, :]
+        c_mask = torch.where(added[:, None], fit_nt & (k_nt >= take_c_add[:, None]), st["c_mask"])
+        c_zc_bits = torch.where(added, bits_eff, c_zc_bits)
+        c_gbits = st["c_gbits"] | torch.where(added[:, None], r.gword[None, :], 0)
+        c_cm = st["c_cm"] + take_c_add[:, None] * mg_i[None, :]
+        c_co = st["c_co"] + (added[:, None] & anti_q[None, :]).to(I32)
+        c_vm = c_vm + take_c_add[:, None] * mv_i[None, :]
+        c_vo = c_vo | (added[:, None] & owned_anti[None, :])
+
+        # water-fill target drains (k_raw is the event-start fit count)
+        drained = drain_m > 0
+        ok_off_all = (c_zc_bits[:, None] & offer_zc[None, :]) != 0
+        c_cum = c_cum + drain_m[:, None] * req[None, :]
+        c_mask = torch.where(
+            drained[:, None],
+            c_mask & compat_t[None, :] & ok_off_all & (k_raw >= drain_m[:, None]),
+            c_mask,
+        )
+        c_gbits = c_gbits | torch.where(drained[:, None], r.gword[None, :], 0)
+        c_cm = c_cm + drain_m[:, None] * mg_i[None, :]
+        c_co = c_co + (drained[:, None] & anti_q[None, :]).to(I32)
+        c_vm = c_vm + drain_m[:, None] * mv_i[None, :]
+
+        # new-claim open: n_open_p slots in the committed domain (A)
+        j_off = midx - used
+        tq = torch.zeros((M,), dtype=I32, device=dev)
+        p_usage = st["p_usage"].clone()
+        if use_p:
+            is_new = (j_off >= 0) & (j_off < n_open_p)
+            if multi_ok:
+                tq_all = torch.clamp(
+                    torch.clamp(q_tot_p - j_off * max(full_p, 1), min=0), max=full_p
+                )
+            else:
+                tq_all = torch.full((M,), q_p, dtype=I32, device=dev)
+            tq = torch.where(is_new, tq_all, 0).to(I32)
+            c_cum = torch.where(
+                is_new[:, None], pool_daemon[p_star][None, :] + tq[:, None] * req[None, :], c_cum
+            )
+            c_mask = torch.where(
+                is_new[:, None], fit_tp[p_star][None, :] & (k_tp[p_star][None, :] >= tq[:, None]), c_mask
+            )
+            c_zc_bits = torch.where(is_new, nbits_p[p_star], c_zc_bits)
+            c_gbits = torch.where(is_new[:, None], r.gword[None, :], c_gbits)
+            c_pool = torch.where(is_new, p_star, c_pool).to(I32)
+            c_cm = torch.where(is_new[:, None], tq[:, None] * mg_i[None, :], c_cm)
+            c_co = torch.where(is_new[:, None], ((tq[:, None] > 0) & anti_q[None, :]).to(I32), c_co)
+            c_vm = torch.where(is_new[:, None], tq[:, None] * mv_i[None, :], c_vm)
+            c_vo = torch.where(is_new[:, None], (tq[:, None] > 0) & owned_anti[None, :], c_vo)
+            p_usage[p_star] = p_usage[p_star] + charge_one_p[p_star] * n_open_p
+            used += n_open_p
+
+        # mega-generation open (B): rotating domain per slot
+        if mega_ok:
+            in_mega = (j_off >= 0) & (j_off < n_mega)
+            fit_sel = fit_zt[zsel]
+            k_sel = k_zt[zsel]
+            c_cum = torch.where(
+                in_mega[:, None], pool_daemon[p_star][None, :] + take_mega[:, None] * req[None, :], c_cum
+            )
+            c_mask = torch.where(in_mega[:, None], fit_sel & (k_sel >= take_mega[:, None]), c_mask)
+            c_zc_bits = torch.where(in_mega, zcm[zsel] & pz_star, c_zc_bits)
+            c_gbits = torch.where(in_mega[:, None], r.gword[None, :], c_gbits)
+            c_pool = torch.where(in_mega, p_star, c_pool).to(I32)
+            c_cm = torch.where(in_mega[:, None], take_mega[:, None] * mg_i[None, :], c_cm)
+            c_co = torch.where(
+                in_mega[:, None], ((take_mega[:, None] > 0) & anti_q[None, :]).to(I32), c_co
+            )
+            c_vm = torch.where(in_mega[:, None], take_mega[:, None] * mv_i[None, :], c_vm)
+            p_usage[p_star] = p_usage[p_star] + charge0 * n_mega
+            used += n_mega
+
+        # domain-count recording over the post-update claim bits, and
+        # anti-owner registration on the target's recorded domain
+        contrib = _count_contrib(a, take_e_add, take_c_add + drain_m + tq + take_mega, c_zc_bits)
+        owner_rec = torch.zeros((Z,), dtype=torch.bool, device=dev)
+        if use_e and z_e >= 0:
+            owner_rec[min(z_e, Z - 1)] = True
+        if use_c and nz_fin == 1:
+            owner_rec[z_c] = True
+        if use_p and nz_fin_p == 1:
+            owner_rec[z_p] = True
+        st.update(
+            c_cum=c_cum.to(I32), c_mask=c_mask, c_zc_bits=c_zc_bits.to(I32), c_gbits=c_gbits,
+            c_pool=c_pool, c_cm=c_cm.to(I32), c_co=c_co.to(I32), c_vm=c_vm.to(I32), c_vo=c_vo,
+            p_usage=p_usage, used=torch.tensor(used, dtype=I32, device=dev),
+            v_count=(v_count + mv_i[:, None] * contrib[None, :]).to(I32),
+            v_owner_z=v_owner_z | (owned_anti[:, None] & owner_rec[None, :]),
+        )
+        placed = int(
+            take_e_add.sum() + take_c_add.sum() + tq.sum() + take_mega.sum() + drain_m.sum()
+        )
+        remaining -= placed
+        progress = placed > 0
+        fuel -= 1
+        events += 1
+        take_e_acc = take_e_acc + take_e_add
+        take_c_acc = take_c_acc + take_c_add + tq + take_mega + drain_m
+    return take_e_acc, take_c_acc, torch.tensor(remaining, dtype=I32, device=dev), events
+
+
+def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """Plain PyTorch transcription of the JAX `ffd_solve` scan: per run, the
+    fast branch, or with `zone_engine` the domain event engine for runs
+    whose group owns a V-axis constraint or is a member of an anti sig."""
+    a = dict(zip(ARG_SPEC, args))
+    st = _state0(args, max_claims)._asdict()
+    dev = a["node_free"].device
+    E = a["node_free"].shape[0]
+    W = a["group_pair_nok"].shape[1]
+    M = max_claims
+    v_anti = a["v_kind"] == 1
+    zero = torch.zeros((), dtype=I32, device=dev)
+    events = 0
     takes_e, takes_c, lefts = [], [], []
     for g, count in zip(a["run_group"].tolist(), a["run_count"].tolist()):
         if count <= 0:  # padded runs skip the body
@@ -283,173 +1024,22 @@ def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
             takes_c.append(torch.zeros((M,), dtype=I32, device=dev))
             lefts.append(zero)
             continue
-        req = a["group_req"][g]
-        compat_t = a["group_compat_t"][g]
-        g_zc = a["group_zc_bits"][g]
-        gpool = a["group_pool"][g]
-        g_nok = a["group_pair_nok"][g]
-        m_g = a["q_member"][g]
-        o_g = a["q_owner"][g]
-        gword = _gbit_word(g, W, dev)
-        remaining = torch.where(
-            a["group_device"][g], torch.tensor(count, dtype=I32, device=dev), zero
-        )
-        m_g_i = m_g.to(I32)
-        owner_nb = o_g & (kq != 2)
-        anti_o = o_g & (kq == 1)
-
-        fresh_allow = _hostname_allowance(
-            torch.zeros((1, kq.shape[0]), dtype=I32, device=dev),
-            torch.zeros((1, kq.shape[0]), dtype=I32, device=dev),
-            kq, cq, m_g, owner_nb,
-        )[0]
-        owned2 = o_g & (kq == 2)
-        tot_m_q = (st["e_cm"].sum(0) + st["c_cm"].sum(0)).to(I32)
-        boot_ok = torch.all(~owned2 | (m_g & (tot_m_q == 0)))
-        boot2 = torch.any(owned2) & boot_ok
-
-        # ---- 1. existing nodes --------------------------------------------
-        e_base = _fit_count(a["node_free"], st["e_cum"], req)
-        e_base = torch.where(a["node_compat"][g], e_base, 0).to(I32)
-        e_allow_nb = _hostname_allowance(st["e_cm"], st["e_co"], kq, cq, m_g, owner_nb)
-        e_pos = _pos_cap(st["e_cm"], owned2)
-        e_cap_full = torch.minimum(e_base, torch.minimum(e_allow_nb, e_pos))
-        e_cap_boot = torch.minimum(e_base, e_allow_nb)
-        has_e_boot = torch.any(e_cap_boot > 0)
-        e_first = torch.argmax((e_cap_boot > 0).to(I32))
-        e_cap = torch.where(
-            boot2, torch.where(eidx == e_first, e_cap_boot, 0).to(I32), e_cap_full
-        )
-        take_e, remaining = _pour(e_cap, remaining)
-        st["e_cum"] = st["e_cum"] + take_e[:, None] * req[None, :]
-        st["e_cm"] = st["e_cm"] + take_e[:, None] * m_g_i[None, :]
-        st["e_co"] = st["e_co"] + ((take_e[:, None] > 0) & anti_o[None, :]).to(I32)
-
-        # ---- 2. open claims -----------------------------------------------
-        A_bits = offer_zc & g_zc  # [T]
-        ok_off = (st["c_zc_bits"][:, None] & A_bits[None, :]) != 0  # [M, T]
-        pair_ok = ~torch.any((st["c_gbits"] & g_nok[None, :]) != 0, dim=1)
-        is_open = st["c_pool"] >= 0
-        pool_ok = torch.where(
-            is_open, gpool[torch.clamp(st["c_pool"], 0, P - 1).long()], False
-        )
-        k_nt = _fit_count_nt(type_alloc, st["c_cum"], req)
-        fit_nt = st["c_mask"] & compat_t[None, :] & ok_off
-        node_ok = is_open & pair_ok & pool_ok
-        k_nt = torch.where(fit_nt & node_ok[:, None], k_nt, 0).to(I32)
-        c_base = k_nt.max(dim=1).values
-        c_allow_nb = _hostname_allowance(st["c_cm"], st["c_co"], kq, cq, m_g, owner_nb)
-        c_pos = _pos_cap(st["c_cm"], owned2)
-        c_cap_full = torch.minimum(c_base, torch.minimum(c_allow_nb, c_pos))
-        c_cap_boot = torch.minimum(c_base, c_allow_nb)
-        has_c_boot = torch.any(c_cap_boot > 0)
-        c_first = torch.argmax((c_cap_boot > 0).to(I32))
-        c_cap = torch.where(
-            boot2,
-            torch.where(
-                has_e_boot, 0, torch.where(midx == c_first, c_cap_boot, 0)
-            ).to(I32),
-            c_cap_full,
-        )
-        take_c, remaining = _pour(c_cap, remaining)
-
-        added = take_c > 0
-        st["c_cum"] = st["c_cum"] + take_c[:, None] * req[None, :]
-        st["c_mask"] = torch.where(
-            added[:, None], fit_nt & (k_nt >= take_c[:, None]), st["c_mask"]
-        )
-        st["c_zc_bits"] = torch.where(added, st["c_zc_bits"] & g_zc, st["c_zc_bits"])
-        st["c_gbits"] = st["c_gbits"] | torch.where(added[:, None], gword[None, :], 0)
-        st["c_cm"] = st["c_cm"] + take_c[:, None] * m_g_i[None, :]
-        st["c_co"] = st["c_co"] + (added[:, None] & anti_o[None, :]).to(I32)
-
-        # ---- 3. new claims, pool by pool in priority order -----------------
-        used = st["used"]
-        take_new = torch.zeros((M,), dtype=I32, device=dev)
-        cap2 = torch.where(
-            torch.any(owned2),
-            torch.where(boot2 & ~has_e_boot & ~has_c_boot, 1, 0),
-            BIG,
-        ).to(I32)
-        safe_req = torch.clamp(req, min=1)
-        for p in range(P):
-            new_bits = a["pool_zc_bits"][p] & g_zc
-            off_ok = (offer_zc & new_bits) != 0
-            fit_t = compat_t & a["pool_type"][p] & off_ok
-            daemon = a["pool_daemon"][p]
-            k_t = torch.where(
-                req[None, :] > 0,
-                _floordiv(type_alloc - daemon[None, :], safe_req[None, :]),
-                BIG,
-            )
-            k_t = torch.clamp(k_t.min(dim=1).values, min=0).to(I32)
-            k_t = torch.where(fit_t, k_t, 0).to(I32)
-            kmax = k_t.max()
-            full_take = torch.minimum(kmax, fresh_allow)
-
-            one_set = fit_t & (k_t >= 1)
-            charge_one = torch.where(one_set[:, None], type_charge, INT32_MAX).min(dim=0).values
-            charge_one = torch.where(charge_one == INT32_MAX, 0, charge_one).to(I32)
-            headroom = a["pool_limit"][p] - st["p_usage"][p]
-            trips = torch.where(
-                charge_one > 0,
-                torch.clamp(-_floordiv(-headroom, torch.clamp(charge_one, min=1)), min=0),
-                BIG,
-            ).to(I32)
-            already_over = torch.any(st["p_usage"][p] >= a["pool_limit"][p])
-            allow = torch.where(already_over, 0, trips.min()).to(I32)
-
-            n_want = torch.where(
-                full_take > 0, -_floordiv(-remaining, torch.clamp(full_take, min=1)), 0
-            ).to(I32)
-            slots_left = M - used
-            n_new = torch.minimum(torch.minimum(n_want, allow), slots_left).to(I32)
-            n_new = torch.minimum(n_new, cap2)
-            eligible = a["group_pool"][g][p] & (full_take > 0)
-            n_new = torch.where(eligible, n_new, 0).to(I32)
-
-            # the JAX scan gates this on n_new > 0; with n_new == 0 every
-            # update below is the identity, so it runs unconditionally
-            is_new = (midx >= used) & (midx < used + n_new)
-            j = midx - used
-            take_j = torch.where(
-                is_new,
-                torch.minimum(torch.clamp(remaining - j * full_take, min=0), full_take),
-                0,
-            ).to(I32)
-            st["c_cum"] = torch.where(
-                is_new[:, None], daemon[None, :] + take_j[:, None] * req[None, :], st["c_cum"]
-            )
-            new_mask = fit_t[None, :] & (k_t[None, :] >= take_j[:, None])
-            st["c_mask"] = torch.where(is_new[:, None], new_mask, st["c_mask"])
-            st["c_zc_bits"] = torch.where(is_new, new_bits, st["c_zc_bits"])
-            st["c_gbits"] = torch.where(is_new[:, None], gword[None, :], st["c_gbits"])
-            st["c_pool"] = torch.where(is_new, p, st["c_pool"]).to(I32)
-            st["c_cm"] = torch.where(
-                is_new[:, None], take_j[:, None] * m_g_i[None, :], st["c_cm"]
-            )
-            st["c_co"] = torch.where(
-                is_new[:, None],
-                ((take_j[:, None] > 0) & anti_o[None, :]).to(I32),
-                st["c_co"],
-            )
-            p_usage = st["p_usage"].clone()
-            p_usage[p] = p_usage[p] + charge_one * n_new
-            st["p_usage"] = p_usage
-            take_new = take_new + take_j
-            remaining = (remaining - take_j.sum().to(I32)).to(I32)
-            used = (used + n_new).to(I32)
-            cap2 = (cap2 - n_new).to(I32)
-        st["used"] = used
-        takes_e.append(take_e)
-        takes_c.append(take_c + take_new)
-        lefts.append(remaining)
-
+        r = _Run(a, g, count, W)
+        constrained = bool(torch.any(r.o_v) | torch.any(r.m_v & v_anti))
+        if zone_engine and constrained:
+            te, tc, lo, n = _zoned_plain(a, st, r, M)
+            events += n
+        else:
+            te, tc, lo = _fast_plain(a, st, r, M)
+        takes_e.append(te)
+        takes_c.append(tc)
+        lefts.append(lo)
     return FFDOutput(
         take_e=torch.stack(takes_e),
         take_c=torch.stack(takes_c),
         leftover=torch.stack(lefts),
         state=FFDState(**st),
+        events=torch.tensor(events, dtype=I32, device=dev),
     )
 
 
@@ -562,13 +1152,30 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-# Kernel limits (csrc/ffd_kernels.cu): per-run Q and R rows live in shared
-# memory.
+# Kernel limits (csrc/ffd_kernels.cu): per-run Q, R and V rows and the
+# per-event domain vectors live in shared memory.
 MAX_Q = 256
 MAX_R = 16
+MAX_V = 128
+MAX_Z = 32
+MAX_P = 64
 
 
-def _ffd_solve_cuda(*args, max_claims: int) -> FFDOutput:
+# the scan's inputs as the launcher takes them: ARG_SPEC without the four
+# arrays that seed the carry (FFDState's initial values)
+_SCAN_INPUTS = tuple(
+    n for n in ARG_SPEC if n not in ("pool_usage0", "node_q_member", "node_q_owner", "v_count0")
+)
+
+
+def scan_scratch_words(E: int, M: int, T: int, Z: int) -> int:
+    """int32 words of the scan's global scratch (csrc/ffd_kernels.cu
+    scan_runs): the fast branch's [E], [M] and [T] rows, then the zoned
+    branch's per-claim, per-type and [M, Z] rows."""
+    return 2 * E + 11 * M + 3 * T + 2 * M * Z + 64
+
+
+def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
     from .build import load
 
     a = dict(zip(ARG_SPEC, args))
@@ -577,10 +1184,15 @@ def _ffd_solve_cuda(*args, max_claims: int) -> FFDOutput:
     E, R = a["node_free"].shape
     P = a["pool_type"].shape[0]
     Q = a["q_kind"].shape[0]
+    V = a["v_kind"].shape[0]
+    Z = a["zone_col_mask"].shape[0]
     W = a["group_pair_nok"].shape[1]
     M = int(max_claims)
+    name = "ffd_zoned_scan" if zone_engine else "ffd_fast_scan"
     if Q > MAX_Q or R > MAX_R:
-        raise ValueError(f"ffd_fast_scan: Q={Q} > {MAX_Q} or R={R} > {MAX_R}")
+        raise ValueError(f"{name}: Q={Q} > {MAX_Q} or R={R} > {MAX_R}")
+    if zone_engine and not (1 <= V <= MAX_V and 1 <= Z <= MAX_Z and P <= MAX_P):
+        raise ValueError(f"{name}: V={V}, Z={Z} or P={P} outside 1..{MAX_V}, 1..{MAX_Z}, ..{MAX_P}")
     shapes = {
         "run_group": (Sp,), "run_count": (Sp,), "group_req": (G, R),
         "group_compat_t": (G, T), "group_zc_bits": (G,), "group_pool": (G, P),
@@ -589,32 +1201,28 @@ def _ffd_solve_cuda(*args, max_claims: int) -> FFDOutput:
         "pool_zc_bits": (P,), "pool_daemon": (P, R), "pool_limit": (P, R),
         "pool_usage0": (P, R), "node_free": (E, R), "node_compat": (G, E),
         "q_member": (G, Q), "q_owner": (G, Q), "q_kind": (Q,), "q_cap": (Q,),
-        "node_q_member": (E, Q), "node_q_owner": (E, Q),
+        "node_q_member": (E, Q), "node_q_owner": (E, Q), "v_member": (G, V),
+        "v_owner": (G, V), "v_kind": (V,), "v_cap": (V,), "v_primary": (G,),
+        "v_aff": (G,), "v_count0": (V, Z), "node_zone": (E,), "zone_col_mask": (Z,),
+        "node_dom2": (E,), "col_axis": (Z,), "group_daxis": (G,),
     }
     for n, sh in shapes.items():
         _check(a[n], n, torch.bool if ARG_DTYPES[n] == "bool" else I32, sh)
     st = _state0(args, M)
-    take_e = torch.empty((Sp, E), dtype=I32, device=a["node_free"].device)
-    take_c = torch.empty((Sp, M), dtype=I32, device=take_e.device)
-    leftover = torch.empty((Sp,), dtype=I32, device=take_e.device)
-    scratch = torch.empty((2 * E + 4 * M + 2 * T + 64,), dtype=I32, device=take_e.device)
-    ptrs = [a[n] for n in (
-        "run_group", "run_count", "group_req", "group_compat_t", "group_zc_bits",
-        "group_pool", "group_pair_nok", "group_device", "type_alloc", "type_charge",
-        "offer_zc_bits", "pool_type", "pool_zc_bits", "pool_daemon", "pool_limit",
-        "node_free", "node_compat", "q_member", "q_owner", "q_kind", "q_cap",
-    )] + [
-        st.e_cum, st.c_cum, st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool,
-        st.used, st.p_usage, st.e_cm, st.e_co, st.c_cm, st.c_co,
-        take_e, take_c, leftover, scratch,
-    ]
-    lib = load()
-    rc = lib.ffd_fast_scan_launch(
-        _ptrs(ptrs), len(ptrs), _ints([Sp, G, T, E, P, R, Q, W, M]), _stream()
+    dev = a["node_free"].device
+    take_e = torch.empty((Sp, E), dtype=I32, device=dev)
+    take_c = torch.empty((Sp, M), dtype=I32, device=dev)
+    leftover = torch.empty((Sp,), dtype=I32, device=dev)
+    events = torch.zeros((), dtype=I32, device=dev)
+    scratch = torch.empty((scan_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
+    ptrs = [a[n] for n in _SCAN_INPUTS] + list(st) + [take_e, take_c, leftover, events, scratch]
+    rc = load().ffd_scan_launch(
+        _ptrs(ptrs), len(ptrs), _ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine)]),
+        _stream(),
     )
-    _raise_on(rc, "ffd_fast_scan")
-    LAUNCHES["ffd_fast_scan"] += 1
-    return FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
 
 
 def _compact_takes_cuda(take_e, take_c, cap: int):
@@ -671,12 +1279,11 @@ def _claim_meta_cuda(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
 
 
 def ffd_solve(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
-    """Fast-branch FFD scan over ARG_SPEC positional tensors."""
-    if zone_engine:
-        raise NotImplementedError("the zoned event engine is not ported yet")
+    """FFD scan over ARG_SPEC positional tensors; `zone_engine` enables the
+    zoned branch (the caller passes V > 0, as the JAX backend does)."""
     if args[0].is_cuda:
-        return _ffd_solve_cuda(*args, max_claims=max_claims)
-    return ffd_solve_plain(*args, max_claims=max_claims)
+        return _ffd_solve_cuda(*args, max_claims=max_claims, zone_engine=zone_engine)
+    return ffd_solve_plain(*args, max_claims=max_claims, zone_engine=zone_engine)
 
 
 def compact_takes(take_e, take_c, cap: int):

@@ -7,7 +7,8 @@ piece pinned to its original.
   process has imported jax through tests/conftest.py);
 - TorchSolver() with no device argument refuses to run without CUDA;
 - the copies (ARG_SPEC, delta constants, argument partitions, the catalog,
-  host_kernel_args and encode) equal their originals on sample inputs.
+  host_kernel_args and encode, chip_smoke.py's copies of bench.py's input
+  builders) equal their originals on sample inputs.
 """
 
 import ast
@@ -125,10 +126,9 @@ def _same(a, b, what):
 _IDENTITY_FIELDS = {"core_rev", "group_snums", "sig_epoch"}
 
 
-@pytest.mark.parametrize("name", ["existing_nodes", "hostname_q_kinds", "config2_masks"])
-def test_encode_and_kernel_args_pinned(name):
-    je = jencode.encode(jencode.quantize_input(build(CASES[name], "karpenter_tpu")))
-    te = tencode.encode(tencode.quantize_input(build(CASES[name], "karpenter_tpu_torch")))
+def _encode_pair_pinned(jinp, tinp):
+    je = jencode.encode(jencode.quantize_input(jinp))
+    te = tencode.encode(tencode.quantize_input(tinp))
     names = [f.name for f in dataclasses.fields(je)]
     assert names == [f.name for f in dataclasses.fields(te)]
     for f in names:
@@ -144,3 +144,24 @@ def test_encode_and_kernel_args_pinned(name):
     assert jdims == tdims
     for n, a, b in zip(jffd.ARG_SPEC, ja, ta):
         _same(a, b, n)
+    return je
+
+
+@pytest.mark.parametrize("name", ["existing_nodes", "hostname_q_kinds", "config2_masks"])
+def test_encode_and_kernel_args_pinned(name):
+    _encode_pair_pinned(build(CASES[name], "karpenter_tpu"), build(CASES[name], "karpenter_tpu_torch"))
+
+
+@pytest.mark.parametrize("config", ["config3", "config4", "mixed"])
+def test_bench_builder_copies_pinned(config):
+    """chip_smoke.py's copies of bench.py's constrained-input builders encode
+    (V-axis sigs, domain columns, the mixed zone+ct layout included) and pad
+    to the same kernel arguments as the originals."""
+    import bench
+    import chip_smoke
+
+    name = f"build_{config}_input"
+    n = 2600  # spans three deployments, so several groups and sigs
+    je = _encode_pair_pinned(getattr(bench, name)(n), getattr(chip_smoke, name)(n))
+    assert je.V > 0 and not je.group_fallback.any()
+    assert je.v_axis == ("mixed" if config == "mixed" else "zone")

@@ -61,7 +61,7 @@ def build(spec: dict, root: str):
     pod: name, cpu, mem, sel {key: value}, labels, tol [(key, value, effect)],
          tsc [(max_skew, key, selector)], aff [(selector, key, anti)],
          extra {resource: quantity}, gated
-    node: id, zone, cpu, mem, pods, pod_labels, hostname (bool)
+    node: id, zone, ct, cpu, mem, pods, pod_labels, hostname (bool)
     pool: name, weight, reqs [(key, op, values, min_values)], taints
           [(key, value, effect)], limits {resource: quantity}, types [names]
     """
@@ -89,7 +89,7 @@ def build(spec: dict, root: str):
     for n in spec.get("nodes", []):
         labels = {
             wk.ZONE_LABEL: n.get("zone", "zone-1a"),
-            wk.CAPACITY_TYPE_LABEL: "on-demand",
+            wk.CAPACITY_TYPE_LABEL: n.get("ct", "on-demand"),
             wk.ARCH_LABEL: "amd64",
             wk.OS_LABEL: "linux",
         }
@@ -231,9 +231,154 @@ CASES = {
 }
 
 
+ZK, CK = "topology.kubernetes.io/zone", "karpenter.sh/capacity-type"
+DEFAULT_POOL = [dict(name="default")]
+
+
+def _spread(n, prefix, sel=None, key=ZK, skew=1, labels=None, cpu="1", mem="1Gi", **kw):
+    """n pods spreading over `key` on selector `sel` (self-matching unless
+    `labels` says otherwise)."""
+    sel = sel or {"app": "w"}
+    return [pod(f"{prefix}{i:03d}", cpu=cpu, mem=mem,
+                labels=sel if labels is None else labels, tsc=[(skew, key, sel)], **kw)
+            for i in range(n)]
+
+
+def _aff(n, prefix, sel, key=ZK, anti=False, labels=None, cpu="1", mem="1Gi"):
+    """n pods with one (anti-)affinity term on `key` (self-matching unless
+    `labels` says otherwise)."""
+    return [pod(f"{prefix}{i:03d}", cpu=cpu, mem=mem, labels=sel if labels is None else labels,
+                aff=[(sel, key, anti)])
+            for i in range(n)]
+
+
+def _zone_fuzz(seed: int) -> dict:
+    """Random single-axis-per-pod mixes of zone/ct spread, zone affinity and
+    ct anti locks, plus existing nodes that hold member pods (the shape of
+    tests/test_mixed_axis_device.py test_mixed_axis_fuzz)."""
+    rng = random.Random(3000 + seed)
+    pods = []
+    for i in range(rng.randrange(8, 26)):
+        k, name = rng.random(), f"p{i:03d}"
+        if k < 0.35:
+            pods += _spread(1, name, {"app": "w"})
+        elif k < 0.6:
+            pods += _spread(1, name, {"tier": "ct"}, key=CK, skew=rng.choice([1, 2]))
+        elif k < 0.75:
+            pods += _aff(1, name, {"svc": "db"})
+        elif k < 0.85:
+            pods += _aff(1, name, {"lock": f"k{i % 3}"}, key=CK, anti=True)
+        else:
+            pods.append(pod(name, cpu=rng.choice(["500m", "1", "2"])))
+    nodes = [dict(id=f"n{j}", zone=rng.choice(ZONES), ct=rng.choice(CTS),
+                  pod_labels=[rng.choice([{"app": "w"}, {"tier": "ct"}])] * rng.randrange(0, 3))
+             for j in range(rng.randrange(0, 5))]
+    return dict(pods=pods, nodes=nodes, pools=DEFAULT_POOL)
+
+
+# Zone / capacity-type topology spread and pod (anti-)affinity: fleets that
+# reach the zoned branch's event paths and its three closed forms (water-fill
+# mega, fixed-zone affinity bulk, balanced cycles), modelled on
+# tests/test_zone_device.py and tests/test_mixed_axis_device.py.
+ZONE_CASES = {
+    "spread_skew1_fresh": dict(
+        pods=_spread(9, "s", cpu="2", mem="4Gi") + _spread(40, "t", {"app": "v"}, cpu="500m"),
+        pools=DEFAULT_POOL),
+    "spread_skew2_members_on_nodes": dict(
+        pods=_spread(30, "s", skew=2, cpu="250m", mem="512Mi"),
+        nodes=[dict(id="na", zone="zone-1a", pod_labels=[{"app": "w"}] * 5),
+               dict(id="nb", zone="zone-1b", pod_labels=[{"app": "w"}] * 2),
+               dict(id="nc", zone="zone-1c")],
+        pools=DEFAULT_POOL),
+    "spread_waterfill_unbalanced": dict(
+        pods=[pod(f"pin{i}", cpu="2", labels={"app": "w"}, sel={ZK: "zone-1a"}) for i in range(7)]
+        + _spread(90, "s"),
+        pools=DEFAULT_POOL),
+    "spread_residue_drains": dict(
+        pods=_spread(40, "a", cpu="2", mem="256Mi") + _spread(40, "b", cpu="1", mem="256Mi")
+        + _spread(200, "c", cpu="100m", mem="256Mi"),
+        pools=DEFAULT_POOL),
+    "spread_not_self_node_targets": dict(
+        pods=_spread(12, "x", labels={"app": "x"}),
+        nodes=[dict(id=f"n-{z[-1]}", zone=z) for z in ZONES],
+        pools=DEFAULT_POOL),
+    "spread_plus_hostname_and_selector": dict(
+        pods=[pod(f"h{i}", cpu="500m", labels={"app": "w"},
+                  tsc=[(1, ZK, {"app": "w"}), (1, "kubernetes.io/hostname", {"app": "w"})])
+              for i in range(6)]
+        + [pod(f"z{i}", cpu="1", mem="2Gi", sel={ZK: "zone-1b"}) for i in range(4)],
+        pools=DEFAULT_POOL),
+    "spread_pool_limits": dict(
+        pods=_spread(24, "s", cpu="2", mem="2Gi"),
+        pools=[dict(name="capped", weight=10, limits={"cpu": "8"}), dict(name="backup", weight=1)]),
+    "affinity_bootstrap_and_bulk": dict(
+        pods=_aff(30, "a", {"svc": "web"}, cpu="2", mem="2Gi")
+        + _aff(120, "b", {"svc": "web"}, cpu="100m", mem="64Mi"),
+        pools=DEFAULT_POOL),
+    "affinity_committed": dict(
+        pods=[pod("seed", cpu="2", labels={"svc": "web"}, sel={ZK: "zone-1b"})]
+        + _aff(60, "f", {"svc": "web"}) + _aff(90, "g", {"svc": "web"}, cpu="100m", mem="64Mi"),
+        pools=DEFAULT_POOL),
+    "affinity_follows_existing": dict(
+        pods=_aff(4, "f", {"svc": "web"}, labels={"x": "y"}, mem="2Gi"),
+        nodes=[dict(id="nb", zone="zone-1b", pod_labels=[{"svc": "web"}] * 2)],
+        pools=DEFAULT_POOL),
+    "anti_singletons_and_owner": dict(
+        pods=_aff(4, "db", {"app": "db"}, anti=True, mem="2Gi")
+        + [pod("owner", cpu="2", mem="4Gi", labels={"o": "1"}, aff=[({"app": "x"}, ZK, True)])]
+        + [pod(f"x{i}", labels={"app": "x"}) for i in range(3)],
+        pools=DEFAULT_POOL),
+    "anti_member_wave": dict(
+        pods=[pod("owner", cpu="500m", labels={"tag": "o"}, aff=[({"svc": "noisy"}, ZK, True)])]
+        + [pod(f"n{i:03d}", cpu="16", mem="24Gi", labels={"svc": "noisy"}) for i in range(40)],
+        pools=DEFAULT_POOL),
+    "affinity_wave_multi_open": dict(
+        pods=_aff(40, "w", {"svc": "web"}, cpu="24", mem="32Gi")
+        + _aff(30, "v", {"svc": "web"}, labels={"svc": "web", "x": "1"}, cpu="500m"),
+        pools=DEFAULT_POOL),
+    "spread_with_anti_owner": dict(
+        pods=[pod("owner", cpu="2", mem="4Gi", labels={"o": "1"}, aff=[({"tier": "fe"}, ZK, True)])]
+        + _spread(5, "fe", {"app": "w"}, skew=2, labels={"tier": "fe", "app": "w"}, mem="2Gi"),
+        pools=DEFAULT_POOL),
+    "ct_spread_and_anti": dict(
+        pods=_spread(24, "s", key=CK) + _aff(3, "l", {"svc": "lock"}, key=CK, anti=True),
+        nodes=[dict(id="n-od", zone="zone-1a"), dict(id="n-sp", zone="zone-1b", ct="spot")],
+        pools=DEFAULT_POOL),
+    "mixed_zone_and_ct": dict(
+        pods=_spread(6, "z", cpu="2", mem="4Gi") + _spread(4, "c", {"tier": "ct"}, key=CK, mem="2Gi")
+        + _aff(3, "d", {"svc": "db"}) + _aff(3, "k", {"lock": "k"}, key=CK, anti=True),
+        nodes=[dict(id="n0", zone="zone-1b", ct="spot", pod_labels=[{"tier": "ct"}])],
+        pools=DEFAULT_POOL),
+    **{f"mixed_fuzz_{s}": _zone_fuzz(s) for s in range(3)},
+}
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_port_matches_tpu_and_oracle(name):
     check(CASES[name])
+
+
+@pytest.mark.parametrize("name", sorted(ZONE_CASES))
+def test_zone_fleets_match_tpu_and_oracle(name):
+    check(ZONE_CASES[name])
+
+
+@pytest.mark.parametrize("config", ["config3", "config4"])
+def test_baseline_constrained_configs(config):
+    """200-pod cuts of BASELINE configs 3 (zone spread) and 4 (zone
+    (anti-)affinity), built by the port's copies of the bench builders and
+    by bench.py itself."""
+    import bench
+    import chip_smoke
+
+    name = f"build_{config}_input"
+    port = TorchSolver(device="cpu")
+    got = as_data(port.solve(getattr(chip_smoke, name)(200)))
+    inp = getattr(bench, name)(200)
+    assert got == as_data(TPUSolver().solve(inp))
+    ref = as_data(ReferenceSolver().solve(quantize_input(getattr(bench, name)(200))))
+    assert _parity_view(got) == _parity_view(ref)
+    assert port.stats["device_solves"] == 1 and not got["errors"]
 
 
 def _one_per_claim(n: int) -> dict:
@@ -283,10 +428,12 @@ def test_no_schedulable_pods():
 
 @pytest.mark.parametrize("kind", ["zone_spread", "preference", "custom_key"])
 def test_out_of_slice_inputs_raise(kind):
+    """zone_spread: a pod spread on BOTH zone and capacity type, which encode
+    routes to the oracle as a fallback group (one-axis spreads now solve)."""
     pods = [pod(f"p{i}", labels={"app": "a"}) for i in range(3)]
     for p in pods:
         if kind == "zone_spread":
-            p["tsc"] = [(1, "topology.kubernetes.io/zone", {"app": "a"})]
+            p["tsc"] = [(1, ZK, {"app": "a"}), (1, CK, {"app": "a"})]
         elif kind == "custom_key":
             p["tsc"] = [(1, "example.com/rack", {"app": "a"})]
     inp = build(dict(pods=pods, pools=[dict(name="default")]), "karpenter_tpu_torch")
@@ -297,3 +444,14 @@ def test_out_of_slice_inputs_raise(kind):
                 label_selector={"app": "a"}, topology_key="kubernetes.io/hostname", weight=10)]
     with pytest.raises(UnsupportedInput):
         TorchSolver(device="cpu").solve(inp)
+
+
+@pytest.mark.parametrize("limit", ["MAX_V", "MAX_Z", "MAX_P"])
+def test_zone_kernel_limits_raise(limit, monkeypatch):
+    """Past the zoned scan kernel's shared rows (V-axis sigs, domain
+    columns, pools) the port declines with a typed error, no fallback."""
+    from karpenter_tpu_torch.solver.cuda import ffd as tffd
+
+    monkeypatch.setattr(tffd, limit, 1)
+    with pytest.raises(UnsupportedInput):
+        TorchSolver(device="cpu").solve(build(ZONE_CASES["spread_skew1_fresh"], "karpenter_tpu_torch"))
