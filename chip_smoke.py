@@ -23,6 +23,14 @@ Runs the port's main path on one NVIDIA GPU and checks it:
 4. forces the wide re-fetch (a tiny delta capacity) and checks the
    decisions do not change.
 
+Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
+nodes and 2 000 candidates) runs through the port's
+BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
+drives it (config5_phase): the prefix search must find k >= 100 in <= 2
+batched dispatches, equal to the sequential replay; K4 (the batched scan,
+both instances) and K5 (the verdict pack) are held against their plain
+versions, with rows that saturate the claim slots.
+
 Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
@@ -348,6 +356,121 @@ def build_zone_input(seed: int):
                        zones=("zone-1a", "zone-1b", "zone-1c"))
 
 
+def build_config5_universe(n_nodes: int = 10_000, n_candidates: int = 2_000):
+    """BASELINE config 5: multi-node consolidation at 10k nodes (a copy of
+    bench.py's build_config5_universe against the port's classes).
+
+    Fleet: `n_candidates` underutilized nodes (one small pod each, the
+    disruption candidates, cost-ordered first) + absorbers with exactly
+    one pod worth of free capacity + fully-loaded nodes. The largest
+    consolidatable prefix sits strictly inside [2, n_candidates] (absorber
+    capacity + the <=1-replacement rule bound it), so the prefix search
+    has a real boundary to find."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    inp = build_input(0)  # pools + catalog only
+    n_absorbers = 1500
+    nodes = []
+
+    def mknode(j, kind, free_cpu, free_mem, pods_free):
+        free = Resources.parse({"cpu": free_cpu, "memory": free_mem})
+        free["pods"] = pods_free
+        return ExistingNode(
+            id=f"{kind}-{j:05d}",
+            labels={
+                wk.ZONE_LABEL: f"zone-1{'abc'[j % 3]}",
+                wk.CAPACITY_TYPE_LABEL: "on-demand",
+                wk.HOSTNAME_LABEL: f"{kind}-{j:05d}",
+                wk.ARCH_LABEL: "amd64",
+                wk.OS_LABEL: "linux",
+            },
+            taints=[],
+            free=free,
+        )
+
+    candidate_pods = {}
+    candidate_node = {}
+    sizes = [("500m", "512Mi"), ("500m", "1Gi"), ("250m", "512Mi"), ("750m", "768Mi")]
+    for j in range(n_candidates):
+        nodes.append(mknode(j, "cand", "7", "30Gi", 100))
+        cpu, mem = sizes[j % len(sizes)]
+        candidate_pods[j] = [
+            Pod(
+                meta=ObjectMeta(name=f"cp{j:05d}", uid=f"cp{j:05d}"),
+                requests=Resources.parse({"cpu": cpu, "memory": mem}),
+            )
+        ]
+        candidate_node[j] = f"cand-{j:05d}"
+    for j in range(n_absorbers):
+        nodes.append(mknode(j, "abs", "800m", "1Gi", 1))
+    for j in range(n_nodes - n_candidates - n_absorbers):
+        free = Resources.parse({"cpu": "0", "memory": "0"})
+        free["pods"] = 0
+        nodes.append(
+            ExistingNode(
+                id=f"full-{j:05d}",
+                labels={
+                    wk.ZONE_LABEL: f"zone-1{'abc'[j % 3]}",
+                    wk.CAPACITY_TYPE_LABEL: "on-demand",
+                    wk.HOSTNAME_LABEL: f"full-{j:05d}",
+                    wk.ARCH_LABEL: "amd64",
+                    wk.OS_LABEL: "linux",
+                },
+                taints=[],
+                free=free,
+            )
+        )
+    inp.nodes = nodes
+    return inp, candidate_pods, candidate_node
+
+
+def _accept_consolidation(k, v, cand_price=1.0):
+    """The controller's acceptance rule: feasible AND (no replacement, or the
+    replacement is strictly cheaper than the k nodes it consolidates)
+    (a copy of bench.py's)."""
+    if not v.ok:
+        return False
+    if v.has_replacement and (
+        v.replacement_price is None or v.replacement_price >= k * cand_price
+    ):
+        return False
+    return True
+
+
+def _prefix_search(ev, prep, n_candidates, cand_price=1.0):
+    """The controller's consolidation-prefix search through the port's copy
+    of speculative_binary_search, with the same acceptance rule (a copy of
+    bench.py's). Returns (k_best, dispatches, prefixes_evaluated,
+    seq_probes) where seq_probes is the round-trip count a sequential binary
+    search would have issued for the IDENTICAL decision (replayed host-side
+    from the probed verdicts)."""
+    from karpenter_tpu_torch.disruption.batched import speculative_binary_search
+
+    best, probed, dispatches = speculative_binary_search(
+        lambda ks: ev.evaluate_prepared(prep, [list(range(kk)) for kk in ks]),
+        2,
+        n_candidates,
+        lambda k, v: _accept_consolidation(k, v, cand_price),
+    )
+    # sequential replay over the same verdicts: every mid it consults was
+    # probed (the speculative search replays the identical decisions), so
+    # this counts the device round-trips batching collapsed
+    lo, hi, seq_probes, seq_best = 2, n_candidates, 0, None
+    while lo <= hi:
+        mid = (lo + hi) // 2
+        seq_probes += 1
+        if _accept_consolidation(mid, probed[mid], cand_price):
+            seq_best = mid
+            lo = mid + 1
+        else:
+            hi = mid - 1
+    assert seq_best == best, "speculative search diverged from sequential replay"
+    return (best or 1), dispatches, len(probed), seq_probes
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -386,14 +509,15 @@ def time_ms(fn, n: int) -> float:
 
 
 def max_abs_err(a, b) -> int:
-    """Max |a - b| over matching tensors (bools as 0/1); shapes must agree."""
+    """Max |a - b| over matching tensors (bools as 0/1), b moved to a's
+    device; shapes must agree."""
     import torch
 
     worst = 0
     for x, y in zip(a, b):
         assert tuple(x.shape) == tuple(y.shape), (x.shape, y.shape)
         if x.numel():
-            d = (x.to(torch.int64) - y.to(torch.int64)).abs().max().item()
+            d = (x.to(torch.int64) - y.to(x.device, torch.int64)).abs().max().item()
             worst = max(worst, int(d))
     return worst
 
@@ -462,9 +586,10 @@ def kernel_phase(inp, dev):
                 events=int(out.events), plain_once_s=plain_s)
 
 
-def profiled_us(fn, n: int, names) -> float:
-    """Device time per call (µs) of the named kernels, from torch.profiler
-    over n calls; 0.0 when the profiler records no device events."""
+def profiled_ms(fn, n: int, names):
+    """Device time per call (ms) of the named kernels, from torch.profiler
+    over n calls; None (not measured) when the profiler records none of
+    their device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -475,9 +600,9 @@ def profiled_us(fn, n: int, names) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and any(k in e.name for k in names))
-    return total / n
+    hits = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and any(k in e.name for k in names)]
+    return sum(hits) / n / 1e3 if hits else None
 
 
 def scan_cost(ph):
@@ -573,14 +698,14 @@ def kernel_rows(ph, ph_zone, launches, ops_per_s):
         10,
     )
     b3, by3 = bound(bytes3, ops3, ops_per_s)
-    dev1 = profiled_us(lambda: ffd.ffd_solve(*args, max_claims=M), 3, KERNEL_NAMES[:1]) / 1e3
-    dev_z = profiled_us(lambda: ffd.ffd_solve(*za, max_claims=zM, zone_engine=True), 3,
-                        KERNEL_NAMES[1:2]) / 1e3
-    dev2 = profiled_us(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 20,
-                       KERNEL_NAMES[2:3]) / 1e3
-    dev3 = profiled_us(
+    dev1 = profiled_ms(lambda: ffd.ffd_solve(*args, max_claims=M), 3, KERNEL_NAMES[:1])
+    dev_z = profiled_ms(lambda: ffd.ffd_solve(*za, max_claims=zM, zone_engine=True), 3,
+                        KERNEL_NAMES[1:2])
+    dev2 = profiled_ms(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 20,
+                       KERNEL_NAMES[2:3])
+    dev3 = profiled_ms(
         lambda: ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u),
-        20, KERNEL_NAMES[3:]) / 1e3
+        20, KERNEL_NAMES[3:6])
     e1, e2, e3 = ph["errs"]
     ez = ph_zone["errs"][0]
     zT = ph_zone["out"].state.c_mask.shape[1]
@@ -681,8 +806,12 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     return med
 
 
-KERNEL_NAMES = ("ffd_scan_kernel<false", "ffd_scan_kernel<true", "compact_takes_kernel",
-                "meta_pack_kernel", "meta_first_kernel", "meta_finish_kernel")
+KERNEL_NAMES = ("ffd_scan_kernel<false, false>", "ffd_scan_kernel<true, false>",
+                "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
+                "meta_finish_kernel", "ffd_scan_kernel<false, true>",
+                "ffd_scan_kernel<true, true>", "pack_verdicts_kernel")
+SINGLE_SOLVE_KERNELS = ("ffd_fast_scan", "ffd_zoned_scan", "compact_takes", "claim_meta")
+CONSOLIDATION_KERNELS = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "pack_verdicts")
 
 
 def device_profile(inp) -> dict:
@@ -775,6 +904,369 @@ class PlainOnCard:
         ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda = self.saved
 
 
+CONFIG5_NODES = 10_000  # BASELINE config 5
+CONFIG5_CANDIDATES = 2_000
+
+
+def as_consolidation_universe(inp):
+    """A small fleet as a consolidation universe: every existing node is a
+    candidate, the fleet's pods are dealt round-robin to all candidates but
+    the last, which keeps its node and no pods."""
+    import dataclasses
+
+    n = len(inp.nodes)
+    holders = max(1, n - 1)
+    cpods = {c: [] for c in range(n)}
+    for i, p in enumerate(inp.pods):
+        cpods[i % holders].append(p)
+    cnode = {c: inp.nodes[c].id for c in range(n)}
+    return dataclasses.replace(inp, pods=[]), cpods, cnode
+
+
+def small_subsets(n_cand: int, seed: int):
+    """Empty, every single candidate, a pair, all, and random subsets: at
+    least 9 rows, so the batch bucket adds padding rows."""
+    import random
+
+    rng = random.Random(seed)
+    subs = [[], *[[c] for c in range(n_cand)], [0, 1], list(range(n_cand))]
+    while len(subs) < 13:
+        subs.append(sorted(rng.sample(range(n_cand), rng.randint(1, n_cand))))
+    return subs
+
+
+def fleets_with_nodes(make_fleet, n: int):
+    """The first n seeds of `make_fleet` whose fleet has at least 2 nodes."""
+    out, seed = [], 0
+    while len(out) < n:
+        inp = make_fleet(seed)
+        if len(inp.nodes) >= 2:
+            out.append((seed, inp))
+        seed += 1
+    return out
+
+
+def batched_scan_cost(args, rows, out, zone: bool):
+    """K4's floor on work and traffic: inputs read once (the shared
+    arguments and the subset rows), outputs written once (the per-row
+    carry, leftovers and event counts); integer ops per row as scan_cost
+    counts them — (sub, floor-div, min) per resource over every node row
+    and every pool × type, once per run with pods in the row and once per
+    zoned event past a zoned run's first — with the claims open before a
+    run charged at 0 (verdict mode keeps no per-run takes), so the bound
+    stays a floor. Returns (bytes, ops)."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    E, R = args[ffd.ARG_INDEX["node_free"]].shape
+    P, T = args[ffd.ARG_INDEX["pool_type"]].shape
+    b_run_count = rows[0]
+    runs_with_pods = (b_run_count > 0).sum(axis=1)
+    per_pass = (E + P * T) * R * 3
+    ops = int(runs_with_pods.sum()) * per_pass
+    if zone:
+        groups = args[0].cpu()
+        v_owner = args[ffd.ARG_INDEX["v_owner"]].cpu()
+        v_anti = args[ffd.ARG_INDEX["v_member"]].cpu() & (args[ffd.ARG_INDEX["v_kind"]].cpu() == 1)
+        constrained = (v_owner.any(dim=1) | v_anti.any(dim=1))[groups.long()].numpy()
+        zoned_runs = ((b_run_count > 0) & constrained[None, :]).sum(axis=1)
+        events = out.events.cpu().numpy()
+        ops += int((events - zoned_runs).clip(min=0).sum()) * per_pass
+    outputs = [out.leftover, out.events, *out.state]
+    in_bytes = nbytes(*args) + int(sum(r.nbytes for r in rows))
+    return in_bytes + nbytes(*outputs), ops
+
+
+def small_batched_check(inp, M: int, seed: int, dev):
+    """K4 (the instance the universe picks) and K5 against their plain
+    versions (run on CPU copies of the same inputs: at these shapes the
+    plain loop is faster there) on every row of one small batch."""
+    import torch
+
+    from karpenter_tpu_torch.disruption.batched import BatchedConsolidationEvaluator
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.cuda import consolidate as cons
+
+    base, cpods, cnode = as_consolidation_universe(inp)
+    prep = BatchedConsolidationEvaluator(TorchSolver(), max_claims=M).prepare(base, cpods, cnode)
+    assert prep is not None, "a small fleet fell off the batched path"
+    zone = prep.enc.V > 0
+    subs = small_subsets(len(cnode), seed)
+    rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, subs, prep.node_idx,
+                            prep.v_delta, prep.v_count0_host)
+    out = cons.batched_ffd(prep.args, *cons.upload_rows(rows, dev), M, zone)
+    flat = cons.pack_verdicts(out)
+    torch.cuda.synchronize()
+    cpu_args = tuple(a.cpu() for a in prep.args)
+    plain = cons.batched_ffd_plain(cpu_args, *cons.upload_rows(rows, "cpu"), M, zone)
+    err4 = max_abs_err([out.leftover, out.events, *out.state],
+                       [plain.leftover, plain.events, *plain.state])
+    err5 = max_abs_err([flat], [cons.pack_verdicts_plain(plain)])
+    used = out.state.used.cpu()
+    return dict(zone=zone, err4=err4, err5=err5, rows=len(used), saturated=int((used >= M).sum()),
+                events=int(out.events.sum()), prep=prep, rows_host=rows, out=out, M=M)
+
+
+def config5_phase(dev, ops_per_s: float) -> dict:
+    """BASELINE config 5 through the port: prepare the 10k-node universe
+    once, then the controller's prefix search (speculative_binary_search)
+    through BatchedConsolidationEvaluator(TorchSolver()), as bench.py's
+    bench_config5 runs it: the first search checks k >= 100 in <= 2
+    dispatches equal to the sequential replay (>= 6 probes), five more are
+    timed (p50). Zone-fleet consolidations through the same evaluator drive
+    K4's zoned instance. Launch counts are reset just before and read just
+    after. Then K4 against its plain version on the card on a full 512-row
+    dispatch at config-5 shapes (a sample of rows) and on small fleets whose
+    rows saturate the claim slots, K5 on the full batch, the per-dispatch
+    host split, and the kernel rows."""
+    import random
+    import statistics
+
+    import torch
+
+    from karpenter_tpu_torch.disruption import batched as tb
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.cuda import build, ffd
+    from karpenter_tpu_torch.solver.cuda import consolidate as cons
+
+    t0 = time.perf_counter()
+    inp, cpods, cnode = build_config5_universe(CONFIG5_NODES, CONFIG5_CANDIDATES)
+    build_s = time.perf_counter() - t0
+    ev = tb.BatchedConsolidationEvaluator(TorchSolver())
+    t0 = time.perf_counter()
+    prep = ev.prepare(inp, cpods, cnode)
+    prepare_s = time.perf_counter() - t0
+    assert prep is not None, "config 5 fell off the batched path"
+    enc = prep.enc
+    assert enc.V == 0
+    zone_fleets = fleets_with_nodes(build_zone_input, 4)
+    zone_preps = []
+    for seed, zinp in zone_fleets:
+        zev = tb.BatchedConsolidationEvaluator(TorchSolver())
+        zp = zev.prepare(*as_consolidation_universe(zinp))
+        assert zp is not None and zp.enc.V > 0
+        zone_preps.append((zev, zp, len(zinp.nodes)))
+
+    # ---- the main path, launch counts reset just before ---------------------
+    for k in ffd.LAUNCHES:
+        ffd.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    k_best, dispatches, n_probed, seq = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
+    first_s = time.perf_counter() - t0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        k2, d2, probed2, _ = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
+        times.append((time.perf_counter() - t0) * 1e3)
+        assert (k2, d2) == (k_best, dispatches)
+    zone_ks = []
+    for zev, zp, n in zone_preps:
+        best, _, _ = tb.speculative_binary_search(
+            lambda ks: zev.evaluate_prepared(zp, [list(range(kk)) for kk in ks]), 1, n,
+            lambda kk, v: _accept_consolidation(kk, v))
+        zone_ks.append(best)
+    torch.cuda.synchronize()
+    launches = dict(ffd.LAUNCHES)
+    for k in CONSOLIDATION_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the consolidation path"
+    assert k_best >= 100, f"expected a large consolidatable prefix, got {k_best}"
+    assert dispatches <= 2, f"the prefix search took {dispatches} dispatches"
+    assert seq >= 6, f"the sequential baseline needed only {seq} probes"
+    p50 = statistics.median(times)
+    searches = 6
+    print(f"config5: k={k_best} dispatches={dispatches} probed={n_probed} seq_probes={seq} "
+          f"p50_ms={p50:.3f} first_s={first_s:.3f} launches={launches} zone_ks={zone_ks}",
+          flush=True)
+
+    # ---- K4 / K5 against their plain versions on the card ------------------------
+    levels = max(1, (512 + 1).bit_length() - 1)
+    ks = tb.binary_probe_frontier(2, CONFIG5_CANDIDATES, levels)
+    for extra in (k_best, k_best + 1):
+        if extra not in ks and extra <= CONFIG5_CANDIDATES:
+            ks[len(ks) // 2] = extra
+            ks = sorted(set(ks))
+    ks = sorted(ks)
+    subsets = [list(range(kk)) for kk in ks]
+    rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, subsets, prep.node_idx,
+                            prep.v_delta, prep.v_count0_host)
+    Bp = rows[0].shape[0]
+    assert Bp == 512 and len(subsets) == 511, (Bp, len(subsets))
+    drows = cons.upload_rows(rows, dev)
+    M = ev.max_claims
+    out = cons.batched_ffd(prep.args, *drows, M, False)
+    flat = cons.pack_verdicts(out)
+    torch.cuda.synchronize()
+    rng = random.Random(5)
+    must = [ks.index(k_best), ks.index(k_best + 1) if k_best + 1 in ks else len(ks) - 1,
+            0, len(ks) - 1, Bp - 1]
+    sample = sorted(set(must) | set(rng.sample(range(Bp), 16)))
+    sel = torch.tensor(sample, device=dev)
+    t0 = time.perf_counter()
+    plain = cons.batched_ffd_plain(prep.args, *[r[sel] for r in drows[:3]], drows[3], M, False)
+    torch.cuda.synchronize()
+    plain_sample_s = time.perf_counter() - t0
+    err4 = max_abs_err([out.leftover[sel], out.events[sel], *[f[sel] for f in out.state]],
+                       [plain.leftover, plain.events, *plain.state])
+    assert err4 == 0, f"ffd_batched_fast_scan disagrees with its plain version (max |d| {err4})"
+    err5 = max_abs_err([flat], [cons.pack_verdicts_plain(out)])
+    assert err5 == 0, f"pack_verdicts disagrees with its plain version (max |d| {err5})"
+    used = out.state.used.cpu()
+    lo_tot = out.leftover.sum(dim=1).cpu()
+    print(f"config5 check: rows={Bp} sample={len(sample)} max_abs_err=({err4}, {err5}) "
+          f"plain_sample_s={plain_sample_s:.2f} used_max={int(used.max())} "
+          f"rows_with_leftover={int((lo_tot > 0).sum())}", flush=True)
+
+    # small fleets with saturating rows (M=2) and M=16: the fast instance on
+    # the hostname-constrained fleets, the zoned one on the zone fleets
+    small = []
+    for make_fleet, zone_expected in ((build_constrained_input, False), (build_zone_input, True)):
+        for seed, sinp in fleets_with_nodes(make_fleet, 4):
+            for Ms in (2, 16):
+                r = small_batched_check(sinp, Ms, seed, dev)
+                assert r["zone"] == zone_expected
+                assert r["err4"] == 0 and r["err5"] == 0, (make_fleet.__name__, seed, Ms, r["err4"], r["err5"])
+                small.append(r)
+    for zone_expected in (False, True):
+        assert any(r["saturated"] for r in small if r["zone"] == zone_expected and r["M"] == 2), \
+            "no small-fleet row saturated its claim slots"
+    print(f"small batched fleets: {len(small)} batches max_abs_err=(0, 0) saturated_rows="
+          f"{[r['saturated'] for r in small]} events={[r['events'] for r in small]}", flush=True)
+
+    # ---- per-dispatch host split and transfer bytes (the 511-row dispatch) --------
+    # stages one after another as a dispatch runs them: the host rows, their
+    # upload, K4, K5 + the one fetch, fetch_verdicts (K5 + fetch + the bit
+    # unpack), and _finish_verdicts whole (fetch_verdicts + per-row verdicts)
+    split = {k: [] for k in ("rows_host", "upload", "device", "pack_fetch", "fetch_unpack",
+                             "finish")}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        hrows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, subsets, prep.node_idx,
+                                 prep.v_delta, prep.v_count0_host)
+        t1 = time.perf_counter()
+        d = cons.upload_rows(hrows, dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        o = cons.batched_ffd(prep.args, *d, M, False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        cons.pack_verdicts(o).cpu()
+        t4 = time.perf_counter()
+        fetched = cons.fetch_verdicts(o, enc.T, len(subsets))
+        t5 = time.perf_counter()
+        ev._finish_verdicts(prep, o, len(subsets))
+        t6 = time.perf_counter()
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5)):
+            split[k].append(v * 1e3)
+    split_ms = {f"{k}_ms": statistics.median(v) for k, v in split.items()}
+    h2d = int(sum(r.nbytes for r in rows))
+    d2h = int(flat.numel() * flat.element_size())
+    assert fetched[0].shape[0] == len(subsets)
+
+    # ---- kernel rows ----------------------------------------------------------------
+    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
+    ms4 = time_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 5)
+    dev4 = profiled_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 3,
+                       ("ffd_scan_kernel<false, true>",))
+    t0 = time.perf_counter()
+    cons.batched_ffd_plain(prep.args, *drows, M, False)
+    torch.cuda.synchronize()
+    plain4 = (time.perf_counter() - t0) * 1e3
+    bytes4, ops4 = batched_scan_cost(prep.args, rows, out, False)
+    b4, by4 = bound(bytes4, ops4, ops_per_s)
+
+    zr = next(r for r in small if r["zone"] and r["M"] == 16)
+    zargs, zrows, zM = zr["prep"].args, zr["rows_host"], zr["M"]
+    zdrows = cons.upload_rows(zrows, dev)
+    ms4z = time_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 10)
+    dev4z = profiled_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 3,
+                        ("ffd_scan_kernel<true, true>",))
+    plain4z = time_ms(lambda: cons.batched_ffd_plain(zargs, *zdrows, zM, True), 1)
+    bytes4z, ops4z = batched_scan_cost(zargs, zrows, zr["out"], True)
+    b4z, by4z = bound(bytes4z, ops4z, ops_per_s)
+
+    ms5 = time_ms(lambda: cons.pack_verdicts(out), 50)
+    dev5 = profiled_ms(lambda: cons.pack_verdicts(out), 20, ("pack_verdicts_kernel",))
+    plain5 = time_ms(lambda: cons.pack_verdicts_plain(out), 10)
+    st = out.state
+    bytes5 = nbytes(out.leftover, st.used, st.c_zc_bits, st.c_mask, flat)
+    ops5 = Bp * (out.leftover.shape[1] + st.c_mask.shape[1] * st.c_mask.shape[2])
+    b5, by5 = bound(bytes5, ops5, ops_per_s)
+
+    regs = ptxas_registers(build.BUILD_LOG["ptxas"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    reg4 = regs.get("ffd_scan_kernel<false, true>")
+    blocks_per_sm = max(1, min(2048 // 1024, 65536 // (1024 * max(reg4 or 64, 1))))
+    waves = -(-Bp // (sms * blocks_per_sm))
+    n_disp = searches * dispatches
+    rows_out = [
+        dict(name="ffd_batched_fast_scan", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/consolidate.py:57",
+             launches=launches["ffd_batched_fast_scan"], max_abs_err=err4, ms=ms4,
+             plain_ms=plain4, bound_ms=b4, bound_by=by4, library_ms=None, match=err4 == 0,
+             device_ms=dev4, launches_per_dispatch=launches["ffd_batched_fast_scan"] / n_disp,
+             shape=dict(B=Bp, Sp=int(rows[0].shape[1]),
+                        Ep=int(prep.args[ffd.ARG_INDEX["node_free"]].shape[0]),
+                        M=M, T=int(st.c_mask.shape[2]), NC=int(rows[2].shape[1])),
+             ops=ops4, bytes=bytes4, registers=reg4, blocks_per_sm=blocks_per_sm, waves=waves),
+        dict(name="ffd_batched_zoned_scan", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/consolidate.py:57",
+             launches=launches["ffd_batched_zoned_scan"], max_abs_err=zr["err4"], ms=ms4z,
+             plain_ms=plain4z, bound_ms=b4z, bound_by=by4z, library_ms=None,
+             match=zr["err4"] == 0, device_ms=dev4z,
+             shape=dict(B=int(zrows[0].shape[0]), Sp=int(zrows[0].shape[1]), M=zM,
+                        V=int(zrows[1].shape[1]), Z=int(zrows[1].shape[2])),
+             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true>")),
+        dict(name="pack_verdicts", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/consolidate.py:291",
+             launches=launches["pack_verdicts"], max_abs_err=err5, ms=ms5, plain_ms=plain5,
+             bound_ms=b5, bound_by=by5, library_ms=None, match=err5 == 0, device_ms=dev5,
+             launches_per_dispatch=launches["pack_verdicts"] / max(1, launches["ffd_batched_fast_scan"]
+                                                                   + launches["ffd_batched_zoned_scan"]),
+             shape=dict(B=Bp, M=M, Tp=int(st.c_mask.shape[2])), ops=ops5, bytes=bytes5),
+    ]
+    summary = dict(
+        config5_eval_p50_ms=p50,
+        config5_subset_evals_per_s=probed2 / (p50 / 1e3),
+        config5_prefix_nodes=k_best,
+        config5_dispatches=dispatches,
+        config5_prefixes_probed=n_probed,
+        config5_sequential_probes=seq,
+        search_ms=times,
+        first_search_s=first_s,
+        universe_build_s=build_s,
+        prepare_s=prepare_s,
+        dims=dict(E=enc.E, T=enc.T, G=enc.G, S=len(enc.run_group), NC=int(rows[2].shape[1]), Bp=Bp),
+        per_dispatch=dict(rows=len(subsets), h2d_bytes=h2d, d2h_bytes=d2h, k4_device_ms=dev4,
+                          k5_device_ms=dev5, **split_ms),
+        launches=launches,
+        zone_fleet_k=zone_ks,
+        check=dict(sample_rows=len(sample), plain_sample_s=plain_sample_s,
+                   small_batches=len(small)),
+    )
+    return dict(summary=summary, rows=rows_out)
+
+
+def ptxas_registers(report: str) -> dict:
+    """{kernel instance: registers per thread} from ptxas -v, for the scan
+    instances and the verdict pack (demangled by their template flags)."""
+    names = {
+        "ffd_scan_kernelILb0ELb0E": "ffd_scan_kernel<false, false>",
+        "ffd_scan_kernelILb1ELb0E": "ffd_scan_kernel<true, false>",
+        "ffd_scan_kernelILb0ELb1E": "ffd_scan_kernel<false, true>",
+        "ffd_scan_kernelILb1ELb1E": "ffd_scan_kernel<true, true>",
+        "pack_verdicts_kernel": "pack_verdicts_kernel",
+    }
+    out, current = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = next((v for k, v in names.items() if k in line), None)
+        elif current and "registers" in line:
+            words = line.split()
+            i = next(j for j, w in enumerate(words) if w.startswith("registers"))
+            out[current] = int(words[i - 1])
+            current = None
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -835,6 +1327,13 @@ def main() -> int:
     assert sum(e > 8 for e in zone_events) >= 4, zone_events  # beyond the closed forms
     print(f"kernels[zone x8]: max_abs_err=(0, 0, 0) events={zone_events}", flush=True)
 
+    # ---- phase 2b: config 5, batched consolidation (K4, K5) ------------------------
+    int_rate = int32_ops_per_s()
+    t0 = time.perf_counter()
+    c5 = config5_phase(dev, int_rate)
+    c5["summary"]["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"config5": c5["summary"]}), flush=True)
+
     # ---- phase 3: the main path through TorchSolver ---------------------------------
     TorchSolver = tb.TorchSolver
     solver = TorchSolver(max_claims=MAX_CLAIMS)
@@ -863,8 +1362,8 @@ def main() -> int:
     transfer["mixed"] = dict(solver.transfer.__dict__)
     watch.close()
     launches = dict(ffd.LAUNCHES)
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} never launched on the main path"
+    for k in SINGLE_SOLVE_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the main path"
     plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
     for name, inp in {**inputs, **once}.items():
         if name == "mixed":
@@ -892,8 +1391,7 @@ def main() -> int:
     stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
     profiles = {name: device_profile(inp) for name, inp in inputs.items()}
-    int_rate = int32_ops_per_s()
-    rows = kernel_rows(phases["surge"], phases["config3"], launches, int_rate)
+    rows = kernel_rows(phases["surge"], phases["config3"], launches, int_rate) + c5["rows"]
     n_solves = {"ffd_fast_scan": 2 * REPEATS, "ffd_zoned_scan": 2 * REPEATS + 1,
                 "compact_takes": 4 * REPEATS + 1, "claim_meta": 4 * REPEATS + 1}
     print(json.dumps({"kernels": rows}))
@@ -912,7 +1410,7 @@ def main() -> int:
                       M=phases["mixed"]["M"], events_per_solve=phases["mixed"]["events"],
                       unplaced=len(results["mixed"].errors), steady=transfer["mixed"]),
         "launches": launches,
-        "launches_per_solve": {k: v / n_solves[k] for k, v in launches.items()},
+        "launches_per_solve": {k: launches[k] / n_solves[k] for k in SINGLE_SOLVE_KERNELS},
         "claim_doublings": solver.stats["claim_doublings"],
         "wide_refetch_ok": True,
         "build_s": build_s,

@@ -8,14 +8,19 @@
 // argmax go to the lowest index, uint32 words are carried as raw bits.
 //
 // K1 ffd_scan      replaces karpenter_tpu/solver/tpu/ffd.py:1884 ffd_solve
-//                   (_ffd_scan :395): ffd_scan_kernel<false> the fast branch
-//                   (step_body.fast :605-855), ffd_scan_kernel<true> adds the
-//                   zoned branch (step_body.zoned :860-1663, count_contrib
-//                   :587).
+//                   (_ffd_scan :395): ffd_scan_kernel<false, false> the fast
+//                   branch (step_body.fast :605-855), ffd_scan_kernel<true,
+//                   false> adds the zoned branch (step_body.zoned :860-1663,
+//                   count_contrib :587).
 // K2 compact_takes  replaces karpenter_tpu/solver/tpu/ffd.py:325 compact_takes.
 // K3 claim_meta     replaces karpenter_tpu/solver/tpu/ffd.py:358
 //                   compact_claim_meta plus the c_mask word pack of
 //                   karpenter_tpu/solver/backend.py:652-660.
+// K4 ffd_batched    replaces karpenter_tpu/solver/tpu/consolidate.py:57
+//                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE, true>,
+//                   one block per candidate-subset row.
+// K5 pack_verdicts  replaces karpenter_tpu/solver/tpu/consolidate.py:291
+//                   _pack_verdicts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -161,7 +166,28 @@ struct ScanArgs {
   int* v_count; unsigned char* v_owner_z; int* c_vm; unsigned char* c_vo;
   int* take_e; int* take_c; int* leftover; int* events; int* scratch;
   int S, G, T, E, P, R, Q, W, M, V, Z;
+  // the batched instances (BATCH=true, K4) only: the carry's shared seeds,
+  // the subset rows, and this block's [E] removed-node mask
+  const int* pool_usage0; const int* node_q_member; const int* node_q_owner;
+  const int* v_count0; const int* node_cand; const unsigned char* cand_member;
+  int* removed;
+  int NC, row_words, take_off;
 };
+
+// Row offset of run s in the [S, n] take tables. The batched scan keeps
+// only the current run's take rows (in the block's scratch): offset 0.
+template <bool BATCH>
+__device__ __forceinline__ size_t take_row(int s, int n) {
+  if constexpr (BATCH) return 0; else return (size_t)s * n;
+}
+
+// node_compat[g, e]; in the batched scan also "node e is not removed by
+// this block's subset"
+template <bool BATCH>
+__device__ __forceinline__ bool node_compat_at(const ScanArgs& a, int g, int e) {
+  if constexpr (BATCH) return a.node_compat[(size_t)g * a.E + e] && !a.removed[e];
+  else return a.node_compat[(size_t)g * a.E + e];
+}
 
 struct RunShared {
   int req[MAX_R];
@@ -323,6 +349,7 @@ __device__ int domain_argmin(const ZoneShared& zs, int Z, unsigned inter, int mo
   return arg;
 }
 
+template <bool BATCH>
 __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, const Scratch& x,
                           int s, int g) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -338,7 +365,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     zs.zcm[tid] = a.zone_col_mask[tid];
     zs.col_axis[tid] = a.col_axis[tid];
   }
-  for (int e = tid; e < E; e += NT) a.take_e[(size_t)s * E + e] = 0;
+  for (int e = tid; e < E; e += NT) a.take_e[take_row<BATCH>(s, E) + e] = 0;
   for (int m = tid; m < M; m += NT) x.c_take[m] = 0;
   if (tid == 0) {
     zs.g_ax = a.group_daxis[g];
@@ -450,7 +477,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
         const int fit = fit_rows(a.node_free + e * R, a.e_cum + e * R, sh.req, R);
         const int host = row_allowance<true>(sh, Q, a.e_cm + e * Q, a.e_co + e * Q);
         const int nd = node_dom(a, zs, e);
-        const bool base = a.node_compat[(size_t)g * E + e] && fit > 0 && host > 0;
+        const bool base = node_compat_at<BATCH>(a, g, e) && fit > 0 && host > 0;
         const bool nz_ok = nd >= 0 ? zs.A[min(nd, Z - 1)] != 0 : !zs.has_owned;
         const bool el = base && nz_ok;
         x.e_full[e] = fit;
@@ -878,7 +905,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
         if (sh.mg[q]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], add);
         if (add > 0 && sh.og[q] && sh.kq[q] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
       }
-      a.take_e[(size_t)s * E + e] = wadd(a.take_e[(size_t)s * E + e], add);
+      a.take_e[take_row<BATCH>(s, E) + e] = wadd(a.take_e[take_row<BATCH>(s, E) + e], add);
       node_contrib(a, zs.contrib, e, add);
       placed += (unsigned)add;
     }
@@ -999,7 +1026,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     }
     __syncthreads();
   }
-  for (int m = tid; m < M; m += NT) a.take_c[(size_t)s * M + m] = x.c_take[m];
+  for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH>(s, M) + m] = x.c_take[m];
   if (tid == 0) {
     a.leftover[s] = zs.remaining;
     *a.events = wadd(*a.events, zs.events);
@@ -1034,8 +1061,82 @@ __device__ __forceinline__ Scratch zone_scratch(const ScanArgs& a) {
   return x;
 }
 
-template <bool ZONE>
+// ---- K4: the batched scan (BATCH=true) ---------------------------------------
+//
+// Replaces karpenter_tpu/solver/tpu/consolidate.py:57 _batched_ffd_core (jit
+// :97 _batched_ffd): the FFD scan vmapped over B candidate subsets in verdict
+// mode. Row b re-solves the universe with its subset's pods (b_run_count[b]),
+// its subset's nodes removed from node_compat, their hostname-sig rows
+// zeroed in the carry's e_cm / e_co, and its own v_count0.
+//
+// What bounds it on the H100: each row is K1's sequential scan (latency-
+// bound, one block), so a batch is bound by rows / SMs waves of K1-sized
+// work; the carry is per row ([E, Q] hostname counts are the largest part).
+// Design: one block per row (grid = B), the same kernel body as K1 under a
+// second template flag, so the single-solve instances keep their code. The
+// prologue below moves every carry pointer to the block's row, seeds the
+// carry in place (no host-side copies of the seeds per row), and computes
+// the row's [E] removed-node mask from node_cand and the row's cand_member
+// into the block's scratch; node_compat reads AND it in (node_compat_at).
+// The current run's take rows live in the same scratch (take_row = 0): the
+// body reads them back within a run, and verdict mode emits none.
+__device__ void batch_row_prologue(ScanArgs& a) {
+  const size_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int E = a.E, M = a.M, T = a.T, R = a.R, Q = a.Q, W = a.W, P = a.P, V = a.V, Z = a.Z;
+  a.run_count += b * a.S;
+  a.v_count0 += b * V * Z;
+  a.cand_member += b * a.NC;
+  a.e_cum += b * E * R;
+  a.c_cum += b * M * R;
+  a.c_mask += b * M * T;
+  a.c_zc_bits += b * M;
+  a.c_gbits += b * M * W;
+  a.c_pool += b * M;
+  a.used += b;
+  a.p_usage += b * P * R;
+  a.e_cm += b * E * Q;
+  a.e_co += b * E * Q;
+  a.c_cm += b * M * Q;
+  a.c_co += b * M * Q;
+  a.v_count += b * V * Z;
+  a.v_owner_z += b * V * Z;
+  a.c_vm += b * M * V;
+  a.c_vo += b * M * V;
+  a.leftover += b * a.S;
+  a.events += b;
+  a.scratch += b * a.row_words;
+  a.take_e = a.scratch + a.take_off;
+  a.take_c = a.take_e + E;
+  a.removed = a.take_c + M;
+  // the carry's initial values (FFDState at a cold solve), row b's seeds
+  for (int e = tid; e < E; e += NT) {
+    const int k = a.node_cand[e];
+    const bool rm = k >= 0 && a.cand_member[min(k, a.NC - 1)];
+    a.removed[e] = rm;
+    for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = 0;
+    for (int q = 0; q < Q; ++q) {
+      a.e_cm[e * Q + q] = rm ? 0 : a.node_q_member[e * Q + q];
+      a.e_co[e * Q + q] = rm ? 0 : a.node_q_owner[e * Q + q];
+    }
+  }
+  for (int i = tid; i < M * R; i += NT) a.c_cum[i] = 0;
+  for (int i = tid; i < M * T; i += NT) a.c_mask[i] = 0;
+  for (int i = tid; i < M; i += NT) { a.c_zc_bits[i] = 0u; a.c_pool[i] = -1; }
+  for (int i = tid; i < M * W; i += NT) a.c_gbits[i] = 0u;
+  for (int i = tid; i < M * Q; i += NT) { a.c_cm[i] = 0; a.c_co[i] = 0; }
+  for (int i = tid; i < V * Z; i += NT) { a.v_count[i] = a.v_count0[i]; a.v_owner_z[i] = 0; }
+  for (int i = tid; i < M * V; i += NT) { a.c_vm[i] = 0; a.c_vo[i] = 0; }
+  for (int i = tid; i < P * R; i += NT) a.p_usage[i] = a.pool_usage0[i];
+  if (tid == 0) { *a.used = 0; *a.events = 0; }
+  __syncthreads();
+}
+
+// K1 (BATCH=false: one solve, one block) and K4 (BATCH=true: one block per
+// subset row, from the prologue above)
+template <bool ZONE, bool BATCH>
 __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
+  if constexpr (BATCH) batch_row_prologue(a);
   __shared__ RunShared sh;
   ZoneShared* zs = nullptr;
   Scratch x{};
@@ -1062,8 +1163,8 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
     const int g = a.run_group[s];
     const int count = a.run_count[s];
     if (count <= 0) {  // padded run: zero rows, state untouched
-      for (int i = tid; i < E; i += NT) a.take_e[(size_t)s * E + i] = 0;
-      for (int i = tid; i < M; i += NT) a.take_c[(size_t)s * M + i] = 0;
+      for (int i = tid; i < E; i += NT) a.take_e[take_row<BATCH>(s, E) + i] = 0;
+      for (int i = tid; i < M; i += NT) a.take_c[take_row<BATCH>(s, M) + i] = 0;
       if (tid == 0) a.leftover[s] = 0;
       continue;
     }
@@ -1109,7 +1210,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       const int constrained =
           __syncthreads_or(tid < a.V && (zs->ov[tid] || (zs->mv[tid] && zs->vk[tid] == 1)));
       if (constrained) {
-        zoned_run(a, sh, *zs, x, s, g);
+        zoned_run<BATCH>(a, sh, *zs, x, s, g);
         continue;
       }
       const int any_mv = __syncthreads_or(tid < a.V && zs->mv[tid]);
@@ -1119,7 +1220,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
     // ---- 1. existing nodes ----------------------------------------------
     int my_first = I32MAX, any_boot = 0;
     for (int e = tid; e < E; e += NT) {
-      int base = a.node_compat[(size_t)g * E + e]
+      int base = node_compat_at<BATCH>(a, g, e)
                      ? fit_rows(a.node_free + e * R, a.e_cum + e * R, sh.req, R) : 0;
       const int allow = row_allowance(sh, Q, a.e_cm + e * Q, a.e_co + e * Q);
       const int pos = row_pos(sh, Q, a.e_cm + e * Q);
@@ -1142,7 +1243,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       unsigned placed = 0;
       for (int e = tid; e < E; e += NT) {
         const int take = min(max(wsub(rem, e_full[e]), 0), e_boot[e]);
-        a.take_e[(size_t)s * E + e] = take;
+        a.take_e[take_row<BATCH>(s, E) + e] = take;
         placed += (unsigned)take;
         if (take > 0) {
           for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = wadd(a.e_cum[e * R + r], wmul(take, sh.req[r]));
@@ -1329,7 +1430,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
         if (tid < a.Z) zs->contrib[tid] = 0;
         __syncthreads();
         for (int e = tid; e < E; e += NT) {
-          const int take = a.take_e[(size_t)s * E + e];
+          const int take = a.take_e[take_row<BATCH>(s, E) + e];
           if (take > 0) node_contrib(a, zs->contrib, e, take);
         }
         for (int m = tid; m < sh.used; m += NT)
@@ -1339,11 +1440,54 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
           if (zs->mv[i / a.Z]) a.v_count[i] = wadd(a.v_count[i], zs->contrib[i % a.Z]);
       }
     }
-    for (int m = tid; m < M; m += NT) a.take_c[(size_t)s * M + m] = c_take[m];
+    for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH>(s, M) + m] = c_take[m];
     if (tid == 0) a.leftover[s] = sh.remaining;
     __syncthreads();
   }
   if (tid == 0) *a.used = sh.used;
+}
+
+// ---- K5: verdict pack --------------------------------------------------------
+//
+// Replaces karpenter_tpu/solver/tpu/consolidate.py:291 _pack_verdicts: per
+// subset row [leftover total (int32, wrapping), used, c_zc_bits[M], c_mask
+// [M, Tp] as ceil(Tp/32) uint32 words with bit i = type 32w + i], rows
+// concatenated into one int32 buffer so a dispatch is one fetch.
+// Bound on the H100: bytes — each row's leftovers, used, zc words and type
+// mask are read once and 2 + M + M·W words written; the work is a sum and a
+// bit pack. Design: one block per row, as K3's word pack; a warp reduction
+// of the leftover total in unsigned (wrapping) arithmetic; one thread per
+// output word of the type-mask pack.
+
+constexpr int VT = 256;  // threads of the verdict pack
+
+__global__ void __launch_bounds__(VT) pack_verdicts_kernel(
+    const int* leftover, const int* used, const unsigned* c_zc, const unsigned char* c_mask,
+    unsigned* out, int S, int M, int T) {
+  __shared__ unsigned red[VT / 32];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int W = (T + 31) / 32;
+  unsigned* o = out + (size_t)b * (2 + M + M * W);
+  unsigned sum = 0u;
+  for (int i = tid; i < S; i += VT) sum += (unsigned)leftover[(size_t)b * S + i];
+  for (int k = 16; k > 0; k >>= 1) sum += __shfl_xor_sync(FULL, sum, k);
+  if ((tid & 31) == 0) red[tid >> 5] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    unsigned t = 0u;
+    for (int i = 0; i < VT / 32; ++i) t += red[i];
+    o[0] = t;
+    o[1] = (unsigned)used[b];
+  }
+  for (int m = tid; m < M; m += VT) o[2 + m] = c_zc[(size_t)b * M + m];
+  const unsigned char* mask = c_mask + (size_t)b * M * T;
+  for (int i = tid; i < M * W; i += VT) {
+    const int m = i / W, t0 = (i % W) * 32;
+    unsigned v = 0u;
+    for (int j = 0; j < 32 && t0 + j < T; ++j)
+      if (mask[(size_t)m * T + t0 + j]) v |= 1u << j;
+    o[2 + M + i] = v;
+  }
 }
 
 // ---- K2: take-table compaction ---------------------------------------------
@@ -1486,15 +1630,10 @@ __global__ void __launch_bounds__(NT) meta_finish_kernel(
 
 extern "C" {
 
-// ptrs: the 32 input arrays of the scan (ARG_SPEC order without pool_usage0,
-// node_q_member, node_q_owner and v_count0, which seed the carry), then
-// e_cum, c_cum, c_mask, c_zc_bits, c_gbits, c_pool, used, p_usage, e_cm,
-// e_co, c_cm, c_co, v_count, v_owner_z, c_vm, c_vo, take_e, take_c, leftover,
-// events, scratch. dims: S, G, T, E, P, R, Q, W, M, V, Z, zone (0: the
-// fast-branch instance, 1: the instance with the zoned branch).
-int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 53) return (int)cudaErrorInvalidValue;
-  ScanArgs a;
+// The scan's 32 input arrays (ARG_SPEC order without pool_usage0,
+// node_q_member, node_q_owner and v_count0, which seed the carry) from p[0..31]
+// and the dims S, G, T, E, P, R, Q, W, M, V, Z from d[0..10].
+static void fill_scan_inputs(ScanArgs& a, void** p, const int* d) {
   a.run_group = (const int*)p[0]; a.run_count = (const int*)p[1];
   a.group_req = (const int*)p[2]; a.group_compat_t = (const unsigned char*)p[3];
   a.group_zc_bits = (const unsigned*)p[4]; a.group_pool = (const unsigned char*)p[5];
@@ -1510,23 +1649,81 @@ int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
   a.v_aff = (const int*)p[26]; a.node_zone = (const int*)p[27];
   a.zone_col_mask = (const unsigned*)p[28]; a.node_dom2 = (const int*)p[29];
   a.col_axis = (const int*)p[30]; a.group_daxis = (const int*)p[31];
-  a.e_cum = (int*)p[32]; a.c_cum = (int*)p[33]; a.c_mask = (unsigned char*)p[34];
-  a.c_zc_bits = (unsigned*)p[35]; a.c_gbits = (unsigned*)p[36]; a.c_pool = (int*)p[37];
-  a.used = (int*)p[38]; a.p_usage = (int*)p[39]; a.e_cm = (int*)p[40]; a.e_co = (int*)p[41];
-  a.c_cm = (int*)p[42]; a.c_co = (int*)p[43]; a.v_count = (int*)p[44];
-  a.v_owner_z = (unsigned char*)p[45]; a.c_vm = (int*)p[46]; a.c_vo = (unsigned char*)p[47];
-  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
-  a.events = (int*)p[51]; a.scratch = (int*)p[52];
   a.S = d[0]; a.G = d[1]; a.T = d[2]; a.E = d[3]; a.P = d[4]; a.R = d[5]; a.Q = d[6];
   a.W = d[7]; a.M = d[8]; a.V = d[9]; a.Z = d[10];
+}
+
+// The carry (FFDState order) from p[0..15].
+static void fill_scan_state(ScanArgs& a, void** p) {
+  a.e_cum = (int*)p[0]; a.c_cum = (int*)p[1]; a.c_mask = (unsigned char*)p[2];
+  a.c_zc_bits = (unsigned*)p[3]; a.c_gbits = (unsigned*)p[4]; a.c_pool = (int*)p[5];
+  a.used = (int*)p[6]; a.p_usage = (int*)p[7]; a.e_cm = (int*)p[8]; a.e_co = (int*)p[9];
+  a.c_cm = (int*)p[10]; a.c_co = (int*)p[11]; a.v_count = (int*)p[12];
+  a.v_owner_z = (unsigned char*)p[13]; a.c_vm = (int*)p[14]; a.c_vo = (unsigned char*)p[15];
+}
+
+static bool scan_limits_ok(const ScanArgs& a, bool zone) {
+  if (a.Q > MAX_Q || a.R > MAX_R) return false;
+  return !(zone && (a.V > MAX_V || a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P));
+}
+
+// ptrs: the 32 scan inputs, then the carry (e_cum, c_cum, c_mask, c_zc_bits,
+// c_gbits, c_pool, used, p_usage, e_cm, e_co, c_cm, c_co, v_count, v_owner_z,
+// c_vm, c_vo), take_e, take_c, leftover, events, scratch. dims: S, G, T, E,
+// P, R, Q, W, M, V, Z, zone (0: the fast-branch instance, 1: the instance
+// with the zoned branch).
+int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 53) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52];
   const bool zone = d[11] != 0;
-  if (a.Q > MAX_Q || a.R > MAX_R) return (int)cudaErrorInvalidValue;
-  if (zone && (a.V > MAX_V || a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P))
-    return (int)cudaErrorInvalidValue;
+  if (!scan_limits_ok(a, zone)) return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K4. ptrs: the 32 scan inputs; the carry seeds pool_usage0, node_q_member,
+// node_q_owner, b_v_count0 [B, V, Z], node_cand [E], cand_member [B, NC]
+// (bool); the carry [B, ...] (FFDState order, as ffd_scan_launch);
+// b_run_count [B, S], leftover [B, S], events [B], scratch [B, row_words].
+// dims: S, G, T, E, P, R, Q, W, M, V, Z, zone, B, NC, row_words, take_off
+// (the offset of the row's take rows in its scratch).
+int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 58) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  a.pool_usage0 = (const int*)p[32]; a.node_q_member = (const int*)p[33];
+  a.node_q_owner = (const int*)p[34]; a.v_count0 = (const int*)p[35];
+  a.node_cand = (const int*)p[36]; a.cand_member = (const unsigned char*)p[37];
+  fill_scan_state(a, p + 38);
+  a.run_count = (const int*)p[54]; a.leftover = (int*)p[55]; a.events = (int*)p[56];
+  a.scratch = (int*)p[57];
+  const bool zone = d[11] != 0;
+  const int B = d[12];
+  a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
+  if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (zone)
+    ffd_scan_kernel<true, true><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+  else
+    ffd_scan_kernel<false, true><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K5. ptrs: leftover [B, S], used [B], c_zc_bits [B, M], c_mask [B, M, T]
+// (bool), out [B * (2 + M + M * ceil(T/32))]; dims: B, S, M, T
+int pack_verdicts_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 5) return (int)cudaErrorInvalidValue;
+  const int B = d[0];
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  pack_verdicts_kernel<<<B, VT, 0, (cudaStream_t)stream>>>(
+      (const int*)p[0], (const int*)p[1], (const unsigned*)p[2], (const unsigned char*)p[3],
+      (unsigned*)p[4], d[1], d[2], d[3]);
   return (int)cudaGetLastError();
 }
 

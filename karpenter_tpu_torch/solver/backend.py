@@ -233,6 +233,24 @@ def host_kernel_args(enc: EncodedInput, bucket) -> Tuple[tuple, dict, tuple]:
     return args, dims, prov
 
 
+def check_kernel_limits(dims: dict, host_args: tuple, zone: bool) -> None:
+    """Raise UnsupportedInput when the padded shapes exceed the scan
+    kernel's shared rows (Q, R; with the zoned branch also V, the domain
+    columns and the pools)."""
+    from .cuda.ffd import MAX_P, MAX_Q, MAX_R, MAX_V, MAX_Z
+
+    if dims["Qp"] > MAX_Q or dims["R"] > MAX_R:
+        raise UnsupportedInput(
+            f"Qp={dims['Qp']} or R={dims['R']} exceeds the scan kernel's shared rows"
+        )
+    D = len(host_args[ARG_INDEX["zone_col_mask"]])
+    if zone and (dims["Vp"] > MAX_V or D > MAX_Z or dims["Pp"] > MAX_P):
+        raise UnsupportedInput(
+            f"Vp={dims['Vp']}, {D} domain columns or Pp={dims['Pp']} exceed the zoned "
+            "scan kernel's shared rows"
+        )
+
+
 def min_values_post_check(qinp: SolverInput, result: SolverResult) -> bool:
     """minValues floors: each claim's FINAL surviving type set must expose
     the floor's distinct values (equivalent to the oracle's per-add checks
@@ -542,21 +560,10 @@ class TorchSolver(Solver):
             host_args, dims, prov = host_kernel_args(enc, self._bucket)
         except UnpackableInput as e:
             raise UnsupportedInput(str(e)) from e
-        from .cuda.ffd import MAX_P, MAX_Q, MAX_R, MAX_V, MAX_Z
-
-        if dims["Qp"] > MAX_Q or dims["R"] > MAX_R:
-            raise UnsupportedInput(
-                f"Qp={dims['Qp']} or R={dims['R']} exceeds the scan kernel's shared rows"
-            )
         # the zoned branch runs only when the solve has V-axis sigs, as in
         # the JAX backend (zone_engine=enc.V > 0)
         zone = enc.V > 0
-        D = len(host_args[ARG_INDEX["zone_col_mask"]])
-        if zone and (dims["Vp"] > MAX_V or D > MAX_Z or dims["Pp"] > MAX_P):
-            raise UnsupportedInput(
-                f"Vp={dims['Vp']}, {D} domain columns or Pp={dims['Pp']} exceed the zoned "
-                "scan kernel's shared rows"
-            )
+        check_kernel_limits(dims, host_args, zone)
         self.transfer = _Transfer()
         args = self._device_args(host_args, prov)
         S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]

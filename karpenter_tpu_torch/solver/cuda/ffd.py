@@ -131,10 +131,16 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 
 # Launch counts, one per wrapper call that launches its kernel(s). A run
 # that resets them and reads them after proves the path went through the
-# kernels. The scan counts its two instances apart: ffd_fast_scan is
-# ffd_scan_kernel<false> (zone_engine=False), ffd_zoned_scan is
-# ffd_scan_kernel<true>.
-LAUNCHES = {"ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0}
+# kernels. The scan counts its instances apart: ffd_fast_scan is
+# ffd_scan_kernel<false, false> (zone_engine=False), ffd_zoned_scan is
+# ffd_scan_kernel<true, false>; the batched consolidation scan
+# (consolidate.batched_ffd) is ffd_scan_kernel<false, true>
+# (ffd_batched_fast_scan) and <true, true> (ffd_batched_zoned_scan);
+# pack_verdicts is consolidate.pack_verdicts.
+LAUNCHES = {
+    "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
+    "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
+}
 
 I32 = torch.int32
 
@@ -1175,10 +1181,16 @@ def scan_scratch_words(E: int, M: int, T: int, Z: int) -> int:
     return 2 * E + 11 * M + 3 * T + 2 * M * Z + 64
 
 
-def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
-    from .build import load
+def batch_scratch_words(E: int, M: int, T: int, Z: int) -> int:
+    """int32 words of one subset row's scratch in the batched scan: the
+    scan's own scratch, then the row's [E] and [M] take rows of the current
+    run and its [E] removed-node mask."""
+    return scan_scratch_words(E, M, T, Z) + 2 * E + M
 
-    a = dict(zip(ARG_SPEC, args))
+
+def _check_scan_args(a: dict, zone_engine: bool, name: str):
+    """Shape, dtype, device and kernel-limit checks of the scan's shared
+    arguments; returns (Sp, G, T, E, P, R, Q, W, V, Z)."""
     Sp = a["run_group"].shape[0]
     G, T = a["group_compat_t"].shape
     E, R = a["node_free"].shape
@@ -1187,8 +1199,6 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
     V = a["v_kind"].shape[0]
     Z = a["zone_col_mask"].shape[0]
     W = a["group_pair_nok"].shape[1]
-    M = int(max_claims)
-    name = "ffd_zoned_scan" if zone_engine else "ffd_fast_scan"
     if Q > MAX_Q or R > MAX_R:
         raise ValueError(f"{name}: Q={Q} > {MAX_Q} or R={R} > {MAX_R}")
     if zone_engine and not (1 <= V <= MAX_V and 1 <= Z <= MAX_Z and P <= MAX_P):
@@ -1208,6 +1218,16 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
     }
     for n, sh in shapes.items():
         _check(a[n], n, torch.bool if ARG_DTYPES[n] == "bool" else I32, sh)
+    return Sp, G, T, E, P, R, Q, W, V, Z
+
+
+def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    from .build import load
+
+    a = dict(zip(ARG_SPEC, args))
+    M = int(max_claims)
+    name = "ffd_zoned_scan" if zone_engine else "ffd_fast_scan"
+    Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
     st = _state0(args, M)
     dev = a["node_free"].device
     take_e = torch.empty((Sp, E), dtype=I32, device=dev)

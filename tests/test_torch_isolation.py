@@ -2,13 +2,14 @@
 piece pinned to its original.
 
 - a static scan of every import in karpenter_tpu_torch/** and chip_smoke.py;
-- a solve through the port in a fresh interpreter leaves jax and every
-  karpenter_tpu module out of sys.modules (a subprocess, because this test
+- a solve and a batched consolidation probe through the port in a fresh
+  interpreter leave jax and every karpenter_tpu module out of sys.modules (a subprocess, because this test
   process has imported jax through tests/conftest.py);
 - TorchSolver() with no device argument refuses to run without CUDA;
-- the copies (ARG_SPEC, delta constants, argument partitions, the catalog,
+- the copies (ARG_SPEC, delta constants, argument partitions, the
+  consolidation argument indices and batch bucket, the catalog,
   host_kernel_args and encode, chip_smoke.py's copies of bench.py's input
-  builders) equal their originals on sample inputs.
+  functions and config-5 universe) equal their originals on sample inputs.
 """
 
 import ast
@@ -23,9 +24,13 @@ import torch
 
 from karpenter_tpu.solver import backend as jbackend
 from karpenter_tpu.solver import encode as jencode
+from karpenter_tpu.parallel import sharded as jsharded
+from karpenter_tpu.solver.tpu import consolidate as jcons
 from karpenter_tpu.solver.tpu import ffd as jffd
+from karpenter_tpu_torch.parallel import sharded as tsharded
 from karpenter_tpu_torch.solver import backend as tbackend
 from karpenter_tpu_torch.solver import encode as tencode
+from karpenter_tpu_torch.solver.cuda import consolidate as tcons
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
 from tests.test_torch_solver import CASES, build, pkg
 
@@ -64,6 +69,12 @@ def test_port_solve_loads_no_jax():
         "from karpenter_tpu_torch.solver.backend import TorchSolver\n"
         "res = TorchSolver(device='cpu').solve(build_e2e_input(300, 4))\n"
         "assert len(res.placements) == 300, len(res.placements)\n"
+        "from chip_smoke import build_config5_universe\n"
+        "from karpenter_tpu_torch.disruption.batched import BatchedConsolidationEvaluator\n"
+        "ev = BatchedConsolidationEvaluator(TorchSolver(device='cpu'))\n"
+        "prep = ev.prepare(*build_config5_universe(20, 10))\n"
+        "vs = ev.evaluate_prepared(prep, [[0, 1], list(range(10))])\n"
+        "assert [v.ok for v in vs] == [True, True], vs\n"
         "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
         "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -96,6 +107,19 @@ def test_constants_pinned():
         assert tbackend.delta_capacity(*args) == jbackend.delta_capacity(*args)
         Sp, Mb = args[1], args[3]
         assert tbackend.delta_uniq_capacity(Sp, Mb) == jbackend.delta_uniq_capacity(Sp, Mb)
+
+
+def test_consolidation_constants_pinned():
+    for n in ("_RUN_COUNT", "_NODE_COMPAT", "_V_COUNT0", "_NODE_QM", "_NODE_QO"):
+        assert getattr(tcons, n) == getattr(jcons, n), n
+    for b in (0, 1, 5, 8, 9, 63, 511, 512, 513):
+        assert tsharded.batch_bucket(b) == jsharded.batch_bucket(b)
+        for mult in (1, 8):
+            assert tsharded.batch_bucket(b, None, mult) == jsharded.batch_bucket(b, None, mult)
+    # the JAX mesh form counts devices; the port passes the count itself
+    mesh = jsharded.make_mesh()
+    n_dev = int(mesh.devices.size)
+    assert tsharded.batch_bucket(511, n_dev) == jsharded.batch_bucket(511, mesh)
 
 
 def _req_data(reqs):
@@ -165,3 +189,22 @@ def test_bench_builder_copies_pinned(config):
     je = _encode_pair_pinned(getattr(bench, name)(n), getattr(chip_smoke, name)(n))
     assert je.V > 0 and not je.group_fallback.any()
     assert je.v_axis == ("mixed" if config == "mixed" else "zone")
+
+
+def test_config5_universe_copy_pinned():
+    """chip_smoke.py's build_config5_universe equals bench.py's: the same
+    candidates, pods and nodes, and the universe with every candidate pod
+    pending encodes and pads to the same kernel arguments."""
+    import bench
+    import chip_smoke
+
+    jinp, jpods, jnode = bench.build_config5_universe(40, 12)
+    tinp, tpods, tnode = chip_smoke.build_config5_universe(40, 12)
+    assert jnode == tnode
+    assert {c: [p.meta.uid for p in ps] for c, ps in jpods.items()} == {
+        c: [p.meta.uid for p in ps] for c, ps in tpods.items()}
+    assert [n.id for n in jinp.nodes] == [n.id for n in tinp.nodes]
+    je = _encode_pair_pinned(
+        dataclasses.replace(jinp, pods=[p for ps in jpods.values() for p in ps]),
+        dataclasses.replace(tinp, pods=[p for ps in tpods.values() for p in ps]))
+    assert je.E == 1512 and je.V == 0
