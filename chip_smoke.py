@@ -7,7 +7,7 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    karpenter_tpu_torch/csrc with nvcc (sm_90a) and times the build;
 2. holds each kernel (K1 in both instances: ffd_fast_scan, the fast branch,
    and ffd_zoned_scan, with the zoned event engine; K2 compact_takes; K3
-   claim_meta) against its plain PyTorch version on the card, at the shapes
+   claim_meta; K6 below) against its plain PyTorch version on the card, at the shapes
    of the 50k-pod solves' own kernel arguments (the surge with and without
    nodes, BASELINE configs 3 and 4, and the mixed zone+ct input): exact
    equality (all outputs are integers), equal zoned event counts, a
@@ -21,7 +21,19 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    plain-version path's; each solve's garbage-collection pauses are
    recorded beside its time;
 4. forces the wide re-fetch (a tiny delta capacity) and checks the
-   decisions do not change.
+   decisions do not change;
+5. drives the relax path (Respect-mode preferences) through TorchSolver,
+   with the launch counts reset just before and read just after: the
+   config3_soft cell (config 3 with ScheduleAnyway spreads) REPEATS times,
+   whose decisions must equal config 3's in one ladder dispatch each; the
+   surge_pref cell (every pod prefers zone-1b, the ladder scan's fast
+   instance) and the relax walk (bench.py's ladder fleet at WALK_PODS pods,
+   every pod after an app's first relaxes; 0 unplaced in one dispatch)
+   once each; then the host relax loop at 120 pods, which must equal the
+   ladder. K6 (the ladder scan, ffd_ladder_fast_scan and
+   ffd_ladder_zoned_scan) is held against its plain version in phase 2 at
+   the cells' shapes, on a 400-pod relax walk and on 8 seeded fleets that
+   mix every preference kind, through both instances.
 
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
@@ -52,6 +64,7 @@ PODS = 50_000  # the headline surge
 NODES = 200  # existing nodes of the e2e cell
 REPEATS = 100  # timed solves per cell: enough samples for a p99
 MAX_CLAIMS = 1024  # TorchSolver's default claim-slot ceiling
+WALK_PODS = 50_000  # the relax walk: every pod after an app's first relaxes
 
 # H100 SXM published HBM3 bandwidth (NVIDIA data sheet). The integer-op
 # ceiling is the card's int32 issue rate, 64 lanes per SM per clock (not
@@ -174,6 +187,145 @@ def build_config3_input(num_pods: int = 50_000):
         ]
         p.node_selector = {}  # pure spread config
     return inp
+
+
+def build_config3_soft_input(num_pods: int = 50_000):
+    """Config 3 with every zone spread ScheduleAnyway (kube's default-on
+    soft spreads), nothing else changed: the relax ladder's satisfiable
+    case, whose decisions equal config 3's."""
+    import dataclasses
+
+    inp = build_config3_input(num_pods)
+    for p in inp.pods:
+        p.topology_spread = [dataclasses.replace(t, when_unsatisfiable="ScheduleAnyway")
+                             for t in p.topology_spread]
+    return inp
+
+
+def build_relax_walk_input(num_pods: int = 50_000):
+    """bench.py's relax-ladder fleet (_decode_relax_metrics part (b)): the
+    surge with both pools pinned to zone-1a, pods labelled app-{i % 8},
+    node selectors cleared and a ScheduleAnyway zone spread (maxSkew 1) per
+    app, so every pod after an app's first relaxes its spread."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import TopologySpreadConstraint
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+
+    inp = build_input(num_pods)
+    for pl in inp.nodepools:
+        pl.requirements = pl.requirements.union(
+            Requirements.of(Requirement.create(wk.ZONE_LABEL, IN, ["zone-1a"]))
+        )
+    for i, p in enumerate(inp.pods):
+        app = f"app-{i % 8}"
+        p.meta.labels["app"] = app
+        p.node_selector = {}
+        p.topology_spread = [
+            TopologySpreadConstraint(
+                max_skew=1, topology_key=wk.ZONE_LABEL,
+                label_selector={"app": app},
+                when_unsatisfiable="ScheduleAnyway",
+            )
+        ]
+    return inp
+
+
+def build_surge_pref_input(num_pods: int = 50_000):
+    """The surge with every pod preferring zone-1b (preferred node affinity,
+    weight 50), which every deployment can honor: the relax ladder with no
+    zone-axis sig (the ladder scan's fast instance)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+
+    inp = build_input(num_pods)
+    pref = Requirements.of(Requirement.create(wk.ZONE_LABEL, IN, ["zone-1b"]))
+    for p in inp.pods:
+        p.preferred_node_affinity = [(50, pref)]
+    return inp
+
+
+def build_relax_input(seed: int):
+    """A small seeded fleet mixing the preference kinds the relax path
+    serves, beside hard constraints, plain pods and existing nodes holding
+    matching pods. Even seeds carry zone/capacity-type sigs (the ladder
+    scan's zoned instance): ScheduleAnyway spreads on zone and capacity
+    type, weighted positive zone affinity, weighted anti-affinity on zone,
+    capacity type and hostname (admission-only kind-3 sigs), hard zone
+    spreads. Odd seeds carry none (the main path's fast instance):
+    ScheduleAnyway hostname spreads, weighted positive and anti hostname
+    affinity (Q kinds 2 and 3), hard hostname anti-affinity. Both carry
+    preferred node affinity (zone, arch). Seeds 2-3 and 6-7 give the pool
+    one zone, so zone preferences relax rung by rung."""
+    import random
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import (
+        ObjectMeta, Pod, PodAffinityTerm, TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.catalog.catalog import generate
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode, NodePoolSpec, SolverInput
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    rng = random.Random(9000 + seed)
+    zk, ck, hk = wk.ZONE_LABEL, wk.CAPACITY_TYPE_LABEL, wk.HOSTNAME_LABEL
+    pods = []
+
+    def add(n, labels, cpu="500m", mem="1Gi", **kw):
+        for _ in range(n):
+            name = f"r{seed}-{len(pods):03d}"
+            pods.append(Pod(meta=ObjectMeta(name=name, uid=name, labels=dict(labels)),
+                            requests=Resources.parse({"cpu": cpu, "memory": mem}), **kw))
+
+    def spread(sel, key, skew=1, when="ScheduleAnyway"):
+        return TopologySpreadConstraint(max_skew=skew, topology_key=key, label_selector=dict(sel),
+                                        when_unsatisfiable=when)
+
+    def term(sel, key, anti, weight=None):
+        return PodAffinityTerm(label_selector=dict(sel), topology_key=key, anti=anti, weight=weight)
+
+    def prefer(weight, key, values):
+        return (weight, Requirements.of(Requirement.create(key, IN, values)))
+
+    if seed % 2 == 0:
+        add(rng.randint(3, 10), {"app": "soft"}, topology_spread=[spread({"app": "soft"}, zk)])
+        add(rng.randint(2, 6), {"tier": "ct"}, cpu="1",
+            topology_spread=[spread({"tier": "ct"}, ck, rng.choice([1, 2]))])
+        add(rng.randint(2, 6), {"svc": "db"}, affinity_terms=[term({"svc": "db"}, zk, False, 10)])
+        add(rng.randint(2, 4), {"lock": "z"}, cpu="1",
+            affinity_terms=[term({"lock": "z"}, zk, True, rng.choice([1, 7]))])
+        add(rng.randint(2, 3), {"lock": "c"}, affinity_terms=[term({"lock": "c"}, ck, True, 4)])
+        add(rng.randint(2, 8), {"app": "hard"},
+            topology_spread=[spread({"app": "hard"}, zk, when="DoNotSchedule")])
+    else:
+        add(rng.randint(3, 10), {"app": "soft"}, cpu="2",
+            topology_spread=[spread({"app": "soft"}, hk, rng.choice([1, 2]))])
+        add(rng.randint(2, 6), {"app": "cache"}, cpu="250m",
+            affinity_terms=[term({"app": "cache"}, hk, False, 5)])
+        add(rng.randint(2, 5), {"app": "db"}, cpu="1", affinity_terms=[term({"app": "db"}, hk, True)])
+    add(rng.randint(2, 4), {"lock": "h"}, cpu="250m",
+        affinity_terms=[term({"lock": "h"}, hk, True, 3)])
+    add(rng.randint(1, 4), {}, cpu="2", preferred_node_affinity=[
+        prefer(10, zk, [rng.choice(["zone-1b", "zone-1c"])]), prefer(50, wk.ARCH_LABEL, ["arm64"])])
+    add(rng.randint(1, 5), {}, cpu=rng.choice(["250m", "1", "3"]))
+    nodes = []
+    for j in range(rng.randint(0, 3)):
+        free = Resources.parse({"cpu": str(rng.choice([2, 4, 8])), "memory": "16Gi"})
+        free["pods"] = 20
+        nodes.append(ExistingNode(
+            id=f"n{j}", labels={zk: rng.choice(["zone-1a", "zone-1b", "zone-1c"]),
+                                ck: "on-demand", hk: f"n{j}", wk.ARCH_LABEL: "amd64",
+                                wk.OS_LABEL: "linux"},
+            taints=[], free=free,
+            pod_labels=[rng.choice([{"app": "soft"}, {"svc": "db"}, {"lock": "z"},
+                                    {"app": "cache"}])]))
+    extra = [Requirement.create(zk, IN, ["zone-1a"])] if seed % 4 >= 2 else []
+    pool = NodePoolSpec(
+        name="default", weight=0,
+        requirements=Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, ["default"]), *extra),
+        taints=[], instance_types=generate())
+    return SolverInput(pods=pods, nodes=nodes, nodepools=[pool],
+                       zones=("zone-1a", "zone-1b", "zone-1c"))
 
 
 def build_config4_input(num_pods: int = 50_000):
@@ -586,23 +738,29 @@ def kernel_phase(inp, dev):
                 events=int(out.events), plain_once_s=plain_s)
 
 
-def profiled_ms(fn, n: int, names):
-    """Device time per call (ms) of the named kernels, from torch.profiler
-    over n calls; None (not measured) when the profiler records none of
-    their device events."""
+def profiled_ms(fn, n: int, names, tries: int = 3):
+    """Device time per call (ms) of the named kernels (each launched once
+    per call), from torch.profiler traces of one call each: a trace that
+    misses any of them is discarded; the mean over the first n whole traces
+    of at most n * tries, or None (not measured) when none is whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+    whole = []
+    for _ in range(n * tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    hits = [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == DeviceType.CUDA and any(k in e.name for k in names)]
-    return sum(hits) / n / 1e3 if hits else None
+            torch.cuda.synchronize()
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and any(k in e.name for k in names)]
+        if len(hits) == len(names):
+            whole.append(sum(hits))
+            if len(whole) == n:
+                break
+    return sum(whole) / len(whole) / 1e3 if whole else None
 
 
 def scan_cost(ph):
@@ -735,6 +893,205 @@ def kernel_rows(ph, ph_zone, launches, ops_per_s):
     ]
 
 
+def ladder_args(inp, dev):
+    """The relax ladder's dispatch inputs for `inp`, built by the backend's
+    own host steps (TorchSolver._ladder_dispatch): the truncated encode,
+    the kernel arguments and the rung table on `dev`, and the pod count."""
+    import dataclasses
+
+    from karpenter_tpu_torch.provisioning.scheduler import ffd_sort
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver import relax
+    from karpenter_tpu_torch.solver.convert import args_to_torch, array_to_torch
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    qinp = quantize_input(inp)
+    items = relax.plan(qinp)
+    order = ffd_sort([p for p in qinp.pods if not p.scheduling_gated and p.node_name is None])
+    lp = tb.ladder_pods(items, order)
+    assert lp is not None, "the input does not take the relax ladder"
+    pods0, runs, ladders, ghosts, ghost_of = lp
+    enc = encode(dataclasses.replace(qinp, pods=pods0 + ghosts, presorted=True))
+    lt = tb.ladder_table(enc, len(pods0), runs, ladders, ghosts, ghost_of, tb.TorchSolver._bucket)
+    assert lt is not None, "the ladder's encode declined"
+    enc2, rows, rungs = lt
+    host_args, dims, _ = tb.host_kernel_args(enc2, tb.TorchSolver._bucket)
+    lad = array_to_torch(tb.pad_ladder(rows, dims["Sp"]), dev)
+    return enc2, args_to_torch(host_args, dev), lad, dims, len(pods0), rungs
+
+
+def ladder_phase(inp, dev, zone=None, plain=True):
+    """K6 against its plain version on the card at the shapes of `inp`'s
+    ladder dispatch: the instance the main path picks (zoned when the
+    ladder's encode has V-axis sigs) unless `zone` says which (the fast
+    instance, as K1's, records no V-axis counts: it takes only inputs
+    without V-axis sigs on the main path); the claim
+    bucket doubles on saturation as the main path's does. Every output is
+    compared: take rows, leftovers, zoned events, attempts and all 16
+    FFDState fields."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    enc, args, lad, dims, n, rungs = ladder_args(inp, dev)
+    zone = enc.V > 0 if zone is None else zone
+    M = tb.initial_claim_bucket(n, MAX_CLAIMS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    while True:
+        start.record()
+        out = ffd.ffd_solve_ladder(lad, *args, max_claims=M, zone_engine=zone)
+        end.record()
+        torch.cuda.synchronize()
+        if int(out.state.used) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    err, plain_s = None, None
+    if plain:
+        t0 = time.perf_counter()
+        ref = ffd.ffd_solve_ladder_plain(lad, *args, max_claims=M, zone_engine=zone)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = max_abs_err([out.take_e, out.take_c, out.leftover, out.events, out.attempts, *out.state],
+                          [ref.take_e, ref.take_c, ref.leftover, ref.events, ref.attempts, *ref.state])
+        name = "ffd_ladder_zoned_scan" if zone else "ffd_ladder_fast_scan"
+        assert err == 0, f"{name} disagrees with its plain version (max |d| {err})"
+    return dict(enc=enc, args=args, lad=lad, out=out, M=M, zone=zone, err=err, n=n, rungs=rungs,
+                dims=dims, attempts=int(out.attempts), events=int(out.events),
+                leftover=int(out.leftover.sum()), plain_once_s=plain_s,
+                kernel_ms=start.elapsed_time(end))
+
+
+def ladder_cost(ph):
+    """K6's floor on work and traffic: inputs (the rung table included) read
+    once, outputs written once; integer ops as scan_cost counts them per
+    run (node rows, the claims open before the run × types, pools × types),
+    plus, for every attempt past a run's first, the node rows and the pool
+    pass with no claim, and for every zoned event past one per attempt the
+    same. Returns (bytes, ops)."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args, out = ph["args"], ph["out"]
+    st = out.state
+    Sp, Ep = out.take_e.shape
+    T = st.c_mask.shape[1]
+    P = args[ffd.ARG_INDEX["pool_type"]].shape[0]
+    R = st.c_cum.shape[1]
+    tc = out.take_c.cpu()
+    used = int(st.used)
+    first_run = (tc[:, :used] > 0).to(dtype=tc.dtype).argmax(dim=0)
+    counts = args[1].cpu().tolist()
+    runs = [s for s in range(Sp) if counts[s] > 0]
+    ops = sum((Ep + int((first_run < s).sum()) * T + P * T) * R * 3 for s in runs)
+    per = (Ep + P * T) * R * 3
+    ops += max(0, ph["attempts"] - len(runs)) * per + max(0, ph["events"] - ph["attempts"]) * per
+    inputs = list(args if ph["zone"] else args[:24]) + [ph["lad"]]
+    outputs = [out.take_e, out.take_c, out.leftover, out.events, out.attempts, *st]
+    return nbytes(*inputs) + nbytes(*outputs), ops
+
+
+def ladder_kernel_rows(ph_fast, ph_zone, launches, ops_per_s):
+    """The K6 rows of the {"kernels": [...]} line: the fast instance at
+    surge_pref's shapes, the zoned one at config3_soft's."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
+    rows = []
+    for name, ph, kname in (("ffd_ladder_fast_scan", ph_fast, KERNEL_NAMES[9]),
+                            ("ffd_ladder_zoned_scan", ph_zone, KERNEL_NAMES[10])):
+        args, lad, M, zone = ph["args"], ph["lad"], ph["M"], ph["zone"]
+
+        def run(plain=False):
+            fn = ffd.ffd_solve_ladder_plain if plain else ffd.ffd_solve_ladder
+            return fn(lad, *args, max_claims=M, zone_engine=zone)
+
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(lambda: run(True), 1)
+        dev_ms = profiled_ms(run, 3, (kname,))
+        b, ops = ladder_cost(ph)
+        bms, by = bound(b, ops, ops_per_s)
+        Sp, Ep = ph["out"].take_e.shape
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces="karpenter_tpu/solver/tpu/ffd.py:2167",
+            launches=launches[name], max_abs_err=ph["err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None, match=ph["err"] == 0, device_ms=dev_ms,
+            attempts=ph["attempts"], events=ph["events"],
+            shape=dict(Sp=Sp, Ep=Ep, M=M, T=int(ph["out"].state.c_mask.shape[1]),
+                       Lp=int(lad.shape[1]), G=ph["dims"]["Gp"], Vp=ph["dims"]["Vp"]),
+            ops=ops, bytes=b))
+    return rows
+
+
+def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
+    """Median ms of a ladder solve's stages, run one after another as the
+    solver runs them: quantize, the relax plan, the FFD order, the
+    level-0 and ghost materializations (ladder_pods: materialize_pod over
+    every pod and rung), the encode with the ghost rungs, the rung table
+    and kernel arguments, their upload (the rung table apart), the device
+    work (K6 at the solve's final claim bucket M + compaction, CUDA
+    events), the one fetch, and the rest of a full solve (decode,
+    canonicalization, bookkeeping)."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from karpenter_tpu_torch.provisioning.scheduler import ffd_sort
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver import relax
+    from karpenter_tpu_torch.solver.convert import args_to_torch, array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    names = ("quantize", "relax_plan", "order", "materialize", "encode", "rung_table",
+             "upload", "rung_upload", "device", "fetch", "solve")
+    stages = {k: [] for k in names}
+    solver = tb.TorchSolver()
+    for _ in range(repeats):
+        t = [time.perf_counter()]
+        qinp = quantize_input(inp)
+        t.append(time.perf_counter())
+        items = relax.plan(qinp)
+        t.append(time.perf_counter())
+        order = ffd_sort([p for p in qinp.pods if not p.scheduling_gated and p.node_name is None])
+        t.append(time.perf_counter())
+        pods0, runs, ladders, ghosts, ghost_of = tb.ladder_pods(items, order)
+        t.append(time.perf_counter())
+        enc = encode(dataclasses.replace(qinp, pods=pods0 + ghosts, presorted=True))
+        t.append(time.perf_counter())
+        enc2, rows, _ = tb.ladder_table(enc, len(pods0), runs, ladders, ghosts, ghost_of,
+                                        tb.TorchSolver._bucket)
+        host_args, dims, _ = tb.host_kernel_args(enc2, tb.TorchSolver._bucket)
+        lad_host = tb.pad_ladder(rows, dims["Sp"])
+        t.append(time.perf_counter())
+        args = args_to_torch(host_args, "cuda")
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        lad = array_to_torch(lad_host, "cuda")
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ffd.ffd_solve_ladder(lad, *args, max_claims=M, zone_engine=zone)
+        Sp, Ep = out.take_e.shape
+        flat = tb._pack_outputs_delta(out, tb.delta_capacity(len(pods0), Sp, Ep, M),
+                                      tb.delta_uniq_capacity(Sp, M))
+        end.record()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        flat.cpu()
+        t.append(time.perf_counter())
+        solver.solve(inp)
+        t.append(time.perf_counter())
+        vals = [(t[i + 1] - t[i]) * 1e3 for i in range(len(t) - 1)]
+        vals[8] = start.elapsed_time(end)
+        for k, v in zip(names, vals):
+            stages[k].append(v)
+    med = {f"{k}_ms": statistics.median(v) for k, v in stages.items()}
+    med["rest_ms"] = med["solve_ms"] - sum(med[f"{k}_ms"] for k in names[:-1])
+    return med
+
+
 def decisions(res):
     """A SolverResult as plain comparable data."""
     from karpenter_tpu_torch.api import wellknown as wk
@@ -806,17 +1163,21 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     return med
 
 
-KERNEL_NAMES = ("ffd_scan_kernel<false, false>", "ffd_scan_kernel<true, false>",
+KERNEL_NAMES = ("ffd_scan_kernel<false, false, false>", "ffd_scan_kernel<true, false, false>",
                 "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
-                "meta_finish_kernel", "ffd_scan_kernel<false, true>",
-                "ffd_scan_kernel<true, true>", "pack_verdicts_kernel")
+                "meta_finish_kernel", "ffd_scan_kernel<false, true, false>",
+                "ffd_scan_kernel<true, true, false>", "pack_verdicts_kernel",
+                "ffd_scan_kernel<false, false, true>", "ffd_scan_kernel<true, false, true>")
 SINGLE_SOLVE_KERNELS = ("ffd_fast_scan", "ffd_zoned_scan", "compact_takes", "claim_meta")
+RELAX_KERNELS = ("ffd_ladder_fast_scan", "ffd_ladder_zoned_scan", "compact_takes", "claim_meta")
 CONSOLIDATION_KERNELS = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "pack_verdicts")
 
 
-def device_profile(inp) -> dict:
+def device_profile(inp, scan: str, tries: int = 3) -> dict:
     """One warm TorchSolver solve under torch.profiler: device time by
-    kernel and the device's busy share of the solve's wall time."""
+    kernel and the device's busy share of the solve's wall time. A trace
+    without the solve's scan kernel (`scan`, a KERNEL_NAMES entry) is taken
+    again, up to `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -826,22 +1187,23 @@ def device_profile(inp) -> dict:
     solver = tb.TorchSolver()
     solver.solve(inp)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver.solve(inp)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        name = next((k for k in KERNEL_NAMES if k in e.name), "other: " + e.name[:40])
-        by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
-    if not by:
-        return {"device_profile": "not measured (the profiler recorded no device events)"}
-    busy = sum(by.values())
-    return dict(wall_us=wall_us, device_busy_us=busy, idle_share=1 - busy / wall_us,
-                by_kernel_us=by)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solver.solve(inp)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = next((k for k in KERNEL_NAMES if k in e.name), "other: " + e.name[:40])
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
+        if scan in by:
+            busy = sum(by.values())
+            return dict(wall_us=wall_us, device_busy_us=busy, idle_share=1 - busy / wall_us,
+                        by_kernel_us=by)
+    return {"device_profile": "not measured (no trace recorded the scan kernel)"}
 
 
 def pct(xs, q):
@@ -892,16 +1254,19 @@ class PlainOnCard:
     def __enter__(self):
         from karpenter_tpu_torch.solver.cuda import ffd
 
-        self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda)
+        self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
+                      ffd._ffd_solve_ladder_cuda)
         ffd._ffd_solve_cuda = ffd.ffd_solve_plain
         ffd._compact_takes_cuda = ffd.compact_takes_plain
         ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
+        ffd._ffd_solve_ladder_cuda = ffd.ffd_solve_ladder_plain
         return self
 
     def __exit__(self, *exc):
         from karpenter_tpu_torch.solver.cuda import ffd
 
-        ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda = self.saved
+        (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
+         ffd._ffd_solve_ladder_cuda) = self.saved
 
 
 CONFIG5_NODES = 10_000  # BASELINE config 5
@@ -1165,7 +1530,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
     ms4 = time_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 5)
     dev4 = profiled_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 3,
-                       ("ffd_scan_kernel<false, true>",))
+                       ("ffd_scan_kernel<false, true, false>",))
     t0 = time.perf_counter()
     cons.batched_ffd_plain(prep.args, *drows, M, False)
     torch.cuda.synchronize()
@@ -1178,7 +1543,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     zdrows = cons.upload_rows(zrows, dev)
     ms4z = time_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 10)
     dev4z = profiled_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 3,
-                        ("ffd_scan_kernel<true, true>",))
+                        ("ffd_scan_kernel<true, true, false>",))
     plain4z = time_ms(lambda: cons.batched_ffd_plain(zargs, *zdrows, zM, True), 1)
     bytes4z, ops4z = batched_scan_cost(zargs, zrows, zr["out"], True)
     b4z, by4z = bound(bytes4z, ops4z, ops_per_s)
@@ -1193,7 +1558,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
 
     regs = ptxas_registers(build.BUILD_LOG["ptxas"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    reg4 = regs.get("ffd_scan_kernel<false, true>")
+    reg4 = regs.get("ffd_scan_kernel<false, true, false>")
     blocks_per_sm = max(1, min(2048 // 1024, 65536 // (1024 * max(reg4 or 64, 1))))
     waves = -(-Bp // (sms * blocks_per_sm))
     n_disp = searches * dispatches
@@ -1214,7 +1579,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
              match=zr["err4"] == 0, device_ms=dev4z,
              shape=dict(B=int(zrows[0].shape[0]), Sp=int(zrows[0].shape[1]), M=zM,
                         V=int(zrows[1].shape[1]), Z=int(zrows[1].shape[2])),
-             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true>")),
+             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true, false>")),
         dict(name="pack_verdicts", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/consolidate.py:291",
              launches=launches["pack_verdicts"], max_abs_err=err5, ms=ms5, plain_ms=plain5,
@@ -1249,10 +1614,12 @@ def ptxas_registers(report: str) -> dict:
     """{kernel instance: registers per thread} from ptxas -v, for the scan
     instances and the verdict pack (demangled by their template flags)."""
     names = {
-        "ffd_scan_kernelILb0ELb0E": "ffd_scan_kernel<false, false>",
-        "ffd_scan_kernelILb1ELb0E": "ffd_scan_kernel<true, false>",
-        "ffd_scan_kernelILb0ELb1E": "ffd_scan_kernel<false, true>",
-        "ffd_scan_kernelILb1ELb1E": "ffd_scan_kernel<true, true>",
+        "ffd_scan_kernelILb0ELb0ELb0E": "ffd_scan_kernel<false, false, false>",
+        "ffd_scan_kernelILb1ELb0ELb0E": "ffd_scan_kernel<true, false, false>",
+        "ffd_scan_kernelILb0ELb1ELb0E": "ffd_scan_kernel<false, true, false>",
+        "ffd_scan_kernelILb1ELb1ELb0E": "ffd_scan_kernel<true, true, false>",
+        "ffd_scan_kernelILb0ELb0ELb1E": "ffd_scan_kernel<false, false, true>",
+        "ffd_scan_kernelILb1ELb0ELb1E": "ffd_scan_kernel<true, false, true>",
         "pack_verdicts_kernel": "pack_verdicts_kernel",
     }
     out, current = {}, None
@@ -1327,6 +1694,46 @@ def main() -> int:
     assert sum(e > 8 for e in zone_events) >= 4, zone_events  # beyond the closed forms
     print(f"kernels[zone x8]: max_abs_err=(0, 0, 0) events={zone_events}", flush=True)
 
+    # ---- phase 2c: K6, the relax-ladder scan, against its plain version -------------
+    # at the ladder cells' shapes (config3_soft through the zoned instance,
+    # surge_pref through the fast one), a 400-pod relax walk (every pod after
+    # an app's first relaxes), and small fleets mixing every preference
+    # kind through both instances
+    relax_inputs = {"config3_soft": build_config3_soft_input(PODS)}
+    relax_once = {"surge_pref": build_surge_pref_input(PODS),
+                  "relax_walk": build_relax_walk_input(WALK_PODS)}
+    ladder = {}
+    for name, inp in (("config3_soft", relax_inputs["config3_soft"]),
+                      ("surge_pref", relax_once["surge_pref"]),
+                      ("relax_walk_400", build_relax_walk_input(400))):
+        ladder[name] = ph = ladder_phase(inp, dev)
+        print(f"ladder[{name}]: zone={ph['zone']} M={ph['M']} used={int(ph['out'].state.used)} "
+              f"rungs={ph['rungs']} attempts={ph['attempts']} events={ph['events']} "
+              f"leftover={ph['leftover']} max_abs_err={ph['err']} "
+              f"plain_s={ph['plain_once_s']:.2f}", flush=True)
+    assert ladder["config3_soft"]["zone"] and not ladder["surge_pref"]["zone"]
+    for name in ("config3_soft", "surge_pref"):  # satisfiable: rung 0 places every pod
+        runs = int((ladder[name]["args"][1] > 0).sum())
+        assert ladder[name]["attempts"] == runs and ladder[name]["leftover"] == 0, name
+    walk = ladder["relax_walk_400"]
+    assert walk["leftover"] == 0 and walk["attempts"] > 400, walk["attempts"]
+    # the fleets with zone/ct sigs through the zoned instance (as the main
+    # path picks it; the fast instance records no V-axis counts), the others
+    # through both
+    small = []
+    for seed in range(8):
+        inp = build_relax_input(seed)
+        ph = ladder_phase(inp, dev)
+        assert ph["zone"] == (seed % 2 == 0), (seed, ph["zone"])
+        small.append((seed, ph["zone"], ph["attempts"], ph["events"], ph["leftover"]))
+        if not ph["zone"]:
+            ph = ladder_phase(inp, dev, zone=True)
+            small.append((seed, True, ph["attempts"], ph["events"], ph["leftover"]))
+    assert any(a > 10 for _, _, a, _, _ in small), small
+    assert any(lo > 0 for *_, lo in small), small
+    print(f"ladder[relax x8]: max_abs_err=0 (seed, zoned, attempts, events, leftover)={small}",
+          flush=True)
+
     # ---- phase 2b: config 5, batched consolidation (K4, K5) ------------------------
     int_rate = int32_ops_per_s()
     t0 = time.perf_counter()
@@ -1388,29 +1795,111 @@ def main() -> int:
     assert wide.stats["wide_refetches"] >= 1, wide.stats
     assert decisions(res_w) == decisions(results["surge_e2e"]), "wide re-fetch changed decisions"
 
+    # ---- phase 5: the relax path through TorchSolver ----------------------------------
+    # config3_soft REPEATS times, surge_pref and the relax walk once, with
+    # the launch counts reset just before and read just after
+    for name, inp in {**relax_inputs, "surge_pref": relax_once["surge_pref"]}.items():
+        solver.solve(inp)  # warm
+        cold[name] = dict(solver.transfer.__dict__)
+    for k in ffd.LAUNCHES:
+        ffd.LAUNCHES[k] = 0
+    watch = GcWatch()
+    samples.update({name: [] for name in relax_inputs})
+    ladder_solves0 = solver.stats["ladder_solves"]
+    for _ in range(REPEATS):
+        for name, inp in relax_inputs.items():
+            watch.reset()
+            t0 = time.perf_counter()
+            res = solver.solve(inp)
+            samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
+                                  list(watch.collections)))
+            results[name] = res
+            transfer[name] = dict(solver.transfer.__dict__)
+            assert solver.stats["relax_dispatches"] == 1, solver.stats
+    once_ms = {}
+    for name, inp in relax_once.items():
+        t0 = time.perf_counter()
+        results[name] = solver.solve(inp)
+        once_ms[name] = (time.perf_counter() - t0) * 1e3
+        transfer[name] = dict(solver.transfer.__dict__)
+        assert solver.stats["relax_dispatches"] == 1, (name, solver.stats)
+    watch.close()
+    relax_launches = dict(ffd.LAUNCHES)
+    ladder_solves = solver.stats["ladder_solves"] - ladder_solves0
+    for k in RELAX_KERNELS:
+        assert relax_launches[k] > 0, f"kernel {k} never launched on the relax path"
+    assert ladder_solves == REPEATS * len(relax_inputs) + len(relax_once), ladder_solves
+    assert decisions(results["config3_soft"]) == decisions(results["config3"]), \
+        "config3_soft decisions differ from config 3's"
+    assert decisions(results["surge_pref"]) == decisions(plain.solve(relax_once["surge_pref"])), \
+        "surge_pref: decisions differ from the plain path"
+    walk_res = results["relax_walk"]
+    assert not walk_res.errors and len(walk_res.placements) == WALK_PODS, len(walk_res.errors)
+    # the host relax loop on the card equals the ladder (bench.py's relax_pods)
+    host = TorchSolver(relax_ladder=False)
+    res_h = host.solve(build_relax_walk_input(120))
+    res_l = TorchSolver().solve(build_relax_walk_input(120))
+    assert decisions(res_h) == decisions(res_l), "the host relax loop differs from the ladder"
+    assert host.stats["relax_dispatches"] > 1 and host.stats["ladder_solves"] == 0, host.stats
+    print(f"relax path: ladder_solves={ladder_solves} launches={relax_launches} "
+          f"host_loop_120_dispatches={host.stats['relax_dispatches']} equal to the ladder",
+          flush=True)
+    # the relax walk's K6 alone (CUDA events around its launch at the
+    # solve's final claim bucket)
+    wph = ladder_phase(relax_once["relax_walk"], dev, plain=False)
+    walk_k6_ms = wph["kernel_ms"]
+    walk_line = dict(pods=WALK_PODS, ms=once_ms["relax_walk"], k6_ms=walk_k6_ms,
+                     attempts=wph["attempts"], events=wph["events"],
+                     us_per_attempt=walk_k6_ms * 1e3 / max(1, wph["attempts"]),
+                     claims=len(walk_res.claims), unplaced=len(walk_res.errors),
+                     relax_dispatches=1, M=wph["M"], Sp=wph["dims"]["Sp"], G=wph["dims"]["G"],
+                     steady=transfer["relax_walk"])
+    print(json.dumps({"relax_walk": walk_line}), flush=True)
+
     stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
-    profiles = {name: device_profile(inp) for name, inp in inputs.items()}
-    rows = kernel_rows(phases["surge"], phases["config3"], launches, int_rate) + c5["rows"]
-    n_solves = {"ffd_fast_scan": 2 * REPEATS, "ffd_zoned_scan": 2 * REPEATS + 1,
-                "compact_takes": 4 * REPEATS + 1, "claim_meta": 4 * REPEATS + 1}
+    stages.update({name: ladder_breakdown(inp, 5, ladder[name]["M"], ladder[name]["zone"])
+                   for name, inp in relax_inputs.items()})
+    cell_scan = {"surge": 0, "surge_e2e": 0, "config3": 1, "config4": 1, "config3_soft": 10}
+    profiles = {name: device_profile(inp, KERNEL_NAMES[cell_scan[name]])
+                for name, inp in {**inputs, **relax_inputs}.items()}
+    rows = (kernel_rows(phases["surge"], phases["config3"], launches, int_rate)
+            + ladder_kernel_rows(ladder["surge_pref"], ladder["config3_soft"], relax_launches,
+                                 int_rate)
+            + c5["rows"])
+    launches_per_solve = {k: launches[k] / n for k, n in (
+        ("ffd_fast_scan", 2 * REPEATS), ("ffd_zoned_scan", 2 * REPEATS + 1),
+        ("compact_takes", 4 * REPEATS + 1), ("claim_meta", 4 * REPEATS + 1))}
+    launches_per_solve.update({k: relax_launches[k] / n for k, n in (
+        ("ffd_ladder_fast_scan", 1), ("ffd_ladder_zoned_scan", REPEATS + 1))})
+    launches_per_solve.update({f"{k}_relax": relax_launches[k] / ladder_solves
+                               for k in ("compact_takes", "claim_meta")})
     print(json.dumps({"kernels": rows}))
+    cell_ph = {**phases, **ladder}
     solve_line = {
         "solve": {
             name: dict(
-                pods=PODS, nodes=len(inputs[name].nodes), **tail(samples[name]),
-                claims=len(results[name].claims), M=phases[name]["M"],
-                events_per_solve=phases[name]["events"],
+                pods=PODS, nodes=len(inp.nodes), **tail(samples[name]),
+                claims=len(results[name].claims), M=cell_ph[name]["M"],
+                events_per_solve=cell_ph[name]["events"],
+                attempts_per_solve=cell_ph[name].get("attempts"),
                 unplaced=len(results[name].errors), steady=transfer[name],
                 cold=cold[name], stages=stages[name], profile=profiles[name],
             )
-            for name in inputs
+            for name, inp in {**inputs, **relax_inputs}.items()
         },
         "mixed": dict(pods=PODS, ms=mixed_ms, claims=len(results["mixed"].claims),
                       M=phases["mixed"]["M"], events_per_solve=phases["mixed"]["events"],
                       unplaced=len(results["mixed"].errors), steady=transfer["mixed"]),
+        "surge_pref": dict(pods=PODS, ms=once_ms["surge_pref"],
+                           claims=len(results["surge_pref"].claims), M=ladder["surge_pref"]["M"],
+                           attempts_per_solve=ladder["surge_pref"]["attempts"],
+                           unplaced=len(results["surge_pref"].errors),
+                           steady=transfer["surge_pref"]),
+        "relax_walk": walk_line,
         "launches": launches,
-        "launches_per_solve": {k: launches[k] / n_solves[k] for k in SINGLE_SOLVE_KERNELS},
+        "relax_launches": relax_launches,
+        "launches_per_solve": launches_per_solve,
         "claim_doublings": solver.stats["claim_doublings"],
         "wide_refetch_ok": True,
         "build_s": build_s,

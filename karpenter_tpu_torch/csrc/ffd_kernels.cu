@@ -8,19 +8,23 @@
 // argmax go to the lowest index, uint32 words are carried as raw bits.
 //
 // K1 ffd_scan      replaces karpenter_tpu/solver/tpu/ffd.py:1884 ffd_solve
-//                   (_ffd_scan :395): ffd_scan_kernel<false, false> the fast
-//                   branch (step_body.fast :605-855), ffd_scan_kernel<true,
-//                   false> adds the zoned branch (step_body.zoned :860-1663,
-//                   count_contrib :587).
+//                   (_ffd_scan :395): ffd_scan_kernel<false, false, false>
+//                   the fast branch (step_body.fast :605-855),
+//                   ffd_scan_kernel<true, false, false> adds the zoned branch
+//                   (step_body.zoned :860-1663, count_contrib :587).
 // K2 compact_takes  replaces karpenter_tpu/solver/tpu/ffd.py:325 compact_takes.
 // K3 claim_meta     replaces karpenter_tpu/solver/tpu/ffd.py:358
 //                   compact_claim_meta plus the c_mask word pack of
 //                   karpenter_tpu/solver/backend.py:652-660.
 // K4 ffd_batched    replaces karpenter_tpu/solver/tpu/consolidate.py:57
-//                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE, true>,
-//                   one block per candidate-subset row.
+//                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE, true,
+//                   false>, one block per candidate-subset row.
 // K5 pack_verdicts  replaces karpenter_tpu/solver/tpu/consolidate.py:291
 //                   _pack_verdicts.
+// K6 ffd_ladder     replaces karpenter_tpu/solver/tpu/ffd.py:2167
+//                   ffd_solve_ladder (step_ladder :1714-1800):
+//                   ffd_scan_kernel<ZONE, false, true>, the relax-ladder
+//                   cascade of attempts per run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -172,13 +176,20 @@ struct ScanArgs {
   const int* v_count0; const int* node_cand; const unsigned char* cand_member;
   int* removed;
   int NC, row_words, take_off;
+  // the ladder instances (LADDER=true, K6) only: the rung table, and the
+  // run's output rows (take_e / take_c / leftover then point at the
+  // current attempt's rows in the scratch)
+  const int* run_ladder; int* out_take_e; int* out_take_c; int* out_leftover;
+  int* attempts;
+  int Lw;
 };
 
-// Row offset of run s in the [S, n] take tables. The batched scan keeps
-// only the current run's take rows (in the block's scratch): offset 0.
-template <bool BATCH>
+// Row offset of run s in the [S, n] take tables. The batched and the ladder
+// scans keep only the current run's (attempt's) take rows, in the block's
+// scratch: offset 0 (ROW0 = BATCH || LADDER).
+template <bool ROW0>
 __device__ __forceinline__ size_t take_row(int s, int n) {
-  if constexpr (BATCH) return 0; else return (size_t)s * n;
+  if constexpr (ROW0) return 0; else return (size_t)s * n;
 }
 
 // node_compat[g, e]; in the batched scan also "node e is not removed by
@@ -349,7 +360,7 @@ __device__ int domain_argmin(const ZoneShared& zs, int Z, unsigned inter, int mo
   return arg;
 }
 
-template <bool BATCH>
+template <bool BATCH, bool LADDER>
 __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, const Scratch& x,
                           int s, int g) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -365,7 +376,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     zs.zcm[tid] = a.zone_col_mask[tid];
     zs.col_axis[tid] = a.col_axis[tid];
   }
-  for (int e = tid; e < E; e += NT) a.take_e[take_row<BATCH>(s, E) + e] = 0;
+  for (int e = tid; e < E; e += NT) a.take_e[take_row<BATCH || LADDER>(s, E) + e] = 0;
   for (int m = tid; m < M; m += NT) x.c_take[m] = 0;
   if (tid == 0) {
     zs.g_ax = a.group_daxis[g];
@@ -905,7 +916,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
         if (sh.mg[q]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], add);
         if (add > 0 && sh.og[q] && sh.kq[q] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
       }
-      a.take_e[take_row<BATCH>(s, E) + e] = wadd(a.take_e[take_row<BATCH>(s, E) + e], add);
+      a.take_e[take_row<BATCH || LADDER>(s, E) + e] =
+          wadd(a.take_e[take_row<BATCH || LADDER>(s, E) + e], add);
       node_contrib(a, zs.contrib, e, add);
       placed += (unsigned)add;
     }
@@ -1026,7 +1038,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     }
     __syncthreads();
   }
-  for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH>(s, M) + m] = x.c_take[m];
+  for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = x.c_take[m];
   if (tid == 0) {
     a.leftover[s] = zs.remaining;
     *a.events = wadd(*a.events, zs.events);
@@ -1132,9 +1144,99 @@ __device__ void batch_row_prologue(ScanArgs& a) {
   __syncthreads();
 }
 
-// K1 (BATCH=false: one solve, one block) and K4 (BATCH=true: one block per
-// subset row, from the prologue above)
-template <bool ZONE, bool BATCH>
+// ---- K6: the relax-ladder scan (LADDER=true) ---------------------------------
+//
+// Replaces karpenter_tpu/solver/tpu/ffd.py:2167 ffd_solve_ladder (step_ladder
+// :1714-1800). Each run walks a cascade of ATTEMPTS, each one full scan step
+// (the run body below, fast branch or event engine) for its own group and
+// pod count: the base rung (level 0) pours every still-unplaced pod of the
+// run's group; rung l >= 1 pours ONE pod of group run_ladder[s, l-1] (the
+// run's pod spec with its l lowest-weight preferences dropped), and a -1
+// there ends the walk. After a base attempt the walk goes to rung 1, after a
+// rung that placed its pod back to the base, after one that placed nothing
+// one rung up; it stops when the run is placed, past the last rung or out of
+// fuel ((count + 1) * (Lw + 2) + 4 attempts).
+//
+// What bounds it on the H100: as K1, one block walking a serial chain; the
+// chain is now one step body per attempt, and a pod that relaxes costs at
+// least two (its base attempt and the rung that places it), so a run whose
+// pods all relax costs >= 2 * count serial bodies.
+// Design: the run loop's header picks the attempt (its group and count) and
+// the loop's increment folds it into the run, so the body is K1's, with no
+// change for the other instances. The cascade state (level, remaining,
+// fuel) is uniform over the block and every thread keeps its own copy in
+// registers, computed from the same global values after a block barrier.
+// Each attempt writes its take rows and leftover to scratch (take_row = 0),
+// the increment adds them into the run's output rows, and every attempt
+// commits its carry, as the JAX while_loop commits its state.
+
+struct Cascade {
+  int s = -1;     // the run the cascade is walking
+  int lvl = 0;    // 0 the base rung, l >= 1 run_ladder[s, l - 1]
+  int rem = 0;    // the run's pods still unplaced
+  int fuel = 0;
+  int cnt = 0;    // the current attempt's pod count
+  int base = 0;   // the current attempt is the base rung
+  int ran = 0;    // an attempt ran since the last increment
+};
+
+// The header of the run loop: starts run s's walk (zeroed output rows) the
+// first time it sees s, then picks the next attempt: its group in g, its pod
+// count in count. Returns false when the walk is over (the run's leftover
+// written): the loop then moves to the next run.
+__device__ bool ladder_attempt(const ScanArgs& a, Cascade& c, int s, int& g, int& count) {
+  if (c.s != s) {
+    c.s = s;
+    c.lvl = 0;
+    c.rem = count;
+    c.fuel = wadd(wmul(wadd(count, 1), a.Lw + 2), 4);
+    for (int e = threadIdx.x; e < a.E; e += NT) a.out_take_e[(size_t)s * a.E + e] = 0;
+    for (int m = threadIdx.x; m < a.M; m += NT) a.out_take_c[(size_t)s * a.M + m] = 0;
+  }
+  c.ran = 0;
+  if (count > 0 && c.rem > 0 && c.lvl <= a.Lw && c.fuel > 0) {
+    const bool base = c.lvl == 0;
+    const int gv = base ? 0 : a.run_ladder[(size_t)s * a.Lw + min(max(c.lvl - 1, 0), a.Lw - 1)];
+    if (base || gv >= 0) {
+      if (!base) g = min(max(gv, 0), a.G - 1);
+      count = base ? c.rem : 1;
+      c.cnt = count;
+      c.base = base;
+      c.ran = 1;
+      return true;
+    }
+  }
+  if (threadIdx.x == 0) a.out_leftover[s] = count > 0 ? c.rem : 0;
+  return false;
+}
+
+// The increment of the run loop: K1 and K4 go to the next run; K6 folds the
+// attempt that ran into run s (takes into its output rows, placed pods into
+// the cascade) and stays on s, or moves on when no attempt ran.
+template <bool LADDER>
+__device__ __forceinline__ int next_run(const ScanArgs& a, Cascade& c, int s) {
+  if constexpr (!LADDER) {
+    return s + 1;
+  } else {
+    if (!c.ran) return s + 1;
+    for (int e = threadIdx.x; e < a.E; e += NT)
+      a.out_take_e[(size_t)s * a.E + e] = wadd(a.out_take_e[(size_t)s * a.E + e], a.take_e[e]);
+    for (int m = threadIdx.x; m < a.M; m += NT)
+      a.out_take_c[(size_t)s * a.M + m] = wadd(a.out_take_c[(size_t)s * a.M + m], a.take_c[m]);
+    const int placed = wsub(c.cnt, a.leftover[s]);
+    c.lvl = c.base ? 1 : (placed > 0 ? 0 : c.lvl + 1);
+    c.rem = wsub(c.rem, placed);
+    c.fuel = wsub(c.fuel, 1);
+    c.ran = 0;
+    if (threadIdx.x == 0) *a.attempts += 1;
+    return s;
+  }
+}
+
+// K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
+// subset row, from the prologue above) and K6 (LADDER=true: one solve, a
+// cascade of attempts per run)
+template <bool ZONE, bool BATCH, bool LADDER>
 __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if constexpr (BATCH) batch_row_prologue(a);
   __shared__ RunShared sh;
@@ -1159,12 +1261,15 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if (tid == 0) sh.used = *a.used;
   __syncthreads();
 
-  for (int s = 0; s < a.S; ++s) {
-    const int g = a.run_group[s];
-    const int count = a.run_count[s];
+  Cascade cas;
+  for (int s = 0; s < a.S; s = next_run<LADDER>(a, cas, s)) {
+    int g = a.run_group[s];
+    int count = a.run_count[s];
+    if constexpr (LADDER)
+      if (!ladder_attempt(a, cas, s, g, count)) continue;
     if (count <= 0) {  // padded run: zero rows, state untouched
-      for (int i = tid; i < E; i += NT) a.take_e[take_row<BATCH>(s, E) + i] = 0;
-      for (int i = tid; i < M; i += NT) a.take_c[take_row<BATCH>(s, M) + i] = 0;
+      for (int i = tid; i < E; i += NT) a.take_e[take_row<BATCH || LADDER>(s, E) + i] = 0;
+      for (int i = tid; i < M; i += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + i] = 0;
       if (tid == 0) a.leftover[s] = 0;
       continue;
     }
@@ -1210,7 +1315,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       const int constrained =
           __syncthreads_or(tid < a.V && (zs->ov[tid] || (zs->mv[tid] && zs->vk[tid] == 1)));
       if (constrained) {
-        zoned_run<BATCH>(a, sh, *zs, x, s, g);
+        zoned_run<BATCH, LADDER>(a, sh, *zs, x, s, g);
         continue;
       }
       const int any_mv = __syncthreads_or(tid < a.V && zs->mv[tid]);
@@ -1243,7 +1348,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       unsigned placed = 0;
       for (int e = tid; e < E; e += NT) {
         const int take = min(max(wsub(rem, e_full[e]), 0), e_boot[e]);
-        a.take_e[take_row<BATCH>(s, E) + e] = take;
+        a.take_e[take_row<BATCH || LADDER>(s, E) + e] = take;
         placed += (unsigned)take;
         if (take > 0) {
           for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = wadd(a.e_cum[e * R + r], wmul(take, sh.req[r]));
@@ -1430,7 +1535,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
         if (tid < a.Z) zs->contrib[tid] = 0;
         __syncthreads();
         for (int e = tid; e < E; e += NT) {
-          const int take = a.take_e[take_row<BATCH>(s, E) + e];
+          const int take = a.take_e[take_row<BATCH || LADDER>(s, E) + e];
           if (take > 0) node_contrib(a, zs->contrib, e, take);
         }
         for (int m = tid; m < sh.used; m += NT)
@@ -1440,7 +1545,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
           if (zs->mv[i / a.Z]) a.v_count[i] = wadd(a.v_count[i], zs->contrib[i % a.Z]);
       }
     }
-    for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH>(s, M) + m] = c_take[m];
+    for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = c_take[m];
     if (tid == 0) a.leftover[s] = sh.remaining;
     __syncthreads();
   }
@@ -1682,9 +1787,9 @@ int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
   const bool zone = d[11] != 0;
   if (!scan_limits_ok(a, zone)) return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1709,9 +1814,36 @@ int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
   a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
   if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true, true><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, true, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, true><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, true, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K6. ptrs: as ffd_scan_launch (the 32 scan inputs, the carry, take_e,
+// take_c, leftover, events, scratch), then run_ladder [S, Lw] and the
+// attempt count (a zeroed int32 scalar); dims: as
+// ffd_scan_launch, then Lw and the offset of the attempt's rows in the
+// scratch (take_e [E], take_c [M], leftover [S] after the scan's own).
+int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 55) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.out_take_e = (int*)p[48]; a.out_take_c = (int*)p[49]; a.out_leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52]; a.run_ladder = (const int*)p[53];
+  a.attempts = (int*)p[54];
+  const bool zone = d[11] != 0;
+  a.Lw = d[12];
+  const int off = d[13];
+  if (!scan_limits_ok(a, zone) || a.Lw < 1 || off < 0) return (int)cudaErrorInvalidValue;
+  a.take_e = a.scratch + off;
+  a.take_c = a.take_e + a.E;
+  a.leftover = a.take_c + a.M;
+  if (zone)
+    ffd_scan_kernel<true, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  else
+    ffd_scan_kernel<false, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

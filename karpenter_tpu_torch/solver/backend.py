@@ -7,7 +7,13 @@ no resume: encode -> padded kernel args -> upload -> FFD scan, with the
 zoned event engine when the solve has zone/capacity-type domain sigs
 (solver/cuda/ffd.py) -> on-device delta compaction -> ONE fetch -> decode.
 
-Inputs outside this slice raise `UnsupportedInput`; there is no CPU
+Respect-mode preferences (ScheduleAnyway spreads, weighted pod
+(anti-)affinity, preferred node affinity; solver/relax.py) solve through
+the device-resident relax ladder, one dispatch of the ladder scan
+(`_ladder_dispatch`), or the host relax loop, one plain-scan dispatch per
+dropped preference (`_relax_solve`), as in the JAX backend.
+
+Inputs outside the port raise `UnsupportedInput`; there is no CPU
 fallback solver. A later slice lifts one decline at a time.
 """
 
@@ -21,11 +27,12 @@ import numpy as np
 import torch
 
 from ..api import wellknown as wk
+from ..api.objects import _POD_CACHE_KEYS
 from ..provisioning.scheduler import ClaimResult, SolverInput, SolverResult
 from ..scheduling.requirements import IN, Requirement, Requirements
 from ..utils.resources import Resources
 from .cuda.ffd import ARG_INDEX
-from .encode import EncodedInput, UnpackableInput, encode, quantize_input
+from .encode import EncodedInput, UnpackableInput, _pod_signature, encode, quantize_input
 
 
 class Solver(abc.ABC):
@@ -36,9 +43,77 @@ class Solver(abc.ABC):
 
 class UnsupportedInput(ValueError):
     """The input needs a part of the solver this port does not have yet
-    (relax ladder, fallback groups, minValues replay, claim overflow,
-    shapes past the scan kernel's shared rows, ...). Raised instead of
-    solving on the CPU."""
+    (fallback groups, custom-key topology, minValues replay, claim
+    overflow, shapes past the scan kernel's shared rows, ...). Raised
+    instead of solving on the CPU."""
+
+
+def canonicalize_placements(inp: SolverInput, res: SolverResult) -> SolverResult:
+    """Canonical uid→target assignment within each run of identical pods.
+
+    Pods of one run are fungible (same signature ⇒ same scheduling
+    behavior); the sequential oracle may visit targets in interleaved order
+    (zone budgets rotate domains), while the tensor path assigns run pods to
+    targets in (existing-node input order, then claim creation order) —
+    SPEC.md "Determinism". This post-pass re-sorts the oracle's per-run
+    assignments into that canonical order; per-target COUNTS, claim
+    contents-as-sets, and error counts are untouched. A no-op for
+    monotone-fill runs (anything without zone budgets)."""
+    from dataclasses import replace as _replace
+
+    from ..provisioning.scheduler import ffd_sort
+
+    pods = ffd_sort([p for p in inp.pods if not p.scheduling_gated and not p.bound])
+    runs: List[list] = []
+    last_sig = object()
+    for p in pods:
+        s = _pod_signature(p)
+        if runs and s == last_sig:
+            runs[-1].append(p)
+        else:
+            runs.append([p])
+            last_sig = s
+
+    node_order = {n.id: i for i, n in enumerate(inp.nodes)}
+
+    def tkey(t):
+        if t[0] == "node":
+            return (0, node_order.get(t[1], 0))
+        return (1, t[1])
+
+    placements: Dict[str, Tuple[str, object]] = {}
+    errors: Dict[str, str] = {}
+    claim_pods: Dict[int, List[str]] = {i: [] for i in range(len(res.claims))}
+    for rp in runs:
+        counts: Dict[Tuple[str, object], int] = {}
+        err_msg = None
+        n_err = 0
+        for p in rp:
+            t = res.placements.get(p.meta.uid)
+            if t is None:
+                n_err += 1
+                err_msg = err_msg or res.errors.get(p.meta.uid, "unschedulable")
+            else:
+                counts[t] = counts.get(t, 0) + 1
+        i = 0
+        for t, c in sorted(counts.items(), key=lambda kv: tkey(kv[0])):
+            for _ in range(c):
+                uid = rp[i].meta.uid
+                placements[uid] = t
+                if t[0] == "claim":
+                    claim_pods[t[1]].append(uid)
+                i += 1
+        for j in range(i, len(rp)):
+            # keep each pod's own diagnostic when the source recorded one;
+            # the run-level message only backfills pods whose uid moved
+            # within the run during canonicalization
+            uid = rp[j].meta.uid
+            errors[uid] = res.errors.get(uid) or err_msg or "unschedulable"
+
+    claims = [
+        _replace(c, pod_uids=claim_pods[i]) for i, c in enumerate(res.claims)
+    ]
+    return SolverResult(placements=placements, claims=claims, errors=errors)
 
 
 def pack_bits32(rows: np.ndarray) -> np.ndarray:
@@ -402,12 +477,156 @@ class _Transfer:
     d2h_fetches: int = 0
 
 
+def materialize_pods(order, items_map, level) -> list:
+    """relax.materialize_pod over the ordered pods, pod p at rung level(p),
+    pods without preferences as they are. Equal, pod by pod, to calling
+    materialize_pod on each (tests/test_torch_relax.py), but a pod whose
+    signature, preference fields, item list and level equal those of the
+    pod that opened its stretch shares that pod's materialized fields and
+    signature instead of rebuilding them: the per-pod dataclass rebuild and
+    signature are most of a 50k-pod ladder's host time."""
+    import copy
+
+    from . import relax as rx
+
+    out = []
+    head = None  # (original pod, items, level, its materialization)
+    for p in order:
+        items = items_map.get(p.meta.uid)
+        if items is None:
+            out.append(p)
+            head = None
+            continue
+        lvl = level(p)
+        if (
+            head is not None and head[2] == lvl and head[1] == items
+            and _pod_signature(head[0]) == _pod_signature(p)
+            and head[0].topology_spread == p.topology_spread
+            and head[0].affinity_terms == p.affinity_terms
+            and head[0].node_affinity == p.node_affinity
+            and head[0].preferred_node_affinity == p.preferred_node_affinity
+        ):
+            m = head[3]
+            q = copy.copy(p)
+            d = q.__dict__
+            for k in _POD_CACHE_KEYS:
+                d.pop(k, None)
+            d.update(topology_spread=m.topology_spread, affinity_terms=m.affinity_terms,
+                     node_affinity=m.node_affinity,
+                     preferred_node_affinity=m.preferred_node_affinity)
+            # equal fields, equal signature: seed encode._pod_signature's cache
+            d["_solver_sig"] = _pod_signature(m)
+        else:
+            q = rx.materialize_pod(p, items, lvl)
+            head = (p, items, lvl, q)
+        out.append(q)
+    return out
+
+
+def ladder_pods(items_map, order):
+    """The relax ladder's pods: the ordered pods materialized at level 0
+    (the base runs, as the host loop's first iteration) and, for every run,
+    one GHOST pod per rung l >= 1 (the run's representative with its l
+    lowest-weight preferences dropped), appended after the originals.
+    Returns (pods0, runs [[start, count]], ladders, ghosts, ghost_of
+    [(run, level)]), or None when a run mixes different ladders (its pods'
+    (weight, kind, idx) item lists differ) or no pod has a rung."""
+    import dataclasses
+
+    from . import relax as rx
+
+    pods0 = materialize_pods(order, items_map, lambda p: 0)
+    if not pods0:
+        return None
+    sigs = [_pod_signature(p) for p in pods0]
+    runs: List[List[int]] = []
+    for i, sg in enumerate(sigs):
+        if runs and sg == sigs[i - 1]:
+            runs[-1][1] += 1
+        else:
+            runs.append([i, 1])
+    ladders = []
+    for start, cnt in runs:
+        keys = {
+            tuple((w, k, ix) for (w, k, _t, ix) in items_map.get(order[j].meta.uid, ()))
+            for j in range(start, start + cnt)
+        }
+        if len(keys) != 1:
+            return None  # mixed ladder within one run: host loop
+        ladders.append(next(iter(keys)))
+    ghosts, ghost_of = [], []
+    for ri, (start, _cnt) in enumerate(runs):
+        items = items_map.get(order[start].meta.uid, ())
+        rep = order[start]
+        for lvl in range(1, len(items) + 1):
+            gp = rx.materialize_pod(rep, items, lvl)
+            gp = dataclasses.replace(
+                gp,
+                meta=dataclasses.replace(
+                    gp.meta, name=f"~rung-{lvl}-{rep.meta.name}", uid=f"~rung:{rep.meta.uid}:{lvl}"
+                ),
+            )
+            ghosts.append(gp)
+            ghost_of.append((ri, lvl))
+    if not ghosts:
+        return None
+    return pods0, runs, ladders, ghosts, ghost_of
+
+
+def ladder_table(enc: EncodedInput, n_orig: int, runs, ladders, ghosts, ghost_of, bucket):
+    """The rung table of an encode of ladder_pods' pods: encode interns the
+    rungs' group tables (a rung merges with any same-spec group, as the
+    host loop's re-encode would), then the run axis is truncated to the
+    original runs, so a ghost never pours. run_ladder[s, l-1] holds rung
+    l's group, -1 past the run's ladder; its width is bucket(Lmax, 2, 2).
+    Returns (truncated encode, run_ladder [S, Lp] int32, Lmax), or None
+    when a ghost merged into the last original run, encode split the
+    originals differently or did not keep the presorted order."""
+    import dataclasses
+
+    rc = np.asarray(enc.run_count)
+    rg = np.asarray(enc.run_group)
+    cum = np.cumsum(rc)
+    bidx = int(np.searchsorted(cum, n_orig))
+    if bidx >= len(rc) or int(cum[bidx]) != n_orig:
+        return None  # a ghost merged into the last original run
+    S_orig = bidx + 1
+    if S_orig != len(runs) or not np.array_equal(
+        rc[:S_orig], np.asarray([c for _, c in runs], dtype=rc.dtype)
+    ):
+        return None  # encode split the originals differently
+    if str(enc.sorted_uids[n_orig]) != ghosts[0].meta.uid:
+        return None  # presorted order not preserved
+    pod_run = np.repeat(np.arange(len(rc)), rc)
+    Lmax = max(len(l) for l in ladders)
+    ladder_rows = np.full((S_orig, bucket(Lmax, 2, 2)), -1, np.int32)
+    for j, (ri, lvl) in enumerate(ghost_of):
+        ladder_rows[ri, lvl - 1] = rg[pod_run[n_orig + j]]
+    # the group axis (and group_pods, for decode's requirement unions)
+    # keeps the rung groups
+    enc2 = dataclasses.replace(
+        enc,
+        run_group=np.ascontiguousarray(rg[:S_orig]),
+        run_count=np.ascontiguousarray(rc[:S_orig]),
+        sorted_uids=enc.sorted_uids[:n_orig],
+    )
+    return enc2, ladder_rows, int(Lmax)
+
+
+def pad_ladder(ladder_rows: np.ndarray, Sp: int) -> np.ndarray:
+    """The rung table padded to the kernel's run axis (-1 rows)."""
+    out = np.full((Sp, ladder_rows.shape[1]), -1, np.int32)
+    out[: ladder_rows.shape[0]] = ladder_rows
+    return out
+
+
 class TorchSolver(Solver):
     """Tensorized FFD on the GPU (solver/cuda/ffd.py). `device=None` means
     "cuda" and raises when no GPU is present; `device="cpu"` runs the plain
-    PyTorch versions of the kernels."""
+    PyTorch versions of the kernels. `relax_ladder=False` serves
+    preferences through the host relax loop instead of the ladder scan."""
 
-    def __init__(self, max_claims: int = 1024, device=None):
+    def __init__(self, max_claims: int = 1024, device=None, relax_ladder: bool = True):
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -416,8 +635,10 @@ class TorchSolver(Solver):
             )
         self.device = dev
         self.max_claims = max_claims
+        self.relax_ladder = bool(relax_ladder)
         self.stats: Dict[str, int] = {
             "device_solves": 0, "wide_refetches": 0, "claim_doublings": 0,
+            "ladder_solves": 0, "relax_dispatches": 0, "ladder_rungs_used": 0,
         }
         self.transfer = _Transfer()
         # device copies of provenance-tagged static arrays (see
@@ -437,18 +658,33 @@ class TorchSolver(Solver):
         qinp = quantize_input(inp)
         from . import relax as rx
 
-        if rx.plan(qinp) is not None:
-            raise UnsupportedInput("preferences need the relax ladder")
+        relax_plan = rx.plan(qinp)
+        if relax_plan is not None:
+            # Respect-mode preferences: the ladder scan in one dispatch, or
+            # the host loop's redispatch per dropped preference. Sort the
+            # FILTERED list (gated/bound pods dropped first), as the oracle
+            # and the JAX backend do.
+            from ..provisioning.scheduler import ffd_sort
+
+            order = ffd_sort(
+                [p for p in qinp.pods if not p.scheduling_gated and p.node_name is None]
+            )
+            if self.relax_ladder:
+                lad = self._ladder_dispatch(qinp, relax_plan, order)
+                if lad is not None:
+                    return AsyncSolve(
+                        lambda: self._ladder_finish(qinp, relax_plan, order, lad)
+                    )
+            dropped = {u: 0 for u in relax_plan}
+            first = self._relax_dispatch(qinp, relax_plan, order, dropped)
+            return AsyncSolve(
+                lambda: self._relax_solve(qinp, relax_plan, order, dropped, first)
+            )
         enc = encode(qinp)
-        if enc.group_fallback.any():
-            raise UnsupportedInput("fallback groups need the oracle")
-        if enc.has_topology or enc.has_affinity:
-            raise UnsupportedInput("custom-key topology/affinity needs the oracle")
+        _check_encode(enc)
         if enc.G == 0:
             # no schedulable pod: the empty result every backend returns
-            return AsyncSolve(
-                lambda: SolverResult(placements={}, claims=[], errors={})
-            )
+            return AsyncSolve(lambda: _empty_result())
         handle = self._device_solve_async(enc)
 
         def finish():
@@ -459,6 +695,120 @@ class TorchSolver(Solver):
             return out
 
         return AsyncSolve(finish)
+
+    # -- host relax loop -------------------------------------------------------
+
+    def _relax_dispatch(self, qinp, items_map, order, dropped):
+        """Materialize + encode + dispatch one relax iteration: (minp, enc,
+        finish), finish None when no pod is schedulable."""
+        import dataclasses
+
+        pods2 = materialize_pods(order, items_map, lambda p: dropped[p.meta.uid])
+        minp = dataclasses.replace(qinp, pods=pods2, presorted=True)
+        enc = encode(minp)
+        _check_encode(enc)
+        if enc.G == 0:
+            return minp, enc, None
+        return minp, enc, self._device_solve_async(enc)
+
+    def _relax_solve(self, qinp: SolverInput, items_map, order, dropped,
+                     first=None) -> SolverResult:
+        """Drive the oracle's per-pod relaxation by whole-solve redispatch:
+        each iteration materializes the current per-pod active preference
+        sets (in the ORIGINAL pods' FFD order) and solves on the device; the
+        FIRST failing pod with droppable preferences left drops its
+        lowest-weight one. Pods before the relaxed one replay identically,
+        the relaxed pod retries under the same state, so the result is the
+        sequential oracle's."""
+        budget = 1 + sum(len(v) for v in items_map.values())
+        for it in range(budget):
+            minp, enc, finish = first if (it == 0 and first is not None) else (
+                self._relax_dispatch(qinp, items_map, order, dropped)
+            )
+            out = finish() if finish is not None else _empty_result()
+            if not min_values_post_check(minp, out):
+                raise UnsupportedInput("a claim narrowed below a minValues floor")
+            cand = None
+            for uid in enc.sorted_uids.tolist():
+                if uid in out.errors and dropped.get(uid, 0) < len(items_map.get(uid, ())):
+                    cand = uid
+                    break
+            if cand is None:
+                self.stats["device_solves"] += 1
+                self.stats["relax_dispatches"] = it + 1
+                self.stats["ladder_rungs_used"] = max(dropped.values(), default=0)
+                # per-pod relaxation SPLITS original runs, so fungible-pod
+                # assignments are canonicalized over the ORIGINAL pods
+                return canonicalize_placements(qinp, out)
+            dropped[cand] += 1
+        raise UnsupportedInput("the relax loop did not settle within its dispatch budget")
+
+    # -- device-resident relax ladder -----------------------------------------
+
+    def _ladder_dispatch(self, qinp, items_map, order):
+        """Pre-materialize the whole relax ladder (ladder_pods, encode,
+        ladder_table) and dispatch it as ONE launch of the ladder scan
+        (cuda/ffd.py ffd_solve_ladder) instead of the host loop's dispatch
+        per dropped preference. Returns an in-flight dispatch record, or
+        None to use the host loop: where ladder_pods or ladder_table decline,
+        a fallback-class encode, unpackable kernel args, or shapes past the
+        scan kernel's shared rows."""
+        import dataclasses
+
+        lp = ladder_pods(items_map, order)
+        if lp is None:
+            return None
+        pods0, runs, ladders, ghosts, ghost_of = lp
+        enc = encode(dataclasses.replace(qinp, pods=pods0 + ghosts, presorted=True))
+        if enc.group_fallback.any() or enc.has_topology or enc.has_affinity or enc.G == 0:
+            return None
+        lt = ladder_table(enc, len(pods0), runs, ladders, ghosts, ghost_of, self._bucket)
+        if lt is None:
+            return None
+        enc2, ladder_rows, rungs = lt
+        try:
+            host_args, dims, prov = host_kernel_args(enc2, self._bucket)
+        except UnpackableInput:
+            return None
+        zone = enc2.V > 0
+        try:
+            check_kernel_limits(dims, host_args, zone)
+        except UnsupportedInput:
+            return None
+        self.transfer = _Transfer()
+        args = self._device_args(host_args, prov)
+        dev_lad = self._ladder_arg(pad_ladder(ladder_rows, dims["Sp"]))
+        n_orig = len(pods0)
+        M0 = initial_claim_bucket(n_orig, self.max_claims)
+        flat_dev, unpack = self._dispatch(args, M0, n_orig, zone, ladder=dev_lad)
+        return dict(enc=enc2, args=args, dev_lad=dev_lad, flat_dev=flat_dev, unpack=unpack,
+                    dims=dims, M0=M0, n_orig=n_orig, zone=zone, rungs=rungs)
+
+    def _ladder_arg(self, lad_host: np.ndarray) -> torch.Tensor:
+        """Upload the run_ladder table (one array, counted in transfer)."""
+        from .convert import array_to_torch
+
+        dev = array_to_torch(lad_host, self.device)
+        self.transfer.h2d_bytes += lad_host.nbytes
+        self.transfer.h2d_arrays += 1
+        return dev
+
+    def _ladder_finish(self, qinp: SolverInput, items_map, order, lad) -> SolverResult:
+        """Fetch + decode the ladder dispatch. A result that cannot stand
+        (claims past max_claims, a minValues violation) replays on the host
+        relax loop, which raises UnsupportedInput where it cannot finish:
+        the ladder only ever shortcuts the host loop."""
+        res = self._collect(lad["enc"], lad["dims"], lad["args"], lad["flat_dev"],
+                            lad["unpack"], lad["M0"], lad["n_orig"], lad["zone"],
+                            ladder=lad["dev_lad"])
+        if res is not None and min_values_post_check(qinp, res):
+            self.stats["device_solves"] += 1
+            self.stats["ladder_solves"] += 1
+            self.stats["relax_dispatches"] = 1
+            self.stats["ladder_rungs_used"] = lad["rungs"]
+            return canonicalize_placements(qinp, res)
+        dropped = {u: 0 for u in items_map}
+        return self._relax_solve(qinp, items_map, order, dropped, None)
 
     # -- device path ----------------------------------------------------------
 
@@ -480,11 +830,15 @@ class TorchSolver(Solver):
             out.append(hit)
         return tuple(out)
 
-    def _dispatch(self, args, M: int, total_pods: int, zone_engine: bool):
-        """Scan + output packing. Returns (flat device buffer, unpack fn)."""
-        from .cuda.ffd import ffd_solve
+    def _dispatch(self, args, M: int, total_pods: int, zone_engine: bool, ladder=None):
+        """Scan (the ladder scan when `ladder` holds a rung table) + output
+        packing. Returns (flat device buffer, unpack fn)."""
+        from .cuda.ffd import ffd_solve, ffd_solve_ladder
 
-        out = ffd_solve(*args, max_claims=M, zone_engine=zone_engine)
+        if ladder is None:
+            out = ffd_solve(*args, max_claims=M, zone_engine=zone_engine)
+        else:
+            out = ffd_solve_ladder(ladder, *args, max_claims=M, zone_engine=zone_engine)
         Sp, Ep = out.take_e.shape
         Mb, Tp = out.state.c_mask.shape
         Wm = (Tp + 31) // 32
@@ -566,8 +920,6 @@ class TorchSolver(Solver):
         check_kernel_limits(dims, host_args, zone)
         self.transfer = _Transfer()
         args = self._device_args(host_args, prov)
-        S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
-        Z, C = dims["Z"], dims["C"]
         total_pods = int(sum(len(p) for p in enc.group_pods))
         # claim slots sized from the input, doubled on saturation; the
         # redispatch reuses the uploaded args
@@ -575,35 +927,62 @@ class TorchSolver(Solver):
         flat_dev, unpack = self._dispatch(args, M0, total_pods, zone)
 
         def finish() -> SolverResult:
-            M = M0
-            flat, up = self._fetch(flat_dev), unpack
-            while True:
-                f = up(flat)
-                used = int(f["used"])
-                if used < M:
-                    break
-                if M >= self.max_claims:
-                    raise UnsupportedInput(
-                        f"the solve needs more than max_claims={self.max_claims} claims"
-                    )
-                M = min(M * 2, self.max_claims)
-                self.stats["claim_doublings"] += 1
-                fd, up = self._dispatch(args, M, total_pods, zone)
-                flat = self._fetch(fd)
-            c_mask = _unpack_words(f["c_mask_words"], T)
-            c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)
-            c_gmask = _unpack_gmask(f["c_gbits"], G)
-            if "entries" in f:
-                Ep_ = f["Ep"]
-                c_cum = _claim_cum_from_entries(enc, f["entries"], f["c_pool"], Ep_, M)
-                return decode_delta(enc, f["entries"], f["leftover"][:S], E, Ep_,
-                                    c_mask, c_zone, c_ct, f["c_pool"], c_gmask,
-                                    c_cum, used)
-            return decode(enc, f["take_e"][:S, :E], f["take_c"][:S],
-                          f["leftover"][:S], c_mask, c_zone, c_ct, f["c_pool"],
-                          c_gmask, f["c_cum"], used)
+            res = self._collect(enc, dims, args, flat_dev, unpack, M0, total_pods, zone)
+            if res is None:
+                raise UnsupportedInput(
+                    f"the solve needs more than max_claims={self.max_claims} claims"
+                )
+            return res
 
         return finish
+
+    def _collect(self, enc: EncodedInput, dims: dict, args, flat_dev, unpack, M0: int,
+                 total_pods: int, zone: bool, ladder=None) -> Optional[SolverResult]:
+        """Fetch + decode one dispatch, doubling the claim bucket (a
+        redispatch on the uploaded args) while the solve fills it. None when
+        the solve needs more than max_claims claims."""
+        S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
+        Z, C = dims["Z"], dims["C"]
+        M = M0
+        flat, up = self._fetch(flat_dev), unpack
+        while True:
+            f = up(flat)
+            used = int(f["used"])
+            if used < M:
+                break
+            if M >= self.max_claims:
+                return None
+            M = min(M * 2, self.max_claims)
+            self.stats["claim_doublings"] += 1
+            fd, up = self._dispatch(args, M, total_pods, zone, ladder=ladder)
+            flat = self._fetch(fd)
+        c_mask = _unpack_words(f["c_mask_words"], T)
+        c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)
+        c_gmask = _unpack_gmask(f["c_gbits"], G)
+        if "entries" in f:
+            # rung pours charge the base group's requests (relaxation drops
+            # preferences, never resources), so the c_cum rebuild over
+            # run_group is exact on the ladder too
+            Ep_ = f["Ep"]
+            c_cum = _claim_cum_from_entries(enc, f["entries"], f["c_pool"], Ep_, M)
+            return decode_delta(enc, f["entries"], f["leftover"][:S], E, Ep_,
+                                c_mask, c_zone, c_ct, f["c_pool"], c_gmask,
+                                c_cum, used)
+        return decode(enc, f["take_e"][:S, :E], f["take_c"][:S],
+                      f["leftover"][:S], c_mask, c_zone, c_ct, f["c_pool"],
+                      c_gmask, f["c_cum"], used)
+
+
+def _empty_result() -> SolverResult:
+    return SolverResult(placements={}, claims=[], errors={})
+
+
+def _check_encode(enc: EncodedInput) -> None:
+    """Raise UnsupportedInput for an encode the device path cannot solve."""
+    if enc.group_fallback.any():
+        raise UnsupportedInput("fallback groups need the oracle")
+    if enc.has_topology or enc.has_affinity:
+        raise UnsupportedInput("custom-key topology/affinity needs the oracle")
 
 
 def _unpack_words(words: np.ndarray, width: int) -> np.ndarray:

@@ -73,7 +73,7 @@ def load():
     lib = ctypes.CDLL(str(build()))
     ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     for name in ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
-                 "ffd_batched_launch", "pack_verdicts_launch"):
+                 "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
         fn.restype = ctypes.c_int

@@ -28,6 +28,11 @@ travel as int32 bit patterns; bool tables are torch.bool.
 Both forms count the zoned branch's events per solve (`FFDOutput.events`),
 the counterpart of the JAX module's KTPU_DEBUG_EVENTS diagnostic that
 leaves `leftover` intact.
+
+`ffd_solve_ladder` is the relax-ladder scan (the JAX `ffd_solve_ladder`):
+each run walks a cascade of attempts over its pre-materialized rung groups,
+every attempt one step of the scan above; its output also counts the
+attempts (`LadderOutput.attempts`).
 """
 
 from __future__ import annotations
@@ -126,6 +131,17 @@ class FFDOutput(NamedTuple):
     events: torch.Tensor  # scalar int32 — zoned-branch events of the solve
 
 
+class LadderOutput(NamedTuple):
+    """FFDOutput of the relax-ladder scan, plus its attempt count."""
+
+    take_e: torch.Tensor
+    take_c: torch.Tensor
+    leftover: torch.Tensor
+    state: FFDState
+    events: torch.Tensor
+    attempts: torch.Tensor  # scalar int32 — step bodies run (base and rung attempts)
+
+
 DELTA_HEADER_WORDS = 3  # [overflow_flag, entry_count, uniq_meta_count] i32
 DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 
@@ -136,10 +152,13 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # ffd_scan_kernel<true, false>; the batched consolidation scan
 # (consolidate.batched_ffd) is ffd_scan_kernel<false, true>
 # (ffd_batched_fast_scan) and <true, true> (ffd_batched_zoned_scan);
-# pack_verdicts is consolidate.pack_verdicts.
+# pack_verdicts is consolidate.pack_verdicts; the relax-ladder scan
+# (ffd_solve_ladder) is ffd_scan_kernel<false, false, true>
+# (ffd_ladder_fast_scan) and <true, false, true> (ffd_ladder_zoned_scan).
 LAUNCHES = {
     "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
     "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
+    "ffd_ladder_fast_scan": 0, "ffd_ladder_zoned_scan": 0,
 }
 
 I32 = torch.int32
@@ -1010,6 +1029,18 @@ def _zoned_plain(a, st, r: _Run, M: int):
     return take_e_acc, take_c_acc, torch.tensor(remaining, dtype=I32, device=dev), events
 
 
+def _step_plain(a, st, g: int, count: int, M: int, zone_engine: bool):
+    """One scan step (the JAX step_body) for `count` pods of group g: the
+    fast branch, or with `zone_engine` the domain event engine when the
+    group owns a V-axis constraint or is a member of an anti sig. Returns
+    (take_e, take_c, leftover, events)."""
+    r = _Run(a, g, count, a["group_pair_nok"].shape[1])
+    constrained = bool(torch.any(r.o_v) | torch.any(r.m_v & (a["v_kind"] == 1)))
+    if zone_engine and constrained:
+        return _zoned_plain(a, st, r, M)
+    return (*_fast_plain(a, st, r, M), 0)
+
+
 def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
     """Plain PyTorch transcription of the JAX `ffd_solve` scan: per run, the
     fast branch, or with `zone_engine` the domain event engine for runs
@@ -1018,9 +1049,7 @@ def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
     st = _state0(args, max_claims)._asdict()
     dev = a["node_free"].device
     E = a["node_free"].shape[0]
-    W = a["group_pair_nok"].shape[1]
     M = max_claims
-    v_anti = a["v_kind"] == 1
     zero = torch.zeros((), dtype=I32, device=dev)
     events = 0
     takes_e, takes_c, lefts = [], [], []
@@ -1030,13 +1059,8 @@ def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
             takes_c.append(torch.zeros((M,), dtype=I32, device=dev))
             lefts.append(zero)
             continue
-        r = _Run(a, g, count, W)
-        constrained = bool(torch.any(r.o_v) | torch.any(r.m_v & v_anti))
-        if zone_engine and constrained:
-            te, tc, lo, n = _zoned_plain(a, st, r, M)
-            events += n
-        else:
-            te, tc, lo = _fast_plain(a, st, r, M)
+        te, tc, lo, n = _step_plain(a, st, g, count, M, zone_engine)
+        events += n
         takes_e.append(te)
         takes_c.append(tc)
         lefts.append(lo)
@@ -1046,6 +1070,65 @@ def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
         leftover=torch.stack(lefts),
         state=FFDState(**st),
         events=torch.tensor(events, dtype=I32, device=dev),
+    )
+
+
+def ffd_solve_ladder_plain(run_ladder, *args, max_claims: int,
+                           zone_engine: bool = False) -> LadderOutput:
+    """Plain PyTorch transcription of the JAX `ffd_solve_ladder` scan
+    (step_ladder, ffd.py:1714-1800): each run walks its rung cascade. The
+    base rung (level 0) pours every still-unplaced pod of the run's group;
+    rung l >= 1 pours ONE pod of group run_ladder[s, l-1] (the run's pod
+    spec with its l lowest-weight preferences dropped), and a -1 there ends
+    the walk. After a base attempt the walk goes to rung 1, after a rung
+    that placed its pod back to the base, after one that placed nothing one
+    rung up; it stops when the run is placed, past the last rung, or out of
+    fuel. Every attempt is one full step body for its own group (the fast
+    branch or, with `zone_engine`, the event engine by that group's own
+    constraints) and commits its carry; take rows add up over the run's
+    attempts, and leftover is what remains when the walk stops. `attempts`
+    counts the step bodies run."""
+    a = dict(zip(ARG_SPEC, args))
+    st = _state0(args, max_claims)._asdict()
+    dev = a["node_free"].device
+    E = a["node_free"].shape[0]
+    G = a["group_compat_t"].shape[0]
+    M = max_claims
+    Lw = int(run_ladder.shape[1])
+    ladder = run_ladder.tolist()
+    events = attempts = 0
+    takes_e, takes_c, lefts = [], [], []
+    for s, (g, count) in enumerate(zip(a["run_group"].tolist(), a["run_count"].tolist())):
+        te_a = torch.zeros((E,), dtype=I32, device=dev)
+        tc_a = torch.zeros((M,), dtype=I32, device=dev)
+        remaining = count if count > 0 else 0
+        lvl, fuel = 0, (count + 1) * (Lw + 2) + 4
+        while remaining > 0 and lvl <= Lw and fuel > 0:
+            fuel -= 1
+            is_base = lvl == 0
+            gv = ladder[s][min(max(lvl - 1, 0), Lw - 1)]
+            if not (is_base or gv >= 0):
+                break  # past the run's last rung
+            g_cur = g if is_base else min(max(gv, 0), G - 1)
+            cnt = remaining if is_base else 1
+            te, tc, lo, n = _step_plain(a, st, g_cur, cnt, M, zone_engine)
+            events += n
+            attempts += 1
+            placed = cnt - int(lo)
+            lvl = 1 if is_base else (0 if placed > 0 else lvl + 1)
+            remaining -= placed
+            te_a = te_a + te
+            tc_a = tc_a + tc
+        takes_e.append(te_a)
+        takes_c.append(tc_a)
+        lefts.append(torch.tensor(remaining, dtype=I32, device=dev))
+    return LadderOutput(
+        take_e=torch.stack(takes_e),
+        take_c=torch.stack(takes_c),
+        leftover=torch.stack(lefts),
+        state=FFDState(**st),
+        events=torch.tensor(events, dtype=I32, device=dev),
+        attempts=torch.tensor(attempts, dtype=I32, device=dev),
     )
 
 
@@ -1245,6 +1328,47 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
     return FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
 
 
+def ladder_scratch_words(E: int, M: int, T: int, Z: int, S: int) -> int:
+    """int32 words of the ladder scan's global scratch: the scan's own
+    scratch, then the current attempt's [E] and [M] take rows and its
+    leftover slots [S]."""
+    return scan_scratch_words(E, M, T, Z) + E + M + S
+
+
+def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
+                           zone_engine: bool = False) -> LadderOutput:
+    from .build import load
+
+    a = dict(zip(ARG_SPEC, args))
+    M = int(max_claims)
+    name = "ffd_ladder_zoned_scan" if zone_engine else "ffd_ladder_fast_scan"
+    Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
+    _check(run_ladder, "run_ladder", I32)
+    if run_ladder.dim() != 2 or run_ladder.shape[0] != Sp or run_ladder.shape[1] < 1:
+        raise ValueError(f"{name}: run_ladder must be [{Sp}, Lw >= 1], got {tuple(run_ladder.shape)}")
+    Lw = int(run_ladder.shape[1])
+    st = _state0(args, M)
+    dev = a["node_free"].device
+    take_e = torch.empty((Sp, E), dtype=I32, device=dev)
+    take_c = torch.empty((Sp, M), dtype=I32, device=dev)
+    leftover = torch.empty((Sp,), dtype=I32, device=dev)
+    events = torch.zeros((), dtype=I32, device=dev)
+    attempts = torch.zeros((), dtype=I32, device=dev)
+    scratch = torch.empty((ladder_scratch_words(E, M, T, Z, Sp),), dtype=I32, device=dev)
+    ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
+            + [take_e, take_c, leftover, events, scratch, run_ladder, attempts])
+    rc = load().ffd_ladder_launch(
+        _ptrs(ptrs), len(ptrs),
+        _ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), Lw,
+               scan_scratch_words(E, M, T, Z)]),
+        _stream(),
+    )
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return LadderOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st,
+                        events=events, attempts=attempts)
+
+
 def _compact_takes_cuda(take_e, take_c, cap: int):
     from .build import load
 
@@ -1304,6 +1428,17 @@ def ffd_solve(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
     if args[0].is_cuda:
         return _ffd_solve_cuda(*args, max_claims=max_claims, zone_engine=zone_engine)
     return ffd_solve_plain(*args, max_claims=max_claims, zone_engine=zone_engine)
+
+
+def ffd_solve_ladder(run_ladder, *args, max_claims: int, zone_engine: bool = False) -> LadderOutput:
+    """Relax-ladder scan: `run_ladder` [S, Lw] int32 (rung groups per run,
+    -1 padded) leads, then the ARG_SPEC tensors (see ffd_solve_ladder_plain
+    for the cascade)."""
+    if args[0].is_cuda:
+        return _ffd_solve_ladder_cuda(run_ladder, *args, max_claims=max_claims,
+                                      zone_engine=zone_engine)
+    return ffd_solve_ladder_plain(run_ladder, *args, max_claims=max_claims,
+                                  zone_engine=zone_engine)
 
 
 def compact_takes(take_e, take_c, cap: int):

@@ -1,4 +1,5 @@
-# Port copy of karpenter_tpu/solver/relax.py (only plan(), which the port uses to decline).
+# Port copy of karpenter_tpu/solver/relax.py: relax_items, materialize_pod and plan,
+# which TorchSolver's relax ladder and host relax loop (solver/backend.py) use.
 """Respect-mode preferences on the DEVICE path: relax-and-redispatch.
 
 The oracle treats preferences as required, then relaxes a failing pod's
@@ -38,6 +39,7 @@ oracle's fixed processing order.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 from ..api import wellknown as wk
@@ -64,6 +66,55 @@ def relax_items(pod: Pod) -> Optional[List[Tuple[int, int, str, int]]]:
             items.append((t.weight, 2, "aff", i))
     items.sort(key=lambda it: (it[0], it[1], it[3]))
     return items
+
+
+def materialize_pod(pod: Pod, items, n_dropped: int) -> Pod:
+    """Pod view with the still-active preferences REQUIRED and the dropped
+    ones gone — mirrors scheduler._effective_pod."""
+    active = items[n_dropped:]
+    act_tsc = {i for (_w, _k, tag, i) in active if tag == "tsc"}
+    act_aff = {i for (_w, _k, tag, i) in active if tag == "aff"}
+    act_na = [i for (_w, _k, tag, i) in active if tag == "na"]
+    tscs = []
+    for i, t in enumerate(pod.topology_spread):
+        if t.when_unsatisfiable == "DoNotSchedule":
+            tscs.append(t)
+        elif i in act_tsc:
+            tscs.append(dataclasses.replace(t, when_unsatisfiable="DoNotSchedule"))
+    affs = []
+    for i, t in enumerate(pod.affinity_terms):
+        if t.weight is None:
+            affs.append(t)
+        elif i in act_aff:
+            # active weighted ANTI terms materialize ADMISSION-ONLY (encode
+            # kind 3): they block this pod like a required anti but never
+            # register — matching the oracle's original-pod bookkeeping
+            affs.append(
+                dataclasses.replace(t, weight=None, admission_only=t.anti)
+            )
+    node_aff = pod.node_affinity
+    prefs = []
+    if act_na:
+        # active preferred node affinity unions into the required term —
+        # the oracle's base ∪ prefs (dropped prefs vanish, preserving its
+        # ascending-weight relaxation); the materialized pod carries NO
+        # preferred terms so encode keeps it on device
+        base = pod.preferred_node_affinity[act_na[0]][1]
+        for i in act_na[1:]:
+            base = base.union(pod.preferred_node_affinity[i][1])
+        node_aff = (
+            [term.union(base) for term in pod.node_affinity]
+            if pod.node_affinity
+            else [base]
+        )
+    return dataclasses.replace(
+        pod,
+        topology_spread=tscs,
+        affinity_terms=affs,
+        node_affinity=node_aff,
+        preferred_node_affinity=prefs,
+    )
+
 
 def plan(qinp) -> Optional[Dict[str, list]]:
     """uid -> relax item list for every preference-carrying pod, or None

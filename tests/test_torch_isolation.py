@@ -8,8 +8,10 @@ piece pinned to its original.
 - TorchSolver() with no device argument refuses to run without CUDA;
 - the copies (ARG_SPEC, delta constants, argument partitions, the
   consolidation argument indices and batch bucket, the catalog,
-  host_kernel_args and encode, chip_smoke.py's copies of bench.py's input
-  functions and config-5 universe) equal their originals on sample inputs.
+  host_kernel_args and encode, relax_items / materialize_pod / plan,
+  canonicalize_placements, chip_smoke.py's copies of bench.py's input
+  functions, config-5 universe and relax-ladder fleet) equal their
+  originals on sample inputs.
 """
 
 import ast
@@ -75,6 +77,10 @@ def test_port_solve_loads_no_jax():
         "prep = ev.prepare(*build_config5_universe(20, 10))\n"
         "vs = ev.evaluate_prepared(prep, [[0, 1], list(range(10))])\n"
         "assert [v.ok for v in vs] == [True, True], vs\n"
+        "from chip_smoke import build_relax_walk_input\n"
+        "lad = TorchSolver(device='cpu')\n"
+        "res = lad.solve(build_relax_walk_input(24))\n"
+        "assert len(res.placements) == 24 and lad.stats['ladder_solves'] == 1, lad.stats\n"
         "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
         "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -208,3 +214,77 @@ def test_config5_universe_copy_pinned():
         dataclasses.replace(jinp, pods=[p for ps in jpods.values() for p in ps]),
         dataclasses.replace(tinp, pods=[p for ps in tpods.values() for p in ps]))
     assert je.E == 1512 and je.V == 0
+
+
+def test_relax_copy_pinned():
+    """relax_items, materialize_pod at every rung and plan equal the JAX
+    package's on the relax fleets of tests/test_torch_relax.py."""
+    from karpenter_tpu.solver import relax as jrelax
+    from karpenter_tpu_torch.solver import relax as trelax
+    from tests.test_torch_relax import FLEETS, to_port
+
+    rungs = 0
+    for name, make in FLEETS.items():
+        jinp = make()
+        tinp = to_port(jinp)
+        jq, tq = jencode.quantize_input(jinp), tencode.quantize_input(tinp)
+        assert trelax.plan(tq) == jrelax.plan(jq), name
+        for jp, tp in zip(jq.pods, tq.pods):
+            items = jrelax.relax_items(jp)
+            assert trelax.relax_items(tp) == items, (name, jp.meta.uid)
+            for k in range(len(items or ()) + 1):
+                assert trelax.materialize_pod(tp, items, k) == to_port(
+                    jrelax.materialize_pod(jp, items, k)), (name, jp.meta.uid, k)
+                rungs += 1
+    assert rungs > 100
+
+
+@pytest.mark.parametrize("name", ["relax_fuzz_0", "anti_weighted_anti_relaxes_past_capacity",
+                                  "mixed_ladder"])
+def test_canonicalize_placements_copy_pinned(name):
+    """canonicalize_placements re-sorts the sequential oracle's raw result
+    (uncanonicalized: zone budgets interleave targets) as the JAX one does."""
+    from karpenter_tpu.provisioning.scheduler import Scheduler
+    from tests.test_torch_relax import FLEETS, to_port
+    from tests.test_torch_solver import as_data
+
+    inp = jencode.quantize_input(FLEETS[name]())
+    raw = Scheduler(inp).solve()
+    want = jbackend.canonicalize_placements(inp, raw)
+    got = tbackend.canonicalize_placements(to_port(inp), to_port(raw))
+    assert as_data(got) == as_data(want)
+    assert got.errors == want.errors
+
+
+def test_relax_walk_builder_copy_pinned():
+    """chip_smoke.py's build_relax_walk_input equals bench.py's relax-ladder
+    fleet (_decode_relax_metrics part (b)), rebuilt here from its source
+    lines, and encodes to the same kernel arguments."""
+    import bench
+    import chip_smoke
+    from karpenter_tpu.api import wellknown as jwk
+    from karpenter_tpu.api.objects import TopologySpreadConstraint
+    from karpenter_tpu.scheduling.requirements import IN, Requirement, Requirements
+
+    rinp = bench.build_input(300)
+    for pl in rinp.nodepools:
+        pl.requirements = pl.requirements.union(
+            Requirements.of(Requirement.create(jwk.ZONE_LABEL, IN, ["zone-1a"])))
+    for i, p in enumerate(rinp.pods):
+        app = f"app-{i % 8}"
+        p.meta.labels["app"] = app
+        p.node_selector = {}
+        p.topology_spread = [TopologySpreadConstraint(
+            max_skew=1, topology_key=jwk.ZONE_LABEL, label_selector={"app": app},
+            when_unsatisfiable="ScheduleAnyway")]
+    import inspect
+
+    src = inspect.getsource(bench._decode_relax_metrics)
+    assert 'app = f"app-{i % 8}"' in src and 'when_unsatisfiable="ScheduleAnyway"' in src
+    from tests.test_torch_relax import to_port
+
+    tinp = chip_smoke.build_relax_walk_input(300)
+    assert [to_port(p) for p in rinp.pods] == tinp.pods
+    assert [to_port(pl.requirements) for pl in rinp.nodepools] == [
+        pl.requirements for pl in tinp.nodepools]
+    _encode_pair_pinned(rinp, tinp)

@@ -429,7 +429,11 @@ def test_no_schedulable_pods():
 @pytest.mark.parametrize("kind", ["zone_spread", "preference", "custom_key"])
 def test_out_of_slice_inputs_raise(kind):
     """zone_spread: a pod spread on BOTH zone and capacity type, which encode
-    routes to the oracle as a fallback group (one-axis spreads now solve)."""
+    routes to the oracle as a fallback group (one-axis spreads now solve).
+    preference: a weighted ANTI term on a custom topology key, the one
+    preference kind the relax path cannot express (relax_items returns None,
+    encode flags a fallback group); the other preference kinds solve
+    (tests/test_torch_relax.py)."""
     pods = [pod(f"p{i}", labels={"app": "a"}) for i in range(3)]
     for p in pods:
         if kind == "zone_spread":
@@ -441,7 +445,14 @@ def test_out_of_slice_inputs_raise(kind):
         obj = pkg("karpenter_tpu_torch").obj
         for p in inp.pods:
             p.affinity_terms = [obj.PodAffinityTerm(
-                label_selector={"app": "a"}, topology_key="kubernetes.io/hostname", weight=10)]
+                label_selector={"app": "a"}, topology_key="example.com/rack", anti=True,
+                weight=10)]
+        from karpenter_tpu_torch.solver import relax
+        from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+        qinp = quantize_input(inp)
+        assert relax.relax_items(qinp.pods[0]) is None and relax.plan(qinp) is None
+        assert encode(qinp).group_fallback.any()
     with pytest.raises(UnsupportedInput):
         TorchSolver(device="cpu").solve(inp)
 
