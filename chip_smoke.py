@@ -4,7 +4,8 @@
 Runs the port's main path on one NVIDIA GPU and checks it:
 
 1. prints the card's name and power limit, builds the CUDA kernels from
-   karpenter_tpu_torch/csrc with nvcc (sm_90a) and times the build;
+   karpenter_tpu_torch/csrc with nvcc (sm_90a, one process per source, all
+   started together) and times the build;
 2. holds each kernel (K1 in both instances: ffd_fast_scan, the fast branch,
    and ffd_zoned_scan, with the zoned event engine; K2 compact_takes; K3
    claim_meta; K6 below) against its plain PyTorch version on the card, at the shapes
@@ -35,13 +36,35 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    the cells' shapes, on a 400-pod relax walk and on 8 seeded fleets that
    mix every preference kind, through both instances.
 
+6. arena and resume: the surge and config 3 each with 1 250 more replicas
+   of their last run's pod (surge_tail, config3_tail) alternate with the
+   cell itself through TorchSolver() (the arena, the checkpointed scan K7,
+   suffix resume: TPUSolver()'s defaults), RESUME_SOLVES solves each, with
+   the launch counts reset just before and read just after: every tail
+   solve resumes from the ring of the base solve before it (the runs
+   skipped as the ring's coverage predicts), a base solve after it runs
+   cold, every decision equals a resume=False solver's and the plain
+   path's, and a resumed solve uploads the stale run entry (one packed
+   message) and the two suffix run arrays, nothing else. Before it (phase
+   2d), K7 (ffd_ckpt_fast_scan at the surge with a snapshot every 16 and
+   every 4 steps, ffd_ckpt_zoned_scan at config 3) is held against its plain
+   version in every output, ring slot and prefix, against K1's outputs and
+   through a resume from its ring; K8 (arena_unpack) against its plain
+   version byte for byte on the cells' cold adopts, the config-5
+   universe's, and seeded adversarial segment lists (odd-sized bools ahead
+   of int32/uint32 entries, bool bytes 2..255). Phase 3 runs TorchSolver()
+   at these defaults (its warm solves are zero-upload exact hits) and one
+   arena=False solver (K1) on surge_e2e and config 3, held to the same
+   decisions; it prints the transfer ledger.
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
 drives it (config5_phase): the prefix search must find k >= 100 in <= 2
 batched dispatches, equal to the sequential replay; K4 (the batched scan,
 both instances) and K5 (the verdict pack) are held against their plain
-versions, with rows that saturate the claim slots.
+versions, with rows that saturate the claim slots; the universe adopts into
+the solver's arena, and a second prepare uploads nothing.
 
 Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
@@ -139,6 +162,29 @@ def build_input(num_pods: int = 50_000):
     return SolverInput(
         pods=pods, nodes=[], nodepools=pools, zones=("zone-1a", "zone-1b", "zone-1c")
     )
+
+
+def with_tail(inp, n: int):
+    """`inp` plus n more replicas of the pod that sorts last in FFD order
+    (its smallest signature): only the last run's count changes, so a
+    re-solve after `inp` may resume (the surge_tail and config3_tail
+    cells)."""
+    import copy
+    import dataclasses
+
+    from karpenter_tpu_torch.api.objects import _POD_CACHE_KEYS
+    from karpenter_tpu_torch.provisioning.scheduler import ffd_sort
+
+    last = ffd_sort(list(inp.pods))[-1]
+    extra = []
+    for i in range(n):
+        q = copy.deepcopy(last)
+        for k in _POD_CACHE_KEYS:
+            q.__dict__.pop(k, None)
+        q.meta = dataclasses.replace(last.meta, name=f"tail{i:06d}", uid=f"tail{i:06d}",
+                                     labels=dict(last.meta.labels))
+        extra.append(q)
+    return dataclasses.replace(inp, pods=list(inp.pods) + extra)
 
 
 def build_e2e_input(num_pods: int = 50_000, num_nodes: int = 200):
@@ -733,7 +779,8 @@ def kernel_phase(inp, dev):
     p3 = ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
     err3 = max_abs_err(k3, p3)
     assert err3 == 0, f"claim_meta disagrees with its plain version (max |d| {err3})"
-    return dict(enc=enc, args=args, out=out, M=M, cap=cap, cap_u=cap_u, dims=dims, zone=zone,
+    return dict(enc=enc, args=args, host_args=host_args, out=out, M=M, cap=cap, cap_u=cap_u,
+                dims=dims, zone=zone,
                 errs=(err1, err2, err3), n_entries=int(k2[1]), n_uniq=int(k3[1]),
                 events=int(out.events), plain_once_s=plain_s)
 
@@ -1027,7 +1074,8 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     solver runs them: quantize, the relax plan, the FFD order, the
     level-0 and ghost materializations (ladder_pods: materialize_pod over
     every pod and rung), the encode with the ghost rungs, the rung table
-    and kernel arguments, their upload (the rung table apart), the device
+    and kernel arguments, their upload through an arena (cold on the first
+    pass, exact hits after; the resident rung table apart), the device
     work (K6 at the solve's final claim bucket M + compaction, CUDA
     events), the one fetch, and the rest of a full solve (decode,
     canonicalization, bookkeeping)."""
@@ -1039,7 +1087,8 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     from karpenter_tpu_torch.provisioning.scheduler import ffd_sort
     from karpenter_tpu_torch.solver import backend as tb
     from karpenter_tpu_torch.solver import relax
-    from karpenter_tpu_torch.solver.convert import args_to_torch, array_to_torch
+    from karpenter_tpu_torch.solver.arena import ArgumentArena
+    from karpenter_tpu_torch.solver.convert import array_to_torch
     from karpenter_tpu_torch.solver.cuda import ffd
     from karpenter_tpu_torch.solver.encode import encode, quantize_input
 
@@ -1047,6 +1096,7 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
              "upload", "rung_upload", "device", "fetch", "solve")
     stages = {k: [] for k in names}
     solver = tb.TorchSolver()
+    arena = ArgumentArena(device="cuda")
     for _ in range(repeats):
         t = [time.perf_counter()]
         qinp = quantize_input(inp)
@@ -1061,13 +1111,17 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
         t.append(time.perf_counter())
         enc2, rows, _ = tb.ladder_table(enc, len(pods0), runs, ladders, ghosts, ghost_of,
                                         tb.TorchSolver._bucket)
-        host_args, dims, _ = tb.host_kernel_args(enc2, tb.TorchSolver._bucket)
+        host_args, dims, prov = tb.host_kernel_args(enc2, tb.TorchSolver._bucket)
         lad_host = tb.pad_ladder(rows, dims["Sp"])
         t.append(time.perf_counter())
-        args = args_to_torch(host_args, "cuda")
+        args = arena.adopt(host_args, prov)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        lad = array_to_torch(lad_host, "cuda")
+        key = arena.bucket_key(host_args)
+        lad = arena.get_ladder(key, lad_host)
+        if lad is None:
+            lad = array_to_torch(lad_host, "cuda")
+            arena.put_ladder(key, lad_host, lad)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1109,16 +1163,17 @@ def decisions(res):
 
 def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     """Median ms of the solve's stages, run one after another as the solver
-    runs them: host encode, host kernel-arg padding, upload, the device
-    work (scan at the solve's final claim bucket M + compaction, CUDA
-    events), the one fetch, and the host decode and bookkeeping (rest_ms:
-    a full solve minus the stages)."""
+    runs them: host encode, host kernel-arg padding, the upload (an arena
+    adopt: cold on the first pass, an exact hit after), the device work
+    (the checkpointed scan at the solve's final claim bucket M +
+    compaction, CUDA events), the one fetch, and the host decode and
+    bookkeeping (rest_ms: a full solve minus the stages)."""
     import statistics
 
     import torch
 
     from karpenter_tpu_torch.solver import backend as tb
-    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.arena import ArgumentArena
     from karpenter_tpu_torch.solver.cuda import ffd
     from karpenter_tpu_torch.solver.encode import encode, quantize_input
 
@@ -1127,6 +1182,7 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     names = ("quantize", "relax_plan", "encode", "kernel_args", "upload", "device", "fetch", "solve")
     stages = {k: [] for k in names}
     solver = tb.TorchSolver()
+    arena = ArgumentArena(device="cuda")
     for _ in range(repeats):
         ta = time.perf_counter()
         qinp = quantize_input(inp)
@@ -1135,15 +1191,15 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
         t0 = time.perf_counter()
         enc = encode(qinp)
         t1 = time.perf_counter()
-        host_args, _, _ = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+        host_args, _, prov = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
         t2 = time.perf_counter()
-        args = args_to_torch(host_args, "cuda")
+        args = arena.adopt(host_args, prov)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         total = int(sum(len(p) for p in enc.group_pods))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = ffd.ffd_solve(*args, max_claims=M, zone_engine=zone)
+        out, _ring = ffd.ffd_solve_ckpt(*args, max_claims=M, zone_engine=zone)
         Sp, Ep = out.take_e.shape
         flat = tb._pack_outputs_delta(out, tb.delta_capacity(total, Sp, Ep, M),
                                       tb.delta_uniq_capacity(Sp, M))
@@ -1163,17 +1219,42 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     return med
 
 
-KERNEL_NAMES = ("ffd_scan_kernel<false, false, false>", "ffd_scan_kernel<true, false, false>",
+KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false>",
+                "ffd_scan_kernel<true, false, false, false>",
                 "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
-                "meta_finish_kernel", "ffd_scan_kernel<false, true, false>",
-                "ffd_scan_kernel<true, true, false>", "pack_verdicts_kernel",
-                "ffd_scan_kernel<false, false, true>", "ffd_scan_kernel<true, false, true>")
-SINGLE_SOLVE_KERNELS = ("ffd_fast_scan", "ffd_zoned_scan", "compact_takes", "claim_meta")
+                "meta_finish_kernel", "ffd_scan_kernel<false, true, false, false>",
+                "ffd_scan_kernel<true, true, false, false>", "pack_verdicts_kernel",
+                "ffd_scan_kernel<false, false, true, false>",
+                "ffd_scan_kernel<true, false, true, false>",
+                "ffd_scan_kernel<false, false, false, true>",
+                "ffd_scan_kernel<true, false, false, true>", "arena_unpack_kernel")
+# phase 3: TorchSolver() at its defaults (K7, K2, K3; its uploads are exact
+# hits after the warm-up) and one arena=False solver (K1 in both instances)
+SINGLE_SOLVE_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_zoned_scan", "ffd_fast_scan",
+                        "ffd_zoned_scan", "compact_takes", "claim_meta")
 RELAX_KERNELS = ("ffd_ladder_fast_scan", "ffd_ladder_zoned_scan", "compact_takes", "claim_meta")
+# the arena-and-resume phase: K7 cold and resumed, K8 on every delta upload,
+# K1 through the resume=False solver it is held to
+RESUME_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_zoned_scan", "arena_unpack", "ffd_fast_scan",
+                  "ffd_zoned_scan", "compact_takes", "claim_meta")
+
+
+def reset_launches():
+    from karpenter_tpu_torch.solver.cuda import arena, ffd
+
+    for d in (ffd.LAUNCHES, arena.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def read_launches() -> dict:
+    from karpenter_tpu_torch.solver.cuda import arena, ffd
+
+    return {**ffd.LAUNCHES, **arena.LAUNCHES}
 CONSOLIDATION_KERNELS = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "pack_verdicts")
 
 
-def device_profile(inp, scan: str, tries: int = 3) -> dict:
+def device_profile(inp, scan: str, tries: int = 6) -> dict:
     """One warm TorchSolver solve under torch.profiler: device time by
     kernel and the device's busy share of the solve's wall time. A trace
     without the solve's scan kernel (`scan`, a KERNEL_NAMES entry) is taken
@@ -1252,21 +1333,28 @@ class PlainOnCard:
     plain path would take minutes: the mixed input's ~10^4 zoned events)."""
 
     def __enter__(self):
-        from karpenter_tpu_torch.solver.cuda import ffd
+        from karpenter_tpu_torch.solver.cuda import arena, ffd
+
+        def ckpt_plain(init_state, *args, **kw):
+            if init_state is None:
+                return ffd.ffd_solve_ckpt_plain(*args, **kw)
+            return ffd.ffd_resume_plain(init_state, *args, **kw)
 
         self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
-                      ffd._ffd_solve_ladder_cuda)
+                      ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, arena._unpack_cuda)
         ffd._ffd_solve_cuda = ffd.ffd_solve_plain
         ffd._compact_takes_cuda = ffd.compact_takes_plain
         ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
         ffd._ffd_solve_ladder_cuda = ffd.ffd_solve_ladder_plain
+        ffd._ffd_scan_ckpt_cuda = ckpt_plain
+        arena._unpack_cuda = arena.unpack_plain
         return self
 
     def __exit__(self, *exc):
-        from karpenter_tpu_torch.solver.cuda import ffd
+        from karpenter_tpu_torch.solver.cuda import arena, ffd
 
         (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
-         ffd._ffd_solve_ladder_cuda) = self.saved
+         ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, arena._unpack_cuda) = self.saved
 
 
 CONFIG5_NODES = 10_000  # BASELINE config 5
@@ -1403,6 +1491,22 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     assert prep is not None, "config 5 fell off the batched path"
     enc = prep.enc
     assert enc.V == 0
+    # the universe adopts into the solver's arena: the second prepare of the
+    # same universe uploads nothing (an exact hit of the universe's bucket)
+    led, arena = ev.solver.ledger, ev.solver.arena
+    cold_bytes = led.total["h2d_bytes"]
+    t0 = time.perf_counter()
+    prep2 = ev.prepare(inp, cpods, cnode)
+    prepare2_s = time.perf_counter() - t0
+    universe = dict(cold_h2d_bytes=cold_bytes, second_h2d_bytes=led.total["h2d_bytes"] - cold_bytes,
+                    second_exact_hit=arena.stats["exact_hits"] == 1, second_prepare_s=prepare2_s,
+                    resident_bytes=arena.total_bytes())
+    assert universe["second_h2d_bytes"] == 0 and universe["second_exact_hit"], universe
+    assert all(a is b for a, b in zip(prep.args, prep2.args))
+    from karpenter_tpu_torch.solver.backend import host_kernel_args
+
+    u_args = host_kernel_args(enc, TorchSolver._bucket)[0]
+    universe["k8"] = {k: v for k, v in unpack_check(u_args, dev).items() if k in ("nbytes", "segments", "err")}
     zone_fleets = fleets_with_nodes(build_zone_input, 4)
     zone_preps = []
     for seed, zinp in zone_fleets:
@@ -1412,8 +1516,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
         zone_preps.append((zev, zp, len(zinp.nodes)))
 
     # ---- the main path, launch counts reset just before ---------------------
-    for k in ffd.LAUNCHES:
-        ffd.LAUNCHES[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     k_best, dispatches, n_probed, seq = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
     first_s = time.perf_counter() - t0
@@ -1430,7 +1533,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
             lambda kk, v: _accept_consolidation(kk, v))
         zone_ks.append(best)
     torch.cuda.synchronize()
-    launches = dict(ffd.LAUNCHES)
+    launches = read_launches()
     for k in CONSOLIDATION_KERNELS:
         assert launches[k] > 0, f"kernel {k} never launched on the consolidation path"
     assert k_best >= 100, f"expected a large consolidatable prefix, got {k_best}"
@@ -1530,7 +1633,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
     ms4 = time_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 5)
     dev4 = profiled_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 3,
-                       ("ffd_scan_kernel<false, true, false>",))
+                       (KERNEL_NAMES[6],))
     t0 = time.perf_counter()
     cons.batched_ffd_plain(prep.args, *drows, M, False)
     torch.cuda.synchronize()
@@ -1543,7 +1646,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     zdrows = cons.upload_rows(zrows, dev)
     ms4z = time_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 10)
     dev4z = profiled_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 3,
-                        ("ffd_scan_kernel<true, true, false>",))
+                        (KERNEL_NAMES[7],), tries=10)
     plain4z = time_ms(lambda: cons.batched_ffd_plain(zargs, *zdrows, zM, True), 1)
     bytes4z, ops4z = batched_scan_cost(zargs, zrows, zr["out"], True)
     b4z, by4z = bound(bytes4z, ops4z, ops_per_s)
@@ -1556,9 +1659,9 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     ops5 = Bp * (out.leftover.shape[1] + st.c_mask.shape[1] * st.c_mask.shape[2])
     b5, by5 = bound(bytes5, ops5, ops_per_s)
 
-    regs = ptxas_registers(build.BUILD_LOG["ptxas"])
+    regs = {k: v.get("registers") for k, v in ptxas_report(build.BUILD_LOG["ptxas"]).items()}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    reg4 = regs.get("ffd_scan_kernel<false, true, false>")
+    reg4 = regs.get("ffd_scan_kernel<false, true, false, false>")
     blocks_per_sm = max(1, min(2048 // 1024, 65536 // (1024 * max(reg4 or 64, 1))))
     waves = -(-Bp // (sms * blocks_per_sm))
     n_disp = searches * dispatches
@@ -1579,7 +1682,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
              match=zr["err4"] == 0, device_ms=dev4z,
              shape=dict(B=int(zrows[0].shape[0]), Sp=int(zrows[0].shape[1]), M=zM,
                         V=int(zrows[1].shape[1]), Z=int(zrows[1].shape[2])),
-             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true, false>")),
+             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true, false, false>")),
         dict(name="pack_verdicts", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/consolidate.py:291",
              launches=launches["pack_verdicts"], max_abs_err=err5, ms=ms5, plain_ms=plain5,
@@ -1599,6 +1702,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
         first_search_s=first_s,
         universe_build_s=build_s,
         prepare_s=prepare_s,
+        universe_adopt=universe,
         dims=dict(E=enc.E, T=enc.T, G=enc.G, S=len(enc.run_group), NC=int(rows[2].shape[1]), Bp=Bp),
         per_dispatch=dict(rows=len(subsets), h2d_bytes=h2d, d2h_bytes=d2h, k4_device_ms=dev4,
                           k5_device_ms=dev5, **split_ms),
@@ -1610,26 +1714,280 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     return dict(summary=summary, rows=rows_out)
 
 
-def ptxas_registers(report: str) -> dict:
-    """{kernel instance: registers per thread} from ptxas -v, for the scan
-    instances and the verdict pack (demangled by their template flags)."""
-    names = {
-        "ffd_scan_kernelILb0ELb0ELb0E": "ffd_scan_kernel<false, false, false>",
-        "ffd_scan_kernelILb1ELb0ELb0E": "ffd_scan_kernel<true, false, false>",
-        "ffd_scan_kernelILb0ELb1ELb0E": "ffd_scan_kernel<false, true, false>",
-        "ffd_scan_kernelILb1ELb1ELb0E": "ffd_scan_kernel<true, true, false>",
-        "ffd_scan_kernelILb0ELb0ELb1E": "ffd_scan_kernel<false, false, true>",
-        "ffd_scan_kernelILb1ELb0ELb1E": "ffd_scan_kernel<true, false, true>",
-        "pack_verdicts_kernel": "pack_verdicts_kernel",
-    }
+def _scan_outputs(o):
+    return [o.take_e, o.take_c, o.leftover, o.events, *o.state]
+
+
+def ckpt_check(ph, K: int, n: int):
+    """K7 (the checkpointed scan, the instance `ph`'s solve picks) against
+    its plain version at `ph`'s shapes with ring interval K and n slots:
+    every output, every field of every ring slot and the prefix; and against
+    K1's outputs (ph["out"]). Then K7's resume from the slot that covers
+    the most real runs short of the last, against the plain resume, with the
+    final carry equal to the cold solve's and the slot left as it was."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args, M, zone = ph["args"], ph["M"], ph["zone"]
+    kw = dict(max_claims=M, zone_engine=zone, ckpt_every=K, n_ckpt=n)
+    out, ring = ffd.ffd_solve_ckpt(*args, **kw)
+    torch.cuda.synchronize()
+    pout, pring = ffd.ffd_solve_ckpt_plain(*args, **kw)
+    err = max_abs_err(_scan_outputs(out) + [*ring.states, ring.prefix],
+                      _scan_outputs(pout) + [*pring.states, pring.prefix])
+    name = "ffd_ckpt_zoned_scan" if zone else "ffd_ckpt_fast_scan"
+    assert err == 0, f"{name} (K={K}, n={n}) disagrees with its plain version (max |d| {err})"
+    err_k1 = max_abs_err(_scan_outputs(out), _scan_outputs(ph["out"]))
+    assert err_k1 == 0, f"{name} disagrees with K1 (max |d| {err_k1})"
+    S = int((args[1] > 0).sum())
+    prefix = ring.prefix.cpu().tolist()
+    slot = max((i for i, p in enumerate(prefix) if 1 <= p < S), key=lambda i: prefix[i])
+    k = prefix[slot]
+    init = ffd.FFDState(*(f[slot] for f in ring.states))
+    before = [t.clone() for t in init]
+    Sp2 = tb.TorchSolver._bucket(S - k, 16, 16)
+    suffix = [torch.zeros(Sp2, dtype=torch.int32, device=args[0].device) for _ in range(2)]
+    suffix[0][: S - k] = args[0][k:S]
+    suffix[1][: S - k] = args[1][k:S]
+    rout, rring = ffd.ffd_resume(init, *suffix, *args[2:], **kw)
+    torch.cuda.synchronize()
+    prout, prring = ffd.ffd_resume_plain(init, *suffix, *args[2:], **kw)
+    err_r = max_abs_err(_scan_outputs(rout) + [*rring.states, rring.prefix],
+                        _scan_outputs(prout) + [*prring.states, prring.prefix])
+    assert err_r == 0, f"{name} resume disagrees with the plain resume (max |d| {err_r})"
+    err_f = max_abs_err(list(rout.state), list(out.state))
+    assert err_f == 0, f"{name}: the resumed final carry differs from the cold one ({err_f})"
+    assert max_abs_err(list(init), before) == 0, "the resume wrote into its checkpoint"
+    return dict(name=name, K=K, n=n, err=err, err_k1=err_k1, err_resume=err_r, k=k, S=S,
+                Sp2=Sp2, prefix=prefix, out=out, ring=ring, init=init, suffix=suffix)
+
+
+def unpack_check(host_arrays, dev, raw=None):
+    """K8 against its plain version (both on the card) on the arena's
+    packing of `host_arrays` (`raw`: the packed bytes to use instead),
+    byte for byte, and against the arrays themselves when `raw` is None."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import arena
+
+    parts, nbytes, specs = arena.pack(host_arrays)
+    buf = torch.from_numpy(np.concatenate(parts) if raw is None else raw).to(dev)
+    got = arena.unpack(buf, specs)
+    torch.cuda.synchronize()
+    want = arena.unpack_plain(buf, specs)
+    assert all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
+    err = max_abs_err(got, want)
+    if raw is None:
+        err = max(err, max_abs_err(got, args_to_torch(host_arrays, dev)))
+    assert err == 0, f"arena_unpack disagrees with its plain version (max |d| {err})"
+    return dict(buf=buf, specs=specs, nbytes=nbytes, segments=len(specs), err=err)
+
+
+def adversarial_arrays(seed: int):
+    """Seeded arrays of every ARG_SPEC dtype with odd-sized bool tables in
+    front of int32/uint32 entries (unaligned offsets), and the packed bytes
+    with every bool byte redrawn from 0..255."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.cuda import arena
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(24):
+        shape = tuple(int(x) for x in rng.integers(1, 40, size=int(rng.integers(1, 4))))
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            out.append(rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(np.int32))
+        elif kind == 1:
+            out.append(rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32))
+        else:
+            out.append(rng.random(shape) < 0.5)
+        out.append(rng.random((2 * int(rng.integers(0, 40)) + 1,)) < 0.5)
+    parts, _, specs = arena.pack(out)
+    raw = np.concatenate(parts)
+    for off, shape, dstr in specs:
+        if dstr == "|b1":
+            nb = int(np.prod(shape))
+            raw[off : off + nb] = rng.integers(0, 256, size=nb, dtype=np.uint8)
+    return out, raw
+
+
+def ckpt_kernel_rows(checks, launches, ops_per_s, solves, phases):
+    """The K7 rows: each instance at its cell's shapes (fast at the surge,
+    zoned at config 3) with K=16, n=4 — its ring's bytes written beside
+    K1's traffic in the bound — and its resume at the suffix of the check,
+    with K1's time in the same call beside it."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
+    rows = []
+    for c, kname, k1name in ((checks["surge_K16"], KERNEL_NAMES[11], KERNEL_NAMES[0]),
+                             (checks["config3_K16"], KERNEL_NAMES[12], KERNEL_NAMES[1])):
+        ph = phases["surge" if c["name"] == "ffd_ckpt_fast_scan" else "config3"]
+        args, M, zone = ph["args"], ph["M"], ph["zone"]
+        kw = dict(max_claims=M, zone_engine=zone, ckpt_every=c["K"], n_ckpt=c["n"])
+        ms = time_ms(lambda: ffd.ffd_solve_ckpt(*args, **kw), 10)
+        k1_ms = time_ms(lambda: ffd.ffd_solve(*args, max_claims=M, zone_engine=zone), 10)
+        plain_ms = time_ms(lambda: ffd.ffd_solve_ckpt_plain(*args, **kw), 1)
+        dev_ms = profiled_ms(lambda: ffd.ffd_solve_ckpt(*args, **kw), 3, (kname,))
+        k1_dev_ms = profiled_ms(lambda: ffd.ffd_solve(*args, max_claims=M, zone_engine=zone), 3,
+                                (k1name,))
+        init, suffix = c["init"], c["suffix"]
+        resume = lambda: ffd.ffd_resume(init, *suffix, *args[2:], **kw)  # noqa: E731
+        resume_ms = time_ms(resume, 10)
+        resume_dev_ms = profiled_ms(resume, 3, (kname,))
+        written = int((c["ring"].prefix >= 0).sum())
+        ring_bytes = written * nbytes(*c["out"].state)
+        bytes1, ops1 = scan_cost(ph)
+        bms, by = bound(bytes1 + ring_bytes, ops1, ops_per_s)
+        Sp, Ep = c["out"].take_e.shape
+        rows.append(dict(
+            name=c["name"], route="cuda", source=src,
+            replaces="karpenter_tpu/solver/tpu/ffd.py:1975",
+            launches=launches[c["name"]], max_abs_err=max(c["err"], c["err_resume"]), ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None, match=True,
+            device_ms=dev_ms, launches_per_solve=launches[c["name"]] / solves[c["name"]],
+            k1_ms=k1_ms, k1_device_ms=k1_dev_ms, snapshots=written, ring_bytes_written=ring_bytes,
+            ring_bound_ms=ring_bytes / PEAK_BYTES_PER_S * 1e3, resume_ms=resume_ms,
+            resume_device_ms=resume_dev_ms, resume_k=c["k"], resume_Sp2=c["Sp2"],
+            also_replaces="karpenter_tpu/solver/tpu/ffd.py:2071 (ffd_resume)",
+            shape=dict(Sp=Sp, Ep=Ep, M=M, T=int(c["out"].state.c_mask.shape[1]), K=c["K"],
+                       n=c["n"]),
+            ops=ops1, bytes=bytes1 + ring_bytes))
+    return rows
+
+
+def unpack_kernel_row(check, err, launches, solves, ops_per_s):
+    """The K8 row at the surge's cold adopt (36 segments): bound by its
+    bytes read and written; the yardstick is one device-to-device copy_ of
+    the same bytes (labelled: it moves the bytes, it does not unpack)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import arena
+
+    buf, specs = check["buf"], check["specs"]
+    ms = time_ms(lambda: arena.unpack(buf, specs), 50)
+    dev_ms = profiled_ms(lambda: arena.unpack(buf, specs), 20, (KERNEL_NAMES[13],))
+    plain_ms = time_ms(lambda: arena.unpack_plain(buf, specs), 20)
+    dst = torch.empty_like(buf)
+    lib_ms = time_ms(lambda: dst.copy_(buf), 50)
+    moved = 2 * check["nbytes"]
+    bms, by = bound(moved, check["nbytes"], ops_per_s)
+    return dict(
+        name="arena_unpack", route="cuda", source="karpenter_tpu_torch/csrc/arena_kernels.cu",
+        replaces="karpenter_tpu/solver/arena.py:230", launches=launches["arena_unpack"],
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, library_call="torch.Tensor.copy_ device to device of the same bytes "
+        "(a yardstick: it moves the bytes, it does not unpack)",
+        match=err == 0, device_ms=dev_ms, launches_per_solve=launches["arena_unpack"] / solves,
+        shape=dict(nbytes=check["nbytes"], segments=check["segments"]), bytes=moved,
+        ops=check["nbytes"])
+
+
+RESUME_SOLVES = 20  # per cell: base, tail, base, ...
+
+
+def resume_phase(cells, plain):
+    """The arena-and-resume phase: per cell, TorchSolver() solves base and
+    tail alternately, RESUME_SOLVES times, beside a resume=False solver on
+    the same inputs. The reference planner (backend._plan_resume) resumes a
+    solve from the donor's ring slot covering the most runs inside the
+    shared prefix: every tail solve resumes from the base solve before it;
+    a base solve after a resumed tail has no checkpoint inside its prefix
+    (the resumed solve's ring covers only runs past its resume point) and
+    runs cold, harvesting the ring the next tail resumes from. Asserts
+    that, the runs skipped, decisions equal to the resume=False solver's and
+    the plain path's, and the resumed solves' uploads: the stale run entry
+    (one packed message) and the two suffix run arrays, nothing else."""
+    import statistics
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda.ffd import ARG_INDEX
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    run_idx = {ARG_INDEX["run_group"], ARG_INDEX["run_count"]}
+    out = {}
+    for name, (base, tail) in cells.items():
+        warm = tb.TorchSolver(max_claims=MAX_CLAIMS)
+        cold = tb.TorchSolver(max_claims=MAX_CLAIMS, resume=False)
+        rows = []
+        for i in range(RESUME_SOLVES):
+            inp = tail if i % 2 else base
+            before = (warm.stats["resume_solves"], warm.stats["resume_runs_skipped"])
+            t0 = time.perf_counter()
+            res = warm.solve(inp)
+            ms = (time.perf_counter() - t0) * 1e3
+            led, stale = dict(warm.ledger.solve), warm.arena.last_stale
+            t0 = time.perf_counter()
+            ref = cold.solve(inp)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            assert decisions(res) == decisions(ref), f"{name}[{i}]: resumed != resume=False"
+            rows.append(dict(i=i, tail=bool(i % 2), ms=ms, cold_ms=cold_ms,
+                             resumed=warm.stats["resume_solves"] - before[0],
+                             k=warm.stats["resume_runs_skipped"] - before[1], h2d=led,
+                             stale=list(stale)))
+            if i == 1:
+                last_res = res
+        # the tail's runs: all but the last are the base's; the base's cold
+        # ring covers what _ring_coverage says, the resume takes the most
+        S = len(encode(quantize_input(tail)).run_group)
+        Sp = warm._bucket(S, 16, 16)
+        k_want = max(c for c, _ in warm._ring_coverage(Sp, S, 0) if c <= S - 1)
+        Sp2 = warm._bucket(S - k_want, 16, 16)
+        for r in rows:
+            want_resume = r["tail"]
+            assert r["resumed"] == int(want_resume), (name, r)
+            if want_resume:
+                assert r["k"] == k_want, (name, r, k_want)
+                assert set(r["stale"]) <= run_idx and r["stale"], (name, r)
+                assert r["h2d"]["h2d_bytes"] == 4 * (len(r["stale"]) * Sp + 2 * Sp2), (name, r)
+                assert r["h2d"]["h2d_arrays"] == len(r["stale"]) + 2 and r["h2d"]["h2d_msgs"] == 3
+        assert decisions(last_res) == decisions(plain.solve(tail)), f"{name}: != the plain path"
+        resumed = [r["ms"] for r in rows if r["resumed"]]
+        cold_tail = [r["cold_ms"] for r in rows if r["tail"]]
+        harvest = [r["ms"] for r in rows[2:] if not r["tail"]]
+        out[name] = dict(
+            pods=len(tail.pods), S=S, Sp=Sp, k=k_want, suffix_runs=S - k_want, Sp2=Sp2,
+            resume_solves=warm.stats["resume_solves"],
+            resume_runs_skipped=warm.stats["resume_runs_skipped"],
+            resume_hit_rate=warm.resume_hit_rate,
+            resumed_p50_ms=statistics.median(resumed),
+            cold_tail_p50_ms=statistics.median(cold_tail),
+            harvest_base_p50_ms=statistics.median(harvest),
+            resumed_h2d=rows[-1]["h2d"] if rows[-1]["resumed"] else rows[-2]["h2d"],
+            cold_tail_h2d=dict(cold.ledger.solve),
+            arena_hit_rate=warm.ledger.arena_hit_rate, solves=rows)
+    return out
+
+
+def ptxas_report(report: str) -> dict:
+    """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
+    -v, for the scan instances (demangled by their template flags), the
+    verdict pack and the arena unpack."""
+    names = {"pack_verdicts_kernel": "pack_verdicts_kernel",
+             "arena_unpack_kernel": "arena_unpack_kernel"}
+    for flags in range(16):
+        bits = [(flags >> i) & 1 for i in range(4)]
+        mangled = "ffd_scan_kernelI" + "".join(f"Lb{b}E" for b in bits)
+        names[mangled] = "ffd_scan_kernel<" + ", ".join("true" if b else "false" for b in bits) + ">"
     out, current = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
             current = next((v for k, v in names.items() if k in line), None)
+            if current:
+                out[current] = {}
+        elif current and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[current]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[current]["spill_loads"] = int(words[len(words) - 1 - words[::-1].index("spill") - 2])
         elif current and "registers" in line:
             words = line.split()
             i = next(j for j, w in enumerate(words) if w.startswith("registers"))
-            out[current] = int(words[i - 1])
+            out[current]["registers"] = int(words[i - 1])
             current = None
     return out
 
@@ -1642,7 +2000,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
-    from karpenter_tpu_torch.solver.cuda import build, ffd
+    from karpenter_tpu_torch.solver.cuda import build
 
     t_start = time.perf_counter()
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
@@ -1659,7 +2017,7 @@ def main() -> int:
     for line in build.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
-    print(f"build: {build_s:.3f} s ({build.BUILD_LOG['library']})", flush=True)
+    print(f"build: {build_s:.3f} s ({build.BUILD_LOG['libraries']})", flush=True)
 
     # ---- phase 2: kernels vs plain versions at main-path shapes -------------------
     inputs = {
@@ -1693,6 +2051,28 @@ def main() -> int:
         zone_events.append(ph["events"])
     assert sum(e > 8 for e in zone_events) >= 4, zone_events  # beyond the closed forms
     print(f"kernels[zone x8]: max_abs_err=(0, 0, 0) events={zone_events}", flush=True)
+
+    # ---- phase 2d: K7 and K8 against their plain versions at main-path shapes --------
+    # K7 (the checkpointed scan, TorchSolver()'s default dispatch) at the surge
+    # (fast; a snapshot every 16 and every 4 steps) and at config 3 (zoned),
+    # also against K1's outputs and through a resume from its ring; K8 (the
+    # arena unpack) on the four cells' cold adopts (the config-5 universe's in
+    # config5_phase) and on seeded adversarial segment lists
+    ckpt = {}
+    for cell, K, n in (("surge", 16, 4), ("surge", 4, 4), ("config3", 16, 4)):
+        c = ckpt[f"{cell}_K{K}"] = ckpt_check(phases[cell], K, n)
+        print(f"ckpt[{cell} K={K} n={n}]: {c['name']} prefix={c['prefix']} resume k={c['k']} "
+              f"of S={c['S']} max_abs_err=({c['err']}, vs K1 {c['err_k1']}, resume "
+              f"{c['err_resume']})", flush=True)
+    unpack_checks = {cell: unpack_check(phases[cell]["host_args"], dev) for cell in inputs}
+    for seed in range(4):
+        arrays, raw = adversarial_arrays(seed)
+        unpack_checks[f"adversarial_{seed}"] = unpack_check(arrays, dev)
+        unpack_checks[f"adversarial_{seed}_bytes"] = unpack_check(arrays, dev, raw=raw)
+    k8_err = max(c["err"] for c in unpack_checks.values())
+    print("unpack: " + " ".join(f"{k}={v['nbytes']}B/{v['segments']}seg"
+                                for k, v in unpack_checks.items()) + f" max_abs_err={k8_err}",
+          flush=True)
 
     # ---- phase 2c: K6, the relax-ladder scan, against its plain version -------------
     # at the ladder cells' shapes (config3_soft through the zoned instance,
@@ -1742,14 +2122,16 @@ def main() -> int:
     print(json.dumps({"config5": c5["summary"]}), flush=True)
 
     # ---- phase 3: the main path through TorchSolver ---------------------------------
+    # TorchSolver() at its defaults (the arena, K7 with its ring); one
+    # arena=False solver (per-array uploads, K1) on surge_e2e and config 3
     TorchSolver = tb.TorchSolver
     solver = TorchSolver(max_claims=MAX_CLAIMS)
+    off = TorchSolver(max_claims=MAX_CLAIMS, arena=False)
     cold = {}
     for name, inp in {**inputs, **once}.items():  # warm: allocator, encode caches, uploads
         solver.solve(inp)
-        cold[name] = dict(solver.transfer.__dict__)
-    for k in ffd.LAUNCHES:
-        ffd.LAUNCHES[k] = 0
+        cold[name] = dict(solver.ledger.solve)
+    reset_launches()
     samples = {name: [] for name in inputs}
     results = {}
     transfer = {}
@@ -1762,13 +2144,15 @@ def main() -> int:
             samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
                                   list(watch.collections)))
             results[name] = res
-            transfer[name] = dict(solver.transfer.__dict__)
+            transfer[name] = dict(solver.ledger.solve)
     t0 = time.perf_counter()
     results["mixed"] = solver.solve(once["mixed"])
     mixed_ms = (time.perf_counter() - t0) * 1e3
-    transfer["mixed"] = dict(solver.transfer.__dict__)
+    transfer["mixed"] = dict(solver.ledger.solve)
     watch.close()
-    launches = dict(ffd.LAUNCHES)
+    res_off = {n: off.solve(inputs[n]) for n in ("surge_e2e", "config3")}
+    torch.cuda.synchronize()
+    launches = read_launches()
     for k in SINGLE_SOLVE_KERNELS:
         assert launches[k] > 0, f"kernel {k} never launched on the main path"
     plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
@@ -1782,7 +2166,18 @@ def main() -> int:
         res = results[name]
         assert len(res.placements) + len(res.errors) == PODS, name
         assert all(c.pod_uids for c in res.claims), name
-    print("decisions: equal to the plain path on every cell", flush=True)
+    for n, r in res_off.items():
+        assert decisions(r) == decisions(results[n]), f"{n}: arena=False decisions differ"
+    assert off.ledger.solve["h2d_msgs"] == off.ledger.solve["h2d_arrays"] > 0
+    ledger_line = dict(arena_hit_rate=solver.ledger.arena_hit_rate,
+                       upload_bytes_per_solve=solver.ledger.upload_bytes_per_solve,
+                       solves=solver.ledger.solves, outcomes=solver.ledger.outcomes,
+                       total=solver.ledger.total, arena=solver.arena.stats,
+                       resident_bytes=solver.arena.total_bytes(),
+                       arena_off=dict(surge_e2e_config3_last=dict(off.ledger.solve),
+                                      total=off.ledger.total))
+    print(json.dumps({"ledger": ledger_line}), flush=True)
+    print("decisions: equal to the plain path on every cell (arena=False too)", flush=True)
 
     # ---- phase 4: forced wide re-fetch ---------------------------------------------
     real_cap = tb.delta_capacity
@@ -1800,9 +2195,8 @@ def main() -> int:
     # the launch counts reset just before and read just after
     for name, inp in {**relax_inputs, "surge_pref": relax_once["surge_pref"]}.items():
         solver.solve(inp)  # warm
-        cold[name] = dict(solver.transfer.__dict__)
-    for k in ffd.LAUNCHES:
-        ffd.LAUNCHES[k] = 0
+        cold[name] = dict(solver.ledger.solve)
+    reset_launches()
     watch = GcWatch()
     samples.update({name: [] for name in relax_inputs})
     ladder_solves0 = solver.stats["ladder_solves"]
@@ -1814,17 +2208,17 @@ def main() -> int:
             samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
                                   list(watch.collections)))
             results[name] = res
-            transfer[name] = dict(solver.transfer.__dict__)
+            transfer[name] = dict(solver.ledger.solve)
             assert solver.stats["relax_dispatches"] == 1, solver.stats
     once_ms = {}
     for name, inp in relax_once.items():
         t0 = time.perf_counter()
         results[name] = solver.solve(inp)
         once_ms[name] = (time.perf_counter() - t0) * 1e3
-        transfer[name] = dict(solver.transfer.__dict__)
+        transfer[name] = dict(solver.ledger.solve)
         assert solver.stats["relax_dispatches"] == 1, (name, solver.stats)
     watch.close()
-    relax_launches = dict(ffd.LAUNCHES)
+    relax_launches = read_launches()
     ladder_solves = solver.stats["ladder_solves"] - ladder_solves0
     for k in RELAX_KERNELS:
         assert relax_launches[k] > 0, f"kernel {k} never launched on the relax path"
@@ -1856,20 +2250,44 @@ def main() -> int:
                      steady=transfer["relax_walk"])
     print(json.dumps({"relax_walk": walk_line}), flush=True)
 
+    # ---- phase 6: arena and resume ----------------------------------------------------
+    # surge_tail / config3_tail: the cell plus 1 250 replicas of its last
+    # run's pod; base and tail alternate through TorchSolver(), launch
+    # counts reset just before and read just after
+    tail_cells = {"surge_tail": (inputs["surge"], with_tail(inputs["surge"], 1250)),
+                  "config3_tail": (inputs["config3"], with_tail(inputs["config3"], 1250))}
+    reset_launches()
+    resume = resume_phase(tail_cells, plain)
+    torch.cuda.synchronize()
+    resume_launches = read_launches()
+    for k in RESUME_KERNELS:
+        assert resume_launches[k] > 0, f"kernel {k} never launched in the arena-and-resume phase"
+    resume_solves = 2 * RESUME_SOLVES * len(tail_cells)  # TorchSolver() and resume=False
+    print(json.dumps({"resume": {n: {k: v for k, v in r.items() if k != "solves"}
+                                 for n, r in resume.items()},
+                      "resume_launches": resume_launches}), flush=True)
+
     stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
     stages.update({name: ladder_breakdown(inp, 5, ladder[name]["M"], ladder[name]["zone"])
                    for name, inp in relax_inputs.items()})
-    cell_scan = {"surge": 0, "surge_e2e": 0, "config3": 1, "config4": 1, "config3_soft": 10}
+    cell_scan = {"surge": 11, "surge_e2e": 11, "config3": 12, "config4": 12, "config3_soft": 10}
     profiles = {name: device_profile(inp, KERNEL_NAMES[cell_scan[name]])
                 for name, inp in {**inputs, **relax_inputs}.items()}
     rows = (kernel_rows(phases["surge"], phases["config3"], launches, int_rate)
             + ladder_kernel_rows(ladder["surge_pref"], ladder["config3_soft"], relax_launches,
                                  int_rate)
-            + c5["rows"])
+            + c5["rows"]
+            + ckpt_kernel_rows(ckpt, launches, int_rate,
+                               {"ffd_ckpt_fast_scan": 2 * REPEATS,
+                                "ffd_ckpt_zoned_scan": 2 * REPEATS + 1}, phases)
+            + [unpack_kernel_row(unpack_checks["surge"], k8_err, resume_launches, resume_solves,
+                                 int_rate)])
     launches_per_solve = {k: launches[k] / n for k, n in (
-        ("ffd_fast_scan", 2 * REPEATS), ("ffd_zoned_scan", 2 * REPEATS + 1),
-        ("compact_takes", 4 * REPEATS + 1), ("claim_meta", 4 * REPEATS + 1))}
+        ("ffd_ckpt_fast_scan", 2 * REPEATS), ("ffd_ckpt_zoned_scan", 2 * REPEATS + 1),
+        ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
+        ("compact_takes", 4 * REPEATS + 3), ("claim_meta", 4 * REPEATS + 3))}
+    launches_per_solve["arena_unpack_resume_phase"] = resume_launches["arena_unpack"] / resume_solves
     launches_per_solve.update({k: relax_launches[k] / n for k, n in (
         ("ffd_ladder_fast_scan", 1), ("ffd_ladder_zoned_scan", REPEATS + 1))})
     launches_per_solve.update({f"{k}_relax": relax_launches[k] / ladder_solves
@@ -1897,7 +2315,13 @@ def main() -> int:
                            unplaced=len(results["surge_pref"].errors),
                            steady=transfer["surge_pref"]),
         "relax_walk": walk_line,
+        "resume": resume,
+        "ledger": ledger_line,
+        "unpack_checks": {k: dict(nbytes=v["nbytes"], segments=v["segments"])
+                          for k, v in unpack_checks.items()},
+        "ptxas": {k: v for k, v in ptxas_report(build.BUILD_LOG["ptxas"]).items()},
         "launches": launches,
+        "resume_launches": resume_launches,
         "relax_launches": relax_launches,
         "launches_per_solve": launches_per_solve,
         "claim_doublings": solver.stats["claim_doublings"],

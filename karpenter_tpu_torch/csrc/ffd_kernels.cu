@@ -8,23 +8,29 @@
 // argmax go to the lowest index, uint32 words are carried as raw bits.
 //
 // K1 ffd_scan      replaces karpenter_tpu/solver/tpu/ffd.py:1884 ffd_solve
-//                   (_ffd_scan :395): ffd_scan_kernel<false, false, false>
-//                   the fast branch (step_body.fast :605-855),
-//                   ffd_scan_kernel<true, false, false> adds the zoned branch
-//                   (step_body.zoned :860-1663, count_contrib :587).
+//                   (_ffd_scan :395): ffd_scan_kernel<false, false, false,
+//                   false> the fast branch (step_body.fast :605-855),
+//                   ffd_scan_kernel<true, false, false, false> adds the
+//                   zoned branch (step_body.zoned :860-1663, count_contrib
+//                   :587).
 // K2 compact_takes  replaces karpenter_tpu/solver/tpu/ffd.py:325 compact_takes.
 // K3 claim_meta     replaces karpenter_tpu/solver/tpu/ffd.py:358
 //                   compact_claim_meta plus the c_mask word pack of
 //                   karpenter_tpu/solver/backend.py:652-660.
 // K4 ffd_batched    replaces karpenter_tpu/solver/tpu/consolidate.py:57
 //                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE, true,
-//                   false>, one block per candidate-subset row.
+//                   false, false>, one block per candidate-subset row.
 // K5 pack_verdicts  replaces karpenter_tpu/solver/tpu/consolidate.py:291
 //                   _pack_verdicts.
 // K6 ffd_ladder     replaces karpenter_tpu/solver/tpu/ffd.py:2167
 //                   ffd_solve_ladder (step_ladder :1714-1800):
-//                   ffd_scan_kernel<ZONE, false, true>, the relax-ladder
-//                   cascade of attempts per run.
+//                   ffd_scan_kernel<ZONE, false, true, false>, the
+//                   relax-ladder cascade of attempts per run.
+// K7 ffd_ckpt       replaces karpenter_tpu/solver/tpu/ffd.py:1975
+//                   ffd_solve_ckpt and :2071 ffd_resume (step_ck
+//                   :1825-1850): ffd_scan_kernel<ZONE, false, false, true>,
+//                   K1's scan that also snapshots its whole carry into a
+//                   device-resident ring every K steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -182,6 +188,11 @@ struct ScanArgs {
   const int* run_ladder; int* out_take_e; int* out_take_c; int* out_leftover;
   int* attempts;
   int Lw;
+  // the checkpointed instances (CKPT=true, K7) only: the ring, one
+  // [n_ckpt, ...] array per FFDState field (FFDState order), and its
+  // prefix [n_ckpt]
+  unsigned char* ring[16]; int* ring_prefix;
+  int ck_every, n_ckpt;
 };
 
 // Row offset of run s in the [S, n] take tables. The batched and the ladder
@@ -1233,10 +1244,64 @@ __device__ __forceinline__ int next_run(const ScanArgs& a, Cascade& c, int s) {
   }
 }
 
+// K7: the loop increment of the checkpointed scan. Every path out of a
+// run's body reaches it (the padded run's and the zoned run's `continue`
+// too), so the step at position pos = s + 1 snapshots the whole carry into
+// ring slot ((pos / K) - 1) % n when pos % K == 0, padded steps included,
+// and records prefix[slot] = pos (ffd.py:1838-1846). Between a barrier that
+// makes the step's writes visible and one that keeps the next step from
+// writing a field before it is copied, the block copies each field (16 B
+// per thread where both ends are 16-byte aligned); the claim count is the
+// block's shared copy, which reaches *a.used only at the end. The zoned
+// event counter is not part of the carry and stays out. Identity (no code)
+// for CKPT=false.
+__device__ void block_copy(unsigned char* dst, const unsigned char* src, size_t n) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15u) == 0u) {
+    const size_t n16 = n >> 4;
+    for (size_t i = threadIdx.x; i < n16; i += NT)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+    for (size_t i = (n16 << 4) + threadIdx.x; i < n; i += NT) dst[i] = src[i];
+  } else {
+    for (size_t i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
+  }
+}
+
+template <bool CKPT>
+__device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, int s) {
+  if constexpr (CKPT) {
+    const int pos = s + 1;
+    if (pos % a.ck_every == 0) {
+      __syncthreads();
+      const size_t slot = (size_t)((pos / a.ck_every - 1) % a.n_ckpt);
+      const size_t E = a.E, M = a.M, T = a.T, R = a.R, Q = a.Q, W = a.W, P = a.P,
+                   V = a.V, Z = a.Z;
+      const unsigned char* src[16] = {
+          (const unsigned char*)a.e_cum, (const unsigned char*)a.c_cum, a.c_mask,
+          (const unsigned char*)a.c_zc_bits, (const unsigned char*)a.c_gbits,
+          (const unsigned char*)a.c_pool, nullptr, (const unsigned char*)a.p_usage,
+          (const unsigned char*)a.e_cm, (const unsigned char*)a.e_co,
+          (const unsigned char*)a.c_cm, (const unsigned char*)a.c_co,
+          (const unsigned char*)a.v_count, a.v_owner_z, (const unsigned char*)a.c_vm, a.c_vo};
+      const size_t nb[16] = {E * R * 4, M * R * 4, M * T, M * 4, M * W * 4, M * 4, 4,
+                             P * R * 4, E * Q * 4, E * Q * 4, M * Q * 4, M * Q * 4,
+                             V * Z * 4, V * Z, M * V * 4, M * V};
+#pragma unroll
+      for (int f = 0; f < 16; ++f)
+        if (f != 6) block_copy(a.ring[f] + slot * nb[f], src[f], nb[f]);
+      if (threadIdx.x == 0) {
+        reinterpret_cast<int*>(a.ring[6])[slot] = sh.used;
+        a.ring_prefix[slot] = pos;
+      }
+      __syncthreads();
+    }
+  }
+  return s;
+}
+
 // K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
-// subset row, from the prologue above) and K6 (LADDER=true: one solve, a
-// cascade of attempts per run)
-template <bool ZONE, bool BATCH, bool LADDER>
+// subset row, from the prologue above), K6 (LADDER=true: one solve, a
+// cascade of attempts per run) and K7 (CKPT=true: K1 with the snapshot ring)
+template <bool ZONE, bool BATCH, bool LADDER, bool CKPT>
 __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if constexpr (BATCH) batch_row_prologue(a);
   __shared__ RunShared sh;
@@ -1262,7 +1327,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   __syncthreads();
 
   Cascade cas;
-  for (int s = 0; s < a.S; s = next_run<LADDER>(a, cas, s)) {
+  for (int s = 0; s < a.S; s = next_run<LADDER>(a, cas, snapshot<CKPT>(a, sh, s))) {
     int g = a.run_group[s];
     int count = a.run_count[s];
     if constexpr (LADDER)
@@ -1787,9 +1852,9 @@ int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
   const bool zone = d[11] != 0;
   if (!scan_limits_ok(a, zone)) return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, false, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, false, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1814,9 +1879,9 @@ int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
   a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
   if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true, true, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, true, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, true, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, true, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1841,9 +1906,34 @@ int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
   a.take_c = a.take_e + a.E;
   a.leftover = a.take_c + a.M;
   if (zone)
-    ffd_scan_kernel<true, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, false, true, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, false, true, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K7. ptrs: as ffd_scan_launch (the 32 scan inputs, the carry — a fresh
+// state for ffd_solve_ckpt, clones of the checkpoint for ffd_resume —
+// take_e, take_c, leftover, events, scratch), then the ring's 16 fields
+// (FFDState order, each [n_ckpt, ...], zeroed) and its prefix [n_ckpt]
+// (-1); dims: as ffd_scan_launch, then ckpt_every and n_ckpt.
+int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 70) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52];
+  for (int f = 0; f < 16; ++f) a.ring[f] = (unsigned char*)p[53 + f];
+  a.ring_prefix = (int*)p[69];
+  const bool zone = d[11] != 0;
+  a.ck_every = d[12];
+  a.n_ckpt = d[13];
+  if (!scan_limits_ok(a, zone) || a.ck_every < 1 || a.n_ckpt < 1) return (int)cudaErrorInvalidValue;
+  if (zone)
+    ffd_scan_kernel<true, false, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  else
+    ffd_scan_kernel<false, false, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

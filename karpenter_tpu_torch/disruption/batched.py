@@ -42,6 +42,9 @@ from ..solver.cuda.consolidate import (
 )
 from ..solver.encode import UnpackableInput, encode, quantize_input
 
+# the argument arena's placement tag of the consolidation universe's buckets
+UNIVERSE_TAG = "consolidation-universe"
+
 
 @dataclasses.dataclass
 class SubsetVerdict:
@@ -219,10 +222,20 @@ class BatchedConsolidationEvaluator:
             return None  # Z*C > 32 — sequential path takes over
         check_kernel_limits(dims, host_args, enc.V > 0)
         v_count0_host = host_args[_V_COUNT0]
-        # upload the shared arrays once, through the solver's own upload:
-        # the provenance-tagged static arrays share device copies with
-        # single solves, and per-dispatch traffic is the batched axes only
-        args = self.solver._device_args(host_args, prov)
+        # upload the shared arrays once, so per-dispatch traffic is the
+        # batched axes only, never the constant universe. With the solver's
+        # argument arena the universe adopts INTO it: a re-prepare of a
+        # shape-identical universe uploads only stale entries as one packed
+        # buffer. The universe keys buckets of its own (UNIVERSE_TAG, where
+        # the JAX package keys them by its mesh sharding), so universe and
+        # single-solve buffers never share a bucket. Without the arena, the
+        # per-array upload shares the static arrays' device copies with
+        # single solves.
+        arena = getattr(self.solver, "arena", None)
+        if arena is not None:
+            args = arena.adopt(host_args, prov, sharding=UNIVERSE_TAG)
+        else:
+            args = self.solver._device_args(host_args, prov)
 
         id_to_e = {nid: e for e, nid in enumerate(enc.node_ids)}
         node_idx = {cid: id_to_e[nid] for cid, nid in candidate_node.items()

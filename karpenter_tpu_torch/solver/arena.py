@@ -1,0 +1,315 @@
+"""Device-resident argument arena with packed delta uploads: the port of
+karpenter_tpu/solver/arena.py.
+
+`ArgumentArena` keeps the kernel args device-resident per shape bucket.
+Each solve classifies every ARG_SPEC entry as fresh or stale:
+
+  1. provenance fast path — entries that are pure functions of the cached
+     encode core carry a token from `backend.host_kernel_args` (keyed on
+     `EncodedInput.core_rev`). Same token ⇒ same bytes, no hash, no upload.
+  2. content digest — everything else (node/pool-usage tensors, the run
+     split) is blake2b-hashed; equal digest ⇒ fresh. A token mismatch with
+     an equal digest (a rebuilt core with identical tables, as the relax
+     loop produces every iteration) refreshes the token and keeps the
+     resident buffer.
+
+The stale set packs into ONE contiguous uint8 host buffer at the JAX
+package's offsets (entries back to back, so an odd-sized bool table leaves
+the next int32 entry unaligned), crosses in ONE host→device copy, and ONE
+launch of the unpack kernel (solver/cuda/arena.py) slices it into freshly
+allocated typed tensors. An exact encode-cache hit therefore dispatches
+with ZERO uploads; a steady-state delta solve pays one packed message.
+Resident tensors are never written after their unpack (the scan clones its
+carry), so they are safe to reuse across dispatches, the overflow-retry
+redispatch included.
+
+`TransferLedger` counts every host→device and device→host byte per solve
+(and cumulatively), so tests assert the zero-upload / single-packed-upload
+invariants and equal the JAX ledger's counts on the same solves.
+
+Residency classes besides the args: the resume donor records
+(`put_checkpoint`, backend._plan_resume) and the relax ladder's rung tables
+(`put_ladder`, backend._ladder_arg). All die with their bucket on
+`invalidate()` or eviction.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+_LEDGER_FIELDS = ("h2d_bytes", "h2d_arrays", "h2d_msgs", "d2h_bytes", "d2h_msgs")
+
+
+class TransferLedger:
+    """Per-solve + cumulative host↔device transfer accounting.
+
+    `begin_solve()` opens a per-solve window (`.solve`); uploads/fetches
+    recorded inside it accumulate into `.total` as well. Adopt outcomes
+    (exact_hit / delta_upload / full_upload) count the arena's hit classes.
+    """
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.solves = 0
+        self.solve: Dict[str, int] = dict.fromkeys(_LEDGER_FIELDS, 0)
+        self.total: Dict[str, int] = dict.fromkeys(_LEDGER_FIELDS, 0)
+        self.outcomes: Dict[str, int] = {
+            "exact_hit": 0, "delta_upload": 0, "full_upload": 0
+        }
+
+    def begin_solve(self) -> None:
+        self.solves += 1
+        self.solve = dict.fromkeys(_LEDGER_FIELDS, 0)
+
+    def record_upload(self, nbytes: int, arrays: int, msgs: int = 1) -> None:
+        for k, v in (("h2d_bytes", nbytes), ("h2d_arrays", arrays), ("h2d_msgs", msgs)):
+            self.solve[k] += v
+            self.total[k] += v
+
+    def record_fetch(self, nbytes: int, msgs: int = 1) -> None:
+        for k, v in (("d2h_bytes", nbytes), ("d2h_msgs", msgs)):
+            self.solve[k] += v
+            self.total[k] += v
+
+    def record_adopt(self, outcome: str) -> None:
+        self.outcomes[outcome] += 1
+
+    @property
+    def upload_bytes_per_solve(self) -> float:
+        return self.total["h2d_bytes"] / self.solves if self.solves else 0.0
+
+    @property
+    def arena_hit_rate(self) -> float:
+        n = sum(self.outcomes.values())
+        return self.outcomes["exact_hit"] / n if n else 0.0
+
+    def end_solve(self) -> Dict[str, int]:
+        """Close the per-solve window: return its counters."""
+        return dict(self.solve)
+
+
+def _nbytes(obj) -> int:
+    """Byte size of one residency record: arrays and tensors by .nbytes,
+    containers recursively, scalars/metadata free."""
+    if isinstance(obj, np.ndarray):
+        return int(obj.nbytes)
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    if isinstance(obj, (bytes, bytearray)):
+        return len(obj)
+    nb = getattr(obj, "nbytes", None)  # torch.Tensor
+    return int(nb) if isinstance(nb, int) else 0
+
+
+def _digest(a: np.ndarray) -> bytes:
+    """Content digest of a host array (shape/dtype live in the bucket key)."""
+    return hashlib.blake2b(
+        np.ascontiguousarray(a).tobytes(), digest_size=16
+    ).digest()
+
+
+class ArgumentArena:
+    """Per-bucket device-resident kernel args with packed delta uploads.
+
+    A bucket is one padded shape signature ((shape, dtype) per ARG_SPEC
+    entry, plus a placement tag: the batched-consolidation universe keys
+    its own buckets with one, as the JAX package does through its mesh
+    sharding) — so a bucket's resident tensors are always shape-compatible
+    with its dispatches. Bounded LRU (adopt re-inserts the key on every
+    hit): the `max_buckets` cap and the optional `budget_bytes` byte budget
+    both evict whole cold buckets — every residency class at once — via
+    `_evict_bucket`.
+    """
+
+    def __init__(self, ledger: Optional[TransferLedger] = None, device="cuda",
+                 max_buckets: int = 4, budget_bytes: int = 0):
+        self.ledger = ledger if ledger is not None else TransferLedger()
+        self.device = device
+        self.max_buckets = max_buckets
+        # byte budget across EVERY residency class (0 = unbounded): when the
+        # accounted total exceeds it, whole cold buckets evict LRU-first —
+        # the evicted bucket's next solve pays one cold packed upload
+        self.budget_bytes = int(budget_bytes)
+        # bucket key -> {residency class -> accounted bytes}
+        self._bytes: Dict[tuple, Dict[str, int]] = {}
+        # bucket key -> [device tensors per entry, (token, digest) per entry]
+        self._buckets: Dict[tuple, list] = {}
+        # checkpoint residency class (backend._plan_resume): the bucket's
+        # newest solve's scan checkpoints; keyed on the SAME bucket key as
+        # the resident args, so a checkpoint is only offered to a dispatch
+        # whose shapes match the solve that produced it
+        self._ckpts: Dict[tuple, list] = {}
+        self.max_ckpts_per_bucket = 1
+        # relax-ladder residency class (backend._ladder_arg): per-bucket
+        # device-resident run_ladder tables, keyed on content digest
+        self._ladders: Dict[tuple, Tuple[bytes, object]] = {}
+        # ARG_SPEC indices the LAST adopt uploaded (() on an exact hit)
+        self.last_stale: tuple = ()
+        self.stats: Dict[str, int] = {
+            "adopts": 0, "exact_hits": 0, "delta_uploads": 0,
+            "full_uploads": 0, "invalidations": 0, "evictions": 0,
+        }
+
+    def invalidate(self) -> None:
+        """Drop every resident tensor + tag AND the checkpoints and ladder
+        tables. Safe to call any time: the next adopt pays one full packed
+        upload and the next solve runs cold."""
+        self._buckets.clear()
+        self._ckpts.clear()
+        self._ladders.clear()
+        self._bytes.clear()
+        self.last_stale = ()
+        self.stats["invalidations"] += 1
+
+    # -- byte accounting + budgeted eviction ---------------------------------
+
+    def total_bytes(self) -> int:
+        return sum(sum(cls.values()) for cls in self._bytes.values())
+
+    def _account(self, key: tuple, cls: str, nbytes: int) -> None:
+        self._bytes.setdefault(key, {})[cls] = int(nbytes)
+
+    def _evict_bucket(self, key: tuple) -> None:
+        """Drop EVERY residency class for one bucket key, so eviction never
+        strands a derived record whose donor args are gone."""
+        self._buckets.pop(key, None)
+        self._ckpts.pop(key, None)
+        for lk in [lk for lk in self._ladders if lk[0] == key]:
+            self._ladders.pop(lk, None)
+        self._bytes.pop(key, None)
+        self.stats["evictions"] += 1
+
+    def _enforce_budget(self, current_key: Optional[tuple] = None) -> None:
+        """Evict coldest-first (insertion order of `_buckets` = LRU) until
+        the accounted total fits the budget. `current_key` — the bucket the
+        in-flight dispatch holds references to — goes last, and only if it
+        alone still busts the budget (the caller's references keep its
+        tensors alive through the dispatch)."""
+        if self.budget_bytes <= 0:
+            return
+        while self.total_bytes() > self.budget_bytes:
+            victim = next((k for k in self._buckets if k != current_key), None)
+            if victim is None:
+                victim = next(
+                    (k for k in self._bytes if k != current_key),
+                    current_key if current_key in self._bytes else None)
+            if victim is None:
+                break
+            self._evict_bucket(victim)
+
+    def bucket_key(self, host_args: tuple, sharding=None, ns=None) -> tuple:
+        """Residency key for one dispatch's kernel args. `sharding` is a
+        placement tag (None for single solves); `ns` the tenant namespace
+        (None yields the 2-tuple)."""
+        shapes = tuple((a.shape, a.dtype.str) for a in host_args)
+        if ns is None:
+            return (shapes, sharding)
+        return (shapes, sharding, ns)
+
+    def put_checkpoint(self, key: tuple, record: dict) -> None:
+        """Record a solve's checkpoint set for its bucket (newest first,
+        bounded). Records die with the bucket on invalidate()."""
+        lst = self._ckpts.setdefault(key, [])
+        lst.insert(0, record)
+        del lst[self.max_ckpts_per_bucket:]
+        self._account(key, "ckpt", sum(_nbytes(r) for r in lst))
+        self._enforce_budget(key)
+
+    def get_checkpoints(self, key: tuple) -> list:
+        return self._ckpts.get(key, [])
+
+    def put_ladder(self, key: tuple, host_table: np.ndarray, dev) -> None:
+        """Record a bucket's device-resident relax-ladder table (one per
+        bucket and shape)."""
+        self._ladders[(key, host_table.shape)] = (_digest(host_table), dev)
+        self._account(key, "ladder", sum(
+            _nbytes(v[1]) for lk, v in self._ladders.items() if lk[0] == key))
+        self._enforce_budget(key)
+
+    def get_ladder(self, key: tuple, host_table: np.ndarray):
+        """The bucket's resident ladder table if its content matches, else
+        None (the caller uploads and re-records)."""
+        rec = self._ladders.get((key, host_table.shape))
+        if rec is None or rec[0] != _digest(host_table):
+            return None
+        return rec[1]
+
+    def context_signature(self, key: tuple, exclude: tuple = ()) -> Optional[tuple]:
+        """Content signature of the bucket's resident entries OUTSIDE
+        `exclude` (ARG_SPEC indices), read from the adopt tags. Two equal
+        signatures prove byte-identical non-excluded kernel args — the
+        node-table/core-identity leg of checkpoint prefix validity
+        (backend._plan_resume). None until the bucket is fully tagged."""
+        bkt = self._buckets.get(key)
+        if bkt is None:
+            return None
+        out = []
+        for i, t in enumerate(bkt[1]):
+            if i in exclude:
+                continue
+            if t is None:
+                return None
+            out.append(t[1])
+        return tuple(out)
+
+    def adopt(self, host_args: tuple, prov: tuple, sharding=None, ns=None) -> tuple:
+        """Return device-resident tensors matching `host_args`, uploading
+        only stale entries as ONE packed buffer. `prov` aligns with
+        `host_args` (backend.host_kernel_args): a hashable content-identity
+        token per entry, or None to force the digest path."""
+        from .cuda.arena import pack, upload_packed
+
+        self.stats["adopts"] += 1
+        key = self.bucket_key(host_args, sharding, ns=ns)
+        bkt = self._buckets.pop(key, None)
+        if bkt is None:
+            while len(self._buckets) >= self.max_buckets:
+                self._evict_bucket(next(iter(self._buckets)))
+            bkt = [[None] * len(host_args), [None] * len(host_args)]
+        # re-insert on EVERY adopt: dict order is the LRU order the budget
+        # enforcer and the bucket cap both evict from the front of
+        self._buckets[key] = bkt
+        self._account(key, "args", sum(int(a.nbytes) for a in host_args))
+        dev, tags = bkt
+        stale: List[int] = []
+        for i, a in enumerate(host_args):
+            tok = prov[i]
+            ent = tags[i]
+            if dev[i] is not None and ent is not None:
+                if tok is not None and ent[0] == tok:
+                    continue  # provenance proves content identity
+                dig = _digest(a)
+                if ent[1] == dig:
+                    # same bytes under a new token: keep the tensor
+                    tags[i] = (tok, dig)
+                    continue
+            else:
+                dig = _digest(a)
+            tags[i] = (tok, dig)
+            stale.append(i)
+        led = self.ledger
+        self.last_stale = tuple(stale)
+        if not stale:
+            self.stats["exact_hits"] += 1
+            led.record_adopt("exact_hit")
+            self._enforce_budget(key)
+            return tuple(dev)
+        # pack stale entries back to back into one byte buffer -> one copy
+        # to the device -> one unpack launch into typed tensors
+        parts, off, specs = pack([host_args[i] for i in stale])
+        new = upload_packed(parts, off, specs, self.device)
+        for j, i in enumerate(stale):
+            dev[i] = new[j]
+        full = len(stale) == len(host_args)
+        self.stats["full_uploads" if full else "delta_uploads"] += 1
+        led.record_upload(off, len(stale), msgs=1)
+        led.record_adopt("full_upload" if full else "delta_upload")
+        self._enforce_budget(key)
+        return tuple(dev)

@@ -1,11 +1,18 @@
 """The solver seam and the GPU backend: the port of
 karpenter_tpu/solver/backend.py for the provisioning solve.
 
-`TorchSolver` is the counterpart of `TPUSolver(arena=False)` with sparse
-constraint tables off, explain off, no mesh sharding, no cohort fusion and
-no resume: encode -> padded kernel args -> upload -> FFD scan, with the
-zoned event engine when the solve has zone/capacity-type domain sigs
-(solver/cuda/ffd.py) -> on-device delta compaction -> ONE fetch -> decode.
+`TorchSolver` is the counterpart of `TPUSolver()` at its defaults with
+sparse constraint tables off, explain off, no mesh sharding and no cohort
+fusion: encode -> padded kernel args -> upload through the argument arena
+(solver/arena.py: only stale entries, packed into one buffer, one copy,
+one unpack launch; an exact repeat uploads nothing) -> the checkpointed FFD
+scan, with the zoned event engine when the solve has zone/capacity-type
+domain sigs (solver/cuda/ffd.py ffd_solve_ckpt) -> on-device delta
+compaction -> ONE fetch -> decode. A solve whose run list shares a prefix
+with the bucket's previous solve replays only the suffix from a ring
+checkpoint or the previous final state (`_plan_resume`, ffd_resume) and
+stitches the prefix rows back in on the host. `arena=False` uploads per
+array and `resume=False` runs the plain scan, as in the JAX backend.
 
 Respect-mode preferences (ScheduleAnyway spreads, weighted pod
 (anti-)affinity, preferred node affinity; solver/relax.py) solve through
@@ -20,7 +27,6 @@ fallback solver. A later slice lifts one decline at a time.
 from __future__ import annotations
 
 import abc
-from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +37,7 @@ from ..api.objects import _POD_CACHE_KEYS
 from ..provisioning.scheduler import ClaimResult, SolverInput, SolverResult
 from ..scheduling.requirements import IN, Requirement, Requirements
 from ..utils.resources import Resources
+from .arena import ArgumentArena, TransferLedger
 from .cuda.ffd import ARG_INDEX
 from .encode import EncodedInput, UnpackableInput, _pod_signature, encode, quantize_input
 
@@ -467,16 +474,6 @@ class AsyncSolve:
         return self._result
 
 
-@dataclass
-class _Transfer:
-    """Bytes moved by the last solve, host to device and back."""
-
-    h2d_bytes: int = 0
-    h2d_arrays: int = 0
-    d2h_bytes: int = 0
-    d2h_fetches: int = 0
-
-
 def materialize_pods(order, items_map, level) -> list:
     """relax.materialize_pod over the ordered pods, pod p at rung level(p),
     pods without preferences as they are. Equal, pod by pod, to calling
@@ -624,9 +621,19 @@ class TorchSolver(Solver):
     """Tensorized FFD on the GPU (solver/cuda/ffd.py). `device=None` means
     "cuda" and raises when no GPU is present; `device="cpu"` runs the plain
     PyTorch versions of the kernels. `relax_ladder=False` serves
-    preferences through the host relax loop instead of the ladder scan."""
+    preferences through the host relax loop instead of the ladder scan.
 
-    def __init__(self, max_claims: int = 1024, device=None, relax_ladder: bool = True):
+    `arena` keeps the kernel args resident per shape bucket and uploads
+    only stale entries as one packed buffer (False: one upload per array);
+    `arena_budget_mb` > 0 bounds its residency. `resume` (forced off
+    without the arena) harvests a checkpoint ring every `ckpt_every` scan
+    steps into `ckpt_slots` slots on every cold dispatch and replays only
+    the run suffix of a later solve that shares a prefix with it. The
+    defaults are TPUSolver's."""
+
+    def __init__(self, max_claims: int = 1024, device=None, relax_ladder: bool = True,
+                 arena: bool = True, resume: bool = True, ckpt_every: int = 16,
+                 ckpt_slots: int = 4, arena_budget_mb: int = 0):
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -639,12 +646,36 @@ class TorchSolver(Solver):
         self.stats: Dict[str, int] = {
             "device_solves": 0, "wide_refetches": 0, "claim_doublings": 0,
             "ladder_solves": 0, "relax_dispatches": 0, "ladder_rungs_used": 0,
+            "resume_solves": 0, "resume_runs_skipped": 0,
         }
-        self.transfer = _Transfer()
-        # device copies of provenance-tagged static arrays (see
+        # every host->device and device->host byte, per solve and in all
+        self.ledger = TransferLedger()
+        self.arena: Optional[ArgumentArena] = (
+            ArgumentArena(self.ledger, device=dev,
+                          budget_bytes=max(0, int(arena_budget_mb)) * 1024 * 1024)
+            if arena else None
+        )
+        # the checkpoints are a residency class of the arena (they die with
+        # it on invalidate()), so resume requires the arena
+        self.resume = bool(resume) and arena
+        self.ckpt_every = max(1, int(ckpt_every))
+        self.ckpt_slots = max(1, int(ckpt_slots))
+        # arena=False: device copies of provenance-tagged static arrays (see
         # host_kernel_args): a solve over an unchanged encode core uploads
         # only its per-solve arrays
         self._dev_cache: Dict[tuple, torch.Tensor] = {}
+
+    def invalidate_arena(self) -> None:
+        """Drop every resident kernel-arg tensor AND the checkpoints (derived
+        state of the same solves). The next device solve pays one full
+        packed upload and runs cold."""
+        if self.arena is not None:
+            self.arena.invalidate()
+
+    @property
+    def resume_hit_rate(self) -> float:
+        """Fraction of device dispatches that resumed from a checkpoint."""
+        return self.stats["resume_solves"] / max(1, self.ledger.solves)
 
     @staticmethod
     def _bucket(n: int, mult: int, floor: int) -> int:
@@ -699,8 +730,10 @@ class TorchSolver(Solver):
     # -- host relax loop -------------------------------------------------------
 
     def _relax_dispatch(self, qinp, items_map, order, dropped):
-        """Materialize + encode + dispatch one relax iteration: (minp, enc,
-        finish), finish None when no pod is schedulable."""
+        """Materialize + encode + dispatch one relax iteration (through
+        _device_solve_async: it adopts, harvests and may resume like any
+        solve): (minp, enc, finish), finish None when no pod is
+        schedulable."""
         import dataclasses
 
         pods2 = materialize_pods(order, items_map, lambda p: dropped[p.meta.uid])
@@ -775,22 +808,32 @@ class TorchSolver(Solver):
             check_kernel_limits(dims, host_args, zone)
         except UnsupportedInput:
             return None
-        self.transfer = _Transfer()
-        args = self._device_args(host_args, prov)
-        dev_lad = self._ladder_arg(pad_ladder(ladder_rows, dims["Sp"]))
+        self.ledger.begin_solve()
+        args = self._upload(host_args, prov, enc2.tenant_id)
+        dev_lad = self._ladder_arg(host_args, pad_ladder(ladder_rows, dims["Sp"]),
+                                   enc2.tenant_id)
         n_orig = len(pods0)
         M0 = initial_claim_bucket(n_orig, self.max_claims)
-        flat_dev, unpack = self._dispatch(args, M0, n_orig, zone, ladder=dev_lad)
+        flat_dev, unpack, _, _ = self._dispatch(args, M0, n_orig, zone, ladder=dev_lad)
         return dict(enc=enc2, args=args, dev_lad=dev_lad, flat_dev=flat_dev, unpack=unpack,
                     dims=dims, M0=M0, n_orig=n_orig, zone=zone, rungs=rungs)
 
-    def _ladder_arg(self, lad_host: np.ndarray) -> torch.Tensor:
-        """Upload the run_ladder table (one array, counted in transfer)."""
+    def _ladder_arg(self, host_args, lad_host: np.ndarray, ns=None) -> torch.Tensor:
+        """Upload (or reuse) the run_ladder table: with the arena it is a
+        per-bucket residency class keyed by content, dropped by
+        invalidate() with the args and checkpoints."""
         from .convert import array_to_torch
 
+        key = None
+        if self.arena is not None:
+            key = self.arena.bucket_key(host_args, ns=ns)
+            dev = self.arena.get_ladder(key, lad_host)
+            if dev is not None:
+                return dev
         dev = array_to_torch(lad_host, self.device)
-        self.transfer.h2d_bytes += lad_host.nbytes
-        self.transfer.h2d_arrays += 1
+        self.ledger.record_upload(lad_host.nbytes, 1, msgs=1)
+        if key is not None:
+            self.arena.put_ladder(key, lad_host, dev)
         return dev
 
     def _ladder_finish(self, qinp: SolverInput, items_map, order, lad) -> SolverResult:
@@ -798,9 +841,12 @@ class TorchSolver(Solver):
         (claims past max_claims, a minValues violation) replays on the host
         relax loop, which raises UnsupportedInput where it cannot finish:
         the ladder only ever shortcuts the host loop."""
-        res = self._collect(lad["enc"], lad["dims"], lad["args"], lad["flat_dev"],
-                            lad["unpack"], lad["M0"], lad["n_orig"], lad["zone"],
-                            ladder=lad["dev_lad"])
+        try:
+            res = self._collect(lad["enc"], lad["dims"], lad["args"], lad["flat_dev"],
+                                lad["unpack"], lad["M0"], lad["n_orig"], lad["zone"],
+                                ladder=lad["dev_lad"])
+        finally:
+            self.ledger.end_solve()
         if res is not None and min_values_post_check(qinp, res):
             self.stats["device_solves"] += 1
             self.stats["ladder_solves"] += 1
@@ -812,33 +858,56 @@ class TorchSolver(Solver):
 
     # -- device path ----------------------------------------------------------
 
+    def _upload(self, host_args: tuple, prov: tuple, ns=None) -> tuple:
+        """The kernel args on the device: adopted by the arena (only stale
+        entries, one packed upload), or per array with arena=False."""
+        if self.arena is not None:
+            return self.arena.adopt(host_args, prov, ns=ns)
+        return self._device_args(host_args, prov)
+
     def _device_args(self, host_args: tuple, prov: tuple) -> tuple:
+        """Per-array upload (arena=False): one message per array not in
+        the static-array cache."""
         from .convert import array_to_torch
 
         out = []
-        tr = self.transfer
+        up_bytes = up_arrays = 0
         for a, tok in zip(host_args, prov):
             hit = self._dev_cache.get(tok) if tok is not None else None
             if hit is None:
                 hit = array_to_torch(a, self.device)
-                tr.h2d_bytes += a.nbytes
-                tr.h2d_arrays += 1
+                up_bytes += a.nbytes
+                up_arrays += 1
                 if tok is not None:
                     while len(self._dev_cache) >= 128:
                         self._dev_cache.pop(next(iter(self._dev_cache)))
                     self._dev_cache[tok] = hit
             out.append(hit)
+        self.ledger.record_upload(up_bytes, up_arrays, msgs=up_arrays)
         return tuple(out)
 
-    def _dispatch(self, args, M: int, total_pods: int, zone_engine: bool, ladder=None):
-        """Scan (the ladder scan when `ladder` holds a rung table) + output
-        packing. Returns (flat device buffer, unpack fn)."""
-        from .cuda.ffd import ffd_solve, ffd_solve_ladder
+    def _dispatch(self, args, M: int, total_pods: int, zone_engine: bool, ladder=None,
+                  harvest: bool = False):
+        """Scan + output packing: the ladder scan when `ladder` holds a rung
+        table, the checkpointed scan when `harvest` (and resume) asks for a
+        ring, else the plain scan. Returns (flat device buffer, unpack fn,
+        FFDOutput, CheckpointRing or None)."""
+        from .cuda.ffd import ffd_solve, ffd_solve_ckpt, ffd_solve_ladder
 
-        if ladder is None:
-            out = ffd_solve(*args, max_claims=M, zone_engine=zone_engine)
-        else:
+        ring = None
+        if ladder is not None:
             out = ffd_solve_ladder(ladder, *args, max_claims=M, zone_engine=zone_engine)
+        elif harvest and self.resume:
+            out, ring = ffd_solve_ckpt(*args, max_claims=M, zone_engine=zone_engine,
+                                       ckpt_every=self.ckpt_every, n_ckpt=self.ckpt_slots)
+        else:
+            out = ffd_solve(*args, max_claims=M, zone_engine=zone_engine)
+        flat_dev, unpack = self._pack_dispatch(out, total_pods)
+        return flat_dev, unpack, out, ring
+
+    def _pack_dispatch(self, out, total_pods: int):
+        """The dispatch's one packed output buffer (the claim delta) and
+        its host-side unpack, which re-fetches wide on overflow."""
         Sp, Ep = out.take_e.shape
         Mb, Tp = out.state.c_mask.shape
         Wm = (Tp + 31) // 32
@@ -905,8 +974,7 @@ class TorchSolver(Solver):
 
     def _fetch(self, flat_dev: torch.Tensor) -> np.ndarray:
         flat = flat_dev.cpu().numpy()
-        self.transfer.d2h_bytes += flat.nbytes
-        self.transfer.d2h_fetches += 1
+        self.ledger.record_fetch(flat.nbytes)
         return flat
 
     def _device_solve_async(self, enc: EncodedInput):
@@ -918,16 +986,29 @@ class TorchSolver(Solver):
         # the JAX backend (zone_engine=enc.V > 0)
         zone = enc.V > 0
         check_kernel_limits(dims, host_args, zone)
-        self.transfer = _Transfer()
-        args = self._device_args(host_args, prov)
+        # the ledger's per-solve window: every byte of this solve's upload
+        # and fetches (closed in finish)
+        self.ledger.begin_solve()
+        args = self._upload(host_args, prov, enc.tenant_id)
+        S = dims["S"]
         total_pods = int(sum(len(p) for p in enc.group_pods))
         # claim slots sized from the input, doubled on saturation; the
-        # redispatch reuses the uploaded args
+        # redispatch reuses the resident args
         M0 = initial_claim_bucket(total_pods, self.max_claims)
-        flat_dev, unpack = self._dispatch(args, M0, total_pods, zone)
+        plan = self._plan_resume(enc, host_args, M0, S)
+        if plan is not None:
+            flat_dev, unpack, out, ring = self._dispatch_resume(
+                enc, args, host_args, plan, M0, S, total_pods)
+        else:
+            flat_dev, unpack, out, ring = self._dispatch(
+                args, M0, total_pods, zone, harvest=True)
 
         def finish() -> SolverResult:
-            res = self._collect(enc, dims, args, flat_dev, unpack, M0, total_pods, zone)
+            try:
+                res = self._collect(enc, dims, args, flat_dev, unpack, M0, total_pods, zone,
+                                    plan=plan, out=out, ring=ring, host_args=host_args)
+            finally:
+                self.ledger.end_solve()
             if res is None:
                 raise UnsupportedInput(
                     f"the solve needs more than max_claims={self.max_claims} claims"
@@ -936,11 +1017,140 @@ class TorchSolver(Solver):
 
         return finish
 
+    # -- checkpointed-scan resume ----------------------------------------------
+
+    def _plan_resume(self, enc: EncodedInput, host_args, M0: int, S: int):
+        """The newest valid checkpoint for this dispatch, or None.
+
+        Prefix validity: (a) a record exists for the CURRENT arena bucket
+        (same padded shapes as the donor), (b) every non-run kernel arg is
+        byte-identical to the donor's (the arena's context signature), (c)
+        the donor and current run lists share a prefix of (snum, group,
+        count) triples, shorter than the whole list (an identical list is
+        the exact-hit cold path, which uploads nothing), (d) the donor's
+        claim bucket and zone-engine flag match this dispatch. The chosen
+        checkpoint covers the most runs within the common prefix; the
+        donor's final state (its whole run list) wins on pure appends."""
+        if not self.resume or self.arena is None:
+            return None
+        from . import encode_cache as ec
+
+        run_idx = (ARG_INDEX["run_group"], ARG_INDEX["run_count"])
+        key = self.arena.bucket_key(host_args, ns=enc.tenant_id)
+        recs = self.arena.get_checkpoints(key)
+        if not recs:
+            return None
+        rec = recs[0]
+        if rec["M"] != M0 or rec["zone_engine"] != (enc.V > 0):
+            return None
+        ctx = self.arena.context_signature(key, exclude=run_idx)
+        if ctx is None or ctx != rec["ctx_sig"]:
+            return None  # node/pool/core tables moved since the donor solve
+        cur = ec.run_identity(enc)
+        if not cur or len(cur) != S:
+            return None  # signatures not interned: prefixes not comparable
+        lcp = ec.run_lcp(rec["run_ident"], cur)
+        if lcp < 1 or lcp == len(cur) == len(rec["run_ident"]):
+            return None
+        if rec["final_covered"] <= lcp:
+            k, init = rec["final_covered"], rec["final_state"]
+        else:
+            cand = None
+            for covered, slot in rec["ring_covered"]:
+                if 1 <= covered <= lcp and (cand is None or covered > cand[0]):
+                    cand = (covered, slot)
+            if cand is None or rec["ring"] is None:
+                return None
+            k, slot = cand
+            init = type(rec["final_state"])(*(f[slot] for f in rec["ring"].states))
+        return {"k": k, "init": init, "rec": rec}
+
+    def _dispatch_resume(self, enc: EncodedInput, args, host_args, plan, M: int, S: int,
+                         total_pods: int):
+        """Dispatch only runs[k:] on top of the planned checkpoint: the
+        non-run args are the arena's resident tensors, and only the two
+        suffix run arrays cross. ffd_resume starts from copies of the
+        checkpoint, so the donor record stays intact."""
+        from .convert import array_to_torch
+        from .cuda.ffd import ffd_resume
+
+        k = plan["k"]
+        Sp2 = self._bucket(S - k, 16, 16)
+        sg = np.zeros((Sp2,), host_args[0].dtype)
+        sc = np.zeros((Sp2,), host_args[1].dtype)
+        sg[: S - k] = np.asarray(host_args[0])[k:S]
+        sc[: S - k] = np.asarray(host_args[1])[k:S]
+        dev_sg = array_to_torch(sg, self.device)
+        dev_sc = array_to_torch(sc, self.device)
+        self.ledger.record_upload(sg.nbytes + sc.nbytes, 2, msgs=2)
+        out, ring = ffd_resume(plan["init"], dev_sg, dev_sc, *args[2:], max_claims=M,
+                               zone_engine=enc.V > 0, ckpt_every=self.ckpt_every,
+                               n_ckpt=self.ckpt_slots)
+        flat_dev, unpack = self._pack_dispatch(out, total_pods)
+        return flat_dev, unpack, out, ring
+
+    def _ring_coverage(self, Sp: int, S_real: int, base: int):
+        """Which REAL-run prefix each ring slot covers, recomputed from the
+        slot schedule alone (step j*K writes slot (j-1) % n; the last write
+        wins; padded steps past S_real leave the state as it is, so a
+        checkpoint at position p covers min(p, S_real) real runs). The ring's
+        prefix is never fetched."""
+        K, n = self.ckpt_every, self.ckpt_slots
+        cov: Dict[int, int] = {}
+        for j in range(1, Sp // K + 1):
+            cov[(j - 1) % n] = base + min(j * K, S_real)
+        return sorted(((c, s) for s, c in cov.items()), reverse=True)
+
+    def _record_checkpoint(self, enc: EncodedInput, host_args, M: int, S: int, plan, out,
+                           ring, take_e_p, take_c_p, leftover_p) -> None:
+        """After a device solve, record its checkpoints as the bucket's
+        resume donor: run identity, the host-side take rows (a resumed
+        successor needs prefix rows it will not re-execute), and the
+        device-resident ring and final state (never fetched)."""
+        if not self.resume or self.arena is None or out is None:
+            return
+        from . import encode_cache as ec
+
+        ident = ec.run_identity(enc)
+        if not ident or len(ident) != S:
+            return
+        key = self.arena.bucket_key(host_args, ns=enc.tenant_id)
+        ctx = self.arena.context_signature(
+            key, exclude=(ARG_INDEX["run_group"], ARG_INDEX["run_count"])
+        )
+        if ctx is None:
+            return
+        if plan is not None:
+            base, suffix_real = plan["k"], S - plan["k"]
+            Sp_disp = self._bucket(suffix_real, 16, 16)
+        else:
+            base, suffix_real = 0, S
+            Sp_disp = int(host_args[0].shape[0])
+        self.arena.put_checkpoint(key, {
+            "run_ident": ident,
+            "take_e": np.asarray(take_e_p),
+            "take_c": np.asarray(take_c_p),
+            "leftover": np.asarray(leftover_p),
+            "M": M,
+            "zone_engine": enc.V > 0,
+            "ctx_sig": ctx,
+            "ring": ring,
+            "ring_covered": self._ring_coverage(Sp_disp, suffix_real, base),
+            "final_state": out.state,
+            "final_covered": S,
+        })
+
     def _collect(self, enc: EncodedInput, dims: dict, args, flat_dev, unpack, M0: int,
-                 total_pods: int, zone: bool, ladder=None) -> Optional[SolverResult]:
+                 total_pods: int, zone: bool, ladder=None, plan=None, out=None, ring=None,
+                 host_args=None) -> Optional[SolverResult]:
         """Fetch + decode one dispatch, doubling the claim bucket (a
-        redispatch on the uploaded args) while the solve fills it. None when
-        the solve needs more than max_claims claims."""
+        redispatch on the resident args) while the solve fills it. None when
+        the solve needs more than max_claims claims. A resumed dispatch
+        (`plan`) stitches the donor's prefix rows in front of its suffix
+        rows; one that saturated its claim slots no longer matches the
+        donor's M, so the retry replays cold. With `host_args` (a single
+        solve, not the ladder) the solve is recorded as the bucket's resume
+        donor."""
         S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
         Z, C = dims["Z"], dims["C"]
         M = M0
@@ -950,27 +1160,65 @@ class TorchSolver(Solver):
             used = int(f["used"])
             if used < M:
                 break
+            plan = None
             if M >= self.max_claims:
                 return None
             M = min(M * 2, self.max_claims)
             self.stats["claim_doublings"] += 1
-            fd, up = self._dispatch(args, M, total_pods, zone, ladder=ladder)
+            fd, up, out, ring = self._dispatch(args, M, total_pods, zone, ladder=ladder,
+                                               harvest=True)
             flat = self._fetch(fd)
         c_mask = _unpack_words(f["c_mask_words"], T)
         c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)
         c_gmask = _unpack_gmask(f["c_gbits"], G)
+        k = plan["k"] if plan is not None else 0
+        if plan is not None:
+            self.stats["resume_solves"] += 1
+            self.stats["resume_runs_skipped"] += k
         if "entries" in f:
-            # rung pours charge the base group's requests (relaxation drops
-            # preferences, never resources), so the c_cum rebuild over
-            # run_group is exact on the ladder too
+            # the take tables never crossed: a resumed dispatch splices the
+            # donor's recorded prefix rows in as triples (suffix runs shift
+            # by k). Rung pours charge the base group's requests (relaxation
+            # drops preferences, never resources), so the c_cum rebuild over
+            # run_group is exact on the ladder too.
             Ep_ = f["Ep"]
-            c_cum = _claim_cum_from_entries(enc, f["entries"], f["c_pool"], Ep_, M)
-            return decode_delta(enc, f["entries"], f["leftover"][:S], E, Ep_,
-                                c_mask, c_zone, c_ct, f["c_pool"], c_gmask,
-                                c_cum, used)
-        return decode(enc, f["take_e"][:S, :E], f["take_c"][:S],
-                      f["leftover"][:S], c_mask, c_zone, c_ct, f["c_pool"],
-                      c_gmask, f["c_cum"], used)
+            entries = f["entries"]
+            if plan is not None:
+                rec = plan["rec"]
+                entries = entries.astype(np.int64)
+                entries[:, 0] += k
+                entries = np.concatenate(
+                    [_entries_from_dense(rec["take_e"][:k], rec["take_c"][:k], Ep_), entries])
+            leftover = _stitch(plan, "leftover", f["leftover"], S)
+            c_cum = _claim_cum_from_entries(enc, entries, f["c_pool"], Ep_, M)
+            res = decode_delta(enc, entries, leftover, E, Ep_, c_mask, c_zone, c_ct,
+                               f["c_pool"], c_gmask, c_cum, used)
+            if host_args is not None and self.resume:
+                # the donor record stays dense: rebuild the rows
+                take_e, take_c = _dense_from_entries(entries, S, Ep_, M)
+                self._record_checkpoint(enc, host_args, M, S, plan, out, ring, take_e,
+                                        take_c, leftover)
+            return res
+        # the wide re-fetch: rows [0:k] are the donor record's, rows [k:S]
+        # this dispatch's; the final state needs no stitching
+        take_e = _stitch(plan, "take_e", f["take_e"], S)
+        take_c = _stitch(plan, "take_c", f["take_c"], S)
+        leftover = _stitch(plan, "leftover", f["leftover"], S)
+        res = decode(enc, take_e[:, :E], take_c, leftover, c_mask, c_zone, c_ct, f["c_pool"],
+                     c_gmask, f["c_cum"], used)
+        if host_args is not None:
+            self._record_checkpoint(enc, host_args, M, S, plan, out, ring, take_e, take_c,
+                                    leftover)
+        return res
+
+
+def _stitch(plan, name: str, rows: np.ndarray, S: int) -> np.ndarray:
+    """The S real rows of a fetched table: this dispatch's alone, or after a
+    resume the donor's first k rows followed by the suffix's S - k."""
+    if plan is None:
+        return rows[:S]
+    k = plan["k"]
+    return np.concatenate([plan["rec"][name][:k], rows[: S - k]])
 
 
 def _empty_result() -> SolverResult:
@@ -1093,6 +1341,37 @@ def _claim_cum_from_entries(enc: EncodedInput, entries: np.ndarray,
         g = enc.run_group[s[csel]].astype(np.int64)
         np.add.at(cum, m, v[csel, None] * enc.group_req[g].astype(np.int64))
     return cum.astype(np.int32)  # int64 -> int32 truncation == device wrap
+
+
+def _entries_from_dense(take_e: np.ndarray, take_c: np.ndarray, Ep: int) -> np.ndarray:
+    """Dense take rows -> (run, code, count) triples in the device coding
+    (claims offset by the PADDED node axis). Splices a resume donor's
+    recorded prefix rows into a delta-decoded suffix."""
+    rs, cs = np.nonzero(take_e)
+    rs2, cs2 = np.nonzero(take_c)
+    return np.concatenate(
+        [
+            np.stack([rs, cs, take_e[rs, cs]], axis=1),
+            np.stack([rs2, cs2 + Ep, take_c[rs2, cs2]], axis=1),
+        ]
+    ).astype(np.int64)
+
+
+def _dense_from_entries(entries: np.ndarray, S: int, Ep: int,
+                        Mb: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of the compaction for the checkpoint record: a resume donor
+    stores dense take rows."""
+    take_e = np.zeros((S, Ep), np.int32)
+    take_c = np.zeros((S, Mb), np.int32)
+    s = entries[:, 0].astype(np.int64)
+    cd = entries[:, 1].astype(np.int64)
+    v = entries[:, 2].astype(np.int64)
+    keep = s < S
+    s, cd, v = s[keep], cd[keep], v[keep]
+    node = cd < Ep
+    take_e[s[node], cd[node]] = v[node]
+    take_c[s[~node], cd[~node] - Ep] = v[~node]
+    return take_e, take_c
 
 
 def _decode_from_codes(

@@ -2,8 +2,10 @@
 
 Karpenter has no weights: what crosses between the JAX reference and the
 port is the encoded kernel arguments (host_kernel_args' numpy tuple, the
-same from either package) and the scan state. uint32 arrays travel into
-torch as int32 views of the same bits and come back as uint32.
+same from either package), the scan state and its checkpoint ring (a JAX
+FFDState or CheckpointRing read as numpy, so a resume can start from a
+JAX ring slot). uint32 arrays travel into torch as int32 views of the same
+bits and come back as uint32.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda.ffd import FFDOutput, FFDState
+from .cuda.ffd import CheckpointRing, FFDOutput, FFDState
 
 # FFDState fields that the JAX scan carries as uint32
 _U32_STATE = frozenset({"c_zc_bits", "c_gbits"})
@@ -25,7 +27,8 @@ def array_to_torch(a: np.ndarray, device) -> torch.Tensor:
         a = a.view(np.int32)
     elif a.dtype != np.bool_:
         a = a.astype(np.int32, copy=False)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # ascontiguousarray lifts a 0-d array to 1-d; the reshape keeps its shape
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(a.shape).to(device)
 
 
 def args_to_torch(host_args, device) -> tuple:
@@ -50,3 +53,22 @@ def output_to_numpy(out: FFDOutput) -> dict:
         "leftover": out.leftover.cpu().numpy(),
         "state": state_to_numpy(out.state),
     }
+
+
+def state_to_torch(state, device) -> FFDState:
+    """An FFDState of arrays (the JAX package's, or state_to_numpy's dict)
+    -> the port's FFDState on `device`."""
+    get = state.get if isinstance(state, dict) else (lambda n: getattr(state, n))
+    return FFDState(**{n: array_to_torch(np.array(get(n)), device) for n in FFDState._fields})
+
+
+def ring_to_torch(ring, device) -> CheckpointRing:
+    """A CheckpointRing of arrays (the JAX package's) -> the port's."""
+    return CheckpointRing(states=state_to_torch(ring.states, device),
+                          prefix=array_to_torch(np.array(ring.prefix), device))
+
+
+def ring_to_numpy(ring: CheckpointRing) -> dict:
+    """The port's CheckpointRing -> {states: {field: numpy}, prefix} with the
+    JAX dtypes."""
+    return {"states": state_to_numpy(ring.states), "prefix": ring.prefix.cpu().numpy()}

@@ -1,12 +1,13 @@
-"""Build and load the port's CUDA kernels (csrc/ffd_kernels.cu).
+"""Build and load the port's CUDA kernels (csrc/*.cu).
 
-nvcc compiles the source for sm_90a into a shared library with a plain C
-interface on first use; ctypes loads it. The library lands in
-build/karpenter_tpu_torch/ at the repository root, named by a hash of the
-source, so an edited source rebuilds and an unchanged one loads at once.
-ptxas's resource report (registers, spills per kernel) is kept beside the
-library and read into BUILD_LOG either way. A missing nvcc or a failed
-build raises.
+nvcc compiles each source for sm_90a into a shared library with a plain C
+interface on first use; ctypes loads it. One nvcc process per source, all
+started together, so the build takes as long as the slowest source. Each
+library lands in build/karpenter_tpu_torch/ at the repository root, named
+by a hash of its source, so an edited source rebuilds and an unchanged one
+loads at once. ptxas's resource report (registers, spills per kernel) is
+kept beside each library and read into BUILD_LOG either way. A missing nvcc
+or a failed build raises.
 """
 
 from __future__ import annotations
@@ -20,15 +21,27 @@ import time
 from pathlib import Path
 
 PKG_ROOT = Path(__file__).resolve().parents[2]
-SOURCE = PKG_ROOT / "csrc" / "ffd_kernels.cu"
+SOURCES = {
+    "ffd_kernels": PKG_ROOT / "csrc" / "ffd_kernels.cu",
+    "arena_kernels": PKG_ROOT / "csrc" / "arena_kernels.cu",
+}
+# the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
+LAUNCHERS = {
+    "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
+                    "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
+                    "ffd_ckpt_launch"),
+    "arena_kernels": ("arena_unpack_launch",),
+}
 BUILD_DIR = PKG_ROOT.parent / "build" / "karpenter_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIB = None
-BUILD_LOG = {"seconds": None, "ptxas": "", "library": None}
+_LIBS: dict = {}
+# seconds: wall time of the last build that compiled anything; ptxas: the
+# reports of every library, concatenated; libraries: name -> path
+BUILD_LOG = {"seconds": None, "ptxas": "", "libraries": {}}
 
 
 def _nvcc() -> str:
@@ -41,41 +54,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for this exact source exists."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"ffd_kernels_{tag}.so"
-    report = lib.with_suffix(".ptxas.txt")
-    if not lib.exists():
+def _library(name: str) -> Path:
+    tag = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{tag}.so"
+
+
+def build() -> dict:
+    """Compile every source whose library is missing, one nvcc each, all
+    running at once; returns {name: library path}."""
+    libs = {name: _library(name) for name in SOURCES}
+    missing = [name for name, lib in libs.items() if not lib.exists()]
+    if missing:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".ffd_kernels_{tag}.{os.getpid()}.so"
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        report.write_text(proc.stderr)
-        os.replace(tmp, lib)
+        procs = []
+        for name in missing:
+            lib = libs[name]
+            tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
+            err = open(lib.with_suffix(".ptxas.tmp"), "w")
+            procs.append((name, tmp, err, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.DEVNULL, stderr=err)))
+        failed = []
+        for name, tmp, err, proc in procs:
+            rc = proc.wait()
+            err.close()
+            report = libs[name].with_suffix(".ptxas.txt")
+            os.replace(err.name, report)
+            if rc != 0:
+                failed.append(f"{name} ({rc}):\n{report.read_text()}")
+            else:
+                os.replace(tmp, libs[name])
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         BUILD_LOG["seconds"] = time.perf_counter() - t0
-    BUILD_LOG.update(ptxas=report.read_text() if report.exists() else "",
-                     library=str(lib))
-    return lib
+    reports = [lib.with_suffix(".ptxas.txt") for lib in libs.values()]
+    BUILD_LOG.update(
+        ptxas="".join(r.read_text() for r in reports if r.exists()),
+        libraries={name: str(lib) for name, lib in libs.items()},
+    )
+    return libs
 
 
-def load():
-    """The loaded kernel library, built on first use."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build()))
+def load(name: str = "ffd_kernels"):
+    """The loaded kernel library `name` (a key of SOURCES), every library
+    built on first use."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    paths = build()
     ptrs, ints = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-    for name in ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
-                 "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+    for n, path in paths.items():
+        if n in _LIBS:
+            continue
+        cdll = ctypes.CDLL(str(path))
+        for fname in LAUNCHERS[n]:
+            fn = getattr(cdll, fname)
+            fn.argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LIBS[n] = cdll
+    return _LIBS[name]

@@ -33,6 +33,11 @@ leaves `leftover` intact.
 each run walks a cascade of attempts over its pre-materialized rung groups,
 every attempt one step of the scan above; its output also counts the
 attempts (`LadderOutput.attempts`).
+
+`ffd_solve_ckpt` is the scan that also snapshots its whole carry into a
+`CheckpointRing` every `ckpt_every` steps, and `ffd_resume` the same scan
+started from a snapshot over a run suffix (the JAX `ffd_solve_ckpt` /
+`ffd_resume`): the solver's default dispatch and its suffix replay.
 """
 
 from __future__ import annotations
@@ -131,6 +136,19 @@ class FFDOutput(NamedTuple):
     events: torch.Tensor  # scalar int32 — zoned-branch events of the solve
 
 
+class CheckpointRing(NamedTuple):
+    """Fixed-size ring of FFDState snapshots taken every `ckpt_every` scan
+    steps: each FFDState field stacked along a leading [n_ckpt] axis, and
+    `prefix[slot]`, the scan steps applied when the slot was written (-1:
+    never written). Step j·ckpt_every lands in slot (j-1) % n_ckpt, padded
+    steps included, so the host recomputes coverage from (Sp, ckpt_every,
+    n_ckpt) alone; padded steps leave the state as it is, so a snapshot at
+    position p covers min(p, S_real) real runs."""
+
+    states: FFDState  # each field: [n_ckpt, ...field shape]
+    prefix: torch.Tensor  # [n_ckpt] int32, -1 empty
+
+
 class LadderOutput(NamedTuple):
     """FFDOutput of the relax-ladder scan, plus its attempt count."""
 
@@ -154,11 +172,16 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # (ffd_batched_fast_scan) and <true, true> (ffd_batched_zoned_scan);
 # pack_verdicts is consolidate.pack_verdicts; the relax-ladder scan
 # (ffd_solve_ladder) is ffd_scan_kernel<false, false, true>
-# (ffd_ladder_fast_scan) and <true, false, true> (ffd_ladder_zoned_scan).
+# (ffd_ladder_fast_scan) and <true, false, true> (ffd_ladder_zoned_scan);
+# the checkpointed scan (ffd_solve_ckpt and ffd_resume) is
+# ffd_scan_kernel<false, false, false, true> (ffd_ckpt_fast_scan) and
+# <true, false, false, true> (ffd_ckpt_zoned_scan). Every other instance's
+# fourth flag is false.
 LAUNCHES = {
     "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
     "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
     "ffd_ladder_fast_scan": 0, "ffd_ladder_zoned_scan": 0,
+    "ffd_ckpt_fast_scan": 0, "ffd_ckpt_zoned_scan": 0,
 }
 
 I32 = torch.int32
@@ -208,6 +231,64 @@ def _state0(args, M: int) -> FFDState:
         c_vm=z(M, V),
         c_vo=torch.zeros((M, V), dtype=torch.bool, device=dev),
     )
+
+
+def _state_spec(args, M: int) -> dict:
+    """{field: (shape, dtype)} of the scan's carry for these arguments."""
+    a = dict(zip(ARG_SPEC, args))
+    E, R = a["node_free"].shape
+    T = a["group_compat_t"].shape[1]
+    W = a["group_pair_nok"].shape[1]
+    P = a["pool_type"].shape[0]
+    Q = a["q_kind"].shape[0]
+    V = a["v_kind"].shape[0]
+    Z = a["zone_col_mask"].shape[0]
+    B = torch.bool
+    return {
+        "e_cum": ((E, R), I32), "c_cum": ((M, R), I32), "c_mask": ((M, T), B),
+        "c_zc_bits": ((M,), I32), "c_gbits": ((M, W), I32), "c_pool": ((M,), I32),
+        "used": ((), I32), "p_usage": ((P, R), I32), "e_cm": ((E, Q), I32),
+        "e_co": ((E, Q), I32), "c_cm": ((M, Q), I32), "c_co": ((M, Q), I32),
+        "v_count": ((V, Z), I32), "v_owner_z": ((V, Z), B), "c_vm": ((M, V), I32),
+        "c_vo": ((M, V), B),
+    }
+
+
+def _resume_state(init_state, args, M: int) -> FFDState:
+    """Fresh copies of a checkpoint's fields, checked against the carry
+    these arguments give. The scan writes its carry in place, so a resume
+    never runs on the checkpoint's own tensors: the donor's record stays
+    intact for the next resume."""
+    spec = _state_spec(args, M)
+    dev = args[0].device
+    out = {}
+    for name, t in init_state._asdict().items():
+        shape, dtype = spec[name]
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(
+                f"init_state.{name}: expected {shape} {dtype} on {dev}, "
+                f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+        out[name] = t.clone(memory_format=torch.contiguous_format)
+    return FFDState(**out)
+
+
+def _ring0(state: FFDState, n_ckpt: int) -> CheckpointRing:
+    """A zeroed ring for `state`'s fields (as the JAX ring0) and prefix -1.
+    The fields are views of one zeroed byte buffer, each at a 16-byte
+    aligned offset: one fill for the whole ring."""
+    dev = state.e_cum.device
+    offs, total = [], 0
+    for t in state:
+        offs.append(total)
+        total += -(-(n_ckpt * t.numel() * t.element_size()) // 16) * 16
+    buf = torch.zeros((max(total, 16),), dtype=torch.uint8, device=dev)
+    fields = []
+    for t, off in zip(state, offs):
+        nb = n_ckpt * t.numel() * t.element_size()
+        fields.append(buf[off : off + nb].view(t.dtype).view((n_ckpt,) + tuple(t.shape)))
+    prefix = torch.full((n_ckpt,), -1, dtype=I32, device=dev)
+    return CheckpointRing(states=FFDState(*fields), prefix=prefix)
 
 
 # --- plain PyTorch version of the fast-branch scan -------------------------
@@ -1041,36 +1122,71 @@ def _step_plain(a, st, g: int, count: int, M: int, zone_engine: bool):
     return (*_fast_plain(a, st, r, M), 0)
 
 
-def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
-    """Plain PyTorch transcription of the JAX `ffd_solve` scan: per run, the
-    fast branch, or with `zone_engine` the domain event engine for runs
-    whose group owns a V-axis constraint or is a member of an anti sig."""
+def _scan_plain(args, state: FFDState, M: int, zone_engine: bool,
+                ckpt_every: int = 0, n_ckpt: int = 0):
+    """The scan from carry `state` (updated in place) over the run arrays
+    of `args`; with ckpt_every, n_ckpt >= 1 also the snapshot ring of step_ck
+    (ffd.py:1825-1850): step pos = i + 1 writes slot ((pos // K) - 1) %
+    n_ckpt when pos % K == 0, padded steps included, and records
+    prefix[slot] = pos. Returns (FFDOutput, CheckpointRing or None)."""
     a = dict(zip(ARG_SPEC, args))
-    st = _state0(args, max_claims)._asdict()
+    st = state._asdict()
     dev = a["node_free"].device
     E = a["node_free"].shape[0]
-    M = max_claims
     zero = torch.zeros((), dtype=I32, device=dev)
+    ring = _ring0(state, n_ckpt) if ckpt_every > 0 and n_ckpt > 0 else None
     events = 0
     takes_e, takes_c, lefts = [], [], []
-    for g, count in zip(a["run_group"].tolist(), a["run_count"].tolist()):
+    for i, (g, count) in enumerate(zip(a["run_group"].tolist(), a["run_count"].tolist())):
         if count <= 0:  # padded runs skip the body
             takes_e.append(torch.zeros((E,), dtype=I32, device=dev))
             takes_c.append(torch.zeros((M,), dtype=I32, device=dev))
             lefts.append(zero)
-            continue
-        te, tc, lo, n = _step_plain(a, st, g, count, M, zone_engine)
-        events += n
-        takes_e.append(te)
-        takes_c.append(tc)
-        lefts.append(lo)
-    return FFDOutput(
+        else:
+            te, tc, lo, n = _step_plain(a, st, g, count, M, zone_engine)
+            events += n
+            takes_e.append(te)
+            takes_c.append(tc)
+            lefts.append(lo)
+        pos = i + 1
+        if ring is not None and pos % ckpt_every == 0:
+            slot = (pos // ckpt_every - 1) % n_ckpt
+            for r, name in zip(ring.states, FFDState._fields):
+                r[slot] = st[name]
+            ring.prefix[slot] = pos
+    out = FFDOutput(
         take_e=torch.stack(takes_e),
         take_c=torch.stack(takes_c),
         leftover=torch.stack(lefts),
         state=FFDState(**st),
         events=torch.tensor(events, dtype=I32, device=dev),
     )
+    return out, ring
+
+
+def ffd_solve_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """Plain PyTorch transcription of the JAX `ffd_solve` scan: per run, the
+    fast branch, or with `zone_engine` the domain event engine for runs
+    whose group owns a V-axis constraint or is a member of an anti sig."""
+    return _scan_plain(args, _state0(args, max_claims), max_claims, zone_engine)[0]
+
+
+def ffd_solve_ckpt_plain(*args, max_claims: int, zone_engine: bool = False,
+                         ckpt_every: int = 16, n_ckpt: int = 4):
+    """Plain version of the JAX `ffd_solve_ckpt`: the cold scan plus its
+    checkpoint ring. Returns (FFDOutput, CheckpointRing)."""
+    return _scan_plain(args, _state0(args, max_claims), max_claims, zone_engine,
+                       ckpt_every, n_ckpt)
+
+
+def ffd_resume_plain(init_state: FFDState, *args, max_claims: int, zone_engine: bool = False,
+                     ckpt_every: int = 16, n_ckpt: int = 4):
+    """Plain version of the JAX `ffd_resume`: the scan over the suffix run
+    arrays of `args`, started from a copy of `init_state` (the carry after
+    the prefix), with a fresh, suffix-relative ring. Returns
+    (FFDOutput of the suffix, CheckpointRing)."""
+    return _scan_plain(args, _resume_state(init_state, args, max_claims), max_claims,
+                       zone_engine, ckpt_every, n_ckpt)
 
 
 def ffd_solve_ladder_plain(run_ladder, *args, max_claims: int,
@@ -1369,6 +1485,37 @@ def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
                         events=events, attempts=attempts)
 
 
+def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
+                        ckpt_every: int, n_ckpt: int):
+    """K7: ffd_solve_ckpt (init_state None: a fresh carry) or ffd_resume
+    (the carry starts as copies of init_state)."""
+    from .build import load
+
+    a = dict(zip(ARG_SPEC, args))
+    M = int(max_claims)
+    name = "ffd_ckpt_zoned_scan" if zone_engine else "ffd_ckpt_fast_scan"
+    Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
+    st = _state0(args, M) if init_state is None else _resume_state(init_state, args, M)
+    ring = _ring0(st, n_ckpt)
+    dev = a["node_free"].device
+    take_e = torch.empty((Sp, E), dtype=I32, device=dev)
+    take_c = torch.empty((Sp, M), dtype=I32, device=dev)
+    leftover = torch.empty((Sp,), dtype=I32, device=dev)
+    events = torch.zeros((), dtype=I32, device=dev)
+    scratch = torch.empty((scan_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
+    ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
+            + [take_e, take_c, leftover, events, scratch] + list(ring.states) + [ring.prefix])
+    rc = load().ffd_ckpt_launch(
+        _ptrs(ptrs), len(ptrs),
+        _ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), ckpt_every, n_ckpt]),
+        _stream(),
+    )
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    out = FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
+    return out, ring
+
+
 def _compact_takes_cuda(take_e, take_c, cap: int):
     from .build import load
 
@@ -1439,6 +1586,37 @@ def ffd_solve_ladder(run_ladder, *args, max_claims: int, zone_engine: bool = Fal
                                       zone_engine=zone_engine)
     return ffd_solve_ladder_plain(run_ladder, *args, max_claims=max_claims,
                                   zone_engine=zone_engine)
+
+
+def _check_ring_args(ckpt_every: int, n_ckpt: int):
+    if ckpt_every < 1 or n_ckpt < 1:
+        raise ValueError(f"ckpt_every={ckpt_every} and n_ckpt={n_ckpt} must be >= 1")
+
+
+def ffd_solve_ckpt(*args, max_claims: int, zone_engine: bool = False,
+                   ckpt_every: int = 16, n_ckpt: int = 4):
+    """The FFD scan that also harvests a device-resident checkpoint ring:
+    (FFDOutput, CheckpointRing)."""
+    _check_ring_args(ckpt_every, n_ckpt)
+    if args[0].is_cuda:
+        return _ffd_scan_ckpt_cuda(None, *args, max_claims=max_claims, zone_engine=zone_engine,
+                                   ckpt_every=ckpt_every, n_ckpt=n_ckpt)
+    return ffd_solve_ckpt_plain(*args, max_claims=max_claims, zone_engine=zone_engine,
+                                ckpt_every=ckpt_every, n_ckpt=n_ckpt)
+
+
+def ffd_resume(init_state: FFDState, *args, max_claims: int, zone_engine: bool = False,
+               ckpt_every: int = 16, n_ckpt: int = 4):
+    """Replay only a run suffix on top of checkpoint `init_state` (left
+    untouched): `args` carries the suffix run arrays. Returns (FFDOutput
+    of the suffix, a fresh suffix-relative CheckpointRing)."""
+    _check_ring_args(ckpt_every, n_ckpt)
+    if args[0].is_cuda:
+        return _ffd_scan_ckpt_cuda(init_state, *args, max_claims=max_claims,
+                                   zone_engine=zone_engine, ckpt_every=ckpt_every,
+                                   n_ckpt=n_ckpt)
+    return ffd_resume_plain(init_state, *args, max_claims=max_claims, zone_engine=zone_engine,
+                            ckpt_every=ckpt_every, n_ckpt=n_ckpt)
 
 
 def compact_takes(take_e, take_c, cap: int):

@@ -1,4 +1,5 @@
-# Port copy of karpenter_tpu/solver/encode_cache.py (resume/streaming run identities cut).
+# Port copy of karpenter_tpu/solver/encode_cache.py (the streaming run-table
+# events and the mesh-block run identities cut).
 """Incremental encode cache: delta-patch `_EncodeCore` instead of rebuilding.
 
 The control loop's dominant host cost at scale is re-deriving the encode
@@ -210,3 +211,37 @@ def adopt_vault_donor(key, structure, sig_seq, cat_fp, presort):
         sig_epoch=enc._SIG_EPOCH if interned else -1,
         core_rev=next_core_rev(),
     )
+
+
+# Run identity for checkpoint resume (backend._plan_resume): two scan steps
+# are the same step iff they have the same interned signature number (same
+# pod spec — group indices alone can be renumbered by a mid-list insert),
+# the same group index (the [G] tables are positional), and the same count.
+# Node-table identity (the "node-table revision" leg of the prefix rule) is
+# checked separately by the arena's context signature.
+
+
+def run_identity(enc) -> tuple:
+    """Tuple of (snum, group, count) per REAL run of `enc`, in scan order.
+    () when signatures were not interned (batch-local ids are not
+    comparable across solves — resume must not match on them)."""
+    snums = getattr(enc, "group_snums", ())
+    if not snums:
+        return ()
+    out = []
+    for g, c in zip(enc.run_group, enc.run_count):
+        g = int(g)
+        c = int(c)
+        if c <= 0:
+            break  # runs are front-packed; padding never precedes a real run
+        out.append((snums[g], g, c))
+    return tuple(out)
+
+
+def run_lcp(prev: tuple, cur: tuple) -> int:
+    """Longest common prefix length of two run_identity() tuples."""
+    n = min(len(prev), len(cur))
+    k = 0
+    while k < n and prev[k] == cur[k]:
+        k += 1
+    return k

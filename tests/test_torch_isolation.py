@@ -288,3 +288,88 @@ def test_relax_walk_builder_copy_pinned():
     assert [to_port(pl.requirements) for pl in rinp.nodepools] == [
         pl.requirements for pl in tinp.nodepools]
     _encode_pair_pinned(rinp, tinp)
+
+
+def test_port_arena_and_resume_load_no_jax():
+    """The arena, the checkpointed scan and a suffix resume, then a
+    universe adopted twice, in a fresh interpreter: still no jax and no
+    karpenter_tpu module."""
+    code = (
+        "import dataclasses, sys\n"
+        "from chip_smoke import build_input, build_config5_universe, with_tail\n"
+        "from karpenter_tpu_torch.solver.backend import TorchSolver\n"
+        "s = TorchSolver(device='cpu', arena=True, resume=True, ckpt_every=2, ckpt_slots=16)\n"
+        "base = build_input(2600)\n"
+        "s.solve(base)\n"
+        "res = s.solve(with_tail(base, 30))\n"
+        "assert len(res.placements) == 2630, len(res.placements)\n"
+        "assert s.stats['resume_solves'] == 1 and s.stats['resume_runs_skipped'] == 2, s.stats\n"
+        "assert s.ledger.solve['h2d_msgs'] == 3, s.ledger.solve\n"
+        "from karpenter_tpu_torch.disruption.batched import BatchedConsolidationEvaluator\n"
+        "ev = BatchedConsolidationEvaluator(s)\n"
+        "u = build_config5_universe(20, 10)\n"
+        "ev.prepare(*u); ev.prepare(*u)\n"
+        "assert s.arena.stats['exact_hits'] == 1, s.arena.stats\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
+        "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_solver_defaults_pinned():
+    """TorchSolver() defaults to TPUSolver()'s arena and resume settings."""
+    import inspect
+
+    tp = inspect.signature(tbackend.TorchSolver.__init__).parameters
+    jp = inspect.signature(jbackend.TPUSolver.__init__).parameters
+    for n in ("max_claims", "relax_ladder", "arena", "resume", "ckpt_every", "ckpt_slots",
+              "arena_budget_mb"):
+        assert tp[n].default == jp[n].default, n
+    t, j = tbackend.TorchSolver(device="cpu"), jbackend.TPUSolver()
+    assert (t.resume, t.ckpt_every, t.ckpt_slots) == (j.resume, j.ckpt_every, j.ckpt_slots)
+    assert (t.arena.max_buckets, t.arena.max_ckpts_per_bucket, t.arena.budget_bytes) == (
+        j.arena.max_buckets, j.arena.max_ckpts_per_bucket, j.arena.budget_bytes)
+    assert not tbackend.TorchSolver(device="cpu", arena=False).resume
+
+
+@pytest.mark.parametrize("K,n", [(1, 2), (2, 16), (3, 4), (16, 4)])
+def test_ring_coverage_pinned(K, n):
+    t = tbackend.TorchSolver(device="cpu", ckpt_every=K, ckpt_slots=n)
+    j = jbackend.TPUSolver(ckpt_every=K, ckpt_slots=n)
+    for Sp, S, base in ((16, 3, 0), (32, 24, 0), (48, 40, 0), (16, 8, 32), (32, 20, 4)):
+        assert t._ring_coverage(Sp, S, base) == j._ring_coverage(Sp, S, base)
+
+
+def test_run_identity_and_stitch_helpers_pinned():
+    """run_identity / run_lcp on the same encodes, and the dense<->entry
+    helpers of the resume stitch, equal their originals."""
+    from karpenter_tpu.solver import encode_cache as jec
+    from karpenter_tpu_torch.solver import encode_cache as tec
+
+    idents = []
+    for name in ("existing_nodes", "hostname_q_kinds", "config2_masks"):
+        je = jencode.encode(jencode.quantize_input(build(CASES[name], "karpenter_tpu")))
+        te = tencode.encode(tencode.quantize_input(build(CASES[name], "karpenter_tpu_torch")))
+        # interned signature numbers are process-local: compare (group, count)
+        # and the snum structure
+        ji, ti = jec.run_identity(je), tec.run_identity(te)
+        assert [x[1:] for x in ji] == [x[1:] for x in ti] and len(ji) == len(je.run_group)
+        idents.append(ti)
+    a = ((1, 0, 5), (2, 1, 4), (3, 2, 9))
+    for b in (a, a[:2], a[:2] + ((3, 2, 8),), ((9, 0, 5),) + a[1:], ()):
+        assert tec.run_lcp(a, b) == jec.run_lcp(a, b)
+    rng = np.random.default_rng(0)
+    for S, Ep, Mb in ((5, 8, 64), (12, 32, 128)):
+        te_ = np.where(rng.random((S, Ep)) < 0.2, rng.integers(1, 9, (S, Ep)), 0).astype(np.int32)
+        tc_ = np.where(rng.random((S, Mb)) < 0.05, rng.integers(1, 9, (S, Mb)), 0).astype(np.int32)
+        ent = tbackend._entries_from_dense(te_, tc_, Ep)
+        assert np.array_equal(ent, jbackend._entries_from_dense(te_, tc_, Ep))
+        for got, want in zip(tbackend._dense_from_entries(ent, S, Ep, Mb),
+                             jbackend._dense_from_entries(ent, S, Ep, Mb)):
+            assert np.array_equal(got, want)
+        assert np.array_equal(tbackend._dense_from_entries(ent, S, Ep, Mb)[0], te_)
