@@ -14,27 +14,42 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    equality (all outputs are integers), equal zoned event counts, a
    synchronize after each launch; then on small seeded fleets that reach
    the paths the 50k inputs do not (hostname constraints; the zoned
-   branch's eventful path, anti registration and preemption bound);
-3. solves the surge, the surge with 200 existing nodes, config 3 and
-   config 4 through TorchSolver() REPEATS times each, and the mixed input
-   once, with the launch counts reset just before and read just after;
-   every kernel must have launched, and the decisions must equal the
-   plain-version path's; each solve's garbage-collection pauses are
-   recorded beside its time;
+   branch's eventful path, anti registration and preemption bound; the
+   fleet of ROADMAP §C.1). Phase 2e holds the sparse instances (K1s, K7s:
+   ffd_scan_kernel<*, false, *, *, true>, built from
+   csrc/ffd_sparse_kernels.cu) against their plain versions and the dense
+   instances' outputs at the kernel arguments of config 3, mixed and the
+   wide-constraint fleet (zoned), the surge with its all-padding index
+   tables (fast, full width), small hostname and zone fleets, a hostname
+   fleet the "auto" gate takes, and index rows rewritten as supersets; K7s
+   resumes from its own ring and the dense K7's, K7 from K7s's; the dense
+   output pack (pack_outputs) word for word against its plain version;
+3. solves the surge, the surge with 200 existing nodes, config 3, config 4
+   and the wide-constraint fleet through TorchSolver() REPEATS times each,
+   and the mixed input MIXED_REPEATS times, with the launch counts reset
+   just before and read just after; TorchSolver() must take the sparse
+   scan on config 3, mixed and the wide-constraint fleet (every solve) and
+   on no other cell; a sparse="off" solver beside it on those three cells
+   and a device_decode=False solver (the dense output pack) on the surge
+   and config 3 must decide the same; every kernel must have launched, and
+   the decisions must equal the plain-version path's; each solve's
+   garbage-collection pauses are recorded beside its time;
 4. forces the wide re-fetch (a tiny delta capacity) and checks the
    decisions do not change;
 5. drives the relax path (Respect-mode preferences) through TorchSolver,
    with the launch counts reset just before and read just after: the
-   config3_soft cell (config 3 with ScheduleAnyway spreads) REPEATS times,
-   whose decisions must equal config 3's in one ladder dispatch each; the
+   config3_soft cell (config 3 with ScheduleAnyway spreads) SOFT_REPEATS
+   times, whose decisions must equal config 3's in one sparse ladder
+   dispatch (K6s zoned) each, and once through a sparse="off" solver; the
    surge_pref cell (every pod prefers zone-1b, the ladder scan's fast
    instance) and the relax walk (bench.py's ladder fleet at WALK_PODS pods,
    every pod after an app's first relaxes; 0 unplaced in one dispatch)
-   once each; then the host relax loop at 120 pods, which must equal the
-   ladder. K6 (the ladder scan, ffd_ladder_fast_scan and
-   ffd_ladder_zoned_scan) is held against its plain version in phase 2 at
-   the cells' shapes, on a 400-pod relax walk and on 8 seeded fleets that
-   mix every preference kind, through both instances.
+   once each; a small hostname-preference fleet through a sparse="on"
+   solver (K6s fast); then the host relax loop at 120 pods, which must
+   equal the ladder. K6 (the ladder scan, ffd_ladder_fast_scan and
+   ffd_ladder_zoned_scan) and K6s are held against their plain versions in
+   phase 2 at the cells' shapes, on a 400-pod relax walk and on 8 seeded
+   fleets that mix every preference kind, through both instances.
 
 6. arena and resume: the surge and config 3 each with 1 250 more replicas
    of their last run's pod (surge_tail, config3_tail) alternate with the
@@ -45,7 +60,8 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    skipped as the ring's coverage predicts), a base solve after it runs
    cold, every decision equals a resume=False solver's and the plain
    path's, and a resumed solve uploads the stale run entry (one packed
-   message) and the two suffix run arrays, nothing else. Before it (phase
+   message) and the two suffix run arrays, and on config3_tail (resumed
+   through K7s) the two suffix index arrays, nothing else. Before it (phase
    2d), K7 (ffd_ckpt_fast_scan at the surge with a snapshot every 16 and
    every 4 steps, ffd_ckpt_zoned_scan at config 3) is held against its plain
    version in every output, ring slot and prefix, against K1's outputs and
@@ -86,6 +102,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PODS = 50_000  # the headline surge
 NODES = 200  # existing nodes of the e2e cell
 REPEATS = 100  # timed solves per cell: enough samples for a p99
+DENSE_REPEATS = 20  # sparse="off" solves beside TorchSolver() on the sparse-gated cells
+MIXED_REPEATS = 3  # the mixed input (~1.7 s a solve), through both solvers
+SOFT_REPEATS = 20  # config3_soft (~1.3 s a solve)
 MAX_CLAIMS = 1024  # TorchSolver's default claim-slot ceiling
 WALK_PODS = 50_000  # the relax walk: every pod after an app's first relaxes
 
@@ -414,6 +433,27 @@ def build_mixed_input(num_pods: int = 50_000):
     return inp
 
 
+def build_constraint_wide_input(num_pods: int = 4_800, pods_per_app: int = 40):
+    """The wide-constraint fleet: one zone-spread sig per `pods_per_app`
+    pods, so V grows with the fleet (120 sigs at the default) while each
+    run touches exactly one: fleets of many small deployments, each
+    spreading over the zones (a copy of bench.py's
+    build_constraint_wide_input)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import TopologySpreadConstraint
+
+    inp = build_input(num_pods)
+    for i, p in enumerate(inp.pods):
+        app = f"wide-{i // pods_per_app}"
+        p.meta.labels["app"] = app
+        p.topology_spread = [
+            TopologySpreadConstraint(max_skew=1, topology_key=wk.ZONE_LABEL,
+                                     label_selector={"app": app})
+        ]
+        p.node_selector = {}
+    return inp
+
+
 def build_constrained_input(seed: int):
     """A small randomized fleet that reaches the scan paths the surge does
     not: hostname spread (Q kind 0), hostname anti-affinity (kind 1),
@@ -552,6 +592,97 @@ def build_zone_input(seed: int):
     return SolverInput(pods=pods, nodes=nodes,
                        nodepools=[pool("limited", 10, {"cpu": str(rng.choice([8, 16]))}), pool("any", 1)],
                        zones=("zone-1a", "zone-1b", "zone-1c"))
+
+
+def build_zone_fuzz_53_input():
+    """The smallest fleet on which the reference's zoned scan diverges from
+    its own oracle (ROADMAP §C.1; the port copies the reference): the
+    zone-fuzz draw of seed 53 (zone spreads on app=w, zone affinity on
+    svc=db, capacity-type spreads on tier=ct, one existing node holding two
+    tier=ct pods) without its draws 2, 9, 12, 19 and 21: 17 one-CPU pods.
+    tests/test_torch_isolation.py pins it to the tests' own fleet."""
+    import random
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import (
+        ObjectMeta, Pod, PodAffinityTerm, TopologySpreadConstraint,
+    )
+    from karpenter_tpu_torch.catalog.catalog import CatalogSpec, generate
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode, NodePoolSpec, SolverInput
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    zones, cts = ("zone-1a", "zone-1b", "zone-1c"), ("on-demand", "spot")
+    zk, ck = wk.ZONE_LABEL, wk.CAPACITY_TYPE_LABEL
+    rng = random.Random(3000 + 53)
+    drop = {2, 9, 12, 19, 21}
+    pods = []
+
+    def add(i, name, labels, cpu="1", tsc=(), aff=()):
+        if i in drop:
+            return
+        pods.append(Pod(
+            meta=ObjectMeta(name=name, uid=name, labels=dict(labels)),
+            requests=Resources.parse({"cpu": cpu, "memory": "1Gi"}),
+            topology_spread=[TopologySpreadConstraint(max_skew=k, topology_key=key,
+                                                      label_selector=dict(sel))
+                             for k, key, sel in tsc],
+            affinity_terms=[PodAffinityTerm(label_selector=dict(sel), topology_key=key, anti=anti)
+                            for sel, key, anti in aff]))
+
+    for i in range(rng.randrange(8, 26)):
+        k, name = rng.random(), f"p{i:03d}"
+        if k < 0.35:
+            add(i, name + "000", {"app": "w"}, tsc=[(1, zk, {"app": "w"})])
+        elif k < 0.6:
+            add(i, name + "000", {"tier": "ct"}, tsc=[(rng.choice([1, 2]), ck, {"tier": "ct"})])
+        elif k < 0.75:
+            add(i, name + "000", {"svc": "db"}, aff=[({"svc": "db"}, zk, False)])
+        elif k < 0.85:
+            lock = {"lock": f"k{i % 3}"}
+            add(i, name + "000", lock, aff=[(lock, ck, True)])
+        else:
+            add(i, name, {}, cpu=rng.choice(["500m", "1", "2"]))
+    nodes = []
+    for j in range(rng.randrange(0, 5)):
+        zone, ct = rng.choice(zones), rng.choice(cts)
+        labels = [rng.choice([{"app": "w"}, {"tier": "ct"}])] * rng.randrange(0, 3)
+        free = Resources.parse({"cpu": "8", "memory": "32Gi"})
+        free["pods"] = 110
+        nodes.append(ExistingNode(
+            id=f"n{j}", labels={zk: zone, ck: ct, wk.ARCH_LABEL: "amd64", wk.OS_LABEL: "linux",
+                                wk.HOSTNAME_LABEL: f"n{j}"},
+            taints=[], free=free, pod_labels=[dict(x) for x in labels]))
+    pool = NodePoolSpec(
+        name="default", weight=0,
+        requirements=Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, ["default"])),
+        taints=[], instance_types=generate(CatalogSpec()), limits=Resources.parse({}))
+    return SolverInput(pods=pods, nodes=nodes, nodepools=[pool], zones=zones)
+
+
+def build_hostname_wide_input(apps: int = 9, replicas: int = 3):
+    """A small fleet whose hostname axis is wide enough for the sparse
+    gate: `apps` hostname anti-affinity deployments (one sig each, Q = apps
+    >= 8) and filler pods, no zone-axis sig: TorchSolver()'s default
+    ("auto") takes the sparse scan's fast instance on it."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod, PodAffinityTerm
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    inp = build_input(24)
+    pods = list(inp.pods)
+    for a in range(apps):
+        sel = {"app": f"h{a}"}
+        for j in range(replicas):
+            name = f"h{a}-{j}"
+            pods.append(Pod(
+                meta=ObjectMeta(name=name, uid=name, labels=dict(sel)),
+                requests=Resources.parse({"cpu": "500m", "memory": "512Mi"}),
+                affinity_terms=[PodAffinityTerm(label_selector=dict(sel),
+                                                topology_key=wk.HOSTNAME_LABEL, anti=True)]))
+    import dataclasses
+
+    return dataclasses.replace(inp, pods=pods)
 
 
 def build_config5_universe(n_nodes: int = 10_000, n_candidates: int = 2_000):
@@ -1075,9 +1206,10 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     level-0 and ghost materializations (ladder_pods: materialize_pod over
     every pod and rung), the encode with the ghost rungs, the rung table
     and kernel arguments, their upload through an arena (cold on the first
-    pass, exact hits after; the resident rung table apart), the device
-    work (K6 at the solve's final claim bucket M + compaction, CUDA
-    events), the one fetch, and the rest of a full solve (decode,
+    pass, exact hits after; the resident rung table and sparse index
+    tables apart), the device work (K6, or K6s where the gate takes the
+    union index tables, at the solve's final claim bucket M + compaction,
+    CUDA events), the one fetch, and the rest of a full solve (decode,
     canonicalization, bookkeeping)."""
     import dataclasses
     import statistics
@@ -1090,7 +1222,12 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     from karpenter_tpu_torch.solver.arena import ArgumentArena
     from karpenter_tpu_torch.solver.convert import array_to_torch
     from karpenter_tpu_torch.solver.cuda import ffd
-    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+    from karpenter_tpu_torch.solver.encode import (
+        encode,
+        quantize_input,
+        sparse_run_tables,
+        use_sparse_constraints,
+    )
 
     names = ("quantize", "relax_plan", "order", "materialize", "encode", "rung_table",
              "upload", "rung_upload", "device", "fetch", "solve")
@@ -1113,6 +1250,8 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
                                         tb.TorchSolver._bucket)
         host_args, dims, prov = tb.host_kernel_args(enc2, tb.TorchSolver._bucket)
         lad_host = tb.pad_ladder(rows, dims["Sp"])
+        gated = use_sparse_constraints(enc2)
+        sp_host = sparse_run_tables(enc2, dims["Sp"], run_ladder=rows) if gated else None
         t.append(time.perf_counter())
         args = arena.adopt(host_args, prov)
         torch.cuda.synchronize()
@@ -1122,11 +1261,19 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
         if lad is None:
             lad = array_to_torch(lad_host, "cuda")
             arena.put_ladder(key, lad_host, lad)
+        if gated:
+            sp = arena.get_sparse(key, enc2.core_rev, *sp_host)
+            if sp is None:
+                sp = tuple(array_to_torch(x, "cuda") for x in sp_host)
+                arena.put_sparse(key, enc2.core_rev, *sp_host, sp)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = ffd.ffd_solve_ladder(lad, *args, max_claims=M, zone_engine=zone)
+        if gated:
+            out = ffd.ffd_solve_ladder_sparse(lad, *sp, *args, max_claims=M, zone_engine=zone)
+        else:
+            out = ffd.ffd_solve_ladder(lad, *args, max_claims=M, zone_engine=zone)
         Sp, Ep = out.take_e.shape
         flat = tb._pack_outputs_delta(out, tb.delta_capacity(len(pods0), Sp, Ep, M),
                                       tb.delta_uniq_capacity(Sp, M))
@@ -1163,21 +1310,28 @@ def decisions(res):
 
 def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     """Median ms of the solve's stages, run one after another as the solver
-    runs them: host encode, host kernel-arg padding, the upload (an arena
-    adopt: cold on the first pass, an exact hit after), the device work
-    (the checkpointed scan at the solve's final claim bucket M +
-    compaction, CUDA events), the one fetch, and the host decode and
-    bookkeeping (rest_ms: a full solve minus the stages)."""
+    runs them: host encode, host kernel-arg padding (and the sparse index
+    tables where the gate takes them), the upload (an arena adopt: cold on
+    the first pass, an exact hit after; the resident index tables apart),
+    the device work (the checkpointed scan, or its sparse twin, at the
+    solve's final claim bucket M + compaction, CUDA events), the one fetch,
+    and the host decode and bookkeeping (rest_ms: a full solve minus the
+    stages)."""
     import statistics
 
     import torch
 
     from karpenter_tpu_torch.solver import backend as tb
-    from karpenter_tpu_torch.solver.arena import ArgumentArena
-    from karpenter_tpu_torch.solver.cuda import ffd
-    from karpenter_tpu_torch.solver.encode import encode, quantize_input
-
     from karpenter_tpu_torch.solver import relax
+    from karpenter_tpu_torch.solver.arena import ArgumentArena
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import (
+        encode,
+        quantize_input,
+        sparse_run_tables,
+        use_sparse_constraints,
+    )
 
     names = ("quantize", "relax_plan", "encode", "kernel_args", "upload", "device", "fetch", "solve")
     stages = {k: [] for k in names}
@@ -1191,15 +1345,26 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
         t0 = time.perf_counter()
         enc = encode(qinp)
         t1 = time.perf_counter()
-        host_args, _, prov = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+        host_args, dims, prov = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+        gated = use_sparse_constraints(enc)
+        sp_host = sparse_run_tables(enc, dims["Sp"]) if gated else None
         t2 = time.perf_counter()
         args = arena.adopt(host_args, prov)
+        if gated:
+            key = arena.bucket_key(host_args)
+            sp = arena.get_sparse(key, enc.core_rev, *sp_host)
+            if sp is None:
+                sp = tuple(array_to_torch(t, "cuda") for t in sp_host)
+                arena.put_sparse(key, enc.core_rev, *sp_host, sp)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         total = int(sum(len(p) for p in enc.group_pods))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out, _ring = ffd.ffd_solve_ckpt(*args, max_claims=M, zone_engine=zone)
+        if gated:
+            out, _ring = ffd.ffd_solve_ckpt_sparse(*sp, *args, max_claims=M, zone_engine=zone)
+        else:
+            out, _ring = ffd.ffd_solve_ckpt(*args, max_claims=M, zone_engine=zone)
         Sp, Ep = out.take_e.shape
         flat = tb._pack_outputs_delta(out, tb.delta_capacity(total, Sp, Ep, M),
                                       tb.delta_uniq_capacity(Sp, M))
@@ -1219,24 +1384,37 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     return med
 
 
-KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false>",
-                "ffd_scan_kernel<true, false, false, false>",
+KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false, false>",
+                "ffd_scan_kernel<true, false, false, false, false>",
                 "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
-                "meta_finish_kernel", "ffd_scan_kernel<false, true, false, false>",
-                "ffd_scan_kernel<true, true, false, false>", "pack_verdicts_kernel",
-                "ffd_scan_kernel<false, false, true, false>",
-                "ffd_scan_kernel<true, false, true, false>",
-                "ffd_scan_kernel<false, false, false, true>",
-                "ffd_scan_kernel<true, false, false, true>", "arena_unpack_kernel")
-# phase 3: TorchSolver() at its defaults (K7, K2, K3; its uploads are exact
-# hits after the warm-up) and one arena=False solver (K1 in both instances)
+                "meta_finish_kernel", "ffd_scan_kernel<false, true, false, false, false>",
+                "ffd_scan_kernel<true, true, false, false, false>", "pack_verdicts_kernel",
+                "ffd_scan_kernel<false, false, true, false, false>",
+                "ffd_scan_kernel<true, false, true, false, false>",
+                "ffd_scan_kernel<false, false, false, true, false>",
+                "ffd_scan_kernel<true, false, false, true, false>", "arena_unpack_kernel",
+                # the sparse instances (14-19) and the dense output pack (20)
+                "ffd_scan_kernel<false, false, false, false, true>",
+                "ffd_scan_kernel<true, false, false, false, true>",
+                "ffd_scan_kernel<false, false, true, false, true>",
+                "ffd_scan_kernel<true, false, true, false, true>",
+                "ffd_scan_kernel<false, false, false, true, true>",
+                "ffd_scan_kernel<true, false, false, true, true>",
+                "pack_outputs_kernel")
+# phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
+# K2, K3; its uploads are exact hits after the warm-up), one arena=False
+# solver (K1 and K1s in both instances) and one device_decode=False solver
+# (the dense output pack)
 SINGLE_SOLVE_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_zoned_scan", "ffd_fast_scan",
-                        "ffd_zoned_scan", "compact_takes", "claim_meta")
-RELAX_KERNELS = ("ffd_ladder_fast_scan", "ffd_ladder_zoned_scan", "compact_takes", "claim_meta")
-# the arena-and-resume phase: K7 cold and resumed, K8 on every delta upload,
-# K1 through the resume=False solver it is held to
-RESUME_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_zoned_scan", "arena_unpack", "ffd_fast_scan",
-                  "ffd_zoned_scan", "compact_takes", "claim_meta")
+                        "ffd_zoned_scan", "compact_takes", "claim_meta",
+                        "ffd_ckpt_sparse_fast_scan", "ffd_ckpt_sparse_zoned_scan",
+                        "ffd_sparse_fast_scan", "ffd_sparse_zoned_scan", "pack_outputs")
+RELAX_KERNELS = ("ffd_ladder_fast_scan", "ffd_ladder_zoned_scan", "ffd_ladder_sparse_zoned_scan",
+                 "ffd_ladder_sparse_fast_scan", "compact_takes", "claim_meta")
+# the arena-and-resume phase: K7 cold and resumed (K7s on config3_tail), K8
+# on every delta upload, K1 through the resume=False solver it is held to
+RESUME_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_sparse_zoned_scan", "arena_unpack",
+                  "ffd_fast_scan", "ffd_sparse_zoned_scan", "compact_takes", "claim_meta")
 
 
 def reset_launches():
@@ -1335,18 +1513,25 @@ class PlainOnCard:
     def __enter__(self):
         from karpenter_tpu_torch.solver.cuda import arena, ffd
 
-        def ckpt_plain(init_state, *args, **kw):
-            if init_state is None:
-                return ffd.ffd_solve_ckpt_plain(*args, **kw)
-            return ffd.ffd_resume_plain(init_state, *args, **kw)
+        def solve_plain(*args, sparse=None, **kw):
+            return ffd._scan_plain(args, ffd._state0(args, kw["max_claims"]), kw["max_claims"],
+                                   kw.get("zone_engine", False), sparse=sparse)[0]
+
+        def ckpt_plain(init_state, *args, sparse=None, **kw):
+            st = (ffd._state0(args, kw["max_claims"]) if init_state is None
+                  else ffd._resume_state(init_state, args, kw["max_claims"]))
+            return ffd._scan_plain(args, st, kw["max_claims"], kw["zone_engine"],
+                                   kw["ckpt_every"], kw["n_ckpt"], sparse=sparse)
 
         self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
-                      ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, arena._unpack_cuda)
-        ffd._ffd_solve_cuda = ffd.ffd_solve_plain
+                      ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda,
+                      ffd._pack_outputs_cuda, arena._unpack_cuda)
+        ffd._ffd_solve_cuda = solve_plain
         ffd._compact_takes_cuda = ffd.compact_takes_plain
         ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
         ffd._ffd_solve_ladder_cuda = ffd.ffd_solve_ladder_plain
         ffd._ffd_scan_ckpt_cuda = ckpt_plain
+        ffd._pack_outputs_cuda = ffd.pack_outputs_plain
         arena._unpack_cuda = arena.unpack_plain
         return self
 
@@ -1354,7 +1539,8 @@ class PlainOnCard:
         from karpenter_tpu_torch.solver.cuda import arena, ffd
 
         (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
-         ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, arena._unpack_cuda) = self.saved
+         ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, ffd._pack_outputs_cuda,
+         arena._unpack_cuda) = self.saved
 
 
 CONFIG5_NODES = 10_000  # BASELINE config 5
@@ -1764,6 +1950,152 @@ def ckpt_check(ph, K: int, n: int):
                 Sp2=Sp2, prefix=prefix, out=out, ring=ring, init=init, suffix=suffix)
 
 
+def sparse_tables(enc, Sp: int, dev, run_ladder=None):
+    """The run-major index tables of `enc`'s solve (encode.sparse_run_tables,
+    as the backend builds them) on `dev`."""
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.encode import sparse_run_tables
+
+    sq, sv = sparse_run_tables(enc, Sp, run_ladder=run_ladder)
+    return array_to_torch(sq, dev), array_to_torch(sv, dev)
+
+
+def superset_tables(sp, Q: int, V: int, seed: int):
+    """The index rows rewritten as supersets: each row's columns in random
+    slots of a row 8 wider, -1 interleaved, plus up to two columns the row
+    did not list (decision-identical: a non-member column is neutral)."""
+    import random
+
+    import torch
+
+    rng = random.Random(seed)
+    out = []
+    for t, n_cols in zip(sp, (Q, V)):
+        rows = t.cpu().tolist()
+        width = t.shape[1] + 8
+        new = torch.full((t.shape[0], width), -1, dtype=torch.int32)
+        for i, row in enumerate(rows):
+            cols = [c for c in row if c >= 0]
+            extra = [c for c in rng.sample(range(n_cols), min(n_cols, 4)) if c not in cols][:2]
+            vals = cols + extra
+            for slot, c in zip(rng.sample(range(width), len(vals)), vals):
+                new[i, slot] = c
+        out.append(new.to(t.device))
+    return tuple(out)
+
+
+def sparse_check(ph, dev, K: int = 16, n: int = 4, resume: bool = True):
+    """K1s and K7s (the sparse scan instances, the one `ph`'s solve picks)
+    against their plain versions at `ph`'s shapes with the encode's index
+    tables: every output, ring slot and prefix, zoned event counts; and
+    against the dense K1's outputs (ph["out"]). With `resume`: K7s from
+    its own ring slot against the plain sparse resume, K7s from the dense
+    K7's ring and K7 from K7s's ring, each ending at the cold carry, every
+    checkpoint left untouched. The plain sparse scan runs once: its
+    outputs are K1s's reference too."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args, M, zone = ph["args"], ph["M"], ph["zone"]
+    sp = sparse_tables(ph["enc"], ph["dims"]["Sp"], dev)
+    kw = dict(max_claims=M, zone_engine=zone, ckpt_every=K, n_ckpt=n)
+    out = ffd.ffd_solve_sparse(*sp, *args, max_claims=M, zone_engine=zone)
+    cout, cring = ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pout, pring = ffd.ffd_solve_ckpt_sparse_plain(*sp, *args, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    tag = "zoned" if zone else "fast"
+    err1 = max_abs_err(_scan_outputs(out), _scan_outputs(pout))
+    assert err1 == 0, f"ffd_sparse_{tag}_scan disagrees with its plain version (max |d| {err1})"
+    err7 = max_abs_err(_scan_outputs(cout) + [*cring.states, cring.prefix],
+                       _scan_outputs(pout) + [*pring.states, pring.prefix])
+    assert err7 == 0, f"ffd_ckpt_sparse_{tag}_scan disagrees with its plain version ({err7})"
+    err_dense = max_abs_err(_scan_outputs(out), _scan_outputs(ph["out"]))
+    assert err_dense == 0, f"ffd_sparse_{tag}_scan disagrees with the dense K1 ({err_dense})"
+    res = dict(name=f"ffd_sparse_{tag}_scan", K=K, n=n, err=err1, err_ckpt=err7,
+               err_dense=err_dense, events=int(out.events), plain_once_s=plain_s, sp=sp,
+               Kq=int(sp[0].shape[1]), Kv=int(sp[1].shape[1]), out=out, cout=cout, cring=cring)
+    S = int((args[1] > 0).sum())
+    prefix = cring.prefix.cpu().tolist()
+    slots = [i for i, p in enumerate(prefix) if 1 <= p < S]
+    if not resume or not slots:
+        return res
+    slot = max(slots, key=lambda i: prefix[i])
+    k = prefix[slot]
+    Sp2 = tb.TorchSolver._bucket(S - k, 16, 16)
+    suffix = [torch.zeros(Sp2, dtype=torch.int32, device=dev) for _ in range(2)]
+    idx = [torch.full((Sp2, t.shape[1]), -1, dtype=torch.int32, device=dev) for t in sp]
+    for dst, src in zip(suffix + idx, (args[0], args[1], *sp)):
+        dst[: S - k] = src[k:S]
+    dout, dring = ffd.ffd_solve_ckpt(*args, **kw)
+    inits = {"sparse": ffd.FFDState(*(f[slot] for f in cring.states)),
+             "dense": ffd.FFDState(*(f[slot] for f in dring.states))}
+    before = {name: [t.clone() for t in st] for name, st in inits.items()}
+    r_s, rr_s = ffd.ffd_resume_sparse(inits["sparse"], *idx, *suffix, *args[2:], **kw)
+    torch.cuda.synchronize()
+    pr, prr = ffd.ffd_resume_sparse_plain(inits["sparse"], *idx, *suffix, *args[2:], **kw)
+    err_r = max_abs_err(_scan_outputs(r_s) + [*rr_s.states, rr_s.prefix],
+                        _scan_outputs(pr) + [*prr.states, prr.prefix])
+    assert err_r == 0, f"ffd_ckpt_sparse_{tag}_scan resume disagrees with the plain resume ({err_r})"
+    r_sd, _ = ffd.ffd_resume_sparse(inits["dense"], *idx, *suffix, *args[2:], **kw)
+    r_ds, _ = ffd.ffd_resume(inits["sparse"], *suffix, *args[2:], **kw)
+    torch.cuda.synchronize()
+    err_x = max(max_abs_err(list(r.state), list(cout.state)) for r in (r_s, r_sd, r_ds))
+    assert err_x == 0, f"a resume across ring forms differs from the cold carry ({err_x})"
+    for name, st in inits.items():
+        assert max_abs_err(list(st), before[name]) == 0, "a resume wrote into its checkpoint"
+    res.update(err_resume=err_r, err_cross=err_x, k=k, S=S, Sp2=Sp2, init=inits["sparse"],
+               suffix=suffix, idx=idx)
+    return res
+
+
+def sparse_ladder_check(ph, dev):
+    """K6s against its plain version and the dense K6's outputs (ph, from
+    ladder_phase) with the union index tables the backend builds."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    S_orig = len(ph["enc"].run_group)
+    sp = sparse_tables(ph["enc"], ph["dims"]["Sp"], dev,
+                       run_ladder=ph["lad"].cpu().numpy()[:S_orig])
+    kw = dict(max_claims=ph["M"], zone_engine=ph["zone"])
+    out = ffd.ffd_solve_ladder_sparse(ph["lad"], *sp, *ph["args"], **kw)
+    torch.cuda.synchronize()
+    ref = ffd.ffd_solve_ladder_sparse_plain(ph["lad"], *sp, *ph["args"], **kw)
+    fields = lambda o: [o.take_e, o.take_c, o.leftover, o.events, o.attempts, *o.state]  # noqa: E731
+    err = max_abs_err(fields(out), fields(ref))
+    name = f"ffd_ladder_sparse_{'zoned' if ph['zone'] else 'fast'}_scan"
+    assert err == 0, f"{name} disagrees with its plain version (max |d| {err})"
+    err_dense = max_abs_err(fields(out), fields(ph["out"]))
+    assert err_dense == 0, f"{name} disagrees with the dense K6 ({err_dense})"
+    return dict(name=name, err=err, err_dense=err_dense, sp=sp, out=out,
+                attempts=int(out.attempts))
+
+
+def pack_check(out, big: bool = False):
+    """The dense output pack against its plain version, word for word, on
+    `out`; with `big` one take set past 65535 (the overflow flag)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    take_e = out.take_e
+    if big:
+        take_e = take_e.clone()
+        take_e.view(-1)[-1] = 70_000
+    got = ffd.pack_outputs(take_e, out.take_c, out.leftover, out.state)
+    torch.cuda.synchronize()
+    want = ffd.pack_outputs_plain(take_e, out.take_c, out.leftover, out.state)
+    err = max_abs_err([got], [want])
+    assert err == 0 and int(got[0]) == int(big), f"pack_outputs disagrees with its plain version ({err})"
+    return dict(err=err, words=int(got.numel()), flag=int(got[0]))
+
+
 def unpack_check(host_arrays, dev, raw=None):
     """K8 against its plain version (both on the card) on the arena's
     packing of `host_arrays` (`raw`: the packed bytes to use instead),
@@ -1861,6 +2193,142 @@ def ckpt_kernel_rows(checks, launches, ops_per_s, solves, phases):
     return rows
 
 
+def sparse_scan_cost(ph, sp):
+    """scan_cost of `ph`'s solve through the sparse instance: its index
+    tables read once besides the other inputs, and on every fast run the
+    hostname allowance over the row's valid Q columns (a compare and a min)
+    at each node row and each claim open before the run, and the V-count
+    recording over its valid V columns per domain column (Kq / Kv of this
+    run's data in place of Q / V). Returns (bytes, ops)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    b, ops = scan_cost(ph)
+    args, out = ph["args"], ph["out"]
+    Ep = out.take_e.shape[1]
+    Z = args[ffd.ARG_INDEX["zone_col_mask"]].shape[0]
+    used = int(out.state.used)
+    first_run = (out.take_c.cpu()[:, :used] > 0).to(torch.int32).argmax(dim=0)
+    v_owner = args[ffd.ARG_INDEX["v_owner"]].cpu()
+    v_anti = args[ffd.ARG_INDEX["v_member"]].cpu() & (args[ffd.ARG_INDEX["v_kind"]].cpu() == 1)
+    nq, nv = (sp[0].cpu() >= 0).sum(dim=1), (sp[1].cpu() >= 0).sum(dim=1)
+    for s_, (g, cnt) in enumerate(zip(args[0].cpu().tolist(), args[1].cpu().tolist())):
+        if cnt <= 0 or (ph["zone"] and bool(v_owner[g].any() | v_anti[g].any())):
+            continue
+        ops += (Ep + int((first_run < s_).sum())) * int(nq[s_]) * 2 + int(nv[s_]) * Z
+    return b + nbytes(*sp), ops
+
+
+def sparse_kernel_rows(checks, lchecks, phases, ladder, launches, relax_launches, ops_per_s):
+    """The rows of the sparse instances (K1s and K7s fast at the surge's
+    shapes with its all-padding tables, zoned at config 3's; K6s zoned at
+    config3_soft's, fast at surge_pref's), each with the dense instance's
+    time in the same call beside it (dense_ms / dense_device_ms)."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    src = "karpenter_tpu_torch/csrc/ffd_sparse_kernels.cu (ffd_kernels.cu, SPARSE=true)"
+    rows = []
+    for cell, k1s, k1, k7s, k7 in (("surge", 14, 0, 18, 11), ("config3", 15, 1, 19, 12)):
+        c, ph = checks[cell], phases[cell]
+        args, M, zone, sp = ph["args"], ph["M"], ph["zone"], c["sp"]
+        b, ops = sparse_scan_cost(ph, sp)
+        Sp, Ep = ph["out"].take_e.shape
+        shape = dict(Sp=Sp, Ep=Ep, M=M, T=int(ph["out"].state.c_mask.shape[1]), Kq=c["Kq"],
+                     Kv=c["Kv"], Q=int(args[ffd.ARG_INDEX["q_kind"]].shape[0]),
+                     V=int(args[ffd.ARG_INDEX["v_kind"]].shape[0]))
+        kw = dict(max_claims=M, zone_engine=zone)
+        run1 = lambda: ffd.ffd_solve_sparse(*sp, *args, **kw)  # noqa: E731
+        dense1 = lambda: ffd.ffd_solve(*args, **kw)  # noqa: E731
+        bms, by = bound(b, ops, ops_per_s)
+        name = c["name"]
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces="karpenter_tpu/solver/tpu/ffd.py:2403",
+            launches=launches[name], max_abs_err=max(c["err"], c["err_dense"]),
+            ms=time_ms(run1, 10), plain_ms=time_ms(lambda: ffd.ffd_solve_sparse_plain(
+                *sp, *args, **kw), 1), bound_ms=bms, bound_by=by, library_ms=None, match=True,
+            device_ms=profiled_ms(run1, 3, (KERNEL_NAMES[k1s],)),
+            dense_ms=time_ms(dense1, 10), dense_device_ms=profiled_ms(dense1, 3, (KERNEL_NAMES[k1],)),
+            events=c["events"], shape=shape, ops=ops, bytes=b))
+        ckw = dict(kw, ckpt_every=c["K"], n_ckpt=c["n"])
+        run7 = lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **ckw)  # noqa: E731
+        dense7 = lambda: ffd.ffd_solve_ckpt(*args, **ckw)  # noqa: E731
+        written = int((c["cring"].prefix >= 0).sum())
+        ring_bytes = written * nbytes(*c["cout"].state)
+        bms7, by7 = bound(b + ring_bytes, ops, ops_per_s)
+        name7 = name.replace("ffd_sparse", "ffd_ckpt_sparse")
+        row = dict(
+            name=name7, route="cuda", source=src, replaces="karpenter_tpu/solver/tpu/ffd.py:2500",
+            also_replaces="karpenter_tpu/solver/tpu/ffd.py:2602 (ffd_resume_sparse)",
+            launches=launches[name7], max_abs_err=max(c["err_ckpt"], c.get("err_resume", 0),
+                                                      c.get("err_cross", 0)),
+            ms=time_ms(run7, 10), plain_ms=time_ms(lambda: ffd.ffd_solve_ckpt_sparse_plain(
+                *sp, *args, **ckw), 1), bound_ms=bms7, bound_by=by7, library_ms=None, match=True,
+            device_ms=profiled_ms(run7, 3, (KERNEL_NAMES[k7s],)),
+            dense_ms=time_ms(dense7, 10), dense_device_ms=profiled_ms(dense7, 3, (KERNEL_NAMES[k7],)),
+            snapshots=written, ring_bytes_written=ring_bytes, shape=dict(shape, K=c["K"], n=c["n"]),
+            ops=ops, bytes=b + ring_bytes)
+        if "init" in c:
+            resume = lambda: ffd.ffd_resume_sparse(  # noqa: E731
+                c["init"], *c["idx"], *c["suffix"], *args[2:], **ckw)
+            row.update(resume_ms=time_ms(resume, 10),
+                       resume_device_ms=profiled_ms(resume, 3, (KERNEL_NAMES[k7s],)),
+                       resume_k=c["k"], resume_Sp2=c["Sp2"])
+        rows.append(row)
+    for cell, k6s, k6 in (("surge_pref", 16, 9), ("config3_soft", 17, 10)):
+        c, ph = lchecks[cell], ladder[cell]
+        kw = dict(max_claims=ph["M"], zone_engine=ph["zone"])
+        run6 = lambda: ffd.ffd_solve_ladder_sparse(ph["lad"], *c["sp"], *ph["args"], **kw)  # noqa: E731
+        dense6 = lambda: ffd.ffd_solve_ladder(ph["lad"], *ph["args"], **kw)  # noqa: E731
+        b, ops = ladder_cost(ph)
+        b += nbytes(*c["sp"])
+        bms, by = bound(b, ops, ops_per_s)
+        Sp, Ep = ph["out"].take_e.shape
+        rows.append(dict(
+            name=c["name"], route="cuda", source=src,
+            replaces="karpenter_tpu/solver/tpu/ffd.py:2701",
+            launches=relax_launches[c["name"]], max_abs_err=max(c["err"], c["err_dense"]),
+            ms=time_ms(run6, 10), plain_ms=time_ms(lambda: ffd.ffd_solve_ladder_sparse_plain(
+                ph["lad"], *c["sp"], *ph["args"], **kw), 1),
+            bound_ms=bms, bound_by=by, library_ms=None, match=True,
+            device_ms=profiled_ms(run6, 3, (KERNEL_NAMES[k6s],)),
+            dense_ms=time_ms(dense6, 10), dense_device_ms=profiled_ms(dense6, 3, (KERNEL_NAMES[k6],)),
+            attempts=c["attempts"], shape=dict(Sp=Sp, Ep=Ep, M=ph["M"], Kq=int(c["sp"][0].shape[1]),
+                                               Kv=int(c["sp"][1].shape[1])),
+            ops=ops, bytes=b))
+    return rows
+
+
+def pack_kernel_row(out, err, launches, ops_per_s):
+    """The dense output pack's row at `out` (config 3's outputs): bound by
+    its bytes (every input read once, the buffer written once); the
+    yardstick is one device-to-device copy_ of the buffer's bytes
+    (labelled: it moves the bytes, it does not pack)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    st = out.state
+    fn = lambda: ffd.pack_outputs(out.take_e, out.take_c, out.leftover, st)  # noqa: E731
+    buf = fn()
+    moved = nbytes(out.take_e, out.take_c, out.leftover, st.c_mask, st.c_zc_bits, st.c_gbits,
+                   st.c_pool, st.c_cum, st.used) + nbytes(buf)
+    bms, by = bound(moved, 0, ops_per_s)
+    dst = torch.empty_like(buf)
+    Sp, Ep = out.take_e.shape
+    return dict(
+        name="pack_outputs", route="cuda", source="karpenter_tpu_torch/csrc/ffd_kernels.cu",
+        replaces="karpenter_tpu/solver/backend.py:511", launches=launches["pack_outputs"],
+        max_abs_err=err, ms=time_ms(fn, 50),
+        plain_ms=time_ms(lambda: ffd.pack_outputs_plain(out.take_e, out.take_c, out.leftover, st), 10),
+        bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: dst.copy_(buf), 50),
+        library_call="torch.Tensor.copy_ device to device of the packed buffer's bytes "
+        "(a yardstick: it moves the bytes, it does not pack)",
+        match=err == 0, device_ms=profiled_ms(fn, 20, (KERNEL_NAMES[20],)),
+        shape=dict(Sp=Sp, Ep=Ep, M=int(st.c_mask.shape[0]), T=int(st.c_mask.shape[1]),
+                   words=int(buf.numel())), bytes=moved, ops=0)
+
+
 def unpack_kernel_row(check, err, launches, solves, ops_per_s):
     """The K8 row at the surge's cold adopt (36 segments): bound by its
     bytes read and written; the yardstick is one device-to-device copy_ of
@@ -1902,12 +2370,19 @@ def resume_phase(cells, plain):
     runs cold, harvesting the ring the next tail resumes from. Asserts
     that, the runs skipped, decisions equal to the resume=False solver's and
     the plain path's, and the resumed solves' uploads: the stale run entry
-    (one packed message) and the two suffix run arrays, nothing else."""
+    (one packed message) and the two suffix run arrays, and under the sparse
+    gate (config3_tail) the two suffix index arrays (Sp2 x Kq and Sp2 x Kv
+    int32, two messages), nothing else."""
     import statistics
 
     from karpenter_tpu_torch.solver import backend as tb
     from karpenter_tpu_torch.solver.cuda.ffd import ARG_INDEX
-    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+    from karpenter_tpu_torch.solver.encode import (
+        encode,
+        quantize_input,
+        sparse_run_tables,
+        use_sparse_constraints,
+    )
 
     run_idx = {ARG_INDEX["run_group"], ARG_INDEX["run_count"]}
     out = {}
@@ -1917,7 +2392,8 @@ def resume_phase(cells, plain):
         rows = []
         for i in range(RESUME_SOLVES):
             inp = tail if i % 2 else base
-            before = (warm.stats["resume_solves"], warm.stats["resume_runs_skipped"])
+            before = (warm.stats["resume_solves"], warm.stats["resume_runs_skipped"],
+                      warm.stats["sparse_dispatches"])
             t0 = time.perf_counter()
             res = warm.solve(inp)
             ms = (time.perf_counter() - t0) * 1e3
@@ -1929,29 +2405,39 @@ def resume_phase(cells, plain):
             rows.append(dict(i=i, tail=bool(i % 2), ms=ms, cold_ms=cold_ms,
                              resumed=warm.stats["resume_solves"] - before[0],
                              k=warm.stats["resume_runs_skipped"] - before[1], h2d=led,
-                             stale=list(stale)))
+                             stale=list(stale),
+                             sparse=warm.stats["sparse_dispatches"] - before[2]))
             if i == 1:
                 last_res = res
         # the tail's runs: all but the last are the base's; the base's cold
         # ring covers what _ring_coverage says, the resume takes the most
-        S = len(encode(quantize_input(tail)).run_group)
+        tenc = encode(quantize_input(tail))
+        S = len(tenc.run_group)
         Sp = warm._bucket(S, 16, 16)
         k_want = max(c for c, _ in warm._ring_coverage(Sp, S, 0) if c <= S - 1)
         Sp2 = warm._bucket(S - k_want, 16, 16)
+        gated = use_sparse_constraints(tenc)
+        # the suffix index arrays' bytes (0 without the gate)
+        idx_bytes = (4 * Sp2 * sum(t.shape[1] for t in sparse_run_tables(tenc, Sp))
+                     if gated else 0)
         for r in rows:
             want_resume = r["tail"]
             assert r["resumed"] == int(want_resume), (name, r)
+            assert r["sparse"] == int(gated), (name, r)
             if want_resume:
                 assert r["k"] == k_want, (name, r, k_want)
                 assert set(r["stale"]) <= run_idx and r["stale"], (name, r)
-                assert r["h2d"]["h2d_bytes"] == 4 * (len(r["stale"]) * Sp + 2 * Sp2), (name, r)
-                assert r["h2d"]["h2d_arrays"] == len(r["stale"]) + 2 and r["h2d"]["h2d_msgs"] == 3
+                assert r["h2d"]["h2d_bytes"] == (4 * (len(r["stale"]) * Sp + 2 * Sp2)
+                                                 + idx_bytes), (name, r)
+                assert r["h2d"]["h2d_arrays"] == len(r["stale"]) + 2 + 2 * gated
+                assert r["h2d"]["h2d_msgs"] == 3 + 2 * gated
         assert decisions(last_res) == decisions(plain.solve(tail)), f"{name}: != the plain path"
         resumed = [r["ms"] for r in rows if r["resumed"]]
         cold_tail = [r["cold_ms"] for r in rows if r["tail"]]
         harvest = [r["ms"] for r in rows[2:] if not r["tail"]]
         out[name] = dict(
             pods=len(tail.pods), S=S, Sp=Sp, k=k_want, suffix_runs=S - k_want, Sp2=Sp2,
+            sparse=gated, suffix_index_bytes=idx_bytes,
             resume_solves=warm.stats["resume_solves"],
             resume_runs_skipped=warm.stats["resume_runs_skipped"],
             resume_hit_rate=warm.resume_hit_rate,
@@ -1967,11 +2453,12 @@ def resume_phase(cells, plain):
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
-    verdict pack and the arena unpack."""
+    verdict pack, the output pack and the arena unpack."""
     names = {"pack_verdicts_kernel": "pack_verdicts_kernel",
              "arena_unpack_kernel": "arena_unpack_kernel"}
-    for flags in range(16):
-        bits = [(flags >> i) & 1 for i in range(4)]
+    names["pack_outputs_kernel"] = "pack_outputs_kernel"
+    for flags in range(32):
+        bits = [(flags >> i) & 1 for i in range(5)]
         mangled = "ffd_scan_kernelI" + "".join(f"Lb{b}E" for b in bits)
         names[mangled] = "ffd_scan_kernel<" + ", ".join("true" if b else "false" for b in bits) + ">"
     out, current = {}, None
@@ -2000,7 +2487,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
-    from karpenter_tpu_torch.solver.cuda import build
+    from karpenter_tpu_torch.solver.cuda import build, ffd
 
     t_start = time.perf_counter()
     torch.set_num_threads(max(1, min(8, os.cpu_count() or 1)))
@@ -2012,8 +2499,9 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build()
     ffd_lib = build.load()
+    sparse_lib = build.load("ffd_sparse_kernels")
     build_s = time.perf_counter() - t0
-    assert ffd_lib is not None
+    assert ffd_lib is not None and sparse_lib is not None
     for line in build.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
@@ -2025,6 +2513,7 @@ def main() -> int:
         "surge_e2e": build_e2e_input(PODS, NODES),
         "config3": build_config3_input(PODS),
         "config4": build_config4_input(PODS),
+        "constraint_wide": build_constraint_wide_input(4_800, 40),
     }
     once = {"mixed": build_mixed_input(PODS)}
     phases = {}
@@ -2051,6 +2540,14 @@ def main() -> int:
         zone_events.append(ph["events"])
     assert sum(e > 8 for e in zone_events) >= 4, zone_events  # beyond the closed forms
     print(f"kernels[zone x8]: max_abs_err=(0, 0, 0) events={zone_events}", flush=True)
+    # the fleet of ROADMAP §C.1 (the reference's zoned scan against its
+    # oracle): K1 and K7 zoned against their plain versions
+    fz = kernel_phase(build_zone_fuzz_53_input(), dev)
+    assert fz["zone"] and sum(fz["errs"]) == 0
+    fz_ck = ckpt_check(fz, 2, 16)
+    print(f"kernels[zone_fuzz_53_cut]: events={fz['events']} max_abs_err={fz['errs']} "
+          f"K7 (K=2) max_abs_err=({fz_ck['err']}, vs K1 {fz_ck['err_k1']}, resume k={fz_ck['k']} "
+          f"{fz_ck['err_resume']})", flush=True)
 
     # ---- phase 2d: K7 and K8 against their plain versions at main-path shapes --------
     # K7 (the checkpointed scan, TorchSolver()'s default dispatch) at the surge
@@ -2074,6 +2571,63 @@ def main() -> int:
                                 for k, v in unpack_checks.items()) + f" max_abs_err={k8_err}",
           flush=True)
 
+    # ---- phase 2e: the sparse instances (K1s, K7s) and the dense output pack ---------
+    # at the kernel arguments of config 3, mixed and constraint_wide (zoned),
+    # the surge with its all-padding tables (fast, full width), the small
+    # hostname fleets with the tables "on" would build (fast), a hostname
+    # fleet "auto" gates sparse, the zone fleets, and index rows rewritten as
+    # supersets; K7s resumes from its own ring and the dense K7's, K7 from
+    # K7s's; the pack against its plain version at the surge's and config
+    # 3's outputs and with a take past 65535
+    sparse = {}
+    for cell in ("surge", "config3", "constraint_wide", "mixed"):
+        # the resumes at mixed add ~15 s of plain scan and no path the
+        # other three cells do not take
+        c = sparse[cell] = sparse_check(phases[cell], dev, resume=cell != "mixed")
+        print(f"sparse[{cell}]: {c['name']} Kq={c['Kq']} Kv={c['Kv']} events={c['events']} "
+              f"max_abs_err=({c['err']}, K7s {c['err_ckpt']}, vs dense K1 {c['err_dense']}, "
+              f"resume k={c.get('k')} {c.get('err_resume')}, across ring forms "
+              f"{c.get('err_cross')}) plain_s={c['plain_once_s']:.2f}", flush=True)
+    assert all(phases[n]["zone"] for n in ("config3", "constraint_wide", "mixed"))
+    assert phases["constraint_wide"]["dims"]["Vp"] == 120, phases["constraint_wide"]["dims"]
+    small_sparse = []
+    for seed in range(8):
+        ph = kernel_phase(build_constrained_input(seed), dev)
+        c = sparse_check(ph, dev, K=2, n=16)
+        assert not ph["zone"] and ph["enc"].Q > 0
+        small_sparse.append(("constrained", seed, c["err"], c["err_ckpt"], c.get("err_resume")))
+    for seed in range(4):
+        ph = kernel_phase(build_zone_input(seed), dev)
+        c = sparse_check(ph, dev, K=2, n=16)
+        small_sparse.append(("zone", seed, c["err"], c["err_ckpt"], c.get("err_resume")))
+    c = sparse_check(fz, dev, K=2, n=16)
+    small_sparse.append(("zone_fuzz_53_cut", 0, c["err"], c["err_ckpt"], c.get("err_resume")))
+    from karpenter_tpu_torch.solver.encode import use_sparse_constraints
+
+    hw = kernel_phase(build_hostname_wide_input(), dev)
+    assert use_sparse_constraints(hw["enc"]) and hw["enc"].Q >= 8 and not hw["zone"]
+    c = sparse_check(hw, dev, K=2, n=16)
+    small_sparse.append(("hostname_wide", 0, c["err"], c["err_ckpt"], c.get("err_resume")))
+    # supersets: -1 interleaved and extra non-member columns decide the same
+    supersets = []
+    for name, ph in (("config3", phases["config3"]), ("hostname_wide", hw),
+                     ("zone_fuzz_53_cut", fz)):
+        sp = sparse_tables(ph["enc"], ph["dims"]["Sp"], dev)
+        wide = superset_tables(sp, int(ph["dims"]["Qp"]), int(ph["dims"]["Vp"]), seed=len(supersets))
+        kw = dict(max_claims=ph["M"], zone_engine=ph["zone"])
+        got = ffd.ffd_solve_sparse(*wide, *ph["args"], **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(_scan_outputs(got), _scan_outputs(ph["out"]))
+        assert err == 0, f"{name}: superset index rows change the sparse scan's outputs ({err})"
+        supersets.append((name, int(wide[0].shape[1]), int(wide[1].shape[1]), err))
+    print(f"sparse[small x{len(small_sparse)}]: (fleet, seed, K1s, K7s, resume) max_abs_err="
+          f"{small_sparse} supersets (fleet, Kq, Kv, vs dense)={supersets}", flush=True)
+    packs = {"surge": pack_check(phases["surge"]["out"]),
+             "config3": pack_check(phases["config3"]["out"]),
+             "config3_big_take": pack_check(phases["config3"]["out"], big=True)}
+    print("pack: " + " ".join(f"{k}={v['words']}words flag={v['flag']}" for k, v in packs.items())
+          + " max_abs_err=0", flush=True)
+
     # ---- phase 2c: K6, the relax-ladder scan, against its plain version -------------
     # at the ladder cells' shapes (config3_soft through the zoned instance,
     # surge_pref through the fast one), a 400-pod relax walk (every pod after
@@ -2091,6 +2645,12 @@ def main() -> int:
               f"rungs={ph['rungs']} attempts={ph['attempts']} events={ph['events']} "
               f"leftover={ph['leftover']} max_abs_err={ph['err']} "
               f"plain_s={ph['plain_once_s']:.2f}", flush=True)
+    # K6s (the relax-ladder scan's sparse instances) with the union index
+    # tables: zoned at config3_soft, fast at surge_pref (all-padding tables)
+    lsparse = {name: sparse_ladder_check(ladder[name], dev) for name in ("config3_soft", "surge_pref")}
+    print("ladder sparse: " + " ".join(f"{k}={v['name']} attempts={v['attempts']} "
+                                       f"max_abs_err=({v['err']}, vs K6 {v['err_dense']})"
+                                       for k, v in lsparse.items()), flush=True)
     assert ladder["config3_soft"]["zone"] and not ladder["surge_pref"]["zone"]
     for name in ("config3_soft", "surge_pref"):  # satisfiable: rung 0 places every pod
         runs = int((ladder[name]["args"][1] > 0).sum())
@@ -2106,13 +2666,15 @@ def main() -> int:
         ph = ladder_phase(inp, dev)
         assert ph["zone"] == (seed % 2 == 0), (seed, ph["zone"])
         small.append((seed, ph["zone"], ph["attempts"], ph["events"], ph["leftover"]))
+        sparse_ladder_check(ph, dev)
         if not ph["zone"]:
             ph = ladder_phase(inp, dev, zone=True)
+            sparse_ladder_check(ph, dev)
             small.append((seed, True, ph["attempts"], ph["events"], ph["leftover"]))
     assert any(a > 10 for _, _, a, _, _ in small), small
     assert any(lo > 0 for *_, lo in small), small
-    print(f"ladder[relax x8]: max_abs_err=0 (seed, zoned, attempts, events, leftover)={small}",
-          flush=True)
+    print(f"ladder[relax x8]: max_abs_err=0, K6s too (seed, zoned, attempts, events, "
+          f"leftover)={small}", flush=True)
 
     # ---- phase 2b: config 5, batched consolidation (K4, K5) ------------------------
     int_rate = int32_ops_per_s()
@@ -2122,35 +2684,86 @@ def main() -> int:
     print(json.dumps({"config5": c5["summary"]}), flush=True)
 
     # ---- phase 3: the main path through TorchSolver ---------------------------------
-    # TorchSolver() at its defaults (the arena, K7 with its ring); one
-    # arena=False solver (per-array uploads, K1) on surge_e2e and config 3
+    # TorchSolver() at its defaults (the arena, K7 with its ring), which
+    # gates sparse on config 3, mixed and constraint_wide (its
+    # sparse_dispatches must count every one of their solves, and none of
+    # the others'); a sparse="off" solver beside it on those three cells
+    # (timed, same decisions); one arena=False solver (per-array uploads,
+    # K1, K1s) on surge_e2e, config 3 and config 4; a device_decode=False
+    # solver (the dense output pack) on the surge and config 3; and the
+    # hostname fleet that "auto" gates sparse through the fast instances
     TorchSolver = tb.TorchSolver
     solver = TorchSolver(max_claims=MAX_CLAIMS)
     off = TorchSolver(max_claims=MAX_CLAIMS, arena=False)
+    dense = TorchSolver(max_claims=MAX_CLAIMS, sparse="off")
+    dd = TorchSolver(max_claims=MAX_CLAIMS, device_decode=False)
+    gated = ("config3", "mixed", "constraint_wide")
     cold = {}
     for name, inp in {**inputs, **once}.items():  # warm: allocator, encode caches, uploads
         solver.solve(inp)
         cold[name] = dict(solver.ledger.solve)
+        if name in gated:
+            dense.solve(inp)
     reset_launches()
     samples = {name: [] for name in inputs}
+    dense_samples = {name: [] for name in gated if name in inputs}
+    sparse_count = {name: 0 for name in {**inputs, **once}}
     results = {}
     transfer = {}
     watch = GcWatch()
-    for _ in range(REPEATS):
-        for name, inp in inputs.items():
+
+    def timed(name, i):
+        watch.reset()
+        n0 = solver.stats["sparse_dispatches"]
+        t0 = time.perf_counter()
+        res = solver.solve(inputs[name])
+        samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms, list(watch.collections)))
+        sparse_count[name] += solver.stats["sparse_dispatches"] - n0
+        results[name] = res
+        transfer[name] = dict(solver.ledger.solve)
+        if name in gated and i < DENSE_REPEATS:
             watch.reset()
             t0 = time.perf_counter()
-            res = solver.solve(inp)
-            samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
-                                  list(watch.collections)))
-            results[name] = res
-            transfer[name] = dict(solver.ledger.solve)
-    t0 = time.perf_counter()
-    results["mixed"] = solver.solve(once["mixed"])
-    mixed_ms = (time.perf_counter() - t0) * 1e3
-    transfer["mixed"] = dict(solver.ledger.solve)
+            res_d = dense.solve(inputs[name])
+            dense_samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
+                                        list(watch.collections)))
+            assert decisions(res_d) == decisions(res), f"{name}: sparse='off' decisions differ"
+
+    # the four 50k cells in rotation, then the wide-constraint cell on its
+    # own: a fifth cell in the rotation would cycle the encode-core cache
+    # (4 entries) and the arena's four buckets on every solve
+    for i in range(REPEATS):
+        for name in inputs:
+            if name != "constraint_wide":
+                timed(name, i)
+    for i in range(REPEATS):
+        timed("constraint_wide", i)
+    mixed_ms, mixed_dense_ms = [], []
+    for _ in range(MIXED_REPEATS):
+        n0 = solver.stats["sparse_dispatches"]
+        t0 = time.perf_counter()
+        results["mixed"] = solver.solve(once["mixed"])
+        mixed_ms.append((time.perf_counter() - t0) * 1e3)
+        sparse_count["mixed"] += solver.stats["sparse_dispatches"] - n0
+        transfer["mixed"] = dict(solver.ledger.solve)
+        t0 = time.perf_counter()
+        res_d = dense.solve(once["mixed"])
+        mixed_dense_ms.append((time.perf_counter() - t0) * 1e3)
+        assert decisions(res_d) == decisions(results["mixed"]), "mixed: sparse='off' decisions differ"
     watch.close()
+    for name, n in sparse_count.items():
+        want = (MIXED_REPEATS if name == "mixed" else REPEATS) if name in gated else 0
+        assert n == want, f"{name}: {n} sparse dispatches in {want or REPEATS} solves"
+    assert dense.stats["sparse_dispatches"] == 0, dense.stats
     res_off = {n: off.solve(inputs[n]) for n in ("surge_e2e", "config3")}
+    res_dd = {n: dd.solve(inputs[n]) for n in ("surge", "config3")}
+    dd_d2h = dict(dd.ledger.solve)
+    res_off["config4"] = off.solve(inputs["config4"])  # the dense zoned K1
+    hw_inp = build_hostname_wide_input()
+    n0 = solver.stats["sparse_dispatches"]
+    hw_res = solver.solve(hw_inp)
+    assert solver.stats["sparse_dispatches"] == n0 + 1, "hostname_wide: not gated sparse"
+    hw_off = off.solve(hw_inp)
     torch.cuda.synchronize()
     launches = read_launches()
     for k in SINGLE_SOLVE_KERNELS:
@@ -2164,10 +2777,13 @@ def main() -> int:
             ref = plain.solve(inp)
         assert decisions(results[name]) == decisions(ref), f"{name}: decisions differ from the plain path"
         res = results[name]
-        assert len(res.placements) + len(res.errors) == PODS, name
+        assert len(res.placements) + len(res.errors) == len(inp.pods), name
         assert all(c.pod_uids for c in res.claims), name
     for n, r in res_off.items():
         assert decisions(r) == decisions(results[n]), f"{n}: arena=False decisions differ"
+    for n, r in res_dd.items():
+        assert decisions(r) == decisions(results[n]), f"{n}: device_decode=False decisions differ"
+    assert decisions(hw_res) == decisions(hw_off) == decisions(plain.solve(hw_inp))
     assert off.ledger.solve["h2d_msgs"] == off.ledger.solve["h2d_arrays"] > 0
     ledger_line = dict(arena_hit_rate=solver.ledger.arena_hit_rate,
                        upload_bytes_per_solve=solver.ledger.upload_bytes_per_solve,
@@ -2175,9 +2791,14 @@ def main() -> int:
                        total=solver.ledger.total, arena=solver.arena.stats,
                        resident_bytes=solver.arena.total_bytes(),
                        arena_off=dict(surge_e2e_config3_last=dict(off.ledger.solve),
-                                      total=off.ledger.total))
+                                      total=off.ledger.total),
+                       device_decode_off=dict(config3_last=dd_d2h, total=dd.ledger.total),
+                       sparse_dispatches=sparse_count)
     print(json.dumps({"ledger": ledger_line}), flush=True)
-    print("decisions: equal to the plain path on every cell (arena=False too)", flush=True)
+    print(f"decisions: equal to the plain path on every cell (arena=False, sparse='off' and "
+          f"device_decode=False too); sparse dispatches {sparse_count}; device_decode=False "
+          f"d2h bytes {dd_d2h['d2h_bytes']} (config 3) against {transfer['config3']['d2h_bytes']}",
+          flush=True)
 
     # ---- phase 4: forced wide re-fetch ---------------------------------------------
     real_cap = tb.delta_capacity
@@ -2196,33 +2817,51 @@ def main() -> int:
     for name, inp in {**relax_inputs, "surge_pref": relax_once["surge_pref"]}.items():
         solver.solve(inp)  # warm
         cold[name] = dict(solver.ledger.solve)
+    # config3_soft dispatches the sparse ladder (K6s zoned); a sparse="off"
+    # solver solves it once (the dense K6 zoned) and a sparse="on" solver a
+    # small hostname-preference fleet (K6s fast)
     reset_launches()
     watch = GcWatch()
     samples.update({name: [] for name in relax_inputs})
     ladder_solves0 = solver.stats["ladder_solves"]
-    for _ in range(REPEATS):
+    relax_sparse = {name: 0 for name in {**relax_inputs, **relax_once}}
+    for _ in range(SOFT_REPEATS):
         for name, inp in relax_inputs.items():
             watch.reset()
+            n0 = solver.stats["sparse_dispatches"]
             t0 = time.perf_counter()
             res = solver.solve(inp)
             samples[name].append(((time.perf_counter() - t0) * 1e3, watch.ms,
                                   list(watch.collections)))
+            relax_sparse[name] += solver.stats["sparse_dispatches"] - n0
             results[name] = res
             transfer[name] = dict(solver.ledger.solve)
             assert solver.stats["relax_dispatches"] == 1, solver.stats
     once_ms = {}
     for name, inp in relax_once.items():
+        n0 = solver.stats["sparse_dispatches"]
         t0 = time.perf_counter()
         results[name] = solver.solve(inp)
         once_ms[name] = (time.perf_counter() - t0) * 1e3
+        relax_sparse[name] += solver.stats["sparse_dispatches"] - n0
         transfer[name] = dict(solver.ledger.solve)
         assert solver.stats["relax_dispatches"] == 1, (name, solver.stats)
+    soft_dense = dense.solve(relax_inputs["config3_soft"])
+    on = TorchSolver(sparse="on")
+    res_on = on.solve(build_relax_input(1))
+    assert on.stats["ladder_solves"] == 1 and on.stats["sparse_dispatches"] == 1, on.stats
     watch.close()
     relax_launches = read_launches()
     ladder_solves = solver.stats["ladder_solves"] - ladder_solves0
     for k in RELAX_KERNELS:
         assert relax_launches[k] > 0, f"kernel {k} never launched on the relax path"
-    assert ladder_solves == REPEATS * len(relax_inputs) + len(relax_once), ladder_solves
+    assert ladder_solves == SOFT_REPEATS * len(relax_inputs) + len(relax_once), ladder_solves
+    assert relax_sparse["config3_soft"] == SOFT_REPEATS, relax_sparse
+    assert relax_sparse["surge_pref"] == 0, relax_sparse
+    assert decisions(soft_dense) == decisions(results["config3_soft"]), \
+        "config3_soft: sparse='off' decisions differ"
+    assert decisions(res_on) == decisions(plain.solve(build_relax_input(1))), \
+        "the sparse='on' relax fleet differs from the plain path"
     assert decisions(results["config3_soft"]) == decisions(results["config3"]), \
         "config3_soft decisions differ from config 3's"
     assert decisions(results["surge_pref"]) == decisions(plain.solve(relax_once["surge_pref"])), \
@@ -2235,7 +2874,8 @@ def main() -> int:
     res_l = TorchSolver().solve(build_relax_walk_input(120))
     assert decisions(res_h) == decisions(res_l), "the host relax loop differs from the ladder"
     assert host.stats["relax_dispatches"] > 1 and host.stats["ladder_solves"] == 0, host.stats
-    print(f"relax path: ladder_solves={ladder_solves} launches={relax_launches} "
+    print(f"relax path: ladder_solves={ladder_solves} sparse_dispatches={relax_sparse} "
+          f"launches={relax_launches} "
           f"host_loop_120_dispatches={host.stats['relax_dispatches']} equal to the ladder",
           flush=True)
     # the relax walk's K6 alone (CUDA events around its launch at the
@@ -2271,25 +2911,42 @@ def main() -> int:
               for name, inp in inputs.items()}
     stages.update({name: ladder_breakdown(inp, 5, ladder[name]["M"], ladder[name]["zone"])
                    for name, inp in relax_inputs.items()})
-    cell_scan = {"surge": 11, "surge_e2e": 11, "config3": 12, "config4": 12, "config3_soft": 10}
+    cell_scan = {"surge": 11, "surge_e2e": 11, "config3": 19, "config4": 12, "config3_soft": 17,
+                 "constraint_wide": 19}
     profiles = {name: device_profile(inp, KERNEL_NAMES[cell_scan[name]])
                 for name, inp in {**inputs, **relax_inputs}.items()}
+    # solves per kernel in phase 3's counted window: TorchSolver() on the
+    # surge, surge_e2e (K7), config 4 (K7 zoned), config 3 and
+    # constraint_wide (K7s zoned) REPEATS times, mixed (K7s zoned)
+    # MIXED_REPEATS times, hostname_wide once (K7s fast); sparse="off" on
+    # config 3 and constraint_wide DENSE_REPEATS times and mixed
+    # MIXED_REPEATS times (K7 zoned); arena=False on surge_e2e (K1),
+    # config 4 (K1 zoned), config 3 (K1s zoned), hostname_wide (K1s fast);
+    # device_decode=False on the surge (K7) and config 3 (K7s zoned)
+    ckpt_solves = {"ffd_ckpt_fast_scan": 2 * REPEATS + 1,
+                   "ffd_ckpt_zoned_scan": REPEATS + 2 * DENSE_REPEATS + MIXED_REPEATS,
+                   "ffd_ckpt_sparse_zoned_scan": 2 * REPEATS + MIXED_REPEATS + 1,
+                   "ffd_ckpt_sparse_fast_scan": 1}
+    delta_solves = 5 * REPEATS + 2 * DENSE_REPEATS + 2 * MIXED_REPEATS + 5
     rows = (kernel_rows(phases["surge"], phases["config3"], launches, int_rate)
             + ladder_kernel_rows(ladder["surge_pref"], ladder["config3_soft"], relax_launches,
                                  int_rate)
             + c5["rows"]
-            + ckpt_kernel_rows(ckpt, launches, int_rate,
-                               {"ffd_ckpt_fast_scan": 2 * REPEATS,
-                                "ffd_ckpt_zoned_scan": 2 * REPEATS + 1}, phases)
+            + ckpt_kernel_rows(ckpt, launches, int_rate, ckpt_solves, phases)
             + [unpack_kernel_row(unpack_checks["surge"], k8_err, resume_launches, resume_solves,
-                                 int_rate)])
+                                 int_rate)]
+            + sparse_kernel_rows(sparse, lsparse, phases, ladder, launches, relax_launches,
+                                 int_rate)
+            + [pack_kernel_row(phases["config3"]["out"], packs["config3"]["err"], launches,
+                               int_rate)])
     launches_per_solve = {k: launches[k] / n for k, n in (
-        ("ffd_ckpt_fast_scan", 2 * REPEATS), ("ffd_ckpt_zoned_scan", 2 * REPEATS + 1),
-        ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
-        ("compact_takes", 4 * REPEATS + 3), ("claim_meta", 4 * REPEATS + 3))}
+        *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
+        ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
+        ("compact_takes", delta_solves), ("claim_meta", delta_solves))}
     launches_per_solve["arena_unpack_resume_phase"] = resume_launches["arena_unpack"] / resume_solves
     launches_per_solve.update({k: relax_launches[k] / n for k, n in (
-        ("ffd_ladder_fast_scan", 1), ("ffd_ladder_zoned_scan", REPEATS + 1))})
+        ("ffd_ladder_fast_scan", 1), ("ffd_ladder_zoned_scan", 1),
+        ("ffd_ladder_sparse_zoned_scan", SOFT_REPEATS), ("ffd_ladder_sparse_fast_scan", 1))})
     launches_per_solve.update({f"{k}_relax": relax_launches[k] / ladder_solves
                                for k in ("compact_takes", "claim_meta")})
     print(json.dumps({"kernels": rows}))
@@ -2297,7 +2954,7 @@ def main() -> int:
     solve_line = {
         "solve": {
             name: dict(
-                pods=PODS, nodes=len(inp.nodes), **tail(samples[name]),
+                pods=len(inp.pods), nodes=len(inp.nodes), **tail(samples[name]),
                 claims=len(results[name].claims), M=cell_ph[name]["M"],
                 events_per_solve=cell_ph[name]["events"],
                 attempts_per_solve=cell_ph[name].get("attempts"),
@@ -2306,9 +2963,17 @@ def main() -> int:
             )
             for name, inp in {**inputs, **relax_inputs}.items()
         },
+        "sparse_dispatches": dict(sparse_count, **relax_sparse),
         "mixed": dict(pods=PODS, ms=mixed_ms, claims=len(results["mixed"].claims),
                       M=phases["mixed"]["M"], events_per_solve=phases["mixed"]["events"],
-                      unplaced=len(results["mixed"].errors), steady=transfer["mixed"]),
+                      unplaced=len(results["mixed"].errors), steady=transfer["mixed"],
+                      sparse_off_ms=mixed_dense_ms),
+        "sparse_off": {name: tail(v) for name, v in dense_samples.items()},
+        "sparse_checks": {k: {f: v[f] for f in ("name", "Kq", "Kv", "events", "err", "err_ckpt",
+                                                 "err_dense", "plain_once_s")}
+                          | {f: v.get(f) for f in ("k", "err_resume", "err_cross")}
+                          for k, v in sparse.items()},
+        "device_decode_off": dict(config3=dd_d2h, delta_config3=transfer["config3"]),
         "surge_pref": dict(pods=PODS, ms=once_ms["surge_pref"],
                            claims=len(results["surge_pref"].claims), M=ladder["surge_pref"]["M"],
                            attempts_per_solve=ladder["surge_pref"]["attempts"],

@@ -31,9 +31,17 @@
 //                   :1825-1850): ffd_scan_kernel<ZONE, false, false, true>,
 //                   K1's scan that also snapshots its whole carry into a
 //                   device-resident ring every K steps.
+// K9 pack_outputs   replaces karpenter_tpu/solver/backend.py:511 _pack_outputs.
+// K1s/K6s/K7s       replace karpenter_tpu/solver/tpu/ffd.py:2403
+//                   ffd_solve_sparse, :2701 ffd_solve_ladder_sparse, :2500
+//                   ffd_solve_ckpt_sparse and :2602 ffd_resume_sparse: the
+//                   fifth template flag SPARSE of K1/K6/K7, built from
+//                   ffd_sparse_kernels.cu (this file with FFD_SPARSE_ONLY).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -193,6 +201,10 @@ struct ScanArgs {
   // prefix [n_ckpt]
   unsigned char* ring[16]; int* ring_prefix;
   int ck_every, n_ckpt;
+  // the sparse instances (SPARSE=true) only: the run-major index tables
+  // [S, Kq] / [S, Kv] of the run's active hostname / zone sigs (-1 pad)
+  const int* run_q_idx; const int* run_v_idx;
+  int Kq, Kv;
 };
 
 // Row offset of run s in the [S, n] take tables. The batched and the ladder
@@ -216,6 +228,7 @@ struct RunShared {
   int charge[MAX_R];
   int mg[MAX_Q], og[MAX_Q], kq[MAX_Q], cq[MAX_Q];
   unsigned tot[MAX_Q];
+  int qcol[MAX_Q];  // SPARSE: slot -> Q column (-1 padding)
   int red[NWARPS];
   unsigned ured[NWARPS];
   int any_owned2, boot2, fresh_allow, remaining, used, cap2, n_new, full_take;
@@ -228,6 +241,7 @@ struct RunShared {
 struct ZoneShared {
   unsigned char mv[MAX_V], ov[MAX_V];
   int vk[MAX_V];
+  int vcol[MAX_V];  // SPARSE: slot -> V column (-1 padding)
   unsigned zcm[MAX_Z];
   int col_axis[MAX_Z];
   int gax[MAX_Z], elig[MAX_Z], A[MAX_Z], A_base[MAX_Z], blk[MAX_Z], pbc[MAX_Z];
@@ -264,18 +278,26 @@ struct Scratch {
   unsigned* c_bits; int* k_cap; int* scat_z; int* scat_take; int* caps_mz; int* take_mz;
 };
 
-// hostname allowance of one row (Q axis); the fast branch's owner is
-// o & (kind != 2) (kind2_owner false), the zoned branch's the full o;
-// cm/co == nullptr reads zeros (fresh claims)
-template <bool KIND2_OWNER = false>
-__device__ int row_allowance(const RunShared& sh, int Q, const int* cm, const int* co) {
+// Q column of the run's view slot q: q itself, or under SPARSE the
+// column the slot gathered (-1 padding, whose flags are all false)
+template <bool SPARSE>
+__device__ __forceinline__ int qcol_of(const RunShared& sh, int q) {
+  if constexpr (SPARSE) return sh.qcol[q]; else return q;
+}
+
+// hostname allowance of one row (Q axis) over the nq slots of the run's
+// view; the fast branch's owner is o & (kind != 2) (kind2_owner false), the
+// zoned branch's the full o; cm/co == nullptr reads zeros (fresh claims)
+template <bool KIND2_OWNER = false, bool SPARSE = false>
+__device__ int row_allowance(const RunShared& sh, int nq, const int* cm, const int* co) {
   int best = BIG;
-  for (int q = 0; q < Q; ++q) {
+  for (int q = 0; q < nq; ++q) {
     const int kind = sh.kq[q];
     const bool member = sh.mg[q], owner = sh.og[q] && (KIND2_OWNER || kind != 2);
     const bool relevant = owner || (kind == 1 && member);
     if (!relevant) continue;
-    const int c = cm ? cm[q] : 0, o = co ? co[q] : 0;
+    const int col = qcol_of<SPARSE>(sh, q);
+    const int c = cm ? cm[col] : 0, o = co ? co[col] : 0;
     int v;
     if (kind == 0) {
       v = member ? wsub(sh.cq[q], c) : (wadd(c, 1) <= sh.cq[q] ? BIG : 0);
@@ -293,10 +315,11 @@ __device__ int row_allowance(const RunShared& sh, int Q, const int* cm, const in
 
 // kind-2 cap of one row: BIG where matching pods are present (or no owned
 // kind-2 sig), else 0
-__device__ int row_pos(const RunShared& sh, int Q, const int* cm) {
+template <bool SPARSE = false>
+__device__ int row_pos(const RunShared& sh, int nq, const int* cm) {
   int best = BIG;
-  for (int q = 0; q < Q; ++q)
-    if (sh.og[q] && sh.kq[q] == 2) best = min(best, cm[q] > 0 ? BIG : 0);
+  for (int q = 0; q < nq; ++q)
+    if (sh.og[q] && sh.kq[q] == 2) best = min(best, cm[qcol_of<SPARSE>(sh, q)] > 0 ? BIG : 0);
   return best;
 }
 
@@ -1298,10 +1321,31 @@ __device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, 
   return s;
 }
 
+// ---- K1s / K6s / K7s: the sparse instances (SPARSE=true) -------------------
+//
+// Replace the JAX sparse twins (ffd.py:2403 ffd_solve_sparse, :2500
+// ffd_solve_ckpt_sparse, :2602 ffd_resume_sparse, :2701
+// ffd_solve_ladder_sparse): the same scan, with the run's hostname (Q) and
+// zone-sig (V) state read through its index rows run_q_idx[s] /
+// run_v_idx[s] (-1 padding anywhere in a row). The run prologue loads the
+// rows and gathers the group's flags into the shared slots (mg/og/kq/cq,
+// mv/ov/vk), with a slot -> column map (qcol, vcol; -1 on padding, whose
+// flags are false); the fast branch, the fresh-claim allowance, the boot
+// test and the `constrained` test (ffd.py:1662) read the slots, and the fast
+// branch's writes skip padding and land in the slot's column. A claim open
+// adds onto its row (rows >= used are zero), as the JAX scatter-add does.
+// The zoned event engine reads the dense flags by sig index, so a
+// constrained run reloads them at full width before it (ffd.py:876-890).
+// What bounds it on the H100: as K1 (one block, latency-bound); the view
+// narrows the fast branch's per-row Q and V loops to Kq / Kv slots.
+// Design: K1's body under a fifth template flag, so the dense instances
+// keep their code; the index tables ride beside the 32 scan inputs.
+
 // K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
 // subset row, from the prologue above), K6 (LADDER=true: one solve, a
-// cascade of attempts per run) and K7 (CKPT=true: K1 with the snapshot ring)
-template <bool ZONE, bool BATCH, bool LADDER, bool CKPT>
+// cascade of attempts per run), K7 (CKPT=true: K1 with the snapshot ring),
+// and the sparse instances of K1, K6 and K7 (SPARSE=true)
+template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
 __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if constexpr (BATCH) batch_row_prologue(a);
   __shared__ RunShared sh;
@@ -1339,35 +1383,71 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       continue;
     }
     const unsigned g_zc = a.group_zc_bits[g];
+    // the run's view of the Q and V axes: nq / nv slots
+    const int nq = SPARSE ? a.Kq : Q;
+    const int nv = SPARSE ? a.Kv : a.V;
     if (tid < R) sh.req[tid] = a.group_req[g * R + tid];
-    for (int q = tid; q < Q; q += NT) {
-      sh.mg[q] = a.q_member[g * Q + q] != 0;
-      sh.og[q] = a.q_owner[g * Q + q] != 0;
-      sh.kq[q] = a.q_kind[q];
-      sh.cq[q] = a.q_cap[q];
-      sh.tot[q] = 0u;
+    if constexpr (SPARSE) {
+      for (int k = tid; k < nq; k += NT) {
+        const int c = a.run_q_idx[(size_t)s * nq + k];
+        const bool ok = c >= 0 && c < Q;
+        sh.qcol[k] = ok ? c : -1;
+        sh.mg[k] = ok && a.q_member[g * Q + c] != 0;
+        sh.og[k] = ok && a.q_owner[g * Q + c] != 0;
+        sh.kq[k] = ok ? a.q_kind[c] : 0;
+        sh.cq[k] = ok ? a.q_cap[c] : 0;
+        sh.tot[k] = 0u;
+      }
+    } else {
+      for (int q = tid; q < Q; q += NT) {
+        sh.mg[q] = a.q_member[g * Q + q] != 0;
+        sh.og[q] = a.q_owner[g * Q + q] != 0;
+        sh.kq[q] = a.q_kind[q];
+        sh.cq[q] = a.q_cap[q];
+        sh.tot[q] = 0u;
+      }
     }
     for (int i = tid; i < M; i += NT) c_take[i] = 0;
-    if constexpr (ZONE)
-      for (int v = tid; v < a.V; v += NT) {
-        zs->mv[v] = a.v_member[g * a.V + v] != 0;
-        zs->ov[v] = a.v_owner[g * a.V + v] != 0;
-        zs->vk[v] = a.v_kind[v];
+    if constexpr (ZONE) {
+      if constexpr (SPARSE) {
+        for (int k = tid; k < nv; k += NT) {
+          const int c = a.run_v_idx[(size_t)s * nv + k];
+          const bool ok = c >= 0 && c < a.V;
+          zs->vcol[k] = ok ? c : -1;
+          zs->mv[k] = ok && a.v_member[g * a.V + c] != 0;
+          zs->ov[k] = ok && a.v_owner[g * a.V + c] != 0;
+          zs->vk[k] = ok ? a.v_kind[c] : 0;
+        }
+      } else {
+        for (int v = tid; v < a.V; v += NT) {
+          zs->mv[v] = a.v_member[g * a.V + v] != 0;
+          zs->ov[v] = a.v_owner[g * a.V + v] != 0;
+          zs->vk[v] = a.v_kind[v];
+        }
       }
+    }
     __syncthreads();
-    const int any_owned2 = __syncthreads_or(tid < Q && sh.og[tid] && sh.kq[tid] == 2);
+    const int any_owned2 = __syncthreads_or(tid < nq && sh.og[tid] && sh.kq[tid] == 2);
     if (any_owned2) {
       // total members per sig over nodes and claims (wrapping sums)
       for (int e = tid; e < E; e += NT)
-        for (int q = 0; q < Q; ++q) if (a.e_cm[e * Q + q]) atomicAdd(&sh.tot[q], (unsigned)a.e_cm[e * Q + q]);
+        for (int q = 0; q < nq; ++q) {
+          const int c = qcol_of<SPARSE>(sh, q);
+          if constexpr (SPARSE) if (c < 0) continue;
+          if (a.e_cm[e * Q + c]) atomicAdd(&sh.tot[q], (unsigned)a.e_cm[e * Q + c]);
+        }
       for (int m = tid; m < M; m += NT)
-        for (int q = 0; q < Q; ++q) if (a.c_cm[m * Q + q]) atomicAdd(&sh.tot[q], (unsigned)a.c_cm[m * Q + q]);
+        for (int q = 0; q < nq; ++q) {
+          const int c = qcol_of<SPARSE>(sh, q);
+          if constexpr (SPARSE) if (c < 0) continue;
+          if (a.c_cm[m * Q + c]) atomicAdd(&sh.tot[q], (unsigned)a.c_cm[m * Q + c]);
+        }
     }
     __syncthreads();
     if (tid == 0) {
-      sh.fresh_allow = row_allowance(sh, Q, nullptr, nullptr);
+      sh.fresh_allow = row_allowance<false, SPARSE>(sh, nq, nullptr, nullptr);
       int boot_ok = 1;
-      for (int q = 0; q < Q; ++q)
+      for (int q = 0; q < nq; ++q)
         if (sh.og[q] && sh.kq[q] == 2 && !(sh.mg[q] && sh.tot[q] == 0u)) boot_ok = 0;
       sh.boot2 = any_owned2 && boot_ok;
       sh.remaining = a.group_device[g] ? count : 0;
@@ -1378,12 +1458,27 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       // `constrained` (ffd.py:1662): the group owns a V-axis sig or is a
       // member of an anti sig -> the domain event engine
       const int constrained =
-          __syncthreads_or(tid < a.V && (zs->ov[tid] || (zs->mv[tid] && zs->vk[tid] == 1)));
+          __syncthreads_or(tid < nv && (zs->ov[tid] || (zs->mv[tid] && zs->vk[tid] == 1)));
       if (constrained) {
+        if constexpr (SPARSE) {
+          // the event engine reads the dense flags by sig index
+          for (int q = tid; q < Q; q += NT) {
+            sh.mg[q] = a.q_member[g * Q + q] != 0;
+            sh.og[q] = a.q_owner[g * Q + q] != 0;
+            sh.kq[q] = a.q_kind[q];
+            sh.cq[q] = a.q_cap[q];
+          }
+          for (int v = tid; v < a.V; v += NT) {
+            zs->mv[v] = a.v_member[g * a.V + v] != 0;
+            zs->ov[v] = a.v_owner[g * a.V + v] != 0;
+            zs->vk[v] = a.v_kind[v];
+          }
+          __syncthreads();
+        }
         zoned_run<BATCH, LADDER>(a, sh, *zs, x, s, g);
         continue;
       }
-      const int any_mv = __syncthreads_or(tid < a.V && zs->mv[tid]);
+      const int any_mv = __syncthreads_or(tid < nv && zs->mv[tid]);
       if (tid == 0) zs->any_mv = any_mv;
     }
 
@@ -1392,8 +1487,8 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
     for (int e = tid; e < E; e += NT) {
       int base = node_compat_at<BATCH>(a, g, e)
                      ? fit_rows(a.node_free + e * R, a.e_cum + e * R, sh.req, R) : 0;
-      const int allow = row_allowance(sh, Q, a.e_cm + e * Q, a.e_co + e * Q);
-      const int pos = row_pos(sh, Q, a.e_cm + e * Q);
+      const int allow = row_allowance<false, SPARSE>(sh, nq, a.e_cm + e * Q, a.e_co + e * Q);
+      const int pos = row_pos<SPARSE>(sh, nq, a.e_cm + e * Q);
       e_full[e] = min(base, min(allow, pos));
       e_boot[e] = min(base, allow);
       if (e_boot[e] > 0) { any_boot = 1; my_first = min(my_first, e); }
@@ -1417,9 +1512,11 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
         placed += (unsigned)take;
         if (take > 0) {
           for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = wadd(a.e_cum[e * R + r], wmul(take, sh.req[r]));
-          for (int q = 0; q < Q; ++q) {
-            if (sh.mg[q]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], take);
-            if (sh.og[q] && sh.kq[q] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
+          for (int k = 0; k < nq; ++k) {
+            const int q = qcol_of<SPARSE>(sh, k);
+            if constexpr (SPARSE) if (q < 0) continue;
+            if (sh.mg[k]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], take);
+            if (sh.og[k] && sh.kq[k] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
           }
         }
       }
@@ -1451,8 +1548,8 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
       }
       for (int o = 16; o > 0; o >>= 1) kbest = max(kbest, __shfl_xor_sync(FULL, kbest, o));
       if (lane == 0) {
-        const int allow = row_allowance(sh, Q, a.c_cm + m * Q, a.c_co + m * Q);
-        const int pos = row_pos(sh, Q, a.c_cm + m * Q);
+        const int allow = row_allowance<false, SPARSE>(sh, nq, a.c_cm + m * Q, a.c_co + m * Q);
+        const int pos = row_pos<SPARSE>(sh, nq, a.c_cm + m * Q);
         c_full[m] = min(kbest, min(allow, pos));
         c_boot[m] = min(kbest, allow);
       }
@@ -1499,13 +1596,18 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
         for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(take, sh.req[r]));
         a.c_zc_bits[m] = czc & g_zc;
         a.c_gbits[(size_t)m * W + (g >> 5)] |= 1u << (g & 31);
-        for (int q = 0; q < Q; ++q) {
-          if (sh.mg[q]) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
-          if (sh.og[q] && sh.kq[q] == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
+        for (int k = 0; k < nq; ++k) {
+          const int q = qcol_of<SPARSE>(sh, k);
+          if constexpr (SPARSE) if (q < 0) continue;
+          if (sh.mg[k]) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
+          if (sh.og[k] && sh.kq[k] == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
         }
         if constexpr (ZONE)
-          for (int v = 0; v < a.V; ++v)
-            if (zs->mv[v]) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], take);
+          for (int k = 0; k < nv; ++k) {
+            const int v = SPARSE ? zs->vcol[k] : k;
+            if constexpr (SPARSE) if (v < 0) continue;
+            if (zs->mv[k]) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], take);
+          }
       }
     }
     if (tid == 0) sh.cap2 = any_owned2 ? ((boot2 && !has_e_boot && !has_c_boot) ? 1 : 0) : BIG;
@@ -1573,12 +1675,28 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
           a.c_zc_bits[m] = new_bits;
           for (int w = 0; w < W; ++w) a.c_gbits[(size_t)m * W + w] = (w == (g >> 5)) ? (1u << (g & 31)) : 0u;
           a.c_pool[m] = p;
-          for (int q = 0; q < Q; ++q) {
-            a.c_cm[m * Q + q] = sh.mg[q] ? take_j : 0;
-            a.c_co[m * Q + q] = (take_j > 0 && sh.og[q] && sh.kq[q] == 1) ? 1 : 0;
+          if constexpr (SPARSE) {
+            // the row is zero (m >= used): add the view's columns onto it
+            for (int k = 0; k < nq; ++k) {
+              const int q = sh.qcol[k];
+              if (q < 0) continue;
+              a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], sh.mg[k] ? take_j : 0);
+              a.c_co[m * Q + q] =
+                  wadd(a.c_co[m * Q + q], (take_j > 0 && sh.og[k] && sh.kq[k] == 1) ? 1 : 0);
+            }
+            if constexpr (ZONE)
+              for (int k = 0; k < nv; ++k) {
+                const int v = zs->vcol[k];
+                if (v >= 0) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], zs->mv[k] ? take_j : 0);
+              }
+          } else {
+            for (int q = 0; q < Q; ++q) {
+              a.c_cm[m * Q + q] = sh.mg[q] ? take_j : 0;
+              a.c_co[m * Q + q] = (take_j > 0 && sh.og[q] && sh.kq[q] == 1) ? 1 : 0;
+            }
+            if constexpr (ZONE)
+              for (int v = 0; v < a.V; ++v) a.c_vm[m * a.V + v] = zs->mv[v] ? take_j : 0;
           }
-          if constexpr (ZONE)
-            for (int v = 0; v < a.V; ++v) a.c_vm[m * a.V + v] = zs->mv[v] ? take_j : 0;
           c_take[m] = take_j;
           placed += (unsigned)take_j;
         }
@@ -1606,8 +1724,16 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
         for (int m = tid; m < sh.used; m += NT)
           if (c_take[m] > 0) claim_contrib(*zs, zs->contrib, a.Z, a.c_zc_bits[m], c_take[m]);
         __syncthreads();
-        for (int i = tid; i < a.V * a.Z; i += NT)
-          if (zs->mv[i / a.Z]) a.v_count[i] = wadd(a.v_count[i], zs->contrib[i % a.Z]);
+        if constexpr (SPARSE) {
+          for (int i = tid; i < nv * a.Z; i += NT) {
+            const int k = i / a.Z, v = zs->vcol[k];
+            if (v >= 0 && zs->mv[k])
+              a.v_count[v * a.Z + i % a.Z] = wadd(a.v_count[v * a.Z + i % a.Z], zs->contrib[i % a.Z]);
+          }
+        } else {
+          for (int i = tid; i < a.V * a.Z; i += NT)
+            if (zs->mv[i / a.Z]) a.v_count[i] = wadd(a.v_count[i], zs->contrib[i % a.Z]);
+        }
       }
     }
     for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = c_take[m];
@@ -1617,6 +1743,7 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if (tid == 0) *a.used = sh.used;
 }
 
+#ifndef FFD_SPARSE_ONLY
 // ---- K5: verdict pack --------------------------------------------------------
 //
 // Replaces karpenter_tpu/solver/tpu/consolidate.py:291 _pack_verdicts: per
@@ -1796,9 +1923,75 @@ __global__ void __launch_bounds__(NT) meta_finish_kernel(
   }
 }
 
-}  // namespace
+// ---- K9: the dense output pack ------------------------------------------------
+//
+// Replaces karpenter_tpu/solver/backend.py:511 _pack_outputs: every output
+// the host decodes, flattened into ONE int32 buffer — [overflow flag,
+// take_e as uint16 pairs, take_c as uint16 pairs (each padded to an even
+// count), leftover [S], c_mask [M, T] as ceil(T/32) uint32 words per row
+// (bit i of word w = type 32w + i), c_zc_bits [M], c_gbits [M, Wg], c_pool
+// [M], c_cum [M, R], used] — the wire of TorchSolver(device_decode=False)
+// and of shapes past the uint16 delta coding. The flag is set when a take
+// exceeds 65535 (the host then re-fetches wide).
+// What bounds it on the H100: bytes — each input read once, about half as
+// many words written for the take grids; no arithmetic to speak of.
+// Design: one thread per output word over a grid-stride loop (the word's
+// region found from the offsets), the flag zeroed by the launcher and OR-ed
+// in once per block.
 
-extern "C" {
+constexpr int PT = 256;  // threads of the output pack
+
+__device__ __forceinline__ unsigned take_pair(const int* x, long long n, long long j, int& over) {
+  const long long i = 2 * j;
+  const int lo = x[i], hi = i + 1 < n ? x[i + 1] : 0;
+  over |= (lo > 65535) | (hi > 65535);
+  return ((unsigned)lo & 0xFFFFu) | (((unsigned)hi & 0xFFFFu) << 16);
+}
+
+__global__ void __launch_bounds__(PT) pack_outputs_kernel(
+    const int* take_e, const int* take_c, const int* leftover, const unsigned char* c_mask,
+    const unsigned* c_zc, const unsigned* c_gbits, const int* c_pool, const int* c_cum,
+    const int* used, unsigned* out, int S, int E, int M, int T, int Wg, int R) {
+  const long long ne = (long long)S * E, nc = (long long)S * M;
+  const int W = (T + 31) / 32;
+  const long long o_c = 1 + (ne + 1) / 2, o_lo = o_c + (nc + 1) / 2, o_cm = o_lo + S;
+  const long long o_zc = o_cm + (long long)M * W, o_gb = o_zc + M, o_pool = o_gb + (long long)M * Wg;
+  const long long o_cum = o_pool + M, o_used = o_cum + (long long)M * R, total = o_used + 1;
+  int over = 0;
+  for (long long i = (long long)blockIdx.x * PT + threadIdx.x + 1; i < total;
+       i += (long long)gridDim.x * PT) {
+    unsigned v;
+    if (i < o_c) {
+      v = take_pair(take_e, ne, i - 1, over);
+    } else if (i < o_lo) {
+      v = take_pair(take_c, nc, i - o_c, over);
+    } else if (i < o_cm) {
+      v = (unsigned)leftover[i - o_lo];
+    } else if (i < o_zc) {
+      const long long m = (i - o_cm) / W;
+      const int w = (int)((i - o_cm) % W);
+      const unsigned char* row = c_mask + m * T;
+      v = 0u;
+      for (int b = 0; b < 32 && w * 32 + b < T; ++b) v |= (row[w * 32 + b] != 0 ? 1u : 0u) << b;
+    } else if (i < o_gb) {
+      v = c_zc[i - o_zc];
+    } else if (i < o_pool) {
+      v = c_gbits[i - o_gb];
+    } else if (i < o_cum) {
+      v = (unsigned)c_pool[i - o_pool];
+    } else if (i < o_used) {
+      v = (unsigned)c_cum[i - o_cum];
+    } else {
+      v = (unsigned)*used;
+    }
+    out[i] = v;
+  }
+  if (__syncthreads_or(over) && threadIdx.x == 0) atomicOr(out, 1u);
+}
+
+#endif  // FFD_SPARSE_ONLY
+
+}  // namespace
 
 // The scan's 32 input arrays (ARG_SPEC order without pool_usage0,
 // node_q_member, node_q_owner and v_count0, which seed the carry) from p[0..31]
@@ -1837,30 +2030,127 @@ static bool scan_limits_ok(const ScanArgs& a, bool zone) {
   return !(zone && (a.V > MAX_V || a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P));
 }
 
-// ptrs: the 32 scan inputs, then the carry (e_cum, c_cum, c_mask, c_zc_bits,
-// c_gbits, c_pool, used, p_usage, e_cm, e_co, c_cm, c_co, v_count, v_owner_z,
-// c_vm, c_vo), take_e, take_c, leftover, events, scratch. dims: S, G, T, E,
-// P, R, Q, W, M, V, Z, zone (0: the fast-branch instance, 1: the instance
-// with the zoned branch).
-int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 53) return (int)cudaErrorInvalidValue;
+// The sparse launchers take the dense launcher's pointers and dims, then
+// run_q_idx [S, Kq] and run_v_idx [S, Kv] (two more pointers) and Kq, Kv
+// (two more dims). Returns false when the view is wider than the shared
+// slots.
+template <bool SPARSE>
+static bool fill_sparse(ScanArgs& a, void** p, int n, const int* d, int nd) {
+  if constexpr (SPARSE) {
+    a.run_q_idx = (const int*)p[n - 2];
+    a.run_v_idx = (const int*)p[n - 1];
+    a.Kq = d[nd - 2];
+    a.Kv = d[nd - 1];
+    return a.Kq >= 0 && a.Kq <= MAX_Q && a.Kv >= 0 && a.Kv <= MAX_V;
+  } else {
+    return true;
+  }
+}
+
+// K1 (and K1s). ptrs: the 32 scan inputs, then the carry (e_cum, c_cum,
+// c_mask, c_zc_bits, c_gbits, c_pool, used, p_usage, e_cm, e_co, c_cm, c_co,
+// v_count, v_owner_z, c_vm, c_vo), take_e, take_c, leftover, events,
+// scratch. dims: S, G, T, E, P, R, Q, W, M, V, Z, zone (0: the fast-branch
+// instance, 1: the instance with the zoned branch).
+template <bool SPARSE>
+static int scan_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 53 + 2 * SPARSE) return (int)cudaErrorInvalidValue;
   ScanArgs a{};
   fill_scan_inputs(a, p, d);
   fill_scan_state(a, p + 32);
   a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
   a.events = (int*)p[51]; a.scratch = (int*)p[52];
   const bool zone = d[11] != 0;
-  if (!scan_limits_ok(a, zone)) return (int)cudaErrorInvalidValue;
+  if (!scan_limits_ok(a, zone) || !fill_sparse<SPARSE>(a, p, n, d, 12 + 2 * SPARSE))
+    return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true, false, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, false, false, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, false, false, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, false, false, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K6 (and K6s). ptrs: as scan_launch (the 32 scan inputs, the carry,
+// take_e, take_c, leftover, events, scratch), then run_ladder [S, Lw] and
+// the attempt count (a zeroed int32 scalar); dims: as scan_launch, then Lw
+// and the offset of the attempt's rows in the scratch (take_e [E], take_c
+// [M], leftover [S] after the scan's own).
+template <bool SPARSE>
+static int ladder_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 55 + 2 * SPARSE) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.out_take_e = (int*)p[48]; a.out_take_c = (int*)p[49]; a.out_leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52]; a.run_ladder = (const int*)p[53];
+  a.attempts = (int*)p[54];
+  const bool zone = d[11] != 0;
+  a.Lw = d[12];
+  const int off = d[13];
+  if (!scan_limits_ok(a, zone) || a.Lw < 1 || off < 0 ||
+      !fill_sparse<SPARSE>(a, p, n, d, 14 + 2 * SPARSE))
+    return (int)cudaErrorInvalidValue;
+  a.take_e = a.scratch + off;
+  a.take_c = a.take_e + a.E;
+  a.leftover = a.take_c + a.M;
+  if (zone)
+    ffd_scan_kernel<true, false, true, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  else
+    ffd_scan_kernel<false, false, true, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K7 (and K7s). ptrs: as scan_launch (the 32 scan inputs, the carry — a
+// fresh state for ffd_solve_ckpt, clones of the checkpoint for ffd_resume —
+// take_e, take_c, leftover, events, scratch), then the ring's 16 fields
+// (FFDState order, each [n_ckpt, ...], zeroed) and its prefix [n_ckpt]
+// (-1); dims: as scan_launch, then ckpt_every and n_ckpt.
+template <bool SPARSE>
+static int ckpt_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 70 + 2 * SPARSE) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52];
+  for (int f = 0; f < 16; ++f) a.ring[f] = (unsigned char*)p[53 + f];
+  a.ring_prefix = (int*)p[69];
+  const bool zone = d[11] != 0;
+  a.ck_every = d[12];
+  a.n_ckpt = d[13];
+  if (!scan_limits_ok(a, zone) || a.ck_every < 1 || a.n_ckpt < 1 ||
+      !fill_sparse<SPARSE>(a, p, n, d, 14 + 2 * SPARSE))
+    return (int)cudaErrorInvalidValue;
+  if (zone)
+    ffd_scan_kernel<true, false, false, true, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  else
+    ffd_scan_kernel<false, false, false, true, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+#ifdef FFD_SPARSE_ONLY
+// the sparse library (ffd_sparse_kernels.cu): K1s, K6s, K7s
+int ffd_scan_sparse_launch(void** p, int n, const int* d, void* stream) {
+  return scan_launch<true>(p, n, d, stream);
+}
+
+int ffd_ladder_sparse_launch(void** p, int n, const int* d, void* stream) {
+  return ladder_launch<true>(p, n, d, stream);
+}
+
+int ffd_ckpt_sparse_launch(void** p, int n, const int* d, void* stream) {
+  return ckpt_launch<true>(p, n, d, stream);
+}
+#else
+int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
+  return scan_launch<false>(p, n, d, stream);
 }
 
 // K4. ptrs: the 32 scan inputs; the carry seeds pool_usage0, node_q_member,
 // node_q_owner, b_v_count0 [B, V, Z], node_cand [E], cand_member [B, NC]
-// (bool); the carry [B, ...] (FFDState order, as ffd_scan_launch);
+// (bool); the carry [B, ...] (FFDState order, as scan_launch);
 // b_run_count [B, S], leftover [B, S], events [B], scratch [B, row_words].
 // dims: S, G, T, E, P, R, Q, W, M, V, Z, zone, B, NC, row_words, take_off
 // (the offset of the row's take rows in its scratch).
@@ -1879,62 +2169,18 @@ int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
   a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
   if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
   if (zone)
-    ffd_scan_kernel<true, true, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<true, true, false, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
   else
-    ffd_scan_kernel<false, true, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
+    ffd_scan_kernel<false, true, false, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// K6. ptrs: as ffd_scan_launch (the 32 scan inputs, the carry, take_e,
-// take_c, leftover, events, scratch), then run_ladder [S, Lw] and the
-// attempt count (a zeroed int32 scalar); dims: as
-// ffd_scan_launch, then Lw and the offset of the attempt's rows in the
-// scratch (take_e [E], take_c [M], leftover [S] after the scan's own).
 int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 55) return (int)cudaErrorInvalidValue;
-  ScanArgs a{};
-  fill_scan_inputs(a, p, d);
-  fill_scan_state(a, p + 32);
-  a.out_take_e = (int*)p[48]; a.out_take_c = (int*)p[49]; a.out_leftover = (int*)p[50];
-  a.events = (int*)p[51]; a.scratch = (int*)p[52]; a.run_ladder = (const int*)p[53];
-  a.attempts = (int*)p[54];
-  const bool zone = d[11] != 0;
-  a.Lw = d[12];
-  const int off = d[13];
-  if (!scan_limits_ok(a, zone) || a.Lw < 1 || off < 0) return (int)cudaErrorInvalidValue;
-  a.take_e = a.scratch + off;
-  a.take_c = a.take_e + a.E;
-  a.leftover = a.take_c + a.M;
-  if (zone)
-    ffd_scan_kernel<true, false, true, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  else
-    ffd_scan_kernel<false, false, true, false><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return ladder_launch<false>(p, n, d, stream);
 }
 
-// K7. ptrs: as ffd_scan_launch (the 32 scan inputs, the carry — a fresh
-// state for ffd_solve_ckpt, clones of the checkpoint for ffd_resume —
-// take_e, take_c, leftover, events, scratch), then the ring's 16 fields
-// (FFDState order, each [n_ckpt, ...], zeroed) and its prefix [n_ckpt]
-// (-1); dims: as ffd_scan_launch, then ckpt_every and n_ckpt.
 int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 70) return (int)cudaErrorInvalidValue;
-  ScanArgs a{};
-  fill_scan_inputs(a, p, d);
-  fill_scan_state(a, p + 32);
-  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
-  a.events = (int*)p[51]; a.scratch = (int*)p[52];
-  for (int f = 0; f < 16; ++f) a.ring[f] = (unsigned char*)p[53 + f];
-  a.ring_prefix = (int*)p[69];
-  const bool zone = d[11] != 0;
-  a.ck_every = d[12];
-  a.n_ckpt = d[13];
-  if (!scan_limits_ok(a, zone) || a.ck_every < 1 || a.n_ckpt < 1) return (int)cudaErrorInvalidValue;
-  if (zone)
-    ffd_scan_kernel<true, false, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  else
-    ffd_scan_kernel<false, false, false, true><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return ckpt_launch<false>(p, n, d, stream);
 }
 
 // K5. ptrs: leftover [B, S], used [B], c_zc_bits [B, M], c_mask [B, M, T]
@@ -1980,5 +2226,27 @@ int claim_meta_launch(void** p, int n, const int* d, void* stream) {
                                        (int*)p[6], M, Wt, cap_u);
   return (int)cudaGetLastError();
 }
+
+
+// K9. ptrs: take_e [S, E], take_c [S, M], leftover [S], c_mask [M, T]
+// (bool), c_zc_bits [M], c_gbits [M, Wg], c_pool [M], c_cum [M, R], used,
+// out (solver/cuda/ffd.py pack_words sizes it); dims: S, E, M, T, Wg, R
+int pack_outputs_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 10) return (int)cudaErrorInvalidValue;
+  const int S = d[0], E = d[1], M = d[2], T = d[3], Wg = d[4], R = d[5];
+  const long long total = 1 + ((long long)S * E + 1) / 2 + ((long long)S * M + 1) / 2 + S +
+                          (long long)M * ((T + 31) / 32 + 1 + Wg + 1 + R) + 1;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(p[9], 0, sizeof(unsigned), st);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (int)std::min<long long>((total + PT - 1) / PT, 132 * 8);
+  pack_outputs_kernel<<<blocks, PT, 0, st>>>(
+      (const int*)p[0], (const int*)p[1], (const int*)p[2], (const unsigned char*)p[3],
+      (const unsigned*)p[4], (const unsigned*)p[5], (const int*)p[6], (const int*)p[7],
+      (const int*)p[8], (unsigned*)p[9], S, E, M, T, Wg, R);
+  return (int)cudaGetLastError();
+}
+
+#endif  // FFD_SPARSE_ONLY
 
 }  // extern "C"

@@ -28,8 +28,9 @@ redispatch included.
 invariants and equal the JAX ledger's counts on the same solves.
 
 Residency classes besides the args: the resume donor records
-(`put_checkpoint`, backend._plan_resume) and the relax ladder's rung tables
-(`put_ladder`, backend._ladder_arg). All die with their bucket on
+(`put_checkpoint`, backend._plan_resume), the relax ladder's rung tables
+(`put_ladder`, backend._ladder_arg) and the sparse scans' index-table
+pairs (`put_sparse`, backend._sparse_arg). All die with their bucket on
 `invalidate()` or eviction.
 """
 
@@ -150,6 +151,12 @@ class ArgumentArena:
         # relax-ladder residency class (backend._ladder_arg): per-bucket
         # device-resident run_ladder tables, keyed on content digest
         self._ladders: Dict[tuple, Tuple[bytes, object]] = {}
+        # sparse-constraint residency class (backend._sparse_arg): per-
+        # bucket device-resident run_q_idx/run_v_idx pairs, keyed on a token
+        # of the encode core rev plus the content digests, so a re-encoded
+        # fleet whose constraint layout is unchanged reuses the tables with
+        # zero upload
+        self._sparse: Dict[tuple, Tuple[bytes, object]] = {}
         # ARG_SPEC indices the LAST adopt uploaded (() on an exact hit)
         self.last_stale: tuple = ()
         self.stats: Dict[str, int] = {
@@ -158,12 +165,13 @@ class ArgumentArena:
         }
 
     def invalidate(self) -> None:
-        """Drop every resident tensor + tag AND the checkpoints and ladder
-        tables. Safe to call any time: the next adopt pays one full packed
-        upload and the next solve runs cold."""
+        """Drop every resident tensor + tag AND the checkpoints, ladder
+        tables and sparse index tables. Safe to call any time: the next
+        adopt pays one full packed upload and the next solve runs cold."""
         self._buckets.clear()
         self._ckpts.clear()
         self._ladders.clear()
+        self._sparse.clear()
         self._bytes.clear()
         self.last_stale = ()
         self.stats["invalidations"] += 1
@@ -183,6 +191,8 @@ class ArgumentArena:
         self._ckpts.pop(key, None)
         for lk in [lk for lk in self._ladders if lk[0] == key]:
             self._ladders.pop(lk, None)
+        for sk in [sk for sk in self._sparse if sk[0] == key]:
+            self._sparse.pop(sk, None)
         self._bytes.pop(key, None)
         self.stats["evictions"] += 1
 
@@ -238,6 +248,31 @@ class ArgumentArena:
         None (the caller uploads and re-records)."""
         rec = self._ladders.get((key, host_table.shape))
         if rec is None or rec[0] != _digest(host_table):
+            return None
+        return rec[1]
+
+    @staticmethod
+    def _sparse_token(core_rev: int, run_q_idx: np.ndarray, run_v_idx: np.ndarray) -> bytes:
+        """Staleness token of a sparse index-table pair: the encode core rev
+        (a core rebuild mints a fresh one) plus the content digests."""
+        return str(int(core_rev)).encode() + _digest(run_q_idx) + _digest(run_v_idx)
+
+    def put_sparse(self, key: tuple, core_rev: int, run_q_idx: np.ndarray,
+                   run_v_idx: np.ndarray, dev_pair) -> None:
+        """Record a bucket's device-resident sparse index pair (one per
+        bucket and shape pair), counted under the budget as "sparse"."""
+        shp = (run_q_idx.shape, run_v_idx.shape)
+        self._sparse[(key, shp)] = (self._sparse_token(core_rev, run_q_idx, run_v_idx), dev_pair)
+        self._account(key, "sparse", sum(
+            _nbytes(d) for sk, v in self._sparse.items() if sk[0] == key for d in v[1]))
+        self._enforce_budget(key)
+
+    def get_sparse(self, key: tuple, core_rev: int, run_q_idx: np.ndarray,
+                   run_v_idx: np.ndarray):
+        """The bucket's resident sparse index pair if its token matches,
+        else None (the caller uploads and re-records)."""
+        rec = self._sparse.get((key, (run_q_idx.shape, run_v_idx.shape)))
+        if rec is None or rec[0] != self._sparse_token(core_rev, run_q_idx, run_v_idx):
             return None
         return rec[1]
 

@@ -2,17 +2,27 @@
 karpenter_tpu/solver/backend.py for the provisioning solve.
 
 `TorchSolver` is the counterpart of `TPUSolver()` at its defaults with
-sparse constraint tables off, explain off, no mesh sharding and no cohort
-fusion: encode -> padded kernel args -> upload through the argument arena
-(solver/arena.py: only stale entries, packed into one buffer, one copy,
-one unpack launch; an exact repeat uploads nothing) -> the checkpointed FFD
-scan, with the zoned event engine when the solve has zone/capacity-type
-domain sigs (solver/cuda/ffd.py ffd_solve_ckpt) -> on-device delta
-compaction -> ONE fetch -> decode. A solve whose run list shares a prefix
-with the bucket's previous solve replays only the suffix from a ring
-checkpoint or the previous final state (`_plan_resume`, ffd_resume) and
-stitches the prefix rows back in on the host. `arena=False` uploads per
-array and `resume=False` runs the plain scan, as in the JAX backend.
+explain off, no mesh sharding and no cohort fusion: encode -> padded
+kernel args -> upload through the argument arena (solver/arena.py: only
+stale entries, packed into one buffer, one copy, one unpack launch; an
+exact repeat uploads nothing) -> the checkpointed FFD scan, with the zoned
+event engine when the solve has zone/capacity-type domain sigs
+(solver/cuda/ffd.py ffd_solve_ckpt) -> on-device delta compaction -> ONE
+fetch -> decode. A solve whose run list shares a prefix with the bucket's
+previous solve replays only the suffix from a ring checkpoint or the
+previous final state (`_plan_resume`, ffd_resume) and stitches the prefix
+rows back in on the host. `arena=False` uploads per array and
+`resume=False` runs the plain scan, as in the JAX backend.
+
+`sparse="auto"` (the default) evaluates the hostname and zone-sig axes
+through run-major index tables (encode.sparse_run_tables, the arena's
+"sparse" residency class) whenever encode.use_sparse_constraints passes:
+every dispatch, the ladder's and a resume's included, then takes the
+scan's sparse twin (ffd_solve_ckpt_sparse, ffd_resume_sparse, ...). "on"
+takes it for any fleet with Q + V > 0, "off" never; decisions are the
+same. `device_decode=False`, and any shape past the uint16 delta coding,
+fetch the dense output pack (cuda/ffd.py pack_outputs) instead of the
+delta compaction, as the JAX backend's `_pack_outputs`.
 
 Respect-mode preferences (ScheduleAnyway spreads, weighted pod
 (anti-)affinity, preferred node affinity; solver/relax.py) solve through
@@ -39,7 +49,15 @@ from ..scheduling.requirements import IN, Requirement, Requirements
 from ..utils.resources import Resources
 from .arena import ArgumentArena, TransferLedger
 from .cuda.ffd import ARG_INDEX
-from .encode import EncodedInput, UnpackableInput, _pod_signature, encode, quantize_input
+from .encode import (
+    EncodedInput,
+    UnpackableInput,
+    _pod_signature,
+    encode,
+    quantize_input,
+    sparse_run_tables,
+    use_sparse_constraints,
+)
 
 
 class Solver(abc.ABC):
@@ -444,6 +462,15 @@ def _pack_outputs_wide(out) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def _pack_outputs(out) -> torch.Tensor:
+    """The dense output pack (JAX backend.py:511): every host-decoded
+    output in ONE int32 buffer, the take grids as uint16 pairs behind an
+    overflow flag (cuda/ffd.py pack_outputs)."""
+    from .cuda.ffd import pack_outputs
+
+    return pack_outputs(out.take_e, out.take_c, out.leftover, out.state)
+
+
 def _unpack_flat(flat: np.ndarray, shapes: dict) -> dict:
     """Host-side inverse of the wide pack."""
     res = {}
@@ -628,12 +655,21 @@ class TorchSolver(Solver):
     `arena_budget_mb` > 0 bounds its residency. `resume` (forced off
     without the arena) harvests a checkpoint ring every `ckpt_every` scan
     steps into `ckpt_slots` slots on every cold dispatch and replays only
-    the run suffix of a later solve that shares a prefix with it. The
-    defaults are TPUSolver's."""
+    the run suffix of a later solve that shares a prefix with it. `sparse`
+    ("auto" | "on" | "off") picks the sparse scan twins by the density gate,
+    for any constrained fleet, or never; `device_decode=False` fetches the
+    dense output pack. The defaults are TPUSolver's."""
 
     def __init__(self, max_claims: int = 1024, device=None, relax_ladder: bool = True,
                  arena: bool = True, resume: bool = True, ckpt_every: int = 16,
-                 ckpt_slots: int = 4, arena_budget_mb: int = 0):
+                 ckpt_slots: int = 4, arena_budget_mb: int = 0, sparse: str = "auto",
+                 device_decode: bool = True):
+        if sparse not in ("auto", "on", "off"):
+            raise ValueError(f"sparse must be auto/on/off, got {sparse!r}")
+        self.sparse = sparse
+        # the claim-delta fetch (compact_takes + claim_meta); False = the
+        # dense output pack
+        self.device_decode = bool(device_decode)
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -646,7 +682,7 @@ class TorchSolver(Solver):
         self.stats: Dict[str, int] = {
             "device_solves": 0, "wide_refetches": 0, "claim_doublings": 0,
             "ladder_solves": 0, "relax_dispatches": 0, "ladder_rungs_used": 0,
-            "resume_solves": 0, "resume_runs_skipped": 0,
+            "resume_solves": 0, "resume_runs_skipped": 0, "sparse_dispatches": 0,
         }
         # every host->device and device->host byte, per solve and in all
         self.ledger = TransferLedger()
@@ -812,11 +848,17 @@ class TorchSolver(Solver):
         args = self._upload(host_args, prov, enc2.tenant_id)
         dev_lad = self._ladder_arg(host_args, pad_ladder(ladder_rows, dims["Sp"]),
                                    enc2.tenant_id)
+        sparse = None
+        if self._sparse_gate(enc2):
+            # each row the union over the run's base and rung groups
+            sq, sv = sparse_run_tables(enc2, dims["Sp"], run_ladder=ladder_rows)
+            sparse = self._sparse_arg(host_args, enc2, sq, sv, ns=enc2.tenant_id)
         n_orig = len(pods0)
         M0 = initial_claim_bucket(n_orig, self.max_claims)
-        flat_dev, unpack, _, _ = self._dispatch(args, M0, n_orig, zone, ladder=dev_lad)
+        flat_dev, unpack, _, _ = self._dispatch(args, M0, n_orig, zone, ladder=dev_lad,
+                                                sparse=sparse)
         return dict(enc=enc2, args=args, dev_lad=dev_lad, flat_dev=flat_dev, unpack=unpack,
-                    dims=dims, M0=M0, n_orig=n_orig, zone=zone, rungs=rungs)
+                    dims=dims, M0=M0, n_orig=n_orig, zone=zone, rungs=rungs, sparse=sparse)
 
     def _ladder_arg(self, host_args, lad_host: np.ndarray, ns=None) -> torch.Tensor:
         """Upload (or reuse) the run_ladder table: with the arena it is a
@@ -844,7 +886,7 @@ class TorchSolver(Solver):
         try:
             res = self._collect(lad["enc"], lad["dims"], lad["args"], lad["flat_dev"],
                                 lad["unpack"], lad["M0"], lad["n_orig"], lad["zone"],
-                                ladder=lad["dev_lad"])
+                                ladder=lad["dev_lad"], sparse=lad["sparse"])
         finally:
             self.ledger.end_solve()
         if res is not None and min_values_post_check(qinp, res):
@@ -886,35 +928,73 @@ class TorchSolver(Solver):
         self.ledger.record_upload(up_bytes, up_arrays, msgs=up_arrays)
         return tuple(out)
 
+    def _sparse_gate(self, enc: EncodedInput) -> bool:
+        """Whether this solve evaluates constraints through the compacted
+        V/Q index tables."""
+        if self.sparse == "off":
+            return False
+        if self.sparse == "on":
+            return (enc.Q + enc.V) > 0
+        return use_sparse_constraints(enc)
+
+    def _sparse_arg(self, host_args, enc: EncodedInput, run_q_idx: np.ndarray,
+                    run_v_idx: np.ndarray, ns=None):
+        """Upload (or reuse) the sparse index pair: with the arena a
+        per-bucket residency class whose token is the encode core rev plus
+        the tables' digests (two messages when it uploads)."""
+        from .convert import array_to_torch
+
+        key = None
+        if self.arena is not None:
+            key = self.arena.bucket_key(host_args, ns=ns)
+            dev = self.arena.get_sparse(key, enc.core_rev, run_q_idx, run_v_idx)
+            if dev is not None:
+                return dev
+        dev = (array_to_torch(run_q_idx, self.device), array_to_torch(run_v_idx, self.device))
+        self.ledger.record_upload(run_q_idx.nbytes + run_v_idx.nbytes, 2, msgs=2)
+        if key is not None:
+            self.arena.put_sparse(key, enc.core_rev, run_q_idx, run_v_idx, dev)
+        return dev
+
     def _dispatch(self, args, M: int, total_pods: int, zone_engine: bool, ladder=None,
-                  harvest: bool = False):
+                  harvest: bool = False, sparse=None):
         """Scan + output packing: the ladder scan when `ladder` holds a rung
         table, the checkpointed scan when `harvest` (and resume) asks for a
-        ring, else the plain scan. Returns (flat device buffer, unpack fn,
-        FFDOutput, CheckpointRing or None)."""
-        from .cuda.ffd import ffd_solve, ffd_solve_ckpt, ffd_solve_ladder
+        ring, else the plain scan; each through its sparse twin when
+        `sparse` holds the device index pair. Returns (flat device buffer,
+        unpack fn, FFDOutput, CheckpointRing or None)."""
+        from .cuda import ffd
 
         ring = None
-        if ladder is not None:
-            out = ffd_solve_ladder(ladder, *args, max_claims=M, zone_engine=zone_engine)
+        kw = dict(max_claims=M, zone_engine=zone_engine)
+        ring_kw = dict(ckpt_every=self.ckpt_every, n_ckpt=self.ckpt_slots)
+        if sparse is not None:
+            self.stats["sparse_dispatches"] += 1
+            if ladder is not None:
+                out = ffd.ffd_solve_ladder_sparse(ladder, *sparse, *args, **kw)
+            elif harvest and self.resume:
+                out, ring = ffd.ffd_solve_ckpt_sparse(*sparse, *args, **kw, **ring_kw)
+            else:
+                out = ffd.ffd_solve_sparse(*sparse, *args, **kw)
+        elif ladder is not None:
+            out = ffd.ffd_solve_ladder(ladder, *args, **kw)
         elif harvest and self.resume:
-            out, ring = ffd_solve_ckpt(*args, max_claims=M, zone_engine=zone_engine,
-                                       ckpt_every=self.ckpt_every, n_ckpt=self.ckpt_slots)
+            out, ring = ffd.ffd_solve_ckpt(*args, **kw, **ring_kw)
         else:
-            out = ffd_solve(*args, max_claims=M, zone_engine=zone_engine)
+            out = ffd.ffd_solve(*args, **kw)
         flat_dev, unpack = self._pack_dispatch(out, total_pods)
         return flat_dev, unpack, out, ring
 
     def _pack_dispatch(self, out, total_pods: int):
-        """The dispatch's one packed output buffer (the claim delta) and
-        its host-side unpack, which re-fetches wide on overflow."""
+        """The dispatch's one packed output buffer and its host-side unpack,
+        which re-fetches wide on overflow: the claim delta, or the dense
+        output pack with device_decode=False or past the delta's uint16
+        run/target coding (65535 runs, a node+claim axis of 65536)."""
         Sp, Ep = out.take_e.shape
         Mb, Tp = out.state.c_mask.shape
         Wm = (Tp + 31) // 32
         Wg = out.state.c_gbits.shape[1]
         Rr = out.state.c_cum.shape[1]
-        if Sp > 65535 or Ep + Mb > 65535:
-            raise UnsupportedInput("the run or target axis exceeds the uint16 delta coding")
         wide_shapes = {
             "take_e": ((Sp, Ep), "i32"),
             "take_c": ((Sp, Mb), "i32"),
@@ -926,15 +1006,36 @@ class TorchSolver(Solver):
             "c_cum": ((Mb, Rr), "i32"),
             "used": ((), "i32"),
         }
+
+        def refetch_wide() -> dict:
+            self.stats["wide_refetches"] += 1
+            return _unpack_flat(self._fetch(_pack_outputs_wide(out)), wide_shapes)
+
+        if not (self.device_decode and Sp <= 65535 and Ep + Mb <= 65535):
+            tail_shapes = {k: wide_shapes[k] for k in list(wide_shapes)[2:]}
+
+            def unpack_dense(flat: np.ndarray) -> dict:
+                if flat[0]:  # a take past uint16 — re-fetch wide
+                    return refetch_wide()
+                off, f = 1, {}
+                for name in ("take_e", "take_c"):
+                    shape = wide_shapes[name][0]
+                    n = shape[0] * shape[1]
+                    w = (n + 1) // 2
+                    f[name] = flat[off : off + w].view(np.uint16)[:n].astype(np.int32).reshape(shape)
+                    off += w
+                f.update(_unpack_flat(flat[off:], tail_shapes))
+                return f
+
+            return _pack_outputs(out), unpack_dense
+
         cap = delta_capacity(total_pods, Sp, Ep, Mb)
         cap_u = delta_uniq_capacity(Sp, Mb)
         Wt = Wm + 1 + Wg + 1  # meta row: cm_words ++ zc ++ gbits ++ pool
 
         def unpack(flat: np.ndarray) -> dict:
             if flat[0]:  # uint16/capacity overflow — re-fetch wide (rare)
-                self.stats["wide_refetches"] += 1
-                wide = self._fetch(_pack_outputs_wide(out))
-                return _unpack_flat(wide, wide_shapes)
+                return refetch_wide()
             n = int(flat[1])
             off = 3
             cnt = flat[off : off + Sp // 2].view(np.uint16)[:Sp]
@@ -990,6 +1091,10 @@ class TorchSolver(Solver):
         # and fetches (closed in finish)
         self.ledger.begin_solve()
         args = self._upload(host_args, prov, enc.tenant_id)
+        sparse_host = sparse = None
+        if self._sparse_gate(enc):
+            sparse_host = sparse_run_tables(enc, dims["Sp"])
+            sparse = self._sparse_arg(host_args, enc, *sparse_host, ns=enc.tenant_id)
         S = dims["S"]
         total_pods = int(sum(len(p) for p in enc.group_pods))
         # claim slots sized from the input, doubled on saturation; the
@@ -998,15 +1103,16 @@ class TorchSolver(Solver):
         plan = self._plan_resume(enc, host_args, M0, S)
         if plan is not None:
             flat_dev, unpack, out, ring = self._dispatch_resume(
-                enc, args, host_args, plan, M0, S, total_pods)
+                enc, args, host_args, plan, M0, S, total_pods, sparse_host)
         else:
             flat_dev, unpack, out, ring = self._dispatch(
-                args, M0, total_pods, zone, harvest=True)
+                args, M0, total_pods, zone, harvest=True, sparse=sparse)
 
         def finish() -> SolverResult:
             try:
                 res = self._collect(enc, dims, args, flat_dev, unpack, M0, total_pods, zone,
-                                    plan=plan, out=out, ring=ring, host_args=host_args)
+                                    plan=plan, out=out, ring=ring, host_args=host_args,
+                                    sparse=sparse)
             finally:
                 self.ledger.end_solve()
             if res is None:
@@ -1066,13 +1172,14 @@ class TorchSolver(Solver):
         return {"k": k, "init": init, "rec": rec}
 
     def _dispatch_resume(self, enc: EncodedInput, args, host_args, plan, M: int, S: int,
-                         total_pods: int):
+                         total_pods: int, sparse_host=None):
         """Dispatch only runs[k:] on top of the planned checkpoint: the
         non-run args are the arena's resident tensors, and only the two
-        suffix run arrays cross. ffd_resume starts from copies of the
+        suffix run arrays cross (under the sparse gate also their index
+        rows, two more messages). ffd_resume starts from copies of the
         checkpoint, so the donor record stays intact."""
         from .convert import array_to_torch
-        from .cuda.ffd import ffd_resume
+        from .cuda.ffd import ffd_resume, ffd_resume_sparse
 
         k = plan["k"]
         Sp2 = self._bucket(S - k, 16, 16)
@@ -1083,9 +1190,21 @@ class TorchSolver(Solver):
         dev_sg = array_to_torch(sg, self.device)
         dev_sc = array_to_torch(sc, self.device)
         self.ledger.record_upload(sg.nbytes + sc.nbytes, 2, msgs=2)
-        out, ring = ffd_resume(plan["init"], dev_sg, dev_sc, *args[2:], max_claims=M,
-                               zone_engine=enc.V > 0, ckpt_every=self.ckpt_every,
-                               n_ckpt=self.ckpt_slots)
+        kw = dict(max_claims=M, zone_engine=enc.V > 0, ckpt_every=self.ckpt_every,
+                  n_ckpt=self.ckpt_slots)
+        if sparse_host is not None:
+            rqi, rvi = sparse_host
+            sq = np.full((Sp2, rqi.shape[1]), -1, rqi.dtype)
+            sv = np.full((Sp2, rvi.shape[1]), -1, rvi.dtype)
+            sq[: S - k] = rqi[k:S]
+            sv[: S - k] = rvi[k:S]
+            dev_sq, dev_sv = array_to_torch(sq, self.device), array_to_torch(sv, self.device)
+            self.ledger.record_upload(sq.nbytes + sv.nbytes, 2, msgs=2)
+            self.stats["sparse_dispatches"] += 1
+            out, ring = ffd_resume_sparse(plan["init"], dev_sq, dev_sv, dev_sg, dev_sc,
+                                          *args[2:], **kw)
+        else:
+            out, ring = ffd_resume(plan["init"], dev_sg, dev_sc, *args[2:], **kw)
         flat_dev, unpack = self._pack_dispatch(out, total_pods)
         return flat_dev, unpack, out, ring
 
@@ -1142,7 +1261,7 @@ class TorchSolver(Solver):
 
     def _collect(self, enc: EncodedInput, dims: dict, args, flat_dev, unpack, M0: int,
                  total_pods: int, zone: bool, ladder=None, plan=None, out=None, ring=None,
-                 host_args=None) -> Optional[SolverResult]:
+                 host_args=None, sparse=None) -> Optional[SolverResult]:
         """Fetch + decode one dispatch, doubling the claim bucket (a
         redispatch on the resident args) while the solve fills it. None when
         the solve needs more than max_claims claims. A resumed dispatch
@@ -1166,7 +1285,7 @@ class TorchSolver(Solver):
             M = min(M * 2, self.max_claims)
             self.stats["claim_doublings"] += 1
             fd, up, out, ring = self._dispatch(args, M, total_pods, zone, ladder=ladder,
-                                               harvest=True)
+                                               harvest=True, sparse=sparse)
             flat = self._fetch(fd)
         c_mask = _unpack_words(f["c_mask_words"], T)
         c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)

@@ -4,10 +4,12 @@ nvcc compiles each source for sm_90a into a shared library with a plain C
 interface on first use; ctypes loads it. One nvcc process per source, all
 started together, so the build takes as long as the slowest source. Each
 library lands in build/karpenter_tpu_torch/ at the repository root, named
-by a hash of its source, so an edited source rebuilds and an unchanged one
-loads at once. ptxas's resource report (registers, spills per kernel) is
-kept beside each library and read into BUILD_LOG either way. A missing nvcc
-or a failed build raises.
+by a hash of its source and of the sources it includes (the sparse scan
+instances are ffd_kernels.cu built a second time with FFD_SPARSE_ONLY), so
+an edited source rebuilds and an unchanged one loads at once. ptxas's
+resource report (registers, spills per kernel) is kept beside each library
+and read into BUILD_LOG either way. A missing nvcc or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -23,13 +25,18 @@ from pathlib import Path
 PKG_ROOT = Path(__file__).resolve().parents[2]
 SOURCES = {
     "ffd_kernels": PKG_ROOT / "csrc" / "ffd_kernels.cu",
+    "ffd_sparse_kernels": PKG_ROOT / "csrc" / "ffd_sparse_kernels.cu",
     "arena_kernels": PKG_ROOT / "csrc" / "arena_kernels.cu",
 }
+# sources a library includes besides its own (their bytes enter its hash)
+INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
-                    "ffd_ckpt_launch"),
+                    "ffd_ckpt_launch", "pack_outputs_launch"),
+    "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
+                           "ffd_ckpt_sparse_launch"),
     "arena_kernels": ("arena_unpack_launch",),
 }
 BUILD_DIR = PKG_ROOT.parent / "build" / "karpenter_tpu_torch"
@@ -55,7 +62,8 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    tag = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = b"".join(f.read_bytes() for f in (SOURCES[name], *INCLUDES.get(name, ())))
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 
 

@@ -38,6 +38,14 @@ attempts (`LadderOutput.attempts`).
 `CheckpointRing` every `ckpt_every` steps, and `ffd_resume` the same scan
 started from a snapshot over a run suffix (the JAX `ffd_solve_ckpt` /
 `ffd_resume`): the solver's default dispatch and its suffix replay.
+
+The sparse twins (`ffd_solve_sparse`, `ffd_solve_ckpt_sparse`,
+`ffd_resume_sparse`, `ffd_solve_ladder_sparse`; the JAX ffd.py:2403-2800)
+take the run-major index tables of SPARSE_ARG_SPEC ahead of the arguments
+and read each run's hostname and zone-sig state through them (`_Run`'s
+view); their outputs, rings included, are the dense scans'.
+`pack_outputs` is the dense output pack (the JAX backend.py:511
+`_pack_outputs`), the fetch of `TorchSolver(device_decode=False)`.
 """
 
 from __future__ import annotations
@@ -92,6 +100,15 @@ ARG_SPEC = (
 )
 
 ARG_INDEX = {name: i for i, name in enumerate(ARG_SPEC)}
+
+# Side tables of the sparse scans (ffd_solve_sparse and its twins), leading
+# their signatures as in the JAX package: per-run active hostname-sig
+# (run_q_idx [S, Kq]) and zone-sig (run_v_idx [S, Kv]) indices, int32, -1
+# padded (solver/encode.py sparse_run_tables).
+SPARSE_ARG_SPEC = (
+    "run_q_idx",
+    "run_v_idx",
+)
 
 # Element type of each argument as host_kernel_args builds it: "u32" arrays
 # cross into torch as int32 views of the same bits.
@@ -176,12 +193,19 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # the checkpointed scan (ffd_solve_ckpt and ffd_resume) is
 # ffd_scan_kernel<false, false, false, true> (ffd_ckpt_fast_scan) and
 # <true, false, false, true> (ffd_ckpt_zoned_scan). Every other instance's
-# fourth flag is false.
+# fourth flag is false. The fifth flag, SPARSE, is true in the sparse
+# instances of K1 (ffd_sparse_fast_scan / ffd_sparse_zoned_scan), K6
+# (ffd_ladder_sparse_*) and K7 (ffd_ckpt_sparse_*, also ffd_resume_sparse),
+# false in every other; pack_outputs is the dense output pack.
 LAUNCHES = {
     "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
     "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
     "ffd_ladder_fast_scan": 0, "ffd_ladder_zoned_scan": 0,
     "ffd_ckpt_fast_scan": 0, "ffd_ckpt_zoned_scan": 0,
+    "ffd_sparse_fast_scan": 0, "ffd_sparse_zoned_scan": 0,
+    "ffd_ladder_sparse_fast_scan": 0, "ffd_ladder_sparse_zoned_scan": 0,
+    "ffd_ckpt_sparse_fast_scan": 0, "ffd_ckpt_sparse_zoned_scan": 0,
+    "pack_outputs": 0,
 }
 
 I32 = torch.int32
@@ -392,9 +416,18 @@ def _ceil_div(a, b):
 
 
 class _Run:
-    """Per-run rows and flags shared by the fast and zoned branches."""
+    """Per-run rows and flags shared by the fast and zoned branches.
 
-    def __init__(self, a, g: int, count: int, W: int):
+    The dense flags (m_g, o_g, m_v, o_v: the group's full Q and V rows) are
+    what the zoned branch reads. The fast branch, the fresh-claim allowance
+    and the `constrained` test read the run's VIEW of the constraint axes:
+    the dense rows themselves, or with the run's index rows (`q_row` [Kq],
+    `v_row` [Kv], -1 padded; ffd.py:540-565) the gathered columns, whose
+    member/owner flags are False on padding. A column the group neither
+    belongs to nor owns contributes the neutral element everywhere, so a
+    superset list decides as the dense rows do."""
+
+    def __init__(self, a, g: int, count: int, W: int, q_row=None, v_row=None):
         dev = a["node_free"].device
         self.g = g
         self.req = a["group_req"][g]
@@ -408,12 +441,95 @@ class _Run:
         self.o_v = a["v_owner"][g]
         self.gword = _gbit_word(g, W, dev)
         self.remaining0 = count if bool(a["group_device"][g]) else 0
-        kq, cq = a["q_kind"], a["q_cap"]
+        self.sparse = q_row is not None
+        if self.sparse:
+            self.qcol, self.qvalid = _valid_cols(q_row)
+            self.vcol, self.vvalid = _valid_cols(v_row)
+            self.mg_k, self.og_k = _gather(self.m_g, q_row), _gather(self.o_g, q_row)
+            self.kq_k, self.cq_k = _gather(a["q_kind"], q_row), _gather(a["q_cap"], q_row)
+            self.mv_k, self.ov_k = _gather(self.m_v, v_row), _gather(self.o_v, v_row)
+            self.vk_k = _gather(a["v_kind"], v_row)
+        else:
+            self.mg_k, self.og_k, self.kq_k, self.cq_k = self.m_g, self.o_g, a["q_kind"], a["q_cap"]
+            self.mv_k, self.ov_k, self.vk_k = self.m_v, self.o_v, a["v_kind"]
+        kq = self.kq_k
+        z = torch.zeros((1, kq.shape[0]), dtype=I32, device=dev)
         self.fresh_allow = _hostname_allowance(
-            torch.zeros((1, kq.shape[0]), dtype=I32, device=dev),
-            torch.zeros((1, kq.shape[0]), dtype=I32, device=dev),
-            kq, cq, self.m_g, self.o_g & (kq != 2),
+            z, z, kq, self.cq_k, self.mg_k, self.og_k & (kq != 2)
         )[0]
+
+    def constrained(self) -> bool:
+        """The group owns a V-axis sig or is a member of an anti sig
+        (ffd.py:1662), read through the run's view."""
+        return bool(torch.any(self.ov_k) | torch.any(self.mv_k & (self.vk_k == 1)))
+
+    def q_cols(self, x):
+        """[X, Q] counters -> the run's view [X, Kq] (zeros on padding)."""
+        return _gather_cols(x, self.qcol, self.qvalid) if self.sparse else x
+
+    def q_add(self, x, vals):
+        """Add view-width deltas back into [X, Q] state (padding dropped)."""
+        return _scatter_add_cols(x, self.qcol, self.qvalid, vals) if self.sparse else x + vals
+
+    def q_open(self, x, vals, is_new):
+        """Claim-open rows: the dense form replaces the (zero) row, the
+        sparse form adds onto it, identical on zeros (ffd.py:553-560)."""
+        if self.sparse:
+            return _scatter_add_cols(x, self.qcol, self.qvalid,
+                                     torch.where(is_new[:, None], vals, 0).to(I32))
+        return torch.where(is_new[:, None], vals, x)
+
+    def v_add(self, x, vals):
+        return _scatter_add_cols(x, self.vcol, self.vvalid, vals) if self.sparse else x + vals
+
+    def v_open(self, x, vals, is_new):
+        if self.sparse:
+            return _scatter_add_cols(x, self.vcol, self.vvalid,
+                                     torch.where(is_new[:, None], vals, 0).to(I32))
+        return torch.where(is_new[:, None], vals, x)
+
+    def v_count_add(self, v_count, contrib):
+        """v_count [V, Z] += member x contrib over the view's V rows
+        (ffd.py:838-846)."""
+        delta = self.mv_k.to(I32)[:, None] * contrib[None, :]
+        if self.sparse:
+            if not self.vcol.numel():
+                return v_count
+            return v_count.index_add(0, self.vcol, delta[self.vvalid])
+        return v_count + delta
+
+
+def _valid_cols(row):
+    """An index row [K] (-1 padded anywhere) -> (the valid columns as int64,
+    the valid mask)."""
+    valid = row >= 0
+    return row[valid].long(), valid
+
+
+def _gather(flags, row):
+    """flags[row] with padding (-1) read as 0 / False; a zero-width axis
+    (Q = 0 or V = 0) is never indexed."""
+    out = torch.zeros(row.shape, dtype=flags.dtype, device=flags.device)
+    valid = row >= 0
+    if bool(valid.any()):
+        out[valid] = flags[row[valid].long()]
+    return out
+
+
+def _gather_cols(x, cols, valid):
+    """x [X, N] -> [X, K]: column cols[j] at each valid slot, 0 elsewhere."""
+    out = torch.zeros((x.shape[0], valid.shape[0]), dtype=x.dtype, device=x.device)
+    if cols.numel():
+        out[:, valid] = x[:, cols]
+    return out
+
+
+def _scatter_add_cols(x, cols, valid, vals):
+    """x [X, N] with vals [X, K] added at column cols[j] of each valid slot
+    (the JAX scatter-add with mode="drop": padding slots drop)."""
+    if not cols.numel():
+        return x
+    return x.index_add(1, cols, vals[:, valid].to(x.dtype))
 
 
 def _count_contrib(a, take_e, take_c, c_zc_after):
@@ -437,7 +553,9 @@ def _count_contrib(a, take_e, take_c, c_zc_after):
 
 
 def _fast_plain(a, st, r: _Run, M: int):
-    """One run of the fast branch (ffd.py:605-855, dense form)."""
+    """One run of the fast branch (ffd.py:605-855), its Q/V-axis state read
+    and written through the run's view (dense rows, or the gathered
+    columns of the sparse form)."""
     dev = a["node_free"].device
     E = a["node_free"].shape[0]
     P = a["pool_type"].shape[0]
@@ -445,23 +563,24 @@ def _fast_plain(a, st, r: _Run, M: int):
     eidx = torch.arange(E, dtype=I32, device=dev)
     type_alloc, type_charge = a["type_alloc"], a["type_charge"]
     offer_zc = a["offer_zc_bits"]
-    kq, cq = a["q_kind"], a["q_cap"]
-    g, req, compat_t, g_zc, m_g, o_g = r.g, r.req, r.compat_t, r.g_zc, r.m_g, r.o_g
+    kq, cq = r.kq_k, r.cq_k
+    g, req, compat_t, g_zc, m_g, o_g = r.g, r.req, r.compat_t, r.g_zc, r.mg_k, r.og_k
     remaining = torch.tensor(r.remaining0, dtype=I32, device=dev)
     m_g_i = m_g.to(I32)
-    m_v_i = r.m_v.to(I32)
+    m_v_i = r.mv_k.to(I32)
     owner_nb = o_g & (kq != 2)
     anti_o = o_g & (kq == 1)
     owned2 = o_g & (kq == 2)
-    tot_m_q = (st["e_cm"].sum(0) + st["c_cm"].sum(0)).to(I32)
+    tot_m_q = (r.q_cols(st["e_cm"]).sum(0) + r.q_cols(st["c_cm"]).sum(0)).to(I32)
     boot_ok = torch.all(~owned2 | (m_g & (tot_m_q == 0)))
     boot2 = torch.any(owned2) & boot_ok
 
     # ---- 1. existing nodes ------------------------------------------------
     e_base = _fit_count(a["node_free"], st["e_cum"], req)
     e_base = torch.where(a["node_compat"][g], e_base, 0).to(I32)
-    e_allow_nb = _hostname_allowance(st["e_cm"], st["e_co"], kq, cq, m_g, owner_nb)
-    e_pos = _pos_cap(st["e_cm"], owned2)
+    e_cm_k = r.q_cols(st["e_cm"])
+    e_allow_nb = _hostname_allowance(e_cm_k, r.q_cols(st["e_co"]), kq, cq, m_g, owner_nb)
+    e_pos = _pos_cap(e_cm_k, owned2)
     e_cap_full = torch.minimum(e_base, torch.minimum(e_allow_nb, e_pos))
     e_cap_boot = torch.minimum(e_base, e_allow_nb)
     has_e_boot = torch.any(e_cap_boot > 0)
@@ -471,8 +590,8 @@ def _fast_plain(a, st, r: _Run, M: int):
     )
     take_e, remaining = _pour(e_cap, remaining)
     st["e_cum"] = st["e_cum"] + take_e[:, None] * req[None, :]
-    st["e_cm"] = st["e_cm"] + take_e[:, None] * m_g_i[None, :]
-    st["e_co"] = st["e_co"] + ((take_e[:, None] > 0) & anti_o[None, :]).to(I32)
+    st["e_cm"] = r.q_add(st["e_cm"], take_e[:, None] * m_g_i[None, :])
+    st["e_co"] = r.q_add(st["e_co"], ((take_e[:, None] > 0) & anti_o[None, :]).to(I32))
 
     # ---- 2. open claims ---------------------------------------------------
     A_bits = offer_zc & g_zc  # [T]
@@ -487,8 +606,9 @@ def _fast_plain(a, st, r: _Run, M: int):
     node_ok = is_open & pair_ok & pool_ok
     k_nt = torch.where(fit_nt & node_ok[:, None], k_nt, 0).to(I32)
     c_base = k_nt.max(dim=1).values
-    c_allow_nb = _hostname_allowance(st["c_cm"], st["c_co"], kq, cq, m_g, owner_nb)
-    c_pos = _pos_cap(st["c_cm"], owned2)
+    c_cm_k = r.q_cols(st["c_cm"])
+    c_allow_nb = _hostname_allowance(c_cm_k, r.q_cols(st["c_co"]), kq, cq, m_g, owner_nb)
+    c_pos = _pos_cap(c_cm_k, owned2)
     c_cap_full = torch.minimum(c_base, torch.minimum(c_allow_nb, c_pos))
     c_cap_boot = torch.minimum(c_base, c_allow_nb)
     has_c_boot = torch.any(c_cap_boot > 0)
@@ -509,9 +629,9 @@ def _fast_plain(a, st, r: _Run, M: int):
     )
     st["c_zc_bits"] = torch.where(added, st["c_zc_bits"] & g_zc, st["c_zc_bits"])
     st["c_gbits"] = st["c_gbits"] | torch.where(added[:, None], r.gword[None, :], 0)
-    st["c_cm"] = st["c_cm"] + take_c[:, None] * m_g_i[None, :]
-    st["c_co"] = st["c_co"] + (added[:, None] & anti_o[None, :]).to(I32)
-    st["c_vm"] = st["c_vm"] + take_c[:, None] * m_v_i[None, :]
+    st["c_cm"] = r.q_add(st["c_cm"], take_c[:, None] * m_g_i[None, :])
+    st["c_co"] = r.q_add(st["c_co"], (added[:, None] & anti_o[None, :]).to(I32))
+    st["c_vm"] = r.v_add(st["c_vm"], take_c[:, None] * m_v_i[None, :])
 
     # ---- 3. new claims, pool by pool in priority order ---------------------
     used = st["used"]
@@ -575,17 +695,11 @@ def _fast_plain(a, st, r: _Run, M: int):
         st["c_zc_bits"] = torch.where(is_new, new_bits, st["c_zc_bits"])
         st["c_gbits"] = torch.where(is_new[:, None], r.gword[None, :], st["c_gbits"])
         st["c_pool"] = torch.where(is_new, p, st["c_pool"]).to(I32)
-        st["c_cm"] = torch.where(
-            is_new[:, None], take_j[:, None] * m_g_i[None, :], st["c_cm"]
+        st["c_cm"] = r.q_open(st["c_cm"], take_j[:, None] * m_g_i[None, :], is_new)
+        st["c_co"] = r.q_open(
+            st["c_co"], ((take_j[:, None] > 0) & anti_o[None, :]).to(I32), is_new
         )
-        st["c_co"] = torch.where(
-            is_new[:, None],
-            ((take_j[:, None] > 0) & anti_o[None, :]).to(I32),
-            st["c_co"],
-        )
-        st["c_vm"] = torch.where(
-            is_new[:, None], take_j[:, None] * m_v_i[None, :], st["c_vm"]
-        )
+        st["c_vm"] = r.v_open(st["c_vm"], take_j[:, None] * m_v_i[None, :], is_new)
         p_usage = st["p_usage"].clone()
         p_usage[p] = p_usage[p] + charge_one * n_new
         st["p_usage"] = p_usage
@@ -598,7 +712,7 @@ def _fast_plain(a, st, r: _Run, M: int):
     # zone-sig membership counts (the group may match other pods' selectors
     # without owning a constraint)
     contrib = _count_contrib(a, take_e, take_c_total, st["c_zc_bits"])
-    st["v_count"] = st["v_count"] + m_v_i[:, None] * contrib[None, :]
+    st["v_count"] = r.v_count_add(st["v_count"], contrib)
     return take_e, take_c_total, remaining
 
 
@@ -1110,25 +1224,31 @@ def _zoned_plain(a, st, r: _Run, M: int):
     return take_e_acc, take_c_acc, torch.tensor(remaining, dtype=I32, device=dev), events
 
 
-def _step_plain(a, st, g: int, count: int, M: int, zone_engine: bool):
+def _step_plain(a, st, g: int, count: int, M: int, zone_engine: bool, rows=None):
     """One scan step (the JAX step_body) for `count` pods of group g: the
     fast branch, or with `zone_engine` the domain event engine when the
-    group owns a V-axis constraint or is a member of an anti sig. Returns
+    group owns a V-axis constraint or is a member of an anti sig. `rows`,
+    the run's (q_row, v_row) index rows, selects the sparse view. Returns
     (take_e, take_c, leftover, events)."""
-    r = _Run(a, g, count, a["group_pair_nok"].shape[1])
-    constrained = bool(torch.any(r.o_v) | torch.any(r.m_v & (a["v_kind"] == 1)))
-    if zone_engine and constrained:
+    r = _Run(a, g, count, a["group_pair_nok"].shape[1], *(rows or ()))
+    if zone_engine and r.constrained():
         return _zoned_plain(a, st, r, M)
     return (*_fast_plain(a, st, r, M), 0)
 
 
+def _sparse_rows(sparse, s: int):
+    """Run s's (q_row, v_row) of the index tables `sparse`, or None."""
+    return None if sparse is None else (sparse[0][s], sparse[1][s])
+
+
 def _scan_plain(args, state: FFDState, M: int, zone_engine: bool,
-                ckpt_every: int = 0, n_ckpt: int = 0):
+                ckpt_every: int = 0, n_ckpt: int = 0, sparse=None):
     """The scan from carry `state` (updated in place) over the run arrays
     of `args`; with ckpt_every, n_ckpt >= 1 also the snapshot ring of step_ck
     (ffd.py:1825-1850): step pos = i + 1 writes slot ((pos // K) - 1) %
     n_ckpt when pos % K == 0, padded steps included, and records
-    prefix[slot] = pos. Returns (FFDOutput, CheckpointRing or None)."""
+    prefix[slot] = pos. `sparse`: the (run_q_idx, run_v_idx) tables of the
+    sparse form. Returns (FFDOutput, CheckpointRing or None)."""
     a = dict(zip(ARG_SPEC, args))
     st = state._asdict()
     dev = a["node_free"].device
@@ -1143,7 +1263,7 @@ def _scan_plain(args, state: FFDState, M: int, zone_engine: bool,
             takes_c.append(torch.zeros((M,), dtype=I32, device=dev))
             lefts.append(zero)
         else:
-            te, tc, lo, n = _step_plain(a, st, g, count, M, zone_engine)
+            te, tc, lo, n = _step_plain(a, st, g, count, M, zone_engine, _sparse_rows(sparse, i))
             events += n
             takes_e.append(te)
             takes_c.append(tc)
@@ -1190,7 +1310,7 @@ def ffd_resume_plain(init_state: FFDState, *args, max_claims: int, zone_engine: 
 
 
 def ffd_solve_ladder_plain(run_ladder, *args, max_claims: int,
-                           zone_engine: bool = False) -> LadderOutput:
+                           zone_engine: bool = False, sparse=None) -> LadderOutput:
     """Plain PyTorch transcription of the JAX `ffd_solve_ladder` scan
     (step_ladder, ffd.py:1714-1800): each run walks its rung cascade. The
     base rung (level 0) pours every still-unplaced pod of the run's group;
@@ -1203,7 +1323,9 @@ def ffd_solve_ladder_plain(run_ladder, *args, max_claims: int,
     branch or, with `zone_engine`, the event engine by that group's own
     constraints) and commits its carry; take rows add up over the run's
     attempts, and leftover is what remains when the walk stops. `attempts`
-    counts the step bodies run."""
+    counts the step bodies run. `sparse`: the (run_q_idx, run_v_idx)
+    tables, each row the union over the run's base and rung groups; every
+    attempt re-gathers its own group's flags through them."""
     a = dict(zip(ARG_SPEC, args))
     st = _state0(args, max_claims)._asdict()
     dev = a["node_free"].device
@@ -1227,7 +1349,8 @@ def ffd_solve_ladder_plain(run_ladder, *args, max_claims: int,
                 break  # past the run's last rung
             g_cur = g if is_base else min(max(gv, 0), G - 1)
             cnt = remaining if is_base else 1
-            te, tc, lo, n = _step_plain(a, st, g_cur, cnt, M, zone_engine)
+            te, tc, lo, n = _step_plain(a, st, g_cur, cnt, M, zone_engine,
+                                        _sparse_rows(sparse, s))
             events += n
             attempts += 1
             placed = cnt - int(lo)
@@ -1246,6 +1369,41 @@ def ffd_solve_ladder_plain(run_ladder, *args, max_claims: int,
         events=torch.tensor(events, dtype=I32, device=dev),
         attempts=torch.tensor(attempts, dtype=I32, device=dev),
     )
+
+
+def ffd_solve_sparse_plain(run_q_idx, run_v_idx, *args, max_claims: int,
+                           zone_engine: bool = False) -> FFDOutput:
+    """Plain version of the JAX `ffd_solve_sparse`: ffd_solve_plain with
+    the fast branch's Q/V-axis state read through the run's index rows
+    (`run_q_idx` [S, Kq], `run_v_idx` [S, Kv] int32, -1 padded)."""
+    return _scan_plain(args, _state0(args, max_claims), max_claims, zone_engine,
+                       sparse=(run_q_idx, run_v_idx))[0]
+
+
+def ffd_solve_ckpt_sparse_plain(run_q_idx, run_v_idx, *args, max_claims: int,
+                                zone_engine: bool = False, ckpt_every: int = 16,
+                                n_ckpt: int = 4):
+    """Plain version of the JAX `ffd_solve_ckpt_sparse`. Its ring is
+    interchangeable with the dense scan's: (FFDOutput, CheckpointRing)."""
+    return _scan_plain(args, _state0(args, max_claims), max_claims, zone_engine,
+                       ckpt_every, n_ckpt, sparse=(run_q_idx, run_v_idx))
+
+
+def ffd_resume_sparse_plain(init_state: FFDState, run_q_idx, run_v_idx, *args,
+                            max_claims: int, zone_engine: bool = False,
+                            ckpt_every: int = 16, n_ckpt: int = 4):
+    """Plain version of the JAX `ffd_resume_sparse`: the suffix scan from a
+    copy of `init_state` (a dense or a sparse scan's checkpoint), the
+    index tables holding the suffix's rows."""
+    return _scan_plain(args, _resume_state(init_state, args, max_claims), max_claims,
+                       zone_engine, ckpt_every, n_ckpt, sparse=(run_q_idx, run_v_idx))
+
+
+def ffd_solve_ladder_sparse_plain(run_ladder, run_q_idx, run_v_idx, *args, max_claims: int,
+                                  zone_engine: bool = False) -> LadderOutput:
+    """Plain version of the JAX `ffd_solve_ladder_sparse`."""
+    return ffd_solve_ladder_plain(run_ladder, *args, max_claims=max_claims,
+                                  zone_engine=zone_engine, sparse=(run_q_idx, run_v_idx))
 
 
 # --- plain versions of the output compaction -------------------------------
@@ -1326,6 +1484,48 @@ def compact_claim_meta_plain(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
     return overflow_u, n_u, uniq, mid16, meta
 
 
+def pack_words(Sp: int, Ep: int, M: int, T: int, Wg: int, R: int) -> int:
+    """int32 words of the dense output pack (pack_outputs_plain)."""
+    return (1 + (Sp * Ep + 1) // 2 + (Sp * M + 1) // 2 + Sp
+            + M * ((T + 31) // 32 + 1 + Wg + 1 + R) + 1)
+
+
+def _pack16(x) -> torch.Tensor:
+    """A take grid flattened, padded to an even count, as uint16 pairs in
+    int32 words (the JAX pack16: astype uint16, bitcast pairs)."""
+    flat = x.reshape(-1)
+    if flat.numel() % 2:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    pairs = flat.reshape(-1, 2)
+    return _pack_u16_pairs(pairs[:, 0], pairs[:, 1])
+
+
+def pack_outputs_plain(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
+    """Plain version of the JAX `_pack_outputs` (backend.py:511): ONE int32
+    buffer [overflow flag, take_e and take_c as uint16 pairs (each padded
+    to an even count), leftover, c_mask as uint32 words, c_zc_bits,
+    c_gbits, c_pool, c_cum, used]; the flag is set when a take exceeds
+    65535."""
+    dev = take_e.device
+    zero = torch.zeros((), dtype=I32, device=dev)
+    big = torch.maximum(
+        take_e.max() if take_e.numel() else zero, take_c.max() if take_c.numel() else zero
+    )
+    parts = [
+        (big > 65535).to(I32).reshape(1),
+        _pack16(take_e),
+        _pack16(take_c),
+        leftover.reshape(-1),
+        pack_mask_words_plain(state.c_mask).reshape(-1),
+        state.c_zc_bits.reshape(-1),
+        state.c_gbits.reshape(-1),
+        state.c_pool.reshape(-1),
+        state.c_cum.reshape(-1),
+        state.used.reshape(1),
+    ]
+    return torch.cat([t.to(I32) for t in parts])
+
+
 # --- CUDA kernel wrappers ----------------------------------------------------
 
 
@@ -1387,6 +1587,28 @@ def batch_scratch_words(E: int, M: int, T: int, Z: int) -> int:
     return scan_scratch_words(E, M, T, Z) + 2 * E + M
 
 
+def _scan_name(kind: str, zone_engine: bool, sparse) -> str:
+    """LAUNCHES key of a scan instance: kind "" (K1), "ladder_" or "ckpt_"."""
+    return f"ffd_{kind}{'sparse_' if sparse is not None else ''}{'zoned' if zone_engine else 'fast'}_scan"
+
+
+def _check_sparse(sparse, Sp: int, name: str):
+    """The index tables of a sparse scan: int32 CUDA tensors [Sp, Kq] and
+    [Sp, Kv] within the kernel's shared slots. Returns (tensors, [Kq, Kv]);
+    ([], []) for a dense scan."""
+    if sparse is None:
+        return [], []
+    q, v = sparse
+    for t, n in ((q, "run_q_idx"), (v, "run_v_idx")):
+        _check(t, n, I32)
+        if t.dim() != 2 or t.shape[0] != Sp:
+            raise ValueError(f"{name}: {n} must be [{Sp}, K], got {tuple(t.shape)}")
+    Kq, Kv = int(q.shape[1]), int(v.shape[1])
+    if Kq > MAX_Q or Kv > MAX_V:
+        raise ValueError(f"{name}: Kq={Kq} > {MAX_Q} or Kv={Kv} > {MAX_V}")
+    return [q, v], [Kq, Kv]
+
+
 def _check_scan_args(a: dict, zone_engine: bool, name: str):
     """Shape, dtype, device and kernel-limit checks of the scan's shared
     arguments; returns (Sp, G, T, E, P, R, Q, W, V, Z)."""
@@ -1420,13 +1642,16 @@ def _check_scan_args(a: dict, zone_engine: bool, name: str):
     return Sp, G, T, E, P, R, Q, W, V, Z
 
 
-def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False,
+                    sparse=None) -> FFDOutput:
+    """K1, or with `sparse` (the index tables) K1s."""
     from .build import load
 
     a = dict(zip(ARG_SPEC, args))
     M = int(max_claims)
-    name = "ffd_zoned_scan" if zone_engine else "ffd_fast_scan"
+    name = _scan_name("", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
+    idx, kdims = _check_sparse(sparse, Sp, name)
     st = _state0(args, M)
     dev = a["node_free"].device
     take_e = torch.empty((Sp, E), dtype=I32, device=dev)
@@ -1435,10 +1660,10 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
     events = torch.zeros((), dtype=I32, device=dev)
     scratch = torch.empty((scan_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
     ptrs = [a[n] for n in _SCAN_INPUTS] + list(st) + [take_e, take_c, leftover, events, scratch]
-    rc = load().ffd_scan_launch(
-        _ptrs(ptrs), len(ptrs), _ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine)]),
-        _stream(),
-    )
+    dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine)]
+    launch = (load("ffd_sparse_kernels").ffd_scan_sparse_launch if sparse is not None
+              else load().ffd_scan_launch)
+    rc = launch(_ptrs(ptrs + idx), len(ptrs) + len(idx), _ints(dims + kdims), _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
@@ -1452,13 +1677,15 @@ def ladder_scratch_words(E: int, M: int, T: int, Z: int, S: int) -> int:
 
 
 def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
-                           zone_engine: bool = False) -> LadderOutput:
+                           zone_engine: bool = False, sparse=None) -> LadderOutput:
+    """K6, or with `sparse` (the union index tables) K6s."""
     from .build import load
 
     a = dict(zip(ARG_SPEC, args))
     M = int(max_claims)
-    name = "ffd_ladder_zoned_scan" if zone_engine else "ffd_ladder_fast_scan"
+    name = _scan_name("ladder_", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
+    idx, kdims = _check_sparse(sparse, Sp, name)
     _check(run_ladder, "run_ladder", I32)
     if run_ladder.dim() != 2 or run_ladder.shape[0] != Sp or run_ladder.shape[1] < 1:
         raise ValueError(f"{name}: run_ladder must be [{Sp}, Lw >= 1], got {tuple(run_ladder.shape)}")
@@ -1473,12 +1700,11 @@ def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
     scratch = torch.empty((ladder_scratch_words(E, M, T, Z, Sp),), dtype=I32, device=dev)
     ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
             + [take_e, take_c, leftover, events, scratch, run_ladder, attempts])
-    rc = load().ffd_ladder_launch(
-        _ptrs(ptrs), len(ptrs),
-        _ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), Lw,
-               scan_scratch_words(E, M, T, Z)]),
-        _stream(),
-    )
+    dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), Lw,
+            scan_scratch_words(E, M, T, Z)]
+    launch = (load("ffd_sparse_kernels").ffd_ladder_sparse_launch if sparse is not None
+              else load().ffd_ladder_launch)
+    rc = launch(_ptrs(ptrs + idx), len(ptrs) + len(idx), _ints(dims + kdims), _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return LadderOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st,
@@ -1486,15 +1712,17 @@ def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
 
 
 def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
-                        ckpt_every: int, n_ckpt: int):
+                        ckpt_every: int, n_ckpt: int, sparse=None):
     """K7: ffd_solve_ckpt (init_state None: a fresh carry) or ffd_resume
-    (the carry starts as copies of init_state)."""
+    (the carry starts as copies of init_state); with `sparse` (the index
+    tables) K7s, ffd_solve_ckpt_sparse / ffd_resume_sparse."""
     from .build import load
 
     a = dict(zip(ARG_SPEC, args))
     M = int(max_claims)
-    name = "ffd_ckpt_zoned_scan" if zone_engine else "ffd_ckpt_fast_scan"
+    name = _scan_name("ckpt_", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
+    idx, kdims = _check_sparse(sparse, Sp, name)
     st = _state0(args, M) if init_state is None else _resume_state(init_state, args, M)
     ring = _ring0(st, n_ckpt)
     dev = a["node_free"].device
@@ -1505,11 +1733,10 @@ def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
     scratch = torch.empty((scan_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
     ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
             + [take_e, take_c, leftover, events, scratch] + list(ring.states) + [ring.prefix])
-    rc = load().ffd_ckpt_launch(
-        _ptrs(ptrs), len(ptrs),
-        _ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), ckpt_every, n_ckpt]),
-        _stream(),
-    )
+    dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), ckpt_every, n_ckpt]
+    launch = (load("ffd_sparse_kernels").ffd_ckpt_sparse_launch if sparse is not None
+              else load().ffd_ckpt_launch)
+    rc = launch(_ptrs(ptrs + idx), len(ptrs) + len(idx), _ints(dims + kdims), _stream())
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     out = FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
@@ -1566,6 +1793,31 @@ def _claim_meta_cuda(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
     return hdr[0], hdr[1], uniq, mid16, meta
 
 
+def _pack_outputs_cuda(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
+    from .build import load
+
+    Sp, Ep = take_e.shape
+    M, T = state.c_mask.shape
+    Wg = state.c_gbits.shape[1]
+    R = state.c_cum.shape[1]
+    for t, n, dt, sh in ((take_e, "take_e", I32, (Sp, Ep)), (take_c, "take_c", I32, (Sp, M)),
+                         (leftover, "leftover", I32, (Sp,)),
+                         (state.c_mask, "c_mask", torch.bool, (M, T)),
+                         (state.c_zc_bits, "c_zc_bits", I32, (M,)),
+                         (state.c_gbits, "c_gbits", I32, (M, Wg)),
+                         (state.c_pool, "c_pool", I32, (M,)), (state.c_cum, "c_cum", I32, (M, R)),
+                         (state.used, "used", I32, ())):
+        _check(t, n, dt, sh)
+    out = torch.empty((pack_words(Sp, Ep, M, T, Wg, R),), dtype=I32, device=take_e.device)
+    ptrs = [take_e, take_c, leftover, state.c_mask, state.c_zc_bits, state.c_gbits,
+            state.c_pool, state.c_cum, state.used, out]
+    rc = load().pack_outputs_launch(_ptrs(ptrs), len(ptrs), _ints([Sp, Ep, M, T, Wg, R]),
+                                    _stream())
+    _raise_on(rc, "pack_outputs")
+    LAUNCHES["pack_outputs"] += 1
+    return out
+
+
 # --- public entry points: CUDA tensor -> kernel, CPU tensor -> plain ---------
 
 
@@ -1619,6 +1871,56 @@ def ffd_resume(init_state: FFDState, *args, max_claims: int, zone_engine: bool =
                             ckpt_every=ckpt_every, n_ckpt=n_ckpt)
 
 
+def ffd_solve_sparse(run_q_idx, run_v_idx, *args, max_claims: int,
+                     zone_engine: bool = False) -> FFDOutput:
+    """ffd_solve with the fast branch's Q/V-axis state read through the
+    run-major index tables (SPARSE_ARG_SPEC) that lead the arguments."""
+    if args[0].is_cuda:
+        return _ffd_solve_cuda(*args, max_claims=max_claims, zone_engine=zone_engine,
+                               sparse=(run_q_idx, run_v_idx))
+    return ffd_solve_sparse_plain(run_q_idx, run_v_idx, *args, max_claims=max_claims,
+                                  zone_engine=zone_engine)
+
+
+def ffd_solve_ckpt_sparse(run_q_idx, run_v_idx, *args, max_claims: int,
+                          zone_engine: bool = False, ckpt_every: int = 16, n_ckpt: int = 4):
+    """ffd_solve_ckpt through the index tables: (FFDOutput, CheckpointRing);
+    the ring resumes through either resume."""
+    _check_ring_args(ckpt_every, n_ckpt)
+    if args[0].is_cuda:
+        return _ffd_scan_ckpt_cuda(None, *args, max_claims=max_claims, zone_engine=zone_engine,
+                                   ckpt_every=ckpt_every, n_ckpt=n_ckpt,
+                                   sparse=(run_q_idx, run_v_idx))
+    return ffd_solve_ckpt_sparse_plain(run_q_idx, run_v_idx, *args, max_claims=max_claims,
+                                       zone_engine=zone_engine, ckpt_every=ckpt_every,
+                                       n_ckpt=n_ckpt)
+
+
+def ffd_resume_sparse(init_state: FFDState, run_q_idx, run_v_idx, *args, max_claims: int,
+                      zone_engine: bool = False, ckpt_every: int = 16, n_ckpt: int = 4):
+    """ffd_resume through the index tables (the suffix's rows); `init_state`
+    (a dense or a sparse scan's checkpoint) is left untouched."""
+    _check_ring_args(ckpt_every, n_ckpt)
+    if args[0].is_cuda:
+        return _ffd_scan_ckpt_cuda(init_state, *args, max_claims=max_claims,
+                                   zone_engine=zone_engine, ckpt_every=ckpt_every,
+                                   n_ckpt=n_ckpt, sparse=(run_q_idx, run_v_idx))
+    return ffd_resume_sparse_plain(init_state, run_q_idx, run_v_idx, *args,
+                                   max_claims=max_claims, zone_engine=zone_engine,
+                                   ckpt_every=ckpt_every, n_ckpt=n_ckpt)
+
+
+def ffd_solve_ladder_sparse(run_ladder, run_q_idx, run_v_idx, *args, max_claims: int,
+                            zone_engine: bool = False) -> LadderOutput:
+    """The relax-ladder scan through index tables whose rows are the union
+    over each run's base and rung groups."""
+    if args[0].is_cuda:
+        return _ffd_solve_ladder_cuda(run_ladder, *args, max_claims=max_claims,
+                                      zone_engine=zone_engine, sparse=(run_q_idx, run_v_idx))
+    return ffd_solve_ladder_sparse_plain(run_ladder, run_q_idx, run_v_idx, *args,
+                                         max_claims=max_claims, zone_engine=zone_engine)
+
+
 def compact_takes(take_e, take_c, cap: int):
     if take_e.is_cuda:
         return _compact_takes_cuda(take_e, take_c, cap)
@@ -1629,3 +1931,10 @@ def compact_claim_meta(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
     if c_mask.is_cuda:
         return _claim_meta_cuda(c_mask, c_zc_bits, c_gbits, c_pool, cap_u)
     return compact_claim_meta_plain(c_mask, c_zc_bits, c_gbits, c_pool, cap_u)
+
+
+def pack_outputs(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
+    """The dense output pack (see pack_outputs_plain)."""
+    if take_e.is_cuda:
+        return _pack_outputs_cuda(take_e, take_c, leftover, state)
+    return pack_outputs_plain(take_e, take_c, leftover, state)

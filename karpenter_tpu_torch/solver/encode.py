@@ -1,4 +1,4 @@
-# Port copy of karpenter_tpu/solver/encode.py (mesh blocks, sparse tables and explain tables cut).
+# Port copy of karpenter_tpu/solver/encode.py (mesh blocks and explain tables cut).
 """Host-side encoder: SolverInput -> dense tensors for the TPU solver.
 
 This is the bridge between the control plane's object model and the device
@@ -1570,3 +1570,102 @@ def _encode_with_nodes(core: _EncodeCore, inp: SolverInput) -> EncodedInput:
 
 
 # ---------------------------------------------------------------------------
+# Sparse constraint tables (compacted V/Q-axis evaluation)
+# ---------------------------------------------------------------------------
+#
+# The dense kernel charges every run full Q/V width even when its group
+# touches a handful of sigs. These run-major index tables list, per run,
+# exactly the constraint sigs its group is member or owner of (-1 padded
+# to a quantum-bucketed width), and the sparse kernel entry points
+# (cuda/ffd.SPARSE_ARG_SPEC) gather only those columns. Because the kernel
+# re-gathers the membership flags through the index, any SUPERSET list is
+# decision-identical — which is what makes the ladder union and the
+# density gate free to be approximate about WIDTH, never about membership.
+
+SPARSE_IDX_MULT = 8  # quantum bucket for the per-run index-list width
+SPARSE_IDX_FLOOR = 8
+SPARSE_MIN_SIGS = 8  # combined Q+V width below which dense is already fine
+SPARSE_DENSITY_MAX = 0.25  # gate: active (run, sig) fraction
+
+
+def _sparse_width(n: int) -> int:
+    """Bucket an index-list width so compile buckets stay shared."""
+    return max(
+        SPARSE_IDX_FLOOR,
+        ((n + SPARSE_IDX_MULT - 1) // SPARSE_IDX_MULT) * SPARSE_IDX_MULT,
+    )
+
+
+def constraint_density(enc: "EncodedInput") -> float:
+    """Fraction of (run, sig) pairs that are active — the quantity the
+    sparse engine makes the kernel pay for, replacing the flat V/Q factors
+    in the cost model."""
+    Q, V = enc.Q, enc.V
+    S = int(len(enc.run_group))
+    if Q + V == 0 or S == 0:
+        return 0.0
+    rg = np.asarray(enc.run_group, np.int64)
+    nnz = 0
+    if Q:
+        act_q = np.asarray(enc.q_member, bool) | np.asarray(enc.q_owner, bool)
+        nnz += int(act_q[rg].sum())
+    if V:
+        act_v = np.asarray(enc.v_member, bool) | np.asarray(enc.v_owner, bool)
+        nnz += int(act_v[rg].sum())
+    return nnz / float(S * (Q + V))
+
+
+def use_sparse_constraints(enc: "EncodedInput") -> bool:
+    """Density gate between the dense tables and the compacted form: sparse
+    wins when the sig axes are wide enough to charge real rent AND most
+    (run, sig) pairs are inactive. Both thresholds are deliberately plain
+    constants — the boundary is pinned by tests, not tuned per fleet."""
+    if enc.Q + enc.V < SPARSE_MIN_SIGS:
+        return False
+    return constraint_density(enc) <= SPARSE_DENSITY_MAX
+
+
+def _sparse_axis_table(act, rg, Sp, run_ladder):
+    """One axis's run-major index table: [Sp, K] i32, -1 padded, where row
+    s lists the active sig indices of run s's group (unioned over rung
+    groups in ladder mode). Vectorized CSR-style fill: np.nonzero walks
+    row-major, so each hit's rank within its row is its column slot."""
+    S = rg.shape[0]
+    run_act = act[rg]  # [S, X]
+    if run_ladder is not None:
+        lad = np.asarray(run_ladder, np.int64)
+        for j in range(lad.shape[1]):
+            gv = lad[:, j]
+            ok = gv >= 0
+            if ok.any():
+                run_act[ok] |= act[gv[ok]]
+    counts = run_act.sum(axis=1)
+    K = _sparse_width(int(counts.max(initial=0)))
+    out = np.full((Sp, K), -1, np.int32)
+    rows, cols = np.nonzero(run_act)
+    if rows.size:
+        starts = np.searchsorted(rows, np.arange(S))
+        pos = np.arange(rows.size) - starts[rows]
+        out[rows, pos] = cols
+    return out
+
+
+def sparse_run_tables(enc: "EncodedInput", Sp: int, run_ladder=None):
+    """Build the compacted constraint tables (cuda/ffd.SPARSE_ARG_SPEC):
+    (run_q_idx [Sp, Kq] i32, run_v_idx [Sp, Kv] i32). `Sp` is the padded
+    run-axis width (padding rows are all -1 = no active sigs, matching the
+    padded runs' count==0 skip). In ladder mode each row is the union over
+    the run's base group and every materialized rung group, so one gathered
+    view covers the whole cascade."""
+    rg = np.asarray(enc.run_group, np.int64)
+    if enc.Q:
+        act_q = np.asarray(enc.q_member, bool) | np.asarray(enc.q_owner, bool)
+        run_q_idx = _sparse_axis_table(act_q, rg, Sp, run_ladder)
+    else:
+        run_q_idx = np.full((Sp, SPARSE_IDX_FLOOR), -1, np.int32)
+    if enc.V:
+        act_v = np.asarray(enc.v_member, bool) | np.asarray(enc.v_owner, bool)
+        run_v_idx = _sparse_axis_table(act_v, rg, Sp, run_ladder)
+    else:
+        run_v_idx = np.full((Sp, SPARSE_IDX_FLOOR), -1, np.int32)
+    return run_q_idx, run_v_idx

@@ -9,9 +9,10 @@ piece pinned to its original.
 - the copies (ARG_SPEC, delta constants, argument partitions, the
   consolidation argument indices and batch bucket, the catalog,
   host_kernel_args and encode, relax_items / materialize_pod / plan,
-  canonicalize_placements, chip_smoke.py's copies of bench.py's input
-  functions, config-5 universe and relax-ladder fleet) equal their
-  originals on sample inputs.
+  canonicalize_placements, the sparse tables' constants and SPARSE_ARG_SPEC,
+  chip_smoke.py's copies of bench.py's input functions (the
+  wide-constraint fleet included), config-5 universe and relax-ladder
+  fleet) equal their originals on sample inputs.
 """
 
 import ast
@@ -81,6 +82,12 @@ def test_port_solve_loads_no_jax():
         "lad = TorchSolver(device='cpu')\n"
         "res = lad.solve(build_relax_walk_input(24))\n"
         "assert len(res.placements) == 24 and lad.stats['ladder_solves'] == 1, lad.stats\n"
+        "from chip_smoke import build_constraint_wide_input\n"
+        "sp = TorchSolver(device='cpu')\n"
+        "res = sp.solve(build_constraint_wide_input(480, 40))\n"
+        "assert len(res.placements) == 480 and sp.stats['sparse_dispatches'] == 1, sp.stats\n"
+        "dd = TorchSolver(device='cpu', device_decode=False)\n"
+        "assert dd.solve(build_constraint_wide_input(480, 40)).placements == res.placements\n"
         "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
         "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -113,6 +120,17 @@ def test_constants_pinned():
         assert tbackend.delta_capacity(*args) == jbackend.delta_capacity(*args)
         Sp, Mb = args[1], args[3]
         assert tbackend.delta_uniq_capacity(Sp, Mb) == jbackend.delta_uniq_capacity(Sp, Mb)
+
+
+def test_sparse_constants_pinned():
+    """The sparse tables' constants, width bucketing and argument table
+    equal the JAX package's (tests/test_torch_sparse.py pins the tables and
+    the gate on fleets)."""
+    for n in ("SPARSE_IDX_MULT", "SPARSE_IDX_FLOOR", "SPARSE_MIN_SIGS", "SPARSE_DENSITY_MAX"):
+        assert getattr(tencode, n) == getattr(jencode, n), n
+    for k in range(0, 70):
+        assert tencode._sparse_width(k) == jencode._sparse_width(k)
+    assert tffd.SPARSE_ARG_SPEC == jffd.SPARSE_ARG_SPEC
 
 
 def test_consolidation_constants_pinned():
@@ -182,7 +200,7 @@ def test_encode_and_kernel_args_pinned(name):
     _encode_pair_pinned(build(CASES[name], "karpenter_tpu"), build(CASES[name], "karpenter_tpu_torch"))
 
 
-@pytest.mark.parametrize("config", ["config3", "config4", "mixed"])
+@pytest.mark.parametrize("config", ["config3", "config4", "mixed", "constraint_wide"])
 def test_bench_builder_copies_pinned(config):
     """chip_smoke.py's copies of bench.py's constrained-input builders encode
     (V-axis sigs, domain columns, the mixed zone+ct layout included) and pad
@@ -195,6 +213,21 @@ def test_bench_builder_copies_pinned(config):
     je = _encode_pair_pinned(getattr(bench, name)(n), getattr(chip_smoke, name)(n))
     assert je.V > 0 and not je.group_fallback.any()
     assert je.v_axis == ("mixed" if config == "mixed" else "zone")
+
+
+def test_zone_fuzz_53_copy_pinned():
+    """chip_smoke.py's build_zone_fuzz_53_input is the tests' ROADMAP §C.1
+    fleet (tests/test_torch_solver.py _zone_fuzz_53_cut): the same pods and
+    nodes, and the same kernel arguments as the JAX package's encode of it."""
+    import chip_smoke
+    from tests.test_torch_solver import _zone_fuzz_53_cut
+
+    spec = _zone_fuzz_53_cut()
+    got = chip_smoke.build_zone_fuzz_53_input()
+    want = build(spec, "karpenter_tpu_torch")
+    assert got.pods == want.pods and got.nodes == want.nodes and got.zones == want.zones
+    je = _encode_pair_pinned(build(spec, "karpenter_tpu"), got)
+    assert je.V > 0 and len(got.pods) == 17
 
 
 def test_config5_universe_copy_pinned():
@@ -322,13 +355,14 @@ def test_port_arena_and_resume_load_no_jax():
 
 
 def test_solver_defaults_pinned():
-    """TorchSolver() defaults to TPUSolver()'s arena and resume settings."""
+    """TorchSolver() defaults to TPUSolver()'s arena, resume, sparse and
+    decode settings."""
     import inspect
 
     tp = inspect.signature(tbackend.TorchSolver.__init__).parameters
     jp = inspect.signature(jbackend.TPUSolver.__init__).parameters
     for n in ("max_claims", "relax_ladder", "arena", "resume", "ckpt_every", "ckpt_slots",
-              "arena_budget_mb"):
+              "arena_budget_mb", "sparse", "device_decode"):
         assert tp[n].default == jp[n].default, n
     t, j = tbackend.TorchSolver(device="cpu"), jbackend.TPUSolver()
     assert (t.resume, t.ckpt_every, t.ckpt_slots) == (j.resume, j.ckpt_every, j.ckpt_slots)

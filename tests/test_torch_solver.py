@@ -466,3 +466,37 @@ def test_zone_kernel_limits_raise(limit, monkeypatch):
     monkeypatch.setattr(tffd, limit, 1)
     with pytest.raises(UnsupportedInput):
         TorchSolver(device="cpu").solve(build(ZONE_CASES["spread_skew1_fresh"], "karpenter_tpu_torch"))
+
+
+def _zone_fuzz_53_cut() -> dict:
+    """The smallest fleet on which the reference's zoned scan diverges from
+    its own oracle (ROADMAP §C.1): _zone_fuzz(53) without pods p002, p009,
+    p012, p019 and p021 (17 one-CPU pods: zone spreads on app=w, zone
+    affinity on svc=db, a 5-pod capacity-type spread on tier=ct, one
+    existing node holding 2 tier=ct pods)."""
+    spec = _zone_fuzz(53)
+    drop = {"p002", "p009", "p012", "p019", "p021"}
+    # a pod's name is "p" + its draw index (+ "000" from the spread/affinity
+    # helpers)
+    return dict(spec, pods=[p for p in spec["pods"] if p["name"][:4] not in drop])
+
+
+def test_zone_fuzz_53_cut_matches_tpu():
+    """The port reproduces TPUSolver on the §C.1 fleet, decision for
+    decision (the scan the port transcribes, fault included)."""
+    spec = _zone_fuzz_53_cut()
+    assert len(spec["pods"]) == 17 and len(spec["nodes"]) == 1
+    port = TorchSolver(device="cpu")
+    got = as_data(port.solve(build(spec, "karpenter_tpu_torch")))
+    assert got == as_data(TPUSolver().solve(build(spec, "karpenter_tpu")))
+    assert port.stats["device_solves"] == 1
+
+
+@pytest.mark.xfail(strict=True, reason="ROADMAP §C.1: the reference's zoned scan diverges from "
+                   "its own oracle on this fleet (ct-spread pods 3/2 against the oracle's 4/1 "
+                   "across claims 0 and 1); the port copies the reference")
+def test_zone_fuzz_53_cut_matches_oracle():
+    spec = _zone_fuzz_53_cut()
+    got = as_data(TorchSolver(device="cpu").solve(build(spec, "karpenter_tpu_torch")))
+    ref = as_data(ReferenceSolver().solve(quantize_input(build(spec, "karpenter_tpu"))))
+    assert _parity_view(got) == _parity_view(ref)
