@@ -73,6 +73,25 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    arena=False solver (K1) on surge_e2e and config 3, held to the same
    decisions; it prints the transfer ledger.
 
+7. scheduling classes and explain: bench.py's gang fleet at 2 000 nodes
+   (class_contended: 16 000 evictable victims, a doomed gang, 1 000 gangs
+   of 8, 6 000 singletons) through ClassAwareSolver(TorchSolver())
+   CLASS_REPEATS times with explain off and CLASS_EXPLAIN_REPEATS with it
+   on, class_zone once (every gang labelled for zone co-location: the
+   relax ladder, preemption declines), and surge_e2e through TorchSolver()
+   with explain on and off in turns, with the launch counts reset just
+   before and read just after (K10 gang_commit, K11 preemption_plan, K12
+   explain_pack must all launch); then the class solve's stage split, one
+   solve with every K10/K11 call held against its plain version, and the
+   decisions (evictions, gang verdicts, class_stats) against
+   ClassAwareSolver(TorchSolver(device="cpu")). Before it (phase 2f) K10
+   and K11 are held against their plain versions on seeded and
+   adversarial tables (int32 wrap, no eligible victim or node, a free fit,
+   gangs past NG, E = Vm = 1) and K11 at 10 000 nodes, and K12 at the
+   outputs of surge_e2e, config 3 and class_contended's cold inner solve,
+   at top_k 8 and above Ep; a record built from K12's wire must equal the
+   host-derived one.
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
@@ -756,6 +775,74 @@ def build_config5_universe(n_nodes: int = 10_000, n_candidates: int = 2_000):
     return inp, candidate_pods, candidate_node
 
 
+def build_class_input(n_nodes: int = 8, victims_per_node: int = 4, n_high: int = 24,
+                      n_gangs: int = 8, gang_size: int = 4, topology=None):
+    """Mixed-priority + gang fleet with preemption contention (a copy of
+    bench.py's _gang_input against the port's classes), existing nodes only
+    (no node pools): low-priority victims hold most of the capacity, a
+    high-priority singleton surge must preempt to land, and the gang wave
+    oversubscribes what's left. `topology` (e.g. the zone label) labels
+    every gang with GANG_TOPOLOGY_LABEL (the class_zone cell; None = the
+    original)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.provisioning.scheduler import BoundPodRef, ExistingNode, SolverInput
+    from karpenter_tpu_torch.utils.resources import PODS, Resources
+
+    nodes = []
+    for e in range(n_nodes):
+        victims = [
+            BoundPodRef(
+                uid=f"victim-{e}-{v}", priority=0,
+                requests=Resources.parse({"cpu": "1", "memory": "1Gi"}),
+            )
+            for v in range(victims_per_node)
+        ]
+        free = Resources.parse({"cpu": "2", "memory": "4Gi"})
+        free[PODS] = 100
+        nodes.append(ExistingNode(
+            id=f"node-{e}",
+            labels={wk.ZONE_LABEL: f"zone-{e % 2}",
+                    wk.HOSTNAME_LABEL: f"node-{e}"},
+            taints=[], free=free, bound_pods=victims,
+        ))
+    extra = {} if topology is None else {wk.GANG_TOPOLOGY_LABEL: topology}
+    pods = []
+    # one doomed gang above everything: 8-cpu members no node can host, so
+    # every solve exercises the verdict -> rollback -> re-solve round
+    for r in range(gang_size):
+        pods.append(Pod(
+            meta=ObjectMeta(
+                name=f"doomed-{r}", uid=f"doomed-{r}",
+                labels={wk.GANG_LABEL: "job-doomed",
+                        wk.GANG_SIZE_LABEL: str(gang_size), **extra},
+            ),
+            requests=Resources.parse({"cpu": "8", "memory": "1Gi"}),
+            priority=200,
+        ))
+    # gang wave lands first (highest surviving priority), fits in free
+    for g in range(n_gangs):
+        for r in range(gang_size):
+            pods.append(Pod(
+                meta=ObjectMeta(
+                    name=f"gang{g}-{r}", uid=f"gang{g}-{r}",
+                    labels={wk.GANG_LABEL: f"job-{g:02d}",
+                            wk.GANG_SIZE_LABEL: str(gang_size), **extra},
+                ),
+                requests=Resources.parse({"cpu": "250m", "memory": "256Mi"}),
+                priority=150,
+            ))
+    # singleton surge below the gangs: overflows the remaining free capacity,
+    # so the tail must preempt the priority-0 victims to plan a landing
+    for i in range(n_high):
+        pods.append(Pod(
+            meta=ObjectMeta(name=f"hi-{i:03d}", uid=f"hi-{i:03d}"),
+            requests=Resources.parse({"cpu": "1", "memory": "1Gi"}),
+            priority=100,
+        ))
+    return SolverInput(pods=pods, nodes=nodes, nodepools=[], zones=("zone-0", "zone-1"))
+
+
 def _accept_consolidation(k, v, cand_price=1.0):
     """The controller's acceptance rule: feasible AND (no replacement, or the
     replacement is strictly cheaper than the k nodes it consolidates)
@@ -1400,7 +1487,10 @@ KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false, false>",
                 "ffd_scan_kernel<true, false, true, false, true>",
                 "ffd_scan_kernel<false, false, false, true, true>",
                 "ffd_scan_kernel<true, false, false, true, true>",
-                "pack_outputs_kernel")
+                "pack_outputs_kernel",
+                # the class and explain kernels (21-25)
+                "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
+                "explain_sums_kernel", "explain_rows_kernel")
 # phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
 # K2, K3; its uploads are exact hits after the warm-up), one arena=False
 # solver (K1 and K1s in both instances) and one device_decode=False solver
@@ -1525,7 +1615,8 @@ class PlainOnCard:
 
         self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
                       ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda,
-                      ffd._pack_outputs_cuda, arena._unpack_cuda)
+                      ffd._pack_outputs_cuda, arena._unpack_cuda, ffd._gang_commit_cuda,
+                      ffd._preemption_plan_cuda, ffd._explain_pack_cuda)
         ffd._ffd_solve_cuda = solve_plain
         ffd._compact_takes_cuda = ffd.compact_takes_plain
         ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
@@ -1533,6 +1624,9 @@ class PlainOnCard:
         ffd._ffd_scan_ckpt_cuda = ckpt_plain
         ffd._pack_outputs_cuda = ffd.pack_outputs_plain
         arena._unpack_cuda = arena.unpack_plain
+        ffd._gang_commit_cuda = ffd.gang_commit_plain
+        ffd._preemption_plan_cuda = ffd.preemption_plan_plain
+        ffd._explain_pack_cuda = ffd.explain_pack_plain
         return self
 
     def __exit__(self, *exc):
@@ -1540,7 +1634,8 @@ class PlainOnCard:
 
         (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
          ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, ffd._pack_outputs_cuda,
-         arena._unpack_cuda) = self.saved
+         arena._unpack_cuda, ffd._gang_commit_cuda, ffd._preemption_plan_cuda,
+         ffd._explain_pack_cuda) = self.saved
 
 
 CONFIG5_NODES = 10_000  # BASELINE config 5
@@ -2450,13 +2545,531 @@ def resume_phase(cells, plain):
     return out
 
 
+# ---- scheduling classes and decision provenance (K10-K12) ------------------------
+
+# class_contended: bench.py's gang fleet at 2 000 nodes (16 000 evictable
+# priority-0 victims, 14 008 pending pods: a doomed 8-rank gang, 1 000 gangs
+# of 8, 6 000 singletons); class_zone: the same fleet with every gang
+# labelled for zone co-location, cut to CLASS_ZONE_GANGS gangs (each gang's
+# injected self-affinity is one zone sig, and the zoned scan holds 128)
+CLASS_KW = dict(n_nodes=2_000, victims_per_node=8, n_high=6_000, n_gangs=1_000, gang_size=8)
+CLASS_ZONE_GANGS = 120
+CLASS_REPEATS = 12  # timed class_contended solves, explain off
+CLASS_EXPLAIN_REPEATS = 2  # then with the explain plane on
+CLASS_BREAKDOWN_PASSES = 3
+EXPLAIN_REPEATS = 20  # surge_e2e solves with explain on, and as many off
+K11_NODES = 10_000  # the preemption planner's tables at BASELINE's fleet size
+CLASS_KERNELS = ("gang_commit", "preemption_plan", "explain_pack")
+
+
+def _on_card(arrays, dev):
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def gang_check(tables, dev) -> int:
+    """K10 against its plain version on the card (both outputs exact)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args = _on_card(tables, dev)
+    got = ffd.gang_commit(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ffd.gang_commit_plain(*args))
+    assert err == 0, f"gang_commit disagrees with its plain version (max |d| {err})"
+    return err
+
+
+def plan_check(tables, pod_prio: int, dev):
+    """K11 against its plain version on the card: (node index, error)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args = _on_card(tables, dev)
+    e, take = ffd.preemption_plan(*args, pod_prio)
+    torch.cuda.synchronize()
+    pe, ptake = ffd.preemption_plan_plain(*args, pod_prio)
+    err = max_abs_err([e.reshape(1), take], [pe.reshape(1), ptake])
+    assert err == 0, f"preemption_plan disagrees with its plain version (max |d| {err})"
+    return int(e), err
+
+
+def class_tables(seed: int):
+    """Seeded gang-verdict and preemption-plan tables: (gang tables, plan
+    tables, pod priority)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ng, s = int(rng.integers(1, 1500)), int(rng.integers(1, 16_000))
+    gang = (rng.integers(0, 3, s).astype(np.int32), rng.integers(-1, ng, s).astype(np.int32),
+            rng.integers(1, 9, ng).astype(np.int32), rng.integers(0, 9, ng).astype(np.int32))
+    E, Vm, R = int(rng.integers(1, 3000)), int(rng.integers(1, 80)), int(rng.integers(1, 5))
+    plan = (rng.integers(0, 3, (E, R)).astype(np.int32), rng.integers(0, 6, (E, Vm)).astype(np.int32),
+            rng.integers(0, 3, (E, Vm, R)).astype(np.int32), rng.random((E, Vm)) < 0.7,
+            rng.random(E) < (0.05 if seed % 2 else 0.9), rng.integers(1, 12, R).astype(np.int32))
+    return gang, plan, int(rng.integers(0, 7))
+
+
+def adversarial_class_tables():
+    """Named edge tables: {name: ("gang", tables) | ("plan", tables, prio)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(99)
+    big = 2**30
+    out = {
+        # the per-gang sums pass 2**31 and wrap, as XLA's int32 segment sum
+        "gang_wrap": ("gang", (np.full(64, big, np.int32), np.zeros(64, np.int32),
+                               np.ones(2, np.int32), np.ones(2, np.int32))),
+        # gangs at and past NG (JAX parks/drops them), negatives, min_ranks 0
+        "gang_past_ng": ("gang", (np.ones(50, np.int32), np.arange(-5, 45, dtype=np.int32) % 13 - 3,
+                                  np.ones(7, np.int32), np.array([0, 1, 2, 0, 3, 1, 0], np.int32))),
+        "gang_min_ranks_0": ("gang", (np.ones(8, np.int32), np.zeros(8, np.int32),
+                                      np.ones(1, np.int32), np.zeros(1, np.int32))),
+        "gang_one_block_many_runs": ("gang", (rng.integers(0, 2, 70_000).astype(np.int32),
+                                              rng.integers(-1, 3, 70_000).astype(np.int32),
+                                              np.ones(3, np.int32), np.array([1, 9_000, 40_000], np.int32))),
+    }
+    E, Vm, R = 40, 8, 3
+    base = (np.zeros((E, R), np.int32), np.zeros((E, Vm), np.int32), np.ones((E, Vm, R), np.int32),
+            np.ones((E, Vm), bool), np.ones(E, bool), np.array([3, 3, 1], np.int32))
+    # reclaims near 2**30 wrap the int32 prefix past 2**31 (the device legs
+    # follow XLA's int32 cumsum there)
+    wrap = list(base)
+    wrap[2] = np.full((E, Vm, R), big, np.int32)
+    wrap[0] = np.full((E, R), big, np.int32)
+    out["plan_wrap"] = ("plan", tuple(wrap), 5)
+    none_ok = list(base)
+    none_ok[3] = np.zeros((E, Vm), bool)
+    out["plan_all_ineligible"] = ("plan", tuple(none_ok), 5)
+    no_node = list(base)
+    no_node[4] = np.zeros(E, bool)
+    out["plan_node_ok_false"] = ("plan", tuple(no_node), 5)
+    fit0 = list(base)
+    fit0[0] = np.zeros((E, R), np.int32)
+    fit0[0][7] = 5
+    fit0[4] = np.arange(E) >= 7
+    out["plan_fit0_first"] = ("plan", tuple(fit0), 5)
+    out["plan_E1_Vm1"] = ("plan", (np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32),
+                                    np.ones((1, 1, 1), np.int32), np.ones((1, 1), bool),
+                                    np.ones(1, bool), np.ones(1, np.int32)), 1)
+    wide = (np.zeros((E, 16), np.int32), rng.integers(0, 3, (E, 70)).astype(np.int32),
+            rng.integers(0, 2, (E, 70, 16)).astype(np.int32), rng.random((E, 70)) < 0.8,
+            np.ones(E, bool), np.full(16, 20, np.int32))
+    out["plan_Vm70_R16"] = ("plan", wide, 3)
+    return out
+
+
+def class_kernel_checks(dev) -> dict:
+    """K10 and K11 on 16 seeded tables and on the adversarial ones, and K11
+    at K11_NODES nodes x 8 victims x R = 3 from build_victim_tensors on the
+    class fleet scaled to BASELINE's 10k nodes (free capacity zeroed, so
+    the plan must evict; then only the last node admits; then none).
+    Returns the checks and the 10k tables for the K11 row."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver import scheduling_class as sc
+    from karpenter_tpu_torch.utils.resources import PODS
+
+    seeded = []
+    for seed in range(16):
+        gang, plan, prio = class_tables(seed)
+        gang_check(gang, dev)
+        e, _ = plan_check(plan, prio, dev)
+        seeded.append((len(gang[0]), len(gang[2]), plan[1].shape, e))
+    adversarial = {}
+    for name, spec in adversarial_class_tables().items():
+        if spec[0] == "gang":
+            adversarial[name] = gang_check(spec[1], dev)
+        else:
+            adversarial[name] = plan_check(spec[1], spec[2], dev)
+    assert adversarial["plan_node_ok_false"][0] == -1 and adversarial["plan_fit0_first"][0] == 7
+    inp = build_class_input(n_nodes=K11_NODES, victims_per_node=8, n_high=1, n_gangs=0)
+    rkeys = ["cpu", "memory", PODS]
+    node_free, victim_prio, victim_req, victim_ok, _ = sc.build_victim_tensors(inp.nodes, rkeys)
+    node_free[:] = 0
+    need = np.array([1000, 1024, 1], np.int32)
+    node_ok = np.ones(K11_NODES, bool)
+    scaled = {}
+    tables = (node_free, victim_prio, victim_req, victim_ok, node_ok, need)
+    scaled["all_nodes"] = plan_check(tables, 100, dev)
+    last = np.zeros(K11_NODES, bool)
+    last[-1] = True
+    scaled["last_node"] = plan_check(tables[:4] + (last, need), 100, dev)
+    scaled["none"] = plan_check(tables[:4] + (np.zeros(K11_NODES, bool), need), 100, dev)
+    assert [v[0] for v in scaled.values()] == [0, K11_NODES - 1, -1], scaled
+    return dict(seeded=seeded, adversarial=adversarial, scaled=scaled, k11_tables=tables)
+
+
+def explain_check(ph, dev, ks) -> dict:
+    """K12 against its plain version on the card at the outputs of `ph`'s
+    solve (kernel_phase), with the side tables TorchSolver builds
+    (backend.explain_args), at each top_k of `ks`."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    take_e = ph["out"].take_e
+    Sp, Ep = take_e.shape
+    side, E, G = tb.explain_args(ph["enc"], Sp, Ep)
+    args = [take_e] + [array_to_torch(a, dev) for a in side]
+    worst = 0
+    for k in ks:
+        got = ffd.explain_pack(*args, E, G, top_k=k)
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [ffd.explain_pack_plain(*args, E, G, top_k=k)])
+        assert err == 0, f"explain_pack disagrees with its plain version (top_k={k}, {err})"
+        worst = max(worst, err)
+    return dict(args=args, E=E, G=G, Sp=Sp, Ep=Ep, Gp=int(side[1].shape[0]), ks=list(ks), err=worst,
+                side_bytes=int(sum(a.nbytes for a in side)))
+
+
+def explain_record_check(inp, k: int) -> dict:
+    """One cold TorchSolver() solve with the explain plane on: the record
+    built from K12's wire equals the host-derived record (fingerprint)."""
+    from karpenter_tpu_torch.obs import explain as obsexplain
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    obsexplain.configure(enabled=True, top_k=k)
+    try:
+        s = tb.TorchSolver(max_claims=MAX_CLAIMS)
+        res = s.solve(inp)
+    finally:
+        obsexplain.configure(enabled=False)
+    assert s.stats["explain_dispatches"] == 1 and hasattr(res, "_explain_table"), s.stats
+    enc = encode(quantize_input(inp))
+    dev_rec = obsexplain.build_record(enc, res, k=k, table=res._explain_table)
+    host_rec = obsexplain.build_record(enc, res, k=k)
+    fp = obsexplain.fingerprint(dev_rec)
+    assert fp == obsexplain.fingerprint(host_rec), obsexplain.diff_records(host_rec, dev_rec)[:8]
+    return dict(top_k=k, fingerprint=fp[:16], groups=dev_rec["n_groups"],
+                rejected=sum(g["n_rejected"] for g in dev_rec["groups"]))
+
+
+def class_decisions(res):
+    """decisions() plus the class outputs: evictions and unschedulable gangs."""
+    out = decisions(res)
+    out["evictions"] = [(e.node_id, e.pod_uid, e.victim_priority, e.for_pod) for e in res.evictions]
+    out["gangs_unschedulable"] = list(res.gangs_unschedulable)
+    return out
+
+
+class _Stages:
+    """Host ms per named stage, summed over the calls it wraps."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        return timed
+
+
+class ClassInstruments:
+    """Wrap a ClassAwareSolver's stages for one or more solves: the inner
+    solves, the gang pass (_first_failing_gang with its K10 call),
+    build_victim_tensors, the node_ok loop (node_ok_mask), the planner's
+    plan calls (host ms; device ms from CUDA events around each K11 call;
+    the upload bytes of the device leg), _pack_rows. With `check`, every K10
+    and K11 call is also held against its plain version on the same card
+    tensors (the recording wrapper), and the first call's arguments kept."""
+
+    def __init__(self, caw, check: bool = False):
+        self.caw, self.check = caw, check
+        self.stages = _Stages()
+        self.events = {"gang_commit": [], "preemption_plan": []}
+        self.first = {}
+        self.calls = {"gang_commit": 0, "preemption_plan": 0}
+        self.err = 0
+
+    def __enter__(self):
+        import types
+
+        import torch
+
+        from karpenter_tpu_torch.solver import scheduling_class as sc
+        from karpenter_tpu_torch.solver.cuda import ffd
+
+        st = self.stages
+        inner = self.caw.inner
+        self.saved = (inner, sc.build_victim_tensors, sc.node_ok_mask, sc._pack_rows,
+                      sc.PLANNERS["device"], ffd.gang_commit, ffd.preemption_plan)
+        self.caw.inner = types.SimpleNamespace(inner=inner, solve=st.wrap("inner_solves", inner.solve))
+        self.caw._first_failing_gang = st.wrap("gang_pass", self.caw._first_failing_gang)
+        sc.build_victim_tensors = st.wrap("build_victim_tensors", sc.build_victim_tensors)
+        sc.node_ok_mask = st.wrap("node_ok_loop", sc.node_ok_mask)
+        sc._pack_rows = st.wrap("pack_rows", sc._pack_rows)
+        gang_fn, plan_fn = sc.PLANNERS["device"]
+        sc.PLANNERS["device"] = (gang_fn, st.wrap("plan_calls", plan_fn))
+
+        def on_card(name, kernel, plain):
+            def call(*a):
+                if name not in self.first:
+                    self.first[name] = [t.clone() if hasattr(t, "clone") else t for t in a]
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = kernel(*a)
+                e.record()
+                self.events[name].append((s, e))
+                self.calls[name] += 1
+                if self.check:
+                    torch.cuda.synchronize()
+                    got = [out[0].reshape(-1), out[1]]
+                    want = plain(*a)
+                    self.err = max(self.err, max_abs_err(got, [want[0].reshape(-1), want[1]]))
+                return out
+
+            return call
+
+        ffd.gang_commit = on_card("gang_commit", ffd.gang_commit, ffd.gang_commit_plain)
+        ffd.preemption_plan = on_card("preemption_plan", ffd.preemption_plan,
+                                      ffd.preemption_plan_plain)
+        return self
+
+    def __exit__(self, *exc):
+        from karpenter_tpu_torch.solver import scheduling_class as sc
+        from karpenter_tpu_torch.solver.cuda import ffd
+
+        (self.caw.inner, sc.build_victim_tensors, sc.node_ok_mask, sc._pack_rows,
+         sc.PLANNERS["device"], ffd.gang_commit, ffd.preemption_plan) = self.saved
+        del self.caw._first_failing_gang
+
+    def device_ms(self, name) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[name])
+
+
+def class_breakdown(caw, inp, passes: int) -> dict:
+    """Median ms of a class_contended solve's stages over `passes` solves
+    (ClassInstruments; rest = the solve minus the stages), with the device
+    ms of its K10 and K11 calls and the device leg's transfer per solve."""
+    import statistics
+
+    from karpenter_tpu_torch.solver import scheduling_class as sc
+
+    rows = []
+    for _ in range(passes):
+        t0 = dict(sc.PLANNER_TRANSFER)
+        with ClassInstruments(caw) as ins:
+            ts = time.perf_counter()
+            caw.solve(inp)
+            solve_ms = (time.perf_counter() - ts) * 1e3
+        row = dict(ins.stages.ms, solve=solve_ms,
+                   plan_device=ins.device_ms("preemption_plan"),
+                   gang_device=ins.device_ms("gang_commit"),
+                   plan_calls_n=ins.calls["preemption_plan"], gang_calls_n=ins.calls["gang_commit"])
+        for k in ("h2d_bytes", "d2h_bytes"):
+            row[k] = sc.PLANNER_TRANSFER[k] - t0[k]
+        row["rest"] = solve_ms - sum(ins.stages.ms.values())
+        rows.append(row)
+    return {f"{k}_ms" if not k.endswith(("_n", "bytes")) else k:
+            statistics.median(r.get(k, 0.0) for r in rows) for k in rows[0]}
+
+
+def class_kernel_rows(first, checks, ex, launches, per_solve, ops_per_s) -> list:
+    """The K10, K11 and K12 rows: K10 at class_contended's first gang call
+    (its yardstick torch index_add_ of the placed counts over the hot runs,
+    which computes the sums and not the verdict); K11 at K11_NODES nodes
+    (no PyTorch call finds a first fitting prefix); K12 at class_contended's
+    cold inner solve at top_k 8 (no PyTorch call packs the table)."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    src = "karpenter_tpu_torch/csrc/class_kernels.cu"
+    rows = []
+    run_placed, run_gang, gang_size, min_ranks = first["gang_commit"]
+    S, NG = int(run_placed.shape[0]), int(gang_size.shape[0])
+    fn = lambda: ffd.gang_commit(run_placed, run_gang, gang_size, min_ranks)  # noqa: E731
+    hot = (run_gang >= 0) & (run_gang < NG)
+    idx, vals = run_gang[hot].to(torch.int64), run_placed[hot]
+    moved = nbytes(run_placed, run_gang, min_ranks) + NG * 5
+    bms, by = bound(moved, S + 2 * NG, ops_per_s)
+    rows.append(dict(
+        name="gang_commit", route="cuda", source=src,
+        replaces="karpenter_tpu/solver/tpu/ffd.py:2953", launches=launches["gang_commit"],
+        max_abs_err=checks["gang_err"], ms=time_ms(fn, 200),
+        plain_ms=time_ms(lambda: ffd.gang_commit_plain(run_placed, run_gang, gang_size, min_ranks), 50),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.zeros(NG, dtype=torch.int32, device=run_placed.device)
+                           .index_add_(0, idx, vals), 200),
+        library_call="torch.zeros(NG).index_add_ of the placed counts over the hot runs "
+        "(the per-gang sums, not the verdict)",
+        match=checks["gang_err"] == 0, device_ms=profiled_ms(fn, 20, ("gang_commit_kernel",)),
+        launches_per_solve=per_solve["gang_commit"], shape=dict(S=S, NG=NG), bytes=moved,
+        ops=S + 2 * NG))
+    tables = checks["k11_tables"]
+    args = _on_card(tables, run_placed.device)
+    E, Vm, R = tables[2].shape
+    fn = lambda: ffd.preemption_plan(*args, 100)  # noqa: E731
+    moved = nbytes(*args) + E * Vm + 4
+    ops = 2 * E * Vm * R + E * R
+    bms, by = bound(moved, ops, ops_per_s)
+    rows.append(dict(
+        name="preemption_plan", route="cuda", source=src,
+        replaces="karpenter_tpu/solver/tpu/ffd.py:2969", launches=launches["preemption_plan"],
+        max_abs_err=checks["plan_err"], ms=time_ms(fn, 200),
+        plain_ms=time_ms(lambda: ffd.preemption_plan_plain(*args, 100), 20),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        library_call="none: no PyTorch call finds the first node whose shortest eligible victim "
+        "prefix fits",
+        match=checks["plan_err"] == 0,
+        device_ms=profiled_ms(fn, 20, ("preempt_scan_kernel", "preempt_take_kernel")),
+        launches_per_solve=per_solve["preemption_plan"], shape=dict(E=E, Vm=Vm, R=R),
+        bytes=moved, ops=ops))
+    a, E, G = ex["args"], ex["E"], ex["G"]
+    fn = lambda: ffd.explain_pack(*a, E, G, top_k=8)  # noqa: E731
+    out = fn()
+    take_e = a[0]
+    nnz = int((take_e != 0).sum())
+    Rr = int(a[2].shape[1])
+    moved = nbytes(*a) + nbytes(out)
+    ops = nnz * (1 + 2 * Rr) + G * E * (2 * Rr + 3)
+    bms, by = bound(moved, ops, ops_per_s)
+    rows.append(dict(
+        name="explain_pack", route="cuda", source=src,
+        replaces="karpenter_tpu/solver/tpu/ffd.py:3096", launches=launches["explain_pack"],
+        max_abs_err=ex["err"], ms=time_ms(fn, 100),
+        plain_ms=time_ms(lambda: ffd.explain_pack_plain(*a, E, G, top_k=8), 10),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        library_call="none: no PyTorch call computes the reason codes and packs the first "
+        "top_k rejections",
+        match=ex["err"] == 0,
+        device_ms=profiled_ms(fn, 20, ("explain_sums_kernel", "explain_rows_kernel")),
+        launches_per_solve=per_solve["explain_pack"],
+        launches_per_surge_e2e_solve=per_solve["explain_pack_surge_e2e"],
+        shape=dict(Sp=ex["Sp"], Ep=ex["Ep"], Gp=ex["Gp"], E=E, G=G, top_k=8, take_nnz=nnz),
+        bytes=moved, ops=ops))
+    return rows
+
+
+def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
+    """The class-aware main path through ClassAwareSolver(TorchSolver()),
+    the launch counts reset just before and read just after: CLASS_REPEATS
+    timed class_contended solves (explain off), CLASS_EXPLAIN_REPEATS with
+    the explain plane on, the class_zone solve once, and surge_e2e through
+    TorchSolver() EXPLAIN_REPEATS times with explain on and as many off, in
+    turns. Then, outside the counted window: the stage split, one solve
+    with every K10/K11 call held against its plain version, and the
+    decisions against ClassAwareSolver(TorchSolver(device="cpu"))."""
+    import torch
+
+    from karpenter_tpu_torch.obs import explain as obsexplain
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver import scheduling_class as sc
+
+    solver = tb.TorchSolver(max_claims=MAX_CLAIMS)
+    caw = sc.ClassAwareSolver(solver)
+    ex_solver = tb.TorchSolver(max_claims=MAX_CLAIMS)
+    caw.solve(inp)  # warm: allocator, encode caches, uploads
+    ex_solver.solve(surge_e2e)
+    stats0 = dict(caw.class_stats)
+    for k in sc.PLANNER_TRANSFER:
+        sc.PLANNER_TRANSFER[k] = 0
+    watch = GcWatch()
+    reset_launches()
+    samples, ex_samples, results = [], [], []
+    for i in range(CLASS_REPEATS + CLASS_EXPLAIN_REPEATS):
+        obsexplain.configure(enabled=i >= CLASS_REPEATS)
+        watch.reset()
+        t0 = time.perf_counter()
+        res = caw.solve(inp)
+        ms = (time.perf_counter() - t0) * 1e3
+        (samples if i < CLASS_REPEATS else ex_samples).append((ms, watch.ms, list(watch.collections)))
+        results.append(class_decisions(res))
+    transfer = dict(sc.PLANNER_TRANSFER)
+    class_ex_dispatches = solver.stats["explain_dispatches"]
+    obsexplain.configure(enabled=False)
+    zstats0 = dict(caw.class_stats)
+    ladder0 = solver.stats["ladder_solves"]
+    t0 = time.perf_counter()
+    res_zone = caw.solve(inp_zone)
+    zone_ms = (time.perf_counter() - t0) * 1e3
+    zone_declines = caw.class_stats["declines"] - zstats0["declines"]
+    zone_ladders = solver.stats["ladder_solves"] - ladder0
+    on_ms, off_ms, on_d2h, off_d2h = [], [], [], []
+    for i in range(EXPLAIN_REPEATS):
+        for on in (False, True):
+            obsexplain.configure(enabled=on)
+            t0 = time.perf_counter()
+            r = ex_solver.solve(surge_e2e)
+            (on_ms if on else off_ms).append((time.perf_counter() - t0) * 1e3)
+            (on_d2h if on else off_d2h).append(ex_solver.ledger.solve["d2h_bytes"])
+            assert on == hasattr(r, "_explain_table"), "explain table missing / unexpected"
+    obsexplain.configure(enabled=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    watch.close()
+    for k in CLASS_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the class path"
+    n_class = CLASS_REPEATS + CLASS_EXPLAIN_REPEATS
+    per_solve = {k: (zstats0[k] - stats0[k]) / n_class for k in stats0}
+    assert all(r == results[0] for r in results), "class_contended decisions vary across solves"
+    assert per_solve["gang_rounds"] == 1 and per_solve["gangs_unschedulable"] == 1, per_solve
+    assert per_solve["preemptions"] == len(results[0]["evictions"]) > 0, per_solve
+    assert zone_declines == 1 and res_zone.evictions == [] and zone_ladders >= 1, (
+        zone_declines, zone_ladders)
+    assert class_ex_dispatches == 2 * CLASS_EXPLAIN_REPEATS, class_ex_dispatches
+    # stage split and the recording check, outside the counted window
+    stages = class_breakdown(caw, inp, CLASS_BREAKDOWN_PASSES)
+    with ClassInstruments(caw, check=True) as rec:
+        res_rec = caw.solve(inp)
+    assert rec.err == 0, f"a class kernel disagrees with its plain version ({rec.err})"
+    assert class_decisions(res_rec) == results[0]
+    t0 = time.perf_counter()
+    cpu = sc.ClassAwareSolver(plain_solver_cls(device="cpu", max_claims=MAX_CLAIMS))
+    assert class_decisions(cpu.solve(inp)) == results[0], "class_contended: decisions differ from the plain path"
+    assert {k: cpu.class_stats[k] for k in per_solve} == per_solve, (cpu.class_stats, per_solve)
+    res_zone_cpu = sc.ClassAwareSolver(plain_solver_cls(device="cpu", max_claims=MAX_CLAIMS)).solve(inp_zone)
+    assert class_decisions(res_zone_cpu) == class_decisions(res_zone), \
+        "class_zone: decisions differ from the plain path"
+    plain_s = time.perf_counter() - t0
+    n_plan = launches["preemption_plan"]
+    return dict(
+        samples=samples, tail=tail(samples), explain_tail=tail(ex_samples), launches=launches,
+        per_solve_launches={"gang_commit": launches["gang_commit"] / (n_class + 1),
+                            "preemption_plan": n_plan / n_class,
+                            "explain_pack": class_ex_dispatches / CLASS_EXPLAIN_REPEATS,
+                            "explain_pack_surge_e2e": (launches["explain_pack"]
+                                                       - class_ex_dispatches) / EXPLAIN_REPEATS},
+        class_stats_per_solve=per_solve, stages=stages, planner_transfer_per_solve={
+            k: v / n_class for k, v in transfer.items()},
+        unplaced=len(results[0]["errors"]), evictions=len(results[0]["evictions"]),
+        claims=len(results[0]["claims"]), pods=len(inp.pods), nodes=len(inp.nodes),
+        gangs_unschedulable=results[0]["gangs_unschedulable"],
+        zone=dict(ms=zone_ms, pods=len(inp_zone.pods), gangs=CLASS_ZONE_GANGS,
+                  declines=zone_declines, ladder_solves=zone_ladders,
+                  unplaced=len(res_zone.errors), equal_to_plain=True),
+        explain_surge_e2e=dict(on_p50_ms=pct(on_ms, 50), off_p50_ms=pct(off_ms, 50),
+                               on_ms=on_ms, off_ms=off_ms, on_d2h_bytes=on_d2h[-1],
+                               off_d2h_bytes=off_d2h[-1], wire_bytes=on_d2h[-1] - off_d2h[-1]),
+        recorded=dict(calls=rec.calls, err=rec.err,
+                      shapes={k: [list(t.shape) for t in v if hasattr(t, "shape")]
+                              for k, v in rec.first.items()}),
+        first=rec.first, plain_check_s=plain_s)
+
+
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
     verdict pack, the output pack and the arena unpack."""
-    names = {"pack_verdicts_kernel": "pack_verdicts_kernel",
-             "arena_unpack_kernel": "arena_unpack_kernel"}
-    names["pack_outputs_kernel"] = "pack_outputs_kernel"
+    names = {k: k for k in ("pack_verdicts_kernel", "arena_unpack_kernel", "pack_outputs_kernel",
+                            "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
+                            "explain_sums_kernel", "explain_rows_kernel")}
     for flags in range(32):
         bits = [(flags >> i) & 1 for i in range(5)]
         mangled = "ffd_scan_kernelI" + "".join(f"Lb{b}E" for b in bits)
@@ -2500,13 +3113,15 @@ def main() -> int:
     build.build()
     ffd_lib = build.load()
     sparse_lib = build.load("ffd_sparse_kernels")
+    class_lib = build.load("class_kernels")
     build_s = time.perf_counter() - t0
-    assert ffd_lib is not None and sparse_lib is not None
+    assert ffd_lib is not None and sparse_lib is not None and class_lib is not None
     for line in build.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
     print(f"build: {build_s:.3f} s ({build.BUILD_LOG['libraries']})", flush=True)
 
+    print(f"[phase 2 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2: kernels vs plain versions at main-path shapes -------------------
     inputs = {
         "surge": build_input(PODS),
@@ -2549,6 +3164,7 @@ def main() -> int:
           f"K7 (K=2) max_abs_err=({fz_ck['err']}, vs K1 {fz_ck['err_k1']}, resume k={fz_ck['k']} "
           f"{fz_ck['err_resume']})", flush=True)
 
+    print(f"[phase 2d starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2d: K7 and K8 against their plain versions at main-path shapes --------
     # K7 (the checkpointed scan, TorchSolver()'s default dispatch) at the surge
     # (fast; a snapshot every 16 and every 4 steps) and at config 3 (zoned),
@@ -2571,6 +3187,7 @@ def main() -> int:
                                 for k, v in unpack_checks.items()) + f" max_abs_err={k8_err}",
           flush=True)
 
+    print(f"[phase 2e starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2e: the sparse instances (K1s, K7s) and the dense output pack ---------
     # at the kernel arguments of config 3, mixed and constraint_wide (zoned),
     # the surge with its all-padding tables (fast, full width), the small
@@ -2628,6 +3245,35 @@ def main() -> int:
     print("pack: " + " ".join(f"{k}={v['words']}words flag={v['flag']}" for k, v in packs.items())
           + " max_abs_err=0", flush=True)
 
+    print(f"[phase 2f starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 2f: the class and explain kernels (K10-K12) against their plain versions
+    # K10/K11 on seeded and adversarial tables and K11 at 10k nodes; K12 at
+    # the outputs of surge_e2e, config 3 and class_contended's cold inner
+    # solve (K1-K3 held at that fleet's shapes too), at top_k 8 and above
+    # Ep; a record built from K12's wire equals the host-derived one
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    class_checks = class_kernel_checks(dev)
+    print(f"class kernels: seeded (S, NG, [E, Vm], node)={class_checks['seeded']} "
+          f"adversarial={class_checks['adversarial']} 10k nodes={class_checks['scaled']} "
+          f"max_abs_err=0", flush=True)
+    class_inp = build_class_input(**CLASS_KW)
+    ph_cls = kernel_phase(class_inp, dev)
+    print(f"kernels[class_contended]: M={ph_cls['M']} dims={ph_cls['dims']} "
+          f"max_abs_err={ph_cls['errs']} plain_s={ph_cls['plain_once_s']:.2f}", flush=True)
+    explain_checks, explain_records = {}, {}
+    for name, ph, inp in (("surge_e2e", phases["surge_e2e"], inputs["surge_e2e"]),
+                          ("config3", phases["config3"], inputs["config3"]),
+                          ("class_contended", ph_cls, class_inp)):
+        Ep = int(ph["out"].take_e.shape[1])
+        explain_checks[name] = explain_check(ph, dev, (8, Ep + 5))
+        explain_records[name] = [explain_record_check(inp, k) for k in (8, Ep + 5)]
+        c = explain_checks[name]
+        print(f"explain[{name}]: Sp={c['Sp']} Ep={c['Ep']} Gp={c['Gp']} E={c['E']} G={c['G']} "
+              f"side tables {c['side_bytes']} B top_k={c['ks']} max_abs_err={c['err']} "
+              f"records={explain_records[name]}", flush=True)
+
+    print(f"[phase 2c starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2c: K6, the relax-ladder scan, against its plain version -------------
     # at the ladder cells' shapes (config3_soft through the zoned instance,
     # surge_pref through the fast one), a 400-pod relax walk (every pod after
@@ -2676,6 +3322,7 @@ def main() -> int:
     print(f"ladder[relax x8]: max_abs_err=0, K6s too (seed, zoned, attempts, events, "
           f"leftover)={small}", flush=True)
 
+    print(f"[phase 2b starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2b: config 5, batched consolidation (K4, K5) ------------------------
     int_rate = int32_ops_per_s()
     t0 = time.perf_counter()
@@ -2683,6 +3330,7 @@ def main() -> int:
     c5["summary"]["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"config5": c5["summary"]}), flush=True)
 
+    print(f"[phase 3 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 3: the main path through TorchSolver ---------------------------------
     # TorchSolver() at its defaults (the arena, K7 with its ring), which
     # gates sparse on config 3, mixed and constraint_wide (its
@@ -2800,6 +3448,7 @@ def main() -> int:
           f"d2h bytes {dd_d2h['d2h_bytes']} (config 3) against {transfer['config3']['d2h_bytes']}",
           flush=True)
 
+    print(f"[phase 4 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 4: forced wide re-fetch ---------------------------------------------
     real_cap = tb.delta_capacity
     tb.delta_capacity = lambda *a: 16
@@ -2811,6 +3460,7 @@ def main() -> int:
     assert wide.stats["wide_refetches"] >= 1, wide.stats
     assert decisions(res_w) == decisions(results["surge_e2e"]), "wide re-fetch changed decisions"
 
+    print(f"[phase 5 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 5: the relax path through TorchSolver ----------------------------------
     # config3_soft REPEATS times, surge_pref and the relax walk once, with
     # the launch counts reset just before and read just after
@@ -2890,6 +3540,7 @@ def main() -> int:
                      steady=transfer["relax_walk"])
     print(json.dumps({"relax_walk": walk_line}), flush=True)
 
+    print(f"[phase 6 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 6: arena and resume ----------------------------------------------------
     # surge_tail / config3_tail: the cell plus 1 250 replicas of its last
     # run's pod; base and tail alternate through TorchSolver(), launch
@@ -2906,6 +3557,21 @@ def main() -> int:
     print(json.dumps({"resume": {n: {k: v for k, v in r.items() if k != "solves"}
                                  for n, r in resume.items()},
                       "resume_launches": resume_launches}), flush=True)
+
+    print(f"[phase 7 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 7: scheduling classes and explain ---------------------------------------
+    # class_contended through ClassAwareSolver(TorchSolver()) (K10, K11; K12
+    # with explain on), class_zone once, surge_e2e with explain on and off
+    zone_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_GANGS},
+                                 topology=wk.ZONE_LABEL)
+    t0 = time.perf_counter()
+    cls = class_phase(class_inp, zone_inp, inputs["surge_e2e"], TorchSolver)
+    cls["phase_s"] = time.perf_counter() - t0
+    class_line = {k: v for k, v in cls.items() if k not in ("first", "samples")}
+    print(json.dumps({"classes": class_line}), flush=True)
+    class_rows = class_kernel_rows(
+        cls["first"], dict(gang_err=0, plan_err=0, k11_tables=class_checks["k11_tables"]),
+        explain_checks["class_contended"], cls["launches"], cls["per_solve_launches"], int_rate)
 
     stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
@@ -2938,7 +3604,8 @@ def main() -> int:
             + sparse_kernel_rows(sparse, lsparse, phases, ladder, launches, relax_launches,
                                  int_rate)
             + [pack_kernel_row(phases["config3"]["out"], packs["config3"]["err"], launches,
-                               int_rate)])
+                               int_rate)]
+            + class_rows)
     launches_per_solve = {k: launches[k] / n for k, n in (
         *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
         ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
@@ -2981,6 +3648,12 @@ def main() -> int:
                            steady=transfer["surge_pref"]),
         "relax_walk": walk_line,
         "resume": resume,
+        "classes": class_line,
+        "explain_checks": {k: {f: v[f] for f in ("Sp", "Ep", "Gp", "E", "G", "ks", "err",
+                                                 "side_bytes")}
+                           for k, v in explain_checks.items()},
+        "explain_records": explain_records,
+        "class_kernel_checks": {k: class_checks[k] for k in ("seeded", "adversarial", "scaled")},
         "ledger": ledger_line,
         "unpack_checks": {k: dict(nbytes=v["nbytes"], segments=v["segments"])
                           for k, v in unpack_checks.items()},

@@ -1,8 +1,8 @@
 """The solver seam and the GPU backend: the port of
 karpenter_tpu/solver/backend.py for the provisioning solve.
 
-`TorchSolver` is the counterpart of `TPUSolver()` at its defaults with
-explain off, no mesh sharding and no cohort fusion: encode -> padded
+`TorchSolver` is the counterpart of `TPUSolver()` at its defaults with no
+mesh sharding and no cohort fusion: encode -> padded
 kernel args -> upload through the argument arena (solver/arena.py: only
 stale entries, packed into one buffer, one copy, one unpack launch; an
 exact repeat uploads nothing) -> the checkpointed FFD scan, with the zoned
@@ -30,6 +30,17 @@ the device-resident relax ladder, one dispatch of the ladder scan
 (`_ladder_dispatch`), or the host relax loop, one plain-scan dispatch per
 dropped preference (`_relax_solve`), as in the JAX backend.
 
+With the explain plane on (obs/explain.py configure(enabled=True)), a cold
+dispatch also runs the explain side kernel (cuda/ffd.py explain_pack, K12)
+over its device-resident take table and fetches the rejection table in one
+message through the ledger (`_device_explain`); every solve path captures
+its record. A resumed solve (its take rows are stitched on the host), a
+relax frame (ladder or host loop: the table derives against the original
+input) and a node axis past uint16 carry no device table: the host deriver
+builds it (counted in stats["explain_host_derived"]). Unlike the reference,
+which logs a failed explain dispatch and carries on, a kernel that fails to
+build or launch here raises out of the solve: no fallback hides it.
+
 Inputs outside the port raise `UnsupportedInput`; there is no CPU
 fallback solver. A later slice lifts one decline at a time.
 """
@@ -44,6 +55,7 @@ import torch
 
 from ..api import wellknown as wk
 from ..api.objects import _POD_CACHE_KEYS
+from ..obs import explain as obsexplain
 from ..provisioning.scheduler import ClaimResult, SolverInput, SolverResult
 from ..scheduling.requirements import IN, Requirement, Requirements
 from ..utils.resources import Resources
@@ -54,6 +66,7 @@ from .encode import (
     UnpackableInput,
     _pod_signature,
     encode,
+    explain_tables,
     quantize_input,
     sparse_run_tables,
     use_sparse_constraints,
@@ -64,6 +77,22 @@ class Solver(abc.ABC):
     @abc.abstractmethod
     def solve(self, inp: SolverInput) -> SolverResult:
         ...
+
+
+def concrete_backend(solver):
+    """The concrete executor at the bottom of a wrapper chain (class-aware
+    and other layers delegate via `.inner` or `.solver`). Wrappers'
+    `__getattr__` passthrough makes hasattr unusable here — only attributes
+    in the instance __dict__ count as real links."""
+    seen = set()
+    while id(solver) not in seen:
+        seen.add(id(solver))
+        d = getattr(solver, "__dict__", {})
+        nxt = d.get("inner") or d.get("solver")
+        if nxt is None or isinstance(nxt, (str, bytes)):
+            break
+        solver = nxt
+    return solver
 
 
 class UnsupportedInput(ValueError):
@@ -683,6 +712,9 @@ class TorchSolver(Solver):
             "device_solves": 0, "wide_refetches": 0, "claim_doublings": 0,
             "ladder_solves": 0, "relax_dispatches": 0, "ladder_rungs_used": 0,
             "resume_solves": 0, "resume_runs_skipped": 0, "sparse_dispatches": 0,
+            # explain plane: K12 dispatches, node axes past uint16, and
+            # captures the host deriver builds
+            "explain_dispatches": 0, "explain_wide": 0, "explain_host_derived": 0,
         }
         # every host->device and device->host byte, per solve and in all
         self.ledger = TransferLedger()
@@ -751,7 +783,12 @@ class TorchSolver(Solver):
         _check_encode(enc)
         if enc.G == 0:
             # no schedulable pod: the empty result every backend returns
-            return AsyncSolve(lambda: _empty_result())
+            def empty():
+                res = _empty_result()
+                self._capture(qinp, res)
+                return res
+
+            return AsyncSolve(empty)
         handle = self._device_solve_async(enc)
 
         def finish():
@@ -759,9 +796,21 @@ class TorchSolver(Solver):
             if not min_values_post_check(qinp, out):
                 raise UnsupportedInput("a claim narrowed below a minValues floor")
             self.stats["device_solves"] += 1
+            # the table decoded from the explain wire rides the result; None
+            # (a resumed solve, a node axis past uint16) host-derives
+            self._capture(qinp, out, enc=enc, table=getattr(out, "_explain_table", None))
             return out
 
         return AsyncSolve(finish)
+
+    def _capture(self, qinp, res, enc=None, table=None, annotations=None) -> None:
+        """The solve's explain record (obs/explain.py capture), when the
+        plane is on; a capture without a device table host-derives."""
+        if not obsexplain.enabled():
+            return
+        if table is None:
+            self.stats["explain_host_derived"] += 1
+        obsexplain.capture(qinp, res, "torch", enc=enc, table=table, annotations=annotations)
 
     # -- host relax loop -------------------------------------------------------
 
@@ -808,7 +857,15 @@ class TorchSolver(Solver):
                 self.stats["ladder_rungs_used"] = max(dropped.values(), default=0)
                 # per-pod relaxation SPLITS original runs, so fungible-pod
                 # assignments are canonicalized over the ORIGINAL pods
-                return canonicalize_placements(qinp, out)
+                final = canonicalize_placements(qinp, out)
+                # relaxed runs differ from the original encode frame: the
+                # table host-derives against the ORIGINAL input; the rungs
+                # each pod dropped ride as a leg annotation
+                self._capture(qinp, final, annotations={
+                    "relax_dispatches": it + 1,
+                    "relax_dropped": {u: r for u, r in dropped.items() if r},
+                })
+                return final
             dropped[cand] += 1
         raise UnsupportedInput("the relax loop did not settle within its dispatch budget")
 
@@ -894,7 +951,12 @@ class TorchSolver(Solver):
             self.stats["ladder_solves"] += 1
             self.stats["relax_dispatches"] = 1
             self.stats["ladder_rungs_used"] = lad["rungs"]
-            return canonicalize_placements(qinp, res)
+            final = canonicalize_placements(qinp, res)
+            # same frame rule as _relax_solve (the ladder enc carries ghost
+            # rung groups); the rung count is a leg annotation
+            self._capture(qinp, final,
+                          annotations={"relax_dispatches": 1, "ladder_rungs": lad["rungs"]})
+            return final
         dropped = {u: 0 for u in items_map}
         return self._relax_solve(qinp, items_map, order, dropped, None)
 
@@ -1077,6 +1139,42 @@ class TorchSolver(Solver):
         flat = flat_dev.cpu().numpy()
         self.ledger.record_fetch(flat.nbytes)
         return flat
+
+    def _device_explain(self, enc: EncodedInput, out):
+        """Dispatch the explain side kernel (cuda/ffd.py explain_pack, K12)
+        over the solve's device-resident take table plus the host-built side
+        tables (encode.explain_tables), fetch the int32 wire buffer through
+        the transfer ledger, and decode the real-group prefix. Returns
+        (n_rejected, words), or None when the node axis overflows the uint16
+        entry half: the host deriver rebuilds the table at full width."""
+        from .convert import array_to_torch
+        from .cuda.ffd import explain_pack, unpack_explain
+
+        take_e = out.take_e
+        Sp, Ep = int(take_e.shape[0]), int(take_e.shape[1])
+        if Ep > 0xFFFF:
+            self.stats["explain_wide"] += 1
+            return None
+        side, E, G = explain_args(enc, Sp, Ep)
+        dev = [array_to_torch(a, self.device) for a in side]
+        flat = self._fetch(explain_pack(take_e, *dev, E, G, top_k=obsexplain.top_k()))
+        self.stats["explain_dispatches"] += 1
+        overflow, n_rej, words = unpack_explain(flat, G)
+        if overflow:
+            self.stats["explain_wide"] += 1
+            return None
+        return n_rej, words
+
+    def _stash_explain(self, enc: EncodedInput, res: SolverResult, out, plan) -> None:
+        """Cold dispatches only: a resumed solve's take table is stitched on
+        the host, so the device rows alone would disagree with the final
+        decisions; those solves host-derive. The table rides the result as
+        a plain attribute for solve_async's capture."""
+        if plan is not None or not obsexplain.enabled():
+            return
+        tbl = self._device_explain(enc, out)
+        if tbl is not None:
+            res._explain_table = tbl
 
     def _device_solve_async(self, enc: EncodedInput):
         try:
@@ -1317,6 +1415,8 @@ class TorchSolver(Solver):
                 take_e, take_c = _dense_from_entries(entries, S, Ep_, M)
                 self._record_checkpoint(enc, host_args, M, S, plan, out, ring, take_e,
                                         take_c, leftover)
+            if host_args is not None:
+                self._stash_explain(enc, res, out, plan)
             return res
         # the wide re-fetch: rows [0:k] are the donor record's, rows [k:S]
         # this dispatch's; the final state needs no stitching
@@ -1328,7 +1428,47 @@ class TorchSolver(Solver):
         if host_args is not None:
             self._record_checkpoint(enc, host_args, M, S, plan, out, ring, take_e, take_c,
                                     leftover)
+            self._stash_explain(enc, res, out, plan)
         return res
+
+
+def explain_args(enc: EncodedInput, Sp: int, Ep: int):
+    """The explain side kernel's tables (cuda/ffd.py EXPLAIN_ARG_SPEC after
+    take_e, before the counts) for a dispatch of padded shape [Sp, Ep]:
+    (tables, E, G). The group axis pads to a power of two; Z/C widths pad to
+    >= 1 with all-False columns, the rule the numpy twin applies, so the
+    tables are bit-equal."""
+    t = explain_tables(enc)
+    G = int(t["group_req"].shape[0])
+    E = int(t["node_free"].shape[0])
+    R = int(t["group_req"].shape[1])
+    S = int(t["run_group"].shape[0])
+    Gp = 1 << (max(G, 1) - 1).bit_length()
+    gz = np.asarray(t["group_zone"], bool).reshape(G, -1)
+    gc = np.asarray(t["group_ct"], bool).reshape(G, -1)
+    Z, C = max(1, gz.shape[1]), max(1, gc.shape[1])
+    run_group = np.zeros(Sp, dtype=np.int32)
+    run_group[:S] = t["run_group"]
+    group_req = np.zeros((Gp, R), dtype=np.int32)
+    group_req[:G] = t["group_req"]
+    node_free = np.zeros((Ep, R), dtype=np.int32)
+    node_free[:E] = t["node_free"]
+    node_compat = np.zeros((Gp, Ep), dtype=bool)
+    node_compat[:G, :E] = t["node_compat"]
+    node_zone = np.full(Ep, -1, dtype=np.int32)
+    node_zone[:E] = t["node_zone"]
+    node_ct = np.full(Ep, -1, dtype=np.int32)
+    node_ct[:E] = t["node_ct"]
+    group_zone = np.zeros((Gp, Z), dtype=bool)
+    group_zone[:G, : gz.shape[1]] = gz
+    group_ct = np.zeros((Gp, C), dtype=bool)
+    group_ct[:G, : gc.shape[1]] = gc
+    group_topo = np.zeros(Gp, dtype=bool)
+    group_topo[:G] = t["group_topo"]
+    group_aff = np.zeros(Gp, dtype=bool)
+    group_aff[:G] = t["group_aff"]
+    return ((run_group, group_req, node_free, node_compat, node_zone, node_ct, group_zone,
+             group_ct, group_topo, group_aff), E, G)
 
 
 def _stitch(plan, name: str, rows: np.ndarray, S: int) -> np.ndarray:

@@ -27,6 +27,7 @@ SOURCES = {
     "ffd_kernels": PKG_ROOT / "csrc" / "ffd_kernels.cu",
     "ffd_sparse_kernels": PKG_ROOT / "csrc" / "ffd_sparse_kernels.cu",
     "arena_kernels": PKG_ROOT / "csrc" / "arena_kernels.cu",
+    "class_kernels": PKG_ROOT / "csrc" / "class_kernels.cu",
 }
 # sources a library includes besides its own (their bytes enter its hash)
 INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],)}
@@ -38,6 +39,7 @@ LAUNCHERS = {
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
                            "ffd_ckpt_sparse_launch"),
     "arena_kernels": ("arena_unpack_launch",),
+    "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
 }
 BUILD_DIR = PKG_ROOT.parent / "build" / "karpenter_tpu_torch"
 NVCC_FLAGS = [

@@ -46,6 +46,12 @@ and read each run's hostname and zone-sig state through them (`_Run`'s
 view); their outputs, rings included, are the dense scans'.
 `pack_outputs` is the dense output pack (the JAX backend.py:511
 `_pack_outputs`), the fetch of `TorchSolver(device_decode=False)`.
+
+The side kernels of the scheduling-class passes and of decision provenance
+close the module (the JAX ffd.py:2920-3105): `gang_commit` (the atomic gang
+verdict), `preemption_plan` (one planned preemption) with the eviction
+table's wire, and `explain_pack` (the per-group rejection table) with the
+explain wire; their kernels are csrc/class_kernels.cu (K10-K12).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 INT32_MAX = 2**31 - 1
@@ -196,7 +203,9 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # fourth flag is false. The fifth flag, SPARSE, is true in the sparse
 # instances of K1 (ffd_sparse_fast_scan / ffd_sparse_zoned_scan), K6
 # (ffd_ladder_sparse_*) and K7 (ffd_ckpt_sparse_*, also ffd_resume_sparse),
-# false in every other; pack_outputs is the dense output pack.
+# false in every other; pack_outputs is the dense output pack; gang_commit,
+# preemption_plan and explain_pack are the class and explain kernels (K10-K12,
+# csrc/class_kernels.cu).
 LAUNCHES = {
     "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
     "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
@@ -205,7 +214,7 @@ LAUNCHES = {
     "ffd_sparse_fast_scan": 0, "ffd_sparse_zoned_scan": 0,
     "ffd_ladder_sparse_fast_scan": 0, "ffd_ladder_sparse_zoned_scan": 0,
     "ffd_ckpt_sparse_fast_scan": 0, "ffd_ckpt_sparse_zoned_scan": 0,
-    "pack_outputs": 0,
+    "pack_outputs": 0, "gang_commit": 0, "preemption_plan": 0, "explain_pack": 0,
 }
 
 I32 = torch.int32
@@ -1938,3 +1947,297 @@ def pack_outputs(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
     if take_e.is_cuda:
         return _pack_outputs_cuda(take_e, take_c, leftover, state)
     return pack_outputs_plain(take_e, take_c, leftover, state)
+
+
+# --- scheduling classes: the gang verdict and the preemption plan (K10, K11) --
+#
+# Eviction-table wire format (the JAX ffd.py:2934-2948): a header
+# [overflow, entry_count] then (node_idx, victim_idx) as two uint16 words per
+# entry; an index past uint16 sets the overflow flag and packs no rows (the
+# class pass then declines). The JAX module's GangStage carry is a layout
+# note its orchestrator never builds, so it has no counterpart here.
+EVICT_HEADER_WORDS = 2
+EVICT_ENTRY_U16 = 2
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values -> int32 with two's-complement wrap (XLA's int32 sums)."""
+    return _i32_bits(x & 0xFFFFFFFF)
+
+
+def gang_commit_plain(run_placed, run_gang, gang_size, gang_min_ranks):
+    """Plain version of the JAX `gang_commit` (ffd.py:2953): per-gang placed
+    counts by segment sum over the runs (gangs outside [0, NG) count
+    nowhere: JAX parks negative gangs in slot NG and drops indices past
+    it), committed iff placed >= min_ranks > 0. Returns (commit [NG] bool,
+    placed [NG] int32)."""
+    ng = int(gang_size.shape[0])
+    hot = (run_gang >= 0) & (run_gang < ng)
+    placed = torch.zeros(ng, dtype=torch.int64, device=run_placed.device)
+    placed.index_add_(0, run_gang[hot].to(torch.int64), run_placed[hot].to(torch.int64))
+    placed = _wrap32(placed)
+    commit = (placed >= gang_min_ranks) & (gang_min_ranks > 0)
+    return commit, placed
+
+
+def preemption_plan_plain(node_free, victim_prio, victim_req, victim_ok, node_ok, need,
+                          pod_prio: int):
+    """Plain version of the JAX `preemption_plan` (ffd.py:2969): the first
+    node (ascending) whose free capacity plus the cumulative reclaim of its
+    eligible victims (victim_ok and priority strictly below `pod_prio`;
+    victims arrive sorted by ascending (priority, uid)) covers `need`, and
+    the shortest such victim prefix as a mask. int32 sums wrap, as XLA's.
+    Returns (node_idx int32 scalar, -1 = no plan; take [E, Vm] bool, hot only
+    on the chosen row, empty when its free capacity alone fits)."""
+    E, Vm = victim_prio.shape
+    dev = victim_prio.device
+    eligible = victim_ok & (victim_prio < int(pod_prio))
+    reclaim = torch.where(eligible[:, :, None], victim_req.to(torch.int64), 0)
+    cum = _wrap32(node_free[:, None, :].to(torch.int64) + torch.cumsum(reclaim, dim=1))
+    fit0 = torch.all(node_free >= need[None, :], dim=1)
+    fit_at = torch.all(cum >= need[None, None, :], dim=2)
+    any_fit = node_ok & (fit0 | torch.any(fit_at, dim=1))
+    node_idx = _argmax_first(any_fit) if bool(any_fit.any()) else -1
+    kmin = torch.argmax(fit_at.to(I32), dim=1)  # first fitting position, 0 if none
+    take = (
+        eligible
+        & (torch.arange(Vm, device=dev)[None, :] <= kmin[:, None])
+        & ~fit0[:, None]
+        & (torch.arange(E, device=dev)[:, None] == node_idx)
+    )
+    return torch.tensor(node_idx, dtype=I32, device=dev), take
+
+
+def pack_evictions(entries):
+    """Pack (node_idx, victim_idx) rows into the uint16 eviction table
+    (EVICT_HEADER_WORDS, then EVICT_ENTRY_U16 words per row); an index past
+    uint16 sets header[0] and packs no rows."""
+    n = len(entries)
+    if any(e >= 2**16 or v >= 2**16 for e, v in entries):
+        return np.asarray([1, 0], dtype=np.uint16)
+    buf = np.zeros(EVICT_HEADER_WORDS + EVICT_ENTRY_U16 * n, dtype=np.uint16)
+    buf[1] = n
+    for i, (e, v) in enumerate(entries):
+        buf[EVICT_HEADER_WORDS + 2 * i] = e
+        buf[EVICT_HEADER_WORDS + 2 * i + 1] = v
+    return buf
+
+
+def unpack_evictions(buf):
+    """Inverse of pack_evictions: (overflow, [(node_idx, victim_idx), ...])."""
+    buf = np.asarray(buf, dtype=np.uint16)
+    n = int(buf[1])
+    rows = [(int(buf[EVICT_HEADER_WORDS + 2 * i]), int(buf[EVICT_HEADER_WORDS + 2 * i + 1]))
+            for i in range(n)]
+    return bool(buf[0]), rows
+
+
+# --- decision provenance: the explain wire (K12) ----------------------------
+#
+# The reason enum and its precedence (the smallest nonzero code wins) are the
+# wire contract shared with obs/explain.py's REASON_NAMES. The packed int32
+# buffer: a header [overflow, n_groups, top_k], then per group its rejected
+# count and top_k entries e | (reason << 16), -1 for an empty slot; overflow
+# (a node axis past uint16) makes the host deriver rebuild the table.
+EXPLAIN_REASONS = (
+    ("feasible", 0),
+    ("zone", 1),
+    ("capacity_type", 2),
+    ("taint", 3),
+    ("resources", 4),
+    ("topology", 5),
+    ("affinity", 6),
+)
+EXPLAIN_HEADER_WORDS = 3  # [overflow_flag, n_groups, top_k] i32
+EXPLAIN_ENTRY_WORDS = 1   # e | (reason << 16) per rejected candidate
+
+EXPLAIN_ARG_SPEC = (
+    "take_e",       # [Sp, Ep] i32 — the scan's own output (device-resident)
+    "run_group",    # [Sp] i32
+    "group_req",    # [Gp, R] i32
+    "node_free",    # [Ep, R] i32 (pre-solve)
+    "node_compat",  # [Gp, Ep] bool (labels+taints admission)
+    "node_zone",    # [Ep] i32 (-1 unknown)
+    "node_ct",      # [Ep] i32 (-1 unknown)
+    "group_zone",   # [Gp, Z] bool
+    "group_ct",     # [Gp, C] bool
+    "group_topo",   # [Gp] bool — group owns a spread engine constraint
+    "group_aff",    # [Gp] bool — group owns affinity terms
+    "e_count",      # i32 scalar — real node count inside the Ep padding
+    "g_count",      # i32 scalar — real group count inside the Gp padding
+)
+
+
+def explain_words(n_groups: int, k: int) -> int:
+    """Buffer length in int32 words: header + per-group (count + k entries)."""
+    return EXPLAIN_HEADER_WORDS + n_groups * (1 + k * EXPLAIN_ENTRY_WORDS)
+
+
+def explain_pack_plain(take_e, run_group, group_req, node_free, node_compat, node_zone,
+                       node_ct, group_zone, group_ct, group_topo, group_aff, e_count,
+                       g_count, *, top_k: int):
+    """Plain version of the JAX `explain_pack` (ffd.py:3096): final free =
+    node_free - take_e^T . group_req[run_group] (int32, wrapping); a node is
+    rejected for group g iff it cannot admit and fit ONE MORE pod of g, with
+    the precedence zone > capacity_type > taint > resources > topology >
+    affinity, and any node g landed pods on is feasible; the first top_k
+    rejected real nodes per real group, ascending, packed into one int32
+    buffer (layout above). The (group, node) placed sums come from one
+    index_add over the runs (every run has one group), not from a group
+    one-hot product. run_group lies in [0, Gp)."""
+    Sp, Ep = take_e.shape
+    Gp, R = group_req.shape
+    dev = take_e.device
+    take64 = take_e.to(torch.int64)
+    req_s = group_req[run_group.to(torch.int64)].to(torch.int64)      # [Sp, R]
+    usage = (take64[:, :, None] * req_s[:, None, :]).sum(dim=0)       # [Ep, R]
+    free_final = _wrap32(node_free.to(torch.int64) - usage)
+    Z, C = group_zone.shape[1], group_ct.shape[1]
+    zid = node_zone.clamp(0, Z - 1).to(torch.int64)
+    cid = node_ct.clamp(0, C - 1).to(torch.int64)
+    zone_ok = torch.where(node_zone[None, :] >= 0, group_zone[:, zid], True)
+    ct_ok = torch.where(node_ct[None, :] >= 0, group_ct[:, cid], True)
+    fits = torch.all(free_final[None, :, :] >= group_req[:, None, :], dim=-1)
+    placed_sum = torch.zeros((Gp, Ep), dtype=torch.int64, device=dev)
+    placed_sum.index_add_(0, run_group.to(torch.int64), take64)
+    placed = _wrap32(placed_sum) > 0
+    code = torch.where(
+        ~zone_ok, 1,
+        torch.where(~ct_ok, 2,
+        torch.where(~node_compat, 3,
+        torch.where(~fits, 4,
+        torch.where(group_topo[:, None], 5,
+        torch.where(group_aff[:, None], 6, 0))))))
+    code = torch.where(placed, 0, code).to(I32)
+    e_idx = torch.arange(Ep, dtype=I32, device=dev)
+    real_e = e_idx[None, :] < int(e_count)
+    real_g = torch.arange(Gp, dtype=I32, device=dev) < int(g_count)
+    rej = (code > 0) & real_e & real_g[:, None]
+    n_rej = rej.sum(dim=1).to(I32)
+    key = torch.where(rej, e_idx[None, :], Ep)
+    order = torch.sort(key, dim=1, stable=True).indices[:, :top_k]
+    ent_e = torch.gather(key, 1, order)
+    ent_c = torch.gather(code, 1, order)
+    words = torch.where(ent_e < Ep, ent_e | (ent_c << 16), -1).to(I32)
+    if words.shape[1] < top_k:  # fewer nodes than top-k: pad empty slots
+        pad = torch.full((Gp, top_k - words.shape[1]), -1, dtype=I32, device=dev)
+        words = torch.cat([words, pad], dim=1)
+    header = torch.tensor([int(Ep > 0xFFFF), int(g_count), int(top_k)], dtype=I32, device=dev)
+    rows = torch.cat([n_rej[:, None], words], dim=1)
+    return torch.cat([header, rows.reshape(-1)])
+
+
+def unpack_explain(flat, n_groups: int):
+    """Inverse of explain_pack for the REAL group prefix: (overflow,
+    n_rejected [G] i32, words [G, K] i32), numpy."""
+    flat = np.asarray(flat, dtype=np.int32)
+    k = int(flat[2])
+    body = flat[EXPLAIN_HEADER_WORDS:].reshape(-1, 1 + k)
+    return (bool(flat[0]), np.ascontiguousarray(body[:n_groups, 0]),
+            np.ascontiguousarray(body[:n_groups, 1:]))
+
+
+def _gang_commit_cuda(run_placed, run_gang, gang_size, gang_min_ranks):
+    from .build import load
+
+    S, NG = int(run_placed.shape[0]), int(gang_size.shape[0])
+    for t, n, sh in ((run_placed, "run_placed", (S,)), (run_gang, "run_gang", (S,)),
+                     (gang_size, "gang_size", (NG,)), (gang_min_ranks, "gang_min_ranks", (NG,))):
+        _check(t, n, I32, sh)
+    dev = run_placed.device
+    commit = torch.empty((NG,), dtype=torch.bool, device=dev)
+    placed = torch.empty((NG,), dtype=I32, device=dev)
+    rc = load("class_kernels").gang_commit_launch(
+        _ptrs([run_placed, run_gang, gang_min_ranks, commit, placed]), 5, _ints([S, NG]),
+        _stream())
+    _raise_on(rc, "gang_commit")
+    LAUNCHES["gang_commit"] += 1
+    return commit, placed
+
+
+def _preemption_plan_cuda(node_free, victim_prio, victim_req, victim_ok, node_ok, need,
+                          pod_prio: int):
+    from .build import load
+
+    E, Vm = victim_prio.shape
+    R = int(need.shape[0])
+    if E < 1 or Vm < 1 or not 1 <= R <= MAX_R:
+        raise ValueError(f"preemption_plan: E={E}, Vm={Vm} must be >= 1 and R={R} in "
+                         f"[1, {MAX_R}]")
+    for t, n, dt, sh in ((node_free, "node_free", I32, (E, R)),
+                         (victim_prio, "victim_prio", I32, (E, Vm)),
+                         (victim_req, "victim_req", I32, (E, Vm, R)),
+                         (victim_ok, "victim_ok", torch.bool, (E, Vm)),
+                         (node_ok, "node_ok", torch.bool, (E,)), (need, "need", I32, (R,))):
+        _check(t, n, dt, sh)
+    dev = node_free.device
+    node_idx = torch.empty((), dtype=I32, device=dev)
+    take = torch.empty((E, Vm), dtype=torch.bool, device=dev)
+    best = torch.empty((1,), dtype=I32, device=dev)
+    rc = load("class_kernels").preemption_plan_launch(
+        _ptrs([node_free, victim_prio, victim_req, victim_ok, node_ok, need, node_idx, take,
+               best]), 9, _ints([E, Vm, R, pod_prio]), _stream())
+    _raise_on(rc, "preemption_plan")
+    LAUNCHES["preemption_plan"] += 1
+    return node_idx, take
+
+
+def _explain_pack_cuda(take_e, run_group, group_req, node_free, node_compat, node_zone,
+                       node_ct, group_zone, group_ct, group_topo, group_aff, e_count,
+                       g_count, *, top_k: int):
+    from .build import load
+
+    Sp, Ep = take_e.shape
+    Gp, R = group_req.shape
+    Z, C = group_zone.shape[1], group_ct.shape[1]
+    if Gp < 1 or Z < 1 or C < 1 or top_k < 1:
+        raise ValueError(f"explain_pack: Gp={Gp}, Z={Z}, C={C} and top_k={top_k} must be >= 1")
+    for t, n, dt, sh in ((take_e, "take_e", I32, (Sp, Ep)), (run_group, "run_group", I32, (Sp,)),
+                         (group_req, "group_req", I32, (Gp, R)),
+                         (node_free, "node_free", I32, (Ep, R)),
+                         (node_compat, "node_compat", torch.bool, (Gp, Ep)),
+                         (node_zone, "node_zone", I32, (Ep,)), (node_ct, "node_ct", I32, (Ep,)),
+                         (group_zone, "group_zone", torch.bool, (Gp, Z)),
+                         (group_ct, "group_ct", torch.bool, (Gp, C)),
+                         (group_topo, "group_topo", torch.bool, (Gp,)),
+                         (group_aff, "group_aff", torch.bool, (Gp,))):
+        _check(t, n, dt, sh)
+    dev = take_e.device
+    out = torch.empty((explain_words(Gp, top_k),), dtype=I32, device=dev)
+    scratch = torch.empty((max(1, Gp * Ep + Ep * R),), dtype=I32, device=dev)
+    ptrs = [take_e, run_group, group_req, node_free, node_compat, node_zone, node_ct,
+            group_zone, group_ct, group_topo, group_aff, out, scratch]
+    rc = load("class_kernels").explain_pack_launch(
+        _ptrs(ptrs), len(ptrs), _ints([Sp, Ep, Gp, R, Z, C, top_k, e_count, g_count]), _stream())
+    _raise_on(rc, "explain_pack")
+    LAUNCHES["explain_pack"] += 1
+    return out
+
+
+def gang_commit(run_placed, run_gang, gang_size, gang_min_ranks):
+    """The atomic gang verdict (see gang_commit_plain): (commit, placed)."""
+    if run_placed.is_cuda:
+        return _gang_commit_cuda(run_placed, run_gang, gang_size, gang_min_ranks)
+    return gang_commit_plain(run_placed, run_gang, gang_size, gang_min_ranks)
+
+
+def preemption_plan(node_free, victim_prio, victim_req, victim_ok, node_ok, need,
+                    pod_prio: int):
+    """One planned preemption (see preemption_plan_plain): (node_idx, take)."""
+    if node_free.is_cuda:
+        return _preemption_plan_cuda(node_free, victim_prio, victim_req, victim_ok, node_ok,
+                                     need, pod_prio)
+    return preemption_plan_plain(node_free, victim_prio, victim_req, victim_ok, node_ok, need,
+                                 pod_prio)
+
+
+def explain_pack(take_e, run_group, group_req, node_free, node_compat, node_zone, node_ct,
+                 group_zone, group_ct, group_topo, group_aff, e_count, g_count, *,
+                 top_k: int):
+    """The per-group rejection table as one int32 wire buffer (see
+    explain_pack_plain)."""
+    args = (take_e, run_group, group_req, node_free, node_compat, node_zone, node_ct,
+            group_zone, group_ct, group_topo, group_aff, e_count, g_count)
+    if take_e.is_cuda:
+        return _explain_pack_cuda(*args, top_k=top_k)
+    return explain_pack_plain(*args, top_k=top_k)

@@ -1,4 +1,4 @@
-# Port copy of karpenter_tpu/solver/encode.py (mesh blocks and explain tables cut).
+# Port copy of karpenter_tpu/solver/encode.py (mesh blocks cut).
 """Host-side encoder: SolverInput -> dense tensors for the TPU solver.
 
 This is the bridge between the control plane's object model and the device
@@ -1669,3 +1669,68 @@ def sparse_run_tables(enc: "EncodedInput", Sp: int, run_ladder=None):
     else:
         run_v_idx = np.full((Sp, SPARSE_IDX_FLOOR), -1, np.int32)
     return run_q_idx, run_v_idx
+
+
+# (id(group_pods), core_rev) -> (group_topo, group_aff); tiny bounded memo
+# for the O(pods) flags walk below. id() alone is NOT a safe key — CPython
+# recycles addresses after GC — but a recycled address cannot arrive with
+# the SAME core_rev: a fresh group_pods list exists only on a fresh core
+# build, which stamps a fresh monotone rev (encode_cache.next_core_rev),
+# while delta-patched copies share BOTH the list identity and the donor's
+# rev. The pair is therefore collision-free without pinning pod lists
+# alive.
+_EXPLAIN_FLAGS_CACHE: dict = {}
+
+
+def explain_tables(enc: EncodedInput) -> dict:
+    """The EXPLAIN side-kernel inputs (cuda/ffd.py EXPLAIN_ARG_SPEC minus the
+    scan-owned take_e and the padding scalars), unpadded — the encoder
+    already owns every one of these tensors, so the explain path adds no
+    new object walks beyond the per-group engine flags. Shared verbatim by
+    the device kernel dispatch (backend) and the host deriver
+    (obs/explain.host_table), which is what makes their outputs
+    bit-comparable.
+
+    The per-group engine-flags walk is O(pods), too hot to repeat per
+    solve: the flags memoize keyed on
+    (identity of enc.group_pods, enc.core_rev) — delta-patched enc copies
+    share both by reference (dataclasses.replace keeps field refs), so
+    warm solves hit, while an id() recycled by GC always carries a fresh
+    core_rev and misses. Hand-built encs without a stamped rev (< 0) are
+    computed fresh and never cached. The cheap array dict is rebuilt from
+    the current enc every call because node tables DO change across
+    patches."""
+    gp = enc.group_pods
+    ckey = (id(gp), enc.core_rev)
+    hit = _EXPLAIN_FLAGS_CACHE.get(ckey) if enc.core_rev >= 0 else None
+    if hit is not None:
+        group_topo, group_aff = hit
+    else:
+        G = int(enc.group_req.shape[0])
+        group_topo = np.zeros(G, dtype=bool)
+        group_aff = np.zeros(G, dtype=bool)
+        for g in range(G):
+            topo = aff = False
+            for p in gp[g]:
+                topo = topo or bool(getattr(p, "topology_spread", None))
+                aff = aff or bool(getattr(p, "affinity_terms", None))
+                if topo and aff:
+                    break
+            group_topo[g] = topo
+            group_aff[g] = aff
+        if enc.core_rev >= 0:
+            if len(_EXPLAIN_FLAGS_CACHE) >= 8:
+                _EXPLAIN_FLAGS_CACHE.pop(next(iter(_EXPLAIN_FLAGS_CACHE)))
+            _EXPLAIN_FLAGS_CACHE[ckey] = (group_topo, group_aff)
+    return {
+        "run_group": enc.run_group,
+        "group_req": enc.group_req,
+        "node_free": enc.node_free,
+        "node_compat": enc.node_compat,
+        "node_zone": enc.node_zone,
+        "node_ct": enc.node_ct,
+        "group_zone": enc.group_zone,
+        "group_ct": enc.group_ct,
+        "group_topo": group_topo,
+        "group_aff": group_aff,
+    }

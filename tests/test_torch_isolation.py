@@ -407,3 +407,133 @@ def test_run_identity_and_stitch_helpers_pinned():
                              jbackend._dense_from_entries(ent, S, Ep, Mb)):
             assert np.array_equal(got, want)
         assert np.array_equal(tbackend._dense_from_entries(ent, S, Ep, Mb)[0], te_)
+
+
+def test_class_and_explain_constants_pinned():
+    """The eviction and explain wires, the reason enum, the class budgets
+    and the reason names equal the JAX package's."""
+    from karpenter_tpu.obs import explain as jx
+    from karpenter_tpu.solver import scheduling_class as jsc
+    from karpenter_tpu_torch.obs import explain as tx
+    from karpenter_tpu_torch.solver import scheduling_class as tsc
+
+    for n in ("EVICT_HEADER_WORDS", "EVICT_ENTRY_U16", "EXPLAIN_REASONS",
+              "EXPLAIN_HEADER_WORDS", "EXPLAIN_ENTRY_WORDS", "EXPLAIN_ARG_SPEC"):
+        assert getattr(tffd, n) == getattr(jffd, n), n
+    for g, k in ((1, 1), (8, 8), (1024, 8), (4, 40)):
+        assert tffd.explain_words(g, k) == jffd.explain_words(g, k)
+    for n in ("GANG_CLAIM_BUDGET", "MAX_EVICTIONS_PER_SOLVE", "INT32_MAX"):
+        assert getattr(tsc, n) == getattr(jsc, n), n
+    assert tx.REASON_NAMES == jx.REASON_NAMES
+    import inspect
+
+    assert inspect.signature(tx.configure) == inspect.signature(jx.configure)
+
+
+def test_build_victim_tensors_pinned():
+    """build_victim_tensors on the class fleet (and on nodes without bound
+    pods) equals the JAX package's, array for array."""
+    import bench
+    from karpenter_tpu.solver import scheduling_class as jsc
+    from karpenter_tpu_torch.solver import scheduling_class as tsc
+    from tests.test_torch_relax import to_port
+
+    inp = bench._gang_input(n_nodes=6, victims_per_node=3, n_high=4, n_gangs=2, gang_size=2)
+    inp.nodes[0].bound_pods[1].evictable = False
+    inp.nodes[1].bound_pods[0].priority = 7
+    for nodes in (inp.nodes, inp.nodes[:0] + [dataclasses.replace(inp.nodes[2], bound_pods=[])]):
+        for rkeys in (["cpu", "memory", "pods"], ["cpu", "ephemeral-storage", "memory"]):
+            want = jsc.build_victim_tensors(nodes, rkeys)
+            got = tsc.build_victim_tensors(to_port(nodes), rkeys)
+            for a, b in zip(want[:4], got[:4]):
+                _same(a, b, "victim tables")
+            assert got[4] == want[4]
+
+
+def test_explain_tables_pinned():
+    """explain_tables of the port's encode equals the JAX package's on the
+    encode cases and a fleet with spreads and affinity."""
+    for name in ("existing_nodes", "hostname_q_kinds", "config2_masks"):
+        je = jencode.encode(jencode.quantize_input(build(CASES[name], "karpenter_tpu")))
+        te = tencode.encode(tencode.quantize_input(build(CASES[name], "karpenter_tpu_torch")))
+        want, got = jencode.explain_tables(je), tencode.explain_tables(te)
+        assert list(want) == list(got)
+        for k in want:
+            _same(np.asarray(want[k]), np.asarray(got[k]), k)
+    import bench
+    import chip_smoke
+
+    je = jencode.encode(jencode.quantize_input(bench.build_config4_input(2600)))
+    te = tencode.encode(tencode.quantize_input(chip_smoke.build_config4_input(2600)))
+    want, got = jencode.explain_tables(je), tencode.explain_tables(te)
+    assert want["group_topo"].any() or want["group_aff"].any()
+    for k in want:
+        _same(np.asarray(want[k]), np.asarray(got[k]), k)
+
+
+@pytest.mark.parametrize("topology", [None, "topology.kubernetes.io/zone"])
+def test_class_input_copy_pinned(topology):
+    """chip_smoke.py's build_class_input equals bench.py's _gang_input (with
+    every gang labelled for co-location on the class_zone cell), and the
+    injected gang affinity equals the JAX package's."""
+    import bench
+    import chip_smoke
+    from karpenter_tpu.api import wellknown as jwk
+    from karpenter_tpu.solver import scheduling_class as jsc
+    from karpenter_tpu_torch.solver import scheduling_class as tsc
+    from tests.test_torch_relax import to_port
+
+    kw = dict(n_nodes=5, victims_per_node=3, n_high=7, n_gangs=3, gang_size=4)
+    want = bench._gang_input(**kw)
+    if topology is not None:
+        for p in want.pods:
+            if jwk.GANG_LABEL in p.meta.labels:
+                p.meta.labels[jwk.GANG_TOPOLOGY_LABEL] = topology
+    got = chip_smoke.build_class_input(**kw, topology=topology)
+    assert to_port(want) == got
+    pods = list(got.pods)
+    inj = tsc._inject_gang_affinity(pods)
+    assert inj == to_port(jsc._inject_gang_affinity(list(want.pods)))
+    assert (inj is pods) == (topology is None)
+
+
+def test_port_class_explain_loads_no_jax():
+    """A class-engaged solve (gang rollback + preemption through the device
+    planner leg) with the explain plane on, in a fresh interpreter: no jax
+    and no karpenter_tpu module."""
+    code = (
+        "import sys\n"
+        "from chip_smoke import build_class_input\n"
+        "from karpenter_tpu_torch.obs import explain\n"
+        "from karpenter_tpu_torch.solver.backend import TorchSolver\n"
+        "from karpenter_tpu_torch.solver.scheduling_class import ClassAwareSolver\n"
+        "explain.configure(enabled=True)\n"
+        "s = TorchSolver(device='cpu')\n"
+        "caw = ClassAwareSolver(s)\n"
+        "res = caw.solve(build_class_input(12, 4, 30, 5, 4))\n"
+        "st = caw.class_stats\n"
+        "assert st['gang_rounds'] == 1 and st['gangs_unschedulable'] == 1, st\n"
+        "assert res.evictions and st['preemptions'] == len(res.evictions), st\n"
+        "assert s.stats['explain_dispatches'] == 2, s.stats\n"
+        "rec = explain.store().recent(1)[0]['record']\n"
+        "assert rec['preemptions'] and rec['gangs']['job-doomed']['committed'] is False\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
+        "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_class_aware_default_device_needs_cuda():
+    """ClassAwareSolver(TorchSolver()) — the operator's default composition —
+    refuses to run without CUDA, as TorchSolver() does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for hosts without one")
+    from karpenter_tpu_torch.solver.scheduling_class import ClassAwareSolver
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClassAwareSolver(tbackend.TorchSolver())
