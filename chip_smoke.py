@@ -90,7 +90,23 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    gangs past NG, E = Vm = 1) and K11 at 10 000 nodes, and K12 at the
    outputs of surge_e2e, config 3 and class_contended's cold inner solve,
    at top_k 8 and above Ep; a record built from K12's wire must equal the
-   host-derived one.
+   host-derived one. class_zone runs at bench.py's 1 000 gangs (V > 1 000
+   zone sigs in the zoned scan's launch-sized shared rows).
+
+8. the convex backend: K13 (admm_pack, csrc/convex_kernels.cu) against its
+   plain version on 20 seeded and 9 adversarial tables (padding rows, a row
+   with no feasible column, zero cost, tol 10 and 0, max_iters 1, R = 1
+   and 16) and K8 on float32 segments; then, with the launch counts reset
+   just before and read just after, ConvexSolver(TorchSolver()) runs
+   consolidate_global on config 5 at 10 000 nodes and 2 000 candidates
+   (cold and warm: the proposal must equal the JAX package's, in one
+   dispatch, and the warm adopt upload nothing), the quality suite
+   (uniform 3/3 and rightsize 24/6 claims against TorchSolver(), the split
+   consolidation deleting 3 in one dispatch) and convex_e2e (5 000 pods,
+   200 nodes) CONVEX_E2E_REPEATS times with its stage split; then every
+   K13 call of the same work is held against its plain version, config 5
+   proposes the same through the plain version, and convex_e2e decides as
+   ConvexSolver(TorchSolver(device="cpu")).
 
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
@@ -773,6 +789,127 @@ def build_config5_universe(n_nodes: int = 10_000, n_candidates: int = 2_000):
         )
     inp.nodes = nodes
     return inp, candidate_pods, candidate_node
+
+
+def build_config5_consolidation(n_nodes: int = 10_000, n_candidates: int = 2_000):
+    """BASELINE config 5 as the convex backend's one-shot global pass takes
+    it (ConvexSolver.consolidate_global): build_config5_universe with every
+    candidate's pod pending and every node still present, and the
+    candidate list [(cand-j, 1.0, {cpj})] in cost order."""
+    import dataclasses
+
+    inp, cand_pods, cand_node = build_config5_universe(n_nodes, n_candidates)
+    pods = [p for j in range(n_candidates) for p in cand_pods[j]]
+    cands = [(cand_node[j], 1.0, frozenset(p.meta.uid for p in cand_pods[j]))
+             for j in range(n_candidates)]
+    return dataclasses.replace(inp, pods=pods), cands
+
+
+# ---- the quality scenarios (copies of tools/explain_diff.py's fixtures) --------
+
+_SCENARIO_ZONES = ("zone-1a", "zone-1b")
+
+
+def _mktype(name: str, cpu: int, mem_gib: int, price: float):
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.cloudprovider.types import InstanceType, Offering
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    reqs = Requirements.of(
+        Requirement.create(wk.INSTANCE_TYPE_LABEL, IN, [name]),
+        Requirement.create(wk.ARCH_LABEL, IN, ["amd64"]),
+        Requirement.create(wk.OS_LABEL, IN, ["linux"]),
+        Requirement.create(wk.ZONE_LABEL, IN, list(_SCENARIO_ZONES)),
+        Requirement.create(wk.CAPACITY_TYPE_LABEL, IN, ["on-demand"]),
+    )
+    cap = Resources.parse({"cpu": str(cpu), "memory": f"{mem_gib}Gi"})
+    cap["pods"] = 110
+    return InstanceType(
+        name=name, requirements=reqs, capacity=cap, overhead=Resources(),
+        offerings=[Offering(zone=z, capacity_type="on-demand", price=price)
+                   for z in _SCENARIO_ZONES],
+    )
+
+
+def _pool(name: str, weight: int, types: list):
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.provisioning.scheduler import NodePoolSpec
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    r = Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, [name]))
+    return NodePoolSpec(name=name, weight=weight, requirements=r, taints=[],
+                        instance_types=types, limits=Resources())
+
+
+def _mkpod(name: str, cpu: str, mem: str):
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    return Pod(meta=ObjectMeta(name=name, uid=name),
+               requests=Resources.parse({"cpu": cpu, "memory": mem}))
+
+
+def _mknode(name: str, cpu: str, mem: str, zone: str = "zone-1a"):
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.provisioning.scheduler import ExistingNode
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    lab = {wk.ZONE_LABEL: zone, wk.HOSTNAME_LABEL: name,
+           wk.CAPACITY_TYPE_LABEL: "on-demand", wk.ARCH_LABEL: "amd64",
+           wk.OS_LABEL: "linux"}
+    free = Resources.parse({"cpu": cpu, "memory": mem})
+    free["pods"] = 110
+    return ExistingNode(id=name, labels=lab, taints=[], free=free)
+
+
+def build_scenario(name: str):
+    """tools/explain_diff.py's three canned shapes (the quality suite's):
+    uniform (one pool, one 4-cpu shape, 12 x 1cpu pods: 3 claims for
+    either backend), rightsize (pool weight against price: FFD opens 24
+    4-cpu nodes, the convex objective 6 16-cpu ones), split (two half-full
+    8-cpu nodes plus 8 x 3cpu pods: existing capacity fills first)."""
+    from karpenter_tpu_torch.provisioning.scheduler import SolverInput
+
+    if name == "uniform":
+        pods = [_mkpod(f"u{i:02d}", "1", "1Gi") for i in range(12)]
+        pools = [_pool("general", 0, [_mktype("std.xlarge", 4, 16, 1.0)])]
+        return SolverInput(pods=pods, nodes=[], nodepools=pools,
+                           zones=_SCENARIO_ZONES, capacity_types=("on-demand",))
+    if name == "rightsize":
+        pods = [_mkpod(f"w{i:03d}", "1", "1Gi") for i in range(96)]
+        pools = [
+            _pool("boutique", 100, [_mktype("boutique.xlarge", 4, 16, 1.0)]),
+            _pool("warehouse", 0, [_mktype("warehouse.4xlarge", 16, 64, 0.9)]),
+        ]
+        return SolverInput(pods=pods, nodes=[], nodepools=pools,
+                           zones=_SCENARIO_ZONES, capacity_types=("on-demand",))
+    if name == "split":
+        pods = [_mkpod(f"q{i:02d}", "3", "4Gi") for i in range(8)]
+        nodes = [_mknode("n1", "8", "32Gi"),
+                 _mknode("n2", "8", "32Gi", zone="zone-1b")]
+        pools = [_pool("general", 0, [_mktype("std.4xlarge", 16, 64, 0.9)])]
+        return SolverInput(pods=pods, nodes=nodes, nodepools=pools,
+                           zones=_SCENARIO_ZONES, capacity_types=("on-demand",))
+    raise ValueError(f"unknown scenario {name!r}")
+
+
+def build_split_consolidation():
+    """bench.py _quality_run's one-shot consolidation: three near-empty
+    8-cpu candidates (two 1-cpu pods each, priced 0.5) and a 16-cpu
+    survivor with room for all six, under the split scenario's pool."""
+    from karpenter_tpu_torch.provisioning.scheduler import SolverInput
+
+    base = build_scenario("split")
+    nodes = [_mknode(f"c{j}", "8", "32Gi") for j in range(1, 4)]
+    nodes.append(_mknode("surv", "16", "64Gi"))
+    pods = [_mkpod(f"m{j}{k}", "1", "1Gi") for j in range(3) for k in range(2)]
+    inp = SolverInput(pods=pods, nodes=nodes, nodepools=base.nodepools,
+                      zones=base.zones, capacity_types=("on-demand",))
+    cands = [(f"c{j}", 0.5, frozenset({f"m{j - 1}{k}" for k in range(2)}))
+             for j in range(1, 4)]
+    return inp, cands
 
 
 def build_class_input(n_nodes: int = 8, victims_per_node: int = 4, n_high: int = 24,
@@ -1508,17 +1645,18 @@ RESUME_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_sparse_zoned_scan", "arena_unp
 
 
 def reset_launches():
-    from karpenter_tpu_torch.solver.cuda import arena, ffd
+    from karpenter_tpu_torch.solver.cuda import arena, convex, ffd
 
-    for d in (ffd.LAUNCHES, arena.LAUNCHES):
+    for d in (ffd.LAUNCHES, arena.LAUNCHES, convex.LAUNCHES):
         for k in d:
             d[k] = 0
 
 
 def read_launches() -> dict:
-    from karpenter_tpu_torch.solver.cuda import arena, ffd
+    from karpenter_tpu_torch.solver.cuda import arena, convex, ffd
 
-    return {**ffd.LAUNCHES, **arena.LAUNCHES}
+    return {**ffd.LAUNCHES, **arena.LAUNCHES, **convex.LAUNCHES}
+
 CONSOLIDATION_KERNELS = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "pack_verdicts")
 
 
@@ -2550,10 +2688,10 @@ def resume_phase(cells, plain):
 # class_contended: bench.py's gang fleet at 2 000 nodes (16 000 evictable
 # priority-0 victims, 14 008 pending pods: a doomed 8-rank gang, 1 000 gangs
 # of 8, 6 000 singletons); class_zone: the same fleet with every gang
-# labelled for zone co-location, cut to CLASS_ZONE_GANGS gangs (each gang's
-# injected self-affinity is one zone sig, and the zoned scan holds 128)
+# labelled for zone co-location (each gang's injected self-affinity is one
+# zone sig: V > 1 000, held in the zoned scan's launch-sized shared rows)
 CLASS_KW = dict(n_nodes=2_000, victims_per_node=8, n_high=6_000, n_gangs=1_000, gang_size=8)
-CLASS_ZONE_GANGS = 120
+CLASS_ZONE_GANGS = CLASS_KW["n_gangs"]
 CLASS_REPEATS = 12  # timed class_contended solves, explain off
 CLASS_EXPLAIN_REPEATS = 2  # then with the explain plane on
 CLASS_BREAKDOWN_PASSES = 3
@@ -3063,6 +3201,506 @@ def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
         first=rec.first, plain_check_s=plain_s)
 
 
+# ---- the convex backend (K13 admm_pack) ----------------------------------------------
+
+# convex_e2e: ConvexSolver(TorchSolver()) on the surge with 200 existing nodes,
+# cut to CONVEX_E2E_PODS pods from 50 000 (the reference's rounding is a Python
+# loop over pods x open claims)
+CONVEX_E2E_PODS = 5_000
+CONVEX_E2E_REPEATS = 10
+CONVEX_TOL = 1e-3  # ConvexSolver's default tolerance (and max_iters 400)
+CONVEX_KERNELS = ("admm_pack", "arena_unpack")
+# K13 against its plain version (both on the card): X within admm_x_limit
+# of the table (ADMM_X_REL of the plain X's largest cell, at most ADMM_X_TOL
+# and at least ADMM_X_FLOOR: at config 5 X's cells are ~1/Np, so a fixed
+# limit would hold them only loosely) and the latch equal (or, where it differs, the two residuals at the earlier
+# latch on either side of tol, and within ADMM_RESID_NOISE of each other
+# unless the plain latch itself moves under the few-ulp change below), at
+# the longest horizon at which the plain
+# version agrees with itself within ADMM_SENS_TOL when every float input is
+# scaled by 1 + 2^-22: past it the damped dynamics are on a limit cycle, and
+# the last-bit differences of exp and of the sums' order grow to O(0.1) in X
+# (tests/test_torch_convex.py holds the plain version to JAX by the same rule)
+ADMM_X_TOL = 1e-4
+ADMM_X_REL = 1e-3
+ADMM_X_FLOOR = 1e-7
+ADMM_SENS_TOL = 1e-5
+ADMM_RESID_NOISE = 1e-6
+ADMM_HORIZONS = (100, 25, 10)
+# X is also held at each of these horizons below the compared one where the
+# plain version agrees with itself as above: on a problem that settles to
+# one fixed point whatever the schedule (config 5), only the transient shows
+# a wrong step size, damping or overload term
+ADMM_SHORT = (1, 2, 10, 25, 100)
+PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
+# The JAX package's proposal on config 5: karpenter_tpu's
+# ConvexSolver(TPUSolver()).consolidate_global on bench.py's
+# build_config5_universe(10_000, 2_000) with the candidates' pods pending and
+# the candidates [(cand-j, 1.0, {cpj})], run once with JAX_PLATFORMS=cpu;
+# sha256 of the sorted delete list joined by newlines
+CONFIG5_CONVEX_FIXTURE = dict(
+    delete=2_000, iterations=1,
+    sha256="387d75d53bab5f97733043474d713902cc064c2e8b26557d7543997900a6d89e")
+
+
+def admm_seeded(seed: int):
+    """A padded admm_pack argument tuple (numpy) shaped like the backend's
+    problems: sunk node columns, then priced columns with room; every real
+    row keeps one priced column (tests/test_torch_convex.py's generator)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    S, N, R = int(rng.integers(1, 65)), int(rng.integers(2, 129)), int(rng.integers(1, 5))
+    Sp, Np = max(16, -(-S // 16) * 16), max(16, -(-N // 16) * 16)
+    E = int(rng.integers(0, N))
+    req = np.zeros((Sp, R), np.float32)
+    cnt = np.zeros(Sp, np.int32)
+    req[:S] = rng.integers(1, 8, (S, R))
+    cnt[:S] = rng.integers(1, 6, S)
+    cap = np.zeros((Np, R), np.float32)
+    cost = np.zeros(Np, np.float32)
+    cap[:E] = rng.integers(0, 24, (E, R))
+    cap[E:N] = rng.integers(16, 200, (N - E, R))
+    cost[E:N] = rng.uniform(0.1, 2.0, N - E)
+    feas = np.zeros((Sp, Np), bool)
+    feas[:S, :N] = rng.random((S, N)) < rng.uniform(0.2, 0.9)
+    feas[np.arange(S), rng.integers(E, N, S)] = True
+    return req, cnt, cap, cost, feas
+
+
+def admm_adversarial() -> dict:
+    """(tables, tol, max_iters) that reach K13's edges: padding rows, a row
+    with no feasible column, all-zero cost, tol 10 (latch 1) and 0 (latch
+    -1), max_iters 1, R = 1 and R = 16, every row and column padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    base = admm_seeded(3)
+    out = {"padding_rows": (base, CONVEX_TOL, 400)}
+    req, cnt, cap, cost, feas = (a.copy() for a in base)
+    feas[1, :] = False
+    out["row_without_column"] = ((req, cnt, cap, cost, feas), CONVEX_TOL, 400)
+    out["zero_cost"] = ((base[0], base[1], base[2], np.zeros_like(base[3]), base[4]), CONVEX_TOL, 400)
+    out["tol_10"] = (admm_seeded(5), 10.0, 30)
+    out["tol_0"] = (admm_seeded(5), 0.0, 30)
+    out["max_iters_1"] = (admm_seeded(11), CONVEX_TOL, 1)
+    out["R1_16x16"] = ((rng.integers(1, 5, (16, 1)).astype(np.float32),
+                        rng.integers(0, 4, 16).astype(np.int32),
+                        rng.integers(0, 30, (16, 1)).astype(np.float32),
+                        rng.uniform(0, 1, 16).astype(np.float32), rng.random((16, 16)) < 0.5),
+                       CONVEX_TOL, 400)
+    out["R16"] = ((rng.integers(1, 5, (32, 16)).astype(np.float32),
+                   rng.integers(1, 4, 32).astype(np.int32),
+                   rng.integers(20, 400, (48, 16)).astype(np.float32),
+                   rng.uniform(0, 1, 48).astype(np.float32), rng.random((32, 48)) < 0.6),
+                  CONVEX_TOL, 400)
+    out["all_padding"] = ((np.zeros((16, 2), np.float32), np.zeros(16, np.int32),
+                           np.zeros((16, 2), np.float32), np.zeros(16, np.float32),
+                           np.zeros((16, 16), bool)), CONVEX_TOL, 400)
+    return out
+
+
+def admm_x_limit(X_plain) -> float:
+    """The |dX| limit of K13 against its plain version on one table:
+    ADMM_X_REL of the plain X's largest cell, within [ADMM_X_FLOOR,
+    ADMM_X_TOL]."""
+    top = float(X_plain.abs().max()) if X_plain.numel() else 0.0
+    return min(ADMM_X_TOL, max(ADMM_X_FLOOR, ADMM_X_REL * top))
+
+
+def hold_admm(args, tol, max_iters: int) -> dict:
+    """K13 against its plain version on the same card tensors, at the
+    longest horizon of (max_iters, then ADMM_HORIZONS below it) at which the
+    plain version agrees with itself under a few-ulp input change (the last
+    always): X within admm_x_limit there and at each ADMM_SHORT horizon
+    below it, the latch equal, or split by tol where the two residuals at
+    the earlier latch differ by float noise."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+    def plain(a, k):
+        return tcc.admm_pack_plain(*a, tol, k)
+
+    f = 1 + 2**-22
+    few = (args[0] * f, args[1], args[2] * f, args[3] * f, args[4])
+    horizons = [max_iters] + [h for h in ADMM_HORIZONS if h < max_iters]
+    for k in horizons:
+        Xp, cp = plain(args, k)
+        sens = 0.0
+        if k != horizons[-1]:
+            sens = float((plain(few, k)[0] - Xp).abs().max())
+            if sens > ADMM_SENS_TOL:
+                continue
+        Xk, ck = tcc.admm_pack(*args, tol, max_iters=k)
+        torch.cuda.synchronize()
+        err = float((Xk - Xp).abs().max()) if Xk.numel() else 0.0
+        ck, cp = int(ck), int(cp)
+        limit = admm_x_limit(Xp)
+        assert err <= limit, f"admm_pack disagrees with its plain version: |dX| {err} > {limit} at {k}"
+        short = {}
+        for h in (h for h in ADMM_SHORT if h < k):
+            Xh = plain(args, h)[0]
+            if float((plain(few, h)[0] - Xh).abs().max()) > ADMM_SENS_TOL:
+                continue  # a chaotic transient (convex_e2e near its latch)
+            e = float((tcc.admm_pack(*args, tol, max_iters=h)[0] - Xh).abs().max())
+            short[h] = e
+            assert e <= admm_x_limit(Xh), f"admm_pack disagrees with its plain version: |dX| {e} at {h}"
+        split = None
+        if ck != cp:
+            # the earlier latch: the two residuals there lie on either side
+            # of tol. Where the plain version's own latch moves under the
+            # few-ulp change, the transient before convergence is chaotic
+            # (the final X still agrees, above): then both must latch or
+            # both not. Otherwise tol cuts through float noise: the two
+            # residuals differ by at most ADMM_RESID_NOISE.
+            it = min(c for c in (ck, cp) if c >= 1)
+
+            def resid(fn):
+                return float((fn(it) - fn(it - 1)).abs().max())
+
+            rk = resid(lambda j: tcc.admm_pack(*args, tol, max_iters=j)[0])
+            rp = resid(lambda j: plain(args, j)[0])
+            c_few = int(plain(few, k)[1])
+            split = dict(iteration=it, resid_kernel=rk, resid_plain=rp, conv_plain_few_ulps=c_few)
+            assert min(rk, rp) < tol <= max(rk, rp), (ck, cp, split)
+            if c_few == cp:
+                assert abs(rk - rp) <= ADMM_RESID_NOISE, (ck, cp, split)
+            else:
+                assert (ck < 0) == (cp < 0), (ck, cp, split)
+        return dict(horizon=k, max_iters=max_iters, err=err, limit=limit, sens=sens, conv=ck,
+                    conv_plain=cp, short=short, latch_split=split, shape=list(Xk.shape))
+    raise AssertionError("unreachable: the last horizon is always held")
+
+
+def unpack_float_check(dev) -> dict:
+    """K8 against its plain version and the arrays themselves, byte for
+    byte, on a convex problem's segments (float32, int32, bool) behind an
+    odd-sized bool table, so the float32 entries start unaligned."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import arena
+
+    arrays = [np.array([True, False, True]), *admm_seeded(3)]
+    parts, nbytes, specs = arena.pack(arrays)
+    buf = torch.from_numpy(np.concatenate(parts)).to(dev)
+    got = arena.unpack(buf, specs)
+    torch.cuda.synchronize()
+    want = arena.unpack_plain(buf, specs)
+    for a, g, w in zip(arrays, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes() == a.tobytes(), \
+            "arena_unpack disagrees on a float32 segment"
+    return dict(nbytes=nbytes, segments=len(specs), dtypes=sorted({d for _, _, d in specs}))
+
+
+def admm_table_checks(dev) -> dict:
+    """K13 on 20 seeded and 9 adversarial tables against its plain version;
+    K8 on a convex problem's float32 segments."""
+    import torch
+
+    out = {"arena_unpack_float32": unpack_float_check(dev)}
+    for seed in range(20):
+        args = [torch.from_numpy(a).to(dev) for a in admm_seeded(seed)]
+        out[f"seed{seed}"] = hold_admm(args, CONVEX_TOL, 400)
+    for name, (tables, tol, iters) in admm_adversarial().items():
+        args = [torch.from_numpy(a).to(dev) for a in tables]
+        out[name] = hold_admm(args, tol, iters)
+    assert out["tol_10"]["conv"] == 1 and out["tol_0"]["conv"] == -1, out
+    return out
+
+
+class AdmmRecorder:
+    """Wrap solver/convex.py's admm_pack for one or more solves: CUDA events
+    around each K13 call (device ms), the first call's arguments kept, and
+    with `check` every call held against its plain version (hold_admm)."""
+
+    def __init__(self, check: bool = False):
+        self.check = check
+        self.events, self.holds, self.first = [], [], None
+
+    def __enter__(self):
+        import torch
+
+        from karpenter_tpu_torch.solver import convex as cv
+
+        self.saved = cv.admm_pack
+
+        def call(*args, max_iters):
+            if self.first is None:
+                self.first = (args, max_iters)
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.saved(*args, max_iters=max_iters)
+            e.record()
+            self.events.append((s, e))
+            if self.check:
+                self.holds.append(hold_admm(args[:5], args[5], max_iters))
+            return out
+
+        cv.admm_pack = call
+        return self
+
+    def __exit__(self, *exc):
+        from karpenter_tpu_torch.solver import convex as cv
+
+        cv.admm_pack = self.saved
+
+    def device_ms(self) -> list:
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+class PlainConvex:
+    """Route solver/convex.py's admm_pack to the plain version (on the
+    card's tensors), for a reference decision through the same solver."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.solver import convex as cv
+        from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+        self.saved = cv.admm_pack
+        cv.admm_pack = lambda *a, max_iters: tcc.admm_pack_plain(*a, max_iters)
+        return self
+
+    def __exit__(self, *exc):
+        from karpenter_tpu_torch.solver import convex as cv
+
+        cv.admm_pack = self.saved
+
+
+def _delete_digest(prop) -> dict:
+    import hashlib
+
+    d = sorted(prop["delete"])
+    return dict(delete=len(d), iterations=prop["iterations"],
+                sha256=hashlib.sha256("\n".join(d).encode()).hexdigest())
+
+
+def _counting_dispatch(cvs):
+    """Count a ConvexSolver's device dispatches (K13 calls)."""
+    n = [0]
+    inner = cvs._dispatch
+
+    def counted(prob):
+        n[0] += 1
+        return inner(prob)
+
+    cvs._dispatch = counted
+    return n
+
+
+def convex_phase(dev) -> dict:
+    """The convex backend's main path, the launch counts reset just before
+    and read just after: consolidate_global on config 5 (cold, then warm),
+    the quality suite (uniform and rightsize against TorchSolver(), the
+    split one-shot consolidation), and CONVEX_E2E_REPEATS timed solves of
+    convex_e2e with the stage split. Then, outside the counted window: K13
+    held against its plain version on every call of the same work, the
+    config-5 proposal through the plain version, convex_e2e against
+    ConvexSolver(TorchSolver(device="cpu")), and the kernel's row."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver import convex as cv
+    from karpenter_tpu_torch.solver.cuda import build
+    from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+    inp5, cands5 = build_config5_consolidation()
+    quality = {n: build_scenario(n) for n in ("uniform", "rightsize")}
+    split_inp, split_cands = build_split_consolidation()
+    e2e = build_e2e_input(CONVEX_E2E_PODS, NODES)
+
+    def new_convex():
+        return cv.ConvexSolver(tb.TorchSolver(max_claims=MAX_CLAIMS))
+
+    ce = new_convex()
+    ce.solve(e2e)  # warm: allocator, encode caches
+    reset_launches()
+    # config 5, cold then warm (the arena's second adopt uploads nothing)
+    c5 = new_convex()
+    n5 = _counting_dispatch(c5)
+    st5 = _Stages()
+    build_saved = cv._build_consolidate
+    cv._build_consolidate = st5.wrap("build_consolidate", build_saved)
+    try:
+        c5.inner.ledger.begin_solve()
+        t0 = time.perf_counter()
+        prop5 = c5.consolidate_global(inp5, cands5)
+        c5_ms = (time.perf_counter() - t0) * 1e3
+        c5_cold = dict(c5.inner.ledger.solve)
+        build_cold_ms = st5.ms["build_consolidate"]
+        c5.inner.ledger.begin_solve()
+        t0 = time.perf_counter()
+        prop5b = c5.consolidate_global(inp5, cands5)
+        c5_warm_ms = (time.perf_counter() - t0) * 1e3
+        c5_warm = dict(c5.inner.ledger.solve)
+    finally:
+        cv._build_consolidate = build_saved
+    got5 = _delete_digest(prop5)
+    assert got5 == CONFIG5_CONVEX_FIXTURE, f"config 5 proposal {got5} != the JAX package's"
+    assert _delete_digest(prop5b) == got5 and n5[0] == 2, (n5[0], prop5b["iterations"])
+    assert c5_warm["h2d_bytes"] == 0, c5_warm
+    # the quality suite (bench.py _quality_run)
+    qual = {}
+    for name, inp in quality.items():
+        r_ffd = tb.TorchSolver(max_claims=MAX_CLAIMS).solve(inp)
+        cq = new_convex()
+        cq.solve(inp)
+        t0 = time.perf_counter()
+        r_cv = cq.solve(inp)
+        ms = (time.perf_counter() - t0) * 1e3
+        assert not r_ffd.errors and not r_cv.errors, name
+        assert cq.convex_stats["convex_fallbacks"] == 0 and cq.convex_stats["convex_solves"] == 2
+        qual[name] = dict(claims_ffd=len(r_ffd.claims), claims_convex=len(r_cv.claims),
+                          solve_ms=ms, iterations=cq.convex_stats["admm_iterations"],
+                          decisions=decisions(r_cv))
+    assert (qual["uniform"]["claims_ffd"], qual["uniform"]["claims_convex"]) == (3, 3), qual
+    assert (qual["rightsize"]["claims_ffd"], qual["rightsize"]["claims_convex"]) == (24, 6), qual
+    cs = new_convex()
+    ns = _counting_dispatch(cs)
+    prop_split = cs.consolidate_global(split_inp, split_cands)
+    assert prop_split is not None and len(prop_split["delete"]) == 3 and ns[0] == 1, prop_split
+    # convex_e2e: timed solves with the stage split
+    stages = _Stages()
+    names = ("quantize_input", "encode", "_build_provision", "_round_provision",
+             "check_invariants", "min_values_post_check")
+    saved = {n: getattr(cv, n) for n in names}
+    for n in names:
+        setattr(cv, n, stages.wrap(n, saved[n]))
+    watch = GcWatch()
+    samples, e2e_res = [], []
+    try:
+        with AdmmRecorder() as rec_e2e:
+            for _ in range(CONVEX_E2E_REPEATS):
+                watch.reset()
+                t0 = time.perf_counter()
+                r = ce.solve(e2e)
+                samples.append(((time.perf_counter() - t0) * 1e3, watch.ms, list(watch.collections)))
+                e2e_res.append(decisions(r))
+    finally:
+        for n in names:
+            setattr(cv, n, saved[n])
+        watch.close()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for k in CONVEX_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the convex path"
+    assert all(r == e2e_res[0] for r in e2e_res), "convex_e2e decisions vary across solves"
+    k13_e2e = rec_e2e.device_ms()
+    n_e2e = CONVEX_E2E_REPEATS
+    e2e_stages = {k: v / n_e2e for k, v in stages.ms.items()}
+    e2e_stages["k13_device_ms"] = sum(k13_e2e) / n_e2e
+    e2e_stages["solve_ms"] = sum(m for m, _, _ in samples) / n_e2e
+    e2e_stages["rest_ms"] = e2e_stages["solve_ms"] - sum(stages.ms.values()) / n_e2e
+
+    # ---- outside the counted window: K13 against its plain version ----
+    with AdmmRecorder(check=True) as rec5:
+        prop5c = c5.consolidate_global(inp5, cands5)
+    assert _delete_digest(prop5c) == got5
+    with PlainConvex():
+        prop5p = new_convex().consolidate_global(inp5, cands5)
+    assert _delete_digest(prop5p) == got5, "config 5: the plain version proposes otherwise"
+    with AdmmRecorder(check=True) as recq:
+        for name, inp in quality.items():
+            r = new_convex().solve(inp)
+            assert decisions(r) == qual[name]["decisions"], name
+        assert new_convex().consolidate_global(split_inp, split_cands) == prop_split
+    with AdmmRecorder(check=True) as rece:
+        r = ce.solve(e2e)
+    assert decisions(r) == e2e_res[0]
+    t0 = time.perf_counter()
+    cpu = cv.ConvexSolver(tb.TorchSolver(device="cpu", max_claims=MAX_CLAIMS))
+    r_cpu = cpu.solve(e2e)
+    cpu_s = time.perf_counter() - t0
+    assert decisions(r_cpu) == e2e_res[0], "convex_e2e: decisions differ from the plain path"
+
+    # ---- K13's row at config 5 ----
+    args5, iters = rec5.first
+    Sp, Np = args5[4].shape
+    R = args5[0].shape[1]
+    fn = lambda: tcc.admm_pack(*args5[:5], args5[5], max_iters=iters)  # noqa: E731
+    k_ms = time_ms(fn, 5)
+    p_ms = time_ms(lambda: tcc.admm_pack_plain(*args5[:5], args5[5], iters), 2)
+    fn()
+    torch.cuda.synchronize()
+    # the kernels the runtime accepted in that call, counted by the launcher:
+    # a prologue (ref, prep), a column load and a row update per iteration,
+    # the latch tail
+    per_call = build.load("convex_kernels").admm_launches()
+    assert per_call == 2 + 2 * iters + (1 if iters else 0), (per_call, iters)
+    dev_ms, traced = admm_device_ms(fn, per_call)
+    assert traced is None or traced <= per_call, (traced, per_call)
+    X5, _ = fn()
+    cnt = args5[1].to(torch.float32)
+    dn = args5[0] * cnt[:, None] / torch.clamp(args5[2].amax(dim=0), min=1.0)[None, :]
+    mm_ms = time_ms(lambda: X5.T @ dn, 20)
+    moved = iters * Sp * Np * 9 + nbytes(*args5[:4]) + Sp * Np + Sp * Np * 4
+    ops = iters * Sp * Np * (4 * R + 17)
+    bms, by = bound(moved, ops, PEAK_F32_OPS_PER_S)
+    row = dict(
+        name="admm_pack", route="cuda", source="karpenter_tpu_torch/csrc/convex_kernels.cu",
+        replaces="karpenter_tpu/solver/convex.py:124", launches=launches["admm_pack"],
+        max_abs_err=rec5.holds[0]["err"], ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+        library_ms=None,
+        library_call="none (no PyTorch call computes an iteration); torch.matmul of X^T dn "
+        "alone at config 5 in matmul_xt_dn_ms",
+        matmul_xt_dn_ms=mm_ms, device_ms=dev_ms, ms_per_iteration=k_ms / max(iters, 1),
+        cuda_launches_per_call=per_call, traced_kernels_per_call=traced,
+        match=True, shape=dict(Sp=int(Sp), Np=int(Np), R=int(R), max_iters=iters),
+        bytes=moved, ops=ops)
+    holds = rec5.holds + recq.holds + rece.holds
+    return dict(
+        row=row,
+        config5=dict(nodes=len(inp5.nodes), candidates=len(cands5), **got5,
+                     dispatches_per_decision=n5[0] // 2, decision_ms_cold=c5_ms,
+                     decision_ms_warm=c5_warm_ms, build_consolidate_ms=build_cold_ms,
+                     h2d_cold=c5_cold, h2d_warm=c5_warm, k13=rec5.holds[0],
+                     k13_device_ms_in_decision=rec5.device_ms()[0],
+                     max_stay=max(prop5["stay_mass"].values())),
+        quality={k: {f: v[f] for f in ("claims_ffd", "claims_convex", "solve_ms", "iterations")}
+                 for k, v in qual.items()}
+        | {"split": dict(deleted=len(prop_split["delete"]), dispatches=ns[0],
+                         iterations=prop_split["iterations"])},
+        e2e=dict(pods=len(e2e.pods), nodes=len(e2e.nodes), **tail(samples),
+                 claims=len(e2e_res[0]["claims"]), unplaced=len(e2e_res[0]["errors"]),
+                 iterations=ce.convex_stats["admm_iterations"], stages=e2e_stages,
+                 convex_stats=dict(ce.convex_stats), cpu_solve_s=cpu_s, equal_to_plain=True,
+                 cpu_iterations=cpu.convex_stats["admm_iterations"], k13=rece.holds[0]),
+        launches=launches,
+        holds=dict(calls=len(holds), worst_err=max(h["err"] for h in holds),
+                   horizons=sorted({h["horizon"] for h in holds})),
+        fallbacks=sum(c.convex_stats["convex_fallbacks"] for c in (c5, ce, cs)))
+
+
+def admm_device_ms(fn, whole: int, tries: int = 6):
+    """(device ms, kernels traced) of one K13 call: the sum of its kernels'
+    times in a torch.profiler trace of the call and the number of its kernel
+    events there, from the first trace that holds all `whole` launches, else
+    from the fullest of `tries` traces; (None, None) when none shows them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        hits = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA and "admm_" in e.name]
+        if len(hits) > len(best):
+            best = hits
+        if len(best) >= whole:
+            break
+    return (sum(best) / 1e3, len(best)) if best else (None, None)
+
+
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
@@ -3114,8 +3752,11 @@ def main() -> int:
     ffd_lib = build.load()
     sparse_lib = build.load("ffd_sparse_kernels")
     class_lib = build.load("class_kernels")
+    convex_lib = build.load("convex_kernels")
     build_s = time.perf_counter() - t0
-    assert ffd_lib is not None and sparse_lib is not None and class_lib is not None
+    assert None not in (ffd_lib, sparse_lib, class_lib, convex_lib)
+    v_cap = ffd.zone_v_cap(dev)
+    print(f"zoned scan V-row cap on this card: {v_cap}", flush=True)
     for line in build.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
@@ -3573,6 +4214,20 @@ def main() -> int:
         cls["first"], dict(gang_err=0, plan_err=0, k11_tables=class_checks["k11_tables"]),
         explain_checks["class_contended"], cls["launches"], cls["per_solve_launches"], int_rate)
 
+    print(f"[phase 8 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 8: the convex backend (K13) -------------------------------------------
+    # K13 against its plain version on seeded and adversarial tables, then the
+    # convex cells through ConvexSolver(TorchSolver()) (config 5's one-shot
+    # consolidation, the quality suite, convex_e2e), counted
+    t0 = time.perf_counter()
+    admm_tables = admm_table_checks(dev)
+    cvx = convex_phase(dev)
+    cvx["phase_s"] = time.perf_counter() - t0
+    assert cvx["fallbacks"] == 0, cvx["fallbacks"]
+    convex_line = {k: v for k, v in cvx.items() if k != "row"}
+    convex_line["tables"] = admm_tables
+    print(json.dumps({"convex": convex_line}), flush=True)
+
     stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
     stages.update({name: ladder_breakdown(inp, 5, ladder[name]["M"], ladder[name]["zone"])
@@ -3605,7 +4260,7 @@ def main() -> int:
                                  int_rate)
             + [pack_kernel_row(phases["config3"]["out"], packs["config3"]["err"], launches,
                                int_rate)]
-            + class_rows)
+            + class_rows + [cvx["row"]])
     launches_per_solve = {k: launches[k] / n for k, n in (
         *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
         ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
@@ -3649,6 +4304,8 @@ def main() -> int:
         "relax_walk": walk_line,
         "resume": resume,
         "classes": class_line,
+        "convex": convex_line,
+        "zone_v_cap": v_cap,
         "explain_checks": {k: {f: v[f] for f in ("Sp", "Ep", "Gp", "E", "G", "ks", "err",
                                                  "side_bytes")}
                            for k, v in explain_checks.items()},

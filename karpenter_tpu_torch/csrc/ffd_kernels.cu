@@ -164,7 +164,6 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
 // one warp per pool, and v_count / v_owner_z / c_vm / c_vo stay in global
 // memory.
 
-constexpr int MAX_V = 128;        // solver/cuda/ffd.py MAX_V
 constexpr int MAX_Z = 32;         // solver/cuda/ffd.py MAX_Z
 constexpr int MAX_P = 64;         // solver/cuda/ffd.py MAX_P
 
@@ -237,11 +236,18 @@ struct RunShared {
 };
 
 // Shared state of the zoned branch (ZONE=true only): the run's V-axis
-// flags and every [Z] / [P] vector and scalar of one event.
+// flags and every [Z] / [P] vector and scalar of one event. The V-axis rows
+// (mv, ov, vk; vcol in the sparse instances) point into dynamic shared
+// memory sized at launch to the dispatch (zone_rows_bytes): max(V, Kv) rows
+// of mv/ov/vk, because a constrained run of a sparse instance reloads the
+// dense flags at full width, and Kv slots of vcol. So V is bounded by the
+// card's opt-in shared memory less the instance's static share
+// (ffd_zone_max_v), not by a constant.
 struct ZoneShared {
-  unsigned char mv[MAX_V], ov[MAX_V];
-  int vk[MAX_V];
-  int vcol[MAX_V];  // SPARSE: slot -> V column (-1 padding)
+  unsigned char* mv;
+  unsigned char* ov;
+  int* vk;
+  int* vcol;  // SPARSE: slot -> V column (-1 padding)
   unsigned zcm[MAX_Z];
   int col_axis[MAX_Z];
   int gax[MAX_Z], elig[MAX_Z], A[MAX_Z], A_base[MAX_Z], blk[MAX_Z], pbc[MAX_Z];
@@ -1341,6 +1347,28 @@ __device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, 
 // Design: K1's body under a fifth template flag, so the dense instances
 // keep their code; the index tables ride beside the 32 scan inputs.
 
+}  // namespace
+
+// The zoned instances' V-axis rows (ZoneShared::mv/ov/vk/vcol), at file
+// scope: an extern shared array does not belong in the unnamed namespace.
+extern __shared__ __align__(16) unsigned char zone_rows[];
+
+namespace {
+
+// Bytes of those rows for one launch: vk and vcol as int, mv and ov as bytes.
+__host__ __device__ __forceinline__ int zone_rows_bytes(int V, int Kv) {
+  const int vd = V > Kv ? V : Kv;
+  return 6 * vd + 4 * Kv;
+}
+
+__device__ __forceinline__ void bind_zone_rows(ZoneShared& zs, int V, int Kv) {
+  const int vd = max(V, Kv);
+  zs.vk = reinterpret_cast<int*>(zone_rows);
+  zs.vcol = zs.vk + vd;
+  zs.mv = reinterpret_cast<unsigned char*>(zs.vcol + Kv);
+  zs.ov = zs.mv + vd;
+}
+
 // K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
 // subset row, from the prologue above), K6 (LADDER=true: one solve, a
 // cascade of attempts per run), K7 (CKPT=true: K1 with the snapshot ring),
@@ -1367,7 +1395,10 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   int* k_t = c_pref + M;            // [T]
   int* fit_t = k_t + T;             // [T]
 
-  if (tid == 0) sh.used = *a.used;
+  if (tid == 0) {
+    sh.used = *a.used;
+    if constexpr (ZONE) bind_zone_rows(*zs, a.V, SPARSE ? a.Kv : 0);
+  }
   __syncthreads();
 
   Cascade cas;
@@ -1457,8 +1488,10 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
     if constexpr (ZONE) {
       // `constrained` (ffd.py:1662): the group owns a V-axis sig or is a
       // member of an anti sig -> the domain event engine
-      const int constrained =
-          __syncthreads_or(tid < nv && (zs->ov[tid] || (zs->mv[tid] && zs->vk[tid] == 1)));
+      // (nv may exceed the block: each thread folds its strided slots)
+      int con = 0;
+      for (int k = tid; k < nv; k += NT) con |= zs->ov[k] || (zs->mv[k] && zs->vk[k] == 1);
+      const int constrained = __syncthreads_or(con);
       if (constrained) {
         if constexpr (SPARSE) {
           // the event engine reads the dense flags by sig index
@@ -1478,7 +1511,9 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
         zoned_run<BATCH, LADDER>(a, sh, *zs, x, s, g);
         continue;
       }
-      const int any_mv = __syncthreads_or(tid < nv && zs->mv[tid]);
+      int mv_any = 0;
+      for (int k = tid; k < nv; k += NT) mv_any |= zs->mv[k];
+      const int any_mv = __syncthreads_or(mv_any);
       if (tid == 0) zs->any_mv = any_mv;
     }
 
@@ -2027,7 +2062,43 @@ static void fill_scan_state(ScanArgs& a, void** p) {
 
 static bool scan_limits_ok(const ScanArgs& a, bool zone) {
   if (a.Q > MAX_Q || a.R > MAX_R) return false;
-  return !(zone && (a.V > MAX_V || a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P));
+  return !(zone && (a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P));
+}
+
+// Launch one scan instance. A zoned instance takes its V-axis rows as
+// dynamic shared memory; past the 48 KB default it needs the opt-in, raised
+// once per instance to the widest launch so far. A launch past the card's
+// opt-in (ffd_zone_max_v) is refused here with the attribute call's error.
+template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
+static int launch_scan(int blocks, const ScanArgs& a, void* stream) {
+  auto kern = ffd_scan_kernel<ZONE, BATCH, LADDER, CKPT, SPARSE>;
+  int dyn = 0;
+  if constexpr (ZONE) {
+    dyn = zone_rows_bytes(a.V, SPARSE ? a.Kv : 0);
+    static int opted = 0;
+    if (dyn > opted) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+      if (e != cudaSuccess) return (int)e;
+      opted = dyn;
+    }
+  }
+  kern<<<blocks, NT, dyn, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The most V-axis rows (max(V, Kv)) a launch of `kern` holds: the card's
+// opt-in shared memory per block less the kernel's static share, over the
+// 10 bytes a row takes (zone_rows_bytes). Negative: a CUDA error.
+template <typename K>
+static int zone_max_v(K kern) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes at{};
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, kern);
+  if (e != cudaSuccess) return -(int)e;
+  return (optin - (int)at.sharedSizeBytes) / 10;
 }
 
 // The sparse launchers take the dense launcher's pointers and dims, then
@@ -2041,7 +2112,7 @@ static bool fill_sparse(ScanArgs& a, void** p, int n, const int* d, int nd) {
     a.run_v_idx = (const int*)p[n - 1];
     a.Kq = d[nd - 2];
     a.Kv = d[nd - 1];
-    return a.Kq >= 0 && a.Kq <= MAX_Q && a.Kv >= 0 && a.Kv <= MAX_V;
+    return a.Kq >= 0 && a.Kq <= MAX_Q && a.Kv >= 0;
   } else {
     return true;
   }
@@ -2063,11 +2134,8 @@ static int scan_launch(void** p, int n, const int* d, void* stream) {
   const bool zone = d[11] != 0;
   if (!scan_limits_ok(a, zone) || !fill_sparse<SPARSE>(a, p, n, d, 12 + 2 * SPARSE))
     return (int)cudaErrorInvalidValue;
-  if (zone)
-    ffd_scan_kernel<true, false, false, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  else
-    ffd_scan_kernel<false, false, false, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return zone ? launch_scan<true, false, false, false, SPARSE>(1, a, stream)
+              : launch_scan<false, false, false, false, SPARSE>(1, a, stream);
 }
 
 // K6 (and K6s). ptrs: as scan_launch (the 32 scan inputs, the carry,
@@ -2093,11 +2161,8 @@ static int ladder_launch(void** p, int n, const int* d, void* stream) {
   a.take_e = a.scratch + off;
   a.take_c = a.take_e + a.E;
   a.leftover = a.take_c + a.M;
-  if (zone)
-    ffd_scan_kernel<true, false, true, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  else
-    ffd_scan_kernel<false, false, true, false, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return zone ? launch_scan<true, false, true, false, SPARSE>(1, a, stream)
+              : launch_scan<false, false, true, false, SPARSE>(1, a, stream);
 }
 
 // K7 (and K7s). ptrs: as scan_launch (the 32 scan inputs, the carry — a
@@ -2121,11 +2186,8 @@ static int ckpt_launch(void** p, int n, const int* d, void* stream) {
   if (!scan_limits_ok(a, zone) || a.ck_every < 1 || a.n_ckpt < 1 ||
       !fill_sparse<SPARSE>(a, p, n, d, 14 + 2 * SPARSE))
     return (int)cudaErrorInvalidValue;
-  if (zone)
-    ffd_scan_kernel<true, false, false, true, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  else
-    ffd_scan_kernel<false, false, false, true, SPARSE><<<1, NT, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return zone ? launch_scan<true, false, false, true, SPARSE>(1, a, stream)
+              : launch_scan<false, false, false, true, SPARSE>(1, a, stream);
 }
 
 extern "C" {
@@ -2142,6 +2204,15 @@ int ffd_ladder_sparse_launch(void** p, int n, const int* d, void* stream) {
 
 int ffd_ckpt_sparse_launch(void** p, int n, const int* d, void* stream) {
   return ckpt_launch<true>(p, n, d, stream);
+}
+
+// The V-row cap of this library's zoned instances (the least over them);
+// the arguments are unused. Returns the cap, or minus a CUDA error.
+int ffd_sparse_zone_max_v(void**, int, const int*, void*) {
+  const int caps[3] = {zone_max_v(ffd_scan_kernel<true, false, false, false, true>),
+                       zone_max_v(ffd_scan_kernel<true, false, true, false, true>),
+                       zone_max_v(ffd_scan_kernel<true, false, false, true, true>)};
+  return std::min(caps[0], std::min(caps[1], caps[2]));
 }
 #else
 int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
@@ -2168,11 +2239,8 @@ int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
   const int B = d[12];
   a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
   if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  if (zone)
-    ffd_scan_kernel<true, true, false, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
-  else
-    ffd_scan_kernel<false, true, false, false, false><<<B, NT, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return zone ? launch_scan<true, true, false, false, false>(B, a, stream)
+              : launch_scan<false, true, false, false, false>(B, a, stream);
 }
 
 int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
@@ -2181,6 +2249,17 @@ int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
 
 int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
   return ckpt_launch<false>(p, n, d, stream);
+}
+
+// The V-row cap of this library's zoned instances (K1, K4, K6, K7 zoned; the
+// least over them); the arguments are unused. Returns the cap, or minus a
+// CUDA error.
+int ffd_zone_max_v(void**, int, const int*, void*) {
+  const int caps[4] = {zone_max_v(ffd_scan_kernel<true, false, false, false, false>),
+                       zone_max_v(ffd_scan_kernel<true, true, false, false, false>),
+                       zone_max_v(ffd_scan_kernel<true, false, true, false, false>),
+                       zone_max_v(ffd_scan_kernel<true, false, false, true, false>)};
+  return std::min(std::min(caps[0], caps[1]), std::min(caps[2], caps[3]));
 }
 
 // K5. ptrs: leftover [B, S], used [B], c_zc_bits [B, M], c_mask [B, M, T]

@@ -220,7 +220,7 @@ class BatchedConsolidationEvaluator:
             host_args, dims, prov = host_kernel_args(enc, self.solver._bucket)
         except UnpackableInput:
             return None  # Z*C > 32 — sequential path takes over
-        check_kernel_limits(dims, host_args, enc.V > 0)
+        check_kernel_limits(dims, host_args, enc.V > 0, self.solver.device)
         v_count0_host = host_args[_V_COUNT0]
         # upload the shared arrays once, so per-dispatch traffic is the
         # batched axes only, never the constant universe. With the solver's

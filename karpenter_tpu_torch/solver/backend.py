@@ -362,21 +362,28 @@ def host_kernel_args(enc: EncodedInput, bucket) -> Tuple[tuple, dict, tuple]:
     return args, dims, prov
 
 
-def check_kernel_limits(dims: dict, host_args: tuple, zone: bool) -> None:
+def check_kernel_limits(dims: dict, host_args: tuple, zone: bool, device) -> None:
     """Raise UnsupportedInput when the padded shapes exceed the scan
-    kernel's shared rows (Q, R; with the zoned branch also V, the domain
-    columns and the pools)."""
-    from .cuda.ffd import MAX_P, MAX_Q, MAX_R, MAX_V, MAX_Z
+    kernel's shared rows (Q, R; with the zoned branch also the domain
+    columns, the pools and V, whose cap is the card's: cuda/ffd.py
+    zone_v_cap, none on the CPU)."""
+    from .cuda import ffd as cffd
 
-    if dims["Qp"] > MAX_Q or dims["R"] > MAX_R:
+    if dims["Qp"] > cffd.MAX_Q or dims["R"] > cffd.MAX_R:
         raise UnsupportedInput(
             f"Qp={dims['Qp']} or R={dims['R']} exceeds the scan kernel's shared rows"
         )
+    if not zone:
+        return
     D = len(host_args[ARG_INDEX["zone_col_mask"]])
-    if zone and (dims["Vp"] > MAX_V or D > MAX_Z or dims["Pp"] > MAX_P):
+    if D > cffd.MAX_Z or dims["Pp"] > cffd.MAX_P:
         raise UnsupportedInput(
-            f"Vp={dims['Vp']}, {D} domain columns or Pp={dims['Pp']} exceed the zoned "
-            "scan kernel's shared rows"
+            f"{D} domain columns or Pp={dims['Pp']} exceed the zoned scan kernel's shared rows"
+        )
+    cap = cffd.zone_v_cap(device)
+    if cap is not None and dims["Vp"] > cap:
+        raise UnsupportedInput(
+            f"Vp={dims['Vp']} exceeds the zoned scan kernel's {cap} V rows on this card"
         )
 
 
@@ -898,7 +905,7 @@ class TorchSolver(Solver):
             return None
         zone = enc2.V > 0
         try:
-            check_kernel_limits(dims, host_args, zone)
+            check_kernel_limits(dims, host_args, zone, self.device)
         except UnsupportedInput:
             return None
         self.ledger.begin_solve()
@@ -1184,7 +1191,7 @@ class TorchSolver(Solver):
         # the zoned branch runs only when the solve has V-axis sigs, as in
         # the JAX backend (zone_engine=enc.V > 0)
         zone = enc.V > 0
-        check_kernel_limits(dims, host_args, zone)
+        check_kernel_limits(dims, host_args, zone, self.device)
         # the ledger's per-solve window: every byte of this solve's upload
         # and fetches (closed in finish)
         self.ledger.begin_solve()

@@ -4,7 +4,8 @@ Karpenter has no weights: what crosses between the JAX reference and the
 port is the encoded kernel arguments (host_kernel_args' numpy tuple, the
 same from either package), the scan state and its checkpoint ring (a JAX
 FFDState or CheckpointRing read as numpy, so a resume can start from a
-JAX ring slot). uint32 arrays travel into torch as int32 views of the same
+JAX ring slot), and the convex backend's problem (a JAX `_Problem`, whose
+fields are numpy). uint32 arrays travel into torch as int32 views of the same
 bits and come back as uint32.
 """
 
@@ -72,3 +73,13 @@ def ring_to_numpy(ring: CheckpointRing) -> dict:
     """The port's CheckpointRing -> {states: {field: numpy}, prefix} with the
     JAX dtypes."""
     return {"states": state_to_numpy(ring.states), "prefix": ring.prefix.cpu().numpy()}
+
+
+def problem_to_torch(prob, device) -> tuple:
+    """A convex `_Problem` of either package (numpy fields) -> the port's
+    admm_pack arguments on `device` (run_req, run_count, cand_cap,
+    cand_cost, feas), padded as ConvexSolver._dispatch pads them; float32,
+    int32 and bool keep their types."""
+    from .convex import pad_problem
+
+    return tuple(torch.from_numpy(a).to(device) for a in pad_problem(prob))

@@ -14,8 +14,9 @@ transfer, and `unpack` slices it into typed tensors:
 
 Each spec is (byte offset, shape, numpy dtype str) in packing order. The
 port's tensors follow solver/convert.py: '<i4' and '<u4' entries become
-int32 tensors (uint32 as the int32 bit pattern), '|b1' entries bool tensors
-read as byte != 0, as the JAX unpack reads them. Every output is a freshly
+int32 tensors (uint32 as the int32 bit pattern), '<f4' entries (the convex
+problem's, solver/convex.py) float32 tensors with the same bits, '|b1'
+entries bool tensors read as byte != 0, as the JAX unpack reads them. Every output is a freshly
 allocated tensor: none aliases the buffer or a tensor an enqueued dispatch
 still reads.
 """
@@ -30,7 +31,7 @@ import torch
 # one count per wrapper call that launches K8 (see cuda/ffd.py LAUNCHES)
 LAUNCHES = {"arena_unpack": 0}
 
-_DTYPES = {"<i4": torch.int32, "<u4": torch.int32, "|b1": torch.bool}
+_DTYPES = {"<i4": torch.int32, "<u4": torch.int32, "<f4": torch.float32, "|b1": torch.bool}
 MAX_SEGS = 64  # csrc/arena_kernels.cu MAX_SEGS: the segment table rides in the launch
 
 

@@ -28,19 +28,25 @@ SOURCES = {
     "ffd_sparse_kernels": PKG_ROOT / "csrc" / "ffd_sparse_kernels.cu",
     "arena_kernels": PKG_ROOT / "csrc" / "arena_kernels.cu",
     "class_kernels": PKG_ROOT / "csrc" / "class_kernels.cu",
+    "convex_kernels": PKG_ROOT / "csrc" / "convex_kernels.cu",
 }
 # sources a library includes besides its own (their bytes enter its hash)
 INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
+# (the two *_zone_max_v queries take the same arguments and ignore them)
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
-                    "ffd_ckpt_launch", "pack_outputs_launch"),
+                    "ffd_ckpt_launch", "pack_outputs_launch", "ffd_zone_max_v"),
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
-                           "ffd_ckpt_sparse_launch"),
+                           "ffd_ckpt_sparse_launch", "ffd_sparse_zone_max_v"),
     "arena_kernels": ("arena_unpack_launch",),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
+    "convex_kernels": ("admm_pack_launch",),
 }
+# flags of one library besides NVCC_FLAGS: K13 keeps the JAX expression
+# order, so nvcc may not contract a * b + c into an FMA there
+FLAGS = {"convex_kernels": ("-fmad=false",)}
 BUILD_DIR = PKG_ROOT.parent / "build" / "karpenter_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -65,7 +71,8 @@ def _nvcc() -> str:
 
 def _library(name: str) -> Path:
     src = b"".join(f.read_bytes() for f in (SOURCES[name], *INCLUDES.get(name, ())))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join((*NVCC_FLAGS, *FLAGS.get(name, ())))
+    tag = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 
 
@@ -83,7 +90,8 @@ def build() -> dict:
             tmp = lib.with_name(f".{lib.stem}.{os.getpid()}.so")
             err = open(lib.with_suffix(".ptxas.tmp"), "w")
             procs.append((name, tmp, err, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                [_nvcc(), *NVCC_FLAGS, *FLAGS.get(name, ()), "-o", str(tmp),
+                 str(SOURCES[name])],
                 stdout=subprocess.DEVNULL, stderr=err)))
         failed = []
         for name, tmp, err, proc in procs:

@@ -1566,13 +1566,46 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-# Kernel limits (csrc/ffd_kernels.cu): per-run Q, R and V rows and the
-# per-event domain vectors live in shared memory.
+# Kernel limits (csrc/ffd_kernels.cu): per-run Q and R rows and the
+# per-event domain vectors live in static shared memory. The zoned
+# instances' V rows are dynamic shared memory sized at launch: see
+# zone_v_cap.
 MAX_Q = 256
 MAX_R = 16
-MAX_V = 128
 MAX_Z = 32
 MAX_P = 64
+
+_V_CAPS: dict = {}
+
+
+def zone_v_cap(device):
+    """The most V-axis rows (max(V, Kv) of a sparse dispatch) a zoned scan
+    launch holds on `device`: the card's opt-in shared memory per block less
+    the zoned instances' static share, at 10 bytes a row (ffd_zone_max_v in
+    both kernel libraries; the least of them). None on the CPU, where the
+    plain versions hold any V."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    cap = _V_CAPS.get(idx)
+    if cap is None:
+        from .build import load
+
+        with torch.cuda.device(idx):
+            caps = [getattr(load(lib), fn)(None, 0, None, None)
+                    for lib, fn in (("ffd_kernels", "ffd_zone_max_v"),
+                                    ("ffd_sparse_kernels", "ffd_sparse_zone_max_v"))]
+        if min(caps) < 0:
+            raise RuntimeError(f"ffd_zone_max_v: CUDA error {-min(caps)}")
+        cap = _V_CAPS[idx] = min(caps)
+    return cap
+
+
+def _check_v_rows(rows: int, device, name: str) -> None:
+    cap = zone_v_cap(device)
+    if cap is not None and rows > cap:
+        raise ValueError(f"{name}: {rows} V rows exceed the zoned scan's {cap} on this card")
 
 
 # the scan's inputs as the launcher takes them: ARG_SPEC without the four
@@ -1601,10 +1634,11 @@ def _scan_name(kind: str, zone_engine: bool, sparse) -> str:
     return f"ffd_{kind}{'sparse_' if sparse is not None else ''}{'zoned' if zone_engine else 'fast'}_scan"
 
 
-def _check_sparse(sparse, Sp: int, name: str):
+def _check_sparse(sparse, Sp: int, name: str, V: int, zone_engine: bool):
     """The index tables of a sparse scan: int32 CUDA tensors [Sp, Kq] and
-    [Sp, Kv] within the kernel's shared slots. Returns (tensors, [Kq, Kv]);
-    ([], []) for a dense scan."""
+    [Sp, Kv] within the kernel's shared slots (a zoned launch holds max(V,
+    Kv) V rows: its constrained runs reload the dense flags). Returns
+    (tensors, [Kq, Kv]); ([], []) for a dense scan."""
     if sparse is None:
         return [], []
     q, v = sparse
@@ -1613,8 +1647,10 @@ def _check_sparse(sparse, Sp: int, name: str):
         if t.dim() != 2 or t.shape[0] != Sp:
             raise ValueError(f"{name}: {n} must be [{Sp}, K], got {tuple(t.shape)}")
     Kq, Kv = int(q.shape[1]), int(v.shape[1])
-    if Kq > MAX_Q or Kv > MAX_V:
-        raise ValueError(f"{name}: Kq={Kq} > {MAX_Q} or Kv={Kv} > {MAX_V}")
+    if Kq > MAX_Q:
+        raise ValueError(f"{name}: Kq={Kq} > {MAX_Q}")
+    if zone_engine:
+        _check_v_rows(max(V, Kv), v.device, name)
     return [q, v], [Kq, Kv]
 
 
@@ -1631,8 +1667,10 @@ def _check_scan_args(a: dict, zone_engine: bool, name: str):
     W = a["group_pair_nok"].shape[1]
     if Q > MAX_Q or R > MAX_R:
         raise ValueError(f"{name}: Q={Q} > {MAX_Q} or R={R} > {MAX_R}")
-    if zone_engine and not (1 <= V <= MAX_V and 1 <= Z <= MAX_Z and P <= MAX_P):
-        raise ValueError(f"{name}: V={V}, Z={Z} or P={P} outside 1..{MAX_V}, 1..{MAX_Z}, ..{MAX_P}")
+    if zone_engine and not (1 <= V and 1 <= Z <= MAX_Z and P <= MAX_P):
+        raise ValueError(f"{name}: V={V}, Z={Z} or P={P} outside 1.., 1..{MAX_Z}, ..{MAX_P}")
+    if zone_engine:
+        _check_v_rows(V, a["v_kind"].device, name)
     shapes = {
         "run_group": (Sp,), "run_count": (Sp,), "group_req": (G, R),
         "group_compat_t": (G, T), "group_zc_bits": (G,), "group_pool": (G, P),
@@ -1660,7 +1698,7 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False,
     M = int(max_claims)
     name = _scan_name("", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
-    idx, kdims = _check_sparse(sparse, Sp, name)
+    idx, kdims = _check_sparse(sparse, Sp, name, V, zone_engine)
     st = _state0(args, M)
     dev = a["node_free"].device
     take_e = torch.empty((Sp, E), dtype=I32, device=dev)
@@ -1694,7 +1732,7 @@ def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
     M = int(max_claims)
     name = _scan_name("ladder_", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
-    idx, kdims = _check_sparse(sparse, Sp, name)
+    idx, kdims = _check_sparse(sparse, Sp, name, V, zone_engine)
     _check(run_ladder, "run_ladder", I32)
     if run_ladder.dim() != 2 or run_ladder.shape[0] != Sp or run_ladder.shape[1] < 1:
         raise ValueError(f"{name}: run_ladder must be [{Sp}, Lw >= 1], got {tuple(run_ladder.shape)}")
@@ -1731,7 +1769,7 @@ def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
     M = int(max_claims)
     name = _scan_name("ckpt_", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
-    idx, kdims = _check_sparse(sparse, Sp, name)
+    idx, kdims = _check_sparse(sparse, Sp, name, V, zone_engine)
     st = _state0(args, M) if init_state is None else _resume_state(init_state, args, M)
     ring = _ring0(st, n_ckpt)
     dev = a["node_free"].device

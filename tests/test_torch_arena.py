@@ -2,7 +2,8 @@
 
 - `unpack_plain` (the plain version of the K8 unpack kernel) equals the
   JAX `_unpack_fn(specs, None)` on seeded segment lists packed as the arena
-  packs them: every ARG_SPEC dtype (int32, uint32, bool), odd-sized bool
+  packs them: every ARG_SPEC dtype (int32, uint32, bool) and the convex
+  problem's float32, odd-sized bool
   tables in front of int32/uint32 entries (unaligned offsets), and bool
   bytes 2..255 read as True.
 - The transfer ledger equals the JAX ledger: a sequence of solves (cold,
@@ -124,9 +125,33 @@ def test_unpack_bool_bytes_2_to_255(seed):
 
 
 def test_unpack_rejects_other_dtypes():
-    buf, specs = _pack([np.zeros(3, np.float32)])
-    with pytest.raises(ValueError):
-        tunpack.unpack_plain(torch.from_numpy(buf), specs)
+    # float32 is an arena dtype since the convex problem adopts into it
+    # (test_unpack_float32_matches_jax); wider types are not
+    for dt in (np.float64, np.int64):
+        buf, specs = _pack([np.zeros(3, dt)])
+        with pytest.raises(ValueError):
+            tunpack.unpack_plain(torch.from_numpy(buf), specs)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_unpack_float32_matches_jax(seed):
+    """The convex problem's segments (solver/convex.py pad_problem: float32
+    and int32 rows, a bool mask) unpack bit for bit as the JAX unpack reads
+    them, behind odd-sized bools too (unaligned float32 entries); infinities,
+    NaN and negative zero keep their bits."""
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((5, 3)).astype(np.float32)
+    f[0, :3] = [np.inf, -0.0, np.nan]
+    arrays = [f, rng.integers(0, 9, 5).astype(np.int32), rng.random((3,)) < 0.5,
+              rng.random(7).astype(np.float32), rng.random((5, 9)) < 0.5]
+    buf, specs = _pack(arrays)
+    assert any(off % 4 for off, _, d in specs if d == "<f4"), "no unaligned float32 entry"
+    want = _unpack_fn(specs, None)(buf)
+    got = tunpack.unpack_plain(torch.from_numpy(buf.copy()), specs)
+    for a, w, g in zip(arrays, want, got):
+        w, g = np.asarray(w), g.numpy()
+        assert w.dtype == g.dtype == a.dtype and w.shape == g.shape
+        assert w.tobytes() == g.tobytes() == a.tobytes()
 
 
 def test_adopt_tensors_equal_the_kernel_args():

@@ -423,6 +423,45 @@ def test_class_zone_parity():
     assert s.stats["ladder_solves"] >= 1
 
 
+def test_class_zone_past_128_gangs_parity(monkeypatch):
+    """More zone-labelled gangs than the zoned scan once held in its static
+    V rows (128): each gang's injected self-affinity is one zone sig, so
+    V > 128, which now sizes the kernel's shared rows at launch. The port
+    solves it through the relax ladder and decides as the JAX wrapper over
+    the oracle (ClassAwareSolver(ReferenceSolver())). The JAX wrapper over
+    TPUSolver is not a leg here: XLA's CPU compiler runs out of memory
+    compiling its relax ladder at V > 128 (LLVM "Cannot allocate memory",
+    then a segfault). chip_smoke.py runs class_zone at bench.py's 1 000
+    gangs on the card."""
+    import bench
+    from karpenter_tpu_torch.solver import backend as tbackend
+
+    inp = bench._gang_input(n_nodes=64, victims_per_node=1, n_high=4, n_gangs=130, gang_size=2)
+    for p in inp.pods:
+        if jwk.GANG_LABEL in p.meta.labels:
+            p.meta.labels[jwk.GANG_TOPOLOGY_LABEL] = jwk.ZONE_LABEL
+    seen_vp = []
+    limits = tbackend.check_kernel_limits
+
+    def recording(dims, host_args, zone, device):
+        seen_vp.append(dims["Vp"] if zone else 0)
+        return limits(dims, host_args, zone, device)
+
+    monkeypatch.setattr(tbackend, "check_kernel_limits", recording)
+    s = TorchSolver(device="cpu")
+    got_caw = tsc.ClassAwareSolver(s)
+    got = got_caw.solve(to_port(inp))
+    caw = jsc.ClassAwareSolver(ReferenceSolver())
+    want = caw.solve(quantize_input(inp))
+    assert got.placements == want.placements
+    assert set(got.errors) == set(want.errors)
+    assert _claims_sig(got) == _claims_sig(want)
+    assert _evictions(got) == _evictions(want) == []
+    assert got.gangs_unschedulable == want.gangs_unschedulable
+    assert got_caw.class_stats == caw.class_stats
+    assert s.stats["ladder_solves"] >= 1 and max(seen_vp) > 128
+
+
 def test_inject_gang_affinity_matches():
     pods = [mkpod("a", labels=gang_labels("g", 2, topology=jwk.ZONE_LABEL)),
             mkpod("b", labels=gang_labels("g", 2, topology="bogus")), mkpod("c")]

@@ -2,8 +2,8 @@
 piece pinned to its original.
 
 - a static scan of every import in karpenter_tpu_torch/** and chip_smoke.py;
-- a solve and a batched consolidation probe through the port in a fresh
-  interpreter leave jax and every karpenter_tpu module out of sys.modules (a subprocess, because this test
+- a solve, a batched consolidation probe and a convex solve and one-shot
+  consolidation through the port in a fresh interpreter leave jax and every karpenter_tpu module out of sys.modules (a subprocess, because this test
   process has imported jax through tests/conftest.py);
 - TorchSolver() with no device argument refuses to run without CUDA;
 - the copies (ARG_SPEC, delta constants, argument partitions, the
@@ -88,6 +88,13 @@ def test_port_solve_loads_no_jax():
         "assert len(res.placements) == 480 and sp.stats['sparse_dispatches'] == 1, sp.stats\n"
         "dd = TorchSolver(device='cpu', device_decode=False)\n"
         "assert dd.solve(build_constraint_wide_input(480, 40)).placements == res.placements\n"
+        "from chip_smoke import build_scenario, build_split_consolidation\n"
+        "from karpenter_tpu_torch.solver.convex import ConvexSolver\n"
+        "cv = ConvexSolver(TorchSolver(device='cpu'))\n"
+        "res = cv.solve(build_scenario('rightsize'))\n"
+        "assert len(res.claims) == 6 and cv.convex_stats['convex_solves'] == 1, cv.convex_stats\n"
+        "prop = cv.consolidate_global(*build_split_consolidation())\n"
+        "assert prop is not None and len(prop['delete']) == 3, prop\n"
         "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
         "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -537,3 +544,99 @@ def test_class_aware_default_device_needs_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         ClassAwareSolver(tbackend.TorchSolver())
+
+
+def test_convex_constants_pinned():
+    """The convex backend's tuning, argument table, buckets and the
+    invariant gate's copy equal the JAX package's."""
+    from karpenter_tpu.solver import convex as jcv
+    from karpenter_tpu_torch.solver import convex as tcv
+    from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+    for n in ("_RHO", "_ETA0", "_ANNEAL", "_ETA_MAX", "_TAU", "_STAY_EPS", "CONVEX_ARG_SPEC",
+              "CONVEX_STATICS"):
+        assert getattr(tcv, n) == getattr(jcv, n), n
+    for n in range(0, 70):
+        assert tcv._bucket(n, 16, 16) == jcv._bucket(n, 16, 16)
+    assert tcv.CONVEX_ARG_SPEC[:5] == ("run_req", "run_count", "cand_cap", "cand_cost", "feas")
+    assert tcc.MAX_R == tffd.MAX_R
+    assert tcv.PREWARM_BUCKETS == ((16, 16), (32, 32), (64, 64))  # convex.py:813
+    j = jcv.ConvexSolver.__init__.__defaults__
+    t = tcv.ConvexSolver.__init__.__defaults__
+    assert j == t, (j, t)
+
+
+def test_check_invariants_copy_pinned():
+    """check_invariants reports the same violations as the JAX gate, on a
+    valid result and on one with every kind of violation."""
+    from karpenter_tpu.provisioning.scheduler import ClaimResult, SolverResult
+    from karpenter_tpu.solver import resilient as jres
+    from karpenter_tpu.solver.encode import quantize_input as jq
+    from karpenter_tpu_torch.solver import resilient as tres
+    from karpenter_tpu_torch.solver.encode import quantize_input as tq
+    from tests.test_convex_backend import mknode
+    from tests.test_solver_parity import ZONES, mkpod, pool
+    from tests.test_torch_relax import to_port
+    from karpenter_tpu.provisioning.scheduler import SolverInput
+    from karpenter_tpu.utils.resources import Resources
+
+    pods = [mkpod(f"p{i}", cpu="3", mem="1Gi") for i in range(5)]
+    inp = SolverInput(pods=pods, nodes=[mknode("n1", cpu="4")], nodepools=[pool()], zones=ZONES)
+    good = SolverResult(placements={"p0": ("node", "n1"), "p1": ("claim", 0)},
+                        claims=[ClaimResult(nodepool="default", requirements=None,
+                                            instance_type_names=[], pod_uids=["p1"],
+                                            requests=Resources(), taints=[], hostname="c0")],
+                        errors={"p2": "x"})
+    bad = SolverResult(
+        placements={"p0": ("node", "n1"), "p1": ("node", "n1"), "p2": ("node", "ghost"),
+                    "p3": ("claim", 7), "zz": ("node", "n1"), "p4": ("rack", 1)},
+        claims=[ClaimResult(nodepool="default", requirements=None, instance_type_names=[],
+                            pod_uids=["p3", "p3"], requests=Resources(), taints=[],
+                            hostname="c0")],
+        errors={"p0": "x", "nobody": "y"})
+    for res in (good, bad):
+        want = jres.check_invariants(jq(inp), res)
+        got = tres.check_invariants(tq(to_port(inp)), to_port(res))
+        assert got == want
+    assert not jres.check_invariants(jq(inp), good) and len(jres.check_invariants(jq(inp), bad)) >= 6
+
+
+@pytest.mark.parametrize("name", ["uniform", "rightsize", "split"])
+def test_quality_scenario_copy_pinned(name):
+    """chip_smoke.py's build_scenario is tools/explain_diff.py's: the same
+    pods, nodes and pools, encoding to the same kernel arguments."""
+    import importlib.util
+
+    import chip_smoke
+
+    spec = importlib.util.spec_from_file_location("explain_diff", REPO / "tools" / "explain_diff.py")
+    xd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(xd)
+    want, got = xd.build_scenario(name), chip_smoke.build_scenario(name)
+    assert [p.meta.uid for p in got.pods] == [p.meta.uid for p in want.pods]
+    assert [n.id for n in got.nodes] == [n.id for n in want.nodes]
+    assert [(p.name, p.weight) for p in got.nodepools] == [(p.name, p.weight) for p in want.nodepools]
+    assert (got.zones, got.capacity_types) == (want.zones, want.capacity_types)
+    _encode_pair_pinned(want, got)
+
+
+def test_config5_consolidation_copy_pinned():
+    """chip_smoke.py's build_config5_consolidation is bench.py's universe with
+    every candidate pod pending and the candidates [(cand-j, 1.0, {cpj})],
+    as the convex backend's one-shot pass takes it; and the split
+    consolidation is bench.py _quality_run's."""
+    import bench
+    import chip_smoke
+
+    jinp, jpods, jnode = bench.build_config5_universe(1_560, 40)
+    tinp, cands = chip_smoke.build_config5_consolidation(1_560, 40)
+    assert cands == [(jnode[j], 1.0, frozenset(p.meta.uid for p in jpods[j])) for j in range(40)]
+    assert [p.meta.uid for p in tinp.pods] == [p.meta.uid for j in range(40) for p in jpods[j]]
+    assert [n.id for n in tinp.nodes] == [n.id for n in jinp.nodes]
+    je = _encode_pair_pinned(
+        dataclasses.replace(jinp, pods=[p for j in range(40) for p in jpods[j]]), tinp)
+    assert je.E == 1_560
+    inp, scands = chip_smoke.build_split_consolidation()
+    assert [n.id for n in inp.nodes] == ["c1", "c2", "c3", "surv"]
+    assert scands == [(f"c{j}", 0.5, frozenset({f"m{j - 1}{k}" for k in range(2)}))
+                      for j in range(1, 4)]

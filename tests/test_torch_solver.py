@@ -460,10 +460,15 @@ def test_out_of_slice_inputs_raise(kind):
 @pytest.mark.parametrize("limit", ["MAX_V", "MAX_Z", "MAX_P"])
 def test_zone_kernel_limits_raise(limit, monkeypatch):
     """Past the zoned scan kernel's shared rows (V-axis sigs, domain
-    columns, pools) the port declines with a typed error, no fallback."""
+    columns, pools) the port declines with a typed error, no fallback. The
+    V rows are sized at launch, so their cap is the card's (zone_v_cap):
+    the MAX_V case points it at one row."""
     from karpenter_tpu_torch.solver.cuda import ffd as tffd
 
-    monkeypatch.setattr(tffd, limit, 1)
+    if limit == "MAX_V":
+        monkeypatch.setattr(tffd, "zone_v_cap", lambda device: 1)
+    else:
+        monkeypatch.setattr(tffd, limit, 1)
     with pytest.raises(UnsupportedInput):
         TorchSolver(device="cpu").solve(build(ZONE_CASES["spread_skew1_fresh"], "karpenter_tpu_torch"))
 
