@@ -32,7 +32,8 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    on no other cell; a sparse="off" solver beside it on those three cells
    and a device_decode=False solver (the dense output pack) on the surge
    and config 3 must decide the same; every kernel must have launched, and
-   the decisions must equal the plain-version path's; each solve's
+   the decisions must equal the plain-version path's (the mixed input's
+   through PlainOnCard); each solve's
    garbage-collection pauses are recorded beside its time;
 4. forces the wide re-fetch (a tiny delta capacity) and checks the
    decisions do not change;
@@ -84,7 +85,9 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    explain_pack must all launch); then the class solve's stage split, one
    solve with every K10/K11 call held against its plain version, and the
    decisions (evictions, gang verdicts, class_stats) against
-   ClassAwareSolver(TorchSolver(device="cpu")). Before it (phase 2f) K10
+   ClassAwareSolver(TorchSolver(device="cpu")): class_contended's, and
+   class_zone's on the fleet cut to CLASS_ZONE_CHECK_GANGS gangs (solved
+   on the card too). Before it (phase 2f) K10
    and K11 are held against their plain versions on seeded and
    adversarial tables (int32 wrap, no eligible victim or node, a free fit,
    gangs past NG, E = Vm = 1) and K11 at 10 000 nodes, and K12 at the
@@ -107,6 +110,24 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    K13 call of the same work is held against its plain version, config 5
    proposes the same through the plain version, and convex_e2e decides as
    ConvexSolver(TorchSolver(device="cpu")).
+
+9. the serving pipeline: K15 (ffd_lanes_kernel, the lane-batched scan)
+   against its plain version and against K1 on each lane, on the surge's
+   kernel arguments stacked B = 1, 2 and 8 members deep (member i the surge
+   at 50 000 + 3 (i % 3) pods) and config 3's (the zoned instance, B = 8);
+   K16 (pad_lanes) byte for byte on a 5-member arena-adopted stack padded
+   to 8; K14 (apply_events) on seeded tables (Sp 32 and 4 096, K 0, 8 and
+   1 024 with out-of-range and pad rows) and on the surge's run-table edit.
+   Then, with the launch counts reset just before and read just after:
+   cohort_surge, 8 tenants' members in one fused dispatch through
+   SolveService(TorchSolver()).submit_cohort and through solve_cohort_async
+   directly, COHORT_DISPATCHES each, beside the same 8 solves submitted solo
+   (through an arena of the default 4 buckets and one of 8; every fused dispatch carries all 8, the warm repeats upload nothing,
+   decisions equal solo solves and the CPU plain path); cohort_config3
+   (zoned lanes); cohort_pad (5 members pad to 8 lanes in a cold arena: the
+   upload is exactly 5 members' bytes); surge_stream (stream_run_events:
+   every solve after the first two stages through K14, decisions equal an
+   unstaged solver's, the resident run tables equal the host encode).
 
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
@@ -136,12 +157,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 PODS = 50_000  # the headline surge
 NODES = 200  # existing nodes of the e2e cell
-REPEATS = 100  # timed solves per cell: enough samples for a p99
-DENSE_REPEATS = 20  # sparse="off" solves beside TorchSolver() on the sparse-gated cells
-MIXED_REPEATS = 3  # the mixed input (~1.7 s a solve), through both solvers
-SOFT_REPEATS = 20  # config3_soft (~1.3 s a solve)
+REPEATS = 50  # timed solves per cell (their p99 is the slowest of 50)
+DENSE_REPEATS = 10  # sparse="off" solves beside TorchSolver() on the sparse-gated cells
+MIXED_REPEATS = 2  # the mixed input (~1.7 s a solve), through both solvers
+SOFT_REPEATS = 10  # config3_soft (~1.3 s a solve)
 MAX_CLAIMS = 1024  # TorchSolver's default claim-slot ceiling
-WALK_PODS = 50_000  # the relax walk: every pod after an app's first relaxes
+WALK_PODS = 10_000  # the relax walk: every pod after an app's first relaxes
 
 # H100 SXM published HBM3 bandwidth (NVIDIA data sheet). The integer-op
 # ceiling is the card's int32 issue rate, 64 lanes per SM per clock (not
@@ -1627,7 +1648,11 @@ KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false, false>",
                 "pack_outputs_kernel",
                 # the class and explain kernels (21-25)
                 "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
-                "explain_sums_kernel", "explain_rows_kernel")
+                "explain_sums_kernel", "explain_rows_kernel",
+                # the lane-batched scan (26, 27), the run-table scatter (28, 29)
+                # and the lane pad (30)
+                "ffd_lanes_kernel<false>", "ffd_lanes_kernel<true>", "copy_runs_kernel",
+                "apply_events_kernel", "pad_lanes_kernel")
 # phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
 # K2, K3; its uploads are exact hits after the warm-up), one arena=False
 # solver (K1 and K1s in both instances) and one device_decode=False solver
@@ -2692,10 +2717,14 @@ def resume_phase(cells, plain):
 # zone sig: V > 1 000, held in the zoned scan's launch-sized shared rows)
 CLASS_KW = dict(n_nodes=2_000, victims_per_node=8, n_high=6_000, n_gangs=1_000, gang_size=8)
 CLASS_ZONE_GANGS = CLASS_KW["n_gangs"]
-CLASS_REPEATS = 12  # timed class_contended solves, explain off
+# class_zone's decisions are held against the CPU plain path on the same
+# fleet cut to this many gangs (V > 250: past the zoned scan's old 128 static
+# rows); the full fleet's CPU solve was most of the phase's plain check
+CLASS_ZONE_CHECK_GANGS = 250
+CLASS_REPEATS = 3  # timed class_contended solves, explain off
 CLASS_EXPLAIN_REPEATS = 2  # then with the explain plane on
-CLASS_BREAKDOWN_PASSES = 3
-EXPLAIN_REPEATS = 20  # surge_e2e solves with explain on, and as many off
+CLASS_BREAKDOWN_PASSES = 2
+EXPLAIN_REPEATS = 10  # surge_e2e solves with explain on, and as many off
 K11_NODES = 10_000  # the preemption planner's tables at BASELINE's fleet size
 CLASS_KERNELS = ("gang_commit", "preemption_plan", "explain_pack")
 
@@ -3095,7 +3124,7 @@ def class_kernel_rows(first, checks, ex, launches, per_solve, ops_per_s) -> list
     return rows
 
 
-def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
+def class_phase(inp, inp_zone, inp_zone_check, surge_e2e, plain_solver_cls) -> dict:
     """The class-aware main path through ClassAwareSolver(TorchSolver()),
     the launch counts reset just before and read just after: CLASS_REPEATS
     timed class_contended solves (explain off), CLASS_EXPLAIN_REPEATS with
@@ -3103,7 +3132,9 @@ def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
     TorchSolver() EXPLAIN_REPEATS times with explain on and as many off, in
     turns. Then, outside the counted window: the stage split, one solve
     with every K10/K11 call held against its plain version, and the
-    decisions against ClassAwareSolver(TorchSolver(device="cpu"))."""
+    decisions against ClassAwareSolver(TorchSolver(device="cpu")):
+    class_contended's, and class_zone's on `inp_zone_check` (the fleet cut
+    to CLASS_ZONE_CHECK_GANGS gangs, solved on the card here too)."""
     import torch
 
     from karpenter_tpu_torch.obs import explain as obsexplain
@@ -3172,8 +3203,10 @@ def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
     cpu = sc.ClassAwareSolver(plain_solver_cls(device="cpu", max_claims=MAX_CLAIMS))
     assert class_decisions(cpu.solve(inp)) == results[0], "class_contended: decisions differ from the plain path"
     assert {k: cpu.class_stats[k] for k in per_solve} == per_solve, (cpu.class_stats, per_solve)
-    res_zone_cpu = sc.ClassAwareSolver(plain_solver_cls(device="cpu", max_claims=MAX_CLAIMS)).solve(inp_zone)
-    assert class_decisions(res_zone_cpu) == class_decisions(res_zone), \
+    res_check = caw.solve(inp_zone_check)
+    res_zone_cpu = sc.ClassAwareSolver(
+        plain_solver_cls(device="cpu", max_claims=MAX_CLAIMS)).solve(inp_zone_check)
+    assert class_decisions(res_zone_cpu) == class_decisions(res_check), \
         "class_zone: decisions differ from the plain path"
     plain_s = time.perf_counter() - t0
     n_plan = launches["preemption_plan"]
@@ -3191,7 +3224,8 @@ def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
         gangs_unschedulable=results[0]["gangs_unschedulable"],
         zone=dict(ms=zone_ms, pods=len(inp_zone.pods), gangs=CLASS_ZONE_GANGS,
                   declines=zone_declines, ladder_solves=zone_ladders,
-                  unplaced=len(res_zone.errors), equal_to_plain=True),
+                  unplaced=len(res_zone.errors), plain_check_gangs=CLASS_ZONE_CHECK_GANGS,
+                  equal_to_plain=True),
         explain_surge_e2e=dict(on_p50_ms=pct(on_ms, 50), off_p50_ms=pct(off_ms, 50),
                                on_ms=on_ms, off_ms=off_ms, on_d2h_bytes=on_d2h[-1],
                                off_d2h_bytes=off_d2h[-1], wire_bytes=on_d2h[-1] - off_d2h[-1]),
@@ -3207,7 +3241,7 @@ def class_phase(inp, inp_zone, surge_e2e, plain_solver_cls) -> dict:
 # cut to CONVEX_E2E_PODS pods from 50 000 (the reference's rounding is a Python
 # loop over pods x open claims)
 CONVEX_E2E_PODS = 5_000
-CONVEX_E2E_REPEATS = 10
+CONVEX_E2E_REPEATS = 5
 CONVEX_TOL = 1e-3  # ConvexSolver's default tolerance (and max_iters 400)
 CONVEX_KERNELS = ("admm_pack", "arena_unpack")
 # K13 against its plain version (both on the card): X within admm_x_limit
@@ -3701,13 +3735,439 @@ def admm_device_ms(fn, whole: int, tries: int = 6):
     return (sum(best) / 1e3, len(best)) if best else (None, None)
 
 
+# ---- the serving pipeline: fused cohorts and streaming staging (K14-K16) ------------
+#
+# cohort_surge: 8 tenants (t0..t7: bench.py _tenant_run's tenants and
+# TenantMux's default cohort_max), member i the surge at PODS + 3 (i % 3)
+# pods (bench.py _tenant_pass's churn inputs at the surge's size), through
+# SolveService(TorchSolver()).submit_cohort and solve_cohort_async directly,
+# beside the same 8 solves submitted solo (an arena of 4 buckets, the
+# default, and one of 8); cohort_config3: the same members
+# at BASELINE config 3 (the zoned lanes); cohort_pad: 5 members padded to 8
+# lanes; surge_stream: TorchSolver() with stream_run_events on, the surge
+# alternating with the surge less one pod of its first deployment
+COHORT_MEMBERS = 8
+COHORT_DISPATCHES = 20  # per route
+COHORT_SOLO_ROUNDS = 10  # rounds of the same 8 solves submitted solo, beside them
+COHORT_CONFIG3_DISPATCHES = 3
+COHORT_PAD_MEMBERS = 5
+STREAM_SOLVES = 20
+LANES_CHECK_B = (1, 2, 8)
+COHORT_KERNELS = ("ffd_lanes_fast_scan", "ffd_lanes_zoned_scan", "pad_lanes", "apply_events")
+TICKET_TIMEOUT_S = 600  # any one ticket of phase 9
+
+
+def cohort_members(bases, n: int, prefix: str):
+    """n members over the distinct `bases`, member i base i % len(bases),
+    each its own tenant."""
+    import dataclasses
+
+    return [dataclasses.replace(bases[i % len(bases)], tenant_id=f"{prefix}{i}") for i in range(n)]
+
+
+def lanes_args(members, dev):
+    """The members' kernel arguments stacked lane-major, as the cohort
+    dispatch stacks them: (host arrays, tensors on `dev`, claim bucket,
+    zone_engine)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    hosts, totals, zones = [], [], set()
+    for m in members:
+        enc = encode(quantize_input(m))
+        hosts.append(tb.host_kernel_args(enc, tb.TorchSolver._bucket)[0])
+        totals.append(int(sum(len(p) for p in enc.group_pods)))
+        zones.add(bool(enc.V > 0))
+    assert len(zones) == 1 and all(
+        tuple(a.shape for a in h) == tuple(a.shape for a in hosts[0]) for h in hosts)
+    stacked = tuple(np.stack([h[j] for h in hosts]) for j in range(len(hosts[0])))
+    M = tb.initial_claim_bucket(max(totals), MAX_CLAIMS)
+    return stacked, args_to_torch(stacked, dev), M, zones.pop()
+
+
+def lanes_check(members, dev) -> dict:
+    """K15 against its plain version (ffd_solve_plain on every lane, on the
+    card) and against K1 on each lane alone, at the members' stacked
+    arguments; the claim bucket doubles while a lane saturates it."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    host, args, M, zone = lanes_args(members, dev)
+    while True:
+        out = ffd.ffd_solve_lanes(*args, max_claims=M, zone_engine=zone)
+        torch.cuda.synchronize()
+        if int(out.state.used.max()) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    t0 = time.perf_counter()
+    plain = ffd.ffd_solve_lanes_plain(*args, max_claims=M, zone_engine=zone)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max_abs_err(_scan_outputs(out), _scan_outputs(plain))
+    name = f"ffd_lanes_{'zoned' if zone else 'fast'}_scan"
+    assert err == 0, f"{name} disagrees with its plain version (max |d| {err})"
+    err_k1 = 0
+    for b in range(len(members)):
+        k1 = ffd.ffd_solve(*(a[b] for a in args), max_claims=M, zone_engine=zone)
+        err_k1 = max(err_k1, max_abs_err(_scan_outputs(ffd.output_lane(out, b)),
+                                         _scan_outputs(k1)))
+    assert err_k1 == 0, f"{name} disagrees with K1 on a lane (max |d| {err_k1})"
+    return dict(args=args, out=out, M=M, zone=zone, B=len(members), err=err, err_k1=err_k1,
+                events=[int(e) for e in out.events.tolist()], plain_once_s=plain_s,
+                used=[int(u) for u in out.state.used.tolist()])
+
+
+def pad_check(members, dev, batch: int = 8) -> dict:
+    """K16 against its plain version on the 36 arena-resident arrays of
+    the members' stack (adopted as the cohort dispatch adopts them),
+    padded to `batch` lanes: byte for byte."""
+    import torch
+
+    from karpenter_tpu_torch.solver.arena import ArgumentArena
+    from karpenter_tpu_torch.solver.cuda import arena
+
+    host, _args, _M, _zone = lanes_args(members, dev)
+    adopted = ArgumentArena(device=dev).adopt(host, (None,) * len(host), ns="__cohort__")
+    out = arena.pad_lanes(adopted, batch)
+    torch.cuda.synchronize()
+    plain = arena.pad_lanes_plain(adopted, batch)
+    err = max_abs_err(out, plain)
+    assert err == 0, f"pad_lanes disagrees with its plain version (max |d| {err})"
+    for a, o in zip(adopted, out):
+        assert tuple(o.shape) == (batch,) + tuple(a.shape[1:]) and o.dtype == a.dtype
+    return dict(adopted=adopted, out=out, batch=batch, n=len(members), err=err,
+                bytes_in=nbytes(*adopted), bytes_out=nbytes(*out), arrays=len(adopted))
+
+
+def event_rows(seed: int, Sp: int, K: int):
+    """K int32 (pos, gid, cnt) edit rows: unique positions in [0, Sp), then
+    -1, Sp, Sp + 7 and EVENT_PAD_POS padding (tests/test_torch_stream.py's
+    tables)."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    rng = np.random.default_rng(seed)
+    n_in = min(max(0, K - 3), Sp)
+    pos = list(rng.choice(Sp, size=n_in, replace=False)) + [-1, Sp, Sp + 7][: max(0, K - n_in)]
+    pos += [ffd.EVENT_PAD_POS] * (K - len(pos))
+    ev = np.zeros((K, ffd.EVENT_ENTRY_WORDS), dtype=np.int32)
+    if K:
+        ev[:, 0] = np.asarray(pos, dtype=np.int64)[rng.permutation(K)]
+        ev[:, 1] = rng.integers(0, 1 << 20, K)
+        ev[:, 2] = rng.integers(-5, 1 << 16, K)
+    return rng.integers(0, 4000, Sp).astype(np.int32), rng.integers(0, 1 << 15, Sp).astype(
+        np.int32), ev
+
+
+def surge_less_one(inp):
+    """The surge with its first pod gone: its deployment's run count drops
+    by one, the shapes stay (one or two run-table edits a solve)."""
+    import dataclasses
+
+    return dataclasses.replace(inp, pods=list(inp.pods[1:]))
+
+
+def events_check(surge, dev) -> dict:
+    """K14 against its plain version (both on the card) on seeded tables
+    (Sp 32 and 4 096, K 0, 8 and 1 024, out-of-range and pad rows) and on
+    the surge's run tables with the edits of surge_less_one, padded to 8
+    rows as the arena pads them."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver import encode_cache as ec
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    def check(rg, rc, ev):
+        t = [array_to_torch(x, dev) for x in (rg, rc, ev)]
+        got = ffd.ffd_apply_events(*t)
+        torch.cuda.synchronize()
+        want = ffd.ffd_apply_events_plain(*t)
+        assert t[0].cpu().numpy().tolist() == rg.tolist(), "apply_events wrote its input"
+        return max_abs_err(got, want), t
+
+    errs = {}
+    for Sp in (32, 4096):
+        for K in (0, 8, 1024):
+            errs[f"Sp{Sp}_K{K}"] = check(*event_rows(Sp + K, Sp, K))[0]
+    pairs = []
+    for inp in (surge, surge_less_one(surge)):
+        h = tb.host_kernel_args(encode(quantize_input(inp)), tb.TorchSolver._bucket)[0]
+        pairs.append((h[0], h[1]))
+    ev = ec.run_table_events(pairs[0][0], pairs[0][1], pairs[1][0], pairs[1][1])
+    k = len(ev)
+    pad = np.zeros((8 - k, ffd.EVENT_ENTRY_WORDS), np.int32)
+    pad[:, 0] = ffd.EVENT_PAD_POS
+    err, t = check(pairs[0][0], pairs[0][1], np.concatenate([ev, pad]))
+    errs["surge"] = err
+    assert max(errs.values()) == 0, f"apply_events disagrees with its plain version: {errs}"
+    return dict(errs=errs, edits=k, tensors=t, pos=array_to_torch(ev[:, 0], dev).long(),
+                gid=array_to_torch(ev[:, 1], dev), cnt=array_to_torch(ev[:, 2], dev),
+                Sp=int(pairs[0][0].shape[0]))
+
+
+def _ms_tail(ms) -> dict:
+    return dict(n=len(ms), p50_ms=pct(ms, 50), p99_ms=pct(ms, 99), max_ms=max(ms), min_ms=min(ms))
+
+
+def cohort_phase(surge_bases, c3_bases, plain) -> dict:
+    """The pipeline's main path, the launch counts reset just before and
+    read just after: cohort_surge (COHORT_DISPATCHES fused dispatches of 8
+    members through SolveService.submit_cohort and as many through
+    solve_cohort_async, then the same 8 solves submitted solo through a
+    second service and through a third whose arena holds a bucket a
+    tenant, COHORT_SOLO_ROUNDS times, with the bytes each round uploads),
+    cohort_config3, cohort_pad
+    and surge_stream. Every fused dispatch must carry all its members,
+    every warm repeat upload nothing; decisions equal solo TorchSolver()
+    solves, and the surge members' the CPU plain path's."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+    from karpenter_tpu_torch.solver.pipeline import SolveService
+
+    TorchSolver = tb.TorchSolver
+    members = cohort_members(surge_bases, COHORT_MEMBERS, "t")
+    c3_members = cohort_members(c3_bases, COHORT_MEMBERS, "c")
+    fused = TorchSolver(max_claims=MAX_CLAIMS)
+    solo = TorchSolver(max_claims=MAX_CLAIMS)
+    # the solo baseline again with an arena of one bucket a tenant, so that
+    # fused against solo compares fusion, not the solo arena's evictions
+    wide = TorchSolver(max_claims=MAX_CLAIMS)
+    wide.arena.max_buckets = COHORT_MEMBERS
+    svc, solo_svc, wide_svc = SolveService(fused), SolveService(solo), SolveService(wide)
+    # the decisions every member must reach: one solo solve per distinct base
+    want = [decisions(solo.solve(b)) for b in surge_bases]
+    want_c3 = [decisions(solo.solve(b)) for b in c3_bases]
+    unfused = []
+
+    def fused_round(route: str, group, expect):
+        d0, m0 = fused.stats["fused_dispatches"], fused.stats["fused_members"]
+        t0 = time.perf_counter()
+        if route == "service":
+            tickets = svc.submit_cohort([{"inp": m} for m in group])
+            outs = [t.result(timeout=TICKET_TIMEOUT_S) for t in tickets]
+        else:
+            outs = fused.solve_cohort_async(group)()
+        ms = (time.perf_counter() - t0) * 1e3
+        bad = [o for o in outs if isinstance(o, BaseException)]
+        assert not bad, bad
+        n_d = fused.stats["fused_dispatches"] - d0
+        n_m = fused.stats["fused_members"] - m0
+        if (n_d, n_m) != (1, len(group)):
+            # why: a member without a prep rides its solo path; the others
+            # fuse only with members of their exact key
+            why = {}
+            for m in group:
+                prep = fused._cohort_prep(m)
+                why[m.tenant_id] = ("solo path (relax plan, fallback class or kernel limits)"
+                                    if prep is None else f"fuse key {hash(prep['fkey'])}")
+            unfused.append(dict(route=route, dispatches=n_d, members=n_m, why=why))
+            print(json.dumps({"cohort_unfused": unfused[-1]}), flush=True)
+        assert (n_d, n_m) == (1, len(group)), f"{route}: {n_d} fused dispatches of {n_m} members"
+        for i, o in enumerate(outs):
+            assert decisions(o) == expect[i % len(expect)], f"{route}: member {i} differs from solo"
+        return ms, dict(fused.ledger.solve)
+
+    try:
+        # warm (outside the window): a cold cohort per route, a solo round
+        cold = fused_round("service", members, want)[1]
+        fused_round("direct", members, want)
+        for m in members:
+            solo_svc.submit(m).result(timeout=TICKET_TIMEOUT_S)
+            wide_svc.submit(m).result(timeout=TICKET_TIMEOUT_S)
+        torch.cuda.synchronize()
+        reset_launches()
+        service_ms, direct_ms, solo_ms, wide_ms, warm_h2d = [], [], [], [], []
+        solo_h2d, wide_h2d = [], []
+        for _ in range(COHORT_DISPATCHES):
+            for route, acc in (("service", service_ms), ("direct", direct_ms)):
+                ms, led = fused_round(route, members, want)
+                acc.append(ms)
+                warm_h2d.append(led["h2d_bytes"])
+        for _ in range(COHORT_SOLO_ROUNDS):
+            for service, backend, acc, h2d in ((solo_svc, solo, solo_ms, solo_h2d),
+                                               (wide_svc, wide, wide_ms, wide_h2d)):
+                b0 = backend.ledger.total["h2d_bytes"]
+                t0 = time.perf_counter()
+                tickets = [service.submit(m) for m in members]
+                outs = [t.result(timeout=TICKET_TIMEOUT_S) for t in tickets]
+                acc.append((time.perf_counter() - t0) * 1e3)
+                h2d.append(backend.ledger.total["h2d_bytes"] - b0)
+                for i, o in enumerate(outs):
+                    assert decisions(o) == want[i % len(want)], f"solo member {i} differs"
+        assert warm_h2d == [0] * len(warm_h2d), f"warm fused repeats uploaded {warm_h2d}"
+        c3_ms = [fused_round("service", c3_members, want_c3)[0]
+                 for _ in range(COHORT_CONFIG3_DISPATCHES)]
+        # cohort_pad: 5 members pad to 8 lanes (K16) in a cold arena
+        padder = TorchSolver(max_claims=MAX_CLAIMS)
+        member_bytes = TorchSolver(max_claims=MAX_CLAIMS)
+        member_bytes.solve(members[0])
+        outs = padder.solve_cohort_async(members[:COHORT_PAD_MEMBERS])()
+        assert padder.stats["fused_members"] == COHORT_PAD_MEMBERS, padder.stats
+        for i, o in enumerate(outs):
+            assert decisions(o) == want[i % len(want)], f"cohort_pad member {i} differs"
+        pad_h2d = padder.ledger.solve["h2d_bytes"]
+        assert pad_h2d == COHORT_PAD_MEMBERS * member_bytes.ledger.solve["h2d_bytes"], (
+            pad_h2d, member_bytes.ledger.solve)
+        stream = stream_phase(surge_bases[0])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        svc.close()
+        solo_svc.close()
+        wide_svc.close()
+    for k in COHORT_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the pipeline path"
+    t0 = time.perf_counter()
+    for b, w in zip(surge_bases, want):
+        assert decisions(plain.solve(b)) == w, "a cohort member differs from the plain path"
+    plain_s = time.perf_counter() - t0
+    return dict(
+        members=COHORT_MEMBERS, dispatches_per_route=COHORT_DISPATCHES, unfused=unfused,
+        service=_ms_tail(service_ms), direct=_ms_tail(direct_ms), solo_8=_ms_tail(solo_ms),
+        solo_8_h2d_bytes_per_round=solo_h2d,
+        solo_8_wide_arena=dict(max_buckets=COHORT_MEMBERS, **_ms_tail(wide_ms),
+                               h2d_bytes_per_round=wide_h2d),
+        config3=dict(dispatches=COHORT_CONFIG3_DISPATCHES, ms=c3_ms),
+        cold_h2d=cold, warm_h2d_bytes=max(warm_h2d),
+        pad=dict(members=COHORT_PAD_MEMBERS, batch=8, h2d_bytes=pad_h2d,
+                 member_bytes=member_bytes.ledger.solve["h2d_bytes"]),
+        fused_stats={k: fused.stats[k] for k in ("fused_dispatches", "fused_members",
+                                                 "device_solves")},
+        tenant_h2d_bytes=dict(fused.tenant_h2d_bytes), stream=stream, launches=launches,
+        plain_check_s=plain_s)
+
+
+def stream_phase(surge) -> dict:
+    """surge_stream: TorchSolver() with stream_run_events on beside an
+    unstaged TorchSolver(), STREAM_SOLVES solves alternating the surge and
+    surge_less_one. Every solve after the first two stages through K14;
+    decisions equal the unstaged solver's; after each solve the resident
+    run tables equal the host encode."""
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    staged = tb.TorchSolver(max_claims=MAX_CLAIMS)
+    staged.stream_run_events = True
+    ctl = tb.TorchSolver(max_claims=MAX_CLAIMS)
+    cells = (surge, surge_less_one(surge))
+    rows = []
+    for k in range(STREAM_SOLVES):
+        inp = cells[k % 2]
+        h0 = staged.stats["event_stage_hits"]
+        t0 = time.perf_counter()
+        r = staged.solve(inp)
+        ms = (time.perf_counter() - t0) * 1e3
+        hit = staged.stats["event_stage_hits"] - h0
+        led = dict(staged.ledger.solve)
+        assert decisions(r) == decisions(ctl.solve(inp)), f"surge_stream solve {k} differs"
+        if k >= 2:
+            assert hit == 1, f"surge_stream solve {k} did not stage"
+        enc = encode(quantize_input(inp))
+        host = tb.host_kernel_args(enc, tb.TorchSolver._bucket)[0]
+        dev, _tags = staged.arena._buckets[staged.arena.bucket_key(host, ns=enc.tenant_id)]
+        assert dev[0].cpu().numpy().tolist() == host[0].tolist(), "resident run_group differs"
+        assert dev[1].cpu().numpy().tolist() == host[1].tolist(), "resident run_count differs"
+        rows.append(dict(ms=ms, hit=hit, h2d=led["h2d_bytes"], msgs=led["h2d_msgs"],
+                         h2d_unstaged=ctl.ledger.solve["h2d_bytes"],
+                         resumed=staged.stats["resume_solves"]))
+    return dict(solves=STREAM_SOLVES, hits=staged.stats["event_stage_hits"],
+                misses=staged.stats["event_stage_misses"],
+                event_batches=staged.arena.stats["event_batches"],
+                event_edits=staged.arena.stats["event_edits"],
+                h2d_bytes=[x["h2d"] for x in rows], h2d_unstaged=[x["h2d_unstaged"] for x in rows],
+                ms=[x["ms"] for x in rows], resume_solves=staged.stats["resume_solves"])
+
+
+def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
+    """The K15, K16 and K14 rows: K15 at the surge's B = 8 lanes (K1 on
+    one lane beside it) and config 3's zoned lanes, K16 at cohort_pad's
+    stack, K14 at the surge's edit."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import arena, ffd
+
+    rows = []
+    src = "karpenter_tpu_torch/csrc/ffd_lanes_kernels.cu (ffd_kernels.cu, FFD_LANES_ONLY)"
+    for ph, kname in ((lanes, KERNEL_NAMES[26]), (lanes_c3, KERNEL_NAMES[27])):
+        args, M, zone = ph["args"], ph["M"], ph["zone"]
+        name = f"ffd_lanes_{'zoned' if zone else 'fast'}_scan"
+        byts = ops = 0
+        for b in range(ph["B"]):
+            lb, lo = scan_cost(dict(args=[a[b] for a in args], out=ffd.output_lane(ph["out"], b),
+                                    zone=zone, events=ph["events"][b]))
+            byts, ops = byts + lb, ops + lo
+        fn = lambda: ffd.ffd_solve_lanes(*args, max_claims=M, zone_engine=zone)  # noqa: E731
+        lane0 = [a[0] for a in args]
+        k1 = lambda: ffd.ffd_solve(*lane0, max_claims=M, zone_engine=zone)  # noqa: E731
+        b_ms, by = bound(byts, ops, ops_per_s)
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces="karpenter_tpu/parallel/sharded.py:80",
+            launches=launches[name], max_abs_err=ph["err"], ms=time_ms(fn, 5),
+            plain_ms=ph["plain_once_s"] * 1e3,
+            bound_ms=b_ms, bound_by=by, library_ms=None,
+            library_call="none (no PyTorch call computes the scan)", match=ph["err"] == 0,
+            device_ms=profiled_ms(fn, 3, (kname,)), k1_lane_ms=time_ms(k1, 5),
+            k1_lane_device_ms=profiled_ms(k1, 3, (KERNEL_NAMES[1 if zone else 0],)),
+            err_k1=ph["err_k1"], shape=dict(B=ph["B"], Sp=int(args[0].shape[1]), M=M,
+                                            E=int(ph["out"].take_e.shape[2])),
+            events=ph["events"], bytes=byts, ops=ops))
+    adopted, batch = pad["adopted"], pad["batch"]
+    pad_fn = lambda: arena.pad_lanes(adopted, batch)  # noqa: E731
+    cat_fn = lambda: arena.pad_lanes_plain(adopted, batch)  # noqa: E731
+    moved = pad["bytes_in"] + pad["bytes_out"]
+    b_ms, by = bound(moved, 0, ops_per_s)
+    cat_ms = time_ms(cat_fn, 20)
+    rows.append(dict(
+        name="pad_lanes", route="cuda", source="karpenter_tpu_torch/csrc/arena_kernels.cu",
+        replaces="karpenter_tpu/parallel/sharded.py:122", launches=launches["pad_lanes"],
+        max_abs_err=pad["err"], ms=time_ms(pad_fn, 50), plain_ms=cat_ms, bound_ms=b_ms,
+        bound_by=by, library_ms=time_ms(cat_fn, 20),
+        library_call="torch.cat of the array and an expand of its last lane, per array "
+        "(the plain version is this call)", match=pad["err"] == 0,
+        device_ms=profiled_ms(pad_fn, 20, (KERNEL_NAMES[30],)),
+        shape=dict(n=pad["n"], B=batch, arrays=pad["arrays"]), bytes=moved, ops=0))
+    rg, rc, evt = ev["tensors"]
+    pos, gid, cnt = ev["pos"], ev["gid"], ev["cnt"]
+    ev_fn = lambda: ffd.ffd_apply_events(rg, rc, evt)  # noqa: E731
+    moved = 4 * nbytes(rg) + nbytes(evt)
+    b_ms, by = bound(moved, 0, ops_per_s)
+    rows.append(dict(
+        name="apply_events", route="cuda", source="karpenter_tpu_torch/csrc/arena_kernels.cu",
+        replaces="karpenter_tpu/solver/tpu/ffd.py:309", launches=launches["apply_events"],
+        max_abs_err=max(ev["errs"].values()), ms=time_ms(ev_fn, 50),
+        plain_ms=time_ms(lambda: ffd.ffd_apply_events_plain(rg, rc, evt), 20),
+        bound_ms=b_ms, bound_by=by,
+        library_ms=time_ms(lambda: (rg.index_copy(0, pos, gid), rc.index_copy(0, pos, cnt)), 50),
+        library_call="torch.Tensor.index_copy of the edit rows into each table (pad rows "
+        "filtered out beforehand)", match=max(ev["errs"].values()) == 0,
+        device_ms=profiled_ms(ev_fn, 20, (KERNEL_NAMES[28], KERNEL_NAMES[29])),
+        errs=ev["errs"], shape=dict(Sp=ev["Sp"], K=int(evt.shape[0]), edits=ev["edits"]),
+        bytes=moved, ops=0))
+    return rows
+
+
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
-    verdict pack, the output pack and the arena unpack."""
+    lane-batched scan, the verdict pack, the output pack, the arena unpack,
+    the lane pad, the run-table scatter and the class kernels."""
     names = {k: k for k in ("pack_verdicts_kernel", "arena_unpack_kernel", "pack_outputs_kernel",
                             "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
-                            "explain_sums_kernel", "explain_rows_kernel")}
+                            "explain_sums_kernel", "explain_rows_kernel", "copy_runs_kernel",
+                            "apply_events_kernel", "pad_lanes_kernel")}
+    names.update({"ffd_lanes_kernelILb0E": "ffd_lanes_kernel<false>",
+                  "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>"})
     for flags in range(32):
         bits = [(flags >> i) & 1 for i in range(5)]
         mangled = "ffd_scan_kernelI" + "".join(f"Lb{b}E" for b in bits)
@@ -3751,10 +4211,11 @@ def main() -> int:
     build.build()
     ffd_lib = build.load()
     sparse_lib = build.load("ffd_sparse_kernels")
+    lanes_lib = build.load("ffd_lanes_kernels")
     class_lib = build.load("class_kernels")
     convex_lib = build.load("convex_kernels")
     build_s = time.perf_counter() - t0
-    assert None not in (ffd_lib, sparse_lib, class_lib, convex_lib)
+    assert None not in (ffd_lib, sparse_lib, lanes_lib, class_lib, convex_lib)
     v_cap = ffd.zone_v_cap(dev)
     print(f"zoned scan V-row cap on this card: {v_cap}", flush=True)
     for line in build.BUILD_LOG["ptxas"].splitlines():
@@ -4060,11 +4521,13 @@ def main() -> int:
     plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
     for name, inp in {**inputs, **once}.items():
         if name == "mixed":
+            # the plain zoned scan on the card: ~15 ms an event, ~60 s
             with PlainOnCard():
                 ref = TorchSolver(max_claims=MAX_CLAIMS).solve(inp)
         else:
             ref = plain.solve(inp)
-        assert decisions(results[name]) == decisions(ref), f"{name}: decisions differ from the plain path"
+        assert decisions(results[name]) == decisions(ref), \
+            f"{name}: decisions differ from the plain path"
         res = results[name]
         assert len(res.placements) + len(res.errors) == len(inp.pods), name
         assert all(c.pod_uids for c in res.claims), name
@@ -4205,8 +4668,10 @@ def main() -> int:
     # with explain on), class_zone once, surge_e2e with explain on and off
     zone_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_GANGS},
                                  topology=wk.ZONE_LABEL)
+    zone_check_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_CHECK_GANGS},
+                                       topology=wk.ZONE_LABEL)
     t0 = time.perf_counter()
-    cls = class_phase(class_inp, zone_inp, inputs["surge_e2e"], TorchSolver)
+    cls = class_phase(class_inp, zone_inp, zone_check_inp, inputs["surge_e2e"], TorchSolver)
     cls["phase_s"] = time.perf_counter() - t0
     class_line = {k: v for k, v in cls.items() if k not in ("first", "samples")}
     print(json.dumps({"classes": class_line}), flush=True)
@@ -4227,6 +4692,41 @@ def main() -> int:
     convex_line = {k: v for k, v in cvx.items() if k != "row"}
     convex_line["tables"] = admm_tables
     print(json.dumps({"convex": convex_line}), flush=True)
+
+    print(f"[phase 9 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 9: the serving pipeline (K14-K16) ----------------------------------
+    # K15 against its plain version and K1 on the surge's lanes (B 1, 2, 8)
+    # and config 3's (zoned, B 8), K16 on a 5-member stack, K14 on seeded tables
+    # and the surge's edit; then the counted pipeline path (cohort_phase)
+    t0 = time.perf_counter()
+    surge_bases = [inputs["surge"]] + [build_input(PODS + 3 * k) for k in (1, 2)]
+    c3_bases = [inputs["config3"]] + [build_config3_input(PODS + 3 * k) for k in (1, 2)]
+    lanes = {B: lanes_check(cohort_members(surge_bases, B, "t"), dev) for B in LANES_CHECK_B}
+    lanes_c3 = lanes_check(cohort_members(c3_bases, COHORT_MEMBERS, "c"), dev)
+    assert lanes_c3["zone"] and not lanes[8]["zone"]
+    pad = pad_check(cohort_members(surge_bases, COHORT_PAD_MEMBERS, "t"), dev)
+    ev = events_check(inputs["surge"], dev)
+    coh = cohort_phase(surge_bases, c3_bases, plain)
+    cohort_rows = cohort_kernel_rows(lanes[8], lanes_c3, pad, ev, coh["launches"], int_rate)
+    coh["phase_s"] = time.perf_counter() - t0
+    coh["lanes_checks"] = {f"surge_B{B}": {k: c[k] for k in ("B", "M", "err", "err_k1", "used",
+                                                            "events", "plain_once_s")}
+                           for B, c in lanes.items()}
+    coh["lanes_checks"][f"config3_B{COHORT_MEMBERS}"] = {k: lanes_c3[k] for k in ("B", "M", "err", "err_k1",
+                                                                  "used", "events",
+                                                                  "plain_once_s")}
+    coh["pad_check"] = {k: pad[k] for k in ("n", "batch", "err", "bytes_in", "bytes_out")}
+    coh["events_check"] = {k: ev[k] for k in ("errs", "edits", "Sp")}
+    cohort_line = {k: v for k, v in coh.items() if k != "launches"}
+    print(json.dumps({"cohort": cohort_line, "cohort_launches": coh["launches"]}), flush=True)
+    print(f"cohort_surge: fused p50/p99 {coh['service']['p50_ms']:.2f}/{coh['service']['p99_ms']:.2f}"
+          f" ms (service), {coh['direct']['p50_ms']:.2f}/{coh['direct']['p99_ms']:.2f} ms (direct) "
+          f"against 8 solo {coh['solo_8']['p50_ms']:.2f}/{coh['solo_8']['p99_ms']:.2f} ms "
+          f"(arena of {COHORT_MEMBERS} buckets: {coh['solo_8_wide_arena']['p50_ms']:.2f}/"
+          f"{coh['solo_8_wide_arena']['p99_ms']:.2f} ms); "
+          f"K15 B=8 {cohort_rows[0]['ms']:.3f} ms (device {cohort_rows[0]['device_ms']}) against K1 "
+          f"{cohort_rows[0]['k1_lane_ms']:.3f} ms (device {cohort_rows[0]['k1_lane_device_ms']})",
+          flush=True)
 
     stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
@@ -4260,7 +4760,7 @@ def main() -> int:
                                  int_rate)
             + [pack_kernel_row(phases["config3"]["out"], packs["config3"]["err"], launches,
                                int_rate)]
-            + class_rows + [cvx["row"]])
+            + class_rows + [cvx["row"]] + cohort_rows)
     launches_per_solve = {k: launches[k] / n for k, n in (
         *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
         ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
@@ -4305,6 +4805,7 @@ def main() -> int:
         "resume": resume,
         "classes": class_line,
         "convex": convex_line,
+        "cohort": cohort_line,
         "zone_v_cap": v_cap,
         "explain_checks": {k: {f: v[f] for f in ("Sp", "Ep", "Gp", "E", "G", "ks", "err",
                                                  "side_bytes")}

@@ -32,6 +32,10 @@
 //                   K1's scan that also snapshots its whole carry into a
 //                   device-resident ring every K steps.
 // K9 pack_outputs   replaces karpenter_tpu/solver/backend.py:511 _pack_outputs.
+// K15 ffd_lanes     replaces karpenter_tpu/parallel/sharded.py:80 batched_solve:
+//                   ffd_lanes_kernel<ZONE>, K1's scan body on each of B
+//                   lanes, one block per lane; built from
+//                   ffd_lanes_kernels.cu (this file with FFD_LANES_ONLY).
 // K1s/K6s/K7s       replace karpenter_tpu/solver/tpu/ffd.py:2403
 //                   ffd_solve_sparse, :2701 ffd_solve_ladder_sparse, :2500
 //                   ffd_solve_ckpt_sparse and :2602 ffd_resume_sparse: the
@@ -1369,13 +1373,11 @@ __device__ __forceinline__ void bind_zone_rows(ZoneShared& zs, int V, int Kv) {
   zs.ov = zs.mv + vd;
 }
 
-// K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
-// subset row, from the prologue above), K6 (LADDER=true: one solve, a
-// cascade of attempts per run), K7 (CKPT=true: K1 with the snapshot ring),
-// and the sparse instances of K1, K6 and K7 (SPARSE=true)
+// The scan body of every instance below: ffd_scan_kernel's and, for K15,
+// ffd_lanes_kernel's. Inlined into each kernel, so an instance compiles as
+// it did when this body was the kernel's own.
 template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
-__global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
-  if constexpr (BATCH) batch_row_prologue(a);
+__device__ __forceinline__ void scan_body(ScanArgs& a) {
   __shared__ RunShared sh;
   ZoneShared* zs = nullptr;
   Scratch x{};
@@ -1778,7 +1780,79 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if (tid == 0) *a.used = sh.used;
 }
 
-#ifndef FFD_SPARSE_ONLY
+// K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
+// subset row, from the prologue above), K6 (LADDER=true: one solve, a
+// cascade of attempts per run), K7 (CKPT=true: K1 with the snapshot ring),
+// and the sparse instances of K1, K6 and K7 (SPARSE=true)
+template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
+__global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
+  if constexpr (BATCH) batch_row_prologue(a);
+  scan_body<ZONE, BATCH, LADDER, CKPT, SPARSE>(a);
+}
+
+#ifdef FFD_LANES_ONLY
+// ---- K15: the lane-batched scan ------------------------------------------------
+//
+// Replaces karpenter_tpu/parallel/sharded.py:80 batched_solve: jax.vmap of
+// ffd_solve over a leading lane axis, one lane a cohort member's whole solve
+// (the fused cross-tenant cohort dispatch, backend.solve_cohort_async).
+//
+// What bounds it on the H100: each lane is K1's scan, a serial chain of run
+// steps that one block walks (latency-bound, far from the card's memory and
+// integer peaks); lanes share nothing, so B lanes run on B SMs at once and a
+// batch of up to 132 lanes costs about one lane's time.
+// Design: one launch, grid = B, one block per lane running K1's body
+// (scan_body<ZONE, false, false, false, false>) on its own lane. The block
+// moves every argument, carry and output pointer of the lane-0 ScanArgs by
+// lane x that array's per-lane element count; both the ScanArgs and the
+// per-array counts (LaneStrides) ride in the kernel's parameters by value,
+// so the launch uploads nothing. The carry is seeded per lane by the
+// wrapper, as K1's is, and each lane's outputs are full take tables.
+constexpr int LANE_ARRAYS = 53;  // 32 scan inputs, 16 carry fields, 5 outputs
+
+struct LaneStrides {
+  long long n[LANE_ARRAYS];  // per-lane elements, in the launcher's pointer order
+};
+
+template <typename Ptr>
+__device__ __forceinline__ void to_lane(Ptr& p, long long b, long long n) { p += b * n; }
+
+__device__ __forceinline__ void lane_prologue(ScanArgs& a, const LaneStrides& ls) {
+  const long long b = blockIdx.x;
+  const long long* n = ls.n;
+  to_lane(a.run_group, b, n[0]); to_lane(a.run_count, b, n[1]);
+  to_lane(a.group_req, b, n[2]); to_lane(a.group_compat_t, b, n[3]);
+  to_lane(a.group_zc_bits, b, n[4]); to_lane(a.group_pool, b, n[5]);
+  to_lane(a.group_pair_nok, b, n[6]); to_lane(a.group_device, b, n[7]);
+  to_lane(a.type_alloc, b, n[8]); to_lane(a.type_charge, b, n[9]);
+  to_lane(a.offer_zc_bits, b, n[10]); to_lane(a.pool_type, b, n[11]);
+  to_lane(a.pool_zc_bits, b, n[12]); to_lane(a.pool_daemon, b, n[13]);
+  to_lane(a.pool_limit, b, n[14]); to_lane(a.node_free, b, n[15]);
+  to_lane(a.node_compat, b, n[16]); to_lane(a.q_member, b, n[17]);
+  to_lane(a.q_owner, b, n[18]); to_lane(a.q_kind, b, n[19]); to_lane(a.q_cap, b, n[20]);
+  to_lane(a.v_member, b, n[21]); to_lane(a.v_owner, b, n[22]);
+  to_lane(a.v_kind, b, n[23]); to_lane(a.v_cap, b, n[24]); to_lane(a.v_primary, b, n[25]);
+  to_lane(a.v_aff, b, n[26]); to_lane(a.node_zone, b, n[27]);
+  to_lane(a.zone_col_mask, b, n[28]); to_lane(a.node_dom2, b, n[29]);
+  to_lane(a.col_axis, b, n[30]); to_lane(a.group_daxis, b, n[31]);
+  to_lane(a.e_cum, b, n[32]); to_lane(a.c_cum, b, n[33]); to_lane(a.c_mask, b, n[34]);
+  to_lane(a.c_zc_bits, b, n[35]); to_lane(a.c_gbits, b, n[36]); to_lane(a.c_pool, b, n[37]);
+  to_lane(a.used, b, n[38]); to_lane(a.p_usage, b, n[39]); to_lane(a.e_cm, b, n[40]);
+  to_lane(a.e_co, b, n[41]); to_lane(a.c_cm, b, n[42]); to_lane(a.c_co, b, n[43]);
+  to_lane(a.v_count, b, n[44]); to_lane(a.v_owner_z, b, n[45]); to_lane(a.c_vm, b, n[46]);
+  to_lane(a.c_vo, b, n[47]);
+  to_lane(a.take_e, b, n[48]); to_lane(a.take_c, b, n[49]); to_lane(a.leftover, b, n[50]);
+  to_lane(a.events, b, n[51]); to_lane(a.scratch, b, n[52]);
+}
+
+template <bool ZONE>
+__global__ void __launch_bounds__(NT) ffd_lanes_kernel(ScanArgs a, LaneStrides ls) {
+  lane_prologue(a, ls);
+  scan_body<ZONE, false, false, false, false>(a);
+}
+#endif  // FFD_LANES_ONLY
+
+#if !defined(FFD_SPARSE_ONLY) && !defined(FFD_LANES_ONLY)
 // ---- K5: verdict pack --------------------------------------------------------
 //
 // Replaces karpenter_tpu/solver/tpu/consolidate.py:291 _pack_verdicts: per
@@ -2024,7 +2098,7 @@ __global__ void __launch_bounds__(PT) pack_outputs_kernel(
   if (__syncthreads_or(over) && threadIdx.x == 0) atomicOr(out, 1u);
 }
 
-#endif  // FFD_SPARSE_ONLY
+#endif  // !FFD_SPARSE_ONLY && !FFD_LANES_ONLY
 
 }  // namespace
 
@@ -2214,6 +2288,51 @@ int ffd_sparse_zone_max_v(void**, int, const int*, void*) {
                        zone_max_v(ffd_scan_kernel<true, false, false, true, true>)};
   return std::min(caps[0], std::min(caps[1], caps[2]));
 }
+#elif defined(FFD_LANES_ONLY)
+// the lanes library (ffd_lanes_kernels.cu): K15
+// K15. ptrs: as scan_launch (the 32 scan inputs, the carry, take_e, take_c,
+// leftover, events, scratch), each [B, ...] lane-major; dims: as
+// scan_launch (the per-lane S, G, T, E, P, R, Q, W, M, V, Z and zone), then
+// B, then each array's per-lane element count as two ints (low, high 32
+// bits), in the pointer order.
+int ffd_lanes_launch(void** p, int n, const int* d, void* stream) {
+  if (n != LANE_ARRAYS) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52];
+  const bool zone = d[11] != 0;
+  const int B = d[12];
+  if (!scan_limits_ok(a, zone) || B < 1) return (int)cudaErrorInvalidValue;
+  LaneStrides ls{};
+  for (int i = 0; i < LANE_ARRAYS; ++i) {
+    ls.n[i] = (long long)(unsigned)d[13 + 2 * i] | ((long long)d[14 + 2 * i] << 32);
+    if (ls.n[i] < 0) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (zone) {
+    auto kern = ffd_lanes_kernel<true>;
+    const int dyn = zone_rows_bytes(a.V, 0);
+    static int opted = 0;
+    if (dyn > opted) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+      if (e != cudaSuccess) return (int)e;
+      opted = dyn;
+    }
+    kern<<<B, NT, dyn, st>>>(a, ls);
+  } else {
+    ffd_lanes_kernel<false><<<B, NT, 0, st>>>(a, ls);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The V-row cap of the zoned lanes instance; the arguments are unused.
+// Returns the cap, or minus a CUDA error.
+int ffd_lanes_zone_max_v(void**, int, const int*, void*) {
+  return zone_max_v(ffd_lanes_kernel<true>);
+}
 #else
 int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
   return scan_launch<false>(p, n, d, stream);
@@ -2326,6 +2445,6 @@ int pack_outputs_launch(void** p, int n, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-#endif  // FFD_SPARSE_ONLY
+#endif  // FFD_SPARSE_ONLY / FFD_LANES_ONLY
 
 }  // extern "C"

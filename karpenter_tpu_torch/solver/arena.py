@@ -29,14 +29,16 @@ invariants and equal the JAX ledger's counts on the same solves.
 
 Residency classes besides the args: the resume donor records
 (`put_checkpoint`, backend._plan_resume), the relax ladder's rung tables
-(`put_ladder`, backend._ladder_arg) and the sparse scans' index-table
-pairs (`put_sparse`, backend._sparse_arg). All die with their bucket on
-`invalidate()` or eviction.
+(`put_ladder`, backend._ladder_arg), the sparse scans' index-table pairs
+(`put_sparse`, backend._sparse_arg) and the streaming stage's host copies
+of the run tables (`apply_run_events`, "run_host"). All die with their
+bucket on `invalidate()` or eviction.
 """
 
 from __future__ import annotations
 
 import hashlib
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -50,9 +52,13 @@ class TransferLedger:
     `begin_solve()` opens a per-solve window (`.solve`); uploads/fetches
     recorded inside it accumulate into `.total` as well. Adopt outcomes
     (exact_hit / delta_upload / full_upload) count the arena's hit classes.
+    Records may come from two threads at once (the serving pipeline's
+    dispatcher uploads while its decoder fetches), so every update holds a
+    lock.
     """
 
     def __init__(self):
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
@@ -64,21 +70,25 @@ class TransferLedger:
         }
 
     def begin_solve(self) -> None:
-        self.solves += 1
-        self.solve = dict.fromkeys(_LEDGER_FIELDS, 0)
+        with self._lock:
+            self.solves += 1
+            self.solve = dict.fromkeys(_LEDGER_FIELDS, 0)
 
     def record_upload(self, nbytes: int, arrays: int, msgs: int = 1) -> None:
-        for k, v in (("h2d_bytes", nbytes), ("h2d_arrays", arrays), ("h2d_msgs", msgs)):
-            self.solve[k] += v
-            self.total[k] += v
+        with self._lock:
+            for k, v in (("h2d_bytes", nbytes), ("h2d_arrays", arrays), ("h2d_msgs", msgs)):
+                self.solve[k] += v
+                self.total[k] += v
 
     def record_fetch(self, nbytes: int, msgs: int = 1) -> None:
-        for k, v in (("d2h_bytes", nbytes), ("d2h_msgs", msgs)):
-            self.solve[k] += v
-            self.total[k] += v
+        with self._lock:
+            for k, v in (("d2h_bytes", nbytes), ("d2h_msgs", msgs)):
+                self.solve[k] += v
+                self.total[k] += v
 
     def record_adopt(self, outcome: str) -> None:
-        self.outcomes[outcome] += 1
+        with self._lock:
+            self.outcomes[outcome] += 1
 
     @property
     def upload_bytes_per_solve(self) -> float:
@@ -91,7 +101,8 @@ class TransferLedger:
 
     def end_solve(self) -> Dict[str, int]:
         """Close the per-solve window: return its counters."""
-        return dict(self.solve)
+        with self._lock:
+            return dict(self.solve)
 
 
 def _nbytes(obj) -> int:
@@ -157,11 +168,18 @@ class ArgumentArena:
         # fleet whose constraint layout is unchanged reuses the tables with
         # zero upload
         self._sparse: Dict[tuple, Tuple[bytes, object]] = {}
+        # streaming run-table residency (apply_run_events): host copies (+
+        # digests) of the run_group/run_count pair the bucket's device
+        # tensors currently hold, so the NEXT solve can diff against them
+        # and ship only (pos, gid, cnt) edit triplets; accounted as
+        # "run_host", dropped by invalidate() and eviction
+        self._run_host: Dict[tuple, tuple] = {}
         # ARG_SPEC indices the LAST adopt uploaded (() on an exact hit)
         self.last_stale: tuple = ()
         self.stats: Dict[str, int] = {
             "adopts": 0, "exact_hits": 0, "delta_uploads": 0,
-            "full_uploads": 0, "invalidations": 0, "evictions": 0,
+            "full_uploads": 0, "invalidations": 0,
+            "event_batches": 0, "event_edits": 0, "evictions": 0,
         }
 
     def invalidate(self) -> None:
@@ -172,6 +190,7 @@ class ArgumentArena:
         self._ckpts.clear()
         self._ladders.clear()
         self._sparse.clear()
+        self._run_host.clear()
         self._bytes.clear()
         self.last_stale = ()
         self.stats["invalidations"] += 1
@@ -189,6 +208,7 @@ class ArgumentArena:
         strands a derived record whose donor args are gone."""
         self._buckets.pop(key, None)
         self._ckpts.pop(key, None)
+        self._run_host.pop(key, None)
         for lk in [lk for lk in self._ladders if lk[0] == key]:
             self._ladders.pop(lk, None)
         for sk in [sk for sk in self._sparse if sk[0] == key]:
@@ -275,6 +295,68 @@ class ArgumentArena:
         if rec is None or rec[0] != self._sparse_token(core_rev, run_q_idx, run_v_idx):
             return None
         return rec[1]
+
+    def apply_run_events(self, host_args: tuple, prov: tuple, sharding=None,
+                         ns=None) -> bool:
+        """Streaming event-batch apply: sync the bucket's resident run
+        tables (ARG_SPEC entries 0/1) to `host_args` by shipping only the
+        (pos, gid, cnt) edit triplets and scattering them on the device
+        (cuda/ffd.py ffd_apply_events, K14), instead of letting adopt()
+        re-upload the whole padded pair. Returns True when the resident
+        tensors + tags now match `host_args[0:2]` (adopt's digest check then
+        sees them fresh: zero run-table upload bytes).
+
+        The diff base must provably equal the DEVICE content, so the stage
+        only fires when the recorded host copy's digests match the bucket's
+        current adopt tags, the trust anchor adopt itself uses. Any mismatch
+        (cold bucket, an interleaved unstaged solve, after invalidate())
+        declines and lets adopt pay the normal upload; the new host pair is
+        recorded either way so the NEXT solve can stage."""
+        from . import encode_cache
+        from .convert import array_to_torch
+        from .cuda import ffd
+
+        if sharding is not None:
+            return False  # a placement-tagged bucket keeps its own layout
+        rg = np.ascontiguousarray(host_args[0])
+        rc = np.ascontiguousarray(host_args[1])
+        key = self.bucket_key(host_args, sharding, ns=ns)
+        dig_rg, dig_rc = _digest(rg), _digest(rc)
+        prev = self._run_host.get(key)
+        self._run_host[key] = (rg.copy(), rc.copy(), dig_rg, dig_rc)
+        self._account(key, "run_host", rg.nbytes + rc.nbytes)
+        bkt = self._buckets.get(key)
+        if bkt is None or prev is None:
+            return False
+        dev, tags = bkt
+        if (dev[0] is None or dev[1] is None
+                or tags[0] is None or tags[1] is None
+                or tags[0][1] != prev[2] or tags[1][1] != prev[3]):
+            return False  # device content is not (provably) the diff base
+        events = encode_cache.run_table_events(
+            prev[0], prev[1], rg, rc, max_events=max(16, rg.shape[0] // 3))
+        if events is None:
+            return False  # shape moved or near-total rewrite: ship whole
+        k = len(events)
+        if k == 0:
+            return True  # tables unchanged; adopt's digest check hits as-is
+        # pad to a power of two >= 8 with EVENT_PAD_POS rows, which the
+        # scatter drops (the JAX package's compile buckets)
+        k2 = 8
+        while k2 < k:
+            k2 *= 2
+        if k2 != k:
+            pad = np.zeros((k2 - k, events.shape[1]), dtype=events.dtype)
+            pad[:, 0] = ffd.EVENT_PAD_POS
+            events = np.concatenate([events, pad])
+        dev_ev = array_to_torch(events, self.device)
+        self.ledger.record_upload(events.nbytes, 1, msgs=1)
+        dev[0], dev[1] = ffd.ffd_apply_events(dev[0], dev[1], dev_ev)
+        tags[0] = (prov[0], dig_rg)
+        tags[1] = (prov[1], dig_rc)
+        self.stats["event_batches"] += 1
+        self.stats["event_edits"] += k
+        return True
 
     def context_signature(self, key: tuple, exclude: tuple = ()) -> Optional[tuple]:
         """Content signature of the bucket's resident entries OUTSIDE

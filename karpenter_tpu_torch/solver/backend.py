@@ -2,7 +2,7 @@
 karpenter_tpu/solver/backend.py for the provisioning solve.
 
 `TorchSolver` is the counterpart of `TPUSolver()` at its defaults with no
-mesh sharding and no cohort fusion: encode -> padded
+mesh sharding: encode -> padded
 kernel args -> upload through the argument arena (solver/arena.py: only
 stale entries, packed into one buffer, one copy, one unpack launch; an
 exact repeat uploads nothing) -> the checkpointed FFD scan, with the zoned
@@ -40,6 +40,14 @@ input) and a node axis past uint16 carry no device table: the host deriver
 builds it (counted in stats["explain_host_derived"]). Unlike the reference,
 which logs a failed explain dispatch and carries on, a kernel that fails to
 build or launch here raises out of the solve: no fallback hides it.
+
+`solve_cohort_async` serves many tenants' solves in one fused dispatch
+(the serving pipeline's submit_cohort, solver/pipeline.py): members with
+an equal fuse key stack into one lane-batched scan (parallel/sharded.py
+batched_solve, K15; pad_batch, K16), each lane fetched and decoded on its
+own. `stream_run_events = True` syncs the resident run tables through an
+edit-triplet scatter (arena.apply_run_events, K14) before each solve's
+adopt.
 
 Inputs outside the port raise `UnsupportedInput`; there is no CPU
 fallback solver. A later slice lifts one decline at a time.
@@ -521,6 +529,12 @@ def _unpack_flat(flat: np.ndarray, shapes: dict) -> dict:
     return res
 
 
+class _CohortOverflow(Exception):
+    """Internal: a fused cohort lane saturated its claim bucket. The member
+    replays through its full solo path (which owns the M-doubling ladder);
+    co-members keep their fused results. Never escapes the backend."""
+
+
 class AsyncSolve:
     """Handle for an in-flight solve: the kernels are enqueued; result()
     fetches, decodes and returns the SolverResult (once)."""
@@ -722,7 +736,22 @@ class TorchSolver(Solver):
             # explain plane: K12 dispatches, node axes past uint16, and
             # captures the host deriver builds
             "explain_dispatches": 0, "explain_wide": 0, "explain_host_derived": 0,
+            # streaming run-table staging and the fused cohort dispatch
+            "event_stage_hits": 0, "event_stage_misses": 0,
+            "fused_dispatches": 0, "fused_members": 0,
         }
+        # streaming run-table staging: when on, each device solve first
+        # tries to sync the arena's resident run tables through an
+        # edit-triplet scatter (arena.apply_run_events, K14) so adopt() sees
+        # them fresh and the upload shrinks to the triplets. Off by default,
+        # as in the JAX backend; decisions are the same either way
+        self.stream_run_events = False
+        # h2d bytes each fused cohort member is billed (tenant -> bytes; a
+        # member without a tenant counts as "default"): exactly the bytes
+        # its solo dispatch would upload for the entries the fused adopt
+        # found stale, the JAX backend's per-tenant meter (obs/slo
+        # meter_bytes) on that path
+        self.tenant_h2d_bytes: Dict[str, int] = {}
         # every host->device and device->host byte, per solve and in all
         self.ledger = TransferLedger()
         self.arena: Optional[ArgumentArena] = (
@@ -818,6 +847,205 @@ class TorchSolver(Solver):
         if table is None:
             self.stats["explain_host_derived"] += 1
         obsexplain.capture(qinp, res, "torch", enc=enc, table=table, annotations=annotations)
+
+    # -- cross-tenant fused cohort dispatch -------------------------------------
+
+    def _cohort_prep(self, inp: SolverInput):
+        """Probe one member's fuse eligibility WITHOUT dispatching. Returns
+        the prepared per-member state, or None when the member must ride its
+        exact solo path (relax plan, fallback or custom-key topology/affinity
+        encode, no schedulable pod, unpackable args; in the port also shapes
+        past the scan kernel's shared rows, whose solo path raises
+        UnsupportedInput): the caller re-submits it through solve_async."""
+        qinp = quantize_input(inp)
+        from . import relax as rx
+
+        if rx.plan(qinp) is not None:
+            return None
+        enc = encode(qinp)
+        if enc.group_fallback.any() or enc.has_topology or enc.has_affinity or enc.G == 0:
+            return None
+        try:
+            host_args, dims, prov = host_kernel_args(enc, self._bucket)
+        except UnpackableInput:
+            return None
+        try:
+            check_kernel_limits(dims, host_args, enc.V > 0, self.device)
+        except UnsupportedInput:
+            return None
+        total_pods = int(sum(len(p) for p in enc.group_pods))
+        M0 = initial_claim_bucket(total_pods, self.max_claims)
+        # exact fuse key: identical padded shapes/dtypes (one kernel
+        # instance over equal strides), same zone-engine flag, same claim
+        # bucket
+        fkey = (
+            tuple((a.shape, a.dtype.str) for a in host_args),
+            bool(enc.V > 0),
+            M0,
+        )
+        return {
+            "inp": inp, "qinp": qinp, "enc": enc, "host_args": host_args,
+            "dims": dims, "total_pods": total_pods, "M0": M0, "fkey": fkey,
+        }
+
+    def solve_cohort_async(self, inps):
+        """Fused cohort entry point: dispatch MANY tenants' solves as one
+        lane-batched launch (parallel/sharded.py batched_solve, K15, over
+        the ARG_SPEC tensors stacked member-major), then fan the fused
+        result out to per-member decode. Returns finish() -> list aligned
+        with `inps`, each element a SolverResult or the Exception that
+        member's path raised: one poison member never fails its
+        co-members.
+
+        Members whose exact fuse key (padded shapes + zone-engine flag +
+        claim bucket) matches no co-member, or whose input needs a solo-only
+        path (relax, a fallback-class encode), are re-submitted through
+        solve_async and keep their solo semantics. Each fused member's
+        decode, explain capture and h2d billing replicate its solo
+        dispatch's."""
+        n = len(inps)
+        solo: dict = {}
+        preps: list = [None] * n
+        groups: Dict[tuple, list] = {}  # fuse key -> member indices, first-seen order
+        for i, inp in enumerate(inps):
+            try:
+                preps[i] = self._cohort_prep(inp)
+            except Exception as e:  # noqa: BLE001 — isolate per member
+                solo[i] = e
+                continue
+            if preps[i] is not None:
+                groups.setdefault(preps[i]["fkey"], []).append(i)
+        for fkey, idxs in list(groups.items()):
+            if len(idxs) < 2:
+                del groups[fkey]
+        fused_idx = {i for idxs in groups.values() for i in idxs}
+        for i in range(n):
+            if i in fused_idx or i in solo:
+                continue
+            try:
+                solo[i] = self.solve_async(inps[i])
+            except Exception as e:  # noqa: BLE001 — isolate per member
+                solo[i] = e
+        finishers = []
+        for idxs in groups.values():
+            try:
+                finishers.append(self._cohort_dispatch(idxs, preps))
+            except Exception as e:  # noqa: BLE001 — a whole-dispatch failure
+                # is every member's error; attribution stays per member
+                finishers.append(lambda _e=e, _ix=tuple(idxs): {i: _e for i in _ix})
+
+        def finish():
+            results: list = [None] * n
+            fused_results: dict = {}
+            for g in finishers:
+                fused_results.update(g())
+            for i in range(n):
+                if i in fused_results:
+                    results[i] = fused_results[i]
+                    continue
+                h = solo.get(i)
+                if isinstance(h, BaseException):
+                    results[i] = h
+                    continue
+                try:
+                    results[i] = h.result()
+                except Exception as e:  # noqa: BLE001 — per-member outcome
+                    results[i] = e
+            return results
+
+        return finish
+
+    def _cohort_dispatch(self, idxs, preps):
+        """One fused launch for `idxs` (all sharing a fuse key): stack the
+        36 host arrays member-major, adopt the stack under the shared
+        cohort namespace (each tenant's own buckets stay authoritative for
+        solo replays), pad to the batch bucket with the last member's lane
+        (K16), solve every lane (K15), and pack each lane's output for one
+        fetch. Returns finish() -> {index: outcome}."""
+        from ..parallel.sharded import batch_bucket, batched_solve, pad_batch
+        from .cuda.ffd import output_lane
+
+        n_real = len(idxs)
+        lead = preps[idxs[0]]
+        zone = lead["fkey"][1]
+        M0 = lead["M0"]
+        # power-of-two cohort bucket (bounded shapes per fuse key); the
+        # batch runs on one card
+        B = batch_bucket(1 << (n_real - 1).bit_length(), 1, mult=1)
+        arity = len(lead["host_args"])
+        stacked = tuple(np.stack([preps[i]["host_args"][j] for i in idxs])
+                        for j in range(arity))
+        self.ledger.begin_solve()
+        if self.arena is not None:
+            args = self.arena.adopt(stacked, (None,) * arity, ns="__cohort__")
+            stale = self.arena.last_stale
+        else:
+            args = self._device_args(stacked, (None,) * arity)
+            stale = tuple(range(arity))
+        # per-member h2d billing: a member pays exactly the bytes its solo
+        # dispatch would have uploaded for the entries this adopt found
+        # stale (its own rows of the stacked arrays)
+        for i in idxs:
+            h2d = sum(int(preps[i]["host_args"][j].nbytes) for j in stale)
+            if h2d:
+                t = preps[i]["enc"].tenant_id or "default"
+                self.tenant_h2d_bytes[t] = self.tenant_h2d_bytes.get(t, 0) + h2d
+        args = pad_batch(args, B)
+        out = batched_solve(args, max_claims=M0, zone_engine=zone)
+        self.stats["fused_dispatches"] += 1
+        self.stats["fused_members"] += n_real
+        flats = []
+        for k, i in enumerate(idxs):
+            lane = output_lane(out, k)
+            flat_dev, unpack = self._pack_dispatch(lane, preps[i]["total_pods"])
+            flats.append((i, lane, flat_dev, unpack))
+
+        def finish():
+            results: dict = {}
+            replays: list = []
+            try:
+                for i, lane, flat_dev, unpack in flats:
+                    try:
+                        results[i] = self._cohort_lane_finish(preps[i], lane, flat_dev,
+                                                              unpack, M0)
+                    except _CohortOverflow:
+                        replays.append(i)
+                    except Exception as e:  # noqa: BLE001 — poison member:
+                        results[i] = e  # only ITS lane fails
+            finally:
+                self.ledger.end_solve()
+            for i in replays:
+                # claim-slot saturation at M0: the solo path owns the
+                # doubling ladder; replay the member whole (its tenant's
+                # arena buckets are untouched by the fused adopt)
+                try:
+                    results[i] = self.solve_async(preps[i]["inp"]).result()
+                except Exception as e:  # noqa: BLE001 — per-member outcome
+                    results[i] = e
+            return results
+
+        return finish
+
+    def _cohort_lane_finish(self, prep, lane, flat_dev, unpack, M0: int) -> SolverResult:
+        """Fetch + decode ONE fused lane: the solo finish path minus resume
+        (fused lanes never resume; solo replays still do) and minus the
+        in-place claim doubling (raises _CohortOverflow so the caller
+        replays the member through solve_async). A lane whose decode fails
+        a minValues floor raises UnsupportedInput for that member alone."""
+        enc, qinp = prep["enc"], prep["qinp"]
+        f = unpack(self._fetch(flat_dev))
+        used = int(f["used"])
+        if used >= M0:
+            raise _CohortOverflow()
+        res = self._decode_fetched(enc, prep["dims"], f, M0, used)
+        if not min_values_post_check(qinp, res):
+            raise UnsupportedInput("a claim narrowed below a minValues floor")
+        self.stats["device_solves"] += 1
+        if obsexplain.enabled():
+            # the same explain contract as a cold solo dispatch: K12 over
+            # this lane's device-resident take table
+            self._capture(qinp, res, enc=enc, table=self._device_explain(enc, lane))
+        return res
 
     # -- host relax loop -------------------------------------------------------
 
@@ -969,10 +1197,16 @@ class TorchSolver(Solver):
 
     # -- device path ----------------------------------------------------------
 
-    def _upload(self, host_args: tuple, prov: tuple, ns=None) -> tuple:
+    def _upload(self, host_args: tuple, prov: tuple, ns=None, stage: bool = False) -> tuple:
         """The kernel args on the device: adopted by the arena (only stale
-        entries, one packed upload), or per array with arena=False."""
+        entries, one packed upload), or per array with arena=False. With
+        `stage` (a single solve's upload) and stream_run_events on, the run
+        tables first sync through the edit-triplet scatter; a declined stage
+        leaves adopt's normal packed upload, so the same bytes land."""
         if self.arena is not None:
+            if stage and self.stream_run_events:
+                staged = self.arena.apply_run_events(host_args, prov, ns=ns)
+                self.stats["event_stage_hits" if staged else "event_stage_misses"] += 1
             return self.arena.adopt(host_args, prov, ns=ns)
         return self._device_args(host_args, prov)
 
@@ -1195,7 +1429,7 @@ class TorchSolver(Solver):
         # the ledger's per-solve window: every byte of this solve's upload
         # and fetches (closed in finish)
         self.ledger.begin_solve()
-        args = self._upload(host_args, prov, enc.tenant_id)
+        args = self._upload(host_args, prov, enc.tenant_id, stage=True)
         sparse_host = sparse = None
         if self._sparse_gate(enc):
             sparse_host = sparse_run_tables(enc, dims["Sp"])
@@ -1375,8 +1609,6 @@ class TorchSolver(Solver):
         donor's M, so the retry replays cold. With `host_args` (a single
         solve, not the ladder) the solve is recorded as the bucket's resume
         donor."""
-        S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
-        Z, C = dims["Z"], dims["C"]
         M = M0
         flat, up = self._fetch(flat_dev), unpack
         while True:
@@ -1392,6 +1624,17 @@ class TorchSolver(Solver):
             fd, up, out, ring = self._dispatch(args, M, total_pods, zone, ladder=ladder,
                                                harvest=True, sparse=sparse)
             flat = self._fetch(fd)
+        return self._decode_fetched(enc, dims, f, M, used, plan, out, ring, host_args)
+
+    def _decode_fetched(self, enc: EncodedInput, dims: dict, f: dict, M: int, used: int,
+                        plan=None, out=None, ring=None, host_args=None) -> SolverResult:
+        """Decode one unpacked fetch whose claims fit the bucket M: the
+        delta entries (a resumed dispatch's stitched behind the donor's
+        prefix rows) or the wide tables. With `host_args` (a single solve)
+        the solve is recorded as the bucket's resume donor and its explain
+        table stashed."""
+        S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
+        Z, C = dims["Z"], dims["C"]
         c_mask = _unpack_words(f["c_mask_words"], T)
         c_zone, c_ct = unpack_zc_bits(f["c_zc_bits"], Z, C)
         c_gmask = _unpack_gmask(f["c_gbits"], G)

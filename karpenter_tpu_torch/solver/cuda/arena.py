@@ -12,6 +12,11 @@ transfer, and `unpack` slices it into typed tensors:
   launch over the whole segment table;
 - a CPU buffer goes to `unpack_plain`, per-segment slices.
 
+`pad_lanes` pads a lane-stacked argument tuple (the fused cohort's adopted
+[n, ...] arrays) to B lanes on the device, lanes past n copies of the last
+real one: K16 (csrc/arena_kernels.cu) in one launch for the whole tuple,
+or `pad_lanes_plain` for CPU tensors. No host byte crosses.
+
 Each spec is (byte offset, shape, numpy dtype str) in packing order. The
 port's tensors follow solver/convert.py: '<i4' and '<u4' entries become
 int32 tensors (uint32 as the int32 bit pattern), '<f4' entries (the convex
@@ -28,11 +33,12 @@ import math
 import numpy as np
 import torch
 
-# one count per wrapper call that launches K8 (see cuda/ffd.py LAUNCHES)
-LAUNCHES = {"arena_unpack": 0}
+# one count per wrapper call that launches K8 or K16 (see cuda/ffd.py LAUNCHES)
+LAUNCHES = {"arena_unpack": 0, "pad_lanes": 0}
 
 _DTYPES = {"<i4": torch.int32, "<u4": torch.int32, "<f4": torch.float32, "|b1": torch.bool}
 MAX_SEGS = 64  # csrc/arena_kernels.cu MAX_SEGS: the segment table rides in the launch
+MAX_PAD = 64  # csrc/arena_kernels.cu MAX_PAD: K16's array table rides in the launch
 
 
 def _segments(specs):
@@ -125,3 +131,46 @@ def upload_packed(parts, nbytes: int, specs, device) -> tuple:
     else:
         buf = torch.from_numpy(np.concatenate(parts))
     return unpack(buf, specs)
+
+
+def pad_lanes_plain(args, batch: int) -> tuple:
+    """Plain version: each [n, ...] tensor concatenated with batch - n
+    broadcast copies of its last lane."""
+    out = []
+    for a in args:
+        pad = batch - int(a.shape[0])
+        out.append(torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))]))
+    return tuple(out)
+
+
+def _pad_lanes_cuda(args, batch: int) -> tuple:
+    from .build import load
+    from .ffd import _check, _ints, _ptrs, _raise_on, _u32_scalar, _stream
+
+    n = int(args[0].shape[0])
+    if len(args) > MAX_PAD:
+        raise ValueError(f"pad_lanes: {len(args)} arrays > {MAX_PAD}")
+    ptrs, dims = [], [len(args), n, int(batch)]
+    outs = []
+    for i, a in enumerate(args):
+        _check(a, f"pad_lanes[{i}]", a.dtype)
+        if a.dim() < 1 or int(a.shape[0]) != n:
+            raise ValueError(f"pad_lanes[{i}]: expected [{n}, ...], got {tuple(a.shape)}")
+        o = torch.empty((batch,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+        lane = a.numel() // n * a.element_size()
+        ptrs += [a, o]
+        dims += [_u32_scalar(lane), lane >> 32]
+        outs.append(o)
+    rc = load("arena_kernels").pad_lanes_launch(_ptrs(ptrs), len(ptrs), _ints(dims), _stream())
+    _raise_on(rc, "pad_lanes")
+    LAUNCHES["pad_lanes"] += 1
+    return tuple(outs)
+
+
+def pad_lanes(args, batch: int) -> tuple:
+    """`args` ([n, ...] tensors, n <= batch) padded to `batch` lanes, lane
+    b >= n a copy of lane n - 1: K16 for CUDA tensors, the plain version
+    for CPU ones. Every output is a new tensor."""
+    if args[0].is_cuda:
+        return _pad_lanes_cuda(args, batch)
+    return pad_lanes_plain(args, batch)

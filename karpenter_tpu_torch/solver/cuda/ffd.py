@@ -52,6 +52,12 @@ close the module (the JAX ffd.py:2920-3105): `gang_commit` (the atomic gang
 verdict), `preemption_plan` (one planned preemption) with the eviction
 table's wire, and `explain_pack` (the per-group rejection table) with the
 explain wire; their kernels are csrc/class_kernels.cu (K10-K12).
+
+`ffd_solve_lanes` is the scan over a leading lane axis (the JAX
+`jax.vmap(ffd_solve)` of parallel/sharded.py batched_solve, the fused
+cohort dispatch): K15, one block per lane (csrc/ffd_lanes_kernels.cu). `ffd_apply_events` scatters the
+streaming stage's (pos, gid, cnt) edit rows into the run tables (the JAX
+`ffd_apply_events`): K14, csrc/arena_kernels.cu.
 """
 
 from __future__ import annotations
@@ -184,6 +190,12 @@ class LadderOutput(NamedTuple):
     attempts: torch.Tensor  # scalar int32 — step bodies run (base and rung attempts)
 
 
+# The streaming run-table edits (ffd_apply_events): one int32 row per edited
+# run position; padding rows carry pos = EVENT_PAD_POS and are dropped by
+# the scatter. Equal to the JAX package's (tests/test_torch_isolation.py).
+EVENT_ENTRY_WORDS = 3  # (pos, gid, cnt) int32 per run edit
+EVENT_PAD_POS = -1  # padding rows scatter out of range and are dropped
+
 DELTA_HEADER_WORDS = 3  # [overflow_flag, entry_count, uniq_meta_count] i32
 DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 
@@ -205,9 +217,13 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # (ffd_ladder_sparse_*) and K7 (ffd_ckpt_sparse_*, also ffd_resume_sparse),
 # false in every other; pack_outputs is the dense output pack; gang_commit,
 # preemption_plan and explain_pack are the class and explain kernels (K10-K12,
-# csrc/class_kernels.cu).
+# csrc/class_kernels.cu). The lane-batched scan (ffd_solve_lanes, K15) is
+# ffd_lanes_kernel<false> (ffd_lanes_fast_scan) and <true>
+# (ffd_lanes_zoned_scan); apply_events is the streaming run-table scatter
+# (ffd_apply_events, K14, csrc/arena_kernels.cu).
 LAUNCHES = {
     "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
+    "ffd_lanes_fast_scan": 0, "ffd_lanes_zoned_scan": 0, "apply_events": 0,
     "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
     "ffd_ladder_fast_scan": 0, "ffd_ladder_zoned_scan": 0,
     "ffd_ckpt_fast_scan": 0, "ffd_ckpt_zoned_scan": 0,
@@ -236,33 +252,36 @@ def _floordiv(a, b):
 
 
 def _state0(args, M: int) -> FFDState:
-    """The scan's initial carry (cold solve)."""
+    """The scan's initial carry (cold solve); for lane-batched arguments
+    ([B, ...] each, ffd_solve_lanes) every field gains the same leading
+    [B] axis, each lane seeded from its own arguments."""
     a = dict(zip(ARG_SPEC, args))
-    E, R = a["node_free"].shape
-    T = a["group_compat_t"].shape[1]
-    W = a["group_pair_nok"].shape[1]
-    Q = a["q_kind"].shape[0]
-    V = a["v_kind"].shape[0]
-    Z = a["zone_col_mask"].shape[0]
+    lead = tuple(a["node_free"].shape[:-2])
+    E, R = a["node_free"].shape[-2:]
+    T = a["group_compat_t"].shape[-1]
+    W = a["group_pair_nok"].shape[-1]
+    Q = a["q_kind"].shape[-1]
+    V = a["v_kind"].shape[-1]
+    Z = a["zone_col_mask"].shape[-1]
     dev = a["node_free"].device
-    z = lambda *s: torch.zeros(s, dtype=I32, device=dev)  # noqa: E731
+    z = lambda *s: torch.zeros(lead + s, dtype=I32, device=dev)  # noqa: E731
     return FFDState(
         e_cum=z(E, R),
         c_cum=z(M, R),
-        c_mask=torch.zeros((M, T), dtype=torch.bool, device=dev),
+        c_mask=torch.zeros(lead + (M, T), dtype=torch.bool, device=dev),
         c_zc_bits=z(M),
         c_gbits=z(M, W),
-        c_pool=torch.full((M,), -1, dtype=I32, device=dev),
-        used=torch.zeros((), dtype=I32, device=dev),
+        c_pool=torch.full(lead + (M,), -1, dtype=I32, device=dev),
+        used=z(),
         p_usage=a["pool_usage0"].to(I32).clone(),
         e_cm=a["node_q_member"].to(I32).clone(),
         e_co=a["node_q_owner"].to(I32).clone(),
         c_cm=z(M, Q),
         c_co=z(M, Q),
         v_count=a["v_count0"].to(I32).clone(),
-        v_owner_z=torch.zeros((V, Z), dtype=torch.bool, device=dev),
+        v_owner_z=torch.zeros(lead + (V, Z), dtype=torch.bool, device=dev),
         c_vm=z(M, V),
-        c_vo=torch.zeros((M, V), dtype=torch.bool, device=dev),
+        c_vo=torch.zeros(lead + (M, V), dtype=torch.bool, device=dev),
     )
 
 
@@ -1581,9 +1600,9 @@ _V_CAPS: dict = {}
 def zone_v_cap(device):
     """The most V-axis rows (max(V, Kv) of a sparse dispatch) a zoned scan
     launch holds on `device`: the card's opt-in shared memory per block less
-    the zoned instances' static share, at 10 bytes a row (ffd_zone_max_v in
-    both kernel libraries; the least of them). None on the CPU, where the
-    plain versions hold any V."""
+    the zoned instances' static share, at 10 bytes a row (the *_zone_max_v
+    query of each of the three scan libraries; the least of them). None on
+    the CPU, where the plain versions hold any V."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
@@ -1595,7 +1614,8 @@ def zone_v_cap(device):
         with torch.cuda.device(idx):
             caps = [getattr(load(lib), fn)(None, 0, None, None)
                     for lib, fn in (("ffd_kernels", "ffd_zone_max_v"),
-                                    ("ffd_sparse_kernels", "ffd_sparse_zone_max_v"))]
+                                    ("ffd_sparse_kernels", "ffd_sparse_zone_max_v"),
+                                    ("ffd_lanes_kernels", "ffd_lanes_zone_max_v"))]
         if min(caps) < 0:
             raise RuntimeError(f"ffd_zone_max_v: CUDA error {-min(caps)}")
         cap = _V_CAPS[idx] = min(caps)
@@ -1985,6 +2005,120 @@ def pack_outputs(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
     if take_e.is_cuda:
         return _pack_outputs_cuda(take_e, take_c, leftover, state)
     return pack_outputs_plain(take_e, take_c, leftover, state)
+
+
+# --- the lane-batched scan (K15) and the streaming run-table scatter (K14) ----
+
+
+def ffd_solve_lanes_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """Plain version of the JAX `jax.vmap(ffd_solve)` over a leading lane
+    axis (parallel/sharded.py batched_solve): ffd_solve_plain on each lane
+    of the [B, ...] ARG_SPEC tensors, every FFDOutput field stacked on a
+    leading [B] axis."""
+    B = int(args[0].shape[0])
+    lanes = [ffd_solve_plain(*(a[b] for a in args), max_claims=max_claims,
+                             zone_engine=zone_engine) for b in range(B)]
+    st = FFDState(*(torch.stack([ln.state[f] for ln in lanes])
+                    for f in range(len(FFDState._fields))))
+    return FFDOutput(take_e=torch.stack([ln.take_e for ln in lanes]),
+                     take_c=torch.stack([ln.take_c for ln in lanes]),
+                     leftover=torch.stack([ln.leftover for ln in lanes]),
+                     state=st, events=torch.stack([ln.events for ln in lanes]))
+
+
+def _ffd_solve_lanes_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """K15: one launch, one block per lane, each block K1's scan on its
+    lane. The per-lane element counts of every array ride in the launch's
+    parameters (csrc/ffd_kernels.cu LaneStrides); nothing is uploaded."""
+    from .build import load
+
+    B = int(args[0].shape[0])
+    M = int(max_claims)
+    name = f"ffd_lanes_{'zoned' if zone_engine else 'fast'}_scan"
+    for n, t in zip(ARG_SPEC, args):
+        if t.dim() < 1 or int(t.shape[0]) != B or not t.is_contiguous():
+            raise ValueError(f"{name}: {n} must be a contiguous [{B}, ...] lane batch")
+    a0 = {n: t[0] for n, t in zip(ARG_SPEC, args)}
+    Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a0, zone_engine, name)
+    a = dict(zip(ARG_SPEC, args))
+    st = _state0(args, M)
+    dev = a["node_free"].device
+    take_e = torch.empty((B, Sp, E), dtype=I32, device=dev)
+    take_c = torch.empty((B, Sp, M), dtype=I32, device=dev)
+    leftover = torch.empty((B, Sp), dtype=I32, device=dev)
+    events = torch.zeros((B,), dtype=I32, device=dev)
+    scratch = torch.empty((B, scan_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
+    ptrs = [a[n] for n in _SCAN_INPUTS] + list(st) + [take_e, take_c, leftover, events, scratch]
+    dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B]
+    for t in ptrs:
+        per = t.numel() // B
+        dims += [_u32_scalar(per), per >> 32]
+    rc = load("ffd_lanes_kernels").ffd_lanes_launch(_ptrs(ptrs), len(ptrs), _ints(dims),
+                                                    _stream())
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
+
+
+def output_lane(out: FFDOutput, b: int) -> FFDOutput:
+    """Lane b of a lane-batched FFDOutput (views, no copy)."""
+    return FFDOutput(take_e=out.take_e[b], take_c=out.take_c[b], leftover=out.leftover[b],
+                     state=FFDState(*(f[b] for f in out.state)), events=out.events[b])
+
+
+def ffd_solve_lanes(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """The FFD scan of every lane of [B, ...] ARG_SPEC tensors, outputs
+    with a leading [B] axis: K15 for CUDA tensors, the plain version for
+    CPU ones."""
+    if args[0].is_cuda:
+        return _ffd_solve_lanes_cuda(*args, max_claims=max_claims, zone_engine=zone_engine)
+    return ffd_solve_lanes_plain(*args, max_claims=max_claims, zone_engine=zone_engine)
+
+
+def ffd_apply_events_plain(run_group, run_count, events):
+    """Plain version of the JAX `ffd_apply_events`: the [K, 3] (pos, gid,
+    cnt) rows scattered into copies of the [Sp] run tables, rows whose pos
+    lies outside [0, Sp) (EVENT_PAD_POS padding included) dropped, as the
+    JAX docstring says (its scatter wraps a negative position as a NumPy
+    index first: ROADMAP §C.9). Returns the new (run_group, run_count);
+    the inputs are not written."""
+    rg, rc = run_group.clone(), run_count.clone()
+    pos = events[:, 0].long()
+    keep = (pos >= 0) & (pos < rg.shape[0])
+    rg[pos[keep]] = events[keep, 1].to(rg.dtype)
+    rc[pos[keep]] = events[keep, 2].to(rc.dtype)
+    return rg, rc
+
+
+def _apply_events_cuda(run_group, run_count, events):
+    """K14 (csrc/arena_kernels.cu): the pair copied into new tensors, then
+    one thread per event row."""
+    from .build import load
+
+    Sp = int(run_group.shape[0]) if run_group.dim() == 1 else -1
+    _check(run_group, "run_group", I32, (Sp,))
+    _check(run_count, "run_count", I32, (Sp,))
+    _check(events, "events", I32)
+    if events.dim() != 2 or events.shape[1] != EVENT_ENTRY_WORDS:
+        raise ValueError(f"apply_events: events must be [K, {EVENT_ENTRY_WORDS}], "
+                         f"got {tuple(events.shape)}")
+    rg, rc = torch.empty_like(run_group), torch.empty_like(run_count)
+    rc_ = load("arena_kernels").apply_events_launch(
+        _ptrs([run_group, run_count, events, rg, rc]), 5, _ints([Sp, events.shape[0]]),
+        _stream())
+    _raise_on(rc_, "apply_events")
+    LAUNCHES["apply_events"] += 1
+    return rg, rc
+
+
+def ffd_apply_events(run_group, run_count, events):
+    """Scatter an event batch into the resident run tables (ARG_SPEC
+    entries 0 and 1): K14 for CUDA tensors, the plain version for CPU
+    ones. Returns the edited pair as new tensors; the caller swaps the
+    arena's resident tensors for them."""
+    if run_group.is_cuda:
+        return _apply_events_cuda(run_group, run_count, events)
+    return ffd_apply_events_plain(run_group, run_count, events)
 
 
 # --- scheduling classes: the gang verdict and the preemption plan (K10, K11) --

@@ -1,5 +1,5 @@
-# Port copy of karpenter_tpu/solver/encode_cache.py (the streaming run-table
-# events and the mesh-block run identities cut).
+# Port copy of karpenter_tpu/solver/encode_cache.py (the mesh-block run
+# identities cut).
 """Incremental encode cache: delta-patch `_EncodeCore` instead of rebuilding.
 
 The control loop's dominant host cost at scale is re-deriving the encode
@@ -245,3 +245,27 @@ def run_lcp(prev: tuple, cur: tuple) -> int:
     while k < n and prev[k] == cur[k]:
         k += 1
     return k
+
+
+def run_table_events(prev_rg, prev_rc, rg, rc, max_events: int = 0):
+    """Diff two same-shape padded run tables into the (pos, gid, cnt) edit
+    triplets of the streaming event-apply kernel (cuda/ffd.ffd_apply_events).
+
+    Returns an int32 [K, 3] array of the positions where either table
+    changed, or None when the tables' shapes differ (different shape
+    bucket — a whole-array upload is the only move) or when K exceeds
+    `max_events` (> 0; a near-total rewrite is cheaper shipped whole than as
+    a triplet table 3x its size). K == 0 returns an empty [0, 3] array —
+    the caller skips the dispatch entirely."""
+    import numpy as np
+
+    if prev_rg.shape != rg.shape or prev_rc.shape != rc.shape:
+        return None
+    changed = np.nonzero((prev_rg != rg) | (prev_rc != rc))[0]
+    if max_events and len(changed) > max_events:
+        return None
+    ev = np.empty((len(changed), 3), dtype=np.int32)
+    ev[:, 0] = changed
+    ev[:, 1] = rg[changed]
+    ev[:, 2] = rc[changed]
+    return ev

@@ -1,5 +1,5 @@
-# Port copy of karpenter_tpu/solver/scheduling_class.py (metric counters,
-# trace spans and the cohort seam left out).
+# Port copy of karpenter_tpu/solver/scheduling_class.py (metric counters and
+# trace spans left out).
 """Scheduling classes: priority, preemption, and gang scheduling.
 
 The subsystem that makes `pod.priority` and the gang labels
@@ -377,6 +377,48 @@ class ClassAwareSolver:
                 return sa(inp)
             return _Deferred(lambda: self.inner.solve(inp))
         return _Deferred(lambda: self._solve_class(inp))
+
+    def solve_cohort_async(self, inps):
+        """Cohort seam: engaged members (gang/priority semantics) run the
+        class path, since their solve is a multi-round plan and cannot fuse,
+        while the flat remainder rides the inner backend's fused cohort
+        entry point. Outcome list order matches `inps`."""
+        n = len(inps)
+        inner_sc = getattr(self.inner, "solve_cohort_async", None)
+        engaged = [i for i in range(n) if self._engaged(inps[i])]
+        handles: dict = {}
+        for i in engaged:
+            try:
+                handles[i] = self.solve_async(inps[i])
+            except Exception as e:  # noqa: BLE001 — per-member outcome
+                handles[i] = e
+        flat = [i for i in range(n) if i not in handles]
+        flat_fin = None
+        if flat and inner_sc is not None:
+            flat_fin = inner_sc([inps[i] for i in flat])
+        elif flat:
+            for i in flat:
+                try:
+                    handles[i] = self.solve_async(inps[i])
+                except Exception as e:  # noqa: BLE001 — per-member outcome
+                    handles[i] = e
+
+        def finish():
+            results: list = [None] * n
+            if flat_fin is not None:
+                for i, oc in zip(flat, flat_fin()):
+                    results[i] = oc
+            for i, h in handles.items():
+                if isinstance(h, BaseException):
+                    results[i] = h
+                    continue
+                try:
+                    results[i] = h.result()
+                except Exception as e:  # noqa: BLE001 — per-member outcome
+                    results[i] = e
+            return results
+
+        return finish
 
     # -- class passes --------------------------------------------------------
 

@@ -4,7 +4,8 @@ piece pinned to its original.
 - a static scan of every import in karpenter_tpu_torch/** and chip_smoke.py;
 - a solve, a batched consolidation probe and a convex solve and one-shot
   consolidation through the port in a fresh interpreter leave jax and every karpenter_tpu module out of sys.modules (a subprocess, because this test
-  process has imported jax through tests/conftest.py);
+  process has imported jax through tests/conftest.py), and so do a fused
+  cohort through the serving pipeline and a staged (stream_run_events) solve;
 - TorchSolver() with no device argument refuses to run without CUDA;
 - the copies (ARG_SPEC, delta constants, argument partitions, the
   consolidation argument indices and batch bucket, the catalog,
@@ -12,7 +13,9 @@ piece pinned to its original.
   canonicalize_placements, the sparse tables' constants and SPARSE_ARG_SPEC,
   chip_smoke.py's copies of bench.py's input functions (the
   wide-constraint fleet included), config-5 universe and relax-ladder
-  fleet) equal their originals on sample inputs.
+  fleet, the streaming event constants and run_table_events, the cohort
+  fuse key's layout, the pipeline's PROVISIONING / DISRUPTION) equal their
+  originals on sample inputs.
 """
 
 import ast
@@ -95,6 +98,23 @@ def test_port_solve_loads_no_jax():
         "assert len(res.claims) == 6 and cv.convex_stats['convex_solves'] == 1, cv.convex_stats\n"
         "prop = cv.consolidate_global(*build_split_consolidation())\n"
         "assert prop is not None and len(prop['delete']) == 3, prop\n"
+        "from chip_smoke import build_input\n"
+        "from karpenter_tpu_torch.solver.pipeline import SolveService\n"
+        "co = TorchSolver(device='cpu')\n"
+        "svc = SolveService(co)\n"
+        "try:\n"
+        "    ts = svc.submit_cohort([{'inp': build_input(60 + i), 'tenant_id': f't{i}'}\n"
+        "                            for i in range(3)])\n"
+        "    got = [len(t.result(timeout=120).placements) for t in ts]\n"
+        "finally:\n"
+        "    svc.close()\n"
+        "assert got == [60, 61, 62], got\n"
+        "assert co.stats['fused_dispatches'] == 1 and co.stats['fused_members'] == 3, co.stats\n"
+        "st = TorchSolver(device='cpu')\n"
+        "st.stream_run_events = True\n"
+        "st.solve(build_input(64))\n"
+        "assert len(st.solve(build_input(63)).placements) == 63\n"
+        "assert st.stats['event_stage_hits'] == 1 and st.arena.stats['event_edits'] == 1, st.stats\n"
         "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
         "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -127,6 +147,33 @@ def test_constants_pinned():
         assert tbackend.delta_capacity(*args) == jbackend.delta_capacity(*args)
         Sp, Mb = args[1], args[3]
         assert tbackend.delta_uniq_capacity(Sp, Mb) == jbackend.delta_uniq_capacity(Sp, Mb)
+
+
+def test_streaming_and_cohort_copies_pinned():
+    """The streaming event constants and run_table_events, the cohort fuse
+    key's layout (padded shapes and dtypes, the zone-engine flag, the claim
+    bucket) and the pipeline's request classes equal the originals."""
+    from karpenter_tpu.solver import encode_cache as jec
+    from karpenter_tpu.solver import pipeline as jpipe
+    from karpenter_tpu_torch.solver import encode_cache as tec
+    from karpenter_tpu_torch.solver import pipeline as tpipe
+
+    assert (tffd.EVENT_ENTRY_WORDS, tffd.EVENT_PAD_POS) == (
+        jffd.EVENT_ENTRY_WORDS, jffd.EVENT_PAD_POS)
+    assert (tpipe.PROVISIONING, tpipe.DISRUPTION) == (jpipe.PROVISIONING, jpipe.DISRUPTION)
+    rng = np.random.default_rng(5)
+    a, b = rng.integers(0, 9, 48).astype(np.int32), rng.integers(0, 9, 48).astype(np.int32)
+    c, d = a.copy(), b.copy()
+    c[[3, 40]] += 1
+    d[[3, 7]] -= 2
+    for mx in (0, 2, 3):
+        j, t = jec.run_table_events(a, b, c, d, mx), tec.run_table_events(a, b, c, d, mx)
+        assert (j is None and t is None) or np.array_equal(j, t)
+    for name in ("hostname_q_kinds", "existing_nodes"):
+        spec = CASES[name]
+        jp = jbackend.TPUSolver()._cohort_prep(build(spec, "karpenter_tpu"))
+        tp = tbackend.TorchSolver(device="cpu")._cohort_prep(build(spec, "karpenter_tpu_torch"))
+        assert tp["fkey"] == jp["fkey"] and tp["M0"] == jp["M0"], name
 
 
 def test_sparse_constants_pinned():
