@@ -129,6 +129,21 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    every solve after the first two stages through K14, decisions equal an
    unstaged solver's, the resident run tables equal the host encode).
 
+10. the mesh-sharded solve, last, under virtual_devices(4) (on one card
+   every slot is cuda:0; it prints how many physical devices the mesh
+   spans): K17 (ffd_lanes_kernel over run blocks, the shared tables at a
+   per-lane count of 0) fast on the surge at Nd 4 and 8 and zoned on config
+   3, and K17s (ffd_lanes_sparse_kernel) zoned on config 3 and fast on the
+   hostname fleet, against their plain versions on every lane and leaf and
+   against K1 / K1s alone on each block; then, with the launch counts reset
+   just before and read just after, TorchSolver(shards=4) on the surge and
+   config 3 (SHARD_SOLVES each, in turns with TorchSolver(); decisions equal
+   phase 3's, every solve sharded), the append-tail pair (a shard resume),
+   config 3 through sparse="off" and the hostname fleet, and config 5's
+   prefix search on a candidate mesh of 4 (k and dispatches equal phase
+   2b's; one dispatch's verdict rows equal the unsharded K4/K5 rows bit for
+   bit; K18 against its plain version on sampled rows).
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
@@ -139,6 +154,9 @@ versions, with rows that saturate the claim slots; the universe adopts into
 the solver's arena, and a second prepare uploads nothing.
 
 Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
+       python3 chip_smoke.py --phase 10   (phase 10 alone, its references
+       made by the whole run's functions on one slot: phases 2, 2b and 3's
+       plain-path check; the run for a machine with several cards)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -1222,8 +1240,14 @@ def scan_cost(ph):
             zoned_before.append(before)
     if zoned_before:
         ops += max(0, ph["events"] - len(zoned_before)) * (Ep + min(zoned_before) * T + P * T) * R * 3
-    inputs = args if ph["zone"] else args[:24]  # the fast instance reads no V-axis input
-    return nbytes(*inputs) + nbytes(out.take_e, out.take_c, out.leftover, out.events, *st), ops
+    return (nbytes(*scan_inputs(args, ph["zone"]))
+            + nbytes(out.take_e, out.take_c, out.leftover, out.events, *st), ops)
+
+
+def scan_inputs(args, zone: bool):
+    """The ARG_SPEC inputs the scan reads: the fast instance reads no V-axis
+    input."""
+    return args if zone else args[:24]
 
 
 def kernel_rows(ph, ph_zone, launches, ops_per_s):
@@ -1649,10 +1673,12 @@ KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false, false>",
                 # the class and explain kernels (21-25)
                 "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
                 "explain_sums_kernel", "explain_rows_kernel",
-                # the lane-batched scan (26, 27), the run-table scatter (28, 29)
-                # and the lane pad (30)
+                # the lane-batched scan (26, 27; also K17's kernel), the
+                # run-table scatter (28, 29), the lane pad (30) and the sparse
+                # lanes of a mesh-sharded solve (31, 32: K17s)
                 "ffd_lanes_kernel<false>", "ffd_lanes_kernel<true>", "copy_runs_kernel",
-                "apply_events_kernel", "pad_lanes_kernel")
+                "apply_events_kernel", "pad_lanes_kernel",
+                "ffd_lanes_sparse_kernel<false>", "ffd_lanes_sparse_kernel<true>")
 # phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
 # K2, K3; its uploads are exact hits after the warm-up), one arena=False
 # solver (K1 and K1s in both instances) and one device_decode=False solver
@@ -2155,7 +2181,8 @@ def config5_phase(dev, ops_per_s: float) -> dict:
         check=dict(sample_rows=len(sample), plain_sample_s=plain_sample_s,
                    small_batches=len(small)),
     )
-    return dict(summary=summary, rows=rows_out)
+    return dict(summary=summary, rows=rows_out, inputs=(inp, cpods, cnode), prep=prep,
+                subsets=subsets, out=out)
 
 
 def _scan_outputs(o):
@@ -4157,6 +4184,394 @@ def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
     return rows
 
 
+# ---- the mesh-sharded solve and the candidate-sharded consolidation (K17, K17s, K18) ----
+#
+# Phase 10 runs under virtual_devices(SHARD_SLOTS): on one card every slot is
+# cuda:0, on four cards slot i is cuda:i. shard_surge / shard_config3:
+# TorchSolver(shards=SHARD_SLOTS), a cold solve, then SHARD_SOLVES warm solves
+# in turns with TorchSolver()'s (the surge goes through K17 fast, config 3
+# through K17s zoned, the sparse gate's pick); the append-tail pair (the surge, then with_tail(surge, 1 250))
+# resumes through _dispatch_shard_resume; config 3 through sparse="off" (K17
+# zoned) SHARD_DENSE_SOLVES times and hostname_wide (K17s fast) once;
+# shard_config5: config 5's prefix search through
+# BatchedConsolidationEvaluator(TorchSolver()) on a candidate mesh of
+# SHARD_SLOTS (K18)
+SHARD_SLOTS = 4
+SHARD_SOLVES = 20
+SHARD_DENSE_SOLVES = 2
+SHARD_KERNELS = ("ffd_sharded_fast_scan", "ffd_sharded_zoned_scan", "ffd_sharded_sparse_fast_scan",
+                 "ffd_sharded_sparse_zoned_scan", "sharded_ffd")
+TAIL_PODS = 1_250  # the append-tail pair's extra replicas (phase 6's)
+# V rows of the wide-V K17 launch (wide_v_check): 10 B a row, 50 080 B of
+# dynamic shared memory, past 48 KB without the zoned instance's static share
+SHARD_WIDE_V = 5_008
+
+
+def sharded_args(ph, Nd: int, dev, sparse: bool):
+    """`ph`'s kernel arguments as one device's mesh-sharded dispatch takes
+    them: the run blocks [Nd, Sblk] (encode.mesh_run_blocks), the shared
+    tables, and with `sparse` the index tables blocked like the runs."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.encode import mesh_run_blocks, sparse_run_tables
+
+    host = ph["host_args"]
+    rgb, rcb = mesh_run_blocks(np.asarray(host[0]), np.asarray(host[1]), Nd)
+    blocks = (array_to_torch(rgb, dev), array_to_torch(rcb, dev))
+    sp = None
+    if sparse:
+        Sp = int(host[0].shape[0])
+        sp = tuple(array_to_torch(np.ascontiguousarray(t.reshape(Nd, Sp // Nd, -1)), dev)
+                   for t in sparse_run_tables(ph["enc"], Sp))
+    return blocks, tuple(ph["args"][2:]), sp
+
+
+def sharded_check(ph, Nd: int, dev, sparse: bool = False) -> dict:
+    """K17 (K17s with `sparse`) against its plain version on the card, every
+    lane and every FFDOutput leaf, and each lane against K1 (K1s) alone on
+    its block; the claim bucket doubles while a lane saturates it."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    blocks, shared, sp = sharded_args(ph, Nd, dev, sparse)
+    zone = ph["zone"]
+
+    def run(M):
+        if sp is not None:
+            return ffd.ffd_solve_sharded_sparse(*sp, *blocks, *shared, max_claims=M,
+                                                zone_engine=zone)
+        return ffd.ffd_solve_sharded(*blocks, *shared, max_claims=M, zone_engine=zone)
+
+    M = ph["M"]
+    while True:
+        out = run(M)
+        torch.cuda.synchronize()
+        if int(out.state.used.max()) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    t0 = time.perf_counter()
+    plain = ffd.ffd_solve_sharded_plain(*blocks, *shared, max_claims=M, zone_engine=zone,
+                                        sparse=sp)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    name = f"ffd_sharded_{'sparse_' if sparse else ''}{'zoned' if zone else 'fast'}_scan"
+    err = max_abs_err(_scan_outputs(out), _scan_outputs(plain))
+    assert err == 0, f"{name} disagrees with its plain version (max |d| {err})"
+    err_k1 = 0
+    for d in range(Nd):
+        lane = (blocks[0][d], blocks[1][d]) + shared
+        if sp is not None:
+            one = ffd.ffd_solve_sparse(sp[0][d], sp[1][d], *lane, max_claims=M, zone_engine=zone)
+        else:
+            one = ffd.ffd_solve(*lane, max_claims=M, zone_engine=zone)
+        err_k1 = max(err_k1, max_abs_err(_scan_outputs(ffd.output_lane(out, d)),
+                                         _scan_outputs(one)))
+    assert err_k1 == 0, f"{name}: a lane disagrees with the single-block scan (max |d| {err_k1})"
+    return dict(name=name, run=run, blocks=blocks, shared=shared, sp=sp, out=out, M=M,
+                zone=zone, Nd=Nd, err=err, err_k1=err_k1, plain_once_s=plain_s,
+                events=[int(e) for e in out.events.tolist()],
+                used=[int(u) for u in out.state.used.tolist()])
+
+
+def widen_v(host_args, Vw: int) -> tuple:
+    """`host_args` (ARG_SPEC order, numpy) with the V axis padded to `Vw`
+    rows as host_kernel_args pads it: no member, no owner, kind 0, cap 1,
+    count 0. A padded row is inert, so the scan decides as before."""
+    import numpy as np
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    axis = {"v_member": 1, "v_owner": 1, "v_kind": 0, "v_cap": 0, "v_count0": 0}
+    out = list(host_args)
+    for name, ax in axis.items():
+        a = np.asarray(out[ffd.ARG_INDEX[name]])
+        shape = list(a.shape)
+        shape[ax] = Vw
+        wide = np.full(shape, 1 if name == "v_cap" else 0, dtype=a.dtype)
+        wide[tuple(slice(0, n) for n in a.shape)] = a
+        out[ffd.ARG_INDEX[name]] = wide
+    return tuple(out)
+
+
+def wide_v_check(c, ph, mesh, dev) -> dict:
+    """K17 zoned over `mesh` as the sharded solve launches it (mesh_solve:
+    one launch per physical device, on that device's stream) at `ph`'s
+    shapes with the V axis widened to SHARD_WIDE_V, so that each card's
+    launch needs the dynamic shared memory opt-in past 48 KB. Every lane
+    and leaf against the plain version at the same shapes, and against the
+    unwidened lanes of `c` (a sharded_check of `ph`) on the first Vp rows."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.parallel.sharded import Placement, gather_lanes, mesh_solve, place
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import mesh_run_blocks
+
+    Nd, M, Vp = mesh.size, c["M"], int(ph["dims"]["Vp"])
+    wide = widen_v(ph["host_args"], SHARD_WIDE_V)
+    rgb, rcb = mesh_run_blocks(np.asarray(wide[0]), np.asarray(wide[1]), Nd)
+    host = (rgb, rcb) + wide[2:]
+    blocked, repl = Placement(mesh, True), Placement(mesh, False)
+    placed = [place(a, blocked if i < 2 else repl) for i, a in enumerate(host)]
+    got = gather_lanes(mesh, mesh_solve(mesh, placed, M, True))
+    got = [torch.from_numpy(np.asarray(x)) for x in _scan_outputs(got)]
+    plain = ffd.ffd_solve_sharded_plain(*(array_to_torch(a, dev) for a in host), max_claims=M,
+                                        zone_engine=True)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, _scan_outputs(plain))
+    assert err == 0, f"K17 zoned at V={SHARD_WIDE_V} disagrees with its plain version ({err})"
+    # v_count, v_owner_z: [Nd, V, Z]; c_vm, c_vo: [Nd, M, V]
+    v_rows = {"v_count": 1, "v_owner_z": 1, "c_vm": 2, "c_vo": 2}
+    cut = [x.narrow(v_rows[f], 0, Vp) if f in v_rows else x
+           for f, x in zip(("take_e", "take_c", "leftover", "events", *ffd.FFDState._fields), got)]
+    err_n = max_abs_err(cut, _scan_outputs(c["out"]))
+    assert err_n == 0, f"K17 zoned: inert V rows changed the lanes ({err_n})"
+    return dict(V=SHARD_WIDE_V, Vp=Vp, dynamic_smem_bytes=10 * SHARD_WIDE_V, err=err,
+                err_unwidened=err_n, devices=[str(d) for d in mesh.physical])
+
+
+def sharded_kernel_row(c, launches, ops_per_s, kname: str, replaces: str, source: str) -> dict:
+    """A K17 / K17s row at `c`'s shapes (a sharded_check). The bound is
+    K15's cost model over the lanes with the shared tables read once: the
+    operations of every lane, the bytes of every lane's run blocks, index
+    table blocks (sparse_scan_cost, for K17s) and outputs, and the bytes of
+    the shared tables once, not once a lane."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    byts = ops = 0
+    for d in range(c["Nd"]):
+        lane = dict(args=[c["blocks"][0][d], c["blocks"][1][d], *c["shared"]],
+                    out=ffd.output_lane(c["out"], d), zone=c["zone"], events=c["events"][d])
+        if c["sp"] is not None:
+            lb, lo = sparse_scan_cost(lane, (c["sp"][0][d], c["sp"][1][d]))
+        else:
+            lb, lo = scan_cost(lane)
+        if d:  # lane d's cost counts the shared tables again
+            lb -= nbytes(*scan_inputs(lane["args"], c["zone"])[2:])
+        byts, ops = byts + lb, ops + lo
+    b_ms, by = bound(byts, ops, ops_per_s)
+    fn = lambda: c["run"](c["M"])  # noqa: E731
+    return dict(
+        name=c["name"], route="cuda", source=source, replaces=replaces,
+        launches=launches[c["name"]], max_abs_err=c["err"], ms=time_ms(fn, 10),
+        plain_ms=c["plain_once_s"] * 1e3, bound_ms=b_ms, bound_by=by, library_ms=None,
+        library_call="none (no PyTorch call computes the scan)", match=c["err"] == 0,
+        device_ms=profiled_ms(fn, 3, (kname,)), err_k1=c["err_k1"],
+        shape=dict(Nd=c["Nd"], Sblk=int(c["blocks"][0].shape[1]), M=c["M"],
+                   E=int(c["out"].take_e.shape[2]),
+                   Kq=None if c["sp"] is None else int(c["sp"][0].shape[2]),
+                   Kv=None if c["sp"] is None else int(c["sp"][1].shape[2])),
+        events=c["events"], bytes=byts, ops=ops)
+
+
+def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
+    """Phase 10 (see SHARD_SLOTS): K17/K17s against their plain versions and
+    K1/K1s per lane, and a zoned K17 past 48 KB of V rows on every card of
+    the mesh (wide_v_check); then, with the launch counts reset just before
+    and read just after, the main path: TorchSolver(shards=SHARD_SLOTS) on
+    the surge and config 3 in turns with TorchSolver() (decisions equal
+    TorchSolver()'s, every solve sharded; launches counted around the
+    sharded solves), the append-tail pair (a shard resume), config 3
+    through sparse="off" and hostname_wide, and config 5's prefix search on
+    a candidate mesh (k and dispatches equal phase 2b's; one dispatch's rows
+    equal the unsharded K4/K5 rows bit for bit); then the kernel rows.
+    `refs`: the cells' kernel_phase results ("phases"), their inputs
+    ("inputs"), TorchSolver()'s decisions ("want"; in a whole run phase 3's,
+    which phase 3 held equal to the plain path's), and phase 2b's config-5
+    results ("c5")."""
+    import random
+
+    import torch
+
+    from karpenter_tpu_torch.disruption import batched as tbatch
+    from karpenter_tpu_torch.parallel.sharded import virtual_devices
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.cuda import consolidate as cons
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    phases, inputs, want, c5 = refs["phases"], refs["inputs"], refs["want"], refs["c5"]
+    out: dict = {}
+    with virtual_devices(SHARD_SLOTS):
+        # ---- K17 / K17s against their plain versions, lanes against K1 / K1s ----
+        checks = {
+            "surge_Nd4": sharded_check(phases["surge"], 4, dev),
+            "surge_Nd8": sharded_check(phases["surge"], 8, dev),
+            "config3_Nd4": sharded_check(phases["config3"], 4, dev),
+            "config3_sparse_Nd4": sharded_check(phases["config3"], 4, dev, sparse=True),
+            "hostname_wide_sparse_Nd4": sharded_check(phases["hostname_wide"], 4, dev, sparse=True),
+        }
+        assert checks["config3_Nd4"]["zone"] and not checks["surge_Nd4"]["zone"]
+        assert not checks["hostname_wide_sparse_Nd4"]["zone"]
+        for k, c in checks.items():
+            print(f"sharded[{k}]: {c['name']} M={c['M']} used={c['used']} events={c['events']} "
+                  f"max_abs_err=({c['err']}, vs K1/K1s per lane {c['err_k1']}) "
+                  f"plain_s={c['plain_once_s']:.2f}", flush=True)
+
+        solver = TorchSolver(max_claims=MAX_CLAIMS, shards=SHARD_SLOTS)
+        dense = TorchSolver(max_claims=MAX_CLAIMS, shards=SHARD_SLOTS, sparse="off")
+        # the unsharded baseline, solved in turns with the sharded solver
+        base = TorchSolver(max_claims=MAX_CLAIMS)
+        mesh = solver._shard_mesh()
+        assert mesh is not None and mesh.size == SHARD_SLOTS
+        n_phys = len(mesh.physical)
+        print(f"sharded mesh: {SHARD_SLOTS} slots over {n_phys} physical device(s) "
+              f"{[str(d) for d in mesh.devices]}", flush=True)
+        wide_v = wide_v_check(checks["config3_Nd4"], phases["config3"], mesh, dev)
+        print(f"sharded[config3_wide_v]: ffd_sharded_zoned_scan V={wide_v['V']} "
+              f"({wide_v['dynamic_smem_bytes']} B of V rows) on {wide_v['devices']} "
+              f"max_abs_err=({wide_v['err']}, vs Vp={wide_v['Vp']} {wide_v['err_unwidened']})",
+              flush=True)
+        cells = {"shard_surge": inputs["surge"], "shard_config3": inputs["config3"]}
+        cold = {}
+        for name, inp in cells.items():  # cold: allocator, encode caches, uploads
+            res = solver.solve(inp)
+            cold[name] = dict(solver.ledger.solve)
+            assert decisions(res) == want[name], f"{name}: the cold sharded solve differs"
+            base.solve(inp)
+        dense.solve(inputs["config3"])
+        tail_inp = with_tail(inputs["surge"], TAIL_PODS)
+        tail_want = decisions(TorchSolver(max_claims=MAX_CLAIMS).solve(tail_inp))
+        hw_want = decisions(TorchSolver(max_claims=MAX_CLAIMS).solve(inputs["hostname_wide"]))
+        torch.cuda.synchronize()
+
+        # ---- the main path, launch counts reset just before ----------------------
+        reset_launches()
+        cell_lines = {}
+        for name, inp in cells.items():
+            st0 = dict(solver.stats)
+            ms, base_ms, warm, counted = [], [], None, {}
+            for _ in range(SHARD_SOLVES):
+                l0 = read_launches()
+                t0 = time.perf_counter()
+                res = solver.solve(inp)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                for k, v in read_launches().items():
+                    counted[k] = counted.get(k, 0) + v - l0[k]
+                warm = dict(solver.ledger.solve)
+                assert decisions(res) == want[name], f"{name}: decisions differ from TorchSolver()"
+                t0 = time.perf_counter()
+                base.solve(inp)
+                base_ms.append((time.perf_counter() - t0) * 1e3)
+            d = {k: solver.stats[k] - st0[k] for k in solver.stats}
+            assert d["sharded_solves"] == SHARD_SOLVES, (name, d)
+            per = {k: v / SHARD_SOLVES for k, v in counted.items() if v}
+            cell_lines[name] = dict(
+                solves=SHARD_SOLVES, **_ms_tail(ms), unsharded_in_turns=_ms_tail(base_ms),
+                fixup_runs_per_solve=d["shard_fixup_runs"] / SHARD_SOLVES,
+                sparse_dispatches=d["sparse_dispatches"], launches_per_solve=per,
+                h2d_cold=dict(bytes=cold[name]["h2d_bytes"], shard=cold[name]["h2d_shard_bytes"],
+                              msgs=cold[name]["h2d_msgs"]),
+                h2d_warm=dict(bytes=warm["h2d_bytes"], shard=warm["h2d_shard_bytes"],
+                              msgs=warm["h2d_msgs"]),
+                d2h_warm=warm["d2h_bytes"])
+        # the append-tail pair: the surge (the bucket's donor), then its tail
+        r0 = solver.stats["shard_resume_solves"]
+        solver.solve(inputs["surge"])
+        t0 = time.perf_counter()
+        res = solver.solve(tail_inp)
+        tail_ms = (time.perf_counter() - t0) * 1e3
+        assert decisions(res) == tail_want, "surge_tail: the shard resume differs"
+        assert solver.stats["shard_resume_solves"] == r0 + 1, solver.stats
+        tail_line = dict(ms=tail_ms, runs_skipped=solver.stats["shard_resume_runs_skipped"],
+                         h2d=dict(solver.ledger.solve))
+        for _ in range(SHARD_DENSE_SOLVES):
+            assert decisions(dense.solve(inputs["config3"])) == want["shard_config3"]
+        assert dense.stats["sparse_dispatches"] == 0 and dense.stats["sharded_solves"] >= 1
+        assert decisions(solver.solve(inputs["hostname_wide"])) == hw_want
+
+        # config 5 on a candidate mesh of SHARD_SLOTS
+        cmesh = cons.candidate_mesh(dev)
+        assert cmesh is not None and cmesh.size == SHARD_SLOTS
+        ev = tbatch.BatchedConsolidationEvaluator(TorchSolver(max_claims=MAX_CLAIMS))
+        t0 = time.perf_counter()
+        prep = ev.prepare(*c5["inputs"])
+        prepare_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k_best, dispatches, n_probed, _ = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
+        search_ms = (time.perf_counter() - t0) * 1e3
+        s5 = c5["summary"]
+        assert (k_best, dispatches) == (s5["config5_prefix_nodes"], s5["config5_dispatches"]), (
+            k_best, dispatches, s5["config5_prefix_nodes"], s5["config5_dispatches"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        for k in SHARD_KERNELS:
+            assert launches[k] > 0, f"kernel {k} never launched on the sharded path"
+
+        # ---- K18: one dispatch's verdict rows against the unsharded K4/K5 ----
+        ref_prep, subsets, M = c5["prep"], c5["subsets"], ev.max_claims
+        rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, subsets, prep.node_idx,
+                                prep.v_delta, prep.v_count0_host, mesh=cmesh)
+        o18 = cons._sharded_ffd(cmesh, prep.args, rows, M, False)
+        f18 = cons.pack_verdicts(o18)
+        o4 = c5["out"]
+        f4 = cons.pack_verdicts(o4)
+        torch.cuda.synchronize()
+        err18 = max_abs_err([f18, o18.leftover, o18.events, *o18.state],
+                            [f4, o4.leftover, o4.events, *o4.state])
+        assert err18 == 0, f"sharded_ffd disagrees with the unsharded K4/K5 rows (max |d| {err18})"
+        sel = torch.tensor(sorted(random.Random(10).sample(range(rows[0].shape[0]), 8)),
+                           device=dev)
+        drows = cons.upload_rows(rows, dev)
+        t0 = time.perf_counter()
+        plain = cons.batched_ffd_plain(ref_prep.args, *[r[sel] for r in drows[:3]], drows[3], M,
+                                       False)
+        torch.cuda.synchronize()
+        plain_sample_s = time.perf_counter() - t0
+        err18p = max_abs_err([o18.leftover[sel], o18.events[sel], *[f[sel] for f in o18.state]],
+                             [plain.leftover, plain.events, *plain.state])
+        assert err18p == 0, f"sharded_ffd disagrees with its plain version (max |d| {err18p})"
+        fn18 = lambda: cons._sharded_ffd(cmesh, prep.args, rows, M, False)  # noqa: E731
+        ms18 = time_ms(fn18, 5)
+        dev18 = profiled_ms(fn18, 3, (KERNEL_NAMES[6],) * len(cmesh.physical), tries=10)
+        bytes18, ops18 = batched_scan_cost(ref_prep.args, rows, o4, False)
+        b18, by18 = bound(bytes18, ops18, ops_per_s)
+        c5_line = dict(k=k_best, dispatches=dispatches, prefixes_probed=n_probed,
+                       prepare_s=prepare_s, search_ms=search_ms, mesh_slots=cmesh.size,
+                       physical_devices=len(cmesh.physical), rows=int(rows[0].shape[0]),
+                       verdict_rows_equal=err18 == 0, plain_sample_rows=8,
+                       plain_sample_s=plain_sample_s)
+
+        # ---- kernel rows -----------------------------------------------------------
+        lanes_src = "karpenter_tpu_torch/csrc/ffd_lanes_kernels.cu (ffd_kernels.cu, FFD_LANES_ONLY)"
+        sparse_src = ("karpenter_tpu_torch/csrc/ffd_lanes_sparse_kernels.cu (ffd_kernels.cu, "
+                      "FFD_LANES_ONLY + FFD_LANES_SPARSE)")
+        rows_out = [
+            sharded_kernel_row(checks["surge_Nd4"], launches, ops_per_s, KERNEL_NAMES[26],
+                               "karpenter_tpu/solver/tpu/ffd.py:2264", lanes_src),
+            sharded_kernel_row(checks["config3_Nd4"], launches, ops_per_s, KERNEL_NAMES[27],
+                               "karpenter_tpu/solver/tpu/ffd.py:2264", lanes_src),
+            sharded_kernel_row(checks["hostname_wide_sparse_Nd4"], launches, ops_per_s,
+                               KERNEL_NAMES[31], "karpenter_tpu/solver/tpu/ffd.py:2800",
+                               sparse_src),
+            sharded_kernel_row(checks["config3_sparse_Nd4"], launches, ops_per_s,
+                               KERNEL_NAMES[32], "karpenter_tpu/solver/tpu/ffd.py:2800",
+                               sparse_src),
+            dict(name="sharded_ffd", route="cuda",
+                 source="karpenter_tpu_torch/csrc/ffd_kernels.cu (K4 per physical device)",
+                 replaces="karpenter_tpu/solver/tpu/consolidate.py:155",
+                 launches=launches["sharded_ffd"], max_abs_err=max(err18, err18p), ms=ms18,
+                 plain_ms=c5["rows"][0]["plain_ms"], bound_ms=b18, bound_by=by18, library_ms=None,
+                 match=max(err18, err18p) == 0, device_ms=dev18,
+                 shape=dict(B=int(rows[0].shape[0]), slots=cmesh.size,
+                            physical_devices=len(cmesh.physical), Sp=int(rows[0].shape[1]), M=M),
+                 ops=ops18, bytes=bytes18),
+        ]
+    for r, cell in ((rows_out[0], "shard_surge"), (rows_out[3], "shard_config3")):
+        cell_lines[cell].update(k17_ms=r["ms"], k17_device_ms=r["device_ms"], k17_kernel=r["name"])
+    out.update(
+        slots=SHARD_SLOTS, physical_devices=n_phys, mesh=[str(d) for d in mesh.devices],
+        checks={k: {f: c[f] for f in ("name", "Nd", "M", "err", "err_k1", "used", "events",
+                                      "plain_once_s")} for k, c in checks.items()},
+        wide_v=wide_v,
+        cells=cell_lines, tail=tail_line, config5=c5_line, launches=launches,
+        solver_stats=dict(solver.stats))
+    return dict(summary=out, rows=rows_out)
+
+
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
@@ -4167,7 +4582,9 @@ def ptxas_report(report: str) -> dict:
                             "explain_sums_kernel", "explain_rows_kernel", "copy_runs_kernel",
                             "apply_events_kernel", "pad_lanes_kernel")}
     names.update({"ffd_lanes_kernelILb0E": "ffd_lanes_kernel<false>",
-                  "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>"})
+                  "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>",
+                  "ffd_lanes_sparse_kernelILb0E": "ffd_lanes_sparse_kernel<false>",
+                  "ffd_lanes_sparse_kernelILb1E": "ffd_lanes_sparse_kernel<true>"})
     for flags in range(32):
         bits = [(flags >> i) & 1 for i in range(5)]
         mangled = "ffd_scan_kernelI" + "".join(f"Lb{b}E" for b in bits)
@@ -4190,11 +4607,51 @@ def ptxas_report(report: str) -> dict:
     return out
 
 
+def print_sharded(sh: dict) -> None:
+    for name, c in sh["cells"].items():
+        u = c["unsharded_in_turns"]
+        print(f"{name}: p50/p99 {c['p50_ms']:.2f}/{c['p99_ms']:.2f} ms over {c['solves']} solves "
+              f"(TorchSolver() in turns {u['p50_ms']:.2f}/{u['p99_ms']:.2f}), "
+              f"fix-up runs {c['fixup_runs_per_solve']:.2f} a solve, launches a solve "
+              f"{c['launches_per_solve']}, {c['k17_kernel']} {c['k17_ms']:.3f} ms (device "
+              f"{c['k17_device_ms']}), h2d cold {c['h2d_cold']} warm {c['h2d_warm']}", flush=True)
+    print(f"shard_config5: {sh['config5']}; tail resume {sh['tail']['ms']:.2f} ms, "
+          f"{sh['physical_devices']} physical device(s) for {sh['slots']} slots", flush=True)
+
+
+def phase10_refs(dev, ops_per_s: float) -> dict:
+    """What phase 10 holds its results against when it runs alone
+    (--phase 10), made as the whole run makes them, on one slot (cuda:0):
+    the cells' kernel_phase results and inputs (phase 2's), config5_phase
+    (phase 2b), and TorchSolver()'s decisions held equal to the plain
+    path's (phase 3's check)."""
+    from karpenter_tpu_torch.parallel.sharded import virtual_devices
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+
+    inputs = {"surge": build_input(PODS), "config3": build_config3_input(PODS),
+              "hostname_wide": build_hostname_wide_input()}
+    with virtual_devices(1):
+        phases = {k: kernel_phase(v, dev) for k, v in inputs.items()}
+        c5 = config5_phase(dev, ops_per_s)
+        solver = TorchSolver(max_claims=MAX_CLAIMS)
+        plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
+        want = {}
+        for k in ("surge", "config3"):
+            want[f"shard_{k}"] = decisions(solver.solve(inputs[k]))
+            assert want[f"shard_{k}"] == decisions(plain.solve(inputs[k])), \
+                f"{k}: decisions differ from the plain path"
+    return dict(phases=phases, inputs=inputs, want=want, c5=c5)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    only10 = sys.argv[1:] == ["--phase", "10"]
+    if sys.argv[1:] and not only10:
+        print("usage: python3 chip_smoke.py [--phase 10]", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -4212,16 +4669,30 @@ def main() -> int:
     ffd_lib = build.load()
     sparse_lib = build.load("ffd_sparse_kernels")
     lanes_lib = build.load("ffd_lanes_kernels")
+    lanes_sparse_lib = build.load("ffd_lanes_sparse_kernels")
     class_lib = build.load("class_kernels")
     convex_lib = build.load("convex_kernels")
     build_s = time.perf_counter() - t0
-    assert None not in (ffd_lib, sparse_lib, lanes_lib, class_lib, convex_lib)
+    assert None not in (ffd_lib, sparse_lib, lanes_lib, lanes_sparse_lib, class_lib, convex_lib)
     v_cap = ffd.zone_v_cap(dev)
     print(f"zoned scan V-row cap on this card: {v_cap}", flush=True)
     for line in build.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
     print(f"build: {build_s:.3f} s ({build.BUILD_LOG['libraries']})", flush=True)
+    if only10:
+        # phase 10 alone (a run across several cards): its own references
+        int_rate = int32_ops_per_s()
+        shard = sharded_phase(dev, int_rate, phase10_refs(dev, int_rate))
+        print(json.dumps({"sharded": shard["summary"], "kernels": shard["rows"],
+                          "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
+        print_sharded(shard["summary"])
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     print(f"[phase 2 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2: kernels vs plain versions at main-path shapes -------------------
@@ -4736,6 +5207,19 @@ def main() -> int:
                  "constraint_wide": 19}
     profiles = {name: device_profile(inp, KERNEL_NAMES[cell_scan[name]])
                 for name, inp in {**inputs, **relax_inputs}.items()}
+
+    print(f"[phase 10 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 10: the mesh-sharded solve and the candidate-sharded consolidation ----
+    t0 = time.perf_counter()
+    shard = sharded_phase(dev, int_rate, dict(
+        phases={"surge": phases["surge"], "config3": phases["config3"], "hostname_wide": hw},
+        inputs={"surge": inputs["surge"], "config3": inputs["config3"], "hostname_wide": hw_inp},
+        want={"shard_surge": decisions(results["surge"]),
+              "shard_config3": decisions(results["config3"])},
+        c5=c5))
+    shard["summary"]["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"sharded": shard["summary"]}), flush=True)
+    print_sharded(shard["summary"])
     # solves per kernel in phase 3's counted window: TorchSolver() on the
     # surge, surge_e2e (K7), config 4 (K7 zoned), config 3 and
     # constraint_wide (K7s zoned) REPEATS times, mixed (K7s zoned)
@@ -4760,7 +5244,7 @@ def main() -> int:
                                  int_rate)
             + [pack_kernel_row(phases["config3"]["out"], packs["config3"]["err"], launches,
                                int_rate)]
-            + class_rows + [cvx["row"]] + cohort_rows)
+            + class_rows + [cvx["row"]] + cohort_rows + shard["rows"])
     launches_per_solve = {k: launches[k] / n for k, n in (
         *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
         ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
@@ -4806,6 +5290,7 @@ def main() -> int:
         "classes": class_line,
         "convex": convex_line,
         "cohort": cohort_line,
+        "sharded": shard["summary"],
         "zone_v_cap": v_cap,
         "explain_checks": {k: {f: v[f] for f in ("Sp", "Ep", "Gp", "E", "G", "ks", "err",
                                                  "side_bytes")}

@@ -36,6 +36,15 @@
 //                   ffd_lanes_kernel<ZONE>, K1's scan body on each of B
 //                   lanes, one block per lane; built from
 //                   ffd_lanes_kernels.cu (this file with FFD_LANES_ONLY).
+// K17 ffd_sharded  replaces karpenter_tpu/solver/tpu/ffd.py:2264
+//                   ffd_solve_sharded: K15's ffd_lanes_kernel<ZONE>, one
+//                   lane per run block of a mesh-sharded solve, the shared
+//                   tables at a per-lane count of 0 (no kernel of its own).
+// K17s              replaces karpenter_tpu/solver/tpu/ffd.py:2800
+//                   ffd_solve_sharded_sparse: ffd_lanes_sparse_kernel<ZONE>,
+//                   K1s's scan body per run block; built from
+//                   ffd_lanes_sparse_kernels.cu (this file with
+//                   FFD_LANES_ONLY and FFD_LANES_SPARSE).
 // K1s/K6s/K7s       replace karpenter_tpu/solver/tpu/ffd.py:2403
 //                   ffd_solve_sparse, :2701 ffd_solve_ladder_sparse, :2500
 //                   ffd_solve_ckpt_sparse and :2602 ffd_resume_sparse: the
@@ -1850,6 +1859,32 @@ __global__ void __launch_bounds__(NT) ffd_lanes_kernel(ScanArgs a, LaneStrides l
   lane_prologue(a, ls);
   scan_body<ZONE, false, false, false, false>(a);
 }
+
+// ---- K17s: the sparse lanes of a mesh-sharded solve ----------------------------
+//
+// Replaces karpenter_tpu/solver/tpu/ffd.py:2800 ffd_solve_sharded_sparse:
+// jax.vmap of the sparse scan over the [Nd, Sblk] run blocks of one solve,
+// the index tables [Nd, Sblk, Kq] / [Nd, Sblk, Kv] blocked like the runs.
+// (K17, the dense twin, is ffd_lanes_kernel itself: the wrapper gives
+// every shared table a per-lane count of 0.)
+// What bounds it: as K15, each lane is a serial chain of run steps on one
+// SM; Nd lanes run on Nd SMs at once, each over Sblk = Sp / Nd runs.
+// Design: K15's prologue, then the two index tables step by their own
+// per-lane counts, then K1s's body (scan_body<ZONE, false, false, false,
+// true>). A kernel of its own, so that K15's two instances compile as
+// they did.
+struct SparseLaneStrides {
+  LaneStrides base;
+  long long q, v;  // per-lane elements of run_q_idx and run_v_idx
+};
+
+template <bool ZONE>
+__global__ void __launch_bounds__(NT) ffd_lanes_sparse_kernel(ScanArgs a, SparseLaneStrides ls) {
+  lane_prologue(a, ls.base);
+  to_lane(a.run_q_idx, (long long)blockIdx.x, ls.q);
+  to_lane(a.run_v_idx, (long long)blockIdx.x, ls.v);
+  scan_body<ZONE, false, false, false, true>(a);
+}
 #endif  // FFD_LANES_ONLY
 
 #if !defined(FFD_SPARSE_ONLY) && !defined(FFD_LANES_ONLY)
@@ -2139,23 +2174,41 @@ static bool scan_limits_ok(const ScanArgs& a, bool zone) {
   return !(zone && (a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P));
 }
 
+// The dynamic shared memory opt-in of `kern` on the current device, raised
+// to `dyn` bytes when that is past the widest launch on this device so far
+// (opted[device]). cudaFuncSetAttribute holds per device, so the cache is
+// per device: a process-wide one would skip the call on a second card and
+// its launch past 48 KB would be refused. Returns 0 or a CUDA error.
+constexpr int MAX_DEVICES = 64;
+
+template <typename K>
+static int opt_in(K kern, int dyn, int* opted) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (dyn > opted[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+    opted[dev] = dyn;
+  }
+  return 0;
+}
+
 // Launch one scan instance. A zoned instance takes its V-axis rows as
 // dynamic shared memory; past the 48 KB default it needs the opt-in, raised
-// once per instance to the widest launch so far. A launch past the card's
-// opt-in (ffd_zone_max_v) is refused here with the attribute call's error.
+// once per instance and device to the widest launch so far. A launch past
+// the card's opt-in (ffd_zone_max_v) is refused here with the attribute
+// call's error.
 template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
 static int launch_scan(int blocks, const ScanArgs& a, void* stream) {
   auto kern = ffd_scan_kernel<ZONE, BATCH, LADDER, CKPT, SPARSE>;
   int dyn = 0;
   if constexpr (ZONE) {
     dyn = zone_rows_bytes(a.V, SPARSE ? a.Kv : 0);
-    static int opted = 0;
-    if (dyn > opted) {
-      const cudaError_t e =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-      if (e != cudaSuccess) return (int)e;
-      opted = dyn;
-    }
+    static int opted[MAX_DEVICES] = {};
+    const int e = opt_in(kern, dyn, opted);
+    if (e != 0) return e;
   }
   kern<<<blocks, NT, dyn, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -2288,8 +2341,56 @@ int ffd_sparse_zone_max_v(void**, int, const int*, void*) {
                        zone_max_v(ffd_scan_kernel<true, false, false, true, true>)};
   return std::min(caps[0], std::min(caps[1], caps[2]));
 }
+#elif defined(FFD_LANES_ONLY) && defined(FFD_LANES_SPARSE)
+// the sparse lanes library (ffd_lanes_sparse_kernels.cu): K17s
+// K17s. ptrs: as ffd_lanes_launch (the 32 scan inputs, the carry, take_e,
+// take_c, leftover, events, scratch), then run_q_idx [B, S, Kq] and
+// run_v_idx [B, S, Kv]; dims: as ffd_lanes_launch (S, G, T, E, P, R, Q, W,
+// M, V, Z, zone, B, then each array's per-lane element count as two ints,
+// the two index tables' included, in the pointer order), then Kq, Kv.
+int ffd_lanes_sparse_launch(void** p, int n, const int* d, void* stream) {
+  if (n != LANE_ARRAYS + 2) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  fill_scan_state(a, p + 32);
+  a.take_e = (int*)p[48]; a.take_c = (int*)p[49]; a.leftover = (int*)p[50];
+  a.events = (int*)p[51]; a.scratch = (int*)p[52];
+  const bool zone = d[11] != 0;
+  const int B = d[12];
+  const int nd = 13 + 2 * (LANE_ARRAYS + 2) + 2;
+  if (!scan_limits_ok(a, zone) || B < 1 || !fill_sparse<true>(a, p, n, d, nd))
+    return (int)cudaErrorInvalidValue;
+  long long cnt[LANE_ARRAYS + 2];
+  for (int i = 0; i < LANE_ARRAYS + 2; ++i) {
+    cnt[i] = (long long)(unsigned)d[13 + 2 * i] | ((long long)d[14 + 2 * i] << 32);
+    if (cnt[i] < 0) return (int)cudaErrorInvalidValue;
+  }
+  SparseLaneStrides ls{};
+  for (int i = 0; i < LANE_ARRAYS; ++i) ls.base.n[i] = cnt[i];
+  ls.q = cnt[LANE_ARRAYS];
+  ls.v = cnt[LANE_ARRAYS + 1];
+  cudaStream_t st = (cudaStream_t)stream;
+  if (zone) {
+    auto kern = ffd_lanes_sparse_kernel<true>;
+    const int dyn = zone_rows_bytes(a.V, a.Kv);
+    static int opted[MAX_DEVICES] = {};
+    const int e = opt_in(kern, dyn, opted);
+    if (e != 0) return e;
+    kern<<<B, NT, dyn, st>>>(a, ls);
+  } else {
+    ffd_lanes_sparse_kernel<false><<<B, NT, 0, st>>>(a, ls);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The V-row cap of the zoned sparse lanes instance; the arguments are
+// unused. Returns the cap, or minus a CUDA error.
+int ffd_lanes_sparse_zone_max_v(void**, int, const int*, void*) {
+  return zone_max_v(ffd_lanes_sparse_kernel<true>);
+}
 #elif defined(FFD_LANES_ONLY)
-// the lanes library (ffd_lanes_kernels.cu): K15
+// the lanes library (ffd_lanes_kernels.cu): K15, and K17 (the same
+// instances, shared tables at a per-lane count of 0)
 // K15. ptrs: as scan_launch (the 32 scan inputs, the carry, take_e, take_c,
 // leftover, events, scratch), each [B, ...] lane-major; dims: as
 // scan_launch (the per-lane S, G, T, E, P, R, Q, W, M, V, Z and zone), then
@@ -2314,13 +2415,9 @@ int ffd_lanes_launch(void** p, int n, const int* d, void* stream) {
   if (zone) {
     auto kern = ffd_lanes_kernel<true>;
     const int dyn = zone_rows_bytes(a.V, 0);
-    static int opted = 0;
-    if (dyn > opted) {
-      const cudaError_t e =
-          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-      if (e != cudaSuccess) return (int)e;
-      opted = dyn;
-    }
+    static int opted[MAX_DEVICES] = {};
+    const int e = opt_in(kern, dyn, opted);
+    if (e != 0) return e;
     kern<<<B, NT, dyn, st>>>(a, ls);
   } else {
     ffd_lanes_kernel<false><<<B, NT, 0, st>>>(a, ls);

@@ -38,7 +38,9 @@ from ..solver.cuda.consolidate import (
     _V_COUNT0,
     fetch_verdicts,
     replacement_min_price,
+    replicate_shared,
     simulate_subsets,
+    universe_sharding,
 )
 from ..solver.encode import UnpackableInput, encode, quantize_input
 
@@ -226,14 +228,20 @@ class BatchedConsolidationEvaluator:
         # batched axes only, never the constant universe. With the solver's
         # argument arena the universe adopts INTO it: a re-prepare of a
         # shape-identical universe uploads only stale entries as one packed
-        # buffer. The universe keys buckets of its own (UNIVERSE_TAG, where
-        # the JAX package keys them by its mesh sharding), so universe and
-        # single-solve buffers never share a bucket. Without the arena, the
-        # per-array upload shares the static arrays' device copies with
-        # single solves.
+        # buffer. The universe keys buckets of its own: its placement on the
+        # candidate mesh when there is one (a copy on every physical device,
+        # as the JAX package keys them by its mesh sharding), else
+        # UNIVERSE_TAG, so universe and single-solve buffers never share a
+        # bucket. Without the arena, the universe is copied to every
+        # physical device of the mesh, or, on one slot, the per-array upload
+        # shares the static arrays' device copies with single solves.
         arena = getattr(self.solver, "arena", None)
+        placement = universe_sharding(self.solver.device)
         if arena is not None:
-            args = arena.adopt(host_args, prov, sharding=UNIVERSE_TAG)
+            args = arena.adopt(host_args, prov,
+                               sharding=UNIVERSE_TAG if placement is None else placement)
+        elif placement is not None:
+            args = replicate_shared(tuple(host_args), self.solver.device)
         else:
             args = self.solver._device_args(host_args, prov)
 

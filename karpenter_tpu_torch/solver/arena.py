@@ -30,9 +30,22 @@ invariants and equal the JAX ledger's counts on the same solves.
 Residency classes besides the args: the resume donor records
 (`put_checkpoint`, backend._plan_resume), the relax ladder's rung tables
 (`put_ladder`, backend._ladder_arg), the sparse scans' index-table pairs
-(`put_sparse`, backend._sparse_arg) and the streaming stage's host copies
-of the run tables (`apply_run_events`, "run_host"). All die with their
-bucket on `invalidate()` or eviction.
+(`put_sparse`, backend._sparse_arg), the mesh-sharded solve's
+block-boundary carries (`put_shard_record`, backend._plan_shard_resume)
+and the streaming stage's host copies of the run tables
+(`apply_run_events`, "run_host"). All die with their bucket on
+`invalidate()` or eviction.
+
+Placed buckets (a mesh-sharded solve, the consolidation universe on a
+candidate mesh): `adopt(sharding=...)` takes a parallel/sharded.py
+`Placement` for every entry, or a tuple of them aligned with the args. The
+stale entries pack into one buffer per distinct placement; a blocked
+group's bytes go to each physical device for its own slots' rows, a copied
+group lands whole on each physical device (one packed copy and one unpack
+launch per device and group). Each resident entry is then a tuple of
+tensors aligned with the mesh's physical devices. The ledger counts the
+bytes as the JAX ledger does: each stale byte once, one message per
+group, a blocked group's bytes also as shard bytes.
 """
 
 from __future__ import annotations
@@ -43,7 +56,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-_LEDGER_FIELDS = ("h2d_bytes", "h2d_arrays", "h2d_msgs", "d2h_bytes", "d2h_msgs")
+_LEDGER_FIELDS = ("h2d_bytes", "h2d_arrays", "h2d_msgs", "d2h_bytes", "d2h_msgs",
+                  "h2d_shard_bytes")
 
 
 class TransferLedger:
@@ -74,9 +88,14 @@ class TransferLedger:
             self.solves += 1
             self.solve = dict.fromkeys(_LEDGER_FIELDS, 0)
 
-    def record_upload(self, nbytes: int, arrays: int, msgs: int = 1) -> None:
+    def record_upload(self, nbytes: int, arrays: int, msgs: int = 1,
+                      shard_bytes: int = 0) -> None:
+        """`shard_bytes` <= `nbytes`: the part uploaded blocked over a mesh
+        (each device receives only its slots' rows of those bytes; the rest
+        lands whole on every device)."""
         with self._lock:
-            for k, v in (("h2d_bytes", nbytes), ("h2d_arrays", arrays), ("h2d_msgs", msgs)):
+            for k, v in (("h2d_bytes", nbytes), ("h2d_arrays", arrays), ("h2d_msgs", msgs),
+                         ("h2d_shard_bytes", shard_bytes)):
                 self.solve[k] += v
                 self.total[k] += v
 
@@ -99,6 +118,17 @@ class TransferLedger:
         n = sum(self.outcomes.values())
         return self.outcomes["exact_hit"] / n if n else 0.0
 
+    def shard_upload_bytes_per_device(self, n_devices: int) -> float:
+        """Average host->device bytes landing on EACH device per solve under
+        an n-way mesh: blocked bytes split 1/n per device, everything else
+        lands whole. Equals upload_bytes_per_solve at n = 1."""
+        if not self.solves:
+            return 0.0
+        n = max(1, int(n_devices))
+        shard = self.total["h2d_shard_bytes"]
+        repl = self.total["h2d_bytes"] - shard
+        return (repl + shard / n) / self.solves
+
     def end_solve(self) -> Dict[str, int]:
         """Close the per-solve window: return its counters."""
         with self._lock:
@@ -118,6 +148,16 @@ def _nbytes(obj) -> int:
         return len(obj)
     nb = getattr(obj, "nbytes", None)  # torch.Tensor
     return int(nb) if isinstance(nb, int) else 0
+
+
+def _buffer_split(placement) -> int:
+    """How many ways a placed group's packed bytes split (the JAX
+    `_buffer_sharding`'s n_way): a blocked group on a mesh of n >= 2 slots
+    sends each device only its slots' rows, n ways; a copied group lands
+    whole on every device, 1. The ledger counts a split group's bytes as
+    shard bytes."""
+    n = placement.mesh.size
+    return n if placement.blocked and n > 1 else 1
 
 
 def _digest(a: np.ndarray) -> bytes:
@@ -168,6 +208,10 @@ class ArgumentArena:
         # fleet whose constraint layout is unchanged reuses the tables with
         # zero upload
         self._sparse: Dict[tuple, Tuple[bytes, object]] = {}
+        # mesh-sharded residency class (backend._record_shard): per bucket,
+        # the newest sharded solve's block-boundary carries and stitched
+        # rows (host-side), the donor of a shard resume
+        self._shards: Dict[tuple, dict] = {}
         # streaming run-table residency (apply_run_events): host copies (+
         # digests) of the run_group/run_count pair the bucket's device
         # tensors currently hold, so the NEXT solve can diff against them
@@ -183,13 +227,15 @@ class ArgumentArena:
         }
 
     def invalidate(self) -> None:
-        """Drop every resident tensor + tag AND the checkpoints, ladder
-        tables and sparse index tables. Safe to call any time: the next
-        adopt pays one full packed upload and the next solve runs cold."""
+        """Drop every resident tensor + tag (on every device of a placed
+        bucket) AND the checkpoints, ladder tables, sparse index tables and
+        shard records. Safe to call any time: the next adopt pays one full
+        packed upload and the next solve runs cold."""
         self._buckets.clear()
         self._ckpts.clear()
         self._ladders.clear()
         self._sparse.clear()
+        self._shards.clear()
         self._run_host.clear()
         self._bytes.clear()
         self.last_stale = ()
@@ -208,6 +254,7 @@ class ArgumentArena:
         strands a derived record whose donor args are gone."""
         self._buckets.pop(key, None)
         self._ckpts.pop(key, None)
+        self._shards.pop(key, None)
         self._run_host.pop(key, None)
         for lk in [lk for lk in self._ladders if lk[0] == key]:
             self._ladders.pop(lk, None)
@@ -236,8 +283,10 @@ class ArgumentArena:
 
     def bucket_key(self, host_args: tuple, sharding=None, ns=None) -> tuple:
         """Residency key for one dispatch's kernel args. `sharding` is a
-        placement tag (None for single solves); `ns` the tenant namespace
-        (None yields the 2-tuple)."""
+        placement tag (None for single solves), a `Placement` or a tuple of
+        them (their mesh's token is part of the key: a sharded and an
+        unsharded solve of one fleet hold different buckets); `ns` the
+        tenant namespace (None yields the 2-tuple)."""
         shapes = tuple((a.shape, a.dtype.str) for a in host_args)
         if ns is None:
             return (shapes, sharding)
@@ -254,6 +303,17 @@ class ArgumentArena:
 
     def get_checkpoints(self, key: tuple) -> list:
         return self._ckpts.get(key, [])
+
+    def put_shard_record(self, key: tuple, record: dict) -> None:
+        """Record a sharded solve's block-boundary carries + stitched rows
+        for its bucket (one per bucket: the newest sharded solve is the
+        only useful resume donor). Dies on invalidate()."""
+        self._shards[key] = record
+        self._account(key, "shard", _nbytes(record))
+        self._enforce_budget(key)
+
+    def get_shard_record(self, key: tuple):
+        return self._shards.get(key)
 
     def put_ladder(self, key: tuple, host_table: np.ndarray, dev) -> None:
         """Record a bucket's device-resident relax-ladder table (one per
@@ -380,7 +440,12 @@ class ArgumentArena:
         """Return device-resident tensors matching `host_args`, uploading
         only stale entries as ONE packed buffer. `prov` aligns with
         `host_args` (backend.host_kernel_args): a hashable content-identity
-        token per entry, or None to force the digest path."""
+        token per entry, or None to force the digest path. With a
+        `Placement` (or a tuple of them) the entries are placed on its mesh
+        (see the module docstring): one packed buffer per distinct
+        placement, each entry a tuple of tensors over the mesh's physical
+        devices."""
+        from ..parallel.sharded import Placement, device_scope
         from .cuda.arena import pack, upload_packed
 
         self.stats["adopts"] += 1
@@ -418,14 +483,41 @@ class ArgumentArena:
             led.record_adopt("exact_hit")
             self._enforce_budget(key)
             return tuple(dev)
+        full = len(stale) == len(host_args)
+        self.stats["full_uploads" if full else "delta_uploads"] += 1
+        if isinstance(sharding, tuple):  # a Placement, or one per entry
+            placements = ((sharding,) * len(host_args) if isinstance(sharding, Placement)
+                          else sharding)
+            groups: Dict[Placement, List[int]] = {}
+            for i in stale:
+                groups.setdefault(placements[i], []).append(i)
+            total = shard = 0
+            for plc, idxs in groups.items():
+                mesh = plc.mesh
+                per_dev = []
+                for j, d in enumerate(mesh.physical):
+                    rows = mesh.local_slots(j)
+                    parts, off, specs = pack([
+                        np.ascontiguousarray(host_args[i][rows]) if plc.blocked else host_args[i]
+                        for i in idxs])
+                    with device_scope(d):
+                        per_dev.append(upload_packed(parts, off, specs, d))
+                for k, i in enumerate(idxs):
+                    dev[i] = tuple(new[k] for new in per_dev)
+                nb = sum(int(host_args[i].nbytes) for i in idxs)
+                total += nb
+                if _buffer_split(plc) > 1:
+                    shard += nb
+            led.record_upload(total, len(stale), msgs=len(groups), shard_bytes=shard)
+            led.record_adopt("full_upload" if full else "delta_upload")
+            self._enforce_budget(key)
+            return tuple(dev)
         # pack stale entries back to back into one byte buffer -> one copy
         # to the device -> one unpack launch into typed tensors
         parts, off, specs = pack([host_args[i] for i in stale])
         new = upload_packed(parts, off, specs, self.device)
         for j, i in enumerate(stale):
             dev[i] = new[j]
-        full = len(stale) == len(host_args)
-        self.stats["full_uploads" if full else "delta_uploads"] += 1
         led.record_upload(off, len(stale), msgs=1)
         led.record_adopt("full_upload" if full else "delta_upload")
         self._enforce_budget(key)

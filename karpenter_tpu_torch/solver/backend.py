@@ -1,8 +1,7 @@
 """The solver seam and the GPU backend: the port of
 karpenter_tpu/solver/backend.py for the provisioning solve.
 
-`TorchSolver` is the counterpart of `TPUSolver()` at its defaults with no
-mesh sharding: encode -> padded
+`TorchSolver` is the counterpart of `TPUSolver()` at its defaults: encode -> padded
 kernel args -> upload through the argument arena (solver/arena.py: only
 stale entries, packed into one buffer, one copy, one unpack launch; an
 exact repeat uploads nothing) -> the checkpointed FFD scan, with the zoned
@@ -48,6 +47,19 @@ batched_solve, K15; pad_batch, K16), each lane fetched and decoded on its
 own. `stream_run_events = True` syncs the resident run tables through an
 edit-triplet scatter (arena.apply_run_events, K14) before each solve's
 adopt.
+
+`shards=N` (N >= 2) partitions one solve's run axis over a device mesh
+(`_sharded_solve_async`, the JAX backend's mesh-sharded solve): the mesh
+is the largest power of 2 <= min(N, device slots, 16) (parallel/sharded.py
+device_slots: the visible CUDA devices, or the slots of virtual_devices);
+the padded run axis splits into Nd contiguous blocks, each scanned from
+the initial carry (K17, or K17s under the sparse gate; one launch per
+physical device), and the host stitches the blocks left to right: a block
+is accepted with its claims renumbered, or replayed from the true carry
+through ffd_resume (K7 / K7s) on the mesh's first device. A later solve
+whose run list shares whole blocks with the bucket's last sharded solve
+replays only the changed tail from the recorded block-boundary carry. With
+fewer than 2 slots the solve takes the single-device path, uncounted.
 
 Inputs outside the port raise `UnsupportedInput`; there is no CPU
 fallback solver. A later slice lifts one decline at a time.
@@ -708,12 +720,14 @@ class TorchSolver(Solver):
     the run suffix of a later solve that shares a prefix with it. `sparse`
     ("auto" | "on" | "off") picks the sparse scan twins by the density gate,
     for any constrained fleet, or never; `device_decode=False` fetches the
-    dense output pack. The defaults are TPUSolver's."""
+    dense output pack. `shards` >= 2 partitions each solve's run axis over
+    a device mesh (see the module docstring); 0 or 1 keeps every solve on
+    one device. The defaults are TPUSolver's."""
 
     def __init__(self, max_claims: int = 1024, device=None, relax_ladder: bool = True,
                  arena: bool = True, resume: bool = True, ckpt_every: int = 16,
                  ckpt_slots: int = 4, arena_budget_mb: int = 0, sparse: str = "auto",
-                 device_decode: bool = True):
+                 device_decode: bool = True, shards: int = 0):
         if sparse not in ("auto", "on", "off"):
             raise ValueError(f"sparse must be auto/on/off, got {sparse!r}")
         self.sparse = sparse
@@ -739,7 +753,15 @@ class TorchSolver(Solver):
             # streaming run-table staging and the fused cohort dispatch
             "event_stage_hits": 0, "event_stage_misses": 0,
             "fused_dispatches": 0, "fused_members": 0,
+            # the mesh-sharded solve
+            "sharded_solves": 0, "shard_fixup_runs": 0, "sharded_fallbacks": 0,
+            "shard_resume_solves": 0, "shard_resume_runs_skipped": 0,
         }
+        # mesh-sharded provisioning solve: shards >= 2 partitions ONE
+        # solve's run axis over a mesh of the largest power of 2 <=
+        # min(shards, device slots, 16) (_shard_mesh), cached per slot list
+        self.shards = max(0, int(shards))
+        self._shard_meshes: Dict[tuple, object] = {}
         # streaming run-table staging: when on, each device solve first
         # tries to sync the arena's resident run tables through an
         # edit-triplet scatter (arena.apply_run_events, K14) so adopt() sees
@@ -864,6 +886,10 @@ class TorchSolver(Solver):
             return None
         enc = encode(qinp)
         if enc.group_fallback.any() or enc.has_topology or enc.has_affinity or enc.G == 0:
+            return None
+        if self.shards >= 2:
+            # the mesh-sharded run-axis solve partitions ONE solve across
+            # the mesh; it cannot also carry a cohort lane axis
             return None
         try:
             host_args, dims, prov = host_kernel_args(enc, self._bucket)
@@ -1241,19 +1267,27 @@ class TorchSolver(Solver):
         return use_sparse_constraints(enc)
 
     def _sparse_arg(self, host_args, enc: EncodedInput, run_q_idx: np.ndarray,
-                    run_v_idx: np.ndarray, ns=None):
+                    run_v_idx: np.ndarray, sharding=None, dev_sharding=None, ns=None):
         """Upload (or reuse) the sparse index pair: with the arena a
         per-bucket residency class whose token is the encode core rev plus
-        the tables' digests (two messages when it uploads)."""
+        the tables' digests (two messages when it uploads). A sharded solve
+        passes its bucket's `sharding` and the index tables' blocked
+        placement (`dev_sharding`, parallel/sharded.py Placement): each
+        table is then a tuple of tensors over the mesh's physical devices,
+        each device holding its slots' blocks."""
+        from ..parallel.sharded import place
         from .convert import array_to_torch
 
         key = None
         if self.arena is not None:
-            key = self.arena.bucket_key(host_args, ns=ns)
+            key = self.arena.bucket_key(host_args, sharding, ns=ns)
             dev = self.arena.get_sparse(key, enc.core_rev, run_q_idx, run_v_idx)
             if dev is not None:
                 return dev
-        dev = (array_to_torch(run_q_idx, self.device), array_to_torch(run_v_idx, self.device))
+        if dev_sharding is not None:
+            dev = (place(run_q_idx, dev_sharding), place(run_v_idx, dev_sharding))
+        else:
+            dev = (array_to_torch(run_q_idx, self.device), array_to_torch(run_v_idx, self.device))
         self.ledger.record_upload(run_q_idx.nbytes + run_v_idx.nbytes, 2, msgs=2)
         if key is not None:
             self.arena.put_sparse(key, enc.core_rev, run_q_idx, run_v_idx, dev)
@@ -1426,6 +1460,13 @@ class TorchSolver(Solver):
         # the JAX backend (zone_engine=enc.V > 0)
         zone = enc.V > 0
         check_kernel_limits(dims, host_args, zone, self.device)
+        if self.shards >= 2:
+            # the mesh-sharded run-axis solve; a decline (no usable mesh, a
+            # run axis narrower than the mesh) takes the single-device path
+            # below, decision-identical
+            sharded = self._sharded_solve_async(enc, host_args, dims, prov)
+            if sharded is not None:
+                return sharded
         # the ledger's per-solve window: every byte of this solve's upload
         # and fetches (closed in finish)
         self.ledger.begin_solve()
@@ -1454,11 +1495,7 @@ class TorchSolver(Solver):
                                     sparse=sparse)
             finally:
                 self.ledger.end_solve()
-            if res is None:
-                raise UnsupportedInput(
-                    f"the solve needs more than max_claims={self.max_claims} claims"
-                )
-            return res
+            return _claims_fit(res, self.max_claims)
 
         return finish
 
@@ -1681,6 +1718,473 @@ class TorchSolver(Solver):
             self._stash_explain(enc, res, out, plan)
         return res
 
+
+    # -- mesh-sharded solve ------------------------------------------------------
+    #
+    # The JAX backend's mesh-sharded run-axis solve (backend.py:2583-3296),
+    # its single-process branches: block-local scans from the initial carry,
+    # then a host stitch that accepts a block whose interactions with the
+    # prefix it can rule out, or replays it from the true prefix carry
+    # (ffd_resume: sequentially exact by construction). Decision identity
+    # with the one-device scan is by induction over blocks.
+
+    # FFDState fields indexed by claim slot: the rows the accept path
+    # renumbers by the prefix claim offset
+    _SHARD_CLAIM_FIELDS = ("c_cum", "c_mask", "c_zc_bits", "c_gbits",
+                           "c_pool", "c_cm", "c_co", "c_vm", "c_vo")
+
+    def _shard_mesh(self):
+        """The mesh of mesh-sharded solves: the largest power of 2 <=
+        min(shards, device slots, 16) on a "shards" axis, or None with fewer
+        than 2 usable slots. The 16 cap is ffd.SHARD_BLOCK_MULT: the padded
+        run axis is a multiple of 16, so any mesh this returns divides it.
+        Cached per slot list (parallel/sharded.py device_slots), so leaving
+        virtual_devices restores the single-device path. No try around the
+        construction (ROADMAP §C.11)."""
+        if self.shards < 2:
+            return None
+        from ..parallel.sharded import device_slots, make_mesh
+
+        slots = device_slots(self.device)
+        if slots not in self._shard_meshes:
+            limit = min(self.shards, len(slots), 16)
+            n = 1
+            while n * 2 <= limit:
+                n *= 2
+            self._shard_meshes[slots] = make_mesh(n, "shards", self.device) if n >= 2 else None
+        return self._shard_meshes[slots]
+
+    def _shard_bases(self, host_args) -> dict:
+        """The non-zero initial values of the scan carry (state0 seeds
+        p_usage/e_cm/e_co/v_count from these tables), as host int32: the
+        additive combine subtracts them so a block's LOCAL deltas add onto
+        the true prefix carry exactly once."""
+        return {
+            "p_usage": np.asarray(host_args[ARG_INDEX["pool_usage0"]], dtype=np.int32),
+            "e_cm": np.asarray(host_args[ARG_INDEX["node_q_member"]], dtype=np.int32),
+            "e_co": np.asarray(host_args[ARG_INDEX["node_q_owner"]], dtype=np.int32),
+            "v_count": np.asarray(host_args[ARG_INDEX["v_count0"]], dtype=np.int32),
+        }
+
+    @staticmethod
+    def _shard_state0(lane_state, bases) -> dict:
+        """Host analog of the kernel's initial carry (shapes from one lane's
+        fetched state): the stitch's running true carry starts here."""
+        from .cuda.ffd import FFDState
+
+        st = {f: np.zeros_like(np.asarray(getattr(lane_state, f)[0])) for f in FFDState._fields}
+        st["c_pool"] = np.full_like(st["c_pool"], -1)
+        for f in ("p_usage", "e_cm", "e_co", "v_count"):
+            st[f] = bases[f].copy()
+        return st
+
+    def _sharded_solve_async(self, enc: EncodedInput, host_args, dims, prov):
+        """Dispatch one solve mesh-sharded; None declines to the
+        single-device path (a run axis narrower than the mesh counts as a
+        decline; no mesh is the normal shape of a one-slot rig and does
+        not)."""
+        from ..parallel.sharded import Placement, mesh_solve, place
+        from .encode import mesh_run_blocks
+
+        mesh = self._shard_mesh()
+        if mesh is None:
+            return None
+        Nd = mesh.size
+        S = dims["S"]
+        Sp = int(host_args[0].shape[0])
+        if S < Nd or Sp % Nd:
+            # tiny_fleet: a run axis narrower than the mesh (the reference
+            # also labels a metric with the reason, which waits for A7)
+            self.stats["sharded_fallbacks"] += 1
+            return None
+        Sblk = Sp // Nd
+        rgb, rcb = mesh_run_blocks(np.asarray(host_args[0]), np.asarray(host_args[1]), Nd)
+        sh_args = (rgb, rcb) + tuple(host_args[2:])
+        # the run blocks split over the slots, every other table a copy on
+        # each physical device; the mesh is part of the bucket key
+        blocked, repl = Placement(mesh, True), Placement(mesh, False)
+        shardings = (blocked, blocked) + (repl,) * (len(host_args) - 2)
+        self.ledger.begin_solve()
+        key = None
+        if self.arena is not None:
+            args = self.arena.adopt(sh_args, prov, sharding=shardings, ns=enc.tenant_id)
+            key = self.arena.bucket_key(sh_args, shardings, ns=enc.tenant_id)
+        else:
+            args = tuple(place(a, plc) for a, plc in zip(sh_args, shardings))
+            self.ledger.record_upload(sum(a.nbytes for a in sh_args), len(sh_args),
+                                      msgs=len(sh_args), shard_bytes=rgb.nbytes + rcb.nbytes)
+        zone = enc.V > 0
+        sparse = None
+        if self._sparse_gate(enc):
+            # the index tables blocked like the runs: each lane reads only
+            # its block's rows
+            rqi, rvi = sparse_run_tables(enc, Sp)
+            sqb = np.ascontiguousarray(rqi.reshape(Nd, Sblk, -1))
+            svb = np.ascontiguousarray(rvi.reshape(Nd, Sblk, -1))
+            dev_pair = self._sparse_arg(sh_args, enc, sqb, svb, sharding=shardings,
+                                        dev_sharding=blocked, ns=enc.tenant_id)
+            sparse = {"host": (rqi, rvi), "dev": dev_pair}
+        total_pods = int(sum(len(p) for p in enc.group_pods))
+        M0 = initial_claim_bucket(total_pods, self.max_claims)
+        plan = self._plan_shard_resume(enc, key, M0, S, Nd, Sblk)
+        if plan is not None:
+            return self._dispatch_shard_resume(enc, host_args, dims, mesh, args, plan, M0, Nd,
+                                               Sblk, sparse=sparse)
+        if sparse is not None:
+            self.stats["sparse_dispatches"] += 1
+        out = mesh_solve(mesh, args, M0, zone, sparse and sparse["dev"])
+
+        def finish() -> SolverResult:
+            try:
+                res = self._sharded_finish(enc, host_args, dims, mesh, args, out, M0, key,
+                                           sparse=sparse)
+            finally:
+                self.ledger.end_solve()
+            return _claims_fit(res, self.max_claims)
+
+        return finish
+
+    def _sharded_finish(self, enc, host_args, dims, mesh, args, out, M0: int, key,
+                        sparse=None) -> Optional[SolverResult]:
+        """Stitch loop with claim-overflow doubling: a saturated stitch
+        redispatches the whole sharded solve at the doubled bucket against
+        the same resident args. None: the solve needs more than max_claims
+        claims (the caller raises, as the single-device path does)."""
+        from ..parallel.sharded import mesh_solve
+
+        zone = enc.V > 0
+        M, cur = M0, out
+        while True:
+            res = self._shard_stitch(enc, host_args, dims, mesh, args, cur, M, sparse=sparse)
+            if res is not None:
+                break
+            if M >= self.max_claims:
+                return None
+            M = min(M * 2, self.max_claims)
+            self.stats["claim_doublings"] += 1
+            cur = mesh_solve(mesh, args, M, zone, sparse and sparse["dev"])
+        take_e_p, take_c_p, leftover_p, P, fixup, carries = res
+        self.stats["sharded_solves"] += 1
+        self.stats["shard_fixup_runs"] += fixup
+        res_out = self._shard_decode(enc, dims, take_e_p, take_c_p, leftover_p, P)
+        self._record_shard(enc, key, M, dims["S"], len(carries), carries, take_e_p, take_c_p,
+                           leftover_p)
+        return res_out
+
+    def _shard_stitch(self, enc, host_args, dims, mesh, args, out, M: int, sparse=None):
+        """Fetch the lane-local outputs (one message) and stitch blocks left
+        to right under the running TRUE carry P. Returns (take_e [Sp, Ep],
+        take_c [Sp, M], leftover [Sp], final carry dict, fixup_runs,
+        block-boundary carries) or None when any path saturates the claim
+        bucket.
+
+        Block d ACCEPTS iff all of (evaluated against P at block start —
+        valid for every run of the block because claim capacity/type masks/
+        offering bits only shrink and node/pool state only grows):
+          (a) no run of the block resource+compat-fits ANY open claim of P
+              (the fit test ignores offering bits, pair compatibility and
+              pool admission: a strict SUPERSET of the pours the scan can
+              make, so "no superset fit" proves it pours nothing into prefix
+              claims);
+          (b) the prefix never touched existing nodes (e_cum at zero,
+              hostname counts at their seeds);
+          (c) no finite-limit pool's usage moved from its seed;
+          (d) P.used + lane.used <= M and the lane itself never saturated;
+          (e) no spread counter the block's groups TOUCH (V sigs they are
+              member or owner of) moved from its seed, and no touched sig
+              gained a committed owner zone;
+          (f) no touched positive-affinity (kind-2) Q sig has membership or
+              ownership recorded on a PREFIX claim.
+        Otherwise the block REPLAYS through ffd_resume (K7; K7s under the
+        sparse gate) from P on the mesh's first device, and its real runs
+        count as fix-up runs."""
+        from ..parallel.sharded import device_scope, gather_lanes, on_device
+        from .convert import array_to_torch, output_to_host, state_to_torch
+        from .cuda.ffd import FFDState, ffd_resume, ffd_resume_sparse
+
+        INT32_MAX_NP = np.int32(2**31 - 1)
+        h = gather_lanes(mesh, out)
+        self.ledger.record_fetch(_fetched_bytes(h), msgs=1)
+        st = h.state
+        Nd = int(st.used.shape[0])
+        Sblk = int(h.take_e.shape[1])
+        bases = self._shard_bases(host_args)
+        P = self._shard_state0(st, bases)
+        rg = np.asarray(host_args[0]).reshape(Nd, Sblk)
+        rc = np.asarray(host_args[1]).reshape(Nd, Sblk)
+        type_alloc = np.asarray(host_args[ARG_INDEX["type_alloc"]])
+        group_req = np.asarray(host_args[ARG_INDEX["group_req"]])
+        group_compat_t = np.asarray(host_args[ARG_INDEX["group_compat_t"]])
+        pool_limit = np.asarray(host_args[ARG_INDEX["pool_limit"]])
+        finite_pool = (pool_limit < INT32_MAX_NP).any(axis=1)
+        # per-block constraint touch masks (conditions (e)/(f)): which V/Q
+        # sigs each block's groups can read
+        has_vq = enc.V > 0 or enc.Q > 0
+        if has_vq:
+            v_act = (np.asarray(host_args[ARG_INDEX["v_member"]], bool)
+                     | np.asarray(host_args[ARG_INDEX["v_owner"]], bool))
+            q_act = (np.asarray(host_args[ARG_INDEX["q_member"]], bool)
+                     | np.asarray(host_args[ARG_INDEX["q_owner"]], bool))
+            q_kind2 = np.asarray(host_args[ARG_INDEX["q_kind"]]) == 2
+        zone = enc.V > 0
+        dev0 = mesh.physical[0]
+        args0 = on_device(args, 0)
+        kw = dict(max_claims=M, zone_engine=zone, ckpt_every=self.ckpt_every,
+                  n_ckpt=self.ckpt_slots)
+        rows_e, rows_c, rows_l, carries = [], [], [], []
+        fixup = 0
+        for d in range(Nd):
+            real = rc[d] > 0
+            n_real = int(real.sum())
+            if n_real == 0:
+                # pure padding block: no-op lanes, nothing to stitch
+                rows_e.append(h.take_e[d])
+                rows_c.append(np.zeros((Sblk, M), h.take_c.dtype))
+                rows_l.append(h.leftover[d])
+                carries.append({f: v.copy() for f, v in P.items()})
+                continue
+            lane_used = int(st.used[d])
+            offset = int(P["used"])
+            replay = lane_used >= M or offset + lane_used > M  # (d)
+            if not replay and d > 0:
+                if P["e_cum"].any() or (P["e_cm"] != bases["e_cm"]).any() \
+                        or (P["e_co"] != bases["e_co"]).any():
+                    replay = True  # (b)
+                elif (finite_pool[:, None] & (P["p_usage"] != bases["p_usage"])).any():
+                    replay = True  # (c)
+                if not replay and has_vq:
+                    gs = np.unique(rg[d][real])
+                    v_t = v_act[gs].any(axis=0) if v_act.size else np.zeros(0, bool)
+                    if v_t.any() and ((P["v_count"][v_t] != bases["v_count"][v_t]).any()
+                                      or P["v_owner_z"][v_t].any()):
+                        replay = True  # (e)
+                    else:
+                        q2_t = (q_act[gs].any(axis=0) & q_kind2 if q_act.size
+                                else np.zeros(0, bool))
+                        if q2_t.any() and (P["c_cm"][:, q2_t].any() or P["c_co"][:, q2_t].any()):
+                            replay = True  # (f)
+                if not replay and offset > 0:
+                    open_m = np.flatnonzero(P["c_pool"] >= 0)
+                    if open_m.size:
+                        # (a) superset fit: claim survives if EVERY nonzero
+                        # request axis still fits under some surviving type
+                        # the group tolerates
+                        room = (type_alloc[None, :, :].astype(np.int64)
+                                - P["c_cum"][open_m][:, None, :])  # [m, Tp, R]
+                        cmask = P["c_mask"][open_m]  # [m, Tp]
+                        for g in np.unique(rg[d][real]):
+                            req = group_req[int(g)]
+                            fit = ((room >= req[None, None, :])
+                                   | (req[None, None, :] == 0)).all(axis=2)
+                            if (fit & cmask & group_compat_t[int(g)][None, :]).any():
+                                replay = True
+                                break
+            if not replay:
+                u = lane_used
+                row_c = np.zeros((Sblk, M), h.take_c.dtype)
+                if u:
+                    row_c[:, offset:offset + u] = h.take_c[d][:, :u]
+                    for f in self._SHARD_CLAIM_FIELDS:
+                        P[f][offset:offset + u] = getattr(st, f)[d][:u]
+                P["used"] = np.int32(offset + u)
+                P["e_cum"] = P["e_cum"] + st.e_cum[d]
+                P["e_cm"] = P["e_cm"] + st.e_cm[d] - bases["e_cm"]
+                P["e_co"] = P["e_co"] + st.e_co[d] - bases["e_co"]
+                P["p_usage"] = P["p_usage"] + st.p_usage[d] - bases["p_usage"]
+                P["v_count"] = P["v_count"] + st.v_count[d] - bases["v_count"]
+                P["v_owner_z"] = P["v_owner_z"] | st.v_owner_z[d]
+                rows_e.append(h.take_e[d])
+                rows_c.append(row_c)
+                rows_l.append(h.leftover[d])
+            else:
+                # fix-up replay: the block re-runs sequentially from the
+                # true carry; claims number from P.used automatically
+                fixup += n_real
+                self.ledger.record_upload(
+                    sum(v.nbytes for v in P.values()) + rg[d].nbytes + rc[d].nbytes,
+                    len(P) + 2, msgs=3)
+                with device_scope(dev0):
+                    init = state_to_torch(P, dev0)
+                    dev_sg = array_to_torch(rg[d], dev0)
+                    dev_sc = array_to_torch(rc[d], dev0)
+                    if sparse is not None:
+                        rqi, rvi = sparse["host"]
+                        sq_blk = rqi.reshape(Nd, Sblk, -1)[d]
+                        sv_blk = rvi.reshape(Nd, Sblk, -1)[d]
+                        self.ledger.record_upload(sq_blk.nbytes + sv_blk.nbytes, 2, msgs=2)
+                        r_out, _ = ffd_resume_sparse(
+                            init, array_to_torch(sq_blk, dev0), array_to_torch(sv_blk, dev0),
+                            dev_sg, dev_sc, *args0[2:], **kw)
+                    else:
+                        r_out, _ = ffd_resume(init, dev_sg, dev_sc, *args0[2:], **kw)
+                rh = output_to_host(r_out)
+                self.ledger.record_fetch(_fetched_bytes(rh), msgs=1)
+                if int(rh.state.used) >= M:
+                    return None  # replay saturated the bucket: double M
+                P = {f: np.array(getattr(rh.state, f)) for f in FFDState._fields}
+                rows_e.append(rh.take_e)
+                rows_c.append(rh.take_c)
+                rows_l.append(rh.leftover)
+            carries.append({f: np.copy(v) for f, v in P.items()})
+        if int(P["used"]) > M:
+            return None
+        return (np.concatenate(rows_e), np.concatenate(rows_c), np.concatenate(rows_l), P,
+                fixup, carries)
+
+    def _shard_decode(self, enc, dims, take_e_p, take_c_p, leftover_p, P) -> SolverResult:
+        """Dense decode of the stitched tables; the stitched carry already
+        lives host-side, so the claim metadata unpacks straight from it."""
+        S, E, T, G = dims["S"], dims["E"], dims["T"], dims["G"]
+        Z, C = dims["Z"], dims["C"]
+        c_mask = np.asarray(P["c_mask"])[:, :T]
+        c_zone, c_ct = unpack_zc_bits(np.asarray(P["c_zc_bits"]).view(np.uint32), Z, C)
+        c_gmask = _unpack_gmask(np.asarray(P["c_gbits"]).view(np.uint32), G)
+        return decode(enc, take_e_p[:S, :E], take_c_p[:S], leftover_p[:S], c_mask, c_zone,
+                      c_ct, np.asarray(P["c_pool"]), c_gmask, np.asarray(P["c_cum"]),
+                      int(P["used"]))
+
+    def _record_shard(self, enc, key, M: int, S: int, Nd: int, carries, take_e_p, take_c_p,
+                      leftover_p) -> None:
+        """Record the sharded solve as its bucket's shard-resume donor: the
+        block-boundary carries ARE the per-slot checkpoints (host-side:
+        they crossed during the stitch), so a later solve differing only
+        from block b onward replays one suffix from carries[b-1]."""
+        if not self.resume or self.arena is None or key is None:
+            return
+        from . import encode_cache as ec
+
+        ident = ec.run_identity(enc)
+        if not ident or len(ident) != S:
+            return
+        ctx = self.arena.context_signature(
+            key, exclude=(ARG_INDEX["run_group"], ARG_INDEX["run_count"]))
+        if ctx is None:
+            return
+        self.arena.put_shard_record(key, {
+            "run_ident": ident,
+            "M": M,
+            "n_shards": Nd,
+            "zone_engine": enc.V > 0,
+            "ctx_sig": ctx,
+            "carries": carries,
+            "take_e": np.asarray(take_e_p),
+            "take_c": np.asarray(take_c_p),
+            "leftover": np.asarray(leftover_p),
+        })
+
+    def _plan_shard_resume(self, enc, key, M0: int, S: int, Nd: int, Sblk: int):
+        """Newest valid shard record reusable from a whole-block boundary:
+        same bucket / claim bucket / mesh width, byte-identical non-run
+        context (the arena signature), and a run-identity common prefix
+        covering b >= 1 complete blocks. Identical run lists keep the
+        zero-upload cold path."""
+        if not self.resume or self.arena is None or key is None:
+            return None
+        from . import encode_cache as ec
+
+        rec = self.arena.get_shard_record(key)
+        if rec is None or rec["M"] != M0 or rec["n_shards"] != Nd \
+                or rec.get("zone_engine", False) != (enc.V > 0):
+            return None
+        ctx = self.arena.context_signature(
+            key, exclude=(ARG_INDEX["run_group"], ARG_INDEX["run_count"]))
+        if ctx is None or ctx != rec["ctx_sig"]:
+            return None
+        cur = ec.run_identity(enc)
+        if not cur or len(cur) != S:
+            return None
+        lcp = ec.run_lcp(rec["run_ident"], cur)
+        if lcp == len(cur) == len(rec["run_ident"]):
+            return None  # exact hit: the cold sharded path uploads nothing
+        b = min(lcp // Sblk, Nd - 1)
+        if b < 1:
+            return None
+        return {"b": b, "carry": rec["carries"][b - 1], "rec": rec}
+
+    def _dispatch_shard_resume(self, enc, host_args, dims, mesh, args, plan, M: int, Nd: int,
+                               Sblk: int, sparse=None):
+        """Replay only blocks [b:] as ONE ffd_resume (K7; K7s under the
+        sparse gate) from the recorded block-boundary carry, on the mesh's
+        first device; rows [0, b*Sblk) splice from the donor record."""
+        from ..parallel.sharded import device_scope, mesh_solve, on_device
+        from .convert import array_to_torch, output_to_host, state_to_torch
+        from .cuda.ffd import ffd_resume, ffd_resume_sparse
+
+        b = plan["b"]
+        k = b * Sblk
+        Sp = int(host_args[0].shape[0])
+        carry = plan["carry"]
+        sg = np.asarray(host_args[0])[k:Sp]
+        sc = np.asarray(host_args[1])[k:Sp]
+        zone = enc.V > 0
+        dev0 = mesh.physical[0]
+        args0 = on_device(args, 0)
+        kw = dict(max_claims=M, zone_engine=zone, ckpt_every=self.ckpt_every,
+                  n_ckpt=self.ckpt_slots)
+        self.ledger.record_upload(
+            sum(v.nbytes for v in carry.values()) + sg.nbytes + sc.nbytes, len(carry) + 2,
+            msgs=3)
+        with device_scope(dev0):
+            init = state_to_torch(carry, dev0)
+            dev_sg, dev_sc = array_to_torch(sg, dev0), array_to_torch(sc, dev0)
+            if sparse is not None:
+                rqi, rvi = sparse["host"]
+                self.ledger.record_upload(rqi[k:Sp].nbytes + rvi[k:Sp].nbytes, 2, msgs=2)
+                out, _ = ffd_resume_sparse(init, array_to_torch(rqi[k:Sp], dev0),
+                                           array_to_torch(rvi[k:Sp], dev0), dev_sg, dev_sc,
+                                           *args0[2:], **kw)
+            else:
+                out, _ = ffd_resume(init, dev_sg, dev_sc, *args0[2:], **kw)
+
+        def finish() -> SolverResult:
+            try:
+                rh = output_to_host(out)
+                self.ledger.record_fetch(_fetched_bytes(rh), msgs=1)
+                if int(rh.state.used) >= M:
+                    # the suffix overflowed the donor's bucket: redo COLD
+                    # sharded at the doubled bucket (resident args reused)
+                    res = None
+                    if M < self.max_claims:
+                        M2 = min(M * 2, self.max_claims)
+                        self.stats["claim_doublings"] += 1
+                        cold = mesh_solve(mesh, args, M2, zone, sparse and sparse["dev"])
+                        res = self._sharded_finish(enc, host_args, dims, mesh, args, cold, M2,
+                                                   None, sparse=sparse)
+                    return _claims_fit(res, self.max_claims)
+                rec = plan["rec"]
+                pre_c = rec["take_c"][:k]
+                if rec["take_c"].shape[1] < M:
+                    pad = np.zeros((k, M - rec["take_c"].shape[1]), pre_c.dtype)
+                    pre_c = np.concatenate([pre_c, pad], axis=1)
+                take_e_p = np.concatenate([rec["take_e"][:k], rh.take_e])
+                take_c_p = np.concatenate([pre_c, rh.take_c])
+                leftover_p = np.concatenate([rec["leftover"][:k], rh.leftover])
+                P = {f: np.asarray(getattr(rh.state, f)) for f in rh.state._fields}
+                self.stats["sharded_solves"] += 1
+                self.stats["shard_resume_solves"] += 1
+                self.stats["shard_resume_runs_skipped"] += k
+                return self._shard_decode(enc, dims, take_e_p, take_c_p, leftover_p, P)
+            finally:
+                self.ledger.end_solve()
+
+        return finish
+
+
+def _claims_fit(res: Optional[SolverResult], max_claims: int) -> SolverResult:
+    """A finished solve, or the refusal when it needs more than max_claims
+    claims (the reference hands that solve to its fallback chain; the port
+    has none)."""
+    if res is None:
+        raise UnsupportedInput(f"the solve needs more than max_claims={max_claims} claims")
+    return res
+
+
+def _fetched_bytes(h) -> int:
+    """Bytes of one fetched scan output as the JAX ledger counts them: the
+    take tables, the leftovers and the carry (`events` is the port's own
+    diagnostic)."""
+    return int(h.take_e.nbytes + h.take_c.nbytes + h.leftover.nbytes
+               + sum(f.nbytes for f in h.state))
 
 def explain_args(enc: EncodedInput, Sp: int, Ep: int):
     """The explain side kernel's tables (cuda/ffd.py EXPLAIN_ARG_SPEC after

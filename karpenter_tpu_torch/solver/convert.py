@@ -56,6 +56,15 @@ def output_to_numpy(out: FFDOutput) -> dict:
     }
 
 
+def output_to_host(out: FFDOutput) -> FFDOutput:
+    """A fetched FFDOutput: every field a numpy array with the port's
+    dtypes (uint32 words stay int32 bit patterns)."""
+    return FFDOutput(take_e=out.take_e.cpu().numpy(), take_c=out.take_c.cpu().numpy(),
+                     leftover=out.leftover.cpu().numpy(),
+                     state=FFDState(*(f.cpu().numpy() for f in out.state)),
+                     events=out.events.cpu().numpy())
+
+
 def state_to_torch(state, device) -> FFDState:
     """An FFDState of arrays (the JAX package's, or state_to_numpy's dict)
     -> the port's FFDState on `device`."""

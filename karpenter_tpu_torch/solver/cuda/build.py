@@ -6,7 +6,8 @@ started together, so the build takes as long as the slowest source. Each
 library lands in build/karpenter_tpu_torch/ at the repository root, named
 by a hash of its source and of the sources it includes (the sparse scan
 instances are ffd_kernels.cu built a second time with FFD_SPARSE_ONLY, the
-lane-batched scan a third time with FFD_LANES_ONLY), so
+lane-batched scan a third time with FFD_LANES_ONLY, the sparse lanes of a
+mesh-sharded solve a fourth time with FFD_LANES_ONLY and FFD_LANES_SPARSE), so
 an edited source rebuilds and an unchanged one loads at once. ptxas's
 resource report (registers, spills per kernel) is kept beside each library
 and read into BUILD_LOG either way. A missing nvcc or a failed build
@@ -28,15 +29,17 @@ SOURCES = {
     "ffd_kernels": PKG_ROOT / "csrc" / "ffd_kernels.cu",
     "ffd_sparse_kernels": PKG_ROOT / "csrc" / "ffd_sparse_kernels.cu",
     "ffd_lanes_kernels": PKG_ROOT / "csrc" / "ffd_lanes_kernels.cu",
+    "ffd_lanes_sparse_kernels": PKG_ROOT / "csrc" / "ffd_lanes_sparse_kernels.cu",
     "arena_kernels": PKG_ROOT / "csrc" / "arena_kernels.cu",
     "class_kernels": PKG_ROOT / "csrc" / "class_kernels.cu",
     "convex_kernels": PKG_ROOT / "csrc" / "convex_kernels.cu",
 }
 # sources a library includes besides its own (their bytes enter its hash)
 INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
-            "ffd_lanes_kernels": (SOURCES["ffd_kernels"],)}
+            "ffd_lanes_kernels": (SOURCES["ffd_kernels"],),
+            "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the three *_zone_max_v queries take the same arguments and ignore them)
+# (the four *_zone_max_v queries take the same arguments and ignore them)
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
@@ -44,6 +47,7 @@ LAUNCHERS = {
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
                            "ffd_ckpt_sparse_launch", "ffd_sparse_zone_max_v"),
     "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_zone_max_v"),
+    "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_zone_max_v"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
     "convex_kernels": ("admm_pack_launch",),

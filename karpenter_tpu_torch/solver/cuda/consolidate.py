@@ -28,8 +28,16 @@ Two kernels, each with a plain PyTorch version beside it:
   bit-packed type mask in one int32 buffer, so a dispatch is one fetch.
 
 A CUDA tensor launches the kernel, a CPU tensor runs the plain version.
-The multi-device forms of the JAX module (`_sharded_ffd`, the candidate
-mesh, `replicate_shared`) are not here: the batch runs on one card.
+
+With more than one device slot (parallel/sharded.py device_slots: several
+visible cards, or virtual_devices), the batch axis splits over the
+candidate mesh as in the JAX module: `candidate_mesh` holds one slot per
+device slot, the universe lies whole on every physical device
+(`universe_sharding`, `replicate_shared`), the batch bucket divides over
+the slots, slot s owns rows [s B/n, (s+1) B/n), and `_sharded_ffd` (K18)
+runs K4 once per physical device over its slots' rows and gathers the
+outputs on the mesh's first device in row order, where K5 packs them. On
+one card all slots are that card: one K4 launch over every row.
 """
 
 from __future__ import annotations
@@ -39,6 +47,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ...parallel.sharded import (
+    Mesh,
+    Placement,
+    device_scope,
+    device_slots,
+    on_device,
+    place,
+    slot_rows,
+)
 from . import ffd
 from .ffd import ARG_INDEX, I32, FFDOutput, FFDState, _i32_bits, ffd_solve_plain
 
@@ -149,6 +166,77 @@ def batched_ffd(shared_args, b_run_count, b_v_count0, cand_member, node_cand,
                              max_claims, zone_engine)
 
 
+# The candidate mesh per slot list (the JAX module builds its one process
+# mesh once; keying on the slot list lets virtual_devices come and go)
+_MESHES: dict = {}
+
+
+def make_candidate_mesh(devices) -> Mesh:
+    """The flat 1-D mesh of the candidate batch axis over the device slots
+    `devices`. Single host only: the JAX module's two-level (dcn, ici) mesh
+    for hosts > 1 waits for the multi-process mesh (ROADMAP A15)."""
+    return Mesh(devices, "candidates")
+
+
+def candidate_mesh(device="cuda") -> Optional[Mesh]:
+    """The candidate mesh of `device`'s type, or None with one slot."""
+    slots = device_slots(device)
+    if slots not in _MESHES:
+        _MESHES[slots] = make_candidate_mesh(slots) if len(slots) > 1 else None
+    return _MESHES[slots]
+
+
+def universe_sharding(device="cuda") -> Optional[Placement]:
+    """The universe's placement on the candidate mesh (a whole copy on
+    every physical device), or None with one slot: the placement the
+    argument arena keys the universe's bucket on when the batched evaluator
+    adopts through it (disruption/batched.py prepare)."""
+    mesh = candidate_mesh(device)
+    return None if mesh is None else Placement(mesh, False)
+
+
+def replicate_shared(kernel_args: tuple, device="cuda") -> tuple:
+    """The shared universe (host arrays or tensors) copied once to every
+    physical device of the candidate mesh of `device`'s type, which must
+    exist: the arena-off path. Placed arrays are tuples over the mesh's
+    physical devices."""
+    repl = universe_sharding(device)
+    return tuple(tuple(a.to(d) for d in repl.mesh.physical) if isinstance(a, torch.Tensor)
+                 else place(a, repl) for a in kernel_args)
+
+
+def _sharded_ffd(mesh: Mesh, shared, rows, max_claims: int, zone_engine: bool) -> FFDOutput:
+    """K18, the JAX `_sharded_ffd`: K4 (batched_ffd) once per physical
+    device of the candidate mesh over its slots' rows of the batch, with
+    the universe copy on that device, then the outputs gathered on the
+    mesh's first device in row order. On one card the slots' rows are
+    every row: one K4 launch, nothing to gather."""
+    b_run_count, b_v_count0, cand_member, node_cand = rows
+    parts = []
+    for j, (dev, idx) in enumerate(zip(mesh.physical, slot_rows(mesh, b_run_count.shape[0]))):
+        with device_scope(dev):
+            out = batched_ffd(on_device(shared, j),
+                              *upload_rows((b_run_count[idx], b_v_count0[idx], cand_member[idx],
+                                            node_cand), dev),
+                              max_claims, zone_engine)
+        if dev.type == "cuda":
+            ffd.LAUNCHES["sharded_ffd"] += 1
+        parts.append((idx, out))
+    if len(parts) == 1:
+        return parts[0][1]
+    dev0 = mesh.physical[0]
+    inv = torch.from_numpy(np.argsort(np.concatenate([idx for idx, _ in parts]))).to(dev0)
+
+    def cat(get):
+        return torch.cat([get(o).to(dev0) for _, o in parts])[inv]
+
+    return FFDOutput(take_e=cat(lambda o: o.take_e), take_c=cat(lambda o: o.take_c),
+                     leftover=cat(lambda o: o.leftover),
+                     state=FFDState(*(cat(lambda o, i=i: o.state[i])
+                                      for i in range(len(FFDState._fields)))),
+                     events=cat(lambda o: o.events))
+
+
 def subset_rows(
     kernel_args: tuple,
     pod_cand: np.ndarray,
@@ -157,20 +245,26 @@ def subset_rows(
     candidate_node_idx: dict,
     candidate_v_delta: Optional[dict] = None,
     v_count0_host: Optional[np.ndarray] = None,
+    mesh: Optional[Mesh] = None,
 ):
     """The host construction of simulate_subsets: (b_run_count [Bp, Sp],
     b_v_count0 [Bp, Vp, Z], cand_member [Bp, NC] bool, node_cand [E]) as
-    numpy. Rows past len(subsets) are empty subsets (padding)."""
+    numpy. Rows past len(subsets) are empty subsets (padding); with a
+    candidate `mesh`, Bp divides over its slots. `kernel_args` entries are
+    tensors, or tuples of tensors over a mesh's physical devices."""
     from ...parallel.sharded import batch_bucket
+
+    def first(a):
+        return a[0] if isinstance(a, tuple) else a
 
     v_count0 = (
         v_count0_host
         if v_count0_host is not None
-        else kernel_args[_V_COUNT0].cpu().numpy()
+        else first(kernel_args[_V_COUNT0]).cpu().numpy()
     )
     B = len(subsets)
-    S = kernel_args[_RUN_COUNT].shape[0]
-    G, E = kernel_args[_NODE_COMPAT].shape
+    S = first(kernel_args[_RUN_COUNT]).shape[0]
+    G, E = first(kernel_args[_NODE_COMPAT]).shape
     # candidate-id universe: pods AND nodes (an empty candidate has no pods
     # but its node must still be removed from subset capacity)
     NC = 1
@@ -181,7 +275,7 @@ def subset_rows(
     # bucket the dims so dispatches see one shape per bucket; padded rows
     # simulate an empty subset and are sliced off before verdict decoding
     NC = ((NC + 63) // 64) * 64
-    Bp = batch_bucket(B, None)
+    Bp = batch_bucket(B, mesh)
 
     b_run_count = np.zeros((Bp, S), dtype=np.int32)
     b_v_count0 = np.broadcast_to(v_count0, (Bp,) + v_count0.shape).copy()
@@ -228,11 +322,21 @@ def simulate_subsets(
     with runs at NATURAL group granularity: a subset's pods are per-run
     COUNTS of its member pods, and removing pods from a sorted list keeps
     FFD order. Verdict mode only: the per-run take tables are not emitted
-    (the disruption filter reads leftovers and the final claim state)."""
+    (the disruption filter reads leftovers and the final claim state).
+    With a candidate mesh (more than one device slot) the rows split over
+    it (K18, `_sharded_ffd`), the universe copied to every physical device
+    when `kernel_args` are plain tensors; the output lies on the mesh's
+    first device."""
+    placed = isinstance(kernel_args[_NODE_COMPAT], tuple)
+    dev = (kernel_args[_NODE_COMPAT][0] if placed else kernel_args[_NODE_COMPAT]).device
+    mesh = candidate_mesh(dev)
     rows = subset_rows(kernel_args, pod_cand, pod_run, subsets, candidate_node_idx,
-                       candidate_v_delta, v_count0_host)
-    dev = kernel_args[_NODE_COMPAT].device
-    return batched_ffd(tuple(kernel_args), *upload_rows(rows, dev), max_claims, zone_engine)
+                       candidate_v_delta, v_count0_host, mesh=mesh)
+    if mesh is None:
+        return batched_ffd(tuple(kernel_args), *upload_rows(rows, dev), max_claims, zone_engine)
+    if not placed:
+        kernel_args = replicate_shared(kernel_args, dev)
+    return _sharded_ffd(mesh, tuple(kernel_args), rows, max_claims, zone_engine)
 
 
 def verdict_words(M: int, Tp: int) -> int:

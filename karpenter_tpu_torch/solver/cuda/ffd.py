@@ -55,7 +55,13 @@ explain wire; their kernels are csrc/class_kernels.cu (K10-K12).
 
 `ffd_solve_lanes` is the scan over a leading lane axis (the JAX
 `jax.vmap(ffd_solve)` of parallel/sharded.py batched_solve, the fused
-cohort dispatch): K15, one block per lane (csrc/ffd_lanes_kernels.cu). `ffd_apply_events` scatters the
+cohort dispatch): K15, one block per lane (csrc/ffd_lanes_kernels.cu).
+`ffd_solve_sharded` and `ffd_solve_sharded_sparse` are the lanes of a
+mesh-sharded solve (the JAX ffd.py:2264 / :2800): only the run arrays (and
+the index tables) carry a leading [Nd] block axis, the other tables are
+shared by every lane; K17 is K15's kernel with the shared tables at a
+per-lane count of 0, K17s the sparse lanes kernel
+(csrc/ffd_lanes_sparse_kernels.cu). `ffd_apply_events` scatters the
 streaming stage's (pos, gid, cnt) edit rows into the run tables (the JAX
 `ffd_apply_events`): K14, csrc/arena_kernels.cu.
 """
@@ -196,6 +202,12 @@ class LadderOutput(NamedTuple):
 EVENT_ENTRY_WORDS = 3  # (pos, gid, cnt) int32 per run edit
 EVENT_PAD_POS = -1  # padding rows scatter out of range and are dropped
 
+# Mesh-sharded solve (ffd_solve_sharded): the padded run axis Sp is always a
+# multiple of this (backend.host_kernel_args buckets S with mult=floor=16), so
+# any power-of-2 mesh up to 16 slots divides it into equal contiguous blocks.
+# Equal to the JAX package's (tests/test_torch_isolation.py).
+SHARD_BLOCK_MULT = 16
+
 DELTA_HEADER_WORDS = 3  # [overflow_flag, entry_count, uniq_meta_count] i32
 DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 
@@ -220,7 +232,13 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # csrc/class_kernels.cu). The lane-batched scan (ffd_solve_lanes, K15) is
 # ffd_lanes_kernel<false> (ffd_lanes_fast_scan) and <true>
 # (ffd_lanes_zoned_scan); apply_events is the streaming run-table scatter
-# (ffd_apply_events, K14, csrc/arena_kernels.cu).
+# (ffd_apply_events, K14, csrc/arena_kernels.cu). The lanes of a mesh-sharded
+# solve count apart from K15's: ffd_sharded_fast_scan / ffd_sharded_zoned_scan
+# (K17, ffd_lanes_kernel<false> / <true>) and ffd_sharded_sparse_fast_scan /
+# ffd_sharded_sparse_zoned_scan (K17s, ffd_lanes_sparse_kernel<false> /
+# <true>), one per launch (one per physical device of the mesh); sharded_ffd
+# counts the K4 launches of the candidate-sharded consolidation
+# (consolidate._sharded_ffd, K18), one per physical device of its mesh.
 LAUNCHES = {
     "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
     "ffd_lanes_fast_scan": 0, "ffd_lanes_zoned_scan": 0, "apply_events": 0,
@@ -231,6 +249,9 @@ LAUNCHES = {
     "ffd_ladder_sparse_fast_scan": 0, "ffd_ladder_sparse_zoned_scan": 0,
     "ffd_ckpt_sparse_fast_scan": 0, "ffd_ckpt_sparse_zoned_scan": 0,
     "pack_outputs": 0, "gang_commit": 0, "preemption_plan": 0, "explain_pack": 0,
+    "ffd_sharded_fast_scan": 0, "ffd_sharded_zoned_scan": 0,
+    "ffd_sharded_sparse_fast_scan": 0, "ffd_sharded_sparse_zoned_scan": 0,
+    "sharded_ffd": 0,
 }
 
 I32 = torch.int32
@@ -1601,7 +1622,7 @@ def zone_v_cap(device):
     """The most V-axis rows (max(V, Kv) of a sparse dispatch) a zoned scan
     launch holds on `device`: the card's opt-in shared memory per block less
     the zoned instances' static share, at 10 bytes a row (the *_zone_max_v
-    query of each of the three scan libraries; the least of them). None on
+    query of each of the four scan libraries; the least of them). None on
     the CPU, where the plain versions hold any V."""
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -1615,7 +1636,8 @@ def zone_v_cap(device):
             caps = [getattr(load(lib), fn)(None, 0, None, None)
                     for lib, fn in (("ffd_kernels", "ffd_zone_max_v"),
                                     ("ffd_sparse_kernels", "ffd_sparse_zone_max_v"),
-                                    ("ffd_lanes_kernels", "ffd_lanes_zone_max_v"))]
+                                    ("ffd_lanes_kernels", "ffd_lanes_zone_max_v"),
+                                    ("ffd_lanes_sparse_kernels", "ffd_lanes_sparse_zone_max_v"))]
         if min(caps) < 0:
             raise RuntimeError(f"ffd_zone_max_v: CUDA error {-min(caps)}")
         cap = _V_CAPS[idx] = min(caps)
@@ -2010,20 +2032,35 @@ def pack_outputs(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
 # --- the lane-batched scan (K15) and the streaming run-table scatter (K14) ----
 
 
-def ffd_solve_lanes_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
-    """Plain version of the JAX `jax.vmap(ffd_solve)` over a leading lane
-    axis (parallel/sharded.py batched_solve): ffd_solve_plain on each lane
-    of the [B, ...] ARG_SPEC tensors, every FFDOutput field stacked on a
-    leading [B] axis."""
-    B = int(args[0].shape[0])
-    lanes = [ffd_solve_plain(*(a[b] for a in args), max_claims=max_claims,
-                             zone_engine=zone_engine) for b in range(B)]
+def _stack_lanes(lanes) -> FFDOutput:
+    """Per-lane FFDOutputs -> one FFDOutput, every field on a leading lane axis."""
     st = FFDState(*(torch.stack([ln.state[f] for ln in lanes])
                     for f in range(len(FFDState._fields))))
     return FFDOutput(take_e=torch.stack([ln.take_e for ln in lanes]),
                      take_c=torch.stack([ln.take_c for ln in lanes]),
                      leftover=torch.stack([ln.leftover for ln in lanes]),
                      state=st, events=torch.stack([ln.events for ln in lanes]))
+
+
+def ffd_solve_lanes_plain(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """Plain version of the JAX `jax.vmap(ffd_solve)` over a leading lane
+    axis (parallel/sharded.py batched_solve): ffd_solve_plain on each lane
+    of the [B, ...] ARG_SPEC tensors, every FFDOutput field stacked on a
+    leading [B] axis."""
+    B = int(args[0].shape[0])
+    return _stack_lanes([ffd_solve_plain(*(a[b] for a in args), max_claims=max_claims,
+                                         zone_engine=zone_engine) for b in range(B)])
+
+
+def _lane_counts(ptrs, B: int, shared) -> list:
+    """The launcher's per-lane element counts of `ptrs` (lane-major
+    [B, ...] tensors), two ints each (low, high 32 bits); a tensor in
+    `shared` (by identity) is read by every lane: count 0."""
+    dims = []
+    for t in ptrs:
+        per = 0 if any(t is x for x in shared) else t.numel() // B
+        dims += [_u32_scalar(per), per >> 32]
+    return dims
 
 
 def _ffd_solve_lanes_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
@@ -2049,10 +2086,7 @@ def _ffd_solve_lanes_cuda(*args, max_claims: int, zone_engine: bool = False) -> 
     events = torch.zeros((B,), dtype=I32, device=dev)
     scratch = torch.empty((B, scan_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
     ptrs = [a[n] for n in _SCAN_INPUTS] + list(st) + [take_e, take_c, leftover, events, scratch]
-    dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B]
-    for t in ptrs:
-        per = t.numel() // B
-        dims += [_u32_scalar(per), per >> 32]
+    dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B] + _lane_counts(ptrs, B, ())
     rc = load("ffd_lanes_kernels").ffd_lanes_launch(_ptrs(ptrs), len(ptrs), _ints(dims),
                                                     _stream())
     _raise_on(rc, name)
@@ -2073,6 +2107,101 @@ def ffd_solve_lanes(*args, max_claims: int, zone_engine: bool = False) -> FFDOut
     if args[0].is_cuda:
         return _ffd_solve_lanes_cuda(*args, max_claims=max_claims, zone_engine=zone_engine)
     return ffd_solve_lanes_plain(*args, max_claims=max_claims, zone_engine=zone_engine)
+
+
+# --- the lanes of a mesh-sharded solve (K17, K17s) -------------------------
+
+
+def ffd_solve_sharded_plain(run_group, run_count, *shared, max_claims: int,
+                            zone_engine: bool = False, sparse=None) -> FFDOutput:
+    """Plain version of the JAX `ffd_solve_sharded` (and, with `sparse` =
+    (run_q_idx [Nd, Sblk, Kq], run_v_idx [Nd, Sblk, Kv]), of
+    `ffd_solve_sharded_sparse`): the step-by-step counterpart of its vmap.
+    Lane d is ffd_solve_plain (its sparse form) over run block d
+    (run_group[d], run_count[d]) from the initial carry, the other 34
+    ARG_SPEC tables shared; every FFDOutput field gains a leading [Nd]
+    axis, and each lane numbers its claim slots from 0."""
+    lanes = []
+    for d in range(int(run_group.shape[0])):
+        args = (run_group[d], run_count[d]) + tuple(shared)
+        sp = None if sparse is None else (sparse[0][d], sparse[1][d])
+        lanes.append(_scan_plain(args, _state0(args, max_claims), max_claims, zone_engine,
+                                 sparse=sp)[0])
+    return _stack_lanes(lanes)
+
+
+def _ffd_solve_sharded_cuda(run_group, run_count, *shared, max_claims: int,
+                            zone_engine: bool = False, sparse=None) -> FFDOutput:
+    """K17 (K15's ffd_lanes_kernel, one block per run block), or with
+    `sparse` K17s (ffd_lanes_sparse_kernel): one launch over the Nd blocks
+    on the tensors' device. Only the run arrays (and the index tables), the
+    carry, the outputs and the scratch step per lane; every shared table
+    goes at a per-lane count of 0. The carry is seeded per lane from the
+    shared tables, as K1's is."""
+    from .build import load
+
+    B, Sblk = (int(x) for x in run_group.shape)
+    M = int(max_claims)
+    name = f"ffd_sharded_{'sparse_' if sparse is not None else ''}{'zoned' if zone_engine else 'fast'}_scan"
+    _check(run_group, "run_group", I32, (B, Sblk))
+    _check(run_count, "run_count", I32, (B, Sblk))
+    lane0 = (run_group[0], run_count[0]) + tuple(shared)
+    Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(dict(zip(ARG_SPEC, lane0)), zone_engine, name)
+    idx, kdims = [], []
+    if sparse is not None:
+        _check_sparse((sparse[0][0], sparse[1][0]), Sblk, name, V, zone_engine)
+        idx = list(sparse)
+        kdims = [int(sparse[0].shape[2]), int(sparse[1].shape[2])]
+        for t, n, k in zip(idx, ("run_q_idx", "run_v_idx"), kdims):
+            _check(t, n, I32, (B, Sblk, k))
+    a = dict(zip(ARG_SPEC, (run_group, run_count) + tuple(shared)))
+    st = FFDState(*(f.unsqueeze(0).expand((B,) + tuple(f.shape)).contiguous()
+                    for f in _state0(lane0, M)))
+    dev = run_group.device
+    take_e = torch.empty((B, Sblk, E), dtype=I32, device=dev)
+    take_c = torch.empty((B, Sblk, M), dtype=I32, device=dev)
+    leftover = torch.empty((B, Sblk), dtype=I32, device=dev)
+    events = torch.zeros((B,), dtype=I32, device=dev)
+    scratch = torch.empty((B, scan_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
+    ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
+            + [take_e, take_c, leftover, events, scratch] + idx)
+    dims = ([Sblk, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B]
+            + _lane_counts(ptrs, B, shared) + kdims)
+    if sparse is not None:
+        launch = load("ffd_lanes_sparse_kernels").ffd_lanes_sparse_launch
+    else:
+        launch = load("ffd_lanes_kernels").ffd_lanes_launch
+    rc = launch(_ptrs(ptrs), len(ptrs), _ints(dims), _stream())
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return FFDOutput(take_e=take_e, take_c=take_c, leftover=leftover, state=st, events=events)
+
+
+def ffd_solve_sharded(run_group, run_count, *shared, max_claims: int,
+                      zone_engine: bool = False) -> FFDOutput:
+    """Block-local FFD scans over the [Nd, Sblk] run blocks of one solve
+    (parallel/sharded.py mesh_run_blocks; ARG_SPEC order, only the two run
+    arrays blocked), each from the initial carry: lane d equals ffd_solve
+    over block d alone. K17 for CUDA tensors (one launch), the plain
+    version for CPU ones. The host stitch (backend._shard_stitch) turns the
+    lanes into the sequential result."""
+    if run_group.is_cuda:
+        return _ffd_solve_sharded_cuda(run_group, run_count, *shared, max_claims=max_claims,
+                                       zone_engine=zone_engine)
+    return ffd_solve_sharded_plain(run_group, run_count, *shared, max_claims=max_claims,
+                                   zone_engine=zone_engine)
+
+
+def ffd_solve_sharded_sparse(run_q_idx, run_v_idx, run_group, run_count, *shared,
+                             max_claims: int, zone_engine: bool = False) -> FFDOutput:
+    """ffd_solve_sharded through the index tables, blocked like the runs
+    ([Nd, Sblk, Kq] / [Nd, Sblk, Kv]): K17s for CUDA tensors, the plain
+    version for CPU ones."""
+    if run_group.is_cuda:
+        return _ffd_solve_sharded_cuda(run_group, run_count, *shared, max_claims=max_claims,
+                                       zone_engine=zone_engine, sparse=(run_q_idx, run_v_idx))
+    return ffd_solve_sharded_plain(run_group, run_count, *shared, max_claims=max_claims,
+                                   zone_engine=zone_engine, sparse=(run_q_idx, run_v_idx))
 
 
 def ffd_apply_events_plain(run_group, run_count, events):

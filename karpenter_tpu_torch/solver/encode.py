@@ -1,4 +1,4 @@
-# Port copy of karpenter_tpu/solver/encode.py (mesh blocks cut).
+# Port copy of karpenter_tpu/solver/encode.py.
 """Host-side encoder: SolverInput -> dense tensors for the TPU solver.
 
 This is the bridge between the control plane's object model and the device
@@ -62,6 +62,29 @@ class UnpackableInput(ValueError):
     """The input exceeds a device-kernel packing bound (e.g. Z*C > 32 joint
     offering bits); the hybrid solver falls back to a host path. A dedicated
     type so fallback handlers don't swallow unrelated ValueErrors."""
+
+
+def mesh_run_blocks(run_group: np.ndarray, run_count: np.ndarray,
+                    n_shards: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Partition the PADDED run axis into `n_shards` equal contiguous blocks
+    for the mesh-sharded solve: [Sp] -> [n_shards, Sp/n_shards].
+
+    Alignment contract: backend.host_kernel_args buckets S with
+    mult=floor=16 (= ffd.SHARD_BLOCK_MULT), so Sp is always a multiple of
+    every power-of-2 mesh size up to 16 — blocks come out equal-length with
+    no extra padding, and block d is exactly runs [d*Sblk, (d+1)*Sblk) of
+    the one-device scan order (padding rides at the tail of the last
+    blocks, where run_count == 0 steps are no-ops). Each block row is one
+    slot's lane input for ffd.ffd_solve_sharded."""
+    Sp = int(run_group.shape[0])
+    if n_shards < 1 or Sp % n_shards:
+        raise UnpackableInput(
+            f"run axis Sp={Sp} does not divide into {n_shards} mesh blocks"
+        )
+    return (
+        np.ascontiguousarray(run_group.reshape(n_shards, Sp // n_shards)),
+        np.ascontiguousarray(run_count.reshape(n_shards, Sp // n_shards)),
+    )
 
 
 # Resource keys quantized to MiB granularity.

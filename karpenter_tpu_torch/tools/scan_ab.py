@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """The scan kernels of this checkout against another checkout's, on one card.
 
-Builds the two FFD kernel libraries (csrc/ffd_kernels.cu and its sparse
-build csrc/ffd_sparse_kernels.cu) from this checkout and from
-OTHER_CHECKOUT's csrc (for example the parent commit unpacked with `git
-archive`), then
+Builds the three FFD kernel libraries (csrc/ffd_kernels.cu, its sparse
+build csrc/ffd_sparse_kernels.cu and its lane-batched build
+csrc/ffd_lanes_kernels.cu) from this checkout and from OTHER_CHECKOUT's
+csrc (for example the parent commit unpacked with `git archive`), then
 
 - compares ptxas's report of every kernel the two builds share: registers,
   spill stores and spill loads (a kernel whose numbers moved is listed);
 - holds each build's outputs equal and times them in turns (this, other,
   other, this) ROUNDS times, CUDA events around CALLS calls each: K1 fast
-  (ffd_fast_scan) at the 50 000-pod surge's kernel arguments, and the
-  checkpointed zoned scan (ffd_ckpt_zoned_scan) and its sparse twin
-  (ffd_ckpt_sparse_zoned_scan) at BASELINE config 3's (a ring every 16
-  steps, 4 slots: TorchSolver's defaults).
+  (ffd_fast_scan) at the 50 000-pod surge's kernel arguments, K15 fast
+  (ffd_lanes_fast_scan) at 8 lanes of them, and the checkpointed zoned scan
+  (ffd_ckpt_zoned_scan) and its sparse twin (ffd_ckpt_sparse_zoned_scan)
+  at BASELINE config 3's (a ring every 16 steps, 4 slots: TorchSolver's
+  defaults).
 
 Usage: python3 karpenter_tpu_torch/tools/scan_ab.py OTHER_CHECKOUT
 
@@ -34,20 +35,24 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ROUNDS = 3  # (this, other, other, this) rounds
+AB_LIBS = ("ffd_kernels", "ffd_sparse_kernels", "ffd_lanes_kernels")
+LANES = 8  # K15's lanes (cohort_surge's)
 CALLS = 20  # calls per timing
 
 
 def _build_other(other: str):
-    """The other checkout's two FFD libraries, loaded, and their ptxas
+    """The other checkout's three FFD libraries, loaded, and their ptxas
     reports (text)."""
     from karpenter_tpu_torch.solver.cuda import build
 
     csrc = os.path.join(os.path.abspath(other), "karpenter_tpu_torch", "csrc")
     procs, paths = [], {}
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("ffd_kernels", "ffd_sparse_kernels"):
+    for name in AB_LIBS:
         src = os.path.join(csrc, f"{name}.cu")
-        tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
+        # the included ffd_kernels.cu is part of every library's identity
+        tag = hashlib.sha256(open(src, "rb").read()
+                             + open(os.path.join(csrc, "ffd_kernels.cu"), "rb").read()).hexdigest()[:12]
         paths[name] = build.BUILD_DIR / f"ab_{name}_{tag}.so"
         procs.append(subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(paths[name]),
                                        src], stdout=subprocess.DEVNULL,
@@ -58,7 +63,8 @@ def _build_other(other: str):
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
-        for fname in ("ffd_scan_launch", "ffd_ckpt_launch", "ffd_ckpt_sparse_launch"):
+        for fname in ("ffd_scan_launch", "ffd_ckpt_launch", "ffd_ckpt_sparse_launch",
+                      "ffd_lanes_launch"):
             if hasattr(lib, fname):
                 getattr(lib, fname).argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
                 getattr(lib, fname).restype = ctypes.c_int
@@ -82,7 +88,7 @@ def scan_ab(other: str) -> dict:
 
     dev = torch.device("cuda")
     build.build()
-    mine = {n: build.load(n) for n in ("ffd_kernels", "ffd_sparse_kernels")}
+    mine = {n: build.load(n) for n in AB_LIBS}
     ffd.zone_v_cap(dev)
     theirs, their_report = _build_other(other)
     ptxas = ptxas_diff(cs.ptxas_report(build.BUILD_LOG["ptxas"]), cs.ptxas_report(their_report))
@@ -91,12 +97,15 @@ def scan_ab(other: str) -> dict:
     args, M = ph["args"], ph["M"]
     sp = cs.sparse_tables(ph["enc"], ph["out"].take_e.shape[0], dev)
     kw = dict(max_claims=M, zone_engine=True, ckpt_every=16, n_ckpt=4)
+    lanes = tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
+                  for a in surge["args"])
     fns = {"ffd_fast_scan": lambda: ffd.ffd_solve(*surge["args"], max_claims=surge["M"]),
+           "ffd_lanes_fast_scan": lambda: ffd.ffd_solve_lanes(*lanes, max_claims=surge["M"]),
            "ffd_ckpt_zoned_scan": lambda: ffd.ffd_solve_ckpt(*args, **kw),
            "ffd_ckpt_sparse_zoned_scan": lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw)}
 
     def outputs(k, o):
-        if k == "ffd_fast_scan":
+        if k in ("ffd_fast_scan", "ffd_lanes_fast_scan"):
             return cs._scan_outputs(o)
         o, ring = o
         return cs._scan_outputs(o) + [*ring.states, ring.prefix]

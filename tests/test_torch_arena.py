@@ -35,6 +35,7 @@ from karpenter_tpu_torch.solver.backend import TorchSolver
 from karpenter_tpu_torch.solver.convert import args_to_torch
 from karpenter_tpu_torch.solver.cuda import arena as tunpack
 from tests.test_solver_parity import ZONES, mkpod, pool
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 from tests.test_torch_solver import as_data
 

@@ -29,6 +29,7 @@ from karpenter_tpu.solver.backend import TPUSolver
 from karpenter_tpu_torch.disruption import batched as tbatched
 from karpenter_tpu_torch.solver.backend import TorchSolver, UnsupportedInput
 from tests.test_batched_consolidation import sequential_verdict
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_solver import build, pod
 
 torch.set_num_threads(1)

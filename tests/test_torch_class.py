@@ -40,6 +40,7 @@ from tests.test_scheduling_class import (
     pool,
     victim,
 )
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 
 torch.set_num_threads(1)

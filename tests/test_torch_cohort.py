@@ -45,6 +45,7 @@ from karpenter_tpu_torch.solver.convert import args_to_torch, array_to_torch, ou
 from tests.test_batched_consolidation import ZONES, mkpod, pool
 from tests.test_cohort import _rand_inp
 from tests.test_scheduling_class import gang_labels
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 from tests.test_torch_solver import as_data, build, pod
 

@@ -31,6 +31,7 @@ from karpenter_tpu.solver.encode import encode, quantize_input
 from karpenter_tpu.solver.tpu import consolidate as jcons
 from karpenter_tpu_torch.solver.convert import args_to_torch
 from karpenter_tpu_torch.solver.cuda import consolidate as tcons
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_solver import build, pod
 
 torch.set_num_threads(1)

@@ -55,6 +55,7 @@ from karpenter_tpu_torch.solver.encode import encode as tencode
 from karpenter_tpu_torch.solver.encode import quantize_input as tquantize
 from tests.test_convex_backend import mknode, mktype
 from tests.test_solver_parity import ZONES, mkpod, pool
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 
 torch.set_num_threads(1)

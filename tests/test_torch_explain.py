@@ -35,6 +35,7 @@ from karpenter_tpu_torch.solver.backend import TorchSolver
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
 from tests.test_scheduling_class import gang_labels, mknode, victim
 from tests.test_solver_parity import ZONES, mkpod, pool
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 
 torch.set_num_threads(1)

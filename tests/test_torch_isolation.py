@@ -5,7 +5,9 @@ piece pinned to its original.
 - a solve, a batched consolidation probe and a convex solve and one-shot
   consolidation through the port in a fresh interpreter leave jax and every karpenter_tpu module out of sys.modules (a subprocess, because this test
   process has imported jax through tests/conftest.py), and so do a fused
-  cohort through the serving pipeline and a staged (stream_run_events) solve;
+  cohort through the serving pipeline, a staged (stream_run_events) solve,
+  and a mesh-sharded solve and a candidate-sharded probe under
+  virtual_devices(4);
 - TorchSolver() with no device argument refuses to run without CUDA;
 - the copies (ARG_SPEC, delta constants, argument partitions, the
   consolidation argument indices and batch bucket, the catalog,
@@ -14,8 +16,9 @@ piece pinned to its original.
   chip_smoke.py's copies of bench.py's input functions (the
   wide-constraint fleet included), config-5 universe and relax-ladder
   fleet, the streaming event constants and run_table_events, the cohort
-  fuse key's layout, the pipeline's PROVISIONING / DISRUPTION) equal their
-  originals on sample inputs.
+  fuse key's layout, the pipeline's PROVISIONING / DISRUPTION, the
+  mesh-sharded solve's SHARD_BLOCK_MULT, _SHARD_CLAIM_FIELDS and
+  mesh_run_blocks) equal their originals on sample inputs.
 """
 
 import ast
@@ -115,6 +118,15 @@ def test_port_solve_loads_no_jax():
         "st.solve(build_input(64))\n"
         "assert len(st.solve(build_input(63)).placements) == 63\n"
         "assert st.stats['event_stage_hits'] == 1 and st.arena.stats['event_edits'] == 1, st.stats\n"
+        "from karpenter_tpu_torch.parallel.sharded import virtual_devices\n"
+        "with virtual_devices(4):\n"
+        "    sh = TorchSolver(device='cpu', shards=4)\n"
+        "    res = sh.solve(build_input(6250))\n"
+        "    assert len(res.placements) == 6250 and sh.stats['sharded_solves'] == 1, sh.stats\n"
+        "    ev = BatchedConsolidationEvaluator(TorchSolver(device='cpu'))\n"
+        "    vs = ev.evaluate_prepared(ev.prepare(*build_config5_universe(20, 10)),\n"
+        "                              [[0, 1], list(range(10))])\n"
+        "    assert [v.ok for v in vs] == [True, True], vs\n"
         "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
         "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -147,6 +159,23 @@ def test_constants_pinned():
         assert tbackend.delta_capacity(*args) == jbackend.delta_capacity(*args)
         Sp, Mb = args[1], args[3]
         assert tbackend.delta_uniq_capacity(Sp, Mb) == jbackend.delta_uniq_capacity(Sp, Mb)
+
+
+def test_mesh_sharded_copies_pinned():
+    """The mesh-sharded solve's constants and block split equal the
+    originals: SHARD_BLOCK_MULT (the run-axis alignment every power-of-2
+    mesh up to 16 divides), the claim-slot fields the stitch renumbers, and
+    mesh_run_blocks on seeded run tables at every mesh width it takes."""
+    assert tffd.SHARD_BLOCK_MULT == jffd.SHARD_BLOCK_MULT == 16
+    assert tbackend.TorchSolver._SHARD_CLAIM_FIELDS == jbackend.TPUSolver._SHARD_CLAIM_FIELDS
+    rng = np.random.default_rng(5)
+    for Sp in (16, 48, 256):
+        rg = rng.integers(0, 40, Sp).astype(np.int32)
+        rc = rng.integers(0, 9, Sp).astype(np.int32)
+        for n in (1, 2, 4, 8, 16):
+            for t, j in zip(tencode.mesh_run_blocks(rg, rc, n), jencode.mesh_run_blocks(rg, rc, n)):
+                assert t.dtype == j.dtype and t.flags.c_contiguous
+                np.testing.assert_array_equal(t, j)
 
 
 def test_streaming_and_cohort_copies_pinned():
@@ -194,10 +223,14 @@ def test_consolidation_constants_pinned():
         assert tsharded.batch_bucket(b) == jsharded.batch_bucket(b)
         for mult in (1, 8):
             assert tsharded.batch_bucket(b, None, mult) == jsharded.batch_bucket(b, None, mult)
-    # the JAX mesh form counts devices; the port passes the count itself
+    # the JAX mesh form counts devices; the port takes its own mesh or the count
     mesh = jsharded.make_mesh()
     n_dev = int(mesh.devices.size)
     assert tsharded.batch_bucket(511, n_dev) == jsharded.batch_bucket(511, mesh)
+    with tsharded.virtual_devices(n_dev):
+        for b in (5, 9, 511):
+            assert tsharded.batch_bucket(b, tsharded.make_mesh(device="cpu")) == (
+                jsharded.batch_bucket(b, mesh))
 
 
 def _req_data(reqs):
@@ -416,7 +449,7 @@ def test_solver_defaults_pinned():
     tp = inspect.signature(tbackend.TorchSolver.__init__).parameters
     jp = inspect.signature(jbackend.TPUSolver.__init__).parameters
     for n in ("max_claims", "relax_ladder", "arena", "resume", "ckpt_every", "ckpt_slots",
-              "arena_budget_mb", "sparse", "device_decode"):
+              "arena_budget_mb", "sparse", "device_decode", "shards"):
         assert tp[n].default == jp[n].default, n
     t, j = tbackend.TorchSolver(device="cpu"), jbackend.TPUSolver()
     assert (t.resume, t.ckpt_every, t.ckpt_slots) == (j.resume, j.ckpt_every, j.ckpt_slots)

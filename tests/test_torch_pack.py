@@ -26,6 +26,7 @@ from karpenter_tpu_torch.solver import backend as tbackend
 from karpenter_tpu_torch.solver.backend import TorchSolver
 from karpenter_tpu_torch.solver.convert import state_to_torch
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_solver import CASES, ZONE_CASES, as_data, build
 
 torch.set_num_threads(1)

@@ -30,6 +30,7 @@ from karpenter_tpu_torch.solver import pipeline as tpipe
 from karpenter_tpu_torch.solver.backend import TorchSolver, UnsupportedInput
 from tests.test_solve_pipeline import GatedAsyncSolver, SyncOnlySolver, mkinput
 from tests.test_torch_cohort import _custom_key_member, _members
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 from tests.test_torch_solver import as_data
 
@@ -266,7 +267,7 @@ def test_ledger_records_from_many_threads():
         sys.setswitchinterval(saved)
     n = n_threads * n_records
     assert led.total == {"h2d_bytes": 3 * n, "h2d_arrays": n, "h2d_msgs": n,
-                         "d2h_bytes": 5 * n, "d2h_msgs": n}
+                         "d2h_bytes": 5 * n, "d2h_msgs": n, "h2d_shard_bytes": 0}
     assert led.outcomes == {"exact_hit": n // 2, "delta_upload": n // 2, "full_upload": 0}
 
 

@@ -41,6 +41,7 @@ from karpenter_tpu.solver.tpu import ffd as jffd
 from karpenter_tpu_torch.solver.backend import TorchSolver, UnsupportedInput
 from karpenter_tpu_torch.solver.convert import args_to_torch, array_to_torch, output_to_numpy
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_solver import _parity_view, as_data
 from tests.test_zone_device import ZONES, mkpod, pool
 

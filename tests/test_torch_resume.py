@@ -41,8 +41,9 @@ from karpenter_tpu_torch.solver.convert import (
 )
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
 from tests.test_solver_parity import ZONES, mkpod, pool
-from tests.test_torch_relax import to_port
 from tests.test_torch_ffd import SCAN_CASES
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
+from tests.test_torch_relax import to_port
 from tests.test_torch_solver import ZONE_CASES, as_data, build
 
 torch.set_num_threads(1)

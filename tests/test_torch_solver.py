@@ -19,6 +19,7 @@ from karpenter_tpu.solver.backend import ReferenceSolver, TPUSolver
 from karpenter_tpu.solver.encode import quantize_input
 from karpenter_tpu_torch.solver import backend as tbackend
 from karpenter_tpu_torch.solver.backend import TorchSolver, UnsupportedInput
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -49,6 +49,7 @@ from tests.test_sparse_constraints import (
     _filler,
     _spread_fleet,
 )
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import FLEETS as RELAX_FLEETS
 from tests.test_torch_relax import _capture, to_port
 from tests.test_torch_solver import CASES, as_data, build

@@ -42,6 +42,7 @@ from karpenter_tpu_torch.solver import encode_cache as tec
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
 from karpenter_tpu_torch.solver.encode import encode, quantize_input
 from tests.test_solver_parity import ZONES, mkpod, pool
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_relax import to_port
 from tests.test_torch_solver import as_data
 

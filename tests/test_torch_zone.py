@@ -22,6 +22,7 @@ from karpenter_tpu.solver.encode import encode, quantize_input
 from karpenter_tpu.solver.tpu import ffd as jffd
 from karpenter_tpu_torch.solver.convert import args_to_torch, output_to_numpy
 from karpenter_tpu_torch.solver.cuda import ffd as tffd
+from tests.test_torch_jax_release import release_jax_executables  # noqa: F401 (autouse)
 from tests.test_torch_solver import ZONE_CASES, build
 
 torch.set_num_threads(1)
