@@ -144,6 +144,27 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    2b's; one dispatch's verdict rows equal the unsharded K4/K5 rows bit for
    bit; K18 against its plain version on sampled rows).
 
+11. launch-sized Q rows and the meshes over processes, last: every scan
+   instance (K1/K1s/K4/K5/K6/K6s/K7/K7s/K15/K17/K17s, fast and zoned)
+   against its plain version past 256 hostname signatures (qrows_phase),
+   the hostname fleet at 1 000 apps (K1 / K7 / K1s / K7s fast at Qp 1 000,
+   TorchSolver()'s decisions equal the plain path on the card and the CPU
+   plain path's digest) and the card's Q and V row caps; then the process
+   mesh: the script runs itself again as PROC_RANKS rank processes (the
+   RANK_FLAG only it passes) in a gloo group on localhost, each
+   TorchSolver(shards=4) over its own PROC_SLOTS slots, with the launch
+   counts reset just before and read just after: procmesh_surge and
+   procmesh_config3 PROC_SOLVES times each in turns with TorchSolver()
+   (decisions equal phase 3's, dense K17 once a rank a solve, every solve
+   sharded, only the rank's blocks uploaded) and config 5's prefix search
+   on the (dcn, ici) candidate grid (k and dispatches equal phase 2b's);
+   each rank's lanes against their plain version; then the host mesh:
+   TorchSolver() over HostMeshPool(HOST_WORKERS) on the card,
+   hostmesh_surge (K17 in the workers) and hostmesh_config3 (K17s)
+   HOST_SOLVES times each (decisions equal phase 3's, the workers' counts
+   set to 0 just before, a warm scatter ships no broadcast tables), each
+   worker's lanes against their plain version and timed on its card.
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
@@ -157,6 +178,8 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        python3 chip_smoke.py --phase 10   (phase 10 alone, its references
        made by the whole run's functions on one slot: phases 2, 2b and 3's
        plain-path check; the run for a machine with several cards)
+       python3 chip_smoke.py --phase 11   (phase 11 alone, the same way;
+       with 2 x PROC_SLOTS cards each rank gets PROC_SLOTS of its own)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -175,10 +198,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 PODS = 50_000  # the headline surge
 NODES = 200  # existing nodes of the e2e cell
-REPEATS = 50  # timed solves per cell (their p99 is the slowest of 50)
+REPEATS = 30  # timed solves per cell (their p99 is the slowest of 30)
 DENSE_REPEATS = 10  # sparse="off" solves beside TorchSolver() on the sparse-gated cells
 MIXED_REPEATS = 2  # the mixed input (~1.7 s a solve), through both solvers
-SOFT_REPEATS = 10  # config3_soft (~1.3 s a solve)
+SOFT_REPEATS = 6  # config3_soft (~1.3 s a solve)
 MAX_CLAIMS = 1024  # TorchSolver's default claim-slot ceiling
 WALK_PODS = 10_000  # the relax walk: every pod after an app's first relaxes
 
@@ -1899,10 +1922,11 @@ def batched_scan_cost(args, rows, out, zone: bool):
     return in_bytes + nbytes(*outputs), ops
 
 
-def small_batched_check(inp, M: int, seed: int, dev):
+def small_batched_check(inp, M: int, seed: int, dev, subsets=None):
     """K4 (the instance the universe picks) and K5 against their plain
     versions (run on CPU copies of the same inputs: at these shapes the
-    plain loop is faster there) on every row of one small batch."""
+    plain loop is faster there) on every row of one small batch (`subsets`,
+    or small_subsets' at least 9 rows)."""
     import torch
 
     from karpenter_tpu_torch.disruption.batched import BatchedConsolidationEvaluator
@@ -1913,7 +1937,7 @@ def small_batched_check(inp, M: int, seed: int, dev):
     prep = BatchedConsolidationEvaluator(TorchSolver(), max_claims=M).prepare(base, cpods, cnode)
     assert prep is not None, "a small fleet fell off the batched path"
     zone = prep.enc.V > 0
-    subs = small_subsets(len(cnode), seed)
+    subs = small_subsets(len(cnode), seed) if subsets is None else subsets
     rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, subs, prep.node_idx,
                             prep.v_delta, prep.v_count0_host)
     out = cons.batched_ffd(prep.args, *cons.upload_rows(rows, dev), M, zone)
@@ -2269,7 +2293,7 @@ def superset_tables(sp, Q: int, V: int, seed: int):
     return tuple(out)
 
 
-def sparse_check(ph, dev, K: int = 16, n: int = 4, resume: bool = True):
+def sparse_check(ph, dev, K: int = 16, n: int = 4, resume: bool = True, plain: bool = True):
     """K1s and K7s (the sparse scan instances, the one `ph`'s solve picks)
     against their plain versions at `ph`'s shapes with the encode's index
     tables: every output, ring slot and prefix, zoned event counts; and
@@ -2277,7 +2301,10 @@ def sparse_check(ph, dev, K: int = 16, n: int = 4, resume: bool = True):
     its own ring slot against the plain sparse resume, K7s from the dense
     K7's ring and K7 from K7s's ring, each ending at the cold carry, every
     checkpoint left untouched. The plain sparse scan runs once: its
-    outputs are K1s's reference too."""
+    outputs are K1s's reference too. Without `plain` (the mixed input,
+    whose plain scans take ~45 s each) K1s's and K7s's outputs and K7s's
+    ring are held against the dense K1's outputs, which phase 2 held
+    against the plain version, and the dense K7's ring."""
     import torch
 
     from karpenter_tpu_torch.solver import backend as tb
@@ -2290,9 +2317,13 @@ def sparse_check(ph, dev, K: int = 16, n: int = 4, resume: bool = True):
     cout, cring = ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pout, pring = ffd.ffd_solve_ckpt_sparse_plain(*sp, *args, **kw)
+    if plain:
+        pout, pring = ffd.ffd_solve_ckpt_sparse_plain(*sp, *args, **kw)
+    else:
+        pring = ffd.ffd_solve_ckpt(*args, **kw)[1]
+        pout = ph["out"]
     torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    plain_s = time.perf_counter() - t0 if plain else None
     tag = "zoned" if zone else "fast"
     err1 = max_abs_err(_scan_outputs(out), _scan_outputs(pout))
     assert err1 == 0, f"ffd_sparse_{tag}_scan disagrees with its plain version (max |d| {err1})"
@@ -4196,8 +4227,181 @@ def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
 # shard_config5: config 5's prefix search through
 # BatchedConsolidationEvaluator(TorchSolver()) on a candidate mesh of
 # SHARD_SLOTS (K18)
+# ---- phase 11a: launch-sized Q rows (ROADMAP §C.13) ------------------------------
+#
+# The scan's per-run Q rows lie in dynamic shared memory sized at launch, so
+# a fleet of more than 256 hostname signatures (each Deployment spreading
+# its replicas one per node is one) runs on the card. HOSTNAME_APPS is
+# hostname_wide at 1 000 apps of 3 replicas (Qp 1 000): K1 / K7 / K1s / K7s
+# fast against one plain scan at its shapes, TorchSolver()'s decisions
+# against the plain path on the card and against the plain path on the CPU
+# (HOSTNAME_APPS_DIGEST, computed once with TorchSolver(device="cpu") on the
+# same fleet). Every other scan instance (K1/K1s/K4/K6/K6s/K7/K7s/K15/K17/
+# K17s, fast and zoned) is held against its plain version on a fleet of few
+# runs past 256 signatures (build_qheavy_input), fast and with a zone
+# spread beside them.
+HOSTNAME_APPS = 1_000
+HOSTNAME_REPLICAS = 3
+HOSTNAME_APPS_DIGEST = "0a7ebdc5512d9b8856a93557bcbcce810ee70e0212e3e066385f93fccf95ec29"
+QHEAVY_APPS = 8  # deployments of 2 replicas, each anti-affine on
+QHEAVY_TERMS = 33  # its own pods and 32 other selectors: 264 signatures
+
+
+def build_qheavy_input(zoned: bool = False, soft: bool = False, nodes: int = 0):
+    """24 filler pods and QHEAVY_APPS deployments of 2 replicas whose pods
+    carry QHEAVY_TERMS hostname anti-affinity terms each (their own app's
+    and selectors of other apps): Qp 264 over a handful of runs, so the
+    plain versions stay quick. `zoned` gives the filler a zone spread (the
+    zoned instances), `soft` makes that spread ScheduleAnyway, or without
+    `zoned` gives every pod a zone-1b preference (the relax ladder), and
+    `nodes` adds existing nodes (a consolidation universe's candidates)."""
+    import dataclasses
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import (ObjectMeta, Pod, PodAffinityTerm,
+                                                 TopologySpreadConstraint)
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    inp = build_input(24)
+    filler = list(inp.pods)
+    pods = list(filler)
+    for a in range(QHEAVY_APPS):
+        own = {"app": f"q{a}"}
+        terms = [PodAffinityTerm(label_selector=dict(own), topology_key=wk.HOSTNAME_LABEL,
+                                 anti=True)]
+        terms += [PodAffinityTerm(label_selector={"app": f"q{a}-{j}"},
+                                  topology_key=wk.HOSTNAME_LABEL, anti=True)
+                  for j in range(QHEAVY_TERMS - 1)]
+        for r in range(2):
+            name = f"q{a}-{r}"
+            pods.append(Pod(meta=ObjectMeta(name=name, uid=name, labels=dict(own)),
+                            requests=Resources.parse({"cpu": "500m", "memory": "512Mi"}),
+                            affinity_terms=list(terms)))
+    if zoned:
+        when = "ScheduleAnyway" if soft else "DoNotSchedule"
+        for p in filler:
+            p.meta.labels["spread"] = "zs"
+            p.topology_spread = [TopologySpreadConstraint(
+                max_skew=1, topology_key=wk.ZONE_LABEL, label_selector={"spread": "zs"},
+                when_unsatisfiable=when)]
+    elif soft:
+        pref = Requirements.of(Requirement.create(wk.ZONE_LABEL, IN, ["zone-1b"]))
+        for p in pods:
+            p.preferred_node_affinity = [(50, pref)]
+    zones = ("zone-1a", "zone-1b", "zone-1c")
+    extra = [_mknode(f"q{i}", "64", "256Gi", zones[i % 3]) for i in range(nodes)]
+    return dataclasses.replace(inp, pods=pods, nodes=list(inp.nodes) + extra)
+
+
+def hostname_apps_check(inp, dev) -> dict:
+    """K1, K7, K1s and K7s fast at `inp`'s shapes (the claim bucket doubling
+    as the main path's does) against ONE plain checkpointed scan: every
+    output of each, and the ring of K7 and K7s, every slot and the prefix."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    enc = encode(quantize_input(inp))
+    assert enc.V == 0
+    host_args, dims, _ = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+    args = args_to_torch(host_args, dev)
+    M = tb.initial_claim_bucket(int(sum(len(p) for p in enc.group_pods)), MAX_CLAIMS)
+    while True:
+        out = ffd.ffd_solve(*args, max_claims=M)
+        torch.cuda.synchronize()
+        if int(out.state.used) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    kw = dict(max_claims=M, zone_engine=False, ckpt_every=16, n_ckpt=4)
+    sp = sparse_tables(enc, dims["Sp"], dev)
+    cout, cring = ffd.ffd_solve_ckpt(*args, **kw)
+    sout = ffd.ffd_solve_sparse(*sp, *args, max_claims=M)
+    scout, scring = ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pout, pring = ffd.ffd_solve_ckpt_plain(*args, **kw)
+    plain_s = time.perf_counter() - t0
+    ring = lambda r: [*r.states, r.prefix]  # noqa: E731
+    errs = dict(k1=max_abs_err(_scan_outputs(out), _scan_outputs(pout)),
+                k7=max_abs_err(_scan_outputs(cout) + ring(cring),
+                               _scan_outputs(pout) + ring(pring)),
+                k1s=max_abs_err(_scan_outputs(sout), _scan_outputs(pout)),
+                k7s=max_abs_err(_scan_outputs(scout) + ring(scring),
+                                _scan_outputs(pout) + ring(pring)))
+    assert not any(errs.values()), f"hostname_apps: a scan disagrees with the plain one {errs}"
+    return dict(Qp=dims["Qp"], S=dims["S"], M=M, Kq=int(sp[0].shape[1]), plain_s=plain_s, **errs)
+
+
+def qrows_phase(dev) -> dict:
+    """Phase 11a: every scan instance against its plain version at Qp past
+    256 (fast and zoned), the hostname fleet at HOSTNAME_APPS apps through
+    the kernels and TorchSolver(), and the row caps of this card."""
+    import hashlib
+
+    import torch
+
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    out = {"q_cap": ffd.q_cap(dev), "zone_v_cap": ffd.zone_v_cap(dev),
+           "rows_budget_bytes": ffd.scan_rows_budget(dev)}
+    checks = {}
+    for tag, zoned in (("fast", False), ("zoned", True)):
+        inp = build_qheavy_input(zoned=zoned)
+        ph = kernel_phase(inp, dev)
+        assert ph["zone"] == zoned and ph["dims"]["Qp"] > 256, ph["dims"]
+        assert ph["dims"]["S"] >= 4, ph["dims"]  # a run block for each of K17's 4 lanes
+        # a snapshot every 2 runs: the fleet has few
+        ck = ckpt_check(ph, 2, 16)
+        sp = sparse_check(ph, dev, K=2, n=16)
+        lanes = lanes_check([inp, inp], dev)
+        k17 = sharded_check(ph, 4, dev)
+        k17s = sharded_check(ph, 4, dev, sparse=True)
+        # one bucket of 8 rows (the plain batched scan loops over them)
+        bat = small_batched_check(build_qheavy_input(zoned=zoned, nodes=4), 16, 3, dev,
+                                  subsets=[[0], [1, 2], [0, 1, 2, 3]])
+        assert bat["err4"] == 0 and bat["err5"] == 0, bat
+        assert bat["prep"].enc.Q > 256 and bat["zone"] == zoned
+        lad = ladder_phase(build_qheavy_input(zoned=zoned, soft=True), dev)
+        assert lad["zone"] == zoned and lad["dims"]["Qp"] > 256, lad["dims"]
+        lsp = sparse_ladder_check(lad, dev)
+        checks[tag] = dict(Qp=ph["dims"]["Qp"], Vp=ph["dims"]["Vp"], events=ph["events"],
+                           k1=ph["errs"][0], k7=ck["err"], k1s_k7s=sp["err"],
+                           k15=lanes["err"], k17=k17["err"], k17s=k17s["err"],
+                           k4=bat["err4"], k5=bat["err5"], k6=lad["err"], k6s=lsp["err"],
+                           ladder_Qp=lad["dims"]["Qp"])
+        print(f"qrows[{tag}]: {checks[tag]}", flush=True)
+    # the hostname fleet past 1 000 signatures
+    inp = build_hostname_wide_input(HOSTNAME_APPS, HOSTNAME_REPLICAS)
+    hw = hostname_apps_check(inp, dev)
+    assert hw["Qp"] >= HOSTNAME_APPS, hw
+    solver = TorchSolver(max_claims=MAX_CLAIMS)
+    t0 = time.perf_counter()
+    got = decisions(solver.solve(inp))
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    with PlainOnCard():
+        plain = decisions(TorchSolver(max_claims=MAX_CLAIMS).solve(inp))
+    plain_s = time.perf_counter() - t0
+    assert got == plain, "hostname_apps: TorchSolver() differs from the plain path on the card"
+    digest = hashlib.sha256(repr(got).encode()).hexdigest()
+    assert digest == HOSTNAME_APPS_DIGEST, \
+        f"hostname_apps: decisions differ from the plain path on the CPU ({digest})"
+    out.update(checks=checks, hostname_apps=dict(
+        apps=HOSTNAME_APPS, replicas=HOSTNAME_REPLICAS, **hw, solve_ms=solve_ms,
+        plain_path_s=plain_s, claims=len(got["claims"]), digest=digest,
+        sparse_dispatches=solver.stats["sparse_dispatches"]))
+    print(f"qrows[hostname_apps]: {out['hostname_apps']}", flush=True)
+    return out
+
+
 SHARD_SLOTS = 4
-SHARD_SOLVES = 20
+SHARD_SOLVES = 10
 SHARD_DENSE_SOLVES = 2
 SHARD_KERNELS = ("ffd_sharded_fast_scan", "ffd_sharded_zoned_scan", "ffd_sharded_sparse_fast_scan",
                  "ffd_sharded_sparse_zoned_scan", "sharded_ffd")
@@ -4227,15 +4431,22 @@ def sharded_args(ph, Nd: int, dev, sparse: bool):
     return blocks, tuple(ph["args"][2:]), sp
 
 
-def sharded_check(ph, Nd: int, dev, sparse: bool = False) -> dict:
+def sharded_check(ph, Nd: int, dev, sparse: bool = False, lanes=None) -> dict:
     """K17 (K17s with `sparse`) against its plain version on the card, every
     lane and every FFDOutput leaf, and each lane against K1 (K1s) alone on
-    its block; the claim bucket doubles while a lane saturates it."""
+    its block; the claim bucket doubles while a lane saturates it. `lanes`
+    (lo, hi): only blocks [lo, hi) of the Nd, as one process of a process
+    mesh or one host-mesh worker launches them."""
     import torch
 
     from karpenter_tpu_torch.solver.cuda import ffd
 
     blocks, shared, sp = sharded_args(ph, Nd, dev, sparse)
+    if lanes is not None:
+        lo, hi = lanes
+        blocks = tuple(b[lo:hi].contiguous() for b in blocks)
+        sp = None if sp is None else tuple(t[lo:hi].contiguous() for t in sp)
+        Nd = hi - lo
     zone = ph["zone"]
 
     def run(M):
@@ -4572,6 +4783,373 @@ def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
     return dict(summary=out, rows=rows_out)
 
 
+# ---- phase 11b/c: the process mesh (17m) and the host mesh (17h) -----------------
+#
+# procmesh_surge / procmesh_config3: chip_smoke.py re-runs itself as
+# PROC_RANKS rank processes (a flag that only it passes), joined in a gloo
+# group on localhost; each rank holds PROC_SLOTS device slots (one card: both
+# are cuda:0, virtual_devices; with 2 x PROC_SLOTS cards each rank sees its
+# own) and solves the cells through TorchSolver(shards=PROC_RANKS *
+# PROC_SLOTS) PROC_SOLVES times in turns with TorchSolver(): its own run
+# blocks, dense K17 once a solve on its card, the lanes all-gathered over
+# gloo, every rank stitching and replaying the same. Then config 5's prefix
+# search on the (dcn, ici) candidate grid over the ranks. hostmesh_surge /
+# hostmesh_config3: TorchSolver(host_mesh=HostMeshPool(HOST_WORKERS)), the
+# workers' K17 / K17s on the card, HOST_SOLVES times each in turns with
+# TorchSolver().
+PROC_RANKS = 2
+PROC_SLOTS = 2
+PROC_SOLVES = 10
+HOST_WORKERS = 2
+HOST_SOLVES = 10
+RANK_TIMEOUT_S = 900
+RANK_FLAG = "--procmesh-rank"
+PROC_KERNELS = ("ffd_sharded_fast_scan", "ffd_sharded_zoned_scan", "sharded_ffd", "pack_verdicts")
+HOST_KERNELS = ("ffd_sharded_fast_scan", "ffd_sharded_sparse_zoned_scan")
+MESH_SRC = "karpenter_tpu_torch/csrc/ffd_lanes_kernels.cu (ffd_kernels.cu, FFD_LANES_ONLY)"
+MESH_SPARSE_SRC = ("karpenter_tpu_torch/csrc/ffd_lanes_sparse_kernels.cu (ffd_kernels.cu, "
+                   "FFD_LANES_ONLY + FFD_LANES_SPARSE)")
+
+
+def decisions_digest(res) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(decisions(res)).encode()).hexdigest()
+
+
+def mesh_lane_row(c, launches: int, ops_per_s: float, kname: str, name: str, replaces: str,
+                  source: str) -> dict:
+    """A kernel row of one process's (or worker's) lanes: sharded_kernel_row
+    at `c`'s local blocks, renamed, with the main path's launch count."""
+    row = sharded_kernel_row(c, {c["name"]: launches}, ops_per_s, kname, replaces, source)
+    row.update(name=name, kernel=c["name"])
+    return row
+
+
+def procmesh_rank(dev, spec: dict) -> dict:
+    """One rank's phase 11b (inside its gloo group and virtual_devices)."""
+    import torch
+
+    from karpenter_tpu_torch.disruption import batched as tbatch
+    from karpenter_tpu_torch.parallel import sharded as tsh
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.cuda import consolidate as cons
+
+    ops_per_s = int32_ops_per_s()
+    inputs = {"procmesh_surge": build_input(PODS), "procmesh_config3": build_config3_input(PODS)}
+    solver = TorchSolver(max_claims=MAX_CLAIMS, shards=PROC_RANKS * PROC_SLOTS)
+    base = TorchSolver(max_claims=MAX_CLAIMS)
+    mesh = solver._shard_mesh()
+    assert mesh is not None and mesh.world == PROC_RANKS and mesh.size == PROC_RANKS * PROC_SLOTS, \
+        (mesh, solver._process_mesh_error)
+    lo, hi = mesh.offset, mesh.offset + mesh.n_local
+    cold = {}
+    for name, inp in inputs.items():  # cold: allocator, encode caches, uploads
+        assert decisions_digest(solver.solve(inp)) == spec["want"][name], f"{name}: cold differs"
+        cold[name] = dict(solver.ledger.solve)
+        base.solve(inp)
+    torch.cuda.synchronize()
+    reset_launches()
+    cells = {}
+    for name, inp in inputs.items():
+        st0 = dict(solver.stats)
+        ms, base_ms, counted = [], [], {}
+        for _ in range(PROC_SOLVES):
+            l0 = read_launches()
+            t0 = time.perf_counter()
+            res = solver.solve(inp)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            for k, v in read_launches().items():
+                counted[k] = counted.get(k, 0) + v - l0[k]
+            warm = dict(solver.ledger.solve)
+            assert decisions_digest(res) == spec["want"][name], f"{name}: decisions differ"
+            t0 = time.perf_counter()
+            base.solve(inp)
+            base_ms.append((time.perf_counter() - t0) * 1e3)
+        d = {k: solver.stats[k] - st0[k] for k in solver.stats}
+        assert d["sharded_solves"] == PROC_SOLVES and d["sparse_dispatches"] == 0, (name, d)
+        cells[name] = dict(
+            solves=PROC_SOLVES, **_ms_tail(ms), unsharded_in_turns=_ms_tail(base_ms),
+            fixup_runs_per_solve=d["shard_fixup_runs"] / PROC_SOLVES,
+            launches_per_solve={k: v / PROC_SOLVES for k, v in counted.items() if v},
+            h2d_cold=dict(bytes=cold[name]["h2d_bytes"], shard=cold[name]["h2d_shard_bytes"]),
+            h2d_warm=dict(bytes=warm["h2d_bytes"], shard=warm["h2d_shard_bytes"]),
+            d2h_warm=warm["d2h_bytes"])
+    # config 5 on the (dcn, ici) grid over the ranks
+    cmesh = cons.candidate_mesh(dev)
+    assert cmesh.axis == ("dcn", "ici") and cmesh.shape == (PROC_RANKS, PROC_SLOTS), cmesh
+    ev = tbatch.BatchedConsolidationEvaluator(TorchSolver(max_claims=MAX_CLAIMS))
+    prep = ev.prepare(*build_config5_universe(CONFIG5_NODES, CONFIG5_CANDIDATES))
+    t0 = time.perf_counter()
+    k_best, dispatches, n_probed, _ = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
+    search_ms = (time.perf_counter() - t0) * 1e3
+    assert [k_best, dispatches] == spec["c5"], (k_best, dispatches, spec["c5"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for k in PROC_KERNELS:
+        assert launches[k] > 0, f"kernel {k} never launched on the process-mesh path"
+    # this rank's lanes against their plain version, timed (beside the path)
+    rows = []
+    for name, inp, kname in (("procmesh_surge", inputs["procmesh_surge"], KERNEL_NAMES[26]),
+                             ("procmesh_config3", inputs["procmesh_config3"], KERNEL_NAMES[27])):
+        c = sharded_check(kernel_phase(inp, dev), mesh.size, dev, lanes=(lo, hi))
+        rows.append(mesh_lane_row(c, launches[c["name"]], ops_per_s, kname, name,
+                                  "karpenter_tpu/parallel/sharded.py:285", MESH_SRC))
+    return dict(rank=tsh.process_index(), blocks=[lo, hi],
+                devices=[str(d) for d in mesh.devices], cells=cells,
+                config5=dict(k=k_best, dispatches=dispatches, prefixes_probed=n_probed,
+                             search_ms=search_ms, grid=list(cmesh.shape)),
+                launches={k: v for k, v in launches.items() if v}, rows=rows,
+                stats=dict(solver.stats),
+                modules=sorted(m for m in sys.modules if m in ("jax", "karpenter_tpu")
+                               or m.startswith(("jax.", "karpenter_tpu."))))
+
+
+def rank_main(argv) -> int:
+    """The rank process of phase 11b: chip_smoke.py RANK_FLAG rank world
+    addr spec_json. Prints its result as the last line."""
+    import torch
+
+    from karpenter_tpu_torch.parallel import sharded as tsh
+
+    rank, world, addr, spec = int(argv[0]), int(argv[1]), argv[2], json.loads(argv[3])
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    tsh.init_distributed(addr, world, rank)
+    try:
+        slots = spec["slots"]
+        with tsh.virtual_devices(slots):
+            out = procmesh_rank(torch.device("cuda"), spec)
+    finally:
+        tsh.close_distributed()
+    print(json.dumps({"rank": out}), flush=True)
+    return 0
+
+
+def procmesh_phase(ops_per_s: float, refs: dict) -> dict:
+    """Phase 11b: the ranks' runs, held together. `refs`: "want" (phase 3's
+    decisions digests, under the procmesh_* names) and "c5" ([k,
+    dispatches] of phase 2b)."""
+    import socket
+
+    import torch
+
+    n_dev = torch.cuda.device_count()
+    across = n_dev >= PROC_RANKS * PROC_SLOTS  # each rank its own cards
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    spec = dict(want=refs["want"], c5=refs["c5"], slots=PROC_SLOTS)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(PROC_RANKS):
+            env = dict(os.environ)
+            if across:
+                env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                    str(r * PROC_SLOTS + i) for i in range(PROC_SLOTS))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), RANK_FLAG, str(r),
+                 str(PROC_RANKS), addr, json.dumps(spec)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=HERE))
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall_s = time.perf_counter() - t0
+    ranks = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed ({p.returncode}):\n{se[-6000:]}"
+        ranks.append(json.loads(so.strip().splitlines()[-1])["rank"])
+    for r in ranks:
+        assert r["modules"] == [], f"rank {r['rank']} loaded {r['modules']}"
+        n_phys = len(set(r["devices"]))  # one K17 launch per card of the rank
+        for name, c in r["cells"].items():
+            kern = "ffd_sharded_zoned_scan" if "config3" in name else "ffd_sharded_fast_scan"
+            assert c["launches_per_solve"].get(kern) == n_phys, (r["rank"], name, c)
+    assert [r["blocks"] for r in ranks] == [[i * PROC_SLOTS, (i + 1) * PROC_SLOTS]
+                                           for i in range(PROC_RANKS)]
+    for name in ranks[0]["cells"]:
+        assert len({r["cells"][name]["fixup_runs_per_solve"] for r in ranks}) == 1, name
+    rows = []
+    for i, base in enumerate(ranks[0]["rows"]):
+        per = [r["rows"][i] for r in ranks]
+        row = dict(base)
+        row.update(
+            launches=sum(x["launches"] for x in per),
+            max_abs_err=max(x["max_abs_err"] for x in per),
+            ms=sum(x["ms"] for x in per) / len(per),
+            plain_ms=sum(x["plain_ms"] for x in per) / len(per),
+            device_ms=None if any(x["device_ms"] is None for x in per)
+            else sum(x["device_ms"] for x in per) / len(per),
+            match=all(x["match"] for x in per),
+            per_rank=[dict(ms=x["ms"], device_ms=x["device_ms"], plain_ms=x["plain_ms"],
+                           launches=x["launches"], max_abs_err=x["max_abs_err"]) for x in per])
+        rows.append(row)
+    return dict(ranks=ranks, rows=rows, wall_s=wall_s, across_cards=across,
+                card_count=n_dev)
+
+
+def hostmesh_phase(dev, ops_per_s: float, refs: dict) -> dict:
+    """Phase 11c: TorchSolver() over HostMeshPool(HOST_WORKERS) on the card.
+    `refs`: "want" (phase 3's decisions digests under the hostmesh_* names),
+    "phases" (kernel_phase results of the surge and config 3) and "inputs"."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.parallel.hostmesh import HostMeshPool
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.encode import mesh_run_blocks, sparse_run_tables
+
+    cells = {"hostmesh_surge": refs["inputs"]["surge"],
+             "hostmesh_config3": refs["inputs"]["config3"]}
+    t_start = time.perf_counter()
+    pool = HostMeshPool(HOST_WORKERS)
+    try:
+        solver = TorchSolver(max_claims=MAX_CLAIMS)
+        solver.host_mesh = pool
+        base = TorchSolver(max_claims=MAX_CLAIMS)
+        def pipe_delta(b0):
+            return [b - a for a, b in zip(b0, pool.pipe_bytes())]
+
+        pipe = {}
+        for name, inp in cells.items():  # cold: ships the broadcast tables
+            b0 = pool.pipe_bytes()
+            assert decisions_digest(solver.solve(inp)) == refs["want"][name], f"{name}: cold"
+            pipe[name] = pipe_delta(b0)
+            base.solve(inp)
+        torch.cuda.synchronize()
+        pool.ping_all(reset=True)  # the workers' counts start from 0 here
+        lines = {}
+        for name, inp in cells.items():
+            st0 = dict(solver.stats)
+            ms, base_ms, warm = [], [], []
+            for _ in range(HOST_SOLVES):
+                b0 = pool.pipe_bytes()
+                t0 = time.perf_counter()
+                res = solver.solve(inp)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                warm.append(pipe_delta(b0))
+                assert decisions_digest(res) == refs["want"][name], f"{name}: decisions differ"
+                t0 = time.perf_counter()
+                base.solve(inp)
+                base_ms.append((time.perf_counter() - t0) * 1e3)
+            d = {k: solver.stats[k] - st0[k] for k in solver.stats}
+            assert d["hostmesh_solves"] == HOST_SOLVES, (name, d)
+            # a warm scatter ships the run blocks, not the broadcast tables
+            assert all(w[0] * 10 < pipe[name][0] for w in warm), (name, pipe[name], warm)
+            lines[name] = dict(solves=HOST_SOLVES, **_ms_tail(ms),
+                               unsharded_in_turns=_ms_tail(base_ms),
+                               fixup_runs_per_solve=d["shard_fixup_runs"] / HOST_SOLVES,
+                               sparse_dispatches=d["sparse_dispatches"],
+                               pipe_bytes_cold=dict(sent=pipe[name][0], received=pipe[name][1]),
+                               pipe_bytes_warm=dict(sent=warm[-1][0], received=warm[-1][1]))
+        torch.cuda.synchronize()
+        ping1 = pool.ping_all()
+        worker_launches = [p["launches"] for p in ping1]
+        for k in HOST_KERNELS:
+            assert all(w.get(k, 0) >= HOST_SOLVES for w in worker_launches), (k, worker_launches)
+        for w in ping1:
+            assert "jax" not in w["packages"] and "karpenter_tpu" not in w["packages"], w
+        # each worker's lanes against their plain version and timed, on
+        # its card, beside the path; the bound over one worker's block
+        timing, rows = {}, []
+        for name, key, sparse, kname, kern in (
+                ("hostmesh_surge", "surge", False, KERNEL_NAMES[26], "ffd_sharded_fast_scan"),
+                ("hostmesh_config3", "config3", True, KERNEL_NAMES[32],
+                 "ffd_sharded_sparse_zoned_scan")):
+            ph = refs["phases"][key]
+            host = ph["host_args"]
+            Sp = int(host[0].shape[0])
+            rgb, rcb = mesh_run_blocks(np.asarray(host[0]), np.asarray(host[1]), HOST_WORKERS)
+            sqb = svb = None
+            if sparse:
+                rqi, rvi = sparse_run_tables(ph["enc"], Sp)
+                sqb = np.ascontiguousarray(rqi.reshape(HOST_WORKERS, Sp // HOST_WORKERS, -1))
+                svb = np.ascontiguousarray(rvi.reshape(HOST_WORKERS, Sp // HOST_WORKERS, -1))
+            pool.scatter_blocks(rgb, rcb, tuple(np.asarray(a) for a in host[2:]), ph["M"],
+                                zone_engine=ph["zone"], sqb=sqb, svb=svb, time_calls=10)
+            timing[name] = [w["timing"] for w in pool.ping_all()]
+            # the row is worker 0's (its block holds the first runs, every
+            # one of them real): its time beside the bound of its block
+            c = sharded_check(ph, HOST_WORKERS, dev, sparse=sparse, lanes=(0, 1))
+            row = mesh_lane_row(c, sum(w.get(kern, 0) for w in worker_launches), ops_per_s,
+                                kname, name, "karpenter_tpu/parallel/hostmesh.py:78",
+                                MESH_SPARSE_SRC if sparse else MESH_SRC)
+            row.update(ms=timing[name][0]["ms"], plain_ms=timing[name][0]["plain_ms"],
+                       max_abs_err=max(t["max_abs_err"] for t in timing[name]),
+                       device_ms=None, parent_ms=row["ms"], parent_device_ms=row["device_ms"],
+                       per_worker=timing[name])
+            row["match"] = row["max_abs_err"] == 0
+            assert row["match"], (name, timing[name])
+            rows.append(row)
+    finally:
+        pool.close()
+    return dict(cells=lines, worker_launches=worker_launches,
+                workers=[dict(pid=w["pid"], device=w["device"]) for w in ping1], rows=rows,
+                wall_s=time.perf_counter() - t_start)
+
+
+def phase11_refs(dev) -> dict:
+    """What phase 11 holds its results against when it runs alone
+    (--phase 11), made as the whole run makes them, on one slot: the
+    cells' inputs and kernel_phase results (phase 2's), TorchSolver()'s
+    decisions held equal to the plain path's (phase 3's check) and config
+    5's prefix search (phase 2b's k and dispatches)."""
+    from karpenter_tpu_torch.disruption import batched as tbatch
+    from karpenter_tpu_torch.parallel.sharded import virtual_devices
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+
+    inputs = {"surge": build_input(PODS), "config3": build_config3_input(PODS)}
+    with virtual_devices(1):
+        phases = {k: kernel_phase(v, dev) for k, v in inputs.items()}
+        solver = TorchSolver(max_claims=MAX_CLAIMS)
+        plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
+        results = {}
+        for k, v in inputs.items():
+            results[k] = solver.solve(v)
+            assert decisions(results[k]) == decisions(plain.solve(v)), f"{k}: plain path differs"
+        ev = tbatch.BatchedConsolidationEvaluator(TorchSolver(max_claims=MAX_CLAIMS))
+        prep = ev.prepare(*build_config5_universe(CONFIG5_NODES, CONFIG5_CANDIDATES))
+        k_best, dispatches, _, _ = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
+    return dict(inputs=inputs, phases=phases, results=results, c5=[k_best, dispatches])
+
+
+def mesh_phase(dev, ops_per_s: float, refs: dict) -> dict:
+    """Phase 11b and 11c from the references of phases 2, 2b and 3."""
+    want = {k: decisions_digest(refs["results"][k]) for k in ("surge", "config3")}
+    proc = procmesh_phase(ops_per_s, dict(
+        want={f"procmesh_{k}": v for k, v in want.items()}, c5=refs["c5"]))
+    host = hostmesh_phase(dev, ops_per_s, dict(
+        want={f"hostmesh_{k}": v for k, v in want.items()}, phases=refs["phases"],
+        inputs=refs["inputs"]))
+    return dict(procmesh=proc, hostmesh=host)
+
+
+def print_mesh(m: dict) -> None:
+    for r in m["procmesh"]["ranks"]:
+        for name, c in r["cells"].items():
+            u = c["unsharded_in_turns"]
+            print(f"{name}[rank {r['rank']}, blocks {r['blocks']}]: p50/p99 {c['p50_ms']:.2f}/"
+                  f"{c['p99_ms']:.2f} ms (TorchSolver() in turns {u['p50_ms']:.2f}/"
+                  f"{u['p99_ms']:.2f}), fix-up runs {c['fixup_runs_per_solve']:.2f}, launches a "
+                  f"solve {c['launches_per_solve']}, h2d cold {c['h2d_cold']} warm {c['h2d_warm']}"
+                  f", d2h warm {c['d2h_warm']}", flush=True)
+        print(f"procmesh_config5[rank {r['rank']}]: {r['config5']}", flush=True)
+    for name, c in m["hostmesh"]["cells"].items():
+        u = c["unsharded_in_turns"]
+        print(f"{name}: p50/p99 {c['p50_ms']:.2f}/{c['p99_ms']:.2f} ms (TorchSolver() in turns "
+              f"{u['p50_ms']:.2f}/{u['p99_ms']:.2f}), fix-up runs {c['fixup_runs_per_solve']:.2f}"
+              f", pipe bytes cold {c['pipe_bytes_cold']} warm {c['pipe_bytes_warm']}", flush=True)
+    print(f"hostmesh workers: {m['hostmesh']['workers']} launches {m['hostmesh']['worker_launches']}",
+          flush=True)
+
+
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
@@ -4646,12 +5224,15 @@ def phase10_refs(dev, ops_per_s: float) -> dict:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == [RANK_FLAG]:
+        return rank_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     only10 = sys.argv[1:] == ["--phase", "10"]
-    if sys.argv[1:] and not only10:
-        print("usage: python3 chip_smoke.py [--phase 10]", file=sys.stderr)
+    only11 = sys.argv[1:] == ["--phase", "11"]
+    if sys.argv[1:] and not (only10 or only11):
+        print("usage: python3 chip_smoke.py [--phase 10 | --phase 11]", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -4674,8 +5255,9 @@ def main() -> int:
     convex_lib = build.load("convex_kernels")
     build_s = time.perf_counter() - t0
     assert None not in (ffd_lib, sparse_lib, lanes_lib, lanes_sparse_lib, class_lib, convex_lib)
-    v_cap = ffd.zone_v_cap(dev)
-    print(f"zoned scan V-row cap on this card: {v_cap}", flush=True)
+    v_cap, q_cap = ffd.zone_v_cap(dev), ffd.q_cap(dev)
+    print(f"scan row caps on this card: V {v_cap} rows (zoned, no Q rows), Q {q_cap} rows "
+          f"(no V rows); {ffd.scan_rows_budget(dev)} B of launch-sized rows", flush=True)
     for line in build.BUILD_LOG["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
@@ -4688,6 +5270,26 @@ def main() -> int:
                           "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
                           "wall_s": time.perf_counter() - t_start}), flush=True)
         print_sharded(shard["summary"])
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only11:
+        # phase 11 alone (a run across several cards): its own references;
+        # the row checks on one slot, as the whole run makes them
+        from karpenter_tpu_torch.parallel.sharded import virtual_devices
+
+        int_rate = int32_ops_per_s()
+        with virtual_devices(1):
+            qrows = qrows_phase(dev)
+        mesh = mesh_phase(dev, int_rate, phase11_refs(dev))
+        print(json.dumps({"qrows": qrows, "mesh": mesh,
+                          "kernels": mesh["procmesh"]["rows"] + mesh["hostmesh"]["rows"],
+                          "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
+        print_mesh(mesh)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4772,12 +5374,15 @@ def main() -> int:
     sparse = {}
     for cell in ("surge", "config3", "constraint_wide", "mixed"):
         # the resumes at mixed add ~15 s of plain scan and no path the
-        # other three cells do not take
-        c = sparse[cell] = sparse_check(phases[cell], dev, resume=cell != "mixed")
+        # other three cells do not take; its plain sparse scan (~45 s) is
+        # the dense one phase 2 held K1 against, so K1s / K7s are held
+        # against the dense kernels there
+        c = sparse[cell] = sparse_check(phases[cell], dev, resume=cell != "mixed",
+                                        plain=cell != "mixed")
         print(f"sparse[{cell}]: {c['name']} Kq={c['Kq']} Kv={c['Kv']} events={c['events']} "
               f"max_abs_err=({c['err']}, K7s {c['err_ckpt']}, vs dense K1 {c['err_dense']}, "
               f"resume k={c.get('k')} {c.get('err_resume')}, across ring forms "
-              f"{c.get('err_cross')}) plain_s={c['plain_once_s']:.2f}", flush=True)
+              f"{c.get('err_cross')}) plain_s={c['plain_once_s']}", flush=True)
     assert all(phases[n]["zone"] for n in ("config3", "constraint_wide", "mixed"))
     assert phases["constraint_wide"]["dims"]["Vp"] == 120, phases["constraint_wide"]["dims"]
     small_sparse = []
@@ -5199,9 +5804,9 @@ def main() -> int:
           f"{cohort_rows[0]['k1_lane_ms']:.3f} ms (device {cohort_rows[0]['k1_lane_device_ms']})",
           flush=True)
 
-    stages = {name: breakdown(inp, 5, phases[name]["M"], phases[name]["zone"])
+    stages = {name: breakdown(inp, 3, phases[name]["M"], phases[name]["zone"])
               for name, inp in inputs.items()}
-    stages.update({name: ladder_breakdown(inp, 5, ladder[name]["M"], ladder[name]["zone"])
+    stages.update({name: ladder_breakdown(inp, 3, ladder[name]["M"], ladder[name]["zone"])
                    for name, inp in relax_inputs.items()})
     cell_scan = {"surge": 11, "surge_e2e": 11, "config3": 19, "config4": 12, "config3_soft": 17,
                  "constraint_wide": 19}
@@ -5220,6 +5825,22 @@ def main() -> int:
     shard["summary"]["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"sharded": shard["summary"]}), flush=True)
     print_sharded(shard["summary"])
+
+    print(f"[phase 11 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 11: launch-sized Q rows, the process mesh and the host mesh ----------
+    t0 = time.perf_counter()
+    qrows = qrows_phase(dev)
+    qrows["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"qrows": qrows}), flush=True)
+    t0 = time.perf_counter()
+    mesh = mesh_phase(dev, int_rate, dict(
+        inputs={"surge": inputs["surge"], "config3": inputs["config3"]},
+        phases={"surge": phases["surge"], "config3": phases["config3"]},
+        results={"surge": results["surge"], "config3": results["config3"]},
+        c5=[c5["summary"]["config5_prefix_nodes"], c5["summary"]["config5_dispatches"]]))
+    mesh["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"mesh": {k: v for k, v in mesh.items()}}), flush=True)
+    print_mesh(mesh)
     # solves per kernel in phase 3's counted window: TorchSolver() on the
     # surge, surge_e2e (K7), config 4 (K7 zoned), config 3 and
     # constraint_wide (K7s zoned) REPEATS times, mixed (K7s zoned)
@@ -5244,7 +5865,8 @@ def main() -> int:
                                  int_rate)
             + [pack_kernel_row(phases["config3"]["out"], packs["config3"]["err"], launches,
                                int_rate)]
-            + class_rows + [cvx["row"]] + cohort_rows + shard["rows"])
+            + class_rows + [cvx["row"]] + cohort_rows + shard["rows"]
+            + mesh["procmesh"]["rows"] + mesh["hostmesh"]["rows"])
     launches_per_solve = {k: launches[k] / n for k, n in (
         *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
         ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
@@ -5292,6 +5914,11 @@ def main() -> int:
         "cohort": cohort_line,
         "sharded": shard["summary"],
         "zone_v_cap": v_cap,
+        "q_cap": q_cap,
+        "qrows": qrows,
+        "mesh": {"procmesh": {k: v for k, v in mesh["procmesh"].items() if k != "rows"},
+                 "hostmesh": {k: v for k, v in mesh["hostmesh"].items() if k != "rows"},
+                 "phase_s": mesh["phase_s"]},
         "explain_checks": {k: {f: v[f] for f in ("Sp", "Ep", "Gp", "E", "G", "ks", "err",
                                                  "side_bytes")}
                            for k, v in explain_checks.items()},

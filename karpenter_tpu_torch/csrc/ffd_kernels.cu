@@ -55,6 +55,12 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <initializer_list>
+
+// The scan instances' launch-sized shared rows (RunShared's Q rows, then
+// the zoned instances' V rows: ZoneShared::mv/ov/vk/vcol), at file scope:
+// an extern shared array does not belong in the unnamed namespace.
+extern __shared__ __align__(16) unsigned char scan_rows[];
 
 namespace {
 
@@ -62,7 +68,6 @@ constexpr int NT = 1024;          // threads of the single-block kernels
 constexpr int NWARPS = NT / 32;
 constexpr int BIG = 1 << 30;
 constexpr int I32MAX = 2147483647;
-constexpr int MAX_Q = 256;        // solver/cuda/ffd.py MAX_Q
 constexpr int MAX_R = 16;         // solver/cuda/ffd.py MAX_R
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -235,12 +240,28 @@ __device__ __forceinline__ bool node_compat_at(const ScanArgs& a, int g, int e) 
   else return a.node_compat[(size_t)g * a.E + e];
 }
 
+// One Q-axis row of a run: the group's member / owner flags, the sig's
+// kind and cap, the members' total, and under SPARSE the slot's Q column
+// (-1 padding). 24 bytes.
+struct QRow {
+  int mg, og, kq, cq;
+  unsigned tot;
+  int qcol;
+};
+static_assert(sizeof(QRow) == 24, "solver/cuda/ffd.py scan_rows_bytes counts 24 bytes a Q row");
+
+// Per-run shared state of the scan. The run's Q rows lie in dynamic shared
+// memory sized at launch to the dispatch (q_rows_bytes): max(Q, Kq) of
+// them, because a constrained run of a sparse instance reloads the dense
+// flags into the first Q. So Q is bounded by the card's opt-in shared
+// memory less the instance's static share (the *_rows_budget queries), not
+// by a constant. q() addresses the rows from the shared symbol itself, at a
+// fixed 24-byte stride, so every access stays a shared-memory load at a
+// constant offset from the row.
 struct RunShared {
   int req[MAX_R];
   int charge[MAX_R];
-  int mg[MAX_Q], og[MAX_Q], kq[MAX_Q], cq[MAX_Q];
-  unsigned tot[MAX_Q];
-  int qcol[MAX_Q];  // SPARSE: slot -> Q column (-1 padding)
+  __device__ __forceinline__ QRow* q() const { return reinterpret_cast<QRow*>(scan_rows); }
   int red[NWARPS];
   unsigned ured[NWARPS];
   int any_owned2, boot2, fresh_allow, remaining, used, cap2, n_new, full_take;
@@ -251,11 +272,11 @@ struct RunShared {
 // Shared state of the zoned branch (ZONE=true only): the run's V-axis
 // flags and every [Z] / [P] vector and scalar of one event. The V-axis rows
 // (mv, ov, vk; vcol in the sparse instances) point into dynamic shared
-// memory sized at launch to the dispatch (zone_rows_bytes): max(V, Kv) rows
-// of mv/ov/vk, because a constrained run of a sparse instance reloads the
-// dense flags at full width, and Kv slots of vcol. So V is bounded by the
-// card's opt-in shared memory less the instance's static share
-// (ffd_zone_max_v), not by a constant.
+// memory sized at launch to the dispatch (zone_rows_bytes), after the Q
+// rows: max(V, Kv) rows of mv/ov/vk, because a constrained run of a sparse
+// instance reloads the dense flags at full width, and Kv slots of vcol. So
+// V trades against Q within the card's opt-in shared memory less the
+// instance's static share (the *_rows_budget queries).
 struct ZoneShared {
   unsigned char* mv;
   unsigned char* ov;
@@ -301,7 +322,7 @@ struct Scratch {
 // column the slot gathered (-1 padding, whose flags are all false)
 template <bool SPARSE>
 __device__ __forceinline__ int qcol_of(const RunShared& sh, int q) {
-  if constexpr (SPARSE) return sh.qcol[q]; else return q;
+  if constexpr (SPARSE) return sh.q()[q].qcol; else return q;
 }
 
 // hostname allowance of one row (Q axis) over the nq slots of the run's
@@ -311,15 +332,15 @@ template <bool KIND2_OWNER = false, bool SPARSE = false>
 __device__ int row_allowance(const RunShared& sh, int nq, const int* cm, const int* co) {
   int best = BIG;
   for (int q = 0; q < nq; ++q) {
-    const int kind = sh.kq[q];
-    const bool member = sh.mg[q], owner = sh.og[q] && (KIND2_OWNER || kind != 2);
+    const int kind = sh.q()[q].kq;
+    const bool member = sh.q()[q].mg, owner = sh.q()[q].og && (KIND2_OWNER || kind != 2);
     const bool relevant = owner || (kind == 1 && member);
     if (!relevant) continue;
     const int col = qcol_of<SPARSE>(sh, q);
     const int c = cm ? cm[col] : 0, o = co ? co[col] : 0;
     int v;
     if (kind == 0) {
-      v = member ? wsub(sh.cq[q], c) : (wadd(c, 1) <= sh.cq[q] ? BIG : 0);
+      v = member ? wsub(sh.q()[q].cq, c) : (wadd(c, 1) <= sh.q()[q].cq ? BIG : 0);
     } else if (kind == 2) {
       v = c > 0 ? BIG : 0;
     } else if (owner) {
@@ -338,7 +359,7 @@ template <bool SPARSE = false>
 __device__ int row_pos(const RunShared& sh, int nq, const int* cm) {
   int best = BIG;
   for (int q = 0; q < nq; ++q)
-    if (sh.og[q] && sh.kq[q] == 2) best = min(best, cm[qcol_of<SPARSE>(sh, q)] > 0 ? BIG : 0);
+    if (sh.q()[q].og && sh.q()[q].kq == 2) best = min(best, cm[qcol_of<SPARSE>(sh, q)] > 0 ? BIG : 0);
   return best;
 }
 
@@ -966,8 +987,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       if (add == 0) continue;
       for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = wadd(a.e_cum[e * R + r], wmul(add, sh.req[r]));
       for (int q = 0; q < Q; ++q) {
-        if (sh.mg[q]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], add);
-        if (add > 0 && sh.og[q] && sh.kq[q] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
+        if (sh.q()[q].mg) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], add);
+        if (add > 0 && sh.q()[q].og && sh.q()[q].kq == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
       }
       a.take_e[take_row<BATCH || LADDER>(s, E) + e] =
           wadd(a.take_e[take_row<BATCH || LADDER>(s, E) + e], add);
@@ -1015,8 +1036,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
         a.c_zc_bits[m] = cz_after;
         if (add > 0 || drain > 0) a.c_gbits[(size_t)m * W + gword] |= gbit;
         for (int q = 0; q < Q; ++q) {
-          if (sh.mg[q]) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], tot);
-          if (sh.og[q] && sh.kq[q] == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], nco);
+          if (sh.q()[q].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], tot);
+          if (sh.q()[q].og && sh.q()[q].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], nco);
         }
         for (int v = 0; v < V; ++v) {
           if (zs.mv[v]) a.c_vm[m * V + v] = wadd(a.c_vm[m * V + v], tot);
@@ -1057,8 +1078,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
         for (int w = 0; w < W; ++w) a.c_gbits[(size_t)m * W + w] = (w == gword) ? gbit : 0u;
         a.c_pool[m] = p;
         for (int q = 0; q < Q; ++q) {
-          a.c_cm[m * Q + q] = sh.mg[q] ? take : 0;
-          a.c_co[m * Q + q] = (take > 0 && sh.og[q] && sh.kq[q] == 1) ? 1 : 0;
+          a.c_cm[m * Q + q] = sh.q()[q].mg ? take : 0;
+          a.c_co[m * Q + q] = (take > 0 && sh.q()[q].og && sh.q()[q].kq == 1) ? 1 : 0;
         }
         for (int v = 0; v < V; ++v) {
           a.c_vm[m * V + v] = zs.mv[v] ? take : 0;
@@ -1360,23 +1381,27 @@ __device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, 
 // Design: K1's body under a fifth template flag, so the dense instances
 // keep their code; the index tables ride beside the 32 scan inputs.
 
-}  // namespace
+// Bytes of the launch-sized shared rows (scan_rows) of one launch: the Q
+// rows (QRow, 24 bytes, over max(Q, Kq) rows), then in the zoned instances
+// the V rows (vk and vcol as int, mv and ov as bytes). The dense instances
+// pass Kq = Kv = 0. A sparse zoned launch at Kq = Q, Kv = V takes 24 bytes
+// a Q row and 10 a V row.
+__host__ __device__ __forceinline__ int q_rows_bytes(int Q, int Kq) {
+  return (int)sizeof(QRow) * (Q > Kq ? Q : Kq);
+}
 
-// The zoned instances' V-axis rows (ZoneShared::mv/ov/vk/vcol), at file
-// scope: an extern shared array does not belong in the unnamed namespace.
-extern __shared__ __align__(16) unsigned char zone_rows[];
-
-namespace {
-
-// Bytes of those rows for one launch: vk and vcol as int, mv and ov as bytes.
 __host__ __device__ __forceinline__ int zone_rows_bytes(int V, int Kv) {
   const int vd = V > Kv ? V : Kv;
   return 6 * vd + 4 * Kv;
 }
 
-__device__ __forceinline__ void bind_zone_rows(ZoneShared& zs, int V, int Kv) {
+__host__ __device__ __forceinline__ int scan_rows_bytes(int Q, int Kq, int V, int Kv, bool zone) {
+  return q_rows_bytes(Q, Kq) + (zone ? zone_rows_bytes(V, Kv) : 0);
+}
+
+__device__ __forceinline__ void bind_zone_rows(ZoneShared& zs, int V, int Kv, int q_bytes) {
   const int vd = max(V, Kv);
-  zs.vk = reinterpret_cast<int*>(zone_rows);
+  zs.vk = reinterpret_cast<int*>(scan_rows + q_bytes);
   zs.vcol = zs.vk + vd;
   zs.mv = reinterpret_cast<unsigned char*>(zs.vcol + Kv);
   zs.ov = zs.mv + vd;
@@ -1408,7 +1433,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
 
   if (tid == 0) {
     sh.used = *a.used;
-    if constexpr (ZONE) bind_zone_rows(*zs, a.V, SPARSE ? a.Kv : 0);
+    if constexpr (ZONE) bind_zone_rows(*zs, a.V, SPARSE ? a.Kv : 0, q_rows_bytes(Q, SPARSE ? a.Kq : 0));
   }
   __syncthreads();
 
@@ -1433,20 +1458,20 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       for (int k = tid; k < nq; k += NT) {
         const int c = a.run_q_idx[(size_t)s * nq + k];
         const bool ok = c >= 0 && c < Q;
-        sh.qcol[k] = ok ? c : -1;
-        sh.mg[k] = ok && a.q_member[g * Q + c] != 0;
-        sh.og[k] = ok && a.q_owner[g * Q + c] != 0;
-        sh.kq[k] = ok ? a.q_kind[c] : 0;
-        sh.cq[k] = ok ? a.q_cap[c] : 0;
-        sh.tot[k] = 0u;
+        sh.q()[k].qcol = ok ? c : -1;
+        sh.q()[k].mg = ok && a.q_member[g * Q + c] != 0;
+        sh.q()[k].og = ok && a.q_owner[g * Q + c] != 0;
+        sh.q()[k].kq = ok ? a.q_kind[c] : 0;
+        sh.q()[k].cq = ok ? a.q_cap[c] : 0;
+        sh.q()[k].tot = 0u;
       }
     } else {
       for (int q = tid; q < Q; q += NT) {
-        sh.mg[q] = a.q_member[g * Q + q] != 0;
-        sh.og[q] = a.q_owner[g * Q + q] != 0;
-        sh.kq[q] = a.q_kind[q];
-        sh.cq[q] = a.q_cap[q];
-        sh.tot[q] = 0u;
+        sh.q()[q].mg = a.q_member[g * Q + q] != 0;
+        sh.q()[q].og = a.q_owner[g * Q + q] != 0;
+        sh.q()[q].kq = a.q_kind[q];
+        sh.q()[q].cq = a.q_cap[q];
+        sh.q()[q].tot = 0u;
       }
     }
     for (int i = tid; i < M; i += NT) c_take[i] = 0;
@@ -1469,20 +1494,23 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       }
     }
     __syncthreads();
-    const int any_owned2 = __syncthreads_or(tid < nq && sh.og[tid] && sh.kq[tid] == 2);
+    // (nq may exceed the block: each thread folds its strided slots)
+    int own2 = 0;
+    for (int k = tid; k < nq; k += NT) own2 |= sh.q()[k].og && sh.q()[k].kq == 2;
+    const int any_owned2 = __syncthreads_or(own2);
     if (any_owned2) {
       // total members per sig over nodes and claims (wrapping sums)
       for (int e = tid; e < E; e += NT)
         for (int q = 0; q < nq; ++q) {
           const int c = qcol_of<SPARSE>(sh, q);
           if constexpr (SPARSE) if (c < 0) continue;
-          if (a.e_cm[e * Q + c]) atomicAdd(&sh.tot[q], (unsigned)a.e_cm[e * Q + c]);
+          if (a.e_cm[e * Q + c]) atomicAdd(&sh.q()[q].tot, (unsigned)a.e_cm[e * Q + c]);
         }
       for (int m = tid; m < M; m += NT)
         for (int q = 0; q < nq; ++q) {
           const int c = qcol_of<SPARSE>(sh, q);
           if constexpr (SPARSE) if (c < 0) continue;
-          if (a.c_cm[m * Q + c]) atomicAdd(&sh.tot[q], (unsigned)a.c_cm[m * Q + c]);
+          if (a.c_cm[m * Q + c]) atomicAdd(&sh.q()[q].tot, (unsigned)a.c_cm[m * Q + c]);
         }
     }
     __syncthreads();
@@ -1490,7 +1518,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       sh.fresh_allow = row_allowance<false, SPARSE>(sh, nq, nullptr, nullptr);
       int boot_ok = 1;
       for (int q = 0; q < nq; ++q)
-        if (sh.og[q] && sh.kq[q] == 2 && !(sh.mg[q] && sh.tot[q] == 0u)) boot_ok = 0;
+        if (sh.q()[q].og && sh.q()[q].kq == 2 && !(sh.q()[q].mg && sh.q()[q].tot == 0u)) boot_ok = 0;
       sh.boot2 = any_owned2 && boot_ok;
       sh.remaining = a.group_device[g] ? count : 0;
     }
@@ -1507,10 +1535,10 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
         if constexpr (SPARSE) {
           // the event engine reads the dense flags by sig index
           for (int q = tid; q < Q; q += NT) {
-            sh.mg[q] = a.q_member[g * Q + q] != 0;
-            sh.og[q] = a.q_owner[g * Q + q] != 0;
-            sh.kq[q] = a.q_kind[q];
-            sh.cq[q] = a.q_cap[q];
+            sh.q()[q].mg = a.q_member[g * Q + q] != 0;
+            sh.q()[q].og = a.q_owner[g * Q + q] != 0;
+            sh.q()[q].kq = a.q_kind[q];
+            sh.q()[q].cq = a.q_cap[q];
           }
           for (int v = tid; v < a.V; v += NT) {
             zs->mv[v] = a.v_member[g * a.V + v] != 0;
@@ -1561,8 +1589,8 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
           for (int k = 0; k < nq; ++k) {
             const int q = qcol_of<SPARSE>(sh, k);
             if constexpr (SPARSE) if (q < 0) continue;
-            if (sh.mg[k]) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], take);
-            if (sh.og[k] && sh.kq[k] == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
+            if (sh.q()[k].mg) a.e_cm[e * Q + q] = wadd(a.e_cm[e * Q + q], take);
+            if (sh.q()[k].og && sh.q()[k].kq == 1) a.e_co[e * Q + q] = wadd(a.e_co[e * Q + q], 1);
           }
         }
       }
@@ -1645,8 +1673,8 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
         for (int k = 0; k < nq; ++k) {
           const int q = qcol_of<SPARSE>(sh, k);
           if constexpr (SPARSE) if (q < 0) continue;
-          if (sh.mg[k]) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
-          if (sh.og[k] && sh.kq[k] == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
+          if (sh.q()[k].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
+          if (sh.q()[k].og && sh.q()[k].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
         }
         if constexpr (ZONE)
           for (int k = 0; k < nv; ++k) {
@@ -1724,11 +1752,11 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
           if constexpr (SPARSE) {
             // the row is zero (m >= used): add the view's columns onto it
             for (int k = 0; k < nq; ++k) {
-              const int q = sh.qcol[k];
+              const int q = sh.q()[k].qcol;
               if (q < 0) continue;
-              a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], sh.mg[k] ? take_j : 0);
+              a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], sh.q()[k].mg ? take_j : 0);
               a.c_co[m * Q + q] =
-                  wadd(a.c_co[m * Q + q], (take_j > 0 && sh.og[k] && sh.kq[k] == 1) ? 1 : 0);
+                  wadd(a.c_co[m * Q + q], (take_j > 0 && sh.q()[k].og && sh.q()[k].kq == 1) ? 1 : 0);
             }
             if constexpr (ZONE)
               for (int k = 0; k < nv; ++k) {
@@ -1737,8 +1765,8 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
               }
           } else {
             for (int q = 0; q < Q; ++q) {
-              a.c_cm[m * Q + q] = sh.mg[q] ? take_j : 0;
-              a.c_co[m * Q + q] = (take_j > 0 && sh.og[q] && sh.kq[q] == 1) ? 1 : 0;
+              a.c_cm[m * Q + q] = sh.q()[q].mg ? take_j : 0;
+              a.c_co[m * Q + q] = (take_j > 0 && sh.q()[q].og && sh.q()[q].kq == 1) ? 1 : 0;
             }
             if constexpr (ZONE)
               for (int v = 0; v < a.V; ++v) a.c_vm[m * a.V + v] = zs->mv[v] ? take_j : 0;
@@ -2170,7 +2198,7 @@ static void fill_scan_state(ScanArgs& a, void** p) {
 }
 
 static bool scan_limits_ok(const ScanArgs& a, bool zone) {
-  if (a.Q > MAX_Q || a.R > MAX_R) return false;
+  if (a.R > MAX_R) return false;
   return !(zone && (a.Z > MAX_Z || a.Z < 1 || a.V < 1 || a.P > MAX_P));
 }
 
@@ -2195,37 +2223,51 @@ static int opt_in(K kern, int dyn, int* opted) {
   return 0;
 }
 
-// Launch one scan instance. A zoned instance takes its V-axis rows as
-// dynamic shared memory; past the 48 KB default it needs the opt-in, raised
+// Launch one scan instance. Every instance takes its Q rows (and a zoned
+// one its V rows) as dynamic shared memory sized to the launch
+// (scan_rows_bytes); past the 48 KB default that needs the opt-in, raised
 // once per instance and device to the widest launch so far. A launch past
-// the card's opt-in (ffd_zone_max_v) is refused here with the attribute
-// call's error.
+// the card's opt-in less the instance's static share (*_rows_budget) is
+// refused here with the attribute call's error.
+template <typename K>
+static int launch_rows(K kern, const ScanArgs& a, bool zone, bool sparse, int* opted) {
+  const int dyn = scan_rows_bytes(a.Q, sparse ? a.Kq : 0, a.V, sparse ? a.Kv : 0, zone);
+  const int e = opt_in(kern, dyn, opted);
+  return e != 0 ? -e : dyn;
+}
+
 template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
 static int launch_scan(int blocks, const ScanArgs& a, void* stream) {
   auto kern = ffd_scan_kernel<ZONE, BATCH, LADDER, CKPT, SPARSE>;
-  int dyn = 0;
-  if constexpr (ZONE) {
-    dyn = zone_rows_bytes(a.V, SPARSE ? a.Kv : 0);
-    static int opted[MAX_DEVICES] = {};
-    const int e = opt_in(kern, dyn, opted);
-    if (e != 0) return e;
-  }
+  static int opted[MAX_DEVICES] = {};
+  const int dyn = launch_rows(kern, a, ZONE, SPARSE, opted);
+  if (dyn < 0) return -dyn;
   kern<<<blocks, NT, dyn, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The most V-axis rows (max(V, Kv)) a launch of `kern` holds: the card's
-// opt-in shared memory per block less the kernel's static share, over the
-// 10 bytes a row takes (zone_rows_bytes). Negative: a CUDA error.
+// The bytes of launch-sized rows (scan_rows_bytes) a launch of `kern`
+// holds: the card's opt-in shared memory per block less the kernel's
+// static share. Negative: a CUDA error.
 template <typename K>
-static int zone_max_v(K kern) {
+static int rows_budget(K kern) {
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   cudaFuncAttributes at{};
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, kern);
   if (e != cudaSuccess) return -(int)e;
-  return (optin - (int)at.sharedSizeBytes) / 10;
+  return optin - (int)at.sharedSizeBytes;
+}
+
+// The least of several budgets, or the first CUDA error (negative).
+static int least_budget(std::initializer_list<int> budgets) {
+  int best = 0x7fffffff;
+  for (int b : budgets) {
+    if (b < 0) return b;
+    best = std::min(best, b);
+  }
+  return best;
 }
 
 // The sparse launchers take the dense launcher's pointers and dims, then
@@ -2239,7 +2281,7 @@ static bool fill_sparse(ScanArgs& a, void** p, int n, const int* d, int nd) {
     a.run_v_idx = (const int*)p[n - 1];
     a.Kq = d[nd - 2];
     a.Kv = d[nd - 1];
-    return a.Kq >= 0 && a.Kq <= MAX_Q && a.Kv >= 0;
+    return a.Kq >= 0 && a.Kv >= 0;
   } else {
     return true;
   }
@@ -2333,13 +2375,16 @@ int ffd_ckpt_sparse_launch(void** p, int n, const int* d, void* stream) {
   return ckpt_launch<true>(p, n, d, stream);
 }
 
-// The V-row cap of this library's zoned instances (the least over them);
-// the arguments are unused. Returns the cap, or minus a CUDA error.
-int ffd_sparse_zone_max_v(void**, int, const int*, void*) {
-  const int caps[3] = {zone_max_v(ffd_scan_kernel<true, false, false, false, true>),
-                       zone_max_v(ffd_scan_kernel<true, false, true, false, true>),
-                       zone_max_v(ffd_scan_kernel<true, false, false, true, true>)};
-  return std::min(caps[0], std::min(caps[1], caps[2]));
+// The row budget of this library's instances (bytes of launch-sized rows,
+// the least over them); the arguments are unused. Returns the budget, or
+// minus a CUDA error.
+int ffd_sparse_rows_budget(void**, int, const int*, void*) {
+  return least_budget({rows_budget(ffd_scan_kernel<false, false, false, false, true>),
+                       rows_budget(ffd_scan_kernel<true, false, false, false, true>),
+                       rows_budget(ffd_scan_kernel<false, false, true, false, true>),
+                       rows_budget(ffd_scan_kernel<true, false, true, false, true>),
+                       rows_budget(ffd_scan_kernel<false, false, false, true, true>),
+                       rows_budget(ffd_scan_kernel<true, false, false, true, true>)});
 }
 #elif defined(FFD_LANES_ONLY) && defined(FFD_LANES_SPARSE)
 // the sparse lanes library (ffd_lanes_sparse_kernels.cu): K17s
@@ -2372,21 +2417,25 @@ int ffd_lanes_sparse_launch(void** p, int n, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (zone) {
     auto kern = ffd_lanes_sparse_kernel<true>;
-    const int dyn = zone_rows_bytes(a.V, a.Kv);
     static int opted[MAX_DEVICES] = {};
-    const int e = opt_in(kern, dyn, opted);
-    if (e != 0) return e;
+    const int dyn = launch_rows(kern, a, true, true, opted);
+    if (dyn < 0) return -dyn;
     kern<<<B, NT, dyn, st>>>(a, ls);
   } else {
-    ffd_lanes_sparse_kernel<false><<<B, NT, 0, st>>>(a, ls);
+    auto kern = ffd_lanes_sparse_kernel<false>;
+    static int opted[MAX_DEVICES] = {};
+    const int dyn = launch_rows(kern, a, false, true, opted);
+    if (dyn < 0) return -dyn;
+    kern<<<B, NT, dyn, st>>>(a, ls);
   }
   return (int)cudaGetLastError();
 }
 
-// The V-row cap of the zoned sparse lanes instance; the arguments are
-// unused. Returns the cap, or minus a CUDA error.
-int ffd_lanes_sparse_zone_max_v(void**, int, const int*, void*) {
-  return zone_max_v(ffd_lanes_sparse_kernel<true>);
+// The row budget of the sparse lanes instances (the least of the two); the
+// arguments are unused. Returns the budget, or minus a CUDA error.
+int ffd_lanes_sparse_rows_budget(void**, int, const int*, void*) {
+  return least_budget({rows_budget(ffd_lanes_sparse_kernel<false>),
+                       rows_budget(ffd_lanes_sparse_kernel<true>)});
 }
 #elif defined(FFD_LANES_ONLY)
 // the lanes library (ffd_lanes_kernels.cu): K15, and K17 (the same
@@ -2414,21 +2463,24 @@ int ffd_lanes_launch(void** p, int n, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (zone) {
     auto kern = ffd_lanes_kernel<true>;
-    const int dyn = zone_rows_bytes(a.V, 0);
     static int opted[MAX_DEVICES] = {};
-    const int e = opt_in(kern, dyn, opted);
-    if (e != 0) return e;
+    const int dyn = launch_rows(kern, a, true, false, opted);
+    if (dyn < 0) return -dyn;
     kern<<<B, NT, dyn, st>>>(a, ls);
   } else {
-    ffd_lanes_kernel<false><<<B, NT, 0, st>>>(a, ls);
+    auto kern = ffd_lanes_kernel<false>;
+    static int opted[MAX_DEVICES] = {};
+    const int dyn = launch_rows(kern, a, false, false, opted);
+    if (dyn < 0) return -dyn;
+    kern<<<B, NT, dyn, st>>>(a, ls);
   }
   return (int)cudaGetLastError();
 }
 
-// The V-row cap of the zoned lanes instance; the arguments are unused.
-// Returns the cap, or minus a CUDA error.
-int ffd_lanes_zone_max_v(void**, int, const int*, void*) {
-  return zone_max_v(ffd_lanes_kernel<true>);
+// The row budget of the lanes instances (the least of the two); the
+// arguments are unused. Returns the budget, or minus a CUDA error.
+int ffd_lanes_rows_budget(void**, int, const int*, void*) {
+  return least_budget({rows_budget(ffd_lanes_kernel<false>), rows_budget(ffd_lanes_kernel<true>)});
 }
 #else
 int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
@@ -2467,15 +2519,18 @@ int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
   return ckpt_launch<false>(p, n, d, stream);
 }
 
-// The V-row cap of this library's zoned instances (K1, K4, K6, K7 zoned; the
-// least over them); the arguments are unused. Returns the cap, or minus a
-// CUDA error.
-int ffd_zone_max_v(void**, int, const int*, void*) {
-  const int caps[4] = {zone_max_v(ffd_scan_kernel<true, false, false, false, false>),
-                       zone_max_v(ffd_scan_kernel<true, true, false, false, false>),
-                       zone_max_v(ffd_scan_kernel<true, false, true, false, false>),
-                       zone_max_v(ffd_scan_kernel<true, false, false, true, false>)};
-  return std::min(std::min(caps[0], caps[1]), std::min(caps[2], caps[3]));
+// The row budget of this library's scan instances (K1, K4, K6, K7, fast and
+// zoned; the least over them); the arguments are unused. Returns the
+// budget, or minus a CUDA error.
+int ffd_rows_budget(void**, int, const int*, void*) {
+  return least_budget({rows_budget(ffd_scan_kernel<false, false, false, false, false>),
+                       rows_budget(ffd_scan_kernel<true, false, false, false, false>),
+                       rows_budget(ffd_scan_kernel<false, true, false, false, false>),
+                       rows_budget(ffd_scan_kernel<true, true, false, false, false>),
+                       rows_budget(ffd_scan_kernel<false, false, true, false, false>),
+                       rows_budget(ffd_scan_kernel<true, false, true, false, false>),
+                       rows_budget(ffd_scan_kernel<false, false, false, true, false>),
+                       rows_budget(ffd_scan_kernel<true, false, false, true, false>)});
 }
 
 // K5. ptrs: leftover [B, S], used [B], c_zc_bits [B, M], c_mask [B, M, T]

@@ -60,6 +60,13 @@ through ffd_resume (K7 / K7s) on the mesh's first device. A later solve
 whose run list shares whole blocks with the bucket's last sharded solve
 replays only the changed tail from the recorded block-boundary carry. With
 fewer than 2 slots the solve takes the single-device path, uncounted.
+Under a torch.distributed group (parallel/sharded.py init_distributed) the
+mesh spans the processes: each process uploads and scans only its own
+blocks, the lanes are all-gathered over the group, and every process
+stitches and replays the same (no shard records, dense tables); a grid the
+processes cannot divide declines to the single-device path. With
+`host_mesh` set, worker processes (parallel/hostmesh.py) scan the blocks
+and the parent stitches.
 
 Inputs outside the port raise `UnsupportedInput`; there is no CPU
 fallback solver. A later slice lifts one decline at a time.
@@ -68,6 +75,7 @@ fallback solver. A later slice lifts one decline at a time.
 from __future__ import annotations
 
 import abc
+import hashlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -383,27 +391,31 @@ def host_kernel_args(enc: EncodedInput, bucket) -> Tuple[tuple, dict, tuple]:
 
 
 def check_kernel_limits(dims: dict, host_args: tuple, zone: bool, device) -> None:
-    """Raise UnsupportedInput when the padded shapes exceed the scan
-    kernel's shared rows (Q, R; with the zoned branch also the domain
-    columns, the pools and V, whose cap is the card's: cuda/ffd.py
-    zone_v_cap, none on the CPU)."""
+    """Raise UnsupportedInput when a launch on a CUDA `device` would exceed
+    the scan kernel's shared rows: R past MAX_R; with the zoned branch the
+    domain columns past MAX_Z or the pools past MAX_P (static rows); and the
+    launch-sized Q rows (24 B each) plus, zoned, V rows (10 B each) past the
+    card's row budget (cuda/ffd.py scan_rows_budget). The plain versions on
+    the CPU take any shape: nothing is checked there."""
     from .cuda import ffd as cffd
 
-    if dims["Qp"] > cffd.MAX_Q or dims["R"] > cffd.MAX_R:
-        raise UnsupportedInput(
-            f"Qp={dims['Qp']} or R={dims['R']} exceeds the scan kernel's shared rows"
-        )
-    if not zone:
+    if torch.device(device).type != "cuda":
         return
-    D = len(host_args[ARG_INDEX["zone_col_mask"]])
-    if D > cffd.MAX_Z or dims["Pp"] > cffd.MAX_P:
+    if dims["R"] > cffd.MAX_R:
+        raise UnsupportedInput(f"R={dims['R']} exceeds the scan kernel's {cffd.MAX_R} shared rows")
+    Vp = dims["Vp"] if zone else 0
+    if zone:
+        D = len(host_args[ARG_INDEX["zone_col_mask"]])
+        if D > cffd.MAX_Z or dims["Pp"] > cffd.MAX_P:
+            raise UnsupportedInput(
+                f"{D} domain columns or Pp={dims['Pp']} exceed the zoned scan kernel's shared rows"
+            )
+    need = cffd.scan_rows_bytes(dims["Qp"], dims["Qp"], Vp, Vp, zone)
+    budget = cffd.scan_rows_budget(device)
+    if need > budget:
         raise UnsupportedInput(
-            f"{D} domain columns or Pp={dims['Pp']} exceed the zoned scan kernel's shared rows"
-        )
-    cap = cffd.zone_v_cap(device)
-    if cap is not None and dims["Vp"] > cap:
-        raise UnsupportedInput(
-            f"Vp={dims['Vp']} exceeds the zoned scan kernel's {cap} V rows on this card"
+            f"Qp={dims['Qp']} and Vp={Vp} need {need} B of the scan kernel's shared rows, "
+            f"past the {budget} B a launch holds on this card"
         )
 
 
@@ -721,8 +733,11 @@ class TorchSolver(Solver):
     ("auto" | "on" | "off") picks the sparse scan twins by the density gate,
     for any constrained fleet, or never; `device_decode=False` fetches the
     dense output pack. `shards` >= 2 partitions each solve's run axis over
-    a device mesh (see the module docstring); 0 or 1 keeps every solve on
-    one device. The defaults are TPUSolver's."""
+    a device mesh (see the module docstring), which spans the processes of
+    a torch.distributed group when there is one; 0 or 1 keeps every solve
+    on one device. The attribute `host_mesh` (None; a parallel/hostmesh.py
+    HostMeshPool) scatters each solve's run blocks to worker processes
+    instead. The defaults are TPUSolver's."""
 
     def __init__(self, max_claims: int = 1024, device=None, relax_ladder: bool = True,
                  arena: bool = True, resume: bool = True, ckpt_every: int = 16,
@@ -756,12 +771,23 @@ class TorchSolver(Solver):
             # the mesh-sharded solve
             "sharded_solves": 0, "shard_fixup_runs": 0, "sharded_fallbacks": 0,
             "shard_resume_solves": 0, "shard_resume_runs_skipped": 0,
+            # a process mesh declined by MeshConstructionError (the
+            # single-device path solves); solves through the host mesh
+            "process_mesh_declines": 0, "hostmesh_solves": 0,
         }
         # mesh-sharded provisioning solve: shards >= 2 partitions ONE
         # solve's run axis over a mesh of the largest power of 2 <=
         # min(shards, device slots, 16) (_shard_mesh), cached per slot list
+        # and process group; under a group of several processes the mesh
+        # spans them, each process owning a contiguous range of blocks
         self.shards = max(0, int(shards))
         self._shard_meshes: Dict[tuple, object] = {}
+        # the text of the last MeshConstructionError that declined a process
+        # mesh (the reference keeps it for /healthz)
+        self._process_mesh_error: Optional[str] = None
+        # the virtual host mesh (parallel/hostmesh.py HostMeshPool): when set,
+        # the run blocks of a sharded solve scan in its worker processes
+        self.host_mesh = None
         # streaming run-table staging: when on, each device solve first
         # tries to sync the arena's resident run tables through an
         # edit-triplet scatter (arena.apply_run_events, K14) so adopt() sees
@@ -877,8 +903,9 @@ class TorchSolver(Solver):
         the prepared per-member state, or None when the member must ride its
         exact solo path (relax plan, fallback or custom-key topology/affinity
         encode, no schedulable pod, unpackable args; in the port also shapes
-        past the scan kernel's shared rows, whose solo path raises
-        UnsupportedInput): the caller re-submits it through solve_async."""
+        past the scan kernel's shared rows on the card, whose solo path
+        raises UnsupportedInput): the caller re-submits it through
+        solve_async."""
         qinp = quantize_input(inp)
         from . import relax as rx
 
@@ -1460,8 +1487,9 @@ class TorchSolver(Solver):
         # the JAX backend (zone_engine=enc.V > 0)
         zone = enc.V > 0
         check_kernel_limits(dims, host_args, zone, self.device)
-        if self.shards >= 2:
-            # the mesh-sharded run-axis solve; a decline (no usable mesh, a
+        if self.shards >= 2 or self.host_mesh is not None:
+            # the mesh-sharded run-axis solve (over a device mesh, or the
+            # worker processes of a host mesh); a decline (no usable mesh, a
             # run axis narrower than the mesh) takes the single-device path
             # below, decision-identical
             sharded = self._sharded_solve_async(enc, host_args, dims, prov)
@@ -1738,21 +1766,39 @@ class TorchSolver(Solver):
         min(shards, device slots, 16) on a "shards" axis, or None with fewer
         than 2 usable slots. The 16 cap is ffd.SHARD_BLOCK_MULT: the padded
         run axis is a multiple of 16, so any mesh this returns divides it.
-        Cached per slot list (parallel/sharded.py device_slots), so leaving
-        virtual_devices restores the single-device path. No try around the
-        construction (ROADMAP §C.11)."""
+        Under a process group the slots are every process's (gathered) and
+        the mesh spans the processes when n >= max(2, processes)
+        (make_process_mesh); a MeshConstructionError declines to the
+        single-device path, its text kept in _process_mesh_error. That typed
+        decline is the reference's; nothing else is caught (ROADMAP §C.11).
+        Cached per slot list and process group, so leaving virtual_devices
+        restores the single-device path."""
         if self.shards < 2:
             return None
-        from ..parallel.sharded import device_slots, make_mesh
+        from ..parallel.sharded import (MeshConstructionError, device_slots, make_mesh,
+                                        make_process_mesh, process_count, process_index,
+                                        process_slot_counts)
 
         slots = device_slots(self.device)
-        if slots not in self._shard_meshes:
-            limit = min(self.shards, len(slots), 16)
+        nproc = process_count()
+        key = (slots, nproc, process_index())
+        if key not in self._shard_meshes:
+            limit = min(self.shards, sum(process_slot_counts(self.device)), 16)
             n = 1
             while n * 2 <= limit:
                 n *= 2
-            self._shard_meshes[slots] = make_mesh(n, "shards", self.device) if n >= 2 else None
-        return self._shard_meshes[slots]
+            mesh = None
+            if nproc > 1:
+                if n >= max(2, nproc):
+                    try:
+                        mesh, _ = make_process_mesh(n, "shards", self.device)
+                    except MeshConstructionError as e:
+                        self._process_mesh_error = str(e)
+                        self.stats["process_mesh_declines"] += 1
+            elif n >= 2:
+                mesh = make_mesh(n, "shards", self.device)
+            self._shard_meshes[key] = mesh
+        return self._shard_meshes[key]
 
     def _shard_bases(self, host_args) -> dict:
         """The non-zero initial values of the scan carry (state0 seeds
@@ -1783,9 +1829,11 @@ class TorchSolver(Solver):
         single-device path (a run axis narrower than the mesh counts as a
         decline; no mesh is the normal shape of a one-slot rig and does
         not)."""
-        from ..parallel.sharded import Placement, mesh_solve, place
+        from ..parallel.sharded import Placement, mesh_solve, place, put_process_sharded
         from .encode import mesh_run_blocks
 
+        if self.host_mesh is not None:
+            return self._hostmesh_solve_async(enc, host_args, dims, self.host_mesh)
         mesh = self._shard_mesh()
         if mesh is None:
             return None
@@ -1806,7 +1854,18 @@ class TorchSolver(Solver):
         shardings = (blocked, blocked) + (repl,) * (len(host_args) - 2)
         self.ledger.begin_solve()
         key = None
-        if self.arena is not None:
+        if mesh.world > 1:
+            # a process mesh: this process uploads only its own blocks
+            # [lo, hi) and the shared tables, directly (no arena); no shard
+            # or resume records (key None): they assume whole-axis
+            # residency, which no process holds
+            lo, hi = mesh.offset, mesh.offset + mesh.n_local
+            args = ((put_process_sharded(mesh, rgb, lo, hi), put_process_sharded(mesh, rcb, lo, hi))
+                    + tuple(place(a, repl) for a in sh_args[2:]))
+            shard_bytes = rgb[lo:hi].nbytes + rcb[lo:hi].nbytes
+            self.ledger.record_upload(shard_bytes + sum(a.nbytes for a in sh_args[2:]),
+                                      len(sh_args), msgs=len(sh_args), shard_bytes=shard_bytes)
+        elif self.arena is not None:
             args = self.arena.adopt(sh_args, prov, sharding=shardings, ns=enc.tenant_id)
             key = self.arena.bucket_key(sh_args, shardings, ns=enc.tenant_id)
         else:
@@ -1815,9 +1874,10 @@ class TorchSolver(Solver):
                                       msgs=len(sh_args), shard_bytes=rgb.nbytes + rcb.nbytes)
         zone = enc.V > 0
         sparse = None
-        if self._sparse_gate(enc):
+        if mesh.world == 1 and self._sparse_gate(enc):
             # the index tables blocked like the runs: each lane reads only
-            # its block's rows
+            # its block's rows (a process mesh keeps the dense tables, as
+            # the reference's multi-process path does)
             rqi, rvi = sparse_run_tables(enc, Sp)
             sqb = np.ascontiguousarray(rqi.reshape(Nd, Sblk, -1))
             svb = np.ascontiguousarray(rvi.reshape(Nd, Sblk, -1))
@@ -1844,12 +1904,91 @@ class TorchSolver(Solver):
 
         return finish
 
+    def _hostmesh_solve_async(self, enc: EncodedInput, host_args, dims, pool):
+        """Dispatch one solve across the virtual host mesh
+        (parallel/hostmesh.py HostMeshPool): each worker process scans a
+        contiguous slice of the run blocks (K17, or K17s under the sparse
+        gate, on its card) and the parent stitches the gathered lanes with
+        the same accept tests as the device mesh (_shard_stitch), replaying
+        on its own card, so the decisions are the single-device path's. The
+        declines are the device mesh's (no_mesh: fewer than two workers;
+        tiny_fleet). The broadcast tables ride the pipe once per residency
+        context (ctx): the workers keep them resident on their cards."""
+        from ..parallel.sharded import Placement, make_mesh, place
+        from .encode import mesh_run_blocks
+
+        Nd = pool.width
+        S = dims["S"]
+        Sp = int(host_args[0].shape[0])
+        if Nd < 2 or S < Nd or Sp % Nd:
+            # no_mesh / tiny_fleet (the reference labels a metric with the
+            # reason, which waits for A7)
+            self.stats["sharded_fallbacks"] += 1
+            return None
+        rgb, rcb = mesh_run_blocks(np.asarray(host_args[0]), np.asarray(host_args[1]), Nd)
+        rest = tuple(np.asarray(a) for a in host_args[2:])
+        sh_args = (rgb, rcb) + rest
+        zone = enc.V > 0
+        sparse = sqb = svb = None
+        if self._sparse_gate(enc):
+            rqi, rvi = sparse_run_tables(enc, Sp)
+            Sblk = Sp // Nd
+            sqb = np.ascontiguousarray(rqi.reshape(Nd, Sblk, -1))
+            svb = np.ascontiguousarray(rvi.reshape(Nd, Sblk, -1))
+            # the stitch's replays upload their block's index rows; a
+            # redispatch goes back through the pool, so the parent holds no
+            # blocked device pair
+            sparse = {"host": (rqi, rvi), "dev": None}
+            self.stats["sparse_dispatches"] += 1
+        # the replays run on the parent's card (a one-slot mesh), over a
+        # copy of the tables there
+        local_mesh = make_mesh(1, "shards", self.device)
+        args = tuple(place(a, Placement(local_mesh, False)) for a in sh_args)
+        ctx = None
+        if self.arena is not None:
+            # the residency context names the broadcast tables' CONTENT, so
+            # a worker never scans against another fleet's tables of the
+            # same shapes (the reference keys it on the shapes alone:
+            # ROADMAP §C.15)
+            h = hashlib.blake2b(repr((Nd, enc.tenant_id)).encode(), digest_size=16)
+            for a in rest:
+                h.update(repr((a.shape, a.dtype.str)).encode())
+                h.update(np.ascontiguousarray(a).tobytes())
+            ctx = f"hm{h.hexdigest()}"
+        self.ledger.begin_solve()
+        self.ledger.record_upload(sum(a.nbytes for a in sh_args), len(sh_args), msgs=len(sh_args),
+                                  shard_bytes=rgb.nbytes + rcb.nbytes)
+        total_pods = int(sum(len(p) for p in enc.group_pods))
+        M0 = initial_claim_bucket(total_pods, self.max_claims)
+
+        def redispatch(M):
+            return pool.scatter_blocks(rgb, rcb, rest, max_claims=M, ctx=ctx, zone_engine=zone,
+                                       sqb=sqb, svb=svb)
+
+        out = redispatch(M0)
+
+        def finish() -> SolverResult:
+            try:
+                res = self._sharded_finish(enc, host_args, dims, local_mesh, args, out, M0, None,
+                                           sparse=sparse, redispatch=redispatch)
+            finally:
+                self.ledger.end_solve()
+            if res is not None:
+                self.stats["hostmesh_solves"] += 1
+            return _claims_fit(res, self.max_claims)
+
+        return finish
+
     def _sharded_finish(self, enc, host_args, dims, mesh, args, out, M0: int, key,
-                        sparse=None) -> Optional[SolverResult]:
+                        sparse=None, redispatch=None) -> Optional[SolverResult]:
         """Stitch loop with claim-overflow doubling: a saturated stitch
         redispatches the whole sharded solve at the doubled bucket against
         the same resident args. None: the solve needs more than max_claims
-        claims (the caller raises, as the single-device path does)."""
+        claims (the caller raises, as the single-device path does).
+        `redispatch(M)` replaces the launch over `mesh`: the host mesh
+        scatters the blocks to its workers again. On a process mesh every
+        process stitches the same gathered lanes, so all of them redispatch
+        together."""
         from ..parallel.sharded import mesh_solve
 
         zone = enc.V > 0
@@ -1862,7 +2001,8 @@ class TorchSolver(Solver):
                 return None
             M = min(M * 2, self.max_claims)
             self.stats["claim_doublings"] += 1
-            cur = mesh_solve(mesh, args, M, zone, sparse and sparse["dev"])
+            cur = (redispatch(M) if redispatch is not None
+                   else mesh_solve(mesh, args, M, zone, sparse and sparse["dev"]))
         take_e_p, take_c_p, leftover_p, P, fixup, carries = res
         self.stats["sharded_solves"] += 1
         self.stats["shard_fixup_runs"] += fixup
@@ -1903,8 +2043,16 @@ class TorchSolver(Solver):
         from .cuda.ffd import FFDState, ffd_resume, ffd_resume_sparse
 
         INT32_MAX_NP = np.int32(2**31 - 1)
-        h = gather_lanes(mesh, out)
-        self.ledger.record_fetch(_fetched_bytes(h), msgs=1)
+        if hasattr(out, "take_e"):
+            # the host mesh's workers sent every lane through their pipes
+            # (numpy lanes; mesh_solve's are [(device, lanes)])
+            h = out
+            self.ledger.record_fetch(_fetched_bytes(h), msgs=1)
+        else:
+            # this process's devices send its own lanes (every lane in one
+            # process; a process mesh gathers the rest over the group)
+            h = gather_lanes(mesh, out)
+            self.ledger.record_fetch(_fetched_bytes(h) * mesh.n_local // mesh.size, msgs=1)
         st = h.state
         Nd = int(st.used.shape[0])
         Sblk = int(h.take_e.shape[1])

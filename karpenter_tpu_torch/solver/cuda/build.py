@@ -39,15 +39,15 @@ INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the four *_zone_max_v queries take the same arguments and ignore them)
+# (the four *_rows_budget queries take the same arguments and ignore them)
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
-                    "ffd_ckpt_launch", "pack_outputs_launch", "ffd_zone_max_v"),
+                    "ffd_ckpt_launch", "pack_outputs_launch", "ffd_rows_budget"),
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
-                           "ffd_ckpt_sparse_launch", "ffd_sparse_zone_max_v"),
-    "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_zone_max_v"),
-    "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_zone_max_v"),
+                           "ffd_ckpt_sparse_launch", "ffd_sparse_rows_budget"),
+    "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_rows_budget"),
+    "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
     "convex_kernels": ("admm_pack_launch",),

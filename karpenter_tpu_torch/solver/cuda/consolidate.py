@@ -38,11 +38,20 @@ the slots, slot s owns rows [s B/n, (s+1) B/n), and `_sharded_ffd` (K18)
 runs K4 once per physical device over its slots' rows and gathers the
 outputs on the mesh's first device in row order, where K5 packs them. On
 one card all slots are that card: one K4 launch over every row.
+
+Under a process group of several processes the candidate mesh is the
+reference's two-level (dcn, ici) grid: one row per process, each row that
+process's own slots. The batch walks the grid in dcn-major row order; each
+process runs K4 over its rows on its cards, packs them with K5, and the
+packed verdict words of every process are all-gathered over the group, so
+every process's prefix search sees every row (`PackedVerdicts`). In one
+process `make_candidate_mesh(slots, hosts)` splits the slots contiguously
+(the virtual form), which walks the rows as the flat mesh does.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -50,10 +59,13 @@ import torch
 from ...parallel.sharded import (
     Mesh,
     Placement,
+    all_gather,
     device_scope,
     device_slots,
     on_device,
     place,
+    process_count,
+    process_index,
     slot_rows,
 )
 from . import ffd
@@ -166,24 +178,47 @@ def batched_ffd(shared_args, b_run_count, b_v_count0, cand_member, node_cand,
                              max_claims, zone_engine)
 
 
-# The candidate mesh per slot list (the JAX module builds its one process
-# mesh once; keying on the slot list lets virtual_devices come and go)
+# The candidate mesh per slot list and process group (the JAX module builds
+# its one process mesh once; keying on the slot list lets virtual_devices
+# come and go)
 _MESHES: dict = {}
 
 
-def make_candidate_mesh(devices) -> Mesh:
-    """The flat 1-D mesh of the candidate batch axis over the device slots
-    `devices`. Single host only: the JAX module's two-level (dcn, ici) mesh
-    for hosts > 1 waits for the multi-process mesh (ROADMAP A15)."""
-    return Mesh(devices, "candidates")
+def make_candidate_mesh(devices, hosts: int = 1) -> Mesh:
+    """The mesh of the candidate batch axis over the device slots `devices`.
+
+    hosts == 1: the flat 1-D mesh. hosts > 1: the two-level (dcn, ici) grid
+    of the reference, dcn-major: under a process group of at least `hosts`
+    processes, row p is process p's slots (the least count over the
+    processes, gathered over the group; this process holds its own row
+    only); in one process, the slots split contiguously into `hosts` rows
+    (the virtual form)."""
+    devs = list(devices)
+    if hosts > 1:
+        counts = [int(n) for n in all_gather(len(devs))] if process_count() > 1 else []
+        per = min(counts) if counts else 0
+        if len(counts) >= hosts and per > 0:
+            rank = process_index()
+            return Mesh(devs[:per], ("dcn", "ici"), shape=(hosts, per), world=len(counts),
+                        rank=rank, offset=rank * per, global_size=hosts * per)
+        per = len(devs) // hosts
+        return Mesh(devs[: per * hosts], ("dcn", "ici"), shape=(hosts, per))
+    return Mesh(devs, "candidates")
 
 
 def candidate_mesh(device="cuda") -> Optional[Mesh]:
-    """The candidate mesh of `device`'s type, or None with one slot."""
+    """The candidate mesh of `device`'s type: under a process group of
+    several processes the (dcn, ici) grid over them, else the flat mesh of
+    this process's slots, or None with one slot."""
     slots = device_slots(device)
-    if slots not in _MESHES:
-        _MESHES[slots] = make_candidate_mesh(slots) if len(slots) > 1 else None
-    return _MESHES[slots]
+    nproc = process_count()
+    key = (slots, nproc, process_index())
+    if key not in _MESHES:
+        if nproc > 1:
+            _MESHES[key] = make_candidate_mesh(slots, hosts=nproc)
+        else:
+            _MESHES[key] = make_candidate_mesh(slots) if len(slots) > 1 else None
+    return _MESHES[key]
 
 
 def universe_sharding(device="cuda") -> Optional[Placement]:
@@ -205,12 +240,24 @@ def replicate_shared(kernel_args: tuple, device="cuda") -> tuple:
                  else place(a, repl) for a in kernel_args)
 
 
-def _sharded_ffd(mesh: Mesh, shared, rows, max_claims: int, zone_engine: bool) -> FFDOutput:
+class PackedVerdicts(NamedTuple):
+    """Every row's packed verdict words (pack_verdicts' layout, [B, words]),
+    gathered on the host from every process of a process grid."""
+
+    flat: np.ndarray
+    M: int
+    Tp: int
+
+
+def _sharded_ffd(mesh: Mesh, shared, rows, max_claims: int, zone_engine: bool):
     """K18, the JAX `_sharded_ffd`: K4 (batched_ffd) once per physical
     device of the candidate mesh over its slots' rows of the batch, with
     the universe copy on that device, then the outputs gathered on the
     mesh's first device in row order. On one card the slots' rows are
-    every row: one K4 launch, nothing to gather."""
+    every row: one K4 launch, nothing to gather. On a process grid (the
+    (dcn, ici) mesh over a process group) that covers this process's rows
+    only: it packs them there with K5 and all-gathers the packed words over
+    the group, in rank (dcn) order, which is row order (PackedVerdicts)."""
     b_run_count, b_v_count0, cand_member, node_cand = rows
     parts = []
     for j, (dev, idx) in enumerate(zip(mesh.physical, slot_rows(mesh, b_run_count.shape[0]))):
@@ -222,19 +269,27 @@ def _sharded_ffd(mesh: Mesh, shared, rows, max_claims: int, zone_engine: bool) -
         if dev.type == "cuda":
             ffd.LAUNCHES["sharded_ffd"] += 1
         parts.append((idx, out))
-    if len(parts) == 1:
-        return parts[0][1]
     dev0 = mesh.physical[0]
-    inv = torch.from_numpy(np.argsort(np.concatenate([idx for idx, _ in parts]))).to(dev0)
+    if len(parts) == 1:
+        out = parts[0][1]
+    else:
+        inv = torch.from_numpy(np.argsort(np.concatenate([idx for idx, _ in parts]))).to(dev0)
 
-    def cat(get):
-        return torch.cat([get(o).to(dev0) for _, o in parts])[inv]
+        def cat(get):
+            return torch.cat([get(o).to(dev0) for _, o in parts])[inv]
 
-    return FFDOutput(take_e=cat(lambda o: o.take_e), take_c=cat(lambda o: o.take_c),
-                     leftover=cat(lambda o: o.leftover),
-                     state=FFDState(*(cat(lambda o, i=i: o.state[i])
-                                      for i in range(len(FFDState._fields)))),
-                     events=cat(lambda o: o.events))
+        out = FFDOutput(take_e=cat(lambda o: o.take_e), take_c=cat(lambda o: o.take_c),
+                        leftover=cat(lambda o: o.leftover),
+                        state=FFDState(*(cat(lambda o, i=i: o.state[i])
+                                         for i in range(len(FFDState._fields)))),
+                        events=cat(lambda o: o.events))
+    if mesh.world == 1:
+        return out
+    with device_scope(dev0):
+        words = pack_verdicts(out)
+    B_local, M, Tp = out.state.c_mask.shape
+    flat = words.cpu().numpy().reshape(B_local, -1)
+    return PackedVerdicts(flat=np.concatenate(all_gather(flat)), M=int(M), Tp=int(Tp))
 
 
 def subset_rows(
@@ -388,15 +443,19 @@ def pack_verdicts(out: FFDOutput) -> torch.Tensor:
 
 def fetch_verdicts(out: FFDOutput, T: int, n_rows: int):
     """One-transfer fetch of the per-subset verdict fields, sliced to the
-    first n_rows real (non-padding) subsets.
+    first n_rows real (non-padding) subsets (`out` may be a process grid's
+    PackedVerdicts, fetched and gathered already).
 
     Returns (leftover_total [B], used [B], c_zc_bits [B, M] u32,
     c_mask [B, M, T] bool)."""
-    st = out.state
-    B, M = st.c_zc_bits.shape
-    Tp = st.c_mask.shape[2]
+    if isinstance(out, PackedVerdicts):  # a process grid's gathered words
+        M, Tp, flat = out.M, out.Tp, out.flat[:n_rows]
+    else:
+        st = out.state
+        B, M = st.c_zc_bits.shape
+        Tp = st.c_mask.shape[2]
+        flat = pack_verdicts(out).cpu().numpy().reshape(B, -1)[:n_rows]
     W = (Tp + 31) // 32
-    flat = pack_verdicts(out).cpu().numpy().reshape(B, -1)[:n_rows]
     leftover = flat[:, 0]
     used = flat[:, 1]
     zc = flat[:, 2 : 2 + M].view(np.uint32)

@@ -1606,48 +1606,76 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-# Kernel limits (csrc/ffd_kernels.cu): per-run Q and R rows and the
-# per-event domain vectors live in static shared memory. The zoned
-# instances' V rows are dynamic shared memory sized at launch: see
-# zone_v_cap.
-MAX_Q = 256
+# Kernel limits (csrc/ffd_kernels.cu): the per-run R rows and the
+# per-event domain vectors live in static shared memory. The per-run Q rows
+# of every scan instance, and the zoned instances' V rows, are dynamic
+# shared memory sized at launch: see scan_rows_budget.
 MAX_R = 16
 MAX_Z = 32
 MAX_P = 64
 
-_V_CAPS: dict = {}
+_BUDGETS: dict = {}
 
 
-def zone_v_cap(device):
-    """The most V-axis rows (max(V, Kv) of a sparse dispatch) a zoned scan
-    launch holds on `device`: the card's opt-in shared memory per block less
-    the zoned instances' static share, at 10 bytes a row (the *_zone_max_v
-    query of each of the four scan libraries; the least of them). None on
-    the CPU, where the plain versions hold any V."""
+def scan_rows_budget(device):
+    """The bytes of launch-sized shared rows (scan_rows_bytes) a scan launch
+    holds on `device`: the card's opt-in shared memory per block less an
+    instance's static share, the least over every scan instance (the
+    *_rows_budget query of each of the four scan libraries). None on the
+    CPU, where the plain versions hold any Q and V."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
     idx = torch.cuda.current_device() if dev.index is None else dev.index
-    cap = _V_CAPS.get(idx)
-    if cap is None:
+    budget = _BUDGETS.get(idx)
+    if budget is None:
         from .build import load
 
         with torch.cuda.device(idx):
-            caps = [getattr(load(lib), fn)(None, 0, None, None)
-                    for lib, fn in (("ffd_kernels", "ffd_zone_max_v"),
-                                    ("ffd_sparse_kernels", "ffd_sparse_zone_max_v"),
-                                    ("ffd_lanes_kernels", "ffd_lanes_zone_max_v"),
-                                    ("ffd_lanes_sparse_kernels", "ffd_lanes_sparse_zone_max_v"))]
-        if min(caps) < 0:
-            raise RuntimeError(f"ffd_zone_max_v: CUDA error {-min(caps)}")
-        cap = _V_CAPS[idx] = min(caps)
-    return cap
+            budgets = [getattr(load(lib), fn)(None, 0, None, None)
+                       for lib, fn in (("ffd_kernels", "ffd_rows_budget"),
+                                       ("ffd_sparse_kernels", "ffd_sparse_rows_budget"),
+                                       ("ffd_lanes_kernels", "ffd_lanes_rows_budget"),
+                                       ("ffd_lanes_sparse_kernels",
+                                        "ffd_lanes_sparse_rows_budget"))]
+        if min(budgets) < 0:
+            raise RuntimeError(f"ffd_rows_budget: CUDA error {-min(budgets)}")
+        budget = _BUDGETS[idx] = min(budgets)
+    return budget
 
 
-def _check_v_rows(rows: int, device, name: str) -> None:
-    cap = zone_v_cap(device)
-    if cap is not None and rows > cap:
-        raise ValueError(f"{name}: {rows} V rows exceed the zoned scan's {cap} on this card")
+def scan_rows_bytes(Q: int, Kq: int, V: int, Kv: int, zone_engine: bool) -> int:
+    """Bytes of one launch's shared rows (csrc/ffd_kernels.cu
+    scan_rows_bytes): a 24-byte QRow over max(Q, Kq) rows, then with the
+    zoned branch vk/vcol as int and mv/ov as bytes over max(V, Kv) / Kv. A
+    dense launch passes Kq = Kv = 0; a sparse zoned one at Kq = Q, Kv = V
+    takes 24 bytes a Q row and 10 a V row."""
+    rows = 24 * max(Q, Kq)
+    if zone_engine:
+        rows += 6 * max(V, Kv) + 4 * Kv
+    return rows
+
+
+def q_cap(device):
+    """The most Q rows a scan launch holds on `device` with no V rows (24
+    bytes a row, a sparse view as wide as Q); None on the CPU."""
+    budget = scan_rows_budget(device)
+    return None if budget is None else budget // 24
+
+
+def zone_v_cap(device):
+    """The most V rows (max(V, Kv)) a zoned scan launch holds on `device`
+    with no Q rows (10 bytes a row); None on the CPU."""
+    budget = scan_rows_budget(device)
+    return None if budget is None else budget // 10
+
+
+def _check_rows(Q: int, Kq: int, V: int, Kv: int, zone_engine: bool, device, name: str) -> None:
+    budget = scan_rows_budget(device)
+    need = scan_rows_bytes(Q, Kq, V, Kv, zone_engine)
+    if budget is not None and need > budget:
+        raise ValueError(f"{name}: Q={Q}, Kq={Kq}, V={V}, Kv={Kv} need {need} B of shared rows, "
+                         f"past the {budget} B a scan launch holds on this card")
 
 
 # the scan's inputs as the launcher takes them: ARG_SPEC without the four
@@ -1676,11 +1704,12 @@ def _scan_name(kind: str, zone_engine: bool, sparse) -> str:
     return f"ffd_{kind}{'sparse_' if sparse is not None else ''}{'zoned' if zone_engine else 'fast'}_scan"
 
 
-def _check_sparse(sparse, Sp: int, name: str, V: int, zone_engine: bool):
+def _check_sparse(sparse, Sp: int, name: str, Q: int, V: int, zone_engine: bool):
     """The index tables of a sparse scan: int32 CUDA tensors [Sp, Kq] and
-    [Sp, Kv] within the kernel's shared slots (a zoned launch holds max(V,
-    Kv) V rows: its constrained runs reload the dense flags). Returns
-    (tensors, [Kq, Kv]); ([], []) for a dense scan."""
+    [Sp, Kv] within the launch's shared rows (a launch holds max(Q, Kq) Q
+    rows and, zoned, max(V, Kv) V rows: its constrained runs reload the
+    dense flags). Returns (tensors, [Kq, Kv]); ([], []) for a dense scan,
+    whose rows _check_scan_args checked."""
     if sparse is None:
         return [], []
     q, v = sparse
@@ -1689,10 +1718,7 @@ def _check_sparse(sparse, Sp: int, name: str, V: int, zone_engine: bool):
         if t.dim() != 2 or t.shape[0] != Sp:
             raise ValueError(f"{name}: {n} must be [{Sp}, K], got {tuple(t.shape)}")
     Kq, Kv = int(q.shape[1]), int(v.shape[1])
-    if Kq > MAX_Q:
-        raise ValueError(f"{name}: Kq={Kq} > {MAX_Q}")
-    if zone_engine:
-        _check_v_rows(max(V, Kv), v.device, name)
+    _check_rows(Q, Kq, V, Kv, zone_engine, v.device, name)
     return [q, v], [Kq, Kv]
 
 
@@ -1707,12 +1733,11 @@ def _check_scan_args(a: dict, zone_engine: bool, name: str):
     V = a["v_kind"].shape[0]
     Z = a["zone_col_mask"].shape[0]
     W = a["group_pair_nok"].shape[1]
-    if Q > MAX_Q or R > MAX_R:
-        raise ValueError(f"{name}: Q={Q} > {MAX_Q} or R={R} > {MAX_R}")
+    if R > MAX_R:
+        raise ValueError(f"{name}: R={R} > {MAX_R}")
     if zone_engine and not (1 <= V and 1 <= Z <= MAX_Z and P <= MAX_P):
         raise ValueError(f"{name}: V={V}, Z={Z} or P={P} outside 1.., 1..{MAX_Z}, ..{MAX_P}")
-    if zone_engine:
-        _check_v_rows(V, a["v_kind"].device, name)
+    _check_rows(Q, 0, V, 0, zone_engine, a["q_kind"].device, name)
     shapes = {
         "run_group": (Sp,), "run_count": (Sp,), "group_req": (G, R),
         "group_compat_t": (G, T), "group_zc_bits": (G,), "group_pool": (G, P),
@@ -1740,7 +1765,7 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False,
     M = int(max_claims)
     name = _scan_name("", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
-    idx, kdims = _check_sparse(sparse, Sp, name, V, zone_engine)
+    idx, kdims = _check_sparse(sparse, Sp, name, Q, V, zone_engine)
     st = _state0(args, M)
     dev = a["node_free"].device
     take_e = torch.empty((Sp, E), dtype=I32, device=dev)
@@ -1774,7 +1799,7 @@ def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
     M = int(max_claims)
     name = _scan_name("ladder_", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
-    idx, kdims = _check_sparse(sparse, Sp, name, V, zone_engine)
+    idx, kdims = _check_sparse(sparse, Sp, name, Q, V, zone_engine)
     _check(run_ladder, "run_ladder", I32)
     if run_ladder.dim() != 2 or run_ladder.shape[0] != Sp or run_ladder.shape[1] < 1:
         raise ValueError(f"{name}: run_ladder must be [{Sp}, Lw >= 1], got {tuple(run_ladder.shape)}")
@@ -1811,7 +1836,7 @@ def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
     M = int(max_claims)
     name = _scan_name("ckpt_", zone_engine, sparse)
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(a, zone_engine, name)
-    idx, kdims = _check_sparse(sparse, Sp, name, V, zone_engine)
+    idx, kdims = _check_sparse(sparse, Sp, name, Q, V, zone_engine)
     st = _state0(args, M) if init_state is None else _resume_state(init_state, args, M)
     ring = _ring0(st, n_ckpt)
     dev = a["node_free"].device
@@ -2149,7 +2174,7 @@ def _ffd_solve_sharded_cuda(run_group, run_count, *shared, max_claims: int,
     Sp, G, T, E, P, R, Q, W, V, Z = _check_scan_args(dict(zip(ARG_SPEC, lane0)), zone_engine, name)
     idx, kdims = [], []
     if sparse is not None:
-        _check_sparse((sparse[0][0], sparse[1][0]), Sblk, name, V, zone_engine)
+        _check_sparse((sparse[0][0], sparse[1][0]), Sblk, name, Q, V, zone_engine)
         idx = list(sparse)
         kdims = [int(sparse[0].shape[2]), int(sparse[1].shape[2])]
         for t, n, k in zip(idx, ("run_q_idx", "run_v_idx"), kdims):

@@ -11,10 +11,14 @@ csrc (for example the parent commit unpacked with `git archive`), then
 - holds each build's outputs equal and times them in turns (this, other,
   other, this) ROUNDS times, CUDA events around CALLS calls each: K1 fast
   (ffd_fast_scan) at the 50 000-pod surge's kernel arguments, K15 fast
-  (ffd_lanes_fast_scan) at 8 lanes of them, and the checkpointed zoned scan
-  (ffd_ckpt_zoned_scan) and its sparse twin (ffd_ckpt_sparse_zoned_scan)
-  at BASELINE config 3's (a ring every 16 steps, 4 slots: TorchSolver's
-  defaults).
+  (ffd_lanes_fast_scan) at 8 lanes of them, the checkpointed fast scan
+  (ffd_ckpt_fast_scan, K7 fast) at the surge's, and the checkpointed zoned
+  scan (ffd_ckpt_zoned_scan) and its sparse twin
+  (ffd_ckpt_sparse_zoned_scan) at BASELINE config 3's (a ring every 16
+  steps, 4 slots: TorchSolver's defaults).
+
+The JSON also lists this build's registers and spills of every kernel
+(ptxas "this_all").
 
 Usage: python3 karpenter_tpu_torch/tools/scan_ab.py OTHER_CHECKOUT
 
@@ -73,11 +77,12 @@ def _build_other(other: str):
 
 
 def ptxas_diff(mine: dict, theirs: dict) -> dict:
-    """The kernels of both reports whose registers or spills differ, and
-    the count compared."""
+    """The kernels of both reports whose registers or spills differ, the
+    count compared, and this build's whole report."""
     shared = sorted(set(mine) & set(theirs))
     moved = {k: {"this": mine[k], "other": theirs[k]} for k in shared if mine[k] != theirs[k]}
-    return dict(compared=len(shared), moved=moved, this_only=sorted(set(mine) - set(theirs)))
+    return dict(compared=len(shared), moved=moved, this_only=sorted(set(mine) - set(theirs)),
+                this_all=mine)
 
 
 def scan_ab(other: str) -> dict:
@@ -89,7 +94,7 @@ def scan_ab(other: str) -> dict:
     dev = torch.device("cuda")
     build.build()
     mine = {n: build.load(n) for n in AB_LIBS}
-    ffd.zone_v_cap(dev)
+    ffd.scan_rows_budget(dev)  # cached from this build before the swap
     theirs, their_report = _build_other(other)
     ptxas = ptxas_diff(cs.ptxas_report(build.BUILD_LOG["ptxas"]), cs.ptxas_report(their_report))
     surge = cs.kernel_phase(cs.build_input(cs.PODS), dev)
@@ -97,10 +102,12 @@ def scan_ab(other: str) -> dict:
     args, M = ph["args"], ph["M"]
     sp = cs.sparse_tables(ph["enc"], ph["out"].take_e.shape[0], dev)
     kw = dict(max_claims=M, zone_engine=True, ckpt_every=16, n_ckpt=4)
+    kw_fast = dict(max_claims=surge["M"], zone_engine=False, ckpt_every=16, n_ckpt=4)
     lanes = tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
                   for a in surge["args"])
     fns = {"ffd_fast_scan": lambda: ffd.ffd_solve(*surge["args"], max_claims=surge["M"]),
            "ffd_lanes_fast_scan": lambda: ffd.ffd_solve_lanes(*lanes, max_claims=surge["M"]),
+           "ffd_ckpt_fast_scan": lambda: ffd.ffd_solve_ckpt(*surge["args"], **kw_fast),
            "ffd_ckpt_zoned_scan": lambda: ffd.ffd_solve_ckpt(*args, **kw),
            "ffd_ckpt_sparse_zoned_scan": lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw)}
 

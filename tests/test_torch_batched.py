@@ -205,16 +205,23 @@ def test_prepare_declines_where_the_reference_does(name):
 
 
 def test_prepare_raises_past_the_kernel_rows():
-    """Shapes past the scan kernel's shared rows raise UnsupportedInput, as
-    TorchSolver does (the reference has no such limit, so no None)."""
+    """Shapes past the scan kernel's shared rows on the card raise
+    UnsupportedInput, as TorchSolver does (the reference has no such limit,
+    so no None); the plain versions on the CPU take them (ROADMAP §C.13).
+    The card's check comes before anything reaches the device, so a solver
+    pointed at "cuda" shows it here."""
     from karpenter_tpu_torch.solver.cuda import ffd
 
     u = DECLINED["plain_control"]
     saved = ffd.MAX_R
     ffd.MAX_R = 1
     try:
+        solver = TorchSolver(device="cpu")
+        assert tbatched.BatchedConsolidationEvaluator(solver).prepare(
+            *materialize(u, "karpenter_tpu_torch")) is not None
+        solver.device = torch.device("cuda")
         with pytest.raises(UnsupportedInput):
-            tbatched.BatchedConsolidationEvaluator(TorchSolver(device="cpu")).prepare(
+            tbatched.BatchedConsolidationEvaluator(solver).prepare(
                 *materialize(u, "karpenter_tpu_torch"))
     finally:
         ffd.MAX_R = saved

@@ -8,6 +8,8 @@ piece pinned to its original.
   cohort through the serving pipeline, a staged (stream_run_events) solve,
   and a mesh-sharded solve and a candidate-sharded probe under
   virtual_devices(4);
+- a host-mesh worker (after a solve through it) and both ranks of a
+  two-process gloo mesh solve load neither jax nor karpenter_tpu;
 - TorchSolver() with no device argument refuses to run without CUDA;
 - the copies (ARG_SPEC, delta constants, argument partitions, the
   consolidation argument indices and batch bucket, the catalog,
@@ -136,6 +138,72 @@ def test_port_solve_loads_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+GLOO_RANK_CODE = r"""
+import sys
+import chip_smoke as cs
+from karpenter_tpu_torch.parallel import sharded as tsh
+from karpenter_tpu_torch.solver.backend import TorchSolver
+tsh.init_distributed(sys.argv[1], 2, int(sys.argv[2]))
+try:
+    with tsh.virtual_devices(2):
+        s = TorchSolver(device="cpu", shards=4)
+        s.solve(cs.build_constrained_input(3))
+        assert s.stats["sharded_solves"] == 1, s.stats
+finally:
+    tsh.close_distributed()
+bad = [m for m in sys.modules if m in ("jax", "karpenter_tpu")
+       or m.startswith(("jax.", "karpenter_tpu."))]
+assert not bad, bad
+print("clean")
+"""
+
+
+def test_hostmesh_worker_and_gloo_ranks_load_no_jax():
+    import socket
+
+    code = (
+        "import sys\n"
+        "from chip_smoke import build_constrained_input\n"
+        "from karpenter_tpu_torch.parallel.hostmesh import HostMeshPool\n"
+        "from karpenter_tpu_torch.solver.backend import TorchSolver\n"
+        "pool = HostMeshPool(2, device='cpu')\n"
+        "try:\n"
+        "    s = TorchSolver(device='cpu')\n"
+        "    s.host_mesh = pool\n"
+        "    s.solve(build_constrained_input(3))\n"
+        "    assert s.stats['hostmesh_solves'] == 1, s.stats\n"
+        "    pk = [p['packages'] for p in pool.ping_all()]\n"
+        "finally:\n"
+        "    pool.close()\n"
+        "assert all('jax' not in p and 'karpenter_tpu' not in p for p in pk), pk\n"
+        "assert all('karpenter_tpu_torch' in p and 'torch' in p for p in pk), pk\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'karpenter_tpu')\n"
+        "       or m.startswith(('jax.', 'karpenter_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    procs = [subprocess.Popen([sys.executable, "-c", GLOO_RANK_CODE, addr, str(r)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0, se[-4000:]
+        assert so.strip().splitlines()[-1] == "clean"
 
 
 def test_default_device_needs_cuda():

@@ -460,18 +460,26 @@ def test_out_of_slice_inputs_raise(kind):
 
 @pytest.mark.parametrize("limit", ["MAX_V", "MAX_Z", "MAX_P"])
 def test_zone_kernel_limits_raise(limit, monkeypatch):
-    """Past the zoned scan kernel's shared rows (V-axis sigs, domain
-    columns, pools) the port declines with a typed error, no fallback. The
-    V rows are sized at launch, so their cap is the card's (zone_v_cap):
-    the MAX_V case points it at one row."""
+    """Past the zoned scan kernel's shared rows on the card (V-axis sigs,
+    domain columns, pools) the port declines with a typed error, no
+    fallback; the plain versions on the CPU take any shape (ROADMAP
+    §C.13). The V rows are sized at launch, so their cap is the card's row
+    budget (scan_rows_budget): the MAX_V case points it at one byte. The
+    card's decline comes before anything reaches the device, so a solver
+    pointed at "cuda" shows it here."""
     from karpenter_tpu_torch.solver.cuda import ffd as tffd
 
     if limit == "MAX_V":
-        monkeypatch.setattr(tffd, "zone_v_cap", lambda device: 1)
+        monkeypatch.setattr(tffd, "scan_rows_budget", lambda device: 1)
     else:
         monkeypatch.setattr(tffd, limit, 1)
+    spec = ZONE_CASES["spread_skew1_fresh"]
+    s = TorchSolver(device="cpu")
+    assert as_data(s.solve(build(spec, "karpenter_tpu_torch"))) == \
+        as_data(TPUSolver().solve(build(spec, "karpenter_tpu")))
+    s.device = torch.device("cuda")
     with pytest.raises(UnsupportedInput):
-        TorchSolver(device="cpu").solve(build(ZONE_CASES["spread_skew1_fresh"], "karpenter_tpu_torch"))
+        s.solve(build(spec, "karpenter_tpu_torch"))
 
 
 def _zone_fuzz_53_cut() -> dict:
