@@ -16,7 +16,7 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    the paths the 50k inputs do not (hostname constraints; the zoned
    branch's eventful path, anti registration and preemption bound; the
    fleet of ROADMAP §C.1). Phase 2e holds the sparse instances (K1s, K7s:
-   ffd_scan_kernel<*, false, *, *, true>, built from
+   ffd_cluster_kernel<*, *, true>, built from
    csrc/ffd_sparse_kernels.cu) against their plain versions and the dense
    instances' outputs at the kernel arguments of config 3, mixed and the
    wide-constraint fleet (zoned), the surge with its all-padding index
@@ -165,6 +165,18 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    set to 0 just before, a warm scatter ships no broadcast tables), each
    worker's lanes against their plain version and timed on its card.
 
+12. the scans as one thread-block cluster a solve (K1, K7, K1s, K7s:
+   ffd_cluster_kernel, 16 CTAs where the card allows, else 8): every
+   card's cluster size and occupancy query, one cluster barrier's cost, the
+   exact division by the run's request against the floor (every divisor
+   1..65 536 and 2^31 - 1), then K1 / K7 / K1s / K7s fast and zoned and the
+   resumes of K7 and K7s against one plain scan and one plain resume (run
+   in up to 6 CPU worker processes the phase starts and stops) on the
+   seeded relax, constrained and zone fleets (CLUSTER_SEEDS each) and the
+   fleet of ROADMAP §C.1; the Q-heavy and 1 000-app hostname fleets are
+   phase 11's in the whole run. Phases 2-11 launch the same cluster
+   kernels wherever they run K1 or K7.
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
@@ -180,6 +192,8 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        plain-path check; the run for a machine with several cards)
        python3 chip_smoke.py --phase 11   (phase 11 alone, the same way;
        with 2 x PROC_SLOTS cards each rank gets PROC_SLOTS of its own)
+       python3 chip_smoke.py --phase 12   (phase 12 alone: the cluster
+       scans on every fleet it names, the Q-heavy and hostname fleets too)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -1676,22 +1690,25 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     return med
 
 
-KERNEL_NAMES = ("ffd_scan_kernel<false, false, false, false, false>",
-                "ffd_scan_kernel<true, false, false, false, false>",
+# K1 / K7 and their sparse twins are ffd_cluster_kernel<ZONE, CKPT, SPARSE>
+# (one cluster a solve); the one-block scans ffd_scan_kernel<ZONE,
+# BATCH, LADDER, CKPT, SPARSE>
+KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
+                "ffd_cluster_kernel<true, false, false>",
                 "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
                 "meta_finish_kernel", "ffd_scan_kernel<false, true, false, false, false>",
                 "ffd_scan_kernel<true, true, false, false, false>", "pack_verdicts_kernel",
                 "ffd_scan_kernel<false, false, true, false, false>",
                 "ffd_scan_kernel<true, false, true, false, false>",
-                "ffd_scan_kernel<false, false, false, true, false>",
-                "ffd_scan_kernel<true, false, false, true, false>", "arena_unpack_kernel",
+                "ffd_cluster_kernel<false, true, false>",
+                "ffd_cluster_kernel<true, true, false>", "arena_unpack_kernel",
                 # the sparse instances (14-19) and the dense output pack (20)
-                "ffd_scan_kernel<false, false, false, false, true>",
-                "ffd_scan_kernel<true, false, false, false, true>",
+                "ffd_cluster_kernel<false, false, true>",
+                "ffd_cluster_kernel<true, false, true>",
                 "ffd_scan_kernel<false, false, true, false, true>",
                 "ffd_scan_kernel<true, false, true, false, true>",
-                "ffd_scan_kernel<false, false, false, true, true>",
-                "ffd_scan_kernel<true, false, false, true, true>",
+                "ffd_cluster_kernel<false, true, true>",
+                "ffd_cluster_kernel<true, true, true>",
                 "pack_outputs_kernel",
                 # the class and explain kernels (21-25)
                 "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
@@ -2155,7 +2172,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
 
     regs = {k: v.get("registers") for k, v in ptxas_report(build.BUILD_LOG["ptxas"]).items()}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    reg4 = regs.get("ffd_scan_kernel<false, true, false, false>")
+    reg4 = regs.get("ffd_scan_kernel<false, true, false, false, false>")
     blocks_per_sm = max(1, min(2048 // 1024, 65536 // (1024 * max(reg4 or 64, 1))))
     waves = -(-Bp // (sms * blocks_per_sm))
     n_disp = searches * dispatches
@@ -2176,7 +2193,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
              match=zr["err4"] == 0, device_ms=dev4z,
              shape=dict(B=int(zrows[0].shape[0]), Sp=int(zrows[0].shape[1]), M=zM,
                         V=int(zrows[1].shape[1]), Z=int(zrows[1].shape[2])),
-             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true, false, false>")),
+             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true, false, false, false>")),
         dict(name="pack_verdicts", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/consolidate.py:291",
              launches=launches["pack_verdicts"], max_abs_err=err5, ms=ms5, plain_ms=plain5,
@@ -3805,8 +3822,8 @@ def admm_device_ms(fn, whole: int, tries: int = 6):
 # lanes; surge_stream: TorchSolver() with stream_run_events on, the surge
 # alternating with the surge less one pod of its first deployment
 COHORT_MEMBERS = 8
-COHORT_DISPATCHES = 20  # per route
-COHORT_SOLO_ROUNDS = 10  # rounds of the same 8 solves submitted solo, beside them
+COHORT_DISPATCHES = 12  # per route (cut from 20 to keep the run inside its time limit)
+COHORT_SOLO_ROUNDS = 6  # rounds of the same 8 solves submitted solo, beside them (cut from 10)
 COHORT_CONFIG3_DISPATCHES = 3
 COHORT_PAD_MEMBERS = 5
 STREAM_SOLVES = 20
@@ -4397,6 +4414,247 @@ def qrows_phase(dev) -> dict:
         plain_path_s=plain_s, claims=len(got["claims"]), digest=digest,
         sparse_dispatches=solver.stats["sparse_dispatches"]))
     print(f"qrows[hostname_apps]: {out['hostname_apps']}", flush=True)
+    return out
+
+
+CLUSTER_SEEDS = 40  # seeds of each seeded builder phase 12 holds the cluster scans on
+CLUSTER_RING = (2, 16)  # phase 12's ring: a snapshot every 2 steps, 16 slots (small fleets)
+BARRIER_LOOP = 20_000  # cluster barriers a timed launch passes
+
+
+def _fleet_input(name: str, seed: int):
+    """Phase 12's fleet `name` at `seed` (the Q-heavy fleet: seed 1 zoned)."""
+    if name == "zone_fuzz_53":
+        return build_zone_fuzz_53_input()
+    if name == "qheavy":
+        return build_qheavy_input(zoned=bool(seed))
+    return {"relax": build_relax_input, "constrained": build_constrained_input,
+            "zone": build_zone_input}[name](seed)
+
+
+def cluster_plain_job(job) -> dict:
+    """One fleet of phase 12 on the CPU, in a worker process: its kernel
+    arguments and index tables (numpy, as the backend builds them), the
+    claim bucket (doubled on saturation as the main path's), and the plain
+    checkpointed scan and the plain resume from the slot that covers the
+    most real runs short of the last (every output, ring slot and prefix,
+    as numpy)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input, sparse_run_tables
+
+    torch.set_num_threads(1)
+    name, seed = job
+    K, n = CLUSTER_RING
+    enc = encode(quantize_input(_fleet_input(name, seed)))
+    host_args, dims, _ = tb.host_kernel_args(enc, tb.TorchSolver._bucket)
+    zone = enc.V > 0
+    args = args_to_torch(host_args, "cpu")
+    M = tb.initial_claim_bucket(int(sum(len(p) for p in enc.group_pods)), MAX_CLAIMS)
+    while True:
+        pout, pring = ffd.ffd_solve_ckpt_plain(*args, max_claims=M, zone_engine=zone, ckpt_every=K,
+                                               n_ckpt=n)
+        if int(pout.state.used) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    out = dict(name=name, seed=seed, host_args=host_args, zone=zone, M=M, S=dims["S"],
+               Qp=dims["Qp"], Vp=dims["Vp"],
+               sparse=tuple(np.asarray(t) for t in sparse_run_tables(enc, dims["Sp"])),
+               want=[t.numpy() for t in _scan_outputs(pout) + [*pring.states, pring.prefix]])
+    S = int((args[1] > 0).sum())
+    prefix = pring.prefix.tolist()
+    slots = [i for i, p in enumerate(prefix) if 1 <= p < S]
+    if slots:
+        slot = max(slots, key=lambda i: prefix[i])
+        k = prefix[slot]
+        Sp2 = tb.TorchSolver._bucket(S - k, 16, 16)
+        suffix = [torch.zeros(Sp2, dtype=torch.int32) for _ in range(2)]
+        suffix[0][: S - k] = args[0][k:S]
+        suffix[1][: S - k] = args[1][k:S]
+        pr, prr = ffd.ffd_resume_plain(ffd.FFDState(*(f[slot] for f in pring.states)), *suffix,
+                                       *args[2:], max_claims=M, zone_engine=zone, ckpt_every=K,
+                                       n_ckpt=n)
+        out.update(slot=slot, k=k, Sp2=Sp2,
+                   want_resume=[t.numpy() for t in _scan_outputs(pr) + [*prr.states, prr.prefix]])
+    return out
+
+
+def cluster_scan_check(plain: dict, dev) -> dict:
+    """K1, K7, K1s and K7s (the instance the fleet picks, each one cluster of
+    CTAs) and the resumes of K7 and K7s from K7's ring on the card, against
+    one fleet's plain scan and plain resume (cluster_plain_job): take rows,
+    leftovers, zoned events, every FFDState field, every ring slot and the
+    prefix; the resumes end at the cold carry and leave their slot as it
+    was."""
+    import torch
+
+    from karpenter_tpu_torch.solver.convert import args_to_torch, array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    K, n = CLUSTER_RING
+    args = args_to_torch(plain["host_args"], dev)
+    sp = tuple(array_to_torch(t, dev) for t in plain["sparse"])
+    zone, M = plain["zone"], plain["M"]
+    kw = dict(max_claims=M, zone_engine=zone)
+    ck = dict(kw, ckpt_every=K, n_ckpt=n)
+    k1 = ffd.ffd_solve(*args, **kw)
+    k1s = ffd.ffd_solve_sparse(*sp, *args, **kw)
+    k7, ring = ffd.ffd_solve_ckpt(*args, **ck)
+    k7s, ring_s = ffd.ffd_solve_ckpt_sparse(*sp, *args, **ck)
+    torch.cuda.synchronize()
+    want_ring = [torch.from_numpy(t) for t in plain["want"]]
+    want = want_ring[:len(_scan_outputs(k1))]
+    errs = dict(k1=max_abs_err(_scan_outputs(k1), want), k1s=max_abs_err(_scan_outputs(k1s), want),
+                k7=max_abs_err(_scan_outputs(k7) + [*ring.states, ring.prefix], want_ring),
+                k7s=max_abs_err(_scan_outputs(k7s) + [*ring_s.states, ring_s.prefix], want_ring))
+    tag = f"{plain['name']}[{plain['seed']}] ({'zoned' if zone else 'fast'})"
+    assert not any(errs.values()), f"{tag}: a cluster scan disagrees with its plain version: {errs}"
+    res = dict(zone=zone, M=M, S=plain["S"], Qp=plain["Qp"], Vp=plain["Vp"],
+               events=int(k7.events), used=int(k7.state.used), **errs)
+    if "slot" not in plain:
+        return res
+    slot, k, Sp2 = plain["slot"], plain["k"], plain["Sp2"]
+    S = int((args[1] > 0).sum())
+    suffix = [torch.zeros(Sp2, dtype=torch.int32, device=dev) for _ in range(2)]
+    idx = [torch.full((Sp2, t.shape[1]), -1, dtype=torch.int32, device=dev) for t in sp]
+    for dst, src in zip(suffix + idx, (args[0], args[1], *sp)):
+        dst[: S - k] = src[k:S]
+    init = ffd.FFDState(*(f[slot] for f in ring.states))
+    before = [t.clone() for t in init]
+    r7, rr7 = ffd.ffd_resume(init, *suffix, *args[2:], **ck)
+    r7s, rr7s = ffd.ffd_resume_sparse(init, *idx, *suffix, *args[2:], **ck)
+    torch.cuda.synchronize()
+    want_r = [torch.from_numpy(t) for t in plain["want_resume"]]
+    err_r = max(max_abs_err(_scan_outputs(r) + [*rr.states, rr.prefix], want_r)
+                for r, rr in ((r7, rr7), (r7s, rr7s)))
+    assert err_r == 0, f"{tag}: a cluster resume disagrees with the plain resume ({err_r})"
+    err_f = max(max_abs_err(list(r.state), list(k7.state)) for r in (r7, r7s))
+    assert err_f == 0, f"{tag}: a cluster resume ends away from the cold carry ({err_f})"
+    assert max_abs_err(list(init), before) == 0, "a resume wrote into its checkpoint"
+    res.update(k=k, resume=err_r)
+    return res
+
+
+def cluster_fleet_checks(jobs, dev) -> list:
+    """cluster_scan_check on every (builder, seed) job: the plain sides run
+    in CPU worker processes (spawned, at most 6, all stopped on return)
+    while this process runs the kernels, in job order."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        return [cluster_scan_check(p, dev) for p in pool.map(cluster_plain_job, jobs)]
+
+
+def division_check(dev) -> dict:
+    """The cluster scans' exact division (floordiv_magic) on the card
+    against the plain floor (torch.div, rounding_mode="floor") on the same
+    tensors: every divisor 1..65 536 and 2^31 - 1, against the edge
+    numerators (0, +-1, +-2, INT32_MIN, INT32_MAX, +-2^30, numerators a
+    divisor off a multiple, and sums that wrapped past INT32_MAX) and 256
+    seeded random ones."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    edge = [0, 1, -1, 2, -2, 2**31 - 1, -2**31, -2**31 + 1, 2**30, -2**30, 65_535, 65_536,
+            -65_536, 65_537, 3 * 2**29, -(3 * 2**29)]
+    wrapped = [int(np.int32(np.uint32(a + b) if a + b < 2**32 else np.uint32(a + b - 2**32)))
+               for a, b in ((2**31 - 1, 1), (2**31 - 5, 2**20), (2**30, 2**30), (2**31 - 1, 2**31 - 1))]
+    rnd = np.random.default_rng(12).integers(-2**31, 2**31, size=256, dtype=np.int64).tolist()
+    num = torch.tensor(edge + wrapped + rnd, dtype=torch.int32, device=dev)
+    den = torch.tensor(list(range(1, 65_537)) + [2**31 - 1], dtype=torch.int32, device=dev)
+    got = ffd.floordiv_check(num, den)
+    want = torch.div(num.unsqueeze(0), den.unsqueeze(1), rounding_mode="floor")
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    assert bad == 0, f"floordiv_magic differs from the floor on {bad} pairs"
+    return dict(divisors=int(den.numel()), numerators=int(num.numel()), mismatches=bad)
+
+
+def cluster_phase(dev, qrows=None) -> dict:
+    """Phase 12: the scans as one cluster of CTAs a solve. The cluster size
+    and occupancy query of every visible card, one cluster barrier's cost
+    (a loop of BARRIER_LOOP barriers in one cluster, CUDA events, less an
+    empty launch), the exact division, then K1 / K7 / K1s / K7s and the
+    resumes against the plain versions on the seeded builders (relax,
+    constrained, zone: CLUSTER_SEEDS seeds each), the fleet of ROADMAP
+    §C.1, the Q-heavy fleets (fast, zoned) and the 1 000-app hostname fleet
+    (its decisions against HOSTNAME_APPS_DIGEST, through TorchSolver()).
+    The fleets' plain sides run in CPU worker processes meanwhile
+    (cluster_fleet_checks).
+    `qrows`: phase 11's result of this run, which held the cluster scans on
+    the Q-heavy and hostname fleets already (qrows_phase: ckpt_check and
+    sparse_check with their resumes, hostname_apps_check, the digest); the
+    phase then cites it instead of solving them again."""
+    import hashlib
+
+    import torch
+
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    out = {"devices": {}}
+    for i in range(torch.cuda.device_count()):
+        info = ffd.cluster_info(torch.device("cuda", i))
+        out["devices"][torch.cuda.get_device_name(i) + f" (cuda:{i})"] = info
+        print(f"cluster[cuda:{i}]: " + ", ".join(f"{k} CL {v['cl']} (clusters of 16 at once: "
+                                                  f"{v['fit16']}, of 8: {v['fit8']})"
+                                                  for k, v in info.items()), flush=True)
+    cl = ffd.cluster_info(dev)["ffd_ckpt_fast_scan"]["cl"]
+    out["cl"] = cl
+    bar = {}
+    for c in sorted({cl, 8}):
+        t_n = time_ms(lambda: ffd.cluster_barriers(BARRIER_LOOP, c), 5)
+        t_0 = time_ms(lambda: ffd.cluster_barriers(0, c), 5)
+        bar[c] = (t_n - t_0) / BARRIER_LOOP * 1e6
+    out["barrier_ns"] = bar
+    print(f"cluster barrier: {bar} ns (CL: one barrier; a loop of {BARRIER_LOOP})", flush=True)
+    out["division"] = division_check(dev)
+    print(f"cluster[division]: {out['division']}", flush=True)
+    names = ("relax", "constrained", "zone")
+    jobs = [(name, seed) for name in names for seed in range(CLUSTER_SEEDS)] + [("zone_fuzz_53", 0)]
+    if qrows is None:
+        jobs += [("qheavy", 0), ("qheavy", 1)]
+    t0 = time.perf_counter()
+    rows = dict(zip(jobs, cluster_fleet_checks(jobs, dev)))
+    fleets = {}
+    for name in names:
+        got = [rows[(name, seed)] for seed in range(CLUSTER_SEEDS)]
+        fleets[name] = dict(n=len(got), zoned=sum(r["zone"] for r in got),
+                            resumed=sum("k" in r for r in got), events=sum(r["events"] for r in got))
+        print(f"cluster[{name} x{CLUSTER_SEEDS}]: {fleets[name]}", flush=True)
+    fleets["zone_fuzz_53"] = rows[("zone_fuzz_53", 0)]
+    out["fleets_s"] = time.perf_counter() - t0
+    if qrows is not None:
+        for tag in ("fast", "zoned"):
+            c = qrows["checks"][tag]
+            fleets[f"qheavy_{tag}"] = dict(held_in="phase 11", Qp=c["Qp"], k1=c["k1"], k7=c["k7"],
+                                           k1s_k7s=c["k1s_k7s"])
+        fleets["hostname_apps"] = dict(held_in="phase 11", **{
+            k: qrows["hostname_apps"][k] for k in ("Qp", "k1", "k7", "k1s", "k7s", "digest")})
+    else:
+        for zoned in (False, True):
+            fleets[f"qheavy_{'zoned' if zoned else 'fast'}"] = rows[("qheavy", int(zoned))]
+        inp = build_hostname_wide_input(HOSTNAME_APPS, HOSTNAME_REPLICAS)
+        fleets["hostname_apps"] = hw = hostname_apps_check(inp, dev)
+        digest = hashlib.sha256(repr(decisions(TorchSolver(max_claims=MAX_CLAIMS).solve(inp)))
+                                .encode()).hexdigest()
+        assert digest == HOSTNAME_APPS_DIGEST, f"hostname_apps: decisions differ ({digest})"
+        hw["digest"] = digest
+    for k in ("zone_fuzz_53", "qheavy_fast", "qheavy_zoned", "hostname_apps"):
+        print(f"cluster[{k}]: " + json.dumps({f: v for f, v in fleets[k].items()
+                                              if isinstance(v, (int, float, str, bool))}),
+              flush=True)
+    out["fleets"] = {k: {f: v for f, v in d.items() if isinstance(v, (int, float, str, bool))}
+                     for k, d in fleets.items()}
     return out
 
 
@@ -5163,10 +5421,11 @@ def ptxas_report(report: str) -> dict:
                   "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>",
                   "ffd_lanes_sparse_kernelILb0E": "ffd_lanes_sparse_kernel<false>",
                   "ffd_lanes_sparse_kernelILb1E": "ffd_lanes_sparse_kernel<true>"})
-    for flags in range(32):
-        bits = [(flags >> i) & 1 for i in range(5)]
-        mangled = "ffd_scan_kernelI" + "".join(f"Lb{b}E" for b in bits)
-        names[mangled] = "ffd_scan_kernel<" + ", ".join("true" if b else "false" for b in bits) + ">"
+    for width, kernel in ((5, "ffd_scan_kernel"), (3, "ffd_cluster_kernel")):
+        for flags in range(1 << width):
+            bits = [(flags >> i) & 1 for i in range(width)]
+            mangled = f"{kernel}I" + "".join(f"Lb{b}E" for b in bits)
+            names[mangled] = f"{kernel}<" + ", ".join("true" if b else "false" for b in bits) + ">"
     out, current = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
@@ -5231,8 +5490,10 @@ def main() -> int:
         return 2
     only10 = sys.argv[1:] == ["--phase", "10"]
     only11 = sys.argv[1:] == ["--phase", "11"]
-    if sys.argv[1:] and not (only10 or only11):
-        print("usage: python3 chip_smoke.py [--phase 10 | --phase 11]", file=sys.stderr)
+    only12 = sys.argv[1:] == ["--phase", "12"]
+    if sys.argv[1:] and not (only10 or only11 or only12):
+        print("usage: python3 chip_smoke.py [--phase 10 | --phase 11 | --phase 12]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -5270,6 +5531,18 @@ def main() -> int:
                           "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
                           "wall_s": time.perf_counter() - t_start}), flush=True)
         print_sharded(shard["summary"])
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only12:
+        # phase 12 alone: the cluster scans on every fleet it names
+        clusters = cluster_phase(dev)
+        print(json.dumps({"clusters": clusters,
+                          "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5841,6 +6114,13 @@ def main() -> int:
     mesh["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"mesh": {k: v for k, v in mesh.items()}}), flush=True)
     print_mesh(mesh)
+
+    print(f"[phase 12 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 12: the scans as one cluster of CTAs a solve ---------------------------
+    t0 = time.perf_counter()
+    clusters = cluster_phase(dev, qrows=qrows)
+    clusters["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"clusters": clusters}), flush=True)
     # solves per kernel in phase 3's counted window: TorchSolver() on the
     # surge, surge_e2e (K7), config 4 (K7 zoned), config 3 and
     # constraint_wide (K7s zoned) REPEATS times, mixed (K7s zoned)
@@ -5916,6 +6196,7 @@ def main() -> int:
         "zone_v_cap": v_cap,
         "q_cap": q_cap,
         "qrows": qrows,
+        "clusters": clusters,
         "mesh": {"procmesh": {k: v for k, v in mesh["procmesh"].items() if k != "rows"},
                  "hostmesh": {k: v for k, v in mesh["hostmesh"].items() if k != "rows"},
                  "phase_s": mesh["phase_s"]},

@@ -8,11 +8,11 @@
 // argmax go to the lowest index, uint32 words are carried as raw bits.
 //
 // K1 ffd_scan      replaces karpenter_tpu/solver/tpu/ffd.py:1884 ffd_solve
-//                   (_ffd_scan :395): ffd_scan_kernel<false, false, false,
+//                   (_ffd_scan :395): ffd_cluster_kernel<false, false,
 //                   false> the fast branch (step_body.fast :605-855),
-//                   ffd_scan_kernel<true, false, false, false> adds the
-//                   zoned branch (step_body.zoned :860-1663, count_contrib
-//                   :587).
+//                   ffd_cluster_kernel<true, false, false> adds the zoned
+//                   branch (step_body.zoned :860-1663, count_contrib :587);
+//                   one thread-block cluster a solve.
 // K2 compact_takes  replaces karpenter_tpu/solver/tpu/ffd.py:325 compact_takes.
 // K3 claim_meta     replaces karpenter_tpu/solver/tpu/ffd.py:358
 //                   compact_claim_meta plus the c_mask word pack of
@@ -28,7 +28,7 @@
 //                   relax-ladder cascade of attempts per run.
 // K7 ffd_ckpt       replaces karpenter_tpu/solver/tpu/ffd.py:1975
 //                   ffd_solve_ckpt and :2071 ffd_resume (step_ck
-//                   :1825-1850): ffd_scan_kernel<ZONE, false, false, true>,
+//                   :1825-1850): ffd_cluster_kernel<ZONE, true, false>,
 //                   K1's scan that also snapshots its whole carry into a
 //                   device-resident ring every K steps.
 // K9 pack_outputs   replaces karpenter_tpu/solver/backend.py:511 _pack_outputs.
@@ -48,9 +48,11 @@
 // K1s/K6s/K7s       replace karpenter_tpu/solver/tpu/ffd.py:2403
 //                   ffd_solve_sparse, :2701 ffd_solve_ladder_sparse, :2500
 //                   ffd_solve_ckpt_sparse and :2602 ffd_resume_sparse: the
-//                   fifth template flag SPARSE of K1/K6/K7, built from
+//                   template flag SPARSE of K1/K6/K7 (ffd_cluster_kernel's
+//                   third, ffd_scan_kernel's fifth), built from
 //                   ffd_sparse_kernels.cu (this file with FFD_SPARSE_ONLY).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +65,8 @@
 extern __shared__ __align__(16) unsigned char scan_rows[];
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int NT = 1024;          // threads of the single-block kernels
 constexpr int NWARPS = NT / 32;
@@ -83,40 +87,7 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return q;
 }
 
-// ---- block-wide helpers (all NT threads must call them) --------------------
-
-__device__ int block_max(int v, int* sh) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = sh[0];
-  for (int i = 1; i < NWARPS; ++i) r = max(r, sh[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ int block_min(int v, int* sh) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = sh[0];
-  for (int i = 1; i < NWARPS; ++i) r = min(r, sh[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ unsigned block_sum(unsigned v, unsigned* sh) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  unsigned r = 0;
-  for (int i = 0; i < NWARPS; ++i) r += sh[i];
-  __syncthreads();
-  return r;
-}
+// ---- a block-wide helper (all NT threads must call it) ----------------------
 
 // out[i] = sum(in[0..i)) with int32 wrap; returns the total. Thread t owns
 // the contiguous chunk [t*per, (t+1)*per). `in` may alias `out`.
@@ -154,19 +125,247 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
   return total;
 }
 
+
+// ---- the team: the threads that walk one solve -----------------------------
+//
+// One block (CL = false: K4, K6, K15, K17 and their sparse twins, NT
+// threads) or one thread-block cluster of n CTAs of NTC threads on
+// neighbouring SMs (CL = true: K1, K7 and their sparse twins, one cluster a
+// solve). Work over node rows, claim rows and [n, T] grids is split over
+// the team's threads (gtid of gnt) or warps (gwid of gnw); every CTA
+// computes the control scalars, the run's Q / V rows, the pool passes and
+// the zoned [Z] / [P] vectors itself from the same data, so nothing is
+// broadcast. Partials cross CTAs through distributed shared memory: a CTA
+// pushes its partial into a slot of every peer (team_reduce, team_scan), or
+// folds its peers' min / max accumulators into its own in place
+// (pull_acc: the ops are idempotent, so a peer reading ours meanwhile still
+// finds the extreme), or sums its peers' partials into a slot of its own
+// (pull_sum), each after a cluster barrier whose release / acquire also
+// orders the CTAs' global writes. A slot pair is used by parity, so a slot
+// is written again only after one more cluster barrier has passed.
+
+constexpr int NTC = 512;          // threads of one CTA of a cluster scan
+constexpr int MAX_CL = 16;        // the widest cluster
+
+struct TeamShared {
+  int red[NWARPS];                // a CTA's per-warp partials
+  long long red64[NWARPS];
+  int slot[2][MAX_CL];            // CL: each CTA's partial, pushed into every peer
+  long long slot64[2][MAX_CL];
+};
+
+template <bool CL>
+struct Team {
+  static constexpr int NTB = CL ? NTC : NT;  // threads of a CTA
+  static constexpr int NWB = NTB / 32;
+  int tid, lane, wid;             // in the CTA
+  int rank, n;                    // the CTA's rank, the cluster's CTAs (0, 1 for a block)
+  int gtid, gnt, gwid, gnw;       // over the team
+  int par;                        // parity of the next push slot
+  __device__ Team() {
+    tid = threadIdx.x;
+    lane = tid & 31;
+    wid = tid >> 5;
+    if constexpr (CL) {
+      cg::cluster_group c = cg::this_cluster();
+      rank = (int)c.block_rank();
+      n = (int)c.num_blocks();
+    } else {
+      rank = 0;
+      n = 1;
+    }
+    gtid = rank * NTB + tid;
+    gnt = n * NTB;
+    gwid = rank * NWB + wid;
+    gnw = n * NWB;
+    par = 0;
+  }
+  // the one thread that writes the team's global scalars
+  __device__ __forceinline__ bool lead() const { return rank == 0 && tid == 0; }
+};
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+
+// every thread of the team: a block barrier, or a cluster barrier
+template <bool CL>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (CL) cluster_barrier(); else __syncthreads();
+}
+
+// the address of `p` (this CTA's shared memory) in peer CTA r
+template <typename T>
+__device__ __forceinline__ T* peer(T* p, int r) {
+  return cg::this_cluster().map_shared_rank(p, r);
+}
+
+enum { OP_MIN, OP_MAX, OP_SUM };
+
+template <int OP>
+__device__ __forceinline__ int op2(int a, int b) {
+  if constexpr (OP == OP_MIN) return min(a, b);
+  else if constexpr (OP == OP_MAX) return max(a, b);
+  else return wadd(a, b);
+}
+
+// the CTA's reduction of one int a thread (every thread of the CTA calls it)
+template <int OP, int NWB>
+__device__ int cta_reduce(int v, int lane, int wid, int* red) {
+  for (int o = 16; o > 0; o >>= 1) v = op2<OP>(v, __shfl_xor_sync(FULL, v, o));
+  __syncthreads();
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  int r = red[0];
+  for (int i = 1; i < NWB; ++i) r = op2<OP>(r, red[i]);
+  return r;
+}
+
+// the team's reduction of one int a thread (every thread of the team calls it)
+template <int OP, bool CL>
+__device__ int team_reduce(Team<CL>& tm, int v, TeamShared& ts) {
+  int r = cta_reduce<OP, Team<CL>::NWB>(v, tm.lane, tm.wid, ts.red);
+  if constexpr (CL) {
+    const int b = tm.par;
+    tm.par ^= 1;
+    if (tm.tid < tm.n) *peer(&ts.slot[b][tm.rank], tm.tid) = r;
+    cluster_barrier();
+    r = ts.slot[b][0];
+    for (int i = 1; i < tm.n; ++i) r = op2<OP>(r, ts.slot[b][i]);
+  } else {
+    __syncthreads();
+  }
+  return r;
+}
+
+// The CTA's exclusive prefix of one 64-bit sum a thread, in thread order:
+// returns the thread's offset and the CTA's total in `total`.
+template <int NWB>
+__device__ long long cta_prefix(long long s, int lane, int wid, long long* red64, long long& total) {
+  long long x = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  __syncthreads();
+  if (lane == 31) red64[wid] = x;
+  __syncthreads();
+  long long off = x - s;
+  total = 0;
+  for (int i = 0; i < NWB; ++i) {
+    const long long w = red64[i];
+    if (i < wid) off += w;
+    total += w;
+  }
+  return off;
+}
+
+// out[i] = sum(in[j] for j < i) with int32 wrap over the team's chunks:
+// thread gtid owns [lo, hi), the chunks contiguous and ascending in gtid; a
+// thread writes only its own chunk (`in` may alias `out`). Returns the
+// exact (64-bit) sum of every chunk.
+template <bool CL>
+__device__ long long team_scan(Team<CL>& tm, const int* in, int* out, int lo, int hi, TeamShared& ts) {
+  long long s = 0;
+  for (int i = lo; i < hi; ++i) s += in[i];
+  long long total;
+  long long off = cta_prefix<Team<CL>::NWB>(s, tm.lane, tm.wid, ts.red64, total);
+  if constexpr (CL) {
+    const int b = tm.par;
+    tm.par ^= 1;
+    if (tm.tid < tm.n) *peer(&ts.slot64[b][tm.rank], tm.tid) = total;
+    cluster_barrier();
+    total = 0;
+    for (int i = 0; i < tm.n; ++i) {
+      const long long c = ts.slot64[b][i];
+      if (i < tm.rank) off += c;
+      total += c;
+    }
+  }
+  unsigned run = (unsigned)(unsigned long long)off;
+  for (int i = lo; i < hi; ++i) {
+    const unsigned v = (unsigned)in[i];
+    out[i] = (int)run;
+    run += v;
+  }
+  __syncthreads();
+  return total;
+}
+
+// thread gtid's contiguous chunk of [0, n)
+template <bool CL>
+__device__ __forceinline__ void thread_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+  const int per = (n + tm.gnt - 1) / tm.gnt;
+  lo = min(tm.gtid * per, n);
+  hi = min(lo + per, n);
+}
+
+// warp gwid's contiguous chunk of [0, n): the claim rows a warp owns
+template <bool CL>
+__device__ __forceinline__ void warp_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+  const int per = (n + tm.gnw - 1) / tm.gnw;
+  lo = min(tm.gwid * per, n);
+  hi = min(lo + per, n);
+}
+
+// the claim rows the CTA's warps own (the union of their warp_chunk)
+template <bool CL>
+__device__ __forceinline__ void cta_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+  const int per = (n + tm.gnw - 1) / tm.gnw;
+  lo = min(tm.rank * Team<CL>::NWB * per, n);
+  hi = min(lo + Team<CL>::NWB * per, n);
+}
+
+// a lane's contiguous piece of its warp's chunk [wlo, whi)
+__device__ __forceinline__ void lane_chunk(int wlo, int whi, int lane, int& lo, int& hi) {
+  const int per = (whi - wlo + 31) / 32;
+  lo = min(wlo + lane * per, whi);
+  hi = min(lo + per, whi);
+}
+
+// ---- exact division by the run's request -------------------------------------
+//
+// floor(n / d) for d >= 1 as a multiply-high: with l = ceil(log2 d) and
+// m = ceil(2^(31+l) / d) < 2^32, floor(u * m / 2^(31+l)) = floor(u / d) for
+// every 0 <= u < 2^31 (Granlund & Montgomery 1994, theorem 4.2 at N = 31,
+// since m d - 2^(31+l) < d <= 2^l); a negative n floors through
+// ~n = -n - 1 >= 0: floor(n / d) = ~floor(~n / d). Exact for every int32 n,
+// as the plain _floordiv floors.
+__device__ __forceinline__ void magic_of(int d, unsigned& m, int& sh) {
+  const int l = d > 1 ? 32 - __clz(d - 1) : 0;
+  m = (unsigned)(((1ull << (31 + l)) + (unsigned)d - 1u) / (unsigned)d);
+  sh = 31 + l;
+}
+
+__device__ __forceinline__ int floordiv_magic(int n, unsigned m, int sh) {
+  const unsigned u = n >= 0 ? (unsigned)n : ~(unsigned)n;
+  const unsigned q = (unsigned)(((unsigned long long)u * m) >> sh);
+  return n >= 0 ? (int)q : (int)~q;
+}
+
 // ---- K1: the FFD scan --------------------------------------------------------
 //
 // What bounds it on the H100: the scan is sequential over runs, and a run's
 // work is small — the [used, T] claim fit (about M·T·R integer divisions)
-// plus per-pool [T] passes — so one block can hold the whole carry and the
-// card is latency-bound, far from both its memory and its integer peak.
-// Design: ONE launch per dispatch, one block of 1024 threads walks every
-// run; phases inside a run are separated by __syncthreads(). The carry
+// plus per-pool [T] passes — so the card is latency-bound, far from both
+// its memory and its integer peak; on one SM the open-claim fit and the
+// mask narrowing were 90% of a surge run (PERF.md §6, Step 0).
+// Design: ONE launch per dispatch, one thread-block cluster of CL CTAs
+// (16, or 8 where the card refuses 16; ffd_cluster_kernel) walks every run
+// (the one-block instances below keep one block of 1024 threads). The carry
 // (FFDState) lives in global buffers the wrapper allocated; per-run rows
-// (req, Q flags) sit in shared memory. The claim pass runs one warp per
-// OPEN claim (rows >= used have c_pool == -1 and capacity 0, so the pour
-// over [0, used) is exact), and only claims that received pods recompute
-// their type mask. Pools are walked in order inside the kernel.
+// (req and its exact divisions, Q flags) sit in every CTA's shared memory.
+// The claim pass runs one warp of the cluster per OPEN claim, each warp a
+// contiguous range of rows (rows >= used have c_pool == -1 and capacity 0,
+// so the pour over [0, used) is exact); the pour's prefix runs over the
+// same warps' lanes in row order, so a row never leaves its warp, and only
+// claims that received pods recompute their type mask. Pools are walked in
+// order, each CTA over the whole [T] row (cheap, and it needs no cluster
+// barrier). A run costs three cluster barriers (the claims' prefix, a
+// claim-opening pool, the run's end), three more where the solve has
+// nodes (the nodes' prefix between strided passes); the serial floor is
+// runs x barriers x one barrier's cost (~0.75 us on an H100 at 16 CTAs).
 //
 // The kernel is a template on ZONE, the JAX scan's static zone_engine.
 // ZONE=false (a solve without V-axis sigs) is the fast branch alone.
@@ -174,13 +373,14 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
 // group owns a V-axis sig or is a member of an anti sig goes through the
 // domain event engine (zoned_run below, ffd.py:860-1651); every other run
 // takes the fast branch and records its V-axis counts (count_contrib
-// :587-600) and claim-local matches (c_vm). The engine loops events in the
-// same block; each event's [Z] domain vectors and [P] pool rows sit in
-// shared memory (Z <= 32, one warp or one thread walks them), the per-claim
-// [M,T] and [M,Z,T] tests run one warp per open claim on the fly and keep
-// only [M] and [M,Z] results in global scratch, the [P,T] pool pass runs
-// one warp per pool, and v_count / v_owner_z / c_vm / c_vo stay in global
-// memory.
+// :587-600) and claim-local matches (c_vm). The engine loops events on the
+// same team; each event's [Z] domain vectors and [P] pool rows sit in every
+// CTA's shared memory (Z <= 32), the per-claim [M,T] and [M,Z,T] tests run
+// one warp of the team per open claim on the fly and keep only [M] and
+// [M,Z] results in global scratch, every CTA runs the [P,T] pool pass and
+// the water-fill over all its threads, and v_count / v_owner_z / c_vm /
+// c_vo stay in global memory. An event costs three cluster barriers (after
+// the candidate passes, after the apply, at its end).
 
 constexpr int MAX_Z = 32;         // solver/cuda/ffd.py MAX_Z
 constexpr int MAX_P = 64;         // solver/cuda/ffd.py MAX_P
@@ -262,8 +462,9 @@ struct RunShared {
   int req[MAX_R];
   int charge[MAX_R];
   __device__ __forceinline__ QRow* q() const { return reinterpret_cast<QRow*>(scan_rows); }
-  int red[NWARPS];
-  unsigned ured[NWARPS];
+  unsigned dm[MAX_R];  // the run's exact division by req[r] > 0 (floordiv_magic)
+  int ds[MAX_R];
+  TeamShared ts;
   int any_owned2, boot2, fresh_allow, remaining, used, cap2, n_new, full_take;
   int has_e_boot, e_first, has_c_boot, c_first;
   int skip;
@@ -290,7 +491,9 @@ struct ZoneShared {
   int first_ez[MAX_Z], first_cz[MAX_Z], tgt_e[MAX_Z], tgt_c[MAX_Z];
   int kmax_z[MAX_Z], charge_zr[MAX_Z][MAX_R];
   int T_zv[MAX_Z], fr_z[MAX_Z], n_z[MAX_Z], base_z[MAX_Z];
-  int contrib[MAX_Z], owner_rec[MAX_Z];
+  // contrib: this CTA's [Z] count deltas of an event's apply, then its
+  // placed pods at [Z]; csum: their sums over the team
+  int contrib[MAX_Z + 1], csum[MAX_Z + 1], owner_rec[MAX_Z];
   int kpz[NWARPS][MAX_Z];
   unsigned nbits_p[MAX_P];
   int kmax_p[MAX_P], elig_p[MAX_P], charge_p[MAX_P][MAX_R];
@@ -363,10 +566,13 @@ __device__ int row_pos(const RunShared& sh, int nq, const int* cm) {
   return best;
 }
 
-__device__ __forceinline__ int fit_rows(const int* alloc, const int* cum, const int* req, int R) {
+// pods of the run's request that fit in alloc - cum (R rows; rows the
+// request leaves at 0 do not bind), by the run's exact divisions; alloc is
+// a read-only input table (type_alloc, node_free), cum may be the carry
+__device__ __forceinline__ int fit_rows(const int* alloc, const int* cum, const RunShared& sh, int R) {
   int k = BIG;
   for (int r = 0; r < R; ++r)
-    if (req[r] > 0) k = min(k, floordiv(wsub(alloc[r], cum[r]), req[r]));
+    if (sh.req[r] > 0) k = min(k, floordiv_magic(wsub(__ldg(&alloc[r]), cum[r]), sh.dm[r], sh.ds[r]));
   return max(k, 0);
 }
 
@@ -379,6 +585,11 @@ __device__ __forceinline__ int warp_max(int v) {
 
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v = wadd(v, __shfl_xor_sync(FULL, v, o));
   return v;
 }
 
@@ -434,10 +645,54 @@ __device__ int domain_argmin(const ZoneShared& zs, int Z, unsigned inter, int mo
   return arg;
 }
 
-template <bool BATCH, bool LADDER>
+// The team's accumulators of an event's candidate passes, folded over the
+// CTAs after a cluster barrier: the [Z] first-node / first-claim / first-fit
+// positions and the first eligible node and claim (min), the multi-domain
+// and bad-target flags (max). Each CTA folds every peer's value into its
+// own in place; the folds are idempotent, so a peer reading ours meanwhile
+// still finds the extreme in the CTA that holds it.
+template <bool CL>
+__device__ void pull_acc(const Team<CL>& tm, ZoneShared& zs, int Z) {
+  if constexpr (CL) {
+    const int K = 4 * Z + 4;
+    for (int i = tm.tid; i < tm.n * K; i += Team<CL>::NTB) {
+      const int r = i / K, j = i - r * K;
+      if (r == tm.rank) continue;
+      int* v;
+      if (j < Z) v = &zs.pos_node[j];
+      else if (j < 2 * Z) v = &zs.pos_claim[j - Z];
+      else if (j < 3 * Z) v = &zs.first_ez[j - 2 * Z];
+      else if (j < 4 * Z) v = &zs.first_cz[j - 3 * Z];
+      else if (j == 4 * Z) v = &zs.e_first;
+      else if (j == 4 * Z + 1) v = &zs.c_first;
+      else if (j == 4 * Z + 2) v = &zs.multi_claim;
+      else v = &zs.tgts_bad;
+      const int o = *peer(v, r);
+      if (j < 4 * Z + 2) atomicMin(v, o); else atomicMax(v, o);
+    }
+  }
+}
+
+// zs.csum[j] = the sum over the team's CTAs of zs.contrib[j], j <= Z
+// (int32 wrap); after a barrier that orders every CTA's partials
+template <bool CL>
+__device__ void pull_sum(const Team<CL>& tm, ZoneShared& zs, int Z) {
+  for (int j = tm.tid; j <= Z; j += Team<CL>::NTB) {
+    unsigned s = 0u;
+    if constexpr (CL) {
+      for (int r = 0; r < tm.n; ++r) s += (unsigned)*peer(&zs.contrib[j], r);
+    } else {
+      s = (unsigned)zs.contrib[j];
+    }
+    zs.csum[j] = (int)s;
+  }
+}
+
+template <bool BATCH, bool LADDER, bool CL>
 __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, const Scratch& x,
-                          int s, int g) {
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+                          Team<CL>& tm, int s, int g) {
+  constexpr int NTB = Team<CL>::NTB, NWB = Team<CL>::NWB;
+  const int tid = tm.tid, lane = tm.lane, wid = tm.wid;
   const int T = a.T, E = a.E, P = a.P, R = a.R, Q = a.Q, W = a.W, M = a.M, V = a.V, Z = a.Z;
   const unsigned g_zc = a.group_zc_bits[g];
   const unsigned char* compat = a.group_compat_t + (size_t)g * T;
@@ -450,8 +705,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     zs.zcm[tid] = a.zone_col_mask[tid];
     zs.col_axis[tid] = a.col_axis[tid];
   }
-  for (int e = tid; e < E; e += NT) a.take_e[take_row<BATCH || LADDER>(s, E) + e] = 0;
-  for (int m = tid; m < M; m += NT) x.c_take[m] = 0;
+  for (int e = tm.gtid; e < E; e += tm.gnt) a.take_e[take_row<BATCH || LADDER>(s, E) + e] = 0;
+  for (int m = tm.gtid; m < M; m += tm.gnt) x.c_take[m] = 0;
   if (tid == 0) {
     zs.g_ax = a.group_daxis[g];
     const int psg = a.v_primary[g];
@@ -497,12 +752,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       const int z = tid;
       zs.cnt_p[z] = a.v_count[zs.psig * Z + z];
       zs.cnt_a[z] = a.v_count[zs.asig * Z + z];
-      bool blk = false;
-      for (int v = 0; v < V; ++v) {
-        if (zs.ov[v] && (zs.vk[v] == 1 || zs.vk[v] == 3) && a.v_count[v * Z + z] > 0) blk = true;
-        if (zs.mv[v] && zs.vk[v] == 1 && a.v_owner_z[v * Z + z]) blk = true;
-      }
-      zs.blk[z] = blk;
+      zs.blk[z] = 0;  // below, over every (sig, domain) pair
       zs.pos_node[z] = BIG;
       zs.pos_claim[z] = BIG;
       zs.first_ez[z] = I32MAX;
@@ -510,12 +760,23 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       zs.contrib[z] = 0;
       zs.kmax_z[z] = 0;
     }
-    for (int i = tid; i < Z * MAX_R; i += NT) zs.charge_zr[i / MAX_R][i % MAX_R] = I32MAX;
-    for (int i = tid; i < P * MAX_R; i += NT) zs.charge_p[i / MAX_R][i % MAX_R] = I32MAX;
+    for (int i = tid; i < Z * MAX_R; i += NTB) zs.charge_zr[i / MAX_R][i % MAX_R] = I32MAX;
+    for (int i = tid; i < P * MAX_R; i += NTB) zs.charge_p[i / MAX_R][i % MAX_R] = I32MAX;
     if (tid == 0) {
       zs.multi_claim = 0;
       zs.tgts_bad = 0;
       zs.c_first = I32MAX;
+      zs.e_first = I32MAX;
+      zs.contrib[Z] = 0;
+    }
+    __syncthreads();
+    // a domain is blocked by an owned anti sig with pods in it, or by a
+    // matched anti sig's registered owner there
+    for (int i = tid; i < V * Z; i += NTB) {
+      const int v = i / Z;
+      if ((zs.ov[v] && (zs.vk[v] == 1 || zs.vk[v] == 3) && a.v_count[i] > 0) ||
+          (zs.mv[v] && zs.vk[v] == 1 && a.v_owner_z[i]))
+        atomicOr(&zs.blk[i - v * Z], 1);
     }
     __syncthreads();
     if (tid == 0) {
@@ -555,34 +816,34 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     }
     __syncthreads();
 
-    // ---- existing-node candidate (ffd.py:934-944) -------------------------------
-    {
-      int my_first = I32MAX;
-      for (int e = tid; e < E; e += NT) {
-        const int fit = fit_rows(a.node_free + e * R, a.e_cum + e * R, sh.req, R);
-        const int host = row_allowance<true>(sh, Q, a.e_cm + e * Q, a.e_co + e * Q);
-        const int nd = node_dom(a, zs, e);
-        const bool base = node_compat_at<BATCH>(a, g, e) && fit > 0 && host > 0;
-        const bool nz_ok = nd >= 0 ? zs.A[min(nd, Z - 1)] != 0 : !zs.has_owned;
-        const bool el = base && nz_ok;
-        x.e_full[e] = fit;
-        x.e_boot[e] = host;
-        if (el) {
-          my_first = min(my_first, e);
-          if (nd >= 0 && nd < Z) atomicMin(&zs.first_ez[nd], e);
-        }
-        if (base) {
-          const int nz = a.node_zone[e], n2 = a.node_dom2[e];
-          if (nz >= 0 && nz < Z) atomicMin(&zs.pos_node[nz], e);
-          if (n2 >= 0 && n2 < Z) atomicMin(&zs.pos_node[n2], e);
-        }
+    // ---- existing-node candidate (ffd.py:934-944), over the team's threads ----
+    int my_first = I32MAX;
+    for (int e = tm.gtid; e < E; e += tm.gnt) {
+      const int fit = fit_rows(a.node_free + e * R, a.e_cum + e * R, sh, R);
+      const int host = row_allowance<true>(sh, Q, a.e_cm + e * Q, a.e_co + e * Q);
+      const int nd = node_dom(a, zs, e);
+      const bool base = node_compat_at<BATCH>(a, g, e) && fit > 0 && host > 0;
+      const bool nz_ok = nd >= 0 ? zs.A[min(nd, Z - 1)] != 0 : !zs.has_owned;
+      const bool el = base && nz_ok;
+      x.e_full[e] = fit;
+      x.e_boot[e] = host;
+      if (el) {
+        my_first = min(my_first, e);
+        if (nd >= 0 && nd < Z) atomicMin(&zs.first_ez[nd], e);
       }
-      const int e_first = block_min(my_first, sh.red);
-      if (tid == 0) zs.e_first = e_first;
+      if (base) {
+        const int nz = a.node_zone[e], n2 = a.node_dom2[e];
+        if (nz >= 0 && nz < Z) atomicMin(&zs.pos_node[nz], e);
+        if (n2 >= 0 && n2 < Z) atomicMin(&zs.pos_node[n2], e);
+      }
     }
+    my_first = warp_min(my_first);
+    if (lane == 0 && my_first != I32MAX) atomicMin(&zs.e_first, my_first);
 
-    // ---- open-claim candidates (ffd.py:946-1011), one warp per claim -----------
-    for (int m = wid; m < used0; m += NWARPS) {
+    // ---- open-claim candidates (ffd.py:946-1011), a warp per claim ------------
+    int wlo, whi;
+    warp_chunk(tm, used0, wlo, whi);
+    for (int m = wlo; m < whi; ++m) {
       bool loc = false, ok = true;
       for (int v = lane; v < V; v += 32) {
         const int cvm = a.c_vm[m * V + v];
@@ -625,14 +886,21 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       const int* cum = a.c_cum + m * R;
       const unsigned char* mask = a.c_mask + (size_t)m * T;
       int kbest = 0;
-      for (int t = lane; t < T; t += 32) {
-        if (!mask[t] || !compat[t]) continue;
-        const int k = fit_rows(a.type_alloc + t * R, cum, sh.req, R);
-        if (node_ok && (bits_eff & a.offer_zc_bits[t]) != 0u) kbest = max(kbest, k);
-        const unsigned zt = czb & g_zc & a.offer_zc_bits[t];
-        if (k >= 1 && zt != 0u)
-          for (int z = 0; z < Z; ++z)
-            if (zt & zs.zcm[z]) atomicMax(&zs.kpz[wid][z], k);
+      // every lane walks as many rows (the warp reductions below), each
+      // row's loads issued before its tests
+      for (int t0 = 0; t0 < T; t0 += 32) {
+        const int t = t0 + lane;
+        const int tt = t < T ? t : 0;
+        const bool ok = (t < T) & (mask[tt] != 0) & (__ldg(&compat[tt]) != 0);
+        const unsigned off = __ldg(&a.offer_zc_bits[tt]);
+        const int k = fit_rows(a.type_alloc + tt * R, cum, sh, R);
+        if (ok && node_ok && (bits_eff & off) != 0u) kbest = max(kbest, k);
+        const unsigned zt = (ok && k >= 1) ? (czb & g_zc & off) : 0u;
+        if (__any_sync(FULL, zt != 0u))
+          for (int z = 0; z < Z; ++z) {
+            const int kz = __reduce_max_sync(FULL, (zt & zs.zcm[z]) != 0u ? k : 0);
+            if (lane == 0 && kz > zs.kpz[wid][z]) zs.kpz[wid][z] = kz;
+          }
       }
       const int k_m = warp_max(kbest);
       __syncwarp();
@@ -664,49 +932,62 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       }
     }
 
-    // ---- per-pool new-claim candidates (ffd.py:1076-1135), one warp per pool --
-    for (int p = wid; p < P; p += NWARPS) {
+    // ---- per-pool new-claim candidates (ffd.py:1076-1135): every CTA walks
+    // every pool's [T] row with all its threads (P <= MAX_P) ------------------
+    if (tid < P) {
+      const int p = tid;
       const unsigned pzb = a.pool_zc_bits[p] & g_zc;
-      unsigned nbits = 0u;
-      int has_inter = 0;
-      if (lane == 0) {
-        unsigned inter = 0u, az = 0u;
-        for (int z = 0; z < Z; ++z)
-          if ((pzb & zs.zcm[z]) != 0u && zs.A[z]) { inter |= 1u << z; az |= zs.zcm[z]; }
-        const bool aff = zs.has_affs && zs.any_present;
-        const bool commit = zs.has_tsc || aff || zs.has_anti;
-        const int dz = domain_argmin(zs, Z, inter, zs.has_tsc ? 0 : aff ? 1 : 2);
-        nbits = (commit ? zs.zcm[dz] : az) & pzb;
-        has_inter = inter != 0u;
-      }
-      nbits = __shfl_sync(FULL, nbits, 0);
-      has_inter = __shfl_sync(FULL, has_inter, 0);
-      const int* daemon = a.pool_daemon + p * R;
-      int kmax = 0;
-      for (int t = lane; t < T; t += 32) {
-        const bool fit = compat[t] && a.pool_type[(size_t)p * T + t] &&
-                         (nbits & a.offer_zc_bits[t]) != 0u;
-        if (!fit) continue;
-        const int k = fit_rows(a.type_alloc + t * R, daemon, sh.req, R);
-        kmax = max(kmax, k);
-        if (k >= 1)
-          for (int r = 0; r < R; ++r) atomicMin(&zs.charge_p[p][r], a.type_charge[t * R + r]);
-      }
-      kmax = warp_max(kmax);
-      __syncwarp();
-      if (lane == 0) {
-        bool over = false;
-        for (int r = 0; r < R; ++r) {
-          if (zs.charge_p[p][r] == I32MAX) zs.charge_p[p][r] = 0;
-          if (a.p_usage[p * R + r] >= a.pool_limit[p * R + r]) over = true;
-        }
-        zs.nbits_p[p] = nbits;
-        zs.kmax_p[p] = kmax;
-        zs.elig_p[p] = a.group_pool[g * P + p] && has_inter && kmax > 0 && !over &&
-                       used0 < M && sh.fresh_allow > 0;
-      }
+      unsigned inter = 0u, az = 0u;
+      for (int z = 0; z < Z; ++z)
+        if ((pzb & zs.zcm[z]) != 0u && zs.A[z]) { inter |= 1u << z; az |= zs.zcm[z]; }
+      const bool aff = zs.has_affs && zs.any_present;
+      const bool commit = zs.has_tsc || aff || zs.has_anti;
+      const int dz = domain_argmin(zs, Z, inter, zs.has_tsc ? 0 : aff ? 1 : 2);
+      zs.nbits_p[p] = (commit ? zs.zcm[dz] : az) & pzb;
+      zs.elig_p[p] = inter != 0u;  // finished below
+      zs.kmax_p[p] = 0;
     }
     __syncthreads();
+    for (int p = 0; p < P; ++p) {
+      const unsigned nbits = zs.nbits_p[p];
+      const int* daemon = a.pool_daemon + p * R;
+      int kmax = 0;
+      int cmin[MAX_R];
+      for (int r = 0; r < R; ++r) cmin[r] = I32MAX;
+      for (int t = tid; t < T; t += NTB) {
+        const bool fit = __ldg(&compat[t]) && __ldg(&a.pool_type[(size_t)p * T + t]) &&
+                         (nbits & __ldg(&a.offer_zc_bits[t])) != 0u;
+        if (!fit) continue;
+        const int k = fit_rows(a.type_alloc + t * R, daemon, sh, R);
+        kmax = max(kmax, k);
+        if (k >= 1)
+          for (int r = 0; r < R; ++r) cmin[r] = min(cmin[r], __ldg(&a.type_charge[t * R + r]));
+      }
+      for (int r = 0; r < R; ++r) {
+        const int c = __reduce_min_sync(FULL, cmin[r]);
+        if (lane == 0 && c != I32MAX) atomicMin(&zs.charge_p[p][r], c);
+      }
+      kmax = warp_max(kmax);
+      if (lane == 0 && kmax > 0) atomicMax(&zs.kmax_p[p], kmax);
+    }
+    __syncthreads();
+    if (tid < P) {
+      const int p = tid;
+      bool over = false;
+      for (int r = 0; r < R; ++r) {
+        if (zs.charge_p[p][r] == I32MAX) zs.charge_p[p][r] = 0;
+        if (a.p_usage[p * R + r] >= a.pool_limit[p * R + r]) over = true;
+      }
+      zs.elig_p[p] = a.group_pool[g * P + p] && zs.elig_p[p] && zs.kmax_p[p] > 0 && !over &&
+                     used0 < M && sh.fresh_allow > 0;
+    }
+    // every CTA's candidate passes and scratch rows are written: fold the
+    // team's accumulators
+    team_sync<CL>();
+    if constexpr (CL) {
+      pull_acc(tm, zs, Z);
+      __syncthreads();
+    }
 
     // ---- candidates, budgets and the preemption bound (ffd.py:1012-1149) ------
     if (tid == 0) {
@@ -756,36 +1037,44 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
 
     // ---- (C) fixed-zone affinity bulk drain (ffd.py:1151-1188) ----------------
     {
-      const unsigned not_zp = ~zs.zcm[zs.z_p];
-      bool comm = true, fre = true;
-      for (int m = tid; m < used0; m += NT) {
-        const bool elig_m = x.c_flag[m] & 1;
-        const int caps = elig_m ? min(x.c_km[m], x.c_host[m]) : 0;
-        x.c_full[m] = caps;
-        if (elig_m) {
-          const unsigned b = x.c_bits[m];
-          if ((b & not_zp) != 0u) comm = false;
-          int ze = 0;
-          for (int z = 0; z < Z; ++z) ze += ((b & zs.zcm[z]) != 0u && zs.gax[z]) ? 1 : 0;
-          if (!(ze > 1)) fre = false;
+      // the drain's other preconditions are known: walk the claims only
+      // where it can fire (a uniform test)
+      const bool aff_pre = zs.has_affs && !zs.has_tsc && !zs.self_anti && !zs.has_anti &&
+                           !zs.any_ma && !zs.found_e && zs.found_c && zs.found_p;
+      bool aff_bulk = false;
+      int drained = 0;
+      if (aff_pre) {
+        const unsigned not_zp = ~zs.zcm[zs.z_p];
+        int lo, hi;
+        lane_chunk(wlo, whi, lane, lo, hi);
+        int comm = 1, fre = 1;
+        for (int m = lo; m < hi; ++m) {
+          const bool elig_m = x.c_flag[m] & 1;
+          const int caps = elig_m ? min(x.c_km[m], x.c_host[m]) : 0;
+          x.c_full[m] = caps;
+          if (elig_m) {
+            const unsigned b = x.c_bits[m];
+            if ((b & not_zp) != 0u) comm = 0;
+            int ze = 0;
+            for (int z = 0; z < Z; ++z) ze += ((b & zs.zcm[z]) != 0u && zs.gax[z]) ? 1 : 0;
+            if (!(ze > 1)) fre = 0;
+          }
+        }
+        const int all_comm = team_reduce<OP_MIN>(tm, comm, sh.ts);
+        const int all_free = team_reduce<OP_MIN>(tm, fre, sh.ts);
+        team_scan(tm, x.c_full, x.c_apref, lo, hi, sh.ts);
+        aff_bulk = (zs.any_present && zs.nz_fin_p == 1 && all_comm) ||
+                   (!zs.any_present && zs.is_member_a && all_free && zs.nz_fin_p > 1);
+        if (aff_bulk) {
+          int d = 0;
+          for (int m = lo; m < hi; ++m)
+            d = wadd(d, min(max(wsub(remaining, x.c_apref[m]), 0), x.c_full[m]));
+          drained = team_reduce<OP_SUM>(tm, d, sh.ts);
         }
       }
-      const int all_comm = __syncthreads_and(comm);
-      const int all_free = __syncthreads_and(fre);
-      block_exclusive_scan(x.c_full, x.c_apref, used0, sh.ured);
-      const bool aff_bulk =
-          zs.has_affs && !zs.has_tsc && !zs.self_anti && !zs.has_anti && !zs.any_ma &&
-          !zs.found_e && zs.found_c && zs.found_p &&
-          ((zs.any_present && zs.nz_fin_p == 1 && all_comm) ||
-           (!zs.any_present && zs.is_member_a && all_free && zs.nz_fin_p > 1));
-      unsigned drained = 0;
-      if (aff_bulk)
-        for (int m = tid; m < used0; m += NT)
-          drained += (unsigned)min(max(wsub(remaining, x.c_apref[m]), 0), x.c_full[m]);
-      drained = block_sum(drained, sh.ured);
       if (tid == 0) {
         zs.aff_bulk = aff_bulk;
-        const int rem_p = wsub(remaining, (int)drained);
+        const int rem_p = wsub(remaining, drained);
         const int q_tot_p = zs.multi_ok ? min(rem_p, zs.q_tot_p) : zs.q_p;
         const int p = zs.p_star;
         int trips = BIG;
@@ -837,17 +1126,25 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     if (zs.mega_pre) {
       const int p = zs.p_star;
       const unsigned pz = zs.pz_star;
-      for (int t = tid; t < T; t += NT) {
-        const int kc = fit_rows(a.type_alloc + t * R, a.pool_daemon + p * R, sh.req, R);
-        x.k_cap[t] = kc;
-        if (!compat[t] || !a.pool_type[(size_t)p * T + t]) continue;
-        const unsigned off = pz & a.offer_zc_bits[t];
-        if (off == 0u) continue;
+      // every CTA the whole [T] row (k_cap is the CTA's own)
+      // (a warp's rows reduced first: one shared atomic a warp a domain)
+      for (int t0 = 0; t0 < T; t0 += NTB) {
+        const int t = t0 + tid;
+        const int tt = t < T ? t : 0;
+        const int kc = fit_rows(a.type_alloc + tt * R, a.pool_daemon + p * R, sh, R);
+        if (t < T) x.k_cap[t] = kc;
+        const bool row = (t < T) & (__ldg(&compat[tt]) != 0) & (__ldg(&a.pool_type[(size_t)p * T + tt]) != 0);
+        const unsigned off = row ? pz & __ldg(&a.offer_zc_bits[tt]) : 0u;
+        if (!__any_sync(FULL, off != 0u)) continue;
         for (int z = 0; z < Z; ++z) {
-          if ((off & zs.zcm[z]) == 0u) continue;
-          atomicMax(&zs.kmax_z[z], kc);
-          if (kc >= 1)
-            for (int r = 0; r < R; ++r) atomicMin(&zs.charge_zr[z][r], a.type_charge[t * R + r]);
+          const bool in = (off & zs.zcm[z]) != 0u;
+          const int km = __reduce_max_sync(FULL, in ? kc : 0);
+          if (lane == 0 && km > 0) atomicMax(&zs.kmax_z[z], km);
+          if (__any_sync(FULL, in && kc >= 1))
+            for (int r = 0; r < R; ++r) {
+              const int c = __reduce_min_sync(FULL, (in && kc >= 1) ? __ldg(&a.type_charge[tt * R + r]) : I32MAX);
+              if (lane == 0 && c != I32MAX) atomicMin(&zs.charge_zr[z][r], c);
+            }
         }
       }
       __syncthreads();
@@ -912,22 +1209,35 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       }
       __syncthreads();
       // per-domain prefix drains of every eligible single-domain claim in
-      // slot order, then the fresh claims each domain still needs
-      if (tid < Z) {
-        const int z = tid;
-        unsigned pref = 0u;
-        int tm = 0;
-        for (int m = 0; m < used0; ++m) {
-          const int caps = x.caps_mz[(size_t)m * Z + z];
-          const int take = min(max(wsub(zs.T_zv[z], (int)pref), 0), caps);
-          x.take_mz[(size_t)m * Z + z] = take;
-          pref += (unsigned)caps;
-          tm = wadd(tm, take);
+      // slot order, then the fresh claims each domain still needs: every
+      // CTA walks every claim (a scan over its threads, one domain at a
+      // time) and keeps the drains of the claims its warps apply
+      {
+        const int per = (used0 + NTB - 1) / NTB;
+        const int lo = min(tid * per, used0), hi = min(lo + per, used0);
+        int clo, chi;
+        cta_chunk(tm, used0, clo, chi);
+        for (int z = 0; z < Z; ++z) {
+          long long sz = 0;
+          for (int m = lo; m < hi; ++m) sz += x.caps_mz[(size_t)m * Z + z];
+          long long tot;
+          unsigned pref = (unsigned)(unsigned long long)cta_prefix<NWB>(sz, lane, wid, sh.ts.red64, tot);
+          int tm_z = 0;
+          for (int m = lo; m < hi; ++m) {
+            const int caps = x.caps_mz[(size_t)m * Z + z];
+            const int take = min(max(wsub(zs.T_zv[z], (int)pref), 0), caps);
+            if (m >= clo && m < chi) x.take_mz[(size_t)m * Z + z] = take;
+            pref += (unsigned)caps;
+            tm_z = wadd(tm_z, take);
+          }
+          tm_z = cta_reduce<OP_SUM, NWB>(tm_z, lane, wid, sh.ts.red);
+          if (tid == 0) {
+            const int fr = wsub(zs.T_zv[z], tm_z);
+            zs.fr_z[z] = fr;
+            zs.n_z[z] = ceildiv(fr, zs.km0);
+            zs.base_z[z] = zs.elig[z] ? wadd(zs.cnt_p[z], tm_z) : BIG;
+          }
         }
-        const int fr = wsub(zs.T_zv[z], tm);
-        zs.fr_z[z] = fr;
-        zs.n_z[z] = ceildiv(fr, zs.km0);
-        zs.base_z[z] = zs.elig[z] ? wadd(zs.cnt_p[z], tm) : BIG;
       }
       __syncthreads();
       if (tid == 0) {
@@ -938,11 +1248,12 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       }
       __syncthreads();
       if (zs.mega_ok) {
-        // fresh-claim slot order: rank (z, g) by (count at open, lex z)
+        // fresh-claim slot order: rank (z, g) by (count at open, lex z); every
+        // CTA the whole order (scat_z / scat_take are the CTA's own)
         const int km0 = zs.km0, n_mega = zs.n_mega;
-        for (int j = tid; j < M; j += NT) { x.scat_z[j] = 0; x.scat_take[j] = 0; }
+        for (int j = tid; j < M; j += NTB) { x.scat_z[j] = 0; x.scat_take[j] = 0; }
         __syncthreads();
-        for (int i = tid; i < n_mega; i += NT) {
+        for (int i = tid; i < n_mega; i += NTB) {
           int z = 0, off = i;
           while (off >= zs.n_z[z]) { off -= zs.n_z[z]; ++z; }
           const int gg = off;
@@ -976,9 +1287,9 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       if (zs.use_p && zs.nz_fin_p == 1) zs.owner_rec[zs.z_p] = 1;
     }
     __syncthreads();
-    unsigned placed = 0;
+    int placed = 0;
     // existing nodes
-    for (int e = tid; e < E; e += NT) {
+    for (int e = tm.gtid; e < E; e += tm.gnt) {
       int add = (zs.use_e && e == zs.e_star) ? zs.q_e : 0;
       if (zs.cyc_eff) {
         const int nd = node_dom(a, zs, e);
@@ -993,11 +1304,11 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       a.take_e[take_row<BATCH || LADDER>(s, E) + e] =
           wadd(a.take_e[take_row<BATCH || LADDER>(s, E) + e], add);
       node_contrib(a, zs.contrib, e, add);
-      placed += (unsigned)add;
+      placed = wadd(placed, add);
     }
     // open claims: pours, balanced-cycle targets, affinity-bulk and
-    // water-fill drains, one warp per claim
-    for (int m = wid; m < used0; m += NWARPS) {
+    // water-fill drains, a warp per claim (the claims it tested)
+    for (int m = wlo; m < whi; ++m) {
       int add = 0, drain = 0;
       if (lane == 0) {
         if (zs.use_c && m == zs.m_star) add = zs.q_c;
@@ -1018,39 +1329,41 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       const unsigned cz_after = add > 0 ? bits_eff : czb;
       const int* cum = a.c_cum + m * R;
       unsigned char* mask = a.c_mask + (size_t)m * T;
+#pragma unroll 4
       for (int t = lane; t < T; t += 32) {
-        bool mk = mask[t];
-        const int k = fit_rows(a.type_alloc + t * R, cum, sh.req, R);
-        if (add > 0) {
-          const bool fit = mk && compat[t] && (bits_eff & a.offer_zc_bits[t]) != 0u;
-          mk = fit && (node_ok ? k : 0) >= add;
-        }
-        if (drain > 0) mk = mk && compat[t] && (cz_after & a.offer_zc_bits[t]) != 0u && k >= drain;
+        const bool mk0 = mask[t] != 0, cp = __ldg(&compat[t]) != 0;
+        const unsigned off = __ldg(&a.offer_zc_bits[t]);
+        const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
+        bool mk = mk0;
+        if (add > 0) mk = mk && cp && (bits_eff & off) != 0u && (node_ok ? k : 0) >= add;
+        if (drain > 0) mk = mk && cp && (cz_after & off) != 0u && k >= drain;
         mask[t] = mk;
       }
       __syncwarp();
+      // the row's counters, a lane a column (the Q and V rows are dense here)
+      const int tot = wadd(add, drain);
+      const int nco = (add > 0 ? 1 : 0) + (drain > 0 ? 1 : 0);
+      for (int r = lane; r < R; r += 32) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(tot, sh.req[r]));
+      for (int q = lane; q < Q; q += 32) {
+        if (sh.q()[q].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], tot);
+        if (sh.q()[q].og && sh.q()[q].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], nco);
+      }
+      for (int v = lane; v < V; v += 32) {
+        if (zs.mv[v]) a.c_vm[m * V + v] = wadd(a.c_vm[m * V + v], tot);
+        if (add > 0 && zs.ov[v] && zs.vk[v] == 1) a.c_vo[m * V + v] = 1;
+      }
       if (lane == 0) {
-        const int tot = wadd(add, drain);
-        const int nco = (add > 0 ? 1 : 0) + (drain > 0 ? 1 : 0);
-        for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(tot, sh.req[r]));
         a.c_zc_bits[m] = cz_after;
         if (add > 0 || drain > 0) a.c_gbits[(size_t)m * W + gword] |= gbit;
-        for (int q = 0; q < Q; ++q) {
-          if (sh.q()[q].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], tot);
-          if (sh.q()[q].og && sh.q()[q].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], nco);
-        }
-        for (int v = 0; v < V; ++v) {
-          if (zs.mv[v]) a.c_vm[m * V + v] = wadd(a.c_vm[m * V + v], tot);
-          if (add > 0 && zs.ov[v] && zs.vk[v] == 1) a.c_vo[m * V + v] = 1;
-        }
         x.c_take[m] = wadd(x.c_take[m], tot);
         claim_contrib(zs, zs.contrib, Z, cz_after, tot);
-        placed += (unsigned)tot;
+        placed = wadd(placed, tot);
       }
     }
-    // fresh claims: the (A) multi-claim open or the (B) mega generations
+    // fresh claims: the (A) multi-claim open or the (B) mega generations,
+    // a warp of the team per claim
     const int n_fresh = zs.use_p ? zs.n_open_p : zs.n_mega;
-    for (int j = wid; j < n_fresh; j += NWARPS) {
+    for (int j = tm.gwid; j < n_fresh; j += tm.gnw) {
       const int m = used0 + j;
       const int p = zs.p_star;
       int take;
@@ -1065,59 +1378,68 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       }
       unsigned char* mask = a.c_mask + (size_t)m * T;
       const int* daemon = a.pool_daemon + p * R;
+#pragma unroll 4
       for (int t = lane; t < T; t += 32) {
-        const bool fit = compat[t] && a.pool_type[(size_t)p * T + t] &&
-                         (bits & a.offer_zc_bits[t]) != 0u;
-        const int k = !fit ? 0 : zs.use_p ? fit_rows(a.type_alloc + t * R, daemon, sh.req, R)
+        const bool fit = __ldg(&compat[t]) && __ldg(&a.pool_type[(size_t)p * T + t]) &&
+                         (bits & __ldg(&a.offer_zc_bits[t])) != 0u;
+        const int k = !fit ? 0 : zs.use_p ? fit_rows(a.type_alloc + t * R, daemon, sh, R)
                                           : x.k_cap[t];
         mask[t] = fit && k >= take;
       }
+      // the row's fields, a lane a column
+      for (int r = lane; r < R; r += 32) a.c_cum[m * R + r] = wadd(daemon[r], wmul(take, sh.req[r]));
+      for (int w = lane; w < W; w += 32) a.c_gbits[(size_t)m * W + w] = (w == gword) ? gbit : 0u;
+      for (int q = lane; q < Q; q += 32) {
+        a.c_cm[m * Q + q] = sh.q()[q].mg ? take : 0;
+        a.c_co[m * Q + q] = (take > 0 && sh.q()[q].og && sh.q()[q].kq == 1) ? 1 : 0;
+      }
+      for (int v = lane; v < V; v += 32) {
+        a.c_vm[m * V + v] = zs.mv[v] ? take : 0;
+        if (zs.use_p) a.c_vo[m * V + v] = take > 0 && zs.ov[v] && zs.vk[v] == 1;
+      }
       if (lane == 0) {
-        for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(daemon[r], wmul(take, sh.req[r]));
         a.c_zc_bits[m] = bits;
-        for (int w = 0; w < W; ++w) a.c_gbits[(size_t)m * W + w] = (w == gword) ? gbit : 0u;
         a.c_pool[m] = p;
-        for (int q = 0; q < Q; ++q) {
-          a.c_cm[m * Q + q] = sh.q()[q].mg ? take : 0;
-          a.c_co[m * Q + q] = (take > 0 && sh.q()[q].og && sh.q()[q].kq == 1) ? 1 : 0;
-        }
-        for (int v = 0; v < V; ++v) {
-          a.c_vm[m * V + v] = zs.mv[v] ? take : 0;
-          if (zs.use_p) a.c_vo[m * V + v] = take > 0 && zs.ov[v] && zs.vk[v] == 1;
-        }
         x.c_take[m] = wadd(x.c_take[m], take);
         claim_contrib(zs, zs.contrib, Z, bits, take);
-        placed += (unsigned)take;
+        placed = wadd(placed, take);
       }
     }
-    placed = block_sum(placed, sh.ured);  // also orders the contrib atomics
+    // the event's placed pods and domain counts over the team (the
+    // barrier also orders the contrib atomics)
+    placed = warp_sum(placed);
+    if (lane == 0 && placed != 0) atomicAdd(&zs.contrib[Z], placed);
+    team_sync<CL>();
+    pull_sum(tm, zs, Z);
+    __syncthreads();
     // domain counts, anti-owner registration and the event's bookkeeping
-    for (int i = tid; i < V * Z; i += NT) {
+    for (int i = tm.gtid; i < V * Z; i += tm.gnt) {
       const int v = i / Z, z = i % Z;
-      if (zs.mv[v]) a.v_count[i] = wadd(a.v_count[i], zs.contrib[z]);
+      if (zs.mv[v]) a.v_count[i] = wadd(a.v_count[i], zs.csum[z]);
       if (zs.ov[v] && zs.vk[v] == 1 && zs.owner_rec[z]) a.v_owner_z[i] = 1;
     }
     if (tid == 0) {
       const int p = zs.p_star;
       const int n_open = zs.use_p ? zs.n_open_p : 0;
-      for (int r = 0; r < R; ++r) {
-        a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(zs.charge_p[p][r], n_open));
-        if (zs.mega_ok) a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(zs.charge0[r], zs.n_mega));
-      }
+      if (tm.rank == 0)  // every CTA read p_usage before the barrier above
+        for (int r = 0; r < R; ++r) {
+          a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(zs.charge_p[p][r], n_open));
+          if (zs.mega_ok) a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(zs.charge0[r], zs.n_mega));
+        }
       sh.used = used0 + n_open + zs.n_mega;
-      zs.remaining = wsub(remaining, (int)placed);
-      zs.progress = placed > 0;
+      zs.remaining = wsub(remaining, zs.csum[Z]);
+      zs.progress = zs.csum[Z] != 0;
       zs.fuel = wsub(zs.fuel, 1);
       zs.events += 1;
     }
-    __syncthreads();
+    team_sync<CL>();
   }
-  for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = x.c_take[m];
-  if (tid == 0) {
+  for (int m = tm.gtid; m < M; m += tm.gnt) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = x.c_take[m];
+  if (tm.lead()) {
     a.leftover[s] = zs.remaining;
     *a.events = wadd(*a.events, zs.events);
   }
-  __syncthreads();
+  team_sync<CL>();
 }
 
 // the scan's global scratch (int words; scan_scratch_words() in
@@ -1231,7 +1553,7 @@ __device__ void batch_row_prologue(ScanArgs& a) {
 // one rung up; it stops when the run is placed, past the last rung or out of
 // fuel ((count + 1) * (Lw + 2) + 4 attempts).
 //
-// What bounds it on the H100: as K1, one block walking a serial chain; the
+// What bounds it on the H100: one block walking a serial chain; the
 // chain is now one step body per attempt, and a pod that relaxes costs at
 // least two (its base attempt and the rung that places it), so a run whose
 // pods all relax costs >= 2 * count serial bodies.
@@ -1311,30 +1633,32 @@ __device__ __forceinline__ int next_run(const ScanArgs& a, Cascade& c, int s) {
 // run's body reaches it (the padded run's and the zoned run's `continue`
 // too), so the step at position pos = s + 1 snapshots the whole carry into
 // ring slot ((pos / K) - 1) % n when pos % K == 0, padded steps included,
-// and records prefix[slot] = pos (ffd.py:1838-1846). Between a barrier that
-// makes the step's writes visible and one that keeps the next step from
-// writing a field before it is copied, the block copies each field (16 B
-// per thread where both ends are 16-byte aligned); the claim count is the
-// block's shared copy, which reaches *a.used only at the end. The zoned
-// event counter is not part of the carry and stays out. Identity (no code)
-// for CKPT=false.
-__device__ void block_copy(unsigned char* dst, const unsigned char* src, size_t n) {
+// and records prefix[slot] = pos (ffd.py:1838-1846). Between a team barrier
+// that makes the step's writes visible and one that keeps the next step
+// from writing a field before it is copied, the team's threads copy each
+// field (16 B per thread where both ends are 16-byte aligned); the claim
+// count is the CTA's shared copy, which reaches *a.used only at the end,
+// written by the team's lead thread. The zoned event counter is not part of
+// the carry and stays out. Identity (no code) for CKPT=false.
+__device__ void team_copy(unsigned char* dst, const unsigned char* src, size_t n, size_t i0,
+                          size_t stride) {
   if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15u) == 0u) {
     const size_t n16 = n >> 4;
-    for (size_t i = threadIdx.x; i < n16; i += NT)
+    for (size_t i = i0; i < n16; i += stride)
       reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-    for (size_t i = (n16 << 4) + threadIdx.x; i < n; i += NT) dst[i] = src[i];
+    for (size_t i = (n16 << 4) + i0; i < n; i += stride) dst[i] = src[i];
   } else {
-    for (size_t i = threadIdx.x; i < n; i += NT) dst[i] = src[i];
+    for (size_t i = i0; i < n; i += stride) dst[i] = src[i];
   }
 }
 
-template <bool CKPT>
-__device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, int s) {
+template <bool CKPT, bool CL>
+__device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, const Team<CL>& tm,
+                                        int s) {
   if constexpr (CKPT) {
     const int pos = s + 1;
     if (pos % a.ck_every == 0) {
-      __syncthreads();
+      team_sync<CL>();
       const size_t slot = (size_t)((pos / a.ck_every - 1) % a.n_ckpt);
       const size_t E = a.E, M = a.M, T = a.T, R = a.R, Q = a.Q, W = a.W, P = a.P,
                    V = a.V, Z = a.Z;
@@ -1350,12 +1674,12 @@ __device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, 
                              V * Z * 4, V * Z, M * V * 4, M * V};
 #pragma unroll
       for (int f = 0; f < 16; ++f)
-        if (f != 6) block_copy(a.ring[f] + slot * nb[f], src[f], nb[f]);
-      if (threadIdx.x == 0) {
+        if (f != 6) team_copy(a.ring[f] + slot * nb[f], src[f], nb[f], tm.gtid, tm.gnt);
+      if (tm.lead()) {
         reinterpret_cast<int*>(a.ring[6])[slot] = sh.used;
         a.ring_prefix[slot] = pos;
       }
-      __syncthreads();
+      team_sync<CL>();
     }
   }
   return s;
@@ -1376,7 +1700,7 @@ __device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, 
 // adds onto its row (rows >= used are zero), as the JAX scatter-add does.
 // The zoned event engine reads the dense flags by sig index, so a
 // constrained run reloads them at full width before it (ffd.py:876-890).
-// What bounds it on the H100: as K1 (one block, latency-bound); the view
+// What bounds it on the H100: as K1 (latency-bound); the view
 // narrows the fast branch's per-row Q and V loops to Kq / Kv slots.
 // Design: K1's body under a fifth template flag, so the dense instances
 // keep their code; the index tables ride beside the 32 scan inputs.
@@ -1407,11 +1731,25 @@ __device__ __forceinline__ void bind_zone_rows(ZoneShared& zs, int V, int Kv, in
   zs.ov = zs.mv + vd;
 }
 
-// The scan body of every instance below: ffd_scan_kernel's and, for K15,
-// ffd_lanes_kernel's. Inlined into each kernel, so an instance compiles as
-// it did when this body was the kernel's own.
-template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
+// int32 words of the scan's shared global scratch (solver/cuda/ffd.py
+// scan_scratch_words), and of one cluster CTA's own rows after it
+// (cluster_scratch_words): k_t, fit_t, k_cap [T], scat_z, scat_take [M]
+__device__ __forceinline__ size_t scan_words(const ScanArgs& a) {
+  return 2 * (size_t)a.E + 11 * (size_t)a.M + 3 * (size_t)a.T + 2 * (size_t)a.M * a.Z + 64;
+}
+
+__device__ __forceinline__ size_t cta_words(const ScanArgs& a) {
+  return 3 * (size_t)a.T + 2 * (size_t)a.M;
+}
+
+// The scan body of every instance below: ffd_scan_kernel's, ffd_cluster_kernel's
+// and, for K15, ffd_lanes_kernel's. Inlined into each kernel, so an
+// instance compiles as it did when this body was the kernel's own. CL
+// selects the team (one block, or one cluster a solve; see Team).
+template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE, bool CL>
 __device__ __forceinline__ void scan_body(ScanArgs& a) {
+  static_assert(!(CL && (BATCH || LADDER)), "the batched and ladder scans keep one block");
+  constexpr int NTB = Team<CL>::NTB, NWB = Team<CL>::NWB;
   __shared__ RunShared sh;
   ZoneShared* zs = nullptr;
   Scratch x{};
@@ -1420,7 +1758,8 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     zs = &zone_sh;
     x = zone_scratch(a);
   }
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  Team<CL> tm;
+  const int tid = tm.tid, lane = tm.lane;
   const int T = a.T, E = a.E, P = a.P, R = a.R, Q = a.Q, W = a.W, M = a.M;
   int* e_full = a.scratch;          // [E] cap_full, then the pour cap / prefix
   int* e_boot = e_full + E;         // [E]
@@ -1430,6 +1769,15 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
   int* c_pref = c_take + M;         // [M]
   int* k_t = c_pref + M;            // [T]
   int* fit_t = k_t + T;             // [T]
+  if constexpr (CL) {
+    // the rows every CTA computes whole for itself: its own copy
+    int* own = a.scratch + scan_words(a) + (size_t)tm.rank * cta_words(a);
+    k_t = own;
+    fit_t = own + T;
+    x.k_cap = own + 2 * T;
+    x.scat_z = own + 3 * T;
+    x.scat_take = own + 3 * T + M;
+  }
 
   if (tid == 0) {
     sh.used = *a.used;
@@ -1438,24 +1786,28 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
   __syncthreads();
 
   Cascade cas;
-  for (int s = 0; s < a.S; s = next_run<LADDER>(a, cas, snapshot<CKPT>(a, sh, s))) {
+  for (int s = 0; s < a.S; s = next_run<LADDER>(a, cas, snapshot<CKPT>(a, sh, tm, s))) {
     int g = a.run_group[s];
     int count = a.run_count[s];
     if constexpr (LADDER)
       if (!ladder_attempt(a, cas, s, g, count)) continue;
     if (count <= 0) {  // padded run: zero rows, state untouched
-      for (int i = tid; i < E; i += NT) a.take_e[take_row<BATCH || LADDER>(s, E) + i] = 0;
-      for (int i = tid; i < M; i += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + i] = 0;
-      if (tid == 0) a.leftover[s] = 0;
+      for (int i = tm.gtid; i < E; i += tm.gnt) a.take_e[take_row<BATCH || LADDER>(s, E) + i] = 0;
+      for (int i = tm.gtid; i < M; i += tm.gnt) a.take_c[take_row<BATCH || LADDER>(s, M) + i] = 0;
+      if (tm.lead()) a.leftover[s] = 0;
       continue;
     }
     const unsigned g_zc = a.group_zc_bits[g];
     // the run's view of the Q and V axes: nq / nv slots
     const int nq = SPARSE ? a.Kq : Q;
     const int nv = SPARSE ? a.Kv : a.V;
-    if (tid < R) sh.req[tid] = a.group_req[g * R + tid];
+    if (tid < R) {
+      const int rq = a.group_req[g * R + tid];
+      sh.req[tid] = rq;
+      if (rq > 0) magic_of(rq, sh.dm[tid], sh.ds[tid]);
+    }
     if constexpr (SPARSE) {
-      for (int k = tid; k < nq; k += NT) {
+      for (int k = tid; k < nq; k += NTB) {
         const int c = a.run_q_idx[(size_t)s * nq + k];
         const bool ok = c >= 0 && c < Q;
         sh.q()[k].qcol = ok ? c : -1;
@@ -1466,7 +1818,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
         sh.q()[k].tot = 0u;
       }
     } else {
-      for (int q = tid; q < Q; q += NT) {
+      for (int q = tid; q < Q; q += NTB) {
         sh.q()[q].mg = a.q_member[g * Q + q] != 0;
         sh.q()[q].og = a.q_owner[g * Q + q] != 0;
         sh.q()[q].kq = a.q_kind[q];
@@ -1474,10 +1826,10 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
         sh.q()[q].tot = 0u;
       }
     }
-    for (int i = tid; i < M; i += NT) c_take[i] = 0;
+    for (int i = tm.gtid; i < M; i += tm.gnt) c_take[i] = 0;
     if constexpr (ZONE) {
       if constexpr (SPARSE) {
-        for (int k = tid; k < nv; k += NT) {
+        for (int k = tid; k < nv; k += NTB) {
           const int c = a.run_v_idx[(size_t)s * nv + k];
           const bool ok = c >= 0 && c < a.V;
           zs->vcol[k] = ok ? c : -1;
@@ -1486,7 +1838,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
           zs->vk[k] = ok ? a.v_kind[c] : 0;
         }
       } else {
-        for (int v = tid; v < a.V; v += NT) {
+        for (int v = tid; v < a.V; v += NTB) {
           zs->mv[v] = a.v_member[g * a.V + v] != 0;
           zs->ov[v] = a.v_owner[g * a.V + v] != 0;
           zs->vk[v] = a.v_kind[v];
@@ -1496,17 +1848,18 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     __syncthreads();
     // (nq may exceed the block: each thread folds its strided slots)
     int own2 = 0;
-    for (int k = tid; k < nq; k += NT) own2 |= sh.q()[k].og && sh.q()[k].kq == 2;
+    for (int k = tid; k < nq; k += NTB) own2 |= sh.q()[k].og && sh.q()[k].kq == 2;
     const int any_owned2 = __syncthreads_or(own2);
     if (any_owned2) {
-      // total members per sig over nodes and claims (wrapping sums)
-      for (int e = tid; e < E; e += NT)
+      // total members per sig over nodes and claims (wrapping sums); every
+      // CTA sums every row into its own Q rows
+      for (int e = tid; e < E; e += NTB)
         for (int q = 0; q < nq; ++q) {
           const int c = qcol_of<SPARSE>(sh, q);
           if constexpr (SPARSE) if (c < 0) continue;
           if (a.e_cm[e * Q + c]) atomicAdd(&sh.q()[q].tot, (unsigned)a.e_cm[e * Q + c]);
         }
-      for (int m = tid; m < M; m += NT)
+      for (int m = tid; m < M; m += NTB)
         for (int q = 0; q < nq; ++q) {
           const int c = qcol_of<SPARSE>(sh, q);
           if constexpr (SPARSE) if (c < 0) continue;
@@ -1529,61 +1882,71 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       // member of an anti sig -> the domain event engine
       // (nv may exceed the block: each thread folds its strided slots)
       int con = 0;
-      for (int k = tid; k < nv; k += NT) con |= zs->ov[k] || (zs->mv[k] && zs->vk[k] == 1);
+      for (int k = tid; k < nv; k += NTB) con |= zs->ov[k] || (zs->mv[k] && zs->vk[k] == 1);
       const int constrained = __syncthreads_or(con);
       if (constrained) {
         if constexpr (SPARSE) {
           // the event engine reads the dense flags by sig index
-          for (int q = tid; q < Q; q += NT) {
+          for (int q = tid; q < Q; q += NTB) {
             sh.q()[q].mg = a.q_member[g * Q + q] != 0;
             sh.q()[q].og = a.q_owner[g * Q + q] != 0;
             sh.q()[q].kq = a.q_kind[q];
             sh.q()[q].cq = a.q_cap[q];
           }
-          for (int v = tid; v < a.V; v += NT) {
+          for (int v = tid; v < a.V; v += NTB) {
             zs->mv[v] = a.v_member[g * a.V + v] != 0;
             zs->ov[v] = a.v_owner[g * a.V + v] != 0;
             zs->vk[v] = a.v_kind[v];
           }
           __syncthreads();
         }
-        zoned_run<BATCH, LADDER>(a, sh, *zs, x, s, g);
+        zoned_run<BATCH, LADDER, CL>(a, sh, *zs, x, tm, s, g);
         continue;
       }
       int mv_any = 0;
-      for (int k = tid; k < nv; k += NT) mv_any |= zs->mv[k];
+      for (int k = tid; k < nv; k += NTB) mv_any |= zs->mv[k];
       const int any_mv = __syncthreads_or(mv_any);
       if (tid == 0) zs->any_mv = any_mv;
     }
 
-    // ---- 1. existing nodes ----------------------------------------------
-    int my_first = I32MAX, any_boot = 0;
-    for (int e = tid; e < E; e += NT) {
-      int base = node_compat_at<BATCH>(a, g, e)
-                     ? fit_rows(a.node_free + e * R, a.e_cum + e * R, sh.req, R) : 0;
-      const int allow = row_allowance<false, SPARSE>(sh, nq, a.e_cm + e * Q, a.e_co + e * Q);
-      const int pos = row_pos<SPARSE>(sh, nq, a.e_cm + e * Q);
-      e_full[e] = min(base, min(allow, pos));
-      e_boot[e] = min(base, allow);
-      if (e_boot[e] > 0) { any_boot = 1; my_first = min(my_first, e); }
-    }
-    const int has_e_boot = __syncthreads_or(any_boot);
-    int e_first = block_min(my_first, sh.red);
-    if (!has_e_boot) e_first = 0;
-    if (boot2)
-      for (int e = tid; e < E; e += NT) e_full[e] = (e == e_first) ? e_boot[e] : 0;
-    __syncthreads();
-    // first-fit pour: take = clip(remaining - prefix, 0, cap)
-    for (int e = tid; e < E; e += NT) e_boot[e] = e_full[e];  // keep caps
-    __syncthreads();
-    block_exclusive_scan(e_full, e_full, E, sh.ured);
-    {
+    // ---- 1. existing nodes, strided over the team's threads (coalesced);
+    // the pour's prefix over contiguous chunks in between -------------------
+    // The first-boot node matters only under boot2 (the boot rewrite and
+    // cap2), so only then is it reduced. Every cap is in [0, BIG]: where the
+    // caps' exact sum stays below 2^31 no prefix wraps and the first-fit
+    // pour places min(remaining, sum) pods; only past that is the placed
+    // count reduced.
+    int has_e_boot = 0;
+    if (E > 0) {
+      int my_first = I32MAX;
+      for (int e = tm.gtid; e < E; e += tm.gnt) {
+        int base = node_compat_at<BATCH>(a, g, e)
+                       ? fit_rows(a.node_free + e * R, a.e_cum + e * R, sh, R) : 0;
+        const int allow = row_allowance<false, SPARSE>(sh, nq, a.e_cm + e * Q, a.e_co + e * Q);
+        const int pos = row_pos<SPARSE>(sh, nq, a.e_cm + e * Q);
+        e_full[e] = min(base, min(allow, pos));
+        e_boot[e] = min(base, allow);
+        if (e_boot[e] > 0) my_first = min(my_first, e);
+      }
+      if (boot2) {
+        int e_first = team_reduce<OP_MIN>(tm, my_first, sh.ts);
+        has_e_boot = e_first != I32MAX;
+        if (!has_e_boot) e_first = 0;
+        for (int e = tm.gtid; e < E; e += tm.gnt) e_full[e] = (e == e_first) ? e_boot[e] : 0;
+      }
+      // first-fit pour: take = clip(remaining - prefix, 0, cap)
+      for (int e = tm.gtid; e < E; e += tm.gnt) e_boot[e] = e_full[e];  // keep caps
+      team_sync<CL>();  // the caps, written strided, are read in chunks
       const int rem = sh.remaining;
-      unsigned placed = 0;
-      for (int e = tid; e < E; e += NT) {
+      int lo, hi;
+      thread_chunk(tm, E, lo, hi);
+      const long long tot = team_scan(tm, e_full, e_full, lo, hi, sh.ts);
+      if constexpr (CL) cluster_barrier();  // the prefixes, written in chunks, are read strided
+      int placed = 0;
+      for (int e = tm.gtid; e < E; e += tm.gnt) {
         const int take = min(max(wsub(rem, e_full[e]), 0), e_boot[e]);
         a.take_e[take_row<BATCH || LADDER>(s, E) + e] = take;
-        placed += (unsigned)take;
+        placed = wadd(placed, take);
         if (take > 0) {
           for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = wadd(a.e_cum[e * R + r], wmul(take, sh.req[r]));
           for (int k = 0; k < nq; ++k) {
@@ -1594,100 +1957,122 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
           }
         }
       }
-      placed = block_sum(placed, sh.ured);
-      if (tid == 0) sh.remaining = wsub(rem, (int)placed);
+      if (tot >= 0 && tot <= I32MAX) placed = rem > 0 ? (int)min((long long)rem, tot) : 0;
+      else placed = team_reduce<OP_SUM>(tm, placed, sh.ts);
+      if (tid == 0) sh.remaining = wsub(rem, placed);
       __syncthreads();
     }
 
-    // ---- 2. open claims (one warp per claim row) --------------------------
+    // ---- 2. open claims: a warp of the team per claim row, the warp's
+    // rows contiguous; the pour's prefix runs over the warps' lanes in
+    // row order, so every row stays with its warp ---------------------------
     const int used0 = sh.used;
     const unsigned char* compat = a.group_compat_t + (size_t)g * T;
     const unsigned* g_nok = a.group_pair_nok + (size_t)g * W;
-    for (int m = wid; m < used0; m += NWARPS) {
-      const int pool = a.c_pool[m];
-      const bool is_open = pool >= 0;
-      const bool pool_ok = is_open && a.group_pool[g * P + min(max(pool, 0), P - 1)];
-      bool clash = false;
-      for (int w = lane; w < W; w += 32) clash |= (a.c_gbits[(size_t)m * W + w] & g_nok[w]) != 0u;
-      const bool node_ok = is_open && pool_ok && !__any_sync(FULL, clash);
-      int kbest = 0;
-      if (node_ok) {
-        const unsigned czc = a.c_zc_bits[m];
-        const int* cum = a.c_cum + m * R;
-        const unsigned char* mask = a.c_mask + (size_t)m * T;
-        for (int t = lane; t < T; t += 32) {
-          if (mask[t] && compat[t] && (czc & a.offer_zc_bits[t] & g_zc) != 0u)
-            kbest = max(kbest, fit_rows(a.type_alloc + t * R, cum, sh.req, R));
+    int wlo, whi;
+    warp_chunk(tm, used0, wlo, whi);
+    {
+      int my_first = I32MAX;
+      for (int m = wlo; m < whi; ++m) {
+        const int pool = a.c_pool[m];
+        const bool is_open = pool >= 0;
+        const bool pool_ok = is_open && a.group_pool[g * P + min(max(pool, 0), P - 1)];
+        bool clash = false;
+        for (int w = lane; w < W; w += 32) clash |= (a.c_gbits[(size_t)m * W + w] & g_nok[w]) != 0u;
+        const bool node_ok = is_open && pool_ok && !__any_sync(FULL, clash);
+        int kbest = 0;
+        if (node_ok) {
+          const unsigned czc = a.c_zc_bits[m] & g_zc;
+          const int* cum = a.c_cum + m * R;
+          const unsigned char* mask = a.c_mask + (size_t)m * T;
+          // each row's loads issued before its test, four rows in flight
+#pragma unroll 4
+          for (int t = lane; t < T; t += 32) {
+            const bool ok = (mask[t] != 0) & (__ldg(&compat[t]) != 0) &
+                            ((czc & __ldg(&a.offer_zc_bits[t])) != 0u);
+            const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
+            if (ok) kbest = max(kbest, k);
+          }
+        }
+        kbest = warp_max(kbest);
+        if (lane == 0) {
+          const int allow = row_allowance<false, SPARSE>(sh, nq, a.c_cm + m * Q, a.c_co + m * Q);
+          const int pos = row_pos<SPARSE>(sh, nq, a.c_cm + m * Q);
+          c_full[m] = min(kbest, min(allow, pos));
+          c_boot[m] = min(kbest, allow);
+          if (c_boot[m] > 0) my_first = min(my_first, m);
         }
       }
-      for (int o = 16; o > 0; o >>= 1) kbest = max(kbest, __shfl_xor_sync(FULL, kbest, o));
-      if (lane == 0) {
-        const int allow = row_allowance<false, SPARSE>(sh, nq, a.c_cm + m * Q, a.c_co + m * Q);
-        const int pos = row_pos<SPARSE>(sh, nq, a.c_cm + m * Q);
-        c_full[m] = min(kbest, min(allow, pos));
-        c_boot[m] = min(kbest, allow);
+      __syncwarp();
+      int has_c_boot = 0;
+      if (boot2) {
+        int c_first = team_reduce<OP_MIN>(tm, my_first, sh.ts);
+        has_c_boot = c_first != I32MAX;
+        if (!has_c_boot) c_first = 0;
+        if (lane == 0)
+          for (int m = wlo; m < whi; ++m) c_full[m] = (!has_e_boot && m == c_first) ? c_boot[m] : 0;
+        __syncwarp();
       }
-    }
-    __syncthreads();
-    my_first = I32MAX;
-    any_boot = 0;
-    for (int m = tid; m < used0; m += NT)
-      if (c_boot[m] > 0) { any_boot = 1; my_first = min(my_first, m); }
-    const int has_c_boot = __syncthreads_or(any_boot);
-    int c_first = block_min(my_first, sh.red);
-    if (!has_c_boot) c_first = 0;
-    if (boot2)
-      for (int m = tid; m < used0; m += NT)
-        c_full[m] = (!has_e_boot && m == c_first) ? c_boot[m] : 0;
-    __syncthreads();
-    block_exclusive_scan(c_full, c_pref, used0, sh.ured);
-    {
+      int lo, hi;
+      lane_chunk(wlo, whi, lane, lo, hi);
       const int rem = sh.remaining;
-      unsigned placed = 0;
-      for (int m = tid; m < used0; m += NT) {
+      const long long tot = team_scan(tm, c_full, c_pref, lo, hi, sh.ts);
+      int placed = 0;
+      for (int m = lo; m < hi; ++m) {
         const int take = min(max(wsub(rem, c_pref[m]), 0), c_full[m]);
         c_take[m] = take;
-        placed += (unsigned)take;
+        a.take_c[take_row<BATCH || LADDER>(s, M) + m] = take;
+        placed = wadd(placed, take);
       }
-      placed = block_sum(placed, sh.ured);
-      if (tid == 0) sh.remaining = wsub(rem, (int)placed);
-      __syncthreads();
-    }
-    // claims that received pods: narrow the type mask with the OLD carry,
-    // then fold the pods in
-    for (int m = wid; m < used0; m += NWARPS) {
-      const int take = c_take[m];
-      if (take <= 0) continue;
-      const unsigned czc = a.c_zc_bits[m];
-      const int* cum = a.c_cum + m * R;
-      unsigned char* mask = a.c_mask + (size_t)m * T;
-      for (int t = lane; t < T; t += 32) {
-        const bool fit = mask[t] && compat[t] && (czc & a.offer_zc_bits[t] & g_zc) != 0u;
-        mask[t] = fit && fit_rows(a.type_alloc + t * R, cum, sh.req, R) >= take;
-      }
+      if (tot >= 0 && tot <= I32MAX) placed = rem > 0 ? (int)min((long long)rem, tot) : 0;
+      else placed = team_reduce<OP_SUM>(tm, placed, sh.ts);
       __syncwarp();
-      if (lane == 0) {
-        for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(take, sh.req[r]));
-        a.c_zc_bits[m] = czc & g_zc;
-        a.c_gbits[(size_t)m * W + (g >> 5)] |= 1u << (g & 31);
-        for (int k = 0; k < nq; ++k) {
+      // claims that received pods: narrow the type mask with the OLD carry,
+      // then fold the pods in
+      for (int m = wlo; m < whi; ++m) {
+        const int take = c_take[m];
+        if (take <= 0) continue;
+        const unsigned czc = a.c_zc_bits[m];
+        const int* cum = a.c_cum + m * R;
+        unsigned char* mask = a.c_mask + (size_t)m * T;
+#pragma unroll 4
+        for (int t = lane; t < T; t += 32) {
+          const bool fit = (mask[t] != 0) & (__ldg(&compat[t]) != 0) &
+                           ((czc & __ldg(&a.offer_zc_bits[t]) & g_zc) != 0u);
+          const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
+          mask[t] = fit && k >= take;
+        }
+        __syncwarp();
+        // the row's counters: a lane a column where the columns are the
+        // dense ones (distinct); a sparse view's slots are walked in order
+        for (int r = lane; r < R; r += 32) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(take, sh.req[r]));
+        for (int k = SPARSE ? (lane == 0 ? 0 : nq) : lane; k < nq; k += SPARSE ? 1 : 32) {
           const int q = qcol_of<SPARSE>(sh, k);
           if constexpr (SPARSE) if (q < 0) continue;
           if (sh.q()[k].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
           if (sh.q()[k].og && sh.q()[k].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
         }
         if constexpr (ZONE)
-          for (int k = 0; k < nv; ++k) {
+          for (int k = SPARSE ? (lane == 0 ? 0 : nv) : lane; k < nv; k += SPARSE ? 1 : 32) {
             const int v = SPARSE ? zs->vcol[k] : k;
             if constexpr (SPARSE) if (v < 0) continue;
             if (zs->mv[k]) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], take);
           }
+        if (lane == 0) {
+          a.c_zc_bits[m] = czc & g_zc;
+          a.c_gbits[(size_t)m * W + (g >> 5)] |= 1u << (g & 31);
+        }
       }
+      if (tid == 0) {
+        sh.remaining = wsub(rem, placed);
+        sh.cap2 = any_owned2 ? ((boot2 && !has_e_boot && !has_c_boot) ? 1 : 0) : BIG;
+      }
+      __syncthreads();
     }
-    if (tid == 0) sh.cap2 = any_owned2 ? ((boot2 && !has_e_boot && !has_c_boot) ? 1 : 0) : BIG;
-    __syncthreads();
 
-    // ---- 3. new claims, pool by pool in priority order --------------------
+    // ---- 3. new claims, pool by pool in priority order: every CTA walks
+    // every pool's [T] row (the fits into its own k_t / fit_t), so the
+    // pool's decision needs no barrier across the cluster ------------------
     for (int p = 0; p < P; ++p) {
       const unsigned new_bits = a.pool_zc_bits[p] & g_zc;
       const int* daemon = a.pool_daemon + p * R;
@@ -1696,19 +2081,21 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       int kmax = 0;
       int cmin[MAX_R];
       for (int r = 0; r < R; ++r) cmin[r] = I32MAX;
-      for (int t = tid; t < T; t += NT) {
-        const bool fit = compat[t] && a.pool_type[(size_t)p * T + t] &&
-                         (a.offer_zc_bits[t] & new_bits) != 0u;
-        const int k = fit ? fit_rows(a.type_alloc + t * R, daemon, sh.req, R) : 0;
+      for (int t = tid; t < T; t += NTB) {
+        const bool fit = __ldg(&compat[t]) && __ldg(&a.pool_type[(size_t)p * T + t]) &&
+                         (__ldg(&a.offer_zc_bits[t]) & new_bits) != 0u;
+        const int k = fit ? fit_rows(a.type_alloc + t * R, daemon, sh, R) : 0;
         k_t[t] = k;
         fit_t[t] = fit;
         kmax = max(kmax, k);
         if (fit && k >= 1)
-          for (int r = 0; r < R; ++r) cmin[r] = min(cmin[r], a.type_charge[t * R + r]);
+          for (int r = 0; r < R; ++r) cmin[r] = min(cmin[r], __ldg(&a.type_charge[t * R + r]));
       }
-      for (int r = 0; r < R; ++r)
-        if (cmin[r] != I32MAX) atomicMin(&sh.charge[r], cmin[r]);
-      kmax = block_max(kmax, sh.red);  // also orders the atomics above
+      for (int r = 0; r < R; ++r) {
+        const int c = __reduce_min_sync(FULL, cmin[r]);
+        if (lane == 0 && c != I32MAX) atomicMin(&sh.charge[r], c);
+      }
+      kmax = cta_reduce<OP_MAX, NWB>(kmax, lane, tm.wid, sh.ts.red);  // also orders the atomics above
       if (tid == 0) {
         const int full_take = min(kmax, sh.fresh_allow);
         int allow = BIG;
@@ -1736,15 +2123,18 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       const int n_new = sh.n_new;
       if (n_new > 0) {
         const int used = sh.used, rem = sh.remaining, full = sh.full_take;
-        for (size_t i = tid; i < (size_t)n_new * T; i += NT) {
+        for (size_t i = tm.gtid; i < (size_t)n_new * T; i += tm.gnt) {
           const int j = (int)(i / T), t = (int)(i % T);
           const int take_j = min(max(wsub(rem, wmul(j, full)), 0), full);
           a.c_mask[(size_t)(used + j) * T + t] = fit_t[t] && k_t[t] >= take_j;
         }
-        unsigned placed = 0;
-        for (int j = tid; j < n_new; j += NT) {
+        // every CTA sums every new row; CTA rank writes rows j = rank mod n
+        int placed = 0;
+        for (int j = tid; j < n_new; j += NTB) {
           const int m = used + j;
           const int take_j = min(max(wsub(rem, wmul(j, full)), 0), full);
+          placed = wadd(placed, take_j);
+          if (j % tm.n != tm.rank) continue;
           for (int r = 0; r < R; ++r) a.c_cum[m * R + r] = wadd(daemon[r], wmul(take_j, sh.req[r]));
           a.c_zc_bits[m] = new_bits;
           for (int w = 0; w < W; ++w) a.c_gbits[(size_t)m * W + w] = (w == (g >> 5)) ? (1u << (g & 31)) : 0u;
@@ -1772,13 +2162,16 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
               for (int v = 0; v < a.V; ++v) a.c_vm[m * a.V + v] = zs->mv[v] ? take_j : 0;
           }
           c_take[m] = take_j;
-          placed += (unsigned)take_j;
+          a.take_c[take_row<BATCH || LADDER>(s, M) + m] = take_j;
         }
-        placed = block_sum(placed, sh.ured);
+        placed = cta_reduce<OP_SUM, NWB>(placed, lane, tm.wid, sh.ts.red);
+        // every CTA has read p_usage[p] above before the lead thread adds to it
+        if constexpr (CL) cluster_barrier();
         if (tid == 0) {
-          for (int r = 0; r < R; ++r)
-            a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(sh.charge[r], n_new));
-          sh.remaining = wsub(rem, (int)placed);
+          if (tm.rank == 0)
+            for (int r = 0; r < R; ++r)
+              a.p_usage[p * R + r] = wadd(a.p_usage[p * R + r], wmul(sh.charge[r], n_new));
+          sh.remaining = wsub(rem, placed);
           sh.used = used + n_new;
           sh.cap2 = wsub(sh.cap2, n_new);
         }
@@ -1787,44 +2180,52 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     }
     if constexpr (ZONE) {
       // zone-sig membership counts: the group may match other pods'
-      // selectors without owning a constraint (count_contrib)
+      // selectors without owning a constraint (count_contrib); every CTA
+      // sums every take of the run
       if (zs->any_mv) {
         if (tid < a.Z) zs->contrib[tid] = 0;
-        __syncthreads();
-        for (int e = tid; e < E; e += NT) {
+        team_sync<CL>();
+        for (int e = tid; e < E; e += NTB) {
           const int take = a.take_e[take_row<BATCH || LADDER>(s, E) + e];
           if (take > 0) node_contrib(a, zs->contrib, e, take);
         }
-        for (int m = tid; m < sh.used; m += NT)
+        for (int m = tid; m < sh.used; m += NTB)
           if (c_take[m] > 0) claim_contrib(*zs, zs->contrib, a.Z, a.c_zc_bits[m], c_take[m]);
         __syncthreads();
         if constexpr (SPARSE) {
-          for (int i = tid; i < nv * a.Z; i += NT) {
+          for (int i = tm.gtid; i < nv * a.Z; i += tm.gnt) {
             const int k = i / a.Z, v = zs->vcol[k];
             if (v >= 0 && zs->mv[k])
               a.v_count[v * a.Z + i % a.Z] = wadd(a.v_count[v * a.Z + i % a.Z], zs->contrib[i % a.Z]);
           }
         } else {
-          for (int i = tid; i < a.V * a.Z; i += NT)
+          for (int i = tm.gtid; i < a.V * a.Z; i += tm.gnt)
             if (zs->mv[i / a.Z]) a.v_count[i] = wadd(a.v_count[i], zs->contrib[i % a.Z]);
         }
       }
     }
-    for (int m = tid; m < M; m += NT) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = c_take[m];
-    if (tid == 0) a.leftover[s] = sh.remaining;
-    __syncthreads();
+    // the take row's claims past the run's last (the rest were written
+    // where their pods were placed)
+    for (int m = sh.used + tm.gtid; m < M; m += tm.gnt) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = 0;
+    if (tm.lead()) a.leftover[s] = sh.remaining;
+    team_sync<CL>();
   }
-  if (tid == 0) *a.used = sh.used;
+  if (tm.lead()) *a.used = sh.used;
 }
 
-// K1 (BATCH=false: one solve, one block), K4 (BATCH=true: one block per
-// subset row, from the prologue above), K6 (LADDER=true: one solve, a
-// cascade of attempts per run), K7 (CKPT=true: K1 with the snapshot ring),
-// and the sparse instances of K1, K6 and K7 (SPARSE=true)
+// K4 (BATCH=true: one block per subset row, from the prologue above) and
+// K6 (LADDER=true: one solve, a cascade of attempts per run), one block
 template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
 __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
   if constexpr (BATCH) batch_row_prologue(a);
-  scan_body<ZONE, BATCH, LADDER, CKPT, SPARSE>(a);
+  scan_body<ZONE, BATCH, LADDER, CKPT, SPARSE, false>(a);
+}
+
+// K1 (CKPT=false) and K7 (CKPT=true: K1 with the snapshot ring), and their
+// sparse instances (SPARSE=true): one solve on one cluster of CTAs
+template <bool ZONE, bool CKPT, bool SPARSE>
+__global__ void __launch_bounds__(NTC, 1) ffd_cluster_kernel(ScanArgs a) {
+  scan_body<ZONE, false, false, CKPT, SPARSE, true>(a);
 }
 
 #ifdef FFD_LANES_ONLY
@@ -1885,7 +2286,7 @@ __device__ __forceinline__ void lane_prologue(ScanArgs& a, const LaneStrides& ls
 template <bool ZONE>
 __global__ void __launch_bounds__(NT) ffd_lanes_kernel(ScanArgs a, LaneStrides ls) {
   lane_prologue(a, ls);
-  scan_body<ZONE, false, false, false, false>(a);
+  scan_body<ZONE, false, false, false, false, false>(a);
 }
 
 // ---- K17s: the sparse lanes of a mesh-sharded solve ----------------------------
@@ -1911,7 +2312,7 @@ __global__ void __launch_bounds__(NT) ffd_lanes_sparse_kernel(ScanArgs a, Sparse
   lane_prologue(a, ls.base);
   to_lane(a.run_q_idx, (long long)blockIdx.x, ls.q);
   to_lane(a.run_v_idx, (long long)blockIdx.x, ls.v);
-  scan_body<ZONE, false, false, false, true>(a);
+  scan_body<ZONE, false, false, false, true, false>(a);
 }
 #endif  // FFD_LANES_ONLY
 
@@ -2161,6 +2562,29 @@ __global__ void __launch_bounds__(PT) pack_outputs_kernel(
   if (__syncthreads_or(over) && threadIdx.x == 0) atomicOr(out, 1u);
 }
 
+// ---- checks of the cluster scans' building blocks -----------------------------
+//
+// floordiv_magic (the scans' division by the run's request) against each
+// divisor, one thread a (divisor, numerator) pair: out[j, i] =
+// floor(num[i] / den[j]), den[j] >= 1; and a loop of cluster barriers on one
+// cluster, whose time over the count is one barrier's cost. Neither replaces
+// a TPU kernel: chip_smoke.py holds the first against the plain floor and
+// times the second (the scan's serial floor, PERF.md).
+
+__global__ void floordiv_check_kernel(const int* num, const int* den, int* out, int N, int D) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= (long long)N * D) return;
+  const int j = (int)(k / N), i = (int)(k % N);
+  unsigned m;
+  int sh;
+  magic_of(den[j], m, sh);
+  out[k] = floordiv_magic(num[i], m, sh);
+}
+
+__global__ void __launch_bounds__(NTC) cluster_barrier_kernel(int n) {
+  for (int i = 0; i < n; ++i) cluster_barrier();
+}
+
 #endif  // !FFD_SPARSE_ONLY && !FFD_LANES_ONLY
 
 }  // namespace
@@ -2270,6 +2694,115 @@ static int least_budget(std::initializer_list<int> budgets) {
   return best;
 }
 
+// ---- the cluster launch (K1, K7 and their sparse twins) ----------------------
+//
+// One cluster of CL CTAs a solve: CL = 16 where the device allows the
+// non-portable size and the occupancy query fits one such cluster at the
+// instance's widest launch (its whole row budget of dynamic shared memory),
+// else 8. Chosen once per device and instance, with the dynamic shared
+// memory opt-in raised to that budget; a launch the device refuses returns
+// its error, and no other launch is tried.
+struct ClusterPick {
+  int cl, fit16, fit8;  // the cluster size; clusters of 16 / of 8 the device holds at once
+};
+
+template <bool ZONE, bool CKPT, bool SPARSE>
+static ClusterPick* cluster_picks() {
+  static ClusterPick picks[MAX_DEVICES] = {};
+  return picks;
+}
+
+template <typename K>
+static cudaError_t cluster_fit(K kern, int cl, int dyn, int* fit) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1, 1);
+  cfg.blockDim = dim3(NTC, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(fit, kern, &cfg);
+}
+
+template <typename K>
+static int pick_cluster(K kern, ClusterPick* picks, int& dev) {
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  ClusterPick& pk = picks[dev];
+  if (pk.cl) return 0;
+  const int dyn = rows_budget(kern);
+  if (dyn < 0) return -dyn;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return (int)e;
+  int f16 = 0, f8 = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess ||
+      cluster_fit(kern, 16, dyn, &f16) != cudaSuccess)
+    f16 = 0;
+  (void)cudaGetLastError();  // a refused size-16 query is an answer, not a fault
+  e = cluster_fit(kern, 8, dyn, &f8);
+  if (e != cudaSuccess) return (int)e;
+  if (f16 < 1 && f8 < 1) return (int)cudaErrorInvalidConfiguration;
+  pk.fit16 = f16;
+  pk.fit8 = f8;
+  pk.cl = f16 >= 1 ? 16 : 8;
+  return 0;
+}
+
+template <bool ZONE, bool CKPT, bool SPARSE>
+static int launch_cluster(const ScanArgs& a, void* stream) {
+  auto kern = ffd_cluster_kernel<ZONE, CKPT, SPARSE>;
+  ClusterPick* picks = cluster_picks<ZONE, CKPT, SPARSE>();
+  int dev = 0;
+  const int err = pick_cluster(kern, picks, dev);
+  if (err != 0) return err;
+  const int cl = picks[dev].cl;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1, 1);
+  cfg.blockDim = dim3(NTC, 1, 1);
+  cfg.dynamicSmemBytes = scan_rows_bytes(a.Q, SPARSE ? a.Kq : 0, a.V, SPARSE ? a.Kv : 0, ZONE);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out[0..2]: the instance's cluster size and the clusters of 16 / of 8 the
+// device holds at once (picking them on first use)
+template <bool ZONE, bool CKPT, bool SPARSE>
+static int cluster_info(int* out) {
+  ClusterPick* picks = cluster_picks<ZONE, CKPT, SPARSE>();
+  int dev = 0;
+  const int err = pick_cluster(ffd_cluster_kernel<ZONE, CKPT, SPARSE>, picks, dev);
+  if (err != 0) return err;
+  out[0] = picks[dev].cl;
+  out[1] = picks[dev].fit16;
+  out[2] = picks[dev].fit8;
+  return 0;
+}
+
+// The four cluster instances of a library (SPARSE: the sparse one): K1
+// fast, K1 zoned, K7 fast, K7 zoned, three ints each into out[0..11].
+template <bool SPARSE>
+static int clusters_info(int* out) {
+  int e = cluster_info<false, false, SPARSE>(out);
+  if (e == 0) e = cluster_info<true, false, SPARSE>(out + 3);
+  if (e == 0) e = cluster_info<false, true, SPARSE>(out + 6);
+  if (e == 0) e = cluster_info<true, true, SPARSE>(out + 9);
+  return e;
+}
+
 // The sparse launchers take the dense launcher's pointers and dims, then
 // run_q_idx [S, Kq] and run_v_idx [S, Kv] (two more pointers) and Kq, Kv
 // (two more dims). Returns false when the view is wider than the shared
@@ -2303,8 +2836,8 @@ static int scan_launch(void** p, int n, const int* d, void* stream) {
   const bool zone = d[11] != 0;
   if (!scan_limits_ok(a, zone) || !fill_sparse<SPARSE>(a, p, n, d, 12 + 2 * SPARSE))
     return (int)cudaErrorInvalidValue;
-  return zone ? launch_scan<true, false, false, false, SPARSE>(1, a, stream)
-              : launch_scan<false, false, false, false, SPARSE>(1, a, stream);
+  return zone ? launch_cluster<true, false, SPARSE>(a, stream)
+              : launch_cluster<false, false, SPARSE>(a, stream);
 }
 
 // K6 (and K6s). ptrs: as scan_launch (the 32 scan inputs, the carry,
@@ -2355,8 +2888,8 @@ static int ckpt_launch(void** p, int n, const int* d, void* stream) {
   if (!scan_limits_ok(a, zone) || a.ck_every < 1 || a.n_ckpt < 1 ||
       !fill_sparse<SPARSE>(a, p, n, d, 14 + 2 * SPARSE))
     return (int)cudaErrorInvalidValue;
-  return zone ? launch_scan<true, false, false, true, SPARSE>(1, a, stream)
-              : launch_scan<false, false, false, true, SPARSE>(1, a, stream);
+  return zone ? launch_cluster<true, true, SPARSE>(a, stream)
+              : launch_cluster<false, true, SPARSE>(a, stream);
 }
 
 extern "C" {
@@ -2379,12 +2912,20 @@ int ffd_ckpt_sparse_launch(void** p, int n, const int* d, void* stream) {
 // the least over them); the arguments are unused. Returns the budget, or
 // minus a CUDA error.
 int ffd_sparse_rows_budget(void**, int, const int*, void*) {
-  return least_budget({rows_budget(ffd_scan_kernel<false, false, false, false, true>),
-                       rows_budget(ffd_scan_kernel<true, false, false, false, true>),
+  return least_budget({rows_budget(ffd_cluster_kernel<false, false, true>),
+                       rows_budget(ffd_cluster_kernel<true, false, true>),
                        rows_budget(ffd_scan_kernel<false, false, true, false, true>),
                        rows_budget(ffd_scan_kernel<true, false, true, false, true>),
-                       rows_budget(ffd_scan_kernel<false, false, false, true, true>),
-                       rows_budget(ffd_scan_kernel<true, false, false, true, true>)});
+                       rows_budget(ffd_cluster_kernel<false, true, true>),
+                       rows_budget(ffd_cluster_kernel<true, true, true>)});
+}
+
+// The cluster size of this library's four cluster instances (K1s fast and
+// zoned, K7s fast and zoned) and the clusters of 16 and of 8 the device
+// holds at once: 12 ints into the host buffer ptrs[0]. Returns 0 or a CUDA
+// error.
+int ffd_sparse_cluster_info(void** p, int, const int*, void*) {
+  return clusters_info<true>((int*)p[0]);
 }
 #elif defined(FFD_LANES_ONLY) && defined(FFD_LANES_SPARSE)
 // the sparse lanes library (ffd_lanes_sparse_kernels.cu): K17s
@@ -2523,14 +3064,19 @@ int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
 // zoned; the least over them); the arguments are unused. Returns the
 // budget, or minus a CUDA error.
 int ffd_rows_budget(void**, int, const int*, void*) {
-  return least_budget({rows_budget(ffd_scan_kernel<false, false, false, false, false>),
-                       rows_budget(ffd_scan_kernel<true, false, false, false, false>),
+  return least_budget({rows_budget(ffd_cluster_kernel<false, false, false>),
+                       rows_budget(ffd_cluster_kernel<true, false, false>),
                        rows_budget(ffd_scan_kernel<false, true, false, false, false>),
                        rows_budget(ffd_scan_kernel<true, true, false, false, false>),
                        rows_budget(ffd_scan_kernel<false, false, true, false, false>),
                        rows_budget(ffd_scan_kernel<true, false, true, false, false>),
-                       rows_budget(ffd_scan_kernel<false, false, false, true, false>),
-                       rows_budget(ffd_scan_kernel<true, false, false, true, false>)});
+                       rows_budget(ffd_cluster_kernel<false, true, false>),
+                       rows_budget(ffd_cluster_kernel<true, true, false>)});
+}
+
+// As ffd_sparse_cluster_info, for K1 / K7 fast and zoned.
+int ffd_cluster_info(void** p, int, const int*, void*) {
+  return clusters_info<false>((int*)p[0]);
 }
 
 // K5. ptrs: leftover [B, S], used [B], c_zc_bits [B, M], c_mask [B, M, T]
@@ -2577,6 +3123,40 @@ int claim_meta_launch(void** p, int n, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
+
+// ptrs: num [N], den [D] (every divisor >= 1), out [D, N] (int32); dims: N, D
+int floordiv_check_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 3 || d[0] < 1 || d[1] < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)d[0] * d[1];
+  floordiv_check_kernel<<<(unsigned)((total + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int*)p[0], (const int*)p[1], (int*)p[2], d[0], d[1]);
+  return (int)cudaGetLastError();
+}
+
+// dims: the barriers, the cluster's CTAs (1..16); one cluster of NTC-thread CTAs
+int cluster_barrier_launch(void**, int, const int* d, void* stream) {
+  const int iters = d[0], cl = d[1];
+  if (iters < 0 || cl < 1 || cl > MAX_CL) return (int)cudaErrorInvalidValue;
+  if (cl > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(cluster_barrier_kernel,
+                                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1, 1);
+  cfg.blockDim = dim3(NTC, 1, 1);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, cluster_barrier_kernel, iters);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 
 // K9. ptrs: take_e [S, E], take_c [S, M], leftover [S], c_mask [M, T]
 // (bool), c_zc_bits [M], c_gbits [M, Wg], c_pool [M], c_cum [M, R], used,

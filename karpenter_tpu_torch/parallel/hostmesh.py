@@ -190,8 +190,15 @@ def _time_blocks(run, plain, host, n: int, dev) -> None:
                          lanes=int(host.take_e.shape[0]), device=str(dev))
 
 
-def worker_main(stdin=None, stdout=None, device="cpu") -> int:
-    """Job loop: read a frame, run it, answer {"ok": ..., ...}."""
+def worker_main(stdin=None, stdout=None, device="cuda") -> int:
+    """Job loop: read a frame, run it, answer {"ok": ..., ...}. The lanes run
+    on `device`, the card unless the caller asks for the CPU; a CUDA device
+    without a card raises before the loop."""
+    import torch
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"host-mesh worker: {device} requested but CUDA is not available "
+                           "(pass device='cpu' for the plain versions)")
     inb = stdin if stdin is not None else sys.stdin.buffer
     outb = stdout if stdout is not None else sys.stdout.buffer
     ctx_cache: collections.OrderedDict = collections.OrderedDict()
@@ -231,7 +238,7 @@ class WorkerProc:
     pipe. Calls serialize per worker; a pool issues to all of its workers at
     once. `bytes_sent` / `bytes_received` count the frames both ways."""
 
-    def __init__(self, name: str = "host", device: str = "cpu"):
+    def __init__(self, name: str = "host", device: str = "cuda"):
         self.name = name
         self.device = str(device)
         wenv = os.environ.copy()
@@ -417,22 +424,23 @@ class HostMeshPool:
 
 
 def main(argv=None) -> int:
-    """The worker process: its stdout becomes the protocol channel alone
-    (file descriptor 1 is pointed at stderr, so nothing else can write a
-    byte into the frames), then the job loop runs on `--device`."""
+    """The worker process: the job loop on `--device` (the card by default;
+    without CUDA it raises before touching its streams). Its stdout becomes
+    the protocol channel alone (file descriptor 1 is pointed at stderr, so
+    nothing else can write a byte into the frames)."""
     ap = argparse.ArgumentParser(description="a host-mesh worker (stdin/stdout frames)")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    proto = os.fdopen(os.dup(1), "wb")
-    os.dup2(2, 1)
-    sys.stdout = sys.stderr
     import torch
 
     dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"host-mesh worker: {args.device} requested but CUDA is not "
+                           "available (pass --device cpu for the plain versions)")
+    proto = os.fdopen(os.dup(1), "wb")
+    os.dup2(2, 1)
+    sys.stdout = sys.stderr
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"host-mesh worker: {args.device} requested but CUDA is not "
-                               "available")
         torch.cuda.set_device(dev)
     torch.set_num_threads(1)
     return worker_main(sys.stdin.buffer, proto, device=str(dev))

@@ -39,13 +39,16 @@ INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the four *_rows_budget queries take the same arguments and ignore them)
+# (the four *_rows_budget queries and the two *cluster_info queries take the same
+# arguments; the budgets ignore them, cluster_info writes into the host buffer ptrs[0])
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
-                    "ffd_ckpt_launch", "pack_outputs_launch", "ffd_rows_budget"),
+                    "ffd_ckpt_launch", "pack_outputs_launch", "ffd_rows_budget",
+                    "ffd_cluster_info", "floordiv_check_launch", "cluster_barrier_launch"),
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
-                           "ffd_ckpt_sparse_launch", "ffd_sparse_rows_budget"),
+                           "ffd_ckpt_sparse_launch", "ffd_sparse_rows_budget",
+                           "ffd_sparse_cluster_info"),
     "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_rows_budget"),
     "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),

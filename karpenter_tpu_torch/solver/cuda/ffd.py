@@ -1692,6 +1692,113 @@ def scan_scratch_words(E: int, M: int, T: int, Z: int) -> int:
     return 2 * E + 11 * M + 3 * T + 2 * M * Z + 64
 
 
+# The cluster scans (K1, K7 and their sparse twins: csrc/ffd_kernels.cu
+# ffd_cluster_kernel) run one solve on one thread-block cluster of up to
+# MAX_CL CTAs of CLUSTER_THREADS threads (16 where the card allows, else 8;
+# cluster_info); the one-block scans (K4, K6, K15, K17) keep NT threads.
+MAX_CL = 16
+CLUSTER_THREADS = 512
+NT = 1024
+
+
+def cluster_scratch_words(E: int, M: int, T: int, Z: int) -> int:
+    """int32 words of a cluster scan's global scratch: the scan's own
+    (scan_scratch_words), then MAX_CL rows of its CTAs' own copies of the
+    rows every CTA computes whole (k_t, fit_t, k_cap [T]; the fresh claims'
+    order scat_z, scat_take [M])."""
+    return scan_scratch_words(E, M, T, Z) + MAX_CL * (3 * T + 2 * M)
+
+
+def _ceil_chunks(lo, hi, parts: int):
+    """[..., parts, 2] int64: the contiguous ceil split of each [lo, hi)."""
+    lo, hi = np.asarray(lo, np.int64)[..., None], np.asarray(hi, np.int64)[..., None]
+    per = -(-(hi - lo) // parts)
+    a = np.minimum(lo + np.arange(parts) * per, hi)
+    return np.stack([a, np.minimum(a + per, hi)], -1)
+
+
+def team_chunks(n: int, cl: int) -> dict:
+    """The split of n rows over a scan's team (csrc/ffd_kernels.cu
+    thread_chunk, warp_chunk, cta_chunk, lane_chunk), cl CTAs (0: the
+    one-block scans), each an int64 array of [lo, hi) rows: "threads", a
+    contiguous chunk per thread of the team (the node pour's prefix);
+    "warps", per warp (claim rows); "ctas", the union of a CTA's warps;
+    "lanes", each warp's piece per lane, warp-major (the claim pour's
+    prefix)."""
+    nt, ctas = (NT, 1) if cl == 0 else (CLUSTER_THREADS, cl)
+    nwb = nt // 32
+    warps = _ceil_chunks(0, n, ctas * nwb)
+    per_w = -(-n // (ctas * nwb))
+    r = np.arange(ctas)
+    ctas_rows = np.stack([np.minimum(r * nwb * per_w, n), np.minimum((r + 1) * nwb * per_w, n)], -1)
+    lanes = _ceil_chunks(warps[:, 0], warps[:, 1], 32).reshape(-1, 2)
+    return dict(threads=_ceil_chunks(0, n, ctas * nt), warps=warps, ctas=ctas_rows, lanes=lanes)
+
+
+_CLUSTERS: dict = {}
+
+
+def cluster_info(device) -> dict:
+    """The cluster size the card gives each cluster scan instance, and the
+    clusters of 16 and of 8 CTAs it holds at once at the instance's widest
+    launch (the occupancy query; csrc/ffd_kernels.cu pick_cluster), chosen
+    once per device: {instance name: {"cl", "fit16", "fit8"}}. None on the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    info = _CLUSTERS.get(idx)
+    if info is None:
+        from .build import load
+
+        info = {}
+        with torch.cuda.device(idx):
+            for lib, fn, sparse in (("ffd_kernels", "ffd_cluster_info", None),
+                                    ("ffd_sparse_kernels", "ffd_sparse_cluster_info", ())):
+                out = (ctypes.c_int * 12)()
+                rc = getattr(load(lib), fn)((ctypes.c_void_p * 1)(ctypes.addressof(out)), 1,
+                                            None, None)
+                _raise_on(rc, fn)
+                for i, (kind, zone) in enumerate((("", False), ("", True), ("ckpt_", False),
+                                                  ("ckpt_", True))):
+                    info[_scan_name(kind, zone, sparse)] = dict(
+                        cl=out[3 * i], fit16=out[3 * i + 1], fit8=out[3 * i + 2])
+        _CLUSTERS[idx] = info
+    return info
+
+
+def floordiv_check(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """[D, N] int32: floor(num[i] / den[j]) by the cluster scans' exact
+    division (csrc/ffd_kernels.cu floordiv_magic, through
+    floordiv_check_kernel) for int32 num [N] and den [D] (every divisor
+    >= 1) on the card; the plain floor (_floordiv) for tensors on the CPU."""
+    if num.device.type != "cuda":
+        return _floordiv(num.unsqueeze(0), den.unsqueeze(1))
+    from .build import load
+
+    _check(num, "num", I32)
+    _check(den, "den", I32)
+    if num.dim() != 1 or den.dim() != 1 or not num.numel() or not den.numel():
+        raise ValueError("floordiv_check: num and den must be non-empty vectors")
+    if int(den.min()) < 1:
+        raise ValueError("floordiv_check: every divisor must be >= 1")
+    out = torch.empty((den.numel(), num.numel()), dtype=I32, device=num.device)
+    rc = load().floordiv_check_launch(_ptrs([num, den, out]), 3, _ints([num.numel(), den.numel()]),
+                                      _stream())
+    _raise_on(rc, "floordiv_check")
+    return out
+
+
+def cluster_barriers(n: int, cl: int) -> None:
+    """Launch one cluster of cl CTAs (CLUSTER_THREADS threads each) that
+    passes n cluster barriers, on the current stream (timing only)."""
+    from .build import load
+
+    rc = load().cluster_barrier_launch(None, 0, _ints([n, cl]), _stream())
+    _raise_on(rc, "cluster_barrier")
+
+
 def batch_scratch_words(E: int, M: int, T: int, Z: int) -> int:
     """int32 words of one subset row's scratch in the batched scan: the
     scan's own scratch, then the row's [E] and [M] take rows of the current
@@ -1772,7 +1879,7 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False,
     take_c = torch.empty((Sp, M), dtype=I32, device=dev)
     leftover = torch.empty((Sp,), dtype=I32, device=dev)
     events = torch.zeros((), dtype=I32, device=dev)
-    scratch = torch.empty((scan_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
+    scratch = torch.empty((cluster_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
     ptrs = [a[n] for n in _SCAN_INPUTS] + list(st) + [take_e, take_c, leftover, events, scratch]
     dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine)]
     launch = (load("ffd_sparse_kernels").ffd_scan_sparse_launch if sparse is not None
@@ -1844,7 +1951,7 @@ def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
     take_c = torch.empty((Sp, M), dtype=I32, device=dev)
     leftover = torch.empty((Sp,), dtype=I32, device=dev)
     events = torch.zeros((), dtype=I32, device=dev)
-    scratch = torch.empty((scan_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
+    scratch = torch.empty((cluster_scratch_words(E, M, T, Z),), dtype=I32, device=dev)
     ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
             + [take_e, take_c, leftover, events, scratch] + list(ring.states) + [ring.prefix])
     dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), ckpt_every, n_ckpt]

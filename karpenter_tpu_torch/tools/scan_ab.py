@@ -9,16 +9,22 @@ csrc (for example the parent commit unpacked with `git archive`), then
 - compares ptxas's report of every kernel the two builds share: registers,
   spill stores and spill loads (a kernel whose numbers moved is listed);
 - holds each build's outputs equal and times them in turns (this, other,
-  other, this) ROUNDS times, CUDA events around CALLS calls each: K1 fast
-  (ffd_fast_scan) at the 50 000-pod surge's kernel arguments, K15 fast
-  (ffd_lanes_fast_scan) at 8 lanes of them, the checkpointed fast scan
-  (ffd_ckpt_fast_scan, K7 fast) at the surge's, and the checkpointed zoned
-  scan (ffd_ckpt_zoned_scan) and its sparse twin
-  (ffd_ckpt_sparse_zoned_scan) at BASELINE config 3's (a ring every 16
-  steps, 4 slots: TorchSolver's defaults).
+  other, this) ROUNDS times, CUDA events around CALLS calls each (fewer
+  for the slow K4 and K6 rows, SLOW_CALLS): K1 fast (ffd_fast_scan) at the
+  50 000-pod surge's kernel arguments, K15 fast (ffd_lanes_fast_scan) at
+  8 lanes of them, the checkpointed fast scan (ffd_ckpt_fast_scan, K7
+  fast) at the surge's, the checkpointed zoned scan (ffd_ckpt_zoned_scan)
+  and its sparse twin (ffd_ckpt_sparse_zoned_scan) at BASELINE config 3's
+  (a ring every 16 steps, 4 slots: TorchSolver's defaults), K1 zoned
+  (ffd_zoned_scan) at config 3's; then the one-block scans: K4 fast and
+  zoned (ffd_batched_*_scan) at config 5's 511-row dispatch (10 000 nodes,
+  2 000 candidates; the zoned instance on the same rows), K6 fast
+  (ffd_ladder_fast_scan) at the surge_pref cell's ladder dispatch and K6
+  zoned at config3_soft's (dense tables), K17 fast (ffd_sharded_fast_scan)
+  at the surge over Nd 4 run blocks.
 
-The JSON also lists this build's registers and spills of every kernel
-(ptxas "this_all").
+The JSON also lists both builds' registers and spills of every kernel
+(ptxas "this_all", "other_all").
 
 Usage: python3 karpenter_tpu_torch/tools/scan_ab.py OTHER_CHECKOUT
 
@@ -42,6 +48,10 @@ ROUNDS = 3  # (this, other, other, this) rounds
 AB_LIBS = ("ffd_kernels", "ffd_sparse_kernels", "ffd_lanes_kernels")
 LANES = 8  # K15's lanes (cohort_surge's)
 CALLS = 20  # calls per timing
+SLOW_CALLS = 5  # calls per timing of K4 (~2 ms a dispatch) and K6 (~7-17 ms)
+SLOW = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "ffd_ladder_fast_scan",
+        "ffd_ladder_zoned_scan")
+SHARD_ND = 4  # K17's run blocks
 
 
 def _build_other(other: str):
@@ -68,7 +78,8 @@ def _build_other(other: str):
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
         for fname in ("ffd_scan_launch", "ffd_ckpt_launch", "ffd_ckpt_sparse_launch",
-                      "ffd_lanes_launch"):
+                      "ffd_lanes_launch", "ffd_batched_launch", "ffd_ladder_launch",
+                      "pack_verdicts_launch"):
             if hasattr(lib, fname):
                 getattr(lib, fname).argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
                 getattr(lib, fname).restype = ctypes.c_int
@@ -82,7 +93,7 @@ def ptxas_diff(mine: dict, theirs: dict) -> dict:
     shared = sorted(set(mine) & set(theirs))
     moved = {k: {"this": mine[k], "other": theirs[k]} for k in shared if mine[k] != theirs[k]}
     return dict(compared=len(shared), moved=moved, this_only=sorted(set(mine) - set(theirs)),
-                this_all=mine)
+                other_only=sorted(set(theirs) - set(mine)), this_all=mine, other_all=theirs)
 
 
 def scan_ab(other: str) -> dict:
@@ -105,14 +116,46 @@ def scan_ab(other: str) -> dict:
     kw_fast = dict(max_claims=surge["M"], zone_engine=False, ckpt_every=16, n_ckpt=4)
     lanes = tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
                   for a in surge["args"])
+    # the one-block scans: K4 at config 5's 511-row dispatch, K6 at the
+    # ladder cells', K17 at the surge's Nd 4 run blocks
+    from karpenter_tpu_torch.disruption.batched import (
+        BatchedConsolidationEvaluator, binary_probe_frontier,
+    )
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda import consolidate as cons
+
+    ev = BatchedConsolidationEvaluator(tb.TorchSolver())
+    prep = ev.prepare(*cs.build_config5_universe(10_000, 2_000))
+    ks = sorted(set(binary_probe_frontier(2, 2_000, 9)))
+    rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, [list(range(k)) for k in ks],
+                            prep.node_idx, prep.v_delta, prep.v_count0_host)
+    drows = cons.upload_rows(rows, dev)
+    M5 = ev.max_claims
+    lad_f = cs.ladder_args(cs.build_surge_pref_input(cs.PODS), dev)
+    lad_z = cs.ladder_args(cs.build_config3_soft_input(cs.PODS), dev)
+    M6f = tb.initial_claim_bucket(lad_f[4], cs.MAX_CLAIMS)
+    M6z = tb.initial_claim_bucket(lad_z[4], cs.MAX_CLAIMS)
+    blocks, shared, _ = cs.sharded_args(surge, SHARD_ND, dev, sparse=False)
     fns = {"ffd_fast_scan": lambda: ffd.ffd_solve(*surge["args"], max_claims=surge["M"]),
+           "ffd_zoned_scan": lambda: ffd.ffd_solve(*args, max_claims=M, zone_engine=True),
            "ffd_lanes_fast_scan": lambda: ffd.ffd_solve_lanes(*lanes, max_claims=surge["M"]),
            "ffd_ckpt_fast_scan": lambda: ffd.ffd_solve_ckpt(*surge["args"], **kw_fast),
            "ffd_ckpt_zoned_scan": lambda: ffd.ffd_solve_ckpt(*args, **kw),
-           "ffd_ckpt_sparse_zoned_scan": lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw)}
+           "ffd_ckpt_sparse_zoned_scan": lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw),
+           "ffd_batched_fast_scan": lambda: cons.batched_ffd(prep.args, *drows, M5, False),
+           "ffd_batched_zoned_scan": lambda: cons.batched_ffd(prep.args, *drows, M5, True),
+           "ffd_ladder_fast_scan": lambda: ffd.ffd_solve_ladder(lad_f[2], *lad_f[1], max_claims=M6f),
+           "ffd_ladder_zoned_scan": lambda: ffd.ffd_solve_ladder(lad_z[2], *lad_z[1], max_claims=M6z,
+                                                                 zone_engine=True),
+           "ffd_sharded_fast_scan": lambda: ffd.ffd_solve_sharded(*blocks, *shared,
+                                                                  max_claims=surge["M"])}
 
     def outputs(k, o):
-        if k in ("ffd_fast_scan", "ffd_lanes_fast_scan"):
+        if k.startswith("ffd_batched"):
+            return [o.leftover, o.events, *o.state]
+        if k.startswith("ffd_ladder"):
+            return cs._scan_outputs(o) + [o.attempts]
+        if not k.startswith("ffd_ckpt"):
             return cs._scan_outputs(o)
         o, ring = o
         return cs._scan_outputs(o) + [*ring.states, ring.prefix]
@@ -133,7 +176,7 @@ def scan_ab(other: str) -> dict:
         for side, libs in (("this", mine), ("other", theirs), ("other", theirs), ("this", mine)):
             build._LIBS.update(libs)
             for k, fn in fns.items():
-                out[k][f"{side}_ms"].append(cs.time_ms(fn, CALLS))
+                out[k][f"{side}_ms"].append(cs.time_ms(fn, SLOW_CALLS if k in SLOW else CALLS))
     build._LIBS.update(mine)
     for k, v in out.items():
         v["this_mean_ms"] = sum(v["this_ms"]) / len(v["this_ms"])

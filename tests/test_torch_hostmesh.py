@@ -6,7 +6,9 @@ package.
   A3 reply, a clean exit); _tree_concat; WorkerDead on a killed worker; an
   uneven scatter raises. A worker told to use CUDA where there is none
   exits (WorkerDead on its first call), and a pool on the card refuses to
-  start without one: no worker carries on on the CPU.
+  start without one: no worker carries on on the CPU. The worker entry
+  (main, worker_main) defaults to the card and raises without one; the
+  in-memory protocol case asks for the CPU.
 - The port's `_handle_ffd_blocks` (K17's / K17s's plain versions on the
   CPU) equals the reference's `karpenter_tpu.parallel.hostmesh.
   _handle_ffd_blocks`, called in this process on the same job dict, lane
@@ -64,7 +66,7 @@ class TestProtocol:
             thm._write_frame(inb, job)
         inb.seek(0)
         outb = io.BytesIO()
-        assert thm.worker_main(stdin=inb, stdout=outb) == 0
+        assert thm.worker_main(stdin=inb, stdout=outb, device="cpu") == 0
         outb.seek(0)
         ping, err, solve = (thm._read_frame(outb) for _ in range(3))
         assert ping["ok"] and ping["result"]["pid"] > 0 and ping["result"]["device"] == "cpu"
@@ -110,6 +112,17 @@ class TestProtocol:
             w.close()
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             thm.HostMeshPool(2)
+
+    def test_the_worker_entry_defaults_to_the_card(self):
+        """The worker entry and the job loop run on the card unless asked
+        for the CPU: without CUDA, main([]) and worker_main() raise before
+        reading a frame (no worker falls back to the plain versions)."""
+        if torch.cuda.is_available():
+            pytest.skip("this machine has a card")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            thm.main([])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            thm.worker_main(stdin=io.BytesIO(), stdout=io.BytesIO())
 
 
 # ------------------------------------------------- the worker's lane program
