@@ -49,8 +49,9 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    solver (K6s fast); then the host relax loop at 120 pods, which must
    equal the ladder. K6 (the ladder scan, ffd_ladder_fast_scan and
    ffd_ladder_zoned_scan) and K6s are held against their plain versions in
-   phase 2 at the cells' shapes, on a 400-pod relax walk and on 8 seeded
-   fleets that mix every preference kind, through both instances.
+   phase 2 at the cells' shapes and on a 400-pod relax walk, and in phase
+   13 on seeded fleets that mix every preference kind, through both
+   instances.
 
 6. arena and resume: the surge and config 3 each with 1 250 more replicas
    of their last run's pod (surge_tail, config3_tail) alternate with the
@@ -177,6 +178,23 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    phase 11's in the whole run. Phases 2-11 launch the same cluster
    kernels wherever they run K1 or K7.
 
+13. the relax-ladder scans as one thread-block cluster a solve (K6, K6s:
+   ffd_ladder_kernel, the cluster pick as phase 12's): the ladder
+   instances' cluster size and occupancy query, then K6 and K6s fast and
+   zoned against one plain ladder scan (run in up to 6 CPU worker processes
+   the phase starts and stops) on the wide relax walks (WIDE_WALK_PODS
+   pods of WIDE_WALK_CPUS cores: 17 to 240 claims open, several claim rows
+   a CTA), the seeded relax fleets (CLUSTER_SEEDS: even seeds zoned, odd
+   seeds fast and zoned) and a fleet whose rungs place nothing (its walk
+   runs out of rungs), every output compared and every fleet's claim count
+   printed; the 400-pod relax walk and the config3_soft and surge_pref
+   dispatches are phase 2c's in the whole run; then the relax walk at
+   RELAX_WALK_CHECK pods of RELAX_WALK_CHECK_CPUS cores through
+   TorchSolver() (one ladder launch, the counts set to 0 just before and
+   read just after, more than 16 claims) against RELAX_WALK_DIGEST, the
+   decisions of the CPU plain path. Phases 2c and 5 launch the same ladder
+   kernels.
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
@@ -194,6 +212,8 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        with 2 x PROC_SLOTS cards each rank gets PROC_SLOTS of its own)
        python3 chip_smoke.py --phase 12   (phase 12 alone: the cluster
        scans on every fleet it names, the Q-heavy and hostname fleets too)
+       python3 chip_smoke.py --phase 13   (phase 13 alone: the ladder
+       scans on every fleet it names, phase 2c's ladder cells too)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -378,16 +398,23 @@ def build_config3_soft_input(num_pods: int = 50_000):
     return inp
 
 
-def build_relax_walk_input(num_pods: int = 50_000):
+def build_relax_walk_input(num_pods: int = 50_000, cpus: int | None = None):
     """bench.py's relax-ladder fleet (_decode_relax_metrics part (b)): the
     surge with both pools pinned to zone-1a, pods labelled app-{i % 8},
     node selectors cleared and a ScheduleAnyway zone spread (maxSkew 1) per
-    app, so every pod after an app's first relaxes its spread."""
+    app, so every pod after an app's first relaxes its spread. `cpus`:
+    every pod requests that many cores and 2 GiB a core instead of the
+    surge's size (its first 1 250 pods ask 100m), so a few hundred pods
+    open tens of claims (the walk's shape is the same)."""
     from karpenter_tpu_torch.api import wellknown as wk
     from karpenter_tpu_torch.api.objects import TopologySpreadConstraint
     from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
 
     inp = build_input(num_pods)
+    if cpus is not None:
+        for p in inp.pods:
+            p.requests = Resources.parse({"cpu": str(cpus), "memory": f"{2 * cpus}Gi"})
     for pl in inp.nodepools:
         pl.requirements = pl.requirements.union(
             Requirements.of(Requirement.create(wk.ZONE_LABEL, IN, ["zone-1a"]))
@@ -501,6 +528,39 @@ def build_relax_input(seed: int):
         requirements=Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, ["default"]), *extra),
         taints=[], instance_types=generate())
     return SolverInput(pods=pods, nodes=nodes, nodepools=[pool],
+                       zones=("zone-1a", "zone-1b", "zone-1c"))
+
+
+def build_relax_stuck_input():
+    """A fleet whose rungs place nothing: 5 pods too large for any type
+    (4 096 CPUs) carrying a ScheduleAnyway zone spread and two preferred
+    node affinities walk every rung and stay unplaced (the walk runs out of
+    rungs: a base attempt, then rungs 1-3, then past the last), beside 3
+    small pods with the same preferences that the base rung places."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.objects import ObjectMeta, Pod, TopologySpreadConstraint
+    from karpenter_tpu_torch.catalog.catalog import generate
+    from karpenter_tpu_torch.provisioning.scheduler import NodePoolSpec, SolverInput
+    from karpenter_tpu_torch.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu_torch.utils.resources import Resources
+
+    sel = {"app": "stuck"}
+    prefer = [(10, Requirements.of(Requirement.create(wk.ZONE_LABEL, IN, ["zone-1b"]))),
+              (50, Requirements.of(Requirement.create(wk.ARCH_LABEL, IN, ["arm64"])))]
+    spread = TopologySpreadConstraint(max_skew=1, topology_key=wk.ZONE_LABEL, label_selector=sel,
+                                      when_unsatisfiable="ScheduleAnyway")
+    pods = []
+    for i, (labels, cpu, kw) in enumerate([(sel, "4096", dict(topology_spread=[spread]))] * 5
+                                          + [({"app": "ok"}, "1", {})] * 3):
+        name = f"stuck-{i}"
+        pods.append(Pod(meta=ObjectMeta(name=name, uid=name, labels=dict(labels)),
+                        requests=Resources.parse({"cpu": cpu, "memory": "1Gi"}),
+                        preferred_node_affinity=list(prefer), **kw))
+    pool = NodePoolSpec(
+        name="default", weight=0,
+        requirements=Requirements.of(Requirement.create(wk.NODEPOOL_LABEL, IN, ["default"])),
+        taints=[], instance_types=generate())
+    return SolverInput(pods=pods, nodes=[], nodepools=[pool],
                        zones=("zone-1a", "zone-1b", "zone-1c"))
 
 
@@ -1690,23 +1750,21 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     return med
 
 
-# K1 / K7 and their sparse twins are ffd_cluster_kernel<ZONE, CKPT, SPARSE>
-# (one cluster a solve); the one-block scans ffd_scan_kernel<ZONE,
-# BATCH, LADDER, CKPT, SPARSE>
+# K1 / K7 and their sparse twins are ffd_cluster_kernel<ZONE, CKPT, SPARSE>,
+# K6 / K6s ffd_ladder_kernel<ZONE, SPARSE> (one cluster a solve); the
+# one-block batched scan K4 ffd_scan_kernel<ZONE>
 KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "ffd_cluster_kernel<true, false, false>",
                 "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
-                "meta_finish_kernel", "ffd_scan_kernel<false, true, false, false, false>",
-                "ffd_scan_kernel<true, true, false, false, false>", "pack_verdicts_kernel",
-                "ffd_scan_kernel<false, false, true, false, false>",
-                "ffd_scan_kernel<true, false, true, false, false>",
+                "meta_finish_kernel", "ffd_scan_kernel<false>",
+                "ffd_scan_kernel<true>", "pack_verdicts_kernel",
+                "ffd_ladder_kernel<false, false>", "ffd_ladder_kernel<true, false>",
                 "ffd_cluster_kernel<false, true, false>",
                 "ffd_cluster_kernel<true, true, false>", "arena_unpack_kernel",
                 # the sparse instances (14-19) and the dense output pack (20)
                 "ffd_cluster_kernel<false, false, true>",
                 "ffd_cluster_kernel<true, false, true>",
-                "ffd_scan_kernel<false, false, true, false, true>",
-                "ffd_scan_kernel<true, false, true, false, true>",
+                "ffd_ladder_kernel<false, true>", "ffd_ladder_kernel<true, true>",
                 "ffd_cluster_kernel<false, true, true>",
                 "ffd_cluster_kernel<true, true, true>",
                 "pack_outputs_kernel",
@@ -2172,7 +2230,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
 
     regs = {k: v.get("registers") for k, v in ptxas_report(build.BUILD_LOG["ptxas"]).items()}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    reg4 = regs.get("ffd_scan_kernel<false, true, false, false, false>")
+    reg4 = regs.get("ffd_scan_kernel<false>")
     blocks_per_sm = max(1, min(2048 // 1024, 65536 // (1024 * max(reg4 or 64, 1))))
     waves = -(-Bp // (sms * blocks_per_sm))
     n_disp = searches * dispatches
@@ -2193,7 +2251,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
              match=zr["err4"] == 0, device_ms=dev4z,
              shape=dict(B=int(zrows[0].shape[0]), Sp=int(zrows[0].shape[1]), M=zM,
                         V=int(zrows[1].shape[1]), Z=int(zrows[1].shape[2])),
-             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true, true, false, false, false>")),
+             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true>")),
         dict(name="pack_verdicts", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/consolidate.py:291",
              launches=launches["pack_verdicts"], max_abs_err=err5, ms=ms5, plain_ms=plain5,
@@ -4658,6 +4716,208 @@ def cluster_phase(dev, qrows=None) -> dict:
     return out
 
 
+# The relax walk held to RELAX_WALK_DIGEST (phase 13): its pods (M 256) at
+# 32 cores a pod, which opens ~50 claims, as the 10 000-pod walk's 53 (more
+# than the 16 CTAs of a cluster: several claim rows a CTA)
+RELAX_WALK_CHECK = 255
+RELAX_WALK_CHECK_CPUS = 32
+RELAX_WALK_DIGEST = "4299f571e98e4aabf25f1a7c5ef7caa57f292a39848d8baa8bf3e7274a66dd2e"
+# Phase 13's wide walks, held against the plain ladder on every output: the
+# relax walk at WIDE_WALK_PODS pods of WIDE_WALK_CPUS cores each, which open
+# 19, 40, 100 and 200 claims (2 to 13 rows a CTA of 16, a row walked by 8,
+# 5, 2 or 1 warps of its CTA)
+WIDE_WALK_PODS = 200
+WIDE_WALK_CPUS = (16, 32, 64, 96)
+LADDER_FUEL_NOTE = ("no fleet runs out of fuel: a walk takes at most (count + 1) * (Lw + 1) "
+                    "attempts, fewer than its fuel of (count + 1) * (Lw + 2) + 4")
+
+
+def _ladder_outputs(o):
+    return [o.take_e, o.take_c, o.leftover, o.events, o.attempts, *o.state]
+
+
+def _ladder_fleet(name: str, seed: int):
+    """Phase 13's fleet `name` (the relax walk: `seed` pods; the wide walk:
+    WIDE_WALK_PODS pods of `seed` cores each)."""
+    if name == "stuck":
+        return build_relax_stuck_input()
+    if name == "walk":
+        return build_relax_walk_input(seed)
+    if name == "wide":
+        return build_relax_walk_input(WIDE_WALK_PODS, cpus=seed)
+    return build_relax_input(seed)
+
+
+def ladder_plain_job(job) -> dict:
+    """One fleet of phase 13 on the CPU, in a worker process: its ladder
+    dispatch's kernel arguments, rung table and union index tables (numpy,
+    as the backend builds them), the claim bucket (doubled on saturation as
+    the main path's) and the plain ladder scan's every output (numpy).
+    `zone` None: the instance the main path picks."""
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import sparse_run_tables
+
+    torch.set_num_threads(1)
+    name, seed, zone = job
+    enc, args, lad, dims, n, rungs = ladder_args(_ladder_fleet(name, seed), "cpu")
+    zone = enc.V > 0 if zone is None else zone
+    M = tb.initial_claim_bucket(n, MAX_CLAIMS)
+    while True:
+        ref = ffd.ffd_solve_ladder_plain(lad, *args, max_claims=M, zone_engine=zone)
+        if int(ref.state.used) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    sq, sv = sparse_run_tables(enc, dims["Sp"], run_ladder=lad.numpy()[:len(enc.run_group)])
+    return dict(name=name, seed=seed, zone=zone, M=M, Lw=int(lad.shape[1]), rungs=rungs,
+                args=[a.numpy() for a in args], lad=lad.numpy(), sparse=(sq, sv),
+                want=[t.numpy() for t in _ladder_outputs(ref)])
+
+
+def ladder_scan_check(plain: dict, dev) -> dict:
+    """K6 and K6s (the instance the job names, each one cluster of CTAs)
+    on the card against one fleet's plain ladder scan (ladder_plain_job):
+    take rows, leftovers, zoned events, attempts, every FFDState field."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args = [torch.from_numpy(a).to(dev) for a in plain["args"]]
+    lad = torch.from_numpy(plain["lad"]).to(dev)
+    sp = [torch.from_numpy(t).to(dev) for t in plain["sparse"]]
+    kw = dict(max_claims=plain["M"], zone_engine=plain["zone"])
+    k6 = ffd.ffd_solve_ladder(lad, *args, **kw)
+    k6s = ffd.ffd_solve_ladder_sparse(lad, *sp, *args, **kw)
+    torch.cuda.synchronize()
+    want = [torch.from_numpy(t) for t in plain["want"]]
+    errs = dict(k6=max_abs_err(_ladder_outputs(k6), want), k6s=max_abs_err(_ladder_outputs(k6s), want))
+    tag = f"{plain['name']}[{plain['seed']}] ({'zoned' if plain['zone'] else 'fast'})"
+    assert not any(errs.values()), f"{tag}: a ladder scan disagrees with its plain version: {errs}"
+    return dict(zone=plain["zone"], M=plain["M"], Lw=plain["Lw"], attempts=int(k6.attempts),
+                events=int(k6.events), leftover=int(k6.leftover.sum()), claims=int(k6.state.used),
+                **errs)
+
+
+def ladder_fleet_checks(jobs, dev) -> list:
+    """ladder_scan_check on every (builder, seed, zone) job: the plain sides
+    run in CPU worker processes (spawned, at most 6, all stopped on return)
+    while this process runs the kernels, in job order."""
+    import concurrent.futures
+    import multiprocessing
+
+    workers = max(1, min(6, (os.cpu_count() or 2) - 2))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as pool:
+        return [ladder_scan_check(p, dev) for p in pool.map(ladder_plain_job, jobs)]
+
+
+def relax_walk_check(dev) -> dict:
+    """The relax walk at RELAX_WALK_CHECK pods of RELAX_WALK_CHECK_CPUS
+    cores through TorchSolver() on the card, its launch counts set to 0
+    just before and read just after: one ladder dispatch through a ladder
+    cluster instance, nothing unplaced, more than 16 claims (several rows a
+    CTA), and the decisions of the CPU plain path (RELAX_WALK_DIGEST,
+    pinned by tests/test_torch_relax.py)."""
+    from karpenter_tpu_torch.solver.backend import TorchSolver
+
+    solver = TorchSolver(max_claims=MAX_CLAIMS)
+    inp = build_relax_walk_input(RELAX_WALK_CHECK, cpus=RELAX_WALK_CHECK_CPUS)
+    reset_launches()
+    res = solver.solve(inp)
+    launches = read_launches()
+    k6 = {k: v for k, v in launches.items() if k.startswith("ffd_ladder_") and v}
+    assert sum(k6.values()) == 1 and solver.stats["ladder_solves"] == 1, (k6, solver.stats)
+    assert not res.errors and len(res.placements) == RELAX_WALK_CHECK, len(res.errors)
+    digest = decisions_digest(res)
+    assert digest == RELAX_WALK_DIGEST, f"relax walk {RELAX_WALK_CHECK}: decisions differ ({digest})"
+    assert len(res.claims) > 16, f"relax walk {RELAX_WALK_CHECK}: {len(res.claims)} claims"
+    return dict(pods=RELAX_WALK_CHECK, cpus=RELAX_WALK_CHECK_CPUS, launches=k6,
+                claims=len(res.claims), digest=digest)
+
+
+def ladder_cluster_phase(dev, ladder=None) -> dict:
+    """Phase 13: the relax-ladder scans (K6, K6s, fast and zoned) as one
+    cluster of CTAs a solve. The ladder instances' cluster pick, then K6 and
+    K6s against the plain ladder scan on the wide relax walks (17 to 240
+    claims each), the seeded relax fleets (CLUSTER_SEEDS seeds: even seeds
+    zoned, odd seeds fast and zoned), the 400-pod relax walk and a fleet
+    whose rungs place nothing (the plain sides in CPU worker processes
+    meanwhile), config3_soft's and surge_pref's ladder dispatches (their
+    plain sides on the card), and the wide relax walk at RELAX_WALK_CHECK
+    pods through TorchSolver() against RELAX_WALK_DIGEST. `ladder`: phase 2c's ladder_phase results of this
+    run (config3_soft, surge_pref, relax_walk_400, each held against its
+    plain version there with K6s beside it), which the phase then cites
+    instead of running them again."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    out = {}
+    info = ffd.cluster_info(dev)
+    out["picks"] = {k: v for k, v in info.items() if k.startswith("ffd_ladder_")}
+    print("ladder clusters: " + ", ".join(f"{k} CL {v['cl']} (clusters of 16 at once: "
+                                         f"{v['fit16']}, of 8: {v['fit8']})"
+                                         for k, v in out["picks"].items()), flush=True)
+    # the wide walks first: their plain sides take the longest
+    jobs = [("wide", cpus, None) for cpus in WIDE_WALK_CPUS]
+    jobs += [("relax", seed, None) for seed in range(CLUSTER_SEEDS)]
+    jobs += [("relax", seed, True) for seed in range(1, CLUSTER_SEEDS, 2)]
+    jobs += [("stuck", 0, None)]
+    if ladder is None:
+        jobs += [("walk", 400, None)]
+    t0 = time.perf_counter()
+    rows = dict(zip(jobs, ladder_fleet_checks(jobs, dev)))
+    out["fleets_s"] = time.perf_counter() - t0
+    relax = [rows[j] for j in jobs if j[0] == "relax"]
+    assert all(r["zone"] == (s % 2 == 0 or z is True)
+               for (_, s, z), r in zip([j for j in jobs if j[0] == "relax"], relax))
+    assert any(r["attempts"] > 10 for r in relax) and any(r["leftover"] > 0 for r in relax), relax
+    fleets = {"relax": dict(n=len(relax), zoned=sum(r["zone"] for r in relax),
+                            attempts=sum(r["attempts"] for r in relax),
+                            events=sum(r["events"] for r in relax),
+                            with_leftover=sum(r["leftover"] > 0 for r in relax),
+                            most_claims=max(r["claims"] for r in relax))}
+    for cpus in WIDE_WALK_CPUS:
+        # the multi-row regime of the claim split: 17 to 240 claims open
+        wide = fleets[f"wide_walk_{cpus}"] = rows[("wide", cpus, None)]
+        assert wide["leftover"] == 0 and wide["attempts"] == 2 * (WIDE_WALK_PODS - 8), wide
+        assert 16 < wide["claims"] <= 240, wide
+    stuck = fleets["stuck"] = rows[("stuck", 0, None)]
+    # 5 unplaceable pods walk rungs 1-3 past the last; 3 placed by the base
+    assert stuck["leftover"] == 5 and stuck["attempts"] == 5, stuck
+    if ladder is None:
+        walk = fleets["relax_walk_400"] = rows[("walk", 400, None)]
+        for name, inp in (("config3_soft", build_config3_soft_input(PODS)),
+                          ("surge_pref", build_surge_pref_input(PODS))):
+            ph = ladder_phase(inp, dev)
+            ls = sparse_ladder_check(ph, dev)
+            fleets[name] = dict(zone=ph["zone"], M=ph["M"], attempts=ph["attempts"],
+                                events=ph["events"], leftover=ph["leftover"],
+                                claims=int(ph["out"].state.used), k6=ph["err"],
+                                k6s=ls["err"], plain_s=ph["plain_once_s"])
+    else:
+        walk = fleets["relax_walk_400"] = dict(held_in="phase 2c", **{
+            k: ladder["relax_walk_400"][k] for k in ("zone", "M", "attempts", "events", "leftover")},
+            claims=int(ladder["relax_walk_400"]["out"].state.used),
+            k6=ladder["relax_walk_400"]["err"])
+        for name in ("config3_soft", "surge_pref"):
+            ph = ladder[name]
+            fleets[name] = dict(held_in="phase 2c", zone=ph["zone"], M=ph["M"],
+                                attempts=ph["attempts"], events=ph["events"],
+                                leftover=ph["leftover"], claims=int(ph["out"].state.used),
+                                k6=ph["err"])
+    assert walk["leftover"] == 0 and walk["attempts"] == 2 * (400 - 8), walk
+    fleets["relax_walk_digest"] = relax_walk_check(dev)
+    fleets["fuel"] = LADDER_FUEL_NOTE
+    for k, v in fleets.items():
+        print(f"ladder cluster[{k}]: " + (v if isinstance(v, str) else json.dumps(v)), flush=True)
+    torch.cuda.synchronize()
+    out["fleets"] = fleets
+    return out
+
+
 SHARD_SLOTS = 4
 SHARD_SOLVES = 10
 SHARD_DENSE_SOLVES = 2
@@ -5421,10 +5681,10 @@ def ptxas_report(report: str) -> dict:
                   "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>",
                   "ffd_lanes_sparse_kernelILb0E": "ffd_lanes_sparse_kernel<false>",
                   "ffd_lanes_sparse_kernelILb1E": "ffd_lanes_sparse_kernel<true>"})
-    for width, kernel in ((5, "ffd_scan_kernel"), (3, "ffd_cluster_kernel")):
+    for width, kernel in ((1, "ffd_scan_kernel"), (3, "ffd_cluster_kernel"), (2, "ffd_ladder_kernel")):
         for flags in range(1 << width):
             bits = [(flags >> i) & 1 for i in range(width)]
-            mangled = f"{kernel}I" + "".join(f"Lb{b}E" for b in bits)
+            mangled = f"{kernel}I" + "".join(f"Lb{b}E" for b in bits) + "E"  # the list's end
             names[mangled] = f"{kernel}<" + ", ".join("true" if b else "false" for b in bits) + ">"
     out, current = {}, None
     for line in report.splitlines():
@@ -5491,8 +5751,9 @@ def main() -> int:
     only10 = sys.argv[1:] == ["--phase", "10"]
     only11 = sys.argv[1:] == ["--phase", "11"]
     only12 = sys.argv[1:] == ["--phase", "12"]
-    if sys.argv[1:] and not (only10 or only11 or only12):
-        print("usage: python3 chip_smoke.py [--phase 10 | --phase 11 | --phase 12]",
+    only13 = sys.argv[1:] == ["--phase", "13"]
+    if sys.argv[1:] and not (only10 or only11 or only12 or only13):
+        print("usage: python3 chip_smoke.py [--phase 10 | --phase 11 | --phase 12 | --phase 13]",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
@@ -5541,6 +5802,18 @@ def main() -> int:
         # phase 12 alone: the cluster scans on every fleet it names
         clusters = cluster_phase(dev)
         print(json.dumps({"clusters": clusters,
+                          "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only13:
+        # phase 13 alone: the ladder scans on every fleet it names
+        ladders = ladder_cluster_phase(dev)
+        print(json.dumps({"ladders": ladders,
                           "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
                           "wall_s": time.perf_counter() - t_start}), flush=True)
         print(card)
@@ -5727,9 +6000,9 @@ def main() -> int:
     print(f"[phase 2c starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2c: K6, the relax-ladder scan, against its plain version -------------
     # at the ladder cells' shapes (config3_soft through the zoned instance,
-    # surge_pref through the fast one), a 400-pod relax walk (every pod after
-    # an app's first relaxes), and small fleets mixing every preference
-    # kind through both instances
+    # surge_pref through the fast one) and a 400-pod relax walk (every pod
+    # after an app's first relaxes); the seeded fleets mixing every
+    # preference kind through both instances are phase 13's
     relax_inputs = {"config3_soft": build_config3_soft_input(PODS)}
     relax_once = {"surge_pref": build_surge_pref_input(PODS),
                   "relax_walk": build_relax_walk_input(WALK_PODS)}
@@ -5754,24 +6027,6 @@ def main() -> int:
         assert ladder[name]["attempts"] == runs and ladder[name]["leftover"] == 0, name
     walk = ladder["relax_walk_400"]
     assert walk["leftover"] == 0 and walk["attempts"] > 400, walk["attempts"]
-    # the fleets with zone/ct sigs through the zoned instance (as the main
-    # path picks it; the fast instance records no V-axis counts), the others
-    # through both
-    small = []
-    for seed in range(8):
-        inp = build_relax_input(seed)
-        ph = ladder_phase(inp, dev)
-        assert ph["zone"] == (seed % 2 == 0), (seed, ph["zone"])
-        small.append((seed, ph["zone"], ph["attempts"], ph["events"], ph["leftover"]))
-        sparse_ladder_check(ph, dev)
-        if not ph["zone"]:
-            ph = ladder_phase(inp, dev, zone=True)
-            sparse_ladder_check(ph, dev)
-            small.append((seed, True, ph["attempts"], ph["events"], ph["leftover"]))
-    assert any(a > 10 for _, _, a, _, _ in small), small
-    assert any(lo > 0 for *_, lo in small), small
-    print(f"ladder[relax x8]: max_abs_err=0, K6s too (seed, zoned, attempts, events, "
-          f"leftover)={small}", flush=True)
 
     print(f"[phase 2b starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2b: config 5, batched consolidation (K4, K5) ------------------------
@@ -6121,6 +6376,13 @@ def main() -> int:
     clusters = cluster_phase(dev, qrows=qrows)
     clusters["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"clusters": clusters}), flush=True)
+
+    print(f"[phase 13 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 13: the relax-ladder scans as one cluster of CTAs a solve ---------------
+    t0 = time.perf_counter()
+    ladders = ladder_cluster_phase(dev, ladder=ladder)
+    ladders["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"ladders": ladders}), flush=True)
     # solves per kernel in phase 3's counted window: TorchSolver() on the
     # surge, surge_e2e (K7), config 4 (K7 zoned), config 3 and
     # constraint_wide (K7s zoned) REPEATS times, mixed (K7s zoned)
@@ -6197,6 +6459,7 @@ def main() -> int:
         "q_cap": q_cap,
         "qrows": qrows,
         "clusters": clusters,
+        "ladders": ladders,
         "mesh": {"procmesh": {k: v for k, v in mesh["procmesh"].items() if k != "rows"},
                  "hostmesh": {k: v for k, v in mesh["hostmesh"].items() if k != "rows"},
                  "phase_s": mesh["phase_s"]},

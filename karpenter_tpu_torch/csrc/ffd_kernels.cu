@@ -18,14 +18,15 @@
 //                   compact_claim_meta plus the c_mask word pack of
 //                   karpenter_tpu/solver/backend.py:652-660.
 // K4 ffd_batched    replaces karpenter_tpu/solver/tpu/consolidate.py:57
-//                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE, true,
-//                   false, false>, one block per candidate-subset row.
+//                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE>,
+//                   one block per candidate-subset row.
 // K5 pack_verdicts  replaces karpenter_tpu/solver/tpu/consolidate.py:291
 //                   _pack_verdicts.
 // K6 ffd_ladder     replaces karpenter_tpu/solver/tpu/ffd.py:2167
 //                   ffd_solve_ladder (step_ladder :1714-1800):
-//                   ffd_scan_kernel<ZONE, false, true, false>, the
-//                   relax-ladder cascade of attempts per run.
+//                   ffd_ladder_kernel<ZONE, false>, the relax-ladder
+//                   cascade of attempts per run; one thread-block cluster
+//                   a solve.
 // K7 ffd_ckpt       replaces karpenter_tpu/solver/tpu/ffd.py:1975
 //                   ffd_solve_ckpt and :2071 ffd_resume (step_ck
 //                   :1825-1850): ffd_cluster_kernel<ZONE, true, false>,
@@ -49,7 +50,7 @@
 //                   ffd_solve_sparse, :2701 ffd_solve_ladder_sparse, :2500
 //                   ffd_solve_ckpt_sparse and :2602 ffd_resume_sparse: the
 //                   template flag SPARSE of K1/K6/K7 (ffd_cluster_kernel's
-//                   third, ffd_scan_kernel's fifth), built from
+//                   third, ffd_ladder_kernel's second), built from
 //                   ffd_sparse_kernels.cu (this file with FFD_SPARSE_ONLY).
 
 #include <cooperative_groups.h>
@@ -128,11 +129,11 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
 
 // ---- the team: the threads that walk one solve -----------------------------
 //
-// One block (CL = false: K4, K6, K15, K17 and their sparse twins, NT
-// threads) or one thread-block cluster of n CTAs of NTC threads on
-// neighbouring SMs (CL = true: K1, K7 and their sparse twins, one cluster a
-// solve). Work over node rows, claim rows and [n, T] grids is split over
-// the team's threads (gtid of gnt) or warps (gwid of gnw); every CTA
+// One block (CL = false: K4, K15, K17 and K17s, NT threads) or one
+// thread-block cluster of n CTAs of NTC threads on neighbouring SMs (CL =
+// true: K1, K6, K7 and their sparse twins, one cluster a solve). Work over
+// node rows, claim rows and [n, T] grids is split over the team's threads
+// (gtid of gnt) or warps (gwid of gnw); every CTA
 // computes the control scalars, the run's Q / V rows, the pool passes and
 // the zoned [Z] / [P] vectors itself from the same data, so nothing is
 // broadcast. Partials cross CTAs through distributed shared memory: a CTA
@@ -301,20 +302,43 @@ __device__ __forceinline__ void thread_chunk(const Team<CL>& tm, int n, int& lo,
   hi = min(lo + per, n);
 }
 
-// warp gwid's contiguous chunk of [0, n): the claim rows a warp owns
+// The claim rows a CTA's warps own, and warp gwid's contiguous chunk of
+// [0, n): the claim rows a warp owns. Every CTA takes ceil(n / CTAs) rows
+// first and splits them over its warps, so a solve with few claims open
+// keeps every CTA busy (one block: ceil(n / warps) rows a warp). The
+// chunks are contiguous and ascending in gwid.
 template <bool CL>
-__device__ __forceinline__ void warp_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
-  const int per = (n + tm.gnw - 1) / tm.gnw;
-  lo = min(tm.gwid * per, n);
+__device__ __forceinline__ void cta_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+  const int per = (n + tm.n - 1) / tm.n;
+  lo = min(tm.rank * per, n);
   hi = min(lo + per, n);
 }
 
-// the claim rows the CTA's warps own (the union of their warp_chunk)
 template <bool CL>
-__device__ __forceinline__ void cta_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
-  const int per = (n + tm.gnw - 1) / tm.gnw;
-  lo = min(tm.rank * Team<CL>::NWB * per, n);
-  hi = min(lo + Team<CL>::NWB * per, n);
+__device__ __forceinline__ void warp_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+  int clo, chi;
+  cta_chunk<CL>(tm, n, clo, chi);
+  const int per = (chi - clo + Team<CL>::NWB - 1) / Team<CL>::NWB;
+  lo = min(clo + tm.wid * per, chi);
+  hi = min(lo + per, chi);
+}
+
+// The warps that share one claim row's [T] walk: on a cluster NWB / rows
+// where the CTA holds fewer rows than warps, so a row's walk issues a
+// fraction of its serial loads (the other warps idle); else 1 (the
+// one-block scans keep a warp a row). Warp i * ws + j walks types
+// j * 32 + lane, stepping 32 * ws, of the CTA's row i; their maxima meet
+// in the CTA's shared memory.
+template <bool CL, int NWB>
+__device__ __forceinline__ int row_warps(int rows) {
+  if constexpr (CL) return rows > 0 && rows < NWB ? NWB / rows : 1;
+  else return 1;
+}
+
+// the position of the r-th set bit of b (r < popc(b))
+__device__ __forceinline__ int nth_bit(unsigned b, int r) {
+  for (int q = 0; q < r; ++q) b &= b - 1u;
+  return __ffs(b) - 1;
 }
 
 // a lane's contiguous piece of its warp's chunk [wlo, whi)
@@ -352,8 +376,9 @@ __device__ __forceinline__ int floordiv_magic(int n, unsigned m, int sh) {
 // its memory and its integer peak; on one SM the open-claim fit and the
 // mask narrowing were 90% of a surge run (PERF.md §6, Step 0).
 // Design: ONE launch per dispatch, one thread-block cluster of CL CTAs
-// (16, or 8 where the card refuses 16; ffd_cluster_kernel) walks every run
-// (the one-block instances below keep one block of 1024 threads). The carry
+// (16, or 8 where the card refuses 16; ffd_cluster_kernel, and
+// ffd_ladder_kernel for K6) walks every run (the one-block instances below
+// keep one block of 1024 threads). The carry
 // (FFDState) lives in global buffers the wrapper allocated; per-run rows
 // (req and its exact divisions, Q flags) sit in every CTA's shared memory.
 // The claim pass runs one warp of the cluster per OPEN claim, each warp a
@@ -840,10 +865,22 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     my_first = warp_min(my_first);
     if (lane == 0 && my_first != I32MAX) atomicMin(&zs.e_first, my_first);
 
-    // ---- open-claim candidates (ffd.py:946-1011), a warp per claim ------------
-    int wlo, whi;
-    warp_chunk(tm, used0, wlo, whi);
-    for (int m = wlo; m < whi; ++m) {
+    // ---- open-claim candidates (ffd.py:946-1011), a warp per claim, the
+    // rows spread over the CTAs, ws warps a row where a CTA holds fewer rows
+    // than warps (as the fast branch's claim pass) -------------------------
+    int wlo, whi, clo, chi;
+    warp_chunk<CL>(tm, used0, wlo, whi);
+    cta_chunk<CL>(tm, used0, clo, chi);
+    const int ws = row_warps<CL, NWB>(chi - clo);
+    // a claim row's tests, the same in every warp that walks it
+    struct ZRow {
+      unsigned czb, bits_eff;
+      int node_ok, host, zcount;
+      bool claim_ok;
+    };
+    // the row's tests, then its walk of the lane's types t0, t0 + step, ...
+    // (the warp's per-domain maxima in kpz[wid]); returns the warp's k_m
+    auto zrow = [&](int m, int t0, int step, ZRow& r) {
       bool loc = false, ok = true;
       for (int v = lane; v < V; v += 32) {
         const int cvm = a.c_vm[m * V + v];
@@ -888,8 +925,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       int kbest = 0;
       // every lane walks as many rows (the warp reductions below), each
       // row's loads issued before its tests
-      for (int t0 = 0; t0 < T; t0 += 32) {
-        const int t = t0 + lane;
+      for (int t1 = t0 - lane; t1 < T; t1 += step) {
+        const int t = t1 + lane;
         const int tt = t < T ? t : 0;
         const bool ok = (t < T) & (mask[tt] != 0) & (__ldg(&compat[tt]) != 0);
         const unsigned off = __ldg(&a.offer_zc_bits[tt]);
@@ -902,33 +939,61 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
             if (lane == 0 && kz > zs.kpz[wid][z]) zs.kpz[wid][z] = kz;
           }
       }
-      const int k_m = warp_max(kbest);
-      __syncwarp();
-      const bool claim_ok = is_open && pair_ok && pool_ok && host > 0 && anti_ok;
+      r = ZRow{czb, bits_eff, node_ok, host, zcount, is_open && pair_ok && pool_ok && host > 0 && anti_ok};
+      return warp_max(kbest);
+    };
+    // the row's results from its k_m and, in lane z < Z, its domain z's max
+    auto zrow_finish = [&](int m, const ZRow& r, int k_m, int kp) {
       bool emz = false;
       if (lane < Z) {
-        const int kp = zs.kpz[wid][lane];
-        emz = claim_ok && kp > 0;
-        x.caps_mz[(size_t)m * Z + lane] = (emz && zs.elig[lane]) ? min(kp, host) : 0;
+        emz = r.claim_ok && kp > 0;
+        x.caps_mz[(size_t)m * Z + lane] = (emz && zs.elig[lane]) ? min(kp, r.host) : 0;
         if (emz) atomicMin(&zs.pos_claim[lane], E + m);
       }
       const unsigned mz = __ballot_sync(FULL, emz);
       if (lane == 0) {
-        const bool elig_m = k_m > 0 && host > 0;
-        x.c_bits[m] = bits_eff;
+        const bool elig_m = k_m > 0 && r.host > 0;
+        x.c_bits[m] = r.bits_eff;
         x.c_km[m] = k_m;
-        x.c_host[m] = host;
-        x.c_flag[m] = (elig_m ? 1 : 0) | (node_ok ? 2 : 0);
+        x.c_host[m] = r.host;
+        x.c_flag[m] = (elig_m ? 1 : 0) | (r.node_ok ? 2 : 0);
         unsigned eligmask = 0u;
         for (int z = 0; z < Z; ++z) eligmask |= zs.elig[z] ? 1u << z : 0u;
-        if ((mz & eligmask) != 0u && zcount > 1) zs.tgts_bad = 1;
+        if ((mz & eligmask) != 0u && r.zcount > 1) zs.tgts_bad = 1;
         if (elig_m) {
           atomicMin(&zs.c_first, m);
-          if (zcount > 1) zs.multi_claim = 1;
-          if (zcount == 1)
+          if (r.zcount > 1) zs.multi_claim = 1;
+          if (r.zcount == 1)
             for (int z = 0; z < Z; ++z)
-              if ((czb & zs.zcm[z]) != 0u) atomicMin(&zs.first_cz[z], m);
+              if ((r.czb & zs.zcm[z]) != 0u) atomicMin(&zs.first_cz[z], m);
         }
+      }
+    };
+    if (ws == 1) {
+      for (int m = wlo; m < whi; ++m) {
+        ZRow r;
+        const int k_m = zrow(m, lane, 32, r);
+        __syncwarp();
+        zrow_finish(m, r, k_m, lane < Z ? zs.kpz[wid][lane] : 0);
+      }
+    } else {
+      // warp i * ws + j walks slice j of the CTA's row i; slice 0 finishes it
+      // (k_m through the team's reduction slots, which the next reduction
+      // writes only after a barrier)
+      const int i = wid / ws;
+      ZRow r;
+      if (i < chi - clo) {
+        const int k = zrow(clo + i, (wid % ws) * 32 + lane, 32 * ws, r);
+        if (lane == 0) sh.ts.red[wid] = k;
+      }
+      __syncthreads();
+      if (i < chi - clo && wid % ws == 0) {
+        int k_m = 0, kp = 0;
+        for (int j = 0; j < ws; ++j) {
+          k_m = max(k_m, sh.ts.red[wid + j]);
+          if (lane < Z) kp = max(kp, zs.kpz[wid + j][lane]);
+        }
+        zrow_finish(clo + i, r, k_m, kp);
       }
     }
 
@@ -949,6 +1014,13 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     }
     __syncthreads();
     for (int p = 0; p < P; ++p) {
+      // A pool that no allowed domain or the group's pool set admits is
+      // skipped (a relax walk's base attempts meet only such pools): it
+      // cannot be elig_p, and an ineligible pool's kmax_p and charge_p are
+      // read only through p_star when found_p is false, where nothing reads
+      // the values they feed (q_p, full_p, n_open_p, the water-fill's
+      // preconditions need found_p).
+      if (!(zs.elig_p[p] && a.group_pool[g * P + p])) continue;
       const unsigned nbits = zs.nbits_p[p];
       const int* daemon = a.pool_daemon + p * R;
       int kmax = 0;
@@ -1215,8 +1287,6 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       {
         const int per = (used0 + NTB - 1) / NTB;
         const int lo = min(tid * per, used0), hi = min(lo + per, used0);
-        int clo, chi;
-        cta_chunk(tm, used0, clo, chi);
         for (int z = 0; z < Z; ++z) {
           long long sz = 0;
           for (int m = lo; m < hi; ++m) sz += x.caps_mz[(size_t)m * Z + z];
@@ -1439,6 +1509,8 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     a.leftover[s] = zs.remaining;
     *a.events = wadd(*a.events, zs.events);
   }
+  if constexpr (LADDER)  // the cascade reads the attempt's leftover here
+    if (tid == 0) sh.remaining = zs.remaining;
   team_sync<CL>();
 }
 
@@ -1553,18 +1625,35 @@ __device__ void batch_row_prologue(ScanArgs& a) {
 // one rung up; it stops when the run is placed, past the last rung or out of
 // fuel ((count + 1) * (Lw + 2) + 4 attempts).
 //
-// What bounds it on the H100: one block walking a serial chain; the
-// chain is now one step body per attempt, and a pod that relaxes costs at
-// least two (its base attempt and the rung that places it), so a run whose
-// pods all relax costs >= 2 * count serial bodies.
-// Design: the run loop's header picks the attempt (its group and count) and
-// the loop's increment folds it into the run, so the body is K1's, with no
-// change for the other instances. The cascade state (level, remaining,
-// fuel) is uniform over the block and every thread keeps its own copy in
-// registers, computed from the same global values after a block barrier.
-// Each attempt writes its take rows and leftover to scratch (take_row = 0),
-// the increment adds them into the run's output rows, and every attempt
-// commits its carry, as the JAX while_loop commits its state.
+// What bounds it on the H100: a serial chain of step bodies, one per
+// attempt, and a pod that relaxes costs at least two (its base attempt and
+// the rung that places it), so a run whose pods all relax costs >= 2 *
+// count serial bodies; each body is K1's, latency-bound. On one block the
+// open-claim passes, the mask narrowing and the pool passes were 70-90% of
+// an attempt (PERF.md §6, the ladder's attribution).
+// Design: one thread-block cluster a solve (ffd_ladder_kernel, K1's team
+// and launch), so every attempt's body runs on the cluster as K1's runs do.
+// The run loop's header picks the attempt (its group and count) and the
+// loop's increment folds it into the run, so the body is K1's. A walk
+// keeps few claims open (a relax walk: 53 at 10 000 pods), so the body
+// spreads the claim rows over the CTAs (cta_chunk) and walks each row with
+// several warps (row_warps), in the fast branch's fit and narrowing and the
+// event engine's claim pass, and skips work that cannot change its outputs:
+// the pools once no pod is left, pools that no allowed domain admits in the
+// event engine, the node pass where no node row can take a pod (every
+// instance does the same).
+// The cascade state (level, remaining, fuel) is uniform over the team:
+// every thread of every CTA keeps its own copy in registers, computed from
+// the attempt's leftover in its CTA's own sh.remaining (every path out of
+// an attempt's body leaves it there, the same in every CTA, behind the
+// body's closing team barrier), so the cascade reads nothing across CTAs.
+// Each attempt writes its take rows and leftover to scratch (take_row = 0);
+// the increment adds the take rows into the run's output rows strided over
+// the team's threads, the same stride at which every attempt's body zeroes
+// or first writes a take row before its first team barrier (the zoned
+// run's zeroing and final copy, the node pour or its skip), so the fold
+// needs no barrier of its own. Every attempt commits its carry, as the JAX
+// while_loop commits its state.
 
 struct Cascade {
   int s = -1;     // the run the cascade is walking
@@ -1580,14 +1669,16 @@ struct Cascade {
 // first time it sees s, then picks the next attempt: its group in g, its pod
 // count in count. Returns false when the walk is over (the run's leftover
 // written): the loop then moves to the next run.
-__device__ bool ladder_attempt(const ScanArgs& a, Cascade& c, int s, int& g, int& count) {
+template <bool CL>
+__device__ bool ladder_attempt(const ScanArgs& a, const Team<CL>& tm, Cascade& c, int s, int& g,
+                               int& count) {
   if (c.s != s) {
     c.s = s;
     c.lvl = 0;
     c.rem = count;
     c.fuel = wadd(wmul(wadd(count, 1), a.Lw + 2), 4);
-    for (int e = threadIdx.x; e < a.E; e += NT) a.out_take_e[(size_t)s * a.E + e] = 0;
-    for (int m = threadIdx.x; m < a.M; m += NT) a.out_take_c[(size_t)s * a.M + m] = 0;
+    for (int e = tm.gtid; e < a.E; e += tm.gnt) a.out_take_e[(size_t)s * a.E + e] = 0;
+    for (int m = tm.gtid; m < a.M; m += tm.gnt) a.out_take_c[(size_t)s * a.M + m] = 0;
   }
   c.ran = 0;
   if (count > 0 && c.rem > 0 && c.lvl <= a.Lw && c.fuel > 0) {
@@ -1602,29 +1693,31 @@ __device__ bool ladder_attempt(const ScanArgs& a, Cascade& c, int s, int& g, int
       return true;
     }
   }
-  if (threadIdx.x == 0) a.out_leftover[s] = count > 0 ? c.rem : 0;
+  if (tm.lead()) a.out_leftover[s] = count > 0 ? c.rem : 0;
   return false;
 }
 
 // The increment of the run loop: K1 and K4 go to the next run; K6 folds the
 // attempt that ran into run s (takes into its output rows, placed pods into
-// the cascade) and stays on s, or moves on when no attempt ran.
-template <bool LADDER>
-__device__ __forceinline__ int next_run(const ScanArgs& a, Cascade& c, int s) {
+// the cascade: the attempt's leftover is the CTA's sh.remaining) and stays
+// on s, or moves on when no attempt ran.
+template <bool LADDER, bool CL>
+__device__ __forceinline__ int next_run(const ScanArgs& a, const RunShared& sh, const Team<CL>& tm,
+                                        Cascade& c, int s) {
   if constexpr (!LADDER) {
     return s + 1;
   } else {
     if (!c.ran) return s + 1;
-    for (int e = threadIdx.x; e < a.E; e += NT)
+    for (int e = tm.gtid; e < a.E; e += tm.gnt)
       a.out_take_e[(size_t)s * a.E + e] = wadd(a.out_take_e[(size_t)s * a.E + e], a.take_e[e]);
-    for (int m = threadIdx.x; m < a.M; m += NT)
+    for (int m = tm.gtid; m < a.M; m += tm.gnt)
       a.out_take_c[(size_t)s * a.M + m] = wadd(a.out_take_c[(size_t)s * a.M + m], a.take_c[m]);
-    const int placed = wsub(c.cnt, a.leftover[s]);
+    const int placed = wsub(c.cnt, sh.remaining);
     c.lvl = c.base ? 1 : (placed > 0 ? 0 : c.lvl + 1);
     c.rem = wsub(c.rem, placed);
     c.fuel = wsub(c.fuel, 1);
     c.ran = 0;
-    if (threadIdx.x == 0) *a.attempts += 1;
+    if (tm.lead()) *a.attempts += 1;
     return s;
   }
 }
@@ -1742,13 +1835,14 @@ __device__ __forceinline__ size_t cta_words(const ScanArgs& a) {
   return 3 * (size_t)a.T + 2 * (size_t)a.M;
 }
 
-// The scan body of every instance below: ffd_scan_kernel's, ffd_cluster_kernel's
-// and, for K15, ffd_lanes_kernel's. Inlined into each kernel, so an
-// instance compiles as it did when this body was the kernel's own. CL
-// selects the team (one block, or one cluster a solve; see Team).
+// The scan body of every instance below: ffd_scan_kernel's,
+// ffd_cluster_kernel's, ffd_ladder_kernel's and, for K15,
+// ffd_lanes_kernel's. Inlined into each kernel, so an instance compiles as
+// it did when this body was the kernel's own. CL selects the team (one
+// block, or one cluster a solve; see Team).
 template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE, bool CL>
 __device__ __forceinline__ void scan_body(ScanArgs& a) {
-  static_assert(!(CL && (BATCH || LADDER)), "the batched and ladder scans keep one block");
+  static_assert(!(CL && BATCH), "the batched scan keeps one block per row");
   constexpr int NTB = Team<CL>::NTB, NWB = Team<CL>::NWB;
   __shared__ RunShared sh;
   ZoneShared* zs = nullptr;
@@ -1786,12 +1880,14 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
   __syncthreads();
 
   Cascade cas;
-  for (int s = 0; s < a.S; s = next_run<LADDER>(a, cas, snapshot<CKPT>(a, sh, tm, s))) {
+  for (int s = 0; s < a.S; s = next_run<LADDER>(a, sh, tm, cas, snapshot<CKPT>(a, sh, tm, s))) {
     int g = a.run_group[s];
     int count = a.run_count[s];
     if constexpr (LADDER)
-      if (!ladder_attempt(a, cas, s, g, count)) continue;
-    if (count <= 0) {  // padded run: zero rows, state untouched
+      if (!ladder_attempt(a, tm, cas, s, g, count)) continue;
+    // padded run: zero rows, state untouched (never an attempt: the cascade
+    // starts one only with count > 0)
+    if (count <= 0) {
       for (int i = tm.gtid; i < E; i += tm.gnt) a.take_e[take_row<BATCH || LADDER>(s, E) + i] = 0;
       for (int i = tm.gtid; i < M; i += tm.gnt) a.take_c[take_row<BATCH || LADDER>(s, M) + i] = 0;
       if (tm.lead()) a.leftover[s] = 0;
@@ -1917,7 +2013,21 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     // pour places min(remaining, sum) pods; only past that is the placed
     // count reduced.
     int has_e_boot = 0;
-    if (E > 0) {
+    bool nodes = E > 0;
+    // The pass is skipped where no node row can take a pod of the run (a
+    // dispatch without nodes holds padding rows only): every CTA tests the
+    // rows itself (E <= its threads) before any thread of the team writes,
+    // and the take row is zeroed at the stride the pour writes it
+    if (nodes && E <= NTB) {
+      int cap = 0;
+      if (tid < E && node_compat_at<BATCH>(a, g, tid))
+        cap = min(fit_rows(a.node_free + tid * R, a.e_cum + tid * R, sh, R),
+                  row_allowance<false, SPARSE>(sh, nq, a.e_cm + tid * Q, a.e_co + tid * Q)) > 0;
+      nodes = __syncthreads_or(cap);
+      if (!nodes)
+        for (int e = tm.gtid; e < E; e += tm.gnt) a.take_e[take_row<BATCH || LADDER>(s, E) + e] = 0;
+    }
+    if (nodes) {
       int my_first = I32MAX;
       for (int e = tm.gtid; e < E; e += tm.gnt) {
         int base = node_compat_at<BATCH>(a, g, e)
@@ -1965,42 +2075,109 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
 
     // ---- 2. open claims: a warp of the team per claim row, the warp's
     // rows contiguous; the pour's prefix runs over the warps' lanes in
-    // row order, so every row stays with its warp ---------------------------
+    // row order, so every row stays with its warp. The rows spread over
+    // the CTAs, and a row's [T] is walked by ws warps where a CTA holds
+    // fewer rows than warps (row_warps) ----------------------------------------
     const int used0 = sh.used;
     const unsigned char* compat = a.group_compat_t + (size_t)g * T;
     const unsigned* g_nok = a.group_pair_nok + (size_t)g * W;
-    int wlo, whi;
-    warp_chunk(tm, used0, wlo, whi);
+    int wlo, whi, clo, chi;
+    warp_chunk<CL>(tm, used0, wlo, whi);
+    cta_chunk<CL>(tm, used0, clo, chi);
+    const int ws = row_warps<CL, NWB>(chi - clo);
+    // the most pods of the run that claim row m takes over the lane's types
+    // t0, t0 + step, ... (0 where the claim cannot take the group): the
+    // warp's maximum, in every lane
+    auto claim_fit = [&](int m, int t0, int step) {
+      const int pool = a.c_pool[m];
+      const bool is_open = pool >= 0;
+      const bool pool_ok = is_open && a.group_pool[g * P + min(max(pool, 0), P - 1)];
+      bool clash = false;
+      for (int w = lane; w < W; w += 32) clash |= (a.c_gbits[(size_t)m * W + w] & g_nok[w]) != 0u;
+      const bool node_ok = is_open && pool_ok && !__any_sync(FULL, clash);
+      int kbest = 0;
+      if (node_ok) {
+        const unsigned czc = a.c_zc_bits[m] & g_zc;
+        const int* cum = a.c_cum + m * R;
+        const unsigned char* mask = a.c_mask + (size_t)m * T;
+        // each row's loads issued before its test, four rows in flight
+#pragma unroll 4
+        for (int t = t0; t < T; t += step) {
+          const bool ok = (mask[t] != 0) & (__ldg(&compat[t]) != 0) &
+                          ((czc & __ldg(&a.offer_zc_bits[t])) != 0u);
+          const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
+          if (ok) kbest = max(kbest, k);
+        }
+      }
+      return warp_max(kbest);
+    };
+    // claims that received pods: narrow the lane's types of the type mask
+    // with the OLD carry ...
+    auto narrow = [&](int m, int take, int t0, int step) {
+      const unsigned czc = a.c_zc_bits[m];
+      const int* cum = a.c_cum + m * R;
+      unsigned char* mask = a.c_mask + (size_t)m * T;
+#pragma unroll 4
+      for (int t = t0; t < T; t += step) {
+        const bool fit = (mask[t] != 0) & (__ldg(&compat[t]) != 0) &
+                         ((czc & __ldg(&a.offer_zc_bits[t]) & g_zc) != 0u);
+        const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
+        mask[t] = fit && k >= take;
+      }
+    };
+    // ... then fold the pods into the row's counters (the warp's lanes): a
+    // lane a column where the columns are the dense ones (distinct); a
+    // sparse view's slots are walked in order
+    auto fold = [&](int m, int take) {
+      const unsigned czc = a.c_zc_bits[m];
+      for (int r = lane; r < R; r += 32) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(take, sh.req[r]));
+      // (a sparse view's padding slots, column -1, are skipped)
+      for (int k = SPARSE ? (lane == 0 ? 0 : nq) : lane; k < nq; k += SPARSE ? 1 : 32) {
+        const int q = qcol_of<SPARSE>(sh, k);
+        if (!SPARSE || q >= 0) {
+          if (sh.q()[k].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
+          if (sh.q()[k].og && sh.q()[k].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
+        }
+      }
+      if (ZONE)
+        for (int k = SPARSE ? (lane == 0 ? 0 : nv) : lane; k < nv; k += SPARSE ? 1 : 32) {
+          const int v = SPARSE ? zs->vcol[k] : k;
+          if ((!SPARSE || v >= 0) && zs->mv[k]) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], take);
+        }
+      if (lane == 0) {
+        a.c_zc_bits[m] = czc & g_zc;
+        a.c_gbits[(size_t)m * W + (g >> 5)] |= 1u << (g & 31);
+      }
+    };
     {
       int my_first = I32MAX;
-      for (int m = wlo; m < whi; ++m) {
-        const int pool = a.c_pool[m];
-        const bool is_open = pool >= 0;
-        const bool pool_ok = is_open && a.group_pool[g * P + min(max(pool, 0), P - 1)];
-        bool clash = false;
-        for (int w = lane; w < W; w += 32) clash |= (a.c_gbits[(size_t)m * W + w] & g_nok[w]) != 0u;
-        const bool node_ok = is_open && pool_ok && !__any_sync(FULL, clash);
-        int kbest = 0;
-        if (node_ok) {
-          const unsigned czc = a.c_zc_bits[m] & g_zc;
-          const int* cum = a.c_cum + m * R;
-          const unsigned char* mask = a.c_mask + (size_t)m * T;
-          // each row's loads issued before its test, four rows in flight
-#pragma unroll 4
-          for (int t = lane; t < T; t += 32) {
-            const bool ok = (mask[t] != 0) & (__ldg(&compat[t]) != 0) &
-                            ((czc & __ldg(&a.offer_zc_bits[t])) != 0u);
-            const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
-            if (ok) kbest = max(kbest, k);
-          }
+      // the row's caps from its fit, by lane 0 of the warp that owns it
+      auto caps = [&](int m, int kbest) {
+        const int allow = row_allowance<false, SPARSE>(sh, nq, a.c_cm + m * Q, a.c_co + m * Q);
+        const int pos = row_pos<SPARSE>(sh, nq, a.c_cm + m * Q);
+        c_full[m] = min(kbest, min(allow, pos));
+        c_boot[m] = min(kbest, allow);
+        if (c_boot[m] > 0) my_first = min(my_first, m);
+      };
+      if (ws == 1) {
+        for (int m = wlo; m < whi; ++m) {
+          const int kbest = claim_fit(m, lane, 32);
+          if (lane == 0) caps(m, kbest);
         }
-        kbest = warp_max(kbest);
-        if (lane == 0) {
-          const int allow = row_allowance<false, SPARSE>(sh, nq, a.c_cm + m * Q, a.c_co + m * Q);
-          const int pos = row_pos<SPARSE>(sh, nq, a.c_cm + m * Q);
-          c_full[m] = min(kbest, min(allow, pos));
-          c_boot[m] = min(kbest, allow);
-          if (c_boot[m] > 0) my_first = min(my_first, m);
+      } else {
+        // (the CTA's rows are fewer than its warps: warp i owns row clo + i;
+        // the warps' maxima meet in the team's reduction slots, which the
+        // next reduction writes only after a barrier)
+        const int i = tm.wid / ws;
+        if (i < chi - clo) {
+          const int k = claim_fit(clo + i, (tm.wid % ws) * 32 + lane, 32 * ws);
+          if (lane == 0) sh.ts.red[tm.wid] = k;
+        }
+        __syncthreads();
+        if (tm.wid < chi - clo && lane == 0) {
+          int k = 0;
+          for (int j = 0; j < ws; ++j) k = max(k, sh.ts.red[tm.wid * ws + j]);
+          caps(clo + tm.wid, k);
         }
       }
       __syncwarp();
@@ -2027,40 +2204,29 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       if (tot >= 0 && tot <= I32MAX) placed = rem > 0 ? (int)min((long long)rem, tot) : 0;
       else placed = team_reduce<OP_SUM>(tm, placed, sh.ts);
       __syncwarp();
-      // claims that received pods: narrow the type mask with the OLD carry,
-      // then fold the pods in
-      for (int m = wlo; m < whi; ++m) {
-        const int take = c_take[m];
-        if (take <= 0) continue;
-        const unsigned czc = a.c_zc_bits[m];
-        const int* cum = a.c_cum + m * R;
-        unsigned char* mask = a.c_mask + (size_t)m * T;
-#pragma unroll 4
-        for (int t = lane; t < T; t += 32) {
-          const bool fit = (mask[t] != 0) & (__ldg(&compat[t]) != 0) &
-                           ((czc & __ldg(&a.offer_zc_bits[t]) & g_zc) != 0u);
-          const int k = fit_rows(a.type_alloc + t * R, cum, sh, R);
-          mask[t] = fit && k >= take;
+      if (ws == 1) {
+        for (int m = wlo; m < whi; ++m) {
+          const int take = c_take[m];
+          if (take <= 0) continue;
+          narrow(m, take, lane, 32);
+          __syncwarp();
+          fold(m, take);
         }
-        __syncwarp();
-        // the row's counters: a lane a column where the columns are the
-        // dense ones (distinct); a sparse view's slots are walked in order
-        for (int r = lane; r < R; r += 32) a.c_cum[m * R + r] = wadd(a.c_cum[m * R + r], wmul(take, sh.req[r]));
-        for (int k = SPARSE ? (lane == 0 ? 0 : nq) : lane; k < nq; k += SPARSE ? 1 : 32) {
-          const int q = qcol_of<SPARSE>(sh, k);
-          if constexpr (SPARSE) if (q < 0) continue;
-          if (sh.q()[k].mg) a.c_cm[m * Q + q] = wadd(a.c_cm[m * Q + q], take);
-          if (sh.q()[k].og && sh.q()[k].kq == 1) a.c_co[m * Q + q] = wadd(a.c_co[m * Q + q], 1);
-        }
-        if constexpr (ZONE)
-          for (int k = SPARSE ? (lane == 0 ? 0 : nv) : lane; k < nv; k += SPARSE ? 1 : 32) {
-            const int v = SPARSE ? zs->vcol[k] : k;
-            if constexpr (SPARSE) if (v < 0) continue;
-            if (zs->mv[k]) a.c_vm[m * a.V + v] = wadd(a.c_vm[m * a.V + v], take);
+      } else {
+        // the CTA's receiving rows share all its warps' walks
+        __syncthreads();  // the CTA's pours are written
+        const int rows = chi - clo;
+        const unsigned got = __ballot_sync(FULL, lane < rows && c_take[clo + lane] > 0);
+        const int nr = __popc(got);
+        if (nr > 0) {
+          const int wr = NWB / nr;
+          const int r = tm.wid / wr;
+          if (r < nr) {
+            const int m = clo + nth_bit(got, r);
+            narrow(m, c_take[m], (tm.wid % wr) * 32 + lane, 32 * wr);
           }
-        if (lane == 0) {
-          a.c_zc_bits[m] = czc & g_zc;
-          a.c_gbits[(size_t)m * W + (g >> 5)] |= 1u << (g & 31);
+          __syncthreads();  // every walk read the old carry
+          if (tm.wid < rows && ((got >> tm.wid) & 1u)) fold(clo + tm.wid, c_take[clo + tm.wid]);
         }
       }
       if (tid == 0) {
@@ -2072,8 +2238,11 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
 
     // ---- 3. new claims, pool by pool in priority order: every CTA walks
     // every pool's [T] row (the fits into its own k_t / fit_t), so the
-    // pool's decision needs no barrier across the cluster ------------------
-    for (int p = 0; p < P; ++p) {
+    // pool's decision needs no barrier across the cluster. The walk stops
+    // once no pod is left (a relax rung pours one pod, mostly into an open
+    // claim): a pool then opens nothing, and the outputs are the same
+    // (sh.remaining is the same in every thread of the team) -----------------
+    for (int p = 0; p < P && sh.remaining != 0; ++p) {
       const unsigned new_bits = a.pool_zc_bits[p] & g_zc;
       const int* daemon = a.pool_daemon + p * R;
       if (tid < R) sh.charge[tid] = I32MAX;
@@ -2213,12 +2382,11 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
   if (tm.lead()) *a.used = sh.used;
 }
 
-// K4 (BATCH=true: one block per subset row, from the prologue above) and
-// K6 (LADDER=true: one solve, a cascade of attempts per run), one block
-template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
+// K4: the batched scan, one block per subset row (from the prologue above)
+template <bool ZONE>
 __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
-  if constexpr (BATCH) batch_row_prologue(a);
-  scan_body<ZONE, BATCH, LADDER, CKPT, SPARSE, false>(a);
+  batch_row_prologue(a);
+  scan_body<ZONE, true, false, false, false, false>(a);
 }
 
 // K1 (CKPT=false) and K7 (CKPT=true: K1 with the snapshot ring), and their
@@ -2226,6 +2394,13 @@ __global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
 template <bool ZONE, bool CKPT, bool SPARSE>
 __global__ void __launch_bounds__(NTC, 1) ffd_cluster_kernel(ScanArgs a) {
   scan_body<ZONE, false, false, CKPT, SPARSE, true>(a);
+}
+
+// K6 and K6s (LADDER=true: a cascade of attempts per run): one solve on one
+// cluster of CTAs, as K1's
+template <bool ZONE, bool SPARSE>
+__global__ void __launch_bounds__(NTC, 1) ffd_ladder_kernel(ScanArgs a) {
+  scan_body<ZONE, false, true, false, SPARSE, true>(a);
 }
 
 #ifdef FFD_LANES_ONLY
@@ -2660,11 +2835,11 @@ static int launch_rows(K kern, const ScanArgs& a, bool zone, bool sparse, int* o
   return e != 0 ? -e : dyn;
 }
 
-template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
+template <bool ZONE>
 static int launch_scan(int blocks, const ScanArgs& a, void* stream) {
-  auto kern = ffd_scan_kernel<ZONE, BATCH, LADDER, CKPT, SPARSE>;
+  auto kern = ffd_scan_kernel<ZONE>;
   static int opted[MAX_DEVICES] = {};
-  const int dyn = launch_rows(kern, a, ZONE, SPARSE, opted);
+  const int dyn = launch_rows(kern, a, ZONE, false, opted);
   if (dyn < 0) return -dyn;
   kern<<<blocks, NT, dyn, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -2694,7 +2869,7 @@ static int least_budget(std::initializer_list<int> budgets) {
   return best;
 }
 
-// ---- the cluster launch (K1, K7 and their sparse twins) ----------------------
+// ---- the cluster launch (K1, K6, K7 and their sparse twins) ------------------
 //
 // One cluster of CL CTAs a solve: CL = 16 where the device allows the
 // non-portable size and the occupancy query fits one such cluster at the
@@ -2706,10 +2881,18 @@ struct ClusterPick {
   int cl, fit16, fit8;  // the cluster size; clusters of 16 / of 8 the device holds at once
 };
 
-template <bool ZONE, bool CKPT, bool SPARSE>
+template <bool ZONE, bool LADDER, bool CKPT, bool SPARSE>
 static ClusterPick* cluster_picks() {
   static ClusterPick picks[MAX_DEVICES] = {};
   return picks;
+}
+
+// the cluster kernel of an instance: ffd_ladder_kernel for K6 / K6s,
+// ffd_cluster_kernel for K1 / K7 and their sparse twins
+template <bool ZONE, bool LADDER, bool CKPT, bool SPARSE>
+static auto cluster_kernel() {
+  if constexpr (LADDER) return ffd_ladder_kernel<ZONE, SPARSE>;
+  else return ffd_cluster_kernel<ZONE, CKPT, SPARSE>;
 }
 
 template <typename K>
@@ -2753,10 +2936,10 @@ static int pick_cluster(K kern, ClusterPick* picks, int& dev) {
   return 0;
 }
 
-template <bool ZONE, bool CKPT, bool SPARSE>
+template <bool ZONE, bool LADDER, bool CKPT, bool SPARSE>
 static int launch_cluster(const ScanArgs& a, void* stream) {
-  auto kern = ffd_cluster_kernel<ZONE, CKPT, SPARSE>;
-  ClusterPick* picks = cluster_picks<ZONE, CKPT, SPARSE>();
+  auto kern = cluster_kernel<ZONE, LADDER, CKPT, SPARSE>();
+  ClusterPick* picks = cluster_picks<ZONE, LADDER, CKPT, SPARSE>();
   int dev = 0;
   const int err = pick_cluster(kern, picks, dev);
   if (err != 0) return err;
@@ -2780,11 +2963,11 @@ static int launch_cluster(const ScanArgs& a, void* stream) {
 
 // out[0..2]: the instance's cluster size and the clusters of 16 / of 8 the
 // device holds at once (picking them on first use)
-template <bool ZONE, bool CKPT, bool SPARSE>
+template <bool ZONE, bool LADDER, bool CKPT, bool SPARSE>
 static int cluster_info(int* out) {
-  ClusterPick* picks = cluster_picks<ZONE, CKPT, SPARSE>();
+  ClusterPick* picks = cluster_picks<ZONE, LADDER, CKPT, SPARSE>();
   int dev = 0;
-  const int err = pick_cluster(ffd_cluster_kernel<ZONE, CKPT, SPARSE>, picks, dev);
+  const int err = pick_cluster(cluster_kernel<ZONE, LADDER, CKPT, SPARSE>(), picks, dev);
   if (err != 0) return err;
   out[0] = picks[dev].cl;
   out[1] = picks[dev].fit16;
@@ -2792,14 +2975,17 @@ static int cluster_info(int* out) {
   return 0;
 }
 
-// The four cluster instances of a library (SPARSE: the sparse one): K1
-// fast, K1 zoned, K7 fast, K7 zoned, three ints each into out[0..11].
+// The six cluster instances of a library (SPARSE: the sparse one): K1
+// fast, K1 zoned, K7 fast, K7 zoned, K6 fast, K6 zoned, three ints each
+// into out[0..17].
 template <bool SPARSE>
 static int clusters_info(int* out) {
-  int e = cluster_info<false, false, SPARSE>(out);
-  if (e == 0) e = cluster_info<true, false, SPARSE>(out + 3);
-  if (e == 0) e = cluster_info<false, true, SPARSE>(out + 6);
-  if (e == 0) e = cluster_info<true, true, SPARSE>(out + 9);
+  int e = cluster_info<false, false, false, SPARSE>(out);
+  if (e == 0) e = cluster_info<true, false, false, SPARSE>(out + 3);
+  if (e == 0) e = cluster_info<false, false, true, SPARSE>(out + 6);
+  if (e == 0) e = cluster_info<true, false, true, SPARSE>(out + 9);
+  if (e == 0) e = cluster_info<false, true, false, SPARSE>(out + 12);
+  if (e == 0) e = cluster_info<true, true, false, SPARSE>(out + 15);
   return e;
 }
 
@@ -2836,15 +3022,16 @@ static int scan_launch(void** p, int n, const int* d, void* stream) {
   const bool zone = d[11] != 0;
   if (!scan_limits_ok(a, zone) || !fill_sparse<SPARSE>(a, p, n, d, 12 + 2 * SPARSE))
     return (int)cudaErrorInvalidValue;
-  return zone ? launch_cluster<true, false, SPARSE>(a, stream)
-              : launch_cluster<false, false, SPARSE>(a, stream);
+  return zone ? launch_cluster<true, false, false, SPARSE>(a, stream)
+              : launch_cluster<false, false, false, SPARSE>(a, stream);
 }
 
-// K6 (and K6s). ptrs: as scan_launch (the 32 scan inputs, the carry,
-// take_e, take_c, leftover, events, scratch), then run_ladder [S, Lw] and
+// K6 (and K6s), one cluster a solve. ptrs: as scan_launch (the 32 scan
+// inputs, the carry, take_e, take_c, leftover, events, scratch), then
+// run_ladder [S, Lw] and
 // the attempt count (a zeroed int32 scalar); dims: as scan_launch, then Lw
 // and the offset of the attempt's rows in the scratch (take_e [E], take_c
-// [M], leftover [S] after the scan's own).
+// [M], leftover [S] after the cluster scan's own rows and its CTAs').
 template <bool SPARSE>
 static int ladder_launch(void** p, int n, const int* d, void* stream) {
   if (n != 55 + 2 * SPARSE) return (int)cudaErrorInvalidValue;
@@ -2863,8 +3050,8 @@ static int ladder_launch(void** p, int n, const int* d, void* stream) {
   a.take_e = a.scratch + off;
   a.take_c = a.take_e + a.E;
   a.leftover = a.take_c + a.M;
-  return zone ? launch_scan<true, false, true, false, SPARSE>(1, a, stream)
-              : launch_scan<false, false, true, false, SPARSE>(1, a, stream);
+  return zone ? launch_cluster<true, true, false, SPARSE>(a, stream)
+              : launch_cluster<false, true, false, SPARSE>(a, stream);
 }
 
 // K7 (and K7s). ptrs: as scan_launch (the 32 scan inputs, the carry — a
@@ -2888,8 +3075,8 @@ static int ckpt_launch(void** p, int n, const int* d, void* stream) {
   if (!scan_limits_ok(a, zone) || a.ck_every < 1 || a.n_ckpt < 1 ||
       !fill_sparse<SPARSE>(a, p, n, d, 14 + 2 * SPARSE))
     return (int)cudaErrorInvalidValue;
-  return zone ? launch_cluster<true, true, SPARSE>(a, stream)
-              : launch_cluster<false, true, SPARSE>(a, stream);
+  return zone ? launch_cluster<true, false, true, SPARSE>(a, stream)
+              : launch_cluster<false, false, true, SPARSE>(a, stream);
 }
 
 extern "C" {
@@ -2914,16 +3101,16 @@ int ffd_ckpt_sparse_launch(void** p, int n, const int* d, void* stream) {
 int ffd_sparse_rows_budget(void**, int, const int*, void*) {
   return least_budget({rows_budget(ffd_cluster_kernel<false, false, true>),
                        rows_budget(ffd_cluster_kernel<true, false, true>),
-                       rows_budget(ffd_scan_kernel<false, false, true, false, true>),
-                       rows_budget(ffd_scan_kernel<true, false, true, false, true>),
+                       rows_budget(ffd_ladder_kernel<false, true>),
+                       rows_budget(ffd_ladder_kernel<true, true>),
                        rows_budget(ffd_cluster_kernel<false, true, true>),
                        rows_budget(ffd_cluster_kernel<true, true, true>)});
 }
 
-// The cluster size of this library's four cluster instances (K1s fast and
-// zoned, K7s fast and zoned) and the clusters of 16 and of 8 the device
-// holds at once: 12 ints into the host buffer ptrs[0]. Returns 0 or a CUDA
-// error.
+// The cluster size of this library's six cluster instances (K1s fast and
+// zoned, K7s fast and zoned, K6s fast and zoned) and the clusters of 16 and
+// of 8 the device holds at once: 18 ints into the host buffer ptrs[0].
+// Returns 0 or a CUDA error.
 int ffd_sparse_cluster_info(void** p, int, const int*, void*) {
   return clusters_info<true>((int*)p[0]);
 }
@@ -3048,8 +3235,7 @@ int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
   const int B = d[12];
   a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
   if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  return zone ? launch_scan<true, true, false, false, false>(B, a, stream)
-              : launch_scan<false, true, false, false, false>(B, a, stream);
+  return zone ? launch_scan<true>(B, a, stream) : launch_scan<false>(B, a, stream);
 }
 
 int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
@@ -3066,15 +3252,15 @@ int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
 int ffd_rows_budget(void**, int, const int*, void*) {
   return least_budget({rows_budget(ffd_cluster_kernel<false, false, false>),
                        rows_budget(ffd_cluster_kernel<true, false, false>),
-                       rows_budget(ffd_scan_kernel<false, true, false, false, false>),
-                       rows_budget(ffd_scan_kernel<true, true, false, false, false>),
-                       rows_budget(ffd_scan_kernel<false, false, true, false, false>),
-                       rows_budget(ffd_scan_kernel<true, false, true, false, false>),
+                       rows_budget(ffd_scan_kernel<false>),
+                       rows_budget(ffd_scan_kernel<true>),
+                       rows_budget(ffd_ladder_kernel<false, false>),
+                       rows_budget(ffd_ladder_kernel<true, false>),
                        rows_budget(ffd_cluster_kernel<false, true, false>),
                        rows_budget(ffd_cluster_kernel<true, true, false>)});
 }
 
-// As ffd_sparse_cluster_info, for K1 / K7 fast and zoned.
+// As ffd_sparse_cluster_info, for K1 / K7 / K6 fast and zoned.
 int ffd_cluster_info(void** p, int, const int*, void*) {
   return clusters_info<false>((int*)p[0]);
 }

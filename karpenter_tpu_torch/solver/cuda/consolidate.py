@@ -21,7 +21,7 @@ under-count claims for rows that are already rejected (used > 1).
 
 Two kernels, each with a plain PyTorch version beside it:
 
-- `batched_ffd` (csrc/ffd_kernels.cu K4, `ffd_scan_kernel<ZONE, true>`):
+- `batched_ffd` (csrc/ffd_kernels.cu K4, `ffd_scan_kernel<ZONE>`):
   the FFD scan over B subset rows, one block per row, verdict mode (no
   per-run take tables);
 - `pack_verdicts` (K5): each row's leftover total, `used`, zc bits and

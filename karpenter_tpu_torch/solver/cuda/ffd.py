@@ -214,20 +214,18 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # Launch counts, one per wrapper call that launches its kernel(s). A run
 # that resets them and reads them after proves the path went through the
 # kernels. The scan counts its instances apart: ffd_fast_scan is
-# ffd_scan_kernel<false, false> (zone_engine=False), ffd_zoned_scan is
-# ffd_scan_kernel<true, false>; the batched consolidation scan
-# (consolidate.batched_ffd) is ffd_scan_kernel<false, true>
-# (ffd_batched_fast_scan) and <true, true> (ffd_batched_zoned_scan);
-# pack_verdicts is consolidate.pack_verdicts; the relax-ladder scan
-# (ffd_solve_ladder) is ffd_scan_kernel<false, false, true>
-# (ffd_ladder_fast_scan) and <true, false, true> (ffd_ladder_zoned_scan);
-# the checkpointed scan (ffd_solve_ckpt and ffd_resume) is
-# ffd_scan_kernel<false, false, false, true> (ffd_ckpt_fast_scan) and
-# <true, false, false, true> (ffd_ckpt_zoned_scan). Every other instance's
-# fourth flag is false. The fifth flag, SPARSE, is true in the sparse
-# instances of K1 (ffd_sparse_fast_scan / ffd_sparse_zoned_scan), K6
-# (ffd_ladder_sparse_*) and K7 (ffd_ckpt_sparse_*, also ffd_resume_sparse),
-# false in every other; pack_outputs is the dense output pack; gang_commit,
+# ffd_cluster_kernel<false, false, false> (zone_engine=False), ffd_zoned_scan
+# is ffd_cluster_kernel<true, false, false>; the batched consolidation scan
+# (consolidate.batched_ffd) is ffd_scan_kernel<false> (ffd_batched_fast_scan)
+# and <true> (ffd_batched_zoned_scan); pack_verdicts is
+# consolidate.pack_verdicts; the relax-ladder scan (ffd_solve_ladder) is
+# ffd_ladder_kernel<false, false> (ffd_ladder_fast_scan) and <true, false>
+# (ffd_ladder_zoned_scan); the checkpointed scan (ffd_solve_ckpt and
+# ffd_resume) is ffd_cluster_kernel<false, true, false> (ffd_ckpt_fast_scan)
+# and <true, true, false> (ffd_ckpt_zoned_scan). The last flag, SPARSE, is
+# true in the sparse instances of K1 (ffd_sparse_fast_scan /
+# ffd_sparse_zoned_scan), K6 (ffd_ladder_sparse_*) and K7
+# (ffd_ckpt_sparse_*, also ffd_resume_sparse); pack_outputs is the dense output pack; gang_commit,
 # preemption_plan and explain_pack are the class and explain kernels (K10-K12,
 # csrc/class_kernels.cu). The lane-batched scan (ffd_solve_lanes, K15) is
 # ffd_lanes_kernel<false> (ffd_lanes_fast_scan) and <true>
@@ -1692,10 +1690,11 @@ def scan_scratch_words(E: int, M: int, T: int, Z: int) -> int:
     return 2 * E + 11 * M + 3 * T + 2 * M * Z + 64
 
 
-# The cluster scans (K1, K7 and their sparse twins: csrc/ffd_kernels.cu
-# ffd_cluster_kernel) run one solve on one thread-block cluster of up to
-# MAX_CL CTAs of CLUSTER_THREADS threads (16 where the card allows, else 8;
-# cluster_info); the one-block scans (K4, K6, K15, K17) keep NT threads.
+# The cluster scans (K1, K6, K7 and their sparse twins: csrc/ffd_kernels.cu
+# ffd_cluster_kernel, ffd_ladder_kernel) run one solve on one thread-block
+# cluster of up to MAX_CL CTAs of CLUSTER_THREADS threads (16 where the card
+# allows, else 8; cluster_info); the one-block scans (K4, K15, K17) keep NT
+# threads.
 MAX_CL = 16
 CLUSTER_THREADS = 512
 NT = 1024
@@ -1722,15 +1721,13 @@ def team_chunks(n: int, cl: int) -> dict:
     thread_chunk, warp_chunk, cta_chunk, lane_chunk), cl CTAs (0: the
     one-block scans), each an int64 array of [lo, hi) rows: "threads", a
     contiguous chunk per thread of the team (the node pour's prefix);
-    "warps", per warp (claim rows); "ctas", the union of a CTA's warps;
-    "lanes", each warp's piece per lane, warp-major (the claim pour's
-    prefix)."""
+    "ctas", ceil(n / CTAs) rows a CTA; "warps", each CTA's rows split over
+    its warps (claim rows); "lanes", each warp's piece per lane, warp-major
+    (the claim pour's prefix)."""
     nt, ctas = (NT, 1) if cl == 0 else (CLUSTER_THREADS, cl)
     nwb = nt // 32
-    warps = _ceil_chunks(0, n, ctas * nwb)
-    per_w = -(-n // (ctas * nwb))
-    r = np.arange(ctas)
-    ctas_rows = np.stack([np.minimum(r * nwb * per_w, n), np.minimum((r + 1) * nwb * per_w, n)], -1)
+    ctas_rows = _ceil_chunks(0, n, ctas)
+    warps = _ceil_chunks(ctas_rows[:, 0], ctas_rows[:, 1], nwb).reshape(-1, 2)
     lanes = _ceil_chunks(warps[:, 0], warps[:, 1], 32).reshape(-1, 2)
     return dict(threads=_ceil_chunks(0, n, ctas * nt), warps=warps, ctas=ctas_rows, lanes=lanes)
 
@@ -1756,12 +1753,13 @@ def cluster_info(device) -> dict:
         with torch.cuda.device(idx):
             for lib, fn, sparse in (("ffd_kernels", "ffd_cluster_info", None),
                                     ("ffd_sparse_kernels", "ffd_sparse_cluster_info", ())):
-                out = (ctypes.c_int * 12)()
+                out = (ctypes.c_int * 18)()
                 rc = getattr(load(lib), fn)((ctypes.c_void_p * 1)(ctypes.addressof(out)), 1,
                                             None, None)
                 _raise_on(rc, fn)
                 for i, (kind, zone) in enumerate((("", False), ("", True), ("ckpt_", False),
-                                                  ("ckpt_", True))):
+                                                  ("ckpt_", True), ("ladder_", False),
+                                                  ("ladder_", True))):
                     info[_scan_name(kind, zone, sparse)] = dict(
                         cl=out[3 * i], fit16=out[3 * i + 1], fit8=out[3 * i + 2])
         _CLUSTERS[idx] = info
@@ -1891,10 +1889,11 @@ def _ffd_solve_cuda(*args, max_claims: int, zone_engine: bool = False,
 
 
 def ladder_scratch_words(E: int, M: int, T: int, Z: int, S: int) -> int:
-    """int32 words of the ladder scan's global scratch: the scan's own
-    scratch, then the current attempt's [E] and [M] take rows and its
-    leftover slots [S]."""
-    return scan_scratch_words(E, M, T, Z) + E + M + S
+    """int32 words of the ladder scan's global scratch: a cluster scan's
+    own (cluster_scratch_words: the shared rows, then MAX_CL CTAs' own
+    rows), then the current attempt's [E] and [M] take rows and its
+    leftover slots [S], at offset cluster_scratch_words(E, M, T, Z)."""
+    return cluster_scratch_words(E, M, T, Z) + E + M + S
 
 
 def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
@@ -1922,7 +1921,7 @@ def _ffd_solve_ladder_cuda(run_ladder, *args, max_claims: int,
     ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
             + [take_e, take_c, leftover, events, scratch, run_ladder, attempts])
     dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), Lw,
-            scan_scratch_words(E, M, T, Z)]
+            cluster_scratch_words(E, M, T, Z)]
     launch = (load("ffd_sparse_kernels").ffd_ladder_sparse_launch if sparse is not None
               else load().ffd_ladder_launch)
     rc = launch(_ptrs(ptrs + idx), len(ptrs) + len(idx), _ints(dims + kdims), _stream())

@@ -18,10 +18,14 @@ csrc (for example the parent commit unpacked with `git archive`), then
   (a ring every 16 steps, 4 slots: TorchSolver's defaults), K1 zoned
   (ffd_zoned_scan) at config 3's; then the one-block scans: K4 fast and
   zoned (ffd_batched_*_scan) at config 5's 511-row dispatch (10 000 nodes,
-  2 000 candidates; the zoned instance on the same rows), K6 fast
-  (ffd_ladder_fast_scan) at the surge_pref cell's ladder dispatch and K6
-  zoned at config3_soft's (dense tables), K17 fast (ffd_sharded_fast_scan)
-  at the surge over Nd 4 run blocks.
+  2 000 candidates; the zoned instance on the same rows), K17 fast
+  (ffd_sharded_fast_scan) at the surge over Nd 4 run blocks; and the ladder
+  scans: K6 fast (ffd_ladder_fast_scan) at the surge_pref cell's ladder
+  dispatch, K6 zoned at config3_soft's (dense tables) and its sparse twin
+  (ffd_ladder_sparse_zoned_scan, the main path's) on the union index
+  tables, and K6 zoned at the relax walk's (chip_smoke.WALK_PODS pods,
+  every pod after an app's first relaxes: ffd_ladder_zoned_scan_walk,
+  WALK_CALLS calls a timing).
 
 The JSON also lists both builds' registers and spills of every kernel
 (ptxas "this_all", "other_all").
@@ -48,9 +52,10 @@ ROUNDS = 3  # (this, other, other, this) rounds
 AB_LIBS = ("ffd_kernels", "ffd_sparse_kernels", "ffd_lanes_kernels")
 LANES = 8  # K15's lanes (cohort_surge's)
 CALLS = 20  # calls per timing
-SLOW_CALLS = 5  # calls per timing of K4 (~2 ms a dispatch) and K6 (~7-17 ms)
+SLOW_CALLS = 5  # calls per timing of K4 (~2 ms a dispatch) and K6 (~2-17 ms)
 SLOW = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "ffd_ladder_fast_scan",
-        "ffd_ladder_zoned_scan")
+        "ffd_ladder_zoned_scan", "ffd_ladder_sparse_zoned_scan")
+WALK_CALLS = 1  # calls per timing of K6 at the relax walk (~1 s a call)
 SHARD_ND = 4  # K17's run blocks
 
 
@@ -79,7 +84,7 @@ def _build_other(other: str):
         lib = ctypes.CDLL(str(path))
         for fname in ("ffd_scan_launch", "ffd_ckpt_launch", "ffd_ckpt_sparse_launch",
                       "ffd_lanes_launch", "ffd_batched_launch", "ffd_ladder_launch",
-                      "pack_verdicts_launch"):
+                      "ffd_ladder_sparse_launch", "pack_verdicts_launch"):
             if hasattr(lib, fname):
                 getattr(lib, fname).argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
                 getattr(lib, fname).restype = ctypes.c_int
@@ -116,8 +121,9 @@ def scan_ab(other: str) -> dict:
     kw_fast = dict(max_claims=surge["M"], zone_engine=False, ckpt_every=16, n_ckpt=4)
     lanes = tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
                   for a in surge["args"])
-    # the one-block scans: K4 at config 5's 511-row dispatch, K6 at the
-    # ladder cells', K17 at the surge's Nd 4 run blocks
+    # the one-block scans K4 at config 5's 511-row dispatch and K17 at the
+    # surge's Nd 4 run blocks; K6 / K6s at the ladder cells' and the relax
+    # walk's dispatches
     from karpenter_tpu_torch.disruption.batched import (
         BatchedConsolidationEvaluator, binary_probe_frontier,
     )
@@ -133,8 +139,12 @@ def scan_ab(other: str) -> dict:
     M5 = ev.max_claims
     lad_f = cs.ladder_args(cs.build_surge_pref_input(cs.PODS), dev)
     lad_z = cs.ladder_args(cs.build_config3_soft_input(cs.PODS), dev)
+    lad_w = cs.ladder_args(cs.build_relax_walk_input(cs.WALK_PODS), dev)
     M6f = tb.initial_claim_bucket(lad_f[4], cs.MAX_CLAIMS)
     M6z = tb.initial_claim_bucket(lad_z[4], cs.MAX_CLAIMS)
+    M6w = tb.initial_claim_bucket(lad_w[4], cs.MAX_CLAIMS)
+    sp6 = cs.sparse_tables(lad_z[0], lad_z[3]["Sp"], dev,
+                           run_ladder=lad_z[2].cpu().numpy()[:len(lad_z[0].run_group)])
     blocks, shared, _ = cs.sharded_args(surge, SHARD_ND, dev, sparse=False)
     fns = {"ffd_fast_scan": lambda: ffd.ffd_solve(*surge["args"], max_claims=surge["M"]),
            "ffd_zoned_scan": lambda: ffd.ffd_solve(*args, max_claims=M, zone_engine=True),
@@ -147,6 +157,10 @@ def scan_ab(other: str) -> dict:
            "ffd_ladder_fast_scan": lambda: ffd.ffd_solve_ladder(lad_f[2], *lad_f[1], max_claims=M6f),
            "ffd_ladder_zoned_scan": lambda: ffd.ffd_solve_ladder(lad_z[2], *lad_z[1], max_claims=M6z,
                                                                  zone_engine=True),
+           "ffd_ladder_sparse_zoned_scan": lambda: ffd.ffd_solve_ladder_sparse(
+               lad_z[2], *sp6, *lad_z[1], max_claims=M6z, zone_engine=True),
+           "ffd_ladder_zoned_scan_walk": lambda: ffd.ffd_solve_ladder(
+               lad_w[2], *lad_w[1], max_claims=M6w, zone_engine=lad_w[0].V > 0),
            "ffd_sharded_fast_scan": lambda: ffd.ffd_solve_sharded(*blocks, *shared,
                                                                   max_claims=surge["M"])}
 
@@ -176,7 +190,8 @@ def scan_ab(other: str) -> dict:
         for side, libs in (("this", mine), ("other", theirs), ("other", theirs), ("this", mine)):
             build._LIBS.update(libs)
             for k, fn in fns.items():
-                out[k][f"{side}_ms"].append(cs.time_ms(fn, SLOW_CALLS if k in SLOW else CALLS))
+                calls = WALK_CALLS if k.endswith("_walk") else SLOW_CALLS if k in SLOW else CALLS
+                out[k][f"{side}_ms"].append(cs.time_ms(fn, calls))
     build._LIBS.update(mine)
     for k, v in out.items():
         v["this_mean_ms"] = sum(v["this_ms"]) / len(v["this_ms"])

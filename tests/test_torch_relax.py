@@ -6,7 +6,9 @@ string):
 - kernel: `ffd_solve_ladder_plain` (the plain version of the ladder scan
   kernel) against the JAX `ffd_solve_ladder` on the same host_kernel_args
   and run_ladder, captured from a TPUSolver solve, for both values of
-  `zone_engine`: take_e, take_c, leftover and all 16 FFDState fields;
+  `zone_engine`: take_e, take_c, leftover and all 16 FFDState fields; on
+  bench.py's relax walk too, whose attempt count is pinned (every pod after
+  an app's first relaxes: 2 (n - 8) attempts);
 - solver: `TorchSolver(device="cpu")` through the relax ladder and through
   the host relax loop against `TPUSolver` (same `relax_ladder`) and the
   `ReferenceSolver`, with the decision checks of assert_parity
@@ -20,7 +22,11 @@ with their parity check swapped for a capture), a run that mixes ladders
 (the host loop), a weighted hostname affinity, and a 2 000-pod cut of
 BASELINE config 3 with soft (ScheduleAnyway) spreads. Where TPUSolver
 falls back to its oracle, the port must raise UnsupportedInput. JAX
-inputs cross into the port's object model through `to_port`.
+inputs cross into the port's object model through `to_port`. The relax
+walk at chip_smoke.RELAX_WALK_CHECK pods of RELAX_WALK_CHECK_CPUS cores
+(more than 16 claims) through TorchSolver(device="cpu") pins
+RELAX_WALK_DIGEST, the decisions chip_smoke.py phase 13 holds the card's
+ladder kernels to.
 """
 
 import dataclasses
@@ -232,6 +238,87 @@ def test_ladder_scan_walks_rungs():
     # none), then the walk alternates: rung 1 places a pod, the base places
     # none (one event)
     assert int(out.attempts) == 2 * (n - 1) and int(out.events) == n
+
+
+WALK_TEST_PODS = 120  # bench.py's relax_pods
+WIDE_WALK_CPUS = 32  # cores a pod of the wide walk: 120 pods open more than 16 claims
+
+
+def _jax_relax_walk(n: int, cpus: int | None = None) -> SolverInput:
+    """bench.py's relax-ladder fleet (_decode_relax_metrics part (b)) at n
+    pods in the JAX package's objects (chip_smoke.build_relax_walk_input is
+    the port's copy): the surge with both pools pinned to zone-1a, pods
+    labelled app-{i % 8}, node selectors cleared, a ScheduleAnyway zone
+    spread (maxSkew 1) per app; `cpus`: every pod asks that many cores and
+    2 GiB a core (the port's copy's `cpus`)."""
+    import bench
+    from karpenter_tpu.scheduling.requirements import IN, Requirement, Requirements
+    from karpenter_tpu.utils.resources import Resources
+
+    inp = bench.build_input(n)
+    if cpus is not None:
+        for p in inp.pods:
+            p.requests = Resources.parse({"cpu": str(cpus), "memory": f"{2 * cpus}Gi"})
+    for pl in inp.nodepools:
+        pl.requirements = pl.requirements.union(
+            Requirements.of(Requirement.create(wk.ZONE_LABEL, IN, ["zone-1a"])))
+    for i, p in enumerate(inp.pods):
+        app = f"app-{i % 8}"
+        p.meta.labels["app"] = app
+        p.node_selector = {}
+        p.topology_spread = [TopologySpreadConstraint(
+            max_skew=1, topology_key=wk.ZONE_LABEL, label_selector={"app": app},
+            when_unsatisfiable="ScheduleAnyway")]
+    return inp
+
+
+@pytest.mark.parametrize("zone_engine, cpus",
+                         [(True, None), (False, None), (True, WIDE_WALK_CPUS), (False, WIDE_WALK_CPUS)],
+                         ids=["zoned", "fast", "wide-zoned", "wide-fast"])
+def test_relax_walk_matches_jax(zone_engine, cpus):
+    """bench.py's relax walk at WALK_TEST_PODS pods: the plain ladder scan
+    equals the JAX one in every output through both instances. Through the
+    zoned one (the main path's: the spreads are V-axis sigs) only each of
+    the 8 apps' first pod is placed by a base rung: every other pod costs a
+    base attempt that places nothing (one event) and the rung-1 attempt
+    that places it, so the walk takes 2 (n - 8) attempts and n events. The
+    wide walk (WIDE_WALK_CPUS cores a pod, as chip_smoke.py phase 13's)
+    keeps that shape on more than 16 claims, so the card's split puts
+    several claim rows on a CTA."""
+    n = WALK_TEST_PODS
+    lad, args, M = _captured_ladder(_jax_relax_walk(n, cpus))
+    assert int(args[1].sum()) == n and lad.shape[1] >= 1
+    j = jffd.ffd_solve_ladder(lad, *args, max_claims=M, zone_engine=zone_engine)
+    t = tffd.ffd_solve_ladder(array_to_torch(lad, "cpu"), *args_to_torch(args, "cpu"),
+                              max_claims=M, zone_engine=zone_engine)
+    tn = output_to_numpy(t)
+    for k in ("take_e", "take_c", "leftover"):
+        _equal(getattr(j, k), tn[k], k)
+    for f in jffd.FFDState._fields:
+        _equal(getattr(j.state, f), tn["state"][f], f)
+    if zone_engine:
+        assert int(t.leftover.sum()) == 0
+        assert int(t.attempts) == 2 * (n - 8) and int(t.events) == n
+        assert cpus is None or int(t.state.used) > 16
+
+
+def test_relax_walk_matches_the_chip_digest():
+    """chip_smoke.py's relax walk at RELAX_WALK_CHECK pods of
+    RELAX_WALK_CHECK_CPUS cores: one ladder dispatch of
+    TorchSolver(device="cpu") places every pod on more than 16 claims, and
+    its decisions are the ones the chip run holds the card to
+    (RELAX_WALK_DIGEST)."""
+    import hashlib
+
+    import chip_smoke as cs
+
+    solver = TorchSolver(device="cpu", max_claims=cs.MAX_CLAIMS)
+    res = solver.solve(cs.build_relax_walk_input(cs.RELAX_WALK_CHECK, cpus=cs.RELAX_WALK_CHECK_CPUS))
+    got = cs.decisions(res)
+    assert not got["errors"] and len(got["placements"]) == cs.RELAX_WALK_CHECK
+    assert len(res.claims) > 16
+    assert solver.stats["ladder_solves"] == 1 and solver.stats["relax_dispatches"] == 1
+    assert hashlib.sha256(repr(got).encode()).hexdigest() == cs.RELAX_WALK_DIGEST
 
 
 # -- solver level: ladder and host loop against TPUSolver and the oracle ------
