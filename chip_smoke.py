@@ -97,12 +97,15 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    host-derived one. class_zone runs at bench.py's 1 000 gangs (V > 1 000
    zone sigs in the zoned scan's launch-sized shared rows).
 
-8. the convex backend: K13 (admm_pack, csrc/convex_kernels.cu) against its
-   plain version on 20 seeded and 9 adversarial tables (padding rows, a row
-   with no feasible column, zero cost, tol 10 and 0, max_iters 1, R = 1
-   and 16) and K8 on float32 segments; then, with the launch counts reset
-   just before and read just after, ConvexSolver(TorchSolver()) runs
-   consolidate_global on config 5 at 10 000 nodes and 2 000 candidates
+8. the convex backend: K13 (admm_pack, csrc/convex_kernels.cu, one
+   cooperative launch a call) against its plain version on 20 seeded and 9
+   adversarial tables (padding rows, a row with no feasible column, zero
+   cost, tol 10 and 0, max_iters 1, R = 1 and 16) and fully dense ones
+   (the wide instance too: int64 positions), its feasible-cell layout
+   against admm_layout_plain on each, and K8 on float32 segments; then,
+   with the launch counts reset just before and read just after,
+   ConvexSolver(TorchSolver()) runs consolidate_global on config 5 at
+   10 000 nodes and 2 000 candidates
    (cold and warm: the proposal must equal the JAX package's, in one
    dispatch, and the warm adopt upload nothing), the quality suite
    (uniform 3/3 and rightsize 24/6 claims against TorchSolver(), the split
@@ -110,7 +113,9 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    200 nodes) CONVEX_E2E_REPEATS times with its stage split; then every
    K13 call of the same work is held against its plain version, config 5
    proposes the same through the plain version, and convex_e2e decides as
-   ConvexSolver(TorchSolver(device="cpu")).
+   ConvexSolver(TorchSolver(device="cpu")). K13's row: two calls on the
+   same tensors equal bit for bit, one launch a call, the bound by
+   admm_cost, the serial floor from the measured grid barrier.
 
 9. the serving pipeline: K15 (ffd_lanes_kernel, the lane-batched scan)
    against its plain version and against K1 on each lane, on the surge's
@@ -214,6 +219,8 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        scans on every fleet it names, the Q-heavy and hostname fleets too)
        python3 chip_smoke.py --phase 13   (phase 13 alone: the ladder
        scans on every fleet it names, phase 2c's ladder cells too)
+       python3 chip_smoke.py --phase 8    (phase 8 alone: the convex
+       backend, K13's tables and row)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -3399,6 +3406,12 @@ ADMM_HORIZONS = (100, 25, 10)
 # one fixed point whatever the schedule (config 5), only the transient shows
 # a wrong step size, damping or overload term
 ADMM_SHORT = (1, 2, 10, 25, 100)
+# K13's grid barrier: an all-padding table timed at this many iterations
+# less at 0, over the barriers an iteration (admm_barrier_us)
+ADMM_BARRIER_ITERS = 800
+# the fully dense tables (every cell feasible: the layout's worst case):
+# (Sp, Np, R) of a short-row and a long-row table
+ADMM_DENSE = ((64, 256, 3), (32, 10_000, 3))
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
 # The JAX package's proposal on config 5: karpenter_tpu's
 # ConvexSolver(TPUSolver()).consolidate_global on bench.py's
@@ -3465,6 +3478,84 @@ def admm_adversarial() -> dict:
                            np.zeros((16, 2), np.float32), np.zeros(16, np.float32),
                            np.zeros((16, 16), bool)), CONVEX_TOL, 400)
     return out
+
+
+def admm_dense(seed: int, Sp: int, Np: int, R: int):
+    """admm_seeded's shapes of problem with every cell feasible (no
+    padding): the layout's worst case, a row as long as Np."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    req = rng.integers(1, 8, (Sp, R)).astype(np.float32)
+    cnt = rng.integers(1, 6, Sp).astype(np.int32)
+    cap = rng.integers(16, 200, (Np, R)).astype(np.float32)
+    cost = rng.uniform(0.1, 2.0, Np).astype(np.float32)
+    return req, cnt, cap, cost, np.ones((Sp, Np), bool)
+
+
+def admm_cost(Sp: int, Np: int, R: int, nnz: int, iters: int) -> dict:
+    """K13's work by the measurement rule: every input read once (run_req,
+    run_count, cand_cap, cand_cost, feas, tol) and X and conv written once,
+    and iters x nnz x (4R + 17) float operations over the nnz feasible
+    cells. Beside it, labelled, the dense re-read count: 9 B a dense
+    cell an iteration (X read, the mask, X written) plus the inputs, the
+    mask and X once."""
+    inputs = Sp * R * 4 + Sp * 4 + Np * R * 4 + Np * 4
+    return dict(bytes=inputs + Sp * Np + 4 + Sp * Np * 4 + 4, ops=iters * nnz * (4 * R + 17),
+                dense_reread_bytes=iters * Sp * Np * 9 + inputs + Sp * Np + Sp * Np * 4)
+
+
+def admm_layout_check(args) -> dict:
+    """K13's feasible-cell layout (its buffers after a call at 0
+    iterations) against admm_layout_plain, value for value, and that
+    call's X0 and latch against the plain version's, bit for bit."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+    lay = {}
+    X, c = tcc._admm_pack_cuda(*args, CONVEX_TOL, 0, layout=lay)
+    torch.cuda.synchronize()
+    want = tcc.admm_layout_plain(args[4])
+    for k, w in zip(tcc.LAYOUT_FIELDS, want):
+        assert torch.equal(lay[k], w), f"admm_pack's layout: {k} differs"
+    Xp, cp = tcc.admm_pack_plain(*args, CONVEX_TOL, 0)
+    assert torch.equal(X, Xp) and int(c) == int(cp) == -1, "admm_pack's X0 differs"
+    return dict(nnz=int(want[0][-1]), tile_entries=int(want[2][-1]),
+                position_bytes=tcc.kernel_info(*args[4].shape, args[0].shape[1],
+                                               args[4].device)["position_bytes"])
+
+
+def hold_admm_wide(args, tol, max_iters: int) -> dict:
+    """hold_admm and admm_layout_check through the kernel's wide instance
+    (int64 positions, int32 indices: WIDE_CELLS 0)."""
+    from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+    saved = tcc.WIDE_CELLS
+    tcc.WIDE_CELLS = 0
+    try:
+        return hold_admm(args, tol, max_iters) | {"layout": admm_layout_check(args)}
+    finally:
+        tcc.WIDE_CELLS = saved
+
+
+def admm_barrier_us(dev) -> float:
+    """One grid barrier of K13's launch, in µs: an all-padding 16 x 16 table
+    (every phase empty) at ADMM_BARRIER_ITERS iterations less at 0, over
+    the kernel's barriers an iteration; CUDA events around 5 calls each."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import convex as tcc
+
+    z = (torch.zeros((16, 1), dtype=torch.float32, device=dev),
+         torch.zeros(16, dtype=torch.int32, device=dev),
+         torch.zeros((16, 1), dtype=torch.float32, device=dev),
+         torch.zeros(16, dtype=torch.float32, device=dev),
+         torch.zeros((16, 16), dtype=torch.bool, device=dev))
+    t0 = time_ms(lambda: tcc.admm_pack(*z, CONVEX_TOL, max_iters=0), 5)
+    t1 = time_ms(lambda: tcc.admm_pack(*z, CONVEX_TOL, max_iters=ADMM_BARRIER_ITERS), 5)
+    per = tcc.kernel_info(16, 16, 1, dev)["barriers_per_iteration"]
+    return (t1 - t0) * 1e3 / (per * ADMM_BARRIER_ITERS)
 
 
 def admm_x_limit(X_plain) -> float:
@@ -3563,17 +3654,22 @@ def unpack_float_check(dev) -> dict:
 
 
 def admm_table_checks(dev) -> dict:
-    """K13 on 20 seeded and 9 adversarial tables against its plain version;
-    K8 on a convex problem's float32 segments."""
+    """K13 on 20 seeded, 9 adversarial and the fully dense tables against
+    its plain version, its layout on each against admm_layout_plain; the
+    wide instance on 4 seeded, the R = 16 and the dense tables; K8 on a
+    convex problem's float32 segments."""
     import torch
 
     out = {"arena_unpack_float32": unpack_float_check(dev)}
-    for seed in range(20):
-        args = [torch.from_numpy(a).to(dev) for a in admm_seeded(seed)]
-        out[f"seed{seed}"] = hold_admm(args, CONVEX_TOL, 400)
-    for name, (tables, tol, iters) in admm_adversarial().items():
-        args = [torch.from_numpy(a).to(dev) for a in tables]
-        out[name] = hold_admm(args, tol, iters)
+    tables = {f"seed{seed}": (admm_seeded(seed), CONVEX_TOL, 400) for seed in range(20)}
+    tables.update(admm_adversarial())
+    tables.update({f"dense_{Sp}x{Np}": (admm_dense(Sp, Sp, Np, R), CONVEX_TOL, 400)
+                   for Sp, Np, R in ADMM_DENSE})
+    for name, (arrays, tol, iters) in tables.items():
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        out[name] = hold_admm(args, tol, iters) | {"layout": admm_layout_check(args)}
+        if name.startswith("dense") or name in ("seed0", "seed1", "seed2", "seed3", "R16"):
+            out[f"{name}_wide"] = hold_admm_wide(args, tol, iters)
     assert out["tol_10"]["conv"] == 1 and out["tol_0"]["conv"] == -1, out
     return out
 
@@ -3791,23 +3887,33 @@ def convex_phase(dev) -> dict:
     R = args5[0].shape[1]
     fn = lambda: tcc.admm_pack(*args5[:5], args5[5], max_iters=iters)  # noqa: E731
     k_ms = time_ms(fn, 5)
+    # the layout and the dense write alone (no iteration)
+    k0_ms = time_ms(lambda: tcc.admm_pack(*args5[:5], args5[5], max_iters=0), 5)
     p_ms = time_ms(lambda: tcc.admm_pack_plain(*args5[:5], args5[5], iters), 2)
-    fn()
+    Xa, ca = fn()
+    Xb, cb = fn()
     torch.cuda.synchronize()
-    # the kernels the runtime accepted in that call, counted by the launcher:
-    # a prologue (ref, prep), a column load and a row update per iteration,
-    # the latch tail
+    assert torch.equal(Xa, Xb) and int(ca) == int(cb), "admm_pack: two calls on the same tensors differ"
+    # the kernels the runtime accepted in that call, counted by the
+    # launcher: one cooperative launch (the layout, every iteration, the
+    # dense write)
     per_call = build.load("convex_kernels").admm_launches()
-    assert per_call == 2 + 2 * iters + (1 if iters else 0), (per_call, iters)
+    assert per_call == 1, per_call
     dev_ms, traced = admm_device_ms(fn, per_call)
     assert traced is None or traced <= per_call, (traced, per_call)
-    X5, _ = fn()
+    layout5 = admm_layout_check(list(args5[:5]))
+    feas5 = args5[4]
+    nnz = layout5["nnz"]
     cnt = args5[1].to(torch.float32)
     dn = args5[0] * cnt[:, None] / torch.clamp(args5[2].amax(dim=0), min=1.0)[None, :]
-    mm_ms = time_ms(lambda: X5.T @ dn, 20)
-    moved = iters * Sp * Np * 9 + nbytes(*args5[:4]) + Sp * Np + Sp * Np * 4
-    ops = iters * Sp * Np * (4 * R + 17)
-    bms, by = bound(moved, ops, PEAK_F32_OPS_PER_S)
+    mm_ms = time_ms(lambda: Xa.T @ dn, 20)
+    cost = admm_cost(int(Sp), int(Np), int(R), nnz, iters)
+    bms, by = bound(cost["bytes"], cost["ops"], PEAK_F32_OPS_PER_S)
+    dense_ms, _ = bound(cost["dense_reread_bytes"], iters * Sp * Np * (4 * R + 17),
+                        PEAK_F32_OPS_PER_S)
+    barrier_us = admm_barrier_us(dev)
+    launch = tcc.kernel_info(int(Sp), int(Np), int(R), dev)
+    px = ptxas_report(build.BUILD_LOG["ptxas"])
     row = dict(
         name="admm_pack", route="cuda", source="karpenter_tpu_torch/csrc/convex_kernels.cu",
         replaces="karpenter_tpu/solver/convex.py:124", launches=launches["admm_pack"],
@@ -3815,10 +3921,18 @@ def convex_phase(dev) -> dict:
         library_ms=None,
         library_call="none (no PyTorch call computes an iteration); torch.matmul of X^T dn "
         "alone at config 5 in matmul_xt_dn_ms",
-        matmul_xt_dn_ms=mm_ms, device_ms=dev_ms, ms_per_iteration=k_ms / max(iters, 1),
+        matmul_xt_dn_ms=mm_ms, device_ms=dev_ms, ms_iterations_0=k0_ms,
+        ms_per_iteration=(k_ms - k0_ms) / max(iters, 1),
         cuda_launches_per_call=per_call, traced_kernels_per_call=traced,
-        match=True, shape=dict(Sp=int(Sp), Np=int(Np), R=int(R), max_iters=iters),
-        bytes=moved, ops=ops)
+        match=True, repeat_bit_for_bit=True,
+        shape=dict(Sp=int(Sp), Np=int(Np), R=int(R), max_iters=iters),
+        nnz=nnz, density=nnz / (Sp * Np), longest_row=int(feas5.sum(dim=1).max()),
+        longest_col=int(feas5.sum(dim=0).max()), barrier_us=barrier_us,
+        serial_floor_ms=launch["barriers_per_iteration"] * iters * barrier_us / 1e3,
+        bytes=cost["bytes"], ops=cost["ops"],
+        dense_reread_bytes=cost["dense_reread_bytes"], dense_reread_bound_ms=dense_ms,
+        launch=launch, layout=layout5,
+        ptxas={k: v for k, v in px.items() if k.startswith("admm_kernel")})
     holds = rec5.holds + recq.holds + rece.holds
     return dict(
         row=row,
@@ -5676,7 +5790,12 @@ def ptxas_report(report: str) -> dict:
     names = {k: k for k in ("pack_verdicts_kernel", "arena_unpack_kernel", "pack_outputs_kernel",
                             "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
                             "explain_sums_kernel", "explain_rows_kernel", "copy_runs_kernel",
-                            "apply_events_kernel", "pad_lanes_kernel")}
+                            "apply_events_kernel", "pad_lanes_kernel", "admm_ref_kernel",
+                            "admm_prep_kernel", "admm_load_kernel", "admm_row_kernel",
+                            "admm_latch_kernel")}
+    for mangled, kind in (("itL", "narrow"), ("xiL", "wide")):
+        for q in (1, 5):
+            names[f"admm_kernelI{mangled}i{q}EE"] = f"admm_kernel<{kind}, {q}>"
     names.update({"ffd_lanes_kernelILb0E": "ffd_lanes_kernel<false>",
                   "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>",
                   "ffd_lanes_sparse_kernelILb0E": "ffd_lanes_sparse_kernel<false>",
@@ -5752,9 +5871,10 @@ def main() -> int:
     only11 = sys.argv[1:] == ["--phase", "11"]
     only12 = sys.argv[1:] == ["--phase", "12"]
     only13 = sys.argv[1:] == ["--phase", "13"]
-    if sys.argv[1:] and not (only10 or only11 or only12 or only13):
-        print("usage: python3 chip_smoke.py [--phase 10 | --phase 11 | --phase 12 | --phase 13]",
-              file=sys.stderr)
+    only8 = sys.argv[1:] == ["--phase", "8"]
+    if sys.argv[1:] and not (only8 or only10 or only11 or only12 or only13):
+        print("usage: python3 chip_smoke.py [--phase 8 | --phase 10 | --phase 11 | --phase 12 | "
+              "--phase 13]", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -5803,6 +5923,23 @@ def main() -> int:
         clusters = cluster_phase(dev)
         print(json.dumps({"clusters": clusters,
                           "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only8:
+        # phase 8 alone: the convex backend, K13's tables and row
+        t0 = time.perf_counter()
+        admm_tables = admm_table_checks(dev)
+        cvx = convex_phase(dev)
+        cvx["phase_s"] = time.perf_counter() - t0
+        assert cvx["fallbacks"] == 0, cvx["fallbacks"]
+        convex_line = {k: v for k, v in cvx.items() if k != "row"}
+        convex_line["tables"] = admm_tables
+        print(json.dumps({"convex": convex_line, "kernels": [cvx["row"]],
                           "wall_s": time.perf_counter() - t_start}), flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {

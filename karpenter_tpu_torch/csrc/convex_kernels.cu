@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernel of the convex solver backend. Plain C
 // interface, loaded with ctypes (solver/cuda/build.py), the launcher
 // convention of ffd_kernels.cu: a host array of device pointers, a host
-// array of ints, the caller's stream; it returns cudaGetLastError().
+// array of ints, the caller's stream; it returns the CUDA error of the launch.
 //
 // K13 admm_pack  replaces karpenter_tpu/solver/convex.py:124 admm_pack: float32
 //                entropic mirror descent over X[S, N] (convex.py:143-193),
@@ -10,27 +10,56 @@
 //                multiplicative-weights step, geometric damping, and the
 //                latch of the first iteration whose max |dX| < tol.
 //
-// What bounds it on the H100: bytes. Every iteration reads X and the
-// feasibility mask and writes X (9 bytes a cell at the least): at BASELINE
-// config 5 (S = 2 000, N = 10 000) 180 MB an iteration, 72 GB over 400
-// iterations, ~21 ms at 3.35 TB/s. Arithmetic is a few flops and one exp a
-// cell. Design (right and simple first; a later PR makes it fast):
+// What bounds it on the H100. X stays exactly 0 on every masked cell (X0,
+// Xm and so Xn are 0 there), and a table admits few of its cells (BASELINE
+// config 5: S = 2 000, N = 10 000, 15% feasible). A kernel over the dense
+// table moves at least 9 bytes a cell an iteration (72 GB over 400
+// iterations, ~21.5 ms at 3.35 TB/s); over the feasible cells alone the
+// work is ~4R + 17 float ops a cell an iteration, and the iterations are
+// serial: grid-wide barriers between their phases. So the kernel works
+// over the feasible cells only, in one persistent cooperative launch, and
+// keeps its working set small (X, its 16-bit columns, the column tiles'
+// entries: ~19 MB at config 5) so that the iterations run from L2. What
+// is left is latency and the row update's arithmetic.
 //
-//   prologue  admm_ref_kernel (one block: ref[R] and max |cost|, the conv
-//             latch set to -1), then admm_prep_kernel (a block per row: dn,
-//             size and the row of X0; further blocks: capn, costn).
-//   iteration i, two launches, all max_iters of them enqueued with no host
-//             sync:
-//     (a) admm_load_kernel: a block per 32-column tile, 8 warps over the
-//         rows in a fixed interleave, then the warps' partial sums added in
-//         warp order: load = X^T dn with no float atomics, so a run repeats
-//         bit for bit; the block writes over = max(load - capn, 0). Block 0
-//         first folds iteration i-1's row residuals into the latch.
-//     (b) admm_row_kernel: a block per row, four passes over its columns
-//         (grad is recomputed in each, never stored): gmin, gmax, Z, then
-//         Xn into the other ping-pong buffer and the row's max |Xn - X|.
-//   tail      admm_latch_kernel (one block): the last iteration's latch.
-//
+//   one launch (cudaLaunchCooperativeKernel; the grid is the occupancy
+//   query's blocks per SM x SMs, a refused launch returns its error), the
+//   phases separated by grid barriers:
+//     layout  P0 the row counts (a warp a row), the column tiles' row
+//             counts in NCH row chunks (a warp a tile of 32 adjacent
+//             columns and a chunk: a ballot a row), ref[R + 1] (block 0);
+//             P1 row_ptr (block 0's scan), the tiles' entry counts, dn,
+//             size, capn, costn; P2 tptr and sptr (blocks 1 and 2's
+//             scans), CSR: each row's feasible columns in ascending order
+//             (a warp-wide compaction of the mask), X0 = 1 / max(count, 1)
+//             on them, and the row's cells before each tile; P3 the tiles'
+//             entries (a row with a feasible cell in the tile, in ascending
+//             row order: the row, the 32 cells' feasibility bits, the CSR
+//             position of the first) and their slots (runs of at most SEG
+//             entries). No host sync: the layout is built inside the call,
+//             its buffers sized for the dense worst case.
+//     iteration i, three phases:
+//       (a1) a warp a slot, a lane a column of its tile: each entry's X is
+//            one read of the row's consecutive CSR cells, so a column's
+//            load = sum X * dn over the slot's rows in order. A tile of one
+//            slot writes over = max(load - capn, 0) into its columns'
+//            records [costn, over[R]]; the others store the slot's sums.
+//            Block 0 first folds iteration i-1's row residuals into the
+//            latch.
+//       (a2) a warp a column of a tile of several slots adds their sums in
+//            slot order. No float atomics: a call repeats bit for bit.
+//       (b) a team of warps a row (the grid's warps over the rows, a power
+//           of two up to a block), three passes over the row's cells: the
+//           gradients (from the column records, through L1) and their min
+//           and max, the first CACHE of a thread's gradients and X kept in
+//           shared memory; Z (their exp kept); Xn in place and the row's
+//           max |Xn - X|.
+//     end     block 0 folds the last iteration's latch; a warp a row writes
+//             the dense X, zeros on the masked cells.
+//   Four instances: positions int32 and columns uint16 (narrow) while S,
+//   N < 65 536 and S * N < 2^31, else int64 and int32 (wide); a column
+//   record of one float4 (R <= 3) or five (R <= 16).
+
 // Parity with the JAX body, trap by trap:
 //   * All iterations run: the scan returns the LAST iterate after
 //     max_iters steps, not the one at which the latch fired (convex.py:189).
@@ -41,27 +70,40 @@
 //     never the __expf intrinsics. This library is built with -fmad=false
 //     (solver/cuda/build.py FLAGS), so no a * b + c is contracted into an
 //     FMA: every product rounds before its sum, as written.
-//   * A row with no feasible column (gmin = +inf; every padding row) has
-//     W = 0 and Z = 0, so Xm = 0: masked cells never compute grad - gmin,
-//     so no inf - inf arises, and such a row stays 0.
+//   * gmax = max(max(g - gmin), 1e-9) over the feasible cells, 0 the floor
+//     of the max: x -> fl(x - gmin) is monotone, so the largest fl(g - gmin)
+//     is fl(max g - gmin), taken in the gradient pass.
+//   * A row with no feasible column (every padding row) has no cell in the
+//     layout: it stays 0 and its residual is 0.
 //   * The latch is the first i with resid < tol, stored as i + 1, else -1;
-//     resid is the max over all Sp x Np cells, padding included (padding
-//     cells stay 0, so they add nothing). tol rides as a 1-element float32
-//     device tensor, since the launchers take int dims only.
+//     resid is the max over all rows' max |Xn - X|. tol rides as a
+//     1-element float32 device tensor, since the launchers take int dims.
 //   * Sums (load over S, Z over N, size over R) run in fixed orders that
 //     differ from XLA's, so X agrees with the JAX package to a tolerance,
 //     not bit for bit (tests/test_torch_convex.py states it).
+//   * The narrow and wide instances run the same arithmetic in the same
+//     order; only the index types differ.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int PT = 256;           // threads of the prologue, row and latch kernels
-constexpr int PW = PT / 32;
-constexpr int CT = 32;            // columns of one load-kernel block (one per lane)
-constexpr int CW = 8;             // warps of one load-kernel block
+constexpr int T = 512;            // threads of a block
+constexpr int NW = T / 32;        // warps of a block (a row team holds up to NW)
+constexpr int NCH = 16;           // row chunks of the tile lists' counts and fill
+constexpr int SEG = 32;           // tile entries of a slot (one a lane's header)
+constexpr int UE = 8;             // a slot's entries in flight
+constexpr int U = 4;              // a row thread's cells in flight
+constexpr int CACHE = 24;         // a row thread's cells kept in shared memory
+constexpr int DYN_SMEM = 2 * CACHE * T * 4;  // their gradients and X: 96 KB a block
+constexpr int ITER_BARRIERS = 3;  // grid barriers an iteration: after (a1), (a2) and (b)
 constexpr int MAX_R = 16;         // solver/cuda/convex.py MAX_R
+constexpr int MAX_DEVICES = 64;
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr float RHO = 8.0f;       // convex.py _RHO
@@ -70,25 +112,55 @@ constexpr float ANNEAL = 10.0f;   // _ANNEAL
 constexpr float ETA_MAX = 18.0f;  // _ETA_MAX
 constexpr float TAU = 40.0f;      // _TAU
 
+// the largest R of an instance whose column record is Q float4s
+// ([costn, over[R], zeros]): Q 1 holds R <= 3, Q 5 every R <= MAX_R
+__host__ __device__ constexpr int r_max(int Q) { return 4 * Q - 1 < MAX_R ? 4 * Q - 1 : MAX_R; }
+
+// P: positions into the layout (int while S * N < 2^31); I: the CSR's
+// column indices (unsigned short while S and N fit)
+template <typename P, typename I>
 struct Admm {
-  const float* run_req;    // [S, R]
-  const int* run_count;    // [S]
-  const float* cand_cap;   // [N, R]
-  const float* cand_cost;  // [N]
+  const float* run_req;       // [S, R]
+  const int* run_count;       // [S]
+  const float* cand_cap;      // [N, R]
+  const float* cand_cost;     // [N]
   const unsigned char* feas;  // [S, N] bool
-  const float* tol;        // [1]: a device scalar, the launchers take int dims only
-  float* ref;              // [R + 1]: ref[R], then max(max |cost|, 1e-6)
-  float* dn;               // [S, R]
-  float* size;             // [S]
-  float* capn;             // [N, R]
-  float* costn;            // [N]
-  float* over;             // [N, R]
-  float* rres;             // [S] the row residuals of the last row launch
-  int* conv;               // [1]
-  int S, N, R;
+  const float* tol;           // [1]
+  float* X;                   // [S, N]: the result, written at the end
+  int* conv;                  // [1]
+  float* Xc;                  // [S * N] X on the feasible cells, CSR order
+  I* col;                     // [S * N] their columns
+  P* row_ptr;                 // [S + 1]
+  // the column tiles (32 adjacent columns): each tile's entries, one a row
+  // with a feasible cell in the tile, in ascending row order
+  P* tptr;                    // [tiles + 1] a tile's first entry
+  int* trow;                  // [S * tiles] an entry's row
+  unsigned* tmask;            // [S * tiles] bit l: cell (row, 32 t + l) is feasible
+  P* tbase;                   // [S * tiles] the CSR position of its first feasible cell
+  // the slots: a tile's entries cut into runs of at most SEG, a warp each
+  P* sptr;                    // [tiles + 1] a tile's first slot
+  P* sbeg;                    // [slots] a slot's entries: [sbeg, send)
+  P* send;
+  unsigned* stile;            // [slots] 2 x its tile, + 1 if the tile has no other
+  int* rcnt;                  // [S]
+  int* tcnt;                  // [NCH, tiles] chunk ch's rows with a feasible cell in tile t
+  int* ttot;                  // [tiles]
+  int* rk;                    // [S, tiles] a row's feasible cells before each tile
+  float* part;                // [slots, 32, R] the slots' column sums (a tile's slots
+                              // of one column and resource contiguous)
+  float* ref;                 // [R + 1]: ref[R], then max(max |cost|, 1e-6)
+  float* dn;                  // [S, R]
+  float* size;                // [S]
+  float* capn;                // [N, R]
+  float* crec;                // [N, RP]: costn, over[R], zeros
+  int* rmax;                  // [2] iteration i's max row residual (float bits) in
+                              // rmax[i & 1]
+  int S, N, R, RP, iters;
+  int vec;                    // mask bytes a lane reads at once: 16, 4 or 1
+  int tw;                     // warps of a row team (a power of two, <= NW)
 };
 
-// ---- block reductions in a fixed order (shuffle tree, then warp order) ----
+// ---- warp helpers ----------------------------------------------------------
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
@@ -105,177 +177,770 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// op 0: max, 1: min, 2: sum. Every thread gets the result.
-template <int OP>
-__device__ float block_reduce(float v, float* red) {
+// inclusive prefix sum over the warp's lanes
+__device__ __forceinline__ int warp_incl(int v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// bit j: byte j of w is non-zero
+__device__ __forceinline__ unsigned nz4(unsigned w) {
+  unsigned b = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) b |= ((w >> (8 * j)) & 0xffu) ? 1u << j : 0u;
+  return b;
+}
+
+// Bit j: cell n0 + lane * vec + j of the mask row f is feasible. vec is 16
+// or 4 only where N and the mask's address are multiples of it, so a lane's
+// cells lie all inside the row or all past it. The mask is never written in
+// the call: it is read through the read-only path, so the compiler may move
+// these loads ahead of the layout's stores.
+__device__ __forceinline__ unsigned lane_flags(const unsigned char* f, int n0, int vec, int N) {
+  const int n = n0 + (threadIdx.x & 31) * vec;
+  if (n >= N) return 0u;
+  if (vec == 16) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(f + n));
+    return nz4(w.x) | nz4(w.y) << 4 | nz4(w.z) << 8 | nz4(w.w) << 12;
+  }
+  if (vec == 4) return nz4(__ldg(reinterpret_cast<const unsigned*>(f + n)));
+  return __ldg(f + n) ? 1u : 0u;
+}
+
+// ---- block helpers (every thread of the block calls them) ------------------
+
+// max over the block; every thread gets it
+__device__ float block_max(float v, float* red) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  v = OP == 0 ? warp_max(v) : OP == 1 ? warp_min(v) : warp_sum(v);
-  __syncthreads();  // red may still be read by an earlier reduction
+  v = warp_max(v);
+  __syncthreads();  // red may still be read by an earlier call
   if (lane == 0) red[wid] = v;
   __syncthreads();
   float r = red[0];
-  for (int w = 1; w < PW; ++w) r = OP == 0 ? fmaxf(r, red[w]) : OP == 1 ? fminf(r, red[w]) : r + red[w];
+  for (int w = 1; w < NW; ++w) r = fmaxf(r, red[w]);
   return r;
+}
+
+// out[i] = sum of value(j) for j < i, for i in [0, n]: each thread a
+// contiguous slice, then the threads' totals scanned in thread order
+template <typename P, typename F>
+__device__ void block_exclusive_scan(int n, F value, P* out, P* sh) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int per = (n + T - 1) / T;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  P s = 0;
+  for (int i = lo; i < hi; ++i) s += value(i);
+  P v = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    const P u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  __syncthreads();  // sh may still be read by an earlier call
+  if (lane == 31) sh[wid] = v;
+  __syncthreads();
+  P run = v - s;
+  for (int w = 0; w < wid; ++w) run += sh[w];
+  for (int i = lo; i < hi; ++i) {
+    out[i] = run;
+    run += value(i);
+  }
+  if (threadIdx.x == T - 1) out[n] = run;  // the last slice ends at n
+}
+
+// ---- a row team (tw warps of one block) ------------------------------------
+
+struct Team {
+  int tb;    // team index within the block
+  int t;     // thread index within the team
+  int nt;    // threads of the team
+  int tw;    // warps of the team
+  int slot;  // the reduction slot of the next reduce (two, alternating)
+};
+
+__device__ __forceinline__ void team_bar(const Team& tm) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + tm.tb), "r"(tm.nt) : "memory");
+}
+
+// op 0: max, 1: min, 2: sum, folded in warp order; every team thread gets
+// it. Two slots: a slot is written again only after the next reduce's
+// barrier, which every reader of its last value has passed.
+template <int OP>
+__device__ float team_reduce(float v, Team& tm, float (*red)[NW]) {
+  v = OP == 0 ? warp_max(v) : OP == 1 ? warp_min(v) : warp_sum(v);
+  if (tm.tw == 1) return v;
+  const int wid = threadIdx.x >> 5;
+  float* r = red[tm.slot];
+  tm.slot ^= 1;
+  if ((threadIdx.x & 31) == 0) r[wid] = v;
+  team_bar(tm);
+  const int w0 = tm.tb * tm.tw;
+  float x = r[w0];
+  for (int w = 1; w < tm.tw; ++w)
+    x = OP == 0 ? fmaxf(x, r[w0 + w]) : OP == 1 ? fminf(x, r[w0 + w]) : x + r[w0 + w];
+  return x;
 }
 
 // ---- the latch (convex.py:186) ----------------------------------------------
 
-// Folds iteration `it`'s row residuals into the latch: resid is the max over
-// every row's max |Xn - X| (padding cells included; they stay 0). The latch
-// keeps the first it with resid < tol, stored as it + 1; -1 until then.
-__device__ void latch(const Admm& a, int it, float* red) {
-  float m = 0.0f;
-  for (int s = threadIdx.x; s < a.S; s += PT) m = fmaxf(m, a.rres[s]);
-  const float resid = block_reduce<0>(m, red);
-  if (threadIdx.x == 0 && *a.conv < 0 && resid < *a.tol) *a.conv = it + 1;
+// Each row team folds its row's max |Xn - X| into rmax[it & 1] with an
+// integer atomicMax of the float's bits (residuals are >= 0 and never NaN,
+// so the bits order as the floats; a max is the same in any order). Thread
+// 0 of block 0 then folds iteration `it` into the latch: the first it with
+// max residual < tol, stored as it + 1; -1 until then; and clears the other
+// buffer for iteration it + 1, whose rows fold in two barriers later.
+template <typename P, typename I>
+__device__ void latch(const Admm<P, I>& a, int it) {
+  if (threadIdx.x != 0) return;
+  const float resid = __int_as_float(a.rmax[it & 1]);
+  if (*a.conv < 0 && resid < *a.tol) *a.conv = it + 1;
+  a.rmax[(it + 1) & 1] = 0;
 }
 
-// ---- prologue (convex.py:144-158) -----------------------------------------
+// ---- layout -------------------------------------------------------------------
 
-// ref[r] = max(max_n cap[n, r], 1); ref[R] = max(max_n |cost[n]|, 1e-6);
-// conv = -1.
-__global__ void __launch_bounds__(PT) admm_ref_kernel(Admm a) {
-  __shared__ float red[PW];
-  for (int r = 0; r <= a.R; ++r) {
-    float m = -INFINITY;
-    for (int n = threadIdx.x; n < a.N; n += PT)
-      m = fmaxf(m, r < a.R ? a.cand_cap[(size_t)n * a.R + r] : fabsf(a.cand_cost[n]));
-    m = block_reduce<0>(m, red);
-    if (threadIdx.x == 0) a.ref[r] = r < a.R ? fmaxf(m, 1.0f) : fmaxf(m, 1e-6f);
+// the rows of chunk ch: [lo, hi)
+__device__ __forceinline__ void chunk_rows(int S, int ch, int& lo, int& hi) {
+  const int per = (S + NCH - 1) / NCH;
+  lo = min(S, ch * per);
+  hi = min(S, lo + per);
+}
+
+__device__ __forceinline__ int tiles_of(int N) { return (N + 31) / 32; }
+
+// P0: row s's feasible cells (a warp a row)
+template <typename P, typename I>
+__device__ void row_counts(const Admm<P, I>& a, int gw, int nw) {
+  for (int s = gw; s < a.S; s += nw) {
+    const unsigned char* f = a.feas + (size_t)s * a.N;
+    int c = 0;
+    for (int n0 = 0; n0 < a.N; n0 += 32 * a.vec) c += __popc(lane_flags(f, n0, a.vec, a.N));
+    c = __reduce_add_sync(FULL, c);
+    if ((threadIdx.x & 31) == 0) a.rcnt[s] = c;
   }
-  if (threadIdx.x == 0) *a.conv = -1;
 }
 
-// Blocks [0, S): row s's dn, size and X0 row (maskf / max(row count, 1)).
-// Blocks [S, ...): capn and costn over a chunk of PT columns.
-__global__ void __launch_bounds__(PT) admm_prep_kernel(Admm a, float* X0) {
-  __shared__ float red[PW];
-  const int b = blockIdx.x;
-  if (b >= a.S) {
-    const int n = (b - a.S) * PT + threadIdx.x;
+// P0: tcnt[ch, t], chunk ch's rows with a feasible cell in tile t (a warp a
+// tile and chunk, a lane a column, eight rows in flight)
+template <typename P, typename I>
+__device__ void tile_counts(const Admm<P, I>& a, int gw, int nw) {
+  const int tiles = tiles_of(a.N);
+  for (int u = gw; u < tiles * NCH; u += nw) {
+    const int t = u / NCH, ch = u % NCH, n = t * 32 + (threadIdx.x & 31);
+    int lo, hi;
+    chunk_rows(a.S, ch, lo, hi);
+    int c = 0;
+    for (int s0 = lo; s0 < hi; s0 += 8) {
+      bool f[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        f[i] = s0 + i < hi && n < a.N && __ldg(a.feas + (size_t)(s0 + i) * a.N + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) c += __ballot_sync(FULL, f[i]) != 0u;
+    }
+    if ((threadIdx.x & 31) == 0) a.tcnt[(size_t)ch * tiles + t] = c;
+  }
+}
+
+// P2: row s's feasible columns in ascending order and X0 on them (a warp a
+// row: a lane's cells are contiguous, its first rank the warp's exclusive
+// prefix of the lanes' counts); rk[s, t], the row's cells before tile t
+template <typename P, typename I>
+__device__ void csr_fill(const Admm<P, I>& a, int gw, int nw) {
+  const int lane = threadIdx.x & 31;
+  const int tiles = tiles_of(a.N);
+  for (int s = gw; s < a.S; s += nw) {
+    const unsigned char* f = a.feas + (size_t)s * a.N;
+    const P rp = a.row_ptr[s];
+    // X0 = maskf / max(row count, 1) (convex.py:157)
+    const float x0 = 1.0f / fmaxf((float)a.rcnt[s], 1.0f);
+    int base = 0;
+    const int step = 32 * a.vec;
+    unsigned next = lane_flags(f, 0, a.vec, a.N);
+    for (int n0 = 0; n0 < a.N; n0 += step) {
+      unsigned b = next;
+      next = lane_flags(f, n0 + step, a.vec, a.N);  // the next step's, in flight
+      const int incl = warp_incl(__popc(b));
+      int k = base + incl - __popc(b);
+      const int n = n0 + lane * a.vec;
+      if (n % 32 == 0 && n < a.N) a.rk[(size_t)s * tiles + n / 32] = k;
+      while (b) {
+        const int j = __ffs(b) - 1;
+        b &= b - 1;
+        a.col[rp + k] = (I)(n + j);
+        a.Xc[rp + k] = x0;
+        ++k;
+      }
+      base += __shfl_sync(FULL, incl, 31);
+    }
+  }
+}
+
+// P3: tile t's entries in ascending row order: the row, the 32 cells'
+// feasibility bits (a ballot of the tile's lanes), the CSR position of the
+// first feasible one (row_ptr + the row's cells before the tile) (a warp a
+// tile and chunk, eight rows in flight; chunk ch's entries follow the
+// earlier chunks')
+template <typename P, typename I>
+__device__ void tile_fill(const Admm<P, I>& a, int gw, int nw) {
+  const int lane = threadIdx.x & 31;
+  const int tiles = tiles_of(a.N);
+  for (int u = gw; u < tiles * NCH; u += nw) {
+    const int t = u / NCH, ch = u % NCH, n = t * 32 + lane;
+    int lo, hi;
+    chunk_rows(a.S, ch, lo, hi);
+    P k = a.tptr[t];
+    for (int c = 0; c < ch; ++c) k += a.tcnt[(size_t)c * tiles + t];
+    for (int s0 = lo; s0 < hi; s0 += 8) {
+      bool f[8];
+      P base[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int s = s0 + i;
+        f[i] = s < hi && n < a.N && __ldg(a.feas + (size_t)s * a.N + n);
+        base[i] = s < hi ? a.row_ptr[s] + a.rk[(size_t)s * tiles + t] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const unsigned b = __ballot_sync(FULL, f[i]);
+        if (b) {
+          if (lane == 0) {
+            a.trow[k] = s0 + i;
+            a.tmask[k] = b;
+            a.tbase[k] = base[i];
+          }
+          ++k;
+        }
+      }
+    }
+  }
+}
+
+// ---- (a) column load and overload (convex.py:164-165) ---------------------
+
+// a lane's share of one tile entry: acc[r] += x * dn[s, r]
+template <int RM>
+__device__ __forceinline__ void add_entry(float* acc, float x, const float* d, int R) {
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+    if (r < R) acc[r] = acc[r] + x * d[r];
+}
+
+// (a1) A warp a slot (at most SEG entries of one tile, a lane a column):
+// each lane's column's load = sum X * dn over the slot's entries in row
+// order. An entry's X is one read of the row's consecutive CSR cells (one
+// or a few sectors), its header from the lane that loaded it. A tile of
+// one slot writes over = max(load - capn, 0) into its columns' records
+// [costn, over[R]] at once; the others store the slot's sums for (a2).
+template <typename P, typename I, int Q>
+__device__ void slot_sums(const Admm<P, I>& a, int gw, int nw) {
+  constexpr int RM = r_max(Q);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int tiles = tiles_of(a.N);
+  const P slots = a.sptr[tiles];
+  for (P g = gw; g < slots; g += nw) {
+    const P beg = a.sbeg[g];
+    const int cnt = (int)(a.send[g] - beg);
+    const unsigned st = a.stile[g];
+    const int t = (int)(st >> 1), n = t * 32 + lane;
+    // entry i's header in lane i
+    const unsigned mk = lane < cnt ? a.tmask[beg + lane] : 0u;
+    const P bk = lane < cnt ? a.tbase[beg + lane] : 0;
+    const int rw = lane < cnt ? a.trow[beg + lane] : 0;
+    float acc[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) acc[r] = 0.0f;
+    for (int i0 = 0; i0 < cnt; i0 += UE) {
+      float x[UE];
+      int row[UE];
+#pragma unroll
+      for (int q = 0; q < UE; ++q) {
+        const int i = (i0 + q) & 31;
+        const unsigned m = __shfl_sync(FULL, mk, i);
+        const P b = __shfl_sync(FULL, bk, i);
+        row[q] = __shfl_sync(FULL, rw, i);
+        const bool on = i0 + q < cnt && (m >> lane) & 1u;
+        x[q] = on ? a.Xc[b + __popc(m & below)] : 0.0f;
+        if (!on) row[q] = -1;
+      }
+#pragma unroll
+      for (int q = 0; q < UE; ++q)
+        if (row[q] >= 0) add_entry<RM>(acc, x[q], a.dn + (size_t)row[q] * a.R, a.R);
+    }
     if (n < a.N) {
-      for (int r = 0; r < a.R; ++r)
-        a.capn[(size_t)n * a.R + r] = a.cand_cap[(size_t)n * a.R + r] / a.ref[r];
-      a.costn[n] = a.cand_cost[n] / a.ref[a.R];
+      if (st & 1) {
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          if (r < a.R)
+            a.crec[(size_t)n * a.RP + 1 + r] = fmaxf(acc[r] - a.capn[(size_t)n * a.R + r], 0.0f);
+      } else {
+        const P t0 = a.sptr[t], segs = a.sptr[t + 1] - t0;
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+          if (r < a.R) a.part[(size_t)(t0 * 32 * a.R + (lane * a.R + r) * segs + (g - t0))] = acc[r];
+      }
     }
-    return;
   }
-  const int s = b;
-  if (threadIdx.x == 0) {
-    const float cnt = (float)a.run_count[s];
-    float sz = 0.0f;
-    for (int r = 0; r < a.R; ++r) {
-      const float d = (a.run_req[(size_t)s * a.R + r] * cnt) / a.ref[r];
-      a.dn[(size_t)s * a.R + r] = d;
-      sz = sz + d;
-    }
-    a.size[s] = fmaxf(sz, 1e-6f);
-  }
-  const unsigned char* f = a.feas + (size_t)s * a.N;
-  float c = 0.0f;  // integral counts: exact in any order below 2^24
-  for (int n = threadIdx.x; n < a.N; n += PT) c += f[n] ? 1.0f : 0.0f;
-  const float den = fmaxf(block_reduce<2>(c, red), 1.0f);
-  float* x = X0 + (size_t)s * a.N;
-  for (int n = threadIdx.x; n < a.N; n += PT) x[n] = (f[n] ? 1.0f : 0.0f) / den;
 }
 
-// ---- (a) column load and overload (convex.py:164-165) -----------------------
-
-__global__ void __launch_bounds__(CT * CW) admm_load_kernel(Admm a, const float* __restrict__ X,
-                                                            int it) {
-  __shared__ float part[CW][MAX_R][CT];
-  __shared__ float red[PW];
-  if (blockIdx.x == 0 && it > 0) latch(a, it - 1, red);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int n = blockIdx.x * CT + lane;
-  float acc[MAX_R];
+// (a2) A warp a column of a tile of several slots: the slots' sums added in
+// a fixed order (lanes over 32 slots at a time, the xor tree, the groups in
+// order): no float atomics, so a call repeats bit for bit.
+template <typename P, typename I, int Q>
+__device__ void column_sums(const Admm<P, I>& a, int gw, int nw) {
+  constexpr int RM = r_max(Q);
+  const int lane = threadIdx.x & 31;
+  for (int n = gw; n < a.N; n += nw) {
+    const int t = n >> 5;
+    const P t0 = a.sptr[t], segs = a.sptr[t + 1] - t0;
+    if (segs < 2) continue;
+    const float* pn = a.part + (size_t)(t0 * 32 * a.R + (n & 31) * a.R * segs);
+    float acc[RM];
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) acc[r] = 0.0f;
-  if (n < a.N) {
-    for (int s = wid; s < a.S; s += CW) {
-      const float x = X[(size_t)s * a.N + n];
-      const float* d = a.dn + (size_t)s * a.R;
+    for (int r = 0; r < RM; ++r) acc[r] = 0.0f;
+    for (P j0 = 0; j0 < segs; j0 += 32) {
+      const P j = j0 + lane;
 #pragma unroll
-      for (int r = 0; r < MAX_R; ++r)
-        if (r < a.R) acc[r] = acc[r] + x * d[r];
+      for (int r = 0; r < RM; ++r)
+        if (r < a.R) acc[r] = acc[r] + warp_sum(j < segs ? pn[r * segs + j] : 0.0f);
     }
-  }
+    float mine = 0.0f;
 #pragma unroll
-  for (int r = 0; r < MAX_R; ++r) part[wid][r][lane] = acc[r];
-  __syncthreads();
-  // warp w adds the CW partials of columns' resource rows r = w, w + CW, ...
-  for (int r = wid; r < a.R; r += CW) {
-    float l = part[0][r][lane];
-    for (int w = 1; w < CW; ++w) l = l + part[w][r][lane];
-    if (n < a.N) a.over[(size_t)n * a.R + r] = fmaxf(l - a.capn[(size_t)n * a.R + r], 0.0f);
+    for (int r = 0; r < RM; ++r)
+      if (lane == r) mine = acc[r];
+    if (lane < a.R)
+      a.crec[(size_t)n * a.RP + 1 + lane] = fmaxf(mine - a.capn[(size_t)n * a.R + lane], 0.0f);
   }
 }
 
 // ---- (b) row update (convex.py:166-185) -------------------------------------
 
-// costn * size + rho * (dn @ over^T), in the JAX expression's order
-__device__ __forceinline__ float grad_at(const Admm& a, const float* dn_s, float size_s, int n) {
-  const float* o = a.over + (size_t)n * a.R;
+// costn * size + rho * (dn @ over^T), in the JAX expression's order, from
+// the column's record [costn, over[R], zeros]
+template <int Q>
+__device__ __forceinline__ float grad_at(const float* rec, const float* dn_s, float size_s, int R) {
+  constexpr int RM = r_max(Q);
+  float v[4 * Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float4 w = *reinterpret_cast<const float4*>(rec + 4 * q);
+    v[4 * q] = w.x; v[4 * q + 1] = w.y; v[4 * q + 2] = w.z; v[4 * q + 3] = w.w;
+  }
   float dot = 0.0f;
-  for (int r = 0; r < a.R; ++r) dot = dot + dn_s[r] * o[r];
-  return a.costn[n] * size_s + RHO * dot;
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+    if (r < R) dot = dot + dn_s[r] * v[1 + r];
+  return v[0] * size_s + RHO * dot;
 }
 
-__global__ void __launch_bounds__(PT) admm_row_kernel(Admm a, const float* __restrict__ X,
-                                                      float* __restrict__ Xn, int it) {
-  __shared__ float red[PW];
-  __shared__ float dn_s[MAX_R];
-  const int s = blockIdx.x;
-  if (threadIdx.x < a.R) dn_s[threadIdx.x] = a.dn[(size_t)s * a.R + threadIdx.x];
-  __syncthreads();
-  const float size_s = a.size[s];
-  const unsigned char* f = a.feas + (size_t)s * a.N;
-  const float* x = X + (size_t)s * a.N;
-  float* xn = Xn + (size_t)s * a.N;
-
-  // gmin over the feasible columns (+inf for a row with none); masked cells
-  // never compute grad - gmin, so no inf - inf arises and such a row stays 0
-  float m = INFINITY;
-  for (int n = threadIdx.x; n < a.N; n += PT)
-    if (f[n]) m = fminf(m, grad_at(a, dn_s, size_s, n));
-  const float gmin = block_reduce<1>(m, red);
-  // gmax = max(max g, 1e-9) with g = grad - gmin on feasible cells, 0 elsewhere
-  m = 0.0f;
-  for (int n = threadIdx.x; n < a.N; n += PT)
-    if (f[n]) m = fmaxf(m, grad_at(a, dn_s, size_s, n) - gmin);
-  const float gmax = fmaxf(block_reduce<0>(m, red), 1e-9f);
+// A team of tw warps a row, three passes over the row's cells, U cells a
+// thread in flight (the row's columns and X streamed through L2 alone, so
+// L1 keeps the column records): the gradients' min and max; Z; Xn in place. Pass 1
+// keeps a thread's first CACHE gradients and X values in shared memory
+// (`cache`, the block's dynamic shared memory), so passes 2 and 3 read
+// global memory only past them (a row longer than CACHE x the team's
+// threads), where the gradient is recomputed from the column record.
+template <typename P, typename I, int Q>
+__device__ void row_phase(const Admm<P, I>& a, int it, float (*red)[NW], float* cache) {
+  constexpr int RM = r_max(Q);
+  Team tm;
+  tm.tw = a.tw;
+  tm.tb = (threadIdx.x >> 5) / a.tw;
+  tm.nt = 32 * a.tw;
+  tm.t = threadIdx.x - tm.tb * tm.nt;
+  tm.slot = 0;
+  const int teams = NW / a.tw, nt = tm.nt;
   // the JAX expression order, in float32 from the int it:
   // eta = min(3 * (1 + i / 10), 18), then ((-eta) * g) / gmax; expf, not __expf
   const float fi = (float)it;
-  const float eta = fminf(ETA0 * (1.0f + fi / ANNEAL), ETA_MAX);
-  const float neta = -eta;
-  // Z = sum of W = X * exp(((-eta) * g) / gmax) over the feasible cells
-  float z = 0.0f;
-  for (int n = threadIdx.x; n < a.N; n += PT)
-    if (f[n]) z = z + x[n] * expf((neta * (grad_at(a, dn_s, size_s, n) - gmin)) / gmax);
-  const float Z = block_reduce<2>(z, red);
+  const float neta = -fminf(ETA0 * (1.0f + fi / ANNEAL), ETA_MAX);
   const float beta = 0.5f * exp2f(-fi / TAU);  // 0.5 * exp2(-i / 40)
   const float keep = 1.0f - beta;
-  const float zc = fmaxf(Z, 1e-30f);
-  float res = 0.0f;
-  for (int n = threadIdx.x; n < a.N; n += PT) {
-    const float xv = x[n];
-    float xm = 0.0f;
-    if (f[n] && Z > 0.0f)
-      xm = (xv * expf((neta * (grad_at(a, dn_s, size_s, n) - gmin)) / gmax)) / zc;
-    const float v = keep * xv + beta * xm;
-    xn[n] = v;
-    res = fmaxf(res, fabsf(v - xv));
+  // rows with the block index fastest: consecutive rows on different SMs
+  for (int s = tm.tb * gridDim.x + blockIdx.x; s < a.S; s += gridDim.x * teams) {
+    const P rp = a.row_ptr[s];
+    const int len = (int)(a.row_ptr[s + 1] - rp);
+    float res = 0.0f;
+    if (len > 0) {
+      float dn_s[RM];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) dn_s[r] = r < a.R ? a.dn[(size_t)s * a.R + r] : 0.0f;
+      const float size_s = a.size[s];
+      const I* col = a.col + rp;
+      float* xc = a.Xc + rp;
+#define GRAD(c) grad_at<Q>(a.crec + (size_t)(c) * (4 * Q), dn_s, size_s, a.R)
+      const int tid = threadIdx.x;
+      float* sg = cache;                 // [CACHE, T]: a thread's first CACHE gradients
+                                         // (pass 1), then their exp (pass 2)
+      float* sx = cache + CACHE * T;     // and X values, kept from pass 1
+      // the thread's cells j = t + i * nt, i < cells; the first kept of them
+      const int cells = tm.t < len ? (len - tm.t + nt - 1) / nt : 0;
+      const int kept = min(cells, CACHE);
+      // pass 1: the gradients' min and max; U cells in flight, the next U
+      // cells' columns and X loaded while these U compute
+      float lo = INFINITY, hi = -INFINITY;
+      int c[U];
+      float x[U];
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        c[q] = q < cells ? (int)__ldcg(col + tm.t + q * nt) : 0;
+        x[q] = q < kept ? __ldcg(xc + tm.t + q * nt) : 0.0f;
+      }
+      for (int i0 = 0; i0 < cells; i0 += U) {
+        int cn[U];
+        float xn[U];
+#pragma unroll
+        for (int q = 0; q < U; ++q) {
+          const int i = i0 + q + U;
+          cn[q] = i < cells ? (int)__ldcg(col + tm.t + i * nt) : 0;
+          xn[q] = i < kept ? __ldcg(xc + tm.t + i * nt) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < U; ++q) {
+          const int i = i0 + q;
+          if (i < cells) {
+            const float g = GRAD(c[q]);
+            lo = fminf(lo, g);
+            hi = fmaxf(hi, g);
+            if (i < kept) {
+              sg[i * T + tid] = g;
+              sx[i * T + tid] = x[q];
+            }
+          }
+          c[q] = cn[q];
+          x[q] = xn[q];
+        }
+      }
+      const float gmin = team_reduce<1>(lo, tm, red);
+      // gmax = max(max g, 1e-9), g = grad - gmin on the feasible cells, the
+      // max taken from 0
+      const float gmax = fmaxf(fmaxf(0.0f, team_reduce<0>(hi, tm, red) - gmin), 1e-9f);
+#define EXPW(g) expf((neta * ((g) - gmin)) / gmax)
+      // pass 2: Z = sum of W = X * exp(((-eta) * g) / gmax), a thread's
+      // cells in order: the kept ones (their exp kept for pass 3), then the
+      // rest, read and recomputed U at a time
+      float z = 0.0f;
+#pragma unroll 4
+      for (int i = 0; i < kept; ++i) {
+        const float xv = sx[i * T + tid], e = EXPW(sg[i * T + tid]);
+        z = z + xv * e;
+        sg[i * T + tid] = e;
+      }
+      for (int i0 = kept; i0 < cells; i0 += U) {
+        int cc[U];
+        float x[U];
+#pragma unroll
+        for (int q = 0; q < U; ++q) {
+          const int j = tm.t + (i0 + q) * nt;
+          cc[q] = i0 + q < cells ? (int)__ldcg(col + j) : 0;
+          x[q] = i0 + q < cells ? __ldcg(xc + j) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < U; ++q)
+          if (i0 + q < cells) z = z + x[q] * EXPW(GRAD(cc[q]));
+      }
+      const float Z = team_reduce<2>(z, tm, red);
+      const float zc = fmaxf(Z, 1e-30f);
+      // pass 3: Xn in place (a thread writes only its own cells)
+#define STEP(x, e, j)                                             \
+      {                                                           \
+        const float xm = Z > 0.0f ? ((x) * (e)) / zc : 0.0f;      \
+        const float v = keep * (x) + beta * xm;                   \
+        res = fmaxf(res, fabsf(v - (x)));                         \
+        xc[j] = v;                                                \
+      }
+#pragma unroll 4
+      for (int i = 0; i < kept; ++i) {
+        const float xv = sx[i * T + tid], ev = sg[i * T + tid];
+        STEP(xv, ev, tm.t + i * nt)
+      }
+      for (int i0 = kept; i0 < cells; i0 += U) {
+        int cc[U];
+        float x[U];
+#pragma unroll
+        for (int q = 0; q < U; ++q) {
+          const int j = tm.t + (i0 + q) * nt;
+          cc[q] = i0 + q < cells ? (int)__ldcg(col + j) : 0;
+          x[q] = i0 + q < cells ? __ldcg(xc + j) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < U; ++q)
+          if (i0 + q < cells) STEP(x[q], EXPW(GRAD(cc[q])), tm.t + (i0 + q) * nt)
+      }
+#undef STEP
+#undef EXPW
+#undef GRAD
+      res = team_reduce<0>(res, tm, red);
+    }
+    if (tm.t == 0) atomicMax(&a.rmax[it & 1], __float_as_int(res));
   }
-  res = block_reduce<0>(res, red);
-  if (threadIdx.x == 0) a.rres[s] = res;
 }
 
-// ---- tail: the last iteration's latch -----------------------------------------
+// ---- end: the dense X ---------------------------------------------------------
 
-__global__ void __launch_bounds__(PT) admm_latch_kernel(Admm a, int it) {
-  __shared__ float red[PW];
-  latch(a, it, red);
+// row s of X: the row's values in CSR order on its feasible cells, 0
+// elsewhere (a warp a row, a lane's cells written together)
+template <typename P, typename I>
+__device__ void dense_write(const Admm<P, I>& a, int gw, int nw) {
+  const int lane = threadIdx.x & 31;
+  for (int s = gw; s < a.S; s += nw) {
+    const unsigned char* f = a.feas + (size_t)s * a.N;
+    float* x = a.X + (size_t)s * a.N;
+    const float* xc = a.Xc + a.row_ptr[s];
+    int base = 0;
+    const int step = 32 * a.vec;
+    unsigned next = lane_flags(f, 0, a.vec, a.N);
+    for (int n0 = 0; n0 < a.N; n0 += step) {
+      const unsigned b = next;
+      next = lane_flags(f, n0 + step, a.vec, a.N);  // the next step's, in flight
+      const int incl = warp_incl(__popc(b));
+      int k = base + incl - __popc(b);
+      const int n = n0 + lane * a.vec;
+      if (n < a.N) {
+        if (a.vec == 1) {
+          x[n] = b ? xc[k] : 0.0f;
+        } else {
+          for (int q = 0; q < a.vec; q += 4) {
+            float4 w;
+            w.x = (b >> q) & 1u ? xc[k++] : 0.0f;
+            w.y = (b >> (q + 1)) & 1u ? xc[k++] : 0.0f;
+            w.z = (b >> (q + 2)) & 1u ? xc[k++] : 0.0f;
+            w.w = (b >> (q + 3)) & 1u ? xc[k++] : 0.0f;
+            *reinterpret_cast<float4*>(x + n + q) = w;
+          }
+        }
+      }
+      base += __shfl_sync(FULL, incl, 31);
+    }
+  }
+}
+
+// ---- the kernel ---------------------------------------------------------------
+
+template <typename P, typename I, int Q>
+__global__ void __launch_bounds__(T, 2) admm_kernel(Admm<P, I> a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float red[2][NW];
+  __shared__ float lred[NW];
+  __shared__ P sh[NW];
+  extern __shared__ float4 dyn[];
+  // a warp's rank with the block index fastest: consecutive rows land on
+  // different multiprocessors
+  const int gw = (threadIdx.x >> 5) * gridDim.x + blockIdx.x, nw = gridDim.x * NW;
+  const int gt = blockIdx.x * T + threadIdx.x, nt = gridDim.x * T;
+
+  // ---- P0: counts; ref[r] = max(max_n cap[n, r], 1), ref[R] = max(max_n |cost|, 1e-6)
+  if (blockIdx.x == 0) {
+    for (int r = 0; r <= a.R; ++r) {
+      float m = -INFINITY;
+      for (int n = threadIdx.x; n < a.N; n += T)
+        m = fmaxf(m, r < a.R ? a.cand_cap[(size_t)n * a.R + r] : fabsf(a.cand_cost[n]));
+      m = block_max(m, lred);
+      if (threadIdx.x == 0) a.ref[r] = r < a.R ? fmaxf(m, 1.0f) : fmaxf(m, 1e-6f);
+    }
+    if (threadIdx.x == 0) {
+      *a.conv = -1;
+      a.rmax[0] = 0;
+    }
+  }
+  row_counts(a, gw, nw);
+  tile_counts(a, gw, nw);
+  grid.sync();
+
+  // ---- P1: row_ptr (block 0's scan); the tiles' entry counts, dn, size,
+  // capn, costn and the records' over for a load of 0 (a column with no
+  // feasible cell keeps it)
+  const int tiles = tiles_of(a.N);
+  if (blockIdx.x == 0)
+    block_exclusive_scan<P>(a.S, [&](int s) { return (P)a.rcnt[s]; }, a.row_ptr, sh);
+  for (int i = gt; i < a.S + a.N + tiles; i += nt) {
+    if (i < a.S) {
+      const int s = i;
+      const float cnt = (float)a.run_count[s];
+      float sz = 0.0f;
+      for (int r = 0; r < a.R; ++r) {
+        const float d = (a.run_req[(size_t)s * a.R + r] * cnt) / a.ref[r];
+        a.dn[(size_t)s * a.R + r] = d;
+        sz = sz + d;
+      }
+      a.size[s] = fmaxf(sz, 1e-6f);
+    } else if (i < a.S + a.N) {
+      const int n = i - a.S;
+      float* rec = a.crec + (size_t)n * a.RP;
+      rec[0] = a.cand_cost[n] / a.ref[a.R];
+      for (int q = 1; q < a.RP; ++q) rec[q] = 0.0f;
+      for (int r = 0; r < a.R; ++r) {
+        const float cn = a.cand_cap[(size_t)n * a.R + r] / a.ref[r];
+        a.capn[(size_t)n * a.R + r] = cn;
+        rec[1 + r] = fmaxf(0.0f - cn, 0.0f);
+      }
+    } else {
+      const int t = i - a.S - a.N;
+      int c = 0;
+      for (int ch = 0; ch < NCH; ++ch) c += a.tcnt[(size_t)ch * tiles + t];
+      a.ttot[t] = c;
+    }
+  }
+  grid.sync();
+
+  // ---- P2: tptr and sptr (two blocks' scans); CSR
+  if (blockIdx.x == (gridDim.x > 1 ? 1 : 0))
+    block_exclusive_scan<P>(tiles, [&](int t) { return (P)a.ttot[t]; }, a.tptr, sh);
+  if (blockIdx.x == (gridDim.x > 2 ? 2 : 0))
+    block_exclusive_scan<P>(tiles, [&](int t) { return (P)((a.ttot[t] + SEG - 1) / SEG); },
+                            a.sptr, sh);
+  csr_fill(a, gw, nw);
+  grid.sync();
+
+  // ---- P3: the tiles' entries; their slots (a thread a tile)
+  for (int t = gt; t < tiles; t += nt) {
+    const P e0 = a.tptr[t], e1 = a.tptr[t + 1], g0 = a.sptr[t], g1 = a.sptr[t + 1];
+    for (P g = g0; g < g1; ++g) {
+      a.sbeg[g] = e0 + (g - g0) * SEG;
+      a.send[g] = min(e1, e0 + (g - g0 + 1) * SEG);
+      a.stile[g] = 2u * (unsigned)t + (g1 - g0 == 1 ? 1u : 0u);
+    }
+  }
+  tile_fill(a, gw, nw);
+  grid.sync();
+
+  // every iteration runs, after the latch too: the scan returns the last
+  // iterate (convex.py:189)
+  for (int it = 0; it < a.iters; ++it) {
+    if (blockIdx.x == 0 && it > 0) latch(a, it - 1);
+    slot_sums<P, I, Q>(a, gw, nw);
+    grid.sync();
+    column_sums<P, I, Q>(a, gw, nw);
+    grid.sync();
+    row_phase<P, I, Q>(a, it, red, reinterpret_cast<float*>(dyn));
+    grid.sync();
+  }
+  if (blockIdx.x == 0 && a.iters > 0) latch(a, a.iters - 1);
+  dense_write(a, gw, nw);
+}
+
+// ---- launch --------------------------------------------------------------------
+
+// the small scratch's arrays (byte offsets, 256-aligned) for S, N, R and
+// the position type's size
+struct Layout {
+  size_t row_ptr, sptr, sbeg, send, stile, rcnt, tcnt, ttot, rk, part, ref, dn, size, capn, crec,
+      rmax, total;
+};
+
+Layout layout(int S, int N, int R, size_t psz) {
+  Layout l{};
+  size_t o = 0;
+  auto take = [&](size_t bytes) {
+    const size_t at = o;
+    o += (bytes + 255) & ~(size_t)255;
+    return at;
+  };
+  const size_t RP = 4 * (R <= r_max(1) ? 1 : 5), tiles = ((size_t)N + 31) / 32;
+  // slots: at most a tile's ceil(S / SEG)
+  const size_t slots = tiles * (((size_t)S + SEG - 1) / SEG);
+  l.row_ptr = take(((size_t)S + 1) * psz);
+  l.sptr = take((tiles + 1) * psz);
+  l.sbeg = take(slots * psz);
+  l.send = take(slots * psz);
+  l.stile = take(slots * 4);
+  l.rcnt = take((size_t)S * 4);
+  l.tcnt = take((size_t)NCH * tiles * 4);
+  l.ttot = take(tiles * 4);
+  l.rk = take((size_t)S * tiles * 4);
+  l.part = take(slots * 32 * R * 4);
+  l.ref = take(((size_t)R + 1) * 4);
+  l.dn = take((size_t)S * R * 4);
+  l.size = take((size_t)S * 4);
+  l.capn = take((size_t)N * R * 4);
+  l.crec = take((size_t)N * RP * 4);
+  l.rmax = take(2 * 4);
+  l.total = o;
+  return l;
+}
+
+// The four instances: narrow (int positions, 16-bit indices) or wide (int64
+// positions, int indices), by the record's float4s (1: R <= 3, 5: R <= 16).
+#define ADMM_INSTANCES(X)                 \
+  X(0, int, unsigned short, 1)            \
+  X(1, int, unsigned short, 5)            \
+  X(2, long long, int, 1)                 \
+  X(3, long long, int, 5)
+constexpr int N_INST = 4;
+
+int instance_of(bool wide, int R) { return (wide ? 2 : 0) + (R <= r_max(1) ? 0 : 1); }
+
+// blocks of T threads a multiprocessor holds of each instance (the
+// occupancy query, once per device), and the multiprocessors
+struct Fit {
+  int per_sm[N_INST];
+  int sms;
+  bool done;
+};
+Fit g_fit[MAX_DEVICES];
+
+cudaError_t fit_of(int dev, Fit& out) {
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  Fit& f = g_fit[dev];
+  if (!f.done) {
+    cudaError_t e = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, dev);
+#define ADMM_FIT(i, P, I, Q)                                                                 \
+    if (e == cudaSuccess)                                                                    \
+      e = cudaFuncSetAttribute(admm_kernel<P, I, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               DYN_SMEM);                                                    \
+    if (e == cudaSuccess)                                                                    \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f.per_sm[i], admm_kernel<P, I, Q>, T, \
+                                                        DYN_SMEM);
+    ADMM_INSTANCES(ADMM_FIT)
+#undef ADMM_FIT
+    if (e != cudaSuccess) return e;
+    f.done = true;
+  }
+  out = f;
+  return cudaSuccess;
+}
+
+// warps of a row team: the largest power of two up to a block that gives
+// every row a team in one pass of the grid's warps (at least 1)
+int team_warps(int grid, int S) {
+  const long long q = (long long)grid * NW / (S > 0 ? S : 1);
+  int tw = 1;
+  while (tw * 2 <= NW && tw * 2 <= q) tw *= 2;
+  return tw;
+}
+
+template <typename P, typename I, int Q>
+cudaError_t launch(void** p, const int* d, int per_sm, int sms, cudaStream_t st) {
+  Admm<P, I> a{};
+  a.S = d[0]; a.N = d[1]; a.R = d[2]; a.iters = d[3];
+  a.RP = 4 * Q;
+  a.run_req = (const float*)p[0]; a.run_count = (const int*)p[1];
+  a.cand_cap = (const float*)p[2]; a.cand_cost = (const float*)p[3];
+  a.feas = (const unsigned char*)p[4]; a.tol = (const float*)p[5];
+  a.X = (float*)p[6]; a.conv = (int*)p[7];
+  a.Xc = (float*)p[8]; a.col = (I*)p[9];
+  a.tptr = (P*)p[10]; a.trow = (int*)p[11]; a.tmask = (unsigned*)p[12]; a.tbase = (P*)p[13];
+  char* w = (char*)p[14];
+  const Layout l = layout(a.S, a.N, a.R, sizeof(P));
+  a.row_ptr = (P*)(w + l.row_ptr); a.sptr = (P*)(w + l.sptr);
+  a.sbeg = (P*)(w + l.sbeg); a.send = (P*)(w + l.send); a.stile = (unsigned*)(w + l.stile);
+  a.rcnt = (int*)(w + l.rcnt); a.tcnt = (int*)(w + l.tcnt); a.ttot = (int*)(w + l.ttot);
+  a.rk = (int*)(w + l.rk); a.part = (float*)(w + l.part);
+  a.ref = (float*)(w + l.ref); a.dn = (float*)(w + l.dn); a.size = (float*)(w + l.size);
+  a.capn = (float*)(w + l.capn); a.crec = (float*)(w + l.crec); a.rmax = (int*)(w + l.rmax);
+  const uintptr_t fp = (uintptr_t)a.feas;
+  a.vec = (a.N % 16 == 0 && fp % 16 == 0) ? 16 : (a.N % 4 == 0 && fp % 4 == 0) ? 4 : 1;
+  const int grid = per_sm * sms;
+  a.tw = team_warps(grid, a.S);
+  void* args[] = {&a};
+  const cudaError_t e =
+      cudaLaunchCooperativeKernel((const void*)admm_kernel<P, I, Q>, grid, T, args, DYN_SMEM, st);
+  cudaGetLastError();  // clear the launch's error state; e carries it
+  return e;
 }
 
 }  // namespace
@@ -289,58 +954,62 @@ static int g_launches = 0;
 int admm_launches() { return g_launches; }
 
 // K13. ptrs: run_req [S, R] f32, run_count [S] i32, cand_cap [N, R] f32,
-// cand_cost [N] f32, feas [S, N] bool, tol [1] f32, X0 [S, N] f32, X1 [S, N]
-// f32 (the ping-pong pair: X0 receives the start, the result lands in
-// X[max_iters % 2]), conv [1] i32, scratch f32 [R + 1 + S * R + S + 2 * N * R
-// + N + S] (ref, dn, size, capn, over, costn, rres); dims: S, N, R, max_iters.
+// cand_cost [N] f32, feas [S, N] bool, tol [1] f32, X [S, N] f32 (the
+// result), conv [1] i32, Xc [S * N] f32, col [S * N] (narrow u16, wide
+// i32), tptr [tiles + 1], trow [S * tiles] i32, tmask [S * tiles] u32,
+// tbase [S * tiles] (tptr, tbase: narrow i32, wide i64; tiles = ceil(N /
+// 32)), scratch (admm_info's bytes); dims: S, N, R, max_iters, wide (0
+// requires S, N < 65536 and S * N < 2^31).
 int admm_pack_launch(void** p, int n, const int* d, void* stream) {
   g_launches = 0;
-  if (n != 10) return (int)cudaErrorInvalidValue;
-  Admm a{};
-  a.S = d[0]; a.N = d[1]; a.R = d[2];
-  const int iters = d[3];
-  if (a.S < 1 || a.N < 1 || a.R < 1 || a.R > MAX_R || iters < 0) return (int)cudaErrorInvalidValue;
-  a.run_req = (const float*)p[0]; a.run_count = (const int*)p[1];
-  a.cand_cap = (const float*)p[2]; a.cand_cost = (const float*)p[3];
-  a.feas = (const unsigned char*)p[4]; a.tol = (const float*)p[5];
-  float* X[2] = {(float*)p[6], (float*)p[7]};
-  a.conv = (int*)p[8];
-  float* w = (float*)p[9];
-  a.ref = w;                  w += a.R + 1;
-  a.dn = w;                   w += (size_t)a.S * a.R;
-  a.size = w;                 w += a.S;
-  a.capn = w;                 w += (size_t)a.N * a.R;
-  a.over = w;                 w += (size_t)a.N * a.R;
-  a.costn = w;                w += a.N;
-  a.rres = w;
-  cudaStream_t st = (cudaStream_t)stream;
-  admm_ref_kernel<<<1, PT, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
+  if (n != 15) return (int)cudaErrorInvalidValue;
+  const int S = d[0], N = d[1], R = d[2], iters = d[3], wide = d[4];
+  if (S < 1 || N < 1 || R < 1 || R > MAX_R || iters < 0) return (int)cudaErrorInvalidValue;
+  if (!wide && (S > 65535 || N > 65535 || (long long)S * N > 0x7fffffffLL))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  Fit f;
+  e = fit_of(dev, f);
+  if (e != cudaSuccess) return (int)e;
+  const int inst = instance_of(wide != 0, R);
+  if (f.per_sm[inst] < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  switch (inst) {
+#define ADMM_LAUNCH(i, P, I, Q) \
+    case i: e = launch<P, I, Q>(p, d, f.per_sm[i], f.sms, (cudaStream_t)stream); break;
+    ADMM_INSTANCES(ADMM_LAUNCH)
+#undef ADMM_LAUNCH
+  }
   if (e != cudaSuccess) return (int)e;
   ++g_launches;
-  admm_prep_kernel<<<a.S + (a.N + PT - 1) / PT, PT, 0, st>>>(a, X[0]);
-  e = cudaGetLastError();
+  return (int)cudaSuccess;
+}
+
+// Host query for dims S, N, R, wide (as admm_pack_launch's): writes into the
+// int64 host buffer ptrs[0] the scratch bytes, the grid (blocks), threads a
+// block, blocks a multiprocessor, multiprocessors, the warps of a row team
+// and the grid barriers an iteration.
+int admm_info(void** p, int n, const int* d, void* stream) {
+  (void)stream;
+  if (n != 1) return (int)cudaErrorInvalidValue;
+  const int S = d[0], N = d[1], R = d[2], wide = d[4];
+  if (R < 1 || R > MAX_R) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  ++g_launches;
-  const int col_blocks = (a.N + CT - 1) / CT;
-  // every iteration runs, after the latch too: the scan returns the last
-  // iterate (convex.py:189); no host sync between launches
-  for (int i = 0; i < iters; ++i) {
-    admm_load_kernel<<<col_blocks, CT * CW, 0, st>>>(a, X[i & 1], i);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    ++g_launches;
-    admm_row_kernel<<<a.S, PT, 0, st>>>(a, X[i & 1], X[(i + 1) & 1], i);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    ++g_launches;
-  }
-  if (iters > 0) {
-    admm_latch_kernel<<<1, PT, 0, st>>>(a, iters - 1);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    ++g_launches;
-  }
+  Fit f;
+  e = fit_of(dev, f);
+  if (e != cudaSuccess) return (int)e;
+  const int per_sm = f.per_sm[instance_of(wide != 0, R)];
+  long long* out = (long long*)p[0];
+  out[0] = (long long)layout(S, N, R, wide ? 8 : 4).total;
+  out[1] = (long long)per_sm * f.sms;
+  out[2] = T;
+  out[3] = per_sm;
+  out[4] = f.sms;
+  out[5] = team_warps(per_sm * f.sms, S);
+  out[6] = ITER_BARRIERS;
   return (int)cudaSuccess;
 }
 

@@ -39,8 +39,9 @@ INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the four *_rows_budget queries and the two *cluster_info queries take the same
-# arguments; the budgets ignore them, cluster_info writes into the host buffer ptrs[0])
+# (the four *_rows_budget queries, the two *cluster_info queries and admm_info take the
+# same arguments; the budgets ignore them, cluster_info and admm_info write into the host
+# buffer ptrs[0])
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
@@ -53,7 +54,7 @@ LAUNCHERS = {
     "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
-    "convex_kernels": ("admm_pack_launch",),
+    "convex_kernels": ("admm_pack_launch", "admm_info"),
 }
 # flags of one library besides NVCC_FLAGS: K13 keeps the JAX expression
 # order, so nvcc may not contract a * b + c into an FMA there

@@ -11,9 +11,13 @@ falls under `tol` (solver/convex.py describes the problem and its columns).
   (the CPU tests hold it against the JAX function; chip_smoke.py holds the
   kernel against it on the card);
 - `admm_pack`: the wrapper. A CUDA tensor goes to the kernel
-  (csrc/convex_kernels.cu: a prologue, two launches per iteration, all
-  enqueued with no host sync, a one-block tail; one fetch of (X, conv) by
-  the caller); a CPU tensor goes to the plain version.
+  (csrc/convex_kernels.cu: one persistent cooperative launch over the
+  feasible cells, which builds their row and column layout on the card,
+  runs the iterations between grid barriers and writes the dense X; one
+  fetch of (X, conv) by the caller); a CPU tensor goes to the plain version;
+- `admm_layout_plain`: the plain version of the kernel's feasible-cell
+  layout (CSR by row, CSC by column as positions into the CSR), for the
+  tests and chip_smoke.py's check of the kernel's own buffers.
 
 Both return (X [S, N] float32, conv: a 0-d int32 tensor, the 1-based
 iteration at which max |dX| first fell under tol, or -1). Every iteration
@@ -28,7 +32,13 @@ import torch
 # one count per wrapper call that launches K13 (see cuda/ffd.py LAUNCHES)
 LAUNCHES = {"admm_pack": 0}
 
-MAX_R = 16  # csrc/convex_kernels.cu MAX_R: the row's dn sits in shared memory
+MAX_R = 16  # csrc/convex_kernels.cu MAX_R: a lane's load sums and a row's dn sit in registers
+# the kernel's narrow instance (int32 positions into its layout, 16-bit
+# column, row and rank indices) takes tables of at most WIDE_CELLS cells
+# and NARROW_DIM rows and columns; the wide one (int64 positions, int32
+# indices) every other
+WIDE_CELLS = 2**31 - 1
+NARROW_DIM = 65_535
 
 
 def _f32(v) -> float:
@@ -79,7 +89,67 @@ def admm_pack_plain(run_req, run_count, cand_cap, cand_cost, feas, tol, max_iter
     return X, conv
 
 
-def _admm_pack_cuda(run_req, run_count, cand_cap, cand_cost, feas, tol, max_iters: int):
+LAYOUT_FIELDS = ("row_ptr", "col", "tptr", "trow", "tmask", "tbase")
+
+
+def admm_layout_plain(feas):
+    """The kernel's layout of the feasible cells of `feas` [Sp, Np], as
+    int64 tensors on its device, in LAYOUT_FIELDS' order: the CSR (row_ptr
+    [Sp + 1]; col [nnz], each row's feasible columns in ascending order)
+    and the column tiles (32 adjacent columns; tile t's entries tptr[t] to
+    tptr[t + 1], one a row with a feasible cell in the tile, in ascending
+    row order: trow, the row; tmask, bit l set where cell (row, 32 t + l)
+    is feasible; tbase, the CSR position of the row's first feasible cell
+    in the tile)."""
+    i64 = torch.int64
+    Sp, Np = feas.shape
+    tiles = -(-Np // 32)
+    dev = feas.device
+    _, cols = feas.nonzero(as_tuple=True)  # row-major: rows, then columns, ascending
+    row_ptr = torch.zeros(Sp + 1, dtype=i64, device=dev)
+    row_ptr[1:] = feas.sum(dim=1).cumsum(0)
+    cells = torch.zeros((Sp, tiles * 32), dtype=i64, device=dev)
+    cells[:, :Np] = feas.to(i64)
+    cells = cells.view(Sp, tiles, 32)
+    mask = (cells << torch.arange(32, dtype=i64, device=dev)).sum(dim=2)  # [Sp, tiles]
+    before = cells.sum(dim=2).cumsum(dim=1) - cells.sum(dim=2)  # the row's cells before a tile
+    t_idx, s_idx = (mask.T != 0).nonzero(as_tuple=True)  # tile-major, rows ascending
+    tptr = torch.zeros(tiles + 1, dtype=i64, device=dev)
+    tptr[1:] = (mask != 0).sum(dim=0).cumsum(0)
+    return (row_ptr, cols.to(i64), tptr, s_idx.to(i64), mask[s_idx, t_idx],
+            row_ptr[s_idx] + before[s_idx, t_idx])
+
+
+def _wide(Sp: int, Np: int) -> bool:
+    return Sp * Np > WIDE_CELLS or max(Sp, Np) > NARROW_DIM
+
+
+def kernel_info(Sp: int, Np: int, R: int, device=None) -> dict:
+    """The launch K13 makes for a table of Sp x Np cells and R resources on
+    `device` (the current CUDA device by default): scratch bytes, grid
+    blocks, threads a block, blocks a multiprocessor, multiprocessors, warps
+    of a row team, grid barriers an iteration, the position type's bytes."""
+    import ctypes
+
+    from .build import load
+
+    wide = _wide(Sp, Np)
+    out = (ctypes.c_longlong * 7)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = load("convex_kernels").admm_info((ctypes.c_void_p * 1)(ctypes.addressof(out)), 1,
+                                              (ctypes.c_int * 5)(Sp, Np, R, 0, int(wide)), None)
+    if rc != 0:
+        raise RuntimeError(f"admm_info: CUDA error {rc}")
+    keys = ("scratch_bytes", "grid", "threads", "blocks_per_sm", "sms", "team_warps",
+            "barriers_per_iteration")
+    return dict(zip(keys, (int(v) for v in out)), position_bytes=8 if wide else 4)
+
+
+def _admm_pack_cuda(run_req, run_count, cand_cap, cand_cost, feas, tol, max_iters: int,
+                    layout=None):
+    """K13. With a dict `layout`, the call's layout is stored in it
+    (LAYOUT_FIELDS as int64, cut to their lengths, and Xc; a host sync), for
+    chip_smoke.py's check against admm_layout_plain."""
     from .build import load
     from .ffd import _check, _ints, _ptrs, _raise_on, _stream
 
@@ -101,16 +171,38 @@ def _admm_pack_cuda(run_req, run_count, cand_cap, cand_cost, feas, tol, max_iter
                             (feas, "feas", torch.bool, (Sp, Np)),
                             (tol, "tol", torch.float32, (1,))):
         _check(t, n, dt, shape)
-    X = [torch.empty((Sp, Np), dtype=torch.float32, device=dev) for _ in range(2)]
+    info = kernel_info(Sp, Np, R, dev)
+    wide = info["position_bytes"] == 8
+    cells = Sp * Np
+    ptype = torch.int64 if wide else torch.int32
+    tiles = -(-Np // 32)
+    X = torch.empty((Sp, Np), dtype=torch.float32, device=dev)
     conv = torch.empty(1, dtype=torch.int32, device=dev)
-    scratch = torch.empty(R + 1 + Sp * R + Sp + 2 * Np * R + Np + Sp, dtype=torch.float32,
-                          device=dev)
+    # the layout, sized for the dense worst case: X and its columns (CSR;
+    # the narrow kernel reads the columns as uint16), the column tiles'
+    # entries; then the small arrays
+    Xc = torch.empty(cells, dtype=torch.float32, device=dev)
+    col = torch.empty(cells, dtype=torch.int32 if wide else torch.int16, device=dev)
+    tptr = torch.empty(tiles + 1, dtype=ptype, device=dev)
+    trow = torch.empty(Sp * tiles, dtype=torch.int32, device=dev)
+    tmask = torch.empty(Sp * tiles, dtype=torch.int32, device=dev)  # uint32 bits
+    tbase = torch.empty(Sp * tiles, dtype=ptype, device=dev)
+    scratch = torch.empty(info["scratch_bytes"], dtype=torch.uint8, device=dev)
     rc = load("convex_kernels").admm_pack_launch(
-        _ptrs([run_req, run_count, cand_cap, cand_cost, feas, tol, X[0], X[1], conv, scratch]),
-        10, _ints([Sp, Np, R, max_iters]), _stream())
+        _ptrs([run_req, run_count, cand_cap, cand_cost, feas, tol, X, conv, Xc, col, tptr, trow,
+               tmask, tbase, scratch]),
+        15, _ints([Sp, Np, R, max_iters, int(wide)]), _stream())
     _raise_on(rc, "admm_pack")
     LAUNCHES["admm_pack"] += 1
-    return X[max_iters % 2], conv.reshape(())
+    if layout is not None:
+        row_ptr = scratch[: (Sp + 1) * info["position_bytes"]].view(ptype)  # opens the scratch
+        nnz, entries = int(row_ptr[-1]), int(tptr[-1])
+        i64 = torch.int64
+        layout.update(row_ptr=row_ptr.to(i64),
+                      col=col[:nnz].to(i64) & (0xFFFF if not wide else -1), tptr=tptr.to(i64),
+                      trow=trow[:entries].to(i64), tmask=tmask[:entries].to(i64) & 0xFFFFFFFF,
+                      tbase=tbase[:entries].to(i64), Xc=Xc[:nnz])
+    return X, conv.reshape(())
 
 
 def admm_pack(run_req, run_count, cand_cap, cand_cost, feas, tol, *, max_iters: int):
