@@ -200,6 +200,18 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    decisions of the CPU plain path. Phases 2c and 5 launch the same ladder
    kernels.
 
+15. the lane-batched scans as one thread-block cluster a lane (K15, K17:
+   ffd_lanes_kernel; K17s: ffd_lanes_sparse_kernel; the cluster size
+   chosen at launch from the lanes and the clusters the card holds at
+   once): the lanes' cluster table (each instance's fits at 16, 8, 4 and 2
+   CTAs and its size for LANES_TABLE_B lanes, equal to the Python mirror
+   ffd.lanes_cluster), K15 fast and zoned at LANES_B lanes of seeded
+   input fleets against the plain lanes (run in CPU worker processes the
+   phase starts and stops) and K1 on each lane, K17 / K17s at LANES_ND
+   blocks of the surge, config 3 and hostname_wide against their plain
+   versions and K1 / K1s on each block, every launch twice on the same
+   tensors, bit for bit. Phases 9-11 launch the same lanes kernels.
+
 Between 2 and 3, BASELINE config 5 (multi-node consolidation at 10 000
 nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
@@ -221,6 +233,9 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        scans on every fleet it names, phase 2c's ladder cells too)
        python3 chip_smoke.py --phase 8    (phase 8 alone: the convex
        backend, K13's tables and row)
+       python3 chip_smoke.py --phase 15   (phase 15 alone: the lanes
+       scans' cluster table and checks, the surge's, config 3's and
+       hostname_wide's blocks made first)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -1758,8 +1773,9 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
 
 
 # K1 / K7 and their sparse twins are ffd_cluster_kernel<ZONE, CKPT, SPARSE>,
-# K6 / K6s ffd_ladder_kernel<ZONE, SPARSE> (one cluster a solve); the
-# one-block batched scan K4 ffd_scan_kernel<ZONE>
+# K6 / K6s ffd_ladder_kernel<ZONE, SPARSE> (one cluster a solve), K15 / K17
+# ffd_lanes_kernel<ZONE> and K17s ffd_lanes_sparse_kernel<ZONE> (one cluster
+# a lane); the one-block batched scan K4 ffd_scan_kernel<ZONE>
 KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "ffd_cluster_kernel<true, false, false>",
                 "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
@@ -5782,6 +5798,180 @@ def print_mesh(m: dict) -> None:
           flush=True)
 
 
+# ---- phase 15: the lanes scans as one thread-block cluster a lane --------------------
+#
+# K15 (ffd_lanes_kernel), K17 (the same kernel over a solve's run blocks) and
+# K17s (ffd_lanes_sparse_kernel) run one thread-block cluster a lane, its
+# size chosen at launch from the lanes B and the clusters the card holds at
+# once (ffd.lanes_cluster mirrors the launcher's rule). Phase 15 prints the
+# lanes' cluster table (each instance's fits, and its size at LANES_TABLE_B
+# lanes held equal to the mirror's), holds K15 fast and zoned at LANES_B
+# lanes of seeded input fleets of one shape bucket (LANES_FLEETS,
+# CLUSTER_SEEDS seeds each) against the plain lanes (computed in CPU worker
+# processes meanwhile) and K1 on each lane, and K17 / K17s at LANES_ND
+# blocks of the surge (K17 fast), config 3 (K17 and K17s zoned) and
+# hostname_wide (K17s fast) against their plain versions and K1 / K1s on
+# each block (sharded_check). Every launch is made twice on the same
+# tensors, and the two equal bit for bit.
+LANES_TABLE_B = (1, 2, 4, 7, 8, 15, 16, 32)
+LANES_B = (1, 7, 8, 16)  # one lane; a wave of 16-CTA clusters; of 8-CTA; past it
+LANES_ND = (2, 4, 8)
+LANES_FLEETS = {"fast": "constrained", "zoned": "zone"}
+LANES_SHARDED = (("surge", False), ("config3", False), ("config3", True),
+                 ("hostname_wide", True))
+LANES_TIMEOUT_S = 600  # a worker's plain lanes
+
+
+def lanes_plain_job(kind: str) -> dict:
+    """The first LANES_B[-1] fleets of LANES_FLEETS[kind] (seeds 0 ..
+    CLUSTER_SEEDS - 1, in seed order) of the commonest shape bucket, in a
+    worker process: their kernel arguments stacked lane-major (numpy), the
+    claim bucket (doubled while a lane saturates it, as the main path's)
+    and the plain lanes (ffd_solve_lanes_plain on the CPU, every output as
+    numpy). The plain lanes of the first B lanes are the first B of these,
+    lane for lane."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+    from karpenter_tpu_torch.solver.encode import encode, quantize_input
+
+    torch.set_num_threads(1)
+    groups = collections.defaultdict(list)
+    for seed in range(CLUSTER_SEEDS):
+        enc = encode(quantize_input(_fleet_input(LANES_FLEETS[kind], seed)))
+        host = tb.host_kernel_args(enc, tb.TorchSolver._bucket)[0]
+        groups[(enc.V > 0, tuple(a.shape for a in host))].append(
+            (seed, host, int(sum(len(p) for p in enc.group_pods))))
+    (zone, _), members = max(groups.items(), key=lambda kv: len(kv[1]))
+    n = LANES_B[-1]
+    assert len(members) >= n and zone == (kind == "zoned"), (kind, zone, len(members))
+    members = members[:n]
+    stacked = tuple(np.stack([m[1][j] for m in members]) for j in range(len(members[0][1])))
+    M = tb.initial_claim_bucket(max(m[2] for m in members), MAX_CLAIMS)
+    args = args_to_torch(stacked, "cpu")
+    t0 = time.perf_counter()
+    while True:
+        plain = ffd.ffd_solve_lanes_plain(*args, max_claims=M, zone_engine=zone)
+        if int(plain.state.used.max()) < M or M >= MAX_CLAIMS:
+            break
+        M = min(2 * M, MAX_CLAIMS)
+    return dict(kind=kind, zone=zone, seeds=[m[0] for m in members], host=stacked, M=M,
+                want=[t.numpy() for t in _scan_outputs(plain)],
+                plain_s=time.perf_counter() - t0)
+
+
+def lanes_cluster_table(dev) -> dict:
+    """Every lanes instance's clusters of 16, 8, 4 and 2 CTAs the card holds
+    at once, and the cluster size a launch of B lanes takes for each B of
+    LANES_TABLE_B, as the launcher reports it; each size must equal the
+    Python mirror's (ffd.lanes_cluster) on the same fits."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    cl = {}
+    for B in LANES_TABLE_B:
+        info = ffd.lanes_cluster_info(dev, B)
+        for name, v in info.items():
+            mirror = ffd.lanes_cluster(B, v["fits"])
+            assert v["cl"] == mirror, f"{name} at B={B}: the launcher takes CL {v['cl']}, " \
+                                      f"the mirror {mirror} ({v['fits']})"
+        cl[B] = {name: v["cl"] for name, v in info.items()}
+    fits = {name: v["fits"] for name, v in info.items()}
+    for name, f in fits.items():
+        print(f"lanes[{name}]: clusters at once " + ", ".join(f"of {k}: {n}" for k, n in f.items())
+              + "; CL at B " + ", ".join(f"{B}: {cl[B][name]}" for B in LANES_TABLE_B), flush=True)
+    return dict(fits=fits, cl=cl)
+
+
+def lanes_k15_check(plain: dict, dev) -> dict:
+    """K15 at each B of LANES_B lanes of `plain`'s fleets (lanes_plain_job):
+    every output against the plain lanes, each lane against K1 alone, and a
+    second launch on the same tensors bit for bit; the cluster size the
+    launch takes and its time (CUDA events) beside it."""
+    import torch
+
+    from karpenter_tpu_torch.solver.convert import args_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    zone, M = plain["zone"], plain["M"]
+    full = args_to_torch(plain["host"], dev)
+    want = [torch.from_numpy(t) for t in plain["want"]]
+    name = f"ffd_lanes_{'zoned' if zone else 'fast'}_scan"
+    by_b = {}
+    for B in LANES_B:
+        args = tuple(a[:B].contiguous() for a in full)
+        fn = lambda: ffd.ffd_solve_lanes(*args, max_claims=M, zone_engine=zone)  # noqa: E731
+        out, again = fn(), fn()
+        torch.cuda.synchronize()
+        err = max_abs_err(_scan_outputs(out), [w[:B] for w in want])
+        rep = max_abs_err(_scan_outputs(out), _scan_outputs(again))
+        err_k1 = 0
+        for b in range(B):
+            k1 = ffd.ffd_solve(*(a[b] for a in args), max_claims=M, zone_engine=zone)
+            err_k1 = max(err_k1, max_abs_err(_scan_outputs(ffd.output_lane(out, b)),
+                                             _scan_outputs(k1)))
+        assert err == 0 and rep == 0 and err_k1 == 0, \
+            f"{name} at B={B}: plain {err}, repeat {rep}, K1 per lane {err_k1}"
+        by_b[B] = dict(cl=ffd.lanes_cluster_info(dev, B)[name]["cl"], err=err, repeat=rep,
+                       err_k1=err_k1, ms=time_ms(fn, 5),
+                       used=[int(u) for u in out.state.used.tolist()],
+                       events=[int(e) for e in out.events.tolist()])
+    return dict(name=name, M=M, Sp=int(full[0].shape[1]), seeds=plain["seeds"],
+                plain_s=plain["plain_s"], by_B=by_b)
+
+
+def lanes_sharded_checks(phases: dict, dev) -> dict:
+    """K17 / K17s at each Nd of LANES_ND on the LANES_SHARDED cells
+    (sharded_check: the plain version and K1 / K1s per block), a second
+    launch on the same tensors bit for bit, the launch's cluster size and
+    its time."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    out = {}
+    for cell, sparse in LANES_SHARDED:
+        for Nd in LANES_ND:
+            c = sharded_check(phases[cell], Nd, dev, sparse=sparse)
+            again = c["run"](c["M"])
+            torch.cuda.synchronize()
+            rep = max_abs_err(_scan_outputs(c["out"]), _scan_outputs(again))
+            assert rep == 0, f"{c['name']} at Nd={Nd}: two launches differ ({rep})"
+            kind = "zoned" if c["zone"] else "fast"
+            table = f"ffd_sharded_sparse_{kind}_scan" if sparse else f"ffd_lanes_{kind}_scan"
+            out[f"{cell}{'_sparse' if sparse else ''}_Nd{Nd}"] = dict(
+                name=c["name"], cl=ffd.lanes_cluster_info(dev, Nd)[table]["cl"], M=c["M"],
+                Sblk=int(c["blocks"][0].shape[1]), err=c["err"], err_k1=c["err_k1"],
+                repeat=rep, ms=time_ms(lambda: c["run"](c["M"]), 5), events=c["events"])
+    return out
+
+
+def lanes_cluster_phase(dev, phases: dict) -> dict:
+    """Phase 15 (see LANES_TABLE_B). `phases`: kernel_phase results of the
+    surge, config 3 and hostname_wide (this run's phase 2 and 3 ones)."""
+    import concurrent.futures
+    import multiprocessing
+
+    out = {"table": lanes_cluster_table(dev)}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(max_workers=len(LANES_FLEETS),
+                                                mp_context=ctx) as pool:
+        jobs = {kind: pool.submit(lanes_plain_job, kind) for kind in LANES_FLEETS}
+        out["sharded"] = lanes_sharded_checks(phases, dev)
+        out["lanes"] = {kind: lanes_k15_check(job.result(timeout=LANES_TIMEOUT_S), dev)
+                        for kind, job in jobs.items()}
+    for kind, c in out["lanes"].items():
+        print(f"lanes[K15 {kind}, M {c['M']}, seeds {c['seeds']}]: " + "; ".join(
+            f"B {B} CL {r['cl']} {r['ms']:.3f} ms" for B, r in c["by_B"].items()), flush=True)
+    print("lanes[K17/K17s]: " + "; ".join(f"{k} CL {r['cl']} {r['ms']:.3f} ms"
+                                          for k, r in out["sharded"].items()), flush=True)
+    return out
+
+
 def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
@@ -5872,9 +6062,10 @@ def main() -> int:
     only12 = sys.argv[1:] == ["--phase", "12"]
     only13 = sys.argv[1:] == ["--phase", "13"]
     only8 = sys.argv[1:] == ["--phase", "8"]
-    if sys.argv[1:] and not (only8 or only10 or only11 or only12 or only13):
+    only15 = sys.argv[1:] == ["--phase", "15"]
+    if sys.argv[1:] and not (only8 or only10 or only11 or only12 or only13 or only15):
         print("usage: python3 chip_smoke.py [--phase 8 | --phase 10 | --phase 11 | --phase 12 | "
-              "--phase 13]", file=sys.stderr)
+              "--phase 13 | --phase 15]", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -5922,6 +6113,27 @@ def main() -> int:
         # phase 12 alone: the cluster scans on every fleet it names
         clusters = cluster_phase(dev)
         print(json.dumps({"clusters": clusters,
+                          "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only15:
+        # phase 15 alone: the lanes scans on every fleet it names, the
+        # surge's, config 3's and hostname_wide's blocks made here
+        from karpenter_tpu_torch.parallel.sharded import virtual_devices
+
+        with virtual_devices(1):
+            refs = {"surge": kernel_phase(build_input(PODS), dev),
+                    "config3": kernel_phase(build_config3_input(PODS), dev),
+                    "hostname_wide": kernel_phase(build_hostname_wide_input(), dev)}
+        t0 = time.perf_counter()
+        lanes_cl = lanes_cluster_phase(dev, refs)
+        lanes_cl["phase_s"] = time.perf_counter() - t0
+        print(json.dumps({"lanes_clusters": lanes_cl,
                           "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
                           "wall_s": time.perf_counter() - t_start}), flush=True)
         print(card)
@@ -6520,6 +6732,14 @@ def main() -> int:
     ladders = ladder_cluster_phase(dev, ladder=ladder)
     ladders["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"ladders": ladders}), flush=True)
+
+    print(f"[phase 15 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
+    # ---- phase 15: the lanes scans as one cluster of CTAs a lane ----------------------
+    t0 = time.perf_counter()
+    lanes_cl = lanes_cluster_phase(dev, {"surge": phases["surge"], "config3": phases["config3"],
+                                         "hostname_wide": hw})
+    lanes_cl["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"lanes_clusters": lanes_cl}), flush=True)
     # solves per kernel in phase 3's counted window: TorchSolver() on the
     # surge, surge_e2e (K7), config 4 (K7 zoned), config 3 and
     # constraint_wide (K7s zoned) REPEATS times, mixed (K7s zoned)
@@ -6597,6 +6817,7 @@ def main() -> int:
         "qrows": qrows,
         "clusters": clusters,
         "ladders": ladders,
+        "lanes_clusters": lanes_cl,
         "mesh": {"procmesh": {k: v for k, v in mesh["procmesh"].items() if k != "rows"},
                  "hostmesh": {k: v for k, v in mesh["hostmesh"].items() if k != "rows"},
                  "phase_s": mesh["phase_s"]},

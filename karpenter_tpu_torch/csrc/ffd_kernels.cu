@@ -34,17 +34,18 @@
 //                   device-resident ring every K steps.
 // K9 pack_outputs   replaces karpenter_tpu/solver/backend.py:511 _pack_outputs.
 // K15 ffd_lanes     replaces karpenter_tpu/parallel/sharded.py:80 batched_solve:
-//                   ffd_lanes_kernel<ZONE>, K1's scan body on each of B
-//                   lanes, one block per lane; built from
-//                   ffd_lanes_kernels.cu (this file with FFD_LANES_ONLY).
+//                   ffd_lanes_kernel<ZONE>, K1's scan on each of B lanes,
+//                   one thread-block cluster a lane, its size chosen at
+//                   launch; built from ffd_lanes_kernels.cu (this file
+//                   with FFD_LANES_ONLY).
 // K17 ffd_sharded  replaces karpenter_tpu/solver/tpu/ffd.py:2264
 //                   ffd_solve_sharded: K15's ffd_lanes_kernel<ZONE>, one
 //                   lane per run block of a mesh-sharded solve, the shared
 //                   tables at a per-lane count of 0 (no kernel of its own).
 // K17s              replaces karpenter_tpu/solver/tpu/ffd.py:2800
 //                   ffd_solve_sharded_sparse: ffd_lanes_sparse_kernel<ZONE>,
-//                   K1s's scan body per run block; built from
-//                   ffd_lanes_sparse_kernels.cu (this file with
+//                   K1s's scan per run block, one cluster a lane; built
+//                   from ffd_lanes_sparse_kernels.cu (this file with
 //                   FFD_LANES_ONLY and FFD_LANES_SPARSE).
 // K1s/K6s/K7s       replace karpenter_tpu/solver/tpu/ffd.py:2403
 //                   ffd_solve_sparse, :2701 ffd_solve_ladder_sparse, :2500
@@ -129,9 +130,10 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
 
 // ---- the team: the threads that walk one solve -----------------------------
 //
-// One block (CL = false: K4, K15, K17 and K17s, NT threads) or one
-// thread-block cluster of n CTAs of NTC threads on neighbouring SMs (CL =
-// true: K1, K6, K7 and their sparse twins, one cluster a solve). Work over
+// One block (CL = false: K4 alone, NT threads) or one thread-block cluster
+// of n CTAs of NTC threads on neighbouring SMs (CL = true: K1, K6, K7 and
+// their sparse twins, one cluster a solve; K15, K17 and K17s, one cluster
+// a lane, several clusters a launch). Work over
 // node rows, claim rows and [n, T] grids is split over the team's threads
 // (gtid of gnt) or warps (gwid of gnw); every CTA
 // computes the control scalars, the run's Q / V rows, the pool passes and
@@ -377,8 +379,8 @@ __device__ __forceinline__ int floordiv_magic(int n, unsigned m, int sh) {
 // mask narrowing were 90% of a surge run (PERF.md §6, Step 0).
 // Design: ONE launch per dispatch, one thread-block cluster of CL CTAs
 // (16, or 8 where the card refuses 16; ffd_cluster_kernel, and
-// ffd_ladder_kernel for K6) walks every run (the one-block instances below
-// keep one block of 1024 threads). The carry
+// ffd_ladder_kernel for K6) walks every run (K15 / K17 / K17s run one such
+// cluster a lane; K4 below keeps one block of 1024 threads). The carry
 // (FFDState) lives in global buffers the wrapper allocated; per-run rows
 // (req and its exact divisions, Q flags) sit in every CTA's shared memory.
 // The claim pass runs one warp of the cluster per OPEN claim, each warp a
@@ -2411,16 +2413,21 @@ __global__ void __launch_bounds__(NTC, 1) ffd_ladder_kernel(ScanArgs a) {
 // (the fused cross-tenant cohort dispatch, backend.solve_cohort_async).
 //
 // What bounds it on the H100: each lane is K1's scan, a serial chain of run
-// steps that one block walks (latency-bound, far from the card's memory and
-// integer peaks); lanes share nothing, so B lanes run on B SMs at once and a
-// batch of up to 132 lanes costs about one lane's time.
-// Design: one launch, grid = B, one block per lane running K1's body
-// (scan_body<ZONE, false, false, false, false>) on its own lane. The block
-// moves every argument, carry and output pointer of the lane-0 ScanArgs by
-// lane x that array's per-lane element count; both the ScanArgs and the
-// per-array counts (LaneStrides) ride in the kernel's parameters by value,
-// so the launch uploads nothing. The carry is seeded per lane by the
-// wrapper, as K1's is, and each lane's outputs are full take tables.
+// steps (latency-bound, far from the card's memory and integer peaks);
+// lanes share nothing, so a lane's time is K1's at the lane's cluster size
+// while every lane's cluster is resident at once.
+// Design: one launch, one thread-block cluster of CL CTAs a lane (a grid of
+// B x CL CTAs, the cluster along x), each cluster running K1's scan
+// (scan_body<ZONE, false, false, false, false, true>) on its own lane: the
+// same team, split and barriers as K1. CL is chosen per launch from B and
+// the clusters the card holds at once (launch_lanes below). Every CTA of a
+// cluster moves every argument, carry and output pointer of the lane-0
+// ScanArgs by its cluster's lane x that array's per-lane element count;
+// both the ScanArgs and the per-array counts (LaneStrides) ride in the
+// kernel's parameters by value, so the launch uploads nothing. A lane's
+// scratch is a cluster scan's (the shared rows, then MAX_CL CTAs' own
+// rows). The carry is seeded per lane by the wrapper, as K1's is, and each
+// lane's outputs are full take tables.
 constexpr int LANE_ARRAYS = 53;  // 32 scan inputs, 16 carry fields, 5 outputs
 
 struct LaneStrides {
@@ -2430,8 +2437,13 @@ struct LaneStrides {
 template <typename Ptr>
 __device__ __forceinline__ void to_lane(Ptr& p, long long b, long long n) { p += b * n; }
 
-__device__ __forceinline__ void lane_prologue(ScanArgs& a, const LaneStrides& ls) {
-  const long long b = blockIdx.x;
+// the lane of this CTA: its cluster's index along x (every CTA of a
+// cluster computes the same lane)
+__device__ __forceinline__ long long lane_index() {
+  return blockIdx.x / cg::this_cluster().num_blocks();
+}
+
+__device__ __forceinline__ void lane_prologue(ScanArgs& a, const LaneStrides& ls, long long b) {
   const long long* n = ls.n;
   to_lane(a.run_group, b, n[0]); to_lane(a.run_count, b, n[1]);
   to_lane(a.group_req, b, n[2]); to_lane(a.group_compat_t, b, n[3]);
@@ -2459,9 +2471,9 @@ __device__ __forceinline__ void lane_prologue(ScanArgs& a, const LaneStrides& ls
 }
 
 template <bool ZONE>
-__global__ void __launch_bounds__(NT) ffd_lanes_kernel(ScanArgs a, LaneStrides ls) {
-  lane_prologue(a, ls);
-  scan_body<ZONE, false, false, false, false, false>(a);
+__global__ void __launch_bounds__(NTC, 1) ffd_lanes_kernel(ScanArgs a, LaneStrides ls) {
+  lane_prologue(a, ls, lane_index());
+  scan_body<ZONE, false, false, false, false, true>(a);
 }
 
 // ---- K17s: the sparse lanes of a mesh-sharded solve ----------------------------
@@ -2471,23 +2483,24 @@ __global__ void __launch_bounds__(NT) ffd_lanes_kernel(ScanArgs a, LaneStrides l
 // the index tables [Nd, Sblk, Kq] / [Nd, Sblk, Kv] blocked like the runs.
 // (K17, the dense twin, is ffd_lanes_kernel itself: the wrapper gives
 // every shared table a per-lane count of 0.)
-// What bounds it: as K15, each lane is a serial chain of run steps on one
-// SM; Nd lanes run on Nd SMs at once, each over Sblk = Sp / Nd runs.
+// What bounds it: as K15, each lane is a serial chain of run steps; Nd
+// lanes run on Nd clusters at once, each over Sblk = Sp / Nd runs.
 // Design: K15's prologue, then the two index tables step by their own
-// per-lane counts, then K1s's body (scan_body<ZONE, false, false, false,
-// true>). A kernel of its own, so that K15's two instances compile as
-// they did.
+// per-lane counts, then K1s's scan (scan_body<ZONE, false, false, false,
+// true, true>), one cluster a lane as K15's. A kernel of its own, so that
+// K15's two instances compile as they did.
 struct SparseLaneStrides {
   LaneStrides base;
   long long q, v;  // per-lane elements of run_q_idx and run_v_idx
 };
 
 template <bool ZONE>
-__global__ void __launch_bounds__(NT) ffd_lanes_sparse_kernel(ScanArgs a, SparseLaneStrides ls) {
-  lane_prologue(a, ls.base);
-  to_lane(a.run_q_idx, (long long)blockIdx.x, ls.q);
-  to_lane(a.run_v_idx, (long long)blockIdx.x, ls.v);
-  scan_body<ZONE, false, false, false, true, false>(a);
+__global__ void __launch_bounds__(NTC, 1) ffd_lanes_sparse_kernel(ScanArgs a, SparseLaneStrides ls) {
+  const long long b = lane_index();
+  lane_prologue(a, ls.base, b);
+  to_lane(a.run_q_idx, b, ls.q);
+  to_lane(a.run_v_idx, b, ls.v);
+  scan_body<ZONE, false, false, false, true, true>(a);
 }
 #endif  // FFD_LANES_ONLY
 
@@ -2989,6 +3002,139 @@ static int clusters_info(int* out) {
   return e;
 }
 
+#ifdef FFD_LANES_ONLY
+// ---- the lanes launch (K15, K17, K17s) --------------------------------------------
+//
+// One launch a dispatch: B lanes, one cluster of CL CTAs a lane. The
+// clusters of 16, 8, 4 and 2 CTAs the device holds at once at the
+// instance's widest launch (its whole row budget of dynamic shared memory,
+// the occupancy query of pick_cluster) are queried once per device and
+// instance, with the dynamic shared memory opt-in raised to that budget.
+// Each launch then takes the largest CL whose clusters the device holds
+// all B at once; past every size, the smallest size it holds at all (CL 2
+// on an H100), and the lanes run in waves. solver/cuda/ffd.py lanes_cluster
+// mirrors the rule. A launch the device refuses returns its error, and no
+// other launch is tried.
+constexpr int LANE_SIZES = 4;
+constexpr int LANE_CL[LANE_SIZES] = {16, 8, 4, 2};
+
+struct LanesFit {
+  int fit[LANE_SIZES];  // clusters of LANE_CL[i] CTAs the device holds at once
+  bool done;
+};
+
+// this library's lanes kernel: the sparse one in ffd_lanes_sparse_kernels.cu
+#ifdef FFD_LANES_SPARSE
+constexpr bool LANES_SPARSE = true;
+template <bool ZONE>
+static auto lanes_kernel() { return ffd_lanes_sparse_kernel<ZONE>; }
+#else
+constexpr bool LANES_SPARSE = false;
+template <bool ZONE>
+static auto lanes_kernel() { return ffd_lanes_kernel<ZONE>; }
+#endif
+
+template <bool ZONE>
+static LanesFit* lanes_fits() {
+  static LanesFit fits[MAX_DEVICES] = {};
+  return fits;
+}
+
+// the instance's fits on the current device (queried on first use)
+template <bool ZONE>
+static int lanes_fit(const LanesFit*& out) {
+  auto kern = lanes_kernel<ZONE>();
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  LanesFit& lf = lanes_fits<ZONE>()[dev];
+  out = &lf;
+  if (lf.done) return 0;
+  const int dyn = rows_budget(kern);
+  if (dyn < 0) return -dyn;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return (int)e;
+  int held = 0;
+  for (int i = 0; i < LANE_SIZES; ++i) {
+    int f = 0;
+    if (LANE_CL[i] > 8) {
+      // the non-portable size: a refused attribute or query is an answer, not a fault
+      if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess ||
+          cluster_fit(kern, LANE_CL[i], dyn, &f) != cudaSuccess)
+        f = 0;
+      (void)cudaGetLastError();
+    } else {
+      e = cluster_fit(kern, LANE_CL[i], dyn, &f);
+      if (e != cudaSuccess) return (int)e;
+    }
+    lf.fit[i] = f;
+    held += f > 0;
+  }
+  if (held == 0) return (int)cudaErrorInvalidConfiguration;
+  lf.done = true;
+  return 0;
+}
+
+// the cluster size a launch of B lanes takes (0: the device holds none)
+static int lanes_cl(int B, const int* fit) {
+  for (int i = 0; i < LANE_SIZES; ++i)
+    if (fit[i] >= B) return LANE_CL[i];
+  for (int i = LANE_SIZES - 1; i >= 0; --i)
+    if (fit[i] >= 1) return LANE_CL[i];
+  return 0;
+}
+
+template <bool ZONE, typename Strides>
+static int launch_lanes(const ScanArgs& a, const Strides& ls, int B, void* stream) {
+  const LanesFit* lf = nullptr;
+  const int err = lanes_fit<ZONE>(lf);
+  if (err != 0) return err;
+  const int cl = lanes_cl(B, lf->fit);
+  if (cl < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)cl, 1, 1);
+  cfg.blockDim = dim3(NTC, 1, 1);
+  cfg.dynamicSmemBytes = scan_rows_bytes(a.Q, LANES_SPARSE ? a.Kq : 0, a.V, LANES_SPARSE ? a.Kv : 0,
+                                         ZONE);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, lanes_kernel<ZONE>(), a, ls);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out[0..9]: the fast instance's clusters of 16, 8, 4 and 2 the device
+// holds at once and the CL a launch of B lanes takes, then the zoned
+// instance's
+static int lanes_info(int B, int* out) {
+  const LanesFit* lf = nullptr;
+  for (int z = 0; z < 2; ++z) {
+    const int e = z ? lanes_fit<true>(lf) : lanes_fit<false>(lf);
+    if (e != 0) return e;
+    for (int i = 0; i < LANE_SIZES; ++i) out[5 * z + i] = lf->fit[i];
+    out[5 * z + LANE_SIZES] = lanes_cl(B, lf->fit);
+  }
+  return 0;
+}
+
+// The lanes launchers' per-lane element counts: n arrays from dims d[at..],
+// two ints each (low, high 32 bits). Returns false on a negative count.
+static bool lane_counts(const int* d, int at, int n, long long* cnt) {
+  for (int i = 0; i < n; ++i) {
+    cnt[i] = (long long)(unsigned)d[at + 2 * i] | ((long long)d[at + 2 * i + 1] << 32);
+    if (cnt[i] < 0) return false;
+  }
+  return true;
+}
+#endif  // FFD_LANES_ONLY
+
 // The sparse launchers take the dense launcher's pointers and dims, then
 // run_q_idx [S, Kq] and run_v_idx [S, Kv] (two more pointers) and Kq, Kv
 // (two more dims). Returns false when the view is wider than the shared
@@ -3134,29 +3280,12 @@ int ffd_lanes_sparse_launch(void** p, int n, const int* d, void* stream) {
   if (!scan_limits_ok(a, zone) || B < 1 || !fill_sparse<true>(a, p, n, d, nd))
     return (int)cudaErrorInvalidValue;
   long long cnt[LANE_ARRAYS + 2];
-  for (int i = 0; i < LANE_ARRAYS + 2; ++i) {
-    cnt[i] = (long long)(unsigned)d[13 + 2 * i] | ((long long)d[14 + 2 * i] << 32);
-    if (cnt[i] < 0) return (int)cudaErrorInvalidValue;
-  }
+  if (!lane_counts(d, 13, LANE_ARRAYS + 2, cnt)) return (int)cudaErrorInvalidValue;
   SparseLaneStrides ls{};
   for (int i = 0; i < LANE_ARRAYS; ++i) ls.base.n[i] = cnt[i];
   ls.q = cnt[LANE_ARRAYS];
   ls.v = cnt[LANE_ARRAYS + 1];
-  cudaStream_t st = (cudaStream_t)stream;
-  if (zone) {
-    auto kern = ffd_lanes_sparse_kernel<true>;
-    static int opted[MAX_DEVICES] = {};
-    const int dyn = launch_rows(kern, a, true, true, opted);
-    if (dyn < 0) return -dyn;
-    kern<<<B, NT, dyn, st>>>(a, ls);
-  } else {
-    auto kern = ffd_lanes_sparse_kernel<false>;
-    static int opted[MAX_DEVICES] = {};
-    const int dyn = launch_rows(kern, a, false, true, opted);
-    if (dyn < 0) return -dyn;
-    kern<<<B, NT, dyn, st>>>(a, ls);
-  }
-  return (int)cudaGetLastError();
+  return zone ? launch_lanes<true>(a, ls, B, stream) : launch_lanes<false>(a, ls, B, stream);
 }
 
 // The row budget of the sparse lanes instances (the least of the two); the
@@ -3164,6 +3293,13 @@ int ffd_lanes_sparse_launch(void** p, int n, const int* d, void* stream) {
 int ffd_lanes_sparse_rows_budget(void**, int, const int*, void*) {
   return least_budget({rows_budget(ffd_lanes_sparse_kernel<false>),
                        rows_budget(ffd_lanes_sparse_kernel<true>)});
+}
+
+// The sparse lanes instances' clusters of 16, 8, 4 and 2 the device holds
+// at once and the CL a launch of B = dims[0] lanes takes, fast then zoned:
+// 10 ints into the host buffer ptrs[0]. Returns 0 or a CUDA error.
+int ffd_lanes_sparse_cluster_info(void** p, int, const int* d, void*) {
+  return d[0] < 1 ? (int)cudaErrorInvalidValue : lanes_info(d[0], (int*)p[0]);
 }
 #elif defined(FFD_LANES_ONLY)
 // the lanes library (ffd_lanes_kernels.cu): K15, and K17 (the same
@@ -3184,31 +3320,19 @@ int ffd_lanes_launch(void** p, int n, const int* d, void* stream) {
   const int B = d[12];
   if (!scan_limits_ok(a, zone) || B < 1) return (int)cudaErrorInvalidValue;
   LaneStrides ls{};
-  for (int i = 0; i < LANE_ARRAYS; ++i) {
-    ls.n[i] = (long long)(unsigned)d[13 + 2 * i] | ((long long)d[14 + 2 * i] << 32);
-    if (ls.n[i] < 0) return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  if (zone) {
-    auto kern = ffd_lanes_kernel<true>;
-    static int opted[MAX_DEVICES] = {};
-    const int dyn = launch_rows(kern, a, true, false, opted);
-    if (dyn < 0) return -dyn;
-    kern<<<B, NT, dyn, st>>>(a, ls);
-  } else {
-    auto kern = ffd_lanes_kernel<false>;
-    static int opted[MAX_DEVICES] = {};
-    const int dyn = launch_rows(kern, a, false, false, opted);
-    if (dyn < 0) return -dyn;
-    kern<<<B, NT, dyn, st>>>(a, ls);
-  }
-  return (int)cudaGetLastError();
+  if (!lane_counts(d, 13, LANE_ARRAYS, ls.n)) return (int)cudaErrorInvalidValue;
+  return zone ? launch_lanes<true>(a, ls, B, stream) : launch_lanes<false>(a, ls, B, stream);
 }
 
 // The row budget of the lanes instances (the least of the two); the
 // arguments are unused. Returns the budget, or minus a CUDA error.
 int ffd_lanes_rows_budget(void**, int, const int*, void*) {
   return least_budget({rows_budget(ffd_lanes_kernel<false>), rows_budget(ffd_lanes_kernel<true>)});
+}
+
+// As ffd_lanes_sparse_cluster_info, for K15 / K17 fast and zoned.
+int ffd_lanes_cluster_info(void** p, int, const int* d, void*) {
+  return d[0] < 1 ? (int)cudaErrorInvalidValue : lanes_info(d[0], (int*)p[0]);
 }
 #else
 int ffd_scan_launch(void** p, int n, const int* d, void* stream) {

@@ -5,9 +5,9 @@ mesh-sharded solve and the candidate-sharded consolidation use.
 
 `batched_solve` runs `ffd_solve` on every lane of a [B, ...] argument
 tuple (the JAX `jax.vmap(ffd_solve)`): on the card one launch of K15
-(cuda/ffd.py ffd_solve_lanes, one block per lane). `pad_batch` pads such a
-tuple to a batch bucket on the device by replicating its last lane: one
-launch of K16 (cuda/arena.py pad_lanes). Both serve the fused cohort
+(cuda/ffd.py ffd_solve_lanes, one thread-block cluster a lane). `pad_batch`
+pads such a tuple to a batch bucket on the device by replicating its last
+lane: one launch of K16 (cuda/arena.py pad_lanes). Both serve the fused cohort
 dispatch (solver/backend.py solve_cohort_async), which runs on one card.
 
 A `Mesh` is an ordered list of device slots on one named axis, the

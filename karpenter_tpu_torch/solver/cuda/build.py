@@ -39,9 +39,9 @@ INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the four *_rows_budget queries, the two *cluster_info queries and admm_info take the
-# same arguments; the budgets ignore them, cluster_info and admm_info write into the host
-# buffer ptrs[0])
+# (the four *_rows_budget queries, the four *cluster_info queries and admm_info take the
+# same arguments; the budgets ignore them, the cluster queries and admm_info write into the
+# host buffer ptrs[0]; the lanes' cluster queries read B from dims[0])
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
@@ -50,8 +50,9 @@ LAUNCHERS = {
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
                            "ffd_ckpt_sparse_launch", "ffd_sparse_rows_budget",
                            "ffd_sparse_cluster_info"),
-    "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_rows_budget"),
-    "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget"),
+    "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_rows_budget", "ffd_lanes_cluster_info"),
+    "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget",
+                                 "ffd_lanes_sparse_cluster_info"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
     "convex_kernels": ("admm_pack_launch", "admm_info"),

@@ -55,7 +55,9 @@ explain wire; their kernels are csrc/class_kernels.cu (K10-K12).
 
 `ffd_solve_lanes` is the scan over a leading lane axis (the JAX
 `jax.vmap(ffd_solve)` of parallel/sharded.py batched_solve, the fused
-cohort dispatch): K15, one block per lane (csrc/ffd_lanes_kernels.cu).
+cohort dispatch): K15, one thread-block cluster a lane, its size chosen
+at launch from the lanes the card holds at once (`lanes_cluster`;
+csrc/ffd_lanes_kernels.cu).
 `ffd_solve_sharded` and `ffd_solve_sharded_sparse` are the lanes of a
 mesh-sharded solve (the JAX ffd.py:2264 / :2800): only the run arrays (and
 the index tables) carry a leading [Nd] block axis, the other tables are
@@ -1693,8 +1695,10 @@ def scan_scratch_words(E: int, M: int, T: int, Z: int) -> int:
 # The cluster scans (K1, K6, K7 and their sparse twins: csrc/ffd_kernels.cu
 # ffd_cluster_kernel, ffd_ladder_kernel) run one solve on one thread-block
 # cluster of up to MAX_CL CTAs of CLUSTER_THREADS threads (16 where the card
-# allows, else 8; cluster_info); the one-block scans (K4, K15, K17) keep NT
-# threads.
+# allows, else 8; cluster_info); the lanes scans (K15, K17, K17s:
+# ffd_lanes_kernel, ffd_lanes_sparse_kernel) one such cluster a lane, of
+# LANE_CLUSTERS CTAs as lanes_cluster picks; the batched scan K4 keeps one
+# block of NT threads a row.
 MAX_CL = 16
 CLUSTER_THREADS = 512
 NT = 1024
@@ -1763,6 +1767,57 @@ def cluster_info(device) -> dict:
                     info[_scan_name(kind, zone, sparse)] = dict(
                         cl=out[3 * i], fit16=out[3 * i + 1], fit8=out[3 * i + 2])
         _CLUSTERS[idx] = info
+    return info
+
+
+# The lanes scans' cluster sizes, widest first (csrc/ffd_kernels.cu LANE_CL)
+LANE_CLUSTERS = (16, 8, 4, 2)
+
+
+def lanes_cluster(B: int, fits: dict) -> int:
+    """The cluster size a lanes launch of B lanes takes (csrc/ffd_kernels.cu
+    lanes_cl): the largest of LANE_CLUSTERS whose clusters the card holds
+    all B at once (`fits`: {size: clusters of that size the card holds at
+    once}, 0 or missing where it refuses the size); past every size, the
+    smallest size it holds at all, and the lanes run in waves. Raises
+    where it holds none."""
+    if B < 1:
+        raise ValueError(f"lanes_cluster: B={B} < 1")
+    for cl in LANE_CLUSTERS:
+        if fits.get(cl, 0) >= B:
+            return cl
+    held = [cl for cl in LANE_CLUSTERS if fits.get(cl, 0) >= 1]
+    if not held:
+        raise ValueError(f"lanes_cluster: the card holds no cluster of {LANE_CLUSTERS} ({fits})")
+    return held[-1]
+
+
+def lanes_cluster_info(device, B: int) -> dict:
+    """The lanes instances' clusters of 16, 8, 4 and 2 CTAs the card holds
+    at once at the instance's widest launch (the occupancy query, once per
+    device) and the cluster size a launch of B lanes takes there, as the
+    launcher reports them (ffd_lanes_cluster_info,
+    ffd_lanes_sparse_cluster_info): {instance name: {"fits": {size:
+    clusters}, "cl"}}, K15 / K17 under ffd_lanes_{fast,zoned}_scan, K17s
+    under ffd_sharded_sparse_{fast,zoned}_scan. None on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    from .build import load
+
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    info = {}
+    with torch.cuda.device(idx):
+        for lib, fn, prefix in (("ffd_lanes_kernels", "ffd_lanes_cluster_info", "ffd_lanes"),
+                                ("ffd_lanes_sparse_kernels", "ffd_lanes_sparse_cluster_info",
+                                 "ffd_sharded_sparse")):
+            out = (ctypes.c_int * 10)()
+            rc = getattr(load(lib), fn)((ctypes.c_void_p * 1)(ctypes.addressof(out)), 1,
+                                        _ints([B]), None)
+            _raise_on(rc, fn)
+            for z, kind in enumerate(("fast", "zoned")):
+                info[f"{prefix}_{kind}_scan"] = dict(
+                    fits=dict(zip(LANE_CLUSTERS, out[5 * z:5 * z + 4])), cl=out[5 * z + 4])
     return info
 
 
@@ -2195,9 +2250,11 @@ def _lane_counts(ptrs, B: int, shared) -> list:
 
 
 def _ffd_solve_lanes_cuda(*args, max_claims: int, zone_engine: bool = False) -> FFDOutput:
-    """K15: one launch, one block per lane, each block K1's scan on its
-    lane. The per-lane element counts of every array ride in the launch's
-    parameters (csrc/ffd_kernels.cu LaneStrides); nothing is uploaded."""
+    """K15: one launch, one thread-block cluster a lane (its size chosen by
+    the launcher, lanes_cluster), each cluster K1's scan on its lane. The
+    per-lane element counts of every array ride in the launch's parameters
+    (csrc/ffd_kernels.cu LaneStrides); nothing is uploaded. A lane's
+    scratch is a cluster scan's (cluster_scratch_words)."""
     from .build import load
 
     B = int(args[0].shape[0])
@@ -2215,7 +2272,7 @@ def _ffd_solve_lanes_cuda(*args, max_claims: int, zone_engine: bool = False) -> 
     take_c = torch.empty((B, Sp, M), dtype=I32, device=dev)
     leftover = torch.empty((B, Sp), dtype=I32, device=dev)
     events = torch.zeros((B,), dtype=I32, device=dev)
-    scratch = torch.empty((B, scan_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
+    scratch = torch.empty((B, cluster_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
     ptrs = [a[n] for n in _SCAN_INPUTS] + list(st) + [take_e, take_c, leftover, events, scratch]
     dims = [Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B] + _lane_counts(ptrs, B, ())
     rc = load("ffd_lanes_kernels").ffd_lanes_launch(_ptrs(ptrs), len(ptrs), _ints(dims),
@@ -2263,12 +2320,12 @@ def ffd_solve_sharded_plain(run_group, run_count, *shared, max_claims: int,
 
 def _ffd_solve_sharded_cuda(run_group, run_count, *shared, max_claims: int,
                             zone_engine: bool = False, sparse=None) -> FFDOutput:
-    """K17 (K15's ffd_lanes_kernel, one block per run block), or with
-    `sparse` K17s (ffd_lanes_sparse_kernel): one launch over the Nd blocks
-    on the tensors' device. Only the run arrays (and the index tables), the
-    carry, the outputs and the scratch step per lane; every shared table
-    goes at a per-lane count of 0. The carry is seeded per lane from the
-    shared tables, as K1's is."""
+    """K17 (K15's ffd_lanes_kernel, one thread-block cluster per run block),
+    or with `sparse` K17s (ffd_lanes_sparse_kernel): one launch over the Nd
+    blocks on the tensors' device. Only the run arrays (and the index
+    tables), the carry, the outputs and the scratch (a cluster scan's a
+    lane) step per lane; every shared table goes at a per-lane count of 0.
+    The carry is seeded per lane from the shared tables, as K1's is."""
     from .build import load
 
     B, Sblk = (int(x) for x in run_group.shape)
@@ -2293,7 +2350,7 @@ def _ffd_solve_sharded_cuda(run_group, run_count, *shared, max_claims: int,
     take_c = torch.empty((B, Sblk, M), dtype=I32, device=dev)
     leftover = torch.empty((B, Sblk), dtype=I32, device=dev)
     events = torch.zeros((B,), dtype=I32, device=dev)
-    scratch = torch.empty((B, scan_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
+    scratch = torch.empty((B, cluster_scratch_words(E, M, T, Z)), dtype=I32, device=dev)
     ptrs = ([a[n] for n in _SCAN_INPUTS] + list(st)
             + [take_e, take_c, leftover, events, scratch] + idx)
     dims = ([Sblk, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B]

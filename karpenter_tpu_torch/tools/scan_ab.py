@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The scan kernels of this checkout against another checkout's, on one card.
 
-Builds the three FFD kernel libraries (csrc/ffd_kernels.cu, its sparse
-build csrc/ffd_sparse_kernels.cu and its lane-batched build
-csrc/ffd_lanes_kernels.cu) from this checkout and from OTHER_CHECKOUT's
-csrc (for example the parent commit unpacked with `git archive`), then
+Builds the four FFD kernel libraries (csrc/ffd_kernels.cu, its sparse
+build csrc/ffd_sparse_kernels.cu, its lane-batched build
+csrc/ffd_lanes_kernels.cu and the sparse lanes csrc/ffd_lanes_sparse_kernels.cu)
+from this checkout and from OTHER_CHECKOUT's csrc (for example the parent
+commit unpacked with `git archive`), then
 
 - compares ptxas's report of every kernel the two builds share: registers,
   spill stores and spill loads (a kernel whose numbers moved is listed);
@@ -12,14 +13,17 @@ csrc (for example the parent commit unpacked with `git archive`), then
   other, this) ROUNDS times, CUDA events around CALLS calls each (fewer
   for the slow K4 and K6 rows, SLOW_CALLS): K1 fast (ffd_fast_scan) at the
   50 000-pod surge's kernel arguments, K15 fast (ffd_lanes_fast_scan) at
-  8 lanes of them, the checkpointed fast scan (ffd_ckpt_fast_scan, K7
+  8 lanes of them, K15 zoned (ffd_lanes_zoned_scan) at 8 lanes of config
+  3's, the checkpointed fast scan (ffd_ckpt_fast_scan, K7
   fast) at the surge's, the checkpointed zoned scan (ffd_ckpt_zoned_scan)
   and its sparse twin (ffd_ckpt_sparse_zoned_scan) at BASELINE config 3's
   (a ring every 16 steps, 4 slots: TorchSolver's defaults), K1 zoned
   (ffd_zoned_scan) at config 3's; then the one-block scans: K4 fast and
   zoned (ffd_batched_*_scan) at config 5's 511-row dispatch (10 000 nodes,
-  2 000 candidates; the zoned instance on the same rows), K17 fast
-  (ffd_sharded_fast_scan) at the surge over Nd 4 run blocks; and the ladder
+  2 000 candidates; the zoned instance on the same rows); the lanes of a
+  sharded solve: K17 fast (ffd_sharded_fast_scan) at the surge over Nd 4
+  run blocks, K17 zoned (ffd_sharded_zoned_scan) and K17s zoned
+  (ffd_sharded_sparse_zoned_scan) at config 3's over Nd 4; and the ladder
   scans: K6 fast (ffd_ladder_fast_scan) at the surge_pref cell's ladder
   dispatch, K6 zoned at config3_soft's (dense tables) and its sparse twin
   (ffd_ladder_sparse_zoned_scan, the main path's) on the union index
@@ -49,8 +53,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ROUNDS = 3  # (this, other, other, this) rounds
-AB_LIBS = ("ffd_kernels", "ffd_sparse_kernels", "ffd_lanes_kernels")
-LANES = 8  # K15's lanes (cohort_surge's)
+AB_LIBS = ("ffd_kernels", "ffd_sparse_kernels", "ffd_lanes_kernels", "ffd_lanes_sparse_kernels")
+LANES = 8  # K15's lanes (cohort_surge's, cohort_config3's)
 CALLS = 20  # calls per timing
 SLOW_CALLS = 5  # calls per timing of K4 (~2 ms a dispatch) and K6 (~2-17 ms)
 SLOW = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "ffd_ladder_fast_scan",
@@ -60,7 +64,7 @@ SHARD_ND = 4  # K17's run blocks
 
 
 def _build_other(other: str):
-    """The other checkout's three FFD libraries, loaded, and their ptxas
+    """The other checkout's four FFD libraries, loaded, and their ptxas
     reports (text)."""
     from karpenter_tpu_torch.solver.cuda import build
 
@@ -83,7 +87,8 @@ def _build_other(other: str):
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
         for fname in ("ffd_scan_launch", "ffd_ckpt_launch", "ffd_ckpt_sparse_launch",
-                      "ffd_lanes_launch", "ffd_batched_launch", "ffd_ladder_launch",
+                      "ffd_lanes_launch", "ffd_lanes_sparse_launch", "ffd_batched_launch",
+                      "ffd_ladder_launch",
                       "ffd_ladder_sparse_launch", "pack_verdicts_launch"):
             if hasattr(lib, fname):
                 getattr(lib, fname).argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
@@ -119,8 +124,8 @@ def scan_ab(other: str) -> dict:
     sp = cs.sparse_tables(ph["enc"], ph["out"].take_e.shape[0], dev)
     kw = dict(max_claims=M, zone_engine=True, ckpt_every=16, n_ckpt=4)
     kw_fast = dict(max_claims=surge["M"], zone_engine=False, ckpt_every=16, n_ckpt=4)
-    lanes = tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
-                  for a in surge["args"])
+    lanes, lanes_c3 = (tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
+                             for a in p["args"]) for p in (surge, ph))
     # the one-block scans K4 at config 5's 511-row dispatch and K17 at the
     # surge's Nd 4 run blocks; K6 / K6s at the ladder cells' and the relax
     # walk's dispatches
@@ -146,9 +151,12 @@ def scan_ab(other: str) -> dict:
     sp6 = cs.sparse_tables(lad_z[0], lad_z[3]["Sp"], dev,
                            run_ladder=lad_z[2].cpu().numpy()[:len(lad_z[0].run_group)])
     blocks, shared, _ = cs.sharded_args(surge, SHARD_ND, dev, sparse=False)
+    blocks_c3, shared_c3, sp_c3 = cs.sharded_args(ph, SHARD_ND, dev, sparse=True)
     fns = {"ffd_fast_scan": lambda: ffd.ffd_solve(*surge["args"], max_claims=surge["M"]),
            "ffd_zoned_scan": lambda: ffd.ffd_solve(*args, max_claims=M, zone_engine=True),
            "ffd_lanes_fast_scan": lambda: ffd.ffd_solve_lanes(*lanes, max_claims=surge["M"]),
+           "ffd_lanes_zoned_scan": lambda: ffd.ffd_solve_lanes(*lanes_c3, max_claims=M,
+                                                               zone_engine=True),
            "ffd_ckpt_fast_scan": lambda: ffd.ffd_solve_ckpt(*surge["args"], **kw_fast),
            "ffd_ckpt_zoned_scan": lambda: ffd.ffd_solve_ckpt(*args, **kw),
            "ffd_ckpt_sparse_zoned_scan": lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw),
@@ -162,7 +170,11 @@ def scan_ab(other: str) -> dict:
            "ffd_ladder_zoned_scan_walk": lambda: ffd.ffd_solve_ladder(
                lad_w[2], *lad_w[1], max_claims=M6w, zone_engine=lad_w[0].V > 0),
            "ffd_sharded_fast_scan": lambda: ffd.ffd_solve_sharded(*blocks, *shared,
-                                                                  max_claims=surge["M"])}
+                                                                  max_claims=surge["M"]),
+           "ffd_sharded_zoned_scan": lambda: ffd.ffd_solve_sharded(
+               *blocks_c3, *shared_c3, max_claims=M, zone_engine=True),
+           "ffd_sharded_sparse_zoned_scan": lambda: ffd.ffd_solve_sharded_sparse(
+               *sp_c3, *blocks_c3, *shared_c3, max_claims=M, zone_engine=True)}
 
     def outputs(k, o):
         if k.startswith("ffd_batched"):
