@@ -10,7 +10,8 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    and ffd_zoned_scan, with the zoned event engine; K2 compact_takes; K3
    claim_meta; K6 below) against its plain PyTorch version on the card, at the shapes
    of the 50k-pod solves' own kernel arguments (the surge with and without
-   nodes, BASELINE configs 3 and 4, and the mixed zone+ct input): exact
+   nodes, BASELINE configs 3 and 4; the mixed zone+ct input runs K1-K3
+   there and its plain scan once, in phase 3): exact
    equality (all outputs are integers), equal zoned event counts, a
    synchronize after each launch; then on small seeded fleets that reach
    the paths the 50k inputs do not (hostname constraints; the zoned
@@ -33,7 +34,8 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    and a device_decode=False solver (the dense output pack) on the surge
    and config 3 must decide the same; every kernel must have launched, and
    the decisions must equal the plain-version path's (the mixed input's
-   through PlainOnCard); each solve's
+   through PlainOnCard, whose recorded scans are then replayed through
+   their kernels and held bit for bit); each solve's
    garbage-collection pauses are recorded beside its time;
 4. forces the wide re-fetch (a tiny delta capacity) and checks the
    decisions do not change;
@@ -82,16 +84,22 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    on, class_zone once (every gang labelled for zone co-location: the
    relax ladder, preemption declines), and surge_e2e through TorchSolver()
    with explain on and off in turns, with the launch counts reset just
-   before and read just after (K10 gang_commit, K11 preemption_plan, K12
-   explain_pack must all launch); then the class solve's stage split, one
-   solve with every K10/K11 call held against its plain version, and the
+   before and read just after (K10 gang_commit, the preemption walk and
+   K12 explain_pack must all launch: one walk a class_contended solve, no
+   K11 preemption_plan); then the class solve's stage split, one solve
+   with every K10 and walk call held against its plain version, and the
    decisions (evictions, gang verdicts, class_stats) against
    ClassAwareSolver(TorchSolver(device="cpu")): class_contended's, and
    class_zone's on the fleet cut to CLASS_ZONE_CHECK_GANGS gangs (solved
    on the card too). Before it (phase 2f) K10
    and K11 are held against their plain versions on seeded and
    adversarial tables (int32 wrap, no eligible victim or node, a free fit,
-   gangs past NG, E = Vm = 1) and K11 at 10 000 nodes, and K12 at the
+   gangs past NG, E = Vm = 1) and K11 at 10 000 nodes; the walk bit for
+   bit on each team (the launcher's rule, one block, a cluster of 16) on
+   seeded and adversarial tables (a budget of 0 and one crossed inside a
+   candidate, free fits, all-false node rows, int32 wrap, victims at the
+   candidate's priority, Vm 70 with R 16) and on the 10 000-node tables
+   walked under the class budget; and K12 at the
    outputs of surge_e2e, config 3 and class_contended's cold inner solve,
    at top_k 8 and above Ep; a record built from K12's wire must equal the
    host-derived one. class_zone runs at bench.py's 1 000 gangs (V > 1 000
@@ -231,6 +239,8 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        scans on every fleet it names, the Q-heavy and hostname fleets too)
        python3 chip_smoke.py --phase 13   (phase 13 alone: the ladder
        scans on every fleet it names, phase 2c's ladder cells too)
+       python3 chip_smoke.py --phase 7    (phase 7 alone: phase 2f's class
+       kernels and class_contended's kernel checks, then the class path)
        python3 chip_smoke.py --phase 8    (phase 8 alone: the convex
        backend, K13's tables and row)
        python3 chip_smoke.py --phase 15   (phase 15 alone: the lanes
@@ -1243,11 +1253,13 @@ def bound(bytes_moved: int, ops: int, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(inp, dev):
+def kernel_phase(inp, dev, plain: bool = True):
     """K1-K3 against their plain versions at the shapes of `inp`'s solve:
     K1's zoned instance when the input has V-axis sigs (as the main path
     picks it), its fast instance otherwise; the claim bucket doubles on
-    saturation as the main path's does."""
+    saturation as the main path's does. Without `plain` K1 runs alone (the
+    mixed input: its plain scan runs once, in phase 3's reference solve,
+    against the kernels that solve calls; K1 is held to those in phase 2e)."""
     import torch
 
     from karpenter_tpu_torch.solver import backend as tb
@@ -1267,16 +1279,18 @@ def kernel_phase(inp, dev):
         if int(out.state.used) < M or M >= MAX_CLAIMS:
             break
         M = min(2 * M, MAX_CLAIMS)
-    t0 = time.perf_counter()
-    plain = ffd.ffd_solve_plain(*args, max_claims=M, zone_engine=zone)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    k1 = [out.take_e, out.take_c, out.leftover, out.events, *out.state]
-    p1 = [plain.take_e, plain.take_c, plain.leftover, plain.events, *plain.state]
-    err1 = max_abs_err(k1, p1)
-    name = "ffd_zoned_scan" if zone else "ffd_fast_scan"
-    assert err1 == 0, f"{name} disagrees with its plain version (max |d| {err1})"
-    assert int(out.events) == int(plain.events), (int(out.events), int(plain.events))
+    err1 = plain_s = None
+    if plain:
+        t0 = time.perf_counter()
+        ref = ffd.ffd_solve_plain(*args, max_claims=M, zone_engine=zone)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        k1 = [out.take_e, out.take_c, out.leftover, out.events, *out.state]
+        p1 = [ref.take_e, ref.take_c, ref.leftover, ref.events, *ref.state]
+        err1 = max_abs_err(k1, p1)
+        name = "ffd_zoned_scan" if zone else "ffd_fast_scan"
+        assert err1 == 0, f"{name} disagrees with its plain version (max |d| {err1})"
+        assert int(out.events) == int(ref.events), (int(out.events), int(ref.events))
 
     Sp, Ep = out.take_e.shape
     cap = tb.delta_capacity(total, Sp, Ep, M)
@@ -1799,7 +1813,9 @@ KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 # lanes of a mesh-sharded solve (31, 32: K17s)
                 "ffd_lanes_kernel<false>", "ffd_lanes_kernel<true>", "copy_runs_kernel",
                 "apply_events_kernel", "pad_lanes_kernel",
-                "ffd_lanes_sparse_kernel<false>", "ffd_lanes_sparse_kernel<true>")
+                "ffd_lanes_sparse_kernel<false>", "ffd_lanes_sparse_kernel<true>",
+                # the preemption walk (33: one block, 34: a cluster)
+                "preempt_walk_kernel<false>", "preempt_walk_kernel<true>")
 # phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
 # K2, K3; its uploads are exact hits after the warm-up), one arena=False
 # solver (K1 and K1s in both instances) and one device_decode=False solver
@@ -1905,13 +1921,48 @@ def tail(samples) -> dict:
                 solves_with_gen2_gc=sum(1 for _, _, c in samples if c[2]))
 
 
+def _clone_tree(x):
+    """Tensors cloned inside tuples, lists and named tuples."""
+    if hasattr(x, "clone"):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        items = [_clone_tree(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+    return x
+
+
+def _tensor_leaves(x) -> list:
+    if hasattr(x, "clone"):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensor_leaves(v)]
+    return []
+
+
 class PlainOnCard:
     """Route the kernel wrappers to their plain versions, on the card's
     tensors, for a reference solve through TorchSolver (used where the CPU
-    plain path would take minutes: the mixed input's ~10^4 zoned events)."""
+    plain path would take minutes: the mixed input's ~10^4 zoned events).
+    With `record`, every scan call (K1 / K1s, K7 / K7s) keeps copies of its
+    arguments and plain outputs, and replay() runs the kernels it stood in
+    for on them and holds every output bit for bit."""
+
+    def __init__(self, record: bool = False):
+        self.record = record
+        self.calls = []
 
     def __enter__(self):
         from karpenter_tpu_torch.solver.cuda import arena, ffd
+
+        def recorded(kind, fn):
+            def call(*args, **kw):
+                saved = _clone_tree((args, kw)) if self.record else None
+                out = fn(*args, **kw)
+                if self.record:
+                    self.calls.append((kind, *saved, _clone_tree(out)))
+                return out
+
+            return call
 
         def solve_plain(*args, sparse=None, **kw):
             return ffd._scan_plain(args, ffd._state0(args, kw["max_claims"]), kw["max_claims"],
@@ -1923,10 +1974,12 @@ class PlainOnCard:
             return ffd._scan_plain(args, st, kw["max_claims"], kw["zone_engine"],
                                    kw["ckpt_every"], kw["n_ckpt"], sparse=sparse)
 
+        solve_plain, ckpt_plain = recorded("solve", solve_plain), recorded("ckpt", ckpt_plain)
+
         self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
                       ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda,
                       ffd._pack_outputs_cuda, arena._unpack_cuda, ffd._gang_commit_cuda,
-                      ffd._preemption_plan_cuda, ffd._explain_pack_cuda)
+                      ffd._preemption_plan_cuda, ffd._preemption_walk_cuda, ffd._explain_pack_cuda)
         ffd._ffd_solve_cuda = solve_plain
         ffd._compact_takes_cuda = ffd.compact_takes_plain
         ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
@@ -1936,6 +1989,7 @@ class PlainOnCard:
         arena._unpack_cuda = arena.unpack_plain
         ffd._gang_commit_cuda = ffd.gang_commit_plain
         ffd._preemption_plan_cuda = ffd.preemption_plan_plain
+        ffd._preemption_walk_cuda = ffd.preemption_walk_plain
         ffd._explain_pack_cuda = ffd.explain_pack_plain
         return self
 
@@ -1945,7 +1999,28 @@ class PlainOnCard:
         (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
          ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, ffd._pack_outputs_cuda,
          arena._unpack_cuda, ffd._gang_commit_cuda, ffd._preemption_plan_cuda,
-         ffd._explain_pack_cuda) = self.saved
+         ffd._preemption_walk_cuda, ffd._explain_pack_cuda) = self.saved
+
+    def replay(self) -> list:
+        """The recorded scans through their kernels (after the block): per
+        call (kind, the kernel's name, max |d| over every output, rings
+        included), each 0."""
+        import torch
+
+        from karpenter_tpu_torch.solver.cuda import ffd
+
+        kernels = {"solve": self.saved[0], "ckpt": self.saved[4]}
+        out = []
+        for kind, args, kw, want in self.calls:
+            before = dict(ffd.LAUNCHES)
+            got = kernels[kind](*args, **kw)
+            torch.cuda.synchronize()
+            name = next(k for k, v in ffd.LAUNCHES.items() if v != before.get(k, 0))
+            err = max_abs_err(_tensor_leaves(got), _tensor_leaves(want))
+            assert err == 0, f"{name} disagrees with its plain version on the replayed call ({err})"
+            out.append((kind, name, err))
+        assert out, "the reference solve made no scan call"
+        return out
 
 
 CONFIG5_NODES = 10_000  # BASELINE config 5
@@ -2882,7 +2957,14 @@ CLASS_EXPLAIN_REPEATS = 2  # then with the explain plane on
 CLASS_BREAKDOWN_PASSES = 2
 EXPLAIN_REPEATS = 10  # surge_e2e solves with explain on, and as many off
 K11_NODES = 10_000  # the preemption planner's tables at BASELINE's fleet size
-CLASS_KERNELS = ("gang_commit", "preemption_plan", "explain_pack")
+# the preemption walk's checks: the class pass's budget (MAX_EVICTIONS_PER_SOLVE),
+# the K11_NODES walk's candidates (the budget stops it at 257), and the teams
+# each table runs on: the launcher's rule (0), one block (1), a cluster (16)
+WALK_BUDGET = 256
+WALK_CANDIDATES = 300
+WALK_TEAMS = (0, 1, 16)
+WALK_BARRIER_ITERS = 20_000  # team barriers a timed launch passes (the serial floor)
+CLASS_KERNELS = ("gang_commit", "preemption_walk", "explain_pack")
 
 
 def _on_card(arrays, dev):
@@ -2986,6 +3068,108 @@ def adversarial_class_tables():
     return out
 
 
+def walk_check(tables, budget: int, dev) -> dict:
+    """The walk kernel against its plain version on the card, on the rule's
+    team and on both forced ones (WALK_TEAMS): the wire (rows in order,
+    count, budget flag) and the final free / victim_ok tables bit for bit."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    args = _on_card(tables, dev)
+    want = ffd.preemption_walk_plain(*args, budget)
+    for ctas in WALK_TEAMS:
+        got = (ffd.preemption_walk(*args, budget) if ctas == 0
+               else ffd._preemption_walk_cuda(*args, budget, ctas=ctas))
+        torch.cuda.synchronize()
+        err = max_abs_err(list(got), list(want))
+        assert err == 0, f"preemption_walk (ctas {ctas}) disagrees with its plain version ({err})"
+    rows, flag = ffd.unpack_walk(want.wire.cpu().numpy())
+    return dict(E=int(tables[0].shape[0]), Vm=int(tables[1].shape[1]), C=int(tables[5].shape[0]),
+                U=int(tables[4].shape[0]), budget=budget, evictions=len(rows), flag=flag,
+                team=ffd.walk_ctas(int(tables[0].shape[0])), err=0)
+
+
+def walk_tables(seed: int):
+    """Seeded walk tables at the class fleet's scale: (tables, budget)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    E, Vm, R = int(rng.integers(1, 3000)), int(rng.integers(1, 80)), int(rng.integers(1, 5))
+    C, U = int(rng.integers(1, 400)), int(rng.integers(1, 5))
+    tables = (rng.integers(0, 3, (E, R)).astype(np.int32),
+              np.sort(rng.integers(0, 6, (E, Vm)), axis=1).astype(np.int32),
+              rng.integers(0, 3, (E, Vm, R)).astype(np.int32), rng.random((E, Vm)) < 0.7,
+              rng.random((U, E)) < (0.05 if seed % 2 else 0.9),
+              rng.integers(0, U, C).astype(np.int32), rng.integers(1, 12, (C, R)).astype(np.int32),
+              rng.integers(0, 7, C).astype(np.int32))
+    return tables, int(rng.integers(1, 400))
+
+
+def adversarial_walk_tables() -> dict:
+    """Named edge tables of the walk: {name: (tables, budget)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(77)
+    E, Vm, R, C = 40, 8, 3, 60
+
+    def base(**kw):
+        t = dict(free=np.zeros((E, R), np.int32), prio=np.zeros((E, Vm), np.int32),
+                 req=np.ones((E, Vm, R), np.int32), ok=np.ones((E, Vm), bool),
+                 masks=np.ones((1, E), bool), row=np.zeros(C, np.int32),
+                 need=np.tile(np.array([2, 2, 1], np.int32), (C, 1)),
+                 cprio=np.full(C, 5, np.int32))
+        t.update(kw)
+        return tuple(t[k] for k in ("free", "prio", "req", "ok", "masks", "row", "need", "cprio"))
+
+    masks = rng.random((4, E)) < 0.6
+    masks[2] = False
+    return {
+        "budget_0": (base(), 0),
+        # two-victim plans under an odd budget: the last candidate carries it past
+        "budget_crossed_inside": (base(), 7),
+        # free capacity alone fits on the even nodes: no eviction, no charge;
+        # every other candidate admits only the odd nodes and evicts there
+        "free_fits": (base(free=np.tile(np.array([[9, 9, 9], [0, 0, 0]], np.int32), (E // 2, 1)),
+                           masks=np.stack([np.ones(E, bool), np.arange(E) % 2 == 1]),
+                           row=np.arange(C, dtype=np.int32) % 2), WALK_BUDGET),
+        # node rows that admit nothing, rows of every kind mixed
+        "mask_rows_false": (base(masks=masks, row=rng.integers(0, 4, C).astype(np.int32)),
+                            WALK_BUDGET),
+        # free + reclaim past 2**31 wraps (int32), in the plan and in the update
+        # (a resource at 2**31 - 1 whose victims reclaim 2**31 - 1 each: the
+        # prefix comes back above the need after two, the update wraps too)
+        "int32_wrap": (base(free=np.tile(np.array([2**31 - 1, 0, 0], np.int32), (E, 1)),
+                            req=np.tile(np.array([2**31 - 1, 1, 1], np.int32), (E, Vm, 1)),
+                            need=np.tile(np.array([5, 2, 1], np.int32), (C, 1))), WALK_BUDGET),
+        # victims at the candidates' own priority are not eligible
+        "equal_priority": (base(prio=np.tile(np.array([3, 3, 3, 5, 5, 5, 5, 6], np.int32), (E, 1)),
+                                cprio=rng.integers(4, 7, C).astype(np.int32)), WALK_BUDGET),
+        # victims past one warp's 32 lanes and the widest R
+        "Vm70_R16": ((np.zeros((E, 16), np.int32), np.zeros((E, 70), np.int32),
+                      rng.integers(0, 2, (E, 70, 16)).astype(np.int32), rng.random((E, 70)) < 0.8,
+                      np.ones((1, E), bool), np.zeros(C, np.int32), np.full((C, 16), 20, np.int32),
+                      np.full(C, 3, np.int32)), WALK_BUDGET),
+        "E1_Vm1": ((np.zeros((1, 1), np.int32), np.zeros((1, 1), np.int32),
+                    np.ones((1, 1, 1), np.int32), np.ones((1, 1), bool), np.ones((1, 1), bool),
+                    np.zeros(3, np.int32), np.ones((3, 1), np.int32), np.ones(3, np.int32)), 5),
+        "no_candidates": (base(row=np.zeros(0, np.int32), need=np.zeros((0, R), np.int32),
+                               cprio=np.zeros(0, np.int32)), WALK_BUDGET),
+    }
+
+
+def k11_walk_tables(plan_tables, masks):
+    """The K11_NODES plan tables (free capacity zeroed) as a walk of
+    WALK_CANDIDATES class_contended-shaped candidates (need 1 000m / 1 024 MiB
+    / 1 pod, priority 100) over the node rows `masks`."""
+    import numpy as np
+
+    node_free, victim_prio, victim_req, victim_ok, _node_ok, need = plan_tables
+    C = WALK_CANDIDATES
+    return (node_free, victim_prio, victim_req, victim_ok, masks,
+            np.zeros(C, np.int32), np.tile(need, (C, 1)), np.full(C, 100, np.int32))
+
+
 def class_kernel_checks(dev) -> dict:
     """K10 and K11 on 16 seeded tables and on the adversarial ones, and K11
     at K11_NODES nodes x 8 victims x R = 3 from build_victim_tensors on the
@@ -3024,7 +3208,24 @@ def class_kernel_checks(dev) -> dict:
     scaled["last_node"] = plan_check(tables[:4] + (last, need), 100, dev)
     scaled["none"] = plan_check(tables[:4] + (np.zeros(K11_NODES, bool), need), 100, dev)
     assert [v[0] for v in scaled.values()] == [0, K11_NODES - 1, -1], scaled
-    return dict(seeded=seeded, adversarial=adversarial, scaled=scaled, k11_tables=tables)
+    # the walk: seeded and adversarial tables, then the K11_NODES tables as a
+    # walk of WALK_CANDIDATES candidates under the class budget, every node
+    # admitted (the fits near the front, as on class_contended) and only the
+    # last 64 (every search walks ~10 000 rows)
+    walks = {f"seeded_{seed}": walk_check(*walk_tables(seed), dev) for seed in range(16)}
+    for name, (t, budget) in adversarial_walk_tables().items():
+        walks[name] = walk_check(t, budget, dev)
+    assert walks["budget_0"]["flag"] and walks["budget_0"]["evictions"] == 0, walks["budget_0"]
+    assert walks["budget_crossed_inside"]["evictions"] == 8, walks["budget_crossed_inside"]
+    far = np.zeros((1, K11_NODES), bool)
+    far[0, -64:] = True
+    walk10k = {"all_nodes": k11_walk_tables(tables, np.ones((1, K11_NODES), bool)),
+               "last_64": k11_walk_tables(tables, far)}
+    for name, t in walk10k.items():
+        walks[f"10k_{name}"] = w = walk_check(t, WALK_BUDGET, dev)
+        assert w["flag"] and w["evictions"] == WALK_BUDGET, (name, w)
+    return dict(seeded=seeded, adversarial=adversarial, scaled=scaled, k11_tables=tables,
+                walks=walks, walk10k=walk10k)
 
 
 def explain_check(ph, dev, ks) -> dict:
@@ -3103,18 +3304,19 @@ class _Stages:
 class ClassInstruments:
     """Wrap a ClassAwareSolver's stages for one or more solves: the inner
     solves, the gang pass (_first_failing_gang with its K10 call),
-    build_victim_tensors, the node_ok loop (node_ok_mask), the planner's
-    plan calls (host ms; device ms from CUDA events around each K11 call;
-    the upload bytes of the device leg), _pack_rows. With `check`, every K10
-    and K11 call is also held against its plain version on the same card
-    tensors (the recording wrapper), and the first call's arguments kept."""
+    build_victim_tensors, the node_ok loop (node_ok_table: the candidates'
+    keyed node rows), the preemption walk (host ms of the device leg's call
+    with its upload and fetch; device ms from CUDA events around each walk
+    launch), _pack_rows. With `check`, every K10 and walk call is also held
+    against its plain version on the same card tensors (the recording
+    wrapper), and the first call's arguments kept."""
 
     def __init__(self, caw, check: bool = False):
         self.caw, self.check = caw, check
         self.stages = _Stages()
-        self.events = {"gang_commit": [], "preemption_plan": []}
+        self.events = {"gang_commit": [], "preemption_walk": []}
         self.first = {}
-        self.calls = {"gang_commit": 0, "preemption_plan": 0}
+        self.calls = {"gang_commit": 0, "preemption_walk": 0}
         self.err = 0
 
     def __enter__(self):
@@ -3127,15 +3329,14 @@ class ClassInstruments:
 
         st = self.stages
         inner = self.caw.inner
-        self.saved = (inner, sc.build_victim_tensors, sc.node_ok_mask, sc._pack_rows,
-                      sc.PLANNERS["device"], ffd.gang_commit, ffd.preemption_plan)
+        self.saved = (inner, sc.build_victim_tensors, sc.node_ok_table, sc._pack_rows,
+                      sc.WALKS["device"], ffd.gang_commit, ffd.preemption_walk)
         self.caw.inner = types.SimpleNamespace(inner=inner, solve=st.wrap("inner_solves", inner.solve))
         self.caw._first_failing_gang = st.wrap("gang_pass", self.caw._first_failing_gang)
         sc.build_victim_tensors = st.wrap("build_victim_tensors", sc.build_victim_tensors)
-        sc.node_ok_mask = st.wrap("node_ok_loop", sc.node_ok_mask)
+        sc.node_ok_table = st.wrap("node_ok_loop", sc.node_ok_table)
         sc._pack_rows = st.wrap("pack_rows", sc._pack_rows)
-        gang_fn, plan_fn = sc.PLANNERS["device"]
-        sc.PLANNERS["device"] = (gang_fn, st.wrap("plan_calls", plan_fn))
+        sc.WALKS["device"] = st.wrap("walk_call", sc.WALKS["device"])
 
         def on_card(name, kernel, plain):
             def call(*a):
@@ -3149,24 +3350,24 @@ class ClassInstruments:
                 self.calls[name] += 1
                 if self.check:
                     torch.cuda.synchronize()
-                    got = [out[0].reshape(-1), out[1]]
-                    want = plain(*a)
-                    self.err = max(self.err, max_abs_err(got, [want[0].reshape(-1), want[1]]))
+                    got = [x.reshape(-1) for x in out]
+                    want = [x.reshape(-1) for x in plain(*a)]
+                    self.err = max(self.err, max_abs_err(got, want))
                 return out
 
             return call
 
         ffd.gang_commit = on_card("gang_commit", ffd.gang_commit, ffd.gang_commit_plain)
-        ffd.preemption_plan = on_card("preemption_plan", ffd.preemption_plan,
-                                      ffd.preemption_plan_plain)
+        ffd.preemption_walk = on_card("preemption_walk", ffd.preemption_walk,
+                                      ffd.preemption_walk_plain)
         return self
 
     def __exit__(self, *exc):
         from karpenter_tpu_torch.solver import scheduling_class as sc
         from karpenter_tpu_torch.solver.cuda import ffd
 
-        (self.caw.inner, sc.build_victim_tensors, sc.node_ok_mask, sc._pack_rows,
-         sc.PLANNERS["device"], ffd.gang_commit, ffd.preemption_plan) = self.saved
+        (self.caw.inner, sc.build_victim_tensors, sc.node_ok_table, sc._pack_rows,
+         sc.WALKS["device"], ffd.gang_commit, ffd.preemption_walk) = self.saved
         del self.caw._first_failing_gang
 
     def device_ms(self, name) -> float:
@@ -3179,7 +3380,7 @@ class ClassInstruments:
 def class_breakdown(caw, inp, passes: int) -> dict:
     """Median ms of a class_contended solve's stages over `passes` solves
     (ClassInstruments; rest = the solve minus the stages), with the device
-    ms of its K10 and K11 calls and the device leg's transfer per solve."""
+    ms of its K10 and walk calls and the device leg's transfer per solve."""
     import statistics
 
     from karpenter_tpu_torch.solver import scheduling_class as sc
@@ -3192,9 +3393,9 @@ def class_breakdown(caw, inp, passes: int) -> dict:
             caw.solve(inp)
             solve_ms = (time.perf_counter() - ts) * 1e3
         row = dict(ins.stages.ms, solve=solve_ms,
-                   plan_device=ins.device_ms("preemption_plan"),
+                   walk_device=ins.device_ms("preemption_walk"),
                    gang_device=ins.device_ms("gang_commit"),
-                   plan_calls_n=ins.calls["preemption_plan"], gang_calls_n=ins.calls["gang_commit"])
+                   walk_calls_n=ins.calls["preemption_walk"], gang_calls_n=ins.calls["gang_commit"])
         for k in ("h2d_bytes", "d2h_bytes"):
             row[k] = sc.PLANNER_TRANSFER[k] - t0[k]
         row["rest"] = solve_ms - sum(ins.stages.ms.values())
@@ -3203,12 +3404,105 @@ def class_breakdown(caw, inp, passes: int) -> dict:
             statistics.median(r.get(k, 0.0) for r in rows) for k in rows[0]}
 
 
+def walk_barriers_run(rows, flag: bool, C: int, budget: int) -> int:
+    """Team barriers a walk passes: one before the first search, then one a
+    candidate searched (through the one the budget stopped, or all C) and
+    the last one's exit test."""
+    if not flag:
+        return C + 2
+    stop = rows[budget - 1][0] + 1 if budget > 0 else 0
+    return stop + 2
+
+
+def walk_barrier_us(dev) -> dict:
+    """The cost of one walk-team barrier (µs): WALK_BARRIER_ITERS barriers
+    less none, one launch each, CUDA events; {1: one block of 1 024 threads
+    (ffd.block_barriers), 16: a cluster of 16 CTAs (ffd.cluster_barriers,
+    the scans' barrier timer: the same barrier.cluster instruction, CTAs of
+    512 threads)}."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    timers = {1: ffd.block_barriers,
+              ffd.WALK_CLUSTER: lambda n: ffd.cluster_barriers(n, ffd.WALK_CLUSTER)}
+    out = {}
+    for ctas, fn in timers.items():
+        t = {n: time_ms(lambda n=n: fn(n), 5) for n in (0, WALK_BARRIER_ITERS)}
+        out[ctas] = (t[WALK_BARRIER_ITERS] - t[0]) * 1e3 / WALK_BARRIER_ITERS
+    return out
+
+
+def walk_cost(args, budget: int) -> dict:
+    """The walk's floor on `args` (card tensors), from what this run's data
+    needs. Each candidate walked (through the one whose evictions reach the
+    budget, or all C) is planned again on the host (_walk_host over
+    preemption_plan_plain on CPU tensors, its rows and flag the walk's), and
+    its search is the node rows its mask admits up to the row it chose (all
+    of them where none fits). Bytes, each read or written once: node_free
+    and victim_ok in and out (the final tables are outputs), the victim rows
+    (priority and requests) of the rows some search reaches and does not
+    take by free capacity alone, each mask row's entries up to the furthest
+    row a search of it reaches, cand_row / need / prio of the candidates
+    walked, and the wire's header and rows. Operations: a compare and an add
+    per victim and resource, and a compare per resource, on each row
+    searched. Barriers: walk_barriers_run."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import scheduling_class as sc
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    host = [a.cpu().numpy() for a in args]
+    node_free, victim_prio, victim_req, victim_ok, masks, cand_row, need, prio = host
+    E, Vm = victim_prio.shape
+    R, C = int(node_free.shape[1]), int(cand_row.shape[0])
+    chosen = []
+
+    def plan(*a):
+        e, take = ffd.preemption_plan_plain(*[torch.from_numpy(np.ascontiguousarray(x))
+                                              for x in a[:6]], a[6])
+        chosen.append((int(e), bool(take.any())))
+        return int(e), take.numpy()
+
+    rows, flag, _ = sc._walk_host(plan, host[:4], masks, cand_row, need, prio, budget)
+    assert (rows, flag) == ffd.unpack_walk(ffd.preemption_walk_plain(*args, budget).wire.cpu()
+                                           .numpy())
+    walked = rows[-1][0] + 1 if flag and rows else (0 if flag else C)
+    planned = iter(chosen)
+    touched = np.zeros(E, bool)  # victim rows some search reads
+    reach = np.zeros(masks.shape[0], np.int64)  # mask entries read, per mask row
+    searched = 0
+    for c in range(walked):
+        m = masks[cand_row[c]]
+        if not m.any():
+            reach[cand_row[c]] = E
+            continue
+        e, evicts = next(planned)
+        upto = E if e < 0 else e + 1
+        reach[cand_row[c]] = max(reach[cand_row[c]], upto)
+        rows_c = m[:upto].copy()
+        searched += int(rows_c.sum())
+        if e >= 0 and not evicts:
+            rows_c[e] = False  # free capacity alone fits: its victims are not read
+        touched[:upto] |= rows_c
+    moved = (2 * (E * R * 4 + E * Vm) + int(touched.sum()) * Vm * (4 + 4 * R) + int(reach.sum())
+             + walked * (8 + 4 * R) + 4 * (ffd.WALK_HEADER_WORDS + ffd.WALK_ROW_WORDS * len(rows)))
+    return dict(bytes=moved, ops=searched * (2 * Vm * R + R),
+                barriers=walk_barriers_run(rows, flag, C, budget), evictions=len(rows), flag=flag,
+                walked=walked, rows_touched=int(touched.sum()), rows_searched=searched,
+                all_input_bytes=nbytes(*args), E=int(E), Vm=int(Vm), R=R, C=C,
+                U=int(masks.shape[0]))
+
+
 def class_kernel_rows(first, checks, ex, launches, per_solve, ops_per_s) -> list:
-    """The K10, K11 and K12 rows: K10 at class_contended's first gang call
-    (its yardstick torch index_add_ of the placed counts over the hot runs,
-    which computes the sums and not the verdict); K11 at K11_NODES nodes
-    (no PyTorch call finds a first fitting prefix); K12 at class_contended's
-    cold inner solve at top_k 8 (no PyTorch call packs the table)."""
+    """The K10, K11, walk and K12 rows: K10 at class_contended's first gang
+    call (its yardstick torch index_add_ of the placed counts over the hot
+    runs, which computes the sums and not the verdict); K11 at K11_NODES
+    nodes (no PyTorch call finds a first fitting prefix); the walk at
+    class_contended's walk call and at the K11_NODES walks (no PyTorch call
+    walks the candidates in order), beside the parent's per-candidate path
+    (K11 a candidate, its upload and fetch, the host update) on the same
+    tables; K12 at class_contended's cold inner solve at top_k 8 (no
+    PyTorch call packs the table)."""
     import torch
 
     from karpenter_tpu_torch.solver.cuda import ffd
@@ -3254,6 +3548,7 @@ def class_kernel_rows(first, checks, ex, launches, per_solve, ops_per_s) -> list
         device_ms=profiled_ms(fn, 20, ("preempt_scan_kernel", "preempt_take_kernel")),
         launches_per_solve=per_solve["preemption_plan"], shape=dict(E=E, Vm=Vm, R=R),
         bytes=moved, ops=ops))
+    rows.append(walk_row(first["preemption_walk"], checks, launches, per_solve, ops_per_s))
     a, E, G = ex["args"], ex["E"], ex["G"]
     fn = lambda: ffd.explain_pack(*a, E, G, top_k=8)  # noqa: E731
     out = fn()
@@ -3280,14 +3575,73 @@ def class_kernel_rows(first, checks, ex, launches, per_solve, ops_per_s) -> list
     return rows
 
 
+def per_candidate_ms(args, budget: int, n: int = 2) -> float:
+    """Host ms of the class pass's preemption loop as it ran before the walk
+    (scheduling_class._walk_host over the device leg's single plan: the
+    tables uploaded, K11 launched and its verdict fetched a candidate, the
+    update on the host), on the walk's own tables; the mean of n runs."""
+    import functools
+
+    import torch
+
+    from karpenter_tpu_torch.solver import scheduling_class as sc
+
+    host = [a.cpu().numpy() for a in args]
+    plan = functools.partial(sc._preemption_plan_device, device=args[0].device)
+    ms = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc._walk_host(plan, host[:4], *host[4:], budget)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return sum(ms[1:]) / n
+
+
+def walk_row(args, checks, launches, per_solve, ops_per_s) -> dict:
+    """The walk's row at class_contended's walk call (`args`: its recorded
+    card tensors and budget), with the same numbers at the K11_NODES walks."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    *args, budget = args
+    dev = args[0].device
+    barrier = walk_barrier_us(dev)
+
+    def measure(a):
+        fn = lambda: ffd.preemption_walk(*a, budget)  # noqa: E731
+        cost = walk_cost(a, budget)
+        team = ffd.walk_ctas(cost["E"])
+        bms, by = bound(cost["bytes"], cost["ops"], ops_per_s)
+        return dict(ms=time_ms(fn, 20), device_ms=profiled_ms(fn, 5, ("preempt_walk_kernel",)),
+                    plain_ms=time_ms(lambda: ffd.preemption_walk_plain(*a, budget), 2),
+                    bound_ms=bms, bound_by=by,
+                    serial_floor_ms=cost["barriers"] * barrier[team] / 1e3, team=team,
+                    per_candidate_k11_ms=per_candidate_ms(a, budget), **cost)
+
+    main = measure(args)
+    at10k = {name: measure(_on_card(t, dev)) for name, t in checks["walk10k"].items()}
+    return dict(
+        name="preemption_walk", route="cuda", source="karpenter_tpu_torch/csrc/class_kernels.cu",
+        replaces="karpenter_tpu/solver/tpu/ffd.py:2969", launches=launches["preemption_walk"],
+        max_abs_err=checks["walk_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], library_ms=None,
+        library_call="none: no PyTorch call walks candidates in order over tables each plan "
+        "changes",
+        match=checks["walk_err"] == 0, device_ms=main["device_ms"],
+        serial_floor_ms=main["serial_floor_ms"], barrier_us=barrier,
+        launches_per_solve=per_solve["preemption_walk"],
+        class_contended={k: v for k, v in main.items() if k not in ("ms", "plain_ms")},
+        k11_nodes=at10k, replaces_loop="karpenter_tpu/solver/scheduling_class.py:565-606")
+
+
 def class_phase(inp, inp_zone, inp_zone_check, surge_e2e, plain_solver_cls) -> dict:
     """The class-aware main path through ClassAwareSolver(TorchSolver()),
     the launch counts reset just before and read just after: CLASS_REPEATS
     timed class_contended solves (explain off), CLASS_EXPLAIN_REPEATS with
     the explain plane on, the class_zone solve once, and surge_e2e through
     TorchSolver() EXPLAIN_REPEATS times with explain on and as many off, in
-    turns. Then, outside the counted window: the stage split, one solve
-    with every K10/K11 call held against its plain version, and the
+    turns: one preemption walk launch a class_contended solve and no K11
+    launch. Then, outside the counted window: the stage split, one solve
+    with every K10 and walk call held against its plain version, and the
     decisions against ClassAwareSolver(TorchSolver(device="cpu")):
     class_contended's, and class_zone's on `inp_zone_check` (the fleet cut
     to CLASS_ZONE_CHECK_GANGS gangs, solved on the card here too)."""
@@ -3342,6 +3696,9 @@ def class_phase(inp, inp_zone, inp_zone_check, surge_e2e, plain_solver_cls) -> d
     for k in CLASS_KERNELS:
         assert launches[k] > 0, f"kernel {k} never launched on the class path"
     n_class = CLASS_REPEATS + CLASS_EXPLAIN_REPEATS
+    assert launches["preemption_walk"] == n_class and launches["preemption_plan"] == 0, (
+        launches["preemption_walk"], launches["preemption_plan"])
+    assert transfer["walk_calls"] == n_class and transfer["plan_calls"] == 0, transfer
     per_solve = {k: (zstats0[k] - stats0[k]) / n_class for k in stats0}
     assert all(r == results[0] for r in results), "class_contended decisions vary across solves"
     assert per_solve["gang_rounds"] == 1 and per_solve["gangs_unschedulable"] == 1, per_solve
@@ -3365,11 +3722,11 @@ def class_phase(inp, inp_zone, inp_zone_check, surge_e2e, plain_solver_cls) -> d
     assert class_decisions(res_zone_cpu) == class_decisions(res_check), \
         "class_zone: decisions differ from the plain path"
     plain_s = time.perf_counter() - t0
-    n_plan = launches["preemption_plan"]
     return dict(
         samples=samples, tail=tail(samples), explain_tail=tail(ex_samples), launches=launches,
         per_solve_launches={"gang_commit": launches["gang_commit"] / (n_class + 1),
-                            "preemption_plan": n_plan / n_class,
+                            "preemption_plan": launches["preemption_plan"] / n_class,
+                            "preemption_walk": launches["preemption_walk"] / n_class,
                             "explain_pack": class_ex_dispatches / CLASS_EXPLAIN_REPEATS,
                             "explain_pack_surge_e2e": (launches["explain_pack"]
                                                        - class_ex_dispatches) / EXPLAIN_REPEATS},
@@ -5976,7 +6333,8 @@ def ptxas_report(report: str) -> dict:
     """{kernel instance: {registers, spill_stores, spill_loads}} from ptxas
     -v, for the scan instances (demangled by their template flags), the
     lane-batched scan, the verdict pack, the output pack, the arena unpack,
-    the lane pad, the run-table scatter and the class kernels."""
+    the lane pad, the run-table scatter and the class kernels (the walk's
+    two teams too)."""
     names = {k: k for k in ("pack_verdicts_kernel", "arena_unpack_kernel", "pack_outputs_kernel",
                             "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
                             "explain_sums_kernel", "explain_rows_kernel", "copy_runs_kernel",
@@ -5989,7 +6347,10 @@ def ptxas_report(report: str) -> dict:
     names.update({"ffd_lanes_kernelILb0E": "ffd_lanes_kernel<false>",
                   "ffd_lanes_kernelILb1E": "ffd_lanes_kernel<true>",
                   "ffd_lanes_sparse_kernelILb0E": "ffd_lanes_sparse_kernel<false>",
-                  "ffd_lanes_sparse_kernelILb1E": "ffd_lanes_sparse_kernel<true>"})
+                  "ffd_lanes_sparse_kernelILb1E": "ffd_lanes_sparse_kernel<true>",
+                  "preempt_walk_kernelILb0E": "preempt_walk_kernel<false>",
+                  "preempt_walk_kernelILb1E": "preempt_walk_kernel<true>",
+                  "block_barrier_kernel": "block_barrier_kernel"})
     for width, kernel in ((1, "ffd_scan_kernel"), (3, "ffd_cluster_kernel"), (2, "ffd_ladder_kernel")):
         for flags in range(1 << width):
             bits = [(flags >> i) & 1 for i in range(width)]
@@ -6063,9 +6424,10 @@ def main() -> int:
     only13 = sys.argv[1:] == ["--phase", "13"]
     only8 = sys.argv[1:] == ["--phase", "8"]
     only15 = sys.argv[1:] == ["--phase", "15"]
-    if sys.argv[1:] and not (only8 or only10 or only11 or only12 or only13 or only15):
-        print("usage: python3 chip_smoke.py [--phase 8 | --phase 10 | --phase 11 | --phase 12 | "
-              "--phase 13 | --phase 15]", file=sys.stderr)
+    only7 = sys.argv[1:] == ["--phase", "7"]
+    if sys.argv[1:] and not (only7 or only8 or only10 or only11 or only12 or only13 or only15):
+        print("usage: python3 chip_smoke.py [--phase 7 | --phase 8 | --phase 10 | --phase 11 | "
+              "--phase 12 | --phase 13 | --phase 15]", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -6142,6 +6504,40 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
 
+    if only7:
+        # phase 7 alone: phase 2f's class kernels (K10, K11, the walk) and the
+        # checks at class_contended's cold solve (K1-K3, K12), then the class path
+        from karpenter_tpu_torch.api import wellknown as wk
+
+        int_rate = int32_ops_per_s()
+        class_checks = class_kernel_checks(dev)
+        class_inp = build_class_input(**CLASS_KW)
+        ex = explain_check(kernel_phase(class_inp, dev), dev, (8,))
+        zone_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_GANGS},
+                                     topology=wk.ZONE_LABEL)
+        zone_check_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_CHECK_GANGS},
+                                           topology=wk.ZONE_LABEL)
+        t0 = time.perf_counter()
+        cls = class_phase(class_inp, zone_inp, zone_check_inp, build_e2e_input(PODS, NODES),
+                          tb.TorchSolver)
+        cls["phase_s"] = time.perf_counter() - t0
+        class_rows = class_kernel_rows(
+            cls["first"], dict(gang_err=0, plan_err=0, walk_err=0,
+                               k11_tables=class_checks["k11_tables"],
+                               walk10k=class_checks["walk10k"]),
+            ex, cls["launches"], cls["per_solve_launches"], int_rate)
+        print(json.dumps({"classes": {k: v for k, v in cls.items() if k not in ("first", "samples")},
+                          "class_kernel_checks": {k: class_checks[k] for k in (
+                              "seeded", "adversarial", "scaled", "walks")},
+                          "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
+        print(json.dumps({"kernels": class_rows}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if only8:
         # phase 8 alone: the convex backend, K13's tables and row
         t0 = time.perf_counter()
@@ -6203,11 +6599,12 @@ def main() -> int:
     once = {"mixed": build_mixed_input(PODS)}
     phases = {}
     for name, inp in {**inputs, **once}.items():
-        phases[name] = kernel_phase(inp, dev)
+        # the mixed input's plain scan (~60 s) runs once, in phase 3
+        phases[name] = kernel_phase(inp, dev, plain=name != "mixed")
         ph = phases[name]
         print(f"kernels[{name}]: zone={ph['zone']} M={ph['M']} used={int(ph['out'].state.used)} "
               f"events={ph['events']} entries={ph['n_entries']} uniq={ph['n_uniq']} "
-              f"max_abs_err={ph['errs']} plain_s={ph['plain_once_s']:.2f}", flush=True)
+              f"max_abs_err={ph['errs']} plain_s={ph['plain_once_s']}", flush=True)
     assert all(phases[n]["zone"] for n in ("config3", "config4", "mixed"))
 
     # the scan's hostname, limit, taint and node paths, which the surge never
@@ -6326,10 +6723,14 @@ def main() -> int:
     # Ep; a record built from K12's wire equals the host-derived one
     from karpenter_tpu_torch.api import wellknown as wk
 
+    t_class = time.perf_counter()
     class_checks = class_kernel_checks(dev)
-    print(f"class kernels: seeded (S, NG, [E, Vm], node)={class_checks['seeded']} "
+    print(f"class kernels ({time.perf_counter() - t_class:.1f} s): seeded (S, NG, [E, Vm], node)={class_checks['seeded']} "
           f"adversarial={class_checks['adversarial']} 10k nodes={class_checks['scaled']} "
           f"max_abs_err=0", flush=True)
+    print("preemption walk: " + " ".join(
+        f"{k}=(E {w['E']}, C {w['C']}, evictions {w['evictions']}, flag {w['flag']}, team {w['team']})"
+        for k, w in class_checks["walks"].items()) + " max_abs_err=0 on every team", flush=True)
     class_inp = build_class_input(**CLASS_KW)
     ph_cls = kernel_phase(class_inp, dev)
     print(f"kernels[class_contended]: M={ph_cls['M']} dims={ph_cls['dims']} "
@@ -6474,9 +6875,14 @@ def main() -> int:
     plain = TorchSolver(device="cpu", max_claims=MAX_CLAIMS)
     for name, inp in {**inputs, **once}.items():
         if name == "mixed":
-            # the plain zoned scan on the card: ~15 ms an event, ~60 s
-            with PlainOnCard():
+            # the plain zoned scan on the card: ~15 ms an event, ~60 s; the
+            # scans it stood in for are replayed on its arguments and held to
+            # its outputs bit for bit (the scan's only plain check at mixed)
+            with PlainOnCard(record=True) as poc:
                 ref = TorchSolver(max_claims=MAX_CLAIMS).solve(inp)
+            mixed_replay = poc.replay()
+            print(f"decisions[mixed]: the reference solve's plain scans against the kernels on "
+                  f"the same arguments: {mixed_replay}", flush=True)
         else:
             ref = plain.solve(inp)
         assert decisions(results[name]) == decisions(ref), \
@@ -6629,7 +7035,8 @@ def main() -> int:
     class_line = {k: v for k, v in cls.items() if k not in ("first", "samples")}
     print(json.dumps({"classes": class_line}), flush=True)
     class_rows = class_kernel_rows(
-        cls["first"], dict(gang_err=0, plan_err=0, k11_tables=class_checks["k11_tables"]),
+        cls["first"], dict(gang_err=0, plan_err=0, walk_err=0, k11_tables=class_checks["k11_tables"],
+                           walk10k=class_checks["walk10k"]),
         explain_checks["class_contended"], cls["launches"], cls["per_solve_launches"], int_rate)
 
     print(f"[phase 8 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
@@ -6825,7 +7232,8 @@ def main() -> int:
                                                  "side_bytes")}
                            for k, v in explain_checks.items()},
         "explain_records": explain_records,
-        "class_kernel_checks": {k: class_checks[k] for k in ("seeded", "adversarial", "scaled")},
+        "class_kernel_checks": {k: class_checks[k] for k in ("seeded", "adversarial", "scaled",
+                                                             "walks")},
         "ledger": ledger_line,
         "unpack_checks": {k: dict(nbytes=v["nbytes"], segments=v["segments"])
                           for k, v in unpack_checks.items()},

@@ -54,7 +54,8 @@ LAUNCHERS = {
     "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget",
                                  "ffd_lanes_sparse_cluster_info"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
-    "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "explain_pack_launch"),
+    "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "preemption_walk_launch",
+                      "block_barrier_launch", "explain_pack_launch"),
     "convex_kernels": ("admm_pack_launch", "admm_info"),
 }
 # flags of one library besides NVCC_FLAGS: K13 keeps the JAX expression

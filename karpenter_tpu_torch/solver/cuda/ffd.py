@@ -50,8 +50,10 @@ view); their outputs, rings included, are the dense scans'.
 The side kernels of the scheduling-class passes and of decision provenance
 close the module (the JAX ffd.py:2920-3105): `gang_commit` (the atomic gang
 verdict), `preemption_plan` (one planned preemption) with the eviction
-table's wire, and `explain_pack` (the per-group rejection table) with the
-explain wire; their kernels are csrc/class_kernels.cu (K10-K12).
+table's wire, `preemption_walk` (the class pass's whole preemption loop,
+every candidate planned in order in one launch over tables that stay on the
+card), and `explain_pack` (the per-group rejection table) with the explain
+wire; their kernels are csrc/class_kernels.cu (K10-K12, the walk).
 
 `ffd_solve_lanes` is the scan over a leading lane axis (the JAX
 `jax.vmap(ffd_solve)` of parallel/sharded.py batched_solve, the fused
@@ -228,8 +230,8 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # true in the sparse instances of K1 (ffd_sparse_fast_scan /
 # ffd_sparse_zoned_scan), K6 (ffd_ladder_sparse_*) and K7
 # (ffd_ckpt_sparse_*, also ffd_resume_sparse); pack_outputs is the dense output pack; gang_commit,
-# preemption_plan and explain_pack are the class and explain kernels (K10-K12,
-# csrc/class_kernels.cu). The lane-batched scan (ffd_solve_lanes, K15) is
+# preemption_plan, preemption_walk and explain_pack are the class and explain
+# kernels (K10-K12 and the walk, csrc/class_kernels.cu). The lane-batched scan (ffd_solve_lanes, K15) is
 # ffd_lanes_kernel<false> (ffd_lanes_fast_scan) and <true>
 # (ffd_lanes_zoned_scan); apply_events is the streaming run-table scatter
 # (ffd_apply_events, K14, csrc/arena_kernels.cu). The lanes of a mesh-sharded
@@ -248,7 +250,8 @@ LAUNCHES = {
     "ffd_sparse_fast_scan": 0, "ffd_sparse_zoned_scan": 0,
     "ffd_ladder_sparse_fast_scan": 0, "ffd_ladder_sparse_zoned_scan": 0,
     "ffd_ckpt_sparse_fast_scan": 0, "ffd_ckpt_sparse_zoned_scan": 0,
-    "pack_outputs": 0, "gang_commit": 0, "preemption_plan": 0, "explain_pack": 0,
+    "pack_outputs": 0, "gang_commit": 0, "preemption_plan": 0, "preemption_walk": 0,
+    "explain_pack": 0,
     "ffd_sharded_fast_scan": 0, "ffd_sharded_zoned_scan": 0,
     "ffd_sharded_sparse_fast_scan": 0, "ffd_sharded_sparse_zoned_scan": 0,
     "sharded_ffd": 0,
@@ -2497,6 +2500,82 @@ def preemption_plan_plain(node_free, victim_prio, victim_req, victim_ok, node_ok
     return torch.tensor(node_idx, dtype=I32, device=dev), take
 
 
+# --- the preemption walk: every candidate planned in order (K11's redesign) --
+#
+# The class pass plans its candidates one after another over victim tables
+# that each plan updates (scheduling_class.py _plan_preemptions, the JAX
+# scheduling_class.py:565-606). `preemption_walk` runs that whole loop in one
+# call. Its output wire is one int32 buffer: [count, budget flag], then
+# `walk_capacity` rows (candidate, node, victim) in the loop's order, -1 past
+# `count`.
+WALK_HEADER_WORDS = 2
+WALK_ROW_WORDS = 3
+
+
+class WalkOutput(NamedTuple):
+    wire: torch.Tensor       # [WALK_HEADER_WORDS + WALK_ROW_WORDS * cap] int32
+    node_free: torch.Tensor  # [E, R] int32: the free table after the walk
+    victim_ok: torch.Tensor  # [E, Vm] bool: the eligible victims after the walk
+
+
+def walk_capacity(budget: int, Vm: int, C: int) -> int:
+    """Eviction rows a walk can write: a candidate starts below the budget
+    and takes at most Vm victims, and C candidates at most C * Vm."""
+    return max(1, min(int(budget) + Vm - 1, C * Vm))
+
+
+def preemption_walk_plain(node_free, victim_prio, victim_req, victim_ok, masks, cand_row, need,
+                          prio, budget: int) -> WalkOutput:
+    """Plain version of the class pass's preemption loop (the JAX
+    scheduling_class.py:565-606) over tensors. For each candidate c in
+    order: stop, and set the budget flag, once the evictions so far reach
+    `budget` (checked at a candidate's start only); plan with
+    preemption_plan_plain on the node row masks[cand_row[c]], need[c] and
+    prio[c]; skip a candidate with no plan, and one whose free capacity
+    alone fits (no charge); else append its victims ascending, add their
+    requests to the node's free row (int32 wrap), clear their victim_ok,
+    and set the row to max(free - need[c], 0). The inputs are not written.
+    Shapes: node_free [E, R] i32, victim_prio [E, Vm] i32, victim_req
+    [E, Vm, R] i32, victim_ok [E, Vm] bool, masks [U, E] bool, cand_row
+    [C] i32, need [C, R] i32, prio [C] i32."""
+    E, Vm = victim_prio.shape
+    C = int(cand_row.shape[0])
+    free, ok = node_free.clone(), victim_ok.clone()
+    rows, flag = [], 0
+    for c in range(C):
+        if len(rows) >= budget:
+            flag = 1
+            break
+        e, take = preemption_plan_plain(free, victim_prio, victim_req, ok,
+                                        masks[int(cand_row[c])], need[c], int(prio[c]))
+        e = int(e)
+        if e < 0:
+            continue
+        hot = torch.nonzero(take[e]).flatten()
+        if not hot.numel():
+            continue  # free capacity alone fits: nothing to evict, nothing charged
+        rows += [(c, e, int(v)) for v in hot]
+        free[e] = _wrap32(free[e].to(torch.int64) + victim_req[e, hot].to(torch.int64).sum(0))
+        ok[e, hot] = False
+        free[e] = torch.clamp(free[e].to(torch.int64) - need[c].to(torch.int64), min=0).to(I32)
+    wire = torch.full((WALK_HEADER_WORDS + WALK_ROW_WORDS * walk_capacity(budget, Vm, C),), -1,
+                      dtype=I32, device=node_free.device)
+    wire[0], wire[1] = len(rows), flag
+    if rows:
+        wire[WALK_HEADER_WORDS:WALK_HEADER_WORDS + WALK_ROW_WORDS * len(rows)] = torch.tensor(
+            rows, dtype=I32).flatten()
+    return WalkOutput(wire, free, ok)
+
+
+def unpack_walk(wire):
+    """A walk's wire (host int32) -> ([(candidate, node, victim), ...],
+    budget flag)."""
+    wire = np.asarray(wire)
+    n = int(wire[0])
+    body = wire[WALK_HEADER_WORDS:WALK_HEADER_WORDS + WALK_ROW_WORDS * n].reshape(n, WALK_ROW_WORDS)
+    return [tuple(int(x) for x in r) for r in body], bool(wire[1])
+
+
 def pack_evictions(entries):
     """Pack (node_idx, victim_idx) rows into the uint16 eviction table
     (EVICT_HEADER_WORDS, then EVICT_ENTRY_U16 words per row); an index past
@@ -2671,6 +2750,65 @@ def _preemption_plan_cuda(node_free, victim_prio, victim_req, victim_ok, node_ok
     return node_idx, take
 
 
+# The walk's team (csrc/class_kernels.cu walk_ctas): one block of 1 024
+# threads, or a cluster of WALK_CLUSTER such CTAs; a node row a warp.
+WALK_CLUSTER = 16
+WALK_BLOCK_ROWS = 2048  # the most node rows one block walks (PERF.md, the walk's Step 0)
+
+
+def _preemption_walk_cuda(node_free, victim_prio, victim_req, victim_ok, masks, cand_row, need,
+                          prio, budget: int, ctas: int = 0) -> WalkOutput:
+    """The walk kernel on the card. `ctas` 0 takes the launcher's rule;
+    1 (one block) or WALK_CLUSTER (a cluster) force the team, for the
+    checks and the timing only."""
+    from .build import load
+
+    E, Vm = victim_prio.shape
+    R = int(node_free.shape[1])
+    U, C = int(masks.shape[0]), int(cand_row.shape[0])
+    if E < 1 or Vm < 1 or not 1 <= R <= MAX_R or U < 1:
+        raise ValueError(f"preemption_walk: E={E}, Vm={Vm}, U={U} must be >= 1 and R={R} in "
+                         f"[1, {MAX_R}]")
+    if ctas not in (0, 1, WALK_CLUSTER):
+        raise ValueError(f"preemption_walk: ctas={ctas} not 0, 1 or {WALK_CLUSTER}")
+    for t, n, dt, sh in ((node_free, "node_free", I32, (E, R)),
+                         (victim_prio, "victim_prio", I32, (E, Vm)),
+                         (victim_req, "victim_req", I32, (E, Vm, R)),
+                         (victim_ok, "victim_ok", torch.bool, (E, Vm)),
+                         (masks, "masks", torch.bool, (U, E)), (cand_row, "cand_row", I32, (C,)),
+                         (need, "need", I32, (C, R)), (prio, "prio", I32, (C,))):
+        _check(t, n, dt, sh)
+    if C and bool(((cand_row < 0) | (cand_row >= U)).any()):
+        raise ValueError(f"preemption_walk: cand_row outside [0, {U})")
+    cap = walk_capacity(budget, Vm, C)
+    dev = node_free.device
+    wire = torch.empty((WALK_HEADER_WORDS + WALK_ROW_WORDS * cap,), dtype=I32, device=dev)
+    free = torch.empty_like(node_free)
+    ok = torch.empty_like(victim_ok)
+    rc = load("class_kernels").preemption_walk_launch(
+        _ptrs([node_free, victim_prio, victim_req, victim_ok, masks, cand_row, need, prio, wire,
+               free, ok]), 11, _ints([E, Vm, R, C, budget, cap, ctas]), _stream())
+    _raise_on(rc, "preemption_walk")
+    LAUNCHES["preemption_walk"] += 1
+    return WalkOutput(wire, free, ok)
+
+
+def block_barriers(n: int) -> None:
+    """Launch one walk block (1 024 threads) that passes n __syncthreads
+    barriers, on the current stream (timing only: the walk's serial floor
+    on one block; cluster_barriers times a cluster's)."""
+    from .build import load
+
+    rc = load("class_kernels").block_barrier_launch(None, 0, _ints([n]), _stream())
+    _raise_on(rc, "block_barrier")
+
+
+def walk_ctas(E: int) -> int:
+    """The CTAs a walk over E node rows takes (csrc/class_kernels.cu
+    walk_ctas, the rule PERF.md's Step 0 chose)."""
+    return 1 if E <= WALK_BLOCK_ROWS else WALK_CLUSTER
+
+
 def _explain_pack_cuda(take_e, run_group, group_req, node_free, node_compat, node_zone,
                        node_ct, group_zone, group_ct, group_topo, group_aff, e_count,
                        g_count, *, top_k: int):
@@ -2718,6 +2856,16 @@ def preemption_plan(node_free, victim_prio, victim_req, victim_ok, node_ok, need
                                      need, pod_prio)
     return preemption_plan_plain(node_free, victim_prio, victim_req, victim_ok, node_ok, need,
                                  pod_prio)
+
+
+def preemption_walk(node_free, victim_prio, victim_req, victim_ok, masks, cand_row, need, prio,
+                    budget: int) -> WalkOutput:
+    """Every candidate's preemption plan in order, one call (see
+    preemption_walk_plain)."""
+    args = (node_free, victim_prio, victim_req, victim_ok, masks, cand_row, need, prio, budget)
+    if node_free.is_cuda:
+        return _preemption_walk_cuda(*args)
+    return preemption_walk_plain(*args)
 
 
 def explain_pack(take_e, run_group, group_req, node_free, node_compat, node_zone, node_ct,

@@ -12,9 +12,12 @@ The subsystem that makes `pod.priority` and the gang labels
 - **Atomic gangs** and **preemption** are post-scan passes orchestrated here
   around ANY inner solver. The decision math runs through a *planner* with
   three bit-identical implementations — the python oracle, the numpy host
-  mirror and the device leg (cuda/ffd.py gang_commit / preemption_plan: the
-  K10/K11 kernels on the card, their plain versions on the CPU) — selected
-  by the concrete backend at the bottom of the wrapper chain.
+  mirror and the device leg (cuda/ffd.py gang_commit and preemption_walk:
+  the K10 and walk kernels on the card, their plain versions on the CPU) —
+  selected by the concrete backend at the bottom of the wrapper chain. The
+  oracle and host legs plan preemptions one candidate at a time; the
+  device leg walks a chunk of candidates a call (every candidate in one
+  call where they share their node rows) over tables uploaded once.
 
 Gang rollback semantics: a sequential deterministic scan means "roll back to
 the pre-gang carry and continue" is EXACTLY "re-solve with the gang's pods
@@ -73,9 +76,20 @@ MAX_EVICTIONS_PER_SOLVE = 256
 
 INT32_MAX = 2**31 - 1
 
+# The preemption pass walks its candidates a chunk at a time: a chunk runs
+# through the candidate before its WALK_CHUNK_KEYS + 1-th mask_key not seen
+# in an earlier chunk. A pass the budget stops early so builds node rows for
+# at most WALK_CHUNK_KEYS - 1 candidates past the ones it walked; candidates
+# that share one key are one chunk. At 2 000 nodes a node row costs the time
+# of ~15 chunk calls (PERF.md, the preemption walk's findings), so chunks
+# stay small where every key is new.
+WALK_CHUNK_KEYS = 4
+
 # Host<->device traffic of the device planner leg: calls and bytes each way
-# (every call uploads its tables and fetches its verdict).
-PLANNER_TRANSFER = {"gang_calls": 0, "plan_calls": 0, "h2d_bytes": 0, "d2h_bytes": 0}
+# (every call uploads its tables and fetches its verdict; a class solve's
+# preemption pass is one walk call a chunk, the victim tables uploaded once).
+PLANNER_TRANSFER = {"gang_calls": 0, "plan_calls": 0, "walk_calls": 0, "h2d_bytes": 0,
+                    "d2h_bytes": 0}
 
 
 def _pending(pods: Sequence[Pod]) -> List[Pod]:
@@ -222,10 +236,100 @@ def _preemption_plan_device(node_free, victim_prio, victim_req, victim_ok,
     return int(node_idx), take
 
 
+def _preemption_walk_device(tables, masks, cand_row, need, prio, budget, device=None):
+    """The device leg's preemption walk over one chunk of candidates:
+    cuda/ffd.py preemption_walk on `device` (the walk kernel on the card,
+    its plain version on the CPU). `tables` (node_free, victim_prio,
+    victim_req, victim_ok) are host arrays on a pass's first chunk, uploaded
+    here, and the previous chunk's card tensors after it; the chunk's node
+    rows, need and priority go up, its wire comes back. Returns (rows
+    [(candidate, node, victim)] in the loop's order, budget flag, the tables
+    for the next chunk)."""
+    from .cuda import ffd
+
+    PLANNER_TRANSFER["walk_calls"] += 1
+    node_free, victim_prio, victim_req, victim_ok = tables
+    if isinstance(node_free, np.ndarray):
+        node_free, victim_prio, victim_req, victim_ok = _on(
+            device, np.asarray(node_free, np.int32), np.asarray(victim_prio, np.int32),
+            np.asarray(victim_req, np.int32), np.asarray(victim_ok, bool))
+    chunk = _on(device, np.asarray(masks, bool), np.asarray(cand_row, np.int32),
+                np.asarray(need, np.int32), np.asarray(prio, np.int32))
+    out = ffd.preemption_walk(node_free, victim_prio, victim_req, victim_ok, *chunk, int(budget))
+    (wire,) = _fetch(out.wire)
+    rows, flag = ffd.unpack_walk(wire)
+    return rows, flag, (out.node_free, victim_prio, victim_req, out.victim_ok)
+
+
+def _walk_host(plan_fn, tables, masks, cand_row, need, prio, budget):
+    """The oracle and host legs' preemption walk over one chunk: the
+    reference's loop, one `plan_fn` call a candidate, on copies of
+    node_free and victim_ok (the walk's contract: cuda/ffd.py
+    preemption_walk_plain). Returns (rows [(candidate, node, victim)],
+    budget flag, the tables for the next chunk)."""
+    node_free, victim_prio, victim_req, victim_ok = tables
+    node_free, victim_ok = np.array(node_free), np.array(victim_ok)
+    rows: List[Tuple[int, int, int]] = []
+    flag = False
+    for c in range(len(cand_row)):
+        if len(rows) >= budget:
+            flag = True
+            break
+        node_ok = masks[cand_row[c]]
+        if not node_ok.any():
+            continue
+        e, take = plan_fn(node_free, victim_prio, victim_req, victim_ok, node_ok, need[c],
+                          int(prio[c]))
+        if e < 0:
+            continue
+        hot = np.flatnonzero(np.asarray(take)[e])
+        if not len(hot):
+            continue  # free capacity fit — nothing to evict
+        for v in hot:
+            rows.append((c, int(e), int(v)))
+            node_free[e] += victim_req[e, int(v)]
+            victim_ok[e, int(v)] = False
+        # the freed capacity is spoken for: the pending pod lands there
+        # next reconcile, so later candidates see the remainder
+        node_free[e] = np.maximum(node_free[e] - need[c].astype(np.int64), 0)
+    return rows, flag, (node_free, victim_prio, victim_req, victim_ok)
+
+
+def walk_in_chunks(walk_fn, tables, chunk_at, C: int, budget: int):
+    """The preemption pass over C candidates, a chunk at a time:
+    chunk_at(lo) gives the tables (masks, cand_row, need, prio) of the chunk
+    that starts at candidate lo, and walk_fn (a WALKS leg) walks it under
+    the budget left, carrying `tables` (node_free, victim_prio, victim_req,
+    victim_ok) on. The same as one walk over every candidate: a chunk's
+    budget flag is the pass's, and a pass whose count reaches the budget
+    between chunks stops there with the flag set. Returns (rows
+    [(candidate, node, victim)], budget flag, the final tables)."""
+    rows: List[Tuple[int, int, int]] = []
+    lo = 0
+    while lo < C:
+        if len(rows) >= budget:
+            return rows, True, tables
+        masks, cand_row, need, prio = chunk_at(lo)
+        got, flag, tables = walk_fn(tables, masks, cand_row, need, prio, budget - len(rows))
+        rows += [(lo + c, e, v) for c, e, v in got]
+        if flag:
+            return rows, True, tables
+        lo += len(cand_row)
+    return rows, False, tables
+
+
+# Each leg's gang verdict and single preemption plan (the reference's
+# PLANNERS), and its preemption walk: the oracle and host legs walk one plan
+# call a candidate, the device leg one walk call a chunk.
 PLANNERS = {
     "oracle": (_gang_commit_py, _preemption_plan_py),
     "host": (gang_commit_host, preemption_plan_host),
     "device": (_gang_commit_device, _preemption_plan_device),
+}
+WALKS = {
+    "oracle": functools.partial(_walk_host, _preemption_plan_py),
+    "host": functools.partial(_walk_host, preemption_plan_host),
+    "device": _preemption_walk_device,
 }
 
 
@@ -290,6 +394,47 @@ def node_ok_mask(p: Pod, nodes) -> np.ndarray:
         ),
         bool, len(nodes),
     )
+
+
+def mask_key(p: Pod) -> tuple:
+    """What node_ok_mask reads of `p`, hashable: the fields its
+    scheduling_requirements() folds (node selector, required node-affinity
+    terms, bound volume zones) and its tolerations as a set. Pods with equal
+    keys get equal rows; the key is finer than the rows where two term lists
+    fold to the same requirements."""
+    zones = None if p.volume_zones is None else tuple(p.volume_zones)
+    return (frozenset(p.node_selector.items()),
+            tuple(frozenset(t.items()) for t in p.node_affinity), zones,
+            frozenset(p.tolerations))
+
+
+def node_ok_table(pods: Sequence[Pod], nodes, cache: Optional[Dict[tuple, np.ndarray]] = None,
+                  max_new: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """The pods' node_ok_mask rows, one per distinct mask_key: (masks [U, E]
+    bool, row [n] int32 — pod i's mask is masks[row[i]]). n is len(pods),
+    or with `max_new` the longest prefix of `pods` that holds at most
+    max_new keys not in `cache`. `cache` (mask_key -> row), filled here,
+    carries the rows from one call to the next."""
+    cache = {} if cache is None else cache
+    index: Dict[tuple, int] = {}
+    masks: List[np.ndarray] = []
+    row: List[int] = []
+    new = 0
+    for p in pods:
+        k = mask_key(p)
+        r = index.get(k)
+        if r is None:
+            m = cache.get(k)
+            if m is None:
+                if new == max_new:
+                    break
+                new += 1
+                m = cache[k] = node_ok_mask(p, nodes)
+            r = index[k] = len(masks)
+            masks.append(m)
+        row.append(r)
+    table = np.stack(masks) if masks else np.zeros((0, len(nodes)), bool)
+    return table, np.asarray(row, np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -426,23 +571,23 @@ class ClassAwareSolver:
         self.class_stats["declines"] += 1
 
     def _planners(self):
-        """(gang_fn, plan_fn) of the chosen leg; the device leg runs on the
+        """(gang_fn, walk_fn) of the chosen leg; the device leg runs on the
         concrete backend's device."""
         planner = self._planner_choice
         if planner == "auto":
             planner = select_planner(self.inner)
-        gang_fn, plan_fn = PLANNERS[planner]
+        gang_fn, walk_fn = PLANNERS[planner][0], WALKS[planner]
         if planner == "device":
             from .backend import concrete_backend
 
             dev = getattr(concrete_backend(self.inner), "device", None)
             gang_fn = functools.partial(gang_fn, device=dev)
-            plan_fn = functools.partial(plan_fn, device=dev)
-        return gang_fn, plan_fn
+            walk_fn = functools.partial(walk_fn, device=dev)
+        return gang_fn, walk_fn
 
     def _solve_class(self, inp: SolverInput) -> SolverResult:
         self.class_stats["class_solves"] += 1
-        gang_fn, plan_fn = self._planners()
+        gang_fn, walk_fn = self._planners()
 
         pods = list(inp.pods)
         if GANG_ENABLED:
@@ -506,7 +651,7 @@ class ClassAwareSolver:
         # ---- preemption pass ----------------------------------------------
         evictions: List[Eviction] = []
         if PRIORITY_ENABLED:
-            evictions = self._plan_preemptions(inp, pods, res, plan_fn)
+            evictions = self._plan_preemptions(inp, pods, res, walk_fn)
 
         # ---- surface ------------------------------------------------------
         errors = dict(res.errors)
@@ -560,7 +705,7 @@ class ClassAwareSolver:
                 return g[0]
         return None
 
-    def _plan_preemptions(self, inp, pods, res, plan_fn) -> List[Eviction]:
+    def _plan_preemptions(self, inp, pods, res, walk_fn) -> List[Eviction]:
         candidates = [
             p for p in ffd_sort(_pending(pods))
             if p.meta.uid not in res.placements
@@ -599,37 +744,33 @@ class ClassAwareSolver:
             used = _quantize(by_uid[uid].requests, rkeys, ceil=True)
             used[pods_col] = max(used[pods_col], 1)
             node_free[e] = np.maximum(node_free[e] - used, 0)
-        evictions: List[Eviction] = []
-        for p in candidates:
-            if len(evictions) >= MAX_EVICTIONS_PER_SOLVE:
-                self._decline("eviction_budget")
-                break
-            need = _quantize(p.requests, rkeys, ceil=True)
-            need[pods_col] = max(need[pods_col], 1)
-            node_ok = node_ok_mask(p, inp.nodes)
-            if not node_ok.any():
-                continue
-            e, take = plan_fn(
-                node_free, victim_prio, victim_req, victim_ok, node_ok,
-                need, p.priority,
+        # the walk in class-FFD order, a chunk of candidates at a time: node
+        # rows one per distinct mask_key, built as the chunks reach them
+        cache: Dict[tuple, np.ndarray] = {}
+
+        def chunk_at(lo):
+            masks, cand_row = node_ok_table(candidates[lo:], inp.nodes, cache, WALK_CHUNK_KEYS)
+            chunk = candidates[lo:lo + len(cand_row)]
+            need = np.asarray([_quantize(p.requests, rkeys, ceil=True) for p in chunk],
+                              np.int32).reshape(len(chunk), len(rkeys))
+            need[:, pods_col] = np.maximum(need[:, pods_col], 1)
+            return masks, cand_row, need, np.asarray([p.priority for p in chunk], np.int64)
+
+        rows, over_budget, _ = walk_in_chunks(
+            walk_fn, (node_free, victim_prio, victim_req, victim_ok), chunk_at, len(candidates),
+            MAX_EVICTIONS_PER_SOLVE,
+        )
+        if over_budget:
+            self._decline("eviction_budget")
+        evictions = [
+            Eviction(
+                node_id=inp.nodes[e].id,
+                pod_uid=victim_uids[e][v],
+                victim_priority=int(victim_prio[e, v]),
+                for_pod=candidates[c].meta.uid,
             )
-            if e < 0:
-                continue
-            hot = np.flatnonzero(np.asarray(take)[e])
-            if not len(hot):
-                continue  # free capacity fit — nothing to evict
-            for v in hot:
-                evictions.append(Eviction(
-                    node_id=inp.nodes[e].id,
-                    pod_uid=victim_uids[e][int(v)],
-                    victim_priority=int(victim_prio[e, int(v)]),
-                    for_pod=p.meta.uid,
-                ))
-                node_free[e] += victim_req[e, int(v)]
-                victim_ok[e, int(v)] = False
-            # the freed capacity is spoken for: the pending pod lands there
-            # next reconcile, so later candidates see the remainder
-            node_free[e] = np.maximum(node_free[e] - need, 0)
+            for c, e, v in rows
+        ]
         if evictions:
             # the wire format is the contract even on the host path: rows
             # that cannot pack (uint16 overflow) decline

@@ -405,7 +405,9 @@ def test_class_fleet_parity():
     assert (st["gang_rounds"], st["gangs_placed"], st["gangs_unschedulable"]) == (1, 20, 1)
     assert st["preemptions"] == len(res.evictions) > 0
     assert tsc.PLANNER_TRANSFER["gang_calls"] - before["gang_calls"] == 2
-    assert tsc.PLANNER_TRANSFER["plan_calls"] > before["plan_calls"]
+    # the preemption pass is one walk call, no per-candidate plan call
+    assert tsc.PLANNER_TRANSFER["walk_calls"] - before["walk_calls"] == 1
+    assert tsc.PLANNER_TRANSFER["plan_calls"] == before["plan_calls"]
 
 
 def test_class_zone_parity():
