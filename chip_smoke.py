@@ -7,8 +7,9 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    karpenter_tpu_torch/csrc with nvcc (sm_90a, one process per source, all
    started together) and times the build;
 2. holds each kernel (K1 in both instances: ffd_fast_scan, the fast branch,
-   and ffd_zoned_scan, with the zoned event engine; K2 compact_takes; K3
-   claim_meta; K6 below) against its plain PyTorch version on the card, at the shapes
+   and ffd_zoned_scan, with the zoned event engine; the delta pack, K2 and
+   K3 in one launch: pack_delta_kernel<64> and its 2-bit-hash instance <2>,
+   word for word; K6 below) against its plain PyTorch version on the card, at the shapes
    of the 50k-pod solves' own kernel arguments (the surge with and without
    nodes, BASELINE configs 3 and 4; the mixed zone+ct input runs K1-K3
    there and its plain scan once, in phase 3): exact
@@ -37,8 +38,10 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    through PlainOnCard, whose recorded scans are then replayed through
    their kernels and held bit for bit); each solve's
    garbage-collection pauses are recorded beside its time;
-4. forces the wide re-fetch (a tiny delta capacity) and checks the
-   decisions do not change;
+4. forces the wide re-fetch (a tiny delta capacity), the launch counts
+   reset just before and read just after (the delta pack, then the wide
+   pack's type-mask words, mask_words), and checks the decisions do not
+   change;
 5. drives the relax path (Respect-mode preferences) through TorchSolver,
    with the launch counts reset just before and read just after: the
    config3_soft cell (config 3 with ScheduleAnyway spreads) SOFT_REPEATS
@@ -102,7 +105,9 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    walked under the class budget; and K12 at the
    outputs of surge_e2e, config 3 and class_contended's cold inner solve,
    at top_k 8 and above Ep; a record built from K12's wire must equal the
-   host-derived one. class_zone runs at bench.py's 1 000 gangs (V > 1 000
+   host-derived one. The delta pack is held there too, at class_contended's
+   inner solve and at build_claim_table's M 8 192 table, on clusters of
+   each of PACK_CLS's sizes as well. class_zone runs at bench.py's 1 000 gangs (V > 1 000
    zone sigs in the zoned scan's launch-sized shared rows).
 
 8. the convex backend: K13 (admm_pack, csrc/convex_kernels.cu, one
@@ -246,6 +251,10 @@ Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        python3 chip_smoke.py --phase 15   (phase 15 alone: the lanes
        scans' cluster table and checks, the surge's, config 3's and
        hostname_wide's blocks made first)
+       python3 chip_smoke.py --phase 17   (phase 17 alone: the delta pack
+       at the surge, config 3, class_contended's inner solve and the
+       M 8 192 table, both instances, clusters of PACK_CLS CTAs too; a
+       counted window and a forced wide re-fetch; its rows)
 The last line of stdout is {"ok": true, "device": {...}}; any failure
 raises and exits non-zero. Without CUDA, or without the package beside
 it, it exits non-zero and prints no result.
@@ -1253,8 +1262,55 @@ def bound(bytes_moved: int, ops: int, ops_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+CLAIM_TABLE_M = 8_192  # the claim bucket of TorchSolver(max_claims=8192)
+
+
+def build_claim_table(dev, M: int = CLAIM_TABLE_M, seed: int = 17):
+    """A synthetic delta-pack input at M claims: 150 type masks over 730
+    types padded to Tp 768 (the catalog's bucket; the padding types never
+    admitted, as the encoder pads), each with its zone bits and group bits,
+    and two pools (its own and -1), so 300 distinct claim rows, the two of
+    a mask equal in every word but the last, repeated in random order
+    (duplicates far apart);
+    Sp 256 runs over Ep 64 nodes, each claim taken by one run, a fifth of
+    the node cells nonzero (the grid 8.5 MB, as class_contended's inner
+    solve). Returns (out, cap, cap_u): `out` has an FFDOutput's take_e,
+    take_c, leftover and state fields; cap and cap_u are the solver's
+    delta capacities for it (cap_u 304: the 300 rows fit)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver import backend as tb
+
+    rng = np.random.default_rng(seed)
+    Sp, Ep, T, W, B = 256, 64, 768, 2, 150
+    masks = np.zeros((B, T), bool)
+    masks[:, :730] = rng.random((B, 730)) < rng.uniform(0.05, 0.6, (B, 1))
+    pick = rng.integers(0, B, M)
+    zc = rng.integers(1, 2**31, B, dtype=np.int64).astype(np.int32)
+    gb = rng.integers(-2**31, 2**31, (B, W), dtype=np.int64).astype(np.int32)
+    pool = np.where(rng.random(M) < 0.5, pick % 4, -1).astype(np.int32)
+    take_c = np.zeros((Sp, M), np.int32)
+    take_c[rng.integers(0, Sp, M), np.arange(M)] = rng.integers(1, 40, M)
+    take_e = np.where(rng.random((Sp, Ep)) < 0.2, rng.integers(1, 60, (Sp, Ep)), 0).astype(np.int32)
+    total = int(take_c.sum() + take_e.sum())
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    state = types.SimpleNamespace(c_mask=t(masks[pick]), c_zc_bits=t(zc[pick]),
+                                  c_gbits=t(gb[pick]), c_pool=t(pool),
+                                  used=torch.tensor(M, dtype=torch.int32, device=dev))
+    out = types.SimpleNamespace(take_e=t(take_e), take_c=t(take_c),
+                                leftover=t(rng.integers(0, 5, Sp).astype(np.int32)), state=state)
+    return out, tb.delta_capacity(total, Sp, Ep, M), tb.delta_uniq_capacity(Sp, M)
+
+
 def kernel_phase(inp, dev, plain: bool = True):
-    """K1-K3 against their plain versions at the shapes of `inp`'s solve:
+    """K1 and the delta pack (K2 + K3, pack_delta_check) against their
+    plain versions at the shapes of `inp`'s solve:
     K1's zoned instance when the input has V-axis sigs (as the main path
     picks it), its fast instance otherwise; the claim bucket doubles on
     saturation as the main path's does. Without `plain` K1 runs alone (the
@@ -1295,21 +1351,140 @@ def kernel_phase(inp, dev, plain: bool = True):
     Sp, Ep = out.take_e.shape
     cap = tb.delta_capacity(total, Sp, Ep, M)
     cap_u = tb.delta_uniq_capacity(Sp, M)
-    k2 = ffd.compact_takes(out.take_e, out.take_c, cap)
-    torch.cuda.synchronize()
-    p2 = ffd.compact_takes_plain(out.take_e, out.take_c, cap)
-    err2 = max_abs_err(k2, p2)
-    assert err2 == 0, f"compact_takes disagrees with its plain version (max |d| {err2})"
-    st = out.state
-    k3 = ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
-    torch.cuda.synchronize()
-    p3 = ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
-    err3 = max_abs_err(k3, p3)
-    assert err3 == 0, f"claim_meta disagrees with its plain version (max |d| {err3})"
+    chk = pack_delta_check(out, cap, cap_u)
     return dict(enc=enc, args=args, host_args=host_args, out=out, M=M, cap=cap, cap_u=cap_u,
                 dims=dims, zone=zone,
-                errs=(err1, err2, err3), n_entries=int(k2[1]), n_uniq=int(k3[1]),
+                errs=(err1, chk["err"], chk["err_hb2"]), n_entries=chk["n"], n_uniq=chk["n_u"],
                 events=int(out.events), plain_once_s=plain_s)
+
+
+def pack_delta_check(out, cap: int, cap_u: int, cls=()) -> dict:
+    """The delta pack (pack_delta_kernel<64>, the main path's) and its
+    2-bit-hash instance (hash groups then hold unequal rows: the exact walk
+    runs) against pack_delta_plain, word for word, on `out`'s outputs; with
+    `cls`, the kernel on clusters of each of those sizes too."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    st = out.state
+    args = (out.take_e, out.take_c, out.leftover, st, cap, cap_u)
+    got = ffd.pack_delta(*args)
+    got2 = ffd._pack_delta_cuda(*args, hash_bits=2)
+    torch.cuda.synchronize()
+    ref = ffd.pack_delta_plain(*args)
+    err, err2 = max_abs_err([got], [ref]), max_abs_err([got2], [ref])
+    assert err == 0, f"pack_delta disagrees with its plain version (max |d| {err})"
+    assert err2 == 0, f"pack_delta (2-bit hash) disagrees with its plain version (max |d| {err2})"
+    err_cl = {}
+    for cl in cls:
+        got_cl = ffd._pack_delta_cuda(*args, cl=cl)
+        torch.cuda.synchronize()
+        err_cl[cl] = max_abs_err([got_cl], [ref])
+        assert err_cl[cl] == 0, f"pack_delta on {cl} CTAs disagrees (max |d| {err_cl[cl]})"
+    return dict(err=err, err_hb2=err2, err_cl=err_cl, n=int(ref[1]), n_u=int(ref[2]),
+                overflow=int(ref[0]), words=int(ref.numel()), cap=cap, cap_u=cap_u,
+                cl=ffd.pack_delta_cluster(out.take_e.shape[0], out.take_e.shape[1],
+                                          *st.c_mask.shape))
+
+
+PACK_CLS = (1, 2, 4, 16)  # cluster sizes the M 8 192 table is also packed on
+
+
+def pack_table_phase(dev) -> dict:
+    """The delta pack on chip_smoke.build_claim_table's M 8 192 table:
+    both instances and every cluster size of PACK_CLS against the plain
+    version (see pack_delta_check); then on the table's mask cut to its 730
+    types (rows of T % 16 != 0: the kernel's one-byte-a-lane word pack)."""
+    import types
+
+    out, cap, cap_u = build_claim_table(dev)
+    res = dict(out=out, **pack_delta_check(out, cap, cap_u, cls=PACK_CLS))
+    cut = types.SimpleNamespace(**{**vars(out), "state": types.SimpleNamespace(
+        **{**vars(out.state), "c_mask": out.state.c_mask[:, :730].contiguous()})})
+    res["err_t730"] = pack_delta_check(cut, cap, cap_u, cls=(16,))["err"]
+    return res
+
+
+def pack_cost(out, cap: int, cap_u: int):
+    """The delta pack's floor on work and traffic: its inputs read once and
+    the fetch buffer written once; a compare a take cell, an op a mask byte
+    and a hash and a row compare (2 Wt) a claim. Returns (bytes, ops)."""
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    st = out.state
+    Sp, Ep = out.take_e.shape
+    M, T = st.c_mask.shape
+    Wt = (T + 31) // 32 + 1 + st.c_gbits.shape[1] + 1
+    words = ffd.pack_delta_words(Sp, M, cap, cap_u, Wt)
+    return (nbytes(out.take_e, out.take_c, out.leftover, st.c_mask, st.c_zc_bits, st.c_gbits,
+                   st.c_pool, st.used) + 4 * words,
+            Sp * (Ep + M) + M * T + 2 * M * Wt)
+
+
+def pack_rows(shapes: dict, launches: dict, wide_launches: dict, ops_per_s: float) -> list:
+    """The delta pack's and the wide word pack's {"kernels": [...]} rows:
+    the pack timed at each of `shapes` ({name: (out, cap, cap_u)}: the
+    surge, config 3, class_contended's inner solve, the M 8 192 table; the
+    row's own numbers are the surge's), with two yardsticks that are not
+    its function: K2's nonzero entries (`torch.nonzero` and a gather) and
+    K3's dedup as `torch.unique(meta, dim=0, return_inverse=True)`, which
+    sorts the rows instead of keeping first-occurrence order."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    at = {}
+    for name, (out, cap, cap_u) in shapes.items():
+        st = out.state
+        args = (out.take_e, out.take_c, out.leftover, st, cap, cap_u)
+        byts, ops = pack_cost(out, cap, cap_u)
+        b, by = bound(byts, ops, ops_per_s)
+        meta = ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool,
+                                            cap_u)[4]
+
+        def takes_yardstick():
+            grid = torch.cat([out.take_e, out.take_c], dim=1)
+            idx = torch.nonzero(grid > 0)
+            return grid[idx[:, 0], idx[:, 1]]
+
+        at[name] = dict(
+            ms=time_ms(lambda: ffd.pack_delta(*args), 50),
+            device_ms=profiled_ms(lambda: ffd.pack_delta(*args), 5, KERNEL_NAMES[2:3]),
+            plain_ms=time_ms(lambda: ffd.pack_delta_plain(*args), 5),
+            bound_ms=b, bound_by=by, bytes=byts, ops=ops,
+            takes_yardstick_ms=time_ms(takes_yardstick, 50),
+            unique_yardstick_ms=time_ms(lambda: torch.unique(meta, dim=0, return_inverse=True), 20),
+            cl=ffd.pack_delta_cluster(out.take_e.shape[0], out.take_e.shape[1], *st.c_mask.shape),
+            shape=dict(Sp=int(out.take_e.shape[0]), Ep=int(out.take_e.shape[1]),
+                       M=int(st.c_mask.shape[0]), T=int(st.c_mask.shape[1]), cap=cap,
+                       cap_u=cap_u))
+    head = at["surge"]
+    out = shapes["surge"][0]
+    c_mask = out.state.c_mask
+    words = ffd.pack_mask_words(c_mask)
+    torch.cuda.synchronize()
+    err_w = max_abs_err([words], [ffd.pack_mask_words_plain(c_mask)])
+    assert err_w == 0, f"mask_words disagrees with its plain version (max |d| {err_w})"
+    bw, byw = bound(nbytes(c_mask, words), c_mask.numel(), ops_per_s)
+    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
+    return [
+        dict(name="pack_delta", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/backend.py:635", launches=launches["pack_delta"],
+             max_abs_err=0, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+             bound_by=head["bound_by"], library_ms=None, match=True,
+             device_ms=head["device_ms"], at=at,
+             replaces_parts=["karpenter_tpu/solver/tpu/ffd.py:325",
+                             "karpenter_tpu/solver/tpu/ffd.py:358"]),
+        dict(name="mask_words", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/backend.py:569",
+             launches=wide_launches["mask_words"], max_abs_err=err_w,
+             ms=time_ms(lambda: ffd.pack_mask_words(c_mask), 50),
+             plain_ms=time_ms(lambda: ffd.pack_mask_words_plain(c_mask), 10),
+             bound_ms=bw, bound_by=byw, library_ms=None, match=err_w == 0,
+             device_ms=profiled_ms(lambda: ffd.pack_mask_words(c_mask), 5, KERNEL_NAMES[4:5]),
+             shape=dict(M=int(c_mask.shape[0]), T=int(c_mask.shape[1]))),
+    ]
 
 
 def profiled_ms(fn, n: int, names, tries: int = 3):
@@ -1384,13 +1559,11 @@ def scan_inputs(args, zone: bool):
 
 
 def kernel_rows(ph, ph_zone, launches, ops_per_s):
-    """The {"kernels": [...]} rows: times, bounds and yardsticks measured
-    at the headline solve's shapes (K1's zoned instance at config 3's)."""
-    import torch
-
+    """K1's {"kernels": [...]} rows: times and bounds measured at the
+    headline solve's shapes (the zoned instance at config 3's)."""
     from karpenter_tpu_torch.solver.cuda import ffd
 
-    args, out, M, cap, cap_u = ph["args"], ph["out"], ph["M"], ph["cap"], ph["cap_u"]
+    args, out, M = ph["args"], ph["out"], ph["M"]
     st = out.state
     Sp, Ep = out.take_e.shape
     T = st.c_mask.shape[1]
@@ -1410,41 +1583,10 @@ def kernel_rows(ph, ph_zone, launches, ops_per_s):
     plain_z = time_ms(lambda: ffd.ffd_solve_plain(*za, max_claims=zM, zone_engine=True), 1)
     b_z, by_z = bound(bytes_z, ops_z, ops_per_s)
 
-    k2 = ffd.compact_takes(out.take_e, out.take_c, cap)
-    bytes2 = nbytes(out.take_e, out.take_c) + nbytes(*k2)
-    ops2 = Sp * (Ep + M)
-    ms2 = time_ms(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 50)
-    plain2 = time_ms(lambda: ffd.compact_takes_plain(out.take_e, out.take_c, cap), 10)
-
-    def library2():
-        grid = torch.cat([out.take_e, out.take_c], dim=1)
-        idx = torch.nonzero(grid > 0)
-        return grid[idx[:, 0], idx[:, 1]]
-
-    lib2 = time_ms(library2, 50)
-    b2, by2 = bound(bytes2, ops2, ops_per_s)
-
-    k3 = ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u)
-    Wt = k3[4].shape[1]
-    bytes3 = nbytes(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool) + nbytes(*k3[:4])
-    ops3 = M * T + M * (M - 1) // 2 * Wt
-    ms3 = time_ms(
-        lambda: ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u), 50
-    )
-    plain3 = time_ms(
-        lambda: ffd.compact_claim_meta_plain(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u),
-        10,
-    )
-    b3, by3 = bound(bytes3, ops3, ops_per_s)
     dev1 = profiled_ms(lambda: ffd.ffd_solve(*args, max_claims=M), 3, KERNEL_NAMES[:1])
     dev_z = profiled_ms(lambda: ffd.ffd_solve(*za, max_claims=zM, zone_engine=True), 3,
                         KERNEL_NAMES[1:2])
-    dev2 = profiled_ms(lambda: ffd.compact_takes(out.take_e, out.take_c, cap), 20,
-                       KERNEL_NAMES[2:3])
-    dev3 = profiled_ms(
-        lambda: ffd.compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u),
-        20, KERNEL_NAMES[3:6])
-    e1, e2, e3 = ph["errs"]
+    e1 = ph["errs"][0]
     ez = ph_zone["errs"][0]
     zT = ph_zone["out"].state.c_mask.shape[1]
     return [
@@ -1460,16 +1602,6 @@ def kernel_rows(ph, ph_zone, launches, ops_per_s):
              shape=dict(Sp=zSp, Ep=zEp, M=zM, T=zT, V=int(za[ffd.ARG_INDEX["v_kind"]].shape[0]),
                         Z=int(za[ffd.ARG_INDEX["zone_col_mask"]].shape[0])),
              ops=ops_z, bytes=bytes_z),
-        dict(name="compact_takes", route="cuda", source=src,
-             replaces="karpenter_tpu/solver/tpu/ffd.py:325", launches=launches["compact_takes"],
-             max_abs_err=e2, ms=ms2, plain_ms=plain2, bound_ms=b2, bound_by=by2,
-             library_ms=lib2, match=e2 == 0, device_ms=dev2, shape=dict(Sp=Sp, K=Ep + M, cap=cap),
-             ops=ops2, bytes=bytes2),
-        dict(name="claim_meta", route="cuda", source=src,
-             replaces="karpenter_tpu/solver/tpu/ffd.py:358", launches=launches["claim_meta"],
-             max_abs_err=e3, ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3,
-             library_ms=None, match=e3 == 0, device_ms=dev3, shape=dict(M=M, T=T, Wt=Wt, cap_u=cap_u),
-             ops=ops3, bytes=bytes3),
     ]
 
 
@@ -1577,8 +1709,8 @@ def ladder_kernel_rows(ph_fast, ph_zone, launches, ops_per_s):
 
     src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
     rows = []
-    for name, ph, kname in (("ffd_ladder_fast_scan", ph_fast, KERNEL_NAMES[9]),
-                            ("ffd_ladder_zoned_scan", ph_zone, KERNEL_NAMES[10])):
+    for name, ph, kname in (("ffd_ladder_fast_scan", ph_fast, KERNEL_NAMES[8]),
+                            ("ffd_ladder_zoned_scan", ph_zone, KERNEL_NAMES[9])):
         args, lad, M, zone = ph["args"], ph["lad"], ph["M"], ph["zone"]
 
         def run(plain=False):
@@ -1610,8 +1742,8 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     and kernel arguments, their upload through an arena (cold on the first
     pass, exact hits after; the resident rung table and sparse index
     tables apart), the device work (K6, or K6s where the gate takes the
-    union index tables, at the solve's final claim bucket M + compaction,
-    CUDA events), the one fetch, and the rest of a full solve (decode,
+    union index tables, at the solve's final claim bucket M + the delta
+    pack, CUDA events; also split at an event between the two), the one fetch, and the rest of a full solve (decode,
     canonicalization, bookkeeping)."""
     import dataclasses
     import statistics
@@ -1633,6 +1765,7 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
 
     names = ("quantize", "relax_plan", "order", "materialize", "encode", "rung_table",
              "upload", "rung_upload", "device", "fetch", "solve")
+    split = {"device_scan": [], "device_pack": []}  # the device stage, scan and pack
     stages = {k: [] for k in names}
     solver = tb.TorchSolver()
     arena = ArgumentArena(device="cuda")
@@ -1670,12 +1803,13 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
                 arena.put_sparse(key, enc2.core_rev, *sp_host, sp)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         start.record()
         if gated:
             out = ffd.ffd_solve_ladder_sparse(lad, *sp, *args, max_claims=M, zone_engine=zone)
         else:
             out = ffd.ffd_solve_ladder(lad, *args, max_claims=M, zone_engine=zone)
+        mid.record()
         Sp, Ep = out.take_e.shape
         flat = tb._pack_outputs_delta(out, tb.delta_capacity(len(pods0), Sp, Ep, M),
                                       tb.delta_uniq_capacity(Sp, M))
@@ -1690,8 +1824,11 @@ def ladder_breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
         vals[8] = start.elapsed_time(end)
         for k, v in zip(names, vals):
             stages[k].append(v)
+        split["device_scan"].append(start.elapsed_time(mid))
+        split["device_pack"].append(mid.elapsed_time(end))
     med = {f"{k}_ms": statistics.median(v) for k, v in stages.items()}
     med["rest_ms"] = med["solve_ms"] - sum(med[f"{k}_ms"] for k in names[:-1])
+    med.update({f"{k}_ms": statistics.median(v) for k, v in split.items()})
     return med
 
 
@@ -1716,7 +1853,8 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     tables where the gate takes them), the upload (an arena adopt: cold on
     the first pass, an exact hit after; the resident index tables apart),
     the device work (the checkpointed scan, or its sparse twin, at the
-    solve's final claim bucket M + compaction, CUDA events), the one fetch,
+    solve's final claim bucket M + the delta pack, CUDA events; also split
+    at an event between the two: device_scan_ms, device_pack_ms), the one fetch,
     and the host decode and bookkeeping (rest_ms: a full solve minus the
     stages)."""
     import statistics
@@ -1739,6 +1877,7 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
     stages = {k: [] for k in names}
     solver = tb.TorchSolver()
     arena = ArgumentArena(device="cuda")
+    split = {"device_scan": [], "device_pack": []}  # the device stage, scan and pack
     for _ in range(repeats):
         ta = time.perf_counter()
         qinp = quantize_input(inp)
@@ -1761,12 +1900,13 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         total = int(sum(len(p) for p in enc.group_pods))
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
         start.record()
         if gated:
             out, _ring = ffd.ffd_solve_ckpt_sparse(*sp, *args, max_claims=M, zone_engine=zone)
         else:
             out, _ring = ffd.ffd_solve_ckpt(*args, max_claims=M, zone_engine=zone)
+        mid.record()
         Sp, Ep = out.take_e.shape
         flat = tb._pack_outputs_delta(out, tb.delta_capacity(total, Sp, Ep, M),
                                       tb.delta_uniq_capacity(Sp, M))
@@ -1781,8 +1921,11 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
                                 (t2 - t1) * 1e3, (t3 - t2) * 1e3, start.elapsed_time(end),
                                 (t5 - t4) * 1e3, (t6 - t5) * 1e3)):
             stages[k].append(v)
+        split["device_scan"].append(start.elapsed_time(mid))
+        split["device_pack"].append(mid.elapsed_time(end))
     med = {f"{k}_ms": statistics.median(v) for k, v in stages.items()}
     med["rest_ms"] = med["solve_ms"] - sum(med[f"{k}_ms"] for k in names[:-1])
+    med.update({f"{k}_ms": statistics.median(v) for k, v in split.items()})
     return med
 
 
@@ -1792,44 +1935,46 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
 # a lane); the one-block batched scan K4 ffd_scan_kernel<ZONE>
 KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "ffd_cluster_kernel<true, false, false>",
-                "compact_takes_kernel", "meta_pack_kernel", "meta_first_kernel",
-                "meta_finish_kernel", "ffd_scan_kernel<false>",
+                "pack_delta_kernel<64>", "pack_delta_kernel<2>", "mask_words_kernel",
+                "ffd_scan_kernel<false>",
                 "ffd_scan_kernel<true>", "pack_verdicts_kernel",
                 "ffd_ladder_kernel<false, false>", "ffd_ladder_kernel<true, false>",
                 "ffd_cluster_kernel<false, true, false>",
                 "ffd_cluster_kernel<true, true, false>", "arena_unpack_kernel",
-                # the sparse instances (14-19) and the dense output pack (20)
+                # the sparse instances (13-18) and the dense output pack (19)
                 "ffd_cluster_kernel<false, false, true>",
                 "ffd_cluster_kernel<true, false, true>",
                 "ffd_ladder_kernel<false, true>", "ffd_ladder_kernel<true, true>",
                 "ffd_cluster_kernel<false, true, true>",
                 "ffd_cluster_kernel<true, true, true>",
                 "pack_outputs_kernel",
-                # the class and explain kernels (21-25)
+                # the class and explain kernels (20-24)
                 "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
                 "explain_sums_kernel", "explain_rows_kernel",
-                # the lane-batched scan (26, 27; also K17's kernel), the
-                # run-table scatter (28, 29), the lane pad (30) and the sparse
-                # lanes of a mesh-sharded solve (31, 32: K17s)
+                # the lane-batched scan (25, 26; also K17's kernel), the
+                # run-table scatter (27, 28), the lane pad (29) and the sparse
+                # lanes of a mesh-sharded solve (30, 31: K17s)
                 "ffd_lanes_kernel<false>", "ffd_lanes_kernel<true>", "copy_runs_kernel",
                 "apply_events_kernel", "pad_lanes_kernel",
                 "ffd_lanes_sparse_kernel<false>", "ffd_lanes_sparse_kernel<true>",
-                # the preemption walk (33: one block, 34: a cluster)
+                # the preemption walk (32: one block, 33: a cluster)
                 "preempt_walk_kernel<false>", "preempt_walk_kernel<true>")
 # phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
-# K2, K3; its uploads are exact hits after the warm-up), one arena=False
+# the delta pack; its uploads are exact hits after the warm-up), one arena=False
 # solver (K1 and K1s in both instances) and one device_decode=False solver
 # (the dense output pack)
 SINGLE_SOLVE_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_zoned_scan", "ffd_fast_scan",
-                        "ffd_zoned_scan", "compact_takes", "claim_meta",
+                        "ffd_zoned_scan", "pack_delta",
                         "ffd_ckpt_sparse_fast_scan", "ffd_ckpt_sparse_zoned_scan",
                         "ffd_sparse_fast_scan", "ffd_sparse_zoned_scan", "pack_outputs")
 RELAX_KERNELS = ("ffd_ladder_fast_scan", "ffd_ladder_zoned_scan", "ffd_ladder_sparse_zoned_scan",
-                 "ffd_ladder_sparse_fast_scan", "compact_takes", "claim_meta")
+                 "ffd_ladder_sparse_fast_scan", "pack_delta")
 # the arena-and-resume phase: K7 cold and resumed (K7s on config3_tail), K8
 # on every delta upload, K1 through the resume=False solver it is held to
+# phase 4: the delta pack overflows, the wide re-fetch packs the type words
+WIDE_KERNELS = ("pack_delta", "mask_words")
 RESUME_KERNELS = ("ffd_ckpt_fast_scan", "ffd_ckpt_sparse_zoned_scan", "arena_unpack",
-                  "ffd_fast_scan", "ffd_sparse_zoned_scan", "compact_takes", "claim_meta")
+                  "ffd_fast_scan", "ffd_sparse_zoned_scan", "pack_delta")
 
 
 def reset_launches():
@@ -1976,13 +2121,13 @@ class PlainOnCard:
 
         solve_plain, ckpt_plain = recorded("solve", solve_plain), recorded("ckpt", ckpt_plain)
 
-        self.saved = (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
+        self.saved = (ffd._ffd_solve_cuda, ffd._pack_delta_cuda, ffd._mask_words_cuda,
                       ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda,
                       ffd._pack_outputs_cuda, arena._unpack_cuda, ffd._gang_commit_cuda,
                       ffd._preemption_plan_cuda, ffd._preemption_walk_cuda, ffd._explain_pack_cuda)
         ffd._ffd_solve_cuda = solve_plain
-        ffd._compact_takes_cuda = ffd.compact_takes_plain
-        ffd._claim_meta_cuda = ffd.compact_claim_meta_plain
+        ffd._pack_delta_cuda = ffd.pack_delta_plain
+        ffd._mask_words_cuda = ffd.pack_mask_words_plain
         ffd._ffd_solve_ladder_cuda = ffd.ffd_solve_ladder_plain
         ffd._ffd_scan_ckpt_cuda = ckpt_plain
         ffd._pack_outputs_cuda = ffd.pack_outputs_plain
@@ -1996,7 +2141,7 @@ class PlainOnCard:
     def __exit__(self, *exc):
         from karpenter_tpu_torch.solver.cuda import arena, ffd
 
-        (ffd._ffd_solve_cuda, ffd._compact_takes_cuda, ffd._claim_meta_cuda,
+        (ffd._ffd_solve_cuda, ffd._pack_delta_cuda, ffd._mask_words_cuda,
          ffd._ffd_solve_ladder_cuda, ffd._ffd_scan_ckpt_cuda, ffd._pack_outputs_cuda,
          arena._unpack_cuda, ffd._gang_commit_cuda, ffd._preemption_plan_cuda,
          ffd._preemption_walk_cuda, ffd._explain_pack_cuda) = self.saved
@@ -2300,7 +2445,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
     ms4 = time_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 5)
     dev4 = profiled_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 3,
-                       (KERNEL_NAMES[6],))
+                       (KERNEL_NAMES[5],))
     t0 = time.perf_counter()
     cons.batched_ffd_plain(prep.args, *drows, M, False)
     torch.cuda.synchronize()
@@ -2313,7 +2458,7 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     zdrows = cons.upload_rows(zrows, dev)
     ms4z = time_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 10)
     dev4z = profiled_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 3,
-                        (KERNEL_NAMES[7],), tries=10)
+                        (KERNEL_NAMES[6],), tries=10)
     plain4z = time_ms(lambda: cons.batched_ffd_plain(zargs, *zdrows, zM, True), 1)
     bytes4z, ops4z = batched_scan_cost(zargs, zrows, zr["out"], True)
     b4z, by4z = bound(bytes4z, ops4z, ops_per_s)
@@ -2646,8 +2791,8 @@ def ckpt_kernel_rows(checks, launches, ops_per_s, solves, phases):
 
     src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
     rows = []
-    for c, kname, k1name in ((checks["surge_K16"], KERNEL_NAMES[11], KERNEL_NAMES[0]),
-                             (checks["config3_K16"], KERNEL_NAMES[12], KERNEL_NAMES[1])):
+    for c, kname, k1name in ((checks["surge_K16"], KERNEL_NAMES[10], KERNEL_NAMES[0]),
+                             (checks["config3_K16"], KERNEL_NAMES[11], KERNEL_NAMES[1])):
         ph = phases["surge" if c["name"] == "ffd_ckpt_fast_scan" else "config3"]
         args, M, zone = ph["args"], ph["M"], ph["zone"]
         kw = dict(max_claims=M, zone_engine=zone, ckpt_every=c["K"], n_ckpt=c["n"])
@@ -2718,7 +2863,7 @@ def sparse_kernel_rows(checks, lchecks, phases, ladder, launches, relax_launches
 
     src = "karpenter_tpu_torch/csrc/ffd_sparse_kernels.cu (ffd_kernels.cu, SPARSE=true)"
     rows = []
-    for cell, k1s, k1, k7s, k7 in (("surge", 14, 0, 18, 11), ("config3", 15, 1, 19, 12)):
+    for cell, k1s, k1, k7s, k7 in (("surge", 13, 0, 17, 10), ("config3", 14, 1, 18, 11)):
         c, ph = checks[cell], phases[cell]
         args, M, zone, sp = ph["args"], ph["M"], ph["zone"], c["sp"]
         b, ops = sparse_scan_cost(ph, sp)
@@ -2764,7 +2909,7 @@ def sparse_kernel_rows(checks, lchecks, phases, ladder, launches, relax_launches
                        resume_device_ms=profiled_ms(resume, 3, (KERNEL_NAMES[k7s],)),
                        resume_k=c["k"], resume_Sp2=c["Sp2"])
         rows.append(row)
-    for cell, k6s, k6 in (("surge_pref", 16, 9), ("config3_soft", 17, 10)):
+    for cell, k6s, k6 in (("surge_pref", 15, 8), ("config3_soft", 16, 9)):
         c, ph = lchecks[cell], ladder[cell]
         kw = dict(max_claims=ph["M"], zone_engine=ph["zone"])
         run6 = lambda: ffd.ffd_solve_ladder_sparse(ph["lad"], *c["sp"], *ph["args"], **kw)  # noqa: E731
@@ -2813,7 +2958,7 @@ def pack_kernel_row(out, err, launches, ops_per_s):
         bound_ms=bms, bound_by=by, library_ms=time_ms(lambda: dst.copy_(buf), 50),
         library_call="torch.Tensor.copy_ device to device of the packed buffer's bytes "
         "(a yardstick: it moves the bytes, it does not pack)",
-        match=err == 0, device_ms=profiled_ms(fn, 20, (KERNEL_NAMES[20],)),
+        match=err == 0, device_ms=profiled_ms(fn, 20, (KERNEL_NAMES[19],)),
         shape=dict(Sp=Sp, Ep=Ep, M=int(st.c_mask.shape[0]), T=int(st.c_mask.shape[1]),
                    words=int(buf.numel())), bytes=moved, ops=0)
 
@@ -2828,7 +2973,7 @@ def unpack_kernel_row(check, err, launches, solves, ops_per_s):
 
     buf, specs = check["buf"], check["specs"]
     ms = time_ms(lambda: arena.unpack(buf, specs), 50)
-    dev_ms = profiled_ms(lambda: arena.unpack(buf, specs), 20, (KERNEL_NAMES[13],))
+    dev_ms = profiled_ms(lambda: arena.unpack(buf, specs), 20, (KERNEL_NAMES[12],))
     plain_ms = time_ms(lambda: arena.unpack_plain(buf, specs), 20)
     dst = torch.empty_like(buf)
     lib_ms = time_ms(lambda: dst.copy_(buf), 50)
@@ -4719,7 +4864,7 @@ def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
 
     rows = []
     src = "karpenter_tpu_torch/csrc/ffd_lanes_kernels.cu (ffd_kernels.cu, FFD_LANES_ONLY)"
-    for ph, kname in ((lanes, KERNEL_NAMES[26]), (lanes_c3, KERNEL_NAMES[27])):
+    for ph, kname in ((lanes, KERNEL_NAMES[25]), (lanes_c3, KERNEL_NAMES[26])):
         args, M, zone = ph["args"], ph["M"], ph["zone"]
         name = f"ffd_lanes_{'zoned' if zone else 'fast'}_scan"
         byts = ops = 0
@@ -4755,7 +4900,7 @@ def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
         bound_by=by, library_ms=time_ms(cat_fn, 20),
         library_call="torch.cat of the array and an expand of its last lane, per array "
         "(the plain version is this call)", match=pad["err"] == 0,
-        device_ms=profiled_ms(pad_fn, 20, (KERNEL_NAMES[30],)),
+        device_ms=profiled_ms(pad_fn, 20, (KERNEL_NAMES[29],)),
         shape=dict(n=pad["n"], B=batch, arrays=pad["arrays"]), bytes=moved, ops=0))
     rg, rc, evt = ev["tensors"]
     pos, gid, cnt = ev["pos"], ev["gid"], ev["cnt"]
@@ -4771,7 +4916,7 @@ def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
         library_ms=time_ms(lambda: (rg.index_copy(0, pos, gid), rc.index_copy(0, pos, cnt)), 50),
         library_call="torch.Tensor.index_copy of the edit rows into each table (pad rows "
         "filtered out beforehand)", match=max(ev["errs"].values()) == 0,
-        device_ms=profiled_ms(ev_fn, 20, (KERNEL_NAMES[28], KERNEL_NAMES[29])),
+        device_ms=profiled_ms(ev_fn, 20, (KERNEL_NAMES[27], KERNEL_NAMES[28])),
         errs=ev["errs"], shape=dict(Sp=ev["Sp"], K=int(evt.shape[0]), edits=ev["edits"]),
         bytes=moved, ops=0))
     return rows
@@ -5742,7 +5887,7 @@ def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
         assert err18p == 0, f"sharded_ffd disagrees with its plain version (max |d| {err18p})"
         fn18 = lambda: cons._sharded_ffd(cmesh, prep.args, rows, M, False)  # noqa: E731
         ms18 = time_ms(fn18, 5)
-        dev18 = profiled_ms(fn18, 3, (KERNEL_NAMES[6],) * len(cmesh.physical), tries=10)
+        dev18 = profiled_ms(fn18, 3, (KERNEL_NAMES[5],) * len(cmesh.physical), tries=10)
         bytes18, ops18 = batched_scan_cost(ref_prep.args, rows, o4, False)
         b18, by18 = bound(bytes18, ops18, ops_per_s)
         c5_line = dict(k=k_best, dispatches=dispatches, prefixes_probed=n_probed,
@@ -5756,15 +5901,15 @@ def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
         sparse_src = ("karpenter_tpu_torch/csrc/ffd_lanes_sparse_kernels.cu (ffd_kernels.cu, "
                       "FFD_LANES_ONLY + FFD_LANES_SPARSE)")
         rows_out = [
-            sharded_kernel_row(checks["surge_Nd4"], launches, ops_per_s, KERNEL_NAMES[26],
+            sharded_kernel_row(checks["surge_Nd4"], launches, ops_per_s, KERNEL_NAMES[25],
                                "karpenter_tpu/solver/tpu/ffd.py:2264", lanes_src),
-            sharded_kernel_row(checks["config3_Nd4"], launches, ops_per_s, KERNEL_NAMES[27],
+            sharded_kernel_row(checks["config3_Nd4"], launches, ops_per_s, KERNEL_NAMES[26],
                                "karpenter_tpu/solver/tpu/ffd.py:2264", lanes_src),
             sharded_kernel_row(checks["hostname_wide_sparse_Nd4"], launches, ops_per_s,
-                               KERNEL_NAMES[31], "karpenter_tpu/solver/tpu/ffd.py:2800",
+                               KERNEL_NAMES[30], "karpenter_tpu/solver/tpu/ffd.py:2800",
                                sparse_src),
             sharded_kernel_row(checks["config3_sparse_Nd4"], launches, ops_per_s,
-                               KERNEL_NAMES[32], "karpenter_tpu/solver/tpu/ffd.py:2800",
+                               KERNEL_NAMES[31], "karpenter_tpu/solver/tpu/ffd.py:2800",
                                sparse_src),
             dict(name="sharded_ffd", route="cuda",
                  source="karpenter_tpu_torch/csrc/ffd_kernels.cu (K4 per physical device)",
@@ -5896,8 +6041,8 @@ def procmesh_rank(dev, spec: dict) -> dict:
         assert launches[k] > 0, f"kernel {k} never launched on the process-mesh path"
     # this rank's lanes against their plain version, timed (beside the path)
     rows = []
-    for name, inp, kname in (("procmesh_surge", inputs["procmesh_surge"], KERNEL_NAMES[26]),
-                             ("procmesh_config3", inputs["procmesh_config3"], KERNEL_NAMES[27])):
+    for name, inp, kname in (("procmesh_surge", inputs["procmesh_surge"], KERNEL_NAMES[25]),
+                             ("procmesh_config3", inputs["procmesh_config3"], KERNEL_NAMES[26])):
         c = sharded_check(kernel_phase(inp, dev), mesh.size, dev, lanes=(lo, hi))
         rows.append(mesh_lane_row(c, launches[c["name"]], ops_per_s, kname, name,
                                   "karpenter_tpu/parallel/sharded.py:285", MESH_SRC))
@@ -6065,8 +6210,8 @@ def hostmesh_phase(dev, ops_per_s: float, refs: dict) -> dict:
         # its card, beside the path; the bound over one worker's block
         timing, rows = {}, []
         for name, key, sparse, kname, kern in (
-                ("hostmesh_surge", "surge", False, KERNEL_NAMES[26], "ffd_sharded_fast_scan"),
-                ("hostmesh_config3", "config3", True, KERNEL_NAMES[32],
+                ("hostmesh_surge", "surge", False, KERNEL_NAMES[25], "ffd_sharded_fast_scan"),
+                ("hostmesh_config3", "config3", True, KERNEL_NAMES[31],
                  "ffd_sharded_sparse_zoned_scan")):
             ph = refs["phases"][key]
             host = ph["host_args"]
@@ -6425,9 +6570,11 @@ def main() -> int:
     only8 = sys.argv[1:] == ["--phase", "8"]
     only15 = sys.argv[1:] == ["--phase", "15"]
     only7 = sys.argv[1:] == ["--phase", "7"]
-    if sys.argv[1:] and not (only7 or only8 or only10 or only11 or only12 or only13 or only15):
+    only17 = sys.argv[1:] == ["--phase", "17"]
+    if sys.argv[1:] and not (only7 or only8 or only10 or only11 or only12 or only13 or only15
+                             or only17):
         print("usage: python3 chip_smoke.py [--phase 7 | --phase 8 | --phase 10 | --phase 11 | "
-              "--phase 12 | --phase 13 | --phase 15]", file=sys.stderr)
+              "--phase 12 | --phase 13 | --phase 15 | --phase 17]", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
     from karpenter_tpu_torch.solver import backend as tb
@@ -6465,6 +6612,57 @@ def main() -> int:
                           "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
                           "wall_s": time.perf_counter() - t_start}), flush=True)
         print_sharded(shard["summary"])
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if only17:
+        # phase 17 alone: the delta pack (both instances) at the surge's,
+        # config 3's and class_contended's inner solve's outputs and the
+        # M 8 192 table, on every cluster size of PACK_CLS; then its rows, the
+        # launches from a counted window (TorchSolver() on the surge twice
+        # and config 3 once; a forced wide re-fetch of the surge)
+        int_rate = int32_ops_per_s()
+        t0 = time.perf_counter()
+        surge_inp, c3_inp = build_input(PODS), build_config3_input(PODS)
+        phs = {"surge": kernel_phase(surge_inp, dev, plain=False),
+               "config3": kernel_phase(c3_inp, dev, plain=False),
+               "class_contended": kernel_phase(build_class_input(**CLASS_KW), dev, plain=False)}
+        checks = {name: pack_delta_check(ph["out"], ph["cap"], ph["cap_u"], cls=PACK_CLS)
+                  for name, ph in phs.items()}
+        table = pack_table_phase(dev)
+        checks["table_8k"] = {k: v for k, v in table.items() if k != "out"}
+        for name, c in checks.items():
+            print(f"pack_delta[{name}]: n={c['n']} n_u={c['n_u']} overflow={c['overflow']} "
+                  f"cl={c['cl']} max_abs_err=({c['err']}, 2-bit hash {c['err_hb2']}, "
+                  f"clusters {c['err_cl']})", flush=True)
+        s17 = tb.TorchSolver()
+        s17.solve(surge_inp)
+        s17.solve(c3_inp)
+        reset_launches()
+        for inp in (surge_inp, surge_inp, c3_inp):
+            s17.solve(inp)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        assert launches["pack_delta"] == 3, launches
+        real_cap = tb.delta_capacity
+        tb.delta_capacity = lambda *a: 16
+        try:
+            reset_launches()
+            s17.solve(surge_inp)
+            torch.cuda.synchronize()
+            wide_launches = read_launches()
+        finally:
+            tb.delta_capacity = real_cap
+        for k in WIDE_KERNELS:
+            assert wide_launches[k] >= 1, f"{k} never launched in the wide re-fetch"
+        rows = pack_rows({name: (ph["out"], ph["cap"], ph["cap_u"]) for name, ph in (
+            *phs.items(), ("table_8k", table))}, launches, wide_launches, int_rate)
+        print(json.dumps({"pack_delta": dict(checks=checks, phase_s=time.perf_counter() - t0),
+                          "kernels": rows, "ptxas": ptxas_report(build.BUILD_LOG["ptxas"]),
+                          "wall_s": time.perf_counter() - t_start}), flush=True)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6719,8 +6917,9 @@ def main() -> int:
     # ---- phase 2f: the class and explain kernels (K10-K12) against their plain versions
     # K10/K11 on seeded and adversarial tables and K11 at 10k nodes; K12 at
     # the outputs of surge_e2e, config 3 and class_contended's cold inner
-    # solve (K1-K3 held at that fleet's shapes too), at top_k 8 and above
-    # Ep; a record built from K12's wire equals the host-derived one
+    # solve (K1 and the delta pack held at that fleet's shapes too), at
+    # top_k 8 and above Ep; a record built from K12's wire equals the
+    # host-derived one
     from karpenter_tpu_torch.api import wellknown as wk
 
     t_class = time.perf_counter()
@@ -6735,6 +6934,14 @@ def main() -> int:
     ph_cls = kernel_phase(class_inp, dev)
     print(f"kernels[class_contended]: M={ph_cls['M']} dims={ph_cls['dims']} "
           f"max_abs_err={ph_cls['errs']} plain_s={ph_cls['plain_once_s']:.2f}", flush=True)
+    # the delta pack at class_contended's inner solve and at M 8 192 (both
+    # instances, every cluster size of PACK_CLS)
+    cls_pack = pack_delta_check(ph_cls["out"], ph_cls["cap"], ph_cls["cap_u"], cls=PACK_CLS)
+    assert not cls_pack["err_cl"] or max(cls_pack["err_cl"].values()) == 0
+    table = pack_table_phase(dev)
+    print(f"pack_delta[table_8k]: n={table['n']} n_u={table['n_u']} overflow={table['overflow']} "
+          f"cl={table['cl']} max_abs_err=({table['err']}, 2-bit hash {table['err_hb2']}, "
+          f"clusters {table['err_cl']}, T 730 {table['err_t730']})", flush=True)
     explain_checks, explain_records = {}, {}
     for name, ph, inp in (("surge_e2e", phases["surge_e2e"], inputs["surge_e2e"]),
                           ("config3", phases["config3"], inputs["config3"]),
@@ -6913,14 +7120,21 @@ def main() -> int:
 
     print(f"[phase 4 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 4: forced wide re-fetch ---------------------------------------------
+    # the delta pack overflows; the wide pack's type-mask words (mask_words),
+    # with the launch counts reset just before and read just after
     real_cap = tb.delta_capacity
     tb.delta_capacity = lambda *a: 16
     try:
         wide = TorchSolver()
+        reset_launches()
         res_w = wide.solve(inputs["surge_e2e"])
+        torch.cuda.synchronize()
+        wide_launches = read_launches()
     finally:
         tb.delta_capacity = real_cap
     assert wide.stats["wide_refetches"] >= 1, wide.stats
+    for k in WIDE_KERNELS:
+        assert wide_launches[k] >= 1, f"{k} never launched in the wide re-fetch"
     assert decisions(res_w) == decisions(results["surge_e2e"]), "wide re-fetch changed decisions"
 
     print(f"[phase 5 starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
@@ -7092,8 +7306,8 @@ def main() -> int:
               for name, inp in inputs.items()}
     stages.update({name: ladder_breakdown(inp, 3, ladder[name]["M"], ladder[name]["zone"])
                    for name, inp in relax_inputs.items()})
-    cell_scan = {"surge": 11, "surge_e2e": 11, "config3": 19, "config4": 12, "config3_soft": 17,
-                 "constraint_wide": 19}
+    cell_scan = {"surge": 10, "surge_e2e": 10, "config3": 18, "config4": 11, "config3_soft": 16,
+                 "constraint_wide": 18}
     profiles = {name: device_profile(inp, KERNEL_NAMES[cell_scan[name]])
                 for name, inp in {**inputs, **relax_inputs}.items()}
 
@@ -7160,7 +7374,11 @@ def main() -> int:
                    "ffd_ckpt_sparse_zoned_scan": 2 * REPEATS + MIXED_REPEATS + 1,
                    "ffd_ckpt_sparse_fast_scan": 1}
     delta_solves = 5 * REPEATS + 2 * DENSE_REPEATS + 2 * MIXED_REPEATS + 5
+    pack_shapes = {name: (ph["out"], ph["cap"], ph["cap_u"]) for name, ph in (
+        ("surge", phases["surge"]), ("config3", phases["config3"]),
+        ("class_contended", ph_cls), ("table_8k", table))}
     rows = (kernel_rows(phases["surge"], phases["config3"], launches, int_rate)
+            + pack_rows(pack_shapes, launches, wide_launches, int_rate)
             + ladder_kernel_rows(ladder["surge_pref"], ladder["config3_soft"], relax_launches,
                                  int_rate)
             + c5["rows"]
@@ -7176,13 +7394,12 @@ def main() -> int:
     launches_per_solve = {k: launches[k] / n for k, n in (
         *ckpt_solves.items(), ("ffd_fast_scan", 1), ("ffd_zoned_scan", 1),
         ("ffd_sparse_fast_scan", 1), ("ffd_sparse_zoned_scan", 1), ("pack_outputs", 2),
-        ("compact_takes", delta_solves), ("claim_meta", delta_solves))}
+        ("pack_delta", delta_solves))}
     launches_per_solve["arena_unpack_resume_phase"] = resume_launches["arena_unpack"] / resume_solves
     launches_per_solve.update({k: relax_launches[k] / n for k, n in (
         ("ffd_ladder_fast_scan", 1), ("ffd_ladder_zoned_scan", 1),
         ("ffd_ladder_sparse_zoned_scan", SOFT_REPEATS), ("ffd_ladder_sparse_fast_scan", 1))})
-    launches_per_solve.update({f"{k}_relax": relax_launches[k] / ladder_solves
-                               for k in ("compact_takes", "claim_meta")})
+    launches_per_solve["pack_delta_relax"] = relax_launches["pack_delta"] / ladder_solves
     print(json.dumps({"kernels": rows}))
     cell_ph = {**phases, **ladder}
     solve_line = {
@@ -7241,6 +7458,7 @@ def main() -> int:
         "launches": launches,
         "resume_launches": resume_launches,
         "relax_launches": relax_launches,
+        "wide_launches": wide_launches,
         "launches_per_solve": launches_per_solve,
         "claim_doublings": solver.stats["claim_doublings"],
         "wide_refetch_ok": True,

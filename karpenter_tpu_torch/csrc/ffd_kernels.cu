@@ -13,10 +13,14 @@
 //                   ffd_cluster_kernel<true, false, false> adds the zoned
 //                   branch (step_body.zoned :860-1663, count_contrib :587);
 //                   one thread-block cluster a solve.
-// K2 compact_takes  replaces karpenter_tpu/solver/tpu/ffd.py:325 compact_takes.
-// K3 claim_meta     replaces karpenter_tpu/solver/tpu/ffd.py:358
-//                   compact_claim_meta plus the c_mask word pack of
-//                   karpenter_tpu/solver/backend.py:652-660.
+// K2 + K3 pack_delta  replaces karpenter_tpu/solver/backend.py:635
+//                   _pack_outputs_delta: tpu/ffd.py:325 compact_takes (K2),
+//                   :358 compact_claim_meta with the c_mask word pack of
+//                   backend.py:652-660 (K3) and the concatenation, in one
+//                   launch of a thread-block cluster that writes the fetch
+//                   buffer (pack_delta_kernel<64>); mask_words_kernel, its
+//                   word stage alone, serves backend.py:569
+//                   _pack_outputs_wide.
 // K4 ffd_batched    replaces karpenter_tpu/solver/tpu/consolidate.py:57
 //                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE>,
 //                   one block per candidate-subset row.
@@ -2548,140 +2552,514 @@ __global__ void __launch_bounds__(VT) pack_verdicts_kernel(
   }
 }
 
-// ---- K2: take-table compaction ---------------------------------------------
+// ---- K2 + K3: the delta pack -------------------------------------------------
 //
-// Bound on the H100: bytes — it reads the [Sp, Ep+M] take grid once and
-// writes O(entries); the work per element is a compare. Design: one block,
-// one warp per run row; a ballot + popcount gives each nonzero entry its
-// rank inside the row, a block scan of the per-row counts gives the row's
-// offset, so entries land in row-major order with no atomics.
+// Replaces karpenter_tpu/solver/backend.py:635 _pack_outputs_delta with the
+// two programs it calls, karpenter_tpu/solver/tpu/ffd.py:325 compact_takes
+// (K2) and :358 compact_claim_meta (K3, with the type-mask word pack of
+// backend.py:652), and the concatenation: one launch writes the whole int32
+// fetch buffer [overflow_t | overflow_u, n, n_u, cnt16 [Sp/2], pairs [cap],
+// leftover [Sp], uniq [cap_u, Wt], mid16 [M/2], used], its scratch behind it
+// in the same allocation (solver/cuda/ffd.py pack_delta_words).
+// What bounds it on the H100: bytes — the [Sp, Ep + M] take grid and the
+// [M, T] type mask read once, O(entries + claims x Wt) words written. The
+// first-equal search makes one row compare a claim (more only where two
+// unequal rows share a hash), not the M^2 / 2 of the row-equality matrix.
+// Design: one thread-block cluster of CL CTAs of NT threads, CL chosen at
+// launch from the bytes (ffd.pack_delta_cluster; wider where a CTA's claim
+// rows would not fit its shared memory); each CTA owns a contiguous,
+// even-sized share of the run rows and of the claim rows. The main path's
+// shapes are small, so the design counts dependent round trips to L2: each
+// phase issues its loads together, and the CTAs' totals travel by DSMEM
+// stores before a barrier, not loads after it.
+//  1. Take counts, a warp a run row: each lane keeps PU loads in flight; a
+//     row's ballot words stay in shared memory (where they fit), its count
+//     beside them, and the "> 65535" flag. Claim rows, a warp a claim: its
+//     zc, group words and pool loaded with its type mask (T16, T % 16 == 0
+//     as the encoder pads T: 16 bytes a lane, a warp 512 types a load,
+//     lanes 2w and 2w + 1 joined into word w; else a ballot a word over
+//     its 32 bytes); the row goes to the scratch with a 64-bit hash (HB
+//     bits of it), the hash also to shared memory. The CTA clears its slice
+//     of the hash table, copies leftover and used, and pushes its entry
+//     count and flag into every CTA's shared memory.
+//  Cluster barrier 1 (its release / acquire also orders the global writes).
+//  2. The entries' bases from the pushed counts: n and the flag. The pairs
+//     are scattered in run-major order from the saved ballots, 32 words at a
+//     time (only the set cells' values are read again): where no word holds
+//     more than RB set cells, each lane loads its word's at once; else PU of
+//     the nonzero words at once, a lane a column. The tail of pairs zeroed,
+//     cnt16 written. Each warp's claims go into
+//     the open-addressed table, one insert a distinct hash (__match_any:
+//     the lowest claim inserts, a 64-bit CAS, its slot keeping the lowest
+//     claim of that hash by atomicMin; the others take its slot).
+//  Cluster barrier 2.
+//  3. A claim's first equal row, a thread a claim: the slot's lowest claim
+//     where its row is equal (equal rows share the hash, so that row is the
+//     lowest equal one); else its warp walks the lower claims of the same
+//     hash in index order, comparing whole rows up to the first equal one
+//     (it ends at the claim itself at the latest: a collision costs time,
+//     never a result; ties go to the lowest index, as argmax). The
+//     representatives are ranked by a CTA scan and listed in order in
+//     shared memory; the ranks go to the scratch, the CTA's total into
+//     every CTA's shared memory.
+//  Cluster barrier 3.
+//  4. The ranks' bases from the pushed totals: uniq rows copied a thread a
+//     word and the table's tail zeroed, mid16 = the rank of each claim's
+//     first equal row (another CTA's from the scratch), and the header.
+//     Reads of what other CTAs wrote go through L2 (__ldcg).
+// HB = 2 keeps two bits of the hash, so hash groups hold unequal rows and
+// the walk runs: an instance that only chip_smoke.py launches, to hold the
+// walk against the plain version on the card; the main path's is HB = 64.
 
-__device__ __forceinline__ int grid_at(const int* te, const int* tc, int s, int c, int Ep, int M) {
-  return c < Ep ? te[(size_t)s * Ep + c] : tc[(size_t)s * M + (c - Ep)];
+constexpr int PU = 8;                              // take-grid loads in flight a lane
+constexpr int UW = 16;                             // type-mask words a lane loads at once (bytes)
+constexpr int UC = 2;                              // 512-type chunks a lane loads at once (T16)
+constexpr int RB = 4;                              // set cells of a sparse word a lane loads at once
+constexpr unsigned long long EMPTY_KEY = ~0ull;    // a free slot of the hash table
+constexpr int PACK_SMEM = 200 * 1024;              // the launch's dynamic shared memory, at most
+
+__device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
+  x ^= x >> 30;
+  x *= 0xbf58476d1ce4e5b9ull;
+  x ^= x >> 27;
+  x *= 0x94d049bb133111ebull;
+  return x ^ (x >> 31);
 }
 
-__global__ void __launch_bounds__(NT) compact_takes_kernel(
-    const int* take_e, const int* take_c, int* hdr, int* cnt16, unsigned* pairs,
-    int* rowcnt, int* rowoff, int Sp, int Ep, int M, int cap) {
-  __shared__ unsigned ured[NWARPS];
-  __shared__ int big;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  const int K = Ep + M;
-  if (tid == 0) big = 0;
-  for (int i = tid; i < cap; i += NT) pairs[i] = 0u;
-  __syncthreads();
-  bool over = false;
-  for (int s = wid; s < Sp; s += NWARPS) {
-    int cnt = 0;
-    for (int c0 = 0; c0 < K; c0 += 32) {
-      const int c = c0 + lane;
-      const int v = c < K ? grid_at(take_e, take_c, s, c, Ep, M) : 0;
-      over |= v > 65535;
-      cnt += __popc(__ballot_sync(FULL, v > 0));
-    }
-    if (lane == 0) rowcnt[s] = cnt;
-  }
-  if (over) big = 1;
-  __syncthreads();
-  const unsigned n = block_exclusive_scan(rowcnt, rowoff, Sp, ured);
-  if (tid == 0) {
-    hdr[0] = ((int)n > cap || big) ? 1 : 0;
-    hdr[1] = (int)n;
-  }
-  for (int i = tid; i < Sp / 2; i += NT)
-    cnt16[i] = (int)(((unsigned)rowcnt[2 * i] & 0xffffu) | (((unsigned)rowcnt[2 * i + 1] & 0xffffu) << 16));
-  for (int s = wid; s < Sp; s += NWARPS) {
-    int base = rowoff[s];
-    for (int c0 = 0; c0 < K; c0 += 32) {
-      const int c = c0 + lane;
-      const int v = c < K ? grid_at(take_e, take_c, s, c, Ep, M) : 0;
-      const unsigned bal = __ballot_sync(FULL, v > 0);
-      if (v > 0) {
-        const int pos = base + __popc(bal & ((1u << lane) - 1u));
-        if (pos < cap) pairs[pos] = ((unsigned)c & 0xffffu) | (((unsigned)v & 0xffffu) << 16);
+// word w of a claim row holding v: its term of the row's hash (a sum)
+__device__ __forceinline__ unsigned long long word_hash(int w, unsigned v) {
+  return mix64(((unsigned long long)(unsigned)w << 32) | v);
+}
+
+// the byte-nonzero bits of x: bit k set where byte k of x is not 0
+__device__ __forceinline__ unsigned byte_bits(unsigned x) {
+  const unsigned m = __vcmpne4(x, 0u) & 0x01010101u;
+  return ((m * 0x00204081u) >> 21) & 0xFu;
+}
+
+// The type-mask words of one claim row `mk` (T mask bytes), by one warp;
+// lane w % 32 calls put(w, word) for word w. T16 (T % 16 == 0, the rows
+// 16-byte aligned): each lane loads 16 bytes, a warp 512 types a load, UC
+// loads at once, and word w of a 512-type chunk joins lanes 2w and 2w + 1's
+// 16 bits; else word w is one ballot over its 32 bytes, UW words' bytes
+// loaded at once.
+template <typename F>
+__device__ __forceinline__ void type_words(const unsigned char* mk, int T, int Wm, bool t16,
+                                           int lane, F put) {
+  if (t16) {
+    const uint4* mk4 = (const uint4*)mk;
+    const int nq = T / 16;
+    for (int c0 = 0; c0 < nq; c0 += 32 * UC) {
+      uint4 x[UC];
+#pragma unroll
+      for (int u = 0; u < UC; ++u) {
+        const int q = c0 + 32 * u + lane;
+        x[u] = q < nq ? __ldg(mk4 + q) : make_uint4(0u, 0u, 0u, 0u);
       }
-      base += __popc(bal);
+#pragma unroll
+      for (int u = 0; u < UC; ++u) {
+        const unsigned bits = byte_bits(x[u].x) | (byte_bits(x[u].y) << 4) |
+                              (byte_bits(x[u].z) << 8) | (byte_bits(x[u].w) << 12);
+        const unsigned lo = __shfl_sync(FULL, bits, (2 * lane) & 31);
+        const unsigned hi = __shfl_sync(FULL, bits, (2 * lane + 1) & 31);
+        const int w = (c0 + 32 * u) / 2 + lane;
+        if (lane < 16 && w < Wm) put(w, lo | (hi << 16));
+      }
+    }
+    return;
+  }
+  for (int w0 = 0; w0 < Wm; w0 += UW) {
+    unsigned char b[UW];
+#pragma unroll
+    for (int u = 0; u < UW; ++u) {
+      const int t = (w0 + u) * 32 + lane;
+      b[u] = (w0 + u < Wm && t < T) ? __ldg(mk + t) : (unsigned char)0;
+    }
+#pragma unroll
+    for (int u = 0; u < UW; ++u) {
+      const unsigned word = __ballot_sync(FULL, b[u] != 0);
+      if (w0 + u < Wm && lane == ((w0 + u) & 31)) put(w0 + u, word);
     }
   }
 }
 
-// ---- K3: claim identity rows -----------------------------------------------
-//
-// Bound on the H100: the [M, M] row-equality search, M·M/2·Wt word
-// compares at worst (most pairs differ in the first word, so far fewer).
-// Design: three launches — pack each claim's row (type-mask words ++ zc ++
-// group bits ++ pool) with one block per claim; find each row's first equal
-// row with one block per claim (a block min reduction, so ties go to the
-// lowest index as argmax does); one block ranks the representatives with a
-// scan and scatters the unique table and the uint16 ids.
+// two claim rows of the scratch equal in every word (one warp)
+__device__ __forceinline__ bool rows_equal(const unsigned* x, const unsigned* y, int Wt,
+                                           int lane) {
+  bool ne = false;
+  for (int w = lane; w < Wt; w += 32) ne |= __ldcg(x + w) != __ldcg(y + w);
+  return !__any_sync(FULL, ne);
+}
 
-constexpr int MT = 256;  // threads of the per-claim kernels
-
-__global__ void __launch_bounds__(MT) meta_pack_kernel(
-    const unsigned char* c_mask, const unsigned* c_zc, const unsigned* c_gbits, const int* c_pool,
-    unsigned* meta, int T, int W, int Wm, int Wt) {
-  const int m = blockIdx.x;
-  for (int w = threadIdx.x; w < Wt; w += MT) {
-    unsigned v;
-    if (w < Wm) {
-      v = 0u;
-      const int t0 = w * 32;
-      for (int j = 0; j < 32 && t0 + j < T; ++j)
-        if (c_mask[(size_t)m * T + t0 + j]) v |= 1u << j;
-    } else if (w == Wm) {
-      v = c_zc[m];
-    } else if (w < Wm + 1 + W) {
-      v = c_gbits[(size_t)m * W + (w - Wm - 1)];
-    } else {
-      v = (unsigned)c_pool[m];
+// two claim rows of the scratch equal in every word (one thread)
+__device__ __forceinline__ bool rows_equal1(const unsigned* x, const unsigned* y, int Wt) {
+  bool eq = true;
+  for (int w0 = 0; w0 < Wt; w0 += 4) {
+    unsigned a[4], b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      a[u] = w0 + u < Wt ? __ldcg(x + w0 + u) : 0u;
+      b[u] = w0 + u < Wt ? __ldcg(y + w0 + u) : 0u;
     }
-    meta[(size_t)m * Wt + w] = v;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) eq &= a[u] == b[u];
   }
+  return eq;
 }
 
-__global__ void __launch_bounds__(MT) meta_first_kernel(const unsigned* meta, int* first, int Wt) {
-  __shared__ int red[MT / 32];
-  const int m = blockIdx.x;
-  const unsigned* row = meta + (size_t)m * Wt;
-  int best = m;  // the diagonal always matches
-  for (int k = threadIdx.x; k < m; k += MT) {
-    const unsigned* other = meta + (size_t)k * Wt;
-    bool eq = true;
-    for (int w = 0; w < Wt && eq; ++w) eq = other[w] == row[w];
-    if (eq) best = min(best, k);
+// inclusive sum over the warp's lanes
+__device__ __forceinline__ int warp_incl(int x, int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
   }
-  for (int o = 16; o > 0; o >>= 1) best = min(best, __shfl_xor_sync(FULL, best, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = best;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int r = red[0];
-    for (int i = 1; i < MT / 32; ++i) r = min(r, red[i]);
-    first[m] = r;
-  }
+  return x;
 }
 
-__global__ void __launch_bounds__(NT) meta_finish_kernel(
-    const unsigned* meta, const int* first, int* rank, int* hdr, unsigned* uniq, int* mid16,
-    int M, int Wt, int cap_u) {
+// the take grid's cell (s, c), c over [0, Ep + M)
+__device__ __forceinline__ int take_at(const int* te, const int* tc, int c, int Ep) {
+  return c < Ep ? __ldg(te + c) : __ldg(tc + (c - Ep));
+}
+
+struct PackArgs {
+  const int* take_e;            // [Sp, Ep]
+  const int* take_c;            // [Sp, M]
+  const int* leftover;          // [Sp]
+  const unsigned char* c_mask;  // [M, T] bool
+  const unsigned* c_zc;         // [M]
+  const unsigned* c_gbits;      // [M, W]
+  const int* c_pool;            // [M]
+  const int* used;              // scalar
+  int* out;                     // the fetch buffer
+  // scratch, behind the buffer in the same allocation
+  unsigned* meta;               // [M, Wt] claim rows
+  unsigned long long* hash;     // [M]
+  unsigned long long* tkey;     // [S] the hash table's keys
+  int* thead;                   // [S] a slot's lowest claim
+  int* rank;                    // [M] a representative's rank within its CTA
+  int Sp, Ep, M, T, W, Wm, Wt, cap, cap_u, S, rows_c, claims_c, stash, t16;
+};
+
+// word w >= Wm of claim m's row: zc, then the group words, then the pool
+__device__ __forceinline__ unsigned tail_word(const PackArgs& a, int m, int w) {
+  if (w == a.Wm) return __ldg(a.c_zc + m);
+  if (w == a.Wt - 1) return (unsigned)__ldg(a.c_pool + m);
+  return __ldg(a.c_gbits + (size_t)m * a.W + (w - a.Wm - 1));
+}
+
+// a CTA's shared rows (dynamic): its claims' hashes, slots (then the list of
+// its representatives), first equal rows and ranks, its run rows' counts
+// (then offsets) and, where they fit, their ballot words
+struct PackShared {
+  unsigned long long* hash;  // [claims_c]
+  int* slot;                 // [claims_c]
+  int* first;                // [claims_c]
+  int* lrank;                // [claims_c] representative flags, then ranks within the CTA
+  int* rowcnt;               // [rows_c]
+  unsigned* stash;           // [rows_c, NWd]
+  __device__ PackShared(const PackArgs& a) {
+    hash = (unsigned long long*)scan_rows;
+    slot = (int*)(hash + a.claims_c);
+    first = slot + a.claims_c;
+    lrank = first + a.claims_c;
+    rowcnt = lrank + a.claims_c;
+    stash = (unsigned*)(rowcnt + a.rows_c);
+  }
+};
+
+template <int HB>
+__global__ void __launch_bounds__(NT, 1) pack_delta_kernel(PackArgs a) {
   __shared__ unsigned ured[NWARPS];
-  const int tid = threadIdx.x;
-  for (int m = tid; m < M; m += NT) rank[m] = first[m] == m ? 1 : 0;
-  for (size_t i = tid; i < (size_t)cap_u * Wt; i += NT) uniq[i] = 0u;
+  __shared__ int over_any;       // this CTA's "> 65535" flag
+  __shared__ int ttot[MAX_CL][2];  // each CTA's entries and flag, pushed here by that CTA
+  __shared__ int rtot[MAX_CL];   // each CTA's representatives, pushed here by that CTA
+  __shared__ int sc[4];          // entries before this CTA, n, the flag, n_u
+  __shared__ int rbase[MAX_CL];  // representatives before each CTA
+  cg::cluster_group clu = cg::this_cluster();
+  const int rk = (int)clu.block_rank(), ncl = (int)clu.num_blocks();
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int Ep = a.Ep, M = a.M, K = Ep + M, NWd = (K + 31) / 32, Wt = a.Wt;
+  const int r0 = min(rk * a.rows_c, a.Sp), r1 = min(r0 + a.rows_c, a.Sp);
+  const int m0 = min(rk * a.claims_c, M), m1 = min(m0 + a.claims_c, M), nm = m1 - m0;
+  const PackShared sh(a);
+  int* out = a.out;
+  const long long o_cnt = 3, o_pairs = o_cnt + a.Sp / 2, o_left = o_pairs + a.cap;
+  const long long o_uniq = o_left + a.Sp, o_mid = o_uniq + (long long)a.cap_u * Wt;
+  const long long o_used = o_mid + M / 2;
+  if (tid == 0) over_any = 0;
   __syncthreads();
-  const unsigned n_u = block_exclusive_scan(rank, rank, M, ured);
-  for (int m = tid; m < M; m += NT) {
-    if (first[m] == m && rank[m] < cap_u)
-      for (int w = 0; w < Wt; ++w) uniq[(size_t)rank[m] * Wt + w] = meta[(size_t)m * Wt + w];
+
+  // 1. take counts, a warp a run row
+  bool over = false;
+  for (int s = r0 + wid; s < r1; s += NWARPS) {
+    const int* te = a.take_e + (size_t)s * Ep;
+    const int* tc = a.take_c + (size_t)s * M;
+    unsigned* sw = sh.stash + (size_t)(s - r0) * NWd;
+    int cnt = 0;
+    for (int q0 = 0; q0 < NWd; q0 += PU) {
+      int v[PU];
+#pragma unroll
+      for (int u = 0; u < PU; ++u) {
+        const int c = (q0 + u) * 32 + lane;
+        v[u] = c < K ? take_at(te, tc, c, Ep) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < PU; ++u) {
+        over |= v[u] > 65535;
+        const unsigned b = __ballot_sync(FULL, v[u] > 0);
+        cnt += __popc(b);
+        if (a.stash && lane == 0 && q0 + u < NWd) sw[q0 + u] = b;
+      }
+    }
+    if (lane == 0) sh.rowcnt[s - r0] = cnt;
   }
-  for (int i = tid; i < M / 2; i += NT) {
-    const unsigned lo = (unsigned)rank[first[2 * i]] & 0xffffu;
-    const unsigned hi = (unsigned)rank[first[2 * i + 1]] & 0xffffu;
-    mid16[i] = (int)(lo | (hi << 16));
+  if (over) over_any = 1;
+
+  // claim rows and their hashes, a warp a claim
+  for (int m = m0 + wid; m < m1; m += NWARPS) {
+    unsigned* row = a.meta + (size_t)m * Wt;
+    unsigned long long h = 0;
+    // the tail words (zc, the group words, the pool), loaded before the mask's
+    const int w0 = a.Wm + lane, w1 = w0 + 32;
+    const unsigned t0 = w0 < Wt ? tail_word(a, m, w0) : 0u;
+    const unsigned t1 = w1 < Wt ? tail_word(a, m, w1) : 0u;
+    type_words(a.c_mask + (size_t)m * a.T, a.T, a.Wm, a.t16, lane, [&](int w, unsigned v) {
+      row[w] = v;
+      h += word_hash(w, v);
+    });
+    for (int w = w0; w < Wt; w += 32) {
+      const unsigned v = w == w0 ? t0 : w == w1 ? t1 : tail_word(a, m, w);
+      row[w] = v;
+      h += word_hash(w, v);
+    }
+    for (int o = 16; o > 0; o >>= 1) h += __shfl_xor_sync(FULL, h, o);
+    if constexpr (HB < 64) h &= (1ull << HB) - 1ull;
+    if (h == EMPTY_KEY) h = 0ull;
+    if (lane == 0) {
+      a.hash[m] = h;
+      sh.hash[m - m0] = h;
+    }
   }
-  if (tid == 0) {
-    hdr[0] = (int)n_u > cap_u ? 1 : 0;
-    hdr[1] = (int)n_u;
+
+  // this CTA's slice of the hash table; leftover and used
+  const int t_lo = (int)((long long)a.S * rk / ncl), t_hi = (int)((long long)a.S * (rk + 1) / ncl);
+  for (int i = t_lo + tid; i < t_hi; i += NT) {
+    a.tkey[i] = EMPTY_KEY;
+    a.thead[i] = I32MAX;
   }
+  for (int s = r0 + tid; s < r1; s += NT) out[o_left + s] = __ldg(a.leftover + s);
+  if (rk == 0 && tid == 0) out[o_used] = __ldg(a.used);
+  __syncthreads();
+  for (int i = (r0 >> 1) + tid; i < (r1 >> 1); i += NT)
+    out[o_cnt + i] = (int)(((unsigned)sh.rowcnt[2 * i - r0] & 0xffffu) |
+                           (((unsigned)sh.rowcnt[2 * i + 1 - r0] & 0xffffu) << 16));
+  __syncthreads();
+  const unsigned rows_total = block_exclusive_scan(sh.rowcnt, sh.rowcnt, r1 - r0, ured);
+  if (wid == 0 && lane < ncl) {  // into every CTA's slot rk, over DSMEM
+    int* pt = peer(&ttot[rk][0], lane);
+    pt[0] = (int)rows_total;
+    pt[1] = over_any;
+  }
+  cluster_barrier();
+
+  // 2. the entries' bases from the pushed totals, the pairs scattered
+  if (wid == 0) {
+    const int t = lane < ncl ? ttot[lane][0] : 0, f = lane < ncl ? ttot[lane][1] : 0;
+    const int x = warp_incl(t, lane);
+    const int before = __shfl_sync(FULL, x - t, rk);
+    const int n_all = __shfl_sync(FULL, x, 31);
+    const int flag = __any_sync(FULL, f != 0);
+    if (lane == 0) {
+      sc[0] = before;
+      sc[1] = n_all;
+      sc[2] = flag;
+    }
+  }
+  __syncthreads();
+  const int n = sc[1];
+  const unsigned lt = (1u << lane) - 1u;
+  for (int s = r0 + wid; s < r1; s += NWARPS) {
+    const int* te = a.take_e + (size_t)s * Ep;
+    const int* tc = a.take_c + (size_t)s * M;
+    const unsigned* sw = sh.stash + (size_t)(s - r0) * NWd;
+    int base = sc[0] + sh.rowcnt[s - r0];
+    for (int q0 = 0; q0 < NWd; q0 += 32) {  // 32 ballot words, a lane a word
+      unsigned b = 0u;
+      if (a.stash) {
+        if (q0 + lane < NWd) b = sw[q0 + lane];
+      } else {
+        for (int u = 0; u < 32 && q0 + u < NWd; ++u) {
+          const int c = (q0 + u) * 32 + lane;
+          const unsigned w = __ballot_sync(FULL, c < K && take_at(te, tc, c, Ep) > 0);
+          if (lane == u) b = w;
+        }
+      }
+      const int cnt = __popc(b);
+      const int x = warp_incl(cnt, lane);
+      const int pos0 = base + x - cnt;
+      if (__reduce_max_sync(FULL, (unsigned)cnt) <= (unsigned)RB) {
+        // sparse words: each lane loads its word's set cells at once
+        int c[RB], v[RB];
+#pragma unroll
+        for (int u = 0; u < RB; ++u) {
+          c[u] = -1;
+          if (b) {
+            c[u] = (q0 + lane) * 32 + __ffs(b) - 1;
+            b &= b - 1u;
+            v[u] = take_at(te, tc, c[u], Ep);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < RB; ++u)
+          if (c[u] >= 0 && pos0 + u < a.cap)
+            out[o_pairs + pos0 + u] =
+                (int)(((unsigned)c[u] & 0xffffu) | (((unsigned)v[u] & 0xffffu) << 16));
+      } else {
+        // dense words: PU of the nonzero words at once, a lane a column
+        unsigned nz = __ballot_sync(FULL, b != 0u);
+        while (nz) {
+          int wq[PU], v[PU];
+          unsigned bq[PU];
+#pragma unroll
+          for (int u = 0; u < PU; ++u) {
+            wq[u] = nz ? __ffs(nz) - 1 : -1;
+            if (nz) nz &= nz - 1u;
+            bq[u] = __shfl_sync(FULL, b, wq[u] < 0 ? 0 : wq[u]);
+            if (wq[u] < 0) bq[u] = 0u;
+            v[u] = (bq[u] >> lane) & 1u ? take_at(te, tc, (q0 + wq[u]) * 32 + lane, Ep) : 0;
+          }
+#pragma unroll
+          for (int u = 0; u < PU; ++u) {
+            const int p0 = __shfl_sync(FULL, pos0, wq[u] < 0 ? 0 : wq[u]);
+            const int pos = p0 + __popc(bq[u] & lt);
+            if ((bq[u] >> lane) & 1u && pos < a.cap)
+              out[o_pairs + pos] = (int)(((unsigned)((q0 + wq[u]) * 32 + lane) & 0xffffu) |
+                                         (((unsigned)v[u] & 0xffffu) << 16));
+          }
+        }
+      }
+      base += __shfl_sync(FULL, x, 31);
+    }
+  }
+  for (long long i = (long long)n + (long long)rk * NT + tid; i < a.cap; i += (long long)ncl * NT)
+    out[o_pairs + i] = 0;
+
+  // the claims' hashes into the table: the lowest claim of each hash a warp
+  // holds inserts it (the lanes' claims ascend), the others take its slot
+  for (int i0 = wid * 32; i0 < nm; i0 += NT) {
+    const int i = i0 + lane;
+    const unsigned long long h = i < nm ? sh.hash[i] : EMPTY_KEY;
+    const unsigned grp = __match_any_sync(FULL, h);
+    const int lead = __ffs(grp) - 1;
+    unsigned sl = 0u;
+    if (i < nm && lane == lead) {
+      sl = (unsigned)mix64(h) & (unsigned)(a.S - 1);
+      for (;;) {
+        const unsigned long long prev = atomicCAS(a.tkey + sl, EMPTY_KEY, h);
+        if (prev == EMPTY_KEY || prev == h) break;
+        sl = (sl + 1u) & (unsigned)(a.S - 1);
+      }
+      atomicMin(a.thead + sl, m0 + i);
+    }
+    sl = __shfl_sync(FULL, sl, lead);
+    if (i < nm) sh.slot[i] = (int)sl;
+  }
+  cluster_barrier();
+
+  // 3. each claim's first equal row: a thread a claim against its slot's
+  // lowest claim; a warp walks the hash group of a claim that differs
+  for (int i0 = wid * 32; i0 < nm; i0 += NT) {
+    const int i = i0 + lane, m = m0 + i;
+    bool walk = false;
+    if (i < nm) {
+      const int hd = __ldcg(a.thead + sh.slot[i]);
+      int f = m;
+      if (hd < m) {
+        if (rows_equal1(a.meta + (size_t)hd * Wt, a.meta + (size_t)m * Wt, Wt)) f = hd;
+        else walk = true;
+      }
+      sh.first[i] = walk ? hd : f;  // a walk starts past the slot's lowest claim
+    }
+    __syncwarp();
+    unsigned todo = __ballot_sync(FULL, walk);
+    while (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int mi = m0 + i0 + j;
+      const unsigned* row = a.meta + (size_t)mi * Wt;
+      const unsigned long long h = sh.hash[i0 + j];
+      int f = mi;
+      for (int k0 = sh.first[i0 + j] + 1; k0 < mi && f == mi; k0 += 32) {
+        const int k = k0 + lane;
+        unsigned bk = __ballot_sync(FULL, k < mi && __ldcg(a.hash + k) == h);
+        while (bk) {
+          const int jj = __ffs(bk) - 1;
+          bk &= bk - 1u;
+          if (rows_equal(a.meta + (size_t)(k0 + jj) * Wt, row, Wt, lane)) {
+            f = k0 + jj;
+            break;
+          }
+        }
+      }
+      if (lane == 0) sh.first[i0 + j] = f;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nm; i += NT) sh.lrank[i] = sh.first[i] == m0 + i ? 1 : 0;
+  __syncthreads();
+  const unsigned reps = block_exclusive_scan(sh.lrank, sh.lrank, nm, ured);
+  for (int i = tid; i < nm; i += NT) {
+    a.rank[m0 + i] = sh.lrank[i];
+    if (sh.first[i] == m0 + i) sh.slot[sh.lrank[i]] = m0 + i;  // the representatives in order
+  }
+  if (wid == 0 && lane < ncl) *peer(&rtot[rk], lane) = (int)reps;
+  cluster_barrier();
+
+  // 4. the ranks' bases; uniq, mid16 and the header
+  if (wid == 0) {
+    const int t = lane < ncl ? rtot[lane] : 0;
+    const int x = warp_incl(t, lane);
+    if (lane < ncl) rbase[lane] = x - t;
+    const int n_u = __shfl_sync(FULL, x, 31);
+    if (lane == 0) sc[3] = n_u;
+  }
+  __syncthreads();
+  const int n_u = sc[3], ubase = rbase[rk];
+  const int nrep = min((int)reps, max(0, a.cap_u - ubase));
+  for (long long i = tid; i < (long long)nrep * Wt; i += NT) {
+    const int r = (int)(i / Wt), w = (int)(i % Wt);
+    out[o_uniq + (long long)(ubase + r) * Wt + w] = (int)__ldcg(a.meta + (size_t)sh.slot[r] * Wt + w);
+  }
+  for (long long i = (long long)n_u * Wt + (long long)rk * NT + tid; i < (long long)a.cap_u * Wt;
+       i += (long long)ncl * NT)
+    out[o_uniq + i] = 0;
+  for (int i = tid; i < (nm >> 1); i += NT) {
+    unsigned r2[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int f = sh.first[2 * i + u], cf = f / a.claims_c;
+      r2[u] = (unsigned)(rbase[cf] + (cf == rk ? sh.lrank[f - m0] : __ldcg(a.rank + f))) & 0xffffu;
+    }
+    out[o_mid + (m0 >> 1) + i] = (int)(r2[0] | (r2[1] << 16));
+  }
+  if (rk == 0 && tid == 0) {
+    out[0] = (sc[2] || n > a.cap || n_u > a.cap_u) ? 1 : 0;
+    out[1] = n;
+    out[2] = n_u;
+  }
+}
+
+// The wide re-fetch's type-mask words (karpenter_tpu/solver/backend.py:569
+// _pack_outputs_wide): the delta pack's word stage alone, a warp a claim
+// row, out [M, Wm]. Bound: bytes (the [M, T] mask read once).
+__global__ void __launch_bounds__(256) mask_words_kernel(const unsigned char* c_mask,
+                                                         unsigned* out, int M, int T, int Wm,
+                                                         int t16) {
+  const int m = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (m >= M) return;
+  unsigned* row = out + (size_t)m * Wm;
+  type_words(c_mask + (size_t)m * T, T, Wm, t16, threadIdx.x & 31,
+             [&](int w, unsigned v) { row[w] = v; });
 }
 
 // ---- K9: the dense output pack ------------------------------------------------
@@ -3225,6 +3603,24 @@ static int ckpt_launch(void** p, int n, const int* d, void* stream) {
               : launch_cluster<false, false, true, SPARSE>(a, stream);
 }
 
+#if !defined(FFD_SPARSE_ONLY) && !defined(FFD_LANES_ONLY)
+// the clusters of cl NT-thread CTAs of the delta pack the card holds at once
+static cudaError_t pack_cluster_fit(void (*kern)(PackArgs), int cl, int* fit) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = PACK_SMEM;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(fit, kern, &cfg);
+}
+#endif
+
 extern "C" {
 
 #ifdef FFD_SPARSE_ONLY
@@ -3401,35 +3797,112 @@ int pack_verdicts_launch(void** p, int n, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: take_e, take_c, hdr[2], cnt16, pairs, rows[2*Sp]; dims: Sp, Ep, M, cap
-int compact_takes_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 6) return (int)cudaErrorInvalidValue;
-  const int Sp = d[0];
-  int* rows = (int*)p[5];
-  compact_takes_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
-      (const int*)p[0], (const int*)p[1], (int*)p[2], (int*)p[3], (unsigned*)p[4],
-      rows, rows + Sp, Sp, d[1], d[2], d[3]);
+// K2 + K3, the delta pack. ptrs: take_e [Sp, Ep], take_c [Sp, M], leftover
+// [Sp], c_mask [M, T] (bool), c_zc_bits [M], c_gbits [M, W], c_pool [M],
+// used, buf (the fetch buffer, then its scratch: solver/cuda/ffd.py
+// pack_delta_words); dims: Sp, Ep, M, T, W, cap, cap_u, the cluster's CTAs
+// (1, 2, 4, 8 or 16: fewer where the card holds no such cluster), the
+// hash's bits (64; 2 only for chip_smoke.py's check of the walk), buf's words
+int pack_delta_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 9) return (int)cudaErrorInvalidValue;
+  const int Sp = d[0], Ep = d[1], M = d[2], T = d[3], W = d[4], cap = d[5], cap_u = d[6];
+  const int hb = d[8];
+  int cl = d[7];
+  if (Sp < 2 || Sp % 2 || M < 2 || M % 2 || Ep < 0 || T < 1 || W < 0 || cap < 1 || cap_u < 1 ||
+      cl < 1 || cl > MAX_CL || (cl & (cl - 1)) || (hb != 64 && hb != 2))
+    return (int)cudaErrorInvalidValue;
+  const int Wm = (T + 31) / 32, Wt = Wm + 1 + W + 1, NWd = (Ep + M + 31) / 32;
+  const long long out_words = 3 + Sp / 2 + (long long)cap + Sp + (long long)cap_u * Wt + M / 2 + 1;
+  int S = 64;
+  while (S < 2 * M) S <<= 1;
+  const long long o_meta = (out_words + 3) & ~3ll, o_hash = (o_meta + (long long)M * Wt + 3) & ~3ll;
+  const long long o_tkey = o_hash + 2ll * M, o_thead = o_tkey + 2ll * S, o_rank = o_thead + S;
+  if (o_rank + M > (long long)d[9]) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  void (*kern)(PackArgs) = hb == 2 ? &pack_delta_kernel<2> : &pack_delta_kernel<64>;
+  static int max_cl[MAX_DEVICES][2];  // the widest cluster the card holds, per instance
+  int& mc = max_cl[dev][hb == 2];
+  if (mc == 0) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, PACK_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    int f16 = 0, f8 = 0;
+    if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) !=
+            cudaSuccess ||
+        pack_cluster_fit(kern, 16, &f16) != cudaSuccess)
+      f16 = 0;
+    (void)cudaGetLastError();  // a refused size-16 query is an answer, not a fault
+    e = pack_cluster_fit(kern, 8, &f8);
+    if (e != cudaSuccess) return (int)e;
+    if (f16 < 1 && f8 < 1) return (int)cudaErrorInvalidConfiguration;
+    mc = f16 >= 1 ? 16 : 8;
+  }
+  cl = std::min(cl, mc);
+  // a CTA's claim rows (20 B each) and run rows (4 B) must fit its shared memory
+  auto rows_of = [](int n, int c) { return ((n + c - 1) / c + 1) & ~1; };
+  while (cl < mc && 20ll * rows_of(M, cl) + 4ll * rows_of(Sp, cl) > PACK_SMEM) cl *= 2;
+  int* buf = (int*)p[8];
+  PackArgs a;
+  a.take_e = (const int*)p[0];
+  a.take_c = (const int*)p[1];
+  a.leftover = (const int*)p[2];
+  a.c_mask = (const unsigned char*)p[3];
+  a.c_zc = (const unsigned*)p[4];
+  a.c_gbits = (const unsigned*)p[5];
+  a.c_pool = (const int*)p[6];
+  a.used = (const int*)p[7];
+  a.out = buf;
+  a.meta = (unsigned*)(buf + o_meta);
+  a.hash = (unsigned long long*)(buf + o_hash);
+  a.tkey = (unsigned long long*)(buf + o_tkey);
+  a.thead = buf + o_thead;
+  a.rank = buf + o_rank;
+  a.Sp = Sp;
+  a.Ep = Ep;
+  a.M = M;
+  a.T = T;
+  a.W = W;
+  a.Wm = Wm;
+  a.Wt = Wt;
+  a.cap = cap;
+  a.cap_u = cap_u;
+  a.S = S;
+  a.rows_c = rows_of(Sp, cl);
+  a.claims_c = rows_of(M, cl);
+  const long long rows_bytes = 20ll * a.claims_c + 4ll * a.rows_c;
+  const long long stash_bytes = 4ll * a.rows_c * NWd;
+  a.stash = rows_bytes + stash_bytes <= PACK_SMEM;
+  a.t16 = T % 16 == 0 && (uintptr_t)p[3] % 16 == 0;
+  const long long dyn = a.stash ? rows_bytes + stash_bytes : rows_bytes;
+  if (dyn > PACK_SMEM) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)dyn;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// ptrs: c_mask, c_zc_bits, c_gbits, c_pool, hdr[2], uniq, mid16, meta,
-// first[2*M]; dims: M, T, W, cap_u
-int claim_meta_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 9) return (int)cudaErrorInvalidValue;
-  const int M = d[0], T = d[1], W = d[2], cap_u = d[3];
-  const int Wm = (T + 31) / 32, Wt = Wm + 1 + W + 1;
-  cudaStream_t st = (cudaStream_t)stream;
-  unsigned* meta = (unsigned*)p[7];
-  int* first = (int*)p[8];
-  meta_pack_kernel<<<M, MT, 0, st>>>((const unsigned char*)p[0], (const unsigned*)p[1],
-                                     (const unsigned*)p[2], (const int*)p[3], meta, T, W, Wm, Wt);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  meta_first_kernel<<<M, MT, 0, st>>>(meta, first, Wt);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  meta_finish_kernel<<<1, NT, 0, st>>>(meta, first, first + M, (int*)p[4], (unsigned*)p[5],
-                                       (int*)p[6], M, Wt, cap_u);
+// the wide re-fetch's type-mask words. ptrs: c_mask [M, T] (bool), out
+// [M, ceil(T/32)]; dims: M, T
+int mask_words_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 2 || d[0] < 0 || d[1] < 1) return (int)cudaErrorInvalidValue;
+  const int M = d[0], T = d[1];
+  if (M == 0) return 0;
+  const int t16 = T % 16 == 0 && (uintptr_t)p[0] % 16 == 0;
+  mask_words_kernel<<<(M + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
+      (const unsigned char*)p[0], (unsigned*)p[1], M, T, (T + 31) / 32, t16);
   return (int)cudaGetLastError();
 }
 

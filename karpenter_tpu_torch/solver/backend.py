@@ -21,7 +21,7 @@ scan's sparse twin (ffd_solve_ckpt_sparse, ffd_resume_sparse, ...). "on"
 takes it for any fleet with Q + V > 0, "off" never; decisions are the
 same. `device_decode=False`, and any shape past the uint16 delta coding,
 fetch the dense output pack (cuda/ffd.py pack_outputs) instead of the
-delta compaction, as the JAX backend's `_pack_outputs`.
+delta pack (cuda/ffd.py pack_delta), as the JAX backend's `_pack_outputs`.
 
 Respect-mode preferences (ScheduleAnyway spreads, weighted pod
 (anti-)affinity, preferred node affinity; solver/relax.py) solve through
@@ -483,44 +483,26 @@ def delta_uniq_capacity(Sp: int, Mb: int) -> int:
 
 def _pack_outputs_delta(out, cap: int, cap_u: int) -> torch.Tensor:
     """ONE int32 device buffer: header [overflow, n, n_u], per-run entry
-    counts, (code, count) entries (compact_takes), leftovers, the deduped
-    claim identity rows and their ids (compact_claim_meta), and `used`.
-    c_cum never crosses; the host rebuilds it from the entries."""
-    from .cuda.ffd import compact_claim_meta, compact_takes
+    counts, (code, count) entries, leftovers, the deduped claim identity
+    rows and their ids, and `used` (cuda/ffd.py pack_delta: one launch on
+    the card). c_cum never crosses; the host rebuilds it from the entries."""
+    from .cuda.ffd import pack_delta
 
-    st = out.state
-    overflow_t, n, cnt16, pairs = compact_takes(out.take_e, out.take_c, cap)
-    overflow_u, n_u, uniq, mid16, _meta = compact_claim_meta(
-        st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, cap_u
-    )
-    parts = [
-        (overflow_t | overflow_u).reshape(1),
-        n.reshape(1),
-        n_u.reshape(1),
-        cnt16.reshape(-1),
-        pairs.reshape(-1),
-        out.leftover.reshape(-1),
-        uniq.reshape(-1),
-        mid16.reshape(-1),
-        st.used.reshape(1),
-    ]
-    return torch.cat(parts)
+    return pack_delta(out.take_e, out.take_c, out.leftover, out.state, cap, cap_u)
 
 
 def _pack_outputs_wide(out) -> torch.Tensor:
     """Full-width int32 packing — the overflow fallback of the delta pack.
-    The type-mask words come from the claim-meta kernel's word pack."""
-    from .cuda.ffd import compact_claim_meta
+    The type-mask words come from the delta pack's word stage
+    (cuda/ffd.py pack_mask_words)."""
+    from .cuda.ffd import pack_mask_words
 
     st = out.state
-    M, Tp = st.c_mask.shape
-    Wm = (Tp + 31) // 32
-    meta = compact_claim_meta(st.c_mask, st.c_zc_bits, st.c_gbits, st.c_pool, 16)[4]
     parts = [
         out.take_e.reshape(-1),
         out.take_c.reshape(-1),
         out.leftover.reshape(-1),
-        meta[:, :Wm].reshape(-1),
+        pack_mask_words(st.c_mask).reshape(-1),
         st.c_zc_bits.reshape(-1),
         st.c_gbits.reshape(-1),
         st.c_pool.reshape(-1),
@@ -746,8 +728,8 @@ class TorchSolver(Solver):
         if sparse not in ("auto", "on", "off"):
             raise ValueError(f"sparse must be auto/on/off, got {sparse!r}")
         self.sparse = sparse
-        # the claim-delta fetch (compact_takes + claim_meta); False = the
-        # dense output pack
+        # the claim-delta fetch (cuda/ffd.py pack_delta); False = the dense
+        # output pack
         self.device_decode = bool(device_decode)
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():

@@ -43,7 +43,7 @@ INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
 # same arguments; the budgets ignore them, the cluster queries and admm_info write into the
 # host buffer ptrs[0]; the lanes' cluster queries read B from dims[0])
 LAUNCHERS = {
-    "ffd_kernels": ("ffd_scan_launch", "compact_takes_launch", "claim_meta_launch",
+    "ffd_kernels": ("ffd_scan_launch", "pack_delta_launch", "mask_words_launch",
                     "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
                     "ffd_ckpt_launch", "pack_outputs_launch", "ffd_rows_budget",
                     "ffd_cluster_info", "floordiv_check_launch", "cluster_barrier_launch"),

@@ -241,8 +241,11 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # <true>), one per launch (one per physical device of the mesh); sharded_ffd
 # counts the K4 launches of the candidate-sharded consolidation
 # (consolidate._sharded_ffd, K18), one per physical device of its mesh.
+# pack_delta is the delta pack (K2 + K3, pack_delta_kernel: the claim-delta
+# fetch buffer, one launch a delta-fetch solve); mask_words is its word
+# stage alone, for the wide re-fetch.
 LAUNCHES = {
-    "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "compact_takes": 0, "claim_meta": 0,
+    "ffd_fast_scan": 0, "ffd_zoned_scan": 0, "pack_delta": 0, "mask_words": 0,
     "ffd_lanes_fast_scan": 0, "ffd_lanes_zoned_scan": 0, "apply_events": 0,
     "ffd_batched_fast_scan": 0, "ffd_batched_zoned_scan": 0, "pack_verdicts": 0,
     "ffd_ladder_fast_scan": 0, "ffd_ladder_zoned_scan": 0,
@@ -1536,6 +1539,36 @@ def compact_claim_meta_plain(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
     return overflow_u, n_u, uniq, mid16, meta
 
 
+def pack_delta_words(Sp: int, M: int, cap: int, cap_u: int, Wt: int) -> int:
+    """int32 words of the delta pack's fetch buffer (pack_delta_plain):
+    [overflow, n, n_u], cnt16 [Sp/2], pairs [cap], leftover [Sp], uniq
+    [cap_u, Wt], mid16 [M/2], used."""
+    return 3 + Sp // 2 + cap + Sp + cap_u * Wt + M // 2 + 1
+
+
+def pack_delta_plain(take_e, take_c, leftover, state: FFDState, cap: int, cap_u: int):
+    """Plain version of the JAX `_pack_outputs_delta` (backend.py:635): ONE
+    int32 buffer [overflow_t | overflow_u, n, n_u, cnt16, pairs, leftover,
+    uniq, mid16, used] from compact_takes_plain and compact_claim_meta_plain
+    (pack_delta_words words). The host rebuilds c_cum from the entries."""
+    overflow_t, n, cnt16, pairs = compact_takes_plain(take_e, take_c, cap)
+    overflow_u, n_u, uniq, mid16, _meta = compact_claim_meta_plain(
+        state.c_mask, state.c_zc_bits, state.c_gbits, state.c_pool, cap_u
+    )
+    parts = [
+        (overflow_t | overflow_u).reshape(1),
+        n.reshape(1),
+        n_u.reshape(1),
+        cnt16.reshape(-1),
+        pairs.reshape(-1),
+        leftover.reshape(-1),
+        uniq.reshape(-1),
+        mid16.reshape(-1),
+        state.used.reshape(1),
+    ]
+    return torch.cat(parts)
+
+
 def pack_words(Sp: int, Ep: int, M: int, T: int, Wg: int, R: int) -> int:
     """int32 words of the dense output pack (pack_outputs_plain)."""
     return (1 + (Sp * Ep + 1) // 2 + (Sp * M + 1) // 2 + Sp
@@ -2021,54 +2054,81 @@ def _ffd_scan_ckpt_cuda(init_state, *args, max_claims: int, zone_engine: bool,
     return out, ring
 
 
-def _compact_takes_cuda(take_e, take_c, cap: int):
+MAX_PACK_CL = 16  # the widest cluster of the delta pack (csrc/ffd_kernels.cu MAX_CL)
+PACK_CTA_BYTES = 64 * 1024  # input bytes a CTA of the delta pack takes, about
+
+
+def pack_delta_cluster(Sp: int, Ep: int, M: int, T: int) -> int:
+    """The delta pack's CTAs a launch: the smallest power of two whose CTAs
+    each read about PACK_CTA_BYTES of the take grid and the type mask, at
+    most MAX_PACK_CL (the launcher takes 8 where the card holds no cluster
+    of 16)."""
+    need = 4 * Sp * (Ep + M) + M * T
+    cl = 1
+    while cl < MAX_PACK_CL and cl * PACK_CTA_BYTES < need:
+        cl *= 2
+    return cl
+
+
+def pack_delta_scratch(out_words: int, M: int, Wt: int) -> int:
+    """Words of the delta pack's allocation: the fetch buffer, then the
+    kernel's scratch (csrc/ffd_kernels.cu pack_delta_launch lays it out):
+    the claim rows [M, Wt], their hashes [M] (uint64), the hash table (S
+    uint64 keys and S lowest claims, S the power of two >= max(64, 2M))
+    and the ranks [M]."""
+    S = 64
+    while S < 2 * M:
+        S *= 2
+    o_meta = (out_words + 3) & ~3
+    o_hash = (o_meta + M * Wt + 3) & ~3
+    return o_hash + 2 * M + 3 * S + M
+
+
+def _pack_delta_cuda(take_e, take_c, leftover, state: FFDState, cap: int, cap_u: int,
+                     hash_bits: int = 64, cl: int | None = None) -> torch.Tensor:
+    """The delta pack in one launch (pack_delta_kernel<hash_bits>). One
+    allocation holds the fetch buffer and the kernel's scratch; the buffer
+    is returned as a view of it. `hash_bits` 2 (a test instance) and `cl`
+    (the cluster's CTAs) are for chip_smoke.py's checks."""
     from .build import load
 
     Sp, Ep = take_e.shape
-    M = take_c.shape[1]
-    _check(take_e, "take_e", I32)
-    _check(take_c, "take_c", I32, (Sp, M))
-    if Sp % 2:
-        raise ValueError(f"compact_takes: Sp={Sp} must be even")
-    dev = take_e.device
-    hdr = torch.empty((2,), dtype=I32, device=dev)
-    cnt16 = torch.empty((Sp // 2,), dtype=I32, device=dev)
-    pairs = torch.empty((cap,), dtype=I32, device=dev)
-    rows = torch.empty((2 * Sp,), dtype=I32, device=dev)
-    rc = load().compact_takes_launch(
-        _ptrs([take_e, take_c, hdr, cnt16, pairs, rows]), 6,
-        _ints([Sp, Ep, M, cap]), _stream(),
-    )
-    _raise_on(rc, "compact_takes")
-    LAUNCHES["compact_takes"] += 1
-    return hdr[0], hdr[1], cnt16, pairs
+    M, T = state.c_mask.shape
+    W = state.c_gbits.shape[1]
+    for t, n, dt, sh in ((take_e, "take_e", I32, (Sp, Ep)), (take_c, "take_c", I32, (Sp, M)),
+                         (leftover, "leftover", I32, (Sp,)),
+                         (state.c_mask, "c_mask", torch.bool, (M, T)),
+                         (state.c_zc_bits, "c_zc_bits", I32, (M,)),
+                         (state.c_gbits, "c_gbits", I32, (M, W)),
+                         (state.c_pool, "c_pool", I32, (M,)), (state.used, "used", I32, ())):
+        _check(t, n, dt, sh)
+    if Sp % 2 or M % 2:
+        raise ValueError(f"pack_delta: Sp={Sp} and M={M} must be even")
+    Wt = (T + 31) // 32 + 1 + W + 1
+    words = pack_delta_words(Sp, M, cap, cap_u, Wt)
+    buf = torch.empty((pack_delta_scratch(words, M, Wt),), dtype=I32, device=take_e.device)
+    if cl is None:
+        cl = pack_delta_cluster(Sp, Ep, M, T)
+    ptrs = [take_e, take_c, leftover, state.c_mask, state.c_zc_bits, state.c_gbits,
+            state.c_pool, state.used, buf]
+    rc = load().pack_delta_launch(_ptrs(ptrs), len(ptrs),
+                                  _ints([Sp, Ep, M, T, W, cap, cap_u, cl, hash_bits, buf.numel()]),
+                                  _stream())
+    _raise_on(rc, "pack_delta")
+    LAUNCHES["pack_delta"] += 1
+    return buf[:words]
 
 
-def _claim_meta_cuda(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
+def _mask_words_cuda(c_mask) -> torch.Tensor:
     from .build import load
 
     M, T = c_mask.shape
-    W = c_gbits.shape[1]
     _check(c_mask, "c_mask", torch.bool)
-    _check(c_zc_bits, "c_zc_bits", I32, (M,))
-    _check(c_gbits, "c_gbits", I32, (M, W))
-    _check(c_pool, "c_pool", I32, (M,))
-    if M % 2:
-        raise ValueError(f"claim_meta: M={M} must be even")
-    Wt = (T + 31) // 32 + 1 + W + 1
-    dev = c_mask.device
-    hdr = torch.empty((2,), dtype=I32, device=dev)
-    uniq = torch.empty((cap_u, Wt), dtype=I32, device=dev)
-    mid16 = torch.empty((M // 2,), dtype=I32, device=dev)
-    meta = torch.empty((M, Wt), dtype=I32, device=dev)
-    first = torch.empty((2 * M,), dtype=I32, device=dev)
-    rc = load().claim_meta_launch(
-        _ptrs([c_mask, c_zc_bits, c_gbits, c_pool, hdr, uniq, mid16, meta, first]), 9,
-        _ints([M, T, W, cap_u]), _stream(),
-    )
-    _raise_on(rc, "claim_meta")
-    LAUNCHES["claim_meta"] += 1
-    return hdr[0], hdr[1], uniq, mid16, meta
+    out = torch.empty((M, (T + 31) // 32), dtype=I32, device=c_mask.device)
+    rc = load().mask_words_launch(_ptrs([c_mask, out]), 2, _ints([M, T]), _stream())
+    _raise_on(rc, "mask_words")
+    LAUNCHES["mask_words"] += 1
+    return out
 
 
 def _pack_outputs_cuda(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:
@@ -2200,15 +2260,33 @@ def ffd_solve_ladder_sparse(run_ladder, run_q_idx, run_v_idx, *args, max_claims:
 
 
 def compact_takes(take_e, take_c, cap: int):
+    """K2's part of the delta pack on its own: the plain version on the
+    CPU; on the card it runs only inside pack_delta."""
     if take_e.is_cuda:
-        return _compact_takes_cuda(take_e, take_c, cap)
+        raise ValueError("compact_takes: on the card the takes are packed by pack_delta")
     return compact_takes_plain(take_e, take_c, cap)
 
 
 def compact_claim_meta(c_mask, c_zc_bits, c_gbits, c_pool, cap_u: int):
+    """K3's part of the delta pack on its own: the plain version on the
+    CPU; on the card it runs only inside pack_delta."""
     if c_mask.is_cuda:
-        return _claim_meta_cuda(c_mask, c_zc_bits, c_gbits, c_pool, cap_u)
+        raise ValueError("compact_claim_meta: on the card the claim rows are packed by pack_delta")
     return compact_claim_meta_plain(c_mask, c_zc_bits, c_gbits, c_pool, cap_u)
+
+
+def pack_delta(take_e, take_c, leftover, state: FFDState, cap: int, cap_u: int) -> torch.Tensor:
+    """The delta pack: the claim-delta fetch buffer (see pack_delta_plain)."""
+    if take_e.is_cuda:
+        return _pack_delta_cuda(take_e, take_c, leftover, state, cap, cap_u)
+    return pack_delta_plain(take_e, take_c, leftover, state, cap, cap_u)
+
+
+def pack_mask_words(c_mask) -> torch.Tensor:
+    """[M, T] bool -> [M, ceil(T/32)] int32 words (pack_mask_words_plain)."""
+    if c_mask.is_cuda:
+        return _mask_words_cuda(c_mask)
+    return pack_mask_words_plain(c_mask)
 
 
 def pack_outputs(take_e, take_c, leftover, state: FFDState) -> torch.Tensor:

@@ -11,6 +11,7 @@ The JAX side keeps to one compile bucket per entry point: default catalog
 """
 
 import random
+import types
 
 import numpy as np
 import pytest
@@ -161,7 +162,17 @@ def test_compact_claim_meta_matches_jax(case):
 
 def test_kernel_entry_points_refuse_cpu_launch():
     """The CUDA wrappers take CUDA tensors only; a CPU tensor never reaches
-    them (ffd_solve and friends route it to the plain version)."""
+    them (ffd_solve and friends route it to the plain version). The delta
+    pack's takes go to the card through pack_delta (K2 and K3 in one
+    launch)."""
     te, tc = _random_takes(1)
+    Sp, Mc = tc.shape
+    state = types.SimpleNamespace(
+        c_mask=torch.zeros((Mc, 40), dtype=torch.bool), c_zc_bits=torch.zeros(Mc, dtype=torch.int32),
+        c_gbits=torch.zeros((Mc, 1), dtype=torch.int32), c_pool=torch.zeros(Mc, dtype=torch.int32),
+        used=torch.tensor(0, dtype=torch.int32))
     with pytest.raises(ValueError):
-        tffd._compact_takes_cuda(torch.from_numpy(te), torch.from_numpy(tc), 256)
+        tffd._pack_delta_cuda(torch.from_numpy(te), torch.from_numpy(tc),
+                              torch.zeros(Sp, dtype=torch.int32), state, 256, 16)
+    with pytest.raises(ValueError):
+        tffd._mask_words_cuda(state.c_mask)
