@@ -72,10 +72,12 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    2d), K7 (ffd_ckpt_fast_scan at the surge with a snapshot every 16 and
    every 4 steps, ffd_ckpt_zoned_scan at config 3) is held against its plain
    version in every output, ring slot and prefix, against K1's outputs and
-   through a resume from its ring; K8 (arena_unpack) against its plain
-   version byte for byte on the cells' cold adopts, the config-5
-   universe's, and seeded adversarial segment lists (odd-sized bools ahead
-   of int32/uint32 entries, bool bytes 2..255). Phase 3 runs TorchSolver()
+   through a resume from its ring; K8 (arena_unpack, through its cached
+   plan into one block a call) against its plain version byte for byte on
+   the cells' cold adopts, the config-5 universe's, and seeded adversarial
+   segment lists (odd-sized bools ahead of int32/uint32 entries, bool
+   bytes 2..255), every output a 256-byte-aligned view into the call's one
+   allocation, none overlapping. Phase 3 runs TorchSolver()
    at these defaults (its warm solves are zero-upload exact hits) and one
    arena=False solver (K1) on surge_e2e and config 3, held to the same
    decisions; it prints the transfer ledger.
@@ -230,9 +232,13 @@ nodes and 2 000 candidates) runs through the port's
 BatchedConsolidationEvaluator(TorchSolver()) as bench.py's bench_config5
 drives it (config5_phase): the prefix search must find k >= 100 in <= 2
 batched dispatches, equal to the sequential replay; K4 (the batched scan,
-both instances) and K5 (the verdict pack) are held against their plain
-versions, with rows that saturate the claim slots; the universe adopts into
-the solver's arena, and a second prepare uploads nothing.
+both instances, on the team its launch picks and forced onto every team:
+one cluster of 2, 4, 8 or 16 CTAs a row, one CTA a row) and K5 (the
+verdict pack) are held against their plain versions on the search's two
+dispatches and on small fleets, with rows that saturate the claim slots;
+row 14a reports each shape's team, its occupancy-query blocks a SM and
+waves; the universe adopts into the solver's arena, and a second prepare
+uploads nothing.
 
 Usage: python3 chip_smoke.py   (no arguments; the sizes below are fixed)
        python3 chip_smoke.py --phase 10   (phase 10 alone, its references
@@ -1512,6 +1518,33 @@ def profiled_ms(fn, n: int, names, tries: int = 3):
     return sum(whole) / len(whole) / 1e3 if whole else None
 
 
+def profiled_sum_ms(fn, n: int, name: str, tries: int = 3):
+    """Device time per call (ms) of the kernels whose name holds `name`
+    (their durations summed in a trace), from torch.profiler traces of one
+    call each: the median over the first n traces that hold any, of at most
+    n * tries, or None (not measured) when none does."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    sums = []
+    for _ in range(n * tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name)
+        if us > 0:
+            sums.append(us)
+            if len(sums) == n:
+                break
+    return statistics.median(sums) / 1e3 if sums else None
+
+
 def scan_cost(ph):
     """K1's floor on work and traffic for `ph`'s solve: inputs read once and
     outputs written once; integer ops of this run's data: (sub, floor-div,
@@ -1932,12 +1965,14 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
 # K1 / K7 and their sparse twins are ffd_cluster_kernel<ZONE, CKPT, SPARSE>,
 # K6 / K6s ffd_ladder_kernel<ZONE, SPARSE> (one cluster a solve), K15 / K17
 # ffd_lanes_kernel<ZONE> and K17s ffd_lanes_sparse_kernel<ZONE> (one cluster
-# a lane); the one-block batched scan K4 ffd_scan_kernel<ZONE>
+# a lane); the batched scan K4 ffd_batched_kernel<ZONE, MANY> (one
+# cluster a row, or one CTA a row: MANY; entries 5 and 6 match the fast and
+# the zoned instances of either team, 34-37 name them)
 KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "ffd_cluster_kernel<true, false, false>",
                 "pack_delta_kernel<64>", "pack_delta_kernel<2>", "mask_words_kernel",
-                "ffd_scan_kernel<false>",
-                "ffd_scan_kernel<true>", "pack_verdicts_kernel",
+                "ffd_batched_kernel<false,",
+                "ffd_batched_kernel<true,", "pack_verdicts_kernel",
                 "ffd_ladder_kernel<false, false>", "ffd_ladder_kernel<true, false>",
                 "ffd_cluster_kernel<false, true, false>",
                 "ffd_cluster_kernel<true, true, false>", "arena_unpack_kernel",
@@ -1958,7 +1993,11 @@ KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "apply_events_kernel", "pad_lanes_kernel",
                 "ffd_lanes_sparse_kernel<false>", "ffd_lanes_sparse_kernel<true>",
                 # the preemption walk (32: one block, 33: a cluster)
-                "preempt_walk_kernel<false>", "preempt_walk_kernel<true>")
+                "preempt_walk_kernel<false>", "preempt_walk_kernel<true>",
+                # the batched scan's instances (34-37: fast one cluster a
+                # row, fast one CTA a row, zoned, zoned)
+                "ffd_batched_kernel<false, false>", "ffd_batched_kernel<false, true>",
+                "ffd_batched_kernel<true, false>", "ffd_batched_kernel<true, true>")
 # phase 3: TorchSolver() at its defaults (K7, K7s on the sparse-gated cells,
 # the delta pack; its uploads are exact hits after the warm-up), one arena=False
 # solver (K1 and K1s in both instances) and one device_decode=False solver
@@ -2131,7 +2170,7 @@ class PlainOnCard:
         ffd._ffd_solve_ladder_cuda = ffd.ffd_solve_ladder_plain
         ffd._ffd_scan_ckpt_cuda = ckpt_plain
         ffd._pack_outputs_cuda = ffd.pack_outputs_plain
-        arena._unpack_cuda = arena.unpack_plain
+        arena._unpack_cuda = arena._unpack_plain_block
         ffd._gang_commit_cuda = ffd.gang_commit_plain
         ffd._preemption_plan_cuda = ffd.preemption_plan_plain
         ffd._preemption_walk_cuda = ffd.preemption_walk_plain
@@ -2240,8 +2279,31 @@ def batched_scan_cost(args, rows, out, zone: bool):
     return in_bytes + nbytes(*outputs), ops
 
 
+BATCH_TEAMS = (1, 2, 4, 8, 16)  # every team K4's launch can take: CTAs a row
+
+
+def batched_team_errs(args, drows, M: int, zone: bool, want, sel=None) -> dict:
+    """K4 forced onto every team of BATCH_TEAMS against `want` (outputs on
+    the rows `sel`, or on every row): {team: max |d|}, each asserted 0."""
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import consolidate as cons
+
+    errs = {}
+    for cl in BATCH_TEAMS:
+        o = cons._batched_ffd_cuda(args, *drows, M, zone, team=cl)
+        torch.cuda.synchronize()
+        got = [o.leftover, o.events, *o.state]
+        if sel is not None:
+            got = [g[sel] for g in got]
+        errs[cl] = max_abs_err(got, want)
+        assert errs[cl] == 0, f"K4 on a team of {cl} CTAs a row disagrees (max |d| {errs[cl]})"
+    return errs
+
+
 def small_batched_check(inp, M: int, seed: int, dev, subsets=None):
-    """K4 (the instance the universe picks) and K5 against their plain
+    """K4 (the instance the universe picks, on the team its launch picks
+    and forced onto every team of BATCH_TEAMS) and K5 against their plain
     versions (run on CPU copies of the same inputs: at these shapes the
     plain loop is faster there) on every row of one small batch (`subsets`,
     or small_subsets' at least 9 rows)."""
@@ -2258,17 +2320,21 @@ def small_batched_check(inp, M: int, seed: int, dev, subsets=None):
     subs = small_subsets(len(cnode), seed) if subsets is None else subsets
     rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, subs, prep.node_idx,
                             prep.v_delta, prep.v_count0_host)
-    out = cons.batched_ffd(prep.args, *cons.upload_rows(rows, dev), M, zone)
+    drows = cons.upload_rows(rows, dev)
+    out = cons.batched_ffd(prep.args, *drows, M, zone)
     flat = cons.pack_verdicts(out)
     torch.cuda.synchronize()
     cpu_args = tuple(a.cpu() for a in prep.args)
     plain = cons.batched_ffd_plain(cpu_args, *cons.upload_rows(rows, "cpu"), M, zone)
-    err4 = max_abs_err([out.leftover, out.events, *out.state],
-                       [plain.leftover, plain.events, *plain.state])
+    want = [plain.leftover, plain.events, *plain.state]
+    err4 = max_abs_err([out.leftover, out.events, *out.state], want)
     err5 = max_abs_err([flat], [cons.pack_verdicts_plain(plain)])
+    err_teams = batched_team_errs(prep.args, drows, M, zone, [w.to(dev) for w in want])
     used = out.state.used.cpu()
-    return dict(zone=zone, err4=err4, err5=err5, rows=len(used), saturated=int((used >= M).sum()),
-                events=int(out.events.sum()), prep=prep, rows_host=rows, out=out, M=M)
+    return dict(zone=zone, err4=err4, err5=err5, err_teams=err_teams, rows=len(used),
+                team=cons.batched_team_info(prep.args, len(used), zone)["cl"],
+                saturated=int((used >= M).sum()), events=int(out.events.sum()), prep=prep,
+                rows_host=rows, out=out, M=M)
 
 
 def config5_phase(dev, ops_per_s: float) -> dict:
@@ -2318,7 +2384,8 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     from karpenter_tpu_torch.solver.backend import host_kernel_args
 
     u_args = host_kernel_args(enc, TorchSolver._bucket)[0]
-    universe["k8"] = {k: v for k, v in unpack_check(u_args, dev).items() if k in ("nbytes", "segments", "err")}
+    universe["k8"] = {k: v for k, v in unpack_check(u_args, dev).items()
+                      if k in ("nbytes", "segments", "err", "allocations", "block_bytes")}
     zone_fleets = fleets_with_nodes(build_zone_input, 4)
     zone_preps = []
     for seed, zinp in zone_fleets:
@@ -2328,10 +2395,21 @@ def config5_phase(dev, ops_per_s: float) -> dict:
         zone_preps.append((zev, zp, len(zinp.nodes)))
 
     # ---- the main path, launch counts reset just before ---------------------
+    # (the first search's dispatches are recorded: their subsets, as the
+    # evaluator received them)
+    calls = []
+    real_eval = ev.evaluate_prepared
+
+    def recording(p, subsets):
+        calls.append([list(x) for x in subsets])
+        return real_eval(p, subsets)
+
+    ev.evaluate_prepared = recording
     reset_launches()
     t0 = time.perf_counter()
     k_best, dispatches, n_probed, seq = _prefix_search(ev, prep, CONFIG5_CANDIDATES)
     first_s = time.perf_counter() - t0
+    ev.evaluate_prepared = real_eval
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -2389,11 +2467,35 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     assert err4 == 0, f"ffd_batched_fast_scan disagrees with its plain version (max |d| {err4})"
     err5 = max_abs_err([flat], [cons.pack_verdicts_plain(out)])
     assert err5 == 0, f"pack_verdicts disagrees with its plain version (max |d| {err5})"
+    # every team the launch can take, on every row, against the outputs of
+    # the team it took (held to the plain version on the sample above)
+    err_teams = batched_team_errs(prep.args, drows, M, False,
+                                  [out.leftover, out.events, *out.state])
     used = out.state.used.cpu()
     lo_tot = out.leftover.sum(dim=1).cpu()
+    team4 = cons.batched_team_info(prep.args, Bp, False)
     print(f"config5 check: rows={Bp} sample={len(sample)} max_abs_err=({err4}, {err5}) "
+          f"teams={err_teams} team={team4['cl']} ({team4['shape']}) "
           f"plain_sample_s={plain_sample_s:.2f} used_max={int(used.max())} "
           f"rows_with_leftover={int((lo_tot > 0).sum())}", flush=True)
+    # the search's second dispatch (its real rows and bucket): every row
+    # against the plain version, on the team the launch takes and on every
+    # team
+    assert len(calls) == dispatches == 2, (len(calls), dispatches)
+    rows2 = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, calls[1], prep.node_idx,
+                             prep.v_delta, prep.v_count0_host)
+    drows2 = cons.upload_rows(rows2, dev)
+    B2 = int(rows2[0].shape[0])
+    out2 = cons.batched_ffd(prep.args, *drows2, M, False)
+    plain2 = cons.batched_ffd_plain(prep.args, *drows2, M, False)
+    torch.cuda.synchronize()
+    want2 = [plain2.leftover, plain2.events, *plain2.state]
+    err4_2 = max_abs_err([out2.leftover, out2.events, *out2.state], want2)
+    assert err4_2 == 0, f"K4 disagrees with its plain version on the second dispatch ({err4_2})"
+    err_teams2 = batched_team_errs(prep.args, drows2, M, False, want2)
+    team4_2 = cons.batched_team_info(prep.args, B2, False)
+    print(f"config5 second dispatch: rows={len(calls[1])} bucket={B2} max_abs_err={err4_2} "
+          f"teams={err_teams2} team={team4_2['cl']} ({team4_2['shape']})", flush=True)
 
     # small fleets with saturating rows (M=2) and M=16: the fast instance on
     # the hostname-constrained fleets, the zoned one on the zone fleets
@@ -2408,7 +2510,8 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     for zone_expected in (False, True):
         assert any(r["saturated"] for r in small if r["zone"] == zone_expected and r["M"] == 2), \
             "no small-fleet row saturated its claim slots"
-    print(f"small batched fleets: {len(small)} batches max_abs_err=(0, 0) saturated_rows="
+    print(f"small batched fleets: {len(small)} batches max_abs_err=(0, 0) on teams "
+          f"{BATCH_TEAMS} and the picked ones {sorted({r['team'] for r in small})} saturated_rows="
           f"{[r['saturated'] for r in small]} events={[r['events'] for r in small]}", flush=True)
 
     # ---- per-dispatch host split and transfer bytes (the 511-row dispatch) --------
@@ -2442,23 +2545,30 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     assert fetched[0].shape[0] == len(subsets)
 
     # ---- kernel rows ----------------------------------------------------------------
-    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu"
+    src = "karpenter_tpu_torch/csrc/ffd_kernels.cu (ffd_batched_kernels.cu, FFD_BATCHED_ONLY)"
     ms4 = time_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 5)
-    dev4 = profiled_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 3,
-                       (KERNEL_NAMES[5],))
+    dev4 = profiled_sum_ms(lambda: cons.batched_ffd(prep.args, *drows, M, False), 3,
+                           KERNEL_NAMES[5])
     t0 = time.perf_counter()
     cons.batched_ffd_plain(prep.args, *drows, M, False)
     torch.cuda.synchronize()
     plain4 = (time.perf_counter() - t0) * 1e3
     bytes4, ops4 = batched_scan_cost(prep.args, rows, out, False)
     b4, by4 = bound(bytes4, ops4, ops_per_s)
+    ms4_2 = time_ms(lambda: cons.batched_ffd(prep.args, *drows2, M, False), 10)
+    dev4_2 = profiled_sum_ms(lambda: cons.batched_ffd(prep.args, *drows2, M, False), 3,
+                             KERNEL_NAMES[5])
+    plain4_2 = time_ms(lambda: cons.batched_ffd_plain(prep.args, *drows2, M, False), 1)
+    bytes4_2, ops4_2 = batched_scan_cost(prep.args, rows2, out2, False)
+    b4_2, by4_2 = bound(bytes4_2, ops4_2, ops_per_s)
 
     zr = next(r for r in small if r["zone"] and r["M"] == 16)
     zargs, zrows, zM = zr["prep"].args, zr["rows_host"], zr["M"]
     zdrows = cons.upload_rows(zrows, dev)
+    team4z = cons.batched_team_info(zargs, int(zrows[0].shape[0]), True)
     ms4z = time_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 10)
-    dev4z = profiled_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 3,
-                        (KERNEL_NAMES[6],), tries=10)
+    dev4z = profiled_sum_ms(lambda: cons.batched_ffd(zargs, *zdrows, zM, True), 3,
+                            KERNEL_NAMES[6], tries=10)
     plain4z = time_ms(lambda: cons.batched_ffd_plain(zargs, *zdrows, zM, True), 1)
     bytes4z, ops4z = batched_scan_cost(zargs, zrows, zr["out"], True)
     b4z, by4z = bound(bytes4z, ops4z, ops_per_s)
@@ -2471,11 +2581,20 @@ def config5_phase(dev, ops_per_s: float) -> dict:
     ops5 = Bp * (out.leftover.shape[1] + st.c_mask.shape[1] * st.c_mask.shape[2])
     b5, by5 = bound(bytes5, ops5, ops_per_s)
 
-    regs = {k: v.get("registers") for k, v in ptxas_report(build.BUILD_LOG["ptxas"]).items()}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    reg4 = regs.get("ffd_scan_kernel<false>")
-    blocks_per_sm = max(1, min(2048 // 1024, 65536 // (1024 * max(reg4 or 64, 1))))
-    waves = -(-Bp // (sms * blocks_per_sm))
+    ptx = ptxas_report(build.BUILD_LOG["ptxas"])
+
+    def instance(zone: bool, team: dict) -> str:
+        return (f"ffd_batched_kernel<{'true' if zone else 'false'}, "
+                f"{'true' if team['cl'] == 1 else 'false'}>")
+
+    def team_fields(zone: bool, team: dict) -> dict:
+        # the team the launch took, its occupancy-query blocks a SM and the
+        # waves that gives, and ptxas's registers and spills of its instance
+        name = instance(zone, team)
+        return dict(team=team, instance=name, registers=ptx.get(name, {}).get("registers"),
+                    spills=[ptx.get(name, {}).get(k) for k in ("spill_stores", "spill_loads")],
+                    blocks_per_sm=team["blocks_per_sm"], waves=team["waves"])
+
     n_disp = searches * dispatches
     rows_out = [
         dict(name="ffd_batched_fast_scan", route="cuda", source=src,
@@ -2486,7 +2605,17 @@ def config5_phase(dev, ops_per_s: float) -> dict:
              shape=dict(B=Bp, Sp=int(rows[0].shape[1]),
                         Ep=int(prep.args[ffd.ARG_INDEX["node_free"]].shape[0]),
                         M=M, T=int(st.c_mask.shape[2]), NC=int(rows[2].shape[1])),
-             ops=ops4, bytes=bytes4, registers=reg4, blocks_per_sm=blocks_per_sm, waves=waves),
+             ops=ops4, bytes=bytes4, dispatch="first", teams_err=err_teams,
+             **team_fields(False, team4)),
+        dict(name="ffd_batched_fast_scan", route="cuda", source=src,
+             replaces="karpenter_tpu/solver/tpu/consolidate.py:57",
+             launches=launches["ffd_batched_fast_scan"], max_abs_err=err4_2, ms=ms4_2,
+             plain_ms=plain4_2, bound_ms=b4_2, bound_by=by4_2, library_ms=None,
+             match=err4_2 == 0, device_ms=dev4_2,
+             shape=dict(B=B2, rows=len(calls[1]), Sp=int(rows2[0].shape[1]), M=M,
+                        NC=int(rows2[2].shape[1])),
+             ops=ops4_2, bytes=bytes4_2, dispatch="second", teams_err=err_teams2,
+             **team_fields(False, team4_2)),
         dict(name="ffd_batched_zoned_scan", route="cuda", source=src,
              replaces="karpenter_tpu/solver/tpu/consolidate.py:57",
              launches=launches["ffd_batched_zoned_scan"], max_abs_err=zr["err4"], ms=ms4z,
@@ -2494,8 +2623,8 @@ def config5_phase(dev, ops_per_s: float) -> dict:
              match=zr["err4"] == 0, device_ms=dev4z,
              shape=dict(B=int(zrows[0].shape[0]), Sp=int(zrows[0].shape[1]), M=zM,
                         V=int(zrows[1].shape[1]), Z=int(zrows[1].shape[2])),
-             ops=ops4z, bytes=bytes4z, registers=regs.get("ffd_scan_kernel<true>")),
-        dict(name="pack_verdicts", route="cuda", source=src,
+             ops=ops4z, bytes=bytes4z, teams_err=zr["err_teams"], **team_fields(True, team4z)),
+        dict(name="pack_verdicts", route="cuda", source="karpenter_tpu_torch/csrc/ffd_kernels.cu",
              replaces="karpenter_tpu/solver/tpu/consolidate.py:291",
              launches=launches["pack_verdicts"], max_abs_err=err5, ms=ms5, plain_ms=plain5,
              bound_ms=b5, bound_by=by5, library_ms=None, match=err5 == 0, device_ms=dev5,
@@ -2518,6 +2647,8 @@ def config5_phase(dev, ops_per_s: float) -> dict:
         dims=dict(E=enc.E, T=enc.T, G=enc.G, S=len(enc.run_group), NC=int(rows[2].shape[1]), Bp=Bp),
         per_dispatch=dict(rows=len(subsets), h2d_bytes=h2d, d2h_bytes=d2h, k4_device_ms=dev4,
                           k5_device_ms=dev5, **split_ms),
+        second_dispatch=dict(rows=len(calls[1]), bucket=B2, k4_ms=ms4_2, k4_device_ms=dev4_2,
+                             team=team4_2),
         launches=launches,
         zone_fleet_k=zone_ks,
         check=dict(sample_rows=len(sample), plain_sample_s=plain_sample_s,
@@ -2731,9 +2862,12 @@ def pack_check(out, big: bool = False):
 
 
 def unpack_check(host_arrays, dev, raw=None):
-    """K8 against its plain version (both on the card) on the arena's
-    packing of `host_arrays` (`raw`: the packed bytes to use instead),
-    byte for byte, and against the arrays themselves when `raw` is None."""
+    """K8 through its plan against its plain version (both on the card) on
+    the arena's packing of `host_arrays` (`raw`: the packed bytes to use
+    instead), byte for byte, and against the arrays themselves when `raw`
+    is None; every output a contiguous view into the call's one block, at
+    a multiple of arena.ALIGN bytes, no two overlapping; one allocation a
+    call (the caching allocator's count)."""
     import numpy as np
     import torch
 
@@ -2742,15 +2876,91 @@ def unpack_check(host_arrays, dev, raw=None):
 
     parts, nbytes, specs = arena.pack(host_arrays)
     buf = torch.from_numpy(np.concatenate(parts) if raw is None else raw).to(dev)
-    got = arena.unpack(buf, specs)
+    arena.unpack(buf, specs)  # the plan, cached
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    got, _, block = arena.unpack_block(buf, specs)
+    allocations = torch.cuda.memory_stats()["allocation.all.allocated"] - n0
     torch.cuda.synchronize()
     want = arena.unpack_plain(buf, specs)
-    assert all(g.dtype == w.dtype and g.shape == w.shape for g, w in zip(got, want))
+    assert all(g.dtype == w.dtype and g.shape == w.shape and g.is_contiguous()
+               for g, w in zip(got, want))
     err = max_abs_err(got, want)
     if raw is None:
         err = max(err, max_abs_err(got, args_to_torch(host_arrays, dev)))
     assert err == 0, f"arena_unpack disagrees with its plain version (max |d| {err})"
-    return dict(buf=buf, specs=specs, nbytes=nbytes, segments=len(specs), err=err)
+    assert allocations == 1, f"arena_unpack made {allocations} allocations in one call"
+    base = block.data_ptr()
+    spans = sorted((g.data_ptr() - base, g.data_ptr() - base + g.nbytes) for g in got)
+    assert base % arena.ALIGN == 0 and all(lo % arena.ALIGN == 0 for lo, _ in spans), spans
+    assert all(a1 <= b0 for (_, a1), (b0, _) in zip(spans, spans[1:])), "outputs overlap"
+    assert spans[0][0] >= 0 and spans[-1][1] <= block.numel(), "an output leaves the block"
+    assert all(g.untyped_storage().data_ptr() == block.untyped_storage().data_ptr() for g in got)
+    return dict(buf=buf, specs=specs, nbytes=nbytes, segments=len(specs), err=err,
+                allocations=allocations, block_bytes=int(block.numel()), host=host_arrays)
+
+
+def _raw_bytes(t):
+    """A tensor's bytes as a flat uint8 tensor (bools as their bytes)."""
+    import torch
+
+    return t.reshape(-1).view(torch.uint8)
+
+
+def unpack_moves_check(dev, seed: int) -> dict:
+    """K8's moved segments (a segment read from a device address: the
+    arena's survivors of an earlier block, solver/arena.py) on the card:
+    the survivors of an earlier unpack (adversarial_arrays(seed): odd-sized
+    bool, int32 and uint32 entries) and odd-sized int32, float32 and bool
+    tensors of their own, moved beside a packed upload (adversarial_arrays
+    of the next seed) and in a call that only moves. Each moved copy equals
+    its source byte for byte, sits at a multiple of arena.ALIGN bytes of
+    the block after the packed outputs, no two overlap, and each call makes
+    one allocation and one launch; the packed outputs still equal
+    unpack_plain."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver.cuda import arena
+
+    arrays, _ = adversarial_arrays(seed)
+    parts, _, specs = arena.pack(arrays)
+    olds, _, _ = arena.unpack_block(torch.from_numpy(np.concatenate(parts)).to(dev), specs)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    own = [torch.randint(-2**31, 2**31 - 1, (37,), generator=g, dtype=torch.int32).to(dev),
+           torch.randn((3, 11), generator=g).to(dev),
+           (torch.rand((13,), generator=g) < 0.5).to(dev)]
+    moves = list(olds[:10]) + own  # with the 48 packed segments: 61 of arena.MAX_SEGS
+    arrays2, raw2 = adversarial_arrays(seed + 1)
+    parts2, _, specs2 = arena.pack(arrays2)
+    buf = torch.from_numpy(raw2).to(dev)
+    out = dict(moved=len(moves), packed=len(specs2), moved_bytes=sum(int(t.nbytes) for t in moves))
+    for label, b, sp in (("beside", buf, specs2), ("alone", None, ())):
+        arena.unpack_block(b, sp, moves, dev)  # the plan, cached
+        torch.cuda.synchronize()
+        n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        l0 = arena.LAUNCHES["arena_unpack"]
+        got, moved, block = arena.unpack_block(b, sp, moves, dev)
+        allocations = torch.cuda.memory_stats()["allocation.all.allocated"] - n0
+        launches = arena.LAUNCHES["arena_unpack"] - l0
+        torch.cuda.synchronize()
+        assert allocations == 1 and launches == 1, (label, allocations, launches)
+        err = max_abs_err(got, arena.unpack_plain(b, sp)) if b is not None else 0
+        assert err == 0, f"arena_unpack ({label} moves) disagrees with its plain version"
+        base = block.data_ptr()
+        end_packed = arena.unpack_plan(sp).size
+        for m, t in zip(moved, moves):
+            assert m.dtype == t.dtype and m.shape == t.shape and m.is_contiguous(), label
+            assert torch.equal(_raw_bytes(m), _raw_bytes(t)), \
+                f"arena_unpack ({label}) moved a {t.dtype} {tuple(t.shape)} tensor wrongly"
+            off = m.data_ptr() - base
+            assert off % arena.ALIGN == 0 and off >= end_packed, (label, off, end_packed)
+        spans = sorted((x.data_ptr() - base, x.data_ptr() - base + x.nbytes)
+                       for x in (*got, *moved))
+        assert all(a1 <= b0 for (_, a1), (b0, _) in zip(spans, spans[1:])), f"{label}: overlap"
+        assert spans[-1][1] <= block.numel()
+        out[label] = dict(block_bytes=int(block.numel()), err=err)
+    return out
 
 
 def adversarial_arrays(seed: int):
@@ -2966,13 +3176,16 @@ def pack_kernel_row(out, err, launches, ops_per_s):
 def unpack_kernel_row(check, err, launches, solves, ops_per_s):
     """The K8 row at the surge's cold adopt (36 segments): bound by its
     bytes read and written; the yardstick is one device-to-device copy_ of
-    the same bytes (labelled: it moves the bytes, it does not unpack)."""
+    the same bytes (labelled: it moves the bytes, it does not unpack);
+    beside it upload_packed's time (the host parts to typed tensors)."""
     import torch
 
     from karpenter_tpu_torch.solver.cuda import arena
 
     buf, specs = check["buf"], check["specs"]
     ms = time_ms(lambda: arena.unpack(buf, specs), 50)
+    parts, nbytes, _ = arena.pack(check["host"])
+    upload_ms = time_ms(lambda: arena.upload_packed(parts, nbytes, specs, buf.device), 50)
     dev_ms = profiled_ms(lambda: arena.unpack(buf, specs), 20, (KERNEL_NAMES[12],))
     plain_ms = time_ms(lambda: arena.unpack_plain(buf, specs), 20)
     dst = torch.empty_like(buf)
@@ -2986,8 +3199,9 @@ def unpack_kernel_row(check, err, launches, solves, ops_per_s):
         library_ms=lib_ms, library_call="torch.Tensor.copy_ device to device of the same bytes "
         "(a yardstick: it moves the bytes, it does not unpack)",
         match=err == 0, device_ms=dev_ms, launches_per_solve=launches["arena_unpack"] / solves,
-        shape=dict(nbytes=check["nbytes"], segments=check["segments"]), bytes=moved,
-        ops=check["nbytes"])
+        shape=dict(nbytes=check["nbytes"], segments=check["segments"],
+                   block_bytes=check["block_bytes"]), bytes=moved, ops=check["nbytes"],
+        allocations_a_call=check["allocations"], upload_ms=upload_ms)
 
 
 RESUME_SOLVES = 20  # per cell: base, tail, base, ...
@@ -3006,7 +3220,9 @@ def resume_phase(cells, plain):
     the plain path's, and the resumed solves' uploads: the stale run entry
     (one packed message) and the two suffix run arrays, and under the sparse
     gate (config3_tail) the two suffix index arrays (Sp2 x Kq and Sp2 x Kv
-    int32, two messages), nothing else."""
+    int32, two messages), nothing else. After every solve each bucket's
+    unpack blocks hold at most twice its live footprints; the survivors the
+    arena moved (moved_segments, compactions) are reported."""
     import statistics
 
     from karpenter_tpu_torch.solver import backend as tb
@@ -3036,6 +3252,9 @@ def resume_phase(cells, plain):
             ref = cold.solve(inp)
             cold_ms = (time.perf_counter() - t0) * 1e3
             assert decisions(res) == decisions(ref), f"{name}[{i}]: resumed != resume=False"
+            for key in warm.arena._buckets:  # the bound on what the unpack blocks hold
+                held, live = warm.arena.block_bytes(key), warm.arena.live_bytes(key)
+                assert held <= 2 * live, (name, i, held, live)
             rows.append(dict(i=i, tail=bool(i % 2), ms=ms, cold_ms=cold_ms,
                              resumed=warm.stats["resume_solves"] - before[0],
                              k=warm.stats["resume_runs_skipped"] - before[1], h2d=led,
@@ -3080,7 +3299,11 @@ def resume_phase(cells, plain):
             harvest_base_p50_ms=statistics.median(harvest),
             resumed_h2d=rows[-1]["h2d"] if rows[-1]["resumed"] else rows[-2]["h2d"],
             cold_tail_h2d=dict(cold.ledger.solve),
-            arena_hit_rate=warm.ledger.arena_hit_rate, solves=rows)
+            arena_hit_rate=warm.ledger.arena_hit_rate,
+            moved_segments=warm.arena.stats["moved_segments"],
+            compactions=warm.arena.stats["compactions"],
+            block_bytes=sum(warm.arena.block_bytes(k) for k in warm.arena._buckets),
+            live_bytes=sum(warm.arena.live_bytes(k) for k in warm.arena._buckets), solves=rows)
     return out
 
 
@@ -5887,7 +6110,7 @@ def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
         assert err18p == 0, f"sharded_ffd disagrees with its plain version (max |d| {err18p})"
         fn18 = lambda: cons._sharded_ffd(cmesh, prep.args, rows, M, False)  # noqa: E731
         ms18 = time_ms(fn18, 5)
-        dev18 = profiled_ms(fn18, 3, (KERNEL_NAMES[5],) * len(cmesh.physical), tries=10)
+        dev18 = profiled_sum_ms(fn18, 3, KERNEL_NAMES[5], tries=10)
         bytes18, ops18 = batched_scan_cost(ref_prep.args, rows, o4, False)
         b18, by18 = bound(bytes18, ops18, ops_per_s)
         c5_line = dict(k=k_best, dispatches=dispatches, prefixes_probed=n_probed,
@@ -5912,7 +6135,7 @@ def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
                                KERNEL_NAMES[31], "karpenter_tpu/solver/tpu/ffd.py:2800",
                                sparse_src),
             dict(name="sharded_ffd", route="cuda",
-                 source="karpenter_tpu_torch/csrc/ffd_kernels.cu (K4 per physical device)",
+                 source="karpenter_tpu_torch/csrc/ffd_batched_kernels.cu (K4 per physical device)",
                  replaces="karpenter_tpu/solver/tpu/consolidate.py:155",
                  launches=launches["sharded_ffd"], max_abs_err=max(err18, err18p), ms=ms18,
                  plain_ms=c5["rows"][0]["plain_ms"], bound_ms=b18, bound_by=by18, library_ms=None,
@@ -6496,7 +6719,8 @@ def ptxas_report(report: str) -> dict:
                   "preempt_walk_kernelILb0E": "preempt_walk_kernel<false>",
                   "preempt_walk_kernelILb1E": "preempt_walk_kernel<true>",
                   "block_barrier_kernel": "block_barrier_kernel"})
-    for width, kernel in ((1, "ffd_scan_kernel"), (3, "ffd_cluster_kernel"), (2, "ffd_ladder_kernel")):
+    for width, kernel in ((2, "ffd_batched_kernel"), (3, "ffd_cluster_kernel"),
+                          (2, "ffd_ladder_kernel")):
         for flags in range(1 << width):
             bits = [(flags >> i) & 1 for i in range(width)]
             mangled = f"{kernel}I" + "".join(f"Lb{b}E" for b in bits) + "E"  # the list's end
@@ -6851,6 +7075,8 @@ def main() -> int:
     print("unpack: " + " ".join(f"{k}={v['nbytes']}B/{v['segments']}seg"
                                 for k, v in unpack_checks.items()) + f" max_abs_err={k8_err}",
           flush=True)
+    unpack_moves = {seed: unpack_moves_check(dev, seed) for seed in (10, 11)}
+    print("unpack moves: " + json.dumps(unpack_moves), flush=True)
 
     print(f"[phase 2e starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2e: the sparse instances (K1s, K7s) and the dense output pack ---------

@@ -13,14 +13,21 @@
 //
 // What bounds it on the H100: bytes (each packed byte read once, each output
 // byte written once; no arithmetic but a compare per bool byte) — and, at
-// the few-hundred-kilobyte uploads of a solve, the launch itself. Design:
-// one launch per adopt over a segment table that rides in the kernel's
-// parameters (no table upload); blockIdx.y picks the segment, a grid-stride
-// loop over blockIdx.x writes its output in 4-byte words. The destination
-// is a fresh tensor, so 4-byte aligned; the source keeps the reference's
-// back-to-back packing, so a segment behind an odd-sized bool table starts
-// at any byte: an aligned source is read a word at a time, any other byte by
-// byte. The last nbytes % 4 bytes are written one at a time.
+// the few-hundred-kilobyte uploads of a solve, the launch and the host work
+// around it. Design: one launch per adopt over a segment table that rides in
+// the kernel's parameters (no table upload); blockIdx.y picks the segment, a
+// grid-stride loop over blockIdx.x writes its output in 4-byte words. Every
+// output is a view into ONE block the wrapper allocates per call
+// (solver/cuda/arena.py UnpackPlan), each segment at a multiple of 256 bytes
+// of the block, so a later kernel's vector or TMA load on a resident
+// argument stays aligned; the table holds each segment's offset in the
+// block, and the wrapper builds it once per segment list. The source keeps
+// the reference's back-to-back packing, so a segment behind an odd-sized
+// bool table starts at any byte: an aligned source is read a word at a
+// time, any other byte by byte. The last nbytes % 4 bytes are written one at
+// a time. A segment may instead be read from a device address: a resident
+// tensor of an earlier block moved into this one (the arena's bound on the
+// bytes a bucket holds), copied as it is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,10 +39,10 @@ constexpr int MAX_SEGS = 64;   // solver/cuda/arena.py MAX_SEGS
 constexpr int MAX_GRID_X = 1024;
 
 struct Seg {
-  unsigned char* dst;
-  int src;       // byte offset in the packed buffer
+  const unsigned char* src;  // the segment's first byte: in the packed buffer, or a moved tensor
+  int dst;                   // byte offset in the block (a multiple of 256)
   int nbytes;
-  int is_bool;   // write src != 0
+  int is_bool;               // write src != 0
 };
 
 struct SegTable {
@@ -50,12 +57,13 @@ __device__ __forceinline__ unsigned bool_bytes(unsigned v) {
   return r;
 }
 
-__global__ void __launch_bounds__(UT) arena_unpack_kernel(const unsigned char* __restrict__ buf,
+__global__ void __launch_bounds__(UT) arena_unpack_kernel(unsigned char* __restrict__ block,
                                                           SegTable t) {
   const Seg s = t.seg[blockIdx.y];
-  const unsigned char* src = buf + s.src;
+  const unsigned char* src = s.src;
+  unsigned char* out = block + s.dst;
   const int words = s.nbytes >> 2;
-  unsigned* dst = reinterpret_cast<unsigned*>(s.dst);
+  unsigned* dst = reinterpret_cast<unsigned*>(out);
   const bool aligned = (reinterpret_cast<uintptr_t>(src) & 3u) == 0u;
   for (int w = blockIdx.x * UT + threadIdx.x; w < words; w += gridDim.x * UT) {
     unsigned v;
@@ -71,7 +79,7 @@ __global__ void __launch_bounds__(UT) arena_unpack_kernel(const unsigned char* _
   if (blockIdx.x == 0 && threadIdx.x < tail) {
     const int i = (words << 2) + threadIdx.x;
     const unsigned char v = src[i];
-    s.dst[i] = s.is_bool ? (unsigned char)(v != 0) : v;
+    out[i] = s.is_bool ? (unsigned char)(v != 0) : v;
   }
 }
 
@@ -213,26 +221,38 @@ int pad_lanes_launch(void** p, int np, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: the packed buffer, then one destination per segment; ints: the
-// segment count n, then (byte offset, byte count, is_bool) per segment.
+// ptrs: the packed buffer (null where no segment reads it), the block;
+// ints: the segment count n, then per segment (source lo, source hi, byte
+// count, kind, block offset): kind bit 0 a bool segment (write byte != 0),
+// bit 1 a moved segment whose source is the device address hi:lo; else the
+// source is the byte offset lo in the packed buffer.
 int arena_unpack_launch(void** p, int n, const int* d, void* stream) {
   const int nseg = d[0];
-  if (nseg < 1 || nseg > MAX_SEGS || n != nseg + 1) return (int)cudaErrorInvalidValue;
+  if (nseg < 1 || nseg > MAX_SEGS || n != 2 || p[1] == nullptr) return (int)cudaErrorInvalidValue;
+  const unsigned char* buf = (const unsigned char*)p[0];
   SegTable t{};
   int max_words = 1;
   for (int i = 0; i < nseg; ++i) {
+    const int* e = d + 1 + 5 * i;
     Seg& s = t.seg[i];
-    s.dst = (unsigned char*)p[1 + i];
-    s.src = d[1 + 3 * i];
-    s.nbytes = d[2 + 3 * i];
-    s.is_bool = d[3 + 3 * i];
-    if (s.src < 0 || s.nbytes < 0) return (int)cudaErrorInvalidValue;
+    const int kind = e[3];
+    if (kind & 2) {
+      s.src = (const unsigned char*)(uintptr_t)((unsigned long long)(unsigned)e[0] |
+                                                ((unsigned long long)(unsigned)e[1] << 32));
+    } else {
+      if (buf == nullptr || e[0] < 0) return (int)cudaErrorInvalidValue;
+      s.src = buf + e[0];
+    }
+    s.nbytes = e[2];
+    s.is_bool = kind & 1;
+    s.dst = e[4];
+    if (s.src == nullptr || s.nbytes < 0 || s.dst < 0 || (s.dst & 3) != 0)
+      return (int)cudaErrorInvalidValue;
     max_words = s.nbytes / 4 > max_words ? s.nbytes / 4 : max_words;
   }
   int gx = (max_words + UT - 1) / UT;
   gx = gx < 1 ? 1 : (gx > MAX_GRID_X ? MAX_GRID_X : gx);
-  arena_unpack_kernel<<<dim3(gx, nseg), UT, 0, (cudaStream_t)stream>>>(
-      (const unsigned char*)p[0], t);
+  arena_unpack_kernel<<<dim3(gx, nseg), UT, 0, (cudaStream_t)stream>>>((unsigned char*)p[1], t);
   return (int)cudaGetLastError();
 }
 

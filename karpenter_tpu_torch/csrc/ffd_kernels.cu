@@ -22,8 +22,12 @@
 //                   word stage alone, serves backend.py:569
 //                   _pack_outputs_wide.
 // K4 ffd_batched    replaces karpenter_tpu/solver/tpu/consolidate.py:57
-//                   _batched_ffd_core (jit :97): ffd_scan_kernel<ZONE>,
-//                   one block per candidate-subset row.
+//                   _batched_ffd_core (jit :97): ffd_batched_kernel<ZONE,
+//                   MANY>, K1's cluster scan on each candidate-subset row,
+//                   the team chosen at launch from the rows: one cluster of
+//                   CL CTAs a row, or one CTA a row with several rows an SM;
+//                   built from ffd_batched_kernels.cu (this file with
+//                   FFD_BATCHED_ONLY).
 // K5 pack_verdicts  replaces karpenter_tpu/solver/tpu/consolidate.py:291
 //                   _pack_verdicts.
 // K6 ffd_ladder     replaces karpenter_tpu/solver/tpu/ffd.py:2167
@@ -64,6 +68,12 @@
 
 #include <algorithm>
 #include <initializer_list>
+
+// the main library (ffd_kernels.cu built alone): K2 + K3, K5, K9 and the
+// checks beside the single-solve scans
+#if !defined(FFD_SPARSE_ONLY) && !defined(FFD_LANES_ONLY) && !defined(FFD_BATCHED_ONLY)
+#define FFD_MAIN_LIBRARY
+#endif
 
 // The scan instances' launch-sized shared rows (RunShared's Q rows, then
 // the zoned instances' V rows: ZoneShared::mv/ov/vk/vcol), at file scope:
@@ -134,10 +144,10 @@ __device__ unsigned block_exclusive_scan(const int* in, int* out, int n, unsigne
 
 // ---- the team: the threads that walk one solve -----------------------------
 //
-// One block (CL = false: K4 alone, NT threads) or one thread-block cluster
-// of n CTAs of NTC threads on neighbouring SMs (CL = true: K1, K6, K7 and
-// their sparse twins, one cluster a solve; K15, K17 and K17s, one cluster
-// a lane, several clusters a launch). Work over
+// One thread-block cluster of n CTAs of NTC threads on neighbouring SMs
+// (K1, K6, K7 and their sparse twins, one cluster a solve; K15, K17 and
+// K17s, one cluster a lane, and K4, one cluster a subset row, several
+// clusters a launch; a cluster may be one CTA). Work over
 // node rows, claim rows and [n, T] grids is split over the team's threads
 // (gtid of gnt) or warps (gwid of gnw); every CTA
 // computes the control scalars, the run's Q / V rows, the pool passes and
@@ -161,26 +171,20 @@ struct TeamShared {
   long long slot64[2][MAX_CL];
 };
 
-template <bool CL>
 struct Team {
-  static constexpr int NTB = CL ? NTC : NT;  // threads of a CTA
+  static constexpr int NTB = NTC;  // threads of a CTA
   static constexpr int NWB = NTB / 32;
   int tid, lane, wid;             // in the CTA
-  int rank, n;                    // the CTA's rank, the cluster's CTAs (0, 1 for a block)
+  int rank, n;                    // the CTA's rank, the cluster's CTAs
   int gtid, gnt, gwid, gnw;       // over the team
   int par;                        // parity of the next push slot
   __device__ Team() {
     tid = threadIdx.x;
     lane = tid & 31;
     wid = tid >> 5;
-    if constexpr (CL) {
-      cg::cluster_group c = cg::this_cluster();
-      rank = (int)c.block_rank();
-      n = (int)c.num_blocks();
-    } else {
-      rank = 0;
-      n = 1;
-    }
+    cg::cluster_group c = cg::this_cluster();
+    rank = (int)c.block_rank();
+    n = (int)c.num_blocks();
     gtid = rank * NTB + tid;
     gnt = n * NTB;
     gwid = rank * NWB + wid;
@@ -194,12 +198,6 @@ struct Team {
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;\n"
                ::: "memory");
-}
-
-// every thread of the team: a block barrier, or a cluster barrier
-template <bool CL>
-__device__ __forceinline__ void team_sync() {
-  if constexpr (CL) cluster_barrier(); else __syncthreads();
 }
 
 // the address of `p` (this CTA's shared memory) in peer CTA r
@@ -230,19 +228,15 @@ __device__ int cta_reduce(int v, int lane, int wid, int* red) {
 }
 
 // the team's reduction of one int a thread (every thread of the team calls it)
-template <int OP, bool CL>
-__device__ int team_reduce(Team<CL>& tm, int v, TeamShared& ts) {
-  int r = cta_reduce<OP, Team<CL>::NWB>(v, tm.lane, tm.wid, ts.red);
-  if constexpr (CL) {
-    const int b = tm.par;
-    tm.par ^= 1;
-    if (tm.tid < tm.n) *peer(&ts.slot[b][tm.rank], tm.tid) = r;
-    cluster_barrier();
-    r = ts.slot[b][0];
-    for (int i = 1; i < tm.n; ++i) r = op2<OP>(r, ts.slot[b][i]);
-  } else {
-    __syncthreads();
-  }
+template <int OP>
+__device__ int team_reduce(Team& tm, int v, TeamShared& ts) {
+  int r = cta_reduce<OP, Team::NWB>(v, tm.lane, tm.wid, ts.red);
+  const int b = tm.par;
+  tm.par ^= 1;
+  if (tm.tid < tm.n) *peer(&ts.slot[b][tm.rank], tm.tid) = r;
+  cluster_barrier();
+  r = ts.slot[b][0];
+  for (int i = 1; i < tm.n; ++i) r = op2<OP>(r, ts.slot[b][i]);
   return r;
 }
 
@@ -272,23 +266,20 @@ __device__ long long cta_prefix(long long s, int lane, int wid, long long* red64
 // thread gtid owns [lo, hi), the chunks contiguous and ascending in gtid; a
 // thread writes only its own chunk (`in` may alias `out`). Returns the
 // exact (64-bit) sum of every chunk.
-template <bool CL>
-__device__ long long team_scan(Team<CL>& tm, const int* in, int* out, int lo, int hi, TeamShared& ts) {
+__device__ long long team_scan(Team& tm, const int* in, int* out, int lo, int hi, TeamShared& ts) {
   long long s = 0;
   for (int i = lo; i < hi; ++i) s += in[i];
   long long total;
-  long long off = cta_prefix<Team<CL>::NWB>(s, tm.lane, tm.wid, ts.red64, total);
-  if constexpr (CL) {
-    const int b = tm.par;
-    tm.par ^= 1;
-    if (tm.tid < tm.n) *peer(&ts.slot64[b][tm.rank], tm.tid) = total;
-    cluster_barrier();
-    total = 0;
-    for (int i = 0; i < tm.n; ++i) {
-      const long long c = ts.slot64[b][i];
-      if (i < tm.rank) off += c;
-      total += c;
-    }
+  long long off = cta_prefix<Team::NWB>(s, tm.lane, tm.wid, ts.red64, total);
+  const int b = tm.par;
+  tm.par ^= 1;
+  if (tm.tid < tm.n) *peer(&ts.slot64[b][tm.rank], tm.tid) = total;
+  cluster_barrier();
+  total = 0;
+  for (int i = 0; i < tm.n; ++i) {
+    const long long c = ts.slot64[b][i];
+    if (i < tm.rank) off += c;
+    total += c;
   }
   unsigned run = (unsigned)(unsigned long long)off;
   for (int i = lo; i < hi; ++i) {
@@ -301,8 +292,7 @@ __device__ long long team_scan(Team<CL>& tm, const int* in, int* out, int lo, in
 }
 
 // thread gtid's contiguous chunk of [0, n)
-template <bool CL>
-__device__ __forceinline__ void thread_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+__device__ __forceinline__ void thread_chunk(const Team& tm, int n, int& lo, int& hi) {
   const int per = (n + tm.gnt - 1) / tm.gnt;
   lo = min(tm.gtid * per, n);
   hi = min(lo + per, n);
@@ -311,34 +301,30 @@ __device__ __forceinline__ void thread_chunk(const Team<CL>& tm, int n, int& lo,
 // The claim rows a CTA's warps own, and warp gwid's contiguous chunk of
 // [0, n): the claim rows a warp owns. Every CTA takes ceil(n / CTAs) rows
 // first and splits them over its warps, so a solve with few claims open
-// keeps every CTA busy (one block: ceil(n / warps) rows a warp). The
-// chunks are contiguous and ascending in gwid.
-template <bool CL>
-__device__ __forceinline__ void cta_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+// keeps every CTA busy (a cluster of one CTA: ceil(n / warps) rows a
+// warp). The chunks are contiguous and ascending in gwid.
+__device__ __forceinline__ void cta_chunk(const Team& tm, int n, int& lo, int& hi) {
   const int per = (n + tm.n - 1) / tm.n;
   lo = min(tm.rank * per, n);
   hi = min(lo + per, n);
 }
 
-template <bool CL>
-__device__ __forceinline__ void warp_chunk(const Team<CL>& tm, int n, int& lo, int& hi) {
+__device__ __forceinline__ void warp_chunk(const Team& tm, int n, int& lo, int& hi) {
   int clo, chi;
-  cta_chunk<CL>(tm, n, clo, chi);
-  const int per = (chi - clo + Team<CL>::NWB - 1) / Team<CL>::NWB;
+  cta_chunk(tm, n, clo, chi);
+  const int per = (chi - clo + Team::NWB - 1) / Team::NWB;
   lo = min(clo + tm.wid * per, chi);
   hi = min(lo + per, chi);
 }
 
-// The warps that share one claim row's [T] walk: on a cluster NWB / rows
-// where the CTA holds fewer rows than warps, so a row's walk issues a
-// fraction of its serial loads (the other warps idle); else 1 (the
-// one-block scans keep a warp a row). Warp i * ws + j walks types
+// The warps that share one claim row's [T] walk: NWB / rows where the CTA
+// holds fewer rows than warps, so a row's walk issues a fraction of its
+// serial loads (the other warps idle); else 1. Warp i * ws + j walks types
 // j * 32 + lane, stepping 32 * ws, of the CTA's row i; their maxima meet
 // in the CTA's shared memory.
-template <bool CL, int NWB>
+template <int NWB>
 __device__ __forceinline__ int row_warps(int rows) {
-  if constexpr (CL) return rows > 0 && rows < NWB ? NWB / rows : 1;
-  else return 1;
+  return rows > 0 && rows < NWB ? NWB / rows : 1;
 }
 
 // the position of the r-th set bit of b (r < popc(b))
@@ -384,7 +370,7 @@ __device__ __forceinline__ int floordiv_magic(int n, unsigned m, int sh) {
 // Design: ONE launch per dispatch, one thread-block cluster of CL CTAs
 // (16, or 8 where the card refuses 16; ffd_cluster_kernel, and
 // ffd_ladder_kernel for K6) walks every run (K15 / K17 / K17s run one such
-// cluster a lane; K4 below keeps one block of 1024 threads). The carry
+// cluster a lane, K4 one a subset row or one CTA a row). The carry
 // (FFDState) lives in global buffers the wrapper allocated; per-run rows
 // (req and its exact divisions, Q flags) sit in every CTA's shared memory.
 // The claim pass runs one warp of the cluster per OPEN claim, each warp a
@@ -433,7 +419,7 @@ struct ScanArgs {
   int* take_e; int* take_c; int* leftover; int* events; int* scratch;
   int S, G, T, E, P, R, Q, W, M, V, Z;
   // the batched instances (BATCH=true, K4) only: the carry's shared seeds,
-  // the subset rows, and this block's [E] removed-node mask
+  // the subset rows and this row's [E] removed-node mask
   const int* pool_usage0; const int* node_q_member; const int* node_q_owner;
   const int* v_count0; const int* node_cand; const unsigned char* cand_member;
   int* removed;
@@ -682,47 +668,39 @@ __device__ int domain_argmin(const ZoneShared& zs, int Z, unsigned inter, int mo
 // and bad-target flags (max). Each CTA folds every peer's value into its
 // own in place; the folds are idempotent, so a peer reading ours meanwhile
 // still finds the extreme in the CTA that holds it.
-template <bool CL>
-__device__ void pull_acc(const Team<CL>& tm, ZoneShared& zs, int Z) {
-  if constexpr (CL) {
-    const int K = 4 * Z + 4;
-    for (int i = tm.tid; i < tm.n * K; i += Team<CL>::NTB) {
-      const int r = i / K, j = i - r * K;
-      if (r == tm.rank) continue;
-      int* v;
-      if (j < Z) v = &zs.pos_node[j];
-      else if (j < 2 * Z) v = &zs.pos_claim[j - Z];
-      else if (j < 3 * Z) v = &zs.first_ez[j - 2 * Z];
-      else if (j < 4 * Z) v = &zs.first_cz[j - 3 * Z];
-      else if (j == 4 * Z) v = &zs.e_first;
-      else if (j == 4 * Z + 1) v = &zs.c_first;
-      else if (j == 4 * Z + 2) v = &zs.multi_claim;
-      else v = &zs.tgts_bad;
-      const int o = *peer(v, r);
-      if (j < 4 * Z + 2) atomicMin(v, o); else atomicMax(v, o);
-    }
+__device__ void pull_acc(const Team& tm, ZoneShared& zs, int Z) {
+  const int K = 4 * Z + 4;
+  for (int i = tm.tid; i < tm.n * K; i += Team::NTB) {
+    const int r = i / K, j = i - r * K;
+    if (r == tm.rank) continue;
+    int* v;
+    if (j < Z) v = &zs.pos_node[j];
+    else if (j < 2 * Z) v = &zs.pos_claim[j - Z];
+    else if (j < 3 * Z) v = &zs.first_ez[j - 2 * Z];
+    else if (j < 4 * Z) v = &zs.first_cz[j - 3 * Z];
+    else if (j == 4 * Z) v = &zs.e_first;
+    else if (j == 4 * Z + 1) v = &zs.c_first;
+    else if (j == 4 * Z + 2) v = &zs.multi_claim;
+    else v = &zs.tgts_bad;
+    const int o = *peer(v, r);
+    if (j < 4 * Z + 2) atomicMin(v, o); else atomicMax(v, o);
   }
 }
 
 // zs.csum[j] = the sum over the team's CTAs of zs.contrib[j], j <= Z
 // (int32 wrap); after a barrier that orders every CTA's partials
-template <bool CL>
-__device__ void pull_sum(const Team<CL>& tm, ZoneShared& zs, int Z) {
-  for (int j = tm.tid; j <= Z; j += Team<CL>::NTB) {
+__device__ void pull_sum(const Team& tm, ZoneShared& zs, int Z) {
+  for (int j = tm.tid; j <= Z; j += Team::NTB) {
     unsigned s = 0u;
-    if constexpr (CL) {
-      for (int r = 0; r < tm.n; ++r) s += (unsigned)*peer(&zs.contrib[j], r);
-    } else {
-      s = (unsigned)zs.contrib[j];
-    }
+    for (int r = 0; r < tm.n; ++r) s += (unsigned)*peer(&zs.contrib[j], r);
     zs.csum[j] = (int)s;
   }
 }
 
-template <bool BATCH, bool LADDER, bool CL>
+template <bool BATCH, bool LADDER>
 __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, const Scratch& x,
-                          Team<CL>& tm, int s, int g) {
-  constexpr int NTB = Team<CL>::NTB, NWB = Team<CL>::NWB;
+                          Team& tm, int s, int g) {
+  constexpr int NTB = Team::NTB, NWB = Team::NWB;
   const int tid = tm.tid, lane = tm.lane, wid = tm.wid;
   const int T = a.T, E = a.E, P = a.P, R = a.R, Q = a.Q, W = a.W, M = a.M, V = a.V, Z = a.Z;
   const unsigned g_zc = a.group_zc_bits[g];
@@ -875,9 +853,9 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     // rows spread over the CTAs, ws warps a row where a CTA holds fewer rows
     // than warps (as the fast branch's claim pass) -------------------------
     int wlo, whi, clo, chi;
-    warp_chunk<CL>(tm, used0, wlo, whi);
-    cta_chunk<CL>(tm, used0, clo, chi);
-    const int ws = row_warps<CL, NWB>(chi - clo);
+    warp_chunk(tm, used0, wlo, whi);
+    cta_chunk(tm, used0, clo, chi);
+    const int ws = row_warps<NWB>(chi - clo);
     // a claim row's tests, the same in every warp that walks it
     struct ZRow {
       unsigned czb, bits_eff;
@@ -1061,11 +1039,9 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     }
     // every CTA's candidate passes and scratch rows are written: fold the
     // team's accumulators
-    team_sync<CL>();
-    if constexpr (CL) {
-      pull_acc(tm, zs, Z);
-      __syncthreads();
-    }
+    cluster_barrier();
+    pull_acc(tm, zs, Z);
+    __syncthreads();
 
     // ---- candidates, budgets and the preemption bound (ffd.py:1012-1149) ------
     if (tid == 0) {
@@ -1485,7 +1461,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
     // barrier also orders the contrib atomics)
     placed = warp_sum(placed);
     if (lane == 0 && placed != 0) atomicAdd(&zs.contrib[Z], placed);
-    team_sync<CL>();
+    cluster_barrier();
     pull_sum(tm, zs, Z);
     __syncthreads();
     // domain counts, anti-owner registration and the event's bookkeeping
@@ -1508,7 +1484,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
       zs.fuel = wsub(zs.fuel, 1);
       zs.events += 1;
     }
-    team_sync<CL>();
+    cluster_barrier();
   }
   for (int m = tm.gtid; m < M; m += tm.gnt) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = x.c_take[m];
   if (tm.lead()) {
@@ -1517,7 +1493,7 @@ __device__ void zoned_run(const ScanArgs& a, RunShared& sh, ZoneShared& zs, cons
   }
   if constexpr (LADDER)  // the cascade reads the attempt's leftover here
     if (tid == 0) sh.remaining = zs.remaining;
-  team_sync<CL>();
+  cluster_barrier();
 }
 
 // the scan's global scratch (int words; scan_scratch_words() in
@@ -1556,19 +1532,29 @@ __device__ __forceinline__ Scratch zone_scratch(const ScanArgs& a) {
 // zeroed in the carry's e_cm / e_co, and its own v_count0.
 //
 // What bounds it on the H100: each row is K1's sequential scan (latency-
-// bound, one block), so a batch is bound by rows / SMs waves of K1-sized
-// work; the carry is per row ([E, Q] hostname counts are the largest part).
-// Design: one block per row (grid = B), the same kernel body as K1 under a
-// second template flag, so the single-solve instances keep their code. The
-// prologue below moves every carry pointer to the block's row, seeds the
-// carry in place (no host-side copies of the seeds per row), and computes
-// the row's [E] removed-node mask from node_cand and the row's cand_member
-// into the block's scratch; node_compat reads AND it in (node_compat_at).
-// The current run's take rows live in the same scratch (take_row = 0): the
-// body reads them back within a run, and verdict mode emits none.
-__device__ void batch_row_prologue(ScanArgs& a) {
-  const size_t b = blockIdx.x;
-  const int tid = threadIdx.x;
+// bound), so a batch is bound by the rows' latency and how many rows run at
+// once; the carry is per row ([E, Q] hostname counts are the largest part,
+// written by the prologue and read back by every run's node pass).
+// Design: the same kernel body as K1 under a second template flag, on K1's
+// cluster team (ffd_batched_kernel below), the team chosen at launch from B
+// and what the card holds (launch_batched): few rows take one cluster of CL
+// CTAs a row, as the lanes scans do, so a row's node rows, claim rows and
+// [n, T] grids spread over CL SMs; many rows take one CTA a row (a cluster
+// of one) under launch bounds that let two rows share an SM, so the rows
+// hide each other's latency. The prologue below moves every carry pointer to
+// the row, seeds the carry in place over the whole team (no host-side copies
+// of the seeds per row), and computes the row's [E] removed-node mask from
+// node_cand and the row's cand_member into the row's scratch; node_compat
+// reads AND it in (node_compat_at); one cluster barrier ends it. The current
+// run's take rows live in the same scratch (take_row = 0): the body reads
+// them back within a run, and verdict mode emits none. A row's scratch is
+// the scan's shared rows, then its CL CTAs' own rows, then take_e [E],
+// take_c [M] and the removed mask [E] (take_off, row_words).
+#ifdef FFD_BATCHED_ONLY
+__device__ void batch_row_prologue(ScanArgs& a, long long b) {
+  cg::cluster_group c = cg::this_cluster();
+  const int gtid = (int)c.block_rank() * NTC + (int)threadIdx.x;
+  const int gnt = (int)c.num_blocks() * NTC;
   const int E = a.E, M = a.M, T = a.T, R = a.R, Q = a.Q, W = a.W, P = a.P, V = a.V, Z = a.Z;
   a.run_count += b * a.S;
   a.v_count0 += b * V * Z;
@@ -1595,28 +1581,72 @@ __device__ void batch_row_prologue(ScanArgs& a) {
   a.take_e = a.scratch + a.take_off;
   a.take_c = a.take_e + E;
   a.removed = a.take_c + M;
-  // the carry's initial values (FFDState at a cold solve), row b's seeds
-  for (int e = tid; e < E; e += NT) {
-    const int k = a.node_cand[e];
-    const bool rm = k >= 0 && a.cand_member[min(k, a.NC - 1)];
-    a.removed[e] = rm;
-    for (int r = 0; r < R; ++r) a.e_cum[e * R + r] = 0;
-    for (int q = 0; q < Q; ++q) {
-      a.e_cm[e * Q + q] = rm ? 0 : a.node_q_member[e * Q + q];
-      a.e_co[e * Q + q] = rm ? 0 : a.node_q_owner[e * Q + q];
+  // the carry's initial values (FFDState at a cold solve), row b's seeds,
+  // each array walked flat over the team's threads (coalesced). The [E, Q]
+  // hostname rows are most of the bytes: where Q is a multiple of 4 and the
+  // four arrays are 16-byte aligned (the arena's blocks align every entry
+  // to 256 bytes), a thread seeds SEED_U 16-byte pieces at once, every
+  // load issued before any store, so the pieces' dependent reads (the
+  // node's candidate, then its membership) overlap; the removed mask is
+  // written with a row's first piece.
+  constexpr int SEED_U = 4;
+  const bool vec = Q > 0 && (Q & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.e_cm) | reinterpret_cast<uintptr_t>(a.e_co) |
+                     reinterpret_cast<uintptr_t>(a.node_q_member) |
+                     reinterpret_cast<uintptr_t>(a.node_q_owner)) & 15u) == 0;
+  if (vec) {
+    const int Q4 = Q >> 2, n4 = E * Q4;
+    const int4* qm = reinterpret_cast<const int4*>(a.node_q_member);
+    const int4* qo = reinterpret_cast<const int4*>(a.node_q_owner);
+    int4* cm = reinterpret_cast<int4*>(a.e_cm);
+    int4* co = reinterpret_cast<int4*>(a.e_co);
+    for (int i0 = gtid; i0 < n4; i0 += SEED_U * gnt) {
+      int k[SEED_U];
+      int4 m[SEED_U], o[SEED_U];
+#pragma unroll
+      for (int j = 0; j < SEED_U; ++j) {
+        const int i = i0 + j * gnt;
+        k[j] = i < n4 ? a.node_cand[i / Q4] : -1;
+        if (i < n4) { m[j] = qm[i]; o[j] = qo[i]; }
+      }
+      bool rm[SEED_U];
+#pragma unroll
+      for (int j = 0; j < SEED_U; ++j) rm[j] = k[j] >= 0 && a.cand_member[min(k[j], a.NC - 1)];
+#pragma unroll
+      for (int j = 0; j < SEED_U; ++j) {
+        const int i = i0 + j * gnt;
+        if (i >= n4) continue;
+        const int4 zero = make_int4(0, 0, 0, 0);
+        cm[i] = rm[j] ? zero : m[j];
+        co[i] = rm[j] ? zero : o[j];
+        if (i % Q4 == 0) a.removed[i / Q4] = rm[j];
+      }
+    }
+  } else {
+    for (int e = gtid; e < E; e += gnt) {
+      const int k = a.node_cand[e];
+      a.removed[e] = k >= 0 && a.cand_member[min(k, a.NC - 1)];
+    }
+    for (int i = gtid; i < E * Q; i += gnt) {
+      const int k = a.node_cand[i / Q];
+      const bool rm = k >= 0 && a.cand_member[min(k, a.NC - 1)];
+      a.e_cm[i] = rm ? 0 : a.node_q_member[i];
+      a.e_co[i] = rm ? 0 : a.node_q_owner[i];
     }
   }
-  for (int i = tid; i < M * R; i += NT) a.c_cum[i] = 0;
-  for (int i = tid; i < M * T; i += NT) a.c_mask[i] = 0;
-  for (int i = tid; i < M; i += NT) { a.c_zc_bits[i] = 0u; a.c_pool[i] = -1; }
-  for (int i = tid; i < M * W; i += NT) a.c_gbits[i] = 0u;
-  for (int i = tid; i < M * Q; i += NT) { a.c_cm[i] = 0; a.c_co[i] = 0; }
-  for (int i = tid; i < V * Z; i += NT) { a.v_count[i] = a.v_count0[i]; a.v_owner_z[i] = 0; }
-  for (int i = tid; i < M * V; i += NT) { a.c_vm[i] = 0; a.c_vo[i] = 0; }
-  for (int i = tid; i < P * R; i += NT) a.p_usage[i] = a.pool_usage0[i];
-  if (tid == 0) { *a.used = 0; *a.events = 0; }
-  __syncthreads();
+  for (int i = gtid; i < E * R; i += gnt) a.e_cum[i] = 0;
+  for (int i = gtid; i < M * R; i += gnt) a.c_cum[i] = 0;
+  for (int i = gtid; i < M * T; i += gnt) a.c_mask[i] = 0;
+  for (int i = gtid; i < M; i += gnt) { a.c_zc_bits[i] = 0u; a.c_pool[i] = -1; }
+  for (int i = gtid; i < M * W; i += gnt) a.c_gbits[i] = 0u;
+  for (int i = gtid; i < M * Q; i += gnt) { a.c_cm[i] = 0; a.c_co[i] = 0; }
+  for (int i = gtid; i < V * Z; i += gnt) { a.v_count[i] = a.v_count0[i]; a.v_owner_z[i] = 0; }
+  for (int i = gtid; i < M * V; i += gnt) { a.c_vm[i] = 0; a.c_vo[i] = 0; }
+  for (int i = gtid; i < P * R; i += gnt) a.p_usage[i] = a.pool_usage0[i];
+  if (gtid == 0) { *a.used = 0; *a.events = 0; }
+  cluster_barrier();  // the seeds and the mask, written strided, are read by every CTA
 }
+#endif  // FFD_BATCHED_ONLY
 
 // ---- K6: the relax-ladder scan (LADDER=true) ---------------------------------
 //
@@ -1675,8 +1705,7 @@ struct Cascade {
 // first time it sees s, then picks the next attempt: its group in g, its pod
 // count in count. Returns false when the walk is over (the run's leftover
 // written): the loop then moves to the next run.
-template <bool CL>
-__device__ bool ladder_attempt(const ScanArgs& a, const Team<CL>& tm, Cascade& c, int s, int& g,
+__device__ bool ladder_attempt(const ScanArgs& a, const Team& tm, Cascade& c, int s, int& g,
                                int& count) {
   if (c.s != s) {
     c.s = s;
@@ -1707,8 +1736,8 @@ __device__ bool ladder_attempt(const ScanArgs& a, const Team<CL>& tm, Cascade& c
 // attempt that ran into run s (takes into its output rows, placed pods into
 // the cascade: the attempt's leftover is the CTA's sh.remaining) and stays
 // on s, or moves on when no attempt ran.
-template <bool LADDER, bool CL>
-__device__ __forceinline__ int next_run(const ScanArgs& a, const RunShared& sh, const Team<CL>& tm,
+template <bool LADDER>
+__device__ __forceinline__ int next_run(const ScanArgs& a, const RunShared& sh, const Team& tm,
                                         Cascade& c, int s) {
   if constexpr (!LADDER) {
     return s + 1;
@@ -1751,13 +1780,13 @@ __device__ void team_copy(unsigned char* dst, const unsigned char* src, size_t n
   }
 }
 
-template <bool CKPT, bool CL>
-__device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, const Team<CL>& tm,
+template <bool CKPT>
+__device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, const Team& tm,
                                         int s) {
   if constexpr (CKPT) {
     const int pos = s + 1;
     if (pos % a.ck_every == 0) {
-      team_sync<CL>();
+      cluster_barrier();
       const size_t slot = (size_t)((pos / a.ck_every - 1) % a.n_ckpt);
       const size_t E = a.E, M = a.M, T = a.T, R = a.R, Q = a.Q, W = a.W, P = a.P,
                    V = a.V, Z = a.Z;
@@ -1778,7 +1807,7 @@ __device__ __forceinline__ int snapshot(const ScanArgs& a, const RunShared& sh, 
         reinterpret_cast<int*>(a.ring[6])[slot] = sh.used;
         a.ring_prefix[slot] = pos;
       }
-      team_sync<CL>();
+      cluster_barrier();
     }
   }
   return s;
@@ -1833,23 +1862,22 @@ __device__ __forceinline__ void bind_zone_rows(ZoneShared& zs, int V, int Kv, in
 // int32 words of the scan's shared global scratch (solver/cuda/ffd.py
 // scan_scratch_words), and of one cluster CTA's own rows after it
 // (cluster_scratch_words): k_t, fit_t, k_cap [T], scat_z, scat_take [M]
-__device__ __forceinline__ size_t scan_words(const ScanArgs& a) {
+__host__ __device__ __forceinline__ size_t scan_words(const ScanArgs& a) {
   return 2 * (size_t)a.E + 11 * (size_t)a.M + 3 * (size_t)a.T + 2 * (size_t)a.M * a.Z + 64;
 }
 
-__device__ __forceinline__ size_t cta_words(const ScanArgs& a) {
+__host__ __device__ __forceinline__ size_t cta_words(const ScanArgs& a) {
   return 3 * (size_t)a.T + 2 * (size_t)a.M;
 }
 
-// The scan body of every instance below: ffd_scan_kernel's,
-// ffd_cluster_kernel's, ffd_ladder_kernel's and, for K15,
-// ffd_lanes_kernel's. Inlined into each kernel, so an instance compiles as
-// it did when this body was the kernel's own. CL selects the team (one
-// block, or one cluster a solve; see Team).
-template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE, bool CL>
+// The scan body of every instance below: ffd_cluster_kernel's,
+// ffd_ladder_kernel's and, for K15, ffd_lanes_kernel's and, for K4,
+// ffd_batched_kernel's. Inlined into each kernel, so an instance compiles as
+// it did when this body was the kernel's own. The team is the launch's
+// cluster (see Team).
+template <bool ZONE, bool BATCH, bool LADDER, bool CKPT, bool SPARSE>
 __device__ __forceinline__ void scan_body(ScanArgs& a) {
-  static_assert(!(CL && BATCH), "the batched scan keeps one block per row");
-  constexpr int NTB = Team<CL>::NTB, NWB = Team<CL>::NWB;
+  constexpr int NTB = Team::NTB, NWB = Team::NWB;
   __shared__ RunShared sh;
   ZoneShared* zs = nullptr;
   Scratch x{};
@@ -1858,7 +1886,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     zs = &zone_sh;
     x = zone_scratch(a);
   }
-  Team<CL> tm;
+  Team tm;
   const int tid = tm.tid, lane = tm.lane;
   const int T = a.T, E = a.E, P = a.P, R = a.R, Q = a.Q, W = a.W, M = a.M;
   int* e_full = a.scratch;          // [E] cap_full, then the pour cap / prefix
@@ -1869,7 +1897,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
   int* c_pref = c_take + M;         // [M]
   int* k_t = c_pref + M;            // [T]
   int* fit_t = k_t + T;             // [T]
-  if constexpr (CL) {
+  {
     // the rows every CTA computes whole for itself: its own copy
     int* own = a.scratch + scan_words(a) + (size_t)tm.rank * cta_words(a);
     k_t = own;
@@ -2002,7 +2030,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
           }
           __syncthreads();
         }
-        zoned_run<BATCH, LADDER, CL>(a, sh, *zs, x, tm, s, g);
+        zoned_run<BATCH, LADDER>(a, sh, *zs, x, tm, s, g);
         continue;
       }
       int mv_any = 0;
@@ -2052,12 +2080,12 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       }
       // first-fit pour: take = clip(remaining - prefix, 0, cap)
       for (int e = tm.gtid; e < E; e += tm.gnt) e_boot[e] = e_full[e];  // keep caps
-      team_sync<CL>();  // the caps, written strided, are read in chunks
+      cluster_barrier();  // the caps, written strided, are read in chunks
       const int rem = sh.remaining;
       int lo, hi;
       thread_chunk(tm, E, lo, hi);
       const long long tot = team_scan(tm, e_full, e_full, lo, hi, sh.ts);
-      if constexpr (CL) cluster_barrier();  // the prefixes, written in chunks, are read strided
+      cluster_barrier();  // the prefixes, written in chunks, are read strided
       int placed = 0;
       for (int e = tm.gtid; e < E; e += tm.gnt) {
         const int take = min(max(wsub(rem, e_full[e]), 0), e_boot[e]);
@@ -2088,9 +2116,9 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     const unsigned char* compat = a.group_compat_t + (size_t)g * T;
     const unsigned* g_nok = a.group_pair_nok + (size_t)g * W;
     int wlo, whi, clo, chi;
-    warp_chunk<CL>(tm, used0, wlo, whi);
-    cta_chunk<CL>(tm, used0, clo, chi);
-    const int ws = row_warps<CL, NWB>(chi - clo);
+    warp_chunk(tm, used0, wlo, whi);
+    cta_chunk(tm, used0, clo, chi);
+    const int ws = row_warps<NWB>(chi - clo);
     // the most pods of the run that claim row m takes over the lane's types
     // t0, t0 + step, ... (0 where the claim cannot take the group): the
     // warp's maximum, in every lane
@@ -2341,7 +2369,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
         }
         placed = cta_reduce<OP_SUM, NWB>(placed, lane, tm.wid, sh.ts.red);
         // every CTA has read p_usage[p] above before the lead thread adds to it
-        if constexpr (CL) cluster_barrier();
+        cluster_barrier();
         if (tid == 0) {
           if (tm.rank == 0)
             for (int r = 0; r < R; ++r)
@@ -2359,7 +2387,7 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
       // sums every take of the run
       if (zs->any_mv) {
         if (tid < a.Z) zs->contrib[tid] = 0;
-        team_sync<CL>();
+        cluster_barrier();
         for (int e = tid; e < E; e += NTB) {
           const int take = a.take_e[take_row<BATCH || LADDER>(s, E) + e];
           if (take > 0) node_contrib(a, zs->contrib, e, take);
@@ -2383,30 +2411,23 @@ __device__ __forceinline__ void scan_body(ScanArgs& a) {
     // where their pods were placed)
     for (int m = sh.used + tm.gtid; m < M; m += tm.gnt) a.take_c[take_row<BATCH || LADDER>(s, M) + m] = 0;
     if (tm.lead()) a.leftover[s] = sh.remaining;
-    team_sync<CL>();
+    cluster_barrier();
   }
   if (tm.lead()) *a.used = sh.used;
-}
-
-// K4: the batched scan, one block per subset row (from the prologue above)
-template <bool ZONE>
-__global__ void __launch_bounds__(NT) ffd_scan_kernel(ScanArgs a) {
-  batch_row_prologue(a);
-  scan_body<ZONE, true, false, false, false, false>(a);
 }
 
 // K1 (CKPT=false) and K7 (CKPT=true: K1 with the snapshot ring), and their
 // sparse instances (SPARSE=true): one solve on one cluster of CTAs
 template <bool ZONE, bool CKPT, bool SPARSE>
 __global__ void __launch_bounds__(NTC, 1) ffd_cluster_kernel(ScanArgs a) {
-  scan_body<ZONE, false, false, CKPT, SPARSE, true>(a);
+  scan_body<ZONE, false, false, CKPT, SPARSE>(a);
 }
 
 // K6 and K6s (LADDER=true: a cascade of attempts per run): one solve on one
 // cluster of CTAs, as K1's
 template <bool ZONE, bool SPARSE>
 __global__ void __launch_bounds__(NTC, 1) ffd_ladder_kernel(ScanArgs a) {
-  scan_body<ZONE, false, true, false, SPARSE, true>(a);
+  scan_body<ZONE, false, true, false, SPARSE>(a);
 }
 
 #ifdef FFD_LANES_ONLY
@@ -2477,7 +2498,7 @@ __device__ __forceinline__ void lane_prologue(ScanArgs& a, const LaneStrides& ls
 template <bool ZONE>
 __global__ void __launch_bounds__(NTC, 1) ffd_lanes_kernel(ScanArgs a, LaneStrides ls) {
   lane_prologue(a, ls, lane_index());
-  scan_body<ZONE, false, false, false, false, true>(a);
+  scan_body<ZONE, false, false, false, false>(a);
 }
 
 // ---- K17s: the sparse lanes of a mesh-sharded solve ----------------------------
@@ -2504,11 +2525,23 @@ __global__ void __launch_bounds__(NTC, 1) ffd_lanes_sparse_kernel(ScanArgs a, Sp
   lane_prologue(a, ls.base, b);
   to_lane(a.run_q_idx, b, ls.q);
   to_lane(a.run_v_idx, b, ls.v);
-  scan_body<ZONE, false, false, false, true, true>(a);
+  scan_body<ZONE, false, false, false, true>(a);
 }
 #endif  // FFD_LANES_ONLY
 
-#if !defined(FFD_SPARSE_ONLY) && !defined(FFD_LANES_ONLY)
+#ifdef FFD_BATCHED_ONLY
+// K4: one subset row a cluster (its size chosen at launch: launch_batched),
+// the row the cluster's index along x; MANY: the instance of the many-rows
+// team, one CTA a row under launch bounds that fit two CTAs an SM.
+template <bool ZONE, bool MANY>
+__global__ void __launch_bounds__(NTC, MANY ? 2 : 1) ffd_batched_kernel(ScanArgs a) {
+  const long long b = blockIdx.x / cg::this_cluster().num_blocks();
+  batch_row_prologue(a, b);
+  scan_body<ZONE, true, false, false, false>(a);
+}
+#endif  // FFD_BATCHED_ONLY
+
+#ifdef FFD_MAIN_LIBRARY
 // ---- K5: verdict pack --------------------------------------------------------
 //
 // Replaces karpenter_tpu/solver/tpu/consolidate.py:291 _pack_verdicts: per
@@ -3151,7 +3184,7 @@ __global__ void __launch_bounds__(NTC) cluster_barrier_kernel(int n) {
   for (int i = 0; i < n; ++i) cluster_barrier();
 }
 
-#endif  // !FFD_SPARSE_ONLY && !FFD_LANES_ONLY
+#endif  // FFD_MAIN_LIBRARY
 
 }  // namespace
 
@@ -3211,29 +3244,6 @@ static int opt_in(K kern, int dyn, int* opted) {
     opted[dev] = dyn;
   }
   return 0;
-}
-
-// Launch one scan instance. Every instance takes its Q rows (and a zoned
-// one its V rows) as dynamic shared memory sized to the launch
-// (scan_rows_bytes); past the 48 KB default that needs the opt-in, raised
-// once per instance and device to the widest launch so far. A launch past
-// the card's opt-in less the instance's static share (*_rows_budget) is
-// refused here with the attribute call's error.
-template <typename K>
-static int launch_rows(K kern, const ScanArgs& a, bool zone, bool sparse, int* opted) {
-  const int dyn = scan_rows_bytes(a.Q, sparse ? a.Kq : 0, a.V, sparse ? a.Kv : 0, zone);
-  const int e = opt_in(kern, dyn, opted);
-  return e != 0 ? -e : dyn;
-}
-
-template <bool ZONE>
-static int launch_scan(int blocks, const ScanArgs& a, void* stream) {
-  auto kern = ffd_scan_kernel<ZONE>;
-  static int opted[MAX_DEVICES] = {};
-  const int dyn = launch_rows(kern, a, ZONE, false, opted);
-  if (dyn < 0) return -dyn;
-  kern<<<blocks, NT, dyn, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 // The bytes of launch-sized rows (scan_rows_bytes) a launch of `kern`
@@ -3513,6 +3523,142 @@ static bool lane_counts(const int* d, int at, int n, long long* cnt) {
 }
 #endif  // FFD_LANES_ONLY
 
+#ifdef FFD_BATCHED_ONLY
+// ---- the batched launch (K4) ---------------------------------------------------
+//
+// One launch a dispatch: B subset rows on the team the caller chose (CL
+// CTAs a row: a cluster of 16, 8, 4 or 2, or 1, one CTA a row of the
+// many-rows instance). The rule is the wrapper's
+// (solver/cuda/consolidate.py batched_team): the largest CL whose clusters
+// the device holds all B rows at once, past every size one CTA a row, as
+// many rows at once as the device holds, the rest in waves. It reads the
+// teams from batched_info: the cluster instance's clusters of 16, 8, 4 and
+// 2 CTAs the device holds at once at its widest launch (its whole row
+// budget of dynamic shared memory; queried once per device, with the opt-in
+// raised to that budget, as the lanes scans' are), and the many-rows
+// instance's CTAs a SM at the launch's own rows. The launcher checks the
+// team against the row's scratch; a launch the device refuses returns its
+// error, and no other launch is tried.
+constexpr int BATCH_SIZES = 4;
+constexpr int BATCH_CL[BATCH_SIZES] = {16, 8, 4, 2};
+
+struct BatchedFit {
+  int fit[BATCH_SIZES];  // clusters of BATCH_CL[i] CTAs the device holds at once
+  int budget;            // the cluster instance's row budget (rows_budget)
+  bool done;
+};
+
+template <bool ZONE>
+static BatchedFit* batched_fits() {
+  static BatchedFit fits[MAX_DEVICES] = {};
+  return fits;
+}
+
+// the cluster instance's fits on the current device (queried on first use)
+template <bool ZONE>
+static int batched_fit(const BatchedFit*& out) {
+  auto kern = ffd_batched_kernel<ZONE, false>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  BatchedFit& bf = batched_fits<ZONE>()[dev];
+  out = &bf;
+  if (bf.done) return 0;
+  const int dyn = rows_budget(kern);
+  if (dyn < 0) return -dyn;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (e != cudaSuccess) return (int)e;
+  bf.budget = dyn;
+  for (int i = 0; i < BATCH_SIZES; ++i) {
+    int f = 0;
+    if (BATCH_CL[i] > 8) {
+      // the non-portable size: a refused attribute or query is an answer, not a fault
+      if (cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess ||
+          cluster_fit(kern, BATCH_CL[i], dyn, &f) != cudaSuccess)
+        f = 0;
+      (void)cudaGetLastError();
+    } else {
+      e = cluster_fit(kern, BATCH_CL[i], dyn, &f);
+      if (e != cudaSuccess) return (int)e;
+    }
+    bf.fit[i] = f;
+  }
+  bf.done = true;
+  return 0;
+}
+
+// the many-rows instance's opt-in raised to `dyn` bytes of rows
+template <bool ZONE>
+static int batched_many_opt_in(int dyn) {
+  static int opted[MAX_DEVICES] = {};
+  return opt_in(ffd_batched_kernel<ZONE, true>, dyn, opted);
+}
+
+template <bool ZONE>
+static int launch_batched(const ScanArgs& a, int B, int cl, void* stream) {
+  if (cl != 1 && cl != 2 && cl != 4 && cl != 8 && cl != 16) return (int)cudaErrorInvalidConfiguration;
+  // the row's scratch must hold this team's CTA rows before the take rows
+  if ((size_t)a.take_off < scan_words(a) + (size_t)cl * cta_words(a) ||
+      (size_t)a.row_words < (size_t)a.take_off + 2 * (size_t)a.E + (size_t)a.M)
+    return (int)cudaErrorInvalidValue;
+  const int dyn = scan_rows_bytes(a.Q, 0, a.V, 0, ZONE);
+  if (cl > 1) {
+    const BatchedFit* bf = nullptr;
+    const int err = batched_fit<ZONE>(bf);
+    if (err != 0) return err;
+    if (dyn > bf->budget) return (int)cudaErrorInvalidValue;
+  } else {
+    const int err = batched_many_opt_in<ZONE>(dyn);
+    if (err != 0) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)cl, 1, 1);
+  cfg.blockDim = dim3(NTC, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cl == 1 ? cudaLaunchKernelEx(&cfg, ffd_batched_kernel<ZONE, true>, a)
+                                : cudaLaunchKernelEx(&cfg, ffd_batched_kernel<ZONE, false>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out[0..6]: the fast instance's clusters of 16, 8, 4 and 2 the device
+// holds at once, the many-rows instance's CTAs a SM at `dyn` bytes of rows,
+// the cluster instance's CTAs a SM at the same rows, and the device's SMs;
+// then out[7..13], the zoned instance's (its rows at `dyn_zone`)
+template <bool ZONE>
+static int batched_info_of(int dyn, int* o) {
+  const BatchedFit* bf = nullptr;
+  int e = batched_fit<ZONE>(bf);
+  if (e == 0) e = batched_many_opt_in<ZONE>(dyn);
+  int dev = 0;
+  if (e == 0) e = (int)cudaGetDevice(&dev);
+  if (e == 0) e = (int)cudaDeviceGetAttribute(&o[6], cudaDevAttrMultiProcessorCount, dev);
+  if (e == 0)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[4], ffd_batched_kernel<ZONE, true>,
+                                                           NTC, dyn);
+  if (e == 0)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[5], ffd_batched_kernel<ZONE, false>,
+                                                           NTC, dyn);
+  if (e != 0) return e;
+  for (int i = 0; i < BATCH_SIZES; ++i) o[i] = bf->fit[i];
+  return 0;
+}
+
+static int batched_info(int dyn, int dyn_zone, int* out) {
+  const int e = batched_info_of<false>(dyn, out);
+  return e != 0 ? e : batched_info_of<true>(dyn_zone, out + 7);
+}
+#endif  // FFD_BATCHED_ONLY
+
 // The sparse launchers take the dense launcher's pointers and dims, then
 // run_q_idx [S, Kq] and run_v_idx [S, Kv] (two more pointers) and Kq, Kv
 // (two more dims). Returns false when the view is wider than the shared
@@ -3603,7 +3749,7 @@ static int ckpt_launch(void** p, int n, const int* d, void* stream) {
               : launch_cluster<false, false, true, SPARSE>(a, stream);
 }
 
-#if !defined(FFD_SPARSE_ONLY) && !defined(FFD_LANES_ONLY)
+#ifdef FFD_MAIN_LIBRARY
 // the clusters of cl NT-thread CTAs of the delta pack the card holds at once
 static cudaError_t pack_cluster_fit(void (*kern)(PackArgs), int cl, int* fit) {
   cudaLaunchConfig_t cfg = {};
@@ -3697,6 +3843,48 @@ int ffd_lanes_sparse_rows_budget(void**, int, const int*, void*) {
 int ffd_lanes_sparse_cluster_info(void** p, int, const int* d, void*) {
   return d[0] < 1 ? (int)cudaErrorInvalidValue : lanes_info(d[0], (int*)p[0]);
 }
+#elif defined(FFD_BATCHED_ONLY)
+// the batched library (ffd_batched_kernels.cu): K4
+// K4. ptrs: the 32 scan inputs; the carry seeds pool_usage0, node_q_member,
+// node_q_owner, b_v_count0 [B, V, Z], node_cand [E], cand_member [B, NC]
+// (bool); the carry [B, ...] (FFDState order, as scan_launch);
+// b_run_count [B, S], leftover [B, S], events [B], scratch [B, row_words].
+// dims: S, G, T, E, P, R, Q, W, M, V, Z, zone, B, NC, row_words, take_off
+// (the offset of the row's take rows in its scratch, after its team's CTA
+// rows), team (1, 2, 4, 8 or 16 CTAs a row: the caller's choice).
+int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 58) return (int)cudaErrorInvalidValue;
+  ScanArgs a{};
+  fill_scan_inputs(a, p, d);
+  a.pool_usage0 = (const int*)p[32]; a.node_q_member = (const int*)p[33];
+  a.node_q_owner = (const int*)p[34]; a.v_count0 = (const int*)p[35];
+  a.node_cand = (const int*)p[36]; a.cand_member = (const unsigned char*)p[37];
+  fill_scan_state(a, p + 38);
+  a.run_count = (const int*)p[54]; a.leftover = (int*)p[55]; a.events = (int*)p[56];
+  a.scratch = (int*)p[57];
+  const bool zone = d[11] != 0;
+  const int B = d[12];
+  a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
+  const int cl = d[16];
+  if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  return zone ? launch_batched<true>(a, B, cl, stream) : launch_batched<false>(a, B, cl, stream);
+}
+
+// The row budget of the batched instances (the least over them); the
+// arguments are unused. Returns the budget, or minus a CUDA error.
+int ffd_batched_rows_budget(void**, int, const int*, void*) {
+  return least_budget({rows_budget(ffd_batched_kernel<false, false>),
+                       rows_budget(ffd_batched_kernel<true, false>),
+                       rows_budget(ffd_batched_kernel<false, true>),
+                       rows_budget(ffd_batched_kernel<true, true>)});
+}
+
+// The teams of the instances at dims[0] / dims[1] bytes of launch-sized
+// rows (fast / zoned): 14 ints into the host buffer ptrs[0] (batched_info).
+// Returns 0 or a CUDA error.
+int ffd_batched_info(void** p, int, const int* d, void*) {
+  return batched_info(d[0], d[1], (int*)p[0]);
+}
 #elif defined(FFD_LANES_ONLY)
 // the lanes library (ffd_lanes_kernels.cu): K15, and K17 (the same
 // instances, shared tables at a per-lane count of 0)
@@ -3735,29 +3923,6 @@ int ffd_scan_launch(void** p, int n, const int* d, void* stream) {
   return scan_launch<false>(p, n, d, stream);
 }
 
-// K4. ptrs: the 32 scan inputs; the carry seeds pool_usage0, node_q_member,
-// node_q_owner, b_v_count0 [B, V, Z], node_cand [E], cand_member [B, NC]
-// (bool); the carry [B, ...] (FFDState order, as scan_launch);
-// b_run_count [B, S], leftover [B, S], events [B], scratch [B, row_words].
-// dims: S, G, T, E, P, R, Q, W, M, V, Z, zone, B, NC, row_words, take_off
-// (the offset of the row's take rows in its scratch).
-int ffd_batched_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 58) return (int)cudaErrorInvalidValue;
-  ScanArgs a{};
-  fill_scan_inputs(a, p, d);
-  a.pool_usage0 = (const int*)p[32]; a.node_q_member = (const int*)p[33];
-  a.node_q_owner = (const int*)p[34]; a.v_count0 = (const int*)p[35];
-  a.node_cand = (const int*)p[36]; a.cand_member = (const unsigned char*)p[37];
-  fill_scan_state(a, p + 38);
-  a.run_count = (const int*)p[54]; a.leftover = (int*)p[55]; a.events = (int*)p[56];
-  a.scratch = (int*)p[57];
-  const bool zone = d[11] != 0;
-  const int B = d[12];
-  a.NC = d[13]; a.row_words = d[14]; a.take_off = d[15];
-  if (!scan_limits_ok(a, zone) || a.NC < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  return zone ? launch_scan<true>(B, a, stream) : launch_scan<false>(B, a, stream);
-}
-
 int ffd_ladder_launch(void** p, int n, const int* d, void* stream) {
   return ladder_launch<false>(p, n, d, stream);
 }
@@ -3766,14 +3931,12 @@ int ffd_ckpt_launch(void** p, int n, const int* d, void* stream) {
   return ckpt_launch<false>(p, n, d, stream);
 }
 
-// The row budget of this library's scan instances (K1, K4, K6, K7, fast and
+// The row budget of this library's scan instances (K1, K6, K7, fast and
 // zoned; the least over them); the arguments are unused. Returns the
 // budget, or minus a CUDA error.
 int ffd_rows_budget(void**, int, const int*, void*) {
   return least_budget({rows_budget(ffd_cluster_kernel<false, false, false>),
                        rows_budget(ffd_cluster_kernel<true, false, false>),
-                       rows_budget(ffd_scan_kernel<false>),
-                       rows_budget(ffd_scan_kernel<true>),
                        rows_budget(ffd_ladder_kernel<false, false>),
                        rows_budget(ffd_ladder_kernel<true, false>),
                        rows_budget(ffd_cluster_kernel<false, true, false>),
@@ -3960,6 +4123,6 @@ int pack_outputs_launch(void** p, int n, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-#endif  // FFD_SPARSE_ONLY / FFD_LANES_ONLY
+#endif  // FFD_SPARSE_ONLY / FFD_BATCHED_ONLY / FFD_LANES_ONLY
 
 }  // extern "C"

@@ -16,12 +16,23 @@ Each solve classifies every ARG_SPEC entry as fresh or stale:
 The stale set packs into ONE contiguous uint8 host buffer at the JAX
 package's offsets (entries back to back, so an odd-sized bool table leaves
 the next int32 entry unaligned), crosses in ONE host→device copy, and ONE
-launch of the unpack kernel (solver/cuda/arena.py) slices it into freshly
-allocated typed tensors. An exact encode-cache hit therefore dispatches
+launch of the unpack kernel (solver/cuda/arena.py) slices it into typed
+views of ONE freshly allocated block (each entry at a multiple of 256
+bytes). An exact encode-cache hit therefore dispatches
 with ZERO uploads; a steady-state delta solve pays one packed message.
 Resident tensors are never written after their unpack (the scan clones its
 carry), so they are safe to reuse across dispatches, the overflow-retry
 redispatch included.
+
+A resident entry keeps its whole block alive. So that a bucket never holds
+more than twice the footprint of its live entries (each entry's bytes
+rounded up to the block's 256-byte alignment), an adopt whose stale
+entries would leave an earlier block under half live moves that block's
+survivors into the new block, as more segments of the same unpack launch
+(device to device: no host byte crosses, the ledger and the eviction order
+are the reference's); a streaming edit (K14), which replaces the run
+tables outside any block, does the same with a launch that only moves.
+`block_bytes(key)` is what a bucket's blocks hold.
 
 `TransferLedger` counts every host→device and device→host byte per solve
 (and cumulatively), so tests assert the zero-upload / single-packed-upload
@@ -160,6 +171,12 @@ def _buffer_split(placement) -> int:
     return n if placement.blocked and n > 1 else 1
 
 
+def _tensors(x) -> tuple:
+    """A resident entry's tensors: the entry itself, or a placed entry's
+    tensors over its mesh's physical devices."""
+    return x if isinstance(x, tuple) else (x,)
+
+
 def _digest(a: np.ndarray) -> bytes:
     """Content digest of a host array (shape/dtype live in the bucket key)."""
     return hashlib.blake2b(
@@ -218,12 +235,22 @@ class ArgumentArena:
         # and ship only (pos, gid, cnt) edit triplets; accounted as
         # "run_host", dropped by invalidate() and eviction
         self._run_host: Dict[tuple, tuple] = {}
+        # the unpack blocks (solver/cuda/arena.py unpack_block) behind the
+        # resident entries: per bucket, each entry's block ids (one per
+        # tensor of the entry; None for a tensor outside any block, as K14's
+        # run tables), and each live block's size in bytes
+        self._homes: Dict[tuple, list] = {}
+        self._blocks: Dict[tuple, Dict[int, int]] = {}
+        self._block_ids = 0
         # ARG_SPEC indices the LAST adopt uploaded (() on an exact hit)
         self.last_stale: tuple = ()
         self.stats: Dict[str, int] = {
             "adopts": 0, "exact_hits": 0, "delta_uploads": 0,
             "full_uploads": 0, "invalidations": 0,
             "event_batches": 0, "event_edits": 0, "evictions": 0,
+            # survivors of earlier blocks moved into a new one, and the
+            # unpack launches that moved any
+            "moved_segments": 0, "compactions": 0,
         }
 
     def invalidate(self) -> None:
@@ -237,6 +264,8 @@ class ArgumentArena:
         self._sparse.clear()
         self._shards.clear()
         self._run_host.clear()
+        self._homes.clear()
+        self._blocks.clear()
         self._bytes.clear()
         self.last_stale = ()
         self.stats["invalidations"] += 1
@@ -256,6 +285,8 @@ class ArgumentArena:
         self._ckpts.pop(key, None)
         self._shards.pop(key, None)
         self._run_host.pop(key, None)
+        self._homes.pop(key, None)
+        self._blocks.pop(key, None)
         for lk in [lk for lk in self._ladders if lk[0] == key]:
             self._ladders.pop(lk, None)
         for sk in [sk for sk in self._sparse if sk[0] == key]:
@@ -412,11 +443,107 @@ class ArgumentArena:
         dev_ev = array_to_torch(events, self.device)
         self.ledger.record_upload(events.nbytes, 1, msgs=1)
         dev[0], dev[1] = ffd.ffd_apply_events(dev[0], dev[1], dev_ev)
+        homes = self._homes.get(key)
+        if homes is not None:
+            homes[0] = homes[1] = (None,)
+            self._compact(key, dev)
         tags[0] = (prov[0], dig_rg)
         tags[1] = (prov[1], dig_rc)
         self.stats["event_batches"] += 1
         self.stats["event_edits"] += k
         return True
+
+    # -- the unpack blocks behind the resident entries -------------------------
+
+    def block_bytes(self, key: tuple) -> int:
+        """Bytes the bucket's unpack blocks hold, and its tensors outside
+        any block (K14's run tables)."""
+        bkt, homes = self._buckets.get(key), self._homes.get(key)
+        if bkt is None or homes is None:
+            return 0
+        loose = sum(int(t.nbytes) for x, h in zip(bkt[0], homes) if h
+                    for t, b in zip(_tensors(x), h) if b is None)
+        return sum(self._blocks.get(key, {}).values()) + loose
+
+    def live_bytes(self, key: tuple) -> int:
+        """The footprints (bytes rounded up to the block's alignment) of the
+        bucket's resident tensors: block_bytes(key) stays within twice it."""
+        from .cuda.arena import aligned
+
+        bkt = self._buckets.get(key)
+        if bkt is None:
+            return 0
+        return sum(aligned(t.nbytes) for x in bkt[0] if x is not None for t in _tensors(x))
+
+    def _moves(self, key: tuple, dev: list, keep) -> List[Tuple[int, int]]:
+        """(entry, tensor) of the resident tensors to move into this
+        adopt's block: every tensor of `keep` (the entries that stay) in a
+        block those that go would leave under half live (footprints)."""
+        from .cuda.arena import aligned
+
+        homes = self._homes.get(key)
+        if not homes:
+            return []
+        live: Dict[int, int] = {}
+        for i in keep:
+            for t, b in zip(_tensors(dev[i]), homes[i] or ()):
+                if b is not None:
+                    live[b] = live.get(b, 0) + aligned(t.nbytes)
+        low = {b for b, size in self._blocks[key].items() if 2 * live.get(b, 0) < size}
+        if not low:
+            return []
+        return [(i, j) for i in keep for j, b in enumerate(homes[i] or ()) if b in low]
+
+    def _settle(self, key: tuple, dev: list, placed: list) -> None:
+        """Record this adopt's blocks: `placed` lists (entry, tensor slot,
+        block id, block bytes) of every tensor now in a new block; blocks
+        no entry references any more are dropped."""
+        homes = self._homes.setdefault(key, [None] * len(dev))
+        blocks = self._blocks.setdefault(key, {})
+        for i, j, b, size in placed:
+            h = list(homes[i] or (None,) * len(_tensors(dev[i])))
+            h[j] = b
+            homes[i] = tuple(h)
+            blocks[b] = size
+        refs = {b for h in homes if h for b in h}
+        for b in [b for b in blocks if b not in refs]:
+            del blocks[b]
+
+    def _rehome(self, dev: list, here, moved, b: int, size: int, placed: list) -> None:
+        """Put the moved copies of a placed bucket's survivors `here`
+        ((entry, tensor slot)) in their entries and record them in block b."""
+        for (i, k), t in zip(here, moved):
+            x = list(_tensors(dev[i]))
+            x[k] = t
+            dev[i] = tuple(x) if isinstance(dev[i], tuple) else t
+            placed.append((i, k, b, size))
+        self._moved(len(here))
+
+    def _new_block(self) -> int:
+        self._block_ids += 1
+        return self._block_ids
+
+    def _compact(self, key: tuple, dev: list) -> None:
+        """A launch that only moves: the survivors of every block left
+        under half live, into one new block (a single-device bucket)."""
+        from .cuda.arena import upload_block
+
+        moves = self._moves(key, dev, [i for i, x in enumerate(dev) if x is not None])
+        if not moves:
+            return
+        _, moved, block = upload_block([], 0, (), self.device,
+                                       moves=[dev[i] for i, _ in moves])
+        b = self._new_block()
+        for (i, _), t in zip(moves, moved):
+            dev[i] = t
+        self._moved(len(moves))
+        self._settle(key, dev, [(i, 0, b, int(block.numel())) for i, _ in moves])
+
+    def _moved(self, n: int) -> None:
+        """Count one unpack launch that moved n survivors (none: nothing)."""
+        if n:
+            self.stats["moved_segments"] += n
+            self.stats["compactions"] += 1
 
     def context_signature(self, key: tuple, exclude: tuple = ()) -> Optional[tuple]:
         """Content signature of the bucket's resident entries OUTSIDE
@@ -446,7 +573,7 @@ class ArgumentArena:
         placement, each entry a tuple of tensors over the mesh's physical
         devices."""
         from ..parallel.sharded import Placement, device_scope
-        from .cuda.arena import pack, upload_packed
+        from .cuda.arena import pack, upload_block
 
         self.stats["adopts"] += 1
         key = self.bucket_key(host_args, sharding, ns=ns)
@@ -492,6 +619,11 @@ class ArgumentArena:
             for i in stale:
                 groups.setdefault(placements[i], []).append(i)
             total = shard = 0
+            stale_set = set(stale)
+            # survivors to move, each with the first upload to its device
+            pending = self._moves(key, dev, [i for i in range(len(dev))
+                                             if dev[i] is not None and i not in stale_set])
+            placed = []
             for plc, idxs in groups.items():
                 mesh = plc.mesh
                 per_dev = []
@@ -500,24 +632,54 @@ class ArgumentArena:
                     parts, off, specs = pack([
                         np.ascontiguousarray(host_args[i][rows]) if plc.blocked else host_args[i]
                         for i in idxs])
+                    here = [(i, k) for i, k in pending if _tensors(dev[i])[k].device == d]
+                    pending = [m for m in pending if m not in here]
                     with device_scope(d):
-                        per_dev.append(upload_packed(parts, off, specs, d))
+                        new, moved, block = upload_block(
+                            parts, off, specs, d, moves=[_tensors(dev[i])[k] for i, k in here])
+                    b = self._new_block()
+                    size = int(block.numel())
+                    per_dev.append(new)
+                    placed += [(i, j, b, size) for i in idxs]
+                    self._rehome(dev, here, moved, b, size, placed)
                 for k, i in enumerate(idxs):
                     dev[i] = tuple(new[k] for new in per_dev)
                 nb = sum(int(host_args[i].nbytes) for i in idxs)
                 total += nb
                 if _buffer_split(plc) > 1:
                     shard += nb
+            # survivors on a device no stale group uploads to: a launch that
+            # only moves, one a device
+            while pending:
+                d = _tensors(dev[pending[0][0]])[pending[0][1]].device
+                here = [(i, k) for i, k in pending if _tensors(dev[i])[k].device == d]
+                pending = [m for m in pending if m not in here]
+                with device_scope(d):
+                    _, moved, block = upload_block(
+                        [], 0, (), d, moves=[_tensors(dev[i])[k] for i, k in here])
+                self._rehome(dev, here, moved, self._new_block(), int(block.numel()), placed)
+            self._settle(key, dev, placed)
             led.record_upload(total, len(stale), msgs=len(groups), shard_bytes=shard)
             led.record_adopt("full_upload" if full else "delta_upload")
             self._enforce_budget(key)
             return tuple(dev)
         # pack stale entries back to back into one byte buffer -> one copy
-        # to the device -> one unpack launch into typed tensors
+        # to the device -> one unpack launch into one block of typed views,
+        # with the survivors of any block the stale entries leave under half
+        # live moved into it
+        stale_set = set(stale)
+        moves = self._moves(key, dev, [i for i in range(len(dev))
+                                       if dev[i] is not None and i not in stale_set])
         parts, off, specs = pack([host_args[i] for i in stale])
-        new = upload_packed(parts, off, specs, self.device)
+        new, moved, block = upload_block(parts, off, specs, self.device,
+                                         moves=[dev[i] for i, _ in moves])
         for j, i in enumerate(stale):
             dev[i] = new[j]
+        for (i, _), t in zip(moves, moved):
+            dev[i] = t
+        self._moved(len(moves))
+        b, size = self._new_block(), int(block.numel())
+        self._settle(key, dev, [(i, 0, b, size) for i in (*stale, *(i for i, _ in moves))])
         led.record_upload(off, len(stale), msgs=1)
         led.record_adopt("full_upload" if full else "delta_upload")
         self._enforce_budget(key)

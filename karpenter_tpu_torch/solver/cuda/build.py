@@ -7,7 +7,8 @@ library lands in build/karpenter_tpu_torch/ at the repository root, named
 by a hash of its source and of the sources it includes (the sparse scan
 instances are ffd_kernels.cu built a second time with FFD_SPARSE_ONLY, the
 lane-batched scan a third time with FFD_LANES_ONLY, the sparse lanes of a
-mesh-sharded solve a fourth time with FFD_LANES_ONLY and FFD_LANES_SPARSE), so
+mesh-sharded solve a fourth time with FFD_LANES_ONLY and FFD_LANES_SPARSE,
+and the batched consolidation scan a fifth time with FFD_BATCHED_ONLY), so
 an edited source rebuilds and an unchanged one loads at once. ptxas's
 resource report (registers, spills per kernel) is kept beside each library
 and read into BUILD_LOG either way. A missing nvcc or a failed build
@@ -30,6 +31,7 @@ SOURCES = {
     "ffd_sparse_kernels": PKG_ROOT / "csrc" / "ffd_sparse_kernels.cu",
     "ffd_lanes_kernels": PKG_ROOT / "csrc" / "ffd_lanes_kernels.cu",
     "ffd_lanes_sparse_kernels": PKG_ROOT / "csrc" / "ffd_lanes_sparse_kernels.cu",
+    "ffd_batched_kernels": PKG_ROOT / "csrc" / "ffd_batched_kernels.cu",
     "arena_kernels": PKG_ROOT / "csrc" / "arena_kernels.cu",
     "class_kernels": PKG_ROOT / "csrc" / "class_kernels.cu",
     "convex_kernels": PKG_ROOT / "csrc" / "convex_kernels.cu",
@@ -37,14 +39,16 @@ SOURCES = {
 # sources a library includes besides its own (their bytes enter its hash)
 INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_kernels": (SOURCES["ffd_kernels"],),
-            "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],)}
+            "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],),
+            "ffd_batched_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the four *_rows_budget queries, the four *cluster_info queries and admm_info take the
-# same arguments; the budgets ignore them, the cluster queries and admm_info write into the
-# host buffer ptrs[0]; the lanes' cluster queries read B from dims[0])
+# (the *_rows_budget queries, the four *cluster_info queries, ffd_batched_info and
+# admm_info take the same arguments; the budgets ignore them, the cluster queries,
+# ffd_batched_info and admm_info write into the host buffer ptrs[0]; the lanes' cluster
+# queries read B from dims[0], ffd_batched_info its rows' bytes from dims[0:2])
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "pack_delta_launch", "mask_words_launch",
-                    "ffd_batched_launch", "pack_verdicts_launch", "ffd_ladder_launch",
+                    "pack_verdicts_launch", "ffd_ladder_launch",
                     "ffd_ckpt_launch", "pack_outputs_launch", "ffd_rows_budget",
                     "ffd_cluster_info", "floordiv_check_launch", "cluster_barrier_launch"),
     "ffd_sparse_kernels": ("ffd_scan_sparse_launch", "ffd_ladder_sparse_launch",
@@ -53,6 +57,7 @@ LAUNCHERS = {
     "ffd_lanes_kernels": ("ffd_lanes_launch", "ffd_lanes_rows_budget", "ffd_lanes_cluster_info"),
     "ffd_lanes_sparse_kernels": ("ffd_lanes_sparse_launch", "ffd_lanes_sparse_rows_budget",
                                  "ffd_lanes_sparse_cluster_info"),
+    "ffd_batched_kernels": ("ffd_batched_launch", "ffd_batched_rows_budget", "ffd_batched_info"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "preemption_walk_launch",
                       "block_barrier_launch", "explain_pack_launch"),

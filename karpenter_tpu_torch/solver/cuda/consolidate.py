@@ -21,9 +21,12 @@ under-count claims for rows that are already rejected (used > 1).
 
 Two kernels, each with a plain PyTorch version beside it:
 
-- `batched_ffd` (csrc/ffd_kernels.cu K4, `ffd_scan_kernel<ZONE>`):
-  the FFD scan over B subset rows, one block per row, verdict mode (no
-  per-run take tables);
+- `batched_ffd` (csrc/ffd_kernels.cu K4, `ffd_batched_kernel<ZONE, MANY>`,
+  built as csrc/ffd_batched_kernels.cu): the FFD scan over B subset rows,
+  verdict mode (no per-run take tables), on K1's cluster team; the wrapper
+  picks the team from B and what the card holds (`batched_team`) and the
+  launcher takes it: one cluster of CL CTAs a row where the card holds all
+  B such clusters at once, else one CTA a row, several rows an SM;
 - `pack_verdicts` (K5): each row's leftover total, `used`, zc bits and
   bit-packed type mask in one int32 buffer, so a dispatch is one fetch.
 
@@ -51,6 +54,7 @@ process `make_candidate_mesh(slots, hosts)` splits the slots contiguously
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -119,8 +123,90 @@ def batched_ffd_plain(shared_args, b_run_count, b_v_count0, cand_member, node_ca
     )
 
 
+# The batched scan's cluster sizes, widest first (csrc/ffd_kernels.cu
+# BATCH_CL); past them the team is one CTA a row (1)
+BATCH_CLUSTERS = (16, 8, 4, 2)
+
+
+def batched_team(B: int, fits: dict) -> int:
+    """The team a launch of B subset rows takes (the wrapper passes it to
+    csrc/ffd_kernels.cu launch_batched): the largest of BATCH_CLUSTERS whose clusters the card holds
+    all B rows at once; past every size 1, one CTA a row of the many-rows
+    instance, the rows past what the card holds at once in waves. `fits`:
+    {size: clusters of that size the card holds at once, 1: CTAs of the
+    many-rows instance it holds at once}, 0 or missing where it refuses a
+    size. Raises for B < 1 and where the card holds neither team."""
+    if B < 1:
+        raise ValueError(f"batched_team: B={B} < 1")
+    for cl in BATCH_CLUSTERS:
+        if fits.get(cl, 0) >= B:
+            return cl
+    if fits.get(1, 0) >= 1:
+        return 1
+    raise ValueError(f"batched_team: the card holds no team of {BATCH_CLUSTERS} or 1 ({fits})")
+
+
+_FITS: dict = {}
+
+
+def _rows_bytes(a: dict, zone_engine: bool) -> int:
+    return ffd.scan_rows_bytes(int(a["q_kind"].shape[0]), 0, int(a["v_kind"].shape[0]), 0,
+                               zone_engine)
+
+
+def batched_fits(device, zone_engine: bool, rows_bytes: int) -> Optional[dict]:
+    """The batched instance's teams on `device` at a launch of `rows_bytes`
+    of launch-sized rows (ffd_batched_info, once per device and size):
+    {16, 8, 4, 2: clusters the card holds at once (the cluster instance at
+    its widest launch), 1: CTAs of the many-rows instance it holds at once,
+    "per_sm": that instance's CTAs a SM, "cluster_per_sm": the cluster
+    instance's, "sms": the card's SMs}. None on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (idx, bool(zone_engine), int(rows_bytes))
+    fits = _FITS.get(key)
+    if fits is None:
+        from .build import load
+
+        out = (ctypes.c_int * 14)()
+        with torch.cuda.device(idx):
+            rc = load("ffd_batched_kernels").ffd_batched_info(
+                (ctypes.c_void_p * 1)(ctypes.addressof(out)), 1,
+                ffd._ints([rows_bytes, rows_bytes]), None)
+        ffd._raise_on(rc, "ffd_batched_info")
+        o = out[7:14] if zone_engine else out[0:7]
+        fits = dict(zip(BATCH_CLUSTERS, o[0:4]))
+        fits.update({1: o[4] * o[6], "per_sm": o[4], "cluster_per_sm": o[5], "sms": o[6]})
+        _FITS[key] = fits
+    return fits
+
+
+def batched_team_info(shared_args, B: int, zone_engine: bool) -> dict:
+    """The team a launch of B rows over `shared_args` takes on their card,
+    as chip_smoke.py and tools/batched_ab.py report it: shape, cl, CTAs a
+    row, threads a CTA, blocks a SM by the occupancy query, rows at once,
+    waves, and the fits."""
+    a = dict(zip(ffd.ARG_SPEC, shared_args))
+    fits = batched_fits(a["node_free"].device, zone_engine, _rows_bytes(a, zone_engine))
+    cl = batched_team(B, fits)
+    at_once = fits[cl]
+    return dict(shape="one CTA a row" if cl == 1 else "one cluster a row", cl=cl,
+                ctas_per_row=cl, threads_per_cta=ffd.CLUSTER_THREADS,
+                blocks_per_sm=fits["per_sm"] if cl == 1 else fits["cluster_per_sm"],
+                rows_at_once=at_once, waves=-(-B // at_once),
+                fits={k: v for k, v in fits.items() if isinstance(k, int)})
+
+
 def _batched_ffd_cuda(shared_args, b_run_count, b_v_count0, cand_member, node_cand,
-                      max_claims: int = 16, zone_engine: bool = True) -> FFDOutput:
+                      max_claims: int = 16, zone_engine: bool = True,
+                      team: Optional[int] = None) -> FFDOutput:
+    """K4 on the card, on the team `batched_team` picks from the card's
+    fits; the row scratch is sized for that team and the launcher takes it
+    as given. `team` (1, 2, 4, 8 or 16) forces another: chip_smoke.py and
+    tools/batched_ab.py use it to hold and time every shape; the main path
+    passes none."""
     from .build import load
 
     a = dict(zip(ffd.ARG_SPEC, shared_args))
@@ -135,6 +221,11 @@ def _batched_ffd_cuda(shared_args, b_run_count, b_v_count0, cand_member, node_ca
     if NC < 1:
         raise ValueError(f"{name}: the candidate axis is empty")
     dev = b_run_count.device
+    cl = batched_team(B, batched_fits(dev, zone_engine, _rows_bytes(a, zone_engine)))
+    if team is not None:
+        if team not in (1, *BATCH_CLUSTERS):
+            raise ValueError(f"{name}: team {team} is not 1 or one of {BATCH_CLUSTERS}")
+        cl = int(team)
     e = lambda *s: torch.empty((B, *s), dtype=I32, device=dev)  # noqa: E731
     eb = lambda *s: torch.empty((B, *s), dtype=torch.bool, device=dev)  # noqa: E731
     # the carry, seeded by the kernel's prologue from the shared seeds and
@@ -147,17 +238,17 @@ def _batched_ffd_cuda(shared_args, b_run_count, b_v_count0, cand_member, node_ca
     )
     leftover = e(Sp)
     events = e()
-    take_off = ffd.scan_scratch_words(E, M, T, Z)
-    row_words = ffd.batch_scratch_words(E, M, T, Z)
+    take_off = ffd.batch_take_offset(E, M, T, Z, cl)
+    row_words = ffd.batch_scratch_words(E, M, T, Z, cl)
     scratch = torch.empty((B * row_words,), dtype=I32, device=dev)
     seeds = [a["pool_usage0"], a["node_q_member"], a["node_q_owner"], b_v_count0,
              node_cand, cand_member]
     ptrs = ([a[n] for n in ffd._SCAN_INPUTS] + seeds + list(st)
             + [b_run_count, leftover, events, scratch])
-    rc = load().ffd_batched_launch(
+    rc = load("ffd_batched_kernels").ffd_batched_launch(
         ffd._ptrs(ptrs), len(ptrs),
         ffd._ints([Sp, G, T, E, P, R, Q, W, M, V, Z, int(zone_engine), B, NC,
-                   row_words, take_off]),
+                   row_words, take_off, cl]),
         ffd._stream(),
     )
     ffd._raise_on(rc, name)

@@ -220,8 +220,9 @@ DELTA_ENTRY_U16 = 2  # (code, count) uint16 per entry word; code = e | E+m
 # kernels. The scan counts its instances apart: ffd_fast_scan is
 # ffd_cluster_kernel<false, false, false> (zone_engine=False), ffd_zoned_scan
 # is ffd_cluster_kernel<true, false, false>; the batched consolidation scan
-# (consolidate.batched_ffd) is ffd_scan_kernel<false> (ffd_batched_fast_scan)
-# and <true> (ffd_batched_zoned_scan); pack_verdicts is
+# (consolidate.batched_ffd) is ffd_batched_kernel<false, *>
+# (ffd_batched_fast_scan) and <true, *> (ffd_batched_zoned_scan), on either
+# team; pack_verdicts is
 # consolidate.pack_verdicts; the relax-ladder scan (ffd_solve_ladder) is
 # ffd_ladder_kernel<false, false> (ffd_ladder_fast_scan) and <true, false>
 # (ffd_ladder_zoned_scan); the checkpointed scan (ffd_solve_ckpt and
@@ -1657,7 +1658,7 @@ def scan_rows_budget(device):
     """The bytes of launch-sized shared rows (scan_rows_bytes) a scan launch
     holds on `device`: the card's opt-in shared memory per block less an
     instance's static share, the least over every scan instance (the
-    *_rows_budget query of each of the four scan libraries). None on the
+    *_rows_budget query of each of the five scan libraries). None on the
     CPU, where the plain versions hold any Q and V."""
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -1673,7 +1674,8 @@ def scan_rows_budget(device):
                                        ("ffd_sparse_kernels", "ffd_sparse_rows_budget"),
                                        ("ffd_lanes_kernels", "ffd_lanes_rows_budget"),
                                        ("ffd_lanes_sparse_kernels",
-                                        "ffd_lanes_sparse_rows_budget"))]
+                                        "ffd_lanes_sparse_rows_budget"),
+                                       ("ffd_batched_kernels", "ffd_batched_rows_budget"))]
         if min(budgets) < 0:
             raise RuntimeError(f"ffd_rows_budget: CUDA error {-min(budgets)}")
         budget = _BUDGETS[idx] = min(budgets)
@@ -1733,8 +1735,10 @@ def scan_scratch_words(E: int, M: int, T: int, Z: int) -> int:
 # cluster of up to MAX_CL CTAs of CLUSTER_THREADS threads (16 where the card
 # allows, else 8; cluster_info); the lanes scans (K15, K17, K17s:
 # ffd_lanes_kernel, ffd_lanes_sparse_kernel) one such cluster a lane, of
-# LANE_CLUSTERS CTAs as lanes_cluster picks; the batched scan K4 keeps one
-# block of NT threads a row.
+# LANE_CLUSTERS CTAs as lanes_cluster picks; the batched scan K4
+# (ffd_batched_kernel) one such cluster a subset row, or one CTA a row
+# (cuda/consolidate.py batched_team). NT: the threads of the one-block
+# kernels (the delta pack's CTAs).
 MAX_CL = 16
 CLUSTER_THREADS = 512
 NT = 1024
@@ -1888,11 +1892,19 @@ def cluster_barriers(n: int, cl: int) -> None:
     _raise_on(rc, "cluster_barrier")
 
 
-def batch_scratch_words(E: int, M: int, T: int, Z: int) -> int:
-    """int32 words of one subset row's scratch in the batched scan: the
-    scan's own scratch, then the row's [E] and [M] take rows of the current
-    run and its [E] removed-node mask."""
-    return scan_scratch_words(E, M, T, Z) + 2 * E + M
+def batch_scratch_words(E: int, M: int, T: int, Z: int, cl: int) -> int:
+    """int32 words of one subset row's scratch in the batched scan on a
+    team of cl CTAs (1: one CTA a row): the scan's own scratch, its CTAs'
+    own rows (k_t, fit_t, k_cap [T]; scat_z, scat_take [M]), then the row's
+    [E] and [M] take rows of the current run and its [E] removed-node mask
+    (batch_take_offset: where the take rows start)."""
+    return batch_take_offset(E, M, T, Z, cl) + 2 * E + M
+
+
+def batch_take_offset(E: int, M: int, T: int, Z: int, cl: int) -> int:
+    """The offset of a subset row's take rows in its scratch (the scan's
+    own scratch, then cl CTAs' own rows)."""
+    return scan_scratch_words(E, M, T, Z) + cl * (3 * T + 2 * M)
 
 
 def _scan_name(kind: str, zone_engine: bool, sparse) -> str:

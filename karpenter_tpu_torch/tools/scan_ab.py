@@ -11,25 +11,23 @@ commit unpacked with `git archive`), then
   spill stores and spill loads (a kernel whose numbers moved is listed);
 - holds each build's outputs equal and times them in turns (this, other,
   other, this) ROUNDS times, CUDA events around CALLS calls each (fewer
-  for the slow K4 and K6 rows, SLOW_CALLS): K1 fast (ffd_fast_scan) at the
+  for the slow K6 rows, SLOW_CALLS): K1 fast (ffd_fast_scan) at the
   50 000-pod surge's kernel arguments, K15 fast (ffd_lanes_fast_scan) at
   8 lanes of them, K15 zoned (ffd_lanes_zoned_scan) at 8 lanes of config
   3's, the checkpointed fast scan (ffd_ckpt_fast_scan, K7
   fast) at the surge's, the checkpointed zoned scan (ffd_ckpt_zoned_scan)
   and its sparse twin (ffd_ckpt_sparse_zoned_scan) at BASELINE config 3's
   (a ring every 16 steps, 4 slots: TorchSolver's defaults), K1 zoned
-  (ffd_zoned_scan) at config 3's; then the one-block scans: K4 fast and
-  zoned (ffd_batched_*_scan) at config 5's 511-row dispatch (10 000 nodes,
-  2 000 candidates; the zoned instance on the same rows); the lanes of a
-  sharded solve: K17 fast (ffd_sharded_fast_scan) at the surge over Nd 4
-  run blocks, K17 zoned (ffd_sharded_zoned_scan) and K17s zoned
+  (ffd_zoned_scan) at config 3's; the lanes of a sharded solve: K17 fast
+  (ffd_sharded_fast_scan) at the surge over Nd 4 run blocks, K17 zoned (ffd_sharded_zoned_scan) and K17s zoned
   (ffd_sharded_sparse_zoned_scan) at config 3's over Nd 4; and the ladder
   scans: K6 fast (ffd_ladder_fast_scan) at the surge_pref cell's ladder
   dispatch, K6 zoned at config3_soft's (dense tables) and its sparse twin
   (ffd_ladder_sparse_zoned_scan, the main path's) on the union index
   tables, and K6 zoned at the relax walk's (chip_smoke.WALK_PODS pods,
   every pod after an app's first relaxes: ffd_ladder_zoned_scan_walk,
-  WALK_CALLS calls a timing).
+  WALK_CALLS calls a timing). K4, the batched consolidation scan, is
+  tools/batched_ab.py's.
 
 The JSON also lists both builds' registers and spills of every kernel
 (ptxas "this_all", "other_all").
@@ -56,9 +54,8 @@ ROUNDS = 3  # (this, other, other, this) rounds
 AB_LIBS = ("ffd_kernels", "ffd_sparse_kernels", "ffd_lanes_kernels", "ffd_lanes_sparse_kernels")
 LANES = 8  # K15's lanes (cohort_surge's, cohort_config3's)
 CALLS = 20  # calls per timing
-SLOW_CALLS = 5  # calls per timing of K4 (~2 ms a dispatch) and K6 (~2-17 ms)
-SLOW = ("ffd_batched_fast_scan", "ffd_batched_zoned_scan", "ffd_ladder_fast_scan",
-        "ffd_ladder_zoned_scan", "ffd_ladder_sparse_zoned_scan")
+SLOW_CALLS = 5  # calls per timing of K6 (~2-17 ms)
+SLOW = ("ffd_ladder_fast_scan", "ffd_ladder_zoned_scan", "ffd_ladder_sparse_zoned_scan")
 WALK_CALLS = 1  # calls per timing of K6 at the relax walk (~1 s a call)
 SHARD_ND = 4  # K17's run blocks
 
@@ -87,8 +84,7 @@ def _build_other(other: str):
     for name, path in paths.items():
         lib = ctypes.CDLL(str(path))
         for fname in ("ffd_scan_launch", "ffd_ckpt_launch", "ffd_ckpt_sparse_launch",
-                      "ffd_lanes_launch", "ffd_lanes_sparse_launch", "ffd_batched_launch",
-                      "ffd_ladder_launch",
+                      "ffd_lanes_launch", "ffd_lanes_sparse_launch", "ffd_ladder_launch",
                       "ffd_ladder_sparse_launch", "pack_verdicts_launch"):
             if hasattr(lib, fname):
                 getattr(lib, fname).argtypes = [ptrs, ctypes.c_int, ints, ctypes.c_void_p]
@@ -126,22 +122,10 @@ def scan_ab(other: str) -> dict:
     kw_fast = dict(max_claims=surge["M"], zone_engine=False, ckpt_every=16, n_ckpt=4)
     lanes, lanes_c3 = (tuple(a.unsqueeze(0).expand((LANES,) + tuple(a.shape)).contiguous()
                              for a in p["args"]) for p in (surge, ph))
-    # the one-block scans K4 at config 5's 511-row dispatch and K17 at the
-    # surge's Nd 4 run blocks; K6 / K6s at the ladder cells' and the relax
-    # walk's dispatches
-    from karpenter_tpu_torch.disruption.batched import (
-        BatchedConsolidationEvaluator, binary_probe_frontier,
-    )
+    # K17 at the surge's Nd 4 run blocks; K6 / K6s at the ladder cells' and
+    # the relax walk's dispatches
     from karpenter_tpu_torch.solver import backend as tb
-    from karpenter_tpu_torch.solver.cuda import consolidate as cons
 
-    ev = BatchedConsolidationEvaluator(tb.TorchSolver())
-    prep = ev.prepare(*cs.build_config5_universe(10_000, 2_000))
-    ks = sorted(set(binary_probe_frontier(2, 2_000, 9)))
-    rows = cons.subset_rows(prep.args, prep.pod_cand, prep.pod_run, [list(range(k)) for k in ks],
-                            prep.node_idx, prep.v_delta, prep.v_count0_host)
-    drows = cons.upload_rows(rows, dev)
-    M5 = ev.max_claims
     lad_f = cs.ladder_args(cs.build_surge_pref_input(cs.PODS), dev)
     lad_z = cs.ladder_args(cs.build_config3_soft_input(cs.PODS), dev)
     lad_w = cs.ladder_args(cs.build_relax_walk_input(cs.WALK_PODS), dev)
@@ -160,8 +144,6 @@ def scan_ab(other: str) -> dict:
            "ffd_ckpt_fast_scan": lambda: ffd.ffd_solve_ckpt(*surge["args"], **kw_fast),
            "ffd_ckpt_zoned_scan": lambda: ffd.ffd_solve_ckpt(*args, **kw),
            "ffd_ckpt_sparse_zoned_scan": lambda: ffd.ffd_solve_ckpt_sparse(*sp, *args, **kw),
-           "ffd_batched_fast_scan": lambda: cons.batched_ffd(prep.args, *drows, M5, False),
-           "ffd_batched_zoned_scan": lambda: cons.batched_ffd(prep.args, *drows, M5, True),
            "ffd_ladder_fast_scan": lambda: ffd.ffd_solve_ladder(lad_f[2], *lad_f[1], max_claims=M6f),
            "ffd_ladder_zoned_scan": lambda: ffd.ffd_solve_ladder(lad_z[2], *lad_z[1], max_claims=M6z,
                                                                  zone_engine=True),
@@ -177,8 +159,6 @@ def scan_ab(other: str) -> dict:
                *sp_c3, *blocks_c3, *shared_c3, max_claims=M, zone_engine=True)}
 
     def outputs(k, o):
-        if k.startswith("ffd_batched"):
-            return [o.leftover, o.events, *o.state]
         if k.startswith("ffd_ladder"):
             return cs._scan_outputs(o) + [o.attempts]
         if not k.startswith("ffd_ckpt"):
