@@ -104,10 +104,14 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    seeded and adversarial tables (a budget of 0 and one crossed inside a
    candidate, free fits, all-false node rows, int32 wrap, victims at the
    candidate's priority, Vm 70 with R 16) and on the 10 000-node tables
-   walked under the class budget; and K12 at the
-   outputs of surge_e2e, config 3 and class_contended's cold inner solve,
-   at top_k 8 and above Ep; a record built from K12's wire must equal the
-   host-derived one. The delta pack is held there too, at class_contended's
+   walked under the class budget; and K12 (one launch: explain_kernel, the
+   local team or the cooperative grid) at the outputs of surge_e2e, config 3 and
+   class_contended's cold inner solve, at top_k 8 and above Ep, and on
+   explain_crafted_tables (groups with no runs, runs at or past g_count,
+   e_count < Ep, g_count < Gp, Ep past one staged chunk, top_k past Ep,
+   int32 wrap of the placed sums and the usage, rejections spread thin, no
+   nodes), bit for bit on the team the launch picks and on each team
+   forced; a record built from K12's wire must equal the host-derived one. The delta pack is held there too, at class_contended's
    inner solve and at build_claim_table's M 8 192 table, on clusters of
    each of PACK_CLS's sizes as well. class_zone runs at bench.py's 1 000 gangs (V > 1 000
    zone sigs in the zoned scan's launch-sized shared rows).
@@ -137,8 +141,12 @@ Runs the port's main path on one NVIDIA GPU and checks it:
    kernel arguments stacked B = 1, 2 and 8 members deep (member i the surge
    at 50 000 + 3 (i % 3) pods) and config 3's (the zoned instance, B = 8);
    K16 (pad_lanes) byte for byte on a 5-member arena-adopted stack padded
-   to 8; K14 (apply_events) on seeded tables (Sp 32 and 4 096, K 0, 8 and
-   1 024 with out-of-range and pad rows) and on the surge's run-table edit.
+   to 8; K14 (apply_events, one launch into one [2, Sp] allocation) on
+   seeded tables (Sp 32 and 4 096, K 0, 8 and 1 024 with out-of-range and
+   pad rows; the rows on the card and handed from the host), at the
+   parameter table's limit of 256 host rows and one row either side, and on
+   the surge's run-table edit from the host, its inputs unwritten and one
+   allocation a call up to the limit.
    Then, with the launch counts reset just before and read just after:
    cohort_surge, 8 tenants' members in one fused dispatch through
    SolveService(TorchSolver()).submit_cohort and through solve_cohort_async
@@ -1967,7 +1975,7 @@ def breakdown(inp, repeats: int, M: int, zone: bool) -> dict:
 # ffd_lanes_kernel<ZONE> and K17s ffd_lanes_sparse_kernel<ZONE> (one cluster
 # a lane); the batched scan K4 ffd_batched_kernel<ZONE, MANY> (one
 # cluster a row, or one CTA a row: MANY; entries 5 and 6 match the fast and
-# the zoned instances of either team, 34-37 name them)
+# the zoned instances of either team, 33-36 name them)
 KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "ffd_cluster_kernel<true, false, false>",
                 "pack_delta_kernel<64>", "pack_delta_kernel<2>", "mask_words_kernel",
@@ -1983,18 +1991,19 @@ KERNEL_NAMES = ("ffd_cluster_kernel<false, false, false>",
                 "ffd_cluster_kernel<false, true, true>",
                 "ffd_cluster_kernel<true, true, true>",
                 "pack_outputs_kernel",
-                # the class and explain kernels (20-24)
+                # the class and explain kernels (20-24: K12's local team, K12
+                # the cooperative grid)
                 "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
-                "explain_sums_kernel", "explain_rows_kernel",
+                "explain_kernel<false>", "explain_kernel<true>",
                 # the lane-batched scan (25, 26; also K17's kernel), the
-                # run-table scatter (27, 28), the lane pad (29) and the sparse
-                # lanes of a mesh-sharded solve (30, 31: K17s)
-                "ffd_lanes_kernel<false>", "ffd_lanes_kernel<true>", "copy_runs_kernel",
+                # run-table edit (27), the lane pad (28) and the sparse
+                # lanes of a mesh-sharded solve (29, 30: K17s)
+                "ffd_lanes_kernel<false>", "ffd_lanes_kernel<true>",
                 "apply_events_kernel", "pad_lanes_kernel",
                 "ffd_lanes_sparse_kernel<false>", "ffd_lanes_sparse_kernel<true>",
-                # the preemption walk (32: one block, 33: a cluster)
+                # the preemption walk (31: one block, 32: a cluster)
                 "preempt_walk_kernel<false>", "preempt_walk_kernel<true>",
-                # the batched scan's instances (34-37: fast one cluster a
+                # the batched scan's instances (33-36: fast one cluster a
                 # row, fast one CTA a row, zoned, zoned)
                 "ffd_batched_kernel<false, false>", "ffd_batched_kernel<false, true>",
                 "ffd_batched_kernel<true, false>", "ffd_batched_kernel<true, true>")
@@ -3599,7 +3608,9 @@ def class_kernel_checks(dev) -> dict:
 def explain_check(ph, dev, ks) -> dict:
     """K12 against its plain version on the card at the outputs of `ph`'s
     solve (kernel_phase), with the side tables TorchSolver builds
-    (backend.explain_args), at each top_k of `ks`."""
+    (backend.explain_args), at each top_k of `ks`, on the team the launch
+    picks and on each team forced (the local team where its layout fits,
+    the cooperative grid)."""
     import torch
 
     from karpenter_tpu_torch.solver import backend as tb
@@ -3610,15 +3621,103 @@ def explain_check(ph, dev, ks) -> dict:
     Sp, Ep = take_e.shape
     side, E, G = tb.explain_args(ph["enc"], Sp, Ep)
     args = [take_e] + [array_to_torch(a, dev) for a in side]
+    Gp, R = int(side[1].shape[0]), int(side[1].shape[1])
     worst = 0
     for k in ks:
-        got = ffd.explain_pack(*args, E, G, top_k=k)
-        torch.cuda.synchronize()
-        err = max_abs_err([got], [ffd.explain_pack_plain(*args, E, G, top_k=k)])
-        assert err == 0, f"explain_pack disagrees with its plain version (top_k={k}, {err})"
-        worst = max(worst, err)
-    return dict(args=args, E=E, G=G, Sp=Sp, Ep=Ep, Gp=int(side[1].shape[0]), ks=list(ks), err=worst,
-                side_bytes=int(sum(a.nbytes for a in side)))
+        want = ffd.explain_pack_plain(*args, E, G, top_k=k)
+        for team in (0,) + ffd.explain_teams(int(Sp), int(Ep), Gp, R):
+            got = ffd._explain_pack_cuda(*args, E, G, top_k=k, team=team)
+            torch.cuda.synchronize()
+            err = max_abs_err([got], [want])
+            assert err == 0, f"explain_pack disagrees with its plain version (top_k={k}, team {team}, {err})"
+            worst = max(worst, err)
+    return dict(args=args, E=E, G=G, Sp=Sp, Ep=Ep, Gp=Gp, ks=list(ks), err=worst,
+                side_bytes=int(sum(a.nbytes for a in side)),
+                team=ffd.explain_team_info(int(Sp), int(Ep), Gp, R, E))
+
+
+def explain_crafted_tables() -> dict:
+    """K12's crafted tables: {name: (the EXPLAIN_ARG_SPEC arrays in numpy,
+    e_count and g_count last, top_k)}. A group with no runs and runs whose
+    group is at or past g_count (seeded); e_count < Ep and g_count < Gp; Ep
+    a multiple of neither 32 nor the staged chunk, and past one chunk (R 16:
+    two chunks); top_k past Ep; take cells whose per-group sums and whose
+    usage wrap int32; few groups with their rejections spread thin over
+    many nodes (later column segments fill the first top_k), or none on
+    the first 128 nodes and past 32 after them with top_k 100 (a later
+    segment walks its columns again); no nodes."""
+    import numpy as np
+
+    def table(seed, Sp, Ep, Gp, R, Z, C, e_count, g_count, top_k, empty=(), take_p=0.1,
+              take_hi=4, req_hi=1000, free_hi=6000, compat_p=0.9, zone_p=0.8, ct_p=0.9,
+              flag_p=0.2):
+        rng = np.random.default_rng(seed)
+        live = np.array([g for g in range(Gp) if g not in empty], dtype=np.int32)
+        run_group = live[rng.integers(0, len(live), Sp)].astype(np.int32)
+        take = (rng.random((Sp, Ep)) < take_p) * rng.integers(1, take_hi + 1, (Sp, Ep))
+        group_req = rng.integers(0, req_hi + 1, (Gp, R))
+        node_free = rng.integers(0, free_hi + 1, (Ep, R))
+        return [take.astype(np.int32), run_group, group_req.astype(np.int32),
+                node_free.astype(np.int32), rng.random((Gp, Ep)) < compat_p,
+                rng.integers(-1, Z + 2, Ep).astype(np.int32),
+                rng.integers(-1, C + 1, Ep).astype(np.int32), rng.random((Gp, Z)) < zone_p,
+                rng.random((Gp, C)) < ct_p, rng.random(Gp) < flag_p, rng.random(Gp) < flag_p,
+                e_count, g_count], top_k
+
+    out = {
+        "seeded": table(1, 64, 96, 16, 3, 3, 2, 90, 12, 8, empty=(5, 13)),
+        "odd_ep_top_k_past": table(2, 40, 37, 8, 2, 2, 2, 37, 8, 50),
+        "two_chunks_r16": table(3, 48, 1000, 12, 16, 4, 3, 990, 11, 16, empty=(2,),
+                                req_hi=400),
+        "contended": table(4, 300, 700, 256, 3, 3, 2, 690, 250, 8, take_p=0.02),
+        "thin_rejections": table(5, 16, 900, 3, 2, 1, 1, 900, 3, 8, take_p=0.01, req_hi=10,
+                                 free_hi=10_000, compat_p=0.995, zone_p=1.0, ct_p=1.0,
+                                 flag_p=0.0),
+        "no_nodes": table(6, 8, 0, 4, 3, 2, 2, 0, 4, 8),
+    }
+    # wrap: group 0's takes on node 5 sum to 2^31 (wraps negative: not
+    # placed), on node 7 to 2^32 + 2 (wraps to 2: placed); large takes times
+    # large requests wrap the usage
+    args, k = table(7, 32, 64, 4, 3, 2, 2, 64, 4, 8, take_p=0.05, take_hi=1 << 20,
+                    req_hi=1 << 20, free_hi=(1 << 31) - 1)
+    take, run_group = args[0], args[1]
+    run_group[:4] = 0
+    take[:2, 5] = 1 << 30
+    take[2:4, 5] = 0
+    take[:3, 7] = 0x55555556
+    take[3, 7] = 0
+    out["wrap"] = (args, k)
+    # past the XK entries a later column segment keeps: the first 128 nodes
+    # admit every group, the rest refuse it (taint), top_k 100
+    args, k = table(8, 16, 900, 3, 2, 1, 1, 900, 3, 100, take_p=0.0, req_hi=0, compat_p=1.0,
+                    zone_p=1.0, ct_p=1.0, flag_p=0.0)
+    args[4][:, 128:] = False
+    out["kept_past_xk"] = (args, k)
+    return out
+
+
+def explain_crafted_check(dev) -> dict:
+    """K12 against its plain version on the card, bit for bit, on
+    explain_crafted_tables, on the team the launch picks and on each team
+    forced; also the plan each team takes there."""
+    import torch
+
+    from karpenter_tpu_torch.solver.convert import array_to_torch
+    from karpenter_tpu_torch.solver.cuda import ffd
+
+    errs, plans = {}, {}
+    for name, (host, k) in explain_crafted_tables().items():
+        args = [array_to_torch(a, dev) for a in host[:11]] + list(host[11:])
+        want = ffd.explain_pack_plain(*args, top_k=k)
+        Sp, Ep = host[0].shape
+        Gp, R = host[2].shape
+        for team in (0,) + ffd.explain_teams(Sp, Ep, Gp, R):
+            got = ffd._explain_pack_cuda(*args, top_k=k, team=team)
+            torch.cuda.synchronize()
+            errs[f"{name}/{team}"] = max_abs_err([got], [want])
+            plans[f"{name}/{team}"] = ffd.explain_team_info(Sp, Ep, Gp, R, host[11], team)
+    assert max(errs.values()) == 0, f"explain_pack disagrees with its plain version: {errs}"
+    return dict(errs=errs, plans=plans)
 
 
 def explain_record_check(inp, k: int) -> dict:
@@ -3935,11 +4034,11 @@ def class_kernel_rows(first, checks, ex, launches, per_solve, ops_per_s) -> list
         library_call="none: no PyTorch call computes the reason codes and packs the first "
         "top_k rejections",
         match=ex["err"] == 0,
-        device_ms=profiled_ms(fn, 20, ("explain_sums_kernel", "explain_rows_kernel")),
+        device_ms=profiled_ms(fn, 20, ("explain_kernel<",)),
         launches_per_solve=per_solve["explain_pack"],
         launches_per_surge_e2e_solve=per_solve["explain_pack_surge_e2e"],
         shape=dict(Sp=ex["Sp"], Ep=ex["Ep"], Gp=ex["Gp"], E=E, G=G, top_k=8, take_nnz=nnz),
-        bytes=moved, ops=ops))
+        team=ex["team"], bytes=moved, ops=ops))
     return rows
 
 
@@ -4862,9 +4961,13 @@ def surge_less_one(inp):
 
 def events_check(surge, dev) -> dict:
     """K14 against its plain version (both on the card) on seeded tables
-    (Sp 32 and 4 096, K 0, 8 and 1 024, out-of-range and pad rows) and on
-    the surge's run tables with the edits of surge_less_one, padded to 8
-    rows as the arena pads them."""
+    (Sp 32 and 4 096, K 0, 8 and 1 024, out-of-range and pad rows), each
+    with its rows on the card and handed from the host; at the parameter
+    table's limit (EVENT_PARAM_ROWS) and one row either side of it, from
+    the host; and on the surge's run tables with the edits of
+    surge_less_one, padded to 8 rows as the arena pads them. The inputs
+    stay unwritten; host rows up to the limit take one allocation a call
+    (the result), past it two (the rows' copy too)."""
     import numpy as np
     import torch
 
@@ -4874,18 +4977,37 @@ def events_check(surge, dev) -> dict:
     from karpenter_tpu_torch.solver.cuda import ffd
     from karpenter_tpu_torch.solver.encode import encode, quantize_input
 
-    def check(rg, rc, ev):
-        t = [array_to_torch(x, dev) for x in (rg, rc, ev)]
-        got = ffd.ffd_apply_events(*t)
+    def allocations(fn) -> int:
         torch.cuda.synchronize()
+        n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["allocation.all.allocated"] - n0
+
+    allocs = {}
+
+    def check(name, rg, rc, ev, host_only=False):
+        t = [array_to_torch(x, dev) for x in (rg, rc, ev)]
         want = ffd.ffd_apply_events_plain(*t)
+        errs[name] = 0
+        for form, rows in (("host", ev), ("card", t[2]))[: 1 if host_only else 2]:
+            got = ffd.ffd_apply_events(t[0], t[1], rows)
+            torch.cuda.synchronize()
+            assert got[0].data_ptr() + 4 * t[0].shape[0] == got[1].data_ptr(), "not one [2, Sp]"
+            errs[name] = max(errs[name], max_abs_err(got, want))
         assert t[0].cpu().numpy().tolist() == rg.tolist(), "apply_events wrote its input"
-        return max_abs_err(got, want), t
+        assert t[1].cpu().numpy().tolist() == rc.tolist(), "apply_events wrote its input"
+        allocs[name] = allocations(lambda: ffd.ffd_apply_events(t[0], t[1], ev))
+        want_allocs = 1 if len(ev) <= ffd.EVENT_PARAM_ROWS else 2
+        assert allocs[name] == want_allocs, (name, allocs[name], want_allocs)
+        return t
 
     errs = {}
     for Sp in (32, 4096):
         for K in (0, 8, 1024):
-            errs[f"Sp{Sp}_K{K}"] = check(*event_rows(Sp + K, Sp, K))[0]
+            check(f"Sp{Sp}_K{K}", *event_rows(Sp + K, Sp, K))
+    for K in (ffd.EVENT_PARAM_ROWS - 1, ffd.EVENT_PARAM_ROWS, ffd.EVENT_PARAM_ROWS + 1):
+        check(f"Sp4096_K{K}", *event_rows(K, 4096, K), host_only=True)
     pairs = []
     for inp in (surge, surge_less_one(surge)):
         h = tb.host_kernel_args(encode(quantize_input(inp)), tb.TorchSolver._bucket)[0]
@@ -4894,12 +5016,12 @@ def events_check(surge, dev) -> dict:
     k = len(ev)
     pad = np.zeros((8 - k, ffd.EVENT_ENTRY_WORDS), np.int32)
     pad[:, 0] = ffd.EVENT_PAD_POS
-    err, t = check(pairs[0][0], pairs[0][1], np.concatenate([ev, pad]))
-    errs["surge"] = err
+    host = np.concatenate([ev, pad])
+    t = check("surge", pairs[0][0], pairs[0][1], host)
     assert max(errs.values()) == 0, f"apply_events disagrees with its plain version: {errs}"
-    return dict(errs=errs, edits=k, tensors=t, pos=array_to_torch(ev[:, 0], dev).long(),
-                gid=array_to_torch(ev[:, 1], dev), cnt=array_to_torch(ev[:, 2], dev),
-                Sp=int(pairs[0][0].shape[0]))
+    return dict(errs=errs, edits=k, tensors=t, host_rows=host, allocations=allocs,
+                pos=array_to_torch(ev[:, 0], dev).long(), gid=array_to_torch(ev[:, 1], dev),
+                cnt=array_to_torch(ev[:, 2], dev), Sp=int(pairs[0][0].shape[0]))
 
 
 def _ms_tail(ms) -> dict:
@@ -5123,25 +5245,30 @@ def cohort_kernel_rows(lanes, lanes_c3, pad, ev, launches, ops_per_s) -> list:
         bound_by=by, library_ms=time_ms(cat_fn, 20),
         library_call="torch.cat of the array and an expand of its last lane, per array "
         "(the plain version is this call)", match=pad["err"] == 0,
-        device_ms=profiled_ms(pad_fn, 20, (KERNEL_NAMES[29],)),
+        device_ms=profiled_ms(pad_fn, 20, (KERNEL_NAMES[28],)),
         shape=dict(n=pad["n"], B=batch, arrays=pad["arrays"]), bytes=moved, ops=0))
     rg, rc, evt = ev["tensors"]
     pos, gid, cnt = ev["pos"], ev["gid"], ev["cnt"]
-    ev_fn = lambda: ffd.ffd_apply_events(rg, rc, evt)  # noqa: E731
+    host = ev["host_rows"]
+    # the main path's form: the staged solve hands K14 its host rows
+    ev_fn = lambda: ffd.ffd_apply_events(rg, rc, host)  # noqa: E731
+    dev_fn = lambda: ffd.ffd_apply_events(rg, rc, evt)  # noqa: E731
     moved = 4 * nbytes(rg) + nbytes(evt)
     b_ms, by = bound(moved, 0, ops_per_s)
     rows.append(dict(
         name="apply_events", route="cuda", source="karpenter_tpu_torch/csrc/arena_kernels.cu",
         replaces="karpenter_tpu/solver/tpu/ffd.py:309", launches=launches["apply_events"],
         max_abs_err=max(ev["errs"].values()), ms=time_ms(ev_fn, 50),
-        plain_ms=time_ms(lambda: ffd.ffd_apply_events_plain(rg, rc, evt), 20),
+        plain_ms=time_ms(lambda: ffd.ffd_apply_events_plain(rg, rc, host), 20),
         bound_ms=b_ms, bound_by=by,
         library_ms=time_ms(lambda: (rg.index_copy(0, pos, gid), rc.index_copy(0, pos, cnt)), 50),
         library_call="torch.Tensor.index_copy of the edit rows into each table (pad rows "
         "filtered out beforehand)", match=max(ev["errs"].values()) == 0,
-        device_ms=profiled_ms(ev_fn, 20, (KERNEL_NAMES[27], KERNEL_NAMES[28])),
-        errs=ev["errs"], shape=dict(Sp=ev["Sp"], K=int(evt.shape[0]), edits=ev["edits"]),
-        bytes=moved, ops=0))
+        device_ms=profiled_ms(ev_fn, 20, (KERNEL_NAMES[27],)),
+        device_rows_ms=time_ms(dev_fn, 50),
+        device_rows_device_ms=profiled_ms(dev_fn, 20, (KERNEL_NAMES[27],)),
+        allocations=ev["allocations"], errs=ev["errs"],
+        shape=dict(Sp=ev["Sp"], K=int(evt.shape[0]), edits=ev["edits"]), bytes=moved, ops=0))
     return rows
 
 
@@ -6129,10 +6256,10 @@ def sharded_phase(dev, ops_per_s: float, refs: dict) -> dict:
             sharded_kernel_row(checks["config3_Nd4"], launches, ops_per_s, KERNEL_NAMES[26],
                                "karpenter_tpu/solver/tpu/ffd.py:2264", lanes_src),
             sharded_kernel_row(checks["hostname_wide_sparse_Nd4"], launches, ops_per_s,
-                               KERNEL_NAMES[30], "karpenter_tpu/solver/tpu/ffd.py:2800",
+                               KERNEL_NAMES[29], "karpenter_tpu/solver/tpu/ffd.py:2800",
                                sparse_src),
             sharded_kernel_row(checks["config3_sparse_Nd4"], launches, ops_per_s,
-                               KERNEL_NAMES[31], "karpenter_tpu/solver/tpu/ffd.py:2800",
+                               KERNEL_NAMES[30], "karpenter_tpu/solver/tpu/ffd.py:2800",
                                sparse_src),
             dict(name="sharded_ffd", route="cuda",
                  source="karpenter_tpu_torch/csrc/ffd_batched_kernels.cu (K4 per physical device)",
@@ -6434,7 +6561,7 @@ def hostmesh_phase(dev, ops_per_s: float, refs: dict) -> dict:
         timing, rows = {}, []
         for name, key, sparse, kname, kern in (
                 ("hostmesh_surge", "surge", False, KERNEL_NAMES[25], "ffd_sharded_fast_scan"),
-                ("hostmesh_config3", "config3", True, KERNEL_NAMES[31],
+                ("hostmesh_config3", "config3", True, KERNEL_NAMES[30],
                  "ffd_sharded_sparse_zoned_scan")):
             ph = refs["phases"][key]
             host = ph["host_args"]
@@ -6705,7 +6832,6 @@ def ptxas_report(report: str) -> dict:
     two teams too)."""
     names = {k: k for k in ("pack_verdicts_kernel", "arena_unpack_kernel", "pack_outputs_kernel",
                             "gang_commit_kernel", "preempt_scan_kernel", "preempt_take_kernel",
-                            "explain_sums_kernel", "explain_rows_kernel", "copy_runs_kernel",
                             "apply_events_kernel", "pad_lanes_kernel", "admm_ref_kernel",
                             "admm_prep_kernel", "admm_load_kernel", "admm_row_kernel",
                             "admm_latch_kernel")}
@@ -6718,6 +6844,8 @@ def ptxas_report(report: str) -> dict:
                   "ffd_lanes_sparse_kernelILb1E": "ffd_lanes_sparse_kernel<true>",
                   "preempt_walk_kernelILb0E": "preempt_walk_kernel<false>",
                   "preempt_walk_kernelILb1E": "preempt_walk_kernel<true>",
+                  "explain_kernelILb0E": "explain_kernel<false>",
+                  "explain_kernelILb1E": "explain_kernel<true>",
                   "block_barrier_kernel": "block_barrier_kernel"})
     for width, kernel in ((2, "ffd_batched_kernel"), (3, "ffd_cluster_kernel"),
                           (2, "ffd_ladder_kernel")):
@@ -6935,6 +7063,7 @@ def main() -> int:
         class_checks = class_kernel_checks(dev)
         class_inp = build_class_input(**CLASS_KW)
         ex = explain_check(kernel_phase(class_inp, dev), dev, (8,))
+        explain_crafted_check(dev)
         zone_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_GANGS},
                                      topology=wk.ZONE_LABEL)
         zone_check_inp = build_class_input(**{**CLASS_KW, "n_gangs": CLASS_ZONE_CHECK_GANGS},
@@ -7178,7 +7307,10 @@ def main() -> int:
         c = explain_checks[name]
         print(f"explain[{name}]: Sp={c['Sp']} Ep={c['Ep']} Gp={c['Gp']} E={c['E']} G={c['G']} "
               f"side tables {c['side_bytes']} B top_k={c['ks']} max_abs_err={c['err']} "
-              f"records={explain_records[name]}", flush=True)
+              f"(teams 0/1/2) records={explain_records[name]} team={c['team']}", flush=True)
+    explain_crafted = explain_crafted_check(dev)
+    print(f"explain[crafted]: max_abs_err={max(explain_crafted['errs'].values())} over "
+          f"{len(explain_crafted['errs'])} (table, team) pairs", flush=True)
 
     print(f"[phase 2c starts at {time.perf_counter() - t_start:.1f} s]", flush=True)
     # ---- phase 2c: K6, the relax-ladder scan, against its plain version -------------
@@ -7516,7 +7648,7 @@ def main() -> int:
                                                                   "used", "events",
                                                                   "plain_once_s")}
     coh["pad_check"] = {k: pad[k] for k in ("n", "batch", "err", "bytes_in", "bytes_out")}
-    coh["events_check"] = {k: ev[k] for k in ("errs", "edits", "Sp")}
+    coh["events_check"] = {k: ev[k] for k in ("errs", "edits", "Sp", "allocations")}
     cohort_line = {k: v for k, v in coh.items() if k != "launches"}
     print(json.dumps({"cohort": cohort_line, "cohort_launches": coh["launches"]}), flush=True)
     print(f"cohort_surge: fused p50/p99 {coh['service']['p50_ms']:.2f}/{coh['service']['p99_ms']:.2f}"
@@ -7672,8 +7804,9 @@ def main() -> int:
                  "hostmesh": {k: v for k, v in mesh["hostmesh"].items() if k != "rows"},
                  "phase_s": mesh["phase_s"]},
         "explain_checks": {k: {f: v[f] for f in ("Sp", "Ep", "Gp", "E", "G", "ks", "err",
-                                                 "side_bytes")}
+                                                 "side_bytes", "team")}
                            for k, v in explain_checks.items()},
+        "explain_crafted": explain_crafted,
         "explain_records": explain_records,
         "class_kernel_checks": {k: class_checks[k] for k in ("seeded", "adversarial", "scaled",
                                                              "walks")},

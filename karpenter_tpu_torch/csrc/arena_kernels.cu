@@ -31,6 +31,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -95,33 +96,43 @@ __global__ void __launch_bounds__(UT) arena_unpack_kernel(unsigned char* __restr
 // still read them).
 // What bounds it on the H100: bytes (the pair read and written once, 12 B an
 // edit row) — and, at a few hundred runs and a handful of edits, the launch.
-// Design: a grid-stride copy of the pair into the new buffers, then one
-// thread per event row writing its two words; two launches on one stream, so
-// the scatter lands after the copy. Positions are unique on the path
+// Design: ONE launch into ONE [2, Sp] allocation (the new run_group row,
+// then the new run_count row): a block owns ET positions, marks in shared
+// memory which edit row aims at each of them, then each thread writes its
+// position's two words once, the edit's or the input's. Up to EV_PARAM_ROWS
+// rows ride in the kernel's parameters (a __grid_constant__ table, 3 KB of
+// the 4 KB parameter space: no event tensor, no copy); past that the same
+// kernel reads them from a device tensor. Positions are unique on the path
 // (encode_cache.run_table_events diffs with np.nonzero); duplicates, as in
 // the reference's scatter, have no defined winner.
-constexpr int ET = 256;  // threads of the edit copy and scatter
+constexpr int ET = 256;             // threads of the edit (positions a block)
+constexpr int EV_PARAM_ROWS = 256;  // ffd.py EVENT_PARAM_ROWS
 
-__global__ void __launch_bounds__(ET) copy_runs_kernel(const int* __restrict__ rg,
-                                                       const int* __restrict__ rc,
-                                                       int* __restrict__ out_rg,
-                                                       int* __restrict__ out_rc, int Sp) {
-  for (int i = blockIdx.x * ET + threadIdx.x; i < Sp; i += gridDim.x * ET) {
-    out_rg[i] = rg[i];
-    out_rc[i] = rc[i];
+struct EvRows {
+  int w[3 * EV_PARAM_ROWS];  // (pos, gid, cnt) rows
+};
+
+__global__ void __launch_bounds__(ET) apply_events_kernel(const int* __restrict__ rg,
+                                                          const int* __restrict__ rc,
+                                                          int* __restrict__ out,
+                                                          const int* __restrict__ ev, int Sp,
+                                                          int K, const __grid_constant__ EvRows t) {
+  __shared__ int slot[ET];  // the edit row aimed at each position of the block, or -1
+  const int lo = blockIdx.x * ET;
+  const int* rows = ev != nullptr ? ev : t.w;
+  slot[threadIdx.x] = -1;
+  __syncthreads();
+  for (int j = threadIdx.x; j < K; j += ET) {
+    const int pos = rows[3 * j];
+    if (pos >= lo && pos < lo + ET && pos < Sp) slot[pos - lo] = j;
   }
-}
-
-__global__ void __launch_bounds__(ET) apply_events_kernel(const int* __restrict__ ev,
-                                                          int* __restrict__ out_rg,
-                                                          int* __restrict__ out_rc, int Sp,
-                                                          int K) {
-  const int j = blockIdx.x * ET + threadIdx.x;
-  if (j >= K) return;
-  const int pos = ev[3 * j];
-  if (pos < 0 || pos >= Sp) return;
-  out_rg[pos] = ev[3 * j + 1];
-  out_rc[pos] = ev[3 * j + 2];
+  __syncthreads();
+  const int i = lo + threadIdx.x;
+  if (i < Sp) {
+    const int j = slot[threadIdx.x];
+    out[i] = j < 0 ? rg[i] : rows[3 * j + 1];
+    out[Sp + i] = j < 0 ? rc[i] : rows[3 * j + 2];
+  }
 }
 
 // ---- K16: the device pad of a lane batch -------------------------------------------
@@ -176,25 +187,19 @@ __global__ void __launch_bounds__(PT) pad_lanes_kernel(PadTable t, int n, int B)
 
 extern "C" {
 
-// K14. ptrs: run_group [Sp], run_count [Sp], events [K, 3], the new
-// run_group and run_count [Sp]; ints: Sp, K.
+// K14. ptrs: run_group [Sp], run_count [Sp], the new pair [2, Sp], the
+// edit rows [K, 3] on the card or null; ints: Sp, K, then (rows null) the
+// K rows' 3 K words, K at most EV_PARAM_ROWS.
 int apply_events_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 5) return (int)cudaErrorInvalidValue;
+  if (n != 4) return (int)cudaErrorInvalidValue;
   const int Sp = d[0], K = d[1];
-  if (Sp < 0 || K < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (Sp > 0) {
-    int g = (Sp + ET - 1) / ET;
-    g = g > MAX_GRID_X ? MAX_GRID_X : g;
-    copy_runs_kernel<<<g, ET, 0, st>>>((const int*)p[0], (const int*)p[1], (int*)p[3],
-                                       (int*)p[4], Sp);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (K > 0) {
-    apply_events_kernel<<<(K + ET - 1) / ET, ET, 0, st>>>((const int*)p[2], (int*)p[3],
-                                                         (int*)p[4], Sp, K);
-  }
+  const int* ev = (const int*)p[3];
+  if (Sp < 0 || K < 0 || (ev == nullptr && K > EV_PARAM_ROWS)) return (int)cudaErrorInvalidValue;
+  EvRows t;
+  if (ev == nullptr) memcpy(t.w, d + 2, sizeof(int) * 3 * (size_t)K);
+  const int g = Sp > 0 ? (Sp + ET - 1) / ET : 1;
+  apply_events_kernel<<<g, ET, 0, (cudaStream_t)stream>>>((const int*)p[0], (const int*)p[1],
+                                                          (int*)p[2], ev, Sp, K, t);
   return (int)cudaGetLastError();
 }
 

@@ -57,14 +57,29 @@
 //   three slots and the count through two, so no write races a read. The
 //   team is one block of WT threads or a cluster of WALK_CL such CTAs,
 //   chosen from E at launch (walk_ctas: PERF.md's Step 0).
-// - K12: the take table is never multiplied by a group one-hot (Gp*Sp*Ep
-//   multiply-adds): every run belongs to one group, so one pass over
-//   take_e [Sp, Ep] adds each nonzero take into the node's usage [Ep, R] and
-//   the (group, node) placed sum [Gp, Ep] (wrapped int32, order-free). Then
-//   one block per group walks the nodes in ascending order, forms the code,
-//   counts the rejected nodes and keeps the first top_k by a ballot/popc
-//   prefix.
+// - K12: one launch a call, no memset, no dense [Gp, Ep] placed matrix and
+//   no global atomics; the bound is the take table's bytes (read once from
+//   memory, a second time from L2). Two teams, chosen at launch
+//   (explain_team; the plan, explain_plan, sizes both phases). The grid
+//   (one cooperative launch over the card): phase A, the last CTA sorts the
+//   runs by group (a counting sort into off / ids, a few Sp + Gp words) and
+//   every CTA sums columns of the take table: a strip of sw columns a team
+//   of warps, each take cell read once in row segments, the usage added
+//   across lanes and warps in shared memory and written as the final free
+//   table ff [R, Ep]; each warp loads its first group's constants; one grid
+//   barrier. The local team (small tables): every CTA reads the take
+//   table's counted columns once itself and adds the usage, and the placed
+//   counts of its own tile's few groups, in shared memory, so no barrier
+//   spans CTAs and no runs are sorted. Phase B: a CTA takes a tile of
+//   groups, a warp a group (or a few warps a group over column segments
+//   where the groups are few), with ff, node_zone and node_ct of a column
+//   chunk in shared memory once for the tile; on the grid a warp sums its
+//   group's placed count from its own runs' take cells (read again, from
+//   L2; the next 128 columns' loads in flight while it forms this step's
+//   codes); it forms the code and keeps the first top_k rejections by
+//   ballot / popc, with no CTA barrier a column step.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,7 +90,24 @@ namespace {
 
 constexpr int GT = 1024;  // threads of the gang verdict (one block)
 constexpr int PW = 8;     // warps per block of the preemption scan (a node row each)
-constexpr int XT = 256;   // threads of the explain kernels
+constexpr int XT = 256;   // threads of an explain CTA
+constexpr int XW = XT / 32;  // its warps: a group each in phase B
+constexpr int XS_WORDS = 12288;  // its dynamic shared memory in words (48 KB)
+constexpr int XS_BYTES = XS_WORDS * 4;
+constexpr int XA_ROWS = 16;  // take rows a lane keeps in flight in the grid's phase A
+constexpr int XL = 8;        // quads of take cells a thread keeps in flight in the local phase A
+constexpr int XNF = 4;       // node_free words a thread prefetches there
+constexpr int XB_CTAS = 4;   // CTAs of the grid an SM holds at once (launch bounds: 64 registers)
+constexpr int XK = 32;       // entries a later column segment keeps in shared memory
+// the explain teams (ffd.py EXPLAIN_LOCAL / EXPLAIN_GRID): every CTA its own
+// column sums (no barrier across CTAs) while Sp * Ep is at most
+// EXPLAIN_LOCAL_CELLS, Gp at most EXPLAIN_LOCAL_GROUPS and the layout fits
+// a CTA's shared memory, else the cooperative grid
+constexpr int EXPLAIN_LOCAL = 1;
+constexpr int EXPLAIN_GRID = 2;
+constexpr long long EXPLAIN_LOCAL_CELLS = 16384;
+constexpr int EXPLAIN_LOCAL_GROUPS = 256;
+constexpr int MAX_DEVICES = 64;
 constexpr int MAX_R = 16; // solver/cuda/ffd.py MAX_R
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_NODE = 0x7f7f7f7f;  // the memset value of the chosen-node scalar
@@ -348,91 +380,729 @@ __global__ void __launch_bounds__(WT, 1) block_barrier_kernel(int n) {
 // K12 explain_pack
 // ---------------------------------------------------------------------------
 
-// usage[e, r] += take * group_req[g, r] and placed[g, e] += take for every
-// nonzero take_e[s, e] (g = run_group[s]); both zeroed by the launcher.
-__global__ void __launch_bounds__(XT) explain_sums_kernel(
-    const int* __restrict__ take_e, const int* __restrict__ run_group,
-    const int* __restrict__ group_req, int* __restrict__ usage, int* __restrict__ placed,
-    int Sp, int Ep, int Gp, int R) {
-  const size_t n = (size_t)Sp * Ep;
-  for (size_t i = (size_t)blockIdx.x * XT + threadIdx.x; i < n; i += (size_t)gridDim.x * XT) {
-    const int t = take_e[i];
-    if (t == 0) continue;
-    const int s = (int)(i / Ep);
-    const int e = (int)(i - (size_t)s * Ep);
-    const int g = run_group[s];
-    if (g < 0 || g >= Gp) continue;  // run_group lies in [0, Gp) by contract
-    atomicAdd(&placed[(size_t)g * Ep + e], t);
-    for (int r = 0; r < R; ++r) {
-      const int u = wmul(t, group_req[(size_t)g * R + r]);
-      if (u != 0) atomicAdd(&usage[(size_t)e * R + r], u);
+struct ExplainArgs {
+  const int* take_e;                // [Sp, Ep]
+  const int* run_group;             // [Sp]
+  const int* group_req;             // [Gp, R]
+  const int* node_free;             // [Ep, R]
+  const unsigned char* node_compat; // [Gp, Ep]
+  const int* node_zone;             // [Ep]
+  const int* node_ct;               // [Ep]
+  const unsigned char* group_zone;  // [Gp, Z]
+  const unsigned char* group_ct;    // [Gp, C]
+  const unsigned char* group_topo;  // [Gp]
+  const unsigned char* group_aff;   // [Gp]
+  int* out;                         // [3 + Gp (1 + K)] the wire
+  // the grid's scratch (explain_scratch_words), written in phase A, read in
+  // phase B; the local team keeps its own in shared memory
+  int* ff;                          // [R, Ep] the final free table, resource-major
+  int* off;                         // [Gp + 1] each group's first entry of ids
+  int* cnt;                         // [Gp + 1] the sort's counters past shared memory
+  int* ids;                         // [Sp] the run ids, grouped by run_group
+  int Sp, Ep, Gp, R, Z, C, K, e_count, g_count;
+  int sw;     // the grid's phase A: columns of a strip (32, 16 or 8)
+  int tw;     // the grid's phase A: warps of a strip's team (1, 2, 4 or 8)
+  int nseg;   // phase B: warps of a group, each a contiguous column segment
+  int chunk;  // phase B: columns a CTA stages at once (a multiple of 32)
+  int tiles;  // phase B: tiles of XW / nseg groups
+  bool vec;   // 16-byte loads of take rows, 4-byte loads of compat rows
+};
+
+// A CTA's static shared memory: the sort's warp sums, and for each warp of
+// phase B its group's requests, zone and capacity-type masks and flags, its
+// segment's count and a later segment's first XK entries.
+struct XShared {
+  int wsum[XW];
+  int cnt[XW];
+  int req[XW][MAX_R];
+  unsigned gm[XW][3];  // zone mask, capacity-type mask, flags (1 topology, 2 affinity)
+  int ent[XW][XK];
+};
+
+// 16 bytes of shared memory, and a word of them
+__device__ __forceinline__ int4 ld4(const int* p) { return *reinterpret_cast<const int4*>(p); }
+
+__device__ __forceinline__ int at4(const int4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// One 4-byte asynchronous copy from global to shared memory (cp.async,
+// through L1: no line of the scratch it reads was cached on this SM before
+// the barrier that made it final), and the wait for this thread's copies.
+__device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The grid's counting sort of run_group (its last CTA): off[g] = the runs
+// of groups below g, ids = the runs grouped by group (any order inside a
+// group: the placed sum wraps and is order-free); cnt holds Gp + 1
+// counters (shared memory where they fit, else the scratch).
+__device__ __forceinline__ void explain_sort(const ExplainArgs& a, XShared& xs, int* cnt) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int Gp = a.Gp;
+  for (int g = threadIdx.x; g <= Gp; g += XT) cnt[g] = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < a.Sp; s += XT) {
+    const int g = __ldg(&a.run_group[s]);
+    if (g >= 0 && g < Gp) atomicAdd(&cnt[g], 1);
+  }
+  __syncthreads();
+  // exclusive scan: each thread a contiguous span of groups
+  const int per = (Gp + XT - 1) / XT;
+  const int lo = min(Gp, threadIdx.x * per), hi = min(Gp, lo + per);
+  int sum = 0;
+  for (int g = lo; g < hi; ++g) sum += cnt[g];
+  int x = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) xs.wsum[w] = x;
+  __syncthreads();
+  int run = x - sum;
+  for (int i = 0; i < w; ++i) run += xs.wsum[i];
+  for (int g = lo; g < hi; ++g) {
+    const int c = cnt[g];
+    a.off[g] = run;
+    cnt[g] = run;  // the scatter's cursor
+    run += c;
+  }
+  if (threadIdx.x == XT - 1) a.off[Gp] = run;
+  __syncthreads();
+  for (int s = threadIdx.x; s < a.Sp; s += XT) {
+    const int g = __ldg(&a.run_group[s]);
+    if (g >= 0 && g < Gp) a.ids[atomicAdd(&cnt[g], 1)] = s;
+  }
+  __syncthreads();  // the counters' words are phase A's next
+}
+
+// The grid's phase A column sums: ff[r, e] = node_free[e, r] - sum_s
+// take_e[s, e] * group_req[run_group[s], r] (int32 wrap). A strip of sw
+// columns is one team of tw warps (XW / tw strips a CTA at once); lane l
+// reads column l % sw of row l / sw of the warp's step, so a warp reads 32 /
+// sw whole row segments of the strip at a time, XA_ROWS steps in flight.
+// Each take cell is read once; a nonzero one adds its products into the
+// strip's sums in shared memory (atomics there; nothing atomic in global
+// memory).
+__device__ __forceinline__ void explain_usage(const ExplainArgs& a, int* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int sw = a.sw, tw = a.tw, R = a.R, Ep = a.Ep;
+  const int rs = 32 / sw;             // rows a warp step covers
+  const int spc = XW / tw;            // strips a CTA round
+  const int ws = w / tw, wr = w % tw;
+  const int col = lane % sw, ro = lane / sw;
+  const int rstep = tw * rs;          // rows a team step covers
+  const int strips = (Ep + sw - 1) / sw;
+  int* use = sh;                      // [spc][R][sw] the round's sums
+  for (int base = blockIdx.x * spc; base < strips; base += gridDim.x * spc) {
+    for (int i = threadIdx.x; i < spc * R * sw; i += XT) use[i] = 0;
+    __syncthreads();
+    const int e = (base + ws) * sw + col;
+    const bool in = base + ws < strips && e < Ep;
+    int* mine = use + ws * R * sw + col;
+    for (int s0 = wr * rs + ro; s0 < a.Sp; s0 += rstep * XA_ROWS) {
+      int t[XA_ROWS];
+#pragma unroll
+      for (int u = 0; u < XA_ROWS; ++u) {
+        const int s = s0 + u * rstep;
+        t[u] = in && s < a.Sp ? __ldg(&a.take_e[(size_t)s * Ep + e]) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < XA_ROWS; ++u) {
+        if (t[u] == 0) continue;
+        const int g = __ldg(&a.run_group[s0 + u * rstep]);
+        if (g < 0 || g >= a.Gp) continue;  // run_group lies in [0, Gp) by contract
+        const int* req = a.group_req + (size_t)g * R;
+        for (int r = 0; r < R; ++r) atomicAdd(&mine[r * sw], wmul(t[u], __ldg(&req[r])));
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < spc * R * sw; i += XT) {
+      const int slot = i / (R * sw), r = (i / sw) % R, c = i % sw;
+      const int ee = (base + slot) * sw + c;
+      if (base + slot < strips && ee < Ep)
+        a.ff[(size_t)r * Ep + ee] = wsub(__ldg(&a.node_free[(size_t)ee * R + r]), use[i]);
+    }
+    __syncthreads();  // the sums are read before the next round zeroes them
+  }
+}
+
+// A warp's group constants in phase B, inputs only (so they are loaded
+// before phase A's results are final): its requests, its zone and
+// capacity-type rows as bit masks (lane bit l: column l, where Z / C <= 32;
+// past 32 the walk reads the rows from memory) and its flags. Nothing for a
+// group at or past g_count.
+__device__ __forceinline__ void explain_consts(const ExplainArgs& a, XShared& xs, int tile) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = tile * (XW / a.nseg) + w / a.nseg;
+  if (g >= a.Gp || g >= a.g_count) return;
+  // every load first (one round trip), then the masks
+  const bool zin = a.Z <= 32 && lane < a.Z, cin = a.C <= 32 && lane < a.C;
+  const unsigned char zb = zin ? a.group_zone[(size_t)g * a.Z + lane] : 0;
+  const unsigned char cb = cin ? a.group_ct[(size_t)g * a.C + lane] : 0;
+  const int rq = lane < a.R ? __ldg(&a.group_req[(size_t)g * a.R + lane]) : 0;
+  const unsigned char tp = lane == 0 ? a.group_topo[g] : 0;
+  const unsigned char af = lane == 0 ? a.group_aff[g] : 0;
+  __syncwarp();  // the last tile's reads of the warp's rows are done
+  if (lane < a.R) xs.req[w][lane] = rq;
+  const unsigned zm = __ballot_sync(FULL, zb != 0), cm = __ballot_sync(FULL, cb != 0);
+  if (lane == 0) {
+    xs.gm[w][0] = zm;
+    xs.gm[w][1] = cm;
+    xs.gm[w][2] = (tp != 0 ? 1u : 0u) | (af != 0 ? 2u : 0u);
+  }
+  __syncwarp();
+}
+
+// The local team's phase A, in every CTA: node_zone, node_ct (the counted
+// columns, e < e_count), run_group and group_req staged by asynchronous
+// copies; one pass over the take table's counted columns, each thread XL
+// quads (4 cells of a row, one 16-byte load where Ep is a multiple of 4) in
+// flight, a nonzero cell adding its products into the staged free table and,
+// where its run's group is one of the CTA's tile, its count into the tile's
+// placed rows [XW / nseg][chunk] (int32 wrap, by shared atomics: the
+// placed counts of a few groups, not a [Gp, Ep] matrix, and no sort of the
+// runs); then node_free (prefetched, XNF words a thread) minus the sums
+// replaces them. The first quads are in flight while the copies land and
+// the group constants of the CTA's tile load.
+__device__ __forceinline__ void explain_local(const ExplainArgs& a, XShared& xs, int* sh) {
+  const int R = a.R, Ep = a.Ep, Gp = a.Gp, chunk = a.chunk;
+  const int ecnt = min(Ep, max(a.e_count, 0));
+  const int gpt = XW / a.nseg, g0 = blockIdx.x * gpt;
+  int* s_ff = sh;                     // [R][chunk]
+  int* s_zone = sh + R * chunk;       // [chunk]
+  int* s_ct = s_zone + chunk;         // [chunk]
+  int* s_pl = s_ct + chunk;           // [gpt][chunk]
+  int* s_rg = s_pl + gpt * chunk;     // [Sp]
+  int* s_req = s_rg + a.Sp;           // [Gp][R]
+  for (int i = threadIdx.x; i < R * chunk; i += XT) s_ff[i] = 0;
+  for (int i = threadIdx.x; i < gpt * chunk; i += XT) s_pl[i] = 0;
+  for (int i = threadIdx.x; i < ecnt; i += XT) {
+    cp_async4(s_zone + i, a.node_zone + i);
+    cp_async4(s_ct + i, a.node_ct + i);
+  }
+  for (int i = threadIdx.x; i < a.Sp; i += XT) cp_async4(s_rg + i, a.run_group + i);
+  for (int i = threadIdx.x; i < Gp * R; i += XT) cp_async4(s_req + i, a.group_req + i);
+  // node_free's counted words i = r * ecnt + e, a thread's XNF first ones
+  // in flight; a thread's words (and quads below) advance by XT without a
+  // division: (dr, de) rows and columns a step
+  const int dr = ecnt > 0 ? XT / ecnt : 0, de = ecnt > 0 ? XT % ecnt : 0;
+  const int fr0 = ecnt > 0 ? (int)threadIdx.x / ecnt : R;
+  const int fe0 = ecnt > 0 ? (int)threadIdx.x % ecnt : 0;
+  int fr = fr0, fe = fe0;
+  auto next_word = [&]() {
+    fr += dr, fe += de;
+    if (fe >= ecnt) fe -= ecnt, ++fr;
+  };
+  int nf[XNF];
+#pragma unroll
+  for (int k = 0; k < XNF; ++k) {
+    nf[k] = fr < R ? __ldg(&a.node_free[(size_t)fe * R + fr]) : 0;
+    next_word();
+  }
+  // take quads: row qs, cells 4 qc..4 qc+3; the batch's rows and first
+  // columns kept for its sums
+  const int q4 = (ecnt + 3) >> 2;
+  const int ds = q4 > 0 ? XT / q4 : 0, dc = q4 > 0 ? XT % q4 : 0;
+  int qs = q4 > 0 ? (int)threadIdx.x / q4 : a.Sp, qc = q4 > 0 ? (int)threadIdx.x % q4 : 0;
+  int4 t[XL];
+  int ts[XL], te[XL];
+  auto load = [&]() {
+#pragma unroll
+    for (int u = 0; u < XL; ++u) {
+      const int e = 4 * qc;
+      ts[u] = qs, te[u] = e;
+      t[u] = make_int4(0, 0, 0, 0);
+      if (qs < a.Sp) {
+        const int* p = a.take_e + (size_t)qs * Ep + e;
+        if (a.vec) {
+          t[u] = __ldg(reinterpret_cast<const int4*>(p));
+        } else {
+          t[u].x = __ldg(p);
+          if (e + 1 < ecnt) t[u].y = __ldg(p + 1);
+          if (e + 2 < ecnt) t[u].z = __ldg(p + 2);
+          if (e + 3 < ecnt) t[u].w = __ldg(p + 3);
+        }
+      }
+      qs += ds, qc += dc;
+      if (qc >= q4) qc -= q4, ++qs;
+    }
+  };
+  load();
+  explain_consts(a, xs, blockIdx.x);
+  cp_async_wait_all();
+  __syncthreads();  // the copies and the zeroed sums
+  while (true) {
+#pragma unroll
+    for (int u = 0; u < XL; ++u) {
+      if ((t[u].x | t[u].y | t[u].z | t[u].w) == 0) continue;
+      const int e = te[u];
+      const int g = s_rg[ts[u]];
+      if (g < 0 || g >= Gp) continue;  // run_group lies in [0, Gp) by contract
+      for (int r = 0; r < R; ++r) {
+        const int rq = s_req[g * R + r];
+        int* f = s_ff + r * chunk + e;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int v = at4(t[u], c);
+          if (v != 0 && e + c < ecnt) atomicAdd(f + c, wmul(v, rq));
+        }
+      }
+      if ((unsigned)(g - g0) < (unsigned)gpt) {
+        int* pl = s_pl + (g - g0) * chunk + e;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int v = at4(t[u], c);
+          if (v != 0 && e + c < ecnt) atomicAdd(pl + c, v);
+        }
+      }
+    }
+    if (qs >= a.Sp) break;
+    load();
+  }
+  __syncthreads();
+  fr = fr0, fe = fe0;
+#pragma unroll
+  for (int k = 0; k < XNF; ++k) {
+    if (fr < R) s_ff[fr * chunk + fe] = wsub(nf[k], s_ff[fr * chunk + fe]);
+    next_word();
+  }
+  for (; fr < R; next_word())
+    s_ff[fr * chunk + fe] = wsub(__ldg(&a.node_free[(size_t)fe * R + fr]), s_ff[fr * chunk + fe]);
+  __syncthreads();
+}
+
+// The staged columns [base, base + n) of a phase B chunk: ff [R][stride],
+// node_zone and node_ct, in shared memory.
+struct Stage {
+  const int* ff;
+  const int* zone;
+  const int* ct;
+  int base;
+  int stride;
+};
+
+// A group's per-warp state in phase B: its constants (explain_consts, in
+// the warp's rows of XShared) and its runs (lane l holds run l of the
+// first 32; past 32 they are read from runs), or, for the local team, its
+// placed row in shared memory.
+struct Group {
+  int g;
+  const int* req;
+  unsigned zmask, cmask;
+  bool topo, aff;
+  const int* runs;
+  int nruns;
+  int run0;
+  const int* pl;  // the local team: the group's placed row
+};
+
+// The grid's lookup of group g's runs in the sort's output (written by
+// another CTA of this launch: read past L1).
+__device__ __forceinline__ void explain_runs(const ExplainArgs& a, int g, Group& gr) {
+  const int lane = threadIdx.x & 31;
+  const int o = __ldcg(&a.off[g]);
+  gr.runs = a.ids + o;
+  gr.nruns = __ldcg(&a.off[g + 1]) - o;
+  gr.run0 = lane < gr.nruns ? __ldcg(&gr.runs[lane]) : 0;
+}
+
+// One step's loads of a group's walk, for the lane's 4 columns e..e+3 of a
+// 128-column slice: their compat bytes and their placed sums over the
+// group's runs (the grid: the take table's second read, from L2, int32
+// wrap; the local team: its placed row), 16 bytes a load where the tables
+// allow (`vec`). The first run's cells are loaded straight into the sums, so
+// the loads of a one-run group's next step stay in flight while the warp
+// forms this step's codes.
+struct XStep {
+  unsigned cm;
+  int p[4];
+};
+
+template <bool GRID>
+__device__ __forceinline__ XStep explain_step(const ExplainArgs& a, const Group& gr, int e,
+                                              int c1) {
+  XStep x;
+  const unsigned char* compat = a.node_compat + (size_t)gr.g * a.Ep;
+  const bool v4 = a.vec && e + 3 < c1;
+  if (v4) {
+    x.cm = *reinterpret_cast<const unsigned*>(compat + e);
+  } else {
+    x.cm = 0u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (e + c < c1) x.cm |= (unsigned)compat[e + c] << (8 * c);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x.p[c] = 0;
+  if constexpr (!GRID) {  // the local team's placed row (its columns are within the chunk)
+    if (e < c1) {
+      const int4 v = ld4(gr.pl + e);
+      x.p[0] = v.x, x.p[1] = v.y, x.p[2] = v.z, x.p[3] = v.w;
+    }
+    return x;
+  }
+  if (gr.nruns == 0) return x;
+  const int* row0 = a.take_e + (size_t)__shfl_sync(FULL, gr.run0, 0) * a.Ep;
+  if (v4) {
+    const int4 t = __ldg(reinterpret_cast<const int4*>(row0 + e));
+    x.p[0] = t.x, x.p[1] = t.y, x.p[2] = t.z, x.p[3] = t.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (e + c < c1) x.p[c] = __ldg(&row0[e + c]);
+  }
+  for (int i = 1; i < gr.nruns; ++i) {
+    const size_t s = (size_t)(i < 32 ? __shfl_sync(FULL, gr.run0, i) : __ldcg(&gr.runs[i]));
+    const int* row_s = a.take_e + s * a.Ep;
+    if (v4) {
+      const int4 t = __ldg(reinterpret_cast<const int4*>(row_s + e));
+      x.p[0] = wadd(x.p[0], t.x);
+      x.p[1] = wadd(x.p[1], t.y);
+      x.p[2] = wadd(x.p[2], t.z);
+      x.p[3] = wadd(x.p[3], t.w);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (e + c < c1) x.p[c] = wadd(x.p[c], __ldg(&row_s[e + c]));
+    }
+  }
+  return x;
+}
+
+// One step of a walk: the codes of the lane's 4 columns from the step's
+// loads and the staged columns (read 16 bytes at a time). A lane's
+// rejections are a 4-bit mask; their ranks come from a warp scan of the
+// lanes' counts, so entries keep ascending column order. They are counted
+// into `count`; the one of rank p (base_pos + its rank in the walk) is
+// written to dst[p] while p < limit.
+__device__ __forceinline__ void explain_emit(const ExplainArgs& a, const Stage& st,
+                                             const Group& gr, const XStep& s, int e0, int c1,
+                                             int* dst, int base_pos, int limit, int& count) {
+  const int lane = threadIdx.x & 31;
+  const int e = e0 + 4 * lane;
+  const int k = e - st.base;  // a multiple of 4: the staged rows are read 16 bytes a lane
+  int code[4] = {0, 0, 0, 0};
+  unsigned bits = 0u;
+  if (e < c1) {
+    const int4 nz = ld4(st.zone + k), nc = ld4(st.ct + k);
+    bool fits[4] = {true, true, true, true};
+    for (int r = 0; r < a.R; ++r) {
+      const int4 f = ld4(st.ff + r * st.stride + k);
+      const int q = gr.req[r];
+      fits[0] &= f.x >= q;
+      fits[1] &= f.y >= q;
+      fits[2] &= f.z >= q;
+      fits[3] &= f.w >= q;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int z = at4(nz, c), t = at4(nc, c);
+      const int zi = min(max(z, 0), a.Z - 1), ci = min(max(t, 0), a.C - 1);
+      const bool zone_ok = z < 0 || (a.Z <= 32 ? (gr.zmask >> zi) & 1u
+                                               : a.group_zone[(size_t)gr.g * a.Z + zi] != 0);
+      const bool ct_ok = t < 0 || (a.C <= 32 ? (gr.cmask >> ci) & 1u
+                                             : a.group_ct[(size_t)gr.g * a.C + ci] != 0);
+      const bool ok = (s.cm >> (8 * c)) & 0xffu;
+      code[c] = !zone_ok ? 1 : !ct_ok ? 2 : !ok ? 3 : !fits[c] ? 4 : gr.topo ? 5 : gr.aff ? 6 : 0;
+      if (e + c < c1 && code[c] > 0 && s.p[c] <= 0) bits |= 1u << c;
+    }
+  }
+  // the lanes' counts, scanned: this lane's first rank in the slice
+  const int n = __popc(bits);
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += y;
+  }
+  const int first = base_pos + count + incl - n;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if ((bits >> c) & 1u) {
+      const int pos = first + __popc(bits & ((1u << c) - 1u));
+      if (pos < limit) dst[pos] = (e + c) | (code[c] << 16);
+    }
+  }
+  count += __shfl_sync(FULL, incl, 31);
+}
+
+// One warp walks group gr's columns [c0, c1) in 128-column steps (lane l
+// the 4 consecutive columns 4l..4l+3 of a step), the next step's loads
+// issued before this step's codes. Stops after the step that reaches
+// `stop_at`.
+template <bool GRID>
+__device__ __forceinline__ void explain_walk(const ExplainArgs& a, const Stage& st,
+                                             const Group& gr, int c0, int c1, int* dst,
+                                             int base_pos, int limit, int stop_at, int& count) {
+  const int lane = threadIdx.x & 31;
+  XStep cur = explain_step<GRID>(a, gr, c0 + 4 * lane, c1);
+  for (int e0 = c0; e0 < c1; e0 += 128) {
+    XStep nxt = cur;
+    if (e0 + 128 < c1) nxt = explain_step<GRID>(a, gr, e0 + 128 + 4 * lane, c1);
+    explain_emit(a, st, gr, cur, e0, c1, dst, base_pos, limit, count);
+    if (count >= stop_at) return;
+    cur = nxt;
+  }
+}
+
+// Phase B: a CTA takes a tile of XW / nseg groups, a warp a group, or nseg
+// warps a group over contiguous column segments. The final free table,
+// node_zone and node_ct of the columns that can count (e < e_count) lie in
+// shared memory for the whole tile: the local team computed them there; the
+// grid stages them once for every tile of the CTA where they fit in one
+// chunk, its copies in flight while the warps look up their first tile's
+// runs. A group's walk needs no CTA barrier; with nseg > 1 the segments'
+// counts meet in shared memory once: the first segment wrote its entries
+// during its walk, a later one kept its first XK in shared memory and
+// copies those the earlier segments left room for; only past XK does it
+// walk again (from the staged columns).
+template <bool GRID>
+__device__ __forceinline__ void explain_rows(const ExplainArgs& a, XShared& xs, int* sh) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int R = a.R, K = a.K, nseg = a.nseg, chunk = a.chunk, tiles = a.tiles;
+  const int ecnt = min(a.Ep, max(a.e_count, 0));
+  const int nchunks = (ecnt + chunk - 1) / chunk;
+  const int gpt = XW / nseg;
+  const int j = w % nseg;
+  const int seg = ((ecnt + nseg - 1) / nseg + 127) & ~127;
+  int* s_ff = sh;
+  int* s_zone = sh + R * chunk;
+  int* s_ct = s_zone + chunk;
+  const Stage st{s_ff, s_zone, s_ct, 0, chunk};
+  // every word of the chunk in flight at once (asynchronous copies to shared
+  // memory; the caller waits, then its barrier publishes them); each CTA
+  // starts at its own 32-word offset, so the CTAs that stage the same
+  // columns at once spread over the L2's slices
+  auto stage = [&](int c0) {
+    const int n = min(chunk, ecnt - c0);
+    const int rot = n > 0 ? (int)(((long long)blockIdx.x * 97 * 32) % n) & ~31 : 0;
+    for (int r = 0; r < R + 2; ++r) {
+      const int* src = r < R ? a.ff + (size_t)r * a.Ep + c0 : (r == R ? a.node_zone : a.node_ct) + c0;
+      for (int i0 = threadIdx.x; i0 < n; i0 += XT) {
+        const int i = i0 + rot < n ? i0 + rot : i0 + rot - n;
+        cp_async4(s_ff + r * chunk + i, src + i);
+      }
+    }
+  };
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.out[0] = a.Ep > 0xFFFF ? 1 : 0;
+    a.out[1] = a.g_count;
+    a.out[2] = K;
+  }
+  Group gr{};
+  if ((int)blockIdx.x < tiles) {
+    if (GRID && nchunks == 1) stage(0);
+    const int g = blockIdx.x * gpt + w / nseg;
+    if (GRID && g < a.Gp && g < a.g_count) explain_runs(a, g, gr);
+    if (!GRID) gr.pl = s_ct + chunk + (w / nseg) * chunk;  // explain_local's placed rows
+    if (GRID && nchunks == 1) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int g = tile * gpt + w / nseg;
+    const bool live = g < a.Gp;
+    const bool real = live && g < a.g_count;
+    int* row = a.out + 3 + (size_t)g * (1 + K);
+    if (tile != (int)blockIdx.x) {  // the grid alone: the local team's grid is its tiles
+      explain_consts(a, xs, tile);
+      if (real) explain_runs(a, g, gr);
+    }
+    if (real) {
+      gr.g = g;
+      gr.req = xs.req[w];
+      gr.zmask = xs.gm[w][0];
+      gr.cmask = xs.gm[w][1];
+      gr.topo = xs.gm[w][2] & 1u;
+      gr.aff = xs.gm[w][2] & 2u;
+    }
+    int count = 0;
+    const int c0 = j * seg, c1 = min(ecnt, c0 + seg);
+    if (nchunks == 1) {
+      // the first segment writes the row's slots; a later one keeps its
+      // first XK entries in shared memory until the counts meet
+      if (real && c0 < c1)
+        explain_walk<GRID>(a, st, gr, c0, c1, j == 0 ? row + 1 : xs.ent[w], 0, j == 0 ? K : XK,
+                           INT_MAX, count);
+    } else {  // the grid, nseg 1
+      for (int ch = 0; ch < nchunks; ++ch) {
+        __syncthreads();  // the last chunk's readers are done
+        stage(ch * chunk);
+        cp_async_wait_all();
+        __syncthreads();
+        const Stage sc{s_ff, s_zone, s_ct, ch * chunk, chunk};
+        if (real)
+          explain_walk<GRID>(a, sc, gr, ch * chunk, min(ecnt, ch * chunk + chunk), row + 1, 0, K,
+                             INT_MAX, count);
+      }
+    }
+    int total = count;
+    if (nseg > 1) {
+      if (lane == 0) xs.cnt[w] = count;
+      __syncthreads();
+      int before = 0;
+      total = 0;
+      for (int i = 0; i < nseg; ++i) {
+        const int c = xs.cnt[w - j + i];
+        total += c;
+        before += i < j ? c : 0;
+      }
+      if (real && j > 0 && count > 0 && before < K) {
+        const int n = min(min(count, XK), K - before);
+        for (int i = lane; i < n; i += 32) row[1 + before + i] = xs.ent[w][i];
+        if (n < min(count, K - before)) {  // past XK kept: walk the segment again
+          int again = 0;
+          explain_walk<GRID>(a, st, gr, c0, c1, row + 1, before, K, K - before, again);
+        }
+      }
+      __syncthreads();  // xs.cnt is read before the next tile writes it
+    }
+    if (live && j == 0) {
+      if (lane == 0) row[0] = total;
+      for (int i = min(total, K) + lane; i < K; i += 32) row[1 + i] = -1;
     }
   }
 }
 
-// One block per group: out[3 + g*(1+K)] = the rejected count, then the first
-// K rejected nodes ascending as e | (code << 16), -1 for an empty slot.
-__global__ void __launch_bounds__(XT) explain_rows_kernel(
-    const int* __restrict__ group_req, const int* __restrict__ node_free,
-    const unsigned char* __restrict__ node_compat, const int* __restrict__ node_zone,
-    const int* __restrict__ node_ct, const unsigned char* __restrict__ group_zone,
-    const unsigned char* __restrict__ group_ct, const unsigned char* __restrict__ group_topo,
-    const unsigned char* __restrict__ group_aff, const int* __restrict__ usage,
-    const int* __restrict__ placed, int* __restrict__ out, int Ep, int Gp, int R, int Z,
-    int C, int K, int e_count, int g_count) {
-  __shared__ int warp_cnt[XT / 32];
-  const int g = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  int* row = out + 3 + (size_t)g * (1 + K);
-  for (int j = threadIdx.x; j < K; j += XT) row[1 + j] = -1;
-  if (g == 0 && threadIdx.x == 0) {
-    out[0] = Ep > 0xFFFF ? 1 : 0;
-    out[1] = g_count;
-    out[2] = K;
+// K12 in one launch. The grid: the last CTA first sorts the runs by group,
+// every CTA takes its strips' column sums and its first tile's group
+// constants, one grid barrier, phase B. The local team (no barrier across
+// CTAs, at most a CTA an SM where the groups allow, so its launch bounds
+// leave it every register it needs): every CTA its own phase A in shared
+// memory, then phase B.
+template <bool GRID>
+__global__ void __launch_bounds__(XT, GRID ? XB_CTAS : 1) explain_kernel(const ExplainArgs a) {
+  extern __shared__ int sh[];
+  __shared__ XShared xs;
+  if constexpr (GRID) {
+    if (blockIdx.x == gridDim.x - 1)
+      explain_sort(a, xs, a.Gp + 1 <= XS_WORDS ? sh : a.cnt);
+    explain_usage(a, sh);
+    if ((int)blockIdx.x < a.tiles) explain_consts(a, xs, blockIdx.x);
+    cg::this_grid().sync();
+    explain_rows<true>(a, xs, sh);
+  } else {
+    explain_local(a, xs, sh);
+    explain_rows<false>(a, xs, sh);
   }
-  const bool real_g = g < g_count;
-  const bool topo = group_topo[g] != 0;
-  const bool aff = group_aff[g] != 0;
-  __syncthreads();  // the -1 fill lands before any entry
-  int total = 0;
-  for (int e0 = 0; e0 < Ep; e0 += XT) {
-    const int e = e0 + threadIdx.x;
-    int code = 0;
-    if (real_g && e < Ep && e < e_count && __ldcg(&placed[(size_t)g * Ep + e]) <= 0) {
-      const int nz = node_zone[e];
-      const int nc = node_ct[e];
-      const bool zone_ok = nz < 0 || group_zone[(size_t)g * Z + (nz < Z - 1 ? nz : Z - 1)];
-      const bool ct_ok = nc < 0 || group_ct[(size_t)g * C + (nc < C - 1 ? nc : C - 1)];
-      bool fits = true;
-      for (int r = 0; r < R; ++r)
-        fits = fits && wsub(node_free[(size_t)e * R + r], __ldcg(&usage[(size_t)e * R + r])) >=
-                           group_req[(size_t)g * R + r];
-      code = !zone_ok ? 1
-             : !ct_ok ? 2
-             : !node_compat[(size_t)g * Ep + e] ? 3
-             : !fits ? 4
-             : topo ? 5
-             : aff ? 6
-             : 0;
-    }
-    const bool rej = code > 0;
-    const unsigned bal = __ballot_sync(FULL, rej);
-    if (lane == 0) warp_cnt[w] = __popc(bal);
-    __syncthreads();
-    int before = 0, chunk = 0;
-#pragma unroll
-    for (int i = 0; i < XT / 32; ++i) {
-      const int c = warp_cnt[i];
-      before += i < w ? c : 0;
-      chunk += c;
-    }
-    const int pos = total + before + __popc(bal & ((1u << lane) - 1u));
-    if (rej && pos < K) row[1 + pos] = e | (code << 16);
-    total += chunk;
-    __syncthreads();  // every warp read warp_cnt before the next chunk writes it
+}
+
+// Shared words of the local team (explain_local's layout, its tile at XW
+// groups): the staged free table, node_zone, node_ct and the tile's placed
+// rows over at least 32 columns, the staged run_group and group_req.
+static long long explain_local_words(int Sp, int Ep, int Gp, int R) {
+  const long long cols = Ep <= 32 ? 32 : (Ep + 31LL) / 32 * 32;
+  return (R + 2 + XW) * cols + Sp + (long long)Gp * R;
+}
+
+// The team (explain_team): the local team where every CTA can afford the
+// whole take table (Sp * Ep at most EXPLAIN_LOCAL_CELLS, Gp at most
+// EXPLAIN_LOCAL_GROUPS, its layout within the CTA's shared memory), else
+// the cooperative grid.
+static int explain_team(int Sp, int Ep, int Gp, int R) {
+  return (long long)Sp * Ep <= EXPLAIN_LOCAL_CELLS && Gp <= EXPLAIN_LOCAL_GROUPS &&
+                 explain_local_words(Sp, Ep, Gp, R) <= XS_WORDS
+             ? EXPLAIN_LOCAL
+             : EXPLAIN_GRID;
+}
+
+// CTAs of the grid instance a multiprocessor holds (the occupancy query at
+// XS_BYTES, once per device), and the multiprocessors
+struct ExplainFit {
+  int per_sm;
+  int sms;
+  bool done;
+};
+ExplainFit g_xfit[MAX_DEVICES];
+
+cudaError_t explain_fit(ExplainFit& out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  ExplainFit& f = g_xfit[dev];
+  if (!f.done) {
+    e = cudaDeviceGetAttribute(&f.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(explain_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               XS_BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(explain_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               XS_BYTES);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f.per_sm, explain_kernel<true>, XT,
+                                                        XS_BYTES);
+    if (e != cudaSuccess) return e;
+    f.done = true;
   }
-  if (threadIdx.x == 0) row[0] = total;
+  out = f;
+  return cudaSuccess;
+}
+
+// A launch's shape for `team`: the grid's strip width and team, the
+// segments a group, the staged chunk, the group tiles and the grid.
+struct ExplainPlan {
+  int sw, tw, nseg, chunk, grid, strips, tiles;
+};
+
+ExplainPlan explain_plan(int Sp, int Ep, int Gp, int R, int e_count, int team, int per_sm,
+                         int sms) {
+  ExplainPlan p{};
+  const int ecnt = Ep < e_count ? Ep : (e_count > 0 ? e_count : 0);
+  // the segments a group where one chunk holds every column: the most that
+  // keeps the tiles within `cap` CTAs, none narrower than a 128-column step
+  auto segments = [&](long long cap) {
+    p.nseg = 1;
+    if (ecnt <= p.chunk)
+      while (p.nseg * 2 <= XW && p.nseg * 2 <= (ecnt + 127) / 128 &&
+             ((long long)Gp * p.nseg * 2 + XW - 1) / XW <= cap)
+        p.nseg *= 2;
+    p.tiles = (Gp + XW / p.nseg - 1) / (XW / p.nseg);
+  };
+  if (team == EXPLAIN_LOCAL) {
+    // every CTA its own phase A over the counted columns: a tile a CTA, at
+    // most one CTA a multiprocessor where the groups allow
+    p.chunk = ecnt <= 32 ? 32 : (ecnt + 31) / 32 * 32;
+    segments(sms);
+    p.grid = p.tiles;
+    return p;
+  }
+  const long long gmax = (long long)per_sm * sms;
+  // phase A: the strip width and team with the fewest dependent steps, a
+  // step one batch of XA_ROWS row loads in flight a lane, and a round (the
+  // strips the CTAs take at once) two more for its sums; ties keep the one
+  // that needs fewer CTAs
+  long long best = -1, best_need = 0;
+  for (int sw = 8; sw <= 32; sw *= 2) {
+    for (int tw = 1; tw <= XW; tw *= 2) {
+      const long long strips = (Ep + sw - 1) / sw;
+      const long long need = (strips + XW / tw - 1) / (XW / tw);
+      const long long rounds = (need + gmax - 1) / gmax;
+      const long long rows = (long long)tw * (32 / sw) * XA_ROWS;
+      const long long cost = rounds * ((Sp + rows - 1) / rows + 2);
+      if (best < 0 || cost < best || (cost == best && need < best_need)) {
+        best = cost, best_need = need;
+        p.sw = sw, p.tw = tw;
+      }
+    }
+  }
+  p.strips = (Ep + p.sw - 1) / p.sw;
+  // phase B: the staged chunk, and the segments within the CTAs the card
+  // holds at once
+  p.chunk = (XS_WORDS / (R + 2)) & ~31;
+  segments(gmax);
+  long long need = best_need > p.tiles ? best_need : p.tiles;
+  need = need < 1 ? 1 : need;
+  p.grid = (int)(need < gmax ? need : gmax);
+  return p;
 }
 
 }  // namespace
@@ -529,37 +1199,101 @@ int block_barrier_launch(void**, int, const int* d, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ptrs: take_e, run_group, group_req, node_free, node_compat, node_zone,
-// node_ct, group_zone, group_ct, group_topo, group_aff, out ([3 + Gp*(1+K)]
-// int32), scratch ([Gp*Ep + Ep*R] int32, zeroed here);
-// ints: Sp, Ep, Gp, R, Z, C, K, e_count, g_count.
-int explain_pack_launch(void** p, int n, const int* d, void* stream) {
-  if (n != 13) return (int)cudaErrorInvalidValue;
-  const int Sp = d[0], Ep = d[1], Gp = d[2], R = d[3], Z = d[4], C = d[5], K = d[6];
-  const int e_count = d[7], g_count = d[8];
-  if (Sp < 0 || Ep < 0 || Gp < 1 || R < 0 || Z < 1 || C < 1 || K < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int* placed = (int*)p[12];
-  int* usage = placed + (size_t)Gp * Ep;
-  const size_t scratch = ((size_t)Gp * Ep + (size_t)Ep * R) * sizeof(int);
-  if (scratch) {
-    cudaError_t err = cudaMemsetAsync(placed, 0, scratch, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const size_t cells = (size_t)Sp * Ep;
-  if (cells) {
-    size_t blocks = (cells + XT - 1) / XT;
-    blocks = blocks > 4096 ? 4096 : blocks;
-    explain_sums_kernel<<<(unsigned)blocks, XT, 0, st>>>(
-        (const int*)p[0], (const int*)p[1], (const int*)p[2], usage, placed, Sp, Ep, Gp, R);
-  }
-  explain_rows_kernel<<<Gp, XT, 0, st>>>(
-      (const int*)p[2], (const int*)p[3], (const unsigned char*)p[4], (const int*)p[5],
-      (const int*)p[6], (const unsigned char*)p[7], (const unsigned char*)p[8],
-      (const unsigned char*)p[9], (const unsigned char*)p[10], usage, placed, (int*)p[11], Ep,
-      Gp, R, Z, C, K, e_count, g_count);
-  return (int)cudaGetLastError();
+// Scratch words after the wire (ffd.py explain_scratch_words): ff [R, Ep],
+// off [Gp + 1], cnt [Gp + 1], ids [Sp] (the grid's; the local team's lie in
+// its shared memory).
+static long long explain_scratch_words(int Sp, int Ep, int Gp, int R) {
+  return (long long)R * Ep + 2LL * (Gp + 1) + Sp;
 }
 
+// ptrs: take_e, run_group, group_req, node_free, node_compat, node_zone,
+// node_ct, group_zone, group_ct, group_topo, group_aff, then one buffer: the
+// wire ([3 + Gp*(1+K)] int32, the output) followed by the scratch
+// (explain_scratch_words); ints: Sp, Ep, Gp, R, Z, C, K, e_count, g_count,
+// team (0: explain_team; EXPLAIN_LOCAL or EXPLAIN_GRID force one, for the
+// checks and the timing; a forced local team needs its layout to fit).
+int explain_pack_launch(void** p, int n, const int* d, void* stream) {
+  if (n != 12) return (int)cudaErrorInvalidValue;
+  const int Sp = d[0], Ep = d[1], Gp = d[2], R = d[3], Z = d[4], C = d[5], K = d[6];
+  int team = d[9];
+  if (Sp < 0 || Ep < 0 || Gp < 1 || R < 0 || R > MAX_R || Z < 1 || C < 1 || K < 1 ||
+      (team != 0 && team != EXPLAIN_LOCAL && team != EXPLAIN_GRID) ||
+      (team == EXPLAIN_LOCAL && explain_local_words(Sp, Ep, Gp, R) > XS_WORDS))
+    return (int)cudaErrorInvalidValue;
+  if (team == 0) team = explain_team(Sp, Ep, Gp, R);
+  ExplainFit f;
+  cudaError_t e = explain_fit(f);
+  if (e != cudaSuccess) return (int)e;
+  if (f.per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const ExplainPlan pl = explain_plan(Sp, Ep, Gp, R, d[7], team, f.per_sm, f.sms);
+  ExplainArgs a;
+  a.take_e = (const int*)p[0];
+  a.run_group = (const int*)p[1];
+  a.group_req = (const int*)p[2];
+  a.node_free = (const int*)p[3];
+  a.node_compat = (const unsigned char*)p[4];
+  a.node_zone = (const int*)p[5];
+  a.node_ct = (const int*)p[6];
+  a.group_zone = (const unsigned char*)p[7];
+  a.group_ct = (const unsigned char*)p[8];
+  a.group_topo = (const unsigned char*)p[9];
+  a.group_aff = (const unsigned char*)p[10];
+  a.out = (int*)p[11];
+  a.ff = a.out + 3 + (size_t)Gp * (1 + K);
+  a.off = a.ff + (size_t)R * Ep;
+  a.cnt = a.off + Gp + 1;
+  a.ids = a.cnt + Gp + 1;
+  a.Sp = Sp, a.Ep = Ep, a.Gp = Gp, a.R = R, a.Z = Z, a.C = C, a.K = K;
+  a.e_count = d[7], a.g_count = d[8];
+  a.sw = pl.sw, a.tw = pl.tw, a.nseg = pl.nseg, a.chunk = pl.chunk, a.tiles = pl.tiles;
+  a.vec = (Ep & 3) == 0 && ((uintptr_t)a.take_e & 15) == 0 && ((uintptr_t)a.node_compat & 3) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (team == EXPLAIN_LOCAL) {
+    explain_kernel<false><<<pl.grid, XT, XS_BYTES, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)explain_kernel<true>, pl.grid, XT, args, XS_BYTES,
+                                  st);
+  cudaGetLastError();  // clear the launch's error state; e carries it
+  return (int)e;
+}
+
+// Host query for ints Sp, Ep, Gp, R, e_count, team (0: explain_team): writes
+// into the int64 host buffer ptrs[0] the team, the grid (CTAs), threads a
+// CTA, CTAs a multiprocessor (the grid instance's occupancy), the
+// multiprocessors, the strip width and the strip team's warps (the grid's
+// phase A; 0 for the local team), the segments a group, the staged chunk's
+// columns, the strips, the group tiles, the dynamic shared bytes a CTA, the
+// scratch words and the local team's shared words.
+int explain_info(void** p, int n, const int* d, void* stream) {
+  (void)stream;
+  if (n != 1) return (int)cudaErrorInvalidValue;
+  const int Sp = d[0], Ep = d[1], Gp = d[2], R = d[3];
+  int team = d[5];
+  if (Sp < 0 || Ep < 0 || Gp < 1 || R < 0 || R > MAX_R ||
+      (team != 0 && team != EXPLAIN_LOCAL && team != EXPLAIN_GRID))
+    return (int)cudaErrorInvalidValue;
+  if (team == 0) team = explain_team(Sp, Ep, Gp, R);
+  ExplainFit f;
+  const cudaError_t e = explain_fit(f);
+  if (e != cudaSuccess) return (int)e;
+  const ExplainPlan pl = explain_plan(Sp, Ep, Gp, R, d[4], team, f.per_sm, f.sms);
+  long long* out = (long long*)p[0];
+  out[0] = team;
+  out[1] = pl.grid;
+  out[2] = XT;
+  out[3] = f.per_sm;
+  out[4] = f.sms;
+  out[5] = pl.sw;
+  out[6] = pl.tw;
+  out[7] = pl.nseg;
+  out[8] = pl.chunk;
+  out[9] = pl.strips;
+  out[10] = pl.tiles;
+  out[11] = XS_BYTES;
+  out[12] = explain_scratch_words(Sp, Ep, Gp, R);
+  out[13] = explain_local_words(Sp, Ep, Gp, R);
+  return (int)cudaSuccess;
+}
 }  // extern "C"

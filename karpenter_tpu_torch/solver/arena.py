@@ -404,7 +404,6 @@ class ArgumentArena:
         declines and lets adopt pay the normal upload; the new host pair is
         recorded either way so the NEXT solve can stage."""
         from . import encode_cache
-        from .convert import array_to_torch
         from .cuda import ffd
 
         if sharding is not None:
@@ -440,9 +439,11 @@ class ArgumentArena:
             pad = np.zeros((k2 - k, events.shape[1]), dtype=events.dtype)
             pad[:, 0] = ffd.EVENT_PAD_POS
             events = np.concatenate([events, pad])
-        dev_ev = array_to_torch(events, self.device)
+        # the host rows go to K14 as they are: up to ffd.EVENT_PARAM_ROWS they
+        # cross inside the launch's parameters (no event tensor, no copy),
+        # so the ledger counts the same bytes and message as a copy would
         self.ledger.record_upload(events.nbytes, 1, msgs=1)
-        dev[0], dev[1] = ffd.ffd_apply_events(dev[0], dev[1], dev_ev)
+        dev[0], dev[1] = ffd.ffd_apply_events(dev[0], dev[1], events)
         homes = self._homes.get(key)
         if homes is not None:
             homes[0] = homes[1] = (None,)
@@ -457,7 +458,8 @@ class ArgumentArena:
 
     def block_bytes(self, key: tuple) -> int:
         """Bytes the bucket's unpack blocks hold, and its tensors outside
-        any block (K14's run tables)."""
+        any block (K14's run tables: the two rows of its one [2, Sp]
+        allocation, whose bytes their sizes count once)."""
         bkt, homes = self._buckets.get(key), self._homes.get(key)
         if bkt is None or homes is None:
             return 0

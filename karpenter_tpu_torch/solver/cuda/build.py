@@ -42,9 +42,10 @@ INCLUDES = {"ffd_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_lanes_sparse_kernels": (SOURCES["ffd_kernels"],),
             "ffd_batched_kernels": (SOURCES["ffd_kernels"],)}
 # the launchers each library exports, all (void** ptrs, int n, const int* dims, void* stream)
-# (the *_rows_budget queries, the four *cluster_info queries, ffd_batched_info and
-# admm_info take the same arguments; the budgets ignore them, the cluster queries,
-# ffd_batched_info and admm_info write into the host buffer ptrs[0]; the lanes' cluster
+# (the *_rows_budget queries, the four *cluster_info queries, ffd_batched_info,
+# admm_info and explain_info take the same arguments; the budgets ignore them, the
+# cluster queries, ffd_batched_info, admm_info and explain_info write into the host
+# buffer ptrs[0]; the lanes' cluster
 # queries read B from dims[0], ffd_batched_info its rows' bytes from dims[0:2])
 LAUNCHERS = {
     "ffd_kernels": ("ffd_scan_launch", "pack_delta_launch", "mask_words_launch",
@@ -60,7 +61,7 @@ LAUNCHERS = {
     "ffd_batched_kernels": ("ffd_batched_launch", "ffd_batched_rows_budget", "ffd_batched_info"),
     "arena_kernels": ("arena_unpack_launch", "apply_events_launch", "pad_lanes_launch"),
     "class_kernels": ("gang_commit_launch", "preemption_plan_launch", "preemption_walk_launch",
-                      "block_barrier_launch", "explain_pack_launch"),
+                      "block_barrier_launch", "explain_pack_launch", "explain_info"),
     "convex_kernels": ("admm_pack_launch", "admm_info"),
 }
 # flags of one library besides NVCC_FLAGS: K13 keeps the JAX expression

@@ -205,6 +205,9 @@ class LadderOutput(NamedTuple):
 # the scatter. Equal to the JAX package's (tests/test_torch_isolation.py).
 EVENT_ENTRY_WORDS = 3  # (pos, gid, cnt) int32 per run edit
 EVENT_PAD_POS = -1  # padding rows scatter out of range and are dropped
+# host edit rows that ride in K14's launch parameters (csrc/arena_kernels.cu
+# EV_PARAM_ROWS: 3 KB of the 4 KB parameter space); more are copied first
+EVENT_PARAM_ROWS = 256
 
 # Mesh-sharded solve (ffd_solve_sharded): the padded run axis Sp is always a
 # multiple of this (backend.host_kernel_args buckets S with mult=floor=16), so
@@ -2485,47 +2488,96 @@ def ffd_solve_sharded_sparse(run_q_idx, run_v_idx, run_group, run_count, *shared
                                    zone_engine=zone_engine, sparse=(run_q_idx, run_v_idx))
 
 
+def _event_rows(events, device) -> torch.Tensor:
+    """The [K, 3] edit rows as an int32 tensor on `device` (a host numpy
+    array, as arena.apply_run_events holds them, or a tensor)."""
+    if not isinstance(events, torch.Tensor):
+        events = torch.from_numpy(np.ascontiguousarray(events, dtype=np.int32))
+    return events.to(device=device, dtype=I32)
+
+
 def ffd_apply_events_plain(run_group, run_count, events):
     """Plain version of the JAX `ffd_apply_events`: the [K, 3] (pos, gid,
-    cnt) rows scattered into copies of the [Sp] run tables, rows whose pos
-    lies outside [0, Sp) (EVENT_PAD_POS padding included) dropped, as the
-    JAX docstring says (its scatter wraps a negative position as a NumPy
-    index first: ROADMAP §C.9). Returns the new (run_group, run_count);
-    the inputs are not written."""
-    rg, rc = run_group.clone(), run_count.clone()
-    pos = events[:, 0].long()
-    keep = (pos >= 0) & (pos < rg.shape[0])
-    rg[pos[keep]] = events[keep, 1].to(rg.dtype)
-    rc[pos[keep]] = events[keep, 2].to(rc.dtype)
-    return rg, rc
+    cnt) rows (a tensor or a host numpy array) scattered into a copy of the
+    [Sp] run tables, rows whose pos lies outside [0, Sp) (EVENT_PAD_POS
+    padding included) dropped, as the JAX docstring says (its scatter wraps
+    a negative position as a NumPy index first: ROADMAP §C.9). Returns the
+    new (run_group, run_count) as the two rows of one [2, Sp] tensor, as K14
+    does; the inputs are not written."""
+    out = torch.stack([run_group, run_count])
+    ev = _event_rows(events, out.device)
+    pos = ev[:, 0].long()
+    keep = (pos >= 0) & (pos < out.shape[1])
+    out[0, pos[keep]] = ev[keep, 1].to(out.dtype)
+    out[1, pos[keep]] = ev[keep, 2].to(out.dtype)
+    return out[0], out[1]
+
+
+def event_param_table(Sp: int, host_ev: np.ndarray) -> np.ndarray:
+    """apply_events_launch's int table for host rows: Sp, K, then the K
+    (pos, gid, cnt) rows back to back, which the launcher copies into the
+    kernel's parameters (at most EVENT_PARAM_ROWS rows)."""
+    K = int(host_ev.shape[0])
+    if K > EVENT_PARAM_ROWS:
+        raise ValueError(f"apply_events: {K} host rows past the parameter table's "
+                         f"{EVENT_PARAM_ROWS}")
+    dims = np.empty((2 + EVENT_ENTRY_WORDS * K,), dtype=np.int32)
+    dims[0], dims[1] = Sp, K
+    dims[2:] = host_ev.reshape(-1)
+    return dims
+
+
+def _events_launch_args(run_group, run_count, out, host_ev, dev_ev) -> tuple:
+    """apply_events_launch's arguments: the pair, the [2, Sp] result and the
+    rows on the card (dev_ev), or null and the host rows `host_ev` in the
+    int table (event_param_table): the launch carries them."""
+    Sp = int(run_group.shape[0])
+    ptrs = (ctypes.c_void_p * 4)(run_group.data_ptr(), run_count.data_ptr(), out.data_ptr(),
+                                 None if dev_ev is None else dev_ev.data_ptr())
+    if dev_ev is not None:
+        return ptrs, 4, _ints([Sp, dev_ev.shape[0]]), _stream()
+    dims = event_param_table(Sp, host_ev)
+    return ptrs, 4, (ctypes.c_int * dims.shape[0]).from_buffer(dims), _stream()
 
 
 def _apply_events_cuda(run_group, run_count, events):
-    """K14 (csrc/arena_kernels.cu): the pair copied into new tensors, then
-    one thread per event row."""
+    """K14 (csrc/arena_kernels.cu): one launch into one [2, Sp] allocation,
+    returned as its two rows. Host rows (a numpy array or a CPU tensor) up
+    to EVENT_PARAM_ROWS ride in the launch's parameters; more are copied to
+    the card first; rows already on the card are read there."""
     from .build import load
 
     Sp = int(run_group.shape[0]) if run_group.dim() == 1 else -1
     _check(run_group, "run_group", I32, (Sp,))
     _check(run_count, "run_count", I32, (Sp,))
-    _check(events, "events", I32)
-    if events.dim() != 2 or events.shape[1] != EVENT_ENTRY_WORDS:
-        raise ValueError(f"apply_events: events must be [K, {EVENT_ENTRY_WORDS}], "
-                         f"got {tuple(events.shape)}")
-    rg, rc = torch.empty_like(run_group), torch.empty_like(run_count)
+    host_ev = dev_ev = None
+    if isinstance(events, torch.Tensor) and events.is_cuda:
+        _check(events, "events", I32)
+        dev_ev = events
+    else:
+        host_ev = events.numpy() if isinstance(events, torch.Tensor) else np.asarray(events)
+        if host_ev.dtype != np.int32:
+            raise ValueError(f"events: expected int32, got {host_ev.dtype}")
+        host_ev = np.ascontiguousarray(host_ev)
+    shape = tuple((dev_ev if dev_ev is not None else host_ev).shape)
+    if len(shape) != 2 or shape[1] != EVENT_ENTRY_WORDS:
+        raise ValueError(f"apply_events: events must be [K, {EVENT_ENTRY_WORDS}], got {shape}")
+    if host_ev is not None and shape[0] > EVENT_PARAM_ROWS:
+        dev_ev, host_ev = torch.from_numpy(host_ev).to(run_group.device), None
+    out = torch.empty((2, Sp), dtype=I32, device=run_group.device)
     rc_ = load("arena_kernels").apply_events_launch(
-        _ptrs([run_group, run_count, events, rg, rc]), 5, _ints([Sp, events.shape[0]]),
-        _stream())
+        *_events_launch_args(run_group, run_count, out, host_ev, dev_ev))
     _raise_on(rc_, "apply_events")
     LAUNCHES["apply_events"] += 1
-    return rg, rc
+    return out[0], out[1]
 
 
 def ffd_apply_events(run_group, run_count, events):
-    """Scatter an event batch into the resident run tables (ARG_SPEC
-    entries 0 and 1): K14 for CUDA tensors, the plain version for CPU
-    ones. Returns the edited pair as new tensors; the caller swaps the
-    arena's resident tensors for them."""
+    """Scatter an event batch (a tensor, or host numpy rows) into the
+    resident run tables (ARG_SPEC entries 0 and 1): K14 for CUDA tensors,
+    the plain version for CPU ones. Returns the edited pair as the two rows
+    of one new [2, Sp] tensor; the caller swaps the arena's resident tensors
+    for them."""
     if run_group.is_cuda:
         return _apply_events_cuda(run_group, run_count, events)
     return ffd_apply_events_plain(run_group, run_count, events)
@@ -2899,16 +2951,89 @@ def walk_ctas(E: int) -> int:
     return 1 if E <= WALK_BLOCK_ROWS else WALK_CLUSTER
 
 
+# K12's teams (csrc/class_kernels.cu explain_team): the local team (every
+# CTA of 256 threads sums the take table's counted columns itself, with the
+# placed counts of its own groups, so no barrier spans CTAs) while Sp * Ep is at most EXPLAIN_LOCAL_CELLS, Gp at
+# most EXPLAIN_LOCAL_GROUPS and its layout (explain_local_words) fits a CTA's
+# EXPLAIN_SMEM_WORDS, else one cooperative launch over the card (the
+# occupancy query's CTAs at most)
+EXPLAIN_LOCAL = 1
+EXPLAIN_GRID = 2
+EXPLAIN_LOCAL_CELLS = 16384
+EXPLAIN_LOCAL_GROUPS = 256
+EXPLAIN_SMEM_WORDS = 12288
+EXPLAIN_TILE_GROUPS = 8  # the most groups a CTA's tile holds (its warps)
+_EXPLAIN_INFO_KEYS = ("team", "grid", "threads", "ctas_per_sm", "sms", "strip_cols",
+                      "strip_warps", "segments", "chunk_cols", "strips", "tiles",
+                      "smem_bytes", "scratch_words", "local_words")
+
+
+def explain_local_words(Sp: int, Ep: int, Gp: int, R: int) -> int:
+    """The local team's shared words, its tile at EXPLAIN_TILE_GROUPS
+    groups: the staged free table, node_zone, node_ct and the tile's placed
+    rows over at least 32 columns (a multiple of 32), the staged run_group
+    [Sp] and group_req [Gp, R]."""
+    cols = max(32, -(-Ep // 32) * 32)
+    return (R + 2 + EXPLAIN_TILE_GROUPS) * cols + Sp + Gp * R
+
+
+def explain_team(Sp: int, Ep: int, Gp: int, R: int) -> int:
+    """The team K12 takes for a [Sp, Ep] take table, Gp groups and R
+    resources (the launcher's explain_team)."""
+    local = (Sp * Ep <= EXPLAIN_LOCAL_CELLS and Gp <= EXPLAIN_LOCAL_GROUPS
+             and explain_local_words(Sp, Ep, Gp, R) <= EXPLAIN_SMEM_WORDS)
+    return EXPLAIN_LOCAL if local else EXPLAIN_GRID
+
+
+def explain_teams(Sp: int, Ep: int, Gp: int, R: int) -> tuple:
+    """The teams a K12 launch can be forced to at this shape: the grid
+    always, the local team where its layout fits."""
+    fits = explain_local_words(Sp, Ep, Gp, R) <= EXPLAIN_SMEM_WORDS
+    return (EXPLAIN_LOCAL, EXPLAIN_GRID) if fits else (EXPLAIN_GRID,)
+
+
+def explain_scratch_words(Sp: int, Ep: int, Gp: int, R: int) -> int:
+    """K12's scratch after the wire, in int32 words: the final free table
+    [R, Ep], the groups' run offsets and the sort's counters (Gp + 1 each)
+    and the run ids [Sp]."""
+    return R * Ep + 2 * (Gp + 1) + Sp
+
+
+def explain_team_info(Sp: int, Ep: int, Gp: int, R: int, e_count: int | None = None,
+                      team: int = 0) -> dict:
+    """The shape of a K12 launch on the current card (csrc/class_kernels.cu
+    explain_info): team, grid, CTAs a multiprocessor, the strips of the
+    grid's phase A, the segments a group and the staged chunk of phase B,
+    the grid's scratch and the local team's shared words."""
+    from .build import load
+
+    buf = (ctypes.c_longlong * len(_EXPLAIN_INFO_KEYS))()
+    rc = load("class_kernels").explain_info(
+        (ctypes.c_void_p * 1)(ctypes.addressof(buf)), 1,
+        _ints([Sp, Ep, Gp, R, Ep if e_count is None else e_count, team]), None)
+    _raise_on(rc, "explain_info")
+    return dict(zip(_EXPLAIN_INFO_KEYS, (int(v) for v in buf)))
+
+
 def _explain_pack_cuda(take_e, run_group, group_req, node_free, node_compat, node_zone,
                        node_ct, group_zone, group_ct, group_topo, group_aff, e_count,
-                       g_count, *, top_k: int):
+                       g_count, *, top_k: int, team: int = 0):
+    """K12 (csrc/class_kernels.cu explain_kernel): one launch; one
+    allocation holds the wire and the scratch after it, and the wire is
+    returned as a view. `team` 0 takes the launcher's rule (explain_team);
+    EXPLAIN_LOCAL (where explain_teams holds it) or EXPLAIN_GRID force one,
+    for the checks and the timing."""
     from .build import load
 
     Sp, Ep = take_e.shape
     Gp, R = group_req.shape
     Z, C = group_zone.shape[1], group_ct.shape[1]
-    if Gp < 1 or Z < 1 or C < 1 or top_k < 1:
-        raise ValueError(f"explain_pack: Gp={Gp}, Z={Z}, C={C} and top_k={top_k} must be >= 1")
+    if Gp < 1 or Z < 1 or C < 1 or top_k < 1 or R > MAX_R:
+        raise ValueError(f"explain_pack: Gp={Gp}, Z={Z}, C={C} and top_k={top_k} must be >= 1 "
+                         f"and R={R} at most {MAX_R}")
+    if team != 0 and team not in explain_teams(Sp, Ep, Gp, R):
+        raise ValueError(f"explain_pack: team={team} not 0 or one of "
+                         f"{explain_teams(Sp, Ep, Gp, R)} at Sp={Sp}, Ep={Ep}, Gp={Gp}, R={R}")
     for t, n, dt, sh in ((take_e, "take_e", I32, (Sp, Ep)), (run_group, "run_group", I32, (Sp,)),
                          (group_req, "group_req", I32, (Gp, R)),
                          (node_free, "node_free", I32, (Ep, R)),
@@ -2919,16 +3044,17 @@ def _explain_pack_cuda(take_e, run_group, group_req, node_free, node_compat, nod
                          (group_topo, "group_topo", torch.bool, (Gp,)),
                          (group_aff, "group_aff", torch.bool, (Gp,))):
         _check(t, n, dt, sh)
-    dev = take_e.device
-    out = torch.empty((explain_words(Gp, top_k),), dtype=I32, device=dev)
-    scratch = torch.empty((max(1, Gp * Ep + Ep * R),), dtype=I32, device=dev)
+    words = explain_words(Gp, top_k)
+    buf = torch.empty((words + explain_scratch_words(Sp, Ep, Gp, R),), dtype=I32,
+                      device=take_e.device)
     ptrs = [take_e, run_group, group_req, node_free, node_compat, node_zone, node_ct,
-            group_zone, group_ct, group_topo, group_aff, out, scratch]
+            group_zone, group_ct, group_topo, group_aff, buf]
     rc = load("class_kernels").explain_pack_launch(
-        _ptrs(ptrs), len(ptrs), _ints([Sp, Ep, Gp, R, Z, C, top_k, e_count, g_count]), _stream())
+        _ptrs(ptrs), len(ptrs), _ints([Sp, Ep, Gp, R, Z, C, top_k, e_count, g_count, team]),
+        _stream())
     _raise_on(rc, "explain_pack")
     LAUNCHES["explain_pack"] += 1
-    return out
+    return buf[:words]
 
 
 def gang_commit(run_placed, run_gang, gang_size, gang_min_ranks):

@@ -25,6 +25,7 @@
 import dataclasses
 import random
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -50,6 +51,31 @@ from tests.test_torch_relax import to_port
 from tests.test_torch_solver import as_data, build, pod
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def lanes_split_on_one_device(monkeypatch):
+    """The JAX reference's fused output (`parallel/sharded.batched_solve`,
+    sharded over tests/conftest.py's 8 host devices) is fetched and put on
+    one device before its backend splits it into lanes.
+
+    Split on the mesh, each `a[k]` of each output leaf is an 8-device
+    program with an all-reduce, dispatched back to back with the others;
+    XLA's CPU collectives wait 40 s for all 8 participants of one program
+    and then abort the process. On a loaded host (pytest-xdist workers on
+    every core) the participants of the programs in flight starve each
+    other of the client's threads, and a worker died in these tests (and in
+    tests/test_cohort.py's, which share the programs). Gathered on one
+    device, the split runs no collective. The fused solve, its values and
+    every count this module compares stay as they were."""
+    real = jsharded.batched_solve
+
+    def gathered(mesh, args, **kw):
+        out = real(mesh, args, **kw)
+        return jax.device_put(jax.device_get(out), jax.devices()[0])
+
+    monkeypatch.setattr(jsharded, "batched_solve", gathered)
+    yield
 
 
 # ------------------------------------------------------------ K16: pad_batch
